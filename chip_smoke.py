@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Chip smoke for the PyTorch/CUDA port: build the kernels, hold each one
 against its plain PyTorch version at the flagship widths, drive the main
-path (flagship sampling) through the normal entry points, and report.
+paths (flagship sampling, then flagship training) through the normal entry
+points, and report.
 
 Run from the root of a checkout, on a machine with one CUDA card:
 
@@ -9,20 +10,32 @@ Run from the root of a checkout, on a machine with one CUDA card:
 
 Phases (each prints its result on its own line; any failure raises and the
 script exits non-zero without a result line):
-  1. the card's name and power limit; build every kernel with nvcc (sm_90a);
+  1. the card's name and power limit; build every kernel with nvcc (sm_90a),
+     all sources at once, and print ptxas' register and spill lines;
   2. kernel vs plain version at K=32, H=128, dz=128, B=8, N=2048 and a
      ragged N=2000: f32 and bf16 for fused_inverse, bf16 for fused_sample
      against the plain inverse of the noise it drew, noise moments at
-     tau=1 and 1.1, and same-seed determinism;
-  3. the main path at full width (configs/flagship_quality_v3_aug_100k.yaml,
+     tau=1 and 1.1, and same-seed determinism; then the training kernels in
+     f32 and bf16: fused_train forward (u, log-det) and backward (dx, dhz,
+     every weight gradient), fused_encoder forward and backward (encoder
+     128/128/256/512, a cloud of duplicated points and a dead feature), each
+     backward run twice and required bit-identical;
+  3. the sampling path at full width (configs/flagship_quality_v3_aug_100k.yaml,
      random seeded weights): dpfx_torch.generate.main for 64 clouds, the
      timed make_sampler(64, 2048), make_decoder and DPF.reconstruct on
      Gaussian-blob clouds; launch counts are zeroed just before and read
      just after;
+  3b. the training path at full width: dpfx_torch.train's CLI for 30 steps of
+     B=64 x N=2048 (data.synthetic_size cut to 512 clouds to bound host data
+     generation), launch counts zeroed just before and read just after; every
+     logged loss and grad norm finite, no step skipped, the params moved, and
+     the saved checkpoint sampled by dpfx_torch.generate; then the train
+     step's time (CUDA events, batches on the card) and one fused step
+     against the module path on the same batch and noise;
   4. one JSON line with every kernel's error, time, plain time and bound
-     at the main path's shapes (B=64, N=2048, bf16);
-  5. a torch.profiler breakdown of make_sampler(64, 2048): device-busy
-     time, idle share and the kernels that take the time;
+     at the main paths' shapes (B=64, N=2048, bf16);
+  5. torch.profiler breakdowns of make_sampler(64, 2048) and of 5 train
+     steps: device-busy time, idle share and the kernels that take the time;
   6. the card line again, then the last line: {"ok": true, "device": {...}}.
 It needs no network and starts no process that outlives it (nvcc and
 nvidia-smi are waited for).
@@ -52,6 +65,20 @@ PEAK_BYTES = 3.35e12
 TOL_F32 = 1e-4
 TOL_BF16_MAX = 5e-2
 TOL_BF16_P999 = 2e-3
+# training kernels: relative norm error of each gradient tensor (and of the
+# pooled feature and log-det). f32: IEEE sums in other orders, and tanh/exp
+# whose device and torch versions differ in the last ulp, carried through 32
+# layers of dy *= exp(s) and of inputs rebuilt from outputs (seen: 1.1e-4 on
+# dx, <6e-5 elsewhere). bf16: one flipped rounding of a hidden unit or of a
+# max-pool argmax moves a few entries; the bracket that
+# tests/test_fused_train.py allows bf16 against flax is 5%.
+TOL_GRAD_F32 = 1e-3
+TOL_GRAD_BF16 = 2e-2
+# whole fused step against the module path (bf16 rounds at other places in
+# the two): the bracket of tests/test_fused_train.py:192-231
+TOL_STEP_LOSS = 2e-2
+TOL_STEP_GNORM = 5e-2
+TRAIN_STEPS = 30
 
 
 def check(cond: bool, what: str) -> None:
@@ -99,7 +126,44 @@ def bound(sp, b: int, n: int, with_ut: bool):
     return max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes"), flops
 
 
+def bound_of(flops: float, nbytes: float):
+    t_ops, t_bytes = flops / PEAK_BF16_FLOPS * 1e3, nbytes / PEAK_BYTES * 1e3
+    return max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes")
+
+
+def train_bounds(sp, b: int, n: int):
+    """Forward and backward of the fused point flow: FLOP of the products
+    (the backward recomputes the conditioner, then the cotangent and weight
+    products: 2(27H + 3(n_hidden-1)H^2) per point and layer) and the bytes
+    of their inputs and outputs (bf16 weights, f32 gradients)."""
+    k, h, _ = sp.wx.shape
+    nh1 = sp.wh.shape[1]
+    nw = k * (3 * h + nh1 * h * h + 6 * h)
+    small = 4 * k * (nh1 * h + 6 + 3)
+    fwd = bound_of(2.0 * b * n * k * (9 * h + nh1 * h * h),
+                   2 * 12 * b * n + 4 * b * k * h + 2 * nw + small + 4 * b)
+    bwd = bound_of(2.0 * b * n * k * (27 * h + 3 * nh1 * h * h),
+                   3 * 12 * b * n + 2 * 4 * b * k * h + 4 * b + 2 * nw + small
+                   + 4 * (nw + k * (nh1 * h + 6)))
+    return fwd, bwd
+
+
+def encoder_bounds(widths, b: int, n: int):
+    """Forward and backward of the fused PointNet MLP + max-pool (the
+    backward recomputes the chain, then the weight and cotangent products)."""
+    macs = sum(widths[i] * widths[i + 1] for i in range(len(widths) - 1))
+    nw, w = macs + sum(widths[1:]), widths[-1]
+    fwd = bound_of(2.0 * b * n * macs, 12 * b * n + 2 * nw + 2 * 4 * b * w)
+    bwd = bound_of(2.0 * b * n * 3 * macs, 2 * 12 * b * n + 2 * nw + 3 * 4 * b * w + 4 * nw)
+    return fwd, bwd
+
+
+def rel(a, b) -> float:
+    return float((a.float() - b.float()).norm() / b.float().norm().clamp_min(1e-30))
+
+
 def main() -> int:
+    import numpy as np
     import torch
 
     if not torch.cuda.is_available():
@@ -111,10 +175,13 @@ def main() -> int:
     from dpfx_torch.config import load_config
     from dpfx_torch.models import DPF
     from dpfx_torch.ops import _build
+    from dpfx_torch.ops import fused_encoder as fe
     from dpfx_torch.ops import fused_sampler as fs
+    from dpfx_torch.ops import fused_train as ft
     from dpfx_torch.sampling import make_decoder, make_sampler
 
     dev = torch.device("cuda")
+    torch.manual_seed(0)     # the modules' own init: every run sees the same weights
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     card = card_line()
@@ -125,9 +192,10 @@ def main() -> int:
     built = _build.build_all(force=True)
     print(f"build: {json.dumps({k: round(v, 2) for k, v in built.items()})} "
           f"total {time.perf_counter() - t0:.2f}s")
-    for line in _build.ptxas_log("fused_sampler").splitlines():
-        if "Used" in line or "spill" in line:
-            print(f"ptxas: {line.strip()}")
+    for name in _build.sources():
+        for line in _build.ptxas_log(name).splitlines():
+            if "Used" in line or "spill" in line:
+                print(f"ptxas {name}: {line.strip()}")
 
     # ---- 2. kernel vs plain at flagship widths
     cfg = load_config(str(CONFIG))
@@ -178,6 +246,67 @@ def main() -> int:
             check(torch.equal(x, x2), "same seed gives the same clouds")
             check(not torch.equal(x, x3), "another seed gives other clouds")
 
+    # ---- 2b. the training kernels vs their plain versions at flagship widths
+    tw = (sp.wx, sp.wh, sp.bh, sp.wout, sp.bout, sp.masks, sp.scale_cap)
+    enc = model.encoder
+    ews = [getattr(enc, f"point_{i}").weight.detach().clone() for i in range(enc.n_point)]
+    ebs = [getattr(enc, f"point_{i}").bias.detach().clone() for i in range(enc.n_point)]
+    ebs[-1][3] = -100.0          # a dead feature: its pooled max is 0
+    widths = [3] + [int(w.shape[0]) for w in ews]
+    check(widths == [3, 128, 128, 256, 512], f"flagship encoder widths, got {widths}")
+    grad_names = ["dx", "dhz", "dwx", "dwh", "dbh", "dwout", "dbout"]
+    for n in (2048, 2000):
+        xt = torch.randn((8, 3, n), generator=g, device=dev)
+        hz = fs.z_projection(sp, torch.randn((8, cfg.model.dz), generator=g, device=dev))
+        xc = torch.randn((8, n, 3), generator=g, device=dev)
+        xc[0, n // 2:] = xc[0, : n - n // 2].clone()     # duplicated points: max-pool ties
+        for dtype in (torch.float32, torch.bfloat16):
+            f32 = dtype == torch.float32
+            tol = TOL_GRAD_F32 if f32 else TOL_GRAD_BF16
+            u, ld = ft.fused_forward_kernel(*tw, xt, hz, dtype)
+            u_p, ld_p = ft.fused_forward_plain(*tw, xt, hz, dtype)
+            du = torch.randn(u.shape, generator=g, device=dev)
+            dld = torch.randn(ld.shape, generator=g, device=dev)
+            got = ft.fused_backward_kernel(*tw, u_p, hz, du, dld, dtype)
+            again = ft.fused_backward_kernel(*tw, u_p, hz, du, dld, dtype)
+            ref = ft.fused_backward_plain(*tw, u_p, hz, du, dld, dtype)
+            torch.cuda.synchronize()
+            emax, e999 = errors(u, u_p)
+            gerr = {nm: rel(a, b) for nm, a, b in zip(grad_names, got, ref)}
+            print(f"kernel-vs-plain fused_train N={n} {dtype}: u max_abs={emax:.3e} "
+                  f"p99.9={e999:.3e} (|u|max={float(u_p.abs().max()):.2f}); log-det rel "
+                  f"{rel(ld, ld_p):.3e}; grad rel " + " ".join(f"{k}={v:.2e}" for k, v in gerr.items()))
+            check(all(torch.equal(a, c) for a, c in zip(got, again)),
+                  f"fused_train backward bit-identical from run to run N={n} {dtype}")
+            if f32:
+                check(emax <= TOL_F32, f"fused_train forward f32 N={n}: {emax}")
+            else:
+                check(emax <= TOL_BF16_MAX and e999 <= TOL_BF16_P999,
+                      f"fused_train forward bf16 N={n}: max {emax}, p99.9 {e999}")
+            check(rel(ld, ld_p) <= tol and max(gerr.values()) <= tol,
+                  f"fused_train N={n} {dtype}: log-det {rel(ld, ld_p)}, grads {gerr}")
+
+            pk, ck = fe.pool_forward_kernel(ews, ebs, xc, dtype)
+            pp, cp = fe.pool_forward_plain(ews, ebs, xc, dtype)
+            dg = torch.randn(pk.shape, generator=g, device=dev)
+            got = fe.pool_backward_kernel(ews, ebs, xc, pk, ck, dg, dtype)
+            again = fe.pool_backward_kernel(ews, ebs, xc, pk, ck, dg, dtype)
+            ref = fe.pool_backward_plain(ews, ebs, xc, pp, cp, dg, dtype)
+            torch.cuda.synchronize()
+            flat = lambda r: [r[0]] + list(r[1]) + list(r[2])
+            names = ["dx"] + [f"dW{i}" for i in range(4)] + [f"db{i}" for i in range(4)]
+            eerr = {nm: rel(a, b) for nm, a, b in zip(names, flat(got), flat(ref))}
+            print(f"kernel-vs-plain fused_encoder N={n} {dtype}: pooled rel {rel(pk, pp):.3e} "
+                  f"(ties in cloud 0: {float((ck[0] > 1).float().mean()):.2f} of the features; "
+                  f"dead feature pooled {float(pk[:, 3].abs().max())}); grad rel "
+                  + " ".join(f"{k}={v:.2e}" for k, v in eerr.items()))
+            check(all(torch.equal(a, c) for a, c in zip(flat(got), flat(again))),
+                  f"fused_encoder backward bit-identical from run to run N={n} {dtype}")
+            check(float(pk[:, 3].abs().max()) == 0.0 and float(got[2][3][3].abs()) == 0.0,
+                  "the dead feature pools 0 and takes no gradient")
+            check(rel(pk, pp) <= tol and max(eerr.values()) <= tol,
+                  f"fused_encoder N={n} {dtype}: pooled {rel(pk, pp)}, grads {eerr}")
+
     # ---- 3. the main path at full width
     WORK.mkdir(parents=True, exist_ok=True)
     weights, samples = WORK / "flagship_random.pt", WORK / "samples.npy"
@@ -198,8 +327,6 @@ def main() -> int:
     torch.cuda.synchronize()
     main_launches = dict(fs.launches)
 
-    import numpy as np
-
     gen = np.load(samples)
     check(rc == 0 and gen.shape == (64, 2048, 3) and bool(np.isfinite(gen).all()),
           f"generate output {gen.shape}")
@@ -211,6 +338,106 @@ def main() -> int:
     print(f"main path: launches {json.dumps(main_launches)}; make_sampler(64, 2048) "
           f"{sample_ms:.3f} ms/batch, {64 / sample_ms * 1e3:,.1f} clouds/s, "
           f"{64 * 2048 / sample_ms * 1e3:,.0f} points/s; sample std {float(clouds.std()):.3f}")
+
+    # ---- 3b. the training path at full width (dpfx_torch.train's CLI)
+    import copy
+    import shutil
+
+    from dpfx_torch.data import build_dataset, iterate_batches
+    from dpfx_torch.train import __main__ as train_cli
+    from dpfx_torch.train import trainer as trainer_mod
+
+    ckpt_dir = WORK / "train"
+    shutil.rmtree(ckpt_dir, ignore_errors=True)
+    init_weights: dict = {}
+    flax_init = trainer_mod.init_params_
+
+    def init_then_randomize(m, seed):
+        # seeded random weights with every coupling off the identity, as in
+        # phase 2: a check on identity couplings passes whatever the math
+        randomize_(flax_init(m, seed), seed, 0.02)
+        init_weights.update({kk: v.detach().clone() for kk, v in m.state_dict().items()})
+        return m
+
+    trainer_mod.init_params_ = init_then_randomize
+    for mod in (ft, fe):
+        mod.reset_launch_counts()
+    t0 = time.perf_counter()
+    try:
+        rc = train_cli.main([str(CONFIG), f"train.steps={TRAIN_STEPS}", "train.log_every=10",
+                             f"train.ckpt_every={TRAIN_STEPS}", f"train.ckpt_dir={ckpt_dir}",
+                             "data.synthetic_size=512"])
+    finally:
+        trainer_mod.init_params_ = flax_init
+    torch.cuda.synchronize()
+    train_wall = time.perf_counter() - t0
+    train_launches = {**ft.launches, **fe.launches}
+    run_dir = ckpt_dir / cfg.name
+    records = [json.loads(line) for line in (run_dir / "metrics.jsonl").read_text().splitlines()]
+    check(rc == 0 and [r["step"] for r in records] == [10, 20, 30], f"train records {records}")
+    check(all(np.isfinite(r["loss"]) and np.isfinite(r["grad_norm"]) for r in records),
+          "every logged loss and grad norm is finite")
+    check(all(r["nonfinite_skipped"] == 0 for r in records), "no step was skipped")
+    for kname, count in train_launches.items():
+        check(count > 0, f"kernel {kname} was not launched on the training path")
+    trained_pt = run_dir / f"params_{TRAIN_STEPS:08d}.pt"
+    trained = torch.load(trained_pt, map_location="cpu", weights_only=True)
+    moved = sum(not torch.equal(trained[kk], v) for kk, v in init_weights.items())
+    check(moved == len(init_weights), f"{moved} of {len(init_weights)} parameters moved")
+    trained_samples = WORK / "trained_samples.npy"
+    rc = generate.main([str(CONFIG), "--weights", str(trained_pt), "--n-clouds", "16",
+                        "--out", str(trained_samples), "--seed", "4"])
+    tclouds = np.load(trained_samples)
+    check(rc == 0 and tclouds.shape == (16, 2048, 3) and bool(np.isfinite(tclouds).all()),
+          f"clouds sampled from the trained checkpoint {tclouds.shape}")
+    print(f"training path: {TRAIN_STEPS} steps of 64 x 2048 in {train_wall:.1f} s wall "
+          f"(build, data and warm-up included); launches {json.dumps(train_launches)}; loss "
+          + ", ".join(f"{r['loss']:.1f}" for r in records) + "; grad norm "
+          + ", ".join(f"{r['grad_norm']:.1f}" for r in records) + "; points/s "
+          + ", ".join(f"{r['points_per_sec']:,.0f}" for r in records)
+          + f"; {moved} tensors moved; trained checkpoint sampled, std {float(tclouds.std()):.3f}")
+
+    # the train step alone, batches already on the card
+    dcfg = copy.deepcopy(cfg.data)
+    dcfg.synthetic_size = 512
+    batches = [{"x": torch.from_numpy(bt["x"]).to(dev)} for bt, _ in
+               zip(iterate_batches(build_dataset(dcfg, "train"), 64, 2048, seed=5), range(4))]
+    tmodel = randomize_(flax_init(DPF(cfg), 1), 1, 0.02).to(dev)
+    ref_model = copy.deepcopy(tmodel)
+    tx = trainer_mod.make_optimizer(cfg.train)
+    tstate = trainer_mod.init_state(tmodel, tx)
+    train_step = trainer_mod.make_train_step(tmodel, tx, cfg)
+    for i in range(3):
+        tstate, _ = train_step(tstate, batches[i % 4])
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    start.record()
+    for i in range(10):
+        tstate, tm = train_step(tstate, batches[i % 4])
+    end.record()
+    torch.cuda.synchronize()
+    step_ms = start.elapsed_time(end) / 10
+    print(f"train step at 64 x 2048 (fused point flow + fused encoder, bf16): {step_ms:.3f} "
+          f"ms/step, {64 * 2048 / step_ms * 1e3:,.0f} points/s ({card})")
+
+    # one fused step against the module path: same weights, batch and noise
+    mcfg = copy.deepcopy(cfg)
+    mcfg.train.fused_point_flow = mcfg.train.fused_encoder = False
+    fmodel = copy.deepcopy(ref_model)
+    gb = torch.Generator(device=dev).manual_seed(6)
+    batch = {"x": batches[0]["x"], "eps": torch.randn((64, cfg.model.dz), generator=gb, device=dev),
+             "xnoise": torch.randn((64, 2048, 3), generator=gb, device=dev)}
+    out = []
+    for m, c in ((fmodel, cfg), (ref_model, mcfg)):
+        txm = trainer_mod.make_optimizer(c.train)
+        _, mm = trainer_mod.make_train_step(m, txm, c)(trainer_mod.init_state(m, txm), batch)
+        out.append((float(mm["loss"]), float(mm["grad_norm"])))
+    (lf, gf), (lm, gm) = out
+    print(f"fused step vs module path: loss {lf:.4f} vs {lm:.4f} (rel {abs(lf - lm) / abs(lm):.2e}), "
+          f"grad norm {gf:.4f} vs {gm:.4f} (rel {abs(gf - gm) / abs(gm):.2e})")
+    check(abs(lf - lm) <= TOL_STEP_LOSS * abs(lm) and abs(gf - gm) <= TOL_STEP_GNORM * abs(gm),
+          "fused step agrees with the module path")
+    del fmodel, ref_model
 
     # ---- 4. per-kernel numbers at the main path's shapes (B=64, N=2048, bf16)
     b, n = 64, 2048
@@ -244,6 +471,52 @@ def main() -> int:
          "bound_by": by_smp, "library_ms": None},
     ]
     check(inv_err <= TOL_BF16_MAX and smp_err <= TOL_BF16_MAX, "B=64 kernel errors")
+
+    xt = torch.randn((b, 3, n), generator=g, device=dev)
+    u_k, _ = ft.fused_forward_kernel(*tw, xt, hz, bf)
+    u_p, _ = ft.fused_forward_plain(*tw, xt, hz, bf)
+    du = torch.randn(u_p.shape, generator=g, device=dev)
+    dld = torch.randn((b,), generator=g, device=dev)
+    maxerr = lambda xs, ys: max(float((p_ - q_).abs().max()) for p_, q_ in zip(xs, ys) if q_.numel())
+    tf_err = errors(u_k, u_p)[0]
+    tb_err = maxerr(ft.fused_backward_kernel(*tw, u_p, hz, du, dld, bf),
+                    ft.fused_backward_plain(*tw, u_p, hz, du, dld, bf))
+    tf_ms = cuda_ms(lambda: ft.fused_forward_kernel(*tw, xt, hz, bf), 20)
+    tb_ms = cuda_ms(lambda: ft.fused_backward_kernel(*tw, u_p, hz, du, dld, bf), 10)
+    tf_plain = cuda_ms(lambda: ft.fused_forward_plain(*tw, xt, hz, bf), 3, warmup=1)
+    tb_plain = cuda_ms(lambda: ft.fused_backward_plain(*tw, u_p, hz, du, dld, bf), 2, warmup=1)
+    ews = [getattr(enc, f"point_{i}").weight.detach() for i in range(enc.n_point)]
+    ebs = [getattr(enc, f"point_{i}").bias.detach() for i in range(enc.n_point)]
+    xc = batches[0]["x"]
+    pk, ck = fe.pool_forward_kernel(ews, ebs, xc, bf)
+    pp, cp = fe.pool_forward_plain(ews, ebs, xc, bf)
+    dg = torch.randn(pk.shape, generator=g, device=dev)
+    ef_err = float((pk - pp).abs().max())
+    flat = lambda r: [r[0]] + list(r[1]) + list(r[2])
+    eb_err = maxerr(flat(fe.pool_backward_kernel(ews, ebs, xc, pk, ck, dg, bf)),
+                    flat(fe.pool_backward_plain(ews, ebs, xc, pp, cp, dg, bf)))
+    ef_ms = cuda_ms(lambda: fe.pool_forward_kernel(ews, ebs, xc, bf), 20)
+    eb_ms = cuda_ms(lambda: fe.pool_backward_kernel(ews, ebs, xc, pk, ck, dg, bf), 10)
+    ef_plain = cuda_ms(lambda: fe.pool_forward_plain(ews, ebs, xc, bf), 3, warmup=1)
+    eb_plain = cuda_ms(lambda: fe.pool_backward_plain(ews, ebs, xc, pp, cp, dg, bf), 3, warmup=1)
+    (b_tf, by_tf), (b_tb, by_tb) = train_bounds(sp, b, n)
+    (b_ef, by_ef), (b_eb, by_eb) = encoder_bounds(widths, b, n)
+    tsrc, esrc = "dpfx_torch/ops/csrc/fused_train.cu", "dpfx_torch/ops/csrc/fused_encoder.cu"
+    for name, src, where, launched, err, ms, plain, bnd, by in (
+            ("fused_train_fwd", tsrc, "dpfx/ops/fused_train.py:131", train_launches["fused_train_fwd"],
+             tf_err, tf_ms, tf_plain, b_tf, by_tf),
+            ("fused_train_bwd", tsrc, "dpfx/ops/fused_train.py:231", train_launches["fused_train_bwd"],
+             tb_err, tb_ms, tb_plain, b_tb, by_tb),
+            ("fused_encoder_fwd", esrc, "dpfx/ops/fused_encoder.py:75",
+             train_launches["fused_encoder_fwd"], ef_err, ef_ms, ef_plain, b_ef, by_ef),
+            ("fused_encoder_bwd", esrc, "dpfx/ops/fused_encoder.py:98",
+             train_launches["fused_encoder_bwd"], eb_err, eb_ms, eb_plain, b_eb, by_eb)):
+        kernels.append({"name": name, "route": "cuda", "source": src, "replaces": where,
+                        "launches": launched, "max_abs_err": err, "ms": ms, "plain_ms": plain,
+                        "bound_ms": bnd, "bound_by": by, "library_ms": None})
+    print(f"training kernels at B={b} N={n} bf16: fused_train fwd {tf_ms:.3f} ms "
+          f"(bound {b_tf:.4f}), bwd {tb_ms:.3f} ms (bound {b_tb:.4f}); fused_encoder fwd "
+          f"{ef_ms:.3f} ms (bound {b_ef:.4f}), bwd {eb_ms:.3f} ms (bound {b_eb:.4f}) ({card})")
     print(f"kernel rates at B={b} N={n}: fused_inverse {flops / inv_ms / 1e9:.1f} TFLOP/s, "
           f"fused_sample {flops / smp_ms / 1e9:.1f} TFLOP/s ({card})")
     print(json.dumps({"kernels": kernels}))
@@ -272,6 +545,29 @@ def main() -> int:
           f"profiler, {1 - busy_us / 5e3 / sample_ms:.3f} against phase 3's unprofiled "
           f"{sample_ms:.3f} ms/batch; top: "
           + "; ".join(f"{e.key[:60]} {e.self_device_time_total / 5e3:.3f} ms x{e.count // 5}"
+                      for e in top))
+
+    # ---- 5b. where the train step's time goes (torch.profiler, 5 steps)
+    train_step(tstate, batches[0])
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for i in range(5):
+            tstate, _ = train_step(tstate, batches[i % 4])
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    dev_events = [e for e in prof.key_averages()
+                  if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0]
+    check(sum("bwd_kernel" in e.key for e in dev_events) >= 2
+          and sum("fwd_kernel" in e.key for e in dev_events) >= 2,
+          "the profiler saw the training kernels on the device")
+    busy_us = sum(e.self_device_time_total for e in dev_events)
+    top = sorted(dev_events, key=lambda e: -e.self_device_time_total)[:8]
+    print(f"profile train step x5: wall {wall_us / 5e3:.3f} ms/step, device busy "
+          f"{busy_us / 5e3:.3f} ms/step, idle share {1 - busy_us / wall_us:.3f} under the "
+          f"profiler, {1 - busy_us / 5e3 / step_ms:.3f} against the unprofiled "
+          f"{step_ms:.3f} ms/step; {sum(e.count for e in dev_events) // 5} kernels/step; top: "
+          + "; ".join(f"{e.key[:70]} {e.self_device_time_total / 5e3:.3f} ms x{e.count // 5}"
                       for e in top))
     print(card)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

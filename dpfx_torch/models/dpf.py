@@ -75,15 +75,28 @@ class DPF(nn.Module):
 
     encode = posterior
 
-    def elbo_terms(self, x: Tensor, eps: Tensor) -> Dict[str, Tensor]:
+    def elbo_terms(self, x: Tensor, eps: Tensor,
+                   posterior: Optional[Tuple[Tensor, Tensor]] = None) -> Dict[str, Tensor]:
         """Per-cloud ELBO pieces for x [B, N, 3] with reparameterisation
-        noise ``eps`` [B, dz]: recon_ll, logp_z, logq, z."""
-        mu, logvar = self.posterior(x)
+        noise ``eps`` [B, dz]: recon_ll, logp_z, logq, z. ``posterior``
+        optionally supplies a precomputed (mu, logvar), as the fused-encoder
+        path does."""
+        t = self.elbo_latent_terms(x, eps, posterior)
+        t["recon_ll"] = self.point_flow.log_prob(x, t["z"]).sum(-1)
+        return t
+
+    def elbo_latent_terms(self, x: Tensor, eps: Tensor,
+                          posterior: Optional[Tuple[Tensor, Tensor]] = None,
+                          with_logp_z: bool = True) -> Dict[str, Tensor]:
+        """The posterior and latent-prior pieces without the point-flow
+        term (logq, z and, with ``with_logp_z``, logp_z): the fused-train
+        path computes recon_ll through its kernels."""
+        mu, logvar = posterior if posterior is not None else self.posterior(x)
         z = mu + torch.exp(0.5 * logvar) * eps
-        logq = gaussian_logprob(z, mu, logvar)
-        logp_z = self.latent_flow.log_prob(z)
-        recon_ll = self.point_flow.log_prob(x, z).sum(-1)
-        return dict(recon_ll=recon_ll, logp_z=logp_z, logq=logq, z=z)
+        out = dict(logq=gaussian_logprob(z, mu, logvar), z=z)
+        if with_logp_z:
+            out["logp_z"] = self.latent_flow.log_prob(z)
+        return out
 
     def log_prob(self, x: Tensor, eps: Tensor) -> Tensor:
         """One-sample ELBO per cloud, a lower bound on log p(X)."""

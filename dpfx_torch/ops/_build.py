@@ -7,7 +7,8 @@ Each ``csrc/<name>.cu`` has a plain C interface and compiles on its own into
     nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared \\
          -Xcompiler -fPIC -Xptxas -v -o build/dpfx_torch_kernels/lib<name>.so csrc/<name>.cu
 
-A library is rebuilt when it is missing or older than its source. The build
+A library is rebuilt when it is missing or older than its source or any
+shared ``csrc/*.cuh`` header. The build
 runs at first use, never at import. ``build_all`` starts one nvcc per source,
 all together, and waits for them.
 """
@@ -49,8 +50,12 @@ def _paths(name: str):
 
 
 def _stale(name: str) -> bool:
+    """Missing, or older than its source or any shared header in csrc/."""
     src, lib = _paths(name)
-    return not lib.exists() or lib.stat().st_mtime < src.stat().st_mtime
+    if not lib.exists():
+        return True
+    newest = max(p.stat().st_mtime for p in [src, *CSRC.glob("*.cuh")])
+    return lib.stat().st_mtime < newest
 
 
 def _start(name: str) -> subprocess.Popen:
@@ -75,15 +80,22 @@ def _finish(name: str, proc: subprocess.Popen) -> str:
 
 
 def build_all(force: bool = False) -> Dict[str, float]:
-    """Compile every stale source, one nvcc each, all started together.
-    Returns the seconds each build took (0.0 where nothing was stale)."""
+    """Compile every stale source, one nvcc each, all started together, and
+    wait for all of them. Returns the seconds each build took (0.0 where
+    nothing was stale); raises with every failed build's log."""
     names = [n for n in sources() if force or _stale(n)]
     t0 = time.perf_counter()
     procs = {n: _start(n) for n in names}
     out = {n: 0.0 for n in sources()}
+    failed = []
     for n, p in procs.items():
-        _finish(n, p)
+        try:
+            _finish(n, p)
+        except RuntimeError as e:
+            failed.append(str(e))
         out[n] = time.perf_counter() - t0
+    if failed:
+        raise RuntimeError("\n\n".join(failed))
     return out
 
 

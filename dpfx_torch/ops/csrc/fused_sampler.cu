@@ -33,23 +33,13 @@
 // Plain C interface, loaded with ctypes (dpfx_torch/ops/_build.py). The
 // launch returns cudaGetLastError().
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <mma.h>
-#include <stdint.h>
+#include "dpfx_common.cuh"
 
 namespace {
 
+using namespace dpfx;
+
 constexpr int TILE = 128;       // points per block
-constexpr int THREADS = 256;    // 8 warps
-constexpr int WARPS = THREADS / 32;
-
-__host__ __device__ constexpr int round128(int n) { return (n + 127) / 128 * 128; }
-
-template <typename S>
-struct Layout {
-  static constexpr int PAD = sizeof(S) == 2 ? 8 : 1;
-};
 
 // Shared-memory carve-up; the Python wrapper mirrors it (smem_bytes).
 template <typename S>
@@ -71,25 +61,6 @@ struct Smem {
     total = o;
   }
 };
-
-__device__ __forceinline__ float to_f(float v) { return v; }
-__device__ __forceinline__ float to_f(__nv_bfloat16 v) { return __bfloat162float(v); }
-template <typename S> __device__ __forceinline__ S from_f(float v);
-template <> __device__ __forceinline__ float from_f<float>(float v) { return v; }
-template <> __device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float v) {
-  return __float2bfloat16_rn(v);
-}
-// round a float to the compute dtype and back
-template <typename S> __device__ __forceinline__ float rnd(float v) { return to_f(from_f<S>(v)); }
-
-__device__ __forceinline__ float activate(float v, int act) {
-  switch (act) {
-    case 0: return v > 0.f ? v : 0.f;                                      // relu
-    case 1: return 0.5f * v * (1.f + tanhf(0.7978845608028654f * (v + 0.044715f * v * v * v)));
-    case 2: return tanhf(v);
-    default: return v >= 0.f ? v : 0.01f * v;                              // leaky_relu
-  }
-}
 
 // Philox4x32-10 (Salmon et al., SC'11)
 __device__ __forceinline__ void philox(uint32_t c[4], uint32_t k0, uint32_t k1) {
@@ -179,20 +150,6 @@ __device__ void hidden_gemm(float* hs, const float* ws, const float* bh, float*,
       const int o = to + 16 * j;
       hs[(tp + 16 * i) * ld + o] = activate(acc[i][j] + bh[o], act);
     }
-}
-
-// stage one H x H matrix (row-major in global) into ws with row stride ld
-template <int H>
-__device__ void load_square(__nv_bfloat16* ws, const __nv_bfloat16* g, int ld) {
-  constexpr int VPR = H / 8;  // 16-byte vectors per row
-  for (int v = threadIdx.x; v < H * VPR; v += THREADS) {
-    const int r = v / VPR, c = (v % VPR) * 8;
-    *reinterpret_cast<uint4*>(ws + r * ld + c) = *reinterpret_cast<const uint4*>(g + r * H + c);
-  }
-}
-template <int H>
-__device__ void load_square(float* ws, const float* g, int ld) {
-  for (int v = threadIdx.x; v < H * H; v += THREADS) ws[(v / H) * ld + v % H] = g[v];
 }
 
 template <typename S, int H>

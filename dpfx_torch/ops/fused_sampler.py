@@ -62,9 +62,11 @@ class StackedFlowParams(NamedTuple):
     scale_cap: float
 
 
-@torch.no_grad()
-def stack_point_flow_params(flow: CouplingFlow) -> StackedFlowParams:
-    """Stack the conditioner weights of a point flow (dim 3) module."""
+def stacked_point_flow_params(flow: CouplingFlow) -> StackedFlowParams:
+    """Stack the conditioner weights of a point flow (dim 3) module. Every
+    op is linear (transpose, mask fold, stack), so gradients reach the
+    ``nn.Linear`` parameters: the training kernels take their weights from
+    here."""
     if flow.dim != 3:
         raise ValueError(f"the fused sampler takes the 3-D point flow, got dim {flow.dim}")
     wx, wz, bx, wh, bh, wout, bout, masks = [], [], [], [], [], [], [], []
@@ -88,6 +90,12 @@ def stack_point_flow_params(flow: CouplingFlow) -> StackedFlowParams:
                              float(flow.scale_cap))
 
 
+@torch.no_grad()
+def stack_point_flow_params(flow: CouplingFlow) -> StackedFlowParams:
+    """``stacked_point_flow_params`` outside autograd (sampling)."""
+    return stacked_point_flow_params(flow)
+
+
 def z_projection(sp: StackedFlowParams, z: Tensor) -> Tensor:
     """hz[b, k] = z[b] @ Wz[k] + bx[k], float32: [B, K, H]."""
     return (torch.einsum("bd,kdh->bkh", z.float(), sp.wz) + sp.bx).contiguous()
@@ -101,8 +109,10 @@ def fused_inverse_transposed_plain(sp: StackedFlowParams, ut: Tensor, hz: Tensor
     """The kernel's arithmetic in plain torch ops: ut [B, C, N] -> x [B, C, N].
 
     Operands are rounded to ``dtype`` and multiplied in float32 (exact for
-    bf16 operands), so the sums are float32 as on the tensor cores."""
-    torch.backends.cuda.matmul.allow_tf32 = False   # f32 products stay IEEE f32
+    bf16 operands), so the sums are float32 as on the tensor cores. On a
+    card the float32 einsums are IEEE only with
+    ``torch.backends.cuda.matmul.allow_tf32`` False (PyTorch's default),
+    which the entry points set."""
     act = ACTIVATIONS[activation]
     rnd = lambda a: a.to(dtype).float()
     out = ut.clone()

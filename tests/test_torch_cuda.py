@@ -1,4 +1,5 @@
-"""The fused sampler kernel against its plain version on the card, at small
+"""The port's kernels (fused sampler, fused train forward/backward, fused
+encoder forward/backward) against their plain versions on the card, at small
 shapes. Marked ``gpu``: each test skips without a CUDA device. On a
 machine with one:
 
@@ -79,3 +80,136 @@ def test_fused_sample_draws_then_inverts(cuda):
     _, u_head = fs.fused_sample_points(sp, z, 7, 1000, dtype=torch.float32, noise_scale=1.1,
                                        return_noise=True)
     torch.testing.assert_close(u_head, u[:, :1000], atol=0, rtol=0)
+
+
+# ---------------------------------------------------------------- training kernels
+
+def _flow_weights(hidden, n_hidden, dev, k=5, seed=0):
+    from dpfx_torch.ops.fused_sampler import stacked_point_flow_params
+
+    flow = CouplingFlow(3, k, hidden, n_hidden, cond_dim=16, scale_cap=3.0)
+    with torch.no_grad():
+        return stacked_point_flow_params(randomize_(flow, seed, 0.1).to(dev))
+
+
+def _rel(a, b):
+    return float((a.float() - b.float()).norm() / b.float().norm().clamp_min(1e-12))
+
+
+@pytest.mark.parametrize("hidden,n_hidden,n", [(32, 2, 200), (64, 1, 128), (128, 2, 300),
+                                               (64, 3, 77)])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_fused_train_kernels_match_plain(cuda, hidden, n_hidden, n, dtype):
+    from dpfx_torch.ops import fused_train as ft
+    from dpfx_torch.ops.fused_sampler import z_projection
+
+    dt = getattr(torch, dtype)
+    sp = _flow_weights(hidden, n_hidden, cuda)
+    w = (sp.wx, sp.wh, sp.bh, sp.wout, sp.bout, sp.masks, sp.scale_cap)
+    g = torch.Generator(device=cuda).manual_seed(1)
+    xt = torch.randn((3, 3, n), generator=g, device=cuda)
+    hz = z_projection(sp, torch.randn((3, 16), generator=g, device=cuda))
+    ft.reset_launch_counts()
+    u, ld = ft.fused_forward_kernel(*w, xt, hz, dt)
+    u_p, ld_p = ft.fused_forward_plain(*w, xt, hz, dt)
+    du = torch.randn(u.shape, generator=g, device=cuda)
+    dld = torch.randn(ld.shape, generator=g, device=cuda)
+    got = ft.fused_backward_kernel(*w, u_p, hz, du, dld, dt)
+    again = ft.fused_backward_kernel(*w, u_p, hz, du, dld, dt)
+    ref = ft.fused_backward_plain(*w, u_p, hz, du, dld, dt)
+    torch.cuda.synchronize()
+    assert ft.launches == {"fused_train_fwd": 1, "fused_train_bwd": 2}
+    # f32: IEEE sums in other orders; bf16: a flipped rounding of one hidden
+    # unit moves a value by ~1e-3 and the layers carry it on
+    f32 = dt == torch.float32
+    torch.testing.assert_close(u, u_p, atol=1e-4 if f32 else 5e-2, rtol=1e-4 if f32 else 2e-2)
+    torch.testing.assert_close(ld, ld_p, atol=1e-3 if f32 else 1e-1, rtol=1e-4 if f32 else 2e-2)
+    tol = 1e-4 if f32 else 2e-2
+    for name, a, b, c in zip(["dx", "dhz", "dwx", "dwh", "dbh", "dwout", "dbout"], got, ref,
+                             again):
+        assert torch.equal(a, c), f"{name} is not bit-identical from run to run"
+        if b.numel():
+            assert _rel(a, b) <= tol, f"{name}: {_rel(a, b)}"
+
+
+@pytest.mark.parametrize("widths,n", [((32, 64), 200), ((32, 32, 64, 128), 256),
+                                      ((16, 128), 77)])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_fused_encoder_kernels_match_plain(cuda, widths, n, dtype):
+    from dpfx_torch.models import PointNetEncoder
+    from dpfx_torch.ops import fused_encoder as fe
+
+    dt = getattr(torch, dtype)
+    enc = randomize_(PointNetEncoder(16, widths, (32,)), 0, 0.1).to(cuda)
+    with torch.no_grad():
+        getattr(enc, f"point_{len(widths) - 1}").bias[3] = -100.0      # a dead feature
+    ws, bs = [w.detach() for w in fe.encoder_point_weights(enc)[0]], \
+        [b.detach() for b in fe.encoder_point_weights(enc)[1]]
+    g = torch.Generator(device=cuda).manual_seed(1)
+    x = torch.randn((3, n, 3), generator=g, device=cuda)
+    x[0, n // 2:] = x[0, : n - n // 2].clone()                          # ties
+    fe.reset_launch_counts()
+    pooled, cnt = fe.pool_forward_kernel(ws, bs, x, dt)
+    pooled_p, cnt_p = fe.pool_forward_plain(ws, bs, x, dt)
+    dg = torch.randn(pooled.shape, generator=g, device=cuda)
+    # each backward takes its own forward's pool: the tie mask compares the
+    # recomputed activations with it bit for bit
+    got = fe.pool_backward_kernel(ws, bs, x, pooled, cnt, dg, dt)
+    again = fe.pool_backward_kernel(ws, bs, x, pooled, cnt, dg, dt)
+    ref = fe.pool_backward_plain(ws, bs, x, pooled_p, cnt_p, dg, dt)
+    torch.cuda.synchronize()
+    assert fe.launches == {"fused_encoder_fwd": 1, "fused_encoder_bwd": 2}
+    tol = 1e-5 if dt == torch.float32 else 2e-2
+    torch.testing.assert_close(pooled, pooled_p, atol=tol, rtol=tol)
+    if dt == torch.float32:
+        torch.testing.assert_close(cnt, cnt_p, atol=0, rtol=0)
+    flat = lambda r: [r[0]] + list(r[1]) + list(r[2])
+    for i, (a, b, c) in enumerate(zip(flat(got), flat(ref), flat(again))):
+        assert torch.equal(a, c), f"tensor {i} is not bit-identical from run to run"
+        assert _rel(a, b) <= (1e-4 if dt == torch.float32 else 2e-2), f"tensor {i}: {_rel(a, b)}"
+
+
+def test_training_smem_fits_flagship(cuda):
+    from dpfx_torch.ops import fused_encoder as fe
+    from dpfx_torch.ops import fused_train as ft
+
+    for dt in (torch.float32, torch.bfloat16):
+        for backward in (False, True):
+            assert 0 < ft.smem_bytes(128, 1, dt, backward) <= fs.SMEM_LIMIT
+        assert 0 < fe.smem_bytes((3, 128, 128, 256, 512), dt) <= fs.SMEM_LIMIT
+
+
+def test_train_step_on_card_skips_a_nonfinite_batch(cuda):
+    """A fused train step on the card launches all four training kernels, and
+    a batch holding an inf is skipped: params, moments and the optimizer's
+    count keep their values, the step counter advances."""
+    from dpfx_torch.config import config_from_dict
+    from dpfx_torch.models import DPF
+    from dpfx_torch.ops import fused_encoder as fe
+    from dpfx_torch.ops import fused_train as ft
+    from dpfx_torch.train import init_params_, init_state, make_optimizer, make_train_step
+
+    cfg = config_from_dict({"experiment": "gen", "model": {
+        "dz": 16,
+        "point_flow": {"n_layers": 4, "hidden": 32, "n_hidden": 2, "compute_dtype": "bfloat16"},
+        "latent_flow": {"n_layers": 4, "hidden": 32, "n_hidden": 2},
+        "encoder": {"point_widths": [32, 64], "head_widths": [32], "compute_dtype": "bfloat16"}},
+        "train": {"fused_point_flow": True, "fused_encoder": True, "grad_clip": 1.0}})
+    model = randomize_(init_params_(DPF(cfg), 0), 0, 0.05).to(cuda)
+    tx = make_optimizer(cfg.train)
+    state = init_state(model, tx)
+    step = make_train_step(model, tx, cfg)
+    ft.reset_launch_counts()
+    fe.reset_launch_counts()
+    x = torch.randn((4, 256, 3), device=cuda)
+    state, m = step(state, {"x": x})
+    assert float(m["nonfinite_skipped"]) == 0.0 and bool(torch.isfinite(m["loss"]))
+    assert all(v == 1 for v in {**ft.launches, **fe.launches}.values())
+    params, mu, nu = (t.clone() for t in (state.params, state.opt_state.mu, state.opt_state.nu))
+    bad = x.clone()
+    bad[1, 5, 0] = float("inf")
+    state, m = step(state, {"x": bad})
+    assert float(m["nonfinite_skipped"]) == 1.0 and state.step == 2
+    assert state.opt_state.count == 1
+    for a, b in ((state.params, params), (state.opt_state.mu, mu), (state.opt_state.nu, nu)):
+        assert torch.equal(a, b)
