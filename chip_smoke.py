@@ -19,7 +19,9 @@ script exits non-zero without a result line):
      f32 and bf16: fused_train forward (u, log-det) and backward (dx, dhz,
      every weight gradient), fused_encoder forward and backward (encoder
      128/128/256/512, a cloud of duplicated points and a dead feature), each
-     backward run twice and required bit-identical;
+     backward run twice and required bit-identical; the plain f32 backwards
+     run once more with TF32 products allowed, a control that the f32 limit
+     must fail;
   3. the sampling path at full width (configs/flagship_quality_v3_aug_100k.yaml,
      random seeded weights): dpfx_torch.generate.main for 64 clouds, the
      timed make_sampler(64, 2048), make_decoder and DPF.reconstruct on
@@ -32,8 +34,10 @@ script exits non-zero without a result line):
      the saved checkpoint sampled by dpfx_torch.generate; then the train
      step's time (CUDA events, batches on the card) and one fused step
      against the module path on the same batch and noise;
-  4. one JSON line with every kernel's error, time, plain time and bound
-     at the main paths' shapes (B=64, N=2048, bf16);
+  4. at the main paths' shapes (B=64, N=2048, bf16): the training kernels
+     held against their plain versions again (u, log-det, every gradient;
+     each backward bit-identical across two runs), then one JSON line with
+     every kernel's error, time, plain time and bound;
   5. torch.profiler breakdowns of make_sampler(64, 2048) and of 5 train
      steps: device-busy time, idle share and the kernels that take the time;
   6. the card line again, then the last line: {"ok": true, "device": {...}}.
@@ -68,11 +72,16 @@ TOL_BF16_P999 = 2e-3
 # training kernels: relative norm error of each gradient tensor (and of the
 # pooled feature and log-det). f32: IEEE sums in other orders, and tanh/exp
 # whose device and torch versions differ in the last ulp, carried through 32
-# layers of dy *= exp(s) and of inputs rebuilt from outputs (seen: 1.1e-4 on
-# dx, <6e-5 elsewhere). bf16: one flipped rounding of a hidden unit or of a
-# max-pool argmax moves a few entries; the bracket that
-# tests/test_fused_train.py allows bf16 against flax is 5%.
-TOL_GRAD_F32 = 1e-3
+# layers of dy *= exp(s) and of inputs rebuilt from outputs (seen at B=8 on
+# the seeded weights: <= 2.9e-7). The limit sits well below what products
+# on TF32 operands read: phase 2b runs the plain f32 backward once with
+# TF32 allowed as a control and requires that control to fail the limit
+# (seen: 3.3e-3 fused_train, 6.7e-2 fused_encoder). bf16: one flipped
+# rounding of a hidden unit or of a max-pool argmax moves a few entries
+# (seen: <= 1.3e-4 at B=8; at B=64 on the synthetic clouds, whose
+# near-ties flip a few argmaxes, up to 5.6e-3 on the encoder's dx); the
+# bracket that tests/test_fused_train.py allows bf16 against flax is 5%.
+TOL_GRAD_F32 = 1e-5
 TOL_GRAD_BF16 = 2e-2
 # whole fused step against the module path (bf16 rounds at other places in
 # the two): the bracket of tests/test_fused_train.py:192-231
@@ -162,6 +171,19 @@ def rel(a, b) -> float:
     return float((a.float() - b.float()).norm() / b.float().norm().clamp_min(1e-30))
 
 
+def tf32_control(plain, ref) -> float:
+    """The largest relative error against ``ref`` of the plain f32 version
+    run with TF32 products allowed: what a kernel whose f32 mode quietly
+    multiplied TF32 operands would read."""
+    import torch
+
+    torch.backends.cuda.matmul.allow_tf32 = True
+    got = plain()
+    torch.cuda.synchronize()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    return max(rel(a, b) for a, b in zip(got, ref) if b.numel())
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -204,7 +226,8 @@ def main() -> int:
     # 1e7-1e10); at 0.02 the clouds stay O(1), as a trained
     # flow's do, and the out layers are still far from the identity
     model = randomize_(DPF(cfg), seed=0, scale=0.02).to(dev).eval()
-    sp = fs.stack_point_flow_params(model.point_flow)
+    with torch.no_grad():
+        sp = fs.stack_point_flow_params(model.point_flow)
     k, h, _ = sp.wx.shape
     check((k, h, cfg.model.dz) == (32, 128, 128), f"flagship widths, got K={k} H={h}")
     g = torch.Generator(device=dev).manual_seed(1)
@@ -255,6 +278,8 @@ def main() -> int:
     widths = [3] + [int(w.shape[0]) for w in ews]
     check(widths == [3, 128, 128, 256, 512], f"flagship encoder widths, got {widths}")
     grad_names = ["dx", "dhz", "dwx", "dwh", "dbh", "dwout", "dbout"]
+    enc_names = ["dx"] + [f"dW{i}" for i in range(4)] + [f"db{i}" for i in range(4)]
+    flat = lambda r: [r[0]] + list(r[1]) + list(r[2])
     for n in (2048, 2000):
         xt = torch.randn((8, 3, n), generator=g, device=dev)
         hz = fs.z_projection(sp, torch.randn((8, cfg.model.dz), generator=g, device=dev))
@@ -285,6 +310,12 @@ def main() -> int:
                       f"fused_train forward bf16 N={n}: max {emax}, p99.9 {e999}")
             check(rel(ld, ld_p) <= tol and max(gerr.values()) <= tol,
                   f"fused_train N={n} {dtype}: log-det {rel(ld, ld_p)}, grads {gerr}")
+            if f32 and n == 2048:
+                ctl = tf32_control(lambda: ft.fused_backward_plain(*tw, u_p, hz, du, dld, dtype),
+                                   ref)
+                print(f"f32 limit {TOL_GRAD_F32:.0e} against a TF32 control of the plain "
+                      f"fused_train backward: {ctl:.2e}")
+                check(ctl > TOL_GRAD_F32, f"the f32 limit fails a TF32 control ({ctl})")
 
             pk, ck = fe.pool_forward_kernel(ews, ebs, xc, dtype)
             pp, cp = fe.pool_forward_plain(ews, ebs, xc, dtype)
@@ -293,9 +324,7 @@ def main() -> int:
             again = fe.pool_backward_kernel(ews, ebs, xc, pk, ck, dg, dtype)
             ref = fe.pool_backward_plain(ews, ebs, xc, pp, cp, dg, dtype)
             torch.cuda.synchronize()
-            flat = lambda r: [r[0]] + list(r[1]) + list(r[2])
-            names = ["dx"] + [f"dW{i}" for i in range(4)] + [f"db{i}" for i in range(4)]
-            eerr = {nm: rel(a, b) for nm, a, b in zip(names, flat(got), flat(ref))}
+            eerr = {nm: rel(a, b) for nm, a, b in zip(enc_names, flat(got), flat(ref))}
             print(f"kernel-vs-plain fused_encoder N={n} {dtype}: pooled rel {rel(pk, pp):.3e} "
                   f"(ties in cloud 0: {float((ck[0] > 1).float().mean()):.2f} of the features; "
                   f"dead feature pooled {float(pk[:, 3].abs().max())}); grad rel "
@@ -306,6 +335,13 @@ def main() -> int:
                   "the dead feature pools 0 and takes no gradient")
             check(rel(pk, pp) <= tol and max(eerr.values()) <= tol,
                   f"fused_encoder N={n} {dtype}: pooled {rel(pk, pp)}, grads {eerr}")
+            if f32 and n == 2048:
+                ctl = tf32_control(lambda: flat(fe.pool_backward_plain(
+                    ews, ebs, xc, *fe.pool_forward_plain(ews, ebs, xc, dtype), dg, dtype)),
+                    flat(ref))
+                print(f"f32 limit {TOL_GRAD_F32:.0e} against a TF32 control of the plain "
+                      f"fused_encoder forward and backward: {ctl:.2e}")
+                check(ctl > TOL_GRAD_F32, f"the f32 limit fails a TF32 control ({ctl})")
 
     # ---- 3. the main path at full width
     WORK.mkdir(parents=True, exist_ok=True)
@@ -472,15 +508,32 @@ def main() -> int:
     ]
     check(inv_err <= TOL_BF16_MAX and smp_err <= TOL_BF16_MAX, "B=64 kernel errors")
 
+    # the training kernels held against their plain versions at the main
+    # path's batch, as phase 2b holds them at B=8: here each block of either
+    # backward adds ~16 tiles into its gradient partials (1-2 at B=8)
     xt = torch.randn((b, 3, n), generator=g, device=dev)
-    u_k, _ = ft.fused_forward_kernel(*tw, xt, hz, bf)
-    u_p, _ = ft.fused_forward_plain(*tw, xt, hz, bf)
+    u_k, ld_k = ft.fused_forward_kernel(*tw, xt, hz, bf)
+    u_p, ld_p = ft.fused_forward_plain(*tw, xt, hz, bf)
     du = torch.randn(u_p.shape, generator=g, device=dev)
     dld = torch.randn((b,), generator=g, device=dev)
     maxerr = lambda xs, ys: max(float((p_ - q_).abs().max()) for p_, q_ in zip(xs, ys) if q_.numel())
-    tf_err = errors(u_k, u_p)[0]
-    tb_err = maxerr(ft.fused_backward_kernel(*tw, u_p, hz, du, dld, bf),
-                    ft.fused_backward_plain(*tw, u_p, hz, du, dld, bf))
+    got = ft.fused_backward_kernel(*tw, u_p, hz, du, dld, bf)
+    again = ft.fused_backward_kernel(*tw, u_p, hz, du, dld, bf)
+    ref = ft.fused_backward_plain(*tw, u_p, hz, du, dld, bf)
+    torch.cuda.synchronize()
+    tf_err, tf_999 = errors(u_k, u_p)
+    tb_err = maxerr(got, ref)
+    gerr = {nm: rel(a, r) for nm, a, r in zip(grad_names, got, ref)}
+    print(f"kernel-vs-plain fused_train B={b} N={n} bf16: u max_abs={tf_err:.3e} "
+          f"p99.9={tf_999:.3e}; log-det rel {rel(ld_k, ld_p):.3e}; grad rel "
+          + " ".join(f"{k}={v:.2e}" for k, v in gerr.items()))
+    check(tf_err <= TOL_BF16_MAX and tf_999 <= TOL_BF16_P999,
+          f"fused_train forward B={b}: max {tf_err}, p99.9 {tf_999}")
+    check(rel(ld_k, ld_p) <= TOL_GRAD_BF16 and max(gerr.values()) <= TOL_GRAD_BF16,
+          f"fused_train B={b}: log-det {rel(ld_k, ld_p)}, grads {gerr}")
+    check(all(torch.equal(a, c) for a, c in zip(got, again)),
+          f"fused_train backward bit-identical from run to run at B={b}")
+    del got, again, ref
     tf_ms = cuda_ms(lambda: ft.fused_forward_kernel(*tw, xt, hz, bf), 20)
     tb_ms = cuda_ms(lambda: ft.fused_backward_kernel(*tw, u_p, hz, du, dld, bf), 10)
     tf_plain = cuda_ms(lambda: ft.fused_forward_plain(*tw, xt, hz, bf), 3, warmup=1)
@@ -492,9 +545,19 @@ def main() -> int:
     pp, cp = fe.pool_forward_plain(ews, ebs, xc, bf)
     dg = torch.randn(pk.shape, generator=g, device=dev)
     ef_err = float((pk - pp).abs().max())
-    flat = lambda r: [r[0]] + list(r[1]) + list(r[2])
-    eb_err = maxerr(flat(fe.pool_backward_kernel(ews, ebs, xc, pk, ck, dg, bf)),
-                    flat(fe.pool_backward_plain(ews, ebs, xc, pp, cp, dg, bf)))
+    got = flat(fe.pool_backward_kernel(ews, ebs, xc, pk, ck, dg, bf))
+    again = flat(fe.pool_backward_kernel(ews, ebs, xc, pk, ck, dg, bf))
+    ref = flat(fe.pool_backward_plain(ews, ebs, xc, pp, cp, dg, bf))
+    torch.cuda.synchronize()
+    eb_err = maxerr(got, ref)
+    eerr = {nm: rel(a, r) for nm, a, r in zip(enc_names, got, ref)}
+    print(f"kernel-vs-plain fused_encoder B={b} N={n} bf16: pooled rel {rel(pk, pp):.3e}; "
+          f"grad rel " + " ".join(f"{k}={v:.2e}" for k, v in eerr.items()))
+    check(rel(pk, pp) <= TOL_GRAD_BF16 and max(eerr.values()) <= TOL_GRAD_BF16,
+          f"fused_encoder B={b}: pooled {rel(pk, pp)}, grads {eerr}")
+    check(all(torch.equal(a, c) for a, c in zip(got, again)),
+          f"fused_encoder backward bit-identical from run to run at B={b}")
+    del got, again, ref
     ef_ms = cuda_ms(lambda: fe.pool_forward_kernel(ews, ebs, xc, bf), 20)
     eb_ms = cuda_ms(lambda: fe.pool_backward_kernel(ews, ebs, xc, pk, ck, dg, bf), 10)
     ef_plain = cuda_ms(lambda: fe.pool_forward_plain(ews, ebs, xc, bf), 3, warmup=1)

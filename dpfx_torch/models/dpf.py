@@ -113,8 +113,9 @@ class DPF(nn.Module):
         pf = self.point_flow
         if pf.use_actnorm:
             return pf.inverse(u, z)[0]
-        return fused_point_flow_inverse(stack_point_flow_params(pf), u, z,
-                                        dtype=pf.dtype, activation=pf.activation)
+        with torch.no_grad():
+            sp = stack_point_flow_params(pf)
+        return fused_point_flow_inverse(sp, u, z, dtype=pf.dtype, activation=pf.activation)
 
     @torch.no_grad()
     def sample(self, n_clouds: int, n_points: int, generator: Optional[torch.Generator] = None,

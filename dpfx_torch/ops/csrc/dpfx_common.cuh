@@ -152,13 +152,75 @@ __device__ void gemm(int M, int N, int K, const float* a, int lda, const float* 
     }
 }
 
+// C[M x N] = A B (first) or C += A B, C row-major with row stride ldc in
+// global or shared memory; operands and layouts as gemm. bf16: the WMMA
+// accumulators start from C's values, so C is read and written once per
+// 16 x 16 tile (C 32-byte aligned, ldc a multiple of 4); a warp takes
+// ACC_TILES tiles at a time, so their loads from global memory are in
+// flight together. f32: through gemm's epilogue. Deterministic: every
+// element sums in a fixed order.
+constexpr int ACC_TILES = 4;
+
+template <bool AT, bool BT>
+__device__ void gemm_acc(int M, int N, int K, const __nv_bfloat16* a, int lda,
+                         const __nv_bfloat16* b, int ldb, float* c, int ldc, bool first) {
+  using namespace nvcuda;
+  using LA = std::conditional_t<AT, wmma::col_major, wmma::row_major>;
+  using LB = std::conditional_t<BT, wmma::col_major, wmma::row_major>;
+  const int warp = threadIdx.x / 32;
+  const int MT = M / 16, NT = N / 16;
+  for (int t0 = warp; t0 < MT * NT; t0 += ACC_TILES * WARPS) {
+    wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[ACC_TILES];
+#pragma unroll
+    for (int u = 0; u < ACC_TILES; ++u) {
+      const int t = t0 + u * WARPS;
+      if (t >= MT * NT) break;
+      if (first) wmma::fill_fragment(acc[u], 0.f);
+      else wmma::load_matrix_sync(acc[u], c + (size_t)(t % MT) * 16 * ldc + (t / MT) * 16, ldc,
+                                  wmma::mem_row_major);
+    }
+    for (int kk = 0; kk < K; kk += 16) {
+#pragma unroll
+      for (int u = 0; u < ACC_TILES; ++u) {
+        const int t = t0 + u * WARPS;
+        if (t >= MT * NT) break;
+        const int tm = t % MT, tn = t / MT;
+        wmma::fragment<wmma::matrix_a, 16, 16, 16, __nv_bfloat16, LA> fa;
+        wmma::fragment<wmma::matrix_b, 16, 16, 16, __nv_bfloat16, LB> fb;
+        const __nv_bfloat16* pa = AT ? a + (size_t)kk * lda + tm * 16 : a + (size_t)tm * 16 * lda + kk;
+        const __nv_bfloat16* pb = BT ? b + (size_t)tn * 16 * ldb + kk : b + (size_t)kk * ldb + tn * 16;
+        wmma::load_matrix_sync(fa, pa, lda);
+        wmma::load_matrix_sync(fb, pb, ldb);
+        wmma::mma_sync(acc[u], fa, fb, acc[u]);
+      }
+    }
+#pragma unroll
+    for (int u = 0; u < ACC_TILES; ++u) {
+      const int t = t0 + u * WARPS;
+      if (t >= MT * NT) break;
+      wmma::store_matrix_sync(c + (size_t)(t % MT) * 16 * ldc + (t / MT) * 16, acc[u], ldc,
+                              wmma::mem_row_major);
+    }
+  }
+}
+
+template <bool AT, bool BT>
+__device__ void gemm_acc(int M, int N, int K, const float* a, int lda, const float* b, int ldb,
+                         float* c, int ldc, bool first) {
+  gemm<AT, BT>(M, N, K, a, lda, b, ldb, nullptr, nullptr, [&](int m, int n, float v) {
+    float* p = c + (size_t)m * ldc + n;
+    *p = first ? v : *p + v;
+    return 0.f;
+  });
+}
+
 // After an epilogue that stored its returned values into buf (M x N, row
-// stride ld): out[n] = sum over the M rows, in a fixed order. bf16 sums the
-// per-tile column sums of colpart (the stored values are rounded); f32 sums
-// buf itself (the stored values are the exact ones).
+// stride ld): out[n] = sum over the M rows (accumulate: out[n] += it), in a
+// fixed order. bf16 sums the per-tile column sums of colpart (the stored
+// values are rounded); f32 sums buf itself (the stored values are exact).
 template <typename S>
 __device__ void column_sums(int M, int N, const float* colpart, const S* buf, int ld,
-                            float* out) {
+                            float* out, bool accumulate = false) {
   for (int n = threadIdx.x; n < N; n += THREADS) {
     float s = 0.f;
     if constexpr (is_bf16<S>) {
@@ -166,7 +228,7 @@ __device__ void column_sums(int M, int N, const float* colpart, const S* buf, in
     } else {
       for (int m = 0; m < M; ++m) s += buf[m * ld + n];
     }
-    out[n] = s;
+    out[n] = accumulate ? out[n] + s : s;
   }
 }
 

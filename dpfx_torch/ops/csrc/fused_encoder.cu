@@ -29,9 +29,21 @@
 //     (h == g) is exact; the cotangent dg * tie / count * (h > 0) splits
 //     evenly among every maximal point of the cloud and skips a feature
 //     whose max is 0. Every later cotangent overwrites the activation it is
-//     masked by, in place. Each tile writes its gradients of every layer
-//     (one slice of a global scratch), and `reduce_slices` sums the slices
-//     in a fixed order: no float atomics, bit-identical from run to run.
+//     masked by, in place.
+//   * The weight gradients sum over every point of every cloud. The grid is
+//     persistent, one block per SM: a block walks its tiles in order and
+//     adds each tile's gradients of every layer into its own slice of a
+//     global scratch, which no other block touches; `reduce_slices` then
+//     sums the slices in a fixed order. No float atomics: bit-identical from
+//     run to run. The slice (all four layers' dW and db, 727 KB at the
+//     flagship widths) does not fit in a block's shared memory, and moving
+//     the layer loop outside the tile loop, as fused_train.cu does, would
+//     carry every point's W_l-wide cotangent between layers. So the slice
+//     lives in global memory, and the scratch is blocks x slice (96 MB on
+//     132 SMs) whatever B and N are. The dW products start their WMMA
+//     accumulators from the slice and store them back (`gemm_acc`): one
+//     fragment load and one store per 16 x 16 tile, not a dependent
+//     load-add-store per element.
 //
 // Plain C interface, loaded with ctypes (dpfx_torch/ops/_build.py). Each
 // launch returns cudaGetLastError().
@@ -151,20 +163,23 @@ fwd_kernel(const float* __restrict__ x, Layers P, float* __restrict__ pmax,
   }
 }
 
+// add v into this block's slice; the block's first tile stores it
+__device__ __forceinline__ void put(float* p, float v, bool first) { *p = first ? v : *p + v; }
+
 template <typename S>
 __global__ void __launch_bounds__(THREADS)
 bwd_kernel(const float* __restrict__ x, Layers P, const float* __restrict__ g,
            const float* __restrict__ cnt, const float* __restrict__ dg, float* __restrict__ dx,
-           float* __restrict__ part, int N, long long per_tile) {
+           float* __restrict__ part, int B, int N, long long per_slice) {
   extern __shared__ __align__(128) unsigned char smem[];
   constexpr int T = tile_t<S>();
   const EncSmem<S> L(P);
-  const int b = blockIdx.y, n0 = blockIdx.x * T, tid = threadIdx.x;
-  const int warp = tid / 32, lane = tid % 32;
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int nt = (N + T - 1) / T;
   float* xs = reinterpret_cast<float*>(smem + L.xs);
   float* stage = reinterpret_cast<float*>(smem + L.stage);
   float* colpart = reinterpret_cast<float*>(smem + L.colpart);
-  float* out = part + ((size_t)b * gridDim.x + blockIdx.x) * per_tile;
+  float* out = part + (size_t)blockIdx.x * per_slice;
   long long off_w[MAXL], off_b[MAXL];
   {
     long long o = 0;
@@ -172,72 +187,73 @@ bwd_kernel(const float* __restrict__ x, Layers P, const float* __restrict__ g,
     for (int l = 0; l < P.L; ++l) { off_b[l] = o; o += P.width[l + 1]; }
   }
 
-  chain<S>(P, L, smem, x, b, n0, N);
+  for (int tile = blockIdx.x; tile < B * nt; tile += gridDim.x) {
+    const int b = tile / nt, n0 = (tile % nt) * T;
+    const bool first = tile == blockIdx.x;
+    __syncthreads();  // the previous tile is done with the shared buffers and its slice writes
+    chain<S>(P, L, smem, x, b, n0, N);
 
-  // the pooled cotangent, in place over h_L: dg * tie / count * (h > 0)
-  {
-    const int W = P.width[P.L], ld = L.ld[P.L - 1];
-    S* h = reinterpret_cast<S*>(smem + L.hs[P.L - 1]);
-    for (int f = tid; f < W; f += THREADS) {
-      const float gv = g[(size_t)b * W + f], dgv = dg[(size_t)b * W + f];
-      const float cv = fmaxf(cnt[(size_t)b * W + f], 1.f);
-      float s = 0.f;
-      for (int p = 0; p < T; ++p) {
-        const float hv = to_f(h[p * ld + f]);
-        const float tie = (n0 + p < N && hv == gv) ? 1.f : 0.f;
-        const float d = dgv * tie / cv * (hv > 0.f ? 1.f : 0.f);
-        s += d;
-        h[p * ld + f] = from_f<S>(d);
-      }
-      out[off_b[P.L - 1] + f] = s;
-    }
-  }
-
-  for (int l = P.L - 1; l >= 0; --l) {
-    // dh: the cotangent of layer l's output, in the buffer of h_{l+1}
-    const S* dh = reinterpret_cast<const S*>(smem + L.hs[l]);
-    const int ldd = L.ld[l], Wo = P.width[l + 1], Wi = P.width[l];
-    float* dw = out + off_w[l];
-    __syncthreads();
-    if (l > 0) {
-      const S* hin = reinterpret_cast<const S*>(smem + L.hs[l - 1]);
-      // dW_l = rnd(dh)^T rnd(h_l)
-      gemm<true, false>(Wo, Wi, T, dh, ldd, hin, L.ld[l - 1], stage, nullptr,
-                        [&](int m, int n, float v) {
-                          dw[(size_t)m * Wi + n] = v;
-                          return 0.f;
-                        });
-      __syncthreads();
-      // dh_in = (rnd(dh) W_l) * (h_l > 0), in place over h_l
-      S* hw = reinterpret_cast<S*>(smem + L.hs[l - 1]);
-      const int ldi = L.ld[l - 1];
-      gemm<false, false>(T, Wi, Wo, dh, ldd, static_cast<const S*>(P.w[l]), Wi, stage, colpart,
-                         [&](int m, int n, float v) {
-                           const float mv = v * (to_f(hw[m * ldi + n]) > 0.f ? 1.f : 0.f);
-                           hw[m * ldi + n] = from_f<S>(mv);
-                           return mv;
-                         });
-      __syncthreads();
-      column_sums<S>(T, Wi, colpart, hw, ldi, out + off_b[l - 1]);
-    } else {
-      // dW_0 = rnd(dh)^T rnd(x); dx = rnd(dh) rnd(W_0), one warp per point
-      for (int e = tid; e < Wo * 3; e += THREADS) {
-        const int o = e / 3, c = e % 3;
+    // the pooled cotangent, in place over h_L: dg * tie / count * (h > 0)
+    {
+      const int W = P.width[P.L], ld = L.ld[P.L - 1];
+      S* h = reinterpret_cast<S*>(smem + L.hs[P.L - 1]);
+      for (int f = tid; f < W; f += THREADS) {
+        const float gv = g[(size_t)b * W + f], dgv = dg[(size_t)b * W + f];
+        const float cv = fmaxf(cnt[(size_t)b * W + f], 1.f);
         float s = 0.f;
-        for (int p = 0; p < T; ++p) s = fmaf(to_f(dh[p * ldd + o]), rnd<S>(xs[p * 3 + c]), s);
-        dw[e] = s;
-      }
-      const S* w0 = static_cast<const S*>(P.w[0]);
-      for (int p = warp; p < T; p += WARPS) {
-        float s[3] = {0.f, 0.f, 0.f};
-        for (int o = lane; o < Wo; o += 32) {
-          const float d = to_f(dh[p * ldd + o]);
-          for (int c = 0; c < 3; ++c) s[c] = fmaf(to_f(w0[o * 3 + c]), d, s[c]);
+        for (int p = 0; p < T; ++p) {
+          const float hv = to_f(h[p * ld + f]);
+          const float tie = (n0 + p < N && hv == gv) ? 1.f : 0.f;
+          const float d = dgv * tie / cv * (hv > 0.f ? 1.f : 0.f);
+          s += d;
+          h[p * ld + f] = from_f<S>(d);
         }
-        for (int c = 0; c < 3; ++c)
-          for (int off = 16; off; off >>= 1) s[c] += __shfl_xor_sync(0xffffffffu, s[c], off);
-        if (lane == 0 && n0 + p < N)
-          for (int c = 0; c < 3; ++c) dx[((size_t)b * N + n0 + p) * 3 + c] = s[c];
+        put(out + off_b[P.L - 1] + f, s, first);
+      }
+    }
+
+    for (int l = P.L - 1; l >= 0; --l) {
+      // dh: the cotangent of layer l's output, in the buffer of h_{l+1}
+      const S* dh = reinterpret_cast<const S*>(smem + L.hs[l]);
+      const int ldd = L.ld[l], Wo = P.width[l + 1], Wi = P.width[l];
+      float* dw = out + off_w[l];
+      __syncthreads();
+      if (l > 0) {
+        const S* hin = reinterpret_cast<const S*>(smem + L.hs[l - 1]);
+        // dW_l += rnd(dh)^T rnd(h_l)
+        gemm_acc<true, false>(Wo, Wi, T, dh, ldd, hin, L.ld[l - 1], dw, Wi, first);
+        __syncthreads();
+        // dh_in = (rnd(dh) W_l) * (h_l > 0), in place over h_l
+        S* hw = reinterpret_cast<S*>(smem + L.hs[l - 1]);
+        const int ldi = L.ld[l - 1];
+        gemm<false, false>(T, Wi, Wo, dh, ldd, static_cast<const S*>(P.w[l]), Wi, stage,
+                           colpart, [&](int m, int n, float v) {
+                             const float mv = v * (to_f(hw[m * ldi + n]) > 0.f ? 1.f : 0.f);
+                             hw[m * ldi + n] = from_f<S>(mv);
+                             return mv;
+                           });
+        __syncthreads();
+        column_sums<S>(T, Wi, colpart, hw, ldi, out + off_b[l - 1], !first);
+      } else {
+        // dW_0 += rnd(dh)^T rnd(x); dx = rnd(dh) rnd(W_0), one warp per point
+        for (int e = tid; e < Wo * 3; e += THREADS) {
+          const int o = e / 3, c = e % 3;
+          float s = 0.f;
+          for (int p = 0; p < T; ++p) s = fmaf(to_f(dh[p * ldd + o]), rnd<S>(xs[p * 3 + c]), s);
+          put(dw + e, s, first);
+        }
+        const S* w0 = static_cast<const S*>(P.w[0]);
+        for (int p = warp; p < T; p += WARPS) {
+          float s[3] = {0.f, 0.f, 0.f};
+          for (int o = lane; o < Wo; o += 32) {
+            const float d = to_f(dh[p * ldd + o]);
+            for (int c = 0; c < 3; ++c) s[c] = fmaf(to_f(w0[o * 3 + c]), d, s[c]);
+          }
+          for (int c = 0; c < 3; ++c)
+            for (int off = 16; off; off >>= 1) s[c] += __shfl_xor_sync(0xffffffffu, s[c], off);
+          if (lane == 0 && n0 + p < N)
+            for (int c = 0; c < 3; ++c) dx[((size_t)b * N + n0 + p) * 3 + c] = s[c];
+        }
       }
     }
   }
@@ -274,23 +290,30 @@ cudaError_t launch_fwd(const float* x, const Layers& P, float* pmax, float* pcnt
 template <typename S>
 cudaError_t launch_bwd(const float* x, const Layers& P, const float* g, const float* cnt,
                        const float* dg, float* dx, float* part, float* grads, int B, int N,
-                       cudaStream_t s) {
+                       int blocks, cudaStream_t s) {
+  // every block must own at least one tile, or its slice is never written
+  if (blocks <= 0 || (long long)blocks > (long long)B * ((N + tile_t<S>() - 1) / tile_t<S>()))
+    return cudaErrorInvalidValue;
   const int bytes = smem_of<S>(P);
   cudaError_t e = cudaFuncSetAttribute(bwd_kernel<S>,
                                        cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
   if (e != cudaSuccess) return e;
-  long long per_tile = 0;
-  for (int l = 0; l < P.L; ++l) per_tile += (long long)P.width[l + 1] * (P.width[l] + 1);
-  const int nt = (N + tile_t<S>() - 1) / tile_t<S>();
-  dim3 grid(nt, B);
-  bwd_kernel<S><<<grid, THREADS, bytes, s>>>(x, P, g, cnt, dg, dx, part, N, per_tile);
+  long long per_slice = 0;
+  for (int l = 0; l < P.L; ++l) per_slice += (long long)P.width[l + 1] * (P.width[l] + 1);
+  bwd_kernel<S><<<blocks, THREADS, bytes, s>>>(x, P, g, cnt, dg, dx, part, B, N, per_slice);
   if ((e = cudaGetLastError()) != cudaSuccess) return e;
-  return launch_reduce(part, grads, 1, B * nt, per_tile, s);
+  return launch_reduce(part, grads, 1, blocks, per_slice, s);
 }
 
 }  // namespace
 
 extern "C" {
+
+// points per block (the wrappers size the forward's per-tile partials and
+// the backward's grid from it)
+int dpfx_fused_encoder_tile_points(int bf16) {
+  return bf16 ? tile_t<__nv_bfloat16>() : tile_t<float>();
+}
 
 int dpfx_fused_encoder_smem_bytes(const int* widths, int L, int bf16) {
   Layers P;
@@ -311,13 +334,13 @@ int dpfx_fused_encoder_fwd(const float* x, void* const* w, void* const* b, const
 
 int dpfx_fused_encoder_bwd(const float* x, void* const* w, void* const* b, const int* widths,
                            int L, const float* g, const float* cnt, const float* dg, float* dx,
-                           float* part, float* grads, int B, int N, int bf16, void* stream) {
+                           float* part, float* grads, int B, int N, int bf16, int blocks,
+                           void* stream) {
   Layers P;
-  if (B <= 0 || N <= 0 || B > 65535 || !make_layers(P, w, b, widths, L))
-    return (int)cudaErrorInvalidValue;
+  if (B <= 0 || N <= 0 || !make_layers(P, w, b, widths, L)) return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return (int)(bf16 ? launch_bwd<__nv_bfloat16>(x, P, g, cnt, dg, dx, part, grads, B, N, s)
-                    : launch_bwd<float>(x, P, g, cnt, dg, dx, part, grads, B, N, s));
+  return (int)(bf16 ? launch_bwd<__nv_bfloat16>(x, P, g, cnt, dg, dx, part, grads, B, N, blocks, s)
+                    : launch_bwd<float>(x, P, g, cnt, dg, dx, part, grads, B, N, blocks, s));
 }
 
 }  // extern "C"

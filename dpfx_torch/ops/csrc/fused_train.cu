@@ -390,11 +390,8 @@ bwd_kernel(float* __restrict__ y, float* __restrict__ dy, const float* __restric
         S* hj = hs + j * hstride;
         float* acc = awh + j * astride;
         __syncthreads();
-        // dWh[j] += dh^T h_j
-        gemm<true, false>(H, H, T, dh, ld, hj, ld, stage, nullptr, [&](int m, int n, float v) {
-          acc[m * lda + n] += v;
-          return 0.f;
-        });
+        // dWh[j] += dh^T h_j (zeroed before the tile loop)
+        gemm_acc<true, false>(H, H, T, dh, ld, hj, ld, acc, lda, false);
         __syncthreads();
         // dh_j = (dh Wh[j]) * (h_j > 0), in place over h_j
         gemm<false, false>(T, H, H, dh, ld, ws + j * wstride, ld, stage, colpart,
@@ -404,13 +401,8 @@ bwd_kernel(float* __restrict__ y, float* __restrict__ dy, const float* __restric
                              return mv;
                            });
         __syncthreads();
-        if (j > 0) {   // db of hidden layer j-1 (stage is free: the product is done)
-          column_sums<S>(T, H, colpart, hj, ld, stage);
-          __syncthreads();
-          for (int o = tid; o < H; o += THREADS) adbh[(j - 1) * H + o] += stage[o];
-        } else {
-          column_sums<S>(T, H, colpart, hj, ld, dhzs);
-        }
+        // db of hidden layer j-1 (summed over the tiles), or this tile's dhz
+        column_sums<S>(T, H, colpart, hj, ld, j > 0 ? adbh + (j - 1) * H : dhzs, j > 0);
       }
       __syncthreads();
 
@@ -512,6 +504,13 @@ cudaError_t launch_bwd(float* y, float* dy, const float* dld, const float* hz, c
   }
 
 extern "C" {
+
+// points per forward block / per backward tile (the wrappers size the
+// log-det and dhz partials from it)
+int dpfx_fused_train_tile_points(int bf16, int backward) {
+  if (backward) return bf16 ? bwd_t<__nv_bfloat16>() : bwd_t<float>();
+  return FWD_T;
+}
 
 int dpfx_fused_train_smem_bytes(int H, int NH1, int bf16, int backward) {
   if (backward) return bf16 ? bwd_smem<__nv_bfloat16>(H, NH1) : bwd_smem<float>(H, NH1);

@@ -50,10 +50,9 @@ def reset_launch_counts() -> None:
         launches[k] = 0
 
 
-def fused_encoder_supported(enc_cfg, n_points: int) -> bool:
+def fused_encoder_supported(enc_cfg) -> bool:
     """relu point layers. The kernels tile the points, so unlike the Pallas
     kernel (one whole cloud per grid step, N <= 8192) any N is taken."""
-    del n_points
     return enc_cfg.activation == "relu"
 
 
@@ -62,11 +61,6 @@ def encoder_point_weights(encoder: PointNetEncoder) -> Tuple[List[Tensor], List[
     own parameters (gradients reach them)."""
     layers = [getattr(encoder, f"point_{i}") for i in range(encoder.n_point)]
     return [m.weight for m in layers], [m.bias for m in layers]
-
-
-def tile_points(dtype: torch.dtype) -> int:
-    """Points per block: shared memory holds every activation of the tile."""
-    return 64 if dtype == torch.bfloat16 else 32
 
 
 # ---------------------------------------------------------------- plain version
@@ -128,14 +122,21 @@ def _lib() -> ctypes.CDLL:
     lib.dpfx_fused_encoder_bwd.argtypes = [
         p, pp, pp, ip, i,             # x, weights, biases, widths, L
         p, p, p,                      # g [B, W], count [B, W], dg [B, W]
-        p, p, p,                      # dx [B, N, 3], per-tile partials, reduced grads
-        i, i, i, p,                   # B, N, bf16, stream
+        p, p, p,                      # dx [B, N, 3], per-block partials, reduced grads
+        i, i, i, i, p,                # B, N, bf16, blocks, stream
     ]
     lib.dpfx_fused_encoder_smem_bytes.argtypes = [ip, i, i]
+    lib.dpfx_fused_encoder_tile_points.argtypes = [i]
     for fn in (lib.dpfx_fused_encoder_fwd, lib.dpfx_fused_encoder_bwd,
-               lib.dpfx_fused_encoder_smem_bytes):
+               lib.dpfx_fused_encoder_smem_bytes, lib.dpfx_fused_encoder_tile_points):
         fn.restype = ctypes.c_int
     return lib
+
+
+def _tiles(n: int, dtype: torch.dtype) -> int:
+    """Tiles of a cloud of n points, at the kernel library's points per block."""
+    t = _lib().dpfx_fused_encoder_tile_points(int(dtype == torch.bfloat16))
+    return (n + t - 1) // t
 
 
 def smem_bytes(widths: Sequence[int], dtype: torch.dtype) -> int:
@@ -186,9 +187,7 @@ def pool_forward_kernel(ws, bs, x, dtype):
     max and count follow in two small torch reductions."""
     widths = _check(ws, x, dtype, {})
     b, n, _ = x.shape
-    t = tile_points(dtype)
-    nt = (n + t - 1) // t
-    pmax = torch.empty((b, nt, widths[-1]), device=x.device, dtype=torch.float32)
+    pmax = torch.empty((b, _tiles(n, dtype), widths[-1]), device=x.device, dtype=torch.float32)
     pcnt = torch.empty_like(pmax)
     keep = _operands(ws, bs, widths, dtype)
     stream = torch.cuda.current_stream(x.device).cuda_stream
@@ -204,16 +203,16 @@ def pool_forward_kernel(ws, bs, x, dtype):
 
 
 def pool_backward_kernel(ws, bs, x, g, cnt, dg, dtype):
-    """The backward kernel (per-tile gradient partials), then their
-    fixed-order reduction: same contract as ``pool_backward_plain``, and
-    bit-identical from run to run."""
+    """The backward kernel (a persistent grid, one gradient slice per block),
+    then the fixed-order reduction of the slices: same contract as
+    ``pool_backward_plain``, and bit-identical from run to run."""
     widths = _check(ws, x, dtype, dict(g=g, cnt=cnt, dg=dg))
     b, n, _ = x.shape
-    t = tile_points(dtype)
-    nt = (n + t - 1) // t
+    blocks = min(b * _tiles(n, dtype), torch.cuda.get_device_properties(x.device)
+                 .multi_processor_count)
     sizes = [widths[i + 1] * widths[i] for i in range(len(ws))] + widths[1:]
     dx = torch.empty_like(x)
-    part = torch.empty((b * nt, sum(sizes)), device=x.device, dtype=torch.float32)
+    part = torch.empty((blocks, sum(sizes)), device=x.device, dtype=torch.float32)
     flat = torch.empty(sum(sizes), device=x.device, dtype=torch.float32)
     keep = _operands(ws, bs, widths, dtype)
     stream = torch.cuda.current_stream(x.device).cuda_stream
@@ -221,7 +220,7 @@ def pool_backward_kernel(ws, bs, x, g, cnt, dg, dtype):
         err = _lib().dpfx_fused_encoder_bwd(
             x.data_ptr(), keep[2], keep[3], keep[4], len(ws), g.data_ptr(), cnt.data_ptr(),
             dg.data_ptr(), dx.data_ptr(), part.data_ptr(), flat.data_ptr(),
-            b, n, int(dtype == torch.bfloat16), stream)
+            b, n, int(dtype == torch.bfloat16), blocks, stream)
     if err != 0:
         raise RuntimeError(f"fused encoder backward kernel launch failed: cudaError {err}")
     launches["fused_encoder_bwd"] += 1

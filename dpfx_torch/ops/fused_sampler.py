@@ -62,11 +62,11 @@ class StackedFlowParams(NamedTuple):
     scale_cap: float
 
 
-def stacked_point_flow_params(flow: CouplingFlow) -> StackedFlowParams:
+def stack_point_flow_params(flow: CouplingFlow) -> StackedFlowParams:
     """Stack the conditioner weights of a point flow (dim 3) module. Every
     op is linear (transpose, mask fold, stack), so gradients reach the
     ``nn.Linear`` parameters: the training kernels take their weights from
-    here."""
+    here. Samplers call it under ``torch.no_grad()``."""
     if flow.dim != 3:
         raise ValueError(f"the fused sampler takes the 3-D point flow, got dim {flow.dim}")
     wx, wz, bx, wh, bh, wout, bout, masks = [], [], [], [], [], [], [], []
@@ -88,12 +88,6 @@ def stacked_point_flow_params(flow: CouplingFlow) -> StackedFlowParams:
     f = lambda xs: torch.stack(xs).float().contiguous()
     return StackedFlowParams(f(wx), f(wz), f(bx), f(wh), f(bh), f(wout), f(bout), f(masks),
                              float(flow.scale_cap))
-
-
-@torch.no_grad()
-def stack_point_flow_params(flow: CouplingFlow) -> StackedFlowParams:
-    """``stacked_point_flow_params`` outside autograd (sampling)."""
-    return stacked_point_flow_params(flow)
 
 
 def z_projection(sp: StackedFlowParams, z: Tensor) -> Tensor:

@@ -38,7 +38,7 @@ from dpfx_torch.models.dpf import dtype_of
 from dpfx_torch.ops.fused_sampler import (
     KERNEL_HIDDEN,
     SMEM_LIMIT,
-    stacked_point_flow_params,
+    stack_point_flow_params,
     z_projection,
 )
 
@@ -46,8 +46,6 @@ Tensor = torch.Tensor
 
 # kernel launches per wrapper; chip_smoke.py zeroes these around the main path
 launches: Dict[str, int] = {"fused_train_fwd": 0, "fused_train_bwd": 0}
-
-FWD_TILE = 128                         # points per forward block
 
 
 def reset_launch_counts() -> None:
@@ -59,12 +57,6 @@ def fused_train_supported(flow_cfg) -> bool:
     """The kernel pair covers the flagship configuration: relu conditioner
     (the backward needs its derivative) and no actnorm."""
     return flow_cfg.activation == "relu" and not flow_cfg.use_actnorm
-
-
-def bwd_tile(dtype: torch.dtype) -> int:
-    """Points per backward tile: its shared memory holds every hidden
-    activation of the tile and the f32 dWh accumulators."""
-    return 64 if dtype == torch.bfloat16 else 32
 
 
 # ---------------------------------------------------------------- plain version
@@ -164,10 +156,18 @@ def _lib() -> ctypes.CDLL:
         i, i, i, i, i, f, i, i, p,    # B, N, K, H, n_hidden-1, cap, bf16, blocks, stream
     ]
     lib.dpfx_fused_train_smem_bytes.argtypes = [i, i, i, i]
+    lib.dpfx_fused_train_tile_points.argtypes = [i, i]
     for fn in (lib.dpfx_fused_train_fwd, lib.dpfx_fused_train_bwd,
-               lib.dpfx_fused_train_smem_bytes):
+               lib.dpfx_fused_train_smem_bytes, lib.dpfx_fused_train_tile_points):
         fn.restype = ctypes.c_int
     return lib
+
+
+def _tiles(n: int, dtype: torch.dtype, backward: bool) -> int:
+    """Tiles of a cloud of n points, at the kernel library's points per
+    forward block or per backward tile."""
+    t = _lib().dpfx_fused_train_tile_points(int(dtype == torch.bfloat16), int(backward))
+    return (n + t - 1) // t
 
 
 def smem_bytes(hidden: int, n_hidden_m1: int, dtype: torch.dtype, backward: bool) -> int:
@@ -215,9 +215,9 @@ def fused_forward_kernel(wx, wh, bh, wout, bout, masks, cap, xt, hz, dtype):
     b, _, n = xt.shape
     _check(wx, dtype, dict(wx=wx, wh=wh, bh=bh, wout=wout, bout=bout, masks=masks, xt=xt, hz=hz))
     _check_smem(h, nh1, dtype, backward=False)
-    nt = (n + FWD_TILE - 1) // FWD_TILE
     u = torch.empty_like(xt)
-    ld_part = torch.empty((b, nt), device=xt.device, dtype=torch.float32)
+    ld_part = torch.empty((b, _tiles(n, dtype, backward=False)), device=xt.device,
+                          dtype=torch.float32)
     cwx, cwh, cwout = _weights(wx, wh, wout, dtype)
     stream = torch.cuda.current_stream(xt.device).cuda_stream
     with torch.cuda.device(xt.device):
@@ -242,8 +242,7 @@ def fused_backward_kernel(wx, wh, bh, wout, bout, masks, cap, u, hz, du, dld, dt
     _check(wx, dtype, dict(wx=wx, wh=wh, bh=bh, wout=wout, bout=bout, masks=masks, u=u, hz=hz,
                            du=du, dld=dld))
     _check_smem(h, nh1, dtype, backward=True)
-    t = bwd_tile(dtype)
-    nt = (n + t - 1) // t
+    nt = _tiles(n, dtype, backward=True)
     blocks = min(b * nt, _sm_count(u.device))
     per_layer = 3 * h + nh1 * h * h + nh1 * h + 6 * h + 6
     dev = u.device
@@ -311,7 +310,7 @@ def fused_point_flow_recon_ll(model, x: Tensor, z: Tensor, flow_cfg) -> Tensor:
 
     Drop-in for ``model.point_flow.log_prob(x, z).sum(-1)`` inside the ELBO
     (the same math, with the kernels' rounding)."""
-    sp = stacked_point_flow_params(model.point_flow)
+    sp = stack_point_flow_params(model.point_flow)
     xt = x.transpose(1, 2).float().contiguous()
     u, ld = _FusedForward.apply(sp.wx, sp.wh, sp.bh, sp.wout, sp.bout, xt, z_projection(sp, z),
                                 sp.masks, sp.scale_cap, dtype_of(flow_cfg.compute_dtype))

@@ -43,7 +43,8 @@ def make_sampler(model: DPF, n_clouds: int, n_points: int, fused: bool = True,
                                 latent_temperature=latent_temperature)
         return sample_plain
 
-    sp = stack_point_flow_params(pf)
+    with torch.no_grad():
+        sp = stack_point_flow_params(pf)
 
     @torch.no_grad()
     def sample(seed: int) -> torch.Tensor:
@@ -66,7 +67,8 @@ def make_decoder(model: DPF, n_points: int, fused: bool = True
             return model.decode(z, n_points, generator=g)
         return decode_plain
 
-    sp = stack_point_flow_params(pf)
+    with torch.no_grad():
+        sp = stack_point_flow_params(pf)
 
     @torch.no_grad()
     def decode(z: torch.Tensor, seed: int) -> torch.Tensor:

@@ -48,7 +48,7 @@ def elbo_loss(model, x: Tensor, eps: Tensor, kl_weight: float = 1.0,
     mcfg = model.config.model
     posterior = None
     if fused_encoder:
-        if fused_encoder_supported(mcfg.encoder, n):
+        if fused_encoder_supported(mcfg.encoder):
             posterior = fused_pointnet_posterior(model.encoder, x)
         else:
             _warn_once(("enc", mcfg.encoder.activation),

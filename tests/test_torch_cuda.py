@@ -28,8 +28,13 @@ def cuda():
 
 
 def _sp(hidden, n_hidden, activation, dev, k=6, seed=0):
+    # scale 0.02: at 0.1 the random H=256 inverse is unstable (|x| reaches
+    # 300-3000), and one flipped bf16 rounding, carried on, exceeds any
+    # absolute tolerance; at 0.02 the clouds stay O(1)-O(10)
+    torch.manual_seed(seed)        # the module's own init
     flow = CouplingFlow(3, k, hidden, n_hidden, cond_dim=16, scale_cap=3.0, activation=activation)
-    return fs.stack_point_flow_params(randomize_(flow, seed, 0.1).to(dev))
+    with torch.no_grad():
+        return fs.stack_point_flow_params(randomize_(flow, seed, 0.02).to(dev))
 
 
 @pytest.mark.parametrize("hidden,n_hidden,activation,n", [
@@ -85,11 +90,9 @@ def test_fused_sample_draws_then_inverts(cuda):
 # ---------------------------------------------------------------- training kernels
 
 def _flow_weights(hidden, n_hidden, dev, k=5, seed=0):
-    from dpfx_torch.ops.fused_sampler import stacked_point_flow_params
-
     flow = CouplingFlow(3, k, hidden, n_hidden, cond_dim=16, scale_cap=3.0)
     with torch.no_grad():
-        return stacked_point_flow_params(randomize_(flow, seed, 0.1).to(dev))
+        return fs.stack_point_flow_params(randomize_(flow, seed, 0.1).to(dev))
 
 
 def _rel(a, b):

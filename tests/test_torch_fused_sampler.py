@@ -34,6 +34,12 @@ def _models(n_hidden=2, activation="relu", seed=0):
     return model, jparams
 
 
+def _stack(model):
+    """The stacked point-flow weights outside autograd, as the samplers take them."""
+    with torch.no_grad():
+        return tfs.stack_point_flow_params(model.point_flow)
+
+
 def _inputs(b, n, dz=16, seed=0):
     rng = np.random.default_rng(seed)
     return (rng.normal(size=(b, n, 3)).astype(np.float32),
@@ -46,7 +52,7 @@ def test_stack_matches_jax(n_hidden):
     Pallas kernel pads to 8 rows; the shared entries are equal and the
     JAX padding is zero."""
     model, params = _models(n_hidden)
-    sp = tfs.stack_point_flow_params(model.point_flow)
+    sp = _stack(model)
     jp = jfs.stack_point_flow_params(params, 3.0)
     eq = lambda a, b: np.testing.assert_array_equal(a.numpy(), np.asarray(b))
     eq(sp.wx, jp.wx[..., :3])
@@ -72,7 +78,7 @@ def _jax_inverse(params, u, z, dtype, activation="relu", tile=128):
 def test_inverse_matches_pallas_f32(n_hidden, activation):
     model, params = _models(n_hidden, activation, seed=n_hidden)
     u, z = _inputs(3, 128, seed=1)
-    sp = tfs.stack_point_flow_params(model.point_flow)
+    sp = _stack(model)
     x = tfs.fused_point_flow_inverse(sp, torch.from_numpy(u), torch.from_numpy(z),
                                      dtype=torch.float32, activation=activation)
     ref = _jax_inverse(params, u, z, jnp.float32, activation)
@@ -86,7 +92,7 @@ def test_inverse_matches_pallas_bf16():
     max abs 2e-2 and 99% of coordinates within 2e-3."""
     model, params = _models(2, "relu", seed=5)
     u, z = _inputs(2, 256, seed=2)
-    sp = tfs.stack_point_flow_params(model.point_flow)
+    sp = _stack(model)
     x = tfs.fused_point_flow_inverse(sp, torch.from_numpy(u), torch.from_numpy(z),
                                      dtype=torch.bfloat16).numpy()
     ref = _jax_inverse(params, u, z, jnp.bfloat16)
@@ -100,7 +106,7 @@ def test_ragged_n_and_prefix_invariance():
     port's points are independent of how many others share the call."""
     model, params = _models(2, "relu", seed=7)
     u, z = _inputs(2, 200, seed=3)
-    sp = tfs.stack_point_flow_params(model.point_flow)
+    sp = _stack(model)
     tu, tz = torch.from_numpy(u), torch.from_numpy(z)
     x = tfs.fused_point_flow_inverse(sp, tu, tz, dtype=torch.float32).numpy()
     np.testing.assert_allclose(x, _jax_inverse(params, u, z, jnp.float32), atol=1e-5, rtol=1e-5)
@@ -118,7 +124,7 @@ def test_transposed_eight_rows_pass_through():
     ut = np.zeros((2, 8, 128), np.float32)
     ut[:, :3] = u.transpose(0, 2, 1)
     ut[:, 3:] = rng.normal(size=(2, 5, 128))
-    sp = tfs.stack_point_flow_params(model.point_flow)
+    sp = _stack(model)
     out = tfs.fused_inverse_transposed(sp, torch.from_numpy(ut), torch.from_numpy(z),
                                        dtype=torch.float32).numpy()
     ref = _jax_inverse(params, u, z, jnp.float32)
@@ -128,7 +134,7 @@ def test_transposed_eight_rows_pass_through():
 
 def test_cpu_path_launches_no_kernel():
     model, _ = _models()
-    sp = tfs.stack_point_flow_params(model.point_flow)
+    sp = _stack(model)
     tfs.reset_launch_counts()
     u, z = _inputs(1, 16)
     tfs.fused_point_flow_inverse(sp, torch.from_numpy(u), torch.from_numpy(z))
@@ -141,7 +147,7 @@ def test_sample_points_noise_and_seed(tau):
     """CPU path of the sampler: u ~ tau N(0, I3) from the seed, then the
     plain inverse of exactly that u; the same seed gives the same clouds."""
     model, _ = _models(seed=11)
-    sp = tfs.stack_point_flow_params(model.point_flow)
+    sp = _stack(model)
     z = torch.from_numpy(_inputs(4, 1, seed=5)[1])
     x, u = tfs.fused_sample_points(sp, z, 123, 4096, dtype=torch.float32, noise_scale=tau,
                                    return_noise=True)
@@ -156,7 +162,7 @@ def test_sample_points_noise_and_seed(tau):
 
 def test_kernel_argument_checks():
     model, _ = _models()
-    sp = tfs.stack_point_flow_params(model.point_flow)
+    sp = _stack(model)
     with pytest.raises(ValueError, match="hidden"):
         tfs._check_kernel_args(sp._replace(wx=torch.zeros(4, 48, 3)), torch.zeros(1, 4, 48),
                                torch.bfloat16, "relu")

@@ -19,7 +19,7 @@ from dpfx_torch.compat import params_to_flax, randomize_  # noqa: E402
 from dpfx_torch.config import config_from_dict  # noqa: E402
 from dpfx_torch.models import DPF  # noqa: E402
 from dpfx_torch.ops import fused_train as tft  # noqa: E402
-from dpfx_torch.ops.fused_sampler import stacked_point_flow_params, z_projection  # noqa: E402
+from dpfx_torch.ops.fused_sampler import stack_point_flow_params, z_projection  # noqa: E402
 
 
 def tiny(n_layers=5, n_hidden=2, dtype="float32", activation="relu", actnorm=False):
@@ -100,7 +100,7 @@ def test_plain_backward_is_autograd_of_plain_forward(n_hidden):
     """The hand-written reverse walk (inputs rebuilt from outputs, no stored
     chain) equals autograd through the plain forward in f32."""
     model, _, x, z = _setup(5, n_hidden, 150)
-    sp = stacked_point_flow_params(model.point_flow)
+    sp = stack_point_flow_params(model.point_flow)
     w = [t.detach().clone().requires_grad_(True) for t in (sp.wx, sp.wh, sp.bh, sp.wout, sp.bout)]
     xt = torch.from_numpy(x).transpose(1, 2).contiguous().requires_grad_(True)
     hz = z_projection(sp, torch.from_numpy(z)).detach().requires_grad_(True)
