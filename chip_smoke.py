@@ -1,8 +1,9 @@
 #!/usr/bin/env python3
 """Chip smoke for the PyTorch/CUDA port: build the kernels, hold each one
 against its plain PyTorch version at the flagship widths, drive the main
-paths (flagship sampling, then flagship training) through the normal entry
-points, and report.
+paths (flagship sampling, flagship training, then evaluation: the
+generation suite and AE reconstruction) through the normal entry points,
+and report.
 
 Run from the root of a checkout, on a machine with one CUDA card:
 
@@ -22,6 +23,14 @@ script exits non-zero without a result line):
      backward run twice and required bit-identical; the plain f32 backwards
      run once more with TF32 products allowed, a control that the f32 limit
      must fail;
+  2c. the evaluation kernels (chamfer.cu, emd.cu) vs their plain versions on
+     synthetic test-split clouds at N=2048 and at a ragged N=2000 against
+     M=2048, with one pair of identical clouds: nnd_fwd (B=8), cd_pairwise
+     exact, fast and symmetric (16 x 16), emd_batched exact (B=8, also
+     against an f64 run of the plain version), emd_pairwise fast and exact
+     (8 x 8); each kernel run twice and required bit-identical; the plain
+     exact CD with TF32 products allowed, a control that the CD limit must
+     fail; fast against exact EMD on a near-identical pair, reported;
   3. the sampling path at full width (configs/flagship_quality_v3_aug_100k.yaml,
      random seeded weights): dpfx_torch.generate.main for 64 clouds, the
      timed make_sampler(64, 2048), make_decoder and DPF.reconstruct on
@@ -34,12 +43,24 @@ script exits non-zero without a result line):
      the saved checkpoint sampled by dpfx_torch.generate; then the train
      step's time (CUDA events, batches on the card) and one fused step
      against the module path on the same batch and noise;
+  3c. the evaluation paths at full width on phase 3b's checkpoint:
+     dpfx_torch.evaluate's CLI for the generation suite
+     (flagship_quality_v3_aug_100k.yaml) and AE reconstruction
+     (flagship_ae_quality_synthetic.yaml), each with --limit 128 (the
+     protocol's 400 test clouds cut to bound the run), launch counts zeroed
+     just before each and read just after; then compute_all_metrics on two
+     disjoint stratified halves of the test split (the ideal-generator row)
+     and on one half shifted by 0.5;
   4. at the main paths' shapes (B=64, N=2048, bf16): the training kernels
      held against their plain versions again (u, log-det, every gradient;
      each backward bit-identical across two runs), then one JSON line with
-     every kernel's error, time, plain time and bound;
+     every kernel's error, time, plain time and bound, the evaluation
+     kernels' at their paths' shapes (a 128 x 128 matrix at N=2048 for the
+     pairwise kernels, CD also in triangle mode, B=32 for the diagonal ones),
+     each held to its plain version there by phase 2c's limits;
   5. torch.profiler breakdowns of make_sampler(64, 2048) and of 5 train
-     steps: device-busy time, idle share and the kernels that take the time;
+     steps, and (5c) of one generation suite at S=128: device-busy time,
+     idle share and the kernels that take the time;
   6. the card line again, then the last line: {"ok": true, "device": {...}}.
 It needs no network and starts no process that outlives it (nvcc and
 nvidia-smi are waited for).
@@ -55,11 +76,27 @@ from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
 CONFIG = ROOT / "configs" / "flagship_quality_v3_aug_100k.yaml"
+AE_CONFIG = ROOT / "configs" / "flagship_ae_quality_synthetic.yaml"
 WORK = ROOT / "build" / "chip_smoke"
 
 # H100 SXM peaks (NVIDIA data sheet, dense, at the 700 W limit)
 PEAK_BF16_FLOPS = 989e12
 PEAK_BYTES = 3.35e12
+# issue rates outside the tensor cores: 132 SMs at the 1.98 GHz boost clock,
+# each with 128 FP32 lanes (one FP32 instruction per lane per clock, an FMA
+# counting once) and 16 special-function lanes (MUFU: ex2, rsqrt, ...)
+SMS, BOOST_HZ = 132, 1.98e9
+PEAK_FP32_INSTR = SMS * 128 * BOOST_HZ     # 33.45e12 per second
+PEAK_MUFU = SMS * 16 * BOOST_HZ            # 4.18e12 per second
+# FP32 instructions per distance element: x.y (a product and two FMAs), the
+# norms' add, the fused -2 x.y, the max, and (CD) the row and column mins
+CD_FP32_PER_ELEM = 8
+# approxmatch per element and level, at the least: two distances (pass 1
+# and the recomputed pass 2, 6 each), the exp arguments, the w, rowsum, ss,
+# colsum, cdist and delta arithmetic (21 FP32), and the exp of each pass
+# and the sqrt (3 MUFU)
+EMD_FP32_PER_ELEM_LEVEL = 21
+EMD_MUFU_PER_ELEM_LEVEL = 3
 
 # tolerances of kernel vs plain version (max abs error over the outputs)
 # on O(1)-O(10) clouds. f32: both sum in IEEE f32, in other orders, through
@@ -140,6 +177,28 @@ def bound_of(flops: float, nbytes: float):
     return max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes")
 
 
+def bound_cores(fp32_instr: float, mufu_ops: float, nbytes: float):
+    """Least time (ms) of work that runs on the CUDA cores, not the tensor
+    cores: the larger of its FP32 instructions over the FP32 issue rate and
+    its special-function operations over the MUFU rate, against its bytes
+    over HBM."""
+    t_ops = max(fp32_instr / PEAK_FP32_INSTR, mufu_ops / PEAK_MUFU) * 1e3
+    t_bytes = nbytes / PEAK_BYTES * 1e3
+    return max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes")
+
+
+def eval_bounds(n_pairs: int, n: int, m: int, s_left: int, s_right: int, out_floats: int):
+    """CD and approxmatch EMD over n_pairs pairs of N x M points: the
+    per-element instruction counts above, and the bytes of the s_left + s_right
+    input clouds read once and the outputs written once."""
+    elems = float(n_pairs) * n * m
+    nbytes = 12.0 * (s_left * n + s_right * m) + 4.0 * out_floats
+    cd = bound_cores(CD_FP32_PER_ELEM * elems, 0.0, nbytes)
+    lv = elems * 10
+    emd = bound_cores(EMD_FP32_PER_ELEM_LEVEL * lv, EMD_MUFU_PER_ELEM_LEVEL * lv, nbytes)
+    return cd, emd
+
+
 def train_bounds(sp, b: int, n: int):
     """Forward and backward of the fused point flow: FLOP of the products
     (the backward recomputes the conditioner, then the cotangent and weight
@@ -182,6 +241,392 @@ def tf32_control(plain, ref) -> float:
     torch.cuda.synchronize()
     torch.backends.cuda.matmul.allow_tf32 = False
     return max(rel(a, b) for a, b in zip(got, ref) if b.numel())
+
+
+# evaluation kernels against their plain versions: relative error per pair,
+# |a - b| / max(|b|, floor). CD: the kernel's distances equal the plain
+# version's bit for bit (both round every operation on its own), so only the
+# order of the sums of minima differs; the limit is the JAX package's own
+# (tests/test_chamfer.py:40), in both modes. The plain exact CD with its x.y
+# products on TF32 operands must fail it (a control).
+TOL_CD = 1e-5
+CD_FLOOR = 1e-7
+# EMD: approxmatch carries rounding through its saturation recursion, and two
+# f32 runs of one schedule that sum in other orders part on a few pairs (the
+# f32 plain version against an f64 run of it: median 2e-6, max 1.7e-3 over
+# 200 random pairs of 37 x 101 points, a CPU measurement). So the median pair
+# is held to the JAX package's limit (tests/test_emd.py:76: rtol 1e-4, atol
+# 1e-5) and the largest to that drift; exact mode also against an f64 run.
+TOL_EMD_MEDIAN = 1e-4
+TOL_EMD_MAX = 5e-3
+EMD_FLOOR = 1e-5
+TOL_EMD_FAST_EXACT = 2e-2     # fast against exact: tests/test_emd.py:124 (rtol, atol)
+EMD_FAST_ATOL = 1e-3
+# an identical pair reads near 0: tests/test_chamfer.py:52, tests/test_emd.py:79
+TOL_CD_IDENTICAL = 1e-5
+TOL_EMD_IDENTICAL = 1e-3
+TOL_EMD_IDENTICAL_SHARE = 0.05
+EVAL_LIMIT = 128              # test clouds per evaluation path (the protocol uses 400)
+
+
+def pair_err(a, b, floor: float):
+    """Per-pair relative error |a - b| / max(|b|, floor), in f64."""
+    return (a.double() - b.double()).abs() / b.double().abs().clamp_min(floor)
+
+
+def cd_tf32_control(xs, ys):
+    """The plain exact CD matrix with x.y as a matmul on TF32 operands (K
+    padded to 16, a tensor-core shape): what a CD kernel that quietly
+    multiplied TF32 operands would read."""
+    import torch
+
+    torch.backends.cuda.matmul.allow_tf32 = True
+    try:
+        x2, y2 = (xs * xs).sum(-1), (ys * ys).sum(-1)
+        pad = lambda t: torch.nn.functional.pad(t, (0, 13))
+        rows = []
+        for i in range(xs.shape[0]):
+            xy = torch.matmul(pad(xs[i]), pad(ys).transpose(1, 2))          # [S2, N, M]
+            d = (x2[i][None, :, None] + y2[:, None, :] - 2.0 * xy).clamp_min(0.0)
+            rows.append(d.min(-1)[0].mean(-1) + d.min(-2)[0].mean(-1))
+        torch.cuda.synchronize()
+        return torch.stack(rows)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = False
+
+
+def split_clouds(cfg, idx, n: int, seed: int, dev):
+    """Clouds of the config's synthetic test split, subsampled to n points."""
+    import numpy as np
+    import torch
+
+    from dpfx_torch.data import build_dataset, load_all
+
+    ds = build_dataset(cfg.data, "test")
+    return torch.from_numpy(load_all(ds, n, seed=seed, indices=np.asarray(idx))).to(dev)
+
+
+def eval_kernel_checks(cfg, dev) -> None:
+    """Phase 2c: the four evaluation kernels against their plain versions."""
+    import torch
+
+    from dpfx_torch.ops import chamfer as cdk
+    from dpfx_torch.ops import emd as emdk
+
+    med = lambda e: float(e.median())
+    for n in (2048, 2000):
+        xs = split_clouds(cfg, range(16), n, 2, dev)
+        ys = split_clouds(cfg, range(16, 32), 2048, 1, dev)
+        ident = n == 2048
+        if ident:
+            ys[0] = xs[0]               # pair 0 compares a cloud with itself
+        tag = f"N={n} M=2048"
+
+        x, y = xs[:8], ys[:8]
+        dl, dr = cdk.nn_distances(x, y)
+        again = cdk.nn_distances(x, y)
+        pdl, _, pdr, _ = cdk.nn_distances_plain(x, y)
+        torch.cuda.synchronize()
+        pt = max(float(pair_err(dl, pdl, CD_FLOOR).max()), float(pair_err(dr, pdr, CD_FLOOR).max()))
+        cd_k = dl.mean(-1) + dr.mean(-1)
+        e_cd = float(pair_err(cd_k, pdl.mean(-1) + pdr.mean(-1), CD_FLOOR).max())
+        print(f"kernel-vs-plain nnd_fwd {tag} B=8: per-point rel max {pt:.2e}, CD rel max "
+              f"{e_cd:.2e}" + (f", identical pair CD {float(cd_k[0]):.2e}" if ident else ""))
+        check(torch.equal(dl, again[0]) and torch.equal(dr, again[1]),
+              f"nnd_fwd bit-identical from run to run {tag}")
+        check(pt <= TOL_CD and e_cd <= TOL_CD, f"nnd_fwd {tag}: per point {pt}, CD {e_cd}")
+        check(not ident or float(cd_k[0]) <= TOL_CD_IDENTICAL, "CD of a cloud with itself")
+
+        errs = {}
+        for prec in ("exact", "fast"):
+            a = cdk.chamfer_pairwise(xs, ys, prec)
+            a2 = cdk.chamfer_pairwise(xs, ys, prec)
+            b = cdk.chamfer_pairwise_plain(xs, ys, prec)
+            torch.cuda.synchronize()
+            errs[prec] = float(pair_err(a, b, CD_FLOOR).max())
+            check(torch.equal(a, a2), f"cd_pairwise {prec} bit-identical from run to run {tag}")
+            check(errs[prec] <= TOL_CD, f"cd_pairwise {prec} {tag}: {errs[prec]}")
+        line = (f"kernel-vs-plain cd_pairwise {tag} 16x16: exact rel max {errs['exact']:.2e}, "
+                f"fast rel max {errs['fast']:.2e}")
+        if ident:
+            sym = cdk.chamfer_pairwise(xs, xs, "exact", symmetric=True)
+            full = cdk.chamfer_pairwise(xs, xs, "exact")
+            ctl = float(pair_err(cd_tf32_control(xs, ys), cdk.chamfer_pairwise_plain(xs, ys),
+                                 CD_FLOOR).max())
+            line += (f"; symmetric == full {torch.equal(sym, full)}, mirrored "
+                     f"{torch.equal(sym, sym.t())}, diagonal max {float(sym.diagonal().max()):.2e}; "
+                     f"limit {TOL_CD:.0e} against the TF32 control {ctl:.2e}")
+            check(torch.equal(sym, full) and torch.equal(sym, sym.t()),
+                  "the symmetric matrix equals the full one and its transpose")
+            check(float(sym.diagonal().max()) <= TOL_CD_IDENTICAL, "CD of each cloud with itself")
+            check(ctl > TOL_CD, f"the CD limit fails a TF32 control ({ctl})")
+        print(line)
+
+        a = emdk.emd_nograd(x, y)
+        a2 = emdk.emd_nograd(x, y)
+        b = emdk.emd_plain(x, y)
+        r64 = emdk.emd_plain(x.double(), y.double())
+        torch.cuda.synchronize()
+        kp, k64, p64 = pair_err(a, b, EMD_FLOOR), pair_err(a, r64, EMD_FLOOR), pair_err(b, r64, EMD_FLOOR)
+        print(f"kernel-vs-plain emd_batched exact {tag} B=8: rel median {med(kp):.2e} max "
+              f"{float(kp.max()):.2e}; against f64: kernel median {med(k64):.2e} max "
+              f"{float(k64.max()):.2e}, plain f32 median {med(p64):.2e} max {float(p64.max()):.2e}"
+              + (f"; identical pair {float(a[0]):.2e}" if ident else ""))
+        check(torch.equal(a, a2), f"emd_batched bit-identical from run to run {tag}")
+        for nm, e in (("plain", kp), ("f64", k64)):
+            check(med(e) <= TOL_EMD_MEDIAN and float(e.max()) <= TOL_EMD_MAX,
+                  f"emd_batched {tag} against {nm}: median {med(e)}, max {float(e.max())}")
+        if ident:
+            # the JAX package's own case (tests/test_emd.py:79): 64 random
+            # points, identical clouds read < 1e-3; on a dense 2048-point
+            # surface the first level (-4^7) still spreads mass to neighbours
+            # ~0.01 away, so there the pair is held to a share of the EMD
+            # between different clouds
+            sparse = torch.randn((2, 64, 3), generator=torch.Generator(device=dev).manual_seed(3),
+                                 device=dev) * 0.5
+            e64 = emdk.emd_nograd(sparse, sparse)
+            print(f"EMD of a cloud with itself: 64 random points {float(e64.max()):.2e}; "
+                  f"2048-point test cloud {float(a[0]):.2e} against {float(a[1:].median()):.2e}, "
+                  f"the median of the other pairs")
+            check(float(e64.max()) < TOL_EMD_IDENTICAL, "EMD of a 64-point cloud with itself")
+            check(float(a[0]) <= TOL_EMD_IDENTICAL_SHARE * float(a[1:].median()),
+                  "EMD of a test cloud with itself")
+
+        x8, y8 = xs[:8], ys[:8]
+        got = {}
+        for prec in ("fast", "exact"):
+            a = emdk.emd_pairwise(x8, y8, precision=prec)
+            a2 = emdk.emd_pairwise(x8, y8, precision=prec)
+            b = emdk.emd_pairwise_plain(x8, y8, precision=prec)
+            torch.cuda.synchronize()
+            e = pair_err(a, b, EMD_FLOOR)
+            got[prec] = (a, e)
+            check(torch.equal(a, a2), f"emd_pairwise {prec} bit-identical from run to run {tag}")
+            check(med(e) <= TOL_EMD_MEDIAN and float(e.max()) <= TOL_EMD_MAX,
+                  f"emd_pairwise {prec} {tag}: median {med(e)}, max {float(e.max())}")
+        fa, ex = got["fast"][0].clone(), got["exact"][0].clone()
+        if ident:
+            # fast mode's x.y from bf16 coordinates puts a phantom distance
+            # between identical points (exact reads ~0): not a drift
+            fa[0, 0] = ex[0, 0] = 1.0
+        fe = pair_err(fa, ex, EMD_FLOOR)
+        print(f"kernel-vs-plain emd_pairwise {tag} 8x8: fast rel median {med(got['fast'][1]):.2e} "
+              f"max {float(got['fast'][1].max()):.2e}, exact median {med(got['exact'][1]):.2e} max "
+              f"{float(got['exact'][1].max()):.2e}; fast against exact rel max {float(fe.max()):.2e}"
+              + (f" (identical pair left out: fast {float(got['fast'][0][0, 0]):.2e}, exact "
+                 f"{float(got['exact'][0][0, 0]):.2e})" if ident else ""))
+        check(bool(((fa - ex).abs() <= EMD_FAST_ATOL + TOL_EMD_FAST_EXACT * ex.abs()).all()),
+              f"emd_pairwise fast against exact {tag}: rel max {float(fe.max())}")
+        if not ident:
+            # a near-identical pair (cloud 0 at N points against itself at
+            # 2048): the phantom distance of fast mode's bf16 x.y on top of
+            # a small exact EMD, reported and left out of the check above
+            near = split_clouds(cfg, range(1), 2048, 2, dev)
+            nf = float(emdk.emd_pairwise(xs[:1], near, precision="fast")[0, 0])
+            ne = float(emdk.emd_pairwise(xs[:1], near, precision="exact")[0, 0])
+            print(f"near-identical pair {tag} (cloud 0 at both sizes): EMD fast {nf:.4e}, exact "
+                  f"{ne:.4e}, fast against exact rel {abs(nf - ne) / ne:.3e}")
+
+
+def run_eval_cli(argv):
+    """dpfx_torch.evaluate.main in-process; its output is echoed. Returns
+    (exit code, the results JSON of its last line, its own "wall s" timings,
+    the wall seconds of the whole call)."""
+    import contextlib
+    import io
+
+    import torch
+
+    from dpfx_torch import evaluate
+
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        rc = evaluate.main(argv)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    print(buf.getvalue(), end="")
+    lines = buf.getvalue().strip().splitlines()
+    timed = [ln for ln in lines if ln.startswith("[dpfx_torch] wall s: ")]
+    check(len(timed) == 1, "dpfx_torch.evaluate printed its timings")
+    return rc, json.loads(lines[-1]), json.loads(timed[0].split(": ", 1)[1]), wall
+
+
+def finite_numbers(d: dict) -> bool:
+    import math
+
+    for v in d.values():
+        if isinstance(v, dict) and not finite_numbers(v):
+            return False
+        if isinstance(v, (int, float)) and not math.isfinite(v):
+            return False
+    return True
+
+
+def eval_paths(cfg, dev, ckpt_dir: Path, trained_pt: Path):
+    """Phase 3c. Returns the launch counts of each path, the two halves of
+    the test split and the ideal row's matrix timings."""
+    import numpy as np
+
+    from dpfx_torch.data import build_dataset, load_all_labels, stratified_indices
+    from dpfx_torch.metrics import compute_all_metrics
+    from dpfx_torch.ops import chamfer as cdk
+    from dpfx_torch.ops import emd as emdk
+    from dpfx_torch.ops import fused_sampler as fs
+
+    mods = (fs, cdk, emdk)
+    counts = lambda: {k: v for m in mods for k, v in m.launches.items()}
+
+    for m in mods:
+        m.reset_launch_counts()
+    rc, gen, gen_t, gen_wall = run_eval_cli([str(CONFIG), f"train.ckpt_dir={ckpt_dir}", "--step",
+                                      str(TRAIN_STEPS), "--limit", str(EVAL_LIMIT)])
+    gen_launches = counts()
+    keys = {"step", "n_test", "mmd-cd", "cov-cd", "1-nna-cd", "mmd-emd", "cov-emd", "1-nna-emd",
+            "jsd", "jsd_fit", "jsd_raw", "jsd_frame", "per_category", "per_category_convention"}
+    check(rc == 0 and set(gen) == keys, f"generation results keys {sorted(gen)}")
+    check(gen["step"] == TRAIN_STEPS and gen["n_test"] == EVAL_LIMIT and finite_numbers(gen),
+          f"generation results {gen}")
+    check(all(0.0 <= gen[k] <= 1.0 for k in ("cov-cd", "1-nna-cd", "cov-emd", "1-nna-emd")),
+          "COV and 1-NNA in [0, 1]")
+    for k in ("cd_pairwise", "emd_pairwise", "fused_sample"):
+        check(gen_launches[k] > 0, f"kernel {k} was not launched on the generation path")
+
+    for m in mods:
+        m.reset_launch_counts()
+    rc, ae, ae_t, ae_wall = run_eval_cli([str(AE_CONFIG), "--weights", str(trained_pt), "--limit",
+                                    str(EVAL_LIMIT)])
+    ae_launches = counts()
+    check(rc == 0 and {"step", "n_test", "recon-cd", "recon-emd"} <= set(ae) and finite_numbers(ae),
+          f"AE results {ae}")
+    for k in ("nnd_fwd", "emd_batched", "fused_sample"):
+        check(ae_launches[k] > 0, f"kernel {k} was not launched on the AE path")
+    from dpfx_torch.config import load_config
+
+    ae_bsz = load_config(str(AE_CONFIG)).eval.batch_size
+    batches = -(-EVAL_LIMIT // ae_bsz)
+    print(f"evaluation paths on the {TRAIN_STEPS}-step checkpoint, {EVAL_LIMIT} test clouds: "
+          f"generation suite {gen_t['total']:.3f} s ({gen_wall:.2f} s with restore and data), "
+          f"launches {json.dumps(gen_launches)}; AE {ae_t['total'] / batches * 1e3:.2f} ms per "
+          f"{ae_bsz}-cloud batch ({batches} batches, {ae_wall:.2f} s with restore "
+          f"and data), launches {json.dumps(ae_launches)}")
+
+    # the suite is not vacuous: two halves of one distribution read ~0.5,
+    # a shifted copy ~1
+    labels = load_all_labels(build_dataset(cfg.data, "test"))
+    pick = stratified_indices(labels, 2 * EVAL_LIMIT, seed=1)
+    half_a = split_clouds(cfg, pick[0::2], 2048, 1, dev)
+    half_b = split_clouds(cfg, pick[1::2], 2048, 2, dev)
+    ideal_t, shift_t = {}, {}
+    ideal = compute_all_metrics(half_a, half_b, ("cd", "emd"), timings=ideal_t)
+    shifted = compute_all_metrics(half_a + 0.5, half_b, ("cd", "emd"), timings=shift_t)
+    s, n_sym = EVAL_LIMIT, EVAL_LIMIT * (EVAL_LIMIT + 1) // 2
+    per_pair = {k: v / (n_sym if k in ("cd_gg", "cd_rr") else s * s) * 1e6
+                for k, v in ideal_t.items() if k != "jsd"}
+    print(f"non-vacuity ({s} + {s} clouds): ideal halves 1-NNA-CD {ideal['1-nna-cd']:.4f}, "
+          f"1-NNA-EMD {ideal['1-nna-emd']:.4f}, COV-CD {ideal['cov-cd']:.4f}, JSD "
+          f"{ideal['jsd']:.5f}; shifted by 0.5: 1-NNA-CD {shifted['1-nna-cd']:.4f}, 1-NNA-EMD "
+          f"{shifted['1-nna-emd']:.4f}; matrix wall s {json.dumps({k: round(v, 4) for k, v in ideal_t.items()})}"
+          f"; us per pair {json.dumps({k: round(v, 2) for k, v in per_pair.items()})}")
+    for k in ("1-nna-cd", "1-nna-emd"):
+        check(0.35 <= ideal[k] <= 0.65, f"ideal-row {k} {ideal[k]} in [0.35, 0.65]")
+        check(shifted[k] >= 0.9, f"shifted {k} {shifted[k]} >= 0.9")
+    return gen_launches, ae_launches, half_a, half_b
+
+
+def timed_once(fn):
+    """(fn(), its ms on CUDA events): one call, for the slow plain versions,
+    whose result is also the reference of a check."""
+    import torch
+
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    start.record()
+    out = fn()
+    end.record()
+    torch.cuda.synchronize()
+    return out, start.elapsed_time(end)
+
+
+def eval_kernel_rows(half_a, half_b, gen_launches, ae_launches):
+    """Phase 4's rows for the evaluation kernels: a 128 x 128 matrix at
+    N=2048 for the pairwise kernels (CD exact, EMD fast: the suite's
+    defaults; CD also in the triangle mode of the suite's self-matrices),
+    B=32 (the eval batch) for the diagonal ones. Each is held to its plain
+    version at these shapes by phase 2c's rules."""
+    import torch
+
+    from dpfx_torch.ops import chamfer as cdk
+    from dpfx_torch.ops import emd as emdk
+
+    med = lambda e: float(e.median())
+    s, n = half_a.shape[0], half_a.shape[1]
+    xb, yb = half_a[:32], half_b[:32]
+    b = xb.shape[0]
+    rows = []
+
+    dl, dr = cdk.nn_distances(xb, yb)
+    (pdl, _, pdr, _), plain = timed_once(lambda: cdk.nn_distances_plain(xb, yb))
+    err = max(float((dl - pdl).abs().max()), float((dr - pdr).abs().max()))
+    pt = max(float(pair_err(dl, pdl, CD_FLOOR).max()), float(pair_err(dr, pdr, CD_FLOOR).max()))
+    e_nnd = float(pair_err(dl.mean(-1) + dr.mean(-1), pdl.mean(-1) + pdr.mean(-1), CD_FLOOR).max())
+    check(pt <= TOL_CD and e_nnd <= TOL_CD, f"nnd_fwd B={b}: per point {pt}, CD {e_nnd}")
+    ms = cuda_ms(lambda: cdk.nn_distances(xb, yb), 20)
+    (bd, by), _ = eval_bounds(b, n, n, b, b, b * 2 * n)
+    rows.append(("nnd_fwd", "chamfer", "dpfx/ops/chamfer.py:130", ae_launches["nnd_fwd"], err, ms,
+                 plain, bd, by))
+
+    m = cdk.chamfer_pairwise(half_a, half_b)
+    pm, plain = timed_once(lambda: cdk.chamfer_pairwise_plain(half_a, half_b))
+    err = float((m - pm).abs().max())
+    e_cd = float(pair_err(m, pm, CD_FLOOR).max())
+    check(e_cd <= TOL_CD, f"cd_pairwise {s}x{s}: {e_cd}")
+    sym = cdk.chamfer_pairwise(half_a, half_a, symmetric=True)
+    e_sym = float(pair_err(sym, cdk.chamfer_pairwise_plain(half_a, half_a), CD_FLOOR).max())
+    check(e_sym <= TOL_CD and torch.equal(sym, sym.t()), f"cd_pairwise symmetric {s}x{s}: {e_sym}")
+    ms = cuda_ms(lambda: cdk.chamfer_pairwise(half_a, half_b), 5)
+    (bd, by), _ = eval_bounds(s * s, n, n, s, s, s * s)
+    rows.append(("cd_pairwise", "chamfer", "dpfx/ops/chamfer.py:255", gen_launches["cd_pairwise"],
+                 err, ms, plain, bd, by))
+    sym_ms = cuda_ms(lambda: cdk.chamfer_pairwise(half_a, half_a, symmetric=True), 5)
+    fast_ms = cuda_ms(lambda: cdk.chamfer_pairwise(half_a, half_b, "fast"), 5)
+
+    e = emdk.emd_nograd(xb, yb)
+    pe, plain = timed_once(lambda: emdk.emd_plain(xb, yb))
+    err = float((e - pe).abs().max())
+    e_b = pair_err(e, pe, EMD_FLOOR)
+    check(med(e_b) <= TOL_EMD_MEDIAN and float(e_b.max()) <= TOL_EMD_MAX,
+          f"emd_batched B={b}: median {med(e_b)}, max {float(e_b.max())}")
+    ms = cuda_ms(lambda: emdk.emd_nograd(xb, yb), 5)
+    _, (bd, by) = eval_bounds(b, n, n, b, b, b)
+    rows.append(("emd_batched", "emd", "dpfx/ops/emd.py:356", ae_launches["emd_batched"], err, ms,
+                 plain, bd, by))
+
+    e, ms = timed_once(lambda: emdk.emd_pairwise(half_a, half_b))
+    pe, plain = timed_once(lambda: emdk.emd_pairwise_plain(half_a, half_b))
+    err = float((e - pe).abs().max())
+    e_p = pair_err(e, pe, EMD_FLOOR)
+    check(med(e_p) <= TOL_EMD_MEDIAN and float(e_p.max()) <= TOL_EMD_MAX,
+          f"emd_pairwise fast {s}x{s}: median {med(e_p)}, max {float(e_p.max())}")
+    exact_ms = cuda_ms(lambda: emdk.emd_pairwise(half_a, half_b, precision="exact"), 1, warmup=0)
+    _, (bd, by) = eval_bounds(s * s, n, n, s, s, s * s)
+    rows.append(("emd_pairwise", "emd", "dpfx/ops/emd.py:435", gen_launches["emd_pairwise"], err,
+                 ms, plain, bd, by))
+    torch.cuda.synchronize()
+    print(f"kernel-vs-plain at the paths' shapes, N={n}: nnd_fwd B={b} per-point rel max {pt:.2e}, "
+          f"CD rel max {e_nnd:.2e}; cd_pairwise {s}x{s} exact rel max {e_cd:.2e}, symmetric "
+          f"(triangle) rel max {e_sym:.2e}; emd_batched B={b} rel median {med(e_b):.2e} max "
+          f"{float(e_b.max()):.2e}; emd_pairwise {s}x{s} fast rel median {med(e_p):.2e} max "
+          f"{float(e_p.max()):.2e}")
+    print(f"evaluation kernels at N={n}: nnd_fwd B={b} {rows[0][5]:.3f} ms; cd_pairwise {s}x{s} "
+          f"exact {rows[1][5]:.3f} ms ({rows[1][5] / (s * s) * 1e3:.3f} us/pair), fast "
+          f"{fast_ms:.3f} ms, symmetric {sym_ms:.3f} ms; emd_batched B={b} {rows[2][5]:.3f} ms; "
+          f"emd_pairwise {s}x{s} fast {rows[3][5]:.3f} ms ({rows[3][5] / (s * s) * 1e3:.2f} "
+          f"us/pair), exact {exact_ms:.3f} ms ({exact_ms / (s * s) * 1e3:.2f} us/pair)")
+    return [{"name": nm, "route": "cuda", "source": f"dpfx_torch/ops/csrc/{src}.cu",
+             "replaces": where, "launches": launched, "max_abs_err": err, "ms": ms,
+             "plain_ms": plain, "bound_ms": bd, "bound_by": by, "library_ms": None}
+            for nm, src, where, launched, err, ms, plain, bd, by in rows]
 
 
 def main() -> int:
@@ -343,6 +788,9 @@ def main() -> int:
                       f"fused_encoder forward and backward: {ctl:.2e}")
                 check(ctl > TOL_GRAD_F32, f"the f32 limit fails a TF32 control ({ctl})")
 
+    # ---- 2c. the evaluation kernels vs their plain versions
+    eval_kernel_checks(cfg, dev)
+
     # ---- 3. the main path at full width
     WORK.mkdir(parents=True, exist_ok=True)
     weights, samples = WORK / "flagship_random.pt", WORK / "samples.npy"
@@ -475,6 +923,9 @@ def main() -> int:
           "fused step agrees with the module path")
     del fmodel, ref_model
 
+    # ---- 3c. the evaluation paths at full width, on phase 3b's checkpoint
+    gen_launches, ae_launches, half_a, half_b = eval_paths(cfg, dev, ckpt_dir, trained_pt)
+
     # ---- 4. per-kernel numbers at the main path's shapes (B=64, N=2048, bf16)
     b, n = 64, 2048
     z = torch.randn((b, cfg.model.dz), generator=g, device=dev)
@@ -582,6 +1033,7 @@ def main() -> int:
           f"{ef_ms:.3f} ms (bound {b_ef:.4f}), bwd {eb_ms:.3f} ms (bound {b_eb:.4f}) ({card})")
     print(f"kernel rates at B={b} N={n}: fused_inverse {flops / inv_ms / 1e9:.1f} TFLOP/s, "
           f"fused_sample {flops / smp_ms / 1e9:.1f} TFLOP/s ({card})")
+    kernels += eval_kernel_rows(half_a, half_b, gen_launches, ae_launches)
     print(json.dumps({"kernels": kernels}))
 
     # ---- 5. where the main path's time goes (torch.profiler, 5 sampler calls)
@@ -631,6 +1083,27 @@ def main() -> int:
           f"profiler, {1 - busy_us / 5e3 / step_ms:.3f} against the unprofiled "
           f"{step_ms:.3f} ms/step; {sum(e.count for e in dev_events) // 5} kernels/step; top: "
           + "; ".join(f"{e.key[:70]} {e.self_device_time_total / 5e3:.3f} ms x{e.count // 5}"
+                      for e in top))
+
+    # ---- 5c. where the generation suite's time goes (one call at S=128)
+    from dpfx_torch.metrics import compute_all_metrics
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        compute_all_metrics(half_a, half_b, ("cd", "emd"))
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    dev_events = [e for e in prof.key_averages()
+                  if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0]
+    check(any("emd_kernel" in e.key for e in dev_events)
+          and any("chamfer_kernel" in e.key for e in dev_events),
+          "the profiler saw the evaluation kernels on the device")
+    busy_us = sum(e.self_device_time_total for e in dev_events)
+    top = sorted(dev_events, key=lambda e: -e.self_device_time_total)[:6]
+    print(f"profile generation suite {half_a.shape[0]} + {half_b.shape[0]} clouds x 2048 (CD "
+          f"exact, EMD fast, JSD): wall {wall_us / 1e6:.3f} s, device busy {busy_us / 1e6:.3f} s, "
+          f"idle share {1 - busy_us / wall_us:.3f}; top: "
+          + "; ".join(f"{e.key[:60]} {e.self_device_time_total / 1e3:.3f} ms x{e.count}"
                       for e in top))
     print(card)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -7,11 +7,15 @@ Two formats:
     optional leading ``params/`` is accepted), converted by
     ``dpfx_torch.compat.params.params_from_flax``.
 Anything else raises. Orbax checkpoints are not read yet.
+``checkpoint_path`` finds the trainer's ``params_<step:08d>.pt`` under
+``train.ckpt_dir/name`` (the newest by default), as the eval CLI does.
 """
 
 from __future__ import annotations
 
+import re
 from pathlib import Path
+from typing import Optional, Tuple
 
 import numpy as np
 import torch
@@ -41,3 +45,19 @@ def restore_for_eval(cfg: Config, weights: str, device: DeviceLike = None) -> DP
     model = DPF(cfg)
     model.load_state_dict(load_state_dict(weights), strict=True)
     return model.to(dev).eval()
+
+
+def checkpoint_path(cfg: Config, step: Optional[int] = None) -> Tuple[str, int]:
+    """``(<train.ckpt_dir>/<name>/params_<step:08d>.pt, step)``: the given
+    step, or the newest one there. Raises FileNotFoundError when absent."""
+    run_dir = Path(cfg.train.ckpt_dir) / cfg.name
+    if step is None:
+        steps = sorted(int(m.group(1)) for p in run_dir.glob("params_*.pt")
+                       if (m := re.fullmatch(r"params_(\d+)\.pt", p.name)))
+        if not steps:
+            raise FileNotFoundError(f"no params_<step>.pt checkpoint in {run_dir}")
+        step = steps[-1]
+    path = run_dir / f"params_{step:08d}.pt"
+    if not path.is_file():
+        raise FileNotFoundError(f"no checkpoint for step {step} at {path}")
+    return str(path), int(step)

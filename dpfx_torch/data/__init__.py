@@ -2,7 +2,8 @@
 ShapeNet (h5, npy directory) and the SVR datasets are ROADMAP Queue 1
 items."""
 
-from dpfx_torch.data.loader import iterate_batches, prefetch_batches, sample_cloud
+from dpfx_torch.data.loader import (eval_subset, iterate_batches, load_all, load_all_labels,
+                                    prefetch_batches, sample_cloud, stratified_indices)
 from dpfx_torch.data.synthetic import SyntheticDataset
 
 
@@ -17,5 +18,5 @@ def build_dataset(cfg, split: str):
                               "only 'synthetic' (ShapeNet and SVR datasets: ROADMAP Queue 1)")
 
 
-__all__ = ["SyntheticDataset", "build_dataset", "iterate_batches", "prefetch_batches",
-           "sample_cloud"]
+__all__ = ["SyntheticDataset", "build_dataset", "eval_subset", "iterate_batches", "load_all",
+           "load_all_labels", "prefetch_batches", "sample_cloud", "stratified_indices"]

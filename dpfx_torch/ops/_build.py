@@ -26,6 +26,7 @@ from typing import Dict, List
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "dpfx_torch_kernels"
 ARCH_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a"]
+SMEM_LIMIT = 232448    # bytes of shared memory a block may use (sm_90); the wrappers check it
 
 _loaded: Dict[str, ctypes.CDLL] = {}
 

@@ -1,9 +1,11 @@
 // Building blocks shared by the port's Hopper kernels (fused_sampler.cu,
-// fused_train.cu, fused_encoder.cu): dtype helpers, the activations, the
-// staging of a square weight matrix into shared memory, one block-wide
-// matrix product with a per-element epilogue (WMMA on the tensor cores for
-// bf16 operands, register-tiled IEEE f32 FMA for f32), and the fixed-order
-// reduction of per-block partial sums.
+// fused_train.cu, fused_encoder.cu, chamfer.cu, emd.cu): dtype helpers, the
+// activations, the staging of a square weight matrix into shared memory,
+// one block-wide matrix product with a per-element epilogue (WMMA on the
+// tensor cores for bf16 operands, register-tiled IEEE f32 FMA for f32), the
+// fixed-order reduction of per-block partial sums, and the point-cloud
+// pieces of the CD and EMD kernels (points as float4, squared distances,
+// a block-wide sum).
 //
 // Every function here is deterministic: a given input gives bit-identical
 // output from run to run (no atomics; every sum in a fixed order).
@@ -249,6 +251,46 @@ inline cudaError_t launch_reduce(const float* part, float* out, int G, int S, lo
   const long long n = (long long)G * E;
   reduce_slices<<<(unsigned)((n + 255) / 256), 256, 0, stream>>>(part, out, G, S, E);
   return cudaGetLastError();
+}
+
+// ---- point clouds (chamfer.cu, emd.cu)
+
+// [n, 3] f32 -> float4 (x, y, z, |p|^2), the block's threads striding over
+// the points; FAST rounds x, y, z to bf16 after the norm is taken
+template <bool FAST>
+__device__ void load_points(float4* dst, const float* __restrict__ src, int n) {
+  for (int i = threadIdx.x; i < n; i += blockDim.x) {
+    const float a = src[3 * i], b = src[3 * i + 1], c = src[3 * i + 2];
+    const float nrm = __fadd_rn(__fadd_rn(__fmul_rn(a, a), __fmul_rn(b, b)), __fmul_rn(c, c));
+    dst[i] = FAST ? make_float4(rnd<__nv_bfloat16>(a), rnd<__nv_bfloat16>(b), rnd<__nv_bfloat16>(c), nrm)
+                  : make_float4(a, b, c, nrm);
+  }
+}
+
+// squared distance max((|a|^2 + |b|^2) - 2 a.b, 0) of two loaded points,
+// each operation rounded on its own (never contracted into an FMA), so it
+// equals the plain torch expression bit for bit; the argument order does
+// not matter (IEEE add and multiply commute). FAST rounds it to bf16.
+template <bool FAST>
+__device__ __forceinline__ float sqdist(const float4 a, const float4 b) {
+  const float ab = __fadd_rn(__fadd_rn(__fmul_rn(a.x, b.x), __fmul_rn(a.y, b.y)), __fmul_rn(a.z, b.z));
+  const float d = fmaxf(__fsub_rn(__fadd_rn(a.w, b.w), __fmul_rn(2.f, ab)), 0.f);
+  return FAST ? rnd<__nv_bfloat16>(d) : d;
+}
+
+// the block's sum of v, the same in every thread, in a fixed order (a
+// butterfly within each warp, then the warps in order); red holds WARPS
+// floats of shared memory; every thread of a THREADS-wide block calls it
+__device__ __forceinline__ float block_sum(float v, float* red) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
+  __syncthreads();
+  if (threadIdx.x % 32 == 0) red[threadIdx.x / 32] = v;
+  __syncthreads();
+  float s = 0.f;
+#pragma unroll
+  for (int w = 0; w < WARPS; ++w) s += red[w];
+  return s;
 }
 
 }  // namespace dpfx

@@ -31,6 +31,7 @@ from typing import Dict, NamedTuple, Optional, Tuple
 import torch
 
 from dpfx_torch.models.coupling import ACTIVATIONS, CouplingFlow
+from dpfx_torch.ops._build import SMEM_LIMIT
 
 Tensor = torch.Tensor
 
@@ -39,7 +40,6 @@ launches: Dict[str, int] = {"fused_inverse": 0, "fused_sample": 0}
 
 ACT_CODES = {"relu": 0, "gelu": 1, "tanh": 2, "leaky_relu": 3}
 KERNEL_HIDDEN = (32, 64, 128, 256)     # conditioner widths the kernel is built for
-SMEM_LIMIT = 232448                    # bytes of shared memory a block may use (sm_90)
 
 
 def reset_launch_counts() -> None:

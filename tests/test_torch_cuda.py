@@ -1,7 +1,7 @@
 """The port's kernels (fused sampler, fused train forward/backward, fused
-encoder forward/backward) against their plain versions on the card, at small
-shapes. Marked ``gpu``: each test skips without a CUDA device. On a
-machine with one:
+encoder forward/backward, Chamfer, approxmatch EMD) against their plain
+versions on the card, at small shapes. Marked ``gpu``: each test skips
+without a CUDA device. On a machine with one:
 
     python -m pytest tests/test_torch_cuda.py -m gpu --noconftest
 
@@ -216,3 +216,102 @@ def test_train_step_on_card_skips_a_nonfinite_batch(cuda):
     assert state.opt_state.count == 1
     for a, b in ((state.params, params), (state.opt_state.mu, mu), (state.opt_state.nu, nu)):
         assert torch.equal(a, b)
+
+
+# ---------------------------------------------------------------- evaluation kernels
+
+def _eval_clouds(cuda, s, n, seed):
+    g = torch.Generator(device=cuda).manual_seed(seed)
+    return torch.randn((s, n, 3), generator=g, device=cuda) * 0.5
+
+
+def _pair_rel(a, b, floor):
+    return float(((a.double() - b.double()).abs() / b.double().abs().clamp_min(floor)).max())
+
+
+@pytest.mark.parametrize("n,m", [(256, 256), (200, 317), (37, 101)])
+def test_chamfer_kernels_match_plain(cuda, n, m):
+    """nnd_fwd and cd_pairwise (exact, fast) against their plain versions:
+    the distances are the same expression rounded op by op, so only the
+    order of the sums of minima differs (limit 1e-5, dpfx's own)."""
+    from dpfx_torch.ops import chamfer as cdk
+
+    xs, ys = _eval_clouds(cuda, 4, n, 1), _eval_clouds(cuda, 3, m, 2)
+    cdk.reset_launch_counts()
+    dl, dr = cdk.nn_distances(xs[:3], ys)
+    pdl, _, pdr, _ = cdk.nn_distances_plain(xs[:3], ys)
+    torch.testing.assert_close(dl, pdl, rtol=1e-5, atol=1e-7)
+    torch.testing.assert_close(dr, pdr, rtol=1e-5, atol=1e-7)
+    for prec in ("exact", "fast"):
+        got = cdk.chamfer_pairwise(xs, ys, prec)
+        assert torch.equal(got, cdk.chamfer_pairwise(xs, ys, prec)), "not bit-identical"
+        assert _pair_rel(got, cdk.chamfer_pairwise_plain(xs, ys, prec), 1e-7) <= 1e-5
+    torch.cuda.synchronize()
+    assert cdk.launches == {"nnd_fwd": 1, "cd_pairwise": 4}
+
+
+def test_chamfer_symmetric_mirror_is_exact(cuda):
+    """The triangle mode computes the pairs j >= i and mirrors them: equal,
+    bit for bit, to the full matrix and to its own transpose."""
+    from dpfx_torch.ops import chamfer as cdk
+
+    xs = _eval_clouds(cuda, 9, 300, 3)
+    sym = cdk.chamfer_pairwise(xs, xs, symmetric=True)
+    assert torch.equal(sym, cdk.chamfer_pairwise(xs, xs))
+    assert torch.equal(sym, sym.t())
+    assert float(sym.diagonal().abs().max()) <= 1e-5
+    with pytest.raises(ValueError, match="self-comparison"):
+        cdk.chamfer_pairwise(xs, xs[:, :200], symmetric=True)
+
+
+@pytest.mark.parametrize("n,m", [(256, 256), (200, 317)])
+def test_emd_kernels_match_plain(cuda, n, m):
+    """emd_batched (exact) and emd_pairwise (fast, exact) against their plain
+    versions. approxmatch carries rounding through its recursion, so the
+    median pair is held to dpfx's 1e-4 and the largest to 5e-3 (see
+    chip_smoke.py's TOL_EMD_* for the measurement)."""
+    from dpfx_torch.ops import emd as emdk
+
+    xs, ys = _eval_clouds(cuda, 4, n, 4), _eval_clouds(cuda, 4, m, 5)
+    emdk.reset_launch_counts()
+
+    def held(a, b):
+        e = (a.double() - b.double()).abs() / b.double().abs().clamp_min(1e-5)
+        return float(e.median()) <= 1e-4 and float(e.max()) <= 5e-3
+
+    a = emdk.emd_nograd(xs, ys)
+    assert torch.equal(a, emdk.emd_nograd(xs, ys)), "not bit-identical"
+    assert held(a, emdk.emd_plain(xs, ys))
+    for prec in ("fast", "exact"):
+        got = emdk.emd_pairwise(xs, ys, precision=prec)
+        assert torch.equal(got, emdk.emd_pairwise(xs, ys, precision=prec)), "not bit-identical"
+        assert held(got, emdk.emd_pairwise_plain(xs, ys, precision=prec))
+    torch.cuda.synchronize()
+    assert emdk.launches == {"emd_batched": 2, "emd_pairwise": 4}
+    same = emdk.emd_nograd(xs[:, :64], xs[:, :64])
+    assert float(same.max()) < 1e-3
+
+
+def test_eval_kernel_conditions(cuda):
+    """The kernels' shared memory fits up to MAX_POINTS, sizes beyond it
+    raise before any launch, and gradients are refused."""
+    from dpfx_torch.ops import chamfer as cdk
+    from dpfx_torch.ops import emd as emdk
+
+    for n, m in ((1, 1), (2048, 2048), (2000, 4096), (4096, 4096)):
+        assert 0 < cdk.smem_bytes(n, m) < emdk.smem_bytes(n, m) <= cdk.SMEM_LIMIT
+    big = torch.zeros((1, cdk.MAX_POINTS + 1, 3), device=cuda)
+    small = torch.zeros((1, 8, 3), device=cuda)
+    cdk.reset_launch_counts()
+    emdk.reset_launch_counts()
+    with pytest.raises(ValueError, match="points per cloud"):
+        cdk.chamfer_pairwise(big, small)
+    with pytest.raises(ValueError, match="points per cloud"):
+        emdk.emd_nograd(small, big)
+    assert sum(cdk.launches.values()) + sum(emdk.launches.values()) == 0
+    with pytest.raises(NotImplementedError, match="Queue 2 #8"):
+        cdk.nn_distances(small.clone().requires_grad_(True), small)
+    # the largest clouds the kernels take (EMD: 224 KB of shared memory)
+    x, y = _eval_clouds(cuda, 1, cdk.MAX_POINTS, 6), _eval_clouds(cuda, 1, cdk.MAX_POINTS, 7)
+    assert _pair_rel(cdk.chamfer(x, y), cdk.chamfer_plain(x, y), 1e-7) <= 1e-5
+    assert _pair_rel(emdk.emd_nograd(x, y), emdk.emd_plain(x, y), 1e-5) <= 5e-3
