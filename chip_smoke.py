@@ -22,7 +22,12 @@ script exits non-zero without a result line):
      128/128/256/512, a cloud of duplicated points and a dead feature), each
      backward run twice and required bit-identical; the plain f32 backwards
      run once more with TF32 products allowed, a control that the f32 limit
-     must fail;
+     must fail; then the latent-flow kernels (fused_latent.cu) at the
+     flagship latent widths (K=14, dz=128, H=256) and B=8, 64 and 130 (a
+     ragged last tile over nine blocks): forward (u, log-det), inverse and
+     backward (dz, every weight and bias gradient) in f32 and bf16, the
+     backward twice and required bit-identical, a TF32 control of the plain
+     f32 backward, and the f32 round trip fwd(inv(eps)) = eps;
   2c. the evaluation kernels (chamfer.cu, emd.cu) vs their plain versions on
      synthetic test-split clouds at N=2048 and at a ragged N=2000 against
      M=2048, with one pair of identical clouds: nnd_fwd (B=8), cd_pairwise
@@ -35,14 +40,20 @@ script exits non-zero without a result line):
      random seeded weights): dpfx_torch.generate.main for 64 clouds, the
      timed make_sampler(64, 2048), make_decoder and DPF.reconstruct on
      Gaussian-blob clouds; launch counts are zeroed just before and read
-     just after;
+     just after; then generate.main and make_sampler(64, 2048) again under
+     DPFX_SAMPLE_FUSED_LATENT=1 (the fused latent inverse), counts zeroed
+     and read around them, and the two samplers timed in turns;
   3b. the training path at full width: dpfx_torch.train's CLI for 30 steps of
      B=64 x N=2048 (data.synthetic_size cut to 512 clouds to bound host data
      generation), launch counts zeroed just before and read just after; every
      logged loss and grad norm finite, no step skipped, the params moved, and
      the saved checkpoint sampled by dpfx_torch.generate; then the train
-     step's time (CUDA events, batches on the card) and one fused step
-     against the module path on the same batch and noise;
+     step's time (CUDA events, batches on the card); the CLI again for 10
+     steps with train.fused_latent_flow=true on the same schedule (the same
+     checks, the latent kernels launched, its loss windows held to the
+     first run's); the train step with the fused latent flow off and on,
+     timed in turns; and one fused step, with and without the fused latent
+     flow, against the module path on the same batch and noise;
   3c. the evaluation paths at full width on phase 3b's checkpoint:
      dpfx_torch.evaluate's CLI for the generation suite
      (flagship_quality_v3_aug_100k.yaml) and AE reconstruction
@@ -53,14 +64,16 @@ script exits non-zero without a result line):
      and on one half shifted by 0.5;
   4. at the main paths' shapes (B=64, N=2048, bf16): the training kernels
      held against their plain versions again (u, log-det, every gradient;
-     each backward bit-identical across two runs), then one JSON line with
+     each backward bit-identical across two runs), the latent-flow kernels
+     at B=64, then one JSON line with
      every kernel's error, time, plain time and bound, the evaluation
      kernels' at their paths' shapes (a 128 x 128 matrix at N=2048 for the
      pairwise kernels, CD also in triangle mode, B=32 for the diagonal ones),
      each held to its plain version there by phase 2c's limits;
-  5. torch.profiler breakdowns of make_sampler(64, 2048) and of 5 train
-     steps, and (5c) of one generation suite at S=128: device-busy time,
-     idle share and the kernels that take the time;
+  5. torch.profiler breakdowns of make_sampler(64, 2048) (plain and fused
+     latent inverse), of 5 train steps (fused latent flow off and on), and
+     (5c) of one generation suite at S=128: device-busy time, idle share,
+     kernels per call and the kernels that take the time;
   6. the card line again, then the last line: {"ok": true, "device": {...}}.
 It needs no network and starts no process that outlives it (nvcc and
 nvidia-smi are waited for).
@@ -69,6 +82,7 @@ nvidia-smi are waited for).
 from __future__ import annotations
 
 import json
+import os
 import subprocess
 import sys
 import time
@@ -124,6 +138,11 @@ TOL_GRAD_BF16 = 2e-2
 # the two): the bracket of tests/test_fused_train.py:192-231
 TOL_STEP_LOSS = 2e-2
 TOL_STEP_GNORM = 5e-2
+# the loss windows of 10 training steps with the fused latent flow against
+# the same steps with the module path (same init, data and noise): bf16
+# rounds at other places in the two, and 10 updates carry it on (seen:
+# 3.7e-5); a schedule that diverges in one diverges in the other as well
+TOL_TRAIN_DRIFT = 5e-2
 TRAIN_STEPS = 30
 
 
@@ -213,6 +232,22 @@ def train_bounds(sp, b: int, n: int):
     bwd = bound_of(2.0 * b * n * k * (27 * h + 3 * nh1 * h * h),
                    3 * 12 * b * n + 2 * 4 * b * k * h + 4 * b + 2 * nw + small
                    + 4 * (nw + k * (nh1 * h + 6)))
+    return fwd, bwd
+
+
+def latent_bounds(w, b: int):
+    """Forward (the inverse does the same work) and backward of the fused
+    latent flow at batch b: FLOP of the conditioner products (the backward
+    recomputes them, then the cotangent and weight-gradient products) and
+    the bytes of their inputs and outputs (bf16 weights, f32 biases, masks,
+    latents and gradients)."""
+    k, h, d = w["win"].shape
+    nh1 = w["wh"].shape[1]
+    nw = k * (h * d + nh1 * h * h + 2 * d * h)
+    nb = k * (h + nh1 * h + 2 * d)
+    small = 4 * (nb + k * d)
+    fwd = bound_of(2.0 * b * nw, 2 * nw + small + 2 * 4 * b * d + 4 * b)
+    bwd = bound_of(3 * 2.0 * b * nw, 2 * nw + small + 3 * 4 * b * d + 4 * b + 4 * (nw + nb))
     return fwd, bwd
 
 
@@ -534,6 +569,28 @@ def eval_paths(cfg, dev, ckpt_dir: Path, trained_pt: Path):
     return gen_launches, ae_launches, half_a, half_b
 
 
+def profiled(fn, calls: int, warmup: bool = True):
+    """fn() ``calls`` times under torch.profiler, synchronised (after one
+    unprofiled call with ``warmup``). Returns (wall us, device-busy us, the
+    device-side events: an aten op's entry would repeat its kernels' time)."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    if warmup:
+        fn()
+        torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    events = [e for e in prof.key_averages()
+              if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0]
+    return wall_us, sum(e.self_device_time_total for e in events), events
+
+
 def timed_once(fn):
     """(fn(), its ms on CUDA events): one call, for the slow plain versions,
     whose result is also the reference of a check."""
@@ -643,6 +700,7 @@ def main() -> int:
     from dpfx_torch.models import DPF
     from dpfx_torch.ops import _build
     from dpfx_torch.ops import fused_encoder as fe
+    from dpfx_torch.ops import fused_latent as fl
     from dpfx_torch.ops import fused_sampler as fs
     from dpfx_torch.ops import fused_train as ft
     from dpfx_torch.sampling import make_decoder, make_sampler
@@ -788,6 +846,59 @@ def main() -> int:
                       f"fused_encoder forward and backward: {ctl:.2e}")
                 check(ctl > TOL_GRAD_F32, f"the f32 limit fails a TF32 control ({ctl})")
 
+    # ---- 2b'. the latent-flow kernels vs their plain versions at the flagship
+    # latent widths; B=130 is a ragged last tile over nine blocks
+    lfc = cfg.model.latent_flow
+    with torch.no_grad():
+        lw = fl.stack_latent_params(model.latent_flow)
+    lmasks = fl.latent_masks(lfc.n_layers, cfg.model.dz, dev)
+    cap = float(lfc.scale_cap)
+    check((lfc.n_layers, lw["win"].shape[1], lw["wh"].shape[1]) == (14, 256, 1),
+          f"flagship latent widths, got K={lfc.n_layers} H={lw['win'].shape[1]}")
+    lat_names = ("dz",) + fl.KEYS
+    lat_flat = lambda r: [r[0]] + [r[1][kk] for kk in fl.KEYS]
+    for b in (8, 64, 130):
+        z = torch.randn((b, cfg.model.dz), generator=g, device=dev)
+        for dtype in (torch.float32, torch.bfloat16):
+            f32 = dtype == torch.float32
+            tol = TOL_GRAD_F32 if f32 else TOL_GRAD_BF16
+            u, ld = fl.latent_forward_kernel(lw, lmasks, cap, z, dtype)
+            u_p, ld_p = fl.latent_forward_plain(lw, lmasks, cap, z, dtype)
+            zi = fl.latent_inverse_kernel(lw, lmasks, cap, z, dtype)
+            zi_p = fl.latent_inverse_plain(lw, lmasks, cap, z, dtype)
+            du = torch.randn(u.shape, generator=g, device=dev)
+            dld = torch.randn(ld.shape, generator=g, device=dev)
+            got = lat_flat(fl.latent_backward_kernel(lw, lmasks, cap, u_p, du, dld, dtype))
+            again = lat_flat(fl.latent_backward_kernel(lw, lmasks, cap, u_p, du, dld, dtype))
+            ref = lat_flat(fl.latent_backward_plain(lw, lmasks, cap, u_p, du, dld, dtype))
+            torch.cuda.synchronize()
+            emax, e999 = errors(zi, zi_p)
+            gerr = {nm: rel(a, r) for nm, a, r in zip(lat_names, got, ref) if r.numel()}
+            print(f"kernel-vs-plain fused_latent B={b} {dtype}: u rel {rel(u, u_p):.3e}, log-det "
+                  f"rel {rel(ld, ld_p):.3e}; inverse max_abs={emax:.3e} p99.9={e999:.3e} "
+                  f"(|z|max={float(zi_p.abs().max()):.2f}); grad rel "
+                  + " ".join(f"{kk}={v:.2e}" for kk, v in gerr.items()))
+            check(all(torch.equal(a, c) for a, c in zip(got, again)),
+                  f"fused_latent backward bit-identical from run to run B={b} {dtype}")
+            check(rel(u, u_p) <= tol and rel(ld, ld_p) <= tol and max(gerr.values()) <= tol,
+                  f"fused_latent B={b} {dtype}: u {rel(u, u_p)}, log-det {rel(ld, ld_p)}, "
+                  f"grads {gerr}")
+            if f32:
+                check(emax <= TOL_F32, f"fused_latent inverse f32 B={b}: {emax}")
+                back, _ = fl.latent_forward_kernel(lw, lmasks, cap, zi, dtype)
+                trip = float((back - z).abs().max())
+                print(f"fused_latent f32 round trip fwd(inv(eps)) B={b}: max_abs={trip:.3e}")
+                check(trip <= TOL_F32, f"fused_latent round trip B={b}: {trip}")
+            else:
+                check(emax <= TOL_BF16_MAX and e999 <= TOL_BF16_P999,
+                      f"fused_latent inverse bf16 B={b}: max {emax}, p99.9 {e999}")
+            if f32 and b == 64:
+                ctl = tf32_control(lambda: lat_flat(fl.latent_backward_plain(
+                    lw, lmasks, cap, u_p, du, dld, dtype)), ref)
+                print(f"f32 limit {TOL_GRAD_F32:.0e} against a TF32 control of the plain "
+                      f"fused_latent backward: {ctl:.2e}")
+                check(ctl > TOL_GRAD_F32, f"the f32 limit fails a TF32 control ({ctl})")
+
     # ---- 2c. the evaluation kernels vs their plain versions
     eval_kernel_checks(cfg, dev)
 
@@ -823,6 +934,43 @@ def main() -> int:
           f"{sample_ms:.3f} ms/batch, {64 / sample_ms * 1e3:,.1f} clouds/s, "
           f"{64 * 2048 / sample_ms * 1e3:,.0f} points/s; sample std {float(clouds.std()):.3f}")
 
+    # the sampling path with the fused latent inverse (DPFX_SAMPLE_FUSED_LATENT=1)
+    lat_samples = WORK / "samples_fused_latent.npy"
+    os.environ["DPFX_SAMPLE_FUSED_LATENT"] = "1"
+    try:
+        fs.reset_launch_counts()
+        fl.reset_launch_counts()
+        rc = generate.main([str(CONFIG), "--weights", str(weights), "--n-clouds", "64",
+                            "--out", str(lat_samples), "--seed", "3"])
+        lat_sampler = make_sampler(model, 64, 2048, temperature=cfg.eval.temperature,
+                                   latent_temperature=cfg.eval.latent_temperature)
+        lat_clouds = lat_sampler(5)
+        torch.cuda.synchronize()
+        lat_launches = {**fs.launches, **fl.launches}
+    finally:
+        del os.environ["DPFX_SAMPLE_FUSED_LATENT"]
+    gen = np.load(lat_samples)
+    check(rc == 0 and gen.shape == (64, 2048, 3) and bool(np.isfinite(gen).all()),
+          f"generate output with the fused latent inverse {gen.shape}")
+    check(tuple(lat_clouds.shape) == (64, 2048, 3) and bool(torch.isfinite(lat_clouds).all()),
+          "sample with the fused latent inverse")
+    for kname in ("fused_latent_inv", "fused_sample"):
+        check(lat_launches[kname] > 0, f"kernel {kname} was not launched on the fused-latent "
+                                       "sampling path")
+    # the two samplers in turns (module latent, fused, fused, module)
+    turns = [cuda_ms(lambda: fn(4), iters=20)
+             for fn in (sampler, lat_sampler, lat_sampler, sampler)]
+    plain_lat_ms, fused_lat_ms = (turns[0] + turns[3]) / 2, (turns[1] + turns[2]) / 2
+    eps = torch.randn((64, cfg.model.dz), generator=g, device=dev)
+    with torch.no_grad():
+        z_mod = model.latent_flow.inverse(eps)[0]
+    z_ker = fl.fused_latent_inverse(lw, eps, lfc)
+    print(f"sampling with the fused latent inverse: launches {json.dumps(lat_launches)}; "
+          f"make_sampler(64, 2048) module latent {plain_lat_ms:.3f} ms/batch, fused latent "
+          f"{fused_lat_ms:.3f} ms/batch (turns {', '.join(f'{t:.3f}' for t in turns)}; {card}); "
+          f"z kernel vs module max_abs {float((z_ker - z_mod).abs().max()):.3e} (bf16 rounds "
+          f"at other places), sample std {float(lat_clouds.std()):.3f}")
+
     # ---- 3b. the training path at full width (dpfx_torch.train's CLI)
     import copy
     import shutil
@@ -848,7 +996,7 @@ def main() -> int:
         mod.reset_launch_counts()
     t0 = time.perf_counter()
     try:
-        rc = train_cli.main([str(CONFIG), f"train.steps={TRAIN_STEPS}", "train.log_every=10",
+        rc = train_cli.main([str(CONFIG), f"train.steps={TRAIN_STEPS}", "train.log_every=5",
                              f"train.ckpt_every={TRAIN_STEPS}", f"train.ckpt_dir={ckpt_dir}",
                              "data.synthetic_size=512"])
     finally:
@@ -858,7 +1006,8 @@ def main() -> int:
     train_launches = {**ft.launches, **fe.launches}
     run_dir = ckpt_dir / cfg.name
     records = [json.loads(line) for line in (run_dir / "metrics.jsonl").read_text().splitlines()]
-    check(rc == 0 and [r["step"] for r in records] == [10, 20, 30], f"train records {records}")
+    check(rc == 0 and [r["step"] for r in records] == list(range(5, TRAIN_STEPS + 1, 5)),
+          f"train records {records}")
     check(all(np.isfinite(r["loss"]) and np.isfinite(r["grad_norm"]) for r in records),
           "every logged loss and grad norm is finite")
     check(all(r["nonfinite_skipped"] == 0 for r in records), "no step was skipped")
@@ -880,6 +1029,49 @@ def main() -> int:
           + ", ".join(f"{r['grad_norm']:.1f}" for r in records) + "; points/s "
           + ", ".join(f"{r['points_per_sec']:,.0f}" for r in records)
           + f"; {moved} tensors moved; trained checkpoint sampled, std {float(tclouds.std()):.3f}")
+
+    # the training CLI with the fused latent flow (train.fused_latent_flow=true)
+    # for 10 steps on the 30-step run's schedule (lr_decay_steps=30: warmup
+    # over 29 steps; with steps=10 alone it would reach the peak lr at step
+    # 9), so its loss windows are held to that run's first two
+    lat_dir = WORK / "train_fused_latent"
+    shutil.rmtree(lat_dir, ignore_errors=True)
+    init_weights.clear()
+    trainer_mod.init_params_ = init_then_randomize
+    for mod in (ft, fe, fl):
+        mod.reset_launch_counts()
+    t0 = time.perf_counter()
+    try:
+        rc = train_cli.main([str(CONFIG), "train.steps=10", "train.log_every=5",
+                             f"train.lr_decay_steps={TRAIN_STEPS}", "train.ckpt_every=10",
+                             f"train.ckpt_dir={lat_dir}", "data.synthetic_size=512",
+                             "train.fused_latent_flow=true"])
+    finally:
+        trainer_mod.init_params_ = flax_init
+    torch.cuda.synchronize()
+    lat_wall = time.perf_counter() - t0
+    lat_train_launches = {**ft.launches, **fe.launches, **fl.launches}
+    lat_run = lat_dir / cfg.name
+    lrecs = [json.loads(line) for line in (lat_run / "metrics.jsonl").read_text().splitlines()]
+    check(rc == 0 and [r["step"] for r in lrecs] == [5, 10], f"fused-latent train records {lrecs}")
+    check(all(np.isfinite(r["loss"]) and np.isfinite(r["grad_norm"]) for r in lrecs),
+          "every logged loss and grad norm is finite (fused latent flow)")
+    check(all(r["nonfinite_skipped"] == 0 for r in lrecs), "no step was skipped (fused latent flow)")
+    for kname in ("fused_train_fwd", "fused_train_bwd", "fused_encoder_fwd", "fused_encoder_bwd",
+                  "fused_latent_fwd", "fused_latent_bwd"):
+        check(lat_train_launches[kname] > 0,
+              f"kernel {kname} was not launched on the fused-latent training path")
+    lat_trained = torch.load(lat_run / "params_00000010.pt", map_location="cpu", weights_only=True)
+    lat_moved = sum(not torch.equal(lat_trained[kk], v) for kk, v in init_weights.items())
+    check(lat_moved == len(init_weights),
+          f"{lat_moved} of {len(init_weights)} parameters moved (fused latent flow)")
+    drift = max(abs(a["loss"] - r["loss"]) / abs(r["loss"]) for a, r in zip(lrecs, records))
+    print(f"training path with the fused latent flow: 10 steps of 64 x 2048 in {lat_wall:.1f} s "
+          f"wall; launches {json.dumps(lat_train_launches)}; loss "
+          + ", ".join(f"{r['loss']:.1f}" for r in lrecs) + "; grad norm "
+          + ", ".join(f"{r['grad_norm']:.1f}" for r in lrecs) + f"; {lat_moved} tensors moved; "
+          f"loss windows against the module-latent run's: rel {drift:.2e}")
+    check(drift <= TOL_TRAIN_DRIFT, f"fused-latent training tracks the module path ({drift})")
 
     # the train step alone, batches already on the card
     dcfg = copy.deepcopy(cfg.data)
@@ -904,24 +1096,57 @@ def main() -> int:
     print(f"train step at 64 x 2048 (fused point flow + fused encoder, bf16): {step_ms:.3f} "
           f"ms/step, {64 * 2048 / step_ms * 1e3:,.0f} points/s ({card})")
 
-    # one fused step against the module path: same weights, batch and noise
+    # the same step with the fused latent flow: off and on in turns (off,
+    # on, on, off), 10 steps each after 3 warm-up steps of each
+    lcfg = copy.deepcopy(cfg)
+    lcfg.train.fused_latent_flow = True
+    lmodel = copy.deepcopy(ref_model)
+    ltx = trainer_mod.make_optimizer(lcfg.train)
+    lstate = trainer_mod.init_state(lmodel, ltx)
+    lat_step = trainer_mod.make_train_step(lmodel, ltx, lcfg)
+    for i in range(3):
+        lstate, _ = lat_step(lstate, batches[i % 4])
+    runs = {"off": [train_step, tstate], "on": [lat_step, lstate]}
+
+    def timed_steps(key):
+        fn, st = runs[key]
+        start.record()
+        for i in range(10):
+            st, _ = fn(st, batches[i % 4])
+        end.record()
+        torch.cuda.synchronize()
+        runs[key][1] = st
+        return start.elapsed_time(end) / 10
+
+    ab = [(key, timed_steps(key)) for key in ("off", "on", "on", "off")]
+    tstate, lstate = runs["off"][1], runs["on"][1]
+    off_ms = sum(t for key, t in ab if key == "off") / 2
+    on_ms = sum(t for key, t in ab if key == "on") / 2
+    print(f"train step at 64 x 2048, fused latent flow off {off_ms:.3f} ms/step, on {on_ms:.3f} "
+          f"ms/step (turns {', '.join(f'{key} {t:.3f}' for key, t in ab)}; {card})")
+
+    # one fused step (latent flow fused or not) against the module path:
+    # same weights, batch and noise
     mcfg = copy.deepcopy(cfg)
     mcfg.train.fused_point_flow = mcfg.train.fused_encoder = False
-    fmodel = copy.deepcopy(ref_model)
     gb = torch.Generator(device=dev).manual_seed(6)
     batch = {"x": batches[0]["x"], "eps": torch.randn((64, cfg.model.dz), generator=gb, device=dev),
              "xnoise": torch.randn((64, 2048, 3), generator=gb, device=dev)}
-    out = []
-    for m, c in ((fmodel, cfg), (ref_model, mcfg)):
+    out = {}
+    for name, c in (("fused", cfg), ("fused latent", lcfg), ("module", mcfg)):
+        m = copy.deepcopy(ref_model)          # a step updates its model's parameters in place
         txm = trainer_mod.make_optimizer(c.train)
         _, mm = trainer_mod.make_train_step(m, txm, c)(trainer_mod.init_state(m, txm), batch)
-        out.append((float(mm["loss"]), float(mm["grad_norm"])))
-    (lf, gf), (lm, gm) = out
-    print(f"fused step vs module path: loss {lf:.4f} vs {lm:.4f} (rel {abs(lf - lm) / abs(lm):.2e}), "
-          f"grad norm {gf:.4f} vs {gm:.4f} (rel {abs(gf - gm) / abs(gm):.2e})")
-    check(abs(lf - lm) <= TOL_STEP_LOSS * abs(lm) and abs(gf - gm) <= TOL_STEP_GNORM * abs(gm),
-          "fused step agrees with the module path")
-    del fmodel, ref_model
+        out[name] = (float(mm["loss"]), float(mm["grad_norm"]))
+    lm, gm = out["module"]
+    for name in ("fused", "fused latent"):
+        lf, gf = out[name]
+        print(f"{name} step vs module path: loss {lf:.4f} vs {lm:.4f} (rel "
+              f"{abs(lf - lm) / abs(lm):.2e}), grad norm {gf:.4f} vs {gm:.4f} (rel "
+              f"{abs(gf - gm) / abs(gm):.2e})")
+        check(abs(lf - lm) <= TOL_STEP_LOSS * abs(lm) and abs(gf - gm) <= TOL_STEP_GNORM * abs(gm),
+              f"{name} step agrees with the module path")
+    del ref_model, lmodel
 
     # ---- 3c. the evaluation paths at full width, on phase 3b's checkpoint
     gen_launches, ae_launches, half_a, half_b = eval_paths(cfg, dev, ckpt_dir, trained_pt)
@@ -1033,72 +1258,91 @@ def main() -> int:
           f"{ef_ms:.3f} ms (bound {b_ef:.4f}), bwd {eb_ms:.3f} ms (bound {b_eb:.4f}) ({card})")
     print(f"kernel rates at B={b} N={n}: fused_inverse {flops / inv_ms / 1e9:.1f} TFLOP/s, "
           f"fused_sample {flops / smp_ms / 1e9:.1f} TFLOP/s ({card})")
+
+    # the latent-flow kernels at the main paths' batch (B=64, bf16)
+    z = torch.randn((b, cfg.model.dz), generator=g, device=dev)
+    u_k, ld_k = fl.latent_forward_kernel(lw, lmasks, cap, z, bf)
+    u_p, ld_p = fl.latent_forward_plain(lw, lmasks, cap, z, bf)
+    zi_k = fl.latent_inverse_kernel(lw, lmasks, cap, z, bf)
+    zi_p = fl.latent_inverse_plain(lw, lmasks, cap, z, bf)
+    du = torch.randn(u_p.shape, generator=g, device=dev)
+    dld = torch.randn((b,), generator=g, device=dev)
+    got = lat_flat(fl.latent_backward_kernel(lw, lmasks, cap, u_p, du, dld, bf))
+    ref = lat_flat(fl.latent_backward_plain(lw, lmasks, cap, u_p, du, dld, bf))
+    torch.cuda.synchronize()
+    lf_err, li_err, lb_err = maxerr((u_k, ld_k), (u_p, ld_p)), maxerr((zi_k,), (zi_p,)), maxerr(got, ref)
+    del got, ref
+    lf_ms = cuda_ms(lambda: fl.latent_forward_kernel(lw, lmasks, cap, z, bf), 50)
+    li_ms = cuda_ms(lambda: fl.latent_inverse_kernel(lw, lmasks, cap, z, bf), 50)
+    lb_ms = cuda_ms(lambda: fl.latent_backward_kernel(lw, lmasks, cap, u_p, du, dld, bf), 20)
+    lf_plain = cuda_ms(lambda: fl.latent_forward_plain(lw, lmasks, cap, z, bf), 5, warmup=1)
+    li_plain = cuda_ms(lambda: fl.latent_inverse_plain(lw, lmasks, cap, z, bf), 5, warmup=1)
+    lb_plain = cuda_ms(lambda: fl.latent_backward_plain(lw, lmasks, cap, u_p, du, dld, bf), 5,
+                       warmup=1)
+    (b_lf, by_lf), (b_lb, by_lb) = latent_bounds(lw, b)
+    lsrc = "dpfx_torch/ops/csrc/fused_latent.cu"
+    for name, where, launched, err, ms, plain, bnd, by in (
+            ("fused_latent_fwd", "dpfx/ops/fused_latent.py:151",
+             lat_train_launches["fused_latent_fwd"], lf_err, lf_ms, lf_plain, b_lf, by_lf),
+            ("fused_latent_bwd", "dpfx/ops/fused_latent.py:185",
+             lat_train_launches["fused_latent_bwd"], lb_err, lb_ms, lb_plain, b_lb, by_lb),
+            ("fused_latent_inv", "dpfx/ops/fused_latent.py:170", lat_launches["fused_latent_inv"],
+             li_err, li_ms, li_plain, b_lf, by_lf)):
+        kernels.append({"name": name, "route": "cuda", "source": lsrc, "replaces": where,
+                        "launches": launched, "max_abs_err": err, "ms": ms, "plain_ms": plain,
+                        "bound_ms": bnd, "bound_by": by, "library_ms": None})
+    print(f"latent-flow kernels at B={b} bf16: forward {lf_ms:.4f} ms (plain {lf_plain:.3f}, bound "
+          f"{b_lf:.5f}), backward {lb_ms:.4f} ms (plain {lb_plain:.3f}, bound {b_lb:.5f}), inverse "
+          f"{li_ms:.4f} ms (plain {li_plain:.3f}); max_abs err fwd {lf_err:.2e}, bwd {lb_err:.2e}, "
+          f"inv {li_err:.2e} ({card})")
     kernels += eval_kernel_rows(half_a, half_b, gen_launches, ae_launches)
+    check(len(kernels) == 13, f"{len(kernels)} kernel rows")
     print(json.dumps({"kernels": kernels}))
 
-    # ---- 5. where the main path's time goes (torch.profiler, 5 sampler calls)
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
+    # ---- 5. where the sampler's time goes (torch.profiler, 5 calls each)
+    seeds = iter(range(10, 1000))
+    for name, fn, kname in (("make_sampler(64, 2048)", sampler, "fused_inverse_kernel"),
+                            ("make_sampler(64, 2048), fused latent", lat_sampler, "flow_kernel")):
+        wall_us, busy_us, dev_events = profiled(lambda: fn(next(seeds)), 5)
+        check(any(kname in e.key for e in dev_events),
+              f"the profiler saw {kname} on the device ({name})")
+        top = sorted(dev_events, key=lambda e: -e.self_device_time_total)[:6]
+        unprofiled = fused_lat_ms if fn is lat_sampler else sample_ms
+        print(f"profile {name} x5: wall {wall_us / 5e3:.3f} ms/batch, device busy "
+              f"{busy_us / 5e3:.3f} ms/batch, idle share {1 - busy_us / wall_us:.3f} under the "
+              f"profiler, {1 - busy_us / 5e3 / unprofiled:.3f} against phase 3's unprofiled "
+              f"{unprofiled:.3f} ms/batch; {sum(e.count for e in dev_events) // 5} kernels/batch; "
+              "top: " + "; ".join(f"{e.key[:60]} {e.self_device_time_total / 5e3:.3f} ms "
+                                  f"x{e.count // 5}" for e in top))
 
-    sampler(10)
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        for i in range(5):
-            sampler(11 + i)
-        torch.cuda.synchronize()
-        wall_us = (time.perf_counter() - t0) * 1e6
-    # device-side events only: an aten op's entry repeats its kernels' time
-    dev_events = [e for e in prof.key_averages()
-                  if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0]
-    check(any("fused_inverse_kernel" in e.key for e in dev_events),
-          "the profiler saw the fused kernel on the device")
-    busy_us = sum(e.self_device_time_total for e in dev_events)
-    top = sorted(dev_events, key=lambda e: -e.self_device_time_total)[:6]
-    print(f"profile make_sampler(64, 2048) x5: wall {wall_us / 5e3:.3f} ms/batch, device busy "
-          f"{busy_us / 5e3:.3f} ms/batch, idle share {1 - busy_us / wall_us:.3f} under the "
-          f"profiler, {1 - busy_us / 5e3 / sample_ms:.3f} against phase 3's unprofiled "
-          f"{sample_ms:.3f} ms/batch; top: "
-          + "; ".join(f"{e.key[:60]} {e.self_device_time_total / 5e3:.3f} ms x{e.count // 5}"
-                      for e in top))
+    # ---- 5b. where the train step's time goes (torch.profiler, 5 steps each)
+    for key, name, unprofiled in (("off", "train step", off_ms),
+                                  ("on", "train step, fused latent flow", on_ms)):
+        def one_step():
+            fn, st = runs[key]
+            runs[key][1], _ = fn(st, batches[next(seeds) % 4])
 
-    # ---- 5b. where the train step's time goes (torch.profiler, 5 steps)
-    train_step(tstate, batches[0])
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        for i in range(5):
-            tstate, _ = train_step(tstate, batches[i % 4])
-        torch.cuda.synchronize()
-        wall_us = (time.perf_counter() - t0) * 1e6
-    dev_events = [e for e in prof.key_averages()
-                  if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0]
-    check(sum("bwd_kernel" in e.key for e in dev_events) >= 2
-          and sum("fwd_kernel" in e.key for e in dev_events) >= 2,
-          "the profiler saw the training kernels on the device")
-    busy_us = sum(e.self_device_time_total for e in dev_events)
-    top = sorted(dev_events, key=lambda e: -e.self_device_time_total)[:8]
-    print(f"profile train step x5: wall {wall_us / 5e3:.3f} ms/step, device busy "
-          f"{busy_us / 5e3:.3f} ms/step, idle share {1 - busy_us / wall_us:.3f} under the "
-          f"profiler, {1 - busy_us / 5e3 / step_ms:.3f} against the unprofiled "
-          f"{step_ms:.3f} ms/step; {sum(e.count for e in dev_events) // 5} kernels/step; top: "
-          + "; ".join(f"{e.key[:70]} {e.self_device_time_total / 5e3:.3f} ms x{e.count // 5}"
-                      for e in top))
+        wall_us, busy_us, dev_events = profiled(one_step, 5)
+        check(sum("bwd_kernel" in e.key for e in dev_events) >= (3 if key == "on" else 2)
+              and sum("fwd_kernel" in e.key for e in dev_events) >= 2
+              and (key == "off" or any("flow_kernel" in e.key for e in dev_events)),
+              f"the profiler saw the training kernels on the device ({name})")
+        top = sorted(dev_events, key=lambda e: -e.self_device_time_total)[:8]
+        print(f"profile {name} x5: wall {wall_us / 5e3:.3f} ms/step, device busy "
+              f"{busy_us / 5e3:.3f} ms/step, idle share {1 - busy_us / wall_us:.3f} under the "
+              f"profiler, {1 - busy_us / 5e3 / unprofiled:.3f} against the unprofiled "
+              f"{unprofiled:.3f} ms/step; {sum(e.count for e in dev_events) // 5} kernels/step; "
+              "top: " + "; ".join(f"{e.key[:70]} {e.self_device_time_total / 5e3:.3f} ms "
+                                  f"x{e.count // 5}" for e in top))
 
     # ---- 5c. where the generation suite's time goes (one call at S=128)
     from dpfx_torch.metrics import compute_all_metrics
 
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        compute_all_metrics(half_a, half_b, ("cd", "emd"))
-        torch.cuda.synchronize()
-        wall_us = (time.perf_counter() - t0) * 1e6
-    dev_events = [e for e in prof.key_averages()
-                  if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0]
+    wall_us, busy_us, dev_events = profiled(
+        lambda: compute_all_metrics(half_a, half_b, ("cd", "emd")), 1, warmup=False)
     check(any("emd_kernel" in e.key for e in dev_events)
           and any("chamfer_kernel" in e.key for e in dev_events),
           "the profiler saw the evaluation kernels on the device")
-    busy_us = sum(e.self_device_time_total for e in dev_events)
     top = sorted(dev_events, key=lambda e: -e.self_device_time_total)[:6]
     print(f"profile generation suite {half_a.shape[0]} + {half_b.shape[0]} clouds x 2048 (CD "
           f"exact, EMD fast, JSD): wall {wall_us / 1e6:.3f} s, device busy {busy_us / 1e6:.3f} s, "

@@ -1,11 +1,11 @@
 // Building blocks shared by the port's Hopper kernels (fused_sampler.cu,
-// fused_train.cu, fused_encoder.cu, chamfer.cu, emd.cu): dtype helpers, the
-// activations, the staging of a square weight matrix into shared memory,
-// one block-wide matrix product with a per-element epilogue (WMMA on the
-// tensor cores for bf16 operands, register-tiled IEEE f32 FMA for f32), the
-// fixed-order reduction of per-block partial sums, and the point-cloud
-// pieces of the CD and EMD kernels (points as float4, squared distances,
-// a block-wide sum).
+// fused_train.cu, fused_encoder.cu, fused_latent.cu, chamfer.cu, emd.cu):
+// dtype helpers, the activations, the staging of a square weight matrix
+// into shared memory, one block-wide matrix product with a per-element
+// epilogue (WMMA on the tensor cores for bf16 operands, register-tiled IEEE
+// f32 FMA for f32), the fixed-order reduction of per-block partial sums, and
+// the point-cloud pieces of the CD and EMD kernels (points as float4,
+// squared distances, a block-wide sum).
 //
 // Every function here is deterministic: a given input gives bit-identical
 // output from run to run (no atomics; every sum in a fixed order).

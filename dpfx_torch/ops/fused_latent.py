@@ -1,0 +1,367 @@
+"""Fused latent-prior flow: log p(z) with its backward (training) and the
+inverse eps -> z (sampling), each all K couplings in one CUDA kernel.
+
+Replaces the three Pallas TPU kernels of ``dpfx/ops/fused_latent.py``:
+``_lat_fwd_kernel`` (forward and per-sample log-det), ``_lat_bwd_kernel``
+(one reverse walk from u: dz and every weight gradient) and
+``_lat_inv_kernel``. The CUDA kernels are in ``csrc/fused_latent.cu``; see
+its header for the design and what bounds them. ``_LatentForward`` wraps
+the forward and backward as one ``torch.autograd.Function``.
+
+Layout: feature-last, z [B, dz], as the port's ``CouplingFlow`` (the JAX
+package puts dz on the TPU's sublane axis, [dz, B], and pads B to 128
+lanes; the port takes any B without padding). The stacked weights are
+those of ``stack_latent_params_jnp``: the mask folded into ``win``, the
+``out`` layer split into the ``ws/bs`` and ``wt/bt`` stacks, biases
+[K, n, 1].
+
+Rounding follows the Pallas kernels, not the modules: matmul operands in
+the compute dtype with float32 accumulation, bias and relu in float32, one
+cast; the coupling, the tanh cap and the log-det are float32. The backward
+casts every cotangent to the compute dtype before a product and sums bias
+gradients in float32.
+
+Every wrapper takes its plain PyTorch version for a tensor on the CPU and
+launches the kernel for a CUDA tensor (or raises). ``launches`` counts the
+kernel launches of each wrapper.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+import math
+from typing import Dict, Tuple
+
+import torch
+
+from dpfx_torch.models.coupling import CouplingFlow, make_masks
+from dpfx_torch.models.dpf import dtype_of
+from dpfx_torch.ops._build import SMEM_LIMIT
+
+Tensor = torch.Tensor
+Weights = Dict[str, Tensor]
+
+# kernel launches per wrapper; chip_smoke.py zeroes these around the main paths
+launches: Dict[str, int] = {"fused_latent_fwd": 0, "fused_latent_bwd": 0, "fused_latent_inv": 0}
+
+KEYS = ("win", "bin", "wh", "bh", "ws", "bs", "wt", "bt")
+MAX_BWD_BLOCKS = 32    # bounds the backward's per-block gradient scratch
+
+
+def reset_launch_counts() -> None:
+    for k in launches:
+        launches[k] = 0
+
+
+def fused_latent_supported(flow_cfg, dz: int) -> bool:
+    """The conditions of ``dpfx``'s fused latent flow: relu (the backward
+    needs its derivative), no actnorm, dz > 16 and dz % 8 == 0."""
+    return (flow_cfg.activation == "relu" and not flow_cfg.use_actnorm
+            and dz % 8 == 0 and dz > 16)
+
+
+def stack_latent_params(flow: CouplingFlow) -> Weights:
+    """Stack the latent flow's conditioner weights as
+    ``stack_latent_params_jnp`` does: ``win`` [K, H, D] with the input mask
+    folded in, ``wh`` [K, n_hidden-1, H, H], ``ws``/``wt`` [K, D, H] from the
+    ``out`` layer, biases [K, n, 1]; float32. Every op is linear (mask fold,
+    slice, stack), so gradients reach the ``nn.Linear`` parameters: the
+    training path takes its weights from here. Samplers call it under
+    ``torch.no_grad()``."""
+    d = flow.dim
+    parts = {k: [] for k in KEYS}
+    for ki in range(flow.n_layers):
+        c = flow.coupling(ki)
+        cn = c.cond_net
+        parts["win"].append(cn.in_x.weight * c.mask[None, :])
+        parts["bin"].append(cn.in_x.bias)
+        hidden = [getattr(cn, f"hidden_{i}") for i in range(cn.n_hidden - 1)]
+        h = cn.in_x.weight.shape[0]
+        like = cn.in_x.weight
+        parts["wh"].append(torch.stack([m.weight for m in hidden]) if hidden
+                           else like.new_zeros((0, h, h)))
+        parts["bh"].append(torch.stack([m.bias for m in hidden]) if hidden
+                           else like.new_zeros((0, h)))
+        parts["ws"].append(cn.out.weight[:d])
+        parts["bs"].append(cn.out.bias[:d])
+        parts["wt"].append(cn.out.weight[d:])
+        parts["bt"].append(cn.out.bias[d:])
+    out = {k: torch.stack(v).float().contiguous() for k, v in parts.items()}
+    for k in ("bin", "bh", "bs", "bt"):
+        out[k] = out[k][..., None]
+    return out
+
+
+@functools.lru_cache(maxsize=16)
+def latent_masks(n_layers: int, dz: int, device: torch.device) -> Tensor:
+    """The latent flow's coupling masks [K, dz], float32 (1 = passthrough)."""
+    return torch.from_numpy(make_masks(dz, n_layers)).to(device)
+
+
+# ---------------------------------------------------------------- plain version
+
+def _rnd(dtype: torch.dtype):
+    return lambda a: a.to(dtype).float()
+
+
+def _conditioner(w: Weights, k: int, x: Tensor, dtype: torch.dtype):
+    """Layer k's hidden activations h_0..h_last on x [B, D] (float32 after
+    relu) and its (st_s, st_t) [B, D]: the Pallas kernels' ``_cond``/``_st``."""
+    rnd = _rnd(dtype)
+    h = torch.relu(rnd(x) @ rnd(w["win"][k]).t() + w["bin"][k, :, 0])
+    hs = [h]
+    for j in range(w["wh"].shape[1]):
+        h = torch.relu(rnd(h) @ rnd(w["wh"][k, j]).t() + w["bh"][k, j, :, 0])
+        hs.append(h)
+    st_s = rnd(h) @ rnd(w["ws"][k]).t() + w["bs"][k, :, 0]
+    st_t = rnd(h) @ rnd(w["wt"][k]).t() + w["bt"][k, :, 0]
+    return hs, st_s, st_t
+
+
+def latent_forward_plain(w: Weights, masks: Tensor, cap: float, z: Tensor,
+                         dtype: torch.dtype) -> Tuple[Tensor, Tensor]:
+    """z [B, D] -> (u [B, D], log-det [B]): the forward kernel's arithmetic."""
+    x = z.float()
+    ld = x.new_zeros(x.shape[0])
+    for k in range(masks.shape[0]):
+        _, st_s, st_t = _conditioner(w, k, x, dtype)
+        s = cap * torch.tanh(st_s / cap)
+        ld = ld + ((1.0 - masks[k]) * s).sum(-1)
+        x = torch.where(masks[k] > 0, x, x * torch.exp(s) + st_t)
+    return x, ld
+
+
+def latent_inverse_plain(w: Weights, masks: Tensor, cap: float, eps: Tensor,
+                         dtype: torch.dtype) -> Tensor:
+    """eps [B, D] -> z [B, D]: the closed-form layer inverses, last layer first."""
+    y = eps.float()
+    for k in reversed(range(masks.shape[0])):
+        _, st_s, st_t = _conditioner(w, k, y, dtype)
+        s = cap * torch.tanh(st_s / cap)
+        y = torch.where(masks[k] > 0, y, (y - st_t) * torch.exp(-s))
+    return y
+
+
+def latent_backward_plain(w: Weights, masks: Tensor, cap: float, u: Tensor, du: Tensor,
+                          dld: Tensor, dtype: torch.dtype) -> Tuple[Tensor, Weights]:
+    """The backward kernel's arithmetic: one reverse walk from the forward
+    output u, each layer's input rebuilt by the closed-form inverse and its
+    conditioner recomputed from the layer output (its passthrough rows are
+    the input's). Returns (dz [B, D], the gradient of each stacked weight),
+    all float32."""
+    rnd = _rnd(dtype)
+    y, dy = u.float(), du.float()
+    g_ld = dld.float()[:, None]
+    grads = {k: torch.zeros_like(v) for k, v in w.items()}
+    for k in reversed(range(masks.shape[0])):
+        keep = masks[k] > 0
+        inv = 1.0 - masks[k]
+        hs, st_s, st_t = _conditioner(w, k, y, dtype)
+        th = torch.tanh(st_s / cap)
+        es = torch.exp(cap * th)
+        xk = torch.where(keep, y, (y - st_t) / es)
+        ds = dy * xk * es * inv + g_ld * inv
+        ds_s = ds * (1.0 - th * th)
+        d_t = dy * inv
+        dh = rnd(ds_s) @ rnd(w["ws"][k]) + rnd(d_t) @ rnd(w["wt"][k])      # [B, H]
+        grads["ws"][k] = rnd(ds_s).t() @ rnd(hs[-1])
+        grads["bs"][k, :, 0] = ds_s.sum(0)
+        grads["wt"][k] = rnd(d_t).t() @ rnd(hs[-1])
+        grads["bt"][k, :, 0] = d_t.sum(0)
+        for j in reversed(range(w["wh"].shape[1])):
+            dh = dh * (hs[j + 1] > 0)
+            grads["wh"][k, j] = rnd(dh).t() @ rnd(hs[j])
+            grads["bh"][k, j, :, 0] = dh.sum(0)
+            dh = rnd(dh) @ rnd(w["wh"][k, j])
+        dh = dh * (hs[0] > 0)
+        grads["win"][k] = rnd(dh).t() @ rnd(xk)
+        grads["bin"][k, :, 0] = dh.sum(0)
+        dy = torch.where(keep, dy, dy * es) + rnd(dh) @ rnd(w["win"][k])
+        y = xk
+    return dy, grads
+
+
+# ---------------------------------------------------------------- kernel launch
+
+@functools.lru_cache(maxsize=None)
+def _lib() -> ctypes.CDLL:
+    from dpfx_torch.ops import _build
+
+    lib = _build.load("fused_latent")
+    p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    weights = [p] * 9                 # win, bin, wh, bh, ws, bs, wt, bt, masks
+    lib.dpfx_fused_latent_flow.argtypes = [
+        p, p, p,                      # in, out, log-det (forward only)
+        *weights,
+        i, i, i, i, i, f, i, i, p,    # B, D, H, K, n_hidden-1, cap, bf16, inverse, stream
+    ]
+    lib.dpfx_fused_latent_bwd.argtypes = [
+        p, p, p, p, p, p,             # u, du, dld, dz, gradient partials, gradients
+        *weights,
+        i, i, i, i, i, f, i, i, p,    # B, D, H, K, n_hidden-1, cap, bf16, blocks, stream
+    ]
+    lib.dpfx_fused_latent_smem_bytes.argtypes = [i, i, i, i, i]
+    lib.dpfx_fused_latent_tile_samples.argtypes = []
+    for fn in (lib.dpfx_fused_latent_flow, lib.dpfx_fused_latent_bwd,
+               lib.dpfx_fused_latent_smem_bytes, lib.dpfx_fused_latent_tile_samples):
+        fn.restype = ctypes.c_int
+    return lib
+
+
+def smem_bytes(dz: int, hidden: int, n_hidden_m1: int, dtype: torch.dtype,
+               backward: bool) -> int:
+    """Dynamic shared memory of one block, as the kernel library lays it out."""
+    return _lib().dpfx_fused_latent_smem_bytes(dz, hidden, n_hidden_m1,
+                                               int(dtype == torch.bfloat16), int(backward))
+
+
+def _check(w: Weights, masks: Tensor, dtype: torch.dtype, tensors: Dict[str, Tensor],
+           backward: bool) -> None:
+    k, h, d = w["win"].shape
+    if dtype not in (torch.float32, torch.bfloat16):
+        raise ValueError(f"kernel compute dtype must be float32 or bfloat16, got {dtype}")
+    if d % 16 or h % 16:
+        raise ValueError(f"the fused latent kernels take dz and hidden in multiples of 16 "
+                         f"(WMMA tiles), got dz={d}, hidden={h}")
+    need = smem_bytes(d, h, w["wh"].shape[1], dtype, backward)
+    if need > SMEM_LIMIT:
+        raise ValueError(f"dz={d}, hidden={h}, n_hidden={w['wh'].shape[1] + 1} in {dtype} needs "
+                         f"{need} B of shared memory, more than the {SMEM_LIMIT} B a block may use")
+    dev = w["win"].device
+    for name, t in {**w, "masks": masks, **tensors}.items():
+        if not (t.is_cuda and t.device == dev):
+            raise ValueError(f"{name} must be a CUDA tensor on {dev}, is on {t.device}")
+        if not t.is_contiguous() or t.dtype != torch.float32:
+            raise ValueError(f"{name} must be a contiguous float32 tensor")
+
+
+def _weight_args(w: Weights, masks: Tensor, dtype: torch.dtype):
+    """The kernels' weight pointers: matrices cast to the compute dtype (the
+    cast is the kernels' rounding), f32 biases. Returns (pointers, the cast
+    tensors, which must outlive the launch)."""
+    cast = {n: w[n].to(dtype).contiguous() for n in ("win", "wh", "ws", "wt")}
+    nh1 = w["wh"].shape[1]
+    ptrs = [cast["win"].data_ptr(), w["bin"].data_ptr(),
+            cast["wh"].data_ptr() if nh1 else None, w["bh"].data_ptr() if nh1 else None,
+            cast["ws"].data_ptr(), w["bs"].data_ptr(), cast["wt"].data_ptr(),
+            w["bt"].data_ptr(), masks.data_ptr()]
+    return ptrs, cast
+
+
+def _flow_kernel(w: Weights, masks: Tensor, cap: float, x: Tensor, dtype: torch.dtype,
+                 inverse: bool):
+    k, h, d = w["win"].shape
+    _check(w, masks, dtype, {"z" if not inverse else "eps": x}, backward=False)
+    b = x.shape[0]
+    out = torch.empty_like(x)
+    ld = None if inverse else torch.empty(b, device=x.device, dtype=torch.float32)
+    ptrs, _keep = _weight_args(w, masks, dtype)
+    stream = torch.cuda.current_stream(x.device).cuda_stream
+    with torch.cuda.device(x.device):
+        err = _lib().dpfx_fused_latent_flow(
+            x.data_ptr(), out.data_ptr(), None if ld is None else ld.data_ptr(), *ptrs,
+            b, d, h, k, w["wh"].shape[1], float(cap), int(dtype == torch.bfloat16), int(inverse),
+            stream)
+    if err != 0:
+        raise RuntimeError(f"fused latent {'inverse' if inverse else 'forward'} kernel launch "
+                           f"failed: cudaError {err}")
+    return out, ld
+
+
+def latent_forward_kernel(w: Weights, masks: Tensor, cap: float, z: Tensor,
+                          dtype: torch.dtype) -> Tuple[Tensor, Tensor]:
+    """The forward kernel: same contract as ``latent_forward_plain``."""
+    u, ld = _flow_kernel(w, masks, cap, z, dtype, inverse=False)
+    launches["fused_latent_fwd"] += 1
+    return u, ld
+
+
+def latent_inverse_kernel(w: Weights, masks: Tensor, cap: float, eps: Tensor,
+                          dtype: torch.dtype) -> Tensor:
+    """The inverse kernel: same contract as ``latent_inverse_plain``."""
+    z, _ = _flow_kernel(w, masks, cap, eps, dtype, inverse=True)
+    launches["fused_latent_inv"] += 1
+    return z
+
+
+def latent_backward_kernel(w: Weights, masks: Tensor, cap: float, u: Tensor, du: Tensor,
+                           dld: Tensor, dtype: torch.dtype) -> Tuple[Tensor, Weights]:
+    """The backward kernel, then the fixed-order reduction of its per-block
+    gradient partials: same contract as ``latent_backward_plain``, and
+    bit-identical from run to run."""
+    k, h, d = w["win"].shape
+    nh1 = w["wh"].shape[1]
+    b = u.shape[0]
+    _check(w, masks, dtype, dict(u=u, du=du, dld=dld), backward=True)
+    tb = _lib().dpfx_fused_latent_tile_samples()
+    blocks = min(-(-b // tb), MAX_BWD_BLOCKS)
+    sizes = {"win": h * d, "bin": h, "wh": nh1 * h * h, "bh": nh1 * h,
+             "ws": d * h, "bs": d, "wt": d * h, "bt": d}
+    per_layer = sum(sizes.values())
+    part = torch.empty((blocks, k, per_layer), device=u.device, dtype=torch.float32)
+    dw = torch.empty((k, per_layer), device=u.device, dtype=torch.float32)
+    dz = torch.empty_like(u)
+    ptrs, _keep = _weight_args(w, masks, dtype)
+    stream = torch.cuda.current_stream(u.device).cuda_stream
+    with torch.cuda.device(u.device):
+        err = _lib().dpfx_fused_latent_bwd(
+            u.data_ptr(), du.data_ptr(), dld.data_ptr(), dz.data_ptr(), part.data_ptr(),
+            dw.data_ptr(), *ptrs, b, d, h, k, nh1, float(cap), int(dtype == torch.bfloat16),
+            blocks, stream)
+    if err != 0:
+        raise RuntimeError(f"fused latent backward kernel launch failed: cudaError {err}")
+    launches["fused_latent_bwd"] += 1
+    grads, o = {}, 0
+    for name in KEYS:
+        grads[name] = dw[:, o:o + sizes[name]].reshape(w[name].shape)
+        o += sizes[name]
+    return dz, grads
+
+
+# ---------------------------------------------------------------- autograd
+
+class _LatentForward(torch.autograd.Function):
+    """(z, stacked weights) -> (u, log-det); the backward kernel gives every
+    gradient. The residual is u, not z: the backward rebuilds each layer's
+    input from its output."""
+
+    @staticmethod
+    def forward(ctx, z, masks, cap, dtype, *weights):
+        w = dict(zip(KEYS, weights))
+        fwd = latent_forward_kernel if z.is_cuda else latent_forward_plain
+        u, ld = fwd(w, masks, cap, z, dtype)
+        ctx.save_for_backward(masks, u, *weights)
+        ctx.cap, ctx.dtype = cap, dtype
+        return u, ld
+
+    @staticmethod
+    def backward(ctx, du, dld):
+        masks, u, *weights = ctx.saved_tensors
+        du = torch.zeros_like(u) if du is None else du.float().contiguous()
+        dld = (torch.zeros(u.shape[0], device=u.device) if dld is None
+               else dld.float().contiguous())
+        bwd = latent_backward_kernel if u.is_cuda else latent_backward_plain
+        dz, dw = bwd(dict(zip(KEYS, weights)), masks, ctx.cap, u, du, dld, ctx.dtype)
+        return (dz, None, None, None, *(dw[k] for k in KEYS))
+
+
+def fused_latent_log_prob(model, z: Tensor, flow_cfg) -> Tensor:
+    """log p(z) under a DPF ``model``'s latent prior flow: z [B, dz] -> [B],
+    through the fused kernels. Drop-in for ``model.latent_flow.log_prob(z)``
+    (the same math, with the kernels' rounding); the base term is added
+    outside the kernel."""
+    w = stack_latent_params(model.latent_flow)
+    masks = latent_masks(flow_cfg.n_layers, z.shape[-1], z.device)
+    u, ld = _LatentForward.apply(z.float().contiguous(), masks, float(flow_cfg.scale_cap),
+                                 dtype_of(flow_cfg.compute_dtype), *(w[k] for k in KEYS))
+    return -0.5 * (u * u + math.log(2.0 * math.pi)).sum(-1) + ld
+
+
+def fused_latent_inverse(stacked: Weights, eps: Tensor, flow_cfg) -> Tensor:
+    """eps [B, dz] -> z [B, dz] through the closed-form layer inverses, with
+    weights from ``stack_latent_params`` (stacked once per sampler)."""
+    masks = latent_masks(flow_cfg.n_layers, eps.shape[-1], eps.device)
+    eps = eps.float().contiguous()
+    inv = latent_inverse_kernel if eps.is_cuda else latent_inverse_plain
+    return inv(stacked, masks, float(flow_cfg.scale_cap), eps, dtype_of(flow_cfg.compute_dtype))

@@ -1,11 +1,12 @@
 """Samplers (counterpart of ``dpfx/sampling.py``).
 
 ``make_sampler`` draws clouds from the prior: eps ~ tau_z N(0, I_dz), the
-latent-flow inverse in plain torch, then the fused CUDA kernel, which draws
-the point noise u ~ tau N(0, I3) itself and applies all K inverted
-couplings. ``make_decoder`` decodes a given z the same way (the AE
-reconstruction path). The stacked point-flow weights are built once per
-sampler. With ``use_actnorm`` (which the kernel does not fuse) or
+latent-flow inverse (the module, or with ``DPFX_SAMPLE_FUSED_LATENT=1`` and
+a supported config the fused latent kernel, as in ``dpfx``), then the fused
+CUDA kernel, which draws the point noise u ~ tau N(0, I3) itself and
+applies all K inverted couplings. ``make_decoder`` decodes a given z the
+same way (the AE reconstruction path). The stacked point-flow weights are
+built once per sampler. With ``use_actnorm`` (which the kernel does not fuse) or
 ``fused=False`` both go through ``DPF.sample`` / ``DPF.decode``.
 
 Each returned function takes an integer seed; the same seed gives the same
@@ -14,11 +15,17 @@ clouds on the same device.
 
 from __future__ import annotations
 
+import os
 from typing import Callable
 
 import torch
 
 from dpfx_torch.models.dpf import DPF
+from dpfx_torch.ops.fused_latent import (
+    fused_latent_inverse,
+    fused_latent_supported,
+    stack_latent_params,
+)
 from dpfx_torch.ops.fused_sampler import fused_sample_points, stack_point_flow_params
 
 
@@ -28,6 +35,19 @@ def _generators(seed: int, device: torch.device):
     g_host = torch.Generator().manual_seed(seed)
     kseed = int(torch.randint(0, 2**62, (1,), generator=g_host))
     return g_dev, kseed
+
+
+def _make_latent_inverse(model: DPF) -> Callable[[torch.Tensor], torch.Tensor]:
+    """eps -> z through the latent prior flow. The module is the default, as
+    in ``dpfx``; ``DPFX_SAMPLE_FUSED_LATENT=1`` (with a supported config)
+    selects the fused latent kernel, its weights stacked once here."""
+    lf_cfg = model.config.model.latent_flow
+    if (os.environ.get("DPFX_SAMPLE_FUSED_LATENT") == "1"
+            and fused_latent_supported(lf_cfg, model.config.model.dz)):
+        with torch.no_grad():
+            stacked = stack_latent_params(model.latent_flow)
+        return lambda eps: fused_latent_inverse(stacked, eps, lf_cfg)
+    return lambda eps: model.latent_flow.inverse(eps)[0]
 
 
 def make_sampler(model: DPF, n_clouds: int, n_points: int, fused: bool = True,
@@ -45,12 +65,13 @@ def make_sampler(model: DPF, n_clouds: int, n_points: int, fused: bool = True,
 
     with torch.no_grad():
         sp = stack_point_flow_params(pf)
+    latent_inverse = _make_latent_inverse(model)
 
     @torch.no_grad()
     def sample(seed: int) -> torch.Tensor:
         g, kseed = _generators(seed, model.device)
         eps = torch.randn((n_clouds, dz), generator=g, device=model.device)
-        z, _ = model.latent_flow.inverse(eps * latent_temperature)
+        z = latent_inverse(eps * latent_temperature)
         return fused_sample_points(sp, z, kseed, n_points, dtype=pf.dtype,
                                    activation=pf.activation, noise_scale=temperature)
 

@@ -15,6 +15,7 @@ from typing import Dict, Tuple
 import torch
 
 from dpfx_torch.ops.fused_encoder import fused_encoder_supported, fused_pointnet_posterior
+from dpfx_torch.ops.fused_latent import fused_latent_log_prob, fused_latent_supported
 from dpfx_torch.ops.fused_train import fused_point_flow_recon_ll, fused_train_supported
 
 Tensor = torch.Tensor
@@ -37,13 +38,10 @@ def elbo_loss(model, x: Tensor, eps: Tensor, kl_weight: float = 1.0,
     ``fused_point_flow`` routes the reconstruction term through the fused
     point-flow kernels (``dpfx_torch.ops.fused_train``), ``fused_encoder``
     q(z|X) through the fused PointNet kernels
-    (``dpfx_torch.ops.fused_encoder``). Either falls back to the module path,
-    with a one-time warning, when its configuration is outside the kernels'
-    support."""
-    if fused_latent_flow:
-        raise NotImplementedError(
-            "train.fused_latent_flow: the latent-flow kernels are not ported yet "
-            "(ROADMAP Queue 2 #9); set it to false")
+    (``dpfx_torch.ops.fused_encoder``), ``fused_latent_flow`` log p(z)
+    through the fused latent-flow kernels (``dpfx_torch.ops.fused_latent``).
+    Each falls back to the module path, with a one-time warning, when its
+    configuration is outside the kernels' support."""
     n = x.shape[-2]
     mcfg = model.config.model
     posterior = None
@@ -62,11 +60,18 @@ def elbo_loss(model, x: Tensor, eps: Tensor, kl_weight: float = 1.0,
                    "dpfx_torch.train: fused_point_flow requested but the flow config "
                    f"(activation={flow_cfg.activation!r}, actnorm={flow_cfg.use_actnorm}) "
                    "is outside the fused kernels' support; using the module path")
-    if use_fused_pf:
-        t = model.elbo_latent_terms(x, eps, posterior)
-        t["recon_ll"] = fused_point_flow_recon_ll(model, x, t["z"], flow_cfg)
-    else:
-        t = model.elbo_terms(x, eps, posterior)
+    lf_cfg = mcfg.latent_flow
+    use_fused_lat = fused_latent_flow and fused_latent_supported(lf_cfg, mcfg.dz)
+    if fused_latent_flow and not use_fused_lat:
+        _warn_once(("lat", lf_cfg.activation, lf_cfg.use_actnorm, mcfg.dz),
+                   "dpfx_torch.train: fused_latent_flow requested but the latent-flow config "
+                   "is outside the fused kernels' support (needs relu, no actnorm, dz > 16 "
+                   "and dz % 8 == 0); using the module path")
+    t = model.elbo_latent_terms(x, eps, posterior, with_logp_z=not use_fused_lat)
+    t["recon_ll"] = (fused_point_flow_recon_ll(model, x, t["z"], flow_cfg) if use_fused_pf
+                     else model.point_flow.log_prob(x, t["z"]).sum(-1))
+    if use_fused_lat:
+        t["logp_z"] = fused_latent_log_prob(model, t["z"], lf_cfg)
     recon = t["recon_ll"]
     kl = t["logq"] - t["logp_z"]          # MC estimate of KL(q || p) per cloud
     if recon_reduction == "mean_points":

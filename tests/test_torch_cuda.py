@@ -1,6 +1,7 @@
 """The port's kernels (fused sampler, fused train forward/backward, fused
-encoder forward/backward, Chamfer, approxmatch EMD) against their plain
-versions on the card, at small shapes. Marked ``gpu``: each test skips
+encoder forward/backward, fused latent flow forward/backward/inverse,
+Chamfer, approxmatch EMD) against their plain versions on the card, at
+small shapes. Marked ``gpu``: each test skips
 without a CUDA device. On a machine with one:
 
     python -m pytest tests/test_torch_cuda.py -m gpu --noconftest
@@ -216,6 +217,113 @@ def test_train_step_on_card_skips_a_nonfinite_batch(cuda):
     assert state.opt_state.count == 1
     for a, b in ((state.params, params), (state.opt_state.mu, mu), (state.opt_state.nu, nu)):
         assert torch.equal(a, b)
+
+
+# ---------------------------------------------------------------- latent-flow kernels
+
+def _latent_weights(dz, hidden, n_hidden, k, dev, seed=0):
+    torch.manual_seed(seed)        # the module's own init
+    flow = CouplingFlow(dz, k, hidden, n_hidden, scale_cap=3.0)
+    with torch.no_grad():
+        from dpfx_torch.ops import fused_latent as fl
+
+        return fl.stack_latent_params(randomize_(flow, seed, 0.05).to(dev))
+
+
+@pytest.mark.parametrize("dz,hidden,n_hidden,b", [(32, 32, 2, 5), (128, 256, 2, 64),
+                                                  (64, 48, 1, 130), (48, 64, 3, 17)])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_fused_latent_kernels_match_plain(cuda, dz, hidden, n_hidden, b, dtype):
+    """Forward (u, log-det), inverse and backward (dz and every weight
+    gradient) against the plain versions; the backward bit-identical from
+    run to run. B=130 is a ragged last tile over nine blocks."""
+    from dpfx_torch.ops import fused_latent as fl
+
+    dt = getattr(torch, dtype)
+    k = 5
+    w = _latent_weights(dz, hidden, n_hidden, k, cuda)
+    masks = fl.latent_masks(k, dz, cuda)
+    g = torch.Generator(device=cuda).manual_seed(1)
+    z = torch.randn((b, dz), generator=g, device=cuda)
+    fl.reset_launch_counts()
+    u, ld = fl.latent_forward_kernel(w, masks, 3.0, z, dt)
+    u_p, ld_p = fl.latent_forward_plain(w, masks, 3.0, z, dt)
+    zi = fl.latent_inverse_kernel(w, masks, 3.0, z, dt)
+    zi_p = fl.latent_inverse_plain(w, masks, 3.0, z, dt)
+    du = torch.randn(u.shape, generator=g, device=cuda)
+    dld = torch.randn(ld.shape, generator=g, device=cuda)
+    got = fl.latent_backward_kernel(w, masks, 3.0, u_p, du, dld, dt)
+    again = fl.latent_backward_kernel(w, masks, 3.0, u_p, du, dld, dt)
+    ref = fl.latent_backward_plain(w, masks, 3.0, u_p, du, dld, dt)
+    torch.cuda.synchronize()
+    assert fl.launches == {"fused_latent_fwd": 1, "fused_latent_bwd": 2, "fused_latent_inv": 1}
+    # f32: IEEE sums in other orders; bf16: a flipped rounding of one hidden
+    # unit moves a value by ~1e-3 and the layers carry it on
+    f32 = dt == torch.float32
+    tol = 1e-4 if f32 else 2e-2
+    torch.testing.assert_close(u, u_p, atol=tol, rtol=tol)
+    torch.testing.assert_close(zi, zi_p, atol=tol, rtol=tol)
+    assert _rel(ld, ld_p) <= tol
+    flat = lambda r: [r[0]] + [r[1][n] for n in fl.KEYS]
+    for name, a, r, c in zip(("dz",) + fl.KEYS, flat(got), flat(ref), flat(again)):
+        assert torch.equal(a, c), f"{name} is not bit-identical from run to run"
+        if r.numel():
+            assert _rel(a, r) <= tol, f"{name}: {_rel(a, r)}"
+
+
+def test_fused_latent_kernel_conditions(cuda):
+    """Shapes the kernels are not built for raise before any launch; the
+    flagship latent flow fits a block's shared memory."""
+    from dpfx_torch.ops import fused_latent as fl
+
+    for dt in (torch.float32, torch.bfloat16):
+        for backward in (False, True):
+            assert 0 < fl.smem_bytes(128, 256, 1, dt, backward) <= fs.SMEM_LIMIT
+    w = _latent_weights(24, 32, 2, 3, cuda)
+    fl.reset_launch_counts()
+    with pytest.raises(ValueError, match="multiples of 16"):
+        fl.latent_forward_kernel(w, fl.latent_masks(3, 24, cuda), 3.0,
+                                 torch.zeros((4, 24), device=cuda), torch.bfloat16)
+    w = _latent_weights(32, 1024, 2, 2, cuda)      # f32 backward: ~260 KB
+    with pytest.raises(ValueError, match="shared memory"):
+        fl.latent_backward_kernel(w, fl.latent_masks(2, 32, cuda), 3.0,
+                                  *(torch.zeros(s, device=cuda) for s in ((4, 32), (4, 32), (4,))),
+                                  torch.float32)
+    assert sum(fl.launches.values()) == 0
+
+
+def test_train_step_on_card_with_fused_latent(cuda):
+    """A train step with train.fused_latent_flow on the card launches the
+    latent forward and backward once each and matches the module path's
+    loss and grad norm (f32)."""
+    from dpfx_torch.config import config_from_dict
+    from dpfx_torch.models import DPF
+    from dpfx_torch.ops import fused_latent as fl
+    from dpfx_torch.train import init_params_, init_state, make_optimizer, make_train_step
+
+    raw = {"experiment": "gen", "model": {
+        "dz": 32,
+        "point_flow": {"n_layers": 4, "hidden": 32, "n_hidden": 2},
+        "latent_flow": {"n_layers": 4, "hidden": 64, "n_hidden": 2},
+        "encoder": {"point_widths": [32, 64], "head_widths": [32]}},
+        "train": {"grad_clip": 1.0}}
+    import copy
+
+    model = randomize_(init_params_(DPF(config_from_dict(raw)), 0), 0, 0.05).to(cuda)
+    x = torch.randn((4, 256, 3), device=cuda)
+    eps = torch.randn((4, 32), device=cuda)
+    out = []
+    for fused in (True, False):
+        cfg = config_from_dict({**raw, "train": {**raw["train"], "fused_latent_flow": fused}})
+        m_ = copy.deepcopy(model)       # the step updates its model's parameters in place
+        tx = make_optimizer(cfg.train)
+        fl.reset_launch_counts()
+        _, m = make_train_step(m_, tx, cfg)(init_state(m_, tx), {"x": x, "eps": eps})
+        out.append((float(m["loss"]), float(m["grad_norm"]), dict(fl.launches)))
+    (lf, gf, nf), (lm, gm, nm) = out
+    assert nf == {"fused_latent_fwd": 1, "fused_latent_bwd": 1, "fused_latent_inv": 0}
+    assert sum(nm.values()) == 0
+    assert abs(lf - lm) <= 1e-4 * abs(lm) and abs(gf - gm) <= 1e-3 * abs(gm)
 
 
 # ---------------------------------------------------------------- evaluation kernels
