@@ -1,9 +1,9 @@
 #!/usr/bin/env python3
 """Chip smoke for the PyTorch/CUDA port: build the kernels, hold each one
 against its plain PyTorch version at the flagship widths, drive the main
-paths (flagship sampling, flagship training, then evaluation: the
-generation suite and AE reconstruction) through the normal entry points,
-and report.
+paths (flagship sampling, flagship training, evaluation: the generation
+suite and AE reconstruction, the differentiable distances and the int8
+sampler) through the normal entry points, and report.
 
 Run from the root of a checkout, on a machine with one CUDA card:
 
@@ -62,6 +62,24 @@ script exits non-zero without a result line):
      just before each and read just after; then compute_all_metrics on two
      disjoint stratified halves of the test split (the ideal-generator row)
      and on one half shifted by 0.5;
+  3d. the differentiable distances at full width, on phase 3's 64 sampled
+     clouds against 64 test-split clouds (N=M=2048) and a ragged 2000 x
+     2048 batch: nnd_bwd against nn_distances_backward_plain on the same
+     minima (per point, twice for bit-identity), two tie cases (y = x with
+     every point duplicated; y duplicated and x perturbed, where the copies
+     must share the gradient); the EMD gradient mode at B=32, 64 and the
+     ragged batch (its cost equal to emd_nograd's bit for bit, gx and gy
+     per pair against emd_grads_plain by median and maximum, twice for
+     bit-identity, the ragged batch also against an f64 run); then 20
+     steps of gradient descent on chamfer + emd from a perturbed copy of
+     the test clouds towards them (launch counts zeroed just before and
+     read just after), which must lower both for every pair;
+  3e. the int8 sampler: fused_sample_points(quantized=quantize_flow_params)
+     on the flagship stack, bf16, at B=64 (launch counts zeroed and read
+     around it) and B=256, N=2048: bit-identical to the kernel on the
+     dequantized stacks with the same seed, within phase 2's bf16 limits
+     of the plain inverse of its noise, its coordinate RMS against the bf16
+     clouds, and int8 and bf16 timed in turns;
   4. at the main paths' shapes (B=64, N=2048, bf16): the training kernels
      held against their plain versions again (u, log-det, every gradient;
      each backward bit-identical across two runs), the latent-flow kernels
@@ -69,7 +87,8 @@ script exits non-zero without a result line):
      every kernel's error, time, plain time and bound, the evaluation
      kernels' at their paths' shapes (a 128 x 128 matrix at N=2048 for the
      pairwise kernels, CD also in triangle mode, B=32 for the diagonal ones),
-     each held to its plain version there by phase 2c's limits;
+     each held to its plain version there by phase 2c's limits, and the
+     rows of phases 3d and 3e (16 rows in all);
   5. torch.profiler breakdowns of make_sampler(64, 2048) (plain and fused
      latent inverse), of 5 train steps (fused latent flow off and on), and
      (5c) of one generation suite at S=128: device-busy time, idle share,
@@ -111,6 +130,17 @@ CD_FP32_PER_ELEM = 8
 # and the sqrt (3 MUFU)
 EMD_FP32_PER_ELEM_LEVEL = 21
 EMD_MUFU_PER_ELEM_LEVEL = 3
+# the CD backward per element, at the least: one distance (6), the row and
+# column mask tests (2), the two tie counts (2) and the masked sums each
+# direction needs (sum_j maskl y_j, sum_j wr_ij and sum_j wr_ij y_j for gx;
+# sum_i maskr x_i, sum_i wl_ij and sum_i wl_ij x_i for gy: 14)
+CD_BWD_FP32_PER_ELEM = 24
+# the EMD gradient mode per element and level, on top of the cost's: the
+# difference x_i - y_j and its squared norm (3 + 3), the plan's share
+# delta / max(|x_i - y_j|, eps) (an rsqrt on MUFU, a max, a product) and its
+# sums into gx and gy (6 FMAs)
+EMD_GRAD_FP32_PER_ELEM_LEVEL = 14
+EMD_GRAD_MUFU_PER_ELEM_LEVEL = 1
 
 # tolerances of kernel vs plain version (max abs error over the outputs)
 # on O(1)-O(10) clouds. f32: both sum in IEEE f32, in other orders, through
@@ -179,13 +209,16 @@ def errors(a, b):
     return float(e.max()), float(torch.quantile(e[:: max(1, e.numel() // 2**24)], 0.999))
 
 
-def bound(sp, b: int, n: int, with_ut: bool):
+def bound(sp, b: int, n: int, with_ut: bool, weight_bytes: int = 2):
     """Least time for one call: FLOP over the bf16 tensor-core peak, and
-    bytes (each input read once, each output written once) over HBM."""
+    bytes (each input read once, each output written once) over HBM; the
+    weight stacks at ``weight_bytes`` per element (int8 mode: 1, and the
+    [K, 8] f32 scales)."""
     k, h, _ = sp.wx.shape
     nh1 = sp.wh.shape[1]
     flops = 2.0 * b * n * k * (3 * h + nh1 * h * h + 6 * h)
-    weights = 2 * (k * h * 3 + k * nh1 * h * h + k * 6 * h) + 4 * (k * nh1 * h + k * 6 + k * 3)
+    weights = (weight_bytes * (k * h * 3 + k * nh1 * h * h + k * 6 * h)
+               + 4 * (k * nh1 * h + k * 6 + k * 3) + (32 * k if weight_bytes == 1 else 0))
     nbytes = 4 * b * k * h + weights + 4 * 3 * b * n * (2 if with_ut else 1)
     t_ops, t_bytes = flops / PEAK_BF16_FLOPS * 1e3, nbytes / PEAK_BYTES * 1e3
     return max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes"), flops
@@ -215,6 +248,21 @@ def eval_bounds(n_pairs: int, n: int, m: int, s_left: int, s_right: int, out_flo
     cd = bound_cores(CD_FP32_PER_ELEM * elems, 0.0, nbytes)
     lv = elems * 10
     emd = bound_cores(EMD_FP32_PER_ELEM_LEVEL * lv, EMD_MUFU_PER_ELEM_LEVEL * lv, nbytes)
+    return cd, emd
+
+
+def grad_bounds(b: int, n: int, m: int):
+    """The CD backward (nnd_bwd) and the EMD gradient mode over b diagonal
+    pairs of N x M points: the instruction counts above, and the bytes of
+    their inputs read once (clouds; for CD also dl, dr and the cotangents)
+    and outputs written once (gx, gy; for EMD also the cost)."""
+    elems = float(b) * n * m
+    grads = 12.0 * b * (n + m)
+    cd = bound_cores(CD_BWD_FP32_PER_ELEM * elems, 0.0, 2 * grads + 16.0 * b * (n + m))
+    lv = elems * 10
+    emd = bound_cores((EMD_FP32_PER_ELEM_LEVEL + EMD_GRAD_FP32_PER_ELEM_LEVEL) * lv,
+                      (EMD_MUFU_PER_ELEM_LEVEL + EMD_GRAD_MUFU_PER_ELEM_LEVEL) * lv,
+                      2 * grads + 4.0 * b)
     return cd, emd
 
 
@@ -302,6 +350,26 @@ TOL_CD_IDENTICAL = 1e-5
 TOL_EMD_IDENTICAL = 1e-3
 TOL_EMD_IDENTICAL_SHARE = 0.05
 EVAL_LIMIT = 128              # test clouds per evaluation path (the protocol uses 400)
+# the CD backward against its plain version: the masks see the same
+# distances bit for bit (the forward's minima, one sqdist expression), so
+# only the order of the f32 sums differs. Per point, |gk_i - gp_i| over
+# |gp_i| plus the mean |gp| of the pair (a floor for points whose terms
+# cancel); the limit is the CD limit (seen on the first card run: gradients
+# of O(1) within 2.4e-6 absolute at 8 x 2048)
+TOL_CD_GRAD = 1e-5
+# the EMD gradients against emd_grads_plain, per pair by the relative norm
+# of gx and of gy. approxmatch carries the order of f32 sums through its
+# recursion into the plan: the port against dpfx on the CPU read up to
+# 1.6e-2 on a pair of 24 x 64 points (tests/test_torch_distance_grads.py),
+# the kernel against the plain version on the card 2.9e-3 on a pair of 256
+# Gaussian points (tests/test_torch_cuda.py), and <= 1.3e-6 on the test
+# split's 2048-point clouds here. The median pair and the largest are held
+# apart, as the cost is; a wrong weight reads orders of magnitude above
+TOL_EMD_GRAD_MEDIAN = 1e-2
+TOL_EMD_GRAD_MAX = 5e-2
+# the int8 sampler's clouds against the bf16 ones with the same noise: dpfx
+# documents ~0.3% coordinate RMS (dpfx/ops/fused_sampler.py:424)
+TOL_INT8_RMS = 2e-2
 
 
 def pair_err(a, b, floor: float):
@@ -686,6 +754,238 @@ def eval_kernel_rows(half_a, half_b, gen_launches, ae_launches):
             for nm, src, where, launched, err, ms, plain, bd, by in rows]
 
 
+def grad_point_err(a, b):
+    """Per point |a_i - b_i| / (|b_i| + mean_i |b_i|) of gradients [B, N, 3],
+    the mean taken per pair; returns the largest."""
+    na, nb = (a - b).double().norm(dim=-1), b.double().norm(dim=-1)
+    return float((na / (nb + nb.mean(-1, keepdim=True))).max())
+
+
+def pair_norm_err(a, b):
+    """Per pair |a - b| / |b| (norms over a pair's points), [B], in f64."""
+    d = (a.double() - b.double()).flatten(1).norm(dim=1)
+    return d / b.double().flatten(1).norm(dim=1).clamp_min(1e-30)
+
+
+def distance_grad_paths(cfg, dev, sampled):
+    """Phase 3d: the differentiable distances at full width. The CD backward
+    (nnd_bwd) and the EMD gradient mode held to their plain versions on the
+    phase-3 sampled clouds against test-split clouds (B=64 x 2048, a ragged
+    2000 x 2048 batch, tie cases), then the main path of this slice: 20
+    steps of gradient descent on chamfer + emd through the public
+    functions, counts zeroed just before and read just after. Returns the
+    two kernel rows."""
+    import torch
+
+    from dpfx_torch.ops import chamfer as cdk
+    from dpfx_torch.ops import emd as emdk
+
+    med = lambda e: float(e.median())
+    g = torch.Generator(device=dev).manual_seed(11)
+    b, n = sampled.shape[0], sampled.shape[1]
+    test = split_clouds(cfg, range(b), n, 3, dev)
+    xs = sampled.float().contiguous()
+
+    # CD backward: B=64 x 2048 and a ragged 2000 x 2048 batch
+    cd_err = 0.0
+    for x, y, tag in ((xs, test, f"B={b} N={n} M={n}"),
+                      (xs[:8, :2000].contiguous(), test[:8], "B=8 N=2000 M=2048")):
+        dl, dr = cdk.nnd_forward(x, y)
+        gl = torch.randn(dl.shape, generator=g, device=dev)
+        gr = torch.randn(dr.shape, generator=g, device=dev)
+        gx, gy = cdk.nnd_backward(x, y, dl, dr, gl, gr)
+        gx2, gy2 = cdk.nnd_backward(x, y, dl, dr, gl, gr)
+        px, py = cdk.nn_distances_backward_plain(x, y, dl, dr, gl, gr)
+        torch.cuda.synchronize()
+        e = max(grad_point_err(gx, px), grad_point_err(gy, py))
+        print(f"kernel-vs-plain nnd_bwd {tag}: per-point rel max {e:.2e}, max_abs "
+              f"{max(float((gx - px).abs().max()), float((gy - py).abs().max())):.2e} "
+              f"(|g|max {float(px.abs().max()):.2f})")
+        check(torch.equal(gx, gx2) and torch.equal(gy, gy2), f"nnd_bwd bit-identical {tag}")
+        check(e <= TOL_CD_GRAD, f"nnd_bwd {tag}: per point {e}")
+        if x.shape[0] == b:
+            cd_err = max(float((gx - px).abs().max()), float((gy - py).abs().max()))
+            cd_args = (x, y, dl, dr, gl, gr)
+
+    # ties: (a) y = x with every point duplicated: every distance to a point
+    # and its copy is 0, so each mask holds two and the gradients vanish (a
+    # mask that missed would leave 2 gl x); (b) only y duplicated and x a
+    # perturbed copy: each x's neighbour is a pair of copies, which must
+    # share its gradient evenly, as the plain version does (the copies get
+    # equal cotangents, so their gradients must be equal)
+    half = test[:8, : n // 2]
+    dup = torch.cat([half, half], 1)
+    xp = dup + 1e-3 * torch.randn(dup.shape, generator=g, device=dev)
+    for x, y, tag in ((dup, dup, "y = x, duplicated"), (xp, dup, "y duplicated, x perturbed")):
+        dl, dr = cdk.nnd_forward(x, y)
+        gl = torch.randn(dl.shape, generator=g, device=dev)
+        gr = torch.randn((8, n // 2), generator=g, device=dev).repeat(1, 2)
+        gx, gy = cdk.nnd_backward(x, y, dl, dr, gl, gr)
+        px, py = cdk.nn_distances_backward_plain(x, y, dl, dr, gl, gr)
+        torch.cuda.synchronize()
+        e = max(float((gx - px).abs().max()), float((gy - py).abs().max()))
+        split = float((gy[:, : n // 2] - gy[:, n // 2:]).abs().max())
+        print(f"nnd_bwd ties ({tag}, B=8 x {n}): max_abs against plain {e:.2e}, |gx|max "
+              f"{float(gx.abs().max()):.2e}, copies' gy differ by {split:.2e}")
+        check(e <= TOL_CD_GRAD * float(px.abs().max() + 1.0), f"nnd_bwd ties {tag}: {e}")
+        if x is y:
+            check(float(gx.abs().max()) <= 1e-5 and float(gy.abs().max()) <= 1e-5,
+                  "every duplicated point found its masks")
+        else:
+            check(split <= TOL_CD_GRAD * float(gy.abs().max()), "the copies share the gradient")
+
+    # EMD gradient mode at B=32 (the AE eval batch) and 64, and ragged
+    emd_err = 0.0
+    # the last case puts pairs of points within ~1e-4 of each other, where
+    # the expanded distance cancels (the gradient weighs by the coordinates'
+    # own difference, as emd_grads_plain does)
+    near = test[:8] + 1e-4 * torch.randn(test[:8].shape, generator=g, device=dev)
+    for x, y, tag in ((xs[:32], test[:32], f"B=32 N={n}"), (xs, test, f"B={b} N={n}"),
+                      (xs[:8, :2000].contiguous(), test[:8], "B=8 N=2000 M=2048"),
+                      (near, test[:8], "B=8 near-identical")):
+        cost, gx, gy = emdk.emd_with_grads(x, y)
+        cost2, gx2, gy2 = emdk.emd_with_grads(x, y)
+        nograd = emdk.emd_nograd(x, y)
+        _, px, py = emdk.emd_grads_plain(x, y)
+        pc = emdk.emd_plain(x, y)
+        torch.cuda.synchronize()
+        ex, ey = pair_norm_err(gx, px), pair_norm_err(gy, py)
+        e = torch.maximum(ex, ey)
+        ce = pair_err(cost, pc, EMD_FLOOR)
+        print(f"kernel-vs-plain emd_batched_grad {tag}: cost equal to emd_nograd "
+              f"{torch.equal(cost, nograd)}; gradients per pair rel median {med(e):.2e} max "
+              f"{float(e.max()):.2e}; cost against emd_plain rel median {med(ce):.2e} max "
+              f"{float(ce.max()):.2e}")
+        check(torch.equal(cost, nograd), f"the gradient mode's cost equals emd_nograd's {tag}")
+        check(torch.equal(cost, cost2) and torch.equal(gx, gx2) and torch.equal(gy, gy2),
+              f"emd_batched_grad bit-identical from run to run {tag}")
+        check(med(e) <= TOL_EMD_GRAD_MEDIAN and float(e.max()) <= TOL_EMD_GRAD_MAX,
+              f"emd_batched_grad {tag}: median {med(e)}, max {float(e.max())}")
+        check(med(ce) <= TOL_EMD_MEDIAN and float(ce.max()) <= TOL_EMD_MAX,
+              f"emd_batched_grad cost {tag}: median {med(ce)}, max {float(ce.max())}")
+        if x.shape[0] == b:
+            emd_err = max(float((gx - px).abs().max()), float((gy - py).abs().max()))
+            emd_args = (x, y)
+        if x.shape[1] == 2000:
+            # against an f64 run: the kernel drifts no further than the f32
+            # plain version does
+            _, qx, _ = emdk.emd_grads_plain(x.double(), y.double())
+            k64, p64 = pair_norm_err(gx, qx), pair_norm_err(px, qx)
+            print(f"  against f64 ({tag}): gx per pair kernel median {med(k64):.2e} max "
+                  f"{float(k64.max()):.2e}, plain f32 median {med(p64):.2e} max "
+                  f"{float(p64.max()):.2e}")
+            check(med(k64) <= TOL_EMD_GRAD_MEDIAN and float(k64.max()) <= TOL_EMD_GRAD_MAX,
+                  f"emd_batched_grad against f64: median {med(k64)}, max {float(k64.max())}")
+
+    # the main path of this slice: 20 descent steps on chamfer + emd
+    target = test
+    x = target + 0.05 * torch.randn(target.shape, generator=g, device=dev)
+    lr = 0.01 * n               # per-point gradients are O(1/n)
+    with torch.no_grad():
+        cd0, emd0 = cdk.chamfer(x, target), emdk.emd(x, target)
+    for m in (cdk, emdk):
+        m.reset_launch_counts()
+    t0 = time.perf_counter()
+    for _ in range(20):
+        x = x.detach().requires_grad_(True)
+        (cdk.chamfer(x, target) + emdk.emd(x, target)).sum().backward()
+        x = x - lr * x.grad
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launched = {**cdk.launches, **emdk.launches}
+    with torch.no_grad():
+        cd1, emd1 = cdk.chamfer(x, target), emdk.emd(x, target)
+    print(f"descent on chamfer + emd, {b} pairs x {n} points, 20 steps in {wall:.3f} s: CD mean "
+          f"{float(cd0.mean()):.4e} -> {float(cd1.mean()):.4e}, EMD mean {float(emd0.mean()):.4e} "
+          f"-> {float(emd1.mean()):.4e}; launches {json.dumps(launched)}")
+    for k in ("nnd_fwd", "nnd_bwd", "emd_batched_grad"):
+        check(launched[k] > 0, f"kernel {k} was not launched on the descent path")
+    check(launched["emd_batched"] == 0, "the descent took the gradient mode, not emd_nograd")
+    check(bool(torch.isfinite(x).all()) and bool((cd1 < cd0).all()) and bool((emd1 < emd0).all()),
+          "20 descent steps lower CD and EMD of every pair")
+
+    # the rows, at the descent's shapes
+    nb_ms = cuda_ms(lambda: cdk.nnd_backward(*cd_args), 20)
+    _, nb_plain = timed_once(lambda: cdk.nn_distances_backward_plain(*cd_args))
+    eg_ms = cuda_ms(lambda: emdk.emd_with_grads(*emd_args), 3)
+    _, eg_plain = timed_once(lambda: emdk.emd_grads_plain(*emd_args))
+    e32_ms = cuda_ms(lambda: emdk.emd_with_grads(emd_args[0][:32], emd_args[1][:32]), 3)
+    eng_ms = cuda_ms(lambda: emdk.emd_nograd(emd_args[0][:32], emd_args[1][:32]), 3)
+    nf_ms = cuda_ms(lambda: cdk.nnd_forward(*cd_args[:2]), 20)
+    (b_cd, by_cd), (b_emd, by_emd) = grad_bounds(b, n, n)
+    print(f"gradient kernels at B={b} N={n}: nnd_bwd {nb_ms:.3f} ms (nnd_fwd {nf_ms:.3f} ms, bound "
+          f"{b_cd:.4f}), emd_batched_grad {eg_ms:.3f} ms (bound {b_emd:.3f}); at B=32 "
+          f"emd_batched_grad {e32_ms:.3f} ms against emd_nograd {eng_ms:.3f} ms")
+    return [{"name": "nnd_bwd", "route": "cuda", "source": "dpfx_torch/ops/csrc/chamfer.cu",
+             "replaces": "dpfx/ops/chamfer.py:174", "launches": launched["nnd_bwd"],
+             "max_abs_err": cd_err, "ms": nb_ms, "plain_ms": nb_plain, "bound_ms": b_cd,
+             "bound_by": by_cd, "library_ms": None},
+            {"name": "emd_batched_grad", "route": "cuda", "source": "dpfx_torch/ops/csrc/emd.cu",
+             "replaces": "dpfx/ops/emd.py:356", "launches": launched["emd_batched_grad"],
+             "max_abs_err": emd_err, "ms": eg_ms, "plain_ms": eg_plain, "bound_ms": b_emd,
+             "bound_by": by_emd, "library_ms": None}]
+
+
+def int8_sampler_path(sp, cfg, dev, card):
+    """Phase 3e: the int8 mode of fused_sample_points on the flagship stack,
+    bf16, at B=64 (the main path: counts zeroed just before, read just
+    after) and B=256: bit-identical to the kernel on the dequantized stacks
+    with the same seed, within phase 2's bf16 limits of the plain inverse
+    of its noise, its RMS distance to the bf16 clouds, and int8 and bf16 timed
+    in turns. Returns the kernel row."""
+    import torch
+
+    from dpfx_torch.ops import fused_sampler as fs
+
+    act, bf, n = cfg.model.point_flow.activation, torch.bfloat16, 2048
+    q = fs.quantize_flow_params(sp)
+    dq = fs.dequantize(q)
+    dsp = sp._replace(wx=dq.wx, wh=dq.wh, wout=dq.wout)
+    g = torch.Generator(device=dev).manual_seed(12)
+    row = None
+    for b in (64, 256):
+        z = torch.randn((b, cfg.model.dz), generator=g, device=dev)
+        if b == 64:
+            fs.reset_launch_counts()
+        x, u = fs.fused_sample_points(sp, z, 21, n, dtype=bf, activation=act, quantized=q,
+                                      return_noise=True)
+        torch.cuda.synchronize()
+        if b == 64:
+            launched = dict(fs.launches)
+            check(launched["fused_sample_int8"] > 0 and launched["fused_sample"] == 0,
+                  f"the int8 path launched the int8 mode: {launched}")
+        xd, ud = fs.fused_sample_points(dsp, z, 21, n, dtype=bf, activation=act, return_noise=True)
+        xb = fs.fused_sample_points(sp, z, 21, n, dtype=bf, activation=act)
+        xp = fs.fused_inverse_transposed_plain(dsp, u.transpose(1, 2).contiguous(),
+                                               fs.z_projection(sp, z), bf, act).transpose(1, 2)
+        torch.cuda.synchronize()
+        emax, e999 = errors(x, xp)
+        rms = float((x - xb).pow(2).mean().sqrt() / xb.pow(2).mean().sqrt())
+        check(torch.equal(x, xd) and torch.equal(u, ud),
+              f"int8 kernel equals the kernel on the dequantized stacks B={b}")
+        check(emax <= TOL_BF16_MAX and e999 <= TOL_BF16_P999,
+              f"int8 kernel vs plain B={b}: max {emax}, p99.9 {e999}")
+        check(bool(torch.isfinite(x).all()) and rms <= TOL_INT8_RMS, f"int8 RMS B={b}: {rms}")
+        turns = [cuda_ms(lambda: fs.fused_sample_points(sp, z, 22, n, dtype=bf, activation=act,
+                                                        quantized=q if mode == "int8" else None), 20)
+                 for mode in ("bf16", "int8", "int8", "bf16")]
+        i8_ms, bf_ms = (turns[1] + turns[2]) / 2, (turns[0] + turns[3]) / 2
+        print(f"int8 sampler B={b} x {n}: equal to the kernel on dequantized stacks; against the "
+              f"plain inverse max_abs={emax:.3e} p99.9={e999:.3e}; coordinate RMS against bf16 "
+              f"{rms:.3e}; int8 {i8_ms:.3f} ms, bf16 {bf_ms:.3f} ms (turns "
+              f"{', '.join(f'{t:.3f}' for t in turns)}; {card})")
+        if b == 64:
+            plain_ms = cuda_ms(lambda: fs.fused_sample_points_plain(
+                dsp, fs.z_projection(sp, z), 22, n, bf, act), 3, warmup=1)
+            bd, by, _ = bound(sp, b, n, with_ut=False, weight_bytes=1)
+            row = {"name": "fused_sample_int8", "route": "cuda",
+                   "source": "dpfx_torch/ops/csrc/fused_sampler.cu",
+                   "replaces": "dpfx/ops/fused_sampler.py:309", "launches": launched["fused_sample_int8"],
+                   "max_abs_err": emax, "ms": i8_ms, "plain_ms": plain_ms, "bound_ms": bd,
+                   "bound_by": by, "library_ms": None}
+    return [row]
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -928,8 +1228,8 @@ def main() -> int:
     for name, t, shape in (("sample", clouds, (64, 2048, 3)), ("decode", decoded, (16, 2048, 3)),
                            ("reconstruct", recon, (16, 2048, 3))):
         check(tuple(t.shape) == shape and bool(torch.isfinite(t).all()), f"{name} {tuple(t.shape)}")
-    for kname, count in main_launches.items():
-        check(count > 0, f"kernel {kname} was not launched on the main path")
+    for kname in ("fused_inverse", "fused_sample"):
+        check(main_launches[kname] > 0, f"kernel {kname} was not launched on the main path")
     print(f"main path: launches {json.dumps(main_launches)}; make_sampler(64, 2048) "
           f"{sample_ms:.3f} ms/batch, {64 / sample_ms * 1e3:,.1f} clouds/s, "
           f"{64 * 2048 / sample_ms * 1e3:,.0f} points/s; sample std {float(clouds.std()):.3f}")
@@ -1151,6 +1451,12 @@ def main() -> int:
     # ---- 3c. the evaluation paths at full width, on phase 3b's checkpoint
     gen_launches, ae_launches, half_a, half_b = eval_paths(cfg, dev, ckpt_dir, trained_pt)
 
+    # ---- 3d. the differentiable distances at full width (B=64 x 2048)
+    grad_rows = distance_grad_paths(cfg, dev, clouds)
+
+    # ---- 3e. the int8 sampler (flagship stack, bf16, B=64 and 256)
+    int8_rows = int8_sampler_path(sp, cfg, dev, card)
+
     # ---- 4. per-kernel numbers at the main path's shapes (B=64, N=2048, bf16)
     b, n = 64, 2048
     z = torch.randn((b, cfg.model.dz), generator=g, device=dev)
@@ -1296,7 +1602,8 @@ def main() -> int:
           f"{li_ms:.4f} ms (plain {li_plain:.3f}); max_abs err fwd {lf_err:.2e}, bwd {lb_err:.2e}, "
           f"inv {li_err:.2e} ({card})")
     kernels += eval_kernel_rows(half_a, half_b, gen_launches, ae_launches)
-    check(len(kernels) == 13, f"{len(kernels)} kernel rows")
+    kernels += grad_rows + int8_rows
+    check(len(kernels) == 16, f"{len(kernels)} kernel rows")
     print(json.dumps({"kernels": kernels}))
 
     # ---- 5. where the sampler's time goes (torch.profiler, 5 calls each)

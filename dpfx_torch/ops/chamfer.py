@@ -1,10 +1,12 @@
-"""Chamfer distance: per-point squared nearest-neighbour distances and the
-pairwise CD matrix, through one CUDA kernel (``csrc/chamfer.cu``).
+"""Chamfer distance: per-point squared nearest-neighbour distances with
+their gradients, and the pairwise CD matrix, through the CUDA kernels of
+``csrc/chamfer.cu``.
 
 Counterpart of ``dpfx/ops/chamfer.py``. Its Pallas kernels
 ``_nnd_fwd_pallas`` (diagonal pairs) and ``_cd_pallas_pairwise`` (the
-[S1, S2] matrix) become one kernel over a list of cloud pairs; see its
-header for the design and what bounds it.
+[S1, S2] matrix) become one kernel over a list of cloud pairs, and
+``_nnd_bwd_pallas`` (the backward of ``nn_distances``) a second one; see
+the source for the design and what bounds each.
 
     dl[i] = min_j ||x_i - y_j||^2,  dr[j] = min_i ||x_i - y_j||^2
     CD(X, Y) = mean_i dl[i] + mean_j dr[j]
@@ -17,10 +19,16 @@ distance is equal in both bit for bit. ``precision="fast"`` rounds the
 coordinates to bf16 for x.y (the norms stay f32) and each distance to bf16,
 as the Pallas fast mode does.
 
+``nn_distances``, ``chamfer`` and ``chamfer_parts`` are differentiable, as
+``dpfx``'s are: the backward tests ``d <= dmin`` against the forward's own
+minima (the same distances, bit for bit) and splits a tie's gradient
+evenly, as ``_nnd_bwd_pallas`` does (not one argmin, as ``impl="jnp"``
+does). ``chamfer_pairwise`` has no gradient, as in ``dpfx``: an input that
+requires grad raises.
+
 Every wrapper takes its plain PyTorch version for a tensor on the CPU and
 launches the kernel for a CUDA tensor (or raises). ``launches`` counts the
-kernel launches of each wrapper. Gradients are not ported (ROADMAP Queue 2
-#8): an input that requires grad raises.
+kernel launches of each wrapper.
 """
 
 from __future__ import annotations
@@ -30,13 +38,14 @@ import functools
 from typing import Dict, Tuple
 
 import torch
+from torch.autograd.function import once_differentiable
 
 from dpfx_torch.ops._build import SMEM_LIMIT
 
 Tensor = torch.Tensor
 
 # kernel launches per wrapper; chip_smoke.py zeroes these around the main path
-launches: Dict[str, int] = {"nnd_fwd": 0, "cd_pairwise": 0}
+launches: Dict[str, int] = {"nnd_fwd": 0, "nnd_bwd": 0, "cd_pairwise": 0}
 
 MAX_POINTS = 4096          # the kernels keep both clouds of a pair in shared memory
 PLAIN_CHUNK_ELEMS = 2**26  # distance elements per chunk of a plain version (256 MB f32)
@@ -47,10 +56,12 @@ def reset_launch_counts() -> None:
         launches[k] = 0
 
 
-def _no_grad_ported(*ts: Tensor) -> None:
+def refuse_grad(what: str, *ts: Tensor) -> None:
+    """Raise for an input that requires grad: ``what`` has no gradient, as
+    in ``dpfx`` (whose function of that name has no VJP)."""
     if torch.is_grad_enabled() and any(t.requires_grad for t in ts):
-        raise NotImplementedError("the gradients of the CD and EMD kernels are not ported yet "
-                                  "(ROADMAP Queue 2 #8): call under torch.no_grad() or detach")
+        raise NotImplementedError(f"{what} has no gradient, as in dpfx: call it under "
+                                  "torch.no_grad() or on detached inputs")
 
 
 # ---------------------------------------------------------------- plain versions
@@ -88,6 +99,32 @@ def nn_distances_plain(x: Tensor, y: Tensor) -> Tuple[Tensor, Tensor, Tensor, Te
         dl, il = d.min(dim=-1)
         dr, ir = d.min(dim=-2)
         out.append((dl, il.int(), dr, ir.int()))
+    return tuple(torch.cat(parts) for parts in zip(*out))
+
+
+def nn_distances_backward_plain(x: Tensor, y: Tensor, dl: Tensor, dr: Tensor, gl: Tensor,
+                                gr: Tensor) -> Tuple[Tensor, Tensor]:
+    """(gx [B,N,3], gy [B,M,3]): the backward of the minima dl [B,N], dr [B,M]
+    for the cotangents gl [B,N], gr [B,M], as ``_nnd_bwd_pallas`` computes it:
+    the nearest neighbours are the masks d <= dl_i (rows) and d <= dr_j
+    (columns) on the same distances as the forward, and a tie splits the
+    gradient evenly. In f32 (f64 for f64 inputs, a reference)."""
+    out = []
+    step = _pair_chunk(x.shape[-2], y.shape[-2])
+    for s in range(0, x.shape[0], step):
+        xc, yc = x[s:s + step], y[s:s + step]
+        d = sqdist_matrix(xc, yc)
+        xc, yc = xc.to(d.dtype), yc.to(d.dtype)
+        glc, grc = gl[s:s + step].to(d.dtype), gr[s:s + step].to(d.dtype)
+        maskl = (d <= dl[s:s + step, :, None]).to(d.dtype)
+        maskr = (d <= dr[s:s + step, None, :]).to(d.dtype)
+        wl = glc[..., None] * maskl / maskl.sum(-1, keepdim=True).clamp_min(1.0)
+        wr = grc[:, None, :] * maskr / maskr.sum(-2, keepdim=True).clamp_min(1.0)
+        gx = (2.0 * glc[..., None] * xc - 2.0 * (wl @ yc)
+              + 2.0 * xc * wr.sum(-1, keepdim=True) - 2.0 * (wr @ yc))
+        gy = (2.0 * yc * (grc + wl.sum(-2))[..., None] - 2.0 * (wl.transpose(1, 2) @ xc)
+              - 2.0 * (wr.transpose(1, 2) @ xc))
+        out.append((gx, gy))
     return tuple(torch.cat(parts) for parts in zip(*out))
 
 
@@ -130,12 +167,21 @@ def _lib() -> ctypes.CDLL:
     lib.dpfx_chamfer_launch.restype = ctypes.c_int
     lib.dpfx_chamfer_smem_bytes.argtypes = [i, i]
     lib.dpfx_chamfer_smem_bytes.restype = ctypes.c_int
+    lib.dpfx_nnd_bwd_launch.argtypes = [p, p, i, i, i, p, p, p, p, p, p, p]
+    lib.dpfx_nnd_bwd_launch.restype = ctypes.c_int
+    lib.dpfx_nnd_bwd_smem_bytes.argtypes = [i, i]
+    lib.dpfx_nnd_bwd_smem_bytes.restype = ctypes.c_int
     return lib
 
 
 def smem_bytes(n: int, m: int) -> int:
     """Dynamic shared memory of one block, as the kernel library reports it."""
     return _lib().dpfx_chamfer_smem_bytes(n, m)
+
+
+def bwd_smem_bytes(n: int, m: int) -> int:
+    """Dynamic shared memory of one block of the backward kernel."""
+    return _lib().dpfx_nnd_bwd_smem_bytes(n, m)
 
 
 def check_clouds(xs: Tensor, ys: Tensor, smem: int) -> Tuple[Tensor, Tensor]:
@@ -179,24 +225,79 @@ def _launch(xs: Tensor, ys: Tensor, pairs: Tensor, fast: bool, cd=None, dl=None,
         raise RuntimeError(f"chamfer kernel launch failed: cudaError {err}")
 
 
-# ---------------------------------------------------------------- public wrappers
-
-def nn_distances(x: Tensor, y: Tensor) -> Tuple[Tensor, Tensor]:
-    """(dl [B,N], dr [B,M]): squared NN distances both ways, diagonal pairs
-    x [B,N,3], y [B,M,3]. The forward only."""
-    _no_grad_ported(x, y)
+def nnd_forward(x: Tensor, y: Tensor) -> Tuple[Tensor, Tensor]:
+    """(dl [B,N], dr [B,M]) of diagonal pairs: the kernel for CUDA tensors,
+    the plain version for CPU tensors. No autograd."""
+    if x.shape[0] != y.shape[0]:
+        raise ValueError(f"diagonal pairs need equal batches, got {x.shape[0]} and {y.shape[0]}")
     if not x.is_cuda:
         dl, _, dr, _ = nn_distances_plain(x, y)
         return dl, dr
     x, y = check_clouds(x, y, smem_bytes(x.shape[1], y.shape[1]))
-    if x.shape[0] != y.shape[0]:
-        raise ValueError(f"diagonal pairs need equal batches, got {x.shape[0]} and {y.shape[0]}")
     b = x.shape[0]
     dl = torch.empty((b, x.shape[1]), dtype=torch.float32, device=x.device)
     dr = torch.empty((b, y.shape[1]), dtype=torch.float32, device=x.device)
     _launch(x, y, pair_list(b, b, "diag", x.device), False, dl=dl, dr=dr)
     launches["nnd_fwd"] += 1
     return dl, dr
+
+
+def nnd_backward(x: Tensor, y: Tensor, dl: Tensor, dr: Tensor, gl: Tensor,
+                 gr: Tensor) -> Tuple[Tensor, Tensor]:
+    """(gx [B,N,3], gy [B,M,3]) from the forward's own minima dl, dr and the
+    cotangents gl, gr: the kernel for CUDA tensors, the plain version for
+    CPU tensors."""
+    if not x.is_cuda:
+        return nn_distances_backward_plain(x, y, dl, dr, gl, gr)
+    x, y = check_clouds(x, y, bwd_smem_bytes(x.shape[1], y.shape[1]))
+    b, n, m = x.shape[0], x.shape[1], y.shape[1]
+    if y.shape[0] != b or dl.shape != (b, n) or dr.shape != (b, m) or gl.shape != (b, n) \
+            or gr.shape != (b, m):
+        raise ValueError(f"nnd_backward shapes: x {tuple(x.shape)}, y {tuple(y.shape)}, dl "
+                         f"{tuple(dl.shape)}, dr {tuple(dr.shape)}, gl {tuple(gl.shape)}, gr "
+                         f"{tuple(gr.shape)}")
+    vecs = [t.float().contiguous() for t in (dl, dr, gl, gr)]
+    if any(t.device != x.device for t in vecs):
+        raise ValueError("dl, dr, gl and gr must lie on the clouds' device")
+    gx = torch.empty_like(x)
+    gy = torch.empty_like(y)
+    stream = torch.cuda.current_stream(x.device).cuda_stream
+    with torch.cuda.device(x.device):
+        err = _lib().dpfx_nnd_bwd_launch(x.data_ptr(), y.data_ptr(), b, n, m,
+                                         *(t.data_ptr() for t in vecs), gx.data_ptr(),
+                                         gy.data_ptr(), stream)
+    if err != 0:
+        raise RuntimeError(f"nnd_bwd kernel launch failed: cudaError {err}")
+    launches["nnd_bwd"] += 1
+    return gx, gy
+
+
+class _NNDistances(torch.autograd.Function):
+    """``dpfx``'s ``nn_distances`` custom VJP: the backward reads the
+    forward's minima, so its masks see the same distances."""
+
+    @staticmethod
+    def forward(ctx, x, y):
+        dl, dr = nnd_forward(x, y)
+        ctx.save_for_backward(x, y, dl, dr)
+        return dl, dr
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, gl, gr):
+        x, y, dl, dr = ctx.saved_tensors
+        gl = torch.zeros_like(dl) if gl is None else gl
+        gr = torch.zeros_like(dr) if gr is None else gr
+        gx, gy = nnd_backward(x, y, dl, dr, gl, gr)
+        return gx.to(x.dtype), gy.to(y.dtype)
+
+
+# ---------------------------------------------------------------- public wrappers
+
+def nn_distances(x: Tensor, y: Tensor) -> Tuple[Tensor, Tensor]:
+    """(dl [B,N], dr [B,M]): squared NN distances both ways, diagonal pairs
+    x [B,N,3], y [B,M,3]; differentiable in x and y."""
+    return _NNDistances.apply(x, y)
 
 
 def chamfer(x: Tensor, y: Tensor) -> Tensor:
@@ -218,7 +319,7 @@ def chamfer_pairwise(xs: Tensor, ys: Tensor, precision: str = "exact",
     ``symmetric=True`` (a self-comparison: S1 == S2 and N == M) computes only
     the upper triangle and mirrors it: CD(x, y) == CD(y, x) exactly, so the
     matrix is the same at about half the cost."""
-    _no_grad_ported(xs, ys)
+    refuse_grad("chamfer_pairwise", xs, ys)
     fast = _fast(precision)
     s1, n = xs.shape[0], xs.shape[1]
     s2, m = ys.shape[0], ys.shape[1]

@@ -1,11 +1,12 @@
 // Approximate EMD (approxmatch) on Hopper (sm_90a): the matching cost of
 // diagonal pairs, and the pairwise cost matrix of two sets.
 //
-// Replaces the Pallas TPU kernels `_emd_pallas_batched` with
-// with_grad=False (dpfx/ops/emd.py:356) and `_emd_pallas_pairwise` (:435),
-// which share `_emd_kernel_body` (:147). One kernel serves both, over a list
-// of (left, right) cloud pairs: diagonal pairs (emd_batched, exact f32) or
-// the pairs of an S1 x S2 matrix (emd_pairwise, fast or exact).
+// Replaces the Pallas TPU kernels `_emd_pallas_batched` (dpfx/ops/emd.py:356),
+// with_grad False and True, and `_emd_pallas_pairwise` (:435), which share
+// `_emd_kernel_body` (:147). One kernel serves all three, over a list of
+// (left, right) cloud pairs: diagonal pairs (emd_batched, exact f32; with
+// GRAD also the gradients, emd_batched_grad) or the pairs of an S1 x S2
+// matrix (emd_pairwise, fast or exact).
 //
 // The algorithm (10 annealed levels; level = -4^j, 0 on the last):
 //   w_ij = exp(level d_ij) remainr_j            d = squared distance
@@ -50,6 +51,27 @@
 //   * Ragged N != M: factorl = max(n, m) / n and factorr = max(n, m) / m
 //     come from the wrapper; loops run to the true sizes, so nothing is
 //     padded.
+//   * GRAD (exact only, as in dpfx): the gradients of the cost with the plan
+//     held constant, summed over the levels,
+//       gx_i = sum_j delta_ij (x_i - y_j) / max(|x_i - y_j|, eps)
+//       gy_j = sum_i delta_ij (y_j - x_i) / max(|x_i - y_j|, eps)
+//     with delta_ij = ss_ij ratio_j, the level's share of the plan. The
+//     distance here comes from the coordinates' difference, as in dpfx's
+//     emd_grads_jnp, not from the expanded d of the cost: near coincident
+//     points d cancels to ~0 while |x_i - y_j| is ~1e-4, and 1 / sqrt(d)
+//     would weigh the pair by up to 1 / eps (gradients of ~1e2 where they
+//     are ~1e-3; the Pallas body divides by sqrt(d) and has that fault).
+//     Both sums fit in the passes that exist: (B) owns column j and ends
+//     with ratio_j, so it sums ss_ij (y_j - x_i) / max(|x_i - y_j|, eps)
+//     beside cs and cdist and adds ratio_j times that to gy_j; (C) owns row
+//     i while scale_i = remainl_i / (rowsum_i + eps) is still this level's,
+//     so it sums w_ij ratio_j (x_i - y_j) / max(|x_i - y_j|, eps) beside its
+//     sum of w ratio and adds scale_i times that to gx_i. The owning thread
+//     adds into gx and gy in global memory once per level, so shared memory
+//     does not grow and the sums stay in a fixed order. The cost's
+//     arithmetic is the same instructions in both modes: the cost of a GRAD
+//     launch equals the plain launch's bit for bit. Costs an rsqrt (MUFU)
+//     and ~10 FP32 instructions more per element and level in (B) and in (C).
 //
 // Plain C interface, loaded with ctypes (dpfx_torch/ops/_build.py). The
 // launch returns cudaGetLastError().
@@ -70,18 +92,39 @@ __device__ __forceinline__ float weight(float level, float d, float remainr) {
   return FAST ? rnd<__nv_bfloat16>(w) : w;
 }
 
+// acc += k (a - b) / max(|a - b|, eps), |a - b| from the coordinates
+__device__ __forceinline__ void add_unit(float3& acc, float k, const float4 a, const float4 b) {
+  const float dx = a.x - b.x, dy = a.y - b.y, dz = a.z - b.z;
+  const float s = k * rsqrtf(fmaxf(fmaf(dx, dx, fmaf(dy, dy, dz * dz)), EPS * EPS));
+  acc.x = fmaf(s, dx, acc.x);
+  acc.y = fmaf(s, dy, acc.y);
+  acc.z = fmaf(s, dz, acc.z);
+}
+
+// dst (3 floats in global memory, zeroed by the wrapper) += s * g, by the
+// owning thread
+__device__ __forceinline__ void add_grad(float* dst, float s, const float3 g) {
+  dst[0] += s * g.x;
+  dst[1] += s * g.y;
+  dst[2] += s * g.z;
+}
+
 // the row pass: for each row i owned by this thread, acc_i = sum_j w_ij
-// (RATIO false) or sum_j w_ij ratio_j (RATIO true), then fin(i, acc_i)
-template <bool FAST, bool RATIO, typename Fin>
+// (RATIO false) or sum_j w_ij ratio_j (RATIO true), and with GRAD
+// g_i = sum_j w_ij ratio_j (x_i - y_j) / max(|x_i - y_j|, eps); then
+// fin(i, acc_i, g_i)
+template <bool FAST, bool RATIO, bool GRAD, typename Fin>
 __device__ void row_pass(const float4* xp, int N, const float4* yp, int M, const float* remainr,
                          const float* ratio, float level, Fin fin) {
   for (int base = 0; base < N; base += CHUNK) {
     float4 p[R];
     float acc[R];
+    float3 g[R];
 #pragma unroll
     for (int r = 0; r < R; ++r) {
       p[r] = xp[min(base + (int)threadIdx.x + r * THREADS, N - 1)];
       acc[r] = 0.f;
+      g[r] = make_float3(0.f, 0.f, 0.f);
     }
     for (int j = 0; j < M; ++j) {
       const float4 q = yp[j];
@@ -89,26 +132,32 @@ __device__ void row_pass(const float4* xp, int N, const float4* yp, int M, const
       const float rt = RATIO ? ratio[j] : 1.f;
 #pragma unroll
       for (int r = 0; r < R; ++r) {
-        const float w = weight<FAST>(level, sqdist<FAST>(p[r], q), rr);
+        const float d = sqdist<FAST>(p[r], q);
+        const float w = weight<FAST>(level, d, rr);
         acc[r] = RATIO ? __fadd_rn(acc[r], __fmul_rn(w, rt)) : __fadd_rn(acc[r], w);
+        if (GRAD) add_unit(g[r], w * rt, p[r], q);
       }
     }
 #pragma unroll
     for (int r = 0; r < R; ++r) {
       const int i = base + threadIdx.x + r * THREADS;
-      if (i < N) fin(i, acc[r]);
+      if (i < N) fin(i, acc[r], g[r]);
     }
   }
 }
 
 // pair p compares cloud pairs[2p] of xs [*, N, 3] with cloud pairs[2p+1] of
-// ys [*, M, 3] and writes the matching cost (not yet divided by n) at p
-template <bool FAST>
+// ys [*, M, 3] and writes the matching cost (not yet divided by n) at p;
+// GRAD also its gradients (not yet divided by n) at gx [p, N, 3], gy [p, M, 3]
+template <bool FAST, bool GRAD>
 __global__ void __launch_bounds__(THREADS) emd_kernel(const float* __restrict__ xs,
                                                       const float* __restrict__ ys,
                                                       const int* __restrict__ pairs, int N, int M,
                                                       int n_iters, float factorl, float factorr,
-                                                      float* __restrict__ cost_out) {
+                                                      float* __restrict__ cost_out,
+                                                      float* __restrict__ gx,
+                                                      float* __restrict__ gy) {
+  static_assert(!(FAST && GRAD), "the gradient mode is exact only");
   extern __shared__ float4 pts[];
   __shared__ float red[WARPS];
   float4* xp = pts;
@@ -120,6 +169,10 @@ __global__ void __launch_bounds__(THREADS) emd_kernel(const float* __restrict__ 
   float* rnext = remainr + M;
   float* ratio = rnext + M;
   const long long p = blockIdx.x;
+  if (GRAD) {
+    gx += p * N * 3;
+    gy += p * M * 3;
+  }
   load_points<FAST>(xp, xs + (long long)pairs[2 * p] * N * 3, N);
   load_points<FAST>(yp, ys + (long long)pairs[2 * p + 1] * M * 3, M);
   for (int i = threadIdx.x; i < N; i += THREADS) remainl[i] = factorl;
@@ -131,7 +184,7 @@ __global__ void __launch_bounds__(THREADS) emd_kernel(const float* __restrict__ 
     const float level = it == n_iters - 1 ? 0.f : -ldexpf(1.f, 2 * (n_iters - 3 - it));
 
     // (A) rows: rowsum and the row scale
-    row_pass<FAST, false>(xp, N, yp, M, remainr, nullptr, level, [&](int i, float rs) {
+    row_pass<FAST, false, false>(xp, N, yp, M, remainr, nullptr, level, [&](int i, float rs, float3) {
       rowsum[i] = rs;
       const float sc = __fdiv_rn(remainl[i], __fadd_rn(rs, EPS));
       scale[i] = FAST ? rnd<__nv_bfloat16>(sc) : sc;
@@ -143,6 +196,7 @@ __global__ void __launch_bounds__(THREADS) emd_kernel(const float* __restrict__ 
     for (int base = 0; base < M; base += CHUNK) {
       float4 q[R];
       float rr[R], cs[R], cdist[R];
+      float3 g[R];
 #pragma unroll
       for (int r = 0; r < R; ++r) {
         const int j = min(base + (int)threadIdx.x + r * THREADS, M - 1);
@@ -150,6 +204,7 @@ __global__ void __launch_bounds__(THREADS) emd_kernel(const float* __restrict__ 
         rr[r] = remainr[j];
         cs[r] = 0.f;
         cdist[r] = 0.f;
+        g[r] = make_float3(0.f, 0.f, 0.f);
       }
       for (int i = 0; i < N; ++i) {
         const float4 x = xp[i];
@@ -163,6 +218,7 @@ __global__ void __launch_bounds__(THREADS) emd_kernel(const float* __restrict__ 
           if (FAST) t = rnd<__nv_bfloat16>(t);
           cs[r] = __fadd_rn(cs[r], ss);
           cdist[r] = __fadd_rn(cdist[r], t);
+          if (GRAD) add_unit(g[r], ss, q[r], x);
         }
       }
 #pragma unroll
@@ -173,15 +229,17 @@ __global__ void __launch_bounds__(THREADS) emd_kernel(const float* __restrict__ 
           ratio[j] = rt;
           rnext[j] = fmaxf(__fsub_rn(rr[r], __fmul_rn(cs[r], rt)), 0.f);
           part = __fadd_rn(part, __fmul_rn(rt, cdist[r]));
+          if (GRAD) add_grad(gy + 3 * j, rt, g[r]);
         }
       }
     }
     cost = __fadd_rn(cost, block_sum(part, red));   // its barriers publish ratio and rnext
 
     // (C) rows: remainl -= (sum_j w ratio) remainl / (rowsum + eps)
-    row_pass<FAST, true>(xp, N, yp, M, remainr, ratio, level, [&](int i, float wr) {
+    row_pass<FAST, true, GRAD>(xp, N, yp, M, remainr, ratio, level, [&](int i, float wr, float3 gi) {
       const float rl = remainl[i];
       remainl[i] = fmaxf(__fsub_rn(rl, __fmul_rn(__fdiv_rn(wr, __fadd_rn(rowsum[i], EPS)), rl)), 0.f);
+      if (GRAD) add_grad(gx + 3 * i, scale[i], gi);
     });
     __syncthreads();
     float* t = remainr;
@@ -193,13 +251,16 @@ __global__ void __launch_bounds__(THREADS) emd_kernel(const float* __restrict__ 
 
 int smem_bytes(int N, int M) { return (N + M) * (int)sizeof(float4) + 3 * (N + M) * (int)sizeof(float); }
 
-template <bool FAST>
+template <bool FAST, bool GRAD>
 cudaError_t launch(const float* xs, const float* ys, const int* pairs, int P, int N, int M, int n_iters,
-                   float factorl, float factorr, float* cost, cudaStream_t stream) {
+                   float factorl, float factorr, float* cost, float* gx, float* gy,
+                   cudaStream_t stream) {
   const int bytes = smem_bytes(N, M);
-  cudaError_t e = cudaFuncSetAttribute(emd_kernel<FAST>, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  cudaError_t e = cudaFuncSetAttribute(emd_kernel<FAST, GRAD>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                       bytes);
   if (e != cudaSuccess) return e;
-  emd_kernel<FAST><<<P, THREADS, bytes, stream>>>(xs, ys, pairs, N, M, n_iters, factorl, factorr, cost);
+  emd_kernel<FAST, GRAD><<<P, THREADS, bytes, stream>>>(xs, ys, pairs, N, M, n_iters, factorl, factorr,
+                                                        cost, gx, gy);
   return cudaGetLastError();
 }
 
@@ -210,12 +271,18 @@ extern "C" {
 // dynamic shared memory of one block (the wrapper checks it against the limit)
 int dpfx_emd_smem_bytes(int N, int M) { return smem_bytes(N, M); }
 
+// gx, gy: null, or the gradients' outputs, zeroed (exact mode only; then fast is 0)
 int dpfx_emd_launch(const float* xs, const float* ys, const int* pairs, int P, int N, int M, int n_iters,
-                    int fast, float factorl, float factorr, float* cost, void* stream) {
+                    int fast, float factorl, float factorr, float* cost, float* gx, float* gy,
+                    void* stream) {
   if (P <= 0) return 0;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return fast ? launch<true>(xs, ys, pairs, P, N, M, n_iters, factorl, factorr, cost, s)
-              : launch<false>(xs, ys, pairs, P, N, M, n_iters, factorl, factorr, cost, s);
+  if (gx || gy) {
+    if (fast || !gx || !gy) return (int)cudaErrorInvalidValue;
+    return launch<false, true>(xs, ys, pairs, P, N, M, n_iters, factorl, factorr, cost, gx, gy, s);
+  }
+  return fast ? launch<true, false>(xs, ys, pairs, P, N, M, n_iters, factorl, factorr, cost, gx, gy, s)
+              : launch<false, false>(xs, ys, pairs, P, N, M, n_iters, factorl, factorr, cost, gx, gy, s);
 }
 
 }  // extern "C"

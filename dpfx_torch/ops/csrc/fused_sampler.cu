@@ -3,10 +3,11 @@
 // shared memory from the base noise to the output.
 //
 // Replaces the Pallas TPU kernels `_fused_inverse_kernel`
-// (dpfx/ops/fused_sampler.py:112) and `_fused_sample_kernel` (:309). One
-// kernel serves both: with `ut == nullptr` it draws the base noise itself
-// (Philox4x32-10 keyed by the seed, counter = (point, cloud), Box-Muller with
-// the +1e-7 guard on u1), so the stream does not depend on the tiling.
+// (dpfx/ops/fused_sampler.py:112) and `_fused_sample_kernel` (:309), the
+// latter with its int8 mode (`quantized=`, :338-369). One kernel serves
+// all: with `ut == nullptr` it draws the base noise itself (Philox4x32-10
+// keyed by the seed, counter = (point, cloud), Box-Muller with the +1e-7
+// guard on u1), so the stream does not depend on the tiling.
 //
 // Work per point and layer: Wx (H x 3), (n_hidden-1) x Wh (H x H), Wout
 // (6 x H): 2(3H + (n_hidden-1)H^2 + 6H) FLOP, about 35 kFLOP at H=128,
@@ -29,6 +30,13 @@
 //     accumulation, bias and hz added in f32, the activation in f32, then a
 //     cast back to the compute dtype; the coupling update is f32.
 //   * The ragged last tile computes on zeros and writes nothing past N.
+//   * int8 mode (W = int8_t): Wx, Wh and Wout arrive as int8 with one f32
+//     scale per (layer, tensor) (scales [K, 8]: wx, wh, wout), and are
+//     dequantized where each layer's weights are staged into shared memory,
+//     as rnd<S>(q * s) -- what the Pallas kernel computes in VMEM, and what
+//     the compute-dtype mode gets from stacks dequantized on the host, bit
+//     for bit. Only the staging differs: a quarter (bf16: half) of the
+//     weight bytes come from L2, and one multiply per weight element.
 //
 // Plain C interface, loaded with ctypes (dpfx_torch/ops/_build.py). The
 // launch returns cudaGetLastError().
@@ -152,13 +160,35 @@ __device__ void hidden_gemm(float* hs, const float* ws, const float* bh, float*,
     }
 }
 
-template <typename S, int H>
+// a stored weight as the compute dtype S sees it: an S as it is, an int8
+// q with its scale s as rnd<S>(q * s)
+template <typename S, typename W>
+__device__ __forceinline__ float weight_f(W v, float s) {
+  if constexpr (std::is_same<W, int8_t>::value) return rnd<S>(__fmul_rn((float)v, s));
+  else return to_f(v);
+}
+
+// stage one H x H matrix g (W per element, int8 with its scale s) into ws as S
+template <typename S, typename W, int H>
+__device__ void stage_square(S* ws, const W* g, float s, int ld) {
+  if constexpr (std::is_same<W, int8_t>::value) {
+    for (int v = threadIdx.x; v < H * H; v += THREADS)
+      ws[(v / H) * ld + v % H] = from_f<S>(__fmul_rn((float)g[v], s));
+  } else {
+    load_square<H>(ws, g, ld);
+  }
+}
+
+// W: the stored weight type, S (compute-dtype mode) or int8_t (int8 mode,
+// with scales [K, 8])
+template <typename S, typename W, int H>
 __global__ void __launch_bounds__(THREADS)
 fused_inverse_kernel(const float* __restrict__ hz, const float* __restrict__ ut,
                      float* __restrict__ out, float* __restrict__ u_out,
-                     const S* __restrict__ wx, const S* __restrict__ wh,
-                     const float* __restrict__ bh, const S* __restrict__ wout,
+                     const W* __restrict__ wx, const W* __restrict__ wh,
+                     const float* __restrict__ bh, const W* __restrict__ wout,
                      const float* __restrict__ bout, const float* __restrict__ masks,
+                     const float* __restrict__ scales,
                      int C, int N, int K, int NH1, float cap, int act,
                      unsigned long long seed, float noise_scale) {
   extern __shared__ __align__(128) unsigned char smem[];
@@ -205,9 +235,12 @@ fused_inverse_kernel(const float* __restrict__ hz, const float* __restrict__ ut,
   for (int i = 0; i < K; ++i) {
     const int k = K - 1 - i;
     __syncthreads();  // previous layer done with xs and the small weights
-    for (int e = tid; e < 3 * H; e += THREADS) wxs[e] = to_f(wx[(size_t)k * 3 * H + e]);
+    const float s_wx = scales ? scales[k * 8] : 1.f;
+    const float s_wh = scales ? scales[k * 8 + 1] : 1.f;
+    const float s_wo = scales ? scales[k * 8 + 2] : 1.f;
+    for (int e = tid; e < 3 * H; e += THREADS) wxs[e] = weight_f<S>(wx[(size_t)k * 3 * H + e], s_wx);
     for (int e = tid; e < H; e += THREADS) hzs[e] = hz[((size_t)b * K + k) * H + e];
-    for (int e = tid; e < 6 * H; e += THREADS) wos[e] = to_f(wout[(size_t)k * 6 * H + e]);
+    for (int e = tid; e < 6 * H; e += THREADS) wos[e] = weight_f<S>(wout[(size_t)k * 6 * H + e], s_wo);
     if (tid < 6) bos[tid] = bout[k * 6 + tid];
     __syncthreads();
 
@@ -222,7 +255,7 @@ fused_inverse_kernel(const float* __restrict__ hz, const float* __restrict__ ut,
 
     for (int j = 0; j < NH1; ++j) {
       __syncthreads();  // hs written; the previous product is done with ws, bhs
-      load_square<H>(ws, wh + ((size_t)k * NH1 + j) * H * H, ld);
+      stage_square<S, W, H>(ws, wh + ((size_t)k * NH1 + j) * H * H, s_wh, ld);
       for (int e = tid; e < H; e += THREADS) bhs[e] = bh[((size_t)k * NH1 + j) * H + e];
       __syncthreads();
       hidden_gemm<H>(hs, ws, bhs, stage, ld, act);
@@ -264,32 +297,33 @@ fused_inverse_kernel(const float* __restrict__ hz, const float* __restrict__ ut,
     for (int c = 0; c < 3; ++c) out[cloud + (size_t)c * N + n0 + tid] = xs[c * TILE + tid];
 }
 
-template <typename S, int H>
+template <typename S, typename W, int H>
 cudaError_t launch(const float* hz, const float* ut, float* out, float* u_out, const void* wx,
                    const void* wh, const float* bh, const void* wout, const float* bout,
-                   const float* masks, int B, int C, int N, int K, int NH1, float cap, int act,
-                   unsigned long long seed, float noise_scale, cudaStream_t stream) {
+                   const float* masks, const float* scales, int B, int C, int N, int K, int NH1,
+                   float cap, int act, unsigned long long seed, float noise_scale,
+                   cudaStream_t stream) {
   const int bytes = Smem<S>(H).total;
-  cudaError_t e = cudaFuncSetAttribute(fused_inverse_kernel<S, H>,
+  cudaError_t e = cudaFuncSetAttribute(fused_inverse_kernel<S, W, H>,
                                        cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
   if (e != cudaSuccess) return e;
   dim3 grid((N + TILE - 1) / TILE, B);
-  fused_inverse_kernel<S, H><<<grid, THREADS, bytes, stream>>>(
-      hz, ut, out, u_out, static_cast<const S*>(wx), static_cast<const S*>(wh), bh,
-      static_cast<const S*>(wout), bout, masks, C, N, K, NH1, cap, act, seed, noise_scale);
+  fused_inverse_kernel<S, W, H><<<grid, THREADS, bytes, stream>>>(
+      hz, ut, out, u_out, static_cast<const W*>(wx), static_cast<const W*>(wh), bh,
+      static_cast<const W*>(wout), bout, masks, scales, C, N, K, NH1, cap, act, seed, noise_scale);
   return cudaGetLastError();
 }
 
-template <typename S>
+template <typename S, typename W>
 cudaError_t dispatch(int H, const float* hz, const float* ut, float* out, float* u_out,
                      const void* wx, const void* wh, const float* bh, const void* wout,
-                     const float* bout, const float* masks, int B, int C, int N, int K, int NH1,
-                     float cap, int act, unsigned long long seed, float noise_scale,
-                     cudaStream_t s) {
+                     const float* bout, const float* masks, const float* scales, int B, int C,
+                     int N, int K, int NH1, float cap, int act, unsigned long long seed,
+                     float noise_scale, cudaStream_t s) {
 #define DPFX_CASE(HH)                                                                       \
   case HH:                                                                                  \
-    return launch<S, HH>(hz, ut, out, u_out, wx, wh, bh, wout, bout, masks, B, C, N, K, NH1, \
-                         cap, act, seed, noise_scale, s);
+    return launch<S, W, HH>(hz, ut, out, u_out, wx, wh, bh, wout, bout, masks, scales, B, C, \
+                            N, K, NH1, cap, act, seed, noise_scale, s);
   switch (H) {
     DPFX_CASE(32)
     DPFX_CASE(64)
@@ -308,18 +342,23 @@ int dpfx_fused_sampler_smem_bytes(int H, int bf16) {
   return bf16 ? Smem<__nv_bfloat16>(H).total : Smem<float>(H).total;
 }
 
+// scales: null (wx, wh, wout in the compute dtype) or [K, 8] f32 (int8 mode:
+// wx, wh, wout are int8 stacks of the same shapes)
 int dpfx_fused_sampler_launch(const float* hz, const float* ut, float* out, float* u_out,
                               const void* wx, const void* wh, const float* bh, const void* wout,
                               const float* bout, const float* masks, int B, int C, int N, int K,
                               int H, int NH1, float cap, int act, int bf16,
-                              unsigned long long seed, float noise_scale, void* stream) {
+                              unsigned long long seed, float noise_scale, const float* scales,
+                              void* stream) {
   if (B <= 0 || N <= 0 || K <= 0 || C < 3 || B > 65535) return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  cudaError_t e = bf16 ? dispatch<__nv_bfloat16>(H, hz, ut, out, u_out, wx, wh, bh, wout, bout,
-                                                 masks, B, C, N, K, NH1, cap, act, seed,
-                                                 noise_scale, s)
-                       : dispatch<float>(H, hz, ut, out, u_out, wx, wh, bh, wout, bout, masks,
-                                         B, C, N, K, NH1, cap, act, seed, noise_scale, s);
+  using BF = __nv_bfloat16;
+#define DPFX_ARGS H, hz, ut, out, u_out, wx, wh, bh, wout, bout, masks, scales, B, C, N, K, NH1, \
+                  cap, act, seed, noise_scale, s
+  cudaError_t e;
+  if (scales) e = bf16 ? dispatch<BF, int8_t>(DPFX_ARGS) : dispatch<float, int8_t>(DPFX_ARGS);
+  else e = bf16 ? dispatch<BF, BF>(DPFX_ARGS) : dispatch<float, float>(DPFX_ARGS);
+#undef DPFX_ARGS
   return (int)e;
 }
 

@@ -17,6 +17,13 @@ in the compute dtype with float32 accumulation, the bias and ``hz`` added in
 float32, the activation applied in float32 and the result cast back to the
 compute dtype; the coupling arithmetic is float32.
 
+``fused_sample_points(..., quantized=quantize_flow_params(sp))`` runs the
+int8 mode of ``dpfx``: Wx, Wh and Wout as int8 with one f32 scale per
+(layer, tensor), dequantized where the kernel stages each layer's weights,
+as ``rnd(q * s)`` in the compute dtype. That equals, bit for bit, the
+kernel on the host-dequantized stacks (``dequantize``), which is also the
+plain version.
+
 Every wrapper takes its plain PyTorch version for a tensor on the CPU and
 launches the kernel for a CUDA tensor (or raises). ``launches`` counts the
 kernel launches of each wrapper.
@@ -36,7 +43,7 @@ from dpfx_torch.ops._build import SMEM_LIMIT
 Tensor = torch.Tensor
 
 # kernel launches per wrapper; chip_smoke.py zeroes these around the main path
-launches: Dict[str, int] = {"fused_inverse": 0, "fused_sample": 0}
+launches: Dict[str, int] = {"fused_inverse": 0, "fused_sample": 0, "fused_sample_int8": 0}
 
 ACT_CODES = {"relu": 0, "gelu": 1, "tanh": 2, "leaky_relu": 3}
 KERNEL_HIDDEN = (32, 64, 128, 256)     # conditioner widths the kernel is built for
@@ -88,6 +95,43 @@ def stack_point_flow_params(flow: CouplingFlow) -> StackedFlowParams:
     f = lambda xs: torch.stack(xs).float().contiguous()
     return StackedFlowParams(f(wx), f(wz), f(bx), f(wh), f(bh), f(wout), f(bout), f(masks),
                              float(flow.scale_cap))
+
+
+class QuantizedFlowParams(NamedTuple):
+    """StackedFlowParams whose wx, wh and wout hold int8 stacks, with one f32
+    scale per (layer, tensor) in ``scales`` [K, 8]: column 0 = wx, 1 = wh
+    (shared by the layer's hidden products), 2 = wout, the rest unused."""
+
+    sp: StackedFlowParams
+    scales: Tensor
+
+
+def quantize_flow_params(sp: StackedFlowParams) -> QuantizedFlowParams:
+    """Symmetric int8 quantization of wx, wh and wout per (layer, tensor), as
+    ``dpfx``'s ``quantize_flow_params``: scale = max(amax, 1e-8) / 127, q =
+    clip(round(w / scale), -127, 127), rounding half to even. Biases, masks
+    and wz (the z-projection) stay f32; an empty wh gets scale 1."""
+    def q(w):
+        amax = w.abs().flatten(1).amax(1)
+        scale = torch.clamp_min(amax, 1e-8) / 127.0
+        sc = scale.view(-1, *([1] * (w.dim() - 1)))
+        return torch.clamp(torch.round(w / sc), -127, 127).to(torch.int8), scale
+
+    k = sp.wx.shape[0]
+    wxq, s_wx = q(sp.wx)
+    whq, s_wh = q(sp.wh) if sp.wh.numel() else (sp.wh.to(torch.int8), sp.wx.new_ones(k))
+    woq, s_wo = q(sp.wout)
+    scales = sp.wx.new_zeros((k, 8))
+    scales[:, 0], scales[:, 1], scales[:, 2] = s_wx, s_wh, s_wo
+    return QuantizedFlowParams(sp._replace(wx=wxq, wh=whq, wout=woq), scales)
+
+
+def dequantize(qp: QuantizedFlowParams) -> StackedFlowParams:
+    """The f32 stacks the int8 mode computes with: q * scale per (layer,
+    tensor), in f32."""
+    s = qp.scales
+    deq = lambda w, c: (w.float() * s[:, c].view(-1, *([1] * (w.dim() - 1)))).contiguous()
+    return qp.sp._replace(wx=deq(qp.sp.wx, 0), wh=deq(qp.sp.wh, 1), wout=deq(qp.sp.wout, 2))
 
 
 def z_projection(sp: StackedFlowParams, z: Tensor) -> Tensor:
@@ -149,6 +193,7 @@ def _lib() -> ctypes.CDLL:
         i, i, i, i, i, i,             # B, C, N, K, H, n_hidden-1
         ctypes.c_float, i, i,         # scale cap, activation code, bf16
         ctypes.c_uint64, ctypes.c_float,  # seed, noise scale
+        p,                            # int8 scales [K, 8] (null: weights in the compute dtype)
         p,                            # stream
     ]
     lib.dpfx_fused_sampler_launch.restype = ctypes.c_int
@@ -188,15 +233,35 @@ def _check_kernel_args(sp: StackedFlowParams, hz: Tensor, dtype: torch.dtype,
         raise ValueError(f"hz shape {tuple(hz.shape)} does not match K={k}, H={h}")
 
 
+def _check_quantized(sp: StackedFlowParams, qp: QuantizedFlowParams) -> None:
+    for name in ("wx", "wh", "wout"):
+        w, wq = getattr(sp, name), getattr(qp.sp, name)
+        if wq.dtype != torch.int8 or wq.shape != w.shape or wq.device != w.device \
+                or not wq.is_contiguous():
+            raise ValueError(f"quantized {name} must be a contiguous int8 tensor of shape "
+                             f"{tuple(w.shape)} on {w.device}, got {wq.dtype} "
+                             f"{tuple(wq.shape)} on {wq.device}")
+    s = qp.scales
+    if s.shape != (sp.wx.shape[0], 8) or s.dtype != torch.float32 or s.device != sp.wx.device \
+            or not s.is_contiguous():
+        raise ValueError(f"quantized scales must be a contiguous float32 [K, 8] tensor on "
+                         f"{sp.wx.device}, got {s.dtype} {tuple(s.shape)} on {s.device}")
+
+
 def _launch(sp: StackedFlowParams, hz: Tensor, ut: Optional[Tensor], out: Tensor,
             u_out: Optional[Tensor], dtype: torch.dtype, activation: str,
-            seed: int = 0, noise_scale: float = 1.0) -> None:
+            seed: int = 0, noise_scale: float = 1.0,
+            quantized: Optional[QuantizedFlowParams] = None) -> None:
     _check_kernel_args(sp, hz, dtype, activation)
     b, c, n = out.shape
     k, h, _ = sp.wx.shape
     nh1 = sp.wh.shape[1]
-    # weight operands in the compute dtype (the cast is the kernel's rounding)
-    wx, wh, wout = (w.to(dtype).contiguous() for w in (sp.wx, sp.wh, sp.wout))
+    if quantized is not None:
+        _check_quantized(sp, quantized)
+        wx, wh, wout = quantized.sp.wx, quantized.sp.wh, quantized.sp.wout
+    else:
+        # weight operands in the compute dtype (the cast is the kernel's rounding)
+        wx, wh, wout = (w.to(dtype).contiguous() for w in (sp.wx, sp.wh, sp.wout))
     ptr = lambda t: None if t is None else t.data_ptr()
     stream = torch.cuda.current_stream(hz.device).cuda_stream
     with torch.cuda.device(hz.device):
@@ -205,7 +270,8 @@ def _launch(sp: StackedFlowParams, hz: Tensor, ut: Optional[Tensor], out: Tensor
             ptr(wx), ptr(wh) if nh1 else None, ptr(sp.bh) if nh1 else None,
             ptr(wout), ptr(sp.bout), ptr(sp.masks),
             b, c, n, k, h, nh1, sp.scale_cap, ACT_CODES[activation],
-            int(dtype == torch.bfloat16), int(seed) & (2**64 - 1), float(noise_scale), stream)
+            int(dtype == torch.bfloat16), int(seed) & (2**64 - 1), float(noise_scale),
+            ptr(quantized.scales) if quantized is not None else None, stream)
     if err != 0:
         raise RuntimeError(f"fused sampler kernel launch failed: cudaError {err}")
 
@@ -240,18 +306,24 @@ def fused_point_flow_inverse(sp: StackedFlowParams, u: Tensor, z: Tensor,
 
 def fused_sample_points(sp: StackedFlowParams, z: Tensor, seed: int, n_points: int,
                         dtype: torch.dtype = torch.bfloat16, activation: str = "relu",
-                        noise_scale: float = 1.0, return_noise: bool = False):
+                        noise_scale: float = 1.0, return_noise: bool = False,
+                        quantized: Optional[QuantizedFlowParams] = None):
     """z [B, dz], integer seed -> x [B, n_points, 3], with the base noise
     u = noise_scale * N(0, I3) drawn inside the kernel (Philox keyed by
     (seed, cloud, point): the stream does not depend on the tiling).
-    ``return_noise`` also returns that u, [B, n_points, 3]."""
+    ``return_noise`` also returns that u, [B, n_points, 3]. ``quantized``
+    (``quantize_flow_params`` of the same sp) runs the int8 mode: Wx, Wh
+    and Wout from its int8 stacks, the rest (hz, biases, masks) from sp."""
     hz = z_projection(sp, z)
     if not z.is_cuda:
+        if quantized is not None:
+            dq = dequantize(quantized)
+            sp = sp._replace(wx=dq.wx, wh=dq.wh, wout=dq.wout)
         x, u = fused_sample_points_plain(sp, hz, seed, n_points, dtype, activation, noise_scale)
     else:
         x = torch.empty((z.shape[0], 3, n_points), device=z.device, dtype=torch.float32)
         u = torch.empty_like(x) if return_noise else None
-        _launch(sp, hz, None, x, u, dtype, activation, seed, noise_scale)
-        launches["fused_sample"] += 1
+        _launch(sp, hz, None, x, u, dtype, activation, seed, noise_scale, quantized)
+        launches["fused_sample" if quantized is None else "fused_sample_int8"] += 1
     x = x.transpose(1, 2)
     return (x, u.transpose(1, 2)) if return_noise else x

@@ -95,11 +95,15 @@ def test_chamfer_pairwise_symmetric():
 
 
 def test_wrappers_refuse_gradients_and_bad_modes():
+    """nn_distances, chamfer and chamfer_parts are differentiable, as in
+    dpfx; the pairwise matrix has no gradient there and refuses one here."""
     x, y = (torch.from_numpy(c) for c in clouds(7, 2, 2, 16, 16))
     x.requires_grad_(True)
-    with pytest.raises(NotImplementedError, match="Queue 2 #8"):
-        tc.nn_distances(x, y)
-    with pytest.raises(NotImplementedError, match="Queue 2 #8"):
+    dl, dr = tc.nn_distances(x, y)
+    assert dl.requires_grad and dr.requires_grad
+    (tc.chamfer(x, y).sum() + tc.chamfer_parts(x, y)[1].sum()).backward()
+    assert x.grad.shape == x.shape and bool(x.grad.abs().sum() > 0)
+    with pytest.raises(NotImplementedError, match="chamfer_pairwise has no gradient"):
         tc.chamfer_pairwise(x, y)
     with torch.no_grad():
         assert tc.chamfer(x, y).shape == (2,)

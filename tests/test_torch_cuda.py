@@ -1,7 +1,8 @@
-"""The port's kernels (fused sampler, fused train forward/backward, fused
-encoder forward/backward, fused latent flow forward/backward/inverse,
-Chamfer, approxmatch EMD) against their plain versions on the card, at
-small shapes. Marked ``gpu``: each test skips
+"""The port's kernels (fused sampler with its int8 mode, fused train
+forward/backward, fused encoder forward/backward, fused latent flow
+forward/backward/inverse, Chamfer with its backward, approxmatch EMD with
+its gradient mode) against their plain versions on the card, at small
+shapes and at 2048 points. Marked ``gpu``: each test skips
 without a CUDA device. On a machine with one:
 
     python -m pytest tests/test_torch_cuda.py -m gpu --noconftest
@@ -355,7 +356,7 @@ def test_chamfer_kernels_match_plain(cuda, n, m):
         assert torch.equal(got, cdk.chamfer_pairwise(xs, ys, prec)), "not bit-identical"
         assert _pair_rel(got, cdk.chamfer_pairwise_plain(xs, ys, prec), 1e-7) <= 1e-5
     torch.cuda.synchronize()
-    assert cdk.launches == {"nnd_fwd": 1, "cd_pairwise": 4}
+    assert cdk.launches == {"nnd_fwd": 1, "nnd_bwd": 0, "cd_pairwise": 4}
 
 
 def test_chamfer_symmetric_mirror_is_exact(cuda):
@@ -395,14 +396,15 @@ def test_emd_kernels_match_plain(cuda, n, m):
         assert torch.equal(got, emdk.emd_pairwise(xs, ys, precision=prec)), "not bit-identical"
         assert held(got, emdk.emd_pairwise_plain(xs, ys, precision=prec))
     torch.cuda.synchronize()
-    assert emdk.launches == {"emd_batched": 2, "emd_pairwise": 4}
+    assert emdk.launches == {"emd_batched": 2, "emd_batched_grad": 0, "emd_pairwise": 4}
     same = emdk.emd_nograd(xs[:, :64], xs[:, :64])
     assert float(same.max()) < 1e-3
 
 
 def test_eval_kernel_conditions(cuda):
     """The kernels' shared memory fits up to MAX_POINTS, sizes beyond it
-    raise before any launch, and gradients are refused."""
+    raise before any launch, nn_distances is differentiable and the
+    functions without a gradient in dpfx refuse one."""
     from dpfx_torch.ops import chamfer as cdk
     from dpfx_torch.ops import emd as emdk
 
@@ -417,9 +419,141 @@ def test_eval_kernel_conditions(cuda):
     with pytest.raises(ValueError, match="points per cloud"):
         emdk.emd_nograd(small, big)
     assert sum(cdk.launches.values()) + sum(emdk.launches.values()) == 0
-    with pytest.raises(NotImplementedError, match="Queue 2 #8"):
-        cdk.nn_distances(small.clone().requires_grad_(True), small)
+    xg = _eval_clouds(cuda, 1, 8, 8).requires_grad_(True)
+    cdk.chamfer(xg, small).sum().backward()
+    assert cdk.launches["nnd_fwd"] == cdk.launches["nnd_bwd"] == 1
+    assert bool(torch.isfinite(xg.grad).all()) and bool(xg.grad.abs().sum() > 0)
+    with pytest.raises(NotImplementedError, match="chamfer_pairwise has no gradient"):
+        cdk.chamfer_pairwise(xg, small)
+    with pytest.raises(NotImplementedError, match="use emd for gradients"):
+        emdk.emd_nograd(xg, small)
     # the largest clouds the kernels take (EMD: 224 KB of shared memory)
     x, y = _eval_clouds(cuda, 1, cdk.MAX_POINTS, 6), _eval_clouds(cuda, 1, cdk.MAX_POINTS, 7)
     assert _pair_rel(cdk.chamfer(x, y), cdk.chamfer_plain(x, y), 1e-7) <= 1e-5
     assert _pair_rel(emdk.emd_nograd(x, y), emdk.emd_plain(x, y), 1e-5) <= 5e-3
+
+
+def _grad_err(a, b):
+    """Largest per-point |a_i - b_i| / (|b_i| + mean |b|) of [B, N, 3] gradients."""
+    na, nb = (a - b).double().norm(dim=-1), b.double().norm(dim=-1)
+    return float((na / (nb + nb.mean(-1, keepdim=True))).max())
+
+
+@pytest.mark.parametrize("b,n,m", [(3, 256, 256), (3, 200, 317), (2, 2048, 2048)])
+def test_nnd_bwd_matches_plain(cuda, b, n, m):
+    """nnd_bwd against nn_distances_backward_plain on the forward's own
+    minima: the same masks, sums in other orders (limit 1e-5 per point,
+    chip_smoke.py's TOL_CD_GRAD), bit-identical from run to run; through
+    autograd as chamfer's backward; and with every point of a cloud
+    duplicated (each mask holds two, the gradients of y = x vanish)."""
+    from dpfx_torch.ops import chamfer as cdk
+
+    xs, ys = _eval_clouds(cuda, b, n, 21), _eval_clouds(cuda, b, m, 22)
+    g = torch.Generator(device=cuda).manual_seed(23)
+    cdk.reset_launch_counts()
+    dl, dr = cdk.nnd_forward(xs, ys)
+    gl = torch.randn(dl.shape, generator=g, device=cuda)
+    gr = torch.randn(dr.shape, generator=g, device=cuda)
+    gx, gy = cdk.nnd_backward(xs, ys, dl, dr, gl, gr)
+    again = cdk.nnd_backward(xs, ys, dl, dr, gl, gr)
+    px, py = cdk.nn_distances_backward_plain(xs, ys, dl, dr, gl, gr)
+    assert torch.equal(gx, again[0]) and torch.equal(gy, again[1]), "not bit-identical"
+    assert max(_grad_err(gx, px), _grad_err(gy, py)) <= 1e-5
+    xg, yg = xs.clone().requires_grad_(True), ys.clone().requires_grad_(True)
+    cdk.chamfer(xg, yg).sum().backward()
+    ex, ey = cdk.nn_distances_backward_plain(xs, ys, dl, dr, torch.full_like(dl, 1.0 / n),
+                                             torch.full_like(dr, 1.0 / m))
+    assert max(_grad_err(xg.grad, ex), _grad_err(yg.grad, ey)) <= 1e-5
+    dup = torch.cat([xs[:, : n // 2], xs[:, : n // 2]], 1)
+    dl, dr = cdk.nnd_forward(dup, dup)
+    tx, ty = cdk.nnd_backward(dup, dup, dl, dr, gl[:, : dup.shape[1]], gr[:, : dup.shape[1]])
+    assert float(tx.abs().max()) <= 1e-5 and float(ty.abs().max()) <= 1e-5
+    torch.cuda.synchronize()
+    assert cdk.launches == {"nnd_fwd": 3, "nnd_bwd": 4, "cd_pairwise": 0}
+
+
+@pytest.mark.parametrize("b,n,m", [(4, 256, 256), (4, 200, 317), (2, 2048, 2048)])
+def test_emd_grad_mode_matches_plain(cuda, b, n, m):
+    """The EMD gradient mode: its cost equals emd_nograd's bit for bit; gx
+    and gy against emd_grads_plain per pair by the relative norm (median
+    1e-2, max 5e-2: approxmatch's f32 drift, chip_smoke.py's
+    TOL_EMD_GRAD_*; seen: 2.9e-3 on a pair of 256 points), bit-identical from run to run; emd's backward scales
+    them by the cotangent; near-coincident points read the same."""
+    from dpfx_torch.ops import emd as emdk
+
+    xs, ys = _eval_clouds(cuda, b, n, 24), _eval_clouds(cuda, b, m, 25)
+    emdk.reset_launch_counts()
+    cost, gx, gy = emdk.emd_with_grads(xs, ys)
+    again = emdk.emd_with_grads(xs, ys)
+    assert torch.equal(cost, emdk.emd_nograd(xs, ys))
+    assert all(torch.equal(a, c) for a, c in zip((cost, gx, gy), again)), "not bit-identical"
+    _, px, py = emdk.emd_grads_plain(xs, ys)
+    for a, r in ((gx, px), (gy, py)):
+        e = (a - r).double().flatten(1).norm(dim=1) / r.double().flatten(1).norm(dim=1)
+        assert float(e.median()) <= 1e-2 and float(e.max()) <= 5e-2, e
+    # pairs of points ~1e-4 apart, where the expanded distance cancels: the
+    # gradient weighs by the coordinates' own difference, as the plain one
+    near = ys + 1e-4 * torch.randn(ys.shape, generator=torch.Generator(device=cuda).manual_seed(29),
+                                   device=cuda)
+    _, nx, ny = emdk.emd_with_grads(near, ys)
+    _, qx, qy = emdk.emd_grads_plain(near, ys)
+    for a, r in ((nx, qx), (ny, qy)):
+        e = (a - r).double().flatten(1).norm(dim=1) / r.double().flatten(1).norm(dim=1)
+        assert float(e.median()) <= 1e-2 and float(e.max()) <= 5e-2, e
+    w = torch.arange(1, b + 1, device=cuda, dtype=torch.float32)
+    xg = xs.clone().requires_grad_(True)
+    (emdk.emd(xg, ys) * w).sum().backward()
+    assert torch.equal(xg.grad, w[:, None, None] * gx)
+    torch.cuda.synchronize()
+    assert emdk.launches == {"emd_batched": 1, "emd_batched_grad": 4, "emd_pairwise": 0}
+
+
+@pytest.mark.parametrize("hidden,n_hidden,n", [(32, 2, 200), (64, 1, 128), (128, 2, 300),
+                                               (256, 3, 77)])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_int8_sampler_equals_dequantized(cuda, hidden, n_hidden, n, dtype):
+    """The int8 mode equals, bit for bit, the compute-dtype mode on the
+    host-dequantized stacks with the same seed (noise included)."""
+    dt = getattr(torch, dtype)
+    if fs.smem_bytes(hidden, dt) > fs.SMEM_LIMIT:
+        pytest.skip(f"hidden={hidden} in {dtype} does not fit the kernel's shared memory")
+    sp = _sp(hidden, n_hidden, "relu", cuda)
+    q = fs.quantize_flow_params(sp)
+    dq = fs.dequantize(q)
+    z = torch.randn((3, 16), generator=torch.Generator(device=cuda).manual_seed(26), device=cuda)
+    fs.reset_launch_counts()
+    x, u = fs.fused_sample_points(sp, z, 27, n, dtype=dt, quantized=q, return_noise=True)
+    xd, ud = fs.fused_sample_points(sp._replace(wx=dq.wx, wh=dq.wh, wout=dq.wout), z, 27, n,
+                                    dtype=dt, return_noise=True)
+    torch.cuda.synchronize()
+    assert torch.equal(x, xd) and torch.equal(u, ud)
+    assert fs.launches == {"fused_inverse": 0, "fused_sample": 1, "fused_sample_int8": 1}
+
+
+def test_gradient_and_int8_mode_conditions(cuda):
+    """The new modes' limits raise ValueError before any launch."""
+    from dpfx_torch.ops import chamfer as cdk
+    from dpfx_torch.ops import emd as emdk
+
+    small = _eval_clouds(cuda, 2, 8, 28)
+    big = torch.zeros((2, cdk.MAX_POINTS + 1, 3), device=cuda)
+    vec = torch.zeros((2, 8), device=cuda)
+    cdk.reset_launch_counts()
+    emdk.reset_launch_counts()
+    fs.reset_launch_counts()
+    with pytest.raises(ValueError, match="points per cloud"):
+        cdk.nnd_backward(big, small, vec, vec, vec, vec)
+    with pytest.raises(ValueError, match="nnd_backward shapes"):
+        cdk.nnd_backward(small, small, vec[:, :4], vec, vec, vec)
+    with pytest.raises(ValueError, match="equal batches"):
+        emdk.emd_with_grads(small, small[:1])
+    sp = _sp(32, 2, "relu", cuda)
+    q = fs.quantize_flow_params(sp)
+    z = torch.zeros((1, 16), device=cuda)
+    with pytest.raises(ValueError, match="int8"):
+        fs.fused_sample_points(sp, z, 1, 16, quantized=q._replace(sp=q.sp._replace(wh=sp.wh)))
+    with pytest.raises(ValueError, match="scales"):
+        fs.fused_sample_points(sp, z, 1, 16, quantized=q._replace(scales=q.scales.cpu()))
+    assert sum(cdk.launches.values()) + sum(emdk.launches.values()) + sum(fs.launches.values()) == 0
+    # the backward's shared memory at the largest clouds
+    assert cdk.bwd_smem_bytes(cdk.MAX_POINTS, cdk.MAX_POINTS) <= cdk.SMEM_LIMIT

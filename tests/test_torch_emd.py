@@ -93,11 +93,15 @@ def test_plain_reference_dtypes():
 
 
 def test_wrappers_refuse_gradients_and_bad_modes():
+    """emd is differentiable, as in dpfx; emd_nograd and emd_pairwise have
+    no gradient there and refuse one here, pointing at emd."""
     x, y = (torch.from_numpy(c) for c in clouds(6, 2, 2, 16, 16))
     y.requires_grad_(True)
     for fn in (te.emd_nograd, te.emd_pairwise):
-        with pytest.raises(NotImplementedError, match="Queue 2 #8"):
+        with pytest.raises(NotImplementedError, match="use emd for gradients"):
             fn(x, y)
+    te.emd(x, y).sum().backward()
+    assert y.grad.shape == y.shape and bool(y.grad.abs().sum() > 0)
     with torch.no_grad():
         assert te.emd_nograd(x, y).shape == (2,)
     with pytest.raises(ValueError, match="precision"):

@@ -139,7 +139,7 @@ def test_cpu_path_launches_no_kernel():
     u, z = _inputs(1, 16)
     tfs.fused_point_flow_inverse(sp, torch.from_numpy(u), torch.from_numpy(z))
     tfs.fused_sample_points(sp, torch.from_numpy(z), 3, 16)
-    assert tfs.launches == {"fused_inverse": 0, "fused_sample": 0}
+    assert tfs.launches == {"fused_inverse": 0, "fused_sample": 0, "fused_sample_int8": 0}
 
 
 @pytest.mark.parametrize("tau", [1.0, 1.1])
