@@ -130,12 +130,16 @@ CD_FP32_PER_ELEM = 8
 # and the sqrt (3 MUFU)
 EMD_FP32_PER_ELEM_LEVEL = 21
 EMD_MUFU_PER_ELEM_LEVEL = 3
-# the CD backward per element, at the least: one distance (6), the row and
-# column mask tests (2), the two tie counts (2) and the masked sums each
-# direction needs (sum_j maskl y_j, sum_j wr_ij and sum_j wr_ij y_j for gx;
-# sum_i maskr x_i, sum_i wl_ij and sum_i wl_ij x_i for gy: 14)
-CD_BWD_FP32_PER_ELEM = 24
-# the EMD gradient mode per element and level, on top of the cost's: the
+# the CD backward per element, at the least: one distance (6) and the row
+# and column mask tests (2), the forward's scan. The tie counts and the
+# masked sums (sum_j maskl y_j, sum_j wr_ij and sum_j wr_ij y_j for gx;
+# sum_i maskr x_i, sum_i wl_ij and sum_i wl_ij x_i for gy) add only where
+# d <= dmin: per neighbour of a row and of a column, two counts and 14 sums
+CD_BWD_FP32_PER_ELEM = 8
+CD_BWD_FP32_PER_MATCH = 16
+# the EMD gradient mode per element and level, on top of the cost's (no
+# [N, M] intermediate is kept, so the plan of each level is used where it
+# is made, as the cost's own count assumes): the
 # difference x_i - y_j and its squared norm (3 + 3), the plan's share
 # delta / max(|x_i - y_j|, eps) (an rsqrt on MUFU, a max, a product) and its
 # sums into gx and gy (6 FMAs)
@@ -255,10 +259,12 @@ def grad_bounds(b: int, n: int, m: int):
     """The CD backward (nnd_bwd) and the EMD gradient mode over b diagonal
     pairs of N x M points: the instruction counts above, and the bytes of
     their inputs read once (clouds; for CD also dl, dr and the cotangents)
-    and outputs written once (gx, gy; for EMD also the cost)."""
+    and outputs written once (gx, gy; for EMD also the cost). Each row and
+    each column of a CD pair has one nearest neighbour (ties aside)."""
     elems = float(b) * n * m
     grads = 12.0 * b * (n + m)
-    cd = bound_cores(CD_BWD_FP32_PER_ELEM * elems, 0.0, 2 * grads + 16.0 * b * (n + m))
+    cd = bound_cores(CD_BWD_FP32_PER_ELEM * elems + CD_BWD_FP32_PER_MATCH * b * (n + m), 0.0,
+                     2 * grads + 16.0 * b * (n + m))
     lv = elems * 10
     emd = bound_cores((EMD_FP32_PER_ELEM_LEVEL + EMD_GRAD_FP32_PER_ELEM_LEVEL) * lv,
                       (EMD_MUFU_PER_ELEM_LEVEL + EMD_GRAD_MUFU_PER_ELEM_LEVEL) * lv,
@@ -358,15 +364,23 @@ EVAL_LIMIT = 128              # test clouds per evaluation path (the protocol us
 # of O(1) within 2.4e-6 absolute at 8 x 2048)
 TOL_CD_GRAD = 1e-5
 # the EMD gradients against emd_grads_plain, per pair by the relative norm
-# of gx and of gy. approxmatch carries the order of f32 sums through its
-# recursion into the plan: the port against dpfx on the CPU read up to
-# 1.6e-2 on a pair of 24 x 64 points (tests/test_torch_distance_grads.py),
-# the kernel against the plain version on the card 2.9e-3 on a pair of 256
-# Gaussian points (tests/test_torch_cuda.py), and <= 1.3e-6 on the test
-# split's 2048-point clouds here. The median pair and the largest are held
-# apart, as the cost is; a wrong weight reads orders of magnitude above
-TOL_EMD_GRAD_MEDIAN = 1e-2
-TOL_EMD_GRAD_MAX = 5e-2
+# of gx and of gy, the median pair and the largest held apart as the cost
+# is. On these clouds approxmatch's plan is well conditioned: the kernel
+# read median 8.7e-7, max 1.3e-6 (near-identical 2.0e-7), and against an
+# f64 run of the plain version median 3.6e-6, max 9.3e-6, as far as the
+# f32 plain version (NVIDIA H100 80GB HBM3, 700 W). The limits sit ~10x and
+# ~80x above those. Weighing by sqrt of the expanded distance, as the Pallas
+# body does, reads 2.5e-6 (median) to 7.8e-6 on the ragged pair, inside the
+# limits, and ~1e5 on the near-identical pair, which is where a control
+# must fail them.
+# (On 200-2048 random Gaussian pairs the plan is chaotic in f32, and the f32
+# plain version itself parts from f64 by up to 2.8e-2: tests/test_torch_cuda.py.)
+TOL_EMD_GRAD_MEDIAN = 1e-5
+TOL_EMD_GRAD_MAX = 1e-4
+# against the f64 run the kernel may part by no more than this many times
+# as far as the f32 plain version does (seen: 1.01x), plus a floor
+EMD_GRAD_F64_RATIO = 4.0
+EMD_GRAD_F64_FLOOR = 1e-6
 # the int8 sampler's clouds against the bf16 ones with the same noise: dpfx
 # documents ~0.3% coordinate RMS (dpfx/ops/fused_sampler.py:424)
 TOL_INT8_RMS = 2e-2
@@ -761,6 +775,26 @@ def grad_point_err(a, b):
     return float((na / (nb + nb.mean(-1, keepdim=True))).max())
 
 
+def emd_expanded_weight_control(x, y):
+    """dcost/dx / n of each diagonal pair with the plan of approx_match_plain
+    held constant and each pair weighed by 1/max(sqrt of the expanded
+    squared distance, eps), as dpfx's Pallas body weighs it: what an EMD
+    gradient kernel with that weighting would read."""
+    import torch
+
+    from dpfx_torch.ops import emd as emdk
+    from dpfx_torch.ops.chamfer import sqdist_matrix
+
+    out = []
+    for i in range(x.shape[0]):
+        a, b = x[i:i + 1], y[i:i + 1]
+        match = emdk.approx_match_plain(a, b)
+        dist = torch.sqrt(sqdist_matrix(a, b)).clamp_min(emdk.EPS)
+        diff = a[..., :, None, :] - b[..., None, :, :]
+        out.append((match[..., None] * diff / dist[..., None]).sum(-2) / a.shape[1])
+    return torch.cat(out)
+
+
 def pair_norm_err(a, b):
     """Per pair |a - b| / |b| (norms over a pair's points), [B], in f64."""
     d = (a.double() - b.double()).flatten(1).norm(dim=1)
@@ -866,6 +900,16 @@ def distance_grad_paths(cfg, dev, sampled):
         if x.shape[0] == b:
             emd_err = max(float((gx - px).abs().max()), float((gy - py).abs().max()))
             emd_args = (x, y)
+        if x.shape[0] == 8:
+            # control: the Pallas body's weighting (sqrt of the expanded d)
+            # on the same plan must fail the limits on the near-identical
+            # pair (its reading on generic clouds is printed)
+            c = pair_norm_err(emd_expanded_weight_control(x, y), px)
+            print(f"  control, the Pallas weighting ({tag}): gx per pair median {med(c):.2e} "
+                  f"max {float(c.max()):.2e}")
+            if x is near:
+                check(med(c) > TOL_EMD_GRAD_MEDIAN and float(c.max()) > TOL_EMD_GRAD_MAX,
+                      "the EMD gradient limits tell the Pallas weighting apart")
         if x.shape[1] == 2000:
             # against an f64 run: the kernel drifts no further than the f32
             # plain version does
@@ -874,7 +918,9 @@ def distance_grad_paths(cfg, dev, sampled):
             print(f"  against f64 ({tag}): gx per pair kernel median {med(k64):.2e} max "
                   f"{float(k64.max()):.2e}, plain f32 median {med(p64):.2e} max "
                   f"{float(p64.max()):.2e}")
-            check(med(k64) <= TOL_EMD_GRAD_MEDIAN and float(k64.max()) <= TOL_EMD_GRAD_MAX,
+            check(float(k64.max()) <= TOL_EMD_GRAD_MAX
+                  and med(k64) <= EMD_GRAD_F64_RATIO * med(p64) + EMD_GRAD_F64_FLOOR
+                  and float(k64.max()) <= EMD_GRAD_F64_RATIO * float(p64.max()) + EMD_GRAD_F64_FLOOR,
                   f"emd_batched_grad against f64: median {med(k64)}, max {float(k64.max())}")
 
     # the main path of this slice: 20 descent steps on chamfer + emd

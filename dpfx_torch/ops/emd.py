@@ -226,10 +226,11 @@ def emd_with_grads(x: Tensor, y: Tensor,
                    n_iters: int = DEFAULT_ITERS) -> Tuple[Tensor, Tensor, Tensor]:
     """(cost / n [B], dcost/dx / n [B,N,3], dcost/dy / n [B,M,3]) per
     diagonal pair, the plan held constant: the kernel's gradient mode for
-    CUDA tensors (its cost equals ``emd_nograd``'s bit for bit),
-    ``emd_grads_plain`` for CPU tensors. No autograd."""
+    CUDA tensors, ``emd_grads_plain``'s gradients for CPU tensors. Either
+    way the cost is ``emd_nograd``'s, bit for bit. No autograd."""
     if not x.is_cuda:
-        return emd_grads_plain(x, y, n_iters)
+        _, gx, gy = emd_grads_plain(x, y, n_iters)
+        return emd_plain(x, y, n_iters), gx, gy
     if x.shape[0] != y.shape[0]:
         raise ValueError(f"diagonal pairs need equal batches, got {x.shape[0]} and {y.shape[0]}")
     out = _launch(x, y, pair_list(x.shape[0], x.shape[0], "diag", x.device), n_iters,

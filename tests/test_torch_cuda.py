@@ -475,11 +475,24 @@ def test_nnd_bwd_matches_plain(cuda, b, n, m):
 @pytest.mark.parametrize("b,n,m", [(4, 256, 256), (4, 200, 317), (2, 2048, 2048)])
 def test_emd_grad_mode_matches_plain(cuda, b, n, m):
     """The EMD gradient mode: its cost equals emd_nograd's bit for bit; gx
-    and gy against emd_grads_plain per pair by the relative norm (median
-    1e-2, max 5e-2: approxmatch's f32 drift, chip_smoke.py's
-    TOL_EMD_GRAD_*; seen: 2.9e-3 on a pair of 256 points), bit-identical from run to run; emd's backward scales
-    them by the cotangent; near-coincident points read the same."""
+    and gy per pair by the relative norm, bit-identical from run to run;
+    emd's backward scales them by the cotangent.
+
+    On random Gaussian pairs approxmatch's plan is chaotic in f32: an f64
+    run of emd_grads_plain shows the f32 plain version itself parting from
+    it by up to median 3.5e-3, max 2.8e-2 on these pairs, and the kernel
+    by as much (median 3.5e-3, max 2.8e-2; against the f32 plain version
+    median 8.2e-4, max 3.6e-3; NVIDIA H100 80GB HBM3, 700 W).
+    So the kernel is held to the f64 run at 4x the f32 plain version's
+    own drift (seen: up to 1.2x), and to the f32 plain version at median
+    1e-2, max 5e-2, about twice that drift. Near-coincident points, whose
+    plan is a matching, read 7.0e-8 and are held at median 1e-5, max 1e-4
+    (chip_smoke.py's TOL_EMD_GRAD_*); weighing by sqrt of the expanded
+    distance, as the Pallas body does, reads ~1e5 there."""
     from dpfx_torch.ops import emd as emdk
+
+    def rel(a, r):
+        return (a - r).double().flatten(1).norm(dim=1) / r.double().flatten(1).norm(dim=1)
 
     xs, ys = _eval_clouds(cuda, b, n, 24), _eval_clouds(cuda, b, m, 25)
     emdk.reset_launch_counts()
@@ -488,9 +501,17 @@ def test_emd_grad_mode_matches_plain(cuda, b, n, m):
     assert torch.equal(cost, emdk.emd_nograd(xs, ys))
     assert all(torch.equal(a, c) for a, c in zip((cost, gx, gy), again)), "not bit-identical"
     _, px, py = emdk.emd_grads_plain(xs, ys)
-    for a, r in ((gx, px), (gy, py)):
-        e = (a - r).double().flatten(1).norm(dim=1) / r.double().flatten(1).norm(dim=1)
+    _, qx, qy = emdk.emd_grads_plain(xs.double(), ys.double())
+    for tag, a, r, q in (("gx", gx, px, qx), ("gy", gy, py, qy)):
+        e = rel(a, r)
+        k64, p64 = rel(a, q), rel(r, q)
+        print(f"{tag} {b}x{n}x{m}: against plain f32 median {float(e.median()):.2e} max "
+              f"{float(e.max()):.2e}; against f64 kernel median {float(k64.median()):.2e} max "
+              f"{float(k64.max()):.2e}, plain f32 median {float(p64.median()):.2e} max "
+              f"{float(p64.max()):.2e}")
         assert float(e.median()) <= 1e-2 and float(e.max()) <= 5e-2, e
+        assert float(k64.median()) <= 4 * float(p64.median()) + 1e-6, (k64, p64)
+        assert float(k64.max()) <= 4 * float(p64.max()) + 1e-6, (k64, p64)
     # pairs of points ~1e-4 apart, where the expanded distance cancels: the
     # gradient weighs by the coordinates' own difference, as the plain one
     near = ys + 1e-4 * torch.randn(ys.shape, generator=torch.Generator(device=cuda).manual_seed(29),
@@ -498,8 +519,9 @@ def test_emd_grad_mode_matches_plain(cuda, b, n, m):
     _, nx, ny = emdk.emd_with_grads(near, ys)
     _, qx, qy = emdk.emd_grads_plain(near, ys)
     for a, r in ((nx, qx), (ny, qy)):
-        e = (a - r).double().flatten(1).norm(dim=1) / r.double().flatten(1).norm(dim=1)
-        assert float(e.median()) <= 1e-2 and float(e.max()) <= 5e-2, e
+        e = rel(a, r)
+        print(f"near-coincident: median {float(e.median()):.2e} max {float(e.max()):.2e}")
+        assert float(e.median()) <= 1e-5 and float(e.max()) <= 1e-4, e
     w = torch.arange(1, b + 1, device=cuda, dtype=torch.float32)
     xg = xs.clone().requires_grad_(True)
     (emdk.emd(xg, ys) * w).sum().backward()

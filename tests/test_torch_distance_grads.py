@@ -24,6 +24,10 @@ Tolerances:
     same drift shows there: 7e-6 on the gradients of one pair of clouds,
     2.0e-3 on those of the test's, whose cost parts by 1.2e-3 from dpfx's
     with the f64 cost between the two.
+  * EMD on near-coincident clouds against dpfx's ``impl="jnp"``: rtol 1e-5,
+    atol 1e-6, relative norm 1e-5; there the plan is a matching and
+    nothing chaotic is left (seen: 3e-8). dpfx's Pallas gradient must be at
+    least 100 times larger in norm there (the deviation is deliberate).
 """
 
 import importlib
@@ -182,8 +186,30 @@ def test_emd_primal_skips_the_gradient_mode():
     xg = xt.clone().requires_grad_(True)
     cost = te.emd(xg, yt)
     assert cost.requires_grad
+    torch.testing.assert_close(cost.detach(), te.emd_nograd(xt, yt), rtol=0, atol=0)
     with torch.no_grad():
         torch.testing.assert_close(te.emd(xg, yt), te.emd_nograd(xt, yt), rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("seed", [0, 1])
+def test_emd_grads_near_coincident_follow_jnp_not_pallas(seed):
+    """x within ~1e-4 of y, where the expanded squared distance cancels to
+    ~0: the port weighs each pair by 1/max(|x - y|, eps) from the
+    coordinates, as dpfx's impl="jnp" does, and matches it (seen: relative
+    norm 3e-8); dpfx's Pallas body weighs by 1/max(sqrt(expanded d), eps),
+    up to 1/eps, and its gradient is orders of magnitude larger (seen:
+    1e5 times the norm). The port keeps to the first on purpose."""
+    rng = np.random.default_rng(seed)
+    y = (rng.normal(size=(2, 32, 3)) * 0.5).astype(np.float32)
+    x = (y + 1e-4 * rng.normal(size=y.shape)).astype(np.float32)
+    w = np.array([1.0, 2.0], np.float32)
+    got = torch_grads(te.emd, x, y, w)
+    ref = jax_grads(lambda a, b: je.emd(a, b, "jnp"), x, y, w)
+    pal = jax_grads(lambda a, b: je.emd(a, b, "pallas"), x, y, w)
+    for a, b, p in zip(got, ref, pal):
+        np.testing.assert_allclose(a, b, rtol=1e-5, atol=1e-6)
+        assert np.linalg.norm(a - b) <= 1e-5 * np.linalg.norm(b)
+        assert np.linalg.norm(p) >= 100 * np.linalg.norm(a)
 
 
 def test_descent_lowers_chamfer_and_emd():
