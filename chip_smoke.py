@@ -2,8 +2,9 @@
 """Chip smoke for the PyTorch/CUDA port: build the kernels, hold each one
 against its plain PyTorch version at the flagship widths, drive the main
 paths (flagship sampling, flagship training, evaluation: the generation
-suite and AE reconstruction, the differentiable distances and the int8
-sampler) through the normal entry points, and report.
+suite and AE reconstruction, the differentiable distances, the int8
+sampler and the two probe tools) through the normal entry points, and
+report.
 
 Run from the root of a checkout, on a machine with one CUDA card:
 
@@ -80,6 +81,21 @@ script exits non-zero without a result line):
      dequantized stacks with the same seed, within phase 2's bf16 limits
      of the plain inverse of its noise, its coordinate RMS against the bf16
      clouds, and int8 and bf16 timed in turns;
+  3f. the probe tools at full width (K=32, H=128, n_hidden=2, B=64,
+     N=2048, bf16; the dual-issue probe at L=32, G=16, T=2048): the probe
+     backward (full, nowg, walk, rolled) and the interleaved one (2 and 4
+     stripes) against probe_bwd_plain at N=2048 and with the log-det mask
+     at 2000 (interleaved: 2048 only), by phase 2b's bf16 limits, twice each
+     for bit-identity; full and 2 stripes in f32 at B=8 on the flow's
+     first 3 layers against the f32 limit, which a TF32 run of the plain
+     version must fail; full on zero-padded production inputs against
+     fused_backward_kernel (f32 at K=3, B=8; bf16 at K=32, B=64); the
+     dual-issue modes A, B, C against their plain version; then
+     `python -m dpfx_torch.tools.bench_fused_bwd lib full
+     nowg walk rolled ilv2 ilv4` (DPFX_PROBE_REPS=3) and `python -m
+     dpfx_torch.tools.probe_dual_issue` as child processes, which must exit
+     0 with their lines; each counts its launches from 0 and prints them
+     last;
   4. at the main paths' shapes (B=64, N=2048, bf16): the training kernels
      held against their plain versions again (u, log-det, every gradient;
      each backward bit-identical across two runs), the latent-flow kernels
@@ -88,7 +104,7 @@ script exits non-zero without a result line):
      kernels' at their paths' shapes (a 128 x 128 matrix at N=2048 for the
      pairwise kernels, CD also in triangle mode, B=32 for the diagonal ones),
      each held to its plain version there by phase 2c's limits, and the
-     rows of phases 3d and 3e (16 rows in all);
+     rows of phases 3d, 3e and 3f (24 rows in all);
   5. torch.profiler breakdowns of make_sampler(64, 2048) (plain and fused
      latent inverse), of 5 train steps (fused latent flow off and on), and
      (5c) of one generation suite at S=128: device-busy time, idle share,
@@ -316,7 +332,9 @@ def encoder_bounds(widths, b: int, n: int):
 
 
 def rel(a, b) -> float:
-    return float((a.float() - b.float()).norm() / b.float().norm().clamp_min(1e-30))
+    """|a - b| / |b|, the norms in f64 (the probe's weight gradients on the
+    JAX tool's scales overflow a float32 norm)."""
+    return float((a.double() - b.double()).norm() / b.double().norm().clamp_min(1e-300))
 
 
 def tf32_control(plain, ref) -> float:
@@ -384,6 +402,14 @@ EMD_GRAD_F64_FLOOR = 1e-6
 # the int8 sampler's clouds against the bf16 ones with the same noise: dpfx
 # documents ~0.3% coordinate RMS (dpfx/ops/fused_sampler.py:424)
 TOL_INT8_RMS = 2e-2
+# the dual-issue chain against its plain version: v is expf in f32 on both
+# sides and the chain contracts (slope 1/4 at its fixed point); x takes bf16
+# products whose f32 sums run in other orders, so now and then an entry
+# lands one bf16 ulp away and the later products carry it on: every entry
+# within 2% of the largest, 99% within 0.4% (tests/test_torch_probe_dual_issue.py)
+TOL_DUAL_V = 1e-6
+TOL_DUAL_X_MAX = 2e-2
+TOL_DUAL_X_P99 = 4e-3
 
 
 def pair_err(a, b, floor: float):
@@ -1032,6 +1058,277 @@ def int8_sampler_path(sp, cfg, dev, card):
     return [row]
 
 
+def probe_bounds(b: int, n: int, k: int, h: int, nh1: int, mode: str):
+    """The probe backward on the 8-row layout: FLOP of its products per
+    point and layer (recompute Wx, Wh, Wout: 16H + NH1 H^2 multiply-adds;
+    the cotangent chain the same; the weight gradients the same, full only)
+    and the bytes of its inputs and outputs (bf16 weights, f32 gradients)."""
+    macs = {"walk": 1, "nowg": 2, "full": 3}[mode] * (16 * h + nh1 * h * h)
+    nw = k * (16 * h + nh1 * h * h)
+    small = 4 * k * (nh1 * h + 16)
+    nbytes = 3 * 4 * 8 * b * n + 4 * b * k * h + 4 * b + 2 * nw + small
+    if mode == "full":
+        nbytes += 4 * b * k * h + 4 * (nw + k * (nh1 * h + 8))
+    return bound_of(2.0 * b * n * k * macs, nbytes)
+
+
+def dual_issue_bounds(n_layers: int, g: int, h: int, t: int, mode: str):
+    """The dual-issue probe: A's products on the tensor cores, C's v-chain
+    on the CUDA cores (a MUFU exp and two FP32 operations per entry and
+    step), B both at once; x read and written, v read and written."""
+    nbytes = 2 * 4.0 * g * h * t + 2.0 * n_layers * h * h + 2 * 4.0 * g * 8 * t
+    tc = bound_of(2.0 * g * n_layers * h * h * t, nbytes)
+    cores = bound_cores(2.0 * g * n_layers * 8 * t, float(g) * n_layers * 8 * t, nbytes)
+    return {"A": tc, "B": max(tc, cores), "C": cores}[mode]
+
+
+def run_tool(module: str, args, env_extra):
+    """``python -m <module> <args>`` in a child process from the repo root;
+    returns its stdout lines and the launch counts of its last line."""
+    env = {**os.environ, **env_extra}
+    proc = subprocess.run([sys.executable, "-m", module, *args], cwd=ROOT, env=env,
+                          capture_output=True, text=True, timeout=300)
+    print(proc.stdout, end="")
+    check(proc.returncode == 0, f"{module} exited {proc.returncode}: {proc.stderr[-2000:]}")
+    lines = proc.stdout.strip().splitlines()
+    check(lines[-1].startswith("launches "), f"{module} printed its launches")
+    return lines, json.loads(lines[-1].split(" ", 1)[1])
+
+
+def probe_check_inputs(sp, b: int, n: int, g, dev, pad_scale: float = 0.02):
+    """Phase 2's seeded flagship point flow on the probe's 8-row layout:
+    wx's columns 0-2 and wout's rows 0-5 as the model has them (the mask
+    folded in), the pad columns 3-7 and rows 6-7 drawn at the model's own
+    scale (``pad_scale``; 0 gives the zero-padded production inputs), so
+    the walk is as well conditioned as phase 2b's; u, du unit normal in all
+    8 rows (rows 3-7 zero with pad_scale 0); hz the model's z-projection."""
+    import torch
+
+    from dpfx_torch.ops import fused_sampler as fs
+
+    k, h, _ = sp.wx.shape
+    rn = lambda *shape: torch.randn(shape, generator=g, device=dev)
+    w = {"wx": torch.cat([sp.wx, pad_scale * rn(k, h, 5)], 2),
+         "wh": sp.wh, "bh": sp.bh[..., None],
+         "wout": torch.cat([sp.wout, pad_scale * rn(k, 2, h)], 1),
+         "bout": torch.cat([sp.bout, pad_scale * rn(k, 2)], 1)[..., None]}
+    u, du = rn(b, 8, n), rn(b, 8, n)
+    if pad_scale == 0:
+        u[:, 3:] = 0
+        du[:, 3:] = 0
+    hz = fs.z_projection(sp, rn(b, sp.wz.shape[1]))[..., None]
+    return w, u, hz, du, rn(b)
+
+
+def probe_ptxas() -> str:
+    """Registers and spills of the probe kernel's bf16 instances at the
+    tool's tile (64 points), each mode rolled and unrolled, from ptxas' log
+    of bench_fused_bwd.cu."""
+    import re
+
+    from dpfx_torch.ops import _build
+
+    found, cur = {}, None
+    for line in _build.ptxas_log("bench_fused_bwd").splitlines():
+        m = re.search(r"probe_kernelI13__nv_bfloat16Li(\d)ELi64ELb(\d)ELi1E", line)
+        if "Compiling entry function" in line:
+            cur = (("full", "nowg", "walk")[int(m.group(1))], m.group(2) == "1") if m else None
+        elif cur and "spill stores" in line:
+            st, ld = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line).groups()
+            found.setdefault(cur, {})["spill"] = f"{st}/{ld} B spilled"
+        elif cur and "Used" in line:
+            found.setdefault(cur, {})["regs"] = re.search(r"Used (\d+) registers", line).group(1)
+    return "; ".join(f"{mode} {'rolled' if rolled else 'unrolled by 2'} {d.get('regs')} registers, "
+                     f"{d.get('spill')}" for (mode, rolled), d in sorted(found.items()))
+
+
+def probe_tools_path(sp, dev, card):
+    """Phase 3f: the probe tools at full width. The probe backward (full,
+    nowg, walk, rolled) and the interleaved one (2 and 4 stripes) against
+    probe_bwd_plain at B=64, N=2048 and with the log-det mask at 2000
+    (interleaved: 2048), twice each for bit-identity, on phase 2's flagship
+    flow extended to 8 rows; f32 at B=8 with a TF32 control; full against
+    the production backward on zero-padded production inputs; the
+    dual-issue modes against their plain version; then both CLIs, each
+    counting its launches from 0 in a process of its own. Returns the
+    eight kernel rows."""
+    import torch
+
+    from dpfx_torch.ops import fused_train as ft
+    from dpfx_torch.tools import bench_fused_bwd as bfb
+    from dpfx_torch.tools import probe_dual_issue as pdi
+
+    bf, f32 = torch.bfloat16, torch.float32
+    b, n, cap = 64, bfb.N, sp.scale_cap
+    print(f"ptxas probe_kernel bf16, tile 64: {probe_ptxas()}")
+    check(torch.equal(sp.masks, bfb.masks8(sp.wx.shape[0], dev)[:, :3, 0]) and cap == bfb.CAP,
+          "the flagship flow's masks and cap are the probe's")
+    g = torch.Generator(device=dev).manual_seed(13)
+    w, u, hz, du, dld = probe_check_inputs(sp, b, n, g, dev)
+    variants = {"full": dict(mode="full"), "nowg": dict(mode="nowg"), "walk": dict(mode="walk"),
+                "rolled": dict(mode="full", rolled=True)}
+
+    def call(v, ins, npts, dt=bf):
+        if v.startswith("ilv"):
+            return bfb.ilv_bwd_kernel(*ins, stripes=int(v[3:]), n_points=npts, dtype=dt)
+        return bfb.probe_bwd_kernel(*ins, n_points=npts, dtype=dt, **variants[v])
+
+    ins = (w, u, hz, du, dld)
+    bfb.probe_bwd_plain(*ins, mode="walk", n_points=n, dtype=bf)   # warm-up: the plain ms below
+    errs, plains = {}, {}
+    for npts in (n, 2000):
+        for v in ("full", "nowg", "walk", "rolled", "ilv2", "ilv4"):
+            if v.startswith("ilv") and npts != n:
+                continue
+            mode = variants.get(v, {"mode": "full"})["mode"]
+            got, again = call(v, ins, npts), call(v, ins, npts)
+            ref, plain_ms = timed_once(lambda: bfb.probe_bwd_plain(*ins, mode=mode, n_points=npts,
+                                                                   dtype=bf))
+            torch.cuda.synchronize()
+            gerr = {nm: rel(a, r) for nm, a, r in zip(bfb.GRAD_NAMES, got, ref) if r.abs().max() > 0}
+            print(f"kernel-vs-plain probe {v} B={b} N={n} n_points={npts} bf16: grad rel "
+                  + " ".join(f"{k}={e:.2e}" for k, e in gerr.items()))
+            check(all(torch.equal(a, c) for a, c in zip(got, again)),
+                  f"probe {v} bit-identical from run to run n_points={npts}")
+            check(all(not torch.any(a) for a, r in zip(got, ref) if not r.abs().max() > 0),
+                  f"probe {v}: the outputs its mode leaves out are zero")
+            check(max(gerr.values()) <= TOL_GRAD_BF16, f"probe {v} n_points={npts}: {gerr}")
+            if npts == n:
+                errs[v] = max(float((a - r).abs().max()) for a, r in zip(got, ref))
+                plains[v] = plain_ms
+            del got, again, ref
+
+    # f32 at B=8 on the flow's first 3 layers: the kernels against the plain
+    # version at the f32 limit, which a TF32 run of the plain version must
+    # fail. At K=32 a reverse walk from random layer outputs is
+    # ill-conditioned in f32 (relu gates within rounding of 0): there the
+    # production backward itself parts from its plain version by ~4e-5
+    # (printed below), so the f32 limit is held where the walk is well
+    # conditioned
+    cut3 = lambda d: {kk: t[:3] for kk, t in d.items()}
+    i8 = (cut3(w), u[:8], hz[:8, :3].contiguous(), du[:8], dld[:8])
+    ref = bfb.probe_bwd_plain(*i8, mode="full", n_points=2000, dtype=f32)
+    for v in ("full", "ilv2"):
+        got = call(v, i8, 2000, f32)
+        torch.cuda.synchronize()
+        gerr = {nm: rel(a, r) for nm, a, r in zip(bfb.GRAD_NAMES, got, ref)}
+        print(f"kernel-vs-plain probe {v} K=3 B=8 n_points=2000 f32: grad rel "
+              + " ".join(f"{k}={e:.2e}" for k, e in gerr.items()))
+        check(max(gerr.values()) <= TOL_GRAD_F32, f"probe {v} f32: {gerr}")
+    ctl = tf32_control(lambda: bfb.probe_bwd_plain(*i8, mode="full", n_points=2000, dtype=f32),
+                       ref)
+    print(f"f32 limit {TOL_GRAD_F32:.0e} against a TF32 control of the plain probe backward: "
+          f"{ctl:.2e}")
+    check(ctl > TOL_GRAD_F32, f"the f32 limit fails a TF32 control ({ctl})")
+
+    # full on zero-padded production inputs against the production kernel
+    # (f32 on the first 3 layers, as above; bf16 at K=32)
+    pw, pu, phz, pdu, pdld = probe_check_inputs(sp, b, n, g, dev, pad_scale=0.0)
+    prod = (sp.wx, sp.wh, sp.bh, sp.wout, sp.bout, sp.masks, cap, pu[:8, :3].contiguous(),
+            phz[:8, ..., 0].contiguous(), pdu[:8, :3].contiguous(), pdld[:8], f32)
+    got, ref = ft.fused_backward_kernel(*prod), ft.fused_backward_plain(*prod)
+    torch.cuda.synchronize()
+    print("the production backward at K=32, B=8, f32 on these inputs against its plain version "
+          f"(why the f32 limit is held at K=3): grad rel max "
+          f"{max(rel(a, r) for a, r in zip(got, ref)):.2e}")
+    for dt, bb, kk, tol in ((f32, 8, 3, TOL_GRAD_F32), (bf, b, sp.wx.shape[0], TOL_GRAD_BF16)):
+        got = bfb.probe_bwd_kernel({nm: t[:kk] for nm, t in pw.items()}, pu[:bb],
+                                   phz[:bb, :kk].contiguous(), pdu[:bb], pdld[:bb], mode="full",
+                                   n_points=n, dtype=dt)
+        ref = ft.fused_backward_kernel(sp.wx[:kk], sp.wh[:kk], sp.bh[:kk], sp.wout[:kk],
+                                       sp.bout[:kk], sp.masks[:kk], cap, pu[:bb, :3].contiguous(),
+                                       phz[:bb, :kk, :, 0].contiguous(), pdu[:bb, :3].contiguous(),
+                                       pdld[:bb], dt)
+        torch.cuda.synchronize()
+        cut = [got[0][:, :3], got[1][..., 0], got[2][..., :3], got[3], got[4][..., 0],
+               got[5][:, :6], got[6][:, :6, 0]]
+        gerr = {nm: rel(a, r) for nm, a, r in zip(bfb.GRAD_NAMES, cut, ref)}
+        print(f"probe full on zero-padded inputs vs fused_backward_kernel K={kk} B={bb} {dt}: "
+              "grad rel " + " ".join(f"{k}={e:.2e}" for k, e in gerr.items()))
+        check(max(gerr.values()) <= tol, f"padded probe vs production {dt}: {gerr}")
+
+    # the dual-issue modes at the tool's shapes
+    n_layers, groups = 32, 16
+    dw, dx, dv = pdi.probe_inputs(n_layers, groups, dev, seed=5)
+    di = {}
+    for m, (mxu, vpu) in pdi.MODES.items():
+        ox, ov = pdi.dual_issue_kernel(dw, dx, dv, do_mxu=mxu, do_vpu=vpu)
+        ox2, ov2 = pdi.dual_issue_kernel(dw, dx, dv, do_mxu=mxu, do_vpu=vpu)
+        (px, pv), plain_ms = timed_once(lambda: pdi.dual_issue_plain(dw, dx, dv, do_mxu=mxu,
+                                                                     do_vpu=vpu))
+        torch.cuda.synchronize()
+        ex = (ox - px).abs().flatten() / px.abs().max()
+        e99 = float(torch.quantile(ex[:: max(1, ex.numel() // 2**24)], 0.99))
+        ev = float((ov - pv).abs().max())
+        print(f"kernel-vs-plain dual_issue {m} L={n_layers} G={groups}: x rel to max "
+              f"{float(ex.max()):.2e} (99% {e99:.2e}; |x|max {float(px.abs().max()):.2e}), v max_abs "
+              f"{ev:.2e}")
+        check(torch.equal(ox, ox2) and torch.equal(ov, ov2), f"dual_issue {m} bit-identical")
+        check(float(ex.max()) <= TOL_DUAL_X_MAX and e99 <= TOL_DUAL_X_P99 and ev <= TOL_DUAL_V,
+              f"dual_issue {m}: x max {float(ex.max())}, 99% {e99}, v {ev}")
+        di[m] = (max(float((ox - px).abs().max()), ev), plain_ms)
+
+    # the rows' times on the JAX tool's inputs (what the CLI times), whose
+    # weight scales make the 8-row backward explode
+    tool = bfb.flagship_inputs(b, dev)
+    big = call("full", tool, n)
+    print("probe full on the JAX tool's inputs: max " + ", ".join(
+        f"|{nm}| {float(t.abs().max()):.2e}" for nm, t in zip(bfb.GRAD_NAMES, big)))
+    del big
+    times = {v: cuda_ms(lambda v=v: call(v, tool, n), 5) for v in ("full", "nowg", "walk", "rolled",
+                                                                    "ilv2", "ilv4")}
+    dtimes = {m: cuda_ms(lambda m=m: pdi.dual_issue_kernel(dw, dx, dv, do_mxu=pdi.MODES[m][0],
+                                                            do_vpu=pdi.MODES[m][1]), 20)
+              for m in pdi.MODES}
+    p = bfb.production_slice(*tool[:4])
+    lib_ms = cuda_ms(lambda: ft.fused_backward_kernel(
+        p["wx"], p["wh"], p["bh"], p["wout"], p["bout"], p["masks"], bfb.CAP, p["u"], p["hz"],
+        p["du"], tool[4], bf), 5)
+    print(f"probe kernels at B={b} N={n} bf16: " + ", ".join(f"{v} {t:.3f} ms" for v, t in
+                                                            times.items())
+          + f"; production backward (3 rows) {lib_ms:.3f} ms; dual-issue "
+          + ", ".join(f"{m} {t:.4f} ms" for m, t in dtimes.items()) + f" ({card})")
+
+    # the main path: both CLIs as a user runs them
+    t0 = time.perf_counter()
+    lines, bench_launches = run_tool(
+        "dpfx_torch.tools.bench_fused_bwd", ["lib", "full", "nowg", "walk", "rolled", "ilv2", "ilv4"],
+        {"DPFX_PROBE_REPS": "3"})
+    for v in ("lib", "full", "nowg", "walk", "rolled", "ilv2", "ilv4"):
+        check(any(ln.startswith(f"  {v} ") and " ms " in ln for ln in lines), f"bench line {v}")
+    dlines, dual_launches = run_tool("dpfx_torch.tools.probe_dual_issue", [], {})
+    for label in pdi.LABELS.values():
+        check(any(ln.startswith(f"{label}: ") for ln in dlines), f"dual-issue line {label}")
+    check(any(ln.startswith("t(B) - t(A) = ") for ln in dlines), "dual-issue verdict line")
+    print(f"probe CLIs in {time.perf_counter() - t0:.1f} s: launches "
+          f"{json.dumps({**bench_launches, **dual_launches})}")
+    names = {"full": "probe_bwd_full", "nowg": "probe_bwd_nowg", "walk": "probe_bwd_walk",
+             "rolled": "probe_bwd_full_rolled", "ilv2": "ilv_bwd_2"}
+    for v, key in names.items():
+        check(bench_launches.get(key, 0) > 0, f"kernel {key} was not launched by the tool")
+    for m in pdi.MODES:
+        check(dual_launches.get(f"dual_issue_{m}", 0) > 0, f"dual_issue {m} was not launched")
+    src = "dpfx_torch/ops/csrc/bench_fused_bwd.cu"
+    rows = []
+    for v, key in names.items():
+        mode = variants.get(v, {"mode": "full"})["mode"]
+        bd, by = probe_bounds(b, n, bfb.K, bfb.H, bfb.NH, mode)
+        rows.append({"name": key, "route": "cuda", "source": src,
+                     "replaces": "tools/bench_fused_bwd.py:155" if v == "ilv2" else
+                     "tools/bench_fused_bwd.py:49", "launches": bench_launches[key],
+                     "max_abs_err": errs[v], "ms": times[v], "plain_ms": plains[v], "bound_ms": bd,
+                     "bound_by": by, "library_ms": None})
+    for m in pdi.MODES:
+        bd, by = dual_issue_bounds(n_layers, groups, pdi.H, pdi.T, m)
+        rows.append({"name": f"dual_issue_{m}", "route": "cuda",
+                     "source": "dpfx_torch/ops/csrc/dual_issue.cu",
+                     "replaces": "tools/probe_dual_issue.py:43",
+                     "launches": dual_launches[f"dual_issue_{m}"], "max_abs_err": di[m][0],
+                     "ms": dtimes[m], "plain_ms": di[m][1], "bound_ms": bd, "bound_by": by,
+                     "library_ms": None})
+    return rows
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -1503,6 +1800,9 @@ def main() -> int:
     # ---- 3e. the int8 sampler (flagship stack, bf16, B=64 and 256)
     int8_rows = int8_sampler_path(sp, cfg, dev, card)
 
+    # ---- 3f. the probe tools at full width (bench_fused_bwd, probe_dual_issue)
+    probe_rows = probe_tools_path(sp, dev, card)
+
     # ---- 4. per-kernel numbers at the main path's shapes (B=64, N=2048, bf16)
     b, n = 64, 2048
     z = torch.randn((b, cfg.model.dz), generator=g, device=dev)
@@ -1648,8 +1948,8 @@ def main() -> int:
           f"{li_ms:.4f} ms (plain {li_plain:.3f}); max_abs err fwd {lf_err:.2e}, bwd {lb_err:.2e}, "
           f"inv {li_err:.2e} ({card})")
     kernels += eval_kernel_rows(half_a, half_b, gen_launches, ae_launches)
-    kernels += grad_rows + int8_rows
-    check(len(kernels) == 16, f"{len(kernels)} kernel rows")
+    kernels += grad_rows + int8_rows + probe_rows
+    check(len(kernels) == 24, f"{len(kernels)} kernel rows")
     print(json.dumps({"kernels": kernels}))
 
     # ---- 5. where the sampler's time goes (torch.profiler, 5 calls each)

@@ -1,5 +1,6 @@
 // Building blocks shared by the port's Hopper kernels (fused_sampler.cu,
-// fused_train.cu, fused_encoder.cu, fused_latent.cu, chamfer.cu, emd.cu):
+// fused_train.cu, fused_encoder.cu, fused_latent.cu, chamfer.cu, emd.cu,
+// bench_fused_bwd.cu, dual_issue.cu):
 // dtype helpers, the activations, the staging of a square weight matrix
 // into shared memory, one block-wide matrix product with a per-element
 // epilogue (WMMA on the tensor cores for bf16 operands, register-tiled IEEE
@@ -25,6 +26,22 @@ namespace dpfx {
 
 constexpr int THREADS = 256;    // 8 warps per block
 constexpr int WARPS = THREADS / 32;
+
+// Consecutive warps that share the work of a call below: the whole block
+// (barrier 0), or a part of it that walks its own tiles (a named barrier of
+// its own, bench_fused_bwd.cu's stripes). The overloads without a group
+// take the whole block.
+struct Group {
+  int bar, warp0, warps;
+  static __device__ Group block() { return Group{0, 0, WARPS}; }
+  __device__ int tid() const { return (int)threadIdx.x - warp0 * 32; }
+  __device__ int size() const { return warps * 32; }
+  __device__ int warp() const { return (int)threadIdx.x / 32 - warp0; }
+  __device__ void sync() const {
+    if (bar == 0) __syncthreads();
+    else asm volatile("bar.sync %0, %1;" ::"r"(bar), "r"(warps * 32) : "memory");
+  }
+};
 
 __host__ __device__ constexpr int round128(int n) { return (n + 127) / 128 * 128; }
 
@@ -86,16 +103,18 @@ __device__ void load_square(float* ws, const float* g, int ld) {
 // tm + 16i and columns tn + 16j of each 128 x 128 chunk; colpart is not
 // written (the caller sums the values it stored, see column_sums).
 // The caller synchronises before and after; epi must not write an operand.
+// With a group, only its warps work (stage still holds one tile per warp
+// of the block); its f32 form takes one element per thread at a time.
 template <bool AT, bool BT, typename Epi>
-__device__ void gemm(int M, int N, int K, const __nv_bfloat16* a, int lda,
+__device__ void gemm(const Group& g, int M, int N, int K, const __nv_bfloat16* a, int lda,
                      const __nv_bfloat16* b, int ldb, float* stage, float* colpart, Epi epi) {
   using namespace nvcuda;
   using LA = std::conditional_t<AT, wmma::col_major, wmma::row_major>;
   using LB = std::conditional_t<BT, wmma::col_major, wmma::row_major>;
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int lane = threadIdx.x % 32;
   const int MT = M / 16, NT = N / 16;
-  float* st = stage + warp * 256;
-  for (int t = warp; t < MT * NT; t += WARPS) {
+  float* st = stage + (threadIdx.x / 32) * 256;
+  for (int t = g.warp(); t < MT * NT; t += g.warps) {
     const int tm = t % MT, tn = t / MT;
     wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc;
     wmma::fill_fragment(acc, 0.f);
@@ -118,6 +137,25 @@ __device__ void gemm(int M, int N, int K, const __nv_bfloat16* a, int lda,
       colpart[tm * N + tn * 16 + lane] = s;
     }
     __syncwarp();
+  }
+}
+
+template <bool AT, bool BT, typename Epi>
+__device__ void gemm(int M, int N, int K, const __nv_bfloat16* a, int lda,
+                     const __nv_bfloat16* b, int ldb, float* stage, float* colpart, Epi epi) {
+  gemm<AT, BT>(Group::block(), M, N, K, a, lda, b, ldb, stage, colpart, epi);
+}
+
+template <bool AT, bool BT, typename Epi>
+__device__ void gemm(const Group& g, int M, int N, int K, const float* a, int lda,
+                     const float* b, int ldb, float*, float*, Epi epi) {
+  const size_t sam = AT ? 1 : lda, sak = AT ? lda : 1;
+  const size_t sbk = BT ? 1 : ldb, sbn = BT ? ldb : 1;
+  for (int e = g.tid(); e < M * N; e += g.size()) {
+    const int m = e / N, n = e % N;
+    float s = 0.f;
+    for (int k = 0; k < K; ++k) s = fmaf(a[m * sam + k * sak], b[k * sbk + n * sbn], s);
+    epi(m, n, s);
   }
 }
 
@@ -164,18 +202,17 @@ __device__ void gemm(int M, int N, int K, const float* a, int lda, const float* 
 constexpr int ACC_TILES = 4;
 
 template <bool AT, bool BT>
-__device__ void gemm_acc(int M, int N, int K, const __nv_bfloat16* a, int lda,
+__device__ void gemm_acc(const Group& g, int M, int N, int K, const __nv_bfloat16* a, int lda,
                          const __nv_bfloat16* b, int ldb, float* c, int ldc, bool first) {
   using namespace nvcuda;
   using LA = std::conditional_t<AT, wmma::col_major, wmma::row_major>;
   using LB = std::conditional_t<BT, wmma::col_major, wmma::row_major>;
-  const int warp = threadIdx.x / 32;
   const int MT = M / 16, NT = N / 16;
-  for (int t0 = warp; t0 < MT * NT; t0 += ACC_TILES * WARPS) {
+  for (int t0 = g.warp(); t0 < MT * NT; t0 += ACC_TILES * g.warps) {
     wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[ACC_TILES];
 #pragma unroll
     for (int u = 0; u < ACC_TILES; ++u) {
-      const int t = t0 + u * WARPS;
+      const int t = t0 + u * g.warps;
       if (t >= MT * NT) break;
       if (first) wmma::fill_fragment(acc[u], 0.f);
       else wmma::load_matrix_sync(acc[u], c + (size_t)(t % MT) * 16 * ldc + (t / MT) * 16, ldc,
@@ -184,7 +221,7 @@ __device__ void gemm_acc(int M, int N, int K, const __nv_bfloat16* a, int lda,
     for (int kk = 0; kk < K; kk += 16) {
 #pragma unroll
       for (int u = 0; u < ACC_TILES; ++u) {
-        const int t = t0 + u * WARPS;
+        const int t = t0 + u * g.warps;
         if (t >= MT * NT) break;
         const int tm = t % MT, tn = t / MT;
         wmma::fragment<wmma::matrix_a, 16, 16, 16, __nv_bfloat16, LA> fa;
@@ -198,12 +235,18 @@ __device__ void gemm_acc(int M, int N, int K, const __nv_bfloat16* a, int lda,
     }
 #pragma unroll
     for (int u = 0; u < ACC_TILES; ++u) {
-      const int t = t0 + u * WARPS;
+      const int t = t0 + u * g.warps;
       if (t >= MT * NT) break;
       wmma::store_matrix_sync(c + (size_t)(t % MT) * 16 * ldc + (t / MT) * 16, acc[u], ldc,
                               wmma::mem_row_major);
     }
   }
+}
+
+template <bool AT, bool BT>
+__device__ void gemm_acc(int M, int N, int K, const __nv_bfloat16* a, int lda,
+                         const __nv_bfloat16* b, int ldb, float* c, int ldc, bool first) {
+  gemm_acc<AT, BT>(Group::block(), M, N, K, a, lda, b, ldb, c, ldc, first);
 }
 
 template <bool AT, bool BT>
@@ -216,14 +259,24 @@ __device__ void gemm_acc(int M, int N, int K, const float* a, int lda, const flo
   });
 }
 
+template <bool AT, bool BT>
+__device__ void gemm_acc(const Group& g, int M, int N, int K, const float* a, int lda,
+                         const float* b, int ldb, float* c, int ldc, bool first) {
+  gemm<AT, BT>(g, M, N, K, a, lda, b, ldb, nullptr, nullptr, [&](int m, int n, float v) {
+    float* p = c + (size_t)m * ldc + n;
+    *p = first ? v : *p + v;
+    return 0.f;
+  });
+}
+
 // After an epilogue that stored its returned values into buf (M x N, row
 // stride ld): out[n] = sum over the M rows (accumulate: out[n] += it), in a
 // fixed order. bf16 sums the per-tile column sums of colpart (the stored
 // values are rounded); f32 sums buf itself (the stored values are exact).
 template <typename S>
-__device__ void column_sums(int M, int N, const float* colpart, const S* buf, int ld,
-                            float* out, bool accumulate = false) {
-  for (int n = threadIdx.x; n < N; n += THREADS) {
+__device__ void column_sums(const Group& g, int M, int N, const float* colpart, const S* buf,
+                            int ld, float* out, bool accumulate) {
+  for (int n = g.tid(); n < N; n += g.size()) {
     float s = 0.f;
     if constexpr (is_bf16<S>) {
       for (int tm = 0; tm < M / 16; ++tm) s += colpart[tm * N + n];
@@ -232,6 +285,12 @@ __device__ void column_sums(int M, int N, const float* colpart, const S* buf, in
     }
     out[n] = accumulate ? out[n] + s : s;
   }
+}
+
+template <typename S>
+__device__ void column_sums(int M, int N, const float* colpart, const S* buf, int ld,
+                            float* out, bool accumulate = false) {
+  column_sums<S>(Group::block(), M, N, colpart, buf, ld, out, accumulate);
 }
 
 // out[g * E + e] = sum over s < S of part[(g * S + s) * E + e], s in order

@@ -1,8 +1,9 @@
 """The port's kernels (fused sampler with its int8 mode, fused train
 forward/backward, fused encoder forward/backward, fused latent flow
 forward/backward/inverse, Chamfer with its backward, approxmatch EMD with
-its gradient mode) against their plain versions on the card, at small
-shapes and at 2048 points. Marked ``gpu``: each test skips
+its gradient mode, the probe tools' backward and dual-issue kernels)
+against their plain versions on the card, at small shapes and at 2048
+points. Marked ``gpu``: each test skips
 without a CUDA device. On a machine with one:
 
     python -m pytest tests/test_torch_cuda.py -m gpu --noconftest
@@ -579,3 +580,156 @@ def test_gradient_and_int8_mode_conditions(cuda):
     assert sum(cdk.launches.values()) + sum(emdk.launches.values()) + sum(fs.launches.values()) == 0
     # the backward's shared memory at the largest clouds
     assert cdk.bwd_smem_bytes(cdk.MAX_POINTS, cdk.MAX_POINTS) <= cdk.SMEM_LIMIT
+
+
+def _probe_inputs(dev, b, n, k=3, seed=0):
+    """The probe tool's weight scales at K=3 (the kernels' width H=128)."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    rn = lambda *s: torch.randn(s, generator=g, device=dev)
+    w = {"wx": 0.3 * rn(k, 128, 8), "wh": 0.1 * rn(k, 1, 128, 128), "bh": 0.1 * rn(k, 1, 128, 1),
+         "wout": 0.05 * rn(k, 8, 128), "bout": 0.01 * rn(k, 8, 1)}
+    return w, rn(b, 8, n), 0.1 * rn(b, k, 128, 1), rn(b, 8, n), rn(b)
+
+
+def _probe_errors(got, ref):
+    return [_rel(a, r) if r.abs().max() > 0 else float(a.abs().max()) for a, r in zip(got, ref)]
+
+
+@pytest.mark.parametrize("rolled", [False, True])
+@pytest.mark.parametrize("mode", ["full", "nowg", "walk"])
+@pytest.mark.parametrize("dtype,tile", [("float32", 32), ("bfloat16", 32), ("bfloat16", 64),
+                                        ("bfloat16", 128)])
+def test_probe_bwd_kernel_matches_plain(cuda, dtype, tile, mode, rolled):
+    """The probe backward against probe_bwd_plain at N=300 (a partial last
+    tile) with the log-det mask at 290: every output within 1e-5 of its
+    norm in f32 (IEEE sums in other orders), 2e-2 in bf16 (a flipped
+    rounding of one hidden unit, carried on), the parts nowg and walk
+    leave out exactly zero, and bit-identical from run to run."""
+    from dpfx_torch.tools import bench_fused_bwd as bfb
+
+    dt = getattr(torch, dtype)
+    w, u, hz, du, dld = _probe_inputs(cuda, 2, 300)
+    bfb.reset_launch_counts()
+    got = bfb.probe_bwd_kernel(w, u, hz, du, dld, mode=mode, n_points=290, dtype=dt,
+                               rolled=rolled, tile=tile)
+    again = bfb.probe_bwd_kernel(w, u, hz, du, dld, mode=mode, n_points=290, dtype=dt,
+                                 rolled=rolled, tile=tile)
+    ref = bfb.probe_bwd_plain(w, u, hz, du, dld, mode=mode, n_points=290, dtype=dt)
+    torch.cuda.synchronize()
+    assert bfb.launches[f"probe_bwd_{mode}{'_rolled' if rolled else ''}"] == 2
+    assert all(torch.equal(a, c) for a, c in zip(got, again)), "not bit-identical"
+    errs = _probe_errors(got, ref)
+    assert max(errs) <= (1e-5 if dt == torch.float32 else 2e-2), errs
+
+
+@pytest.mark.parametrize("rolled", [False, True])
+@pytest.mark.parametrize("stripes", [2, 4])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_ilv_bwd_kernel_matches_plain(cuda, dtype, stripes, rolled):
+    """The interleaved kernel against the plain full backward at N=256 with
+    the log-det mask at 250, limits as the probe kernel's."""
+    from dpfx_torch.tools import bench_fused_bwd as bfb
+
+    dt = getattr(torch, dtype)
+    w, u, hz, du, dld = _probe_inputs(cuda, 3, 256, seed=1)
+    got = bfb.ilv_bwd_kernel(w, u, hz, du, dld, stripes=stripes, rolled=rolled, n_points=250,
+                             dtype=dt)
+    again = bfb.ilv_bwd_kernel(w, u, hz, du, dld, stripes=stripes, rolled=rolled, n_points=250,
+                               dtype=dt)
+    ref = bfb.probe_bwd_plain(w, u, hz, du, dld, mode="full", n_points=250, dtype=dt)
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, c) for a, c in zip(got, again)), "not bit-identical"
+    errs = _probe_errors(got, ref)
+    assert max(errs) <= (1e-5 if dt == torch.float32 else 2e-2), errs
+
+
+def test_padded_probe_matches_production_kernel(cuda):
+    """On zero-padded production inputs the probe's full kernel computes the
+    production backward's function: f32 kernels within 1e-5 of each other
+    per output."""
+    from dpfx_torch.ops import fused_train as ft
+    from dpfx_torch.tools import bench_fused_bwd as bfb
+
+    w, u, hz, du, dld = _probe_inputs(cuda, 2, 256, seed=2)
+    w["wx"][:, :, :3] *= bfb.masks8(3, cuda)[:, :3, 0][:, None, :]
+    w["wx"][:, :, 3:] = 0
+    w["wout"][:, 6:] = 0
+    w["bout"][:, 6:] = 0
+    u[:, 3:] = 0
+    du[:, 3:] = 0
+    got = bfb.probe_bwd_kernel(w, u, hz, du, dld, mode="full", n_points=256, dtype=torch.float32)
+    p = bfb.production_slice(w, u, hz, du)
+    ref = ft.fused_backward_kernel(p["wx"], p["wh"], p["bh"], p["wout"], p["bout"], p["masks"],
+                                   bfb.CAP, p["u"], p["hz"], p["du"], dld, torch.float32)
+    torch.cuda.synchronize()
+    pairs = [(got[0][:, :3], ref[0]), (got[1][..., 0], ref[1]), (got[2][..., :3], ref[2]),
+             (got[3], ref[3]), (got[4][..., 0], ref[4]), (got[5][:, :6], ref[5]),
+             (got[6][:, :6, 0], ref[6])]
+    for name, (a, b) in zip(["dx", "dhz", "dwx", "dwh", "dbh", "dwout", "dbout"], pairs):
+        assert _rel(a, b) <= 1e-5, f"{name}: {_rel(a, b)}"
+
+
+def test_probe_kernel_conditions(cuda):
+    """Shapes, tiles and stripes the kernels are not built for raise
+    ValueError before any launch."""
+    from dpfx_torch.tools import bench_fused_bwd as bfb
+
+    w, u, hz, du, dld = _probe_inputs(cuda, 2, 256)
+    bfb.reset_launch_counts()
+    kw = dict(mode="full", n_points=256)
+    with pytest.raises(ValueError, match="tiles"):
+        bfb.probe_bwd_kernel(w, u, hz, du, dld, tile=256, **kw)
+    with pytest.raises(ValueError, match="tiles"):
+        bfb.probe_bwd_kernel(w, u, hz, du, dld, tile=64, dtype=torch.float32, **kw)
+    with pytest.raises(ValueError, match="stripes"):
+        bfb.ilv_bwd_kernel(w, u, hz, du, dld, stripes=3)
+    with pytest.raises(ValueError, match="stripes"):
+        bfb.ilv_bwd_kernel(w, u[..., :254], hz, du[..., :254], dld, stripes=4)
+    with pytest.raises(ValueError, match="built for wx"):
+        bfb.probe_bwd_kernel({**w, "wx": w["wx"][:, :64]}, u, hz, du, dld, **kw)
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        bfb.probe_bwd_kernel(w, u, hz.cpu(), du, dld, **kw)
+    with pytest.raises(ValueError, match="shared"):
+        bfb.probe_bwd_kernel({**w, "wh": w["wh"].repeat(1, 2, 1, 1),
+                              "bh": w["bh"].repeat(1, 2, 1, 1)}, u, hz, du, dld, **kw)
+    assert not any(bfb.launches.values())
+
+
+@pytest.mark.parametrize("mode", ["A", "B", "C"])
+def test_dual_issue_kernel_matches_plain(cuda, mode):
+    """The dual-issue kernel against dual_issue_plain: v within 1e-6 (expf
+    on both sides, a contracting chain); x (bf16 products, f32 sums in other
+    orders, one bf16 ulp moved now and then and carried on) every entry
+    within 2% of the largest, 99% within 0.4%; bit-identical from run to
+    run."""
+    from dpfx_torch.tools import probe_dual_issue as pdi
+
+    g = torch.Generator(device=cuda).manual_seed(4)
+    w = (0.05 * torch.randn((3, 128, 128), generator=g, device=cuda)).to(torch.bfloat16)
+    x = torch.randn((2, 128, 256), generator=g, device=cuda)
+    v = torch.randn((2, 8, 256), generator=g, device=cuda)
+    mxu, vpu = pdi.MODES[mode]
+    pdi.reset_launch_counts()
+    ox, ov = pdi.dual_issue_kernel(w, x, v, do_mxu=mxu, do_vpu=vpu)
+    again = pdi.dual_issue_kernel(w, x, v, do_mxu=mxu, do_vpu=vpu)
+    px, pv = pdi.dual_issue_plain(w, x, v, do_mxu=mxu, do_vpu=vpu)
+    torch.cuda.synchronize()
+    assert pdi.launches[f"dual_issue_{mode}"] == 2
+    assert torch.equal(ox, again[0]) and torch.equal(ov, again[1])
+    assert float((ov - pv).abs().max()) <= 1e-6
+    err = (ox - px).abs().flatten() / px.abs().max()
+    assert float(err.max()) <= 2e-2 and float(torch.quantile(err, 0.99)) <= 4e-3
+    with pytest.raises(ValueError, match="multiple"):
+        pdi.dual_issue_kernel(w, x[..., :200], v[..., :200], do_mxu=mxu, do_vpu=vpu)
+
+
+def test_chain_time_ms_on_the_card(cuda):
+    """chain_time_ms chains the calls through the carry and times them on
+    CUDA events: a positive time, and a non-finite closing value raises."""
+    from dpfx_torch.utils.profiling import chain_time_ms
+
+    x = torch.ones((256, 256), device=cuda)
+    step = lambda c, i: (c @ x * (1.0 / 256), (c @ x)[0, 0])
+    assert chain_time_ms(step, x, reps=5) > 0
+    with pytest.raises(AssertionError, match="non-finite"):
+        chain_time_ms(lambda c, i: (c, c[0, 0] * float("inf")), x, reps=2)
