@@ -38,7 +38,8 @@
 // say where the production backward's time goes. ROLLED keeps the layer
 // loop rolled (`#pragma unroll 1`); the other form unrolls it by 2 (all 32
 // layers' WMMA loops unrolled would cost nvcc time and instruction cache).
-// T (32, 64, 128 in bf16; 32 in f32) is the tile sweep.
+// T is the points per tile: 64 as the production backward, 128 for the
+// tile sweep (FULL only), 32 in f32.
 //
 // Design, STRIPES = 2 or 4 (the `_ilv_kernel` counterpart): one block per
 // cloud walks all K layers over its whole cloud. The cloud's points are
@@ -464,6 +465,11 @@ cudaError_t launch(const Args& a) {
   return launch_reduce(a.dhz_part, a.dhz, a.B, (a.N + T - 1) / T, (long long)a.K * HID, a.stream);
 }
 
+// The forms the library is built for (bench_fused_bwd.py: BUILT, ILV_BUILT):
+// bf16 tile 64 in each mode and loop form, tile 128 for FULL unrolled (the
+// tile sweep); f32 tile 32 in each mode unrolled and FULL rolled; the
+// interleaved kernel with 2 and 4 stripes (bf16 stripe tile 32, rolled or
+// not; f32 stripe tile 16, unrolled).
 template <typename S, int T>
 cudaError_t probe_modes(int mode, int rolled, const Args& a) {
   switch (mode * 2 + rolled) {
@@ -477,19 +483,39 @@ cudaError_t probe_modes(int mode, int rolled, const Args& a) {
   }
 }
 
-template <typename S, int T>
-cudaError_t ilv(int stripes, int rolled, const Args& a) {
-  switch (stripes * 2 + rolled) {
-    case 4: return launch<S, FULL, T, false, 2>(a);
-    case 5: return launch<S, FULL, T, true, 2>(a);
-    case 8: return launch<S, FULL, T, false, 4>(a);
-    case 9: return launch<S, FULL, T, true, 4>(a);
+cudaError_t probe_bf16(int tile, int mode, int rolled, const Args& a) {
+  if (tile == 64) return probe_modes<__nv_bfloat16, 64>(mode, rolled, a);
+  if (tile == 128 && mode == FULL && !rolled) return launch<__nv_bfloat16, FULL, 128, false, 1>(a);
+  return cudaErrorInvalidValue;
+}
+
+cudaError_t probe_f32(int tile, int mode, int rolled, const Args& a) {
+  if (tile != 32) return cudaErrorInvalidValue;
+  switch (mode * 2 + rolled) {
+    case 0: return launch<float, FULL, 32, false, 1>(a);
+    case 1: return launch<float, FULL, 32, true, 1>(a);
+    case 2: return launch<float, NOWG, 32, false, 1>(a);
+    case 4: return launch<float, WALK, 32, false, 1>(a);
     default: return cudaErrorInvalidValue;
   }
 }
 
-// the tiles each build has (bench_fused_bwd.py: TILES, ilv_tile)
 constexpr int ILV_T_BF16 = 32, ILV_T_F32 = 16;
+
+cudaError_t ilv(int bf16, int tile, int stripes, int rolled, const Args& a) {
+  if (bf16 && tile == ILV_T_BF16) {
+    switch (stripes * 2 + rolled) {
+      case 4: return launch<__nv_bfloat16, FULL, ILV_T_BF16, false, 2>(a);
+      case 5: return launch<__nv_bfloat16, FULL, ILV_T_BF16, true, 2>(a);
+      case 8: return launch<__nv_bfloat16, FULL, ILV_T_BF16, false, 4>(a);
+      case 9: return launch<__nv_bfloat16, FULL, ILV_T_BF16, true, 4>(a);
+    }
+  } else if (!bf16 && tile == ILV_T_F32 && !rolled) {
+    if (stripes == 2) return launch<float, FULL, ILV_T_F32, false, 2>(a);
+    if (stripes == 4) return launch<float, FULL, ILV_T_F32, false, 4>(a);
+  }
+  return cudaErrorInvalidValue;
+}
 
 }  // namespace
 
@@ -512,21 +538,10 @@ int dpfx_probe_bwd(float* y, float* dy, const float* dld, const float* hz, const
                B, N, n_valid, K, NH1, cap, blocks, static_cast<cudaStream_t>(stream)};
   rolled = rolled ? 1 : 0;
   if (stripes > 1) {
-    if (N % stripes || (stripes > 1 && mode != FULL)) return (int)cudaErrorInvalidValue;
-    if (bf16 && tile == ILV_T_BF16) return (int)ilv<__nv_bfloat16, ILV_T_BF16>(stripes, rolled, a);
-    if (!bf16 && tile == ILV_T_F32) return (int)ilv<float, ILV_T_F32>(stripes, rolled, a);
-    return (int)cudaErrorInvalidValue;
+    if (N % stripes || mode != FULL) return (int)cudaErrorInvalidValue;
+    return (int)ilv(bf16, tile, stripes, rolled, a);
   }
-  if (bf16) {
-    switch (tile) {
-      case 32: return (int)probe_modes<__nv_bfloat16, 32>(mode, rolled, a);
-      case 64: return (int)probe_modes<__nv_bfloat16, 64>(mode, rolled, a);
-      case 128: return (int)probe_modes<__nv_bfloat16, 128>(mode, rolled, a);
-      default: return (int)cudaErrorInvalidValue;
-    }
-  }
-  if (tile == 32) return (int)probe_modes<float, 32>(mode, rolled, a);
-  return (int)cudaErrorInvalidValue;
+  return (int)(bf16 ? probe_bf16(tile, mode, rolled, a) : probe_f32(tile, mode, rolled, a));
 }
 
 }  // extern "C"

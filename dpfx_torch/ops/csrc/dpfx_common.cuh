@@ -99,12 +99,14 @@ __device__ void load_square(float* ws, const float* g, int ld) {
 // one 16 x 16 tile of C per warp at a time, finished through the warp's
 // 16 x 16 f32 staging tile; with colpart, lanes 0-15 then sum the returned
 // values of the tile's 16 rows (in row order) into colpart[tm * N + n].
-// f32: register-tiled FMA (exact IEEE f32), thread (tm, tn) owning rows
-// tm + 16i and columns tn + 16j of each 128 x 128 chunk; colpart is not
+// f32: register-tiled FMA (exact IEEE f32, k in order), thread (tm, tn)
+// owning rows tm + 16i and columns tn + 16j of each 128 x 128 chunk; colpart is not
 // written (the caller sums the values it stored, see column_sums).
 // The caller synchronises before and after; epi must not write an operand.
 // With a group, only its warps work (stage still holds one tile per warp
-// of the block); its f32 form takes one element per thread at a time.
+// of the block); in f32 its threads form a (size / 16) x 16 grid, each
+// owning 8 rows and 8 columns of a chunk, so per element the same sum as
+// with the whole block (the overloads without a group).
 template <bool AT, bool BT, typename Epi>
 __device__ void gemm(const Group& g, int M, int N, int K, const __nv_bfloat16* a, int lda,
                      const __nv_bfloat16* b, int ldb, float* stage, float* colpart, Epi epi) {
@@ -151,23 +153,11 @@ __device__ void gemm(const Group& g, int M, int N, int K, const float* a, int ld
                      const float* b, int ldb, float*, float*, Epi epi) {
   const size_t sam = AT ? 1 : lda, sak = AT ? lda : 1;
   const size_t sbk = BT ? 1 : ldb, sbn = BT ? ldb : 1;
-  for (int e = g.tid(); e < M * N; e += g.size()) {
-    const int m = e / N, n = e % N;
-    float s = 0.f;
-    for (int k = 0; k < K; ++k) s = fmaf(a[m * sam + k * sak], b[k * sbk + n * sbn], s);
-    epi(m, n, s);
-  }
-}
-
-template <bool AT, bool BT, typename Epi>
-__device__ void gemm(int M, int N, int K, const float* a, int lda, const float* b, int ldb,
-                     float*, float*, Epi epi) {
-  const size_t sam = AT ? 1 : lda, sak = AT ? lda : 1;
-  const size_t sbk = BT ? 1 : ldb, sbn = BT ? ldb : 1;
-  const int tm = threadIdx.x / 16, tn = threadIdx.x % 16;
-  for (int m0 = 0; m0 < M; m0 += 128)
+  const int RS = g.size() / 16;   // rows of the group's 16-wide thread grid
+  const int tm = g.tid() / 16, tn = g.tid() % 16;
+  for (int m0 = 0; m0 < M; m0 += 8 * RS)
     for (int n0 = 0; n0 < N; n0 += 128) {
-      const int mi = min(8, (M - m0) / 16), nj = min(8, (N - n0) / 16);
+      const int mi = min(8, (M - m0) / RS), nj = min(8, (N - n0) / 16);
       float acc[8][8];
 #pragma unroll
       for (int i = 0; i < 8; ++i)
@@ -176,7 +166,7 @@ __device__ void gemm(int M, int N, int K, const float* a, int lda, const float* 
       for (int k = 0; k < K; ++k) {
         float av[8], bv[8];
 #pragma unroll
-        for (int i = 0; i < 8; ++i) av[i] = i < mi ? a[(m0 + tm + 16 * i) * sam + k * sak] : 0.f;
+        for (int i = 0; i < 8; ++i) av[i] = i < mi ? a[(m0 + tm + RS * i) * sam + k * sak] : 0.f;
 #pragma unroll
         for (int j = 0; j < 8; ++j) bv[j] = j < nj ? b[k * sbk + (n0 + tn + 16 * j) * sbn] : 0.f;
 #pragma unroll
@@ -188,8 +178,14 @@ __device__ void gemm(int M, int N, int K, const float* a, int lda, const float* 
       for (int i = 0; i < 8; ++i)
 #pragma unroll
         for (int j = 0; j < 8; ++j)
-          if (i < mi && j < nj) epi(m0 + tm + 16 * i, n0 + tn + 16 * j, acc[i][j]);
+          if (i < mi && j < nj) epi(m0 + tm + RS * i, n0 + tn + 16 * j, acc[i][j]);
     }
+}
+
+template <bool AT, bool BT, typename Epi>
+__device__ void gemm(int M, int N, int K, const float* a, int lda, const float* b, int ldb,
+                     float* stage, float* colpart, Epi epi) {
+  gemm<AT, BT>(Group::block(), M, N, K, a, lda, b, ldb, stage, colpart, epi);
 }
 
 // C[M x N] = A B (first) or C += A B, C row-major with row stride ldc in
@@ -250,16 +246,6 @@ __device__ void gemm_acc(int M, int N, int K, const __nv_bfloat16* a, int lda,
 }
 
 template <bool AT, bool BT>
-__device__ void gemm_acc(int M, int N, int K, const float* a, int lda, const float* b, int ldb,
-                         float* c, int ldc, bool first) {
-  gemm<AT, BT>(M, N, K, a, lda, b, ldb, nullptr, nullptr, [&](int m, int n, float v) {
-    float* p = c + (size_t)m * ldc + n;
-    *p = first ? v : *p + v;
-    return 0.f;
-  });
-}
-
-template <bool AT, bool BT>
 __device__ void gemm_acc(const Group& g, int M, int N, int K, const float* a, int lda,
                          const float* b, int ldb, float* c, int ldc, bool first) {
   gemm<AT, BT>(g, M, N, K, a, lda, b, ldb, nullptr, nullptr, [&](int m, int n, float v) {
@@ -267,6 +253,12 @@ __device__ void gemm_acc(const Group& g, int M, int N, int K, const float* a, in
     *p = first ? v : *p + v;
     return 0.f;
   });
+}
+
+template <bool AT, bool BT>
+__device__ void gemm_acc(int M, int N, int K, const float* a, int lda, const float* b, int ldb,
+                         float* c, int ldc, bool first) {
+  gemm_acc<AT, BT>(Group::block(), M, N, K, a, lda, b, ldb, c, ldc, first);
 }
 
 // After an epilogue that stored its returned values into buf (M x N, row

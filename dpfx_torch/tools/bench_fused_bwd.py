@@ -25,10 +25,11 @@ shift from rows 3-5 (``roll(st, 5)``) and the translation cotangent
 
 Usage: python -m dpfx_torch.tools.bench_fused_bwd [variant ...] [--device cpu]
 Env:   DPFX_PROBE_B (64), DPFX_PROBE_TILES ("64": points per block tile of
-       the non-interleaved variants, a comma list to sweep; tiles of 32, 64
-       and 128 points are built, and one whose shared memory exceeds 227 KB
-       is refused), DPFX_PROBE_REPS (20), DPFX_PROBE_VMEM (a TPU
-       scoped-memory knob, accepted and ignored)
+       the non-interleaved variants, a comma list to sweep; every variant
+       is built for 64 points, ``full`` also for 128, and any other tile,
+       or one whose shared memory exceeds 227 KB, prints FAILED),
+       DPFX_PROBE_REPS (20), DPFX_PROBE_VMEM (a TPU scoped-memory knob,
+       accepted and ignored)
 
 Each line gives ms per call (``chain_time_ms``: CUDA events on the card)
 and μs per tile (a tile of one cloud, the grid step of the JAX tool) or per
@@ -63,9 +64,18 @@ K, H, NH = 32, 128, 1        # flagship point flow: 32 layers, hidden 128, n_hid
 CAP = 3.0
 ROWS = 8
 KERNEL_HIDDEN = (128,)       # the probe kernels are built for the flagship width
-TILES = {torch.bfloat16: (32, 64, 128), torch.float32: (32,)}
-ILV_STRIPES = (2, 4)
 MODES = {"full": 0, "nowg": 1, "walk": 2}
+ILV_STRIPES = (2, 4)
+# the forms the kernel library is built for (csrc/bench_fused_bwd.cu):
+# (tile, mode, rolled) of the probe kernel; (stripes, rolled) and the
+# stripe tile of the interleaved one
+BUILT = {
+    torch.bfloat16: {(64, m, r) for m in MODES for r in (False, True)} | {(128, "full", False)},
+    torch.float32: {(32, m, False) for m in MODES} | {(32, "full", True)},
+}
+ILV_BUILT = {torch.bfloat16: {(s, r) for s in ILV_STRIPES for r in (False, True)},
+             torch.float32: {(s, False) for s in ILV_STRIPES}}
+ILV_TILE = {torch.bfloat16: 32, torch.float32: 16}
 GRAD_NAMES = ("dx", "dhz", "dwx", "dwh", "dbh", "dwout", "dbout")
 
 # kernel launches per wrapper and variant; chip_smoke.py zeroes these
@@ -99,20 +109,23 @@ def probe_bwd_plain(w: Dict[str, Tensor], u: Tensor, hz: Tensor, du: Tensor, dld
     w: wx [K, H, 8], wh [K, NH, H, H], bh [K, NH, H, 1], wout [K, 8, H],
     bout [K, 8, 1]; u, du [B, 8, Np]; hz [B, K, H, 1]; dld [B]. Columns at
     or beyond ``n_points`` take no log-det cotangent (they keep their du).
-    Products take operands rounded to ``dtype`` with float32 accumulation.
-    Returns (dx, dhz, dwx, dwh, dbh, dwout, dbout) in float32, shaped as
-    their inputs; ``nowg`` leaves dhz and the weight gradients at zero,
-    ``walk`` also returns x_0 in dx's place."""
+    Products take operands rounded to ``dtype`` with float32 accumulation;
+    ``dtype=torch.float64`` computes everything in float64 instead (a
+    reference for the float32 versions). Returns (dx, dhz, dwx, dwh, dbh,
+    dwout, dbout) in float32 (float64 there), shaped as their inputs;
+    ``nowg`` leaves dhz and the weight gradients at zero, ``walk`` also
+    returns x_0 in dx's place."""
     if mode not in MODES:
         raise ValueError(f"mode must be one of {tuple(MODES)}, got {mode!r}")
-    rnd = lambda a: a.to(dtype).float()
-    wx, wh, bh, wout, bout = (w[k].float() for k in ("wx", "wh", "bh", "wout", "bout"))
+    acc = torch.float64 if dtype == torch.float64 else torch.float32
+    rnd = lambda a: a.to(dtype).to(acc)
+    wx, wh, bh, wout, bout = (w[k].to(acc) for k in ("wx", "wh", "bh", "wout", "bout"))
     n_layers, nh = wx.shape[0], wh.shape[1]
-    masks = masks8(n_layers, u.device)
-    y, dy = u.float(), du.float()
-    valid = (torch.arange(y.shape[2], device=u.device) < n_points).float()
-    g_ld = dld.float()[:, None, None]
-    hz = hz.float()
+    masks = masks8(n_layers, u.device).to(acc)
+    y, dy = u.to(acc), du.to(acc)
+    valid = (torch.arange(y.shape[2], device=u.device) < n_points).to(acc)
+    g_ld = dld.to(acc)[:, None, None]
+    hz = hz.to(acc)
     full = mode == "full"
     dhz = torch.zeros_like(hz)
     dwx, dwh, dbh = torch.zeros_like(wx), torch.zeros_like(wh), torch.zeros_like(bh)
@@ -189,7 +202,7 @@ def _launch(w, u, hz, du, dld, *, mode, n_points, cap, dtype, rolled, tile, stri
     nh1 = wh.shape[1]
     b, _, n = u.shape
     dev = u.device
-    if dtype not in TILES:
+    if dtype not in BUILT:
         raise ValueError(f"kernel compute dtype must be float32 or bfloat16, got {dtype}")
     if mode not in MODES:
         raise ValueError(f"mode must be one of {tuple(MODES)}, got {mode!r}")
@@ -200,12 +213,15 @@ def _launch(w, u, hz, du, dld, *, mode, n_points, cap, dtype, rolled, tile, stri
         raise ValueError(f"u and du must be [B, {ROWS}, N], got {tuple(u.shape)}, {tuple(du.shape)}")
     if not 0 <= n_points <= n:
         raise ValueError(f"n_points must lie in [0, {n}], got {n_points}")
-    if stripes == 1 and tile not in TILES[dtype]:
-        raise ValueError(f"the probe kernel is built for tiles {TILES[dtype]} in {dtype}, "
-                         f"got {tile}")
+    if stripes == 1 and (tile, mode, bool(rolled)) not in BUILT[dtype]:
+        raise ValueError(f"the probe kernel is built for (tile, mode, rolled) in "
+                         f"{sorted(BUILT[dtype])} in {dtype}, got {(tile, mode, bool(rolled))}")
     if stripes > 1 and (stripes not in ILV_STRIPES or n % stripes):
         raise ValueError(f"the interleaved kernel takes stripes in {ILV_STRIPES} that divide "
                          f"N={n}, got {stripes}")
+    if stripes > 1 and (stripes, bool(rolled)) not in ILV_BUILT[dtype]:
+        raise ValueError(f"the interleaved kernel is built for (stripes, rolled) in "
+                         f"{sorted(ILV_BUILT[dtype])} in {dtype}, got {(stripes, bool(rolled))}")
     need = smem_bytes(hidden, nh1, dtype, tile, stripes)
     if need > SMEM_LIMIT:
         raise ValueError(f"tile={tile} stripes={stripes} in {dtype} needs {need} B of shared "
@@ -293,10 +309,8 @@ def ilv_bwd_kernel(w, u, hz, du, dld, *, stripes: int, rolled: bool = False,
     if not u.is_cuda:
         return probe_bwd_plain(w, u, hz, du, dld, mode="full", n_points=n_points, cap=cap,
                                dtype=dtype)
-    # points per stripe tile: the tiles the kernel library is built for
-    tile = 32 if dtype == torch.bfloat16 else 16
     out = _launch(w, u, hz, du, dld, mode="full", n_points=n_points, cap=cap, dtype=dtype,
-                  rolled=rolled, tile=tile, stripes=stripes)
+                  rolled=rolled, tile=ILV_TILE.get(dtype, 0), stripes=stripes)
     launches[f"ilv_bwd_{stripes}{'r' if rolled else ''}"] += 1
     return out
 

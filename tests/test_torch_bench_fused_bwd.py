@@ -19,6 +19,8 @@ pytest.importorskip("jax")
 import jax.numpy as jnp  # noqa: E402
 import numpy as np  # noqa: E402
 
+import dpfx.ops.fused_train  # noqa: E402,F401  (the JAX tool's imports, from this checkout)
+import dpfx.utils.profiling  # noqa: E402,F401
 from dpfx_torch.ops import fused_train as ft  # noqa: E402
 from dpfx_torch.tools import bench_fused_bwd as bfb  # noqa: E402
 
@@ -32,7 +34,10 @@ def _tool():
     spec = importlib.util.spec_from_file_location("jax_tools_bench_fused_bwd",
                                                   ROOT / "tools" / "bench_fused_bwd.py")
     mod = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(mod)
+    with pytest.MonkeyPatch.context() as mp:
+        # the tool puts a path of its own first on sys.path: run it on a copy
+        mp.setattr(sys, "path", list(sys.path))
+        spec.loader.exec_module(mod)
     return mod
 
 

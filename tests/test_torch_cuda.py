@@ -595,10 +595,12 @@ def _probe_errors(got, ref):
     return [_rel(a, r) if r.abs().max() > 0 else float(a.abs().max()) for a, r in zip(got, ref)]
 
 
-@pytest.mark.parametrize("rolled", [False, True])
-@pytest.mark.parametrize("mode", ["full", "nowg", "walk"])
-@pytest.mark.parametrize("dtype,tile", [("float32", 32), ("bfloat16", 32), ("bfloat16", 64),
-                                        ("bfloat16", 128)])
+_PROBE_FORMS = [("bfloat16", 64, m, r) for m in ("full", "nowg", "walk") for r in (False, True)]
+_PROBE_FORMS += [("bfloat16", 128, "full", False), ("float32", 32, "full", True)]
+_PROBE_FORMS += [("float32", 32, m, False) for m in ("full", "nowg", "walk")]
+
+
+@pytest.mark.parametrize("dtype,tile,mode,rolled", _PROBE_FORMS)
 def test_probe_bwd_kernel_matches_plain(cuda, dtype, tile, mode, rolled):
     """The probe backward against probe_bwd_plain at N=300 (a partial last
     tile) with the log-det mask at 290: every output within 1e-5 of its
@@ -622,9 +624,9 @@ def test_probe_bwd_kernel_matches_plain(cuda, dtype, tile, mode, rolled):
     assert max(errs) <= (1e-5 if dt == torch.float32 else 2e-2), errs
 
 
-@pytest.mark.parametrize("rolled", [False, True])
-@pytest.mark.parametrize("stripes", [2, 4])
-@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("dtype,stripes,rolled", [("bfloat16", s, r) for s in (2, 4) for r in
+                                                   (False, True)]
+                         + [("float32", s, False) for s in (2, 4)])
 def test_ilv_bwd_kernel_matches_plain(cuda, dtype, stripes, rolled):
     """The interleaved kernel against the plain full backward at N=256 with
     the log-det mask at 250, limits as the probe kernel's."""
@@ -677,12 +679,16 @@ def test_probe_kernel_conditions(cuda):
     w, u, hz, du, dld = _probe_inputs(cuda, 2, 256)
     bfb.reset_launch_counts()
     kw = dict(mode="full", n_points=256)
-    with pytest.raises(ValueError, match="tiles"):
+    with pytest.raises(ValueError, match="built for"):
         bfb.probe_bwd_kernel(w, u, hz, du, dld, tile=256, **kw)
-    with pytest.raises(ValueError, match="tiles"):
+    with pytest.raises(ValueError, match="built for"):
         bfb.probe_bwd_kernel(w, u, hz, du, dld, tile=64, dtype=torch.float32, **kw)
+    with pytest.raises(ValueError, match="built for"):
+        bfb.probe_bwd_kernel(w, u, hz, du, dld, tile=128, rolled=True, **kw)
     with pytest.raises(ValueError, match="stripes"):
         bfb.ilv_bwd_kernel(w, u, hz, du, dld, stripes=3)
+    with pytest.raises(ValueError, match="built for"):
+        bfb.ilv_bwd_kernel(w, u, hz, du, dld, stripes=2, rolled=True, dtype=torch.float32)
     with pytest.raises(ValueError, match="stripes"):
         bfb.ilv_bwd_kernel(w, u[..., :254], hz, du[..., :254], dld, stripes=4)
     with pytest.raises(ValueError, match="built for wx"):

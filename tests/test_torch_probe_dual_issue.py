@@ -21,6 +21,7 @@ import jax.numpy as jnp  # noqa: E402
 import numpy as np  # noqa: E402
 from jax.experimental import pallas as pl  # noqa: E402
 
+import dpfx.utils.profiling  # noqa: E402,F401  (the JAX tool's import, from this checkout)
 from dpfx_torch.tools import probe_dual_issue as pdi  # noqa: E402
 
 ROOT = Path(__file__).resolve().parents[1]
@@ -39,10 +40,12 @@ def jax_runs():
     spec = importlib.util.spec_from_file_location("jax_tools_probe_dual_issue",
                                                   ROOT / "tools" / "probe_dual_issue.py")
     tool = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(tool)
     w, x, v = _inputs()
     out = {}
     with pytest.MonkeyPatch.context() as mp:
+        # the tool puts a path of its own first on sys.path: run it on a copy
+        mp.setattr(sys, "path", list(sys.path))
+        spec.loader.exec_module(tool)
         for name, val in dict(L=L, G=G, H=H, T=T).items():
             mp.setattr(tool, name, val)
         for mode, (mxu, vpu) in pdi.MODES.items():
