@@ -13,7 +13,9 @@ Run from the root of a checkout, on a machine with one CUDA card:
 Phases (each prints its result on its own line; any failure raises and the
 script exits non-zero without a result line):
   1. the card's name and power limit; build every kernel with nvcc (sm_90a),
-     all sources at once, and print ptxas' register and spill lines;
+     all sources at once, and print ptxas' register and spill lines and
+     the instruction mix of the EMD kernel's element loops (its SASS, read
+     by dpfx_torch.tools.sass_loops);
   2. kernel vs plain version at K=32, H=128, dz=128, B=8, N=2048 and a
      ragged N=2000: f32 and bf16 for fused_inverse, bf16 for fused_sample
      against the plain inverse of the noise it drew, noise moments at
@@ -60,7 +62,9 @@ script exits non-zero without a result line):
      (flagship_quality_v3_aug_100k.yaml) and AE reconstruction
      (flagship_ae_quality_synthetic.yaml), each with --limit 128 (the
      protocol's 400 test clouds cut to bound the run), launch counts zeroed
-     just before each and read just after; then compute_all_metrics on two
+     just before each and read just after, with the CTAs per pair of the
+     EMD launches (1 for the suite's matrices, a cluster for the AE
+     batches); then compute_all_metrics on two
      disjoint stratified halves of the test split (the ideal-generator row)
      and on one half shifted by 0.5;
   3d. the differentiable distances at full width, on phase 3's 64 sampled
@@ -74,7 +78,8 @@ script exits non-zero without a result line):
      bit-identity, the ragged batch also against an f64 run); then 20
      steps of gradient descent on chamfer + emd from a perturbed copy of
      the test clouds towards them (launch counts zeroed just before and
-     read just after), which must lower both for every pair;
+     read just after, the EMD launches on clusters), which must lower both
+     for every pair;
   3e. the int8 sampler: fused_sample_points(quantized=quantize_flow_params)
      on the flagship stack, bf16, at B=64 (launch counts zeroed and read
      around it) and B=256, N=2048: bit-identical to the kernel on the
@@ -107,7 +112,10 @@ script exits non-zero without a result line):
      every kernel's error, time, plain time and bound, the evaluation
      kernels' at their paths' shapes (a 128 x 128 matrix at N=2048 for the
      pairwise kernels, CD also in triangle mode, B=32 for the diagonal ones),
-     each held to its plain version there by phase 2c's limits, and the
+     each held to its plain version there by phase 2c's limits; the EMD
+     kernel also held to emd_sweeps_plain, the plain version of its own
+     sweep order, on phase 2c's pairs in every mode, with the CTAs per pair
+     of each launch, and fast and exact pairwise timed in turns; and the
      rows of phases 3d, 3e and 3f (24 rows in all);
   5. torch.profiler breakdowns of make_sampler(64, 2048) (plain and fused
      latent inverse), of 5 train steps (fused latent flow off and on), and
@@ -144,12 +152,15 @@ PEAK_MUFU = SMS * 16 * BOOST_HZ            # 4.18e12 per second
 # FP32 instructions per distance element: x.y (a product and two FMAs), the
 # norms' add, the fused -2 x.y, the max, and (CD) the row and column mins
 CD_FP32_PER_ELEM = 8
-# approxmatch per element and level, at the least: two distances (pass 1
-# and the recomputed pass 2, 6 each), the exp arguments, the w, rowsum, ss,
-# colsum, cdist and delta arithmetic (21 FP32), and the exp of each pass
-# and the sqrt (3 MUFU)
-EMD_FP32_PER_ELEM_LEVEL = 21
-EMD_MUFU_PER_ELEM_LEVEL = 3
+# approxmatch per element at 10 levels, at the least: two sweeps per level
+# (the rows', the columns'), each with an exp (MUFU ex2) but level 0's, where
+# L = 0, and the columns' with a sqrt: 19 exps and 10 square roots, 29 MUFU.
+# FP32 per element and level, with the distances and the sums on the
+# tensor cores as fast mode does: the exponent's scale, the w and ss
+# products, the two squarings that give level k's exp from level k+1's,
+# the w of level k and the ss sqrt(d) term (7)
+EMD_MUFU_PER_ELEM = 2 * 10 - 1 + 10
+EMD_FP32_PER_ELEM_LEVEL = 7
 # the CD backward per element, at the least: one distance (6) and the row
 # and column mask tests (2), the forward's scan. The tie counts and the
 # masked sums (sum_j maskl y_j, sum_j wr_ij and sum_j wr_ij y_j for gx;
@@ -290,7 +301,7 @@ def eval_bounds(n_pairs: int, n: int, m: int, s_left: int, s_right: int, out_flo
     nbytes = 12.0 * (s_left * n + s_right * m) + 4.0 * out_floats
     cd = bound_cores(CD_FP32_PER_ELEM * elems, 0.0, nbytes)
     lv = elems * 10
-    emd = bound_cores(EMD_FP32_PER_ELEM_LEVEL * lv, EMD_MUFU_PER_ELEM_LEVEL * lv, nbytes)
+    emd = bound_cores(EMD_FP32_PER_ELEM_LEVEL * lv, EMD_MUFU_PER_ELEM * elems, nbytes)
     return cd, emd
 
 
@@ -306,7 +317,7 @@ def grad_bounds(b: int, n: int, m: int):
                      2 * grads + 16.0 * b * (n + m))
     lv = elems * 10
     emd = bound_cores((EMD_FP32_PER_ELEM_LEVEL + EMD_GRAD_FP32_PER_ELEM_LEVEL) * lv,
-                      (EMD_MUFU_PER_ELEM_LEVEL + EMD_GRAD_MUFU_PER_ELEM_LEVEL) * lv,
+                      EMD_MUFU_PER_ELEM * elems + EMD_GRAD_MUFU_PER_ELEM_LEVEL * lv,
                       2 * grads + 4.0 * b)
     return cd, emd
 
@@ -657,6 +668,8 @@ def eval_paths(cfg, dev, ckpt_dir: Path, trained_pt: Path):
           "COV and 1-NNA in [0, 1]")
     for k in ("cd_pairwise", "emd_pairwise", "fused_sample"):
         check(gen_launches[k] > 0, f"kernel {k} was not launched on the generation path")
+    gen_clusters = sorted(emdk.clusters["emd_pairwise"])
+    check(gen_clusters == [1], f"the suite's emd_pairwise launches run a pair per CTA: {gen_clusters}")
 
     for m in mods:
         m.reset_launch_counts()
@@ -667,6 +680,9 @@ def eval_paths(cfg, dev, ckpt_dir: Path, trained_pt: Path):
           f"AE results {ae}")
     for k in ("nnd_fwd", "emd_batched", "fused_sample"):
         check(ae_launches[k] > 0, f"kernel {k} was not launched on the AE path")
+    ae_clusters = sorted(emdk.clusters["emd_batched"])
+    check(ae_clusters and min(ae_clusters) > 1,
+          f"the AE path's emd_batched launches run a pair on a cluster: {ae_clusters}")
     from dpfx_torch.config import load_config
 
     ae_bsz = load_config(str(AE_CONFIG)).eval.batch_size
@@ -675,7 +691,8 @@ def eval_paths(cfg, dev, ckpt_dir: Path, trained_pt: Path):
           f"generation suite {gen_t['total']:.3f} s ({gen_wall:.2f} s with restore and data), "
           f"launches {json.dumps(gen_launches)}; AE {ae_t['total'] / batches * 1e3:.2f} ms per "
           f"{ae_bsz}-cloud batch ({batches} batches, {ae_wall:.2f} s with restore "
-          f"and data), launches {json.dumps(ae_launches)}")
+          f"and data), launches {json.dumps(ae_launches)}; CTAs per pair: emd_pairwise "
+          f"{gen_clusters}, emd_batched {ae_clusters}")
 
     # the suite is not vacuous: two halves of one distribution read ~0.5,
     # a shifted copy ~1
@@ -736,17 +753,53 @@ def timed_once(fn):
     return out, start.elapsed_time(end)
 
 
-def eval_kernel_rows(half_a, half_b, gen_launches, ae_launches):
+def emd_sweeps_checks(cfg, dev) -> None:
+    """Phase 4: the EMD kernel against emd_sweeps_plain, the plain version of
+    its own sweep order, on phase 2c's pairs (8 at N=2048 and 2000 against
+    M=2048): emd_nograd (a cluster of 4 CTAs per pair) and the diagonals of
+    the 8 x 8 pairwise matrices (2 CTAs per pair), exact and fast, the
+    gradient mode's cost (its gradients are held to emd_grads_plain in phase
+    3d), by phase 2c's limits."""
+    import torch
+
+    from dpfx_torch.ops import emd as emdk
+
+    med = lambda e: float(e.median())
+    for n in (2048, 2000):
+        xs = split_clouds(cfg, range(16), n, 2, dev)[:8]
+        ys = split_clouds(cfg, range(16, 32), 2048, 1, dev)[:8]
+        emdk.reset_launch_counts()
+        got = {"emd_batched exact": emdk.emd_nograd(xs, ys),
+               "emd_batched_grad cost": emdk.emd_with_grads(xs, ys)[0],
+               "emd_pairwise exact": emdk.emd_pairwise(xs, ys, precision="exact").diagonal(),
+               "emd_pairwise fast": emdk.emd_pairwise(xs, ys, precision="fast").diagonal()}
+        ref = {"exact": emdk.emd_sweeps_plain(xs, ys), "fast": emdk.emd_sweeps_plain(xs, ys, precision="fast")}
+        torch.cuda.synchronize()
+        parts = []
+        for name, a in got.items():
+            e = pair_err(a, ref["fast" if name.endswith("fast") else "exact"], EMD_FLOOR)
+            parts.append(f"{name} rel median {med(e):.2e} max {float(e.max()):.2e}")
+            check(med(e) <= TOL_EMD_MEDIAN and float(e.max()) <= TOL_EMD_MAX,
+                  f"{name} N={n} against emd_sweeps_plain: median {med(e)}, max {float(e.max())}")
+        cl = {k: sorted(v) for k, v in emdk.clusters.items()}
+        print(f"kernel-vs-emd_sweeps_plain N={n} M=2048, 8 pairs (CTAs per pair {json.dumps(cl)}): "
+              + "; ".join(parts))
+
+
+def eval_kernel_rows(cfg, half_a, half_b, gen_launches, ae_launches):
     """Phase 4's rows for the evaluation kernels: a 128 x 128 matrix at
     N=2048 for the pairwise kernels (CD exact, EMD fast: the suite's
     defaults; CD also in the triangle mode of the suite's self-matrices),
     B=32 (the eval batch) for the diagonal ones. Each is held to its plain
-    version at these shapes by phase 2c's rules."""
+    version at these shapes by phase 2c's rules; the EMD kernel also to
+    emd_sweeps_plain (emd_sweeps_checks), and fast and exact pairwise are
+    timed in turns (exact, fast, fast, exact)."""
     import torch
 
     from dpfx_torch.ops import chamfer as cdk
     from dpfx_torch.ops import emd as emdk
 
+    emd_sweeps_checks(cfg, half_a.device)
     med = lambda e: float(e.median())
     s, n = half_a.shape[0], half_a.shape[1]
     xb, yb = half_a[:32], half_b[:32]
@@ -796,7 +849,16 @@ def eval_kernel_rows(half_a, half_b, gen_launches, ae_launches):
     e_p = pair_err(e, pe, EMD_FLOOR)
     check(med(e_p) <= TOL_EMD_MEDIAN and float(e_p.max()) <= TOL_EMD_MAX,
           f"emd_pairwise fast {s}x{s}: median {med(e_p)}, max {float(e_p.max())}")
-    exact_ms = cuda_ms(lambda: emdk.emd_pairwise(half_a, half_b, precision="exact"), 1, warmup=0)
+    turns = {"exact": [], "fast": []}
+    for prec in ("exact", "fast", "fast", "exact"):
+        turns[prec].append(cuda_ms(lambda: emdk.emd_pairwise(half_a, half_b, precision=prec), 1,
+                                   warmup=1))
+    exact_ms = sum(turns["exact"]) / 2
+    _, exact_plain = timed_once(lambda: emdk.emd_pairwise_plain(half_a, half_b, precision="exact"))
+    print(f"emd_pairwise {s}x{s} in turns (exact, fast, fast, exact): "
+          f"{', '.join(f'{t:.2f}' for t in (turns['exact'][0], *turns['fast'], turns['exact'][1]))} ms; "
+          f"fast / exact {sum(turns['fast']) / sum(turns['exact']):.4f}")
+    ms = sum(turns["fast"]) / 2
     _, (bd, by) = eval_bounds(s * s, n, n, s, s, s * s)
     rows.append(("emd_pairwise", "emd", "dpfx/ops/emd.py:435", gen_launches["emd_pairwise"], err,
                  ms, plain, bd, by))
@@ -810,7 +872,8 @@ def eval_kernel_rows(half_a, half_b, gen_launches, ae_launches):
           f"exact {rows[1][5]:.3f} ms ({rows[1][5] / (s * s) * 1e3:.3f} us/pair), fast "
           f"{fast_ms:.3f} ms, symmetric {sym_ms:.3f} ms; emd_batched B={b} {rows[2][5]:.3f} ms; "
           f"emd_pairwise {s}x{s} fast {rows[3][5]:.3f} ms ({rows[3][5] / (s * s) * 1e3:.2f} "
-          f"us/pair), exact {exact_ms:.3f} ms ({exact_ms / (s * s) * 1e3:.2f} us/pair)")
+          f"us/pair), exact {exact_ms:.3f} ms ({exact_ms / (s * s) * 1e3:.2f} us/pair; its plain "
+          f"version {exact_plain:.1f} ms)")
     return [{"name": nm, "route": "cuda", "source": f"dpfx_torch/ops/csrc/{src}.cu",
              "replaces": where, "launches": launched, "max_abs_err": err, "ms": ms,
              "plain_ms": plain, "bound_ms": bd, "bound_by": by, "library_ms": None}
@@ -988,11 +1051,15 @@ def distance_grad_paths(cfg, dev, sampled):
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launched = {**cdk.launches, **emdk.launches}
+    grad_clusters = sorted(emdk.clusters["emd_batched_grad"])
     with torch.no_grad():
         cd1, emd1 = cdk.chamfer(x, target), emdk.emd(x, target)
     print(f"descent on chamfer + emd, {b} pairs x {n} points, 20 steps in {wall:.3f} s: CD mean "
           f"{float(cd0.mean()):.4e} -> {float(cd1.mean()):.4e}, EMD mean {float(emd0.mean()):.4e} "
-          f"-> {float(emd1.mean()):.4e}; launches {json.dumps(launched)}")
+          f"-> {float(emd1.mean()):.4e}; launches {json.dumps(launched)}; emd_batched_grad CTAs "
+          f"per pair {grad_clusters}")
+    check(grad_clusters and min(grad_clusters) > 1,
+          f"the descent's emd_batched_grad launches run a pair on a cluster: {grad_clusters}")
     for k in ("nnd_fwd", "nnd_bwd", "emd_batched_grad"):
         check(launched[k] > 0, f"kernel {k} was not launched on the descent path")
     check(launched["emd_batched"] == 0, "the descent took the gradient mode, not emd_nograd")
@@ -1455,6 +1522,11 @@ def main() -> int:
         for line in _build.ptxas_log(name).splitlines():
             if "Used" in line or "spill" in line:
                 print(f"ptxas {name}: {line.strip()}")
+    # the EMD kernel's element loops, read from its SASS (cuobjdump)
+    from dpfx_torch.tools import sass_loops
+
+    for line in sass_loops.report(sass_loops.disassemble("emd")):
+        print(f"sass emd: {line}")
 
     # ---- 2. kernel vs plain at flagship widths
     cfg = load_config(str(CONFIG))
@@ -2038,7 +2110,7 @@ def main() -> int:
           f"{b_lf:.5f}), backward {lb_ms:.4f} ms (plain {lb_plain:.3f}, bound {b_lb:.5f}), inverse "
           f"{li_ms:.4f} ms (plain {li_plain:.3f}); max_abs err fwd {lf_err:.2e}, bwd {lb_err:.2e}, "
           f"inv {li_err:.2e} ({card})")
-    kernels += eval_kernel_rows(half_a, half_b, gen_launches, ae_launches)
+    kernels += eval_kernel_rows(cfg, half_a, half_b, gen_launches, ae_launches)
     kernels += grad_rows + int8_rows + probe_rows
     check(len(kernels) == 24, f"{len(kernels)} kernel rows")
     print(json.dumps({"kernels": kernels}))

@@ -29,16 +29,23 @@ transport plan constant (``emd_grads_plain``, a copy of ``dpfx``'s
 requires grad. ``emd_nograd`` and ``emd_pairwise`` have no gradient, as in
 ``dpfx``: an input that requires grad raises.
 
+``emd_sweeps_plain`` runs the kernel's own schedule in plain PyTorch: two
+sweeps per level, the remainl update of level k fused with the row sums of
+level k+1 (level k's exp taken as the fourth power of level k+1's), level 0
+without an exp, the last remainl update only with gradients. The tests and
+``chip_smoke.py`` hold it to ``emd_plain`` and the kernel to it.
+
 Every wrapper takes its plain PyTorch version for a tensor on the CPU and
 launches the kernel for a CUDA tensor (or raises). ``launches`` counts the
-kernel launches of each wrapper.
+kernel launches of each wrapper, ``clusters`` the CTAs per pair its launches
+took (a thread-block cluster when above 1; ``cluster_size``).
 """
 
 from __future__ import annotations
 
 import ctypes
 import functools
-from typing import Dict, List, Tuple
+from typing import Dict, List, Set, Tuple
 
 import torch
 from torch.autograd.function import once_differentiable
@@ -50,6 +57,9 @@ Tensor = torch.Tensor
 
 # kernel launches per wrapper; chip_smoke.py zeroes these around the main path
 launches: Dict[str, int] = {"emd_batched": 0, "emd_batched_grad": 0, "emd_pairwise": 0}
+# the CTAs per pair (a cluster when above 1) of each wrapper's launches since
+# reset_launch_counts
+clusters: Dict[str, Set[int]] = {k: set() for k in launches}
 
 EPS = 1e-9
 DEFAULT_ITERS = 10
@@ -58,6 +68,7 @@ DEFAULT_ITERS = 10
 def reset_launch_counts() -> None:
     for k in launches:
         launches[k] = 0
+        clusters[k] = set()
 
 
 def match_levels(n_iters: int = DEFAULT_ITERS) -> List[float]:
@@ -157,6 +168,77 @@ def _emd_fast_plain(x: Tensor, y: Tensor, n_iters: int) -> Tensor:
     return cost / n
 
 
+def _sweeps_pairs(x: Tensor, y: Tensor, n_iters: int, fast: bool, grad: bool):
+    """The kernel's sweep order on pairs x [P,N,3], y [P,M,3]."""
+    n, m = x.shape[-2], y.shape[-2]
+    factorl, factorr = _factors(n, m)
+    d = sqdist_matrix(x, y, fast=fast)
+    dt, p = d.dtype, x.shape[0]
+    dist = torch.sqrt(d)
+    rnd = (lambda t: t.bfloat16().to(dt)) if fast else (lambda t: t)
+
+    def w_of(e, r):
+        """w = e remainr (e None: level 0, w = remainr), bf16 in fast mode."""
+        return rnd(r[:, None, :].expand(p, n, m) if e is None else e * r[:, None, :])
+
+    levels = match_levels(n_iters)
+    remainl = torch.full((p, n), factorl, dtype=dt, device=x.device)
+    remainr = torch.full((p, m), factorr, dtype=dt, device=x.device)
+    cost = torch.zeros(p, dtype=dt, device=x.device)
+    rowsum = w_of(None if levels[0] == 0 else torch.exp(levels[0] * d), remainr).sum(-1)
+    if grad:
+        diff = x[..., :, None, :] - y[..., None, :, :]
+        unit = diff / torch.clamp_min(torch.sqrt((diff * diff).sum(-1)), EPS)[..., None]
+        gx, gy = torch.zeros_like(x, dtype=dt), torch.zeros_like(y, dtype=dt)
+    for k, level in enumerate(levels):
+        # B_k: columns
+        scale = rnd(remainl / (rowsum + EPS))
+        e = None if level == 0 else torch.exp(level * d)
+        ss = rnd(w_of(e, remainr) * scale[:, :, None])
+        colsum = ss.sum(-2)
+        ratio = torch.clamp_max(remainr / (colsum + EPS), 1.0)
+        cost = cost + (ratio * rnd(ss * dist).sum(-2)).sum(-1)
+        rnext = torch.clamp_min(remainr - colsum * ratio, 0.0)
+        if grad:
+            gy = gy - ((ss * ratio[:, None, :])[..., None] * unit).sum(-3)
+        # F_k: rows, level k's remainl update and level k+1's row sums
+        if k + 1 == n_iters and not grad:
+            break
+        e_new = None
+        if k + 1 < n_iters and levels[k + 1] != 0:
+            e_new = torch.exp(levels[k + 1] * d)
+            e2 = e_new * e_new
+            e = e2 * e2
+        delta = w_of(e, remainr) * ratio[:, None, :]
+        if grad:
+            gx = gx + ((delta * scale[:, :, None])[..., None] * unit).sum(-2)
+        if k + 1 == n_iters:
+            break
+        remainl = torch.clamp_min(remainl - delta.sum(-1) / (rowsum + EPS) * remainl, 0.0)
+        rowsum = w_of(e_new, rnext).sum(-1)
+        remainr = rnext
+    return (cost / n, gx / n, gy / n) if grad else cost / n
+
+
+def emd_sweeps_plain(x: Tensor, y: Tensor, n_iters: int = DEFAULT_ITERS, precision: str = "exact",
+                     grad: bool = False):
+    """The kernel's schedule per diagonal pair, x [B,N,3], y [B,M,3] -> cost / n
+    [B] (with ``grad`` also dcost/dx / n and dcost/dy / n, the plan held
+    constant): per level a column sweep and a row sweep, as ``emd.cu`` runs
+    them, in ``precision`` "exact" (f32; f64 for f64 inputs) or "fast" (bf16
+    where the fast mode rounds). A yardstick for the kernel's order, not a
+    path of the port."""
+    fast = _fast(precision)
+    if x.shape[0] != y.shape[0]:
+        raise ValueError(f"diagonal pairs need equal batches, got {x.shape[0]} and {y.shape[0]}")
+    step = max(1, PLAIN_CHUNK_ELEMS // ((4 if grad else 1) * x.shape[1] * y.shape[1]))
+    out = [_sweeps_pairs(x[s:s + step], y[s:s + step], n_iters, fast, grad)
+           for s in range(0, x.shape[0], step)]
+    if grad:
+        return tuple(torch.cat(parts) for parts in zip(*out))
+    return torch.cat(out)
+
+
 def _over_pairs(fn, xs: Tensor, ys: Tensor, pairs: Tensor) -> Tensor:
     """fn on the listed (left, right) pairs, in chunks that keep the [N, M]
     intermediates near PLAIN_CHUNK_ELEMS elements each."""
@@ -194,12 +276,21 @@ def _lib() -> ctypes.CDLL:
     lib.dpfx_emd_launch.restype = ctypes.c_int
     lib.dpfx_emd_smem_bytes.argtypes = [i, i]
     lib.dpfx_emd_smem_bytes.restype = ctypes.c_int
+    lib.dpfx_emd_cluster_size.argtypes = [i, i, i]
+    lib.dpfx_emd_cluster_size.restype = ctypes.c_int
     return lib
 
 
 def smem_bytes(n: int, m: int) -> int:
     """Dynamic shared memory of one block, as the kernel library reports it."""
     return _lib().dpfx_emd_smem_bytes(n, m)
+
+
+def cluster_size(p: int, n: int, m: int) -> int:
+    """CTAs (a thread-block cluster when above 1) the kernel gives each of p
+    pairs of n x m points: 4 while 4p CTAs fit on the card's 132 SMs, 2 below
+    2 x 132 pairs, else 1. It depends on p, n and m alone."""
+    return _lib().dpfx_emd_cluster_size(p, n, m)
 
 
 def _launch(xs: Tensor, ys: Tensor, pairs: Tensor, n_iters: int, fast: bool, grad: bool = False):
@@ -236,6 +327,7 @@ def emd_with_grads(x: Tensor, y: Tensor,
     out = _launch(x, y, pair_list(x.shape[0], x.shape[0], "diag", x.device), n_iters,
                   fast=False, grad=True)
     launches["emd_batched_grad"] += 1
+    clusters["emd_batched_grad"].add(cluster_size(x.shape[0], x.shape[1], y.shape[1]))
     return out
 
 
@@ -277,6 +369,7 @@ def emd_nograd(x: Tensor, y: Tensor, n_iters: int = DEFAULT_ITERS) -> Tensor:
         return emd_plain(x, y, n_iters)
     out = _launch(x, y, pair_list(x.shape[0], x.shape[0], "diag", x.device), n_iters, fast=False)
     launches["emd_batched"] += 1
+    clusters["emd_batched"].add(cluster_size(x.shape[0], x.shape[1], y.shape[1]))
     return out
 
 
@@ -291,4 +384,5 @@ def emd_pairwise(xs: Tensor, ys: Tensor, n_iters: int = DEFAULT_ITERS,
     s1, s2 = xs.shape[0], ys.shape[0]
     out = _launch(xs, ys, pair_list(s1, s2, "full", xs.device), n_iters, fast)
     launches["emd_pairwise"] += 1
+    clusters["emd_pairwise"].add(cluster_size(s1 * s2, xs.shape[1], ys.shape[1]))
     return out.view(s1, s2)

@@ -1,7 +1,7 @@
 """The port's kernels (fused sampler with its int8 mode, fused train
 forward/backward, fused encoder forward/backward, fused latent flow
 forward/backward/inverse, Chamfer with its backward, approxmatch EMD with
-its gradient mode, the probe tools' backward and dual-issue kernels)
+its gradient mode and its thread-block clusters, the probe tools' backward and dual-issue kernels)
 against their plain versions on the card, at small shapes and at 2048
 points. Marked ``gpu``: each test skips
 without a CUDA device. On a machine with one:
@@ -529,6 +529,67 @@ def test_emd_grad_mode_matches_plain(cuda, b, n, m):
     assert torch.equal(xg.grad, w[:, None, None] * gx)
     torch.cuda.synchronize()
     assert emdk.launches == {"emd_batched": 1, "emd_batched_grad": 4, "emd_pairwise": 0}
+
+
+def _emd_held(a, b):
+    """chip_smoke.py's EMD limits: median pair 1e-4, largest 5e-3 (relative)."""
+    e = (a.double() - b.double()).abs() / b.double().abs().clamp_min(1e-5)
+    return float(e.median()) <= 1e-4 and float(e.max()) <= 5e-3
+
+
+@pytest.mark.parametrize("b,n,m", [(4, 256, 256), (4, 200, 317), (3, 37, 101), (64, 130, 70)])
+def test_emd_cluster_matches_one_cta(cuda, b, n, m):
+    """A launch of few pairs runs each pair on a thread-block cluster; the
+    same pairs among 2 x 132 or more run on one CTA each. The two sum in
+    other orders, so they are held to each other by the EMD limits (seen:
+    max 4e-5), each within them of the plain version, every mode; ragged
+    N and M that the cluster size does not divide (200 and 317 rows in
+    units of 16 over 4 CTAs, 37 over 2); under the split the gradient
+    mode's cost equals emd_nograd's bit for bit."""
+    from dpfx_torch.ops import emd as emdk
+
+    xs, ys = _eval_clouds(cuda, b, n, 31), _eval_clouds(cuda, b, m, 32)
+    c = emdk.cluster_size(b, n, m)
+    reps = -(-2 * 132 // b)
+    assert c > 1 and emdk.cluster_size(b * reps, n, m) == 1
+    emdk.reset_launch_counts()
+    few = emdk.emd_nograd(xs, ys)
+    many = emdk.emd_nograd(xs.repeat(reps, 1, 1), ys.repeat(reps, 1, 1))
+    assert emdk.clusters["emd_batched"] == {c, 1}
+    assert torch.equal(many[:b], many[b:2 * b])
+    assert _emd_held(few, many[:b]) and _emd_held(few, emdk.emd_plain(xs, ys))
+    cost, _, _ = emdk.emd_with_grads(xs, ys)
+    assert torch.equal(cost, few), "the gradient mode's cost under a cluster split"
+    assert emdk.cluster_size(4, n, m) > 1 and emdk.cluster_size(4 * 66, n, m) == 1
+    for prec in ("fast", "exact"):
+        small = emdk.emd_pairwise(xs[:2], ys[:2], precision=prec)
+        big = emdk.emd_pairwise(xs[:2].repeat(66, 1, 1), ys[:2], precision=prec)[:2]
+        assert _emd_held(small, big), prec
+        assert _emd_held(small, emdk.emd_pairwise_plain(xs[:2], ys[:2], precision=prec)), prec
+    torch.cuda.synchronize()
+
+
+def test_emd_cluster_threshold(cuda):
+    """2 x 132 pairs run one CTA each, one pair fewer runs clusters of 2; 33
+    pairs (4 x 33 = 132 CTAs) clusters of 4, 34 of 2; at most one CTA per 16
+    points of the smaller cloud. The pairs below the threshold agree with
+    the same pairs at it, and the gradient mode's cost with emd_nograd's."""
+    from dpfx_torch.ops import emd as emdk
+
+    n = 64
+    assert [emdk.cluster_size(p, n, n) for p in (1, 33, 34, 263, 264, 8192)] == [4, 4, 2, 2, 1, 1]
+    assert emdk.cluster_size(8, 40, 2048) == 2 and emdk.cluster_size(8, 16, 16) == 1
+    xs, ys = _eval_clouds(cuda, 264, n, 33), _eval_clouds(cuda, 264, n, 34)
+    emdk.reset_launch_counts()
+    at = emdk.emd_nograd(xs, ys)
+    assert emdk.clusters["emd_batched"] == {1}
+    below = emdk.emd_nograd(xs[:263], ys[:263])
+    assert emdk.clusters["emd_batched"] == {1, 2}
+    assert _emd_held(below, at[:263]) and _emd_held(at, emdk.emd_plain(xs, ys))
+    for p in (263, 264):
+        cost, _, _ = emdk.emd_with_grads(xs[:p], ys[:p])
+        assert torch.equal(cost, below if p == 263 else at)
+    torch.cuda.synchronize()
 
 
 @pytest.mark.parametrize("hidden,n_hidden,n", [(32, 2, 200), (64, 1, 128), (128, 2, 300),
