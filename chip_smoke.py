@@ -107,7 +107,10 @@ script exits non-zero without a result line):
      last;
   4. at the main paths' shapes (B=64, N=2048, bf16): the training kernels
      held against their plain versions again (u, log-det, every gradient;
-     each backward bit-identical across two runs), the latent-flow kernels
+     each backward bit-identical across two runs), the redesigned
+     fused_train kernels' times beside their first versions' (FIRST_TRAIN_MS),
+     with their bounds and ptxas' registers and spills, and the train
+     step's ms/step with the fused latent flow off and on, the latent-flow kernels
      at B=64, then one JSON line with
      every kernel's error, time, plain time and bound, the evaluation
      kernels' at their paths' shapes (a 128 x 128 matrix at N=2048 for the
@@ -228,6 +231,10 @@ TOL_STEP_GNORM = 5e-2
 # 3.7e-5); a schedule that diverges in one diverges in the other as well
 TOL_TRAIN_DRIFT = 5e-2
 TRAIN_STEPS = 30
+# the fused_train bf16 kernels' times at B=64 x 2048 in their first,
+# block-wide design (WMMA through a staging tile, 64-point backward tiles;
+# NVIDIA H100 80GB HBM3, 700.00 W), printed beside phase 4's
+FIRST_TRAIN_MS = {"fwd": 4.808, "bwd": 14.805}
 
 
 def check(cond: bool, what: str) -> None:
@@ -1232,6 +1239,27 @@ def probe_ptxas() -> str:
                      f"{d.get('spill')}" for (mode, rolled), d in sorted(found.items()))
 
 
+def train_ptxas(h: int = 128) -> dict:
+    """Registers and spilled bytes (stores/loads) of the fused_train bf16
+    kernels at hidden h, from ptxas' log of fused_train.cu."""
+    import re
+
+    from dpfx_torch.ops import _build
+
+    found, cur = {}, None
+    for line in _build.ptxas_log("fused_train").splitlines():
+        if "Compiling entry function" in line:
+            m = re.search(rf"(fwd|bwd)_kernel_mmaILi{h}E", line)
+            cur = f"fused_train_{m.group(1)}" if m else None
+        elif cur and "spill stores" in line:
+            st, ld = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line).groups()
+            found.setdefault(cur, {})["spill"] = f"{st}/{ld}"
+        elif cur and "Used" in line:
+            regs = re.search(r"Used (\d+) registers", line).group(1)
+            found.setdefault(cur, {})["regs"] = int(regs)
+    return found
+
+
 def probe_f64_sweep(sp, n: int, dev, call) -> None:
     """Phase 3f's f32 check at full depth: every probe variant in f32 at
     K=32 against an f64 run of probe_bwd_plain (n_points=2000) on ten input
@@ -2071,6 +2099,19 @@ def main() -> int:
     print(f"training kernels at B={b} N={n} bf16: fused_train fwd {tf_ms:.3f} ms "
           f"(bound {b_tf:.4f}), bwd {tb_ms:.3f} ms (bound {b_tb:.4f}); fused_encoder fwd "
           f"{ef_ms:.3f} ms (bound {b_ef:.4f}), bwd {eb_ms:.3f} ms (bound {b_eb:.4f}) ({card})")
+    # the redesigned point-flow kernels (mma.sync, register-held gradient
+    # sums) beside the times of their first versions
+    regs = train_ptxas()
+    for kname, ms, old, bnd in (("fused_train_bwd", tb_ms, FIRST_TRAIN_MS["bwd"], b_tb),
+                                ("fused_train_fwd", tf_ms, FIRST_TRAIN_MS["fwd"], b_tf)):
+        r = regs.get(kname, {})
+        check("regs" in r, f"ptxas reported the registers of {kname}'s bf16 kernel")
+        print(f"redesigned {kname} at B={b} N={n} K={k} H={h} bf16: {ms:.3f} ms (first "
+              f"design: {old:.3f} ms, {old / ms:.2f}x), bound {bnd:.4f} ms ({ms / bnd:.1f}x), "
+              f"{r['regs']} registers, spilled bytes (stores/loads) {r.get('spill')} ({card})")
+    print(f"train step at 64 x 2048 with the redesigned kernels: {step_ms:.3f} ms/step (fused "
+          f"point flow + fused encoder), fused latent flow off {off_ms:.3f}, on {on_ms:.3f} "
+          f"ms/step (first design: 45.606 and 39.643); idle shares in phase 5b ({card})")
     print(f"kernel rates at B={b} N={n}: fused_inverse {flops / inv_ms / 1e9:.1f} TFLOP/s, "
           f"fused_sample {flops / smp_ms / 1e9:.1f} TFLOP/s ({card})")
 

@@ -4,7 +4,8 @@
 // dtype helpers, the activations, the staging of a square weight matrix
 // into shared memory, one block-wide matrix product with a per-element
 // epilogue (WMMA on the tensor cores for bf16 operands, register-tiled IEEE
-// f32 FMA for f32), the fixed-order reduction of per-block partial sums, and
+// f32 FMA for f32), warp-level mma.sync / ldmatrix / cp.async primitives,
+// the fixed-order reduction of per-block partial sums, and
 // the point-cloud pieces of the CD and EMD kernels (points as float4,
 // squared distances, a block-wide sum).
 //
@@ -283,6 +284,78 @@ template <typename S>
 __device__ void column_sums(int M, int N, const float* colpart, const S* buf, int ld,
                             float* out, bool accumulate = false) {
   column_sums<S>(Group::block(), M, N, colpart, buf, ld, out, accumulate);
+}
+
+// ---- warp-level tensor-core products (fused_train.cu)
+//
+// mma.sync m16n8k16 / m16n8k8 on bf16 operands with f32 accumulators, and
+// the ldmatrix loads that feed it. Fragments as the PTX ISA lays them out,
+// with g = lane / 4 and t = lane % 4:
+//   A (16 x 16, row major), 4 registers of two bf16: a[0] = (row g, cols
+//     2t, 2t+1), a[1] = (row g+8, cols 2t, 2t+1), a[2] and a[3] the same
+//     rows at cols 2t+8, 2t+9 (m16n8k8 takes a[0] and a[1] only);
+//   B (16 x 8, column major), 2 registers: b[0] = (rows 2t, 2t+1, col g),
+//     b[1] = (rows 2t+8, 2t+9, col g) (m16n8k8 takes b[0]);
+//   C (16 x 8, f32): c[0], c[1] = (row g, cols 2t, 2t+1), c[2], c[3] = (row
+//     g+8, cols 2t, 2t+1).
+// Two C tiles side by side (cols 0-7 and 8-15) are, packed to bf16, the A
+// fragment of the next product over those 16 columns (a[0], a[1] from the
+// first, a[2], a[3] from the second): a warp carries its rows from one layer
+// to the next in registers.
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// four 8 x 8 b16 matrices; lanes 8i..8i+7 give the row addresses of matrix
+// i, and register i receives matrix i (trans: its transpose)
+__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const void* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3]) : "r"(smem_u32(p)));
+}
+__device__ __forceinline__ void ldsm_x4_t(uint32_t (&r)[4], const void* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3]) : "r"(smem_u32(p)));
+}
+__device__ __forceinline__ void ldsm_x2_t(uint32_t (&r)[2], const void* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x2.trans.shared.b16 {%0,%1}, [%2];"
+               : "=r"(r[0]), "=r"(r[1]) : "r"(smem_u32(p)));
+}
+
+// c += a b on the tensor cores (bf16 operands, f32 sums)
+__device__ __forceinline__ void mma16(float (&c)[4], const uint32_t (&a)[4], uint32_t b0,
+                                      uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0,%1,%2,%3}, {%4,%5,%6,%7}, "
+      "{%8,%9}, {%0,%1,%2,%3};"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+__device__ __forceinline__ void mma8(float (&c)[4], uint32_t a0, uint32_t a1, uint32_t b0) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k8.row.col.f32.bf16.bf16.f32 {%0,%1,%2,%3}, {%4,%5}, {%6}, "
+      "{%0,%1,%2,%3};"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a0), "r"(a1), "r"(b0));
+}
+
+// two floats rounded to bf16 (round to nearest even), lo in the low half
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&v);
+}
+__device__ __forceinline__ float2 unpack_bf16(uint32_t v) {
+  return __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&v));
+}
+
+// 16-byte copies from global to shared memory that run behind the
+// threads' work (cp.async); wait_all makes the thread's copies land
+__device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;" ::"r"(smem_u32(smem)), "l"(gmem));
+}
+__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;"); }
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_group 0;" ::: "memory");
 }
 
 // out[g * E + e] = sum over s < S of part[(g * S + s) * E + e], s in order

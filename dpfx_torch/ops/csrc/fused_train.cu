@@ -4,47 +4,69 @@
 // Replaces the Pallas TPU kernels `_fwd_kernel` (dpfx/ops/fused_train.py:131)
 // and `_bwd_kernel` (:231).
 //
-// Work per point and layer: the conditioner's Wx (H x 3), (n_hidden-1) x Wh
-// (H x H) and Wout (6 x H) products, 2(3H + (n_hidden-1)H^2 + 6H) FLOP
-// forward, about 35 kFLOP at H=128, n_hidden=2; the backward recomputes the
-// conditioner and adds the cotangent and weight-gradient products, about 3x
-// the forward. At the flagship batch (64 x 2048 points, K=32) that is
-// ~147 GFLOP forward and ~441 GFLOP backward against a few MB of inputs and
-// outputs: the bound is the tensor cores' rate (~0.15 ms and ~0.45 ms at
-// 989 TFLOP/s bf16), not memory.
+// What bounds them. Per point and layer the conditioner does the Wx (H x 3),
+// (n_hidden-1) x Wh (H x H) and Wout (6 x H) products, 2(9H + (n_hidden-1)
+// H^2) FLOP forward; the backward recomputes them and adds the cotangent
+// and weight-gradient products, 2(27H + 3(n_hidden-1)H^2). At the flagship
+// batch (64 x 2048 points, K=32, H=128, n_hidden=2) that is ~147 GFLOP
+// forward and ~441 GFLOP backward against a few MB of inputs and outputs:
+// the bound is the tensor cores' rate (~0.15 ms and ~0.45 ms at 989 TFLOP/s
+// bf16, chip_smoke.py's train_bounds), never memory. So the design keeps
+// every product on the tensor cores, keeps the operands a warp reuses in
+// registers, and keeps barriers and shared-memory round trips off the path.
 //
-// Forward design (`fwd_kernel`): the sampler kernel's structure run the
-// other way. Grid (ceil(N / 128), B): one block takes 128 points of one
-// cloud through the K layers; each layer's Wh is staged into shared memory
-// (the 1.1 MB stack does not fit, every block finds it in L2); the H x H
-// product runs on the tensor cores through WMMA (bf16), or as IEEE f32 FMA
-// (f32 mode, for the tight check against the plain version). Rounding as
-// the Pallas kernel: f32 accumulation, + hz / bias in f32, relu, one cast to
-// the compute dtype; coupling and log-det in f32. The log-det of a block's
-// valid points is one partial per block, [B, ntiles], summed outside, as
-// the JAX package does.
+// bf16 mode (`fwd_kernel_mma`, `bwd_kernel_mma`): warp-level mma.sync.
+//   * Rows per warp. A tile is 128 points, 16 per warp. A warp takes its
+//     rows through the whole conditioner on its own: h_0 = relu(Wx x + hz)
+//     (m16n8k8, K = 3 padded to 8), each h_{j+1} = relu(h_j Wh_j^T + bh_j)
+//     (m16n8k16) and st = Wout h_last + bout (N = 6 padded to 8). The
+//     activations stay in registers from one product to the next (two f32
+//     C tiles, packed to bf16, are the next product's A fragment); bias, hz,
+//     relu and the cast to bf16 apply on the accumulator fragments. Rounding
+//     is the Pallas kernel's: f32 sums, + hz or bias in f32, relu, one cast;
+//     coupling and log-det in f32. Weights come from shared memory through
+//     ldmatrix. The forward and the backward's recompute call the same
+//     device functions (first_rows, hidden_rows, out_rows) on the same
+//     operands, so the recomputed activations, relu masks and (s, t) are the
+//     forward's bit for bit.
+//   * The forward needs no block barrier inside a layer: grid (N / 128, B),
+//     one barrier per layer, where the next layer's weights (staged with
+//     cp.async while this layer runs) become visible; two per layer where
+//     only one layer's weights fit.
+//   * The backward: no stored chain. Layer k's input is rebuilt from its
+//     output by the closed-form inverse, its conditioner recomputed from the
+//     passthrough rows (equal in input and output; the mask is folded into
+//     Wx). The cotangent chain runs on the same rows of the same warp:
+//     dh_last = rnd(dst) Wout (K = 6 padded to 8), dh_j = (rnd(dh_{j+1}) Wh_j)
+//     * (h_j > 0), dy_in = dyn + rnd(dh_0) Wx (N = 3 padded to 8). Bias and
+//     hz gradients are column sums of the unrounded f32 fragments (shuffles
+//     within the warp, then the warps in order); no float atomics.
+//   * Weight gradients sum over every point of every cloud. The grid is
+//     persistent, one block per SM, with the layer loop outside the tile
+//     loop; each point's (y, dy) is carried in global memory between layers.
+//     A warp owns a fixed slice of dWh (a 32 x 64 block at H=128), of dWout
+//     and of dWx, and keeps it in registers through the block's whole tile
+//     loop of a layer: per tile the products over the tile's 128 points
+//     (points as the K dimension, operands through ldmatrix.trans) add into
+//     it, and it is written once per layer into the block's slice of a global
+//     scratch, which `reduce_slices` sums in a fixed order. Gradients are
+//     bit-identical from run to run. Two block barriers per tile: before the
+//     weight-gradient products (they sum over every warp's points) and after
+//     them (the next tile reuses the buffers).
+//   * Layer k-1's weights are staged with cp.async into a second buffer
+//     while layer k's tiles run, where shared memory allows (the flagship
+//     shape does).
+//   * Limits: H in {32, 64, 128, 256}; every activation and cotangent of a
+//     tile and a layer's weights sit in shared memory, so the backward takes
+//     n_hidden - 1 <= 8, 3, 1, 0 at H = 32, 64, 128, 256 (smem_bytes reports
+//     more than a block may use beyond that, and the wrapper raises).
+//   Cotangents are cast to bf16 before each product; ragged points carry
+//   zero cotangent and no log-det gradient.
 //
-// Backward design (`bwd_kernel`), the hard part:
-//   * No stored chain. Layer k's input is rebuilt from its output by the
-//     closed-form inverse, and its conditioner recomputed from the
-//     passthrough rows, which are equal in input and output (the mask is
-//     folded into Wx): the recompute is the forward's own code on the same
-//     operands, so the relu masks are the forward's.
-//   * The weight gradients sum over every point of every cloud. On the TPU
-//     the grid is sequential and the kernel accumulates in place; here the
-//     grid is persistent, one block per SM, and the layer loop is OUTSIDE
-//     the tile loop: for each layer a block walks all of its tiles,
-//     carrying each point's 6-float state (y, dy) in global memory between
-//     layers, and accumulates the layer's gradients in shared memory (dWh in
-//     f32, through WMMA or FMA). After its tiles it writes one partial per
-//     layer into its own slice of a global scratch; `reduce_slices` then
-//     sums the slices in a fixed order. The per-cloud dhz takes one partial
-//     per tile, reduced the same way. No float atomics: the gradients are
-//     bit-identical from run to run.
-//   * Cotangents are cast to the compute dtype before each product; bias and
-//     hz gradients sum the f32 values (WMMA tiles report per-tile column
-//     sums of the unrounded values). Ragged points carry zero cotangent and
-//     no log-det gradient.
+// f32 mode (`fwd_kernel`, `bwd_kernel`): the tight-check mode, IEEE f32 FMA
+// with k in order, block-wide products through shared memory (`gemm`), the
+// same persistent layer-outside-tile structure, f32 dWh accumulated in
+// shared memory, tile 128 forward and 32 backward.
 //
 // Plain C interface, loaded with ctypes (dpfx_torch/ops/_build.py). Each
 // launch returns cudaGetLastError().
@@ -55,20 +77,766 @@ namespace {
 
 using namespace dpfx;
 
+// ---------------------------------------------------------------- bf16 mode
+
+using bf16 = __nv_bfloat16;
+
+constexpr int MT = 128;          // points per tile, 16 per warp
+constexpr int SMEM_MAX = 232448;  // bytes of shared memory a block may use (sm_90)
+
+// per-H constants of the bf16 kernels
+template <int H>
+struct Mma {
+  static constexpr int LD = H + 8;   // row stride of a shared activation or weight tile
+  // the deepest conditioner whose tile fits the backward's shared memory
+  static constexpr int NH1_MAX = H == 32 ? 8 : H == 64 ? 3 : H == 128 ? 1 : 0;
+  static constexpr int ACC = NH1_MAX > 0 ? NH1_MAX : 1;
+  // a warp's block of each dWh: WM m16 tiles x WN n8 tiles, warps GM x GN
+  static constexpr int GM = H == 32 ? 2 : 4;
+  static constexpr int GN = WARPS / GM;
+  static constexpr int WM = NH1_MAX > 0 ? H / 16 / GM : 1;
+  static constexpr int WN = NH1_MAX > 0 ? H / 8 / GN : 1;
+  // dWout^T and dWx: m16 tiles per warp (tile w, w + 8, ...)
+  static constexpr int MTW = (H / 16 + WARPS - 1) / WARPS;
+  // n8 tiles of a column sum that lane (g, t) keeps: nt = g, g + 8, ...
+  static constexpr int KEEP = H >= 64 ? H / 64 : 1;
+};
+
+// The shared-memory carve-up of the bf16 kernels (dpfx_fused_train_smem_bytes
+// reports its size). A stage holds one layer's weights: Wh [n_hidden-1][H][LD],
+// Wout [8][LD] (rows 6, 7 zero) and Wx^T [8][LD] (rows 3-7 zero); two stages
+// where they fit (the next layer's loads behind this layer's work), else one.
+struct MmaSmem {
+  int hs, dhs, hstride, dstb, xkb, dhzw, stw, ldw, stage, stage_bytes, wout, wxt, nst, total;
+  __host__ __device__ MmaSmem(int H, int NH1, bool backward) {
+    const int ld = H + 8;
+    hstride = round128(MT * ld * 2);
+    wout = round128(NH1 * H * ld * 2);
+    wxt = wout + round128(8 * ld * 2);
+    stage_bytes = wxt + round128(8 * ld * 2);
+    int o = 0;
+    hs = dhs = dstb = xkb = dhzw = ldw = 0;
+    if (backward) {
+      hs = o;    o += (NH1 + 1) * hstride;      // h_0 .. h_last of the tile
+      dhs = o;   o += (NH1 + 1) * hstride;      // their masked cotangents
+      dstb = o;  o += round128(8 * (MT + 8) * 2);   // rnd(d(s, t)) [8][MT + 8]
+      xkb = o;   o += round128(8 * (MT + 8) * 2);   // rnd(x_k) [8][MT + 8]
+      dhzw = o;  o += round128(WARPS * H * 4);      // per-warp dhz sums of the tile
+    } else {
+      ldw = o;   o += 128;                      // per-warp log-det sums
+    }
+    stw = o;     o += WARPS * 16 * 8 * 4;       // per-warp [16][8] f32 exchange
+    stage = o;
+    nst = o + 2 * stage_bytes <= SMEM_MAX ? 2 : 1;
+    total = o + nst * stage_bytes;
+  }
+};
+
+// A warp's 16 rows x H as A fragments (bf16 pairs): chunk kc covers
+// columns 16kc .. 16kc + 15
+template <int H>
+struct Rows {
+  uint32_t a[H / 16][4];
+};
+
+__device__ __forceinline__ int lane_id() { return threadIdx.x & 31; }
+
+// start the cp.async copies of layer k's Wh and Wout into a stage
+template <int H>
+__device__ void stage_load(unsigned char* st, const MmaSmem& L, const bf16* wh, const bf16* wout,
+                            int k, int NH1) {
+  constexpr int LD = Mma<H>::LD, VPR = H / 8;
+  bf16* swh = reinterpret_cast<bf16*>(st);
+  bf16* swo = reinterpret_cast<bf16*>(st + L.wout);
+  const bf16* gwh = wh + (size_t)k * NH1 * H * H;
+  for (int v = threadIdx.x; v < NH1 * H * VPR; v += THREADS) {
+    const int r = v / VPR, c = (v % VPR) * 8;
+    cp_async16(swh + r * LD + c, gwh + (size_t)r * H + c);
+  }
+  for (int v = threadIdx.x; v < 6 * VPR; v += THREADS) {
+    const int r = v / VPR, c = (v % VPR) * 8;
+    cp_async16(swo + r * LD + c, wout + ((size_t)k * 6 + r) * H + c);
+  }
+  cp_async_commit();
+}
+
+// Wx [H][3] of a layer, loaded into registers and stored transposed into a
+// stage's Wx^T rows 0-2 later (the loads run behind other work)
+template <int H>
+struct WxRegs {
+  static constexpr int N = (3 * H + THREADS - 1) / THREADS;
+  bf16 v[N];
+  __device__ void load(const bf16* wx, int k) {
+#pragma unroll
+    for (int i = 0; i < N; ++i) {
+      const int e = threadIdx.x + i * THREADS;
+      if (e < 3 * H) v[i] = wx[(size_t)k * 3 * H + e];
+    }
+  }
+  __device__ void store(bf16* wxt) const {
+#pragma unroll
+    for (int i = 0; i < N; ++i) {
+      const int e = threadIdx.x + i * THREADS;
+      if (e < 3 * H) wxt[(e % 3) * Mma<H>::LD + e / 3] = v[i];
+    }
+  }
+};
+
+// zero the padding rows that the products read: each stage's Wout rows 6-7
+// and Wx^T rows 3-7, and (backward) the rows 6-7 of d(s, t), 3-7 of x_k
+template <int H>
+__device__ void zero_pads(unsigned char* smem, const MmaSmem& L, bool backward) {
+  constexpr int LD = Mma<H>::LD;
+  const bf16 z = __float2bfloat16_rn(0.f);
+  for (int s = 0; s < L.nst; ++s) {
+    bf16* swo = reinterpret_cast<bf16*>(smem + L.stage + s * L.stage_bytes + L.wout);
+    bf16* swx = reinterpret_cast<bf16*>(smem + L.stage + s * L.stage_bytes + L.wxt);
+    for (int e = threadIdx.x; e < 2 * LD; e += THREADS) swo[6 * LD + e] = z;
+    for (int e = threadIdx.x; e < 5 * LD; e += THREADS) swx[3 * LD + e] = z;
+  }
+  if (backward) {
+    bf16* db = reinterpret_cast<bf16*>(smem + L.dstb);
+    bf16* xb = reinterpret_cast<bf16*>(smem + L.xkb);
+    for (int e = threadIdx.x; e < 2 * (MT + 8); e += THREADS) db[6 * (MT + 8) + e] = z;
+    for (int e = threadIdx.x; e < 5 * (MT + 8); e += THREADS) xb[3 * (MT + 8) + e] = z;
+  }
+}
+
+// the A fragment (m16 k8) of the warp's 16 points' coordinates, each lane
+// p < 16 (and its mirror p + 16) holding point p's x[3]
+__device__ __forceinline__ void coord_frag(const float (&x)[3], uint32_t& a0, uint32_t& a1) {
+  const int lane = lane_id(), g = lane >> 2, t = lane & 3;
+  float r[6];
+#pragma unroll
+  for (int c = 0; c < 3; ++c) {
+    r[c] = __shfl_sync(0xffffffffu, x[c], g);
+    r[3 + c] = __shfl_sync(0xffffffffu, x[c], g + 8);
+  }
+  a0 = t == 0 ? pack_bf16(r[0], r[1]) : t == 1 ? pack_bf16(r[2], 0.f) : 0u;
+  a1 = t == 0 ? pack_bf16(r[3], r[4]) : t == 1 ? pack_bf16(r[5], 0.f) : 0u;
+}
+
+// relu(c + bias) of C tile nt, cast to bf16 into the A fragments (and into
+// the warp's rows of a shared tile)
+template <int H>
+__device__ __forceinline__ void epi_relu(Rows<H>& h, int nt, const float (&c)[4],
+                                         const float* bias, bf16* store) {
+  constexpr int LD = Mma<H>::LD;
+  const int lane = lane_id(), g = lane >> 2, t = lane & 3, col = 8 * nt + 2 * t;
+  const float2 bb = __ldg(reinterpret_cast<const float2*>(bias + col));
+  const uint32_t lo = pack_bf16(relu_nan(c[0] + bb.x), relu_nan(c[1] + bb.y));
+  const uint32_t hi = pack_bf16(relu_nan(c[2] + bb.x), relu_nan(c[3] + bb.y));
+  h.a[nt >> 1][(nt & 1) * 2] = lo;
+  h.a[nt >> 1][(nt & 1) * 2 + 1] = hi;
+  if (store) {
+    *reinterpret_cast<uint32_t*>(store + g * LD + col) = lo;
+    *reinterpret_cast<uint32_t*>(store + (g + 8) * LD + col) = hi;
+  }
+}
+
+// h_0 = relu(Wx x + hz): A the coordinates (k8), B = Wx^T [8][LD] (rows k)
+template <int H>
+__device__ __forceinline__ void first_rows(Rows<H>& h, uint32_t a0, uint32_t a1, const bf16* wxt,
+                                           const float* hz, bf16* store) {
+  constexpr int LD = Mma<H>::LD;
+  const int lane = lane_id();
+#pragma unroll
+  for (int q = 0; q < H / 32; ++q) {
+    uint32_t b[4];
+    ldsm_x4_t(b, wxt + (lane & 7) * LD + 32 * q + (lane >> 3) * 8);
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      float c[4] = {0.f, 0.f, 0.f, 0.f};
+      mma8(c, a0, a1, b[i]);
+      epi_relu<H>(h, 4 * q + i, c, hz, store);
+    }
+  }
+}
+
+// out = relu(in Wh^T + bh): B = Wh [out][in] (rows n, k contiguous)
+template <int H>
+__device__ __forceinline__ void hidden_rows(Rows<H>& out, const Rows<H>& in, const bf16* w,
+                                            const float* bias, bf16* store) {
+  constexpr int LD = Mma<H>::LD;
+  const int lane = lane_id();
+#pragma unroll
+  for (int np = 0; np < H / 16; ++np) {
+    float c0[4] = {0.f, 0.f, 0.f, 0.f}, c1[4] = {0.f, 0.f, 0.f, 0.f};
+#pragma unroll
+    for (int kc = 0; kc < H / 16; ++kc) {
+      uint32_t b[4];
+      ldsm_x4(b, w + (16 * np + (lane & 7) + ((lane >> 4) << 3)) * LD + 16 * kc +
+                     ((lane >> 3) & 1) * 8);
+      mma16(c0, in.a[kc], b[0], b[1]);
+      mma16(c1, in.a[kc], b[2], b[3]);
+    }
+    epi_relu<H>(out, 2 * np, c0, bias, store);
+    epi_relu<H>(out, 2 * np + 1, c1, bias, store);
+  }
+}
+
+// st = Wout h + bout: B = Wout [8][LD] (rows n = 0..5, k contiguous); C tile
+// columns 0-5 are (s, t), 6-7 zero
+template <int H>
+__device__ __forceinline__ void out_rows(float (&c)[4], const Rows<H>& h, const bf16* wout8,
+                                         const float* bout) {
+  constexpr int LD = Mma<H>::LD;
+  const int lane = lane_id(), t = lane & 3;
+#pragma unroll
+  for (int i = 0; i < 4; ++i) c[i] = 0.f;
+#pragma unroll
+  for (int kk = 0; kk < H / 32; ++kk) {
+    uint32_t b[4];
+    ldsm_x4(b, wout8 + (lane & 7) * LD + 32 * kk + (lane >> 3) * 8);
+    mma16(c, h.a[2 * kk], b[0], b[1]);
+    mma16(c, h.a[2 * kk + 1], b[2], b[3]);
+  }
+  if (t < 3) {
+    c[0] += bout[2 * t];
+    c[1] += bout[2 * t + 1];
+    c[2] += bout[2 * t];
+    c[3] += bout[2 * t + 1];
+  }
+}
+
+// c * (h > 0) of C tile nt, h from the warp's rows of a shared tile: into the
+// A fragments and the warp's rows of dstore (bf16); the column sums of the
+// f32 values over the warp's 16 rows go to kept[nt / 8] in lanes g = nt % 8
+template <int H>
+__device__ __forceinline__ void epi_mask(Rows<H>& dh, int nt, const float (&c)[4],
+                                         const bf16* hmask, bf16* dstore,
+                                         float (&kept)[Mma<H>::KEEP][2]) {
+  constexpr int LD = Mma<H>::LD;
+  const int lane = lane_id(), g = lane >> 2, t = lane & 3, col = 8 * nt + 2 * t;
+  const float2 m0 = unpack_bf16(*reinterpret_cast<const uint32_t*>(hmask + g * LD + col));
+  const float2 m1 = unpack_bf16(*reinterpret_cast<const uint32_t*>(hmask + (g + 8) * LD + col));
+  const float v0 = c[0] * (m0.x > 0.f ? 1.f : 0.f), v1 = c[1] * (m0.y > 0.f ? 1.f : 0.f);
+  const float v2 = c[2] * (m1.x > 0.f ? 1.f : 0.f), v3 = c[3] * (m1.y > 0.f ? 1.f : 0.f);
+  const uint32_t lo = pack_bf16(v0, v1), hi = pack_bf16(v2, v3);
+  dh.a[nt >> 1][(nt & 1) * 2] = lo;
+  dh.a[nt >> 1][(nt & 1) * 2 + 1] = hi;
+  *reinterpret_cast<uint32_t*>(dstore + g * LD + col) = lo;
+  *reinterpret_cast<uint32_t*>(dstore + (g + 8) * LD + col) = hi;
+  float s0 = v0 + v2, s1 = v1 + v3;
+#pragma unroll
+  for (int off = 4; off < 32; off <<= 1) {
+    s0 += __shfl_xor_sync(0xffffffffu, s0, off);
+    s1 += __shfl_xor_sync(0xffffffffu, s1, off);
+  }
+  if (nt % 8 == g) {
+    kept[nt / 8][0] = s0;
+    kept[nt / 8][1] = s1;
+  }
+}
+
+// dh_last = (rnd(dst) Wout) * (h_last > 0): A = d(s, t) (k8), B = Wout [8][LD]
+// read as rows k
+template <int H>
+__device__ __forceinline__ void cot_first(Rows<H>& dh, uint32_t a0, uint32_t a1,
+                                          const bf16* wout8, const bf16* hmask, bf16* dstore,
+                                          float (&kept)[Mma<H>::KEEP][2]) {
+  constexpr int LD = Mma<H>::LD;
+  const int lane = lane_id();
+#pragma unroll
+  for (int q = 0; q < H / 32; ++q) {
+    uint32_t b[4];
+    ldsm_x4_t(b, wout8 + (lane & 7) * LD + 32 * q + (lane >> 3) * 8);
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      float c[4] = {0.f, 0.f, 0.f, 0.f};
+      mma8(c, a0, a1, b[i]);
+      epi_mask<H>(dh, 4 * q + i, c, hmask, dstore, kept);
+    }
+  }
+}
+
+// dh_j = (rnd(dh_{j+1}) Wh_j) * (h_j > 0): B = Wh [out][in] read as rows k
+template <int H>
+__device__ __forceinline__ void cot_hidden(Rows<H>& out, const Rows<H>& in, const bf16* w,
+                                           const bf16* hmask, bf16* dstore,
+                                           float (&kept)[Mma<H>::KEEP][2]) {
+  constexpr int LD = Mma<H>::LD;
+  const int lane = lane_id();
+#pragma unroll
+  for (int np = 0; np < H / 16; ++np) {
+    float c0[4] = {0.f, 0.f, 0.f, 0.f}, c1[4] = {0.f, 0.f, 0.f, 0.f};
+#pragma unroll
+    for (int kc = 0; kc < H / 16; ++kc) {
+      uint32_t b[4];
+      ldsm_x4_t(b, w + (16 * kc + (lane & 7) + ((lane >> 3) & 1) * 8) * LD + 16 * np +
+                       (lane >> 4) * 8);
+      mma16(c0, in.a[kc], b[0], b[1]);
+      mma16(c1, in.a[kc], b[2], b[3]);
+    }
+    epi_mask<H>(out, 2 * np, c0, hmask, dstore, kept);
+    epi_mask<H>(out, 2 * np + 1, c1, hmask, dstore, kept);
+  }
+}
+
+template <int H>
+__global__ void __launch_bounds__(THREADS, H <= 128 ? 2 : 1)
+fwd_kernel_mma(const float* __restrict__ xt, const float* __restrict__ hz, float* __restrict__ u,
+               float* __restrict__ ld_part, const bf16* __restrict__ wx,
+               const bf16* __restrict__ wh, const float* __restrict__ bh,
+               const bf16* __restrict__ wout, const float* __restrict__ bout,
+               const float* __restrict__ masks, int N, int K, int NH1, float cap) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  constexpr int LD = Mma<H>::LD;
+  const MmaSmem L(H, NH1, false);
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32, g = lane >> 2, t = lane & 3;
+  const int p = lane & 15, b = blockIdx.y, n = blockIdx.x * MT + warp * 16 + p;
+  const bool valid = n < N;
+  const size_t cloud = (size_t)b * 3 * N;
+  float* sw = reinterpret_cast<float*>(smem + L.stw) + warp * 128;
+  auto stage = [&](int s) { return smem + L.stage + s * L.stage_bytes; };
+
+  zero_pads<H>(smem, L, false);
+  float x[3], ldsum = 0.f;
+#pragma unroll
+  for (int c = 0; c < 3; ++c) x[c] = valid ? xt[cloud + (size_t)c * N + n] : 0.f;
+  WxRegs<H> wr;
+  stage_load<H>(stage(0), L, wh, wout, 0, NH1);
+  wr.load(wx, 0);
+  wr.store(reinterpret_cast<bf16*>(stage(0) + L.wxt));
+  for (int k = 0; k < K; ++k) {
+    const int s = L.nst == 2 ? (k & 1) : 0;
+    if (L.nst == 1 && k > 0) {
+      __syncthreads();   // every warp is done with the single stage
+      stage_load<H>(stage(0), L, wh, wout, k, NH1);
+      wr.load(wx, k);
+      wr.store(reinterpret_cast<bf16*>(stage(0) + L.wxt));
+    }
+    cp_async_wait_all();
+    __syncthreads();     // layer k's stage is visible; layer k-1 is done with the other
+    const bool ahead = L.nst == 2 && k + 1 < K;
+    if (ahead) {
+      stage_load<H>(stage(s ^ 1), L, wh, wout, k + 1, NH1);
+      wr.load(wx, k + 1);
+    }
+    const bf16* swh = reinterpret_cast<const bf16*>(stage(s));
+    uint32_t a0, a1;
+    coord_frag(x, a0, a1);
+    Rows<H> h;
+    first_rows<H>(h, a0, a1, reinterpret_cast<const bf16*>(stage(s) + L.wxt),
+                  hz + ((size_t)b * K + k) * H, nullptr);
+    for (int j = 0; j < NH1; ++j) {
+      Rows<H> o;
+      hidden_rows<H>(o, h, swh + j * H * LD, bh + ((size_t)k * NH1 + j) * H, nullptr);
+      h = o;
+    }
+    float st[4];
+    out_rows<H>(st, h, reinterpret_cast<const bf16*>(stage(s) + L.wout), bout + k * 6);
+    *reinterpret_cast<float2*>(sw + g * 8 + 2 * t) = make_float2(st[0], st[1]);
+    *reinterpret_cast<float2*>(sw + (g + 8) * 8 + 2 * t) = make_float2(st[2], st[3]);
+    __syncwarp();
+#pragma unroll
+    for (int c = 0; c < 3; ++c) {
+      if (masks[k * 3 + c] > 0.f) continue;
+      const float sc = cap * tanhf(sw[p * 8 + c] / cap);
+      ldsum += sc;
+      x[c] = x[c] * expf(sc) + sw[p * 8 + 3 + c];
+    }
+    __syncwarp();
+    if (ahead) wr.store(reinterpret_cast<bf16*>(stage(s ^ 1) + L.wxt));
+  }
+  if (lane < 16 && valid)
+    for (int c = 0; c < 3; ++c) u[cloud + (size_t)c * N + n] = x[c];
+  // the block's log-det: the warp's valid points, then the warps in order
+  float* ldw = reinterpret_cast<float*>(smem + L.ldw);
+  float v = lane < 16 && valid ? ldsum : 0.f;
+#pragma unroll
+  for (int off = 8; off; off >>= 1) v += __shfl_xor_sync(0xffffffffu, v, off);
+  if (lane == 0) ldw[warp] = v;
+  __syncthreads();
+  if (tid == 0) {
+    float a = 0.f;
+    for (int w = 0; w < WARPS; ++w) a += ldw[w];
+    ld_part[(size_t)b * gridDim.x + blockIdx.x] = a;
+  }
+}
+
+template <int H>
+__global__ void __launch_bounds__(THREADS, 1)
+bwd_kernel_mma(float* __restrict__ y, float* __restrict__ dy, const float* __restrict__ dld,
+               const float* __restrict__ hz, const bf16* __restrict__ wx,
+               const bf16* __restrict__ wh, const float* __restrict__ bh,
+               const bf16* __restrict__ wout, const float* __restrict__ bout,
+               const float* __restrict__ masks, float* __restrict__ part,
+               float* __restrict__ dhz_part, int B, int N, int K, int NH1, float cap) {
+  using M = Mma<H>;
+  extern __shared__ __align__(128) unsigned char smem[];
+  constexpr int LD = M::LD, LDT = MT + 8;
+  const MmaSmem L(H, NH1, true);
+  const int hst = L.hstride / 2;   // elements between two levels' tiles
+  bf16* hs = reinterpret_cast<bf16*>(smem + L.hs);
+  bf16* dhs = reinterpret_cast<bf16*>(smem + L.dhs);
+  bf16* dstb = reinterpret_cast<bf16*>(smem + L.dstb);   // [8][LDT] rnd(d(s, t)), points along
+  bf16* xkb = reinterpret_cast<bf16*>(smem + L.xkb);     // [8][LDT] rnd(x_k)
+  float* dhzw = reinterpret_cast<float*>(smem + L.dhzw); // [WARPS][H]
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32, g = lane >> 2, t = lane & 3;
+  const int p = lane & 15, r0 = warp * 16;
+  float* sw = reinterpret_cast<float*>(smem + L.stw) + warp * 128;
+  auto stage = [&](int s) { return smem + L.stage + s * L.stage_bytes; };
+  const int nt = (N + MT - 1) / MT, tiles = B * nt;
+  const int per_layer = 3 * H + NH1 * H * H + NH1 * H + 6 * H + 6;
+  const int mw = warp / M::GN, nw = warp % M::GN;
+
+  zero_pads<H>(smem, L, true);
+  WxRegs<H> wr;
+  stage_load<H>(stage(0), L, wh, wout, K - 1, NH1);
+  wr.load(wx, K - 1);
+  wr.store(reinterpret_cast<bf16*>(stage(0) + L.wxt));
+
+  for (int i = 0; i < K; ++i) {
+    const int k = K - 1 - i, s = L.nst == 2 ? (i & 1) : 0;
+    if (L.nst == 1 && i > 0) {
+      __syncthreads();   // every warp is done with the single stage
+      stage_load<H>(stage(0), L, wh, wout, k, NH1);
+      wr.load(wx, k);
+      wr.store(reinterpret_cast<bf16*>(stage(0) + L.wxt));
+    }
+    cp_async_wait_all();
+    __syncthreads();     // layer k's stage is visible; the previous layer's partials are out
+    const bool ahead = L.nst == 2 && i + 1 < K;
+    if (ahead) {
+      stage_load<H>(stage(s ^ 1), L, wh, wout, k - 1, NH1);
+      wr.load(wx, k - 1);
+    }
+    const bf16* swh = reinterpret_cast<const bf16*>(stage(s));
+    const bf16* wo8 = reinterpret_cast<const bf16*>(stage(s) + L.wout);
+    const bf16* wx8 = reinterpret_cast<const bf16*>(stage(s) + L.wxt);
+
+    // the layer's gradient sums, held in registers through the tile loop
+    float acc[M::ACC][M::WM][M::WN][4], aout[M::MTW][4], ax[M::MTW][4];
+    float run[M::ACC][M::KEEP][2], rbout[6];
+#pragma unroll
+    for (int jj = 0; jj < M::ACC; ++jj)
+#pragma unroll
+      for (int mi = 0; mi < M::WM; ++mi)
+#pragma unroll
+        for (int ni = 0; ni < M::WN; ++ni)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) acc[jj][mi][ni][e] = 0.f;
+#pragma unroll
+    for (int mi = 0; mi < M::MTW; ++mi)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) aout[mi][e] = ax[mi][e] = 0.f;
+#pragma unroll
+    for (int jj = 0; jj < M::ACC; ++jj)
+#pragma unroll
+      for (int e = 0; e < M::KEEP; ++e) run[jj][e][0] = run[jj][e][1] = 0.f;
+#pragma unroll
+    for (int r = 0; r < 6; ++r) rbout[r] = 0.f;
+
+    for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
+      const int b = tile / nt, n = (tile % nt) * MT + r0 + p;
+      const bool valid = n < N;
+      const size_t cloud = (size_t)b * 3 * N;
+      float yv[3], dyv[3];
+#pragma unroll
+      for (int c = 0; c < 3; ++c) {
+        yv[c] = valid ? y[cloud + (size_t)c * N + n] : 0.f;
+        dyv[c] = valid ? dy[cloud + (size_t)c * N + n] : 0.f;
+      }
+
+      // the forward conditioner on the warp's rows, recomputed from the
+      // layer output, each level stored for the weight gradients
+      uint32_t a0, a1;
+      coord_frag(yv, a0, a1);
+      Rows<H> h;
+      first_rows<H>(h, a0, a1, wx8, hz + ((size_t)b * K + k) * H, hs + r0 * LD);
+      for (int j = 0; j < NH1; ++j) {
+        Rows<H> o;
+        hidden_rows<H>(o, h, swh + j * H * LD, bh + ((size_t)k * NH1 + j) * H,
+                       hs + (j + 1) * hst + r0 * LD);
+        h = o;
+      }
+      float st[4];
+      out_rows<H>(st, h, wo8, bout + k * 6);
+      *reinterpret_cast<float2*>(sw + g * 8 + 2 * t) = make_float2(st[0], st[1]);
+      *reinterpret_cast<float2*>(sw + (g + 8) * 8 + 2 * t) = make_float2(st[2], st[3]);
+      __syncwarp();
+
+      // coupling cotangents; the layer input from the closed-form inverse
+      const float g_ld = valid ? dld[b] : 0.f;
+      float xk[3], d[6], dyn[3];
+#pragma unroll
+      for (int c = 0; c < 3; ++c) {
+        if (masks[k * 3 + c] > 0.f) {
+          xk[c] = yv[c];
+          d[c] = d[3 + c] = 0.f;
+          dyn[c] = dyv[c];
+        } else {
+          const float th = tanhf(sw[p * 8 + c] / cap), es = expf(cap * th);
+          xk[c] = (yv[c] - sw[p * 8 + 3 + c]) / es;
+          const float ds = dyv[c] * xk[c] * es + g_ld;
+          d[c] = ds * (1.f - th * th);
+          d[3 + c] = dyv[c];
+          dyn[c] = dyv[c] * es;
+        }
+      }
+      __syncwarp();
+      if (lane < 16) {
+#pragma unroll
+        for (int r = 0; r < 6; ++r) {
+          sw[p * 8 + r] = d[r];
+          dstb[r * LDT + r0 + p] = __float2bfloat16_rn(d[r]);
+        }
+        sw[p * 8 + 6] = sw[p * 8 + 7] = 0.f;
+#pragma unroll
+        for (int c = 0; c < 3; ++c) xkb[c * LDT + r0 + p] = __float2bfloat16_rn(xk[c]);
+      }
+      __syncwarp();
+      const float2 dg = *reinterpret_cast<const float2*>(sw + g * 8 + 2 * t);
+      const float2 dg8 = *reinterpret_cast<const float2*>(sw + (g + 8) * 8 + 2 * t);
+      a0 = pack_bf16(dg.x, dg.y);
+      a1 = pack_bf16(dg8.x, dg8.y);
+#pragma unroll
+      for (int r = 0; r < 6; ++r) {   // dbout over the warp's points
+        float v = d[r];
+#pragma unroll
+        for (int off = 1; off < 16; off <<= 1) v += __shfl_xor_sync(0xffffffffu, v, off);
+        rbout[r] += v;
+      }
+
+      // the cotangent chain on the same rows
+      float kept[M::KEEP][2] = {};
+      auto keep = [&](int level) {
+        if (level > 0) {
+#pragma unroll
+          for (int jj = 0; jj < M::ACC; ++jj)
+            if (jj == level - 1)
+#pragma unroll
+              for (int e = 0; e < M::KEEP; ++e) {
+                run[jj][e][0] += kept[e][0];
+                run[jj][e][1] += kept[e][1];
+              }
+        } else {
+#pragma unroll
+          for (int e = 0; e < M::KEEP; ++e) {
+            const int ntl = g + 8 * e;
+            if (ntl < H / 8)
+              *reinterpret_cast<float2*>(dhzw + warp * H + 8 * ntl + 2 * t) =
+                  make_float2(kept[e][0], kept[e][1]);
+          }
+        }
+      };
+      Rows<H> dh;
+      cot_first<H>(dh, a0, a1, wo8, hs + NH1 * hst + r0 * LD, dhs + NH1 * hst + r0 * LD, kept);
+      keep(NH1);
+      for (int j = NH1 - 1; j >= 0; --j) {
+        Rows<H> o;
+        cot_hidden<H>(o, dh, swh + j * H * LD, hs + j * hst + r0 * LD, dhs + j * hst + r0 * LD,
+                      kept);
+        keep(j);
+        dh = o;
+      }
+      // dy_in = where(mask, dy, dy * es) + rnd(dh_0) Wx: B = Wx^T [8][LD] (rows n)
+      float dc[4] = {0.f, 0.f, 0.f, 0.f};
+#pragma unroll
+      for (int kk = 0; kk < H / 32; ++kk) {
+        uint32_t bq[4];
+        ldsm_x4(bq, wx8 + (lane & 7) * LD + 32 * kk + (lane >> 3) * 8);
+        mma16(dc, dh.a[2 * kk], bq[0], bq[1]);
+        mma16(dc, dh.a[2 * kk + 1], bq[2], bq[3]);
+      }
+      __syncwarp();   // the d(s, t) reads above are done
+      *reinterpret_cast<float2*>(sw + g * 8 + 2 * t) = make_float2(dc[0], dc[1]);
+      *reinterpret_cast<float2*>(sw + (g + 8) * 8 + 2 * t) = make_float2(dc[2], dc[3]);
+      __syncwarp();
+      if (lane < 16 && valid)
+#pragma unroll
+        for (int c = 0; c < 3; ++c) {
+          dy[cloud + (size_t)c * N + n] = dyn[c] + sw[p * 8 + c];
+          y[cloud + (size_t)c * N + n] = xk[c];
+        }
+      __syncthreads();   // every warp's rows are in the shared tiles
+
+      // weight gradients over the tile's 128 points: dWh[j] += dh_{j+1}^T h_j
+#pragma unroll
+      for (int jj = 0; jj < M::ACC; ++jj) {
+        if (jj >= NH1) break;
+        const bf16* A = dhs + (jj + 1) * hst;
+        const bf16* Bm = hs + jj * hst;
+#pragma unroll
+        for (int kk = 0; kk < MT / 16; ++kk) {
+          uint32_t a[M::WM][4];
+#pragma unroll
+          for (int mi = 0; mi < M::WM; ++mi)
+            ldsm_x4_t(a[mi], A + (16 * kk + (lane & 7) + ((lane >> 4) & 1) * 8) * LD +
+                                 (mw * M::WM + mi) * 16 + ((lane >> 3) & 1) * 8);
+          if constexpr (M::WN % 2 == 0) {
+#pragma unroll
+            for (int ni = 0; ni < M::WN; ni += 2) {
+              uint32_t bq[4];
+              ldsm_x4_t(bq, Bm + (16 * kk + (lane & 7) + ((lane >> 3) & 1) * 8) * LD +
+                                (nw * M::WN + ni) * 8 + (lane >> 4) * 8);
+#pragma unroll
+              for (int mi = 0; mi < M::WM; ++mi) {
+                mma16(acc[jj][mi][ni], a[mi], bq[0], bq[1]);
+                mma16(acc[jj][mi][ni + 1], a[mi], bq[2], bq[3]);
+              }
+            }
+          } else {
+#pragma unroll
+            for (int ni = 0; ni < M::WN; ++ni) {
+              uint32_t bq[2];
+              ldsm_x2_t(bq, Bm + (16 * kk + (lane & 7) + ((lane >> 3) & 1) * 8) * LD +
+                                (nw * M::WN + ni) * 8);
+#pragma unroll
+              for (int mi = 0; mi < M::WM; ++mi) mma16(acc[jj][mi][ni], a[mi], bq[0], bq[1]);
+            }
+          }
+        }
+      }
+      // dWout^T += h_last^T rnd(d(s, t)), dWx += rnd(dh_0)^T rnd(x_k)
+#pragma unroll
+      for (int mi = 0; mi < M::MTW; ++mi) {
+        const int mt = warp + WARPS * mi;
+        if (mt >= H / 16) break;
+#pragma unroll
+        for (int kq = 0; kq < MT / 32; ++kq) {
+          uint32_t bd[4], bx[4];
+          ldsm_x4(bd, dstb + (lane & 7) * LDT + 32 * kq + (lane >> 3) * 8);
+          ldsm_x4(bx, xkb + (lane & 7) * LDT + 32 * kq + (lane >> 3) * 8);
+#pragma unroll
+          for (int hf = 0; hf < 2; ++hf) {
+            const int row = 16 * (2 * kq + hf) + (lane & 7) + ((lane >> 4) & 1) * 8;
+            const int col = 16 * mt + ((lane >> 3) & 1) * 8;
+            uint32_t a[4];
+            ldsm_x4_t(a, hs + NH1 * hst + row * LD + col);
+            mma16(aout[mi], a, bd[2 * hf], bd[2 * hf + 1]);
+            ldsm_x4_t(a, dhs + row * LD + col);
+            mma16(ax[mi], a, bx[2 * hf], bx[2 * hf + 1]);
+          }
+        }
+      }
+      // this tile's dhz: the warps' sums in order
+      for (int e = tid; e < H; e += THREADS) {
+        float a = 0.f;
+        for (int w = 0; w < WARPS; ++w) a += dhzw[w * H + e];
+        dhz_part[((size_t)tile * K + k) * H + e] = a;
+      }
+      __syncthreads();   // the next tile reuses the shared tiles
+    }
+    if (ahead) wr.store(reinterpret_cast<bf16*>(stage(s ^ 1) + L.wxt));
+
+    // this block's partial of layer k: [dWx | dWh | dbh | dWout | dbout]
+    float* out = part + ((size_t)blockIdx.x * K + k) * per_layer;
+#pragma unroll
+    for (int mi = 0; mi < M::MTW; ++mi) {
+      const int mt = warp + WARPS * mi;
+      if (mt >= H / 16) break;
+      const int o = 16 * mt + g;
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int c = 2 * t + e;
+        if (c < 3) {
+          out[o * 3 + c] = ax[mi][e];
+          out[(o + 8) * 3 + c] = ax[mi][2 + e];
+        }
+        if (c < 6) {
+          float* dwo = out + 3 * H + NH1 * H * H + NH1 * H;
+          dwo[c * H + o] = aout[mi][e];
+          dwo[c * H + o + 8] = aout[mi][2 + e];
+        }
+      }
+    }
+#pragma unroll
+    for (int jj = 0; jj < M::ACC; ++jj) {
+      if (jj >= NH1) break;
+      float* dwh = out + 3 * H + jj * H * H;
+#pragma unroll
+      for (int mi = 0; mi < M::WM; ++mi)
+#pragma unroll
+        for (int ni = 0; ni < M::WN; ++ni) {
+          const int o = (mw * M::WM + mi) * 16 + g, c = (nw * M::WN + ni) * 8 + 2 * t;
+          *reinterpret_cast<float2*>(dwh + o * H + c) =
+              make_float2(acc[jj][mi][ni][0], acc[jj][mi][ni][1]);
+          *reinterpret_cast<float2*>(dwh + (o + 8) * H + c) =
+              make_float2(acc[jj][mi][ni][2], acc[jj][mi][ni][3]);
+        }
+    }
+    // dbh and dbout: the warps' sums in order, through the (now free) h tiles
+    float* red = reinterpret_cast<float*>(hs);
+    const int rs = NH1 * H + 8;
+#pragma unroll
+    for (int jj = 0; jj < M::ACC; ++jj) {
+      if (jj >= NH1) break;
+#pragma unroll
+      for (int e = 0; e < M::KEEP; ++e) {
+        const int ntl = g + 8 * e;
+        if (ntl < H / 8)
+          *reinterpret_cast<float2*>(red + warp * rs + jj * H + 8 * ntl + 2 * t) =
+              make_float2(run[jj][e][0], run[jj][e][1]);
+      }
+    }
+    if (lane == 0)
+#pragma unroll
+      for (int r = 0; r < 6; ++r) red[warp * rs + NH1 * H + r] = rbout[r];
+    __syncthreads();
+    for (int e = tid; e < NH1 * H + 6; e += THREADS) {
+      float a = 0.f;
+      for (int w = 0; w < WARPS; ++w) a += red[w * rs + e];
+      if (e < NH1 * H) out[3 * H + NH1 * H * H + e] = a;
+      else out[3 * H + NH1 * H * H + NH1 * H + 6 * H + (e - NH1 * H)] = a;
+    }
+  }
+}
+
+template <int H>
+cudaError_t launch_fwd_mma(const float* xt, const float* hz, float* u, float* ld_part,
+                           const void* wx, const void* wh, const float* bh, const void* wout,
+                           const float* bout, const float* masks, int B, int N, int K, int NH1,
+                           float cap, cudaStream_t stream) {
+  const int bytes = MmaSmem(H, NH1, false).total;
+  if (bytes > SMEM_MAX) return cudaErrorInvalidValue;
+  cudaError_t e = cudaFuncSetAttribute(fwd_kernel_mma<H>,
+                                       cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  if (e != cudaSuccess) return e;
+  dim3 grid((N + MT - 1) / MT, B);
+  fwd_kernel_mma<H><<<grid, THREADS, bytes, stream>>>(
+      xt, hz, u, ld_part, static_cast<const bf16*>(wx), static_cast<const bf16*>(wh), bh,
+      static_cast<const bf16*>(wout), bout, masks, N, K, NH1, cap);
+  return cudaGetLastError();
+}
+
+template <int H>
+cudaError_t launch_bwd_mma(float* y, float* dy, const float* dld, const float* hz,
+                           const void* wx, const void* wh, const float* bh, const void* wout,
+                           const float* bout, const float* masks, float* part, float* dhz_part,
+                           float* dw, float* dhz, int B, int N, int K, int NH1, float cap,
+                           int blocks, cudaStream_t stream) {
+  const int bytes = MmaSmem(H, NH1, true).total;
+  if (NH1 > Mma<H>::NH1_MAX || bytes > SMEM_MAX) return cudaErrorInvalidValue;
+  cudaError_t e = cudaFuncSetAttribute(bwd_kernel_mma<H>,
+                                       cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  if (e != cudaSuccess) return e;
+  bwd_kernel_mma<H><<<blocks, THREADS, bytes, stream>>>(
+      y, dy, dld, hz, static_cast<const bf16*>(wx), static_cast<const bf16*>(wh), bh,
+      static_cast<const bf16*>(wout), bout, masks, part, dhz_part, B, N, K, NH1, cap);
+  if ((e = cudaGetLastError()) != cudaSuccess) return e;
+  const int nt = (N + MT - 1) / MT;
+  const long long per_layer = 3LL * H + (long long)NH1 * H * H + (long long)NH1 * H + 6 * H + 6;
+  if ((e = launch_reduce(part, dw, 1, blocks, per_layer * K, stream)) != cudaSuccess) return e;
+  return launch_reduce(dhz_part, dhz, B, nt, (long long)K * H, stream);
+}
+
+// ---------------------------------------------------------------- f32 mode
+
 constexpr int FWD_T = 128;
-template <typename S> __host__ __device__ constexpr int bwd_t() { return sizeof(S) == 2 ? 64 : 32; }
+constexpr int BWD_T = 32;   // points per backward tile (f32)
 
 // shared-memory carve-ups (dpfx_fused_train_smem_bytes reports their size)
-template <typename S>
 struct FwdSmem {
   int ld, hs0, hs1, ws, stage, xs, st, ldp, wx, wout, bout, hz, bh, total;
   __host__ __device__ FwdSmem(int H, int NH1) {
-    ld = H + Layout<S>::PAD;
+    ld = H + Layout<float>::PAD;
     const int T = FWD_T;
     int o = 0;
-    hs0 = o;   o += round128(T * ld * (int)sizeof(S));
-    hs1 = o;   o += round128(T * ld * (int)sizeof(S));
-    ws = o;    o += round128(H * ld * (int)sizeof(S));
+    hs0 = o;   o += round128(T * ld * 4);
+    hs1 = o;   o += round128(T * ld * 4);
+    ws = o;    o += round128(H * ld * 4);
     stage = o; o += round128(WARPS * 256 * 4);
     xs = o;    o += round128(3 * T * 4);
     st = o;    o += round128(8 * T * 4);
@@ -82,17 +850,16 @@ struct FwdSmem {
   }
 };
 
-template <typename S>
 struct BwdSmem {
   int ld, lda, hs, ws, awh, stage, colpart, ys, dys, xks, dst, dyn;
   int wx, wout, bout, hz, bh, adwx, adwout, adbout, dhz, adbh, total;
   __host__ __device__ BwdSmem(int H, int NH1) {
-    ld = H + Layout<S>::PAD;
+    ld = H + Layout<float>::PAD;
     lda = H + 4;
-    const int T = bwd_t<S>(), nb = NH1 > 1 ? NH1 : 1;
+    const int T = BWD_T, nb = NH1 > 1 ? NH1 : 1;
     int o = 0;
-    hs = o;      o += (NH1 + 1) * round128(T * ld * (int)sizeof(S));
-    ws = o;      o += nb * round128(H * ld * (int)sizeof(S));
+    hs = o;      o += (NH1 + 1) * round128(T * ld * 4);
+    ws = o;      o += nb * round128(H * ld * 4);
     awh = o;     o += NH1 * round128(H * lda * 4);
     stage = o;   o += round128(WARPS * 256 * 4);
     colpart = o; o += round128(T / 16 * H * 4);
@@ -115,29 +882,28 @@ struct BwdSmem {
   }
 };
 
-// h_0 = relu(Wx . x + hz) for T points: x [3][T] f32, Wx [H][3] (compute-
-// dtype values held in f32), written in the compute dtype
-template <typename S, int H>
-__device__ void first_layer(S* h, int ld, const float* xs, int T, const float* wxs,
+// h_0 = relu(Wx . x + hz) for T points: x [3][T], Wx [H][3]
+template <int H>
+__device__ void first_layer(float* h, int ld, const float* xs, int T, const float* wxs,
                             const float* hzs) {
   for (int e = threadIdx.x; e < T * H; e += THREADS) {
     const int p = e / H, o = e % H;
-    float v = wxs[o * 3 + 0] * rnd<S>(xs[p]);
-    v = fmaf(wxs[o * 3 + 1], rnd<S>(xs[T + p]), v);
-    v = fmaf(wxs[o * 3 + 2], rnd<S>(xs[2 * T + p]), v);
-    h[p * ld + o] = from_f<S>(relu_nan(v + hzs[o]));
+    float v = wxs[o * 3 + 0] * xs[p];
+    v = fmaf(wxs[o * 3 + 1], xs[T + p], v);
+    v = fmaf(wxs[o * 3 + 2], xs[2 * T + p], v);
+    h[p * ld + o] = relu_nan(v + hzs[o]);
   }
 }
 
 // st[r][p] = Wout[r] . h[p] + bout[r]: one warp per point, lanes split H
-template <typename S, int H>
-__device__ void out_layer(float* sts, const S* h, int ld, int T, const float* wos,
+template <int H>
+__device__ void out_layer(float* sts, const float* h, int ld, int T, const float* wos,
                           const float* bos) {
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   for (int p = warp; p < T; p += WARPS) {
     float part[6] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
     for (int kk = lane; kk < H; kk += 32) {
-      const float hv = to_f(h[p * ld + kk]);
+      const float hv = h[p * ld + kk];
 #pragma unroll
       for (int r = 0; r < 6; ++r) part[r] = fmaf(wos[r * H + kk], hv, part[r]);
     }
@@ -154,38 +920,38 @@ __device__ void out_layer(float* sts, const S* h, int ld, int T, const float* wo
 }
 
 // the conditioner of layer k on the T points of xs: h_0 .. h_NH1 into
-// hs + j * hstride (compute dtype), with Wh[j] staged at ws + j * wstride
-template <typename S, int H>
-__device__ void conditioner(S* hs, int hstride, const S* ws, int wstride, int ld, int NH1,
+// hs + j * hstride, with Wh[j] staged at ws + j * wstride
+template <int H>
+__device__ void conditioner(float* hs, int hstride, const float* ws, int wstride, int ld, int NH1,
                             const float* xs, int T, const float* wxs, const float* hzs,
                             const float* bhs, float* stage) {
-  first_layer<S, H>(hs, ld, xs, T, wxs, hzs);
+  first_layer<H>(hs, ld, xs, T, wxs, hzs);
   for (int j = 0; j < NH1; ++j) {
     __syncthreads();
-    S* out = hs + (j + 1) * hstride;
+    float* out = hs + (j + 1) * hstride;
     const float* bj = bhs + j * H;
     gemm<false, true>(T, H, H, hs + j * hstride, ld, ws + j * wstride, ld, stage, nullptr,
                       [&](int m, int n, float v) {
-                        out[m * ld + n] = from_f<S>(relu_nan(v + bj[n]));
+                        out[m * ld + n] = relu_nan(v + bj[n]);
                         return 0.f;
                       });
   }
 }
 
-template <typename S, int H>
+template <int H>
 __global__ void __launch_bounds__(THREADS)
 fwd_kernel(const float* __restrict__ xt, const float* __restrict__ hz, float* __restrict__ u,
-           float* __restrict__ ld_part, const S* __restrict__ wx, const S* __restrict__ wh,
-           const float* __restrict__ bh, const S* __restrict__ wout,
+           float* __restrict__ ld_part, const float* __restrict__ wx, const float* __restrict__ wh,
+           const float* __restrict__ bh, const float* __restrict__ wout,
            const float* __restrict__ bout, const float* __restrict__ masks, int N, int K,
            int NH1, float cap) {
   extern __shared__ __align__(128) unsigned char smem[];
   constexpr int T = FWD_T;
-  const FwdSmem<S> L(H, NH1);
+  const FwdSmem L(H, NH1);
   const int ld = L.ld;
-  S* hs0 = reinterpret_cast<S*>(smem + L.hs0);
-  S* hs1 = reinterpret_cast<S*>(smem + L.hs1);
-  S* ws = reinterpret_cast<S*>(smem + L.ws);
+  float* hs0 = reinterpret_cast<float*>(smem + L.hs0);
+  float* hs1 = reinterpret_cast<float*>(smem + L.hs1);
+  float* ws = reinterpret_cast<float*>(smem + L.ws);
   float* stage = reinterpret_cast<float*>(smem + L.stage);
   float* xs = reinterpret_cast<float*>(smem + L.xs);      // [3][T]
   float* sts = reinterpret_cast<float*>(smem + L.st);     // [6][T]
@@ -205,30 +971,30 @@ fwd_kernel(const float* __restrict__ xt, const float* __restrict__ hz, float* __
   }
   for (int k = 0; k < K; ++k) {
     __syncthreads();  // the previous layer is done with xs and the small weights
-    for (int e = tid; e < 3 * H; e += THREADS) wxs[e] = to_f(wx[(size_t)k * 3 * H + e]);
-    for (int e = tid; e < 6 * H; e += THREADS) wos[e] = to_f(wout[(size_t)k * 6 * H + e]);
+    for (int e = tid; e < 3 * H; e += THREADS) wxs[e] = wx[(size_t)k * 3 * H + e];
+    for (int e = tid; e < 6 * H; e += THREADS) wos[e] = wout[(size_t)k * 6 * H + e];
     if (tid < 6) bos[tid] = bout[k * 6 + tid];
     for (int e = tid; e < H; e += THREADS) hzs[e] = hz[((size_t)b * K + k) * H + e];
     for (int e = tid; e < NH1 * H; e += THREADS) bhs[e] = bh[(size_t)k * NH1 * H + e];
     __syncthreads();
-    first_layer<S, H>(hs0, ld, xs, T, wxs, hzs);
-    S* cur = hs0;
-    S* nxt = hs1;
+    first_layer<H>(hs0, ld, xs, T, wxs, hzs);
+    float* cur = hs0;
+    float* nxt = hs1;
     for (int j = 0; j < NH1; ++j) {
       __syncthreads();  // cur written; the previous product is done with ws
       load_square<H>(ws, wh + ((size_t)k * NH1 + j) * H * H, ld);
       __syncthreads();
       const float* bj = bhs + j * H;
-      S* out = nxt;
+      float* out = nxt;
       gemm<false, true>(T, H, H, cur, ld, ws, ld, stage, nullptr, [&](int m, int n, float v) {
-        out[m * ld + n] = from_f<S>(relu_nan(v + bj[n]));
+        out[m * ld + n] = relu_nan(v + bj[n]);
         return 0.f;
       });
       nxt = cur;
       cur = out;
     }
     __syncthreads();
-    out_layer<S, H>(sts, cur, ld, T, wos, bos);
+    out_layer<H>(sts, cur, ld, T, wos, bos);
     __syncthreads();
     if (tid < T) {
       for (int c = 0; c < 3; ++c) {
@@ -250,23 +1016,23 @@ fwd_kernel(const float* __restrict__ xt, const float* __restrict__ hz, float* __
   }
 }
 
-template <typename S, int H>
+template <int H>
 __global__ void __launch_bounds__(THREADS)
 bwd_kernel(float* __restrict__ y, float* __restrict__ dy, const float* __restrict__ dld,
-           const float* __restrict__ hz, const S* __restrict__ wx, const S* __restrict__ wh,
-           const float* __restrict__ bh, const S* __restrict__ wout,
+           const float* __restrict__ hz, const float* __restrict__ wx, const float* __restrict__ wh,
+           const float* __restrict__ bh, const float* __restrict__ wout,
            const float* __restrict__ bout, const float* __restrict__ masks,
            float* __restrict__ part, float* __restrict__ dhz_part, int B, int N, int K, int NH1,
            float cap) {
   extern __shared__ __align__(128) unsigned char smem[];
-  constexpr int T = bwd_t<S>();
-  const BwdSmem<S> L(H, NH1);
+  constexpr int T = BWD_T;
+  const BwdSmem L(H, NH1);
   const int ld = L.ld, lda = L.lda;
-  const int hstride = round128(T * ld * (int)sizeof(S)) / (int)sizeof(S);
-  const int wstride = round128(H * ld * (int)sizeof(S)) / (int)sizeof(S);
+  const int hstride = round128(T * ld * 4) / 4;
+  const int wstride = round128(H * ld * 4) / 4;
   const int astride = round128(H * lda * 4) / 4;
-  S* hs = reinterpret_cast<S*>(smem + L.hs);
-  S* ws = reinterpret_cast<S*>(smem + L.ws);
+  float* hs = reinterpret_cast<float*>(smem + L.hs);
+  float* ws = reinterpret_cast<float*>(smem + L.ws);
   float* awh = reinterpret_cast<float*>(smem + L.awh);
   float* stage = reinterpret_cast<float*>(smem + L.stage);
   float* colpart = reinterpret_cast<float*>(smem + L.colpart);
@@ -289,13 +1055,13 @@ bwd_kernel(float* __restrict__ y, float* __restrict__ dy, const float* __restric
   const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
   const int nt = (N + T - 1) / T, tiles = B * nt;
   const int per_layer = 3 * H + NH1 * H * H + NH1 * H + 6 * H + 6;
-  S* hlast = hs + NH1 * hstride;
+  float* hlast = hs + NH1 * hstride;
 
   for (int i = 0; i < K; ++i) {
     const int k = K - 1 - i;
     __syncthreads();  // the previous layer's partials are written
-    for (int e = tid; e < 3 * H; e += THREADS) wxs[e] = to_f(wx[(size_t)k * 3 * H + e]);
-    for (int e = tid; e < 6 * H; e += THREADS) wos[e] = to_f(wout[(size_t)k * 6 * H + e]);
+    for (int e = tid; e < 3 * H; e += THREADS) wxs[e] = wx[(size_t)k * 3 * H + e];
+    for (int e = tid; e < 6 * H; e += THREADS) wos[e] = wout[(size_t)k * 6 * H + e];
     if (tid < 6) bos[tid] = bout[k * 6 + tid];
     for (int e = tid; e < NH1 * H; e += THREADS) bhs[e] = bh[(size_t)k * NH1 * H + e];
     for (int j = 0; j < NH1; ++j) load_square<H>(ws + j * wstride, wh + ((size_t)k * NH1 + j) * H * H, ld);
@@ -321,9 +1087,9 @@ bwd_kernel(float* __restrict__ y, float* __restrict__ dy, const float* __restric
       __syncthreads();
 
       // the forward conditioner, recomputed from the layer output
-      conditioner<S, H>(hs, hstride, ws, wstride, ld, NH1, ys, T, wxs, hzs, bhs, stage);
+      conditioner<H>(hs, hstride, ws, wstride, ld, NH1, ys, T, wxs, hzs, bhs, stage);
       __syncthreads();
-      out_layer<S, H>(dst, hlast, ld, T, wos, bos);   // st into dst, overwritten below
+      out_layer<H>(dst, hlast, ld, T, wos, bos);   // st into dst, overwritten below
       __syncthreads();
 
       // coupling cotangents; the layer input from the closed-form inverse
@@ -359,7 +1125,7 @@ bwd_kernel(float* __restrict__ y, float* __restrict__ dy, const float* __restric
       for (int e = tid; e < 6 * H; e += THREADS) {
         const int r = e / H, o = e % H;
         float s = 0.f;
-        for (int p = 0; p < T; ++p) s = fmaf(rnd<S>(dst[r * T + p]), to_f(hlast[p * ld + o]), s);
+        for (int p = 0; p < T; ++p) s = fmaf(dst[r * T + p], hlast[p * ld + o], s);
         adwout[e] += s;
       }
       if (tid < 6) {
@@ -377,17 +1143,17 @@ bwd_kernel(float* __restrict__ y, float* __restrict__ dy, const float* __restric
         float s = 0.f;
         for (int p = 0; p < T; ++p) {
           float v = 0.f;
-          for (int r = 0; r < 6; ++r) v = fmaf(w[r], rnd<S>(dst[r * T + p]), v);
-          v = v * (to_f(hlast[p * ld + o]) > 0.f ? 1.f : 0.f);
+          for (int r = 0; r < 6; ++r) v = fmaf(w[r], dst[r * T + p], v);
+          v = v * (hlast[p * ld + o] > 0.f ? 1.f : 0.f);
           s += v;
-          hlast[p * ld + o] = from_f<S>(v);
+          hlast[p * ld + o] = v;
         }
         first_sum[o] = NH1 > 0 ? first_sum[o] + s : s;
       }
 
       for (int j = NH1 - 1; j >= 0; --j) {
-        S* dh = hs + (j + 1) * hstride;   // cotangent of h_{j+1}, masked
-        S* hj = hs + j * hstride;
+        float* dh = hs + (j + 1) * hstride;   // cotangent of h_{j+1}, masked
+        float* hj = hs + j * hstride;
         float* acc = awh + j * astride;
         __syncthreads();
         // dWh[j] += dh^T h_j (zeroed before the tile loop)
@@ -396,22 +1162,22 @@ bwd_kernel(float* __restrict__ y, float* __restrict__ dy, const float* __restric
         // dh_j = (dh Wh[j]) * (h_j > 0), in place over h_j
         gemm<false, false>(T, H, H, dh, ld, ws + j * wstride, ld, stage, colpart,
                            [&](int m, int n, float v) {
-                             const float mv = v * (to_f(hj[m * ld + n]) > 0.f ? 1.f : 0.f);
-                             hj[m * ld + n] = from_f<S>(mv);
+                             const float mv = v * (hj[m * ld + n] > 0.f ? 1.f : 0.f);
+                             hj[m * ld + n] = mv;
                              return mv;
                            });
         __syncthreads();
         // db of hidden layer j-1 (summed over the tiles), or this tile's dhz
-        column_sums<S>(T, H, colpart, hj, ld, j > 0 ? adbh + (j - 1) * H : dhzs, j > 0);
+        column_sums<float>(T, H, colpart, hj, ld, j > 0 ? adbh + (j - 1) * H : dhzs, j > 0);
       }
       __syncthreads();
 
       // dWx += rnd(dh_0) rnd(x_k)^T; this tile's dhz partial
-      const S* dh0 = hs;
+      const float* dh0 = hs;
       for (int e = tid; e < 3 * H; e += THREADS) {
         const int o = e / 3, c = e % 3;
         float s = 0.f;
-        for (int p = 0; p < T; ++p) s = fmaf(to_f(dh0[p * ld + o]), rnd<S>(xks[c * T + p]), s);
+        for (int p = 0; p < T; ++p) s = fmaf(dh0[p * ld + o], xks[c * T + p], s);
         adwx[e] += s;
       }
       for (int e = tid; e < H; e += THREADS)
@@ -421,7 +1187,7 @@ bwd_kernel(float* __restrict__ y, float* __restrict__ dy, const float* __restric
       for (int p = warp; p < T; p += WARPS) {
         float s[3] = {0.f, 0.f, 0.f};
         for (int o = lane; o < H; o += 32) {
-          const float d = to_f(dh0[p * ld + o]);
+          const float d = dh0[p * ld + o];
           for (int c = 0; c < 3; ++c) s[c] = fmaf(wxs[o * 3 + c], d, s[c]);
         }
         for (int c = 0; c < 3; ++c)
@@ -451,42 +1217,40 @@ bwd_kernel(float* __restrict__ y, float* __restrict__ dy, const float* __restric
   }
 }
 
-template <typename S>
-int fwd_smem(int H, int NH1) { return FwdSmem<S>(H, NH1).total; }
-template <typename S>
-int bwd_smem(int H, int NH1) { return BwdSmem<S>(H, NH1).total; }
+int fwd_smem(int H, int NH1) { return FwdSmem(H, NH1).total; }
+int bwd_smem(int H, int NH1) { return BwdSmem(H, NH1).total; }
 
-template <typename S, int H>
+template <int H>
 cudaError_t launch_fwd(const float* xt, const float* hz, float* u, float* ld_part, const void* wx,
                        const void* wh, const float* bh, const void* wout, const float* bout,
                        const float* masks, int B, int N, int K, int NH1, float cap,
                        cudaStream_t stream) {
-  const int bytes = fwd_smem<S>(H, NH1);
-  cudaError_t e = cudaFuncSetAttribute(fwd_kernel<S, H>,
+  const int bytes = fwd_smem(H, NH1);
+  cudaError_t e = cudaFuncSetAttribute(fwd_kernel<H>,
                                        cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
   if (e != cudaSuccess) return e;
   dim3 grid((N + FWD_T - 1) / FWD_T, B);
-  fwd_kernel<S, H><<<grid, THREADS, bytes, stream>>>(
-      xt, hz, u, ld_part, static_cast<const S*>(wx), static_cast<const S*>(wh), bh,
-      static_cast<const S*>(wout), bout, masks, N, K, NH1, cap);
+  fwd_kernel<H><<<grid, THREADS, bytes, stream>>>(
+      xt, hz, u, ld_part, static_cast<const float*>(wx), static_cast<const float*>(wh), bh,
+      static_cast<const float*>(wout), bout, masks, N, K, NH1, cap);
   return cudaGetLastError();
 }
 
-template <typename S, int H>
+template <int H>
 cudaError_t launch_bwd(float* y, float* dy, const float* dld, const float* hz, const void* wx,
                        const void* wh, const float* bh, const void* wout, const float* bout,
                        const float* masks, float* part, float* dhz_part, float* dw,
                        float* dhz, int B, int N, int K, int NH1, float cap, int blocks,
                        cudaStream_t stream) {
-  const int bytes = bwd_smem<S>(H, NH1);
-  cudaError_t e = cudaFuncSetAttribute(bwd_kernel<S, H>,
+  const int bytes = bwd_smem(H, NH1);
+  cudaError_t e = cudaFuncSetAttribute(bwd_kernel<H>,
                                        cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
   if (e != cudaSuccess) return e;
-  bwd_kernel<S, H><<<blocks, THREADS, bytes, stream>>>(
-      y, dy, dld, hz, static_cast<const S*>(wx), static_cast<const S*>(wh), bh,
-      static_cast<const S*>(wout), bout, masks, part, dhz_part, B, N, K, NH1, cap);
+  bwd_kernel<H><<<blocks, THREADS, bytes, stream>>>(
+      y, dy, dld, hz, static_cast<const float*>(wx), static_cast<const float*>(wh), bh,
+      static_cast<const float*>(wout), bout, masks, part, dhz_part, B, N, K, NH1, cap);
   if ((e = cudaGetLastError()) != cudaSuccess) return e;
-  const int T = bwd_t<S>(), nt = (N + T - 1) / T;
+  const int T = BWD_T, nt = (N + T - 1) / T;
   const long long per_layer = 3LL * H + (long long)NH1 * H * H + (long long)NH1 * H + 6 * H + 6;
   if ((e = launch_reduce(part, dw, 1, blocks, per_layer * K, stream)) != cudaSuccess) return e;
   return launch_reduce(dhz_part, dhz, B, nt, (long long)K * H, stream);
@@ -508,13 +1272,13 @@ extern "C" {
 // points per forward block / per backward tile (the wrappers size the
 // log-det and dhz partials from it)
 int dpfx_fused_train_tile_points(int bf16, int backward) {
-  if (backward) return bf16 ? bwd_t<__nv_bfloat16>() : bwd_t<float>();
-  return FWD_T;
+  if (bf16) return MT;
+  return backward ? BWD_T : FWD_T;
 }
 
 int dpfx_fused_train_smem_bytes(int H, int NH1, int bf16, int backward) {
-  if (backward) return bf16 ? bwd_smem<__nv_bfloat16>(H, NH1) : bwd_smem<float>(H, NH1);
-  return bf16 ? fwd_smem<__nv_bfloat16>(H, NH1) : fwd_smem<float>(H, NH1);
+  if (bf16) return MmaSmem(H, NH1, backward != 0).total;
+  return backward ? bwd_smem(H, NH1) : fwd_smem(H, NH1);
 }
 
 int dpfx_fused_train_fwd(const float* xt, const float* hz, float* u, float* ld_part,
@@ -524,10 +1288,10 @@ int dpfx_fused_train_fwd(const float* xt, const float* hz, float* u, float* ld_p
   if (B <= 0 || N <= 0 || K <= 0 || NH1 < 0 || B > 65535) return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (bf16) {
-    DPFX_DISPATCH(H, (launch_fwd<__nv_bfloat16, HH>(xt, hz, u, ld_part, wx, wh, bh, wout, bout,
-                                                     masks, B, N, K, NH1, cap, s)))
+    DPFX_DISPATCH(H, (launch_fwd_mma<HH>(xt, hz, u, ld_part, wx, wh, bh, wout, bout, masks, B, N,
+                                         K, NH1, cap, s)))
   }
-  DPFX_DISPATCH(H, (launch_fwd<float, HH>(xt, hz, u, ld_part, wx, wh, bh, wout, bout, masks, B,
+  DPFX_DISPATCH(H, (launch_fwd<HH>(xt, hz, u, ld_part, wx, wh, bh, wout, bout, masks, B,
                                           N, K, NH1, cap, s)))
 }
 
@@ -539,11 +1303,10 @@ int dpfx_fused_train_bwd(float* y, float* dy, const float* dld, const float* hz,
   if (B <= 0 || N <= 0 || K <= 0 || NH1 < 0 || blocks <= 0) return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (bf16) {
-    DPFX_DISPATCH(H, (launch_bwd<__nv_bfloat16, HH>(y, dy, dld, hz, wx, wh, bh, wout, bout,
-                                                     masks, part, dhz_part, dw, dhz, B, N, K,
-                                                     NH1, cap, blocks, s)))
+    DPFX_DISPATCH(H, (launch_bwd_mma<HH>(y, dy, dld, hz, wx, wh, bh, wout, bout, masks, part,
+                                         dhz_part, dw, dhz, B, N, K, NH1, cap, blocks, s)))
   }
-  DPFX_DISPATCH(H, (launch_bwd<float, HH>(y, dy, dld, hz, wx, wh, bh, wout, bout, masks, part,
+  DPFX_DISPATCH(H, (launch_bwd<HH>(y, dy, dld, hz, wx, wh, bh, wout, bout, masks, part,
                                           dhz_part, dw, dhz, B, N, K, NH1, cap, blocks, s)))
 }
 

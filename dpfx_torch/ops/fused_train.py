@@ -232,10 +232,10 @@ def fused_forward_kernel(wx, wh, bh, wout, bout, masks, cap, xt, hz, dtype):
     return u, ld_part.sum(1)
 
 
-def fused_backward_kernel(wx, wh, bh, wout, bout, masks, cap, u, hz, du, dld, dtype):
-    """The backward kernel, then the fixed-order reduction of its per-block
-    weight-gradient partials and per-tile dhz partials: same contract as
-    ``fused_backward_plain``, and bit-identical from run to run."""
+def _backward_call(wx, wh, bh, wout, bout, masks, cap, u, hz, du, dld, dtype):
+    """Launch the backward kernel and the reductions of its partials.
+    Returns (y, dx, dw, dhz): y is the layer input the kernel rebuilt last
+    (the flow's input, rebuilt from u), dw the [K, per-layer] gradients."""
     k, h, _ = wx.shape
     nh1 = wh.shape[1]
     b, _, n = u.shape
@@ -263,6 +263,16 @@ def fused_backward_kernel(wx, wh, bh, wout, bout, masks, cap, u, hz, du, dld, dt
     if err != 0:
         raise RuntimeError(f"fused train backward kernel launch failed: cudaError {err}")
     launches["fused_train_bwd"] += 1
+    return y, dx, dw, dhz
+
+
+def fused_backward_kernel(wx, wh, bh, wout, bout, masks, cap, u, hz, du, dld, dtype):
+    """The backward kernel, then the fixed-order reduction of its per-block
+    weight-gradient partials and per-tile dhz partials: same contract as
+    ``fused_backward_plain``, and bit-identical from run to run."""
+    k, h, _ = wx.shape
+    nh1 = wh.shape[1]
+    _, dx, dw, dhz = _backward_call(wx, wh, bh, wout, bout, masks, cap, u, hz, du, dld, dtype)
     o = 0
     def take(size, shape):
         nonlocal o

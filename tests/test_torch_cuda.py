@@ -92,10 +92,10 @@ def test_fused_sample_draws_then_inverts(cuda):
 
 # ---------------------------------------------------------------- training kernels
 
-def _flow_weights(hidden, n_hidden, dev, k=5, seed=0):
+def _flow_weights(hidden, n_hidden, dev, k=5, seed=0, scale=0.1):
     flow = CouplingFlow(3, k, hidden, n_hidden, cond_dim=16, scale_cap=3.0)
     with torch.no_grad():
-        return fs.stack_point_flow_params(randomize_(flow, seed, 0.1).to(dev))
+        return fs.stack_point_flow_params(randomize_(flow, seed, scale).to(dev))
 
 
 def _rel(a, b):
@@ -136,6 +136,109 @@ def test_fused_train_kernels_match_plain(cuda, hidden, n_hidden, n, dtype):
         assert torch.equal(a, c), f"{name} is not bit-identical from run to run"
         if b.numel():
             assert _rel(a, b) <= tol, f"{name}: {_rel(a, b)}"
+
+
+# the bf16 kernels' shapes: every H, n_hidden - 1 from 0 to the backward's
+# limit (8, 3, 1, 0 at H = 32, 64, 128, 256), ragged N (130, 200, 2000), N
+# below one tile (77), one cloud; scale 0.02 at H=256 (see _sp)
+BF16_SHAPES = [(32, 1, 130, 3), (32, 9, 200, 2), (64, 2, 77, 1), (64, 4, 2000, 2),
+               (128, 1, 200, 3), (128, 2, 2000, 1), (128, 2, 130, 4), (256, 1, 200, 2)]
+
+
+@pytest.mark.parametrize("hidden,n_hidden,n,b", BF16_SHAPES)
+def test_fused_train_bf16_shapes_match_plain(cuda, hidden, n_hidden, n, b):
+    from dpfx_torch.ops import fused_train as ft
+    from dpfx_torch.ops.fused_sampler import z_projection
+
+    dt = torch.bfloat16
+    sp = _flow_weights(hidden, n_hidden, cuda, scale=0.02 if hidden == 256 else 0.1)
+    w = (sp.wx, sp.wh, sp.bh, sp.wout, sp.bout, sp.masks, sp.scale_cap)
+    g = torch.Generator(device=cuda).manual_seed(2)
+    xt = torch.randn((b, 3, n), generator=g, device=cuda)
+    hz = z_projection(sp, torch.randn((b, 16), generator=g, device=cuda))
+    u, ld = ft.fused_forward_kernel(*w, xt, hz, dt)
+    u_p, ld_p = ft.fused_forward_plain(*w, xt, hz, dt)
+    du = torch.randn(u.shape, generator=g, device=cuda)
+    dld = torch.randn(ld.shape, generator=g, device=cuda)
+    got = ft.fused_backward_kernel(*w, u_p, hz, du, dld, dt)
+    again = ft.fused_backward_kernel(*w, u_p, hz, du, dld, dt)
+    ref = ft.fused_backward_plain(*w, u_p, hz, du, dld, dt)
+    torch.cuda.synchronize()
+    # a flipped bf16 rounding of one hidden unit moves a value by ~1e-3 and
+    # the layers carry it on (the limits of test_fused_train_kernels_match_plain)
+    torch.testing.assert_close(u, u_p, atol=5e-2, rtol=2e-2)
+    torch.testing.assert_close(ld, ld_p, atol=1e-1, rtol=2e-2)
+    for name, a, r, c in zip(["dx", "dhz", "dwx", "dwh", "dbh", "dwout", "dbout"], got, ref,
+                             again):
+        assert torch.equal(a, c), f"{name} is not bit-identical from run to run"
+        assert bool(torch.isfinite(a).all()), name
+        if r.numel():
+            assert _rel(a, r) <= 2e-2, f"{name}: {_rel(a, r)}"
+
+
+@pytest.mark.parametrize("hidden,n_hidden,n", [(32, 3, 200), (128, 2, 2000), (128, 2, 77),
+                                               (64, 1, 130)])
+def test_fused_train_bf16_backward_rebuilds_the_forward_input(cuda, hidden, n_hidden, n):
+    """The backward recomputes each layer's conditioner with the forward's
+    own device code, so its (s, t) are the forward's bit for bit. With the
+    first K-1 couplings the identity (Wout, bout zero) and the coordinates
+    that the last coupling transforms set to 0, the forward gives
+    u = 0 * exp(s) + t = t exactly, and the input that the backward
+    rebuilds of layer K-1, (u - t') / exp(s'), is exactly the forward's
+    input if and only if t' = t."""
+    from dpfx_torch.ops import fused_train as ft
+    from dpfx_torch.ops.fused_sampler import z_projection
+
+    dt = torch.bfloat16
+    sp = _flow_weights(hidden, n_hidden, cuda, k=4)
+    wout, bout = sp.wout.clone(), sp.bout.clone()
+    wout[:-1] = 0.0
+    bout[:-1] = 0.0
+    w = (sp.wx, sp.wh, sp.bh, wout, bout, sp.masks, sp.scale_cap)
+    g = torch.Generator(device=cuda).manual_seed(3)
+    xt = torch.randn((2, 3, n), generator=g, device=cuda)
+    xt[:, sp.masks[-1] == 0] = 0.0
+    hz = z_projection(sp, torch.randn((2, 16), generator=g, device=cuda))
+    u, _ = ft.fused_forward_kernel(*w, xt, hz, dt)
+    moved = u[:, sp.masks[-1] == 0]
+    assert float(moved.abs().min()) > 0.0, "the last coupling must move every point"
+    rebuilt, *_ = ft._backward_call(*w, u, hz, torch.zeros_like(u), torch.zeros(2, device=cuda),
+                                    dt)
+    torch.cuda.synchronize()
+    assert torch.equal(rebuilt, xt)
+
+
+@pytest.mark.parametrize("hidden,n_hidden,n", [(128, 5, 200), (256, 2, 130)])
+def test_fused_train_bf16_forward_with_one_weight_stage_matches_plain(cuda, hidden, n_hidden, n):
+    """Deeper conditioners than the backward takes: two layers' weights do
+    not fit the forward's shared memory, so it loads each layer's stage
+    between two barriers instead of one layer ahead."""
+    from dpfx_torch.ops import fused_train as ft
+    from dpfx_torch.ops.fused_sampler import z_projection
+
+    dt = torch.bfloat16
+    sp = _flow_weights(hidden, n_hidden, cuda, k=4, scale=0.02 if hidden == 256 else 0.1)
+    w = (sp.wx, sp.wh, sp.bh, sp.wout, sp.bout, sp.masks, sp.scale_cap)
+    g = torch.Generator(device=cuda).manual_seed(4)
+    xt = torch.randn((2, 3, n), generator=g, device=cuda)
+    hz = z_projection(sp, torch.randn((2, 16), generator=g, device=cuda))
+    u, ld = ft.fused_forward_kernel(*w, xt, hz, dt)
+    u_p, ld_p = ft.fused_forward_plain(*w, xt, hz, dt)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(u, u_p, atol=5e-2, rtol=2e-2)
+    torch.testing.assert_close(ld, ld_p, atol=1e-1, rtol=2e-2)
+
+
+@pytest.mark.parametrize("hidden,n_hidden", [(32, 10), (64, 5), (128, 3), (256, 2)])
+def test_fused_train_bf16_backward_beyond_its_shared_memory_raises(cuda, hidden, n_hidden):
+    from dpfx_torch.ops import fused_train as ft
+
+    sp = _flow_weights(hidden, n_hidden, cuda, k=2)
+    w = (sp.wx, sp.wh, sp.bh, sp.wout, sp.bout, sp.masks, sp.scale_cap)
+    u = torch.zeros((1, 3, 64), device=cuda)
+    hz = torch.zeros((1, 2, hidden), device=cuda)
+    with pytest.raises(ValueError, match="shared memory"):
+        ft.fused_backward_kernel(*w, u, hz, u, torch.zeros(1, device=cuda), torch.bfloat16)
 
 
 @pytest.mark.parametrize("widths,n", [((32, 64), 200), ((32, 32, 64, 128), 256),

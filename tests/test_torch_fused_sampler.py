@@ -28,6 +28,11 @@ def tiny(n_hidden=2, activation="relu"):
 
 
 def _models(n_hidden=2, activation="relu", seed=0):
+    # the modules' own init draws from torch's global generator, whose state
+    # depends on the process and on the tests it ran before: without a seed
+    # each run tests other weights, and a rare draw puts one element's f32
+    # noise past 1e-5
+    torch.manual_seed(seed)
     model = randomize_(DPF(config_from_dict(tiny(n_hidden, activation))), seed, 0.15)
     params = params_to_flax(model.state_dict())
     jparams = {"params": {k: {kk: vv for kk, vv in v.items()} for k, v in params["params"].items()}}

@@ -34,6 +34,10 @@ def tiny(n_layers=5, n_hidden=2, dtype="float32", activation="relu", actnorm=Fal
 
 def _setup(n_layers, n_hidden, n, dtype="float32", b=3, seed=0):
     cfg = tiny(n_layers, n_hidden, dtype)
+    # the modules' own init draws from torch's global generator, whose state
+    # depends on the process and on the tests it ran before: seed it, so
+    # every run tests the same weights
+    torch.manual_seed(seed)
     model = randomize_(DPF(config_from_dict(cfg)), seed, 0.1)
     rng = np.random.default_rng(seed)
     x = rng.normal(size=(b, n, 3)).astype(np.float32)
