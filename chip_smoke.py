@@ -25,7 +25,10 @@ script exits non-zero without a result line):
      128/128/256/512, a cloud of duplicated points and a dead feature), each
      backward run twice and required bit-identical; the plain f32 backwards
      run once more with TF32 products allowed, a control that the f32 limit
-     must fail; then the latent-flow kernels (fused_latent.cu) at the
+     must fail; the encoder on clouds of one repeated point (every row
+     critical: the backward walks all of them) at N=2000 and 77, the share
+     of critical rows at B=64 and the registers and spills of the encoder's
+     bf16 kernels (forward, select, walk); then the latent-flow kernels (fused_latent.cu) at the
      flagship latent widths (K=14, dz=128, H=256) and B=8, 64 and 130 (a
      ragged last tile over nine blocks): forward (u, log-det), inverse and
      backward (dz, every weight and bias gradient) in f32 and bf16, the
@@ -109,7 +112,11 @@ script exits non-zero without a result line):
      held against their plain versions again (u, log-det, every gradient;
      each backward bit-identical across two runs), the redesigned
      fused_train kernels' times beside their first versions' (FIRST_TRAIN_MS),
-     with their bounds and ptxas' registers and spills, and the train
+     with their bounds and ptxas' registers and spills, the redesigned
+     fused_encoder kernels' times beside their first design's
+     (FIRST_ENCODER_MS), the backward's select, walk and reduce apart (the
+     profiler), the training batch's critical rows and the FLOP the kernels
+     issue beside the bounds' dense work, and the train
      step's ms/step with the fused latent flow off and on, the latent-flow kernels
      at B=64, then one JSON line with
      every kernel's error, time, plain time and bound, the evaluation
@@ -235,6 +242,10 @@ TRAIN_STEPS = 30
 # block-wide design (WMMA through a staging tile, 64-point backward tiles;
 # NVIDIA H100 80GB HBM3, 700.00 W), printed beside phase 4's
 FIRST_TRAIN_MS = {"fwd": 4.808, "bwd": 14.805}
+# the fused_encoder bf16 kernels' times at B=64 x 2048 before the rows
+# design (WMMA through a staging tile, 64-point tiles, a dense backward;
+# NVIDIA H100 80GB HBM3, 700.00 W), printed beside phase 4's
+FIRST_ENCODER_MS = {"fwd": 2.641, "bwd": 5.606}
 
 
 def check(cond: bool, what: str) -> None:
@@ -370,6 +381,50 @@ def encoder_bounds(widths, b: int, n: int):
     fwd = bound_of(2.0 * b * n * macs, 12 * b * n + 2 * nw + 2 * 4 * b * w)
     bwd = bound_of(2.0 * b * n * 3 * macs, 2 * 12 * b * n + 2 * nw + 3 * 4 * b * w + 4 * nw)
     return fwd, bwd
+
+
+def encoder_issued(widths, b: int, n: int, rows: int):
+    """FLOP the encoder's bf16 kernels issue at B x N with ``rows`` critical
+    rows: the forward and the select run the dense chain over whole tiles
+    of 128 points; the walk recomputes h_1 .. h_{L-1} and runs the
+    weight-gradient and cotangent products on its groups of 64 gathered
+    rows."""
+    macs = [widths[i] * widths[i + 1] for i in range(len(widths) - 1)]
+    tile_rows = b * -(-n // 128) * 128
+    walk_rows = -(-rows // 64) * 64
+    chain = 2.0 * tile_rows * sum(macs)
+    return chain, chain + 2.0 * walk_rows * (sum(macs[:-1]) + 2 * sum(macs))
+
+
+def critical_rows(fe, ws, bs, x, g, dtype) -> int:
+    """Points of x that reach some live feature's max (g > 0): the rows the
+    encoder's backward walks, from its plain select."""
+    import torch
+
+    with torch.no_grad():
+        h = fe._chain(ws, bs, x, dtype)[-1].float()
+        return int(((h == g[:, None]) & (g[:, None] > 0)).any(-1).sum())
+
+
+def encoder_ptxas() -> dict:
+    """Registers and spilled bytes (stores/loads) of the fused_encoder bf16
+    rows-design kernels (forward, select, walk), from ptxas' log."""
+    import re
+
+    from dpfx_torch.ops import _build
+
+    names = {"tile_kernelILb0E": "forward", "tile_kernelILb1E": "select",
+             "walk_kernel": "walk"}
+    found, cur = {}, None
+    for line in _build.ptxas_log("fused_encoder").splitlines():
+        if "Compiling entry function" in line:
+            cur = next((v for k, v in names.items() if k in line), None)
+        elif cur and "spill stores" in line:
+            st, ld = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line).groups()
+            found.setdefault(cur, {})["spill"] = f"{st}/{ld}"
+        elif cur and "Used" in line:
+            found.setdefault(cur, {})["regs"] = int(re.search(r"Used (\d+) registers", line).group(1))
+    return found
 
 
 def rel(a, b) -> float:
@@ -1680,6 +1735,45 @@ def main() -> int:
                       f"fused_encoder forward and backward: {ctl:.2e}")
                 check(ctl > TOL_GRAD_F32, f"the f32 limit fails a TF32 control ({ctl})")
 
+    # the encoder's backward walks only the critical rows (those at some live
+    # feature's max): every row critical (each cloud one point repeated) at a
+    # ragged N and at one smaller than a tile, then the share of critical
+    # rows at B=64 and the rows-design kernels' registers and spills
+    for n in (2000, 77):
+        xi = torch.randn((4, 1, 3), generator=g, device=dev).expand(4, n, 3).contiguous()
+        for dtype in (torch.float32, torch.bfloat16):
+            tol = TOL_GRAD_F32 if dtype == torch.float32 else TOL_GRAD_BF16
+            pk, ck = fe.pool_forward_kernel(ews, ebs, xi, dtype)
+            pp, cp = fe.pool_forward_plain(ews, ebs, xi, dtype)
+            dg = torch.randn(pk.shape, generator=g, device=dev)
+            got = fe.pool_backward_kernel(ews, ebs, xi, pk, ck, dg, dtype)
+            again = fe.pool_backward_kernel(ews, ebs, xi, pk, ck, dg, dtype)
+            ref = fe.pool_backward_plain(ews, ebs, xi, pp, cp, dg, dtype)
+            torch.cuda.synchronize()
+            eerr = {nm: rel(a, b) for nm, a, b in zip(enc_names, flat(got), flat(ref))}
+            live = pk > 0
+            crit = critical_rows(fe, ews, ebs, xi, pp, dtype)
+            print(f"kernel-vs-plain fused_encoder, every row critical, B=4 N={n} {dtype}: "
+                  f"critical rows {crit} of {4 * n}; pooled rel {rel(pk, pp):.3e}; grad rel "
+                  + " ".join(f"{k}={v:.2e}" for k, v in eerr.items()))
+            check(crit == 4 * n and bool((ck[live] == n).all()),
+                  f"every row of identical points is critical ({crit} of {4 * n})")
+            check(all(torch.equal(a, c) for a, c in zip(flat(got), flat(again))),
+                  f"fused_encoder backward bit-identical, every row critical, N={n} {dtype}")
+            check(rel(pk, pp) <= tol and max(eerr.values()) <= tol,
+                  f"fused_encoder every row critical N={n} {dtype}: {rel(pk, pp)}, {eerr}")
+    x64 = torch.randn((64, 2048, 3), generator=g, device=dev)
+    p64, _ = fe.pool_forward_plain(ews, ebs, x64, torch.bfloat16)
+    crit = critical_rows(fe, ews, ebs, x64, p64, torch.bfloat16)
+    eregs = encoder_ptxas()
+    print(f"fused_encoder critical rows at B=64 N=2048 bf16 (unit normal clouds): {crit} of "
+          f"{64 * 2048} ({crit / (64 * 2048):.4f}); ptxas "
+          + "; ".join(f"{k} {v.get('regs')} registers, spilled bytes (stores/loads) "
+                      f"{v.get('spill')}" for k, v in eregs.items()))
+    check(all("regs" in eregs.get(k, {}) for k in ("forward", "select", "walk")),
+          f"ptxas reported the fused_encoder rows-design kernels: {eregs}")
+    del x64, p64
+
     # ---- 2b'. the latent-flow kernels vs their plain versions at the flagship
     # latent widths; B=130 is a ragged last tile over nine blocks
     lfc = cfg.model.latent_flow
@@ -2083,6 +2177,29 @@ def main() -> int:
     eb_plain = cuda_ms(lambda: fe.pool_backward_plain(ews, ebs, xc, pp, cp, dg, bf), 3, warmup=1)
     (b_tf, by_tf), (b_tb, by_tb) = train_bounds(sp, b, n)
     (b_ef, by_ef), (b_eb, by_eb) = encoder_bounds(widths, b, n)
+    # the rows design: the backward's select, walk and reduce apart (the
+    # profiler's device time over 10 calls), the critical rows of this
+    # batch and the FLOP the kernels issue beside the dense work of the bound
+    _, _, evs = profiled(lambda: fe.pool_backward_kernel(ews, ebs, xc, pk, ck, dg, bf), 10)
+    split = {part: sum(e.self_device_time_total for e in evs if key in e.key) / 10e3
+             for part, key in (("select", "tile_kernel"), ("walk", "walk_kernel"),
+                               ("reduce", "reduce_slices"))}
+    check(all(v > 0 for v in split.values()), f"the profiler saw the encoder's backward: {split}")
+    crit = critical_rows(fe, ews, ebs, xc, pp, bf)
+    fwd_issued, bwd_issued = encoder_issued(widths, b, n, crit)
+    macs = sum(widths[i] * widths[i + 1] for i in range(len(widths) - 1))
+    eregs = encoder_ptxas()
+    print(f"redesigned fused_encoder at B={b} N={n} bf16 (training batch): forward {ef_ms:.3f} ms "
+          f"(first design: {FIRST_ENCODER_MS['fwd']:.3f} ms, {FIRST_ENCODER_MS['fwd'] / ef_ms:.2f}x), "
+          f"bound {b_ef:.4f} ms ({ef_ms / b_ef:.1f}x); backward {eb_ms:.3f} ms (first design: "
+          f"{FIRST_ENCODER_MS['bwd']:.3f} ms, {FIRST_ENCODER_MS['bwd'] / eb_ms:.2f}x), bound "
+          f"{b_eb:.4f} ms ({eb_ms / b_eb:.1f}x): select {split['select']:.4f}, walk "
+          f"{split['walk']:.4f}, reduce {split['reduce']:.4f} ms (profiler); critical rows {crit} "
+          f"of {b * n} ({crit / (b * n):.4f}); FLOP issued forward {fwd_issued / 1e9:.2f} G, "
+          f"backward {bwd_issued / 1e9:.2f} G (the bounds' dense work: "
+          f"{2.0 * b * n * macs / 1e9:.2f} G and {6.0 * b * n * macs / 1e9:.2f} G); ptxas "
+          + "; ".join(f"{k} {v.get('regs')} registers, spilled {v.get('spill')}"
+                      for k, v in eregs.items()) + f" ({card})")
     tsrc, esrc = "dpfx_torch/ops/csrc/fused_train.cu", "dpfx_torch/ops/csrc/fused_encoder.cu"
     for name, src, where, launched, err, ms, plain, bnd, by in (
             ("fused_train_fwd", tsrc, "dpfx/ops/fused_train.py:131", train_launches["fused_train_fwd"],
@@ -2180,9 +2297,10 @@ def main() -> int:
             runs[key][1], _ = fn(st, batches[next(seeds) % 4])
 
         wall_us, busy_us, dev_events = profiled(one_step, 5)
-        check(sum("bwd_kernel" in e.key for e in dev_events) >= (3 if key == "on" else 2)
-              and sum("fwd_kernel" in e.key for e in dev_events) >= 2
-              and (key == "off" or any("flow_kernel" in e.key for e in dev_events)),
+        seen = lambda name: sum(name in e.key for e in dev_events)
+        check(seen("fwd_kernel_mma") and seen("bwd_kernel_mma") and seen("tile_kernel") >= 2
+              and seen("walk_kernel") and seen("reduce_slices")
+              and (key == "off" or (seen("flow_kernel") and seen("bwd_kernel") >= 2)),
               f"the profiler saw the training kernels on the device ({name})")
         top = sorted(dev_events, key=lambda e: -e.self_device_time_total)[:8]
         print(f"profile {name} x5: wall {wall_us / 5e3:.3f} ms/step, device busy "

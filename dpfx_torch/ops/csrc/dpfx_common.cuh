@@ -286,7 +286,7 @@ __device__ void column_sums(int M, int N, const float* colpart, const S* buf, in
   column_sums<S>(Group::block(), M, N, colpart, buf, ld, out, accumulate);
 }
 
-// ---- warp-level tensor-core products (fused_train.cu)
+// ---- warp-level tensor-core products (fused_train.cu, fused_encoder.cu)
 //
 // mma.sync m16n8k16 / m16n8k8 on bf16 operands with f32 accumulators, and
 // the ldmatrix loads that feed it. Fragments as the PTX ISA lays them out,
@@ -346,6 +346,23 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
 }
 __device__ __forceinline__ float2 unpack_bf16(uint32_t v) {
   return __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&v));
+}
+
+__device__ __forceinline__ int lane_id() { return threadIdx.x & 31; }
+
+// the A fragment (m16 k8) of the warp's 16 points' coordinates, rounded to
+// bf16 and zero in k = 3..7, each lane p < 16 (and its mirror p + 16)
+// holding point p's x[3] (fused_train.cu, fused_encoder.cu)
+__device__ __forceinline__ void coord_frag(const float (&x)[3], uint32_t& a0, uint32_t& a1) {
+  const int lane = lane_id(), g = lane >> 2, t = lane & 3;
+  float r[6];
+#pragma unroll
+  for (int c = 0; c < 3; ++c) {
+    r[c] = __shfl_sync(0xffffffffu, x[c], g);
+    r[3 + c] = __shfl_sync(0xffffffffu, x[c], g + 8);
+  }
+  a0 = t == 0 ? pack_bf16(r[0], r[1]) : t == 1 ? pack_bf16(r[2], 0.f) : 0u;
+  a1 = t == 0 ? pack_bf16(r[3], r[4]) : t == 1 ? pack_bf16(r[5], 0.f) : 0u;
 }
 
 // 16-byte copies from global to shared memory that run behind the

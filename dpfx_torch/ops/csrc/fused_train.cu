@@ -139,8 +139,6 @@ struct Rows {
   uint32_t a[H / 16][4];
 };
 
-__device__ __forceinline__ int lane_id() { return threadIdx.x & 31; }
-
 // start the cp.async copies of layer k's Wh and Wout into a stage
 template <int H>
 __device__ void stage_load(unsigned char* st, const MmaSmem& L, const bf16* wh, const bf16* wout,
@@ -200,20 +198,6 @@ __device__ void zero_pads(unsigned char* smem, const MmaSmem& L, bool backward) 
     for (int e = threadIdx.x; e < 2 * (MT + 8); e += THREADS) db[6 * (MT + 8) + e] = z;
     for (int e = threadIdx.x; e < 5 * (MT + 8); e += THREADS) xb[3 * (MT + 8) + e] = z;
   }
-}
-
-// the A fragment (m16 k8) of the warp's 16 points' coordinates, each lane
-// p < 16 (and its mirror p + 16) holding point p's x[3]
-__device__ __forceinline__ void coord_frag(const float (&x)[3], uint32_t& a0, uint32_t& a1) {
-  const int lane = lane_id(), g = lane >> 2, t = lane & 3;
-  float r[6];
-#pragma unroll
-  for (int c = 0; c < 3; ++c) {
-    r[c] = __shfl_sync(0xffffffffu, x[c], g);
-    r[3 + c] = __shfl_sync(0xffffffffu, x[c], g + 8);
-  }
-  a0 = t == 0 ? pack_bf16(r[0], r[1]) : t == 1 ? pack_bf16(r[2], 0.f) : 0u;
-  a1 = t == 0 ? pack_bf16(r[3], r[4]) : t == 1 ? pack_bf16(r[5], 0.f) : 0u;
 }
 
 // relu(c + bias) of C tile nt, cast to bf16 into the A fragments (and into

@@ -18,7 +18,10 @@ every point of the cloud that reaches the maximum (mask / count), and a
 feature whose maximum is 0 (every pre-activation <= 0) gets none, through
 relu' of the last layer. The forward emits each tile's maximum and the
 count of its points at that maximum, so the backward knows the count over
-the whole cloud before it starts.
+the whole cloud before it starts. The backward's cotangent reaches only a
+cloud's critical points (those at some live feature's maximum), so it
+selects them first and walks the layers down on them alone
+(``pool_backward_plain`` says how).
 
 The FC heads stay in torch (``fused_pointnet_posterior``). Every wrapper
 takes its plain PyTorch version for a tensor on the CPU and launches the
@@ -86,22 +89,32 @@ def pool_forward_plain(ws: Sequence[Tensor], bs: Sequence[Tensor], x: Tensor,
 
 def pool_backward_plain(ws: Sequence[Tensor], bs: Sequence[Tensor], x: Tensor, g: Tensor,
                         cnt: Tensor, dg: Tensor, dtype: torch.dtype):
-    """The backward kernel's arithmetic: recompute, the tie mask, and the
-    reverse walk with every cotangent rounded to ``dtype`` before a product.
-    Returns (dx [B, N, 3], [dW_i], [db_i]), float32."""
+    """The backward kernels' arithmetic, in their three steps.
+
+    Select: the chain over every point and the tie mask of the last layer,
+    h_L == g where g > 0 (on a tie h_L > 0 <=> g > 0); a point with a tie
+    bit is critical. Gather the critical points, cloud by cloud in point
+    order. Walk: recompute h_1 .. h_{L-1} on them alone, dh_L = mask * dg /
+    max(count, 1), and the reverse walk with every cotangent rounded to
+    ``dtype`` before a product. Every other point adds exactly 0 to every
+    gradient, and its dx is 0. Returns (dx [B, N, 3], [dW_i], [db_i]),
+    float32."""
     rnd = lambda a: a.to(dtype).float()
-    hs = _chain(ws, bs, x, dtype)
-    h_last = hs[-1].float()
-    tie = (h_last == g[:, None]).float()
-    dh = dg[:, None] * tie / cnt.clamp_min(1.0)[:, None] * (h_last > 0)
+    h_last = _chain(ws, bs, x, dtype)[-1].float()
+    mask = (h_last == g[:, None]) & (g[:, None] > 0)
+    bi, ni = mask.any(-1).nonzero(as_tuple=True)
+    hs = _chain(ws[:-1], bs[:-1], x[bi, ni], dtype)
+    dh = torch.where(mask[bi, ni], (dg / cnt.clamp_min(1.0))[bi], 0.0)
     dws, dbs = [None] * len(ws), [None] * len(ws)
     for i in reversed(range(len(ws))):
-        dws[i] = torch.einsum("bno,bni->oi", rnd(dh), rnd(hs[i]))
-        dbs[i] = dh.sum((0, 1))
+        dws[i] = rnd(dh).t() @ rnd(hs[i])
+        dbs[i] = dh.sum(0)
         dh = rnd(dh) @ rnd(ws[i])
         if i > 0:
             dh = dh * (hs[i].float() > 0)
-    return dh, dws, dbs
+    dx = torch.zeros_like(x, dtype=torch.float32)
+    dx[bi, ni] = dh
+    return dx, dws, dbs
 
 
 # ---------------------------------------------------------------- kernel launch
@@ -122,29 +135,36 @@ def _lib() -> ctypes.CDLL:
     lib.dpfx_fused_encoder_bwd.argtypes = [
         p, pp, pp, ip, i,             # x, weights, biases, widths, L
         p, p, p,                      # g [B, W], count [B, W], dg [B, W]
-        p, p, p,                      # dx [B, N, 3], per-block partials, reduced grads
+        p, p, p, p,                   # dx [B, N, 3], per-block partials, reduced grads, rows
         i, i, i, i, p,                # B, N, bf16, blocks, stream
     ]
     lib.dpfx_fused_encoder_smem_bytes.argtypes = [ip, i, i]
-    lib.dpfx_fused_encoder_tile_points.argtypes = [i]
+    lib.dpfx_fused_encoder_tile_points.argtypes = [ip, i, i]
+    lib.dpfx_fused_encoder_bwd_blocks.argtypes = [ip, i, i, i, i, i]
+    lib.dpfx_fused_encoder_bwd_scratch_bytes.argtypes = [ip, i, i, i, i]
     for fn in (lib.dpfx_fused_encoder_fwd, lib.dpfx_fused_encoder_bwd,
-               lib.dpfx_fused_encoder_smem_bytes, lib.dpfx_fused_encoder_tile_points):
+               lib.dpfx_fused_encoder_smem_bytes, lib.dpfx_fused_encoder_tile_points,
+               lib.dpfx_fused_encoder_bwd_blocks):
         fn.restype = ctypes.c_int
+    lib.dpfx_fused_encoder_bwd_scratch_bytes.restype = ctypes.c_longlong
     return lib
 
 
-def _tiles(n: int, dtype: torch.dtype) -> int:
-    """Tiles of a cloud of n points, at the kernel library's points per block."""
-    t = _lib().dpfx_fused_encoder_tile_points(int(dtype == torch.bfloat16))
+def _widths(widths: Sequence[int]):
+    return (ctypes.c_int * len(widths))(*widths), len(widths) - 1
+
+
+def _tiles(widths: Sequence[int], n: int, dtype: torch.dtype) -> int:
+    """Forward tiles of a cloud of n points, at the kernel library's points
+    per tile for these widths and dtype."""
+    t = _lib().dpfx_fused_encoder_tile_points(*_widths(widths), int(dtype == torch.bfloat16))
     return (n + t - 1) // t
 
 
 def smem_bytes(widths: Sequence[int], dtype: torch.dtype) -> int:
-    """Dynamic shared memory of one block (forward and backward share the
-    layout), as the kernel library lays it out; ``widths`` = (3, W_1 .. W_L)."""
-    arr = (ctypes.c_int * len(widths))(*widths)
-    return _lib().dpfx_fused_encoder_smem_bytes(arr, len(widths) - 1,
-                                                int(dtype == torch.bfloat16))
+    """The most dynamic shared memory one block of the mode's kernels takes,
+    as the kernel library lays it out; ``widths`` = (3, W_1 .. W_L)."""
+    return _lib().dpfx_fused_encoder_smem_bytes(*_widths(widths), int(dtype == torch.bfloat16))
 
 
 def _check(ws, x, dtype, extra: Dict[str, Tensor]) -> List[int]:
@@ -187,7 +207,8 @@ def pool_forward_kernel(ws, bs, x, dtype):
     max and count follow in two small torch reductions."""
     widths = _check(ws, x, dtype, {})
     b, n, _ = x.shape
-    pmax = torch.empty((b, _tiles(n, dtype), widths[-1]), device=x.device, dtype=torch.float32)
+    pmax = torch.empty((b, _tiles(widths, n, dtype), widths[-1]), device=x.device,
+                       dtype=torch.float32)
     pcnt = torch.empty_like(pmax)
     keep = _operands(ws, bs, widths, dtype)
     stream = torch.cuda.current_stream(x.device).cuda_stream
@@ -203,24 +224,30 @@ def pool_forward_kernel(ws, bs, x, dtype):
 
 
 def pool_backward_kernel(ws, bs, x, g, cnt, dg, dtype):
-    """The backward kernel (a persistent grid, one gradient slice per block),
-    then the fixed-order reduction of the slices: same contract as
-    ``pool_backward_plain``, and bit-identical from run to run."""
+    """The backward kernels (bf16: select, then the walk over the critical
+    rows on a persistent grid; f32: one persistent kernel), then the
+    fixed-order reduction of the grid's gradient slices: same contract as
+    ``pool_backward_plain``, bit-identical from run to run, and no host
+    sync (the number of critical rows stays on the card)."""
     widths = _check(ws, x, dtype, dict(g=g, cnt=cnt, dg=dg))
     b, n, _ = x.shape
-    blocks = min(b * _tiles(n, dtype), torch.cuda.get_device_properties(x.device)
-                 .multi_processor_count)
+    bf = int(dtype == torch.bfloat16)
+    wd, nl = _widths(widths)
+    sms = torch.cuda.get_device_properties(x.device).multi_processor_count
+    blocks = _lib().dpfx_fused_encoder_bwd_blocks(wd, nl, bf, b, n, sms)
+    scratch = _lib().dpfx_fused_encoder_bwd_scratch_bytes(wd, nl, bf, b, n)
     sizes = [widths[i + 1] * widths[i] for i in range(len(ws))] + widths[1:]
     dx = torch.empty_like(x)
     part = torch.empty((blocks, sum(sizes)), device=x.device, dtype=torch.float32)
     flat = torch.empty(sum(sizes), device=x.device, dtype=torch.float32)
+    rows = torch.empty(max(scratch, 1), device=x.device, dtype=torch.uint8)
     keep = _operands(ws, bs, widths, dtype)
     stream = torch.cuda.current_stream(x.device).cuda_stream
     with torch.cuda.device(x.device):
         err = _lib().dpfx_fused_encoder_bwd(
             x.data_ptr(), keep[2], keep[3], keep[4], len(ws), g.data_ptr(), cnt.data_ptr(),
-            dg.data_ptr(), dx.data_ptr(), part.data_ptr(), flat.data_ptr(),
-            b, n, int(dtype == torch.bfloat16), blocks, stream)
+            dg.data_ptr(), dx.data_ptr(), part.data_ptr(), flat.data_ptr(), rows.data_ptr(),
+            b, n, bf, blocks, stream)
     if err != 0:
         raise RuntimeError(f"fused encoder backward kernel launch failed: cudaError {err}")
     launches["fused_encoder_bwd"] += 1

@@ -242,21 +242,34 @@ def test_fused_train_bf16_backward_beyond_its_shared_memory_raises(cuda, hidden,
 
 
 @pytest.mark.parametrize("widths,n", [((32, 64), 200), ((32, 32, 64, 128), 256),
-                                      ((16, 128), 77)])
+                                      ((16, 128), 77), ((32, 320, 64), 130), ((64,), 130),
+                                      ((16, 32, 16, 32, 16, 32, 16, 48), 150)])
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-def test_fused_encoder_kernels_match_plain(cuda, widths, n, dtype):
+@pytest.mark.parametrize("cloud", ["ties", "identical", "dead"])
+def test_fused_encoder_kernels_match_plain(cuda, widths, n, dtype, cloud):
+    """Clouds: duplicated points (max-pool ties) and a dead feature; cloud 0
+    one point repeated (every row critical); every feature dead (no row
+    critical). Widths from one point layer to eight; the 320-wide layer
+    takes the block-wide kernels in bf16."""
     from dpfx_torch.models import PointNetEncoder
     from dpfx_torch.ops import fused_encoder as fe
 
     dt = getattr(torch, dtype)
+    torch.manual_seed(0)            # the module's own init
     enc = randomize_(PointNetEncoder(16, widths, (32,)), 0, 0.1).to(cuda)
+    last = getattr(enc, f"point_{len(widths) - 1}")
     with torch.no_grad():
-        getattr(enc, f"point_{len(widths) - 1}").bias[3] = -100.0      # a dead feature
+        last.bias[3] = -100.0                                           # a dead feature
+        if cloud == "dead":
+            last.bias.fill_(-100.0)
     ws, bs = [w.detach() for w in fe.encoder_point_weights(enc)[0]], \
         [b.detach() for b in fe.encoder_point_weights(enc)[1]]
     g = torch.Generator(device=cuda).manual_seed(1)
     x = torch.randn((3, n, 3), generator=g, device=cuda)
-    x[0, n // 2:] = x[0, : n - n // 2].clone()                          # ties
+    if cloud == "identical":
+        x[0] = x[0, :1].clone()
+    else:
+        x[0, n // 2:] = x[0, : n - n // 2].clone()                      # ties
     fe.reset_launch_counts()
     pooled, cnt = fe.pool_forward_kernel(ws, bs, x, dt)
     pooled_p, cnt_p = fe.pool_forward_plain(ws, bs, x, dt)
@@ -272,10 +285,41 @@ def test_fused_encoder_kernels_match_plain(cuda, widths, n, dtype):
     torch.testing.assert_close(pooled, pooled_p, atol=tol, rtol=tol)
     if dt == torch.float32:
         torch.testing.assert_close(cnt, cnt_p, atol=0, rtol=0)
+    assert float(pooled[:, 3].abs().max()) == 0.0 and float(got[2][-1][3].abs()) == 0.0
+    if cloud == "identical":
+        live = pooled[0] > 0
+        assert bool((cnt[0][live] == n).all())
     flat = lambda r: [r[0]] + list(r[1]) + list(r[2])
     for i, (a, b, c) in enumerate(zip(flat(got), flat(ref), flat(again))):
         assert torch.equal(a, c), f"tensor {i} is not bit-identical from run to run"
         assert _rel(a, b) <= (1e-4 if dt == torch.float32 else 2e-2), f"tensor {i}: {_rel(a, b)}"
+        if cloud == "dead":
+            assert float(a.abs().max()) == 0.0, f"tensor {i} is not 0 with every feature dead"
+
+
+def test_fused_encoder_backward_makes_no_host_sync(cuda):
+    """The backward keeps the number of critical rows on the card: under
+    sync debug mode "error" a host sync would raise."""
+    from dpfx_torch.models import PointNetEncoder
+    from dpfx_torch.ops import fused_encoder as fe
+
+    torch.manual_seed(0)            # the module's own init
+    enc = randomize_(PointNetEncoder(16, (32, 64), (32,)), 0, 0.1).to(cuda)
+    ws, bs = [w.detach() for w in fe.encoder_point_weights(enc)[0]], \
+        [b.detach() for b in fe.encoder_point_weights(enc)[1]]
+    x = torch.randn((4, 300, 3), generator=torch.Generator(device=cuda).manual_seed(2),
+                    device=cuda)
+    for dt in (torch.bfloat16, torch.float32):
+        pooled, cnt = fe.pool_forward_kernel(ws, bs, x, dt)
+        dg = torch.ones_like(pooled)
+        fe.pool_backward_kernel(ws, bs, x, pooled, cnt, dg, dt)     # builds and loads the library
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            fe.pool_backward_kernel(ws, bs, x, pooled, cnt, dg, dt)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        torch.cuda.synchronize()
 
 
 def test_training_smem_fits_flagship(cuda):
@@ -288,10 +332,11 @@ def test_training_smem_fits_flagship(cuda):
         assert 0 < fe.smem_bytes((3, 128, 128, 256, 512), dt) <= fs.SMEM_LIMIT
 
 
-def test_train_step_on_card_skips_a_nonfinite_batch(cuda):
+@pytest.mark.parametrize("bad_value", [float("inf"), float("nan")])
+def test_train_step_on_card_skips_a_nonfinite_batch(cuda, bad_value):
     """A fused train step on the card launches all four training kernels, and
-    a batch holding an inf is skipped: params, moments and the optimizer's
-    count keep their values, the step counter advances."""
+    a batch holding an inf or a NaN point is skipped: params, moments and the
+    optimizer's count keep their values, the step counter advances."""
     from dpfx_torch.config import config_from_dict
     from dpfx_torch.models import DPF
     from dpfx_torch.ops import fused_encoder as fe
@@ -316,7 +361,7 @@ def test_train_step_on_card_skips_a_nonfinite_batch(cuda):
     assert all(v == 1 for v in {**ft.launches, **fe.launches}.values())
     params, mu, nu = (t.clone() for t in (state.params, state.opt_state.mu, state.opt_state.nu))
     bad = x.clone()
-    bad[1, 5, 0] = float("inf")
+    bad[1, 5, 0] = bad_value
     state, m = step(state, {"x": bad})
     assert float(m["nonfinite_skipped"]) == 1.0 and state.step == 2
     assert state.opt_state.count == 1

@@ -34,6 +34,9 @@ def tiny(point_widths, head_widths, dtype="float32", activation="relu"):
 
 def _setup(point_widths, head_widths, n, dtype="float32", b=3, seed=0):
     cfg = tiny(point_widths, head_widths, dtype)
+    # the modules' own init draws from torch's global generator: seed it, so
+    # every run tests the same weights
+    torch.manual_seed(seed)
     model = randomize_(DPF(config_from_dict(cfg)), seed, 0.1)
     last = getattr(model.encoder, f"point_{len(point_widths) - 1}")
     with torch.no_grad():
@@ -117,6 +120,7 @@ def test_unsupported_config_warns_once():
     from dpfx_torch.train import loss as tloss
 
     cfg = config_from_dict(tiny((32, 64), (32,), activation="gelu"))
+    torch.manual_seed(0)            # the modules' own init
     model = randomize_(DPF(cfg), 0, 0.1)
     rng = np.random.default_rng(0)
     x = torch.from_numpy(rng.normal(size=(2, 64, 3)).astype(np.float32))

@@ -39,6 +39,7 @@ def tiny(n_hidden=2):
 
 def _both(n_hidden=2, seed=0):
     """The stacked weights of one random model in both packages."""
+    torch.manual_seed(seed)        # the modules' own init
     model = randomize_(DPF(config_from_dict(tiny(n_hidden))), seed, 0.15)
     with torch.no_grad():
         sp = tfs.stack_point_flow_params(model.point_flow)
@@ -114,8 +115,12 @@ def test_dequantized_inverse_matches_pallas(dtype):
 def test_sample_points_quantized_cpu_path():
     """On the CPU, fused_sample_points(quantized=q) is the plain sampler on
     the dequantized stacks (same seed, same noise) and launches nothing;
-    the clouds stay close to the unquantized ones."""
-    sp, _ = _both(2, seed=8)
+    its clouds part from the unquantized ones exactly as far as dpfx's do
+    on the same weights and noise (its int8 stacks against its own, the
+    Pallas inverse in interpret mode). A random flow at scale 0.15 is far
+    from a trained one: on many such draws the int8 error exceeds 2% in
+    both packages (dpfx documents ~0.3% for its flagship)."""
+    sp, jp = _both(2, seed=8)
     q = tfs.quantize_flow_params(sp)
     dq = tfs.dequantize(q)
     z = torch.from_numpy(np.random.default_rng(9).normal(size=(2, 16)).astype(np.float32))
@@ -128,7 +133,14 @@ def test_sample_points_quantized_cpu_path():
     assert tfs.launches == {"fused_inverse": 0, "fused_sample": 0, "fused_sample_int8": 0}
     full = tfs.fused_sample_points(sp, z, 5, 256, dtype=torch.float32)
     rms = float((x - full).pow(2).mean().sqrt() / full.pow(2).mean().sqrt())
-    assert 0 < rms < 2e-2, rms
+    uj, zj = jnp.asarray(u.numpy()), jnp.asarray(z.numpy())
+    xj = np.asarray(jfs.fused_point_flow_inverse(_jax_dequantized(jfs.quantize_flow_params(jp)),
+                                                 uj, zj, tile=128, dtype=jnp.float32))
+    fj = np.asarray(jfs.fused_point_flow_inverse(jp, uj, zj, tile=128, dtype=jnp.float32))
+    ref = float(np.sqrt(((xj - fj) ** 2).mean() / (fj ** 2).mean()))
+    # the coordinates agree to ~1e-5 (test_dequantized_inverse_matches_pallas);
+    # their difference is a few percent of them, so its RMS to ~1e-3
+    assert 0 < rms and abs(rms - ref) <= 1e-3 * ref, (rms, ref)
 
 
 def test_quantized_argument_checks():

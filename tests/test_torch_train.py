@@ -64,6 +64,7 @@ def _named(flat_tensor, model):
                                               (True, "mean_points")])
 def test_elbo_loss_matches_jax(fused, reduction):
     raw = tiny()
+    torch.manual_seed(0)            # the modules' own init
     model = randomize_(DPF(config_from_dict(raw)), 0, 0.1)
     jmodel = JaxDPF(jax_config_from_dict(raw))
     rng = np.random.default_rng(0)
@@ -89,6 +90,7 @@ def test_elbo_loss_fused_latent_matches_jax(fused_pf, dz, monkeypatch):
 
     raw = tiny()
     raw["model"]["dz"] = dz
+    torch.manual_seed(0)            # the modules' own init
     model = randomize_(DPF(config_from_dict(raw)), 0, 0.1)
     jmodel = JaxDPF(jax_config_from_dict(raw))
     rng = np.random.default_rng(1)
@@ -121,6 +123,7 @@ def test_fused_latent_train_step_grads_match_module_path():
     kernels' backward instead of autograd through the modules."""
     raw = tiny()
     raw["model"]["dz"] = 32
+    torch.manual_seed(2)            # the modules' own init
     model = randomize_(DPF(config_from_dict(raw)), 2, 0.1)
     rng = np.random.default_rng(3)
     x = torch.from_numpy(rng.normal(size=(4, 64, 3)).astype(np.float32))
@@ -194,6 +197,7 @@ def test_trajectory_matches_jax_make_train_step():
     for part in ("point_flow", "latent_flow", "encoder"):
         raw["model"][part]["activation"] = "tanh"
     cfg, jcfg = config_from_dict(raw), jax_config_from_dict(raw)
+    torch.manual_seed(1)            # the modules' own init
     model = randomize_(DPF(cfg), 1, 0.05)
     tx = make_optimizer(cfg.train)
     state = init_state(model, tx)
