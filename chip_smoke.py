@@ -14,12 +14,15 @@ Phases (each prints its result on its own line; any failure raises and the
 script exits non-zero without a result line):
   1. the card's name and power limit; build every kernel with nvcc (sm_90a),
      all sources at once, and print ptxas' register and spill lines and
-     the instruction mix of the EMD kernel's element loops (its SASS, read
-     by dpfx_torch.tools.sass_loops);
+     the instruction mix of the EMD and Chamfer kernels' element loops
+     (their SASS, read by dpfx_torch.tools.sass_loops);
   2. kernel vs plain version at K=32, H=128, dz=128, B=8, N=2048 and a
      ragged N=2000: f32 and bf16 for fused_inverse, bf16 for fused_sample
-     against the plain inverse of the noise it drew, noise moments at
-     tau=1 and 1.1, and same-seed determinism; then the training kernels in
+     against the plain inverse of the noise it drew, its noise against
+     philox_noise_plain (the plain Philox stream), noise moments at
+     tau=1 and 1.1, and same-seed determinism; the round trip of the bf16
+     training forward and the sampler's bf16 inverse (the same row code:
+     median within 1e-5); then the training kernels in
      f32 and bf16: fused_train forward (u, log-det) and backward (dx, dhz,
      every weight gradient), fused_encoder forward and backward (encoder
      128/128/256/512, a cloud of duplicated points and a dead feature), each
@@ -36,8 +39,11 @@ script exits non-zero without a result line):
      f32 backward, and the f32 round trip fwd(inv(eps)) = eps;
   2c. the evaluation kernels (chamfer.cu, emd.cu) vs their plain versions on
      synthetic test-split clouds at N=2048 and at a ragged N=2000 against
-     M=2048, with one pair of identical clouds: nnd_fwd (B=8), cd_pairwise
-     exact, fast and symmetric (16 x 16), emd_batched exact (B=8, also
+     M=2048, with one pair of identical clouds: nnd_fwd (B=8; dl and dr
+     equal to the plain version's bit for bit, CD within 1e-5, on a cluster
+     of CTAs equal to one CTA bit for bit), cd_pairwise exact, fast
+     (both equal bit for bit to onepass_plain, the plain version of the
+     kernel's order) and symmetric (16 x 16), emd_batched exact (B=8, also
      against an f64 run of the plain version), emd_pairwise fast and exact
      (8 x 8); each kernel run twice and required bit-identical; the plain
      exact CD with TF32 products allowed, a control that the CD limit must
@@ -118,11 +124,13 @@ script exits non-zero without a result line):
      profiler), the training batch's critical rows and the FLOP the kernels
      issue beside the bounds' dense work, and the train
      step's ms/step with the fused latent flow off and on, the latent-flow kernels
-     at B=64, then one JSON line with
+     at B=64, the redesigned sampler and Chamfer kernels' times beside their
+     first designs' (FIRST_SAMPLER_MS, FIRST_CD_MS), then one JSON line with
      every kernel's error, time, plain time and bound, the evaluation
      kernels' at their paths' shapes (a 128 x 128 matrix at N=2048 for the
      pairwise kernels, CD also in triangle mode, B=32 for the diagonal ones),
-     each held to its plain version there by phase 2c's limits; the EMD
+     each held to its plain version there by phase 2c's limits (nnd_fwd's
+     minima bit for bit); the EMD
      kernel also held to emd_sweeps_plain, the plain version of its own
      sweep order, on phase 2c's pairs in every mode, with the CTAs per pair
      of each launch, and fast and exact pairwise timed in turns; and the
@@ -159,9 +167,13 @@ PEAK_BYTES = 3.35e12
 SMS, BOOST_HZ = 132, 1.98e9
 PEAK_FP32_INSTR = SMS * 128 * BOOST_HZ     # 33.45e12 per second
 PEAK_MUFU = SMS * 16 * BOOST_HZ            # 4.18e12 per second
-# FP32 instructions per distance element: x.y (a product and two FMAs), the
-# norms' add, the fused -2 x.y, the max, and (CD) the row and column mins
-CD_FP32_PER_ELEM = 8
+# FP32 instructions per distance element, at the least: x.y (a product and
+# two FMAs), the norms' add, the fused -2 x.y and the row and column mins;
+# the clamp at 0 goes once to each minimum, not to each element (monotone).
+# (CD_FP32_PER_ELEM was 8 until the one-pass kernel, which charged a max per
+# element; the kernel itself issues 9: x.y without FMAs, for the plain
+# version's bits.)
+CD_FP32_PER_ELEM = 7
 # approxmatch per element at 10 levels, at the least: two sweeps per level
 # (the rows', the columns'), each with an exp (MUFU ex2) but level 0's, where
 # L = 0, and the columns' with a sqrt: 19 exps and 10 square roots, 29 MUFU.
@@ -246,6 +258,24 @@ FIRST_TRAIN_MS = {"fwd": 4.808, "bwd": 14.805}
 # design (WMMA through a staging tile, 64-point tiles, a dense backward;
 # NVIDIA H100 80GB HBM3, 700.00 W), printed beside phase 4's
 FIRST_ENCODER_MS = {"fwd": 2.641, "bwd": 5.606}
+# the fused sampler's bf16 times at B=64 x 2048 in its first design (block-
+# wide WMMA through a staging tile, one warp per point for Wout), and the
+# Chamfer forward's in its two-pass design (a thread per row, then a thread
+# per column: every distance twice) at 128 x 128 pairs of 2048 points and
+# B=32 diagonal pairs (NVIDIA H100 80GB HBM3, 700.00 W), printed beside
+# phase 4's
+FIRST_SAMPLER_MS = {"fused_sample": 3.558, "fused_inverse": 3.580, "fused_sample_int8": 3.818}
+FIRST_CD_MS = {"exact": 48.11, "triangle": 24.41, "fast": 58.68, "nnd_fwd": 0.457}
+# the round trip of the bf16 training forward and the sampler's bf16
+# inverse on the same hz: both run flow_rows.cuh on the same passthrough
+# coordinates, so (s, t) agree bit for bit and x comes back up to the f32
+# rounding of the affine update (median); a coordinate recovered a few ulps
+# off can cross a bf16 rounding boundary at a later layer's input, which the
+# largest error is held to TOL_BF16_MAX for
+TOL_TRIP_MEDIAN = 1e-5
+# the kernel's base noise against philox_noise_plain: the integer rounds
+# are exact, logf and cosf a few ulps from torch's
+TOL_NOISE = 1e-6
 
 
 def check(cond: bool, what: str) -> None:
@@ -427,6 +457,27 @@ def encoder_ptxas() -> dict:
     return found
 
 
+def sampler_ptxas() -> str:
+    """Registers and spilled bytes of the fused sampler's flagship instance
+    (bf16 weights, H=128, relu, two stages), from ptxas' log."""
+    import re
+
+    from dpfx_torch.ops import _build
+
+    cur, out = "", {}
+    for line in _build.ptxas_log("fused_sampler").splitlines():
+        if "Compiling entry function" in line:
+            cur = line
+        elif "rows_kernelI13__nv_bfloat16Li128ELb1ELb1E" in cur:
+            m = re.search(r"Used (\d+) registers", line)
+            if m:
+                out["regs"] = int(m.group(1))
+            m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+            if m:
+                out["spill"] = f"{m.group(1)}/{m.group(2)}"
+    return f"{out.get('regs')} registers, spilled bytes (stores/loads) {out.get('spill')}"
+
+
 def rel(a, b) -> float:
     """|a - b| / |b|, the norms in f64 (the probe's weight gradients on the
     JAX tool's scales overflow a float32 norm)."""
@@ -562,31 +613,44 @@ def eval_kernel_checks(cfg, dev) -> None:
         tag = f"N={n} M=2048"
 
         x, y = xs[:8], ys[:8]
+        cdk.reset_launch_counts()
         dl, dr = cdk.nn_distances(x, y)
         again = cdk.nn_distances(x, y)
+        # the same pairs among 264 (2 x 132): one CTA each, where B=8 runs
+        # each pair on a cluster
+        ml, mr = cdk.nn_distances(x.repeat(33, 1, 1), y.repeat(33, 1, 1))
         pdl, _, pdr, _ = cdk.nn_distances_plain(x, y)
         torch.cuda.synchronize()
-        pt = max(float(pair_err(dl, pdl, CD_FLOOR).max()), float(pair_err(dr, pdr, CD_FLOOR).max()))
+        exact = torch.equal(dl, pdl) and torch.equal(dr, pdr)
+        one_cta = torch.equal(dl, ml[:8]) and torch.equal(dr, mr[:8])
         cd_k = dl.mean(-1) + dr.mean(-1)
         e_cd = float(pair_err(cd_k, pdl.mean(-1) + pdr.mean(-1), CD_FLOOR).max())
-        print(f"kernel-vs-plain nnd_fwd {tag} B=8: per-point rel max {pt:.2e}, CD rel max "
-              f"{e_cd:.2e}" + (f", identical pair CD {float(cd_k[0]):.2e}" if ident else ""))
+        print(f"kernel-vs-plain nnd_fwd {tag} B=8: minima equal to the plain version's bit for bit "
+              f"{exact}, CD rel max {e_cd:.2e}; CTAs per pair {sorted(cdk.clusters['nnd_fwd'])}, the "
+              f"cluster equal to one CTA bit for bit {one_cta}"
+              + (f", identical pair CD {float(cd_k[0]):.2e}" if ident else ""))
         check(torch.equal(dl, again[0]) and torch.equal(dr, again[1]),
               f"nnd_fwd bit-identical from run to run {tag}")
-        check(pt <= TOL_CD and e_cd <= TOL_CD, f"nnd_fwd {tag}: per point {pt}, CD {e_cd}")
+        check(exact and e_cd <= TOL_CD, f"nnd_fwd {tag}: minima bit for bit {exact}, CD {e_cd}")
+        check(one_cta and cdk.clusters["nnd_fwd"] == {cdk.cluster_size(8, n, 2048), 1}
+              and cdk.cluster_size(8, n, 2048) > 1, f"nnd_fwd on a cluster equals one CTA {tag}")
         check(not ident or float(cd_k[0]) <= TOL_CD_IDENTICAL, "CD of a cloud with itself")
 
         errs = {}
+        ii, jj = (v.flatten() for v in torch.meshgrid(torch.arange(16), torch.arange(16),
+                                                         indexing="ij"))
         for prec in ("exact", "fast"):
             a = cdk.chamfer_pairwise(xs, ys, prec)
             a2 = cdk.chamfer_pairwise(xs, ys, prec)
             b = cdk.chamfer_pairwise_plain(xs, ys, prec)
+            one = cdk.onepass_plain(xs[ii], ys[jj], fast=prec == "fast")[2].view(16, 16)
             torch.cuda.synchronize()
             errs[prec] = float(pair_err(a, b, CD_FLOOR).max())
             check(torch.equal(a, a2), f"cd_pairwise {prec} bit-identical from run to run {tag}")
             check(errs[prec] <= TOL_CD, f"cd_pairwise {prec} {tag}: {errs[prec]}")
+            check(torch.equal(a, one), f"cd_pairwise {prec} {tag} equals onepass_plain bit for bit")
         line = (f"kernel-vs-plain cd_pairwise {tag} 16x16: exact rel max {errs['exact']:.2e}, "
-                f"fast rel max {errs['fast']:.2e}")
+                f"fast rel max {errs['fast']:.2e}; both equal to onepass_plain bit for bit")
         if ident:
             sym = cdk.chamfer_pairwise(xs, xs, "exact", symmetric=True)
             full = cdk.chamfer_pairwise(xs, xs, "exact")
@@ -873,7 +937,8 @@ def eval_kernel_rows(cfg, half_a, half_b, gen_launches, ae_launches):
     err = max(float((dl - pdl).abs().max()), float((dr - pdr).abs().max()))
     pt = max(float(pair_err(dl, pdl, CD_FLOOR).max()), float(pair_err(dr, pdr, CD_FLOOR).max()))
     e_nnd = float(pair_err(dl.mean(-1) + dr.mean(-1), pdl.mean(-1) + pdr.mean(-1), CD_FLOOR).max())
-    check(pt <= TOL_CD and e_nnd <= TOL_CD, f"nnd_fwd B={b}: per point {pt}, CD {e_nnd}")
+    check(torch.equal(dl, pdl) and torch.equal(dr, pdr) and e_nnd <= TOL_CD,
+          f"nnd_fwd B={b}: minima bit for bit, per point {pt}, CD {e_nnd}")
     ms = cuda_ms(lambda: cdk.nn_distances(xb, yb), 20)
     (bd, by), _ = eval_bounds(b, n, n, b, b, b * 2 * n)
     rows.append(("nnd_fwd", "chamfer", "dpfx/ops/chamfer.py:130", ae_launches["nnd_fwd"], err, ms,
@@ -887,12 +952,16 @@ def eval_kernel_rows(cfg, half_a, half_b, gen_launches, ae_launches):
     sym = cdk.chamfer_pairwise(half_a, half_a, symmetric=True)
     e_sym = float(pair_err(sym, cdk.chamfer_pairwise_plain(half_a, half_a), CD_FLOOR).max())
     check(e_sym <= TOL_CD and torch.equal(sym, sym.t()), f"cd_pairwise symmetric {s}x{s}: {e_sym}")
-    ms = cuda_ms(lambda: cdk.chamfer_pairwise(half_a, half_b), 5)
+    # exact and fast in turns (exact, fast, fast, exact)
+    cd_turns = {"exact": [], "fast": []}
+    for prec in ("exact", "fast", "fast", "exact"):
+        cd_turns[prec].append(cuda_ms(lambda: cdk.chamfer_pairwise(half_a, half_b, prec), 3,
+                                      warmup=1))
+    ms, fast_ms = sum(cd_turns["exact"]) / 2, sum(cd_turns["fast"]) / 2
     (bd, by), _ = eval_bounds(s * s, n, n, s, s, s * s)
     rows.append(("cd_pairwise", "chamfer", "dpfx/ops/chamfer.py:255", gen_launches["cd_pairwise"],
                  err, ms, plain, bd, by))
     sym_ms = cuda_ms(lambda: cdk.chamfer_pairwise(half_a, half_a, symmetric=True), 5)
-    fast_ms = cuda_ms(lambda: cdk.chamfer_pairwise(half_a, half_b, "fast"), 5)
 
     e = emdk.emd_nograd(xb, yb)
     pe, plain = timed_once(lambda: emdk.emd_plain(xb, yb))
@@ -930,6 +999,15 @@ def eval_kernel_rows(cfg, half_a, half_b, gen_launches, ae_launches):
           f"(triangle) rel max {e_sym:.2e}; emd_batched B={b} rel median {med(e_b):.2e} max "
           f"{float(e_b.max()):.2e}; emd_pairwise {s}x{s} fast rel median {med(e_p):.2e} max "
           f"{float(e_p.max()):.2e}")
+    cd_first = ", ".join(f"{k} {FIRST_CD_MS[k]:.3f} ms ({FIRST_CD_MS[k] / v:.2f}x)" for k, v in (
+        ("exact", rows[1][5]), ("triangle", sym_ms), ("fast", fast_ms), ("nnd_fwd", rows[0][5])))
+    print(f"redesigned Chamfer forward (one pass) at N={n}: cd_pairwise {s}x{s} exact "
+          f"{rows[1][5]:.3f} ms, triangle {sym_ms:.3f}, fast {fast_ms:.3f} (fast / exact "
+          f"{fast_ms / rows[1][5]:.3f}; turns exact, fast, fast, exact "
+          f"{', '.join(f'{v:.3f}' for v in (cd_turns['exact'][0], *cd_turns['fast'], cd_turns['exact'][1]))}"
+          f"), nnd_fwd B={b} {rows[0][5]:.4f} ms on "
+          f"{cdk.cluster_size(b, n, n)} CTAs per pair; first design: {cd_first}; bound "
+          f"{rows[1][7]:.3f} ms ({rows[1][5] / rows[1][7]:.2f}x)")
     print(f"evaluation kernels at N={n}: nnd_fwd B={b} {rows[0][5]:.3f} ms; cd_pairwise {s}x{s} "
           f"exact {rows[1][5]:.3f} ms ({rows[1][5] / (s * s) * 1e3:.3f} us/pair), fast "
           f"{fast_ms:.3f} ms, symmetric {sym_ms:.3f} ms; emd_batched B={b} {rows[2][5]:.3f} ms; "
@@ -1610,6 +1688,15 @@ def main() -> int:
 
     for line in sass_loops.report(sass_loops.disassemble("emd")):
         print(f"sass emd: {line}")
+    # the Chamfer forward's element loops: 256 distances a trip (exact: 9
+    # FP32 each, x.y unfused for the plain version's bits, and the two mins;
+    # fast: 7, its bf16 products being exact)
+    cd_loops = sass_loops.report(sass_loops.disassemble("chamfer"), "fmnmx")
+    for line in cd_loops:
+        print(f"sass chamfer: {line}")
+    check(any(ln.startswith("chamfer_kernel FAST=0 loop") for ln in cd_loops)
+          and any(ln.startswith("chamfer_kernel FAST=1 loop") for ln in cd_loops),
+          "the Chamfer kernel's element loop in its SASS")
 
     # ---- 2. kernel vs plain at flagship widths
     cfg = load_config(str(CONFIG))
@@ -1648,18 +1735,37 @@ def main() -> int:
                                                    torch.bfloat16, pf.activation)
             emax, e999 = errors(x, xp.transpose(1, 2))
             mean, var = float(u.mean()), float(u.var())
+            e_noise = float((u.cpu() - fs.philox_noise_plain(1234, 8, n, tau)).abs().max())
             x2 = fs.fused_sample_points(sp, z, 1234, n, dtype=torch.bfloat16,
                                         activation=pf.activation, noise_scale=tau)
             x3 = fs.fused_sample_points(sp, z, 1235, n, dtype=torch.bfloat16,
                                         activation=pf.activation, noise_scale=tau)
             print(f"kernel-vs-plain fused_sample N={n} tau={tau}: max_abs={emax:.3e} "
-                  f"p99.9={e999:.3e} noise mean={mean:.4f} var/tau^2={var / tau**2:.4f}")
+                  f"p99.9={e999:.3e} noise mean={mean:.4f} var/tau^2={var / tau**2:.4f}; noise "
+                  f"against philox_noise_plain max_abs={e_noise:.3e}")
             check(emax <= TOL_BF16_MAX and e999 <= TOL_BF16_P999,
                   f"fused_sample vs plain inverse of its noise: max {emax}, p99.9 {e999}")
+            check(e_noise <= TOL_NOISE, f"the kernel's noise is philox_noise_plain's ({e_noise})")
             # 49k draws: the standard errors are 0.0045 (mean) and 0.0064 (var)
             check(abs(mean) < 0.025 and abs(var / tau**2 - 1) < 0.035, "noise moments")
             check(torch.equal(x, x2), "same seed gives the same clouds")
             check(not torch.equal(x, x3), "another seed gives other clouds")
+        # the round trip: the bf16 training forward, then the sampler's bf16
+        # inverse with the same hz (flow_rows.cuh on both sides)
+        check(pf.activation == "relu", "the training kernels take relu")
+        xr = torch.randn((8, 3, n), generator=torch.Generator(device=dev).manual_seed(11),
+                         device=dev)
+        u_f, _ = ft.fused_forward_kernel(sp.wx, sp.wh, sp.bh, sp.wout, sp.bout, sp.masks,
+                                         sp.scale_cap, xr, hz, torch.bfloat16)
+        back = fs.fused_inverse_transposed(sp, u_f, z, dtype=torch.bfloat16, activation=pf.activation)
+        torch.cuda.synchronize()
+        e = (back - xr).abs().flatten()
+        t_med, (t_max, t_999) = float(e.median()), errors(back, xr)
+        print(f"round trip fused_train forward -> fused_inverse, bf16, B=8 N={n}: median "
+              f"{t_med:.3e} p99.9 {t_999:.3e} max {t_max:.3e}, share above 1e-4 "
+              f"{float((e > 1e-4).float().mean()):.2e} (|u - x| max {float((u_f - xr).abs().max()):.2f})")
+        check(t_med <= TOL_TRIP_MEDIAN and t_max <= TOL_BF16_MAX,
+              f"round trip N={n}: median {t_med}, max {t_max}")
 
     # ---- 2b. the training kernels vs their plain versions at flagship widths
     tw = (sp.wx, sp.wh, sp.bh, sp.wout, sp.bout, sp.masks, sp.scale_cap)
@@ -2231,6 +2337,14 @@ def main() -> int:
           f"ms/step (first design: 45.606 and 39.643); idle shares in phase 5b ({card})")
     print(f"kernel rates at B={b} N={n}: fused_inverse {flops / inv_ms / 1e9:.1f} TFLOP/s, "
           f"fused_sample {flops / smp_ms / 1e9:.1f} TFLOP/s ({card})")
+    print(f"redesigned fused sampler (rows of 16 points per warp on mma.sync) at B={b} N={n} "
+          f"bf16: fused_sample {smp_ms:.3f} ms (first design: {FIRST_SAMPLER_MS['fused_sample']:.3f} "
+          f"ms, {FIRST_SAMPLER_MS['fused_sample'] / smp_ms:.2f}x), fused_inverse {inv_ms:.3f} ms "
+          f"(first design: {FIRST_SAMPLER_MS['fused_inverse']:.3f} ms, "
+          f"{FIRST_SAMPLER_MS['fused_inverse'] / inv_ms:.2f}x), int8 {int8_rows[0]['ms']:.3f} ms (first "
+          f"design: {FIRST_SAMPLER_MS['fused_sample_int8']:.3f} ms), bound {b_smp:.4f} ms "
+          f"({smp_ms / b_smp:.1f}x); the training forward {tf_ms:.3f} ms; ptxas "
+          f"{sampler_ptxas()} ({card})")
 
     # the latent-flow kernels at the main paths' batch (B=64, bf16)
     z = torch.randn((b, cfg.model.dz), generator=g, device=dev)
@@ -2275,7 +2389,7 @@ def main() -> int:
 
     # ---- 5. where the sampler's time goes (torch.profiler, 5 calls each)
     seeds = iter(range(10, 1000))
-    for name, fn, kname in (("make_sampler(64, 2048)", sampler, "fused_inverse_kernel"),
+    for name, fn, kname in (("make_sampler(64, 2048)", sampler, "rows_kernel"),
                             ("make_sampler(64, 2048), fused latent", lat_sampler, "flow_kernel")):
         wall_us, busy_us, dev_events = profiled(lambda: fn(next(seeds)), 5)
         check(any(kname in e.key for e in dev_events),

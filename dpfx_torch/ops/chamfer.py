@@ -26,16 +26,25 @@ evenly, as ``_nnd_bwd_pallas`` does (not one argmin, as ``impl="jnp"``
 does). ``chamfer_pairwise`` has no gradient, as in ``dpfx``: an input that
 requires grad raises.
 
+The forward kernel makes one pass per pair: each distance is computed once,
+unclamped and unrounded, and folded into its row's and its column's
+minimum; the clamp at 0 and fast mode's rounding, both monotone, are
+applied to each minimum. ``onepass_plain`` is the plain version of that
+algebra in the kernel's tiles, its cluster split and its order of sums, so
+its CD equals the kernel's bit for bit.
+
 Every wrapper takes its plain PyTorch version for a tensor on the CPU and
 launches the kernel for a CUDA tensor (or raises). ``launches`` counts the
-kernel launches of each wrapper.
+kernel launches of each wrapper, ``clusters`` the CTAs per pair that the
+forward's launches took (a thread-block cluster when above 1;
+``cluster_size``).
 """
 
 from __future__ import annotations
 
 import ctypes
 import functools
-from typing import Dict, Tuple
+from typing import Dict, Set, Tuple
 
 import torch
 from torch.autograd.function import once_differentiable
@@ -46,14 +55,22 @@ Tensor = torch.Tensor
 
 # kernel launches per wrapper; chip_smoke.py zeroes these around the main path
 launches: Dict[str, int] = {"nnd_fwd": 0, "nnd_bwd": 0, "cd_pairwise": 0}
+# the CTAs per pair (a cluster when above 1) of the forward's launches since
+# the last reset
+clusters: Dict[str, Set[int]] = {"nnd_fwd": set(), "cd_pairwise": set()}
 
 MAX_POINTS = 4096          # the kernels keep both clouds of a pair in shared memory
 PLAIN_CHUNK_ELEMS = 2**26  # distance elements per chunk of a plain version (256 MB f32)
+# the forward kernel's tiles: 256 rows (8 per lane of a warp) x 256 columns
+# in chunks of 32, and 256 threads per block (block_sum's order)
+TILE_ROWS, TILE_COLS, CHUNK, THREADS = 256, 256, 32, 256
 
 
 def reset_launch_counts() -> None:
     for k in launches:
         launches[k] = 0
+    for k in clusters:
+        clusters[k] = set()
 
 
 def refuse_grad(what: str, *ts: Tensor) -> None:
@@ -149,6 +166,93 @@ def chamfer_pairwise_plain(xs: Tensor, ys: Tensor, precision: str = "exact") -> 
     return out.view(s1, s2)
 
 
+def _ceil_to(v: int, m: int) -> int:
+    return -(-v // m) * m
+
+
+def _min_bits(v: Tensor, fast: bool) -> Tensor:
+    """A minimum as the plain version's distance: clamped at 0, in fast mode
+    then rounded to bf16."""
+    v = torch.clamp_min(v, 0.0)
+    return v.bfloat16().float() if fast else v
+
+
+def block_order_sum(v: Tensor) -> Tensor:
+    """Sum over the last axis in the kernel's order: thread t of 256 adds
+    elements t, t + 256, ... in turn, each warp's 32 threads meet by an xor
+    butterfly (16, 8, 4, 2, 1), then the 8 warps' sums are added in order
+    (dpfx_common.cuh's block_sum). Every add is one f32 rounding."""
+    n = v.shape[-1]
+    v = torch.nn.functional.pad(v.float(), (0, _ceil_to(n, THREADS) - n))
+    v = v.view(*v.shape[:-1], -1, THREADS)
+    s = v[..., 0, :]
+    for k in range(1, v.shape[-2]):
+        s = s + v[..., k, :]
+    s = s.view(*s.shape[:-1], THREADS // 32, 32)
+    lanes = torch.arange(32, device=v.device)
+    for o in (16, 8, 4, 2, 1):
+        s = s + s[..., lanes ^ o]
+    out = s[..., 0, 0]
+    for w in range(1, THREADS // 32):
+        out = out + s[..., w, 0]
+    return out
+
+
+def onepass_plain(x: Tensor, y: Tensor, fast: bool = False,
+                  ctas: int = 1) -> Tuple[Tensor, Tensor, Tensor]:
+    """(dl [B,N], dr [B,M], cd [B]) of diagonal pairs through the forward
+    kernel's algebra: the raw distances (|x|^2 + |y|^2) - 2 x.y, unclamped
+    and unrounded; per tile of 256 rows x 256 columns the rows' minima over
+    the tile's columns and the columns' minima over its rows, each clamped
+    at 0 (and in fast mode rounded to bf16), then the minimum over the tiles
+    that each of ``ctas`` CTAs takes (tile t = row group * column tiles +
+    column tile to rank r where r T / ctas <= t < (r + 1) T / ctas) and over
+    the CTAs; cd = block_order_sum(dl) / N + block_order_sum(dr) / M. The
+    minima equal ``nn_distances_plain``'s (exact) or the minima of
+    ``sqdist_matrix(fast=True)`` bit for bit, and cd the kernel's."""
+    x, y = x.float(), y.float()
+    b, n, m = x.shape[0], x.shape[1], y.shape[1]
+    x2, y2 = _norm2(x), _norm2(y)
+    if fast:
+        x, y = x.bfloat16().float(), y.bfloat16().float()
+    np_, mp = _ceil_to(n, TILE_ROWS), _ceil_to(m, CHUNK)
+    gr, gc = np_ // TILE_ROWS, -(-mp // TILE_COLS)
+    inf = float("inf")
+    # padding points (0, 0, 0, inf): infinitely far from every point
+    xq = torch.nn.functional.pad(x, (0, 0, 0, np_ - n))
+    yq = torch.nn.functional.pad(y, (0, 0, 0, gc * TILE_COLS - m))
+    x2q = torch.nn.functional.pad(x2, (0, np_ - n), value=inf)
+    y2q = torch.nn.functional.pad(y2, (0, gc * TILE_COLS - m), value=inf)
+    t = torch.arange(gr * gc, device=x.device)
+    rank = torch.searchsorted(torch.tensor([r * gr * gc // ctas for r in range(1, ctas)],
+                                           device=x.device), t, right=True).view(gr, gc)
+    dls, drs = [], []
+    step = _pair_chunk(np_, gc * TILE_COLS)
+    for s in range(0, b, step):
+        xc, yc = xq[s:s + step], yq[s:s + step]
+        xy = (xc[:, :, None, 0] * yc[:, None, :, 0] + xc[:, :, None, 1] * yc[:, None, :, 1]
+              + xc[:, :, None, 2] * yc[:, None, :, 2])
+        d = (x2q[s:s + step, :, None] + y2q[s:s + step, None, :]) - 2.0 * xy
+        d4 = d.view(-1, gr, TILE_ROWS, gc, TILE_COLS)
+        rows = _min_bits(d4.amin(dim=4), fast)      # [b, gr, 256, gc]: tile (g, c)'s rows
+        cols = _min_bits(d4.amin(dim=2), fast)      # [b, gr, gc, 256]: tile (g, c)'s columns
+        rmin = torch.full((rows.shape[0], np_), inf, device=x.device)
+        cmin = torch.full((rows.shape[0], gc * TILE_COLS), inf, device=x.device)
+        for r in range(ctas):
+            own = (rank == r)
+            rr = torch.where(own[None, :, None, :], rows, inf).amin(dim=3).reshape(-1, np_)
+            cc = torch.where(own[None, :, :, None], cols, inf).amin(dim=1).reshape(-1, gc * TILE_COLS)
+            rmin, cmin = torch.minimum(rmin, rr), torch.minimum(cmin, cc)
+        dls.append(rmin[:, :n])
+        drs.append(cmin[:, :m])
+    dl, dr = torch.cat(dls), torch.cat(drs)
+    # divided elementwise by a tensor: a division by a Python scalar may be
+    # taken as a product with its reciprocal, which the kernel's IEEE
+    # division is not
+    sl, sr = block_order_sum(dl), block_order_sum(dr)
+    return dl, dr, sl / torch.full_like(sl, n) + sr / torch.full_like(sr, m)
+
+
 def _fast(precision: str) -> bool:
     if precision not in ("exact", "fast"):
         raise ValueError(f"precision must be 'exact' or 'fast', got {precision!r}")
@@ -167,6 +271,8 @@ def _lib() -> ctypes.CDLL:
     lib.dpfx_chamfer_launch.restype = ctypes.c_int
     lib.dpfx_chamfer_smem_bytes.argtypes = [i, i]
     lib.dpfx_chamfer_smem_bytes.restype = ctypes.c_int
+    lib.dpfx_chamfer_cluster_size.argtypes = [i, i, i]
+    lib.dpfx_chamfer_cluster_size.restype = ctypes.c_int
     lib.dpfx_nnd_bwd_launch.argtypes = [p, p, i, i, i, p, p, p, p, p, p, p]
     lib.dpfx_nnd_bwd_launch.restype = ctypes.c_int
     lib.dpfx_nnd_bwd_smem_bytes.argtypes = [i, i]
@@ -177,6 +283,13 @@ def _lib() -> ctypes.CDLL:
 def smem_bytes(n: int, m: int) -> int:
     """Dynamic shared memory of one block, as the kernel library reports it."""
     return _lib().dpfx_chamfer_smem_bytes(n, m)
+
+
+def cluster_size(p: int, n: int, m: int) -> int:
+    """CTAs (a thread-block cluster when above 1) the forward kernel gives
+    each of p pairs of n x m points: 4 while 4p CTAs fit on the 132 SMs, 2
+    below 2 x 132 pairs, else 1, never more than the pair's tiles."""
+    return _lib().dpfx_chamfer_cluster_size(p, n, m)
 
 
 def bwd_smem_bytes(n: int, m: int) -> int:
@@ -239,6 +352,7 @@ def nnd_forward(x: Tensor, y: Tensor) -> Tuple[Tensor, Tensor]:
     dr = torch.empty((b, y.shape[1]), dtype=torch.float32, device=x.device)
     _launch(x, y, pair_list(b, b, "diag", x.device), False, dl=dl, dr=dr)
     launches["nnd_fwd"] += 1
+    clusters["nnd_fwd"].add(cluster_size(b, x.shape[1], y.shape[1]))
     return dl, dr
 
 
@@ -332,6 +446,7 @@ def chamfer_pairwise(xs: Tensor, ys: Tensor, precision: str = "exact",
     cd = torch.empty(pairs.shape[0], dtype=torch.float32, device=xs.device)
     _launch(xs, ys, pairs, fast, cd=cd)
     launches["cd_pairwise"] += 1
+    clusters["cd_pairwise"].add(cluster_size(pairs.shape[0], n, m))
     if not symmetric:
         return cd.view(s1, s2)
     out = torch.empty((s1, s2), dtype=torch.float32, device=xs.device)

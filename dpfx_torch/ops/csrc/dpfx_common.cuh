@@ -286,7 +286,8 @@ __device__ void column_sums(int M, int N, const float* colpart, const S* buf, in
   column_sums<S>(Group::block(), M, N, colpart, buf, ld, out, accumulate);
 }
 
-// ---- warp-level tensor-core products (fused_train.cu, fused_encoder.cu)
+// ---- warp-level tensor-core products (flow_rows.cuh, fused_train.cu,
+// fused_encoder.cu)
 //
 // mma.sync m16n8k16 / m16n8k8 on bf16 operands with f32 accumulators, and
 // the ldmatrix loads that feed it. Fragments as the PTX ISA lays them out,
@@ -352,7 +353,7 @@ __device__ __forceinline__ int lane_id() { return threadIdx.x & 31; }
 
 // the A fragment (m16 k8) of the warp's 16 points' coordinates, rounded to
 // bf16 and zero in k = 3..7, each lane p < 16 (and its mirror p + 16)
-// holding point p's x[3] (fused_train.cu, fused_encoder.cu)
+// holding point p's x[3] (fused_train.cu, fused_sampler.cu, fused_encoder.cu)
 __device__ __forceinline__ void coord_frag(const float (&x)[3], uint32_t& a0, uint32_t& a1) {
   const int lane = lane_id(), g = lane >> 2, t = lane & 3;
   float r[6];
@@ -411,12 +412,10 @@ __device__ void load_points(float4* dst, const float* __restrict__ src, int n) {
 // squared distance max((|a|^2 + |b|^2) - 2 a.b, 0) of two loaded points,
 // each operation rounded on its own (never contracted into an FMA), so it
 // equals the plain torch expression bit for bit; the argument order does
-// not matter (IEEE add and multiply commute). FAST rounds it to bf16.
-template <bool FAST>
+// not matter (IEEE add and multiply commute)
 __device__ __forceinline__ float sqdist(const float4 a, const float4 b) {
   const float ab = __fadd_rn(__fadd_rn(__fmul_rn(a.x, b.x), __fmul_rn(a.y, b.y)), __fmul_rn(a.z, b.z));
-  const float d = fmaxf(__fsub_rn(__fadd_rn(a.w, b.w), __fmul_rn(2.f, ab)), 0.f);
-  return FAST ? rnd<__nv_bfloat16>(d) : d;
+  return fmaxf(__fsub_rn(__fadd_rn(a.w, b.w), __fmul_rn(2.f, ab)), 0.f);
 }
 
 // the block's sum of v, the same in every thread, in a fixed order (a

@@ -26,9 +26,10 @@
 //     is the Pallas kernel's: f32 sums, + hz or bias in f32, relu, one cast;
 //     coupling and log-det in f32. Weights come from shared memory through
 //     ldmatrix. The forward and the backward's recompute call the same
-//     device functions (first_rows, hidden_rows, out_rows) on the same
-//     operands, so the recomputed activations, relu masks and (s, t) are the
-//     forward's bit for bit.
+//     device functions (first_rows, hidden_rows, out_rows, in flow_rows.cuh,
+//     which fused_sampler.cu's inverse shares) on the same operands, so the
+//     recomputed activations, relu masks and (s, t) are the forward's bit
+//     for bit.
 //   * The forward needs no block barrier inside a layer: grid (N / 128, B),
 //     one barrier per layer, where the next layer's weights (staged with
 //     cp.async while this layer runs) become visible; two per layer where
@@ -71,36 +72,13 @@
 // Plain C interface, loaded with ctypes (dpfx_torch/ops/_build.py). Each
 // launch returns cudaGetLastError().
 
-#include "dpfx_common.cuh"
+#include "flow_rows.cuh"
 
 namespace {
 
 using namespace dpfx;
 
 // ---------------------------------------------------------------- bf16 mode
-
-using bf16 = __nv_bfloat16;
-
-constexpr int MT = 128;          // points per tile, 16 per warp
-constexpr int SMEM_MAX = 232448;  // bytes of shared memory a block may use (sm_90)
-
-// per-H constants of the bf16 kernels
-template <int H>
-struct Mma {
-  static constexpr int LD = H + 8;   // row stride of a shared activation or weight tile
-  // the deepest conditioner whose tile fits the backward's shared memory
-  static constexpr int NH1_MAX = H == 32 ? 8 : H == 64 ? 3 : H == 128 ? 1 : 0;
-  static constexpr int ACC = NH1_MAX > 0 ? NH1_MAX : 1;
-  // a warp's block of each dWh: WM m16 tiles x WN n8 tiles, warps GM x GN
-  static constexpr int GM = H == 32 ? 2 : 4;
-  static constexpr int GN = WARPS / GM;
-  static constexpr int WM = NH1_MAX > 0 ? H / 16 / GM : 1;
-  static constexpr int WN = NH1_MAX > 0 ? H / 8 / GN : 1;
-  // dWout^T and dWx: m16 tiles per warp (tile w, w + 8, ...)
-  static constexpr int MTW = (H / 16 + WARPS - 1) / WARPS;
-  // n8 tiles of a column sum that lane (g, t) keeps: nt = g, g + 8, ...
-  static constexpr int KEEP = H >= 64 ? H / 64 : 1;
-};
 
 // The shared-memory carve-up of the bf16 kernels (dpfx_fused_train_smem_bytes
 // reports its size). A stage holds one layer's weights: Wh [n_hidden-1][H][LD],
@@ -132,54 +110,6 @@ struct MmaSmem {
   }
 };
 
-// A warp's 16 rows x H as A fragments (bf16 pairs): chunk kc covers
-// columns 16kc .. 16kc + 15
-template <int H>
-struct Rows {
-  uint32_t a[H / 16][4];
-};
-
-// start the cp.async copies of layer k's Wh and Wout into a stage
-template <int H>
-__device__ void stage_load(unsigned char* st, const MmaSmem& L, const bf16* wh, const bf16* wout,
-                            int k, int NH1) {
-  constexpr int LD = Mma<H>::LD, VPR = H / 8;
-  bf16* swh = reinterpret_cast<bf16*>(st);
-  bf16* swo = reinterpret_cast<bf16*>(st + L.wout);
-  const bf16* gwh = wh + (size_t)k * NH1 * H * H;
-  for (int v = threadIdx.x; v < NH1 * H * VPR; v += THREADS) {
-    const int r = v / VPR, c = (v % VPR) * 8;
-    cp_async16(swh + r * LD + c, gwh + (size_t)r * H + c);
-  }
-  for (int v = threadIdx.x; v < 6 * VPR; v += THREADS) {
-    const int r = v / VPR, c = (v % VPR) * 8;
-    cp_async16(swo + r * LD + c, wout + ((size_t)k * 6 + r) * H + c);
-  }
-  cp_async_commit();
-}
-
-// Wx [H][3] of a layer, loaded into registers and stored transposed into a
-// stage's Wx^T rows 0-2 later (the loads run behind other work)
-template <int H>
-struct WxRegs {
-  static constexpr int N = (3 * H + THREADS - 1) / THREADS;
-  bf16 v[N];
-  __device__ void load(const bf16* wx, int k) {
-#pragma unroll
-    for (int i = 0; i < N; ++i) {
-      const int e = threadIdx.x + i * THREADS;
-      if (e < 3 * H) v[i] = wx[(size_t)k * 3 * H + e];
-    }
-  }
-  __device__ void store(bf16* wxt) const {
-#pragma unroll
-    for (int i = 0; i < N; ++i) {
-      const int e = threadIdx.x + i * THREADS;
-      if (e < 3 * H) wxt[(e % 3) * Mma<H>::LD + e / 3] = v[i];
-    }
-  }
-};
-
 // zero the padding rows that the products read: each stage's Wout rows 6-7
 // and Wx^T rows 3-7, and (backward) the rows 6-7 of d(s, t), 3-7 of x_k
 template <int H>
@@ -197,89 +127,6 @@ __device__ void zero_pads(unsigned char* smem, const MmaSmem& L, bool backward) 
     bf16* xb = reinterpret_cast<bf16*>(smem + L.xkb);
     for (int e = threadIdx.x; e < 2 * (MT + 8); e += THREADS) db[6 * (MT + 8) + e] = z;
     for (int e = threadIdx.x; e < 5 * (MT + 8); e += THREADS) xb[3 * (MT + 8) + e] = z;
-  }
-}
-
-// relu(c + bias) of C tile nt, cast to bf16 into the A fragments (and into
-// the warp's rows of a shared tile)
-template <int H>
-__device__ __forceinline__ void epi_relu(Rows<H>& h, int nt, const float (&c)[4],
-                                         const float* bias, bf16* store) {
-  constexpr int LD = Mma<H>::LD;
-  const int lane = lane_id(), g = lane >> 2, t = lane & 3, col = 8 * nt + 2 * t;
-  const float2 bb = __ldg(reinterpret_cast<const float2*>(bias + col));
-  const uint32_t lo = pack_bf16(relu_nan(c[0] + bb.x), relu_nan(c[1] + bb.y));
-  const uint32_t hi = pack_bf16(relu_nan(c[2] + bb.x), relu_nan(c[3] + bb.y));
-  h.a[nt >> 1][(nt & 1) * 2] = lo;
-  h.a[nt >> 1][(nt & 1) * 2 + 1] = hi;
-  if (store) {
-    *reinterpret_cast<uint32_t*>(store + g * LD + col) = lo;
-    *reinterpret_cast<uint32_t*>(store + (g + 8) * LD + col) = hi;
-  }
-}
-
-// h_0 = relu(Wx x + hz): A the coordinates (k8), B = Wx^T [8][LD] (rows k)
-template <int H>
-__device__ __forceinline__ void first_rows(Rows<H>& h, uint32_t a0, uint32_t a1, const bf16* wxt,
-                                           const float* hz, bf16* store) {
-  constexpr int LD = Mma<H>::LD;
-  const int lane = lane_id();
-#pragma unroll
-  for (int q = 0; q < H / 32; ++q) {
-    uint32_t b[4];
-    ldsm_x4_t(b, wxt + (lane & 7) * LD + 32 * q + (lane >> 3) * 8);
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      float c[4] = {0.f, 0.f, 0.f, 0.f};
-      mma8(c, a0, a1, b[i]);
-      epi_relu<H>(h, 4 * q + i, c, hz, store);
-    }
-  }
-}
-
-// out = relu(in Wh^T + bh): B = Wh [out][in] (rows n, k contiguous)
-template <int H>
-__device__ __forceinline__ void hidden_rows(Rows<H>& out, const Rows<H>& in, const bf16* w,
-                                            const float* bias, bf16* store) {
-  constexpr int LD = Mma<H>::LD;
-  const int lane = lane_id();
-#pragma unroll
-  for (int np = 0; np < H / 16; ++np) {
-    float c0[4] = {0.f, 0.f, 0.f, 0.f}, c1[4] = {0.f, 0.f, 0.f, 0.f};
-#pragma unroll
-    for (int kc = 0; kc < H / 16; ++kc) {
-      uint32_t b[4];
-      ldsm_x4(b, w + (16 * np + (lane & 7) + ((lane >> 4) << 3)) * LD + 16 * kc +
-                     ((lane >> 3) & 1) * 8);
-      mma16(c0, in.a[kc], b[0], b[1]);
-      mma16(c1, in.a[kc], b[2], b[3]);
-    }
-    epi_relu<H>(out, 2 * np, c0, bias, store);
-    epi_relu<H>(out, 2 * np + 1, c1, bias, store);
-  }
-}
-
-// st = Wout h + bout: B = Wout [8][LD] (rows n = 0..5, k contiguous); C tile
-// columns 0-5 are (s, t), 6-7 zero
-template <int H>
-__device__ __forceinline__ void out_rows(float (&c)[4], const Rows<H>& h, const bf16* wout8,
-                                         const float* bout) {
-  constexpr int LD = Mma<H>::LD;
-  const int lane = lane_id(), t = lane & 3;
-#pragma unroll
-  for (int i = 0; i < 4; ++i) c[i] = 0.f;
-#pragma unroll
-  for (int kk = 0; kk < H / 32; ++kk) {
-    uint32_t b[4];
-    ldsm_x4(b, wout8 + (lane & 7) * LD + 32 * kk + (lane >> 3) * 8);
-    mma16(c, h.a[2 * kk], b[0], b[1]);
-    mma16(c, h.a[2 * kk + 1], b[2], b[3]);
-  }
-  if (t < 3) {
-    c[0] += bout[2 * t];
-    c[1] += bout[2 * t + 1];
-    c[2] += bout[2 * t];
-    c[3] += bout[2 * t + 1];
   }
 }
 
@@ -367,7 +214,7 @@ fwd_kernel_mma(const float* __restrict__ xt, const float* __restrict__ hz, float
   extern __shared__ __align__(128) unsigned char smem[];
   constexpr int LD = Mma<H>::LD;
   const MmaSmem L(H, NH1, false);
-  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32, g = lane >> 2, t = lane & 3;
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
   const int p = lane & 15, b = blockIdx.y, n = blockIdx.x * MT + warp * 16 + p;
   const bool valid = n < N;
   const size_t cloud = (size_t)b * 3 * N;
@@ -410,9 +257,7 @@ fwd_kernel_mma(const float* __restrict__ xt, const float* __restrict__ hz, float
     }
     float st[4];
     out_rows<H>(st, h, reinterpret_cast<const bf16*>(stage(s) + L.wout), bout + k * 6);
-    *reinterpret_cast<float2*>(sw + g * 8 + 2 * t) = make_float2(st[0], st[1]);
-    *reinterpret_cast<float2*>(sw + (g + 8) * 8 + 2 * t) = make_float2(st[2], st[3]);
-    __syncwarp();
+    st_exchange(sw, st);
 #pragma unroll
     for (int c = 0; c < 3; ++c) {
       if (masks[k * 3 + c] > 0.f) continue;
@@ -537,9 +382,7 @@ bwd_kernel_mma(float* __restrict__ y, float* __restrict__ dy, const float* __res
       }
       float st[4];
       out_rows<H>(st, h, wo8, bout + k * 6);
-      *reinterpret_cast<float2*>(sw + g * 8 + 2 * t) = make_float2(st[0], st[1]);
-      *reinterpret_cast<float2*>(sw + (g + 8) * 8 + 2 * t) = make_float2(st[2], st[3]);
-      __syncwarp();
+      st_exchange(sw, st);
 
       // coupling cotangents; the layer input from the closed-form inverse
       const float g_ld = valid ? dld[b] : 0.f;

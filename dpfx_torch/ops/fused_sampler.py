@@ -24,6 +24,11 @@ as ``rnd(q * s)`` in the compute dtype. That equals, bit for bit, the
 kernel on the host-dequantized stacks (``dequantize``), which is also the
 plain version.
 
+The kernel draws its base noise with Philox4x32-10 keyed by the seed and
+counted by (point, cloud), then Box-Muller; ``philox_noise_plain`` is the
+same stream in plain torch ops (exact integer rounds, f32 Box-Muller), so
+the stream can be pinned on the CPU.
+
 Every wrapper takes its plain PyTorch version for a tensor on the CPU and
 launches the kernel for a CUDA tensor (or raises). ``launches`` counts the
 kernel launches of each wrapper.
@@ -168,6 +173,65 @@ def fused_inverse_transposed_plain(sp: StackedFlowParams, ut: Tensor, hz: Tensor
     return out
 
 
+_PHILOX_M = (0xD2511F53, 0xCD9E8D57)
+_PHILOX_W = (0x9E3779B9, 0xBB67AE85)
+_U32 = 0xFFFFFFFF
+
+
+def _mul_hi_lo(m: int, c: Tensor) -> Tuple[Tensor, Tensor]:
+    """(high, low) 32-bit halves of the 64-bit product m * c, c holding
+    uint32 values in int64: the product is taken in 16-bit parts so that no
+    intermediate passes 2^49."""
+    a = c * (m & 0xFFFF)                        # < 2^48
+    b = c * (m >> 16)                           # < 2^48
+    t = a + ((b & 0xFFFF) << 16)                # < 2^49
+    return ((b >> 16) + (t >> 32)) & _U32, t & _U32
+
+
+def _philox(c, k0: int, k1: int):
+    """Philox4x32-10 on counters c (four int64 tensors of uint32 values)
+    with the key (k0, k1), as the kernel's ``philox``."""
+    c0, c1, c2, c3 = c
+    for r in range(10):
+        if r:
+            k0, k1 = (k0 + _PHILOX_W[0]) & _U32, (k1 + _PHILOX_W[1]) & _U32
+        hi0, lo0 = _mul_hi_lo(_PHILOX_M[0], c0)
+        hi1, lo1 = _mul_hi_lo(_PHILOX_M[1], c2)
+        c0, c1, c2, c3 = hi1 ^ c1 ^ k0, lo1, hi0 ^ c3 ^ k1, lo0
+    return c0, c1, c2, c3
+
+
+def _box_muller(a: Tensor, b: Tensor) -> Tensor:
+    """The kernel's ``box_muller`` in f32: u1 = (a >> 8) 2^-24 + 1e-7, u2 =
+    (b >> 8) 2^-24, sqrt(-2 log u1) cos(2 pi u2)."""
+    inv24 = 1.0 / 16777216.0
+    u1 = (a >> 8).float() * inv24 + torch.tensor(1e-7, dtype=torch.float32)
+    u2 = (b >> 8).float() * inv24
+    return torch.sqrt(-2.0 * torch.log(u1)) * torch.cos(
+        torch.tensor(6.283185307179586, dtype=torch.float32) * u2)
+
+
+def philox_noise_plain(seed: int, b: int, n: int, scale: float = 1.0,
+                       device="cpu") -> Tensor:
+    """The kernel's base noise u [B, N, 3] for an integer seed: point p of
+    cloud c from two Philox4x32-10 draws keyed by (seed low, seed high) with
+    counters (p, c, 0, 0) and (p, c, 1, 0), each pair of words through
+    Box-Muller, times ``scale`` in f32. Keyed by (seed, cloud, point): a
+    prefix of the points draws the same noise. The integer rounds are exact
+    (int64 ops on uint32 values); the transcendental functions are torch's
+    f32 ones, a few ulps from the card's."""
+    seed = int(seed) & (2**64 - 1)
+    k0, k1 = seed & _U32, seed >> 32
+    p = torch.arange(n, dtype=torch.int64, device=device)[None, :].expand(b, n)
+    c = torch.arange(b, dtype=torch.int64, device=device)[:, None].expand(b, n)
+    zero = torch.zeros_like(p)
+    r0 = _philox((p, c, zero, zero), k0, k1)
+    r1 = _philox((p, c, zero + 1, zero), k0, k1)
+    u = torch.stack([_box_muller(r0[0], r0[1]), _box_muller(r0[2], r0[3]),
+                     _box_muller(r1[0], r1[1])], dim=-1)
+    return u * torch.tensor(scale, dtype=torch.float32)
+
+
 def fused_sample_points_plain(sp: StackedFlowParams, hz: Tensor, seed: int, n_points: int,
                               dtype: torch.dtype = torch.bfloat16, activation: str = "relu",
                               noise_scale: float = 1.0) -> Tuple[Tensor, Tensor]:
@@ -197,33 +261,45 @@ def _lib() -> ctypes.CDLL:
         p,                            # stream
     ]
     lib.dpfx_fused_sampler_launch.restype = ctypes.c_int
-    lib.dpfx_fused_sampler_smem_bytes.argtypes = [i, i]
+    lib.dpfx_fused_sampler_smem_bytes.argtypes = [i, i, i, i]
     lib.dpfx_fused_sampler_smem_bytes.restype = ctypes.c_int
     return lib
 
 
-def smem_bytes(hidden: int, dtype: torch.dtype) -> int:
-    """Dynamic shared memory of one block; mirrors the kernel's layout."""
-    s = 2 if dtype == torch.bfloat16 else 4
-    ld = hidden + (8 if dtype == torch.bfloat16 else 1)
+def smem_bytes(hidden: int, dtype: torch.dtype, n_hidden_m1: int = 1, int8: bool = False) -> int:
+    """Dynamic shared memory of one block; mirrors the kernel's layout. bf16
+    (the rows kernel): the warps' [16][8] f32 exchange, then two stages of a
+    whole layer's weights (Wh, Wout and Wx^T in rows of H + 8) where they
+    fit and H < 256, with the int8 mode's raw Wh bytes, else one stage with
+    one Wh. f32: the block's 128 points and one weight matrix in rows of
+    H + 1."""
     r = lambda n: (n + 127) // 128 * 128
-    t = 128
-    return (r(t * ld * s) + r(hidden * ld * s) + r(8 * 256 * 4) + r(3 * t * 4) + r(6 * t * 4)
+    if dtype == torch.bfloat16:
+        ld, o = hidden + 8, 8 * 16 * 8 * 4
+        w8 = r(8 * ld * 2)
+        raw = r(n_hidden_m1 * hidden * hidden) if int8 else 0
+        if hidden < 256 and o + raw + 2 * (r(n_hidden_m1 * hidden * ld * 2) + 2 * w8) <= SMEM_LIMIT:
+            return o + raw + 2 * (r(n_hidden_m1 * hidden * ld * 2) + 2 * w8)
+        return o + r(min(n_hidden_m1, 1) * hidden * ld * 2) + 2 * w8
+    ld, t = hidden + 1, 128
+    return (r(t * ld * 4) + r(hidden * ld * 4) + r(3 * t * 4) + r(6 * t * 4)
             + r(3 * hidden * 4) + 2 * r(hidden * 4) + r(6 * hidden * 4) + r(8 * 4))
 
 
 def _check_kernel_args(sp: StackedFlowParams, hz: Tensor, dtype: torch.dtype,
-                       activation: str) -> None:
+                       activation: str, int8: bool = False) -> None:
     k, h, _ = sp.wx.shape
+    nh1 = sp.wh.shape[1]
     if dtype not in (torch.float32, torch.bfloat16):
         raise ValueError(f"kernel compute dtype must be float32 or bfloat16, got {dtype}")
     if activation not in ACT_CODES:
         raise ValueError(f"unknown activation {activation!r}")
     if h not in KERNEL_HIDDEN:
         raise ValueError(f"the fused sampler kernel is built for hidden in {KERNEL_HIDDEN}, got {h}")
-    if smem_bytes(h, dtype) > SMEM_LIMIT:
-        raise ValueError(f"hidden={h} in {dtype} needs {smem_bytes(h, dtype)} B of shared "
-                         f"memory, more than the {SMEM_LIMIT} B a block may use")
+    need = smem_bytes(h, dtype, nh1, int8)
+    if need > SMEM_LIMIT:
+        raise ValueError(f"hidden={h} in {dtype} needs {need} B of shared memory, more than "
+                         f"the {SMEM_LIMIT} B a block may use")
     for name, t in list(sp._asdict().items())[:-1] + [("hz", hz)]:
         if not (t.is_cuda and t.device == hz.device):
             raise ValueError(f"{name} must be a CUDA tensor on {hz.device}, is on {t.device}")
@@ -252,7 +328,7 @@ def _launch(sp: StackedFlowParams, hz: Tensor, ut: Optional[Tensor], out: Tensor
             u_out: Optional[Tensor], dtype: torch.dtype, activation: str,
             seed: int = 0, noise_scale: float = 1.0,
             quantized: Optional[QuantizedFlowParams] = None) -> None:
-    _check_kernel_args(sp, hz, dtype, activation)
+    _check_kernel_args(sp, hz, dtype, activation, quantized is not None)
     b, c, n = out.shape
     k, h, _ = sp.wx.shape
     nh1 = sp.wh.shape[1]

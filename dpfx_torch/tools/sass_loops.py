@@ -3,15 +3,19 @@ each: how many MUFU (ex2, sqrt, rsqrt), FP32 (FADD, FMUL, FFMA, FMNMX, ...),
 tensor-core (HMMA), shared-memory, conversion and integer instructions one
 trip of the loop issues.
 
-    python -m dpfx_torch.tools.sass_loops [name] [--sass FILE]
+    python -m dpfx_torch.tools.sass_loops [name] [--sass FILE] [--loops mufu|fmnmx|all]
 
-Only loops with a MUFU or HMMA instruction (the element loops) are listed.
-``name`` (default ``emd``) is a source in ``dpfx_torch/ops/csrc``; its built
-library is disassembled with ``cuobjdump -sass`` (the CUDA toolkit's), or
-``--sass`` reads a saved disassembly. A loop is a backward branch; it is
-innermost when no other backward branch lies inside it. Loops of fewer than
-24 instructions (the staging loops) are left out. One line per loop, the
-kernel's template arguments first.
+``--loops`` picks the loops listed: ``mufu`` (the default) those with a
+MUFU or HMMA instruction (the EMD kernel's element loops), ``fmnmx`` those
+with an FMNMX (a min or max: the Chamfer kernel's element loops), ``all``
+every one. ``name`` (default ``emd``) is a source in
+``dpfx_torch/ops/csrc``; its built library is disassembled with
+``cuobjdump -sass`` (the CUDA toolkit's), or ``--sass`` reads a saved
+disassembly. A loop is a backward branch; it is innermost when no other
+backward branch lies inside it. Loops of fewer than 24 instructions (the
+staging loops) are left out. One line per loop, the kernel's template
+arguments first; with ``fmnmx`` and ``all`` the FP32 class is also split by
+opcode (FADD, FMUL, FFMA, FMNMX, ...).
 """
 
 from __future__ import annotations
@@ -83,22 +87,47 @@ def loop_mix(ins, start: int, end: int) -> Counter:
     return Counter(classify(op) for addr, op, _ in ins if start <= addr <= end)
 
 
+def fp32_ops(ins, start: int, end: int) -> Counter:
+    """The loop's FP32-class instructions by opcode (FMNMX, FADD, ...)."""
+    return Counter(op.split(".")[0] for addr, op, _ in ins
+                   if start <= addr <= end and classify(op) == "FP32")
+
+
 def demangled_args(name: str) -> str:
     m = re.search(r"emd_kernelILb(\d)ELb(\d)E", name)
     if m:
         return f"FAST={m.group(1)} GRAD={m.group(2)}"
+    m = re.search(r"chamfer_kernelILb(\d)E", name)
+    if m:
+        return f"chamfer_kernel FAST={m.group(1)}"
+    # another kernel: its name, from the mangled name's length prefix
+    for m in re.finditer(r"(\d+)(?=[A-Za-z_])", name):
+        ident = name[m.end():m.end() + int(m.group(1))]
+        if ident.endswith("_kernel"):
+            return ident
     return name
 
 
-def report(text: str) -> List[str]:
+LOOPS = ("mufu", "fmnmx", "all")
+
+
+def report(text: str, loops: str = "mufu") -> List[str]:
+    """One line per innermost loop of at least MIN_LOOP instructions that
+    ``loops`` selects (see the module's docstring)."""
+    if loops not in LOOPS:
+        raise ValueError(f"loops must be one of {LOOPS}, got {loops!r}")
     lines = []
     for fn, ins in parse(text).items():
         for a, b in innermost_loops(ins):
             mix = loop_mix(ins, a, b)
             n = sum(mix.values())
-            if n < MIN_LOOP or not (mix["MUFU"] or mix["HMMA"]):
+            ops = fp32_ops(ins, a, b)
+            if n < MIN_LOOP or (loops == "mufu" and not (mix["MUFU"] or mix["HMMA"])) \
+                    or (loops == "fmnmx" and not ops["FMNMX"]):
                 continue
             counts = " ".join(f"{c}={mix[c]}" for c in CLASSES if mix[c])
+            if loops != "mufu" and ops:
+                counts += " (FP32: " + " ".join(f"{k}={v}" for k, v in sorted(ops.items())) + ")"
             lines.append(f"{demangled_args(fn)} loop 0x{a:x}-0x{b:x}: {n} instructions, {counts}")
     return lines
 
@@ -115,9 +144,11 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("name", nargs="?", default="emd")
     ap.add_argument("--sass", type=Path, help="a saved cuobjdump -sass output")
+    ap.add_argument("--loops", choices=LOOPS, default="mufu",
+                    help="loops with MUFU or HMMA (default), with FMNMX, or all")
     a = ap.parse_args(argv)
     text = a.sass.read_text() if a.sass else disassemble(a.name)
-    for line in report(text):
+    for line in report(text, a.loops):
         print(line)
     return 0
 

@@ -18,6 +18,7 @@ torch = pytest.importorskip("torch")
 from dpfx_torch.compat import randomize_  # noqa: E402
 from dpfx_torch.models import CouplingFlow  # noqa: E402
 from dpfx_torch.ops import fused_sampler as fs  # noqa: E402
+from dpfx_torch.ops import fused_train as ft  # noqa: E402
 
 pytestmark = pytest.mark.gpu
 
@@ -40,12 +41,17 @@ def _sp(hidden, n_hidden, activation, dev, k=6, seed=0):
         return fs.stack_point_flow_params(randomize_(flow, seed, 0.02).to(dev))
 
 
-@pytest.mark.parametrize("hidden,n_hidden,activation,n", [
-    (32, 2, "relu", 200), (64, 1, "gelu", 128), (128, 3, "tanh", 300), (256, 2, "leaky_relu", 77)])
+# (256, 3) and (128, 7) stage one Wh at a time in bf16 (a layer's stack
+# does not fit two stages, or one)
+INVERSE_SHAPES = [(32, 2, "relu", 200), (64, 1, "gelu", 128), (128, 3, "tanh", 300),
+                  (256, 2, "leaky_relu", 77), (256, 3, "relu", 130), (128, 7, "gelu", 131)]
+
+
+@pytest.mark.parametrize("hidden,n_hidden,activation,n", INVERSE_SHAPES)
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_fused_inverse_matches_plain(cuda, hidden, n_hidden, activation, n, dtype):
     dt = getattr(torch, dtype)
-    if fs.smem_bytes(hidden, dt) > fs.SMEM_LIMIT:
+    if fs.smem_bytes(hidden, dt, n_hidden - 1) > fs.SMEM_LIMIT:
         with pytest.raises(ValueError, match="shared"):
             fs._check_kernel_args(_sp(hidden, n_hidden, activation, cuda),
                                   torch.zeros(1, 6, hidden, device=cuda), dt, activation)
@@ -67,11 +73,50 @@ def test_fused_inverse_matches_plain(cuda, hidden, n_hidden, activation, n, dtyp
 
 
 def test_smem_mirror_matches_kernel(cuda):
-    """The wrapper's shared-memory check mirrors the kernel's carve-up."""
+    """The wrapper's shared-memory check mirrors the kernel's carve-up, at
+    every width, conditioner depth and mode (bf16: one or two stages, the
+    int8 mode's raw bytes)."""
     lib = fs._lib()
     for h in fs.KERNEL_HIDDEN:
-        for dt, bf16 in ((torch.float32, 0), (torch.bfloat16, 1)):
-            assert fs.smem_bytes(h, dt) == lib.dpfx_fused_sampler_smem_bytes(h, bf16)
+        for nh1 in range(10):
+            for dt, bf16 in ((torch.float32, 0), (torch.bfloat16, 1)):
+                for int8 in (False, True):
+                    assert fs.smem_bytes(h, dt, nh1, int8) == \
+                        lib.dpfx_fused_sampler_smem_bytes(h, nh1, bf16, int(int8)), (h, nh1, dt, int8)
+    # the flagship conditioner (H=128, n_hidden=2) keeps two blocks per SM
+    assert 2 * fs.smem_bytes(128, torch.bfloat16, 1, True) <= 228 * 1024 - 2 * 1024
+
+
+@pytest.mark.parametrize("hidden,n_hidden,n,b", [(32, 3, 200, 3), (128, 2, 300, 2)])
+def test_rows_inverse_round_trips_the_training_forward(cuda, hidden, n_hidden, n, b):
+    """fused_train's bf16 forward, then the sampler's bf16 inverse with the
+    same hz: both run the same row code on the same passthrough
+    coordinates, so x comes back up to the f32 rounding of the affine
+    update (median <= 1e-5); a coordinate recovered a few ulps off may round
+    to the other side of a bf16 boundary at a later layer (max <= 5e-2)."""
+    sp = _sp(hidden, n_hidden, "relu", cuda, k=8)
+    g = torch.Generator(device=cuda).manual_seed(2)
+    xt = torch.randn((b, 3, n), generator=g, device=cuda)
+    z = torch.randn((b, 16), generator=g, device=cuda)
+    u, _ = ft.fused_forward_kernel(sp.wx, sp.wh, sp.bh, sp.wout, sp.bout, sp.masks, sp.scale_cap,
+                                   xt, fs.z_projection(sp, z), torch.bfloat16)
+    back = fs.fused_inverse_transposed(sp, u, z, dtype=torch.bfloat16)
+    torch.cuda.synchronize()
+    e = (back - xt).abs()
+    assert float((u - xt).abs().max()) > 0.1           # the flow moved the points
+    assert float(e.median()) <= 1e-5 and float(e.max()) <= 5e-2
+
+
+def test_fused_sample_noise_is_philox_noise_plain(cuda):
+    """The kernel's base noise is philox_noise_plain's stream: the integer
+    rounds are exact, logf and cosf a few ulps apart at most."""
+    sp = _sp(32, 2, "relu", cuda)
+    z = torch.randn((5, 16), device=cuda)
+    for seed, n, tau in ((7, 3000, 1.1), (2**40 + 3, 129, 1.0)):
+        _, u = fs.fused_sample_points(sp, z, seed, n, noise_scale=tau, return_noise=True)
+        torch.cuda.synchronize()
+        assert float((u.cpu() - fs.philox_noise_plain(seed, 5, n, tau)).abs().max()) <= 1e-6
+        assert float((u - fs.philox_noise_plain(seed, 5, n, tau, device=cuda)).abs().max()) <= 1e-6
 
 
 def test_fused_sample_draws_then_inverts(cuda):
@@ -498,12 +543,19 @@ def test_chamfer_kernels_match_plain(cuda, n, m):
     cdk.reset_launch_counts()
     dl, dr = cdk.nn_distances(xs[:3], ys)
     pdl, _, pdr, _ = cdk.nn_distances_plain(xs[:3], ys)
-    torch.testing.assert_close(dl, pdl, rtol=1e-5, atol=1e-7)
-    torch.testing.assert_close(dr, pdr, rtol=1e-5, atol=1e-7)
+    # one distance per element, the clamp after the minimum: the minima are
+    # the plain version's bit for bit
+    assert torch.equal(dl, pdl) and torch.equal(dr, pdr)
+    ii, jj = torch.meshgrid(torch.arange(4), torch.arange(3), indexing="ij")
     for prec in ("exact", "fast"):
         got = cdk.chamfer_pairwise(xs, ys, prec)
         assert torch.equal(got, cdk.chamfer_pairwise(xs, ys, prec)), "not bit-identical"
         assert _pair_rel(got, cdk.chamfer_pairwise_plain(xs, ys, prec), 1e-7) <= 1e-5
+        # the plain version of the kernel's algebra and order: equal bit for
+        # bit (its minima are nn_distances_plain's, fast mode's the rounded
+        # matrix's: tests/test_torch_chamfer_onepass.py)
+        _, _, one = cdk.onepass_plain(xs[ii.flatten()], ys[jj.flatten()], fast=prec == "fast")
+        assert torch.equal(got.flatten(), one), prec
     torch.cuda.synchronize()
     assert cdk.launches == {"nnd_fwd": 1, "nnd_bwd": 0, "cd_pairwise": 4}
 
@@ -520,6 +572,34 @@ def test_chamfer_symmetric_mirror_is_exact(cuda):
     assert float(sym.diagonal().abs().max()) <= 1e-5
     with pytest.raises(ValueError, match="self-comparison"):
         cdk.chamfer_pairwise(xs, xs[:, :200], symmetric=True)
+
+
+@pytest.mark.parametrize("b,n,m", [(4, 200, 317), (3, 37, 101), (4, 600, 700), (64, 130, 70),
+                                   (32, 2048, 2048)])
+def test_chamfer_cluster_matches_one_cta(cuda, b, n, m):
+    """Few pairs split their tiles over a cluster of CTAs, combined through
+    distributed shared memory; the same pairs among 2 x 132 or more run on
+    one CTA each. Minima are exact in any order and the sums keep their
+    order: the two are equal bit for bit, dl, dr and CD."""
+    from dpfx_torch.ops import chamfer as cdk
+
+    xs, ys = _eval_clouds(cuda, b, n, 41), _eval_clouds(cuda, b, m, 42)
+    reps = -(-2 * 132 // b)
+    c = cdk.cluster_size(b, n, m)
+    assert cdk.cluster_size(b * reps, n, m) == 1
+    assert c > 1 or (n <= 256 and m <= 256), "a pair of one tile runs on one CTA"
+    cdk.reset_launch_counts()
+    dl, dr = cdk.nn_distances(xs, ys)
+    ml, mr = cdk.nn_distances(xs.repeat(reps, 1, 1), ys.repeat(reps, 1, 1))
+    assert cdk.clusters["nnd_fwd"] == {c, 1}
+    assert torch.equal(dl, ml[:b]) and torch.equal(dr, mr[:b])
+    pdl, _, pdr, _ = cdk.nn_distances_plain(xs, ys)
+    assert torch.equal(dl, pdl) and torch.equal(dr, pdr)
+    few = cdk.chamfer_pairwise(xs[:2], ys[:2])
+    many = cdk.chamfer_pairwise(xs[:2].repeat(66, 1, 1), ys[:2])[:2]
+    assert torch.equal(few, many)
+    torch.cuda.synchronize()
+    assert [cdk.cluster_size(p, 2048, 2048) for p in (1, 33, 34, 263, 264)] == [4, 4, 2, 2, 1]
 
 
 @pytest.mark.parametrize("n,m", [(256, 256), (200, 317)])
@@ -747,7 +827,7 @@ def test_int8_sampler_equals_dequantized(cuda, hidden, n_hidden, n, dtype):
     """The int8 mode equals, bit for bit, the compute-dtype mode on the
     host-dequantized stacks with the same seed (noise included)."""
     dt = getattr(torch, dtype)
-    if fs.smem_bytes(hidden, dt) > fs.SMEM_LIMIT:
+    if fs.smem_bytes(hidden, dt, n_hidden - 1, True) > fs.SMEM_LIMIT:
         pytest.skip(f"hidden={hidden} in {dtype} does not fit the kernel's shared memory")
     sp = _sp(hidden, n_hidden, "relu", cuda)
     q = fs.quantize_flow_params(sp)

@@ -62,3 +62,64 @@ def test_cli_reads_a_saved_disassembly(tmp_path, capsys):
     f.write_text(sass())
     assert sass_loops.main(["--sass", str(f)]) == 0
     assert capsys.readouterr().out.count("loop 0x") == 1
+
+
+CD_FN = "_ZN43_GLOBAL__N__85a5aa37_10_chamfer_cu_f923a2d014chamfer_kernelEPKfS2_PKiiiiiPfS5_S5_"
+
+
+def cd_sass():
+    """A Chamfer-like kernel: a 26-instruction staging loop (no FMNMX), then an
+    element loop of distances folded into minima: no MUFU, no HMMA."""
+    lines = [f"\t\tFunction : {CD_FN}"]
+    addr = 0
+    for _ in range(25):
+        lines.append(ins(addr, "IADD3 R1, R1, 0x10, RZ")); addr += 16
+    lines.append(ins(addr, "@P0 BRA 0x0")); addr += 16
+    top = addr
+    lines.append(ins(addr, "LDS.128 R4, [R2]")); addr += 16
+    for op in ["FMUL R8, R4, R12", "FMUL R9, R5, R13", "FADD R8, R8, R9", "FMUL R9, R6, R14",
+               "FADD R8, R8, R9", "FADD R10, R7, R15", "FFMA R8, R8, -2, R10",
+               "FMNMX R20, R20, R8, PT", "FMNMX R21, R21, R8, PT"] * 3:
+        lines.append(ins(addr, op)); addr += 16
+    lines.append(ins(addr, "SHFL.BFLY PT, R3, R21, 0x10, 0x1f")); addr += 16
+    lines.append(ins(addr, "ATOMS.MIN RZ, [R2], R20")); addr += 16
+    lines.append(ins(addr, f"@P1 BRA 0x{top:x}")); addr += 16
+    lines.append(ins(addr, "EXIT"))
+    return "\n".join(lines)
+
+
+def test_kernel_names_from_the_mangled_length_prefix():
+    assert sass_loops.demangled_args(CD_FN) == "chamfer_kernel"
+    assert sass_loops.demangled_args(FN) == "FAST=1 GRAD=0"
+    assert sass_loops.demangled_args("_ZN4dpfx13reduce_slicesEPKfPfiix") == \
+        "_ZN4dpfx13reduce_slicesEPKfPfiix"
+
+
+@pytest.mark.parametrize("loops,listed", [("mufu", 0), ("fmnmx", 1), ("all", 2)])
+def test_report_selects_loops(loops, listed):
+    """The default lists MUFU/HMMA loops only (none here); fmnmx the element
+    loop, with the FP32 class split by opcode; all also the staging loop."""
+    lines = sass_loops.report(cd_sass(), loops)
+    assert len(lines) == listed
+    if listed:
+        el = [ln for ln in lines if "FMNMX" in ln]
+        assert len(el) == 1 and el[0].startswith("chamfer_kernel loop ")
+        assert "31 instructions, FP32=27 SHARED=2 OTHER=2" in el[0]
+        assert "(FP32: FADD=9 FFMA=3 FMNMX=6 FMUL=9)" in el[0]
+    if loops == "all":
+        assert any("26 instructions, INT=25 OTHER=1" in ln for ln in lines)
+
+
+def test_report_rejects_an_unknown_selection():
+    with pytest.raises(ValueError, match="loops must be one of"):
+        sass_loops.report(cd_sass(), "fp32")
+
+
+def test_cli_lists_fmnmx_loops(tmp_path, capsys):
+    f = tmp_path / "chamfer.sass"
+    f.write_text(cd_sass())
+    assert sass_loops.main(["chamfer", "--sass", str(f), "--loops", "fmnmx"]) == 0
+    out = capsys.readouterr().out
+    assert out.count("loop 0x") == 1 and "FMNMX=6" in out
+    assert sass_loops.main(["chamfer", "--sass", str(f)]) == 0
+    assert capsys.readouterr().out == ""
