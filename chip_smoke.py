@@ -32,11 +32,15 @@ script exits non-zero without a result line):
      critical: the backward walks all of them) at N=2000 and 77, the share
      of critical rows at B=64 and the registers and spills of the encoder's
      bf16 kernels (forward, select, walk); then the latent-flow kernels (fused_latent.cu) at the
-     flagship latent widths (K=14, dz=128, H=256) and B=8, 64 and 130 (a
-     ragged last tile over nine blocks): forward (u, log-det), inverse and
-     backward (dz, every weight and bias gradient) in f32 and bf16, the
-     backward twice and required bit-identical, a TF32 control of the plain
-     f32 backward, and the f32 round trip fwd(inv(eps)) = eps;
+     flagship latent widths (K=14, dz=128, H=256) and B=8, 64 and 130 (f32
+     block-wide, a ragged last tile over nine blocks; bf16 on clusters of
+     16 CTAs over groups of 16 samples, at 130 nine groups, the last ragged,
+     walked by eight clusters into eight gradient slices): forward
+     (u, log-det), inverse and backward (dz, every weight and bias
+     gradient) in f32 and bf16, the backward twice and required
+     bit-identical, a TF32 control of the plain f32 backward, the f32 round
+     trip fwd(inv(eps)) = eps and the bf16 one (median and max, as the
+     point flow's);
   2c. the evaluation kernels (chamfer.cu, emd.cu) vs their plain versions on
      synthetic test-split clouds at N=2048 and at a ragged N=2000 against
      M=2048, with one pair of identical clouds: nnd_fwd (B=8; dl and dr
@@ -124,7 +128,10 @@ script exits non-zero without a result line):
      profiler), the training batch's critical rows and the FLOP the kernels
      issue beside the bounds' dense work, and the train
      step's ms/step with the fused latent flow off and on, the latent-flow kernels
-     at B=64, the redesigned sampler and Chamfer kernels' times beside their
+     at B=64 (every cluster plan of LATENT_PLANS held to the plain versions
+     and timed, the default plan's times beside their first design's,
+     FIRST_LATENT_MS, with us per layer and ptxas' registers and spills),
+     the redesigned sampler and Chamfer kernels' times beside their
      first designs' (FIRST_SAMPLER_MS, FIRST_CD_MS), then one JSON line with
      every kernel's error, time, plain time and bound, the evaluation
      kernels' at their paths' shapes (a 128 x 128 matrix at N=2048 for the
@@ -266,6 +273,12 @@ FIRST_ENCODER_MS = {"fwd": 2.641, "bwd": 5.606}
 # phase 4's
 FIRST_SAMPLER_MS = {"fused_sample": 3.558, "fused_inverse": 3.580, "fused_sample_int8": 3.818}
 FIRST_CD_MS = {"exact": 48.11, "triangle": 24.41, "fast": 58.68, "nnd_fwd": 0.457}
+# the fused latent flow's bf16 times at B=64 in its first design (a block
+# of 16 samples walking all 14 layers, WMMA on weights read from global
+# memory; NVIDIA H100 80GB HBM3, 700.00 W), printed beside phase 4's
+FIRST_LATENT_MS = {"fwd": 0.486, "inv": 0.360, "bwd": 1.031}
+# the cluster plans (CTAs per cluster, samples per cluster) phase 4 times
+LATENT_PLANS = ((8, 64), (16, 64), (16, 32), (8, 32), (16, 16), (8, 16))
 # the round trip of the bf16 training forward and the sampler's bf16
 # inverse on the same hz: both run flow_rows.cuh on the same passthrough
 # coordinates, so (s, t) agree bit for bit and x comes back up to the f32
@@ -447,6 +460,27 @@ def encoder_ptxas() -> dict:
              "walk_kernel": "walk"}
     found, cur = {}, None
     for line in _build.ptxas_log("fused_encoder").splitlines():
+        if "Compiling entry function" in line:
+            cur = next((v for k, v in names.items() if k in line), None)
+        elif cur and "spill stores" in line:
+            st, ld = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line).groups()
+            found.setdefault(cur, {})["spill"] = f"{st}/{ld}"
+        elif cur and "Used" in line:
+            found.setdefault(cur, {})["regs"] = int(re.search(r"Used (\d+) registers", line).group(1))
+    return found
+
+
+def latent_ptxas() -> dict:
+    """Registers and spilled bytes (stores/loads) of the fused latent flow's
+    bf16 cluster kernels (forward, inverse, backward), from ptxas' log."""
+    import re
+
+    from dpfx_torch.ops import _build
+
+    names = {"cluster_flow_kernelILb0E": "fwd", "cluster_flow_kernelILb1E": "inv",
+             "cluster_bwd_kernel": "bwd"}
+    found, cur = {}, None
+    for line in _build.ptxas_log("fused_latent").splitlines():
         if "Compiling entry function" in line:
             cur = next((v for k, v in names.items() if k in line), None)
         elif cur and "spill stores" in line:
@@ -1881,7 +1915,9 @@ def main() -> int:
     del x64, p64
 
     # ---- 2b'. the latent-flow kernels vs their plain versions at the flagship
-    # latent widths; B=130 is a ragged last tile over nine blocks
+    # latent widths: f32 on the block-wide kernels (B=130 a ragged last tile
+    # over nine blocks), bf16 on clusters (B=130: nine groups of 16, the
+    # last ragged, eight gradient slices)
     lfc = cfg.model.latent_flow
     with torch.no_grad():
         lw = fl.stack_latent_params(model.latent_flow)
@@ -1926,6 +1962,18 @@ def main() -> int:
             else:
                 check(emax <= TOL_BF16_MAX and e999 <= TOL_BF16_P999,
                       f"fused_latent inverse bf16 B={b}: max {emax}, p99.9 {e999}")
+                # the cluster kernels' round trip: forward and inverse run the
+                # same conditioner code (`cond`) on the same passthrough
+                # features, as phase 2's point-flow round trip
+                back, _ = fl.latent_forward_kernel(lw, lmasks, cap, zi, dtype)
+                trip = (back - z).abs()
+                t_med, t_max = float(trip.median()), float(trip.max())
+                plan = fl.cluster_plan(b, cfg.model.dz, lw["win"].shape[1], lw["wh"].shape[1],
+                                       backward=True)
+                print(f"fused_latent bf16 round trip fwd(inv(eps)) B={b}: median {t_med:.3e}, "
+                      f"max {t_max:.3e}; backward plan {plan}")
+                check(t_med <= TOL_TRIP_MEDIAN and t_max <= TOL_BF16_MAX,
+                      f"fused_latent bf16 round trip B={b}: median {t_med}, max {t_max}")
             if f32 and b == 64:
                 ctl = tf32_control(lambda: lat_flat(fl.latent_backward_plain(
                     lw, lmasks, cap, u_p, du, dld, dtype)), ref)
@@ -2359,9 +2407,13 @@ def main() -> int:
     torch.cuda.synchronize()
     lf_err, li_err, lb_err = maxerr((u_k, ld_k), (u_p, ld_p)), maxerr((zi_k,), (zi_p,)), maxerr(got, ref)
     del got, ref
-    lf_ms = cuda_ms(lambda: fl.latent_forward_kernel(lw, lmasks, cap, z, bf), 50)
-    li_ms = cuda_ms(lambda: fl.latent_inverse_kernel(lw, lmasks, cap, z, bf), 50)
-    lb_ms = cuda_ms(lambda: fl.latent_backward_kernel(lw, lmasks, cap, u_p, du, dld, bf), 20)
+    # the kernels on weights cast to bf16 once (as the sampler keeps them);
+    # the cast per call, which a training step pays once for both, apart
+    lwc = fl.cast_latent_weights(lw, bf)
+    lf_ms = cuda_ms(lambda: fl.latent_forward_kernel(lwc, lmasks, cap, z, bf), 50)
+    li_ms = cuda_ms(lambda: fl.latent_inverse_kernel(lwc, lmasks, cap, z, bf), 50)
+    lb_ms = cuda_ms(lambda: fl.latent_backward_kernel(lwc, lmasks, cap, u_p, du, dld, bf), 20)
+    cast_ms = cuda_ms(lambda: fl.cast_latent_weights(lw, bf), 50)
     lf_plain = cuda_ms(lambda: fl.latent_forward_plain(lw, lmasks, cap, z, bf), 5, warmup=1)
     li_plain = cuda_ms(lambda: fl.latent_inverse_plain(lw, lmasks, cap, z, bf), 5, warmup=1)
     lb_plain = cuda_ms(lambda: fl.latent_backward_plain(lw, lmasks, cap, u_p, du, dld, bf), 5,
@@ -2382,6 +2434,56 @@ def main() -> int:
           f"{b_lf:.5f}), backward {lb_ms:.4f} ms (plain {lb_plain:.3f}, bound {b_lb:.5f}), inverse "
           f"{li_ms:.4f} ms (plain {li_plain:.3f}); max_abs err fwd {lf_err:.2e}, bwd {lb_err:.2e}, "
           f"inv {li_err:.2e} ({card})")
+    # the redesigned latent kernels (a layer split across a cluster): every
+    # plan of LATENT_PLANS held to the plain versions at B=64 and timed, the
+    # default plan's times beside the first design's, with ptxas' registers
+    lshape = (cfg.model.dz, lw["win"].shape[1], lw["wh"].shape[1])
+    n_lat = lmasks.shape[0]
+    sweep = {}
+    for c_, g_ in LATENT_PLANS:
+        row = {}
+        for kname, bwd in (("fwd", False), ("inv", False), ("bwd", True)):
+            try:
+                plan = fl.cluster_plan(b, *lshape, bwd, c_, g_)
+            except ValueError:
+                row[kname] = "does not fit"
+                continue
+            if kname == "fwd":
+                uu, ll = fl.latent_forward_kernel(lwc, lmasks, cap, z, bf, plan=plan)
+                ok = rel(uu, u_p) <= TOL_GRAD_BF16 and rel(ll, ld_p) <= TOL_GRAD_BF16
+                fn = lambda: fl.latent_forward_kernel(lwc, lmasks, cap, z, bf, plan=plan)
+            elif kname == "inv":
+                emax, e999 = errors(fl.latent_inverse_kernel(lwc, lmasks, cap, z, bf, plan=plan), zi_p)
+                ok = emax <= TOL_BF16_MAX and e999 <= TOL_BF16_P999
+                fn = lambda: fl.latent_inverse_kernel(lwc, lmasks, cap, z, bf, plan=plan)
+            else:
+                got = lat_flat(fl.latent_backward_kernel(lwc, lmasks, cap, u_p, du, dld, bf, plan=plan))
+                ref = lat_flat(fl.latent_backward_plain(lw, lmasks, cap, u_p, du, dld, bf))
+                ok = max(rel(a_, r_) for a_, r_ in zip(got, ref) if r_.numel()) <= TOL_GRAD_BF16
+                del got, ref
+                fn = lambda: fl.latent_backward_kernel(lwc, lmasks, cap, u_p, du, dld, bf, plan=plan)
+            check(ok, f"fused_latent {kname} on clusters of {c_}, groups of {g_}, against the plain "
+                      "version")
+            row[kname] = round(cuda_ms(fn, 50 if kname != "bwd" else 20), 4)
+        sweep[f"C={c_} G={g_}"] = row
+    pf = fl.cluster_plan(b, *lshape, False)
+    pb = fl.cluster_plan(b, *lshape, True)
+    lregs = latent_ptxas()
+    check(all("regs" in lregs.get(kk, {}) for kk in ("fwd", "inv", "bwd")),
+          f"ptxas reported the fused_latent cluster kernels: {lregs}")
+    print(f"redesigned fused_latent at B={b} K={n_lat} bf16 (a layer split across a cluster): "
+          f"forward {lf_ms:.4f} ms (first design: {FIRST_LATENT_MS['fwd']:.3f} ms, "
+          f"{FIRST_LATENT_MS['fwd'] / lf_ms:.2f}x), {lf_ms * 1e3 / n_lat:.2f} us/layer; inverse "
+          f"{li_ms:.4f} ms (first design: {FIRST_LATENT_MS['inv']:.3f} ms, "
+          f"{FIRST_LATENT_MS['inv'] / li_ms:.2f}x), {li_ms * 1e3 / n_lat:.2f} us/layer; backward "
+          f"{lb_ms:.4f} ms (first design: {FIRST_LATENT_MS['bwd']:.3f} ms, "
+          f"{FIRST_LATENT_MS['bwd'] / lb_ms:.2f}x), {lb_ms * 1e3 / n_lat:.2f} us/layer; plans: "
+          f"forward and inverse (C, G) = ({pf.cluster}, {pf.group}) {pf.smem} B, backward "
+          f"({pb.cluster}, {pb.group}) {pb.smem} B, {pb.slices} slices; the four weight casts a "
+          f"call on f32 stacks would add {cast_ms:.4f} ms; times of every plan (ms) "
+          f"{json.dumps(sweep)}; ptxas "
+          + "; ".join(f"{kk} {v.get('regs')} registers, spilled bytes (stores/loads) "
+                      f"{v.get('spill')}" for kk, v in lregs.items()) + f" ({card})")
     kernels += eval_kernel_rows(cfg, half_a, half_b, gen_launches, ae_launches)
     kernels += grad_rows + int8_rows + probe_rows
     check(len(kernels) == 24, f"{len(kernels)} kernel rows")

@@ -20,8 +20,9 @@ from typing import Callable
 
 import torch
 
-from dpfx_torch.models.dpf import DPF
+from dpfx_torch.models.dpf import DPF, dtype_of
 from dpfx_torch.ops.fused_latent import (
+    cast_latent_weights,
     fused_latent_inverse,
     fused_latent_supported,
     stack_latent_params,
@@ -40,12 +41,14 @@ def _generators(seed: int, device: torch.device):
 def _make_latent_inverse(model: DPF) -> Callable[[torch.Tensor], torch.Tensor]:
     """eps -> z through the latent prior flow. The module is the default, as
     in ``dpfx``; ``DPFX_SAMPLE_FUSED_LATENT=1`` (with a supported config)
-    selects the fused latent kernel, its weights stacked once here."""
+    selects the fused latent kernel, its weights stacked and cast to the
+    compute dtype once here."""
     lf_cfg = model.config.model.latent_flow
     if (os.environ.get("DPFX_SAMPLE_FUSED_LATENT") == "1"
             and fused_latent_supported(lf_cfg, model.config.model.dz)):
         with torch.no_grad():
-            stacked = stack_latent_params(model.latent_flow)
+            stacked = cast_latent_weights(stack_latent_params(model.latent_flow),
+                                          dtype_of(lf_cfg.compute_dtype))
         return lambda eps: fused_latent_inverse(stacked, eps, lf_cfg)
     return lambda eps: model.latent_flow.inverse(eps)[0]
 

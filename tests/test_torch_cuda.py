@@ -425,30 +425,40 @@ def _latent_weights(dz, hidden, n_hidden, k, dev, seed=0):
         return fl.stack_latent_params(randomize_(flow, seed, 0.05).to(dev))
 
 
-@pytest.mark.parametrize("dz,hidden,n_hidden,b", [(32, 32, 2, 5), (128, 256, 2, 64),
-                                                  (64, 48, 1, 130), (48, 64, 3, 17)])
-@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-def test_fused_latent_kernels_match_plain(cuda, dz, hidden, n_hidden, b, dtype):
+@pytest.mark.parametrize("dz,hidden,n_hidden,b,cluster,dtype", [
+    *((*shape, None, dtype) for shape in ((32, 32, 2, 5), (128, 256, 2, 64), (64, 48, 1, 130),
+                                          (48, 64, 3, 17))
+      for dtype in ("float32", "bfloat16")),
+    *((128, 256, 2, b, c, "bfloat16") for b in (8, 64, 65, 130) for c in (8, 16))])
+def test_fused_latent_kernels_match_plain(cuda, dz, hidden, n_hidden, b, cluster, dtype):
     """Forward (u, log-det), inverse and backward (dz and every weight
     gradient) against the plain versions; the backward bit-identical from
-    run to run. B=130 is a ragged last tile over nine blocks."""
+    run to run. f32: B=130 is a ragged last tile over nine blocks. bf16 on
+    clusters (the default plan, or clusters of 8 or 16): B=65 and 130 are
+    two and three groups of 64 (the backward's groups of 32 on clusters of
+    8), the last ragged, with one gradient slice per cluster."""
     from dpfx_torch.ops import fused_latent as fl
 
     dt = getattr(torch, dtype)
     k = 5
     w = _latent_weights(dz, hidden, n_hidden, k, cuda)
     masks = fl.latent_masks(k, dz, cuda)
+    pf = pb = None
+    if cluster is not None:
+        pf = fl.cluster_plan(b, dz, hidden, n_hidden - 1, False, cluster)
+        pb = fl.cluster_plan(b, dz, hidden, n_hidden - 1, True, cluster)
+        assert pf.cluster == pb.cluster == cluster
     g = torch.Generator(device=cuda).manual_seed(1)
     z = torch.randn((b, dz), generator=g, device=cuda)
     fl.reset_launch_counts()
-    u, ld = fl.latent_forward_kernel(w, masks, 3.0, z, dt)
+    u, ld = fl.latent_forward_kernel(w, masks, 3.0, z, dt, plan=pf)
     u_p, ld_p = fl.latent_forward_plain(w, masks, 3.0, z, dt)
-    zi = fl.latent_inverse_kernel(w, masks, 3.0, z, dt)
+    zi = fl.latent_inverse_kernel(w, masks, 3.0, z, dt, plan=pf)
     zi_p = fl.latent_inverse_plain(w, masks, 3.0, z, dt)
     du = torch.randn(u.shape, generator=g, device=cuda)
     dld = torch.randn(ld.shape, generator=g, device=cuda)
-    got = fl.latent_backward_kernel(w, masks, 3.0, u_p, du, dld, dt)
-    again = fl.latent_backward_kernel(w, masks, 3.0, u_p, du, dld, dt)
+    got = fl.latent_backward_kernel(w, masks, 3.0, u_p, du, dld, dt, plan=pb)
+    again = fl.latent_backward_kernel(w, masks, 3.0, u_p, du, dld, dt, plan=pb)
     ref = fl.latent_backward_plain(w, masks, 3.0, u_p, du, dld, dt)
     torch.cuda.synchronize()
     assert fl.launches == {"fused_latent_fwd": 1, "fused_latent_bwd": 2, "fused_latent_inv": 1}
@@ -485,6 +495,22 @@ def test_fused_latent_kernel_conditions(cuda):
                                   *(torch.zeros(s, device=cuda) for s in ((4, 32), (4, 32), (4,))),
                                   torch.float32)
     assert sum(fl.launches.values()) == 0
+
+
+def test_fused_latent_cluster_smem_is_the_plan(cuda):
+    """The plan's shared memory (fused_latent.cluster_smem_bytes) is the
+    kernel library's CLay, byte for byte."""
+    from dpfx_torch.ops import fused_latent as fl
+
+    lib = fl._lib()
+    for d, h, nh1 in ((128, 256, 1), (32, 32, 1), (64, 48, 0), (48, 64, 2)):
+        for bwd in (False, True):
+            for c in (1, 2, 4, 8, 16):
+                if d % (8 * c) or h % (8 * c):
+                    continue
+                for g in (16, 32, 64):
+                    assert (fl.cluster_smem_bytes(d, h, nh1, g, c, bwd)
+                            == lib.dpfx_fused_latent_cluster_smem_bytes(d, h, nh1, g, c, int(bwd)))
 
 
 def test_train_step_on_card_with_fused_latent(cuda):
