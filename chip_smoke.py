@@ -14,7 +14,8 @@ Phases (each prints its result on its own line; any failure raises and the
 script exits non-zero without a result line):
   1. the card's name and power limit; build every kernel with nvcc (sm_90a),
      all sources at once, and print ptxas' register and spill lines and
-     the instruction mix of the EMD and Chamfer kernels' element loops
+     the instruction mix of the EMD and Chamfer kernels' element loops and
+     of the Chamfer backward's sweep, with its instructions an element
      (their SASS, read by dpfx_torch.tools.sass_loops);
   2. kernel vs plain version at K=32, H=128, dz=128, B=8, N=2048 and a
      ragged N=2000: f32 and bf16 for fused_inverse, bf16 for fused_sample
@@ -81,18 +82,25 @@ script exits non-zero without a result line):
      disjoint stratified halves of the test split (the ideal-generator row)
      and on one half shifted by 0.5;
   3d. the differentiable distances at full width, on phase 3's 64 sampled
-     clouds against 64 test-split clouds (N=M=2048) and a ragged 2000 x
-     2048 batch: nnd_bwd against nn_distances_backward_plain on the same
-     minima (per point, twice for bit-identity), two tie cases (y = x with
-     every point duplicated; y duplicated and x perturbed, where the copies
-     must share the gradient); the EMD gradient mode at B=32, 64 and the
+     clouds against 64 test-split clouds (N=M=2048), a ragged 2000 x
+     2048 batch and hubs (a collapsed 0.01 N(0, 1) cloud against the test
+     clouds: inverse lists past 32): nnd_bwd against nn_distances_backward_plain on the same
+     minima (per point, twice for bit-identity) and against the three-pass
+     kernel bit for bit, with the pairs by path (lists, fix-up, three
+     passes) and the CTAs per pair; two tie cases (y = x with every point
+     duplicated; y duplicated and x perturbed, where the copies must share
+     the gradient), which must take the three passes; on the descent's
+     first inputs nnd_bwd against the three-pass kernel and
+     onepass_bwd_plain bit for bit; the EMD gradient mode at B=32, 64 and the
      ragged batch (its cost equal to emd_nograd's bit for bit, gx and gy
      per pair against emd_grads_plain by median and maximum, twice for
      bit-identity, the ragged batch also against an f64 run); then 20
      steps of gradient descent on chamfer + emd from a perturbed copy of
      the test clouds towards them (launch counts zeroed just before and
-     read just after, the EMD launches on clusters), which must lower both
-     for every pair;
+     read just after, the EMD launches on clusters, nnd_bwd's pairs by
+     path), which must lower both for every pair; then nnd_bwd and the
+     three-pass kernel timed in turns on the sampled, the descent's and
+     the hubs' inputs;
   3e. the int8 sampler: fused_sample_points(quantized=quantize_flow_params)
      on the flagship stack, bf16, at B=64 (launch counts zeroed and read
      around it) and B=256, N=2048: bit-identical to the kernel on the
@@ -190,12 +198,16 @@ CD_FP32_PER_ELEM = 7
 # the w of level k and the ss sqrt(d) term (7)
 EMD_MUFU_PER_ELEM = 2 * 10 - 1 + 10
 EMD_FP32_PER_ELEM_LEVEL = 7
-# the CD backward per element, at the least: one distance (6) and the row
-# and column mask tests (2), the forward's scan. The tie counts and the
-# masked sums (sum_j maskl y_j, sum_j wr_ij and sum_j wr_ij y_j for gx;
-# sum_i maskr x_i, sum_i wl_ij and sum_i wl_ij x_i for gy) add only where
-# d <= dmin: per neighbour of a row and of a column, two counts and 14 sums
-CD_BWD_FP32_PER_ELEM = 8
+# the CD backward per element, at the least: one distance (5, as
+# CD_FP32_PER_ELEM counts it) and the row and column mask tests (2), the
+# forward's scan; the tests take the unclamped distance, since the minima
+# are clamped (>= 0: sweep_bound in csrc/chamfer.cu), so no clamp goes to an
+# element. (CD_BWD_FP32_PER_ELEM was 8 until the one-sweep kernel, which
+# charged a clamp per element.) The tie counts and the masked sums (sum_j
+# maskl y_j, sum_j wr_ij and sum_j wr_ij y_j for gx; sum_i maskr x_i, sum_i
+# wl_ij and sum_i wl_ij x_i for gy) add only where d <= dmin: per
+# neighbour of a row and of a column, two counts and 14 sums
+CD_BWD_FP32_PER_ELEM = 7
 CD_BWD_FP32_PER_MATCH = 16
 # the EMD gradient mode per element and level, on top of the cost's (no
 # [N, M] intermediate is kept, so the plan of each level is used where it
@@ -273,6 +285,11 @@ FIRST_ENCODER_MS = {"fwd": 2.641, "bwd": 5.606}
 # phase 4's
 FIRST_SAMPLER_MS = {"fused_sample": 3.558, "fused_inverse": 3.580, "fused_sample_int8": 3.818}
 FIRST_CD_MS = {"exact": 48.11, "triangle": 24.41, "fast": 58.68, "nnd_fwd": 0.457}
+# the Chamfer backward's time at B=64 x 2048 in its three-pass design (one
+# block per pair, every distance three times; NVIDIA H100 80GB HBM3,
+# 700.00 W), printed beside phase 3d's; the design stays as the kernel's
+# path for pairs with many ties and as nnd_backward(three_pass=True)
+FIRST_CD_BWD_MS = 1.151
 # the fused latent flow's bf16 times at B=64 in its first design (a block
 # of 16 samples walking all 14 layers, WMMA on weights read from global
 # memory; NVIDIA H100 80GB HBM3, 700.00 W), printed beside phase 4's
@@ -1054,6 +1071,14 @@ def eval_kernel_rows(cfg, half_a, half_b, gen_launches, ae_launches):
             for nm, src, where, launched, err, ms, plain, bd, by in rows]
 
 
+def path_counts(paths) -> str:
+    """The pairs of nnd_bwd launches by path (paths: uint8 [B], chamfer.PATH_*)."""
+    import torch
+
+    c = torch.bincount(paths.long(), minlength=3).tolist()
+    return f"pairs by path: lists {c[0]}, fix-up {c[1]}, three passes {c[2]}"
+
+
 def grad_point_err(a, b):
     """Per point |a_i - b_i| / (|b_i| + mean_i |b_i|) of gradients [B, N, 3],
     the mean taken per pair; returns the largest."""
@@ -1106,26 +1131,37 @@ def distance_grad_paths(cfg, dev, sampled):
     test = split_clouds(cfg, range(b), n, 3, dev)
     xs = sampled.float().contiguous()
 
-    # CD backward: B=64 x 2048 and a ragged 2000 x 2048 batch
+    # CD backward: B=64 x 2048, a ragged 2000 x 2048 batch, and hubs: a
+    # collapsed cloud (0.01 N(0, 1)) against the test clouds, as a generator
+    # early in training gives (inverse lists past 32, which the fix-up takes)
     cd_err = 0.0
+    hubs = 0.01 * torch.randn(test.shape, generator=g, device=dev)
     for x, y, tag in ((xs, test, f"B={b} N={n} M={n}"),
-                      (xs[:8, :2000].contiguous(), test[:8], "B=8 N=2000 M=2048")):
+                      (xs[:8, :2000].contiguous(), test[:8], "B=8 N=2000 M=2048"),
+                      (hubs, test, f"hubs B={b} N={n} M={n}")):
         dl, dr = cdk.nnd_forward(x, y)
         gl = torch.randn(dl.shape, generator=g, device=dev)
         gr = torch.randn(dr.shape, generator=g, device=dev)
         gx, gy = cdk.nnd_backward(x, y, dl, dr, gl, gr)
+        paths = cdk.last_paths
         gx2, gy2 = cdk.nnd_backward(x, y, dl, dr, gl, gr)
         px, py = cdk.nn_distances_backward_plain(x, y, dl, dr, gl, gr)
+        tx, ty = cdk.nnd_backward(x, y, dl, dr, gl, gr, three_pass=True)
         torch.cuda.synchronize()
         e = max(grad_point_err(gx, px), grad_point_err(gy, py))
         print(f"kernel-vs-plain nnd_bwd {tag}: per-point rel max {e:.2e}, max_abs "
               f"{max(float((gx - px).abs().max()), float((gy - py).abs().max())):.2e} "
-              f"(|g|max {float(px.abs().max()):.2f})")
+              f"(|g|max {float(px.abs().max()):.2f}); {path_counts(paths)}, CTAs per pair "
+              f"{cdk.cluster_size(x.shape[0], x.shape[1], y.shape[1])}; equal to the three-pass "
+              f"kernel {torch.equal(gx, tx) and torch.equal(gy, ty)}")
         check(torch.equal(gx, gx2) and torch.equal(gy, gy2), f"nnd_bwd bit-identical {tag}")
         check(e <= TOL_CD_GRAD, f"nnd_bwd {tag}: per point {e}")
-        if x.shape[0] == b:
+        check(torch.equal(gx, tx) and torch.equal(gy, ty), f"nnd_bwd equals the three passes {tag}")
+        if x is xs:
             cd_err = max(float((gx - px).abs().max()), float((gy - py).abs().max()))
             cd_args = (x, y, dl, dr, gl, gr)
+        if x is hubs:
+            hub_args = (x, y, dl, dr, gl, gr)
 
     # ties: (a) y = x with every point duplicated: every distance to a point
     # and its copy is 0, so each mask holds two and the gradients vanish (a
@@ -1141,13 +1177,15 @@ def distance_grad_paths(cfg, dev, sampled):
         gl = torch.randn(dl.shape, generator=g, device=dev)
         gr = torch.randn((8, n // 2), generator=g, device=dev).repeat(1, 2)
         gx, gy = cdk.nnd_backward(x, y, dl, dr, gl, gr)
+        paths = cdk.last_paths
         px, py = cdk.nn_distances_backward_plain(x, y, dl, dr, gl, gr)
         torch.cuda.synchronize()
         e = max(float((gx - px).abs().max()), float((gy - py).abs().max()))
         split = float((gy[:, : n // 2] - gy[:, n // 2:]).abs().max())
         print(f"nnd_bwd ties ({tag}, B=8 x {n}): max_abs against plain {e:.2e}, |gx|max "
-              f"{float(gx.abs().max()):.2e}, copies' gy differ by {split:.2e}")
+              f"{float(gx.abs().max()):.2e}, copies' gy differ by {split:.2e}; {path_counts(paths)}")
         check(e <= TOL_CD_GRAD * float(px.abs().max() + 1.0), f"nnd_bwd ties {tag}: {e}")
+        check(bool((paths == cdk.PATH_THREE).all()), f"nnd_bwd ties {tag} took the three passes")
         if x is y:
             check(float(gx.abs().max()) <= 1e-5 and float(gy.abs().max()) <= 1e-5,
                   "every duplicated point found its masks")
@@ -1213,19 +1251,41 @@ def distance_grad_paths(cfg, dev, sampled):
     target = test
     x = target + 0.05 * torch.randn(target.shape, generator=g, device=dev)
     lr = 0.01 * n               # per-point gradients are O(1/n)
+    # the first step's CD backward: the one-sweep kernel against the
+    # three-pass kernel and onepass_bwd_plain, bit for bit (every path adds
+    # the three passes' nonzero terms in their order)
+    dl, dr = cdk.nnd_forward(x, target)
+    d_args = (x, target, dl, dr, torch.full_like(dl, 1.0 / n), torch.full_like(dr, 1.0 / n))
+    gx, gy = cdk.nnd_backward(*d_args)
+    paths = cdk.last_paths
+    tx, ty = cdk.nnd_backward(*d_args, three_pass=True)
+    ox, oy, op = cdk.onepass_bwd_plain(*d_args)
+    torch.cuda.synchronize()
+    same = torch.equal(gx, tx) and torch.equal(gy, ty)
+    print(f"nnd_bwd on the descent's first inputs (B={b} x {n}): equal to the three-pass kernel "
+          f"{same}, to onepass_bwd_plain {torch.equal(gx, ox) and torch.equal(gy, oy)}; "
+          f"{path_counts(paths)}")
+    check(same, "nnd_bwd equals the three-pass kernel on the descent's inputs")
+    check(torch.equal(gx, ox) and torch.equal(gy, oy) and torch.equal(paths, op),
+          "nnd_bwd equals onepass_bwd_plain on the descent's inputs")
     with torch.no_grad():
         cd0, emd0 = cdk.chamfer(x, target), emdk.emd(x, target)
+    step_paths = []
     for m in (cdk, emdk):
         m.reset_launch_counts()
     t0 = time.perf_counter()
     for _ in range(20):
         x = x.detach().requires_grad_(True)
         (cdk.chamfer(x, target) + emdk.emd(x, target)).sum().backward()
+        step_paths.append(cdk.last_paths)
         x = x - lr * x.grad
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launched = {**cdk.launches, **emdk.launches}
     grad_clusters = sorted(emdk.clusters["emd_batched_grad"])
+    bwd_clusters = sorted(cdk.clusters["nnd_bwd"])
+    print(f"descent nnd_bwd paths over its 20 launches: {path_counts(torch.cat(step_paths))}; "
+          f"CTAs per pair {bwd_clusters}")
     with torch.no_grad():
         cd1, emd1 = cdk.chamfer(x, target), emdk.emd(x, target)
     print(f"descent on chamfer + emd, {b} pairs x {n} points, 20 steps in {wall:.3f} s: CD mean "
@@ -1240,8 +1300,16 @@ def distance_grad_paths(cfg, dev, sampled):
     check(bool(torch.isfinite(x).all()) and bool((cd1 < cd0).all()) and bool((emd1 < emd0).all()),
           "20 descent steps lower CD and EMD of every pair")
 
-    # the rows, at the descent's shapes
-    nb_ms = cuda_ms(lambda: cdk.nnd_backward(*cd_args), 20)
+    # the rows, at the descent's shapes; the one-sweep and the three-pass
+    # kernels in turns (one, three, three, one) on the sampled clouds, on
+    # the descent's first inputs and on the hubs
+    turns = {}
+    for tag, args in (("sampled", cd_args), ("descent", d_args), ("hubs", hub_args)):
+        t = [cuda_ms(lambda: cdk.nnd_backward(*args, three_pass=k), 20) for k in (False, True, True, False)]
+        turns[tag] = (t[0] + t[3]) / 2, (t[1] + t[2]) / 2
+        print(f"nnd_bwd in turns ({tag}, B={b} x {n}): one sweep {t[0]:.4f}, {t[3]:.4f} ms; three "
+              f"passes {t[1]:.4f}, {t[2]:.4f} ms (first design: {FIRST_CD_BWD_MS})")
+    nb_ms = turns["sampled"][0]
     _, nb_plain = timed_once(lambda: cdk.nn_distances_backward_plain(*cd_args))
     eg_ms = cuda_ms(lambda: emdk.emd_with_grads(*emd_args), 3)
     _, eg_plain = timed_once(lambda: emdk.emd_grads_plain(*emd_args))
@@ -1725,12 +1793,20 @@ def main() -> int:
     # the Chamfer forward's element loops: 256 distances a trip (exact: 9
     # FP32 each, x.y unfused for the plain version's bits, and the two mins;
     # fast: 7, its bf16 products being exact)
-    cd_loops = sass_loops.report(sass_loops.disassemble("chamfer"), "fmnmx")
+    cd_sass = sass_loops.disassemble("chamfer")
+    cd_loops = sass_loops.report(cd_sass, "fmnmx")
     for line in cd_loops:
         print(f"sass chamfer: {line}")
     check(any(ln.startswith("chamfer_kernel FAST=0 loop") for ln in cd_loops)
           and any(ln.startswith("chamfer_kernel FAST=1 loop") for ln in cd_loops),
           "the Chamfer kernel's element loop in its SASS")
+    # the Chamfer backward's sweep: nnd_bwd_kernel's largest loop, one trip
+    # a chunk of 8 rows x 32 columns a lane
+    bwd_loops = [ln for ln in sass_loops.report(cd_sass, "all") if ln.startswith("nnd_bwd_kernel loop")]
+    check(bool(bwd_loops), "the Chamfer backward's sweep loop in its SASS")
+    sweep = max(bwd_loops, key=lambda ln: int(ln.split(": ")[1].split()[0]))
+    print(f"sass nnd_bwd sweep: {sweep}; {int(sweep.split(': ')[1].split()[0]) / 256:.2f} issued "
+          f"instructions an element")
 
     # ---- 2. kernel vs plain at flagship widths
     cfg = load_config(str(CONFIG))

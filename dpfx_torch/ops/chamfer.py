@@ -33,18 +33,28 @@ applied to each minimum. ``onepass_plain`` is the plain version of that
 algebra in the kernel's tiles, its cluster split and its order of sums, so
 its CD equals the kernel's bit for bit.
 
+The backward kernel sweeps each pair's distances once, counting the hits
+of each row and column; a pair whose every count is 1 gets its gradient
+from the nearest-neighbour lists (PATH_LISTS), a pair with a few points
+whose count is not 1 (ties) from the lists and a scan of the other cloud
+for each point the ties reach (PATH_FIX), a pair with many (duplicated
+clouds) from three passes over the distances (PATH_THREE). Every path adds
+the same terms in the same order: the gradients equal the three-pass
+kernel's (``nnd_backward(..., three_pass=True)``) bit for bit, and
+``onepass_bwd_plain``'s, the plain version of that algebra.
+
 Every wrapper takes its plain PyTorch version for a tensor on the CPU and
 launches the kernel for a CUDA tensor (or raises). ``launches`` counts the
 kernel launches of each wrapper, ``clusters`` the CTAs per pair that the
-forward's launches took (a thread-block cluster when above 1;
-``cluster_size``).
+launches took (a thread-block cluster when above 1; ``cluster_size``),
+``last_paths`` the path each pair of the last backward launch took.
 """
 
 from __future__ import annotations
 
 import ctypes
 import functools
-from typing import Dict, Set, Tuple
+from typing import Dict, Optional, Set, Tuple
 
 import torch
 from torch.autograd.function import once_differentiable
@@ -55,9 +65,15 @@ Tensor = torch.Tensor
 
 # kernel launches per wrapper; chip_smoke.py zeroes these around the main path
 launches: Dict[str, int] = {"nnd_fwd": 0, "nnd_bwd": 0, "cd_pairwise": 0}
-# the CTAs per pair (a cluster when above 1) of the forward's launches since
-# the last reset
-clusters: Dict[str, Set[int]] = {"nnd_fwd": set(), "cd_pairwise": set()}
+# launches of the three-pass backward kernel, a reference no path takes
+reference_launches: Dict[str, int] = {"nnd_bwd3": 0}
+# the CTAs per pair (a cluster when above 1) of the launches since the last
+# reset
+clusters: Dict[str, Set[int]] = {"nnd_fwd": set(), "nnd_bwd": set(), "cd_pairwise": set()}
+# uint8 [B] of the last nnd_backward launch on the card: each pair's path
+# (PATH_LISTS, PATH_FIX, PATH_THREE below); written by the kernel, so
+# reading it waits for the launch
+last_paths: Optional[torch.Tensor] = None
 
 MAX_POINTS = 4096          # the kernels keep both clouds of a pair in shared memory
 PLAIN_CHUNK_ELEMS = 2**26  # distance elements per chunk of a plain version (256 MB f32)
@@ -69,6 +85,7 @@ TILE_ROWS, TILE_COLS, CHUNK, THREADS = 256, 256, 32, 256
 def reset_launch_counts() -> None:
     for k in launches:
         launches[k] = 0
+    reference_launches["nnd_bwd3"] = 0
     for k in clusters:
         clusters[k] = set()
 
@@ -198,6 +215,15 @@ def block_order_sum(v: Tensor) -> Tensor:
     return out
 
 
+def _tile_ranks(gr: int, gc: int, ctas: int, device) -> Tensor:
+    """[gr, gc]: the CTA of a cluster of ``ctas`` that takes tile (row group,
+    column tile): tile t = g gc + c goes to rank r where r T / ctas <= t < (r
+    + 1) T / ctas, T = gr gc (the kernels' split)."""
+    t = torch.arange(gr * gc, device=device)
+    bounds = torch.tensor([r * gr * gc // ctas for r in range(1, ctas)], device=device)
+    return torch.searchsorted(bounds, t, right=True).view(gr, gc)
+
+
 def onepass_plain(x: Tensor, y: Tensor, fast: bool = False,
                   ctas: int = 1) -> Tuple[Tensor, Tensor, Tensor]:
     """(dl [B,N], dr [B,M], cd [B]) of diagonal pairs through the forward
@@ -223,9 +249,7 @@ def onepass_plain(x: Tensor, y: Tensor, fast: bool = False,
     yq = torch.nn.functional.pad(y, (0, 0, 0, gc * TILE_COLS - m))
     x2q = torch.nn.functional.pad(x2, (0, np_ - n), value=inf)
     y2q = torch.nn.functional.pad(y2, (0, gc * TILE_COLS - m), value=inf)
-    t = torch.arange(gr * gc, device=x.device)
-    rank = torch.searchsorted(torch.tensor([r * gr * gc // ctas for r in range(1, ctas)],
-                                           device=x.device), t, right=True).view(gr, gc)
+    rank = _tile_ranks(gr, gc, ctas, x.device)
     dls, drs = [], []
     step = _pair_chunk(np_, gc * TILE_COLS)
     for s in range(0, b, step):
@@ -253,6 +277,141 @@ def onepass_plain(x: Tensor, y: Tensor, fast: bool = False,
     return dl, dr, sl / torch.full_like(sl, n) + sr / torch.full_like(sr, m)
 
 
+# the backward kernel's paths (chamfer.cu's PATH_*): the lists, the lists
+# with the fix-up (1 to FIX_MAX points whose count is not 1), three passes
+PATH_LISTS, PATH_FIX, PATH_THREE = 0, 1, 2
+FIX_MAX = 64
+
+
+def fma32(a: Tensor, b: Tensor, c: Tensor) -> Tensor:
+    """a * b + c on f32 tensors rounded once to f32, as an FFMA (``fmaf``)
+    rounds it: the product is exact in f64 (24 + 24 bits), the f64 sum is
+    rounded to odd (TwoSum's error says which way), and rounding that to
+    f32 is then correctly rounded (53 >= 24 + 2 bits)."""
+    p = a.double() * b.double()
+    c = c.double()
+    s = p + c
+    bb = s - p
+    e = (p - (s - bb)) + (c - bb)             # s + e == p + c exactly
+    even = (s.contiguous().view(torch.int64) & 1) == 0
+    toward = torch.where(e > 0, torch.full_like(s, float("inf")), torch.full_like(s, float("-inf")))
+    return torch.where((e != 0) & even, torch.nextafter(s, toward), s).float()
+
+
+def _ordered_sums(mask: Tensor, v: Tensor, w: Optional[Tensor] = None) -> Tuple[Tensor, Tensor]:
+    """Per (b, p), over the q with mask [B, P, Q] in ascending q, the f32
+    sums the kernel takes from 0, one rounding per term: sw = sum w_q and
+    sv = sum fma(w_q, v_q, .) with weights w [B, Q], else sv = sum v_q
+    (fmaf(1, v, s)) and sw = 0. v [B, Q, 3]."""
+    b, np_, _ = mask.shape
+    sw = torch.zeros((b * np_,), dtype=torch.float32, device=mask.device)
+    sv = torch.zeros((b * np_, 3), dtype=torch.float32, device=mask.device)
+    bi, pi, qi = mask.nonzero(as_tuple=True)      # row-major: grouped by (b, p), q ascending
+    g = bi * np_ + pi
+    rank = torch.arange(g.numel(), device=mask.device) - torch.searchsorted(g, g)
+    for r in range(int(rank.max()) + 1 if g.numel() else 0):
+        sel = rank == r
+        o, bq, q = g[sel], bi[sel], qi[sel]
+        if w is None:
+            sv[o] = sv[o] + v[bq, q]
+        else:
+            sw[o] = sw[o] + w[bq, q]
+            sv[o] = fma32(w[bq, q, None], v[bq, q], sv[o])
+    return sw.view(b, np_), sv.view(b, np_, 3)
+
+
+def sweep_bound(dmin: Tensor) -> Tensor:
+    """The bound the kernel's sweep tests the unclamped distance against:
+    dmin where dmin >= 0, else -inf. For every dmin, raw <= sweep_bound(dmin)
+    holds exactly when max(raw, 0) <= dmin (a clamped distance is >= 0)."""
+    return torch.where(dmin >= 0, dmin, torch.full_like(dmin, float("-inf")))
+
+
+def _raw_dist(x: Tensor, y: Tensor) -> Tensor:
+    """(|x|^2 + |y|^2) - 2 x.y unclamped, each operation rounded on its own
+    (the kernels' raw_dist): [B, N, 3], [B, M, 3] -> [B, N, M]."""
+    xy = (x[:, :, None, 0] * y[:, None, :, 0] + x[:, :, None, 1] * y[:, None, :, 1]
+          + x[:, :, None, 2] * y[:, None, :, 2])
+    return (_norm2(x)[:, :, None] + _norm2(y)[:, None, :]) - 2.0 * xy
+
+
+def hit_counts(x: Tensor, y: Tensor, dl: Tensor, dr: Tensor,
+               ctas: int = 1) -> Tuple[Tensor, Tensor]:
+    """(rowcnt [B,N], colcnt [B,M]): the backward kernel's sweep. Per row
+    the hits raw <= sweep_bound(dl_i) among the unclamped distances, per
+    column raw <= sweep_bound(dr_j), counted over the tiles (256 rows x 256
+    columns) that each of ``ctas`` CTAs takes (as ``onepass_plain``), then
+    summed over the CTAs."""
+    x, y = x.float(), y.float()
+    b, n, m = x.shape[0], x.shape[1], y.shape[1]
+    np_, gc = _ceil_to(n, TILE_ROWS), -(-_ceil_to(m, CHUNK) // TILE_COLS)
+    gr, mq = np_ // TILE_ROWS, gc * TILE_COLS
+    rank = _tile_ranks(gr, gc, ctas, x.device)
+    out = []
+    step = max(1, _pair_chunk(np_, mq) // 4)
+    for s in range(0, b, step):
+        # padding points are infinitely far, and no padding row or column
+        # is tested against a bound above -inf
+        raw = torch.nn.functional.pad(_raw_dist(x[s:s + step], y[s:s + step]),
+                                      (0, mq - m, 0, np_ - n), value=float("inf"))
+        bl = torch.nn.functional.pad(sweep_bound(dl[s:s + step].float()), (0, np_ - n),
+                                     value=float("-inf"))
+        br = torch.nn.functional.pad(sweep_bound(dr[s:s + step].float()), (0, mq - m),
+                                     value=float("-inf"))
+        ml = (raw <= bl[:, :, None]).view(-1, gr, TILE_ROWS, gc, TILE_COLS)
+        mr = (raw <= br[:, None, :]).view(-1, gr, TILE_ROWS, gc, TILE_COLS)
+        c = ml.shape[0]
+        rc = torch.zeros((c, np_), dtype=torch.int64, device=x.device)
+        cc = torch.zeros((c, mq), dtype=torch.int64, device=x.device)
+        for r in range(ctas):
+            own = (rank == r)[None, :, None, :, None]
+            rc += (ml & own).sum((3, 4)).view(c, np_)
+            cc += (mr & own).sum((1, 2)).view(c, mq)
+        out.append((rc[:, :n], cc[:, :m]))
+    return tuple(torch.cat(parts) for parts in zip(*out))
+
+
+def onepass_bwd_plain(x: Tensor, y: Tensor, dl: Tensor, dr: Tensor, gl: Tensor, gr: Tensor,
+                      ctas: int = 1) -> Tuple[Tensor, Tensor, Tensor]:
+    """(gx [B,N,3], gy [B,M,3], paths [B] uint8) through the backward
+    kernel's algebra. ``hit_counts`` gives each row's and column's hits
+    and each pair's path (PATH_LISTS where every count is 1, PATH_FIX for 1
+    to FIX_MAX points whose count is not 1, else PATH_THREE). Every path's
+    sums (the kernel's lists, its fix-up's scans, its three passes) are the
+    three passes' nonzero terms in index order, from 0, one f32 rounding
+    per operation (``fma32`` for an FFMA):
+      gx_i = (c x_i - 2 wl_i sy_i) - 2 swy_i,  c = 2 (gl_i + swr_i)
+      gy_j = (c y_j - 2 swx_j) - 2 wr_j sx_j,  c = 2 (gr_j + swl_j)
+    with wl_i = gl_i / max(rowcnt_i, 1), wr_j = gr_j / max(colcnt_j, 1), sy_i
+    the sum of y_j over row i's hits (y_j*(i) where there is one), swr_i
+    and swy_i those of wr_j and fma(wr_j, y_j, .) over the columns that hit
+    row i, and sx_j, swl_j, swx_j alike: the kernel's gradients bit for
+    bit on every path."""
+    x, y, gl, gr = x.float(), y.float(), gl.float(), gr.float()
+    b, n, m = x.shape[0], x.shape[1], y.shape[1]
+    rc, cc = hit_counts(x, y, dl, dr, ctas)
+    odd = (rc != 1).sum(1) + (cc != 1).sum(1)
+    paths = torch.where(odd == 0, PATH_LISTS, torch.where(odd <= FIX_MAX, PATH_FIX, PATH_THREE))
+    wl = gl / torch.clamp_min(rc.float(), 1.0)
+    wr = gr / torch.clamp_min(cc.float(), 1.0)
+    gx, gy = torch.empty_like(x), torch.empty_like(y)
+    step = max(1, _pair_chunk(n, m) // 4)
+    for s in range(0, b, step):
+        k = slice(s, s + step)
+        raw = _raw_dist(x[k], y[k])
+        ml = raw <= sweep_bound(dl[k].float())[:, :, None]
+        mr = raw <= sweep_bound(dr[k].float())[:, None, :]
+        _, sy = _ordered_sums(ml, y[k])
+        swr, swy = _ordered_sums(mr, y[k], wr[k])
+        _, sx = _ordered_sums(mr.transpose(1, 2), x[k])
+        swl, swx = _ordered_sums(ml.transpose(1, 2), x[k], wl[k])
+        c = 2.0 * (gl[k] + swr)
+        gx[k] = (c[..., None] * x[k] - (2.0 * wl[k])[..., None] * sy) - 2.0 * swy
+        c = 2.0 * (gr[k] + swl)
+        gy[k] = (c[..., None] * y[k] - 2.0 * swx) - (2.0 * wr[k])[..., None] * sx
+    return gx, gy, paths.to(torch.uint8)
+
+
 def _fast(precision: str) -> bool:
     if precision not in ("exact", "fast"):
         raise ValueError(f"precision must be 'exact' or 'fast', got {precision!r}")
@@ -273,10 +432,13 @@ def _lib() -> ctypes.CDLL:
     lib.dpfx_chamfer_smem_bytes.restype = ctypes.c_int
     lib.dpfx_chamfer_cluster_size.argtypes = [i, i, i]
     lib.dpfx_chamfer_cluster_size.restype = ctypes.c_int
-    lib.dpfx_nnd_bwd_launch.argtypes = [p, p, i, i, i, p, p, p, p, p, p, p]
-    lib.dpfx_nnd_bwd_launch.restype = ctypes.c_int
-    lib.dpfx_nnd_bwd_smem_bytes.argtypes = [i, i]
-    lib.dpfx_nnd_bwd_smem_bytes.restype = ctypes.c_int
+    lib.dpfx_nnd_bwd_launch.argtypes = [p, p, i, i, i, p, p, p, p, p, p, p, p]
+    lib.dpfx_nnd_bwd3_launch.argtypes = [p, p, i, i, i, p, p, p, p, p, p, p]
+    for fn in (lib.dpfx_nnd_bwd_launch, lib.dpfx_nnd_bwd3_launch):
+        fn.restype = ctypes.c_int
+    for fn in (lib.dpfx_nnd_bwd_smem_bytes, lib.dpfx_nnd_bwd3_smem_bytes):
+        fn.argtypes = [i, i]
+        fn.restype = ctypes.c_int
     return lib
 
 
@@ -286,15 +448,17 @@ def smem_bytes(n: int, m: int) -> int:
 
 
 def cluster_size(p: int, n: int, m: int) -> int:
-    """CTAs (a thread-block cluster when above 1) the forward kernel gives
-    each of p pairs of n x m points: 4 while 4p CTAs fit on the 132 SMs, 2
+    """CTAs (a thread-block cluster when above 1) the forward and backward
+    kernels give each of p pairs of n x m points: 4 while 4p CTAs fit on the 132 SMs, 2
     below 2 x 132 pairs, else 1, never more than the pair's tiles."""
     return _lib().dpfx_chamfer_cluster_size(p, n, m)
 
 
-def bwd_smem_bytes(n: int, m: int) -> int:
-    """Dynamic shared memory of one block of the backward kernel."""
-    return _lib().dpfx_nnd_bwd_smem_bytes(n, m)
+def bwd_smem_bytes(n: int, m: int, three_pass: bool = False) -> int:
+    """Dynamic shared memory of one block of the backward kernel (or of
+    the three-pass kernel)."""
+    lib = _lib()
+    return (lib.dpfx_nnd_bwd3_smem_bytes if three_pass else lib.dpfx_nnd_bwd_smem_bytes)(n, m)
 
 
 def check_clouds(xs: Tensor, ys: Tensor, smem: int) -> Tuple[Tensor, Tensor]:
@@ -356,14 +520,17 @@ def nnd_forward(x: Tensor, y: Tensor) -> Tuple[Tensor, Tensor]:
     return dl, dr
 
 
-def nnd_backward(x: Tensor, y: Tensor, dl: Tensor, dr: Tensor, gl: Tensor,
-                 gr: Tensor) -> Tuple[Tensor, Tensor]:
+def nnd_backward(x: Tensor, y: Tensor, dl: Tensor, dr: Tensor, gl: Tensor, gr: Tensor,
+                 three_pass: bool = False) -> Tuple[Tensor, Tensor]:
     """(gx [B,N,3], gy [B,M,3]) from the forward's own minima dl, dr and the
-    cotangents gl, gr: the kernel for CUDA tensors, the plain version for
-    CPU tensors."""
+    cotangents gl, gr: the kernel for CUDA tensors (its per-pair path in
+    ``last_paths``), the plain version for CPU tensors. ``three_pass``: the
+    three-pass kernel on every pair, a reference for tests (counted in
+    ``reference_launches``)."""
+    global last_paths
     if not x.is_cuda:
         return nn_distances_backward_plain(x, y, dl, dr, gl, gr)
-    x, y = check_clouds(x, y, bwd_smem_bytes(x.shape[1], y.shape[1]))
+    x, y = check_clouds(x, y, bwd_smem_bytes(x.shape[1], y.shape[1], three_pass))
     b, n, m = x.shape[0], x.shape[1], y.shape[1]
     if y.shape[0] != b or dl.shape != (b, n) or dr.shape != (b, m) or gl.shape != (b, n) \
             or gr.shape != (b, m):
@@ -375,14 +542,23 @@ def nnd_backward(x: Tensor, y: Tensor, dl: Tensor, dr: Tensor, gl: Tensor,
         raise ValueError("dl, dr, gl and gr must lie on the clouds' device")
     gx = torch.empty_like(x)
     gy = torch.empty_like(y)
+    paths = torch.empty(b, dtype=torch.uint8, device=x.device)
+    args = (x.data_ptr(), y.data_ptr(), b, n, m, *(t.data_ptr() for t in vecs), gx.data_ptr(),
+            gy.data_ptr())
     stream = torch.cuda.current_stream(x.device).cuda_stream
     with torch.cuda.device(x.device):
-        err = _lib().dpfx_nnd_bwd_launch(x.data_ptr(), y.data_ptr(), b, n, m,
-                                         *(t.data_ptr() for t in vecs), gx.data_ptr(),
-                                         gy.data_ptr(), stream)
+        if three_pass:
+            err = _lib().dpfx_nnd_bwd3_launch(*args, stream)
+        else:
+            err = _lib().dpfx_nnd_bwd_launch(*args, paths.data_ptr(), stream)
     if err != 0:
         raise RuntimeError(f"nnd_bwd kernel launch failed: cudaError {err}")
-    launches["nnd_bwd"] += 1
+    if three_pass:
+        reference_launches["nnd_bwd3"] += 1
+    else:
+        launches["nnd_bwd"] += 1
+        clusters["nnd_bwd"].add(cluster_size(b, n, m))
+        last_paths = paths
     return gx, gy
 
 

@@ -694,13 +694,19 @@ def _grad_err(a, b):
     return float((na / (nb + nb.mean(-1, keepdim=True))).max())
 
 
-@pytest.mark.parametrize("b,n,m", [(3, 256, 256), (3, 200, 317), (2, 2048, 2048)])
+@pytest.mark.parametrize("b,n,m", [(3, 256, 256), (3, 200, 317), (2, 2048, 2048), (1, 2048, 2048),
+                                   (8, 2048, 2048), (33, 2048, 2048), (64, 2048, 2048),
+                                   (65, 2048, 2048), (130, 2048, 2048), (8, 2000, 2048),
+                                   (1, 4096, 4096)])
 def test_nnd_bwd_matches_plain(cuda, b, n, m):
     """nnd_bwd against nn_distances_backward_plain on the forward's own
     minima: the same masks, sums in other orders (limit 1e-5 per point,
-    chip_smoke.py's TOL_CD_GRAD), bit-identical from run to run; through
-    autograd as chamfer's backward; and with every point of a cloud
-    duplicated (each mask holds two, the gradients of y = x vanish)."""
+    chip_smoke.py's TOL_CD_GRAD), bit-identical from run to run, to the
+    three-pass kernel and to onepass_bwd_plain (every path adds the three
+    passes' nonzero terms in their order); through autograd as chamfer's
+    backward; with every point of a cloud duplicated (each mask holds two,
+    the gradients of y = x vanish; the three passes), and with one tie per
+    pair (the fix-up)."""
     from dpfx_torch.ops import chamfer as cdk
 
     xs, ys = _eval_clouds(cuda, b, n, 21), _eval_clouds(cuda, b, m, 22)
@@ -710,10 +716,16 @@ def test_nnd_bwd_matches_plain(cuda, b, n, m):
     gl = torch.randn(dl.shape, generator=g, device=cuda)
     gr = torch.randn(dr.shape, generator=g, device=cuda)
     gx, gy = cdk.nnd_backward(xs, ys, dl, dr, gl, gr)
+    paths = cdk.last_paths
     again = cdk.nnd_backward(xs, ys, dl, dr, gl, gr)
     px, py = cdk.nn_distances_backward_plain(xs, ys, dl, dr, gl, gr)
     assert torch.equal(gx, again[0]) and torch.equal(gy, again[1]), "not bit-identical"
     assert max(_grad_err(gx, px), _grad_err(gy, py)) <= 1e-5
+    tx, ty = cdk.nnd_backward(xs, ys, dl, dr, gl, gr, three_pass=True)
+    assert torch.equal(gx, tx) and torch.equal(gy, ty), "not the three passes' bits"
+    ox, oy, op = cdk.onepass_bwd_plain(xs, ys, dl, dr, gl, gr)
+    assert torch.equal(paths, op) and torch.equal(gx, ox) and torch.equal(gy, oy)
+    assert cdk.clusters["nnd_bwd"] == {cdk.cluster_size(b, n, m)}
     xg, yg = xs.clone().requires_grad_(True), ys.clone().requires_grad_(True)
     cdk.chamfer(xg, yg).sum().backward()
     ex, ey = cdk.nn_distances_backward_plain(xs, ys, dl, dr, torch.full_like(dl, 1.0 / n),
@@ -722,9 +734,99 @@ def test_nnd_bwd_matches_plain(cuda, b, n, m):
     dup = torch.cat([xs[:, : n // 2], xs[:, : n // 2]], 1)
     dl, dr = cdk.nnd_forward(dup, dup)
     tx, ty = cdk.nnd_backward(dup, dup, dl, dr, gl[:, : dup.shape[1]], gr[:, : dup.shape[1]])
+    assert bool((cdk.last_paths == cdk.PATH_THREE).all())
     assert float(tx.abs().max()) <= 1e-5 and float(ty.abs().max()) <= 1e-5
+    # row 0 at distance 0 from two copies in y: its count is 2
+    yt = ys.clone()
+    yt[:, 0] = yt[:, -1] = xs[:, 0]
+    dl, dr = cdk.nnd_forward(xs, yt)
+    fx, fy = cdk.nnd_backward(xs, yt, dl, dr, gl, gr)
+    assert bool((cdk.last_paths == cdk.PATH_FIX).all())
+    tx, ty = cdk.nnd_backward(xs, yt, dl, dr, gl, gr, three_pass=True)
+    assert torch.equal(fx, tx) and torch.equal(fy, ty)
+    px, py = cdk.nn_distances_backward_plain(xs, yt, dl, dr, gl, gr)
+    assert max(_grad_err(fx, px), _grad_err(fy, py)) <= 1e-5
     torch.cuda.synchronize()
-    assert cdk.launches == {"nnd_fwd": 3, "nnd_bwd": 4, "cd_pairwise": 0}
+    assert cdk.launches == {"nnd_fwd": 4, "nnd_bwd": 5, "cd_pairwise": 0}
+    assert cdk.reference_launches == {"nnd_bwd3": 2}
+
+
+def _exact_and_f32_bound(x, y, dl, dr, gl, gr):
+    """(gx, gy) in f64 on the f32 masks (the forward's distances against
+    dl, dr), and for each coordinate the worst-case error of any order of
+    f32 sums of the backward's terms: gamma_k sum |terms|, k the point's
+    terms plus the 5 operations that combine its sums, gamma_k = k u / (1 -
+    k u), u = 2^-24 (Higham, recursive summation)."""
+    from dpfx_torch.ops import chamfer as cdk
+
+    outs = []
+    for s in range(0, x.shape[0], 16):
+        xc, yc = x[s:s + 16], y[s:s + 16]
+        d = cdk.sqdist_matrix(xc, yc)
+        ml = (d <= dl[s:s + 16, :, None]).double()
+        mr = (d <= dr[s:s + 16, None, :]).double()
+        xc, yc, glc, grc = xc.double(), yc.double(), gl[s:s + 16].double(), gr[s:s + 16].double()
+        wl = glc[..., None] * ml / ml.sum(-1, keepdim=True).clamp_min(1.0)
+        wr = grc[:, None, :] * mr / mr.sum(-2, keepdim=True).clamp_min(1.0)
+        gx = 2 * glc[..., None] * xc - 2 * (wl @ yc) + 2 * xc * wr.sum(-1, keepdim=True) - 2 * (wr @ yc)
+        gy = 2 * yc * (grc + wl.sum(-2))[..., None] - 2 * (wl.mT @ xc) - 2 * (wr.mT @ xc)
+        ax, ay, al, ar = xc.abs(), yc.abs(), wl.abs(), wr.abs()
+        tx = 2 * glc.abs()[..., None] * ax + 2 * (al @ ay) + 2 * ax * ar.sum(-1, keepdim=True) + 2 * (ar @ ay)
+        ty = 2 * ay * (grc.abs() + al.sum(-2))[..., None] + 2 * (al.mT @ ax) + 2 * (ar.mT @ ax)
+        u = 2.0 ** -24
+        kx = ((ml + mr).sum(-1) + 5)[..., None] * u
+        ky = ((ml + mr).sum(-2) + 5)[..., None] * u
+        outs.append((gx, gy, kx / (1 - kx) * tx, ky / (1 - ky) * ty))
+    return tuple(torch.cat(parts) for parts in zip(*outs))
+
+
+@pytest.mark.parametrize("case", ["hubs", "copies"])
+def test_nnd_bwd_long_lists_and_many_fixed_points(cuda, case):
+    """nnd_bwd at B=64 x 2048 on the inputs of tests/_torch_bwd_cases.py,
+    which reach what generic clouds miss (tests/test_torch_nnd_bwd_onepass.py
+    pins that they do): a tight cloud against a spread one (inverse lists
+    of 9 to 32 members, sorted by a warp, and of more than 32, sent to the
+    fix-up), and 300 copies of x_0 in y (the fix-up, on more than 256
+    points). Bit for bit the three-pass kernel and onepass_bwd_plain, the
+    same paths as onepass_bwd_plain, bit-identical run to run; it and
+    nn_distances_backward_plain within the worst-case f32 rounding of the
+    exact value (f64 on the same masks). The hubs also within TOL_CD_GRAD
+    of nn_distances_backward_plain per point; the copies are not held to
+    it: x_0's terms from its copies cancel exactly (sum_j gr_j (x_0 - y_j)
+    with y_j = x_0), so each order of f32 sums leaves its own residue of
+    size u sum_j |gr_j| |x_0|, above 1e-5 of the point's scale in both the
+    kernel's order and the plain version's."""
+    from _torch_bwd_cases import copies_clouds, hub_clouds
+
+    from dpfx_torch.ops import chamfer as cdk
+
+    x, y = (hub_clouds if case == "hubs" else copies_clouds)(64, 2048)
+    xs, ys = torch.from_numpy(x).to(cuda), torch.from_numpy(y).to(cuda)
+    cdk.reset_launch_counts()
+    dl, dr = cdk.nnd_forward(xs, ys)
+    g = torch.Generator(device=cuda).manual_seed(5)
+    gl = torch.randn(dl.shape, generator=g, device=cuda)
+    gr = torch.randn(dr.shape, generator=g, device=cuda)
+    gx, gy = cdk.nnd_backward(xs, ys, dl, dr, gl, gr)
+    paths = cdk.last_paths
+    again = cdk.nnd_backward(xs, ys, dl, dr, gl, gr)
+    tx, ty = cdk.nnd_backward(xs, ys, dl, dr, gl, gr, three_pass=True)
+    ox, oy, op = cdk.onepass_bwd_plain(xs, ys, dl, dr, gl, gr)
+    px, py = cdk.nn_distances_backward_plain(xs, ys, dl, dr, gl, gr)
+    torch.cuda.synchronize()
+    assert torch.equal(gx, again[0]) and torch.equal(gy, again[1]), "not bit-identical"
+    assert torch.equal(gx, tx) and torch.equal(gy, ty), "not the three passes' bits"
+    assert torch.equal(paths, op) and torch.equal(gx, ox) and torch.equal(gy, oy)
+    want = cdk.PATH_LISTS if case == "hubs" else cdk.PATH_FIX
+    assert bool((paths == want).all()), paths.tolist()
+    ex, ey, bx, by = _exact_and_f32_bound(xs, ys, dl, dr, gl, gr)
+    for a, b in ((gx, px), (gy, py)):
+        e, bound = (ex, bx) if a is gx else (ey, by)
+        assert bool(((a.double() - e).abs() <= bound).all())
+        assert bool(((b.double() - e).abs() <= bound).all())
+    if case == "hubs":
+        assert max(_grad_err(gx, px), _grad_err(gy, py)) <= 1e-5
+    assert cdk.launches == {"nnd_fwd": 1, "nnd_bwd": 2, "cd_pairwise": 0}
 
 
 @pytest.mark.parametrize("b,n,m", [(4, 256, 256), (4, 200, 317), (2, 2048, 2048)])
