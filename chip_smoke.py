@@ -108,28 +108,35 @@ script exits non-zero without a result line):
      of the plain inverse of its noise, its coordinate RMS against the bf16
      clouds, and int8 and bf16 timed in turns;
   3f. the probe tools at full width (K=32, H=128, n_hidden=2, B=64,
-     N=2048, bf16; the dual-issue probe at L=32, G=16, T=2048): the probe
-     backward (full, nowg, walk, rolled) and the interleaved one (2 and 4
-     stripes) against probe_bwd_plain at N=2048 and with the log-det mask
-     at 2000 (interleaved: 2048 only), by phase 2b's bf16 limits, twice each
-     for bit-identity; every variant in f32 at K=32 on ten input sets
+     N=2048, bf16; the dual-issue probe at L=32, G=16, T=2048), with ptxas'
+     registers and spills of every bf16 probe instance and dual-issue mode:
+     the probe backward (full, nowg, walk, rolled: the training backward's
+     body on 8 rows) and the interleaved one (2 and 4 groups) against
+     probe_bwd_plain at N=2048 and with the log-det mask at 2000, by phase
+     2b's bf16 limits, twice each for bit-identity; every variant in f32 at
+     K=32 on ten input sets
      against an f64 run of the plain version, within a multiple of the f32
      plain version's own drift from that run or a floor, which a TF32 run
      must fail on every set; full and
      2 stripes in f32 at B=8 on the flow's first 3 layers against the f32
      limit, which a TF32 run of the plain version must fail; full on
      zero-padded production inputs against fused_backward_kernel (f32 at
-     K=3, B=8; bf16 at K=32, B=64); the dual-issue modes A, B, C against
-     their plain version; then `python -m dpfx_torch.tools.bench_fused_bwd
-     lib full nowg walk rolled ilv2 ilv4 ilv2r ilv4r` (DPFX_PROBE_REPS=3,
-     DPFX_PROBE_TILES=64,128: full is also built for 128) and `python -m
+     K=3, B=8, by the f32 limit; bf16 at K=32, B=64, bit for bit); the
+     dual-issue modes A, B, C against their plain version; the times beside
+     the first design's (FIRST_PROBE_MS), full / lib (at most
+     TOL_FULL_LIB) and the split (full - nowg, nowg - walk, walk as shares
+     of full; walk < nowg < full required); then `python -m
+     dpfx_torch.tools.bench_fused_bwd lib full nowg walk rolled ilv2 ilv4
+     ilv2r ilv4r` (DPFX_PROBE_REPS=3, DPFX_PROBE_TILES=128) and `python -m
      dpfx_torch.tools.probe_dual_issue` as child processes, which must exit
-     0 with their lines; each counts its launches from 0 and prints them
-     last;
+     0 with their lines (the bench's split line among them); each counts
+     its launches from 0 and prints them last;
   4. at the main paths' shapes (B=64, N=2048, bf16): the training kernels
      held against their plain versions again (u, log-det, every gradient;
      each backward bit-identical across two runs), the redesigned
-     fused_train kernels' times beside their first versions' (FIRST_TRAIN_MS),
+     fused_train kernels' times beside their first versions' (FIRST_TRAIN_MS;
+     the backward's median of three also beside SHARED_BODY_BWD_MS, and
+     within TOL_SHARED_BWD of it),
      with their bounds and ptxas' registers and spills, the redesigned
      fused_encoder kernels' times beside their first design's
      (FIRST_ENCODER_MS), the backward's select, walk and reduce apart (the
@@ -163,6 +170,7 @@ from __future__ import annotations
 
 import json
 import os
+import statistics
 import subprocess
 import sys
 import time
@@ -273,6 +281,22 @@ TRAIN_STEPS = 30
 # block-wide design (WMMA through a staging tile, 64-point backward tiles;
 # NVIDIA H100 80GB HBM3, 700.00 W), printed beside phase 4's
 FIRST_TRAIN_MS = {"fwd": 4.808, "bwd": 14.805}
+# the fused_train bf16 backward's time at B=64 x 2048 before its body moved
+# into flow_bwd_rows.cuh, shared with the decomposition probe (the tree
+# before the move; NVIDIA H100 80GB HBM3, 700.00 W), printed beside phase
+# 4's and held as its limit (TOL_SHARED_BWD)
+SHARED_BODY_BWD_MS = 2.672
+TOL_SHARED_BWD = 1.03
+# the probe kernels' times at B=64 x 2048 in their first, block-wide design
+# (WMMA through a staging tile, bf16 tile 64, the interleaved form one block
+# per cloud; the dual-issue chain on WMMA with each W_i loaded synchronously;
+# NVIDIA H100 80GB HBM3, 700.00 W), printed beside phase 3f's
+# the probe's full (8 rows) may take at most this much longer than the
+# production backward on the tool's 3-row slice
+TOL_FULL_LIB = 1.25
+FIRST_PROBE_MS = {"full": 23.653, "nowg": 13.954, "walk": 6.258, "rolled": 23.074,
+                  "ilv2": 49.421, "ilv4": 47.621, "dual_issue_A": 0.4205, "dual_issue_B": 0.4204,
+                  "dual_issue_C": 0.0235}
 # the fused_encoder bf16 kernels' times at B=64 x 2048 before the rows
 # design (WMMA through a staging tile, 64-point tiles, a dense backward;
 # NVIDIA H100 80GB HBM3, 700.00 W), printed beside phase 4's
@@ -1453,25 +1477,44 @@ def probe_check_inputs(sp, b: int, n: int, g, dev, pad_scale: float = 0.02):
 
 
 def probe_ptxas() -> str:
-    """Registers and spills of the probe kernel's bf16 instances at the
-    tool's tile (64 points), each mode rolled and unrolled, from ptxas' log
-    of bench_fused_bwd.cu."""
+    """Registers and spills of the probe's bf16 instances (probe_rows_kernel:
+    each mode rolled and not, the interleaved groups) from ptxas' log of
+    bench_fused_bwd.cu, and of the dual-issue kernel's modes."""
     import re
 
     from dpfx_torch.ops import _build
 
     found, cur = {}, None
-    for line in _build.ptxas_log("bench_fused_bwd").splitlines():
-        m = re.search(r"probe_kernelI13__nv_bfloat16Li(\d)ELi64ELb(\d)ELi1E", line)
-        if "Compiling entry function" in line:
-            cur = (("full", "nowg", "walk")[int(m.group(1))], m.group(2) == "1") if m else None
-        elif cur and "spill stores" in line:
-            st, ld = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line).groups()
-            found.setdefault(cur, {})["spill"] = f"{st}/{ld} B spilled"
-        elif cur and "Used" in line:
-            found.setdefault(cur, {})["regs"] = re.search(r"Used (\d+) registers", line).group(1)
-    return "; ".join(f"{mode} {'rolled' if rolled else 'unrolled by 2'} {d.get('regs')} registers, "
-                     f"{d.get('spill')}" for (mode, rolled), d in sorted(found.items()))
+    for name, pat in (("bench_fused_bwd", r"probe_rows_kernelILi(\d)ELb(\d)ELi(\d)E"),
+                      ("dual_issue", r"dual_issue_kernelILb(\d)ELb(\d)E")):
+        for line in _build.ptxas_log(name).splitlines():
+            if "Compiling entry function" in line:
+                m = re.search(pat, line)
+                if not m:
+                    cur = None
+                elif name == "dual_issue":
+                    cur = "dual_issue " + pdi_mode(m.group(1) == "1", m.group(2) == "1")
+                else:
+                    cur = (f"{('full', 'nowg', 'walk')[int(m.group(1))]} groups={m.group(3)}"
+                           f"{' rolled' if m.group(2) == '1' else ''}")
+            elif cur and "spill stores" in line:
+                st, ld = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                                   line).groups()
+                found.setdefault(cur, {})["spill"] = f"{st}/{ld} B spilled"
+            elif cur and "Used" in line:
+                found.setdefault(cur, {})["regs"] = re.search(r"Used (\d+) registers",
+                                                              line).group(1)
+    check(len([k for k in found if not k.startswith("dual")]) == 10 and
+          all("regs" in d for d in found.values()),
+          f"ptxas reported every probe_rows_kernel instance: {sorted(found)}")
+    return "; ".join(f"{k} {d.get('regs')} registers, {d.get('spill')}"
+                     for k, d in sorted(found.items()))
+
+
+def pdi_mode(mxu: bool, vpu: bool) -> str:
+    from dpfx_torch.tools import probe_dual_issue as pdi
+
+    return pdi.mode_of(mxu, vpu)
 
 
 def train_ptxas(h: int = 128) -> dict:
@@ -1572,14 +1615,15 @@ def probe_f64_sweep(sp, n: int, dev, call) -> None:
 
 def probe_tools_path(sp, dev, card):
     """Phase 3f: the probe tools at full width. The probe backward (full,
-    nowg, walk, rolled) and the interleaved one (2 and 4 stripes) against
-    probe_bwd_plain at B=64, N=2048 and with the log-det mask at 2000
-    (interleaved: 2048), twice each for bit-identity, on phase 2's flagship
-    flow extended to 8 rows; f32 at B=8 with a TF32 control; full against
-    the production backward on zero-padded production inputs; the
-    dual-issue modes against their plain version; then both CLIs, each
-    counting its launches from 0 in a process of its own. Returns the
-    eight kernel rows."""
+    nowg, walk, rolled) and the interleaved one (2 and 4 groups) against
+    probe_bwd_plain at B=64, N=2048 and with the log-det mask at 2000,
+    twice each for bit-identity, on phase 2's flagship flow extended to 8
+    rows; f32 at B=8 with a TF32 control; full against the production
+    backward on zero-padded production inputs (bf16 bit for bit); the
+    dual-issue modes against their plain version; the times beside the
+    first design's, full / lib and the split; then both CLIs, each counting
+    its launches from 0 in a process of its own. Returns the eight kernel
+    rows."""
     import torch
 
     from dpfx_torch.ops import fused_train as ft
@@ -1588,7 +1632,7 @@ def probe_tools_path(sp, dev, card):
 
     bf, f32 = torch.bfloat16, torch.float32
     b, n, cap = 64, bfb.N, sp.scale_cap
-    print(f"ptxas probe_kernel bf16, tile 64: {probe_ptxas()}")
+    print(f"ptxas probe_rows_kernel (bf16, tile 128) and dual_issue_kernel: {probe_ptxas()}")
     check(torch.equal(sp.masks, bfb.masks8(sp.wx.shape[0], dev)[:, :3, 0]) and cap == bfb.CAP,
           "the flagship flow's masks and cap are the probe's")
     g = torch.Generator(device=dev).manual_seed(13)
@@ -1606,8 +1650,6 @@ def probe_tools_path(sp, dev, card):
     errs, plains = {}, {}
     for npts in (n, 2000):
         for v in ("full", "nowg", "walk", "rolled", "ilv2", "ilv4"):
-            if v.startswith("ilv") and npts != n:
-                continue
             mode = variants.get(v, {"mode": "full"})["mode"]
             got, again = call(v, ins, npts), call(v, ins, npts)
             ref, plain_ms = timed_once(lambda: bfb.probe_bwd_plain(*ins, mode=mode, n_points=npts,
@@ -1648,9 +1690,11 @@ def probe_tools_path(sp, dev, card):
           f"{ctl:.2e}")
     check(ctl > TOL_GRAD_F32, f"the f32 limit fails a TF32 control ({ctl})")
 
-    # full on zero-padded production inputs against the production kernel
-    # (f32 on the first 3 layers, as above; bf16 at K=32)
-    for dt, bb, kk, tol in ((f32, 8, 3, TOL_GRAD_F32), (bf, b, sp.wx.shape[0], TOL_GRAD_BF16)):
+    # full on zero-padded production inputs against the production kernel:
+    # f32 on the first 3 layers, as above (the block-wide check mode, sums in
+    # other orders), within the f32 limit; bf16 at K=32, which runs the
+    # production backward's own body, bit for bit
+    for dt, bb, kk, tol in ((f32, 8, 3, TOL_GRAD_F32), (bf, b, sp.wx.shape[0], 0.0)):
         got = bfb.probe_bwd_kernel({nm: t[:kk] for nm, t in pw.items()}, pu[:bb],
                                    phz[:bb, :kk].contiguous(), pdu[:bb], pdld[:bb], mode="full",
                                    n_points=n, dtype=dt)
@@ -1662,9 +1706,13 @@ def probe_tools_path(sp, dev, card):
         cut = [got[0][:, :3], got[1][..., 0], got[2][..., :3], got[3], got[4][..., 0],
                got[5][:, :6], got[6][:, :6, 0]]
         gerr = {nm: rel(a, r) for nm, a, r in zip(bfb.GRAD_NAMES, cut, ref)}
+        same = {nm: torch.equal(a, r) for nm, a, r in zip(bfb.GRAD_NAMES, cut, ref)}
         print(f"probe full on zero-padded inputs vs fused_backward_kernel K={kk} B={bb} {dt}: "
-              "grad rel " + " ".join(f"{k}={e:.2e}" for k, e in gerr.items()))
+              "grad rel " + " ".join(f"{k}={e:.2e}" for k, e in gerr.items())
+              + "; bit for bit " + " ".join(f"{k}={v}" for k, v in same.items()))
         check(max(gerr.values()) <= tol, f"padded probe vs production {dt}: {gerr}")
+        if dt == bf:
+            check(all(same.values()), f"padded probe bit for bit the production backward: {same}")
 
     # the dual-issue modes at the tool's shapes
     n_layers, groups = 32, 16
@@ -1703,20 +1751,34 @@ def probe_tools_path(sp, dev, card):
     lib_ms = cuda_ms(lambda: ft.fused_backward_kernel(
         p["wx"], p["wh"], p["bh"], p["wout"], p["bout"], p["masks"], bfb.CAP, p["u"], p["hz"],
         p["du"], tool[4], bf), 5)
-    print(f"probe kernels at B={b} N={n} bf16: " + ", ".join(f"{v} {t:.3f} ms" for v, t in
-                                                            times.items())
-          + f"; production backward (3 rows) {lib_ms:.3f} ms; dual-issue "
-          + ", ".join(f"{m} {t:.4f} ms" for m, t in dtimes.items()) + f" ({card})")
+    print(f"probe kernels at B={b} N={n} bf16: " + ", ".join(
+        f"{v} {t:.3f} ms (first design {FIRST_PROBE_MS[v]:.3f}, {FIRST_PROBE_MS[v] / t:.2f}x)"
+        for v, t in times.items())
+          + f"; production backward (3 rows) {lib_ms:.3f} ms; full / lib {times['full'] / lib_ms:.3f}"
+          + "; dual-issue " + ", ".join(
+              f"{m} {t:.4f} ms (first design {FIRST_PROBE_MS['dual_issue_' + m]:.4f}, "
+              f"{FIRST_PROBE_MS['dual_issue_' + m] / t:.2f}x)" for m, t in dtimes.items())
+          + f" ({card})")
+    print(f"probe {bfb.split_line({**times, 'lib': lib_ms})}; walk < nowg < full: "
+          f"{times['walk'] < times['nowg'] < times['full']}; t(B) - t(A) = "
+          f"{dtimes['B'] - dtimes['A']:.4f} ms against t(C) = {dtimes['C']:.4f} ms ({card})")
+    # the probe's own sanity checks: full is the production backward on 8
+    # rows, and each mode leaves out part of the one before it
+    check(times["full"] / lib_ms <= TOL_FULL_LIB,
+          f"probe full / lib {times['full'] / lib_ms:.3f} above {TOL_FULL_LIB}")
+    check(times["walk"] < times["nowg"] < times["full"],
+          f"probe walk < nowg < full: {times['walk']:.3f}, {times['nowg']:.3f}, {times['full']:.3f}")
 
     # the main path: both CLIs as a user runs them
     t0 = time.perf_counter()
     tool_variants = ["lib", "full", "nowg", "walk", "rolled", "ilv2", "ilv4", "ilv2r", "ilv4r"]
     lines, bench_launches = run_tool("dpfx_torch.tools.bench_fused_bwd", tool_variants,
-                                     {"DPFX_PROBE_REPS": "3", "DPFX_PROBE_TILES": "64,128"})
+                                     {"DPFX_PROBE_REPS": "3", "DPFX_PROBE_TILES": "128"})
     for v in tool_variants:
         check(any(ln.startswith(f"  {v} ") and " ms " in ln for ln in lines), f"bench line {v}")
     check(any(ln.startswith("  full   tile= 128 ") and " ms " in ln for ln in lines),
           "bench line full at tile 128")
+    check(any(ln.startswith("split of full: ") for ln in lines), "bench split line")
     dlines, dual_launches = run_tool("dpfx_torch.tools.probe_dual_issue", [], {})
     for label in pdi.LABELS.values():
         check(any(ln.startswith(f"{label}: ") for ln in dlines), f"dual-issue line {label}")
@@ -2378,7 +2440,8 @@ def main() -> int:
           f"fused_train backward bit-identical from run to run at B={b}")
     del got, again, ref
     tf_ms = cuda_ms(lambda: ft.fused_forward_kernel(*tw, xt, hz, bf), 20)
-    tb_ms = cuda_ms(lambda: ft.fused_backward_kernel(*tw, u_p, hz, du, dld, bf), 10)
+    tb_ms = statistics.median(cuda_ms(lambda: ft.fused_backward_kernel(*tw, u_p, hz, du, dld, bf),
+                                      10) for _ in range(3))
     tf_plain = cuda_ms(lambda: ft.fused_forward_plain(*tw, xt, hz, bf), 3, warmup=1)
     tb_plain = cuda_ms(lambda: ft.fused_backward_plain(*tw, u_p, hz, du, dld, bf), 2, warmup=1)
     ews = [getattr(enc, f"point_{i}").weight.detach() for i in range(enc.n_point)]
@@ -2453,9 +2516,18 @@ def main() -> int:
                                 ("fused_train_fwd", tf_ms, FIRST_TRAIN_MS["fwd"], b_tf)):
         r = regs.get(kname, {})
         check("regs" in r, f"ptxas reported the registers of {kname}'s bf16 kernel")
+        shared = (f", before the body moved into flow_bwd_rows.cuh: {SHARED_BODY_BWD_MS:.3f} ms"
+                  if kname == "fused_train_bwd" else "")
         print(f"redesigned {kname} at B={b} N={n} K={k} H={h} bf16: {ms:.3f} ms (first "
-              f"design: {old:.3f} ms, {old / ms:.2f}x), bound {bnd:.4f} ms ({ms / bnd:.1f}x), "
-              f"{r['regs']} registers, spilled bytes (stores/loads) {r.get('spill')} ({card})")
+              f"design: {old:.3f} ms, {old / ms:.2f}x{shared}), bound {bnd:.4f} ms "
+              f"({ms / bnd:.1f}x), {r['regs']} registers, spilled bytes (stores/loads) "
+              f"{r.get('spill')} ({card})")
+    # sharing the backward's body with the probe must not slow training: the
+    # median of three timings within 3% (the spread between machines) of
+    # the time before the body moved
+    check(tb_ms <= TOL_SHARED_BWD * SHARED_BODY_BWD_MS,
+          f"fused_train backward {tb_ms:.3f} ms against {SHARED_BODY_BWD_MS} ms before the body "
+          f"moved into flow_bwd_rows.cuh (limit x{TOL_SHARED_BWD})")
     print(f"train step at 64 x 2048 with the redesigned kernels: {step_ms:.3f} ms/step (fused "
           f"point flow + fused encoder), fused latent flow off {off_ms:.3f}, on {on_ms:.3f} "
           f"ms/step (first design: 45.606 and 39.643); idle shares in phase 5b ({card})")

@@ -1,6 +1,5 @@
 // The decomposition probe of the fused point-flow backward on Hopper
-// (sm_90a): a parametrised copy of the training backward on the 8-row
-// layout, in two layouts.
+// (sm_90a), and its interleaved form.
 //
 // Replaces the Pallas TPU kernels `_kernel` (tools/bench_fused_bwd.py:49)
 // and `_ilv_kernel` (:155) of the JAX tool. The function: u, du [B, 8, N]
@@ -12,10 +11,10 @@
 // Pallas `roll(st, 5)`), the layer input x = (y - shift) / exp(s) on the
 // transformed rows; the cotangent of st takes ds (1 - tanh^2) plus the
 // translation cotangent dy[(r + 5) % 8] inv (`roll(dy * inv, 3)`); columns
-// at or beyond n_points take no log-det cotangent. Modes (a template
-// parameter): FULL gives dx, dhz and every weight gradient; NOWG leaves out
-// the weight-gradient products and bias sums (dx only); WALK runs only the
-// conditioner recompute and the inverse, and leaves x_0 in y.
+// at or beyond n_points take no log-det cotangent. Modes: FULL gives dx,
+// dhz and every weight gradient; NOWG leaves out what only the weight
+// gradients need (dx only); WALK runs only the conditioner recompute and
+// the inverse, and leaves x_0 in y.
 //
 // Bound: the products on the tensor cores. Per point and layer, on the
 // 8-row layout, the recompute is Wx (8H), NH1 Wh (H^2) and Wout (8H)
@@ -25,43 +24,41 @@
 // 464, 309 and 155 GFLOP, 0.469, 0.313 and 0.156 ms at 989 TFLOP/s bf16,
 // against ~14 MB of inputs and outputs (4 us at 3.35 TB/s).
 //
-// Design, `probe_kernel` with STRIPES == 1 (the `_kernel` counterpart): the
-// production backward's (fused_train.cu `bwd_kernel`) on 8 rows. A
-// persistent grid, one block per SM; the layer loop outside the tile loop:
-// for each layer a block walks its tiles of T points, carrying each point's
-// 16-float state (y, dy) in global memory between layers; the layer's
-// weight gradients sum in shared memory (dWh through WMMA accumulators that
-// start from it), and one partial per block and layer goes to a global
-// slice that `reduce_slices` sums in a fixed order; dhz takes one partial
-// per tile. No float atomics: bit-identical from run to run. NOWG and WALK
-// leave out their parts of the same code, so the gaps between the modes
-// say where the production backward's time goes. ROLLED keeps the layer
-// loop rolled (`#pragma unroll 1`); the other form unrolls it by 2 (all 32
-// layers' WMMA loops unrolled would cost nvcc time and instruction cache).
-// T is the points per tile: 64 as the production backward, 128 for the
-// tile sweep (FULL only), 32 in f32.
+// bf16 (`probe_rows_kernel`): the training backward itself. Its body is
+// bwd_rows of flow_bwd_rows.cuh, the one copy that fused_train.cu's
+// bwd_kernel_mma runs, here on 8 rows (R = 8): mma.sync on 16 rows of a
+// 128-point tile per warp, a persistent grid (one block per SM), the layer
+// loop outside the tile loop, the next layer's weights staged behind this
+// one, the gradient sums in registers through a layer's tiles, per-block
+// slices summed in order by reduce_slices; no float atomics, bit-identical
+// from run to run. The model pads its operands to 8 (m16n8k8 with K = 3
+// padded, N = 8 for (s, t) and dy_in), so the 8-row function issues the
+// same products per point and layer as training, and on the model's rows
+// padded with zeros it computes training's values bit for bit. So the
+// gaps full - nowg (the weight gradients), nowg - walk (the cotangent
+// chain) and walk (the recompute and the inverse) split the backward that
+// training runs. `rolled` puts the layer loop under `#pragma unroll 1`;
+// full leaves it as training writes it (nvcc may compile the two alike).
+// Interleaved (S = 2, 4 groups of 8 / S warps): the same body, each group
+// on its own tiles of 128 / S points with its own named barrier inside a
+// layer, so that one group's products can overlap another's coupling math
+// and weight-gradient products; per-group gradient slices, their dWh read
+// and written per tile in global memory (see flow_bwd_rows.cuh).
 //
-// Design, STRIPES = 2 or 4 (the `_ilv_kernel` counterpart): one block per
-// cloud walks all K layers over its whole cloud. The cloud's points are
-// split into STRIPES independent chains, each walked by its own warps (4
-// or 2) with named barriers, so one stripe's tensor-core products can run
-// while another's coupling math runs. The cloud's state stays in global
-// memory between layers; each stripe keeps its own small gradient sums in
-// shared memory and its dWh in a global slice (STRIPES of them at 64 KB do
-// not fit beside the tiles); at each layer's end the block sums its stripes
-// in order into one slice per cloud, which `reduce_slices` sums in cloud
-// order. It applies the same n_points mask as FULL (the Pallas variant has
-// none, and is defined only where N is its tile).
-//
-// Rounding as the production backward: operands in the compute dtype with
-// f32 accumulation (WMMA bf16, or IEEE f32 FMA in f32 mode), bias and hz
-// added in f32, every cotangent cast to the compute dtype before a product,
-// bias and hz gradients summed from the f32 values.
+// f32 (`probe_kernel`, the check mode, as fused_train.cu keeps bwd_kernel
+// for f32): the first, block-wide design, IEEE f32 FMA with k in order.
+// STRIPES == 1: a persistent grid, the layer loop outside the tile loop,
+// tiles of 32 points carrying each point's 16-float state in global memory
+// between layers, the weight gradients summed in shared memory, one slice
+// per block and layer; STRIPES = 2 or 4 (tile 16): one block per cloud,
+// its points split into independent stripes walked by their own warps with
+// named barriers, each stripe's dWh in a global slice, the stripes summed
+// in order at each layer's end.
 //
 // Plain C interface, loaded with ctypes (dpfx_torch/ops/_build.py). Each
 // launch returns cudaGetLastError().
 
-#include "dpfx_common.cuh"
+#include "flow_bwd_rows.cuh"
 
 namespace {
 
@@ -69,22 +66,24 @@ using namespace dpfx;
 
 constexpr int R = 8;          // rows of the probe layout
 constexpr int HID = 128;      // the conditioner width the kernels are built for
-enum { FULL = 0, NOWG = 1, WALK = 2 };
+enum { FULL = BWD_FULL, NOWG = BWD_NOWG, WALK = BWD_WALK };
 
-// Shared-memory carve-up: the block's weights, then one region per group
-// (dpfx_probe_bwd_smem_bytes reports the total). The dWh sums live here
-// only with one group.
-template <typename S>
+// ---------------------------------------------------------------- f32 mode
+
+// Shared-memory carve-up of the f32 kernel: the block's weights, then one
+// region per group (dpfx_probe_bwd_smem_bytes reports the total). The dWh
+// sums live here only with one group. bench_fused_bwd.py's smem_bytes
+// mirrors this layout: change both together.
 struct Smem {
   int ld, lda, nb, ws, awh, stage, wx, wout, bout, bh, masks, group0;
   int hs, colpart, ys, dys, xks, dst, dyn, hz, dhz, adwx, adwout, adbout, adbh, adhz, gsize;
   int total;
   __host__ __device__ Smem(int H, int NH1, int T, int groups) {
-    ld = H + Layout<S>::PAD;
+    ld = H + Layout<float>::PAD;
     lda = H + 4;
     nb = NH1 > 1 ? NH1 : 1;
     int o = 0;
-    ws = o;      o += nb * round128(H * ld * (int)sizeof(S));
+    ws = o;      o += nb * round128(H * ld * 4);
     awh = o;     o += groups == 1 ? NH1 * round128(H * lda * 4) : 0;
     stage = o;   o += round128(WARPS * 256 * 4);
     wx = o;      o += round128(R * H * 4);
@@ -94,7 +93,7 @@ struct Smem {
     masks = o;   o += round128(R * 4);
     group0 = o;
     int q = 0;
-    hs = q;      q += (NH1 + 1) * round128(T * ld * (int)sizeof(S));
+    hs = q;      q += (NH1 + 1) * round128(T * ld * 4);
     colpart = q; q += round128(T / 16 * H * 4);
     ys = q;      q += round128(R * T * 4);
     dys = q;     q += round128(R * T * 4);
@@ -135,22 +134,22 @@ struct Args {
   cudaStream_t stream;
 };
 
-template <typename S, int MODE, int T, bool ROLLED, int STRIPES>
+template <int MODE, int T, bool ROLLED, int STRIPES>
 __global__ void __launch_bounds__(THREADS)
 probe_kernel(Args a) {
   constexpr int H = HID;
   constexpr int GW = WARPS / STRIPES;   // warps per group
   extern __shared__ __align__(128) unsigned char smem[];
-  const Smem<S> L(H, a.NH1, T, STRIPES);
+  const Smem L(H, a.NH1, T, STRIPES);
   const int ld = L.ld, lda = L.lda, K = a.K, N = a.N, NH1 = a.NH1;
-  const int hstride = round128(T * ld * (int)sizeof(S)) / (int)sizeof(S);
-  const int wstride = round128(H * ld * (int)sizeof(S)) / (int)sizeof(S);
+  const int hstride = round128(T * ld * 4) / 4;
+  const int wstride = round128(H * ld * 4) / 4;
   const int astride = round128(H * lda * 4) / 4;
   const int per_layer = 2 * R * H + NH1 * H * H + NH1 * H + R;
-  const S* wx = static_cast<const S*>(a.wx);
-  const S* wh = static_cast<const S*>(a.wh);
-  const S* wout = static_cast<const S*>(a.wout);
-  S* ws = reinterpret_cast<S*>(smem + L.ws);
+  const float* wx = static_cast<const float*>(a.wx);
+  const float* wh = static_cast<const float*>(a.wh);
+  const float* wout = static_cast<const float*>(a.wout);
+  float* ws = reinterpret_cast<float*>(smem + L.ws);
   float* stage = reinterpret_cast<float*>(smem + L.stage);
   float* wxs = reinterpret_cast<float*>(smem + L.wx);     // [H][8]
   float* wos = reinterpret_cast<float*>(smem + L.wout);   // [8][H]
@@ -161,7 +160,7 @@ probe_kernel(Args a) {
   const int s = STRIPES == 1 ? 0 : (int)threadIdx.x / 32 / GW;
   const Group g{STRIPES == 1 ? 0 : 1 + s, s * GW, GW};
   unsigned char* gb = smem + L.group0 + s * L.gsize;
-  S* hs = reinterpret_cast<S*>(gb + L.hs);
+  float* hs = reinterpret_cast<float*>(gb + L.hs);
   float* colpart = reinterpret_cast<float*>(gb + L.colpart);
   float* ys = reinterpret_cast<float*>(gb + L.ys);       // [8][T] layer output
   float* dys = reinterpret_cast<float*>(gb + L.dys);     // [8][T] its cotangent
@@ -175,7 +174,7 @@ probe_kernel(Args a) {
   float* adbout = reinterpret_cast<float*>(gb + L.adbout);
   float* adbh = reinterpret_cast<float*>(gb + L.adbh);   // [NH1][H]
   float* adhz = reinterpret_cast<float*>(gb + L.adhz);   // the stripe's dhz
-  S* hlast = hs + NH1 * hstride;
+  float* hlast = hs + NH1 * hstride;
   // dWh sums: in shared memory (one group), or this stripe's global slice
   float* awh = STRIPES == 1 ? reinterpret_cast<float*>(smem + L.awh)
                             : a.awh + ((size_t)blockIdx.x * STRIPES + s) * L.nb * H * H;
@@ -200,18 +199,18 @@ probe_kernel(Args a) {
     // the conditioner, recomputed from the layer output
     for (int e = g.tid(); e < T * H; e += g.size()) {
       const int p = e / H, o = e % H;
-      float v = wxs[o * R] * rnd<S>(ys[p]);
+      float v = wxs[o * R] * ys[p];
 #pragma unroll
-      for (int c = 1; c < R; ++c) v = fmaf(wxs[o * R + c], rnd<S>(ys[c * T + p]), v);
-      hs[p * ld + o] = from_f<S>(relu_nan(v + hzs[o]));
+      for (int c = 1; c < R; ++c) v = fmaf(wxs[o * R + c], ys[c * T + p], v);
+      hs[p * ld + o] = relu_nan(v + hzs[o]);
     }
     for (int j = 0; j < NH1; ++j) {
       g.sync();
-      S* out = hs + (j + 1) * hstride;
+      float* out = hs + (j + 1) * hstride;
       const float* bj = bhs + j * H;
       gemm<false, true>(g, T, H, H, hs + j * hstride, ld, ws + j * wstride, ld, stage, nullptr,
                          [&](int m, int n, float v) {
-                           out[m * ld + n] = from_f<S>(relu_nan(v + bj[n]));
+                           out[m * ld + n] = relu_nan(v + bj[n]);
                            return 0.f;
                          });
     }
@@ -222,7 +221,7 @@ probe_kernel(Args a) {
 #pragma unroll
       for (int r = 0; r < R; ++r) part[r] = 0.f;
       for (int kk = lane; kk < H; kk += 32) {
-        const float hv = to_f(hlast[p * ld + kk]);
+        const float hv = hlast[p * ld + kk];
 #pragma unroll
         for (int r = 0; r < R; ++r) part[r] = fmaf(wos[r * H + kk], hv, part[r]);
       }
@@ -283,7 +282,7 @@ probe_kernel(Args a) {
       for (int e = g.tid(); e < R * H; e += g.size()) {
         const int r = e / H, o = e % H;
         float sm = 0.f;
-        for (int p = 0; p < T; ++p) sm = fmaf(rnd<S>(dst[r * T + p]), to_f(hlast[p * ld + o]), sm);
+        for (int p = 0; p < T; ++p) sm = fmaf(dst[r * T + p], hlast[p * ld + o], sm);
         adwout[e] += sm;
       }
       for (int r = g.tid(); r < R; r += g.size()) {
@@ -305,17 +304,17 @@ probe_kernel(Args a) {
       for (int p = 0; p < T; ++p) {
         float v = 0.f;
 #pragma unroll
-        for (int r = 0; r < R; ++r) v = fmaf(w[r], rnd<S>(dst[r * T + p]), v);
-        v = v * (to_f(hlast[p * ld + o]) > 0.f ? 1.f : 0.f);
+        for (int r = 0; r < R; ++r) v = fmaf(w[r], dst[r * T + p], v);
+        v = v * (hlast[p * ld + o] > 0.f ? 1.f : 0.f);
         sm += v;
-        hlast[p * ld + o] = from_f<S>(v);
+        hlast[p * ld + o] = v;
       }
       if (MODE == FULL) first_sum[o] = NH1 > 0 ? first_sum[o] + sm : sm;
     }
 
     for (int j = NH1 - 1; j >= 0; --j) {
-      S* dh = hs + (j + 1) * hstride;   // cotangent of h_{j+1}, masked
-      S* hj = hs + j * hstride;
+      float* dh = hs + (j + 1) * hstride;   // cotangent of h_{j+1}, masked
+      float* hj = hs + j * hstride;
       if (MODE == FULL) {
         g.sync();
         // dWh[j] += dh^T h_j
@@ -325,23 +324,23 @@ probe_kernel(Args a) {
       // dh_j = (dh Wh[j]) * (h_j > 0), in place over h_j
       gemm<false, false>(g, T, H, H, dh, ld, ws + j * wstride, ld, stage,
                           MODE == FULL ? colpart : nullptr, [&](int m, int n, float v) {
-                            const float mv = v * (to_f(hj[m * ld + n]) > 0.f ? 1.f : 0.f);
-                            hj[m * ld + n] = from_f<S>(mv);
+                            const float mv = v * (hj[m * ld + n] > 0.f ? 1.f : 0.f);
+                            hj[m * ld + n] = mv;
                             return mv;
                           });
       g.sync();
       if (MODE == FULL)
-        column_sums<S>(g, T, H, colpart, hj, ld, j > 0 ? adbh + (j - 1) * H : dhzs, j > 0);
+        column_sums<float>(g, T, H, colpart, hj, ld, j > 0 ? adbh + (j - 1) * H : dhzs, j > 0);
     }
     g.sync();
 
-    const S* dh0 = hs;
+    const float* dh0 = hs;
     if (MODE == FULL) {
       // dWx += rnd(dh_0) rnd(x_k)^T; this tile's dhz
       for (int e = g.tid(); e < H * R; e += g.size()) {
         const int o = e / R, c = e % R;
         float sm = 0.f;
-        for (int p = 0; p < T; ++p) sm = fmaf(to_f(dh0[p * ld + o]), rnd<S>(xks[c * T + p]), sm);
+        for (int p = 0; p < T; ++p) sm = fmaf(dh0[p * ld + o], xks[c * T + p], sm);
         adwx[e] += sm;
       }
       for (int e = g.tid(); e < H; e += g.size()) {
@@ -355,7 +354,7 @@ probe_kernel(Args a) {
 #pragma unroll
       for (int c = 0; c < R; ++c) sm[c] = 0.f;
       for (int o = lane; o < H; o += 32) {
-        const float d = to_f(dh0[p * ld + o]);
+        const float d = dh0[p * ld + o];
 #pragma unroll
         for (int c = 0; c < R; ++c) sm[c] = fmaf(wxs[o * R + c], d, sm[c]);
       }
@@ -377,8 +376,8 @@ probe_kernel(Args a) {
     const int k = K - 1 - i;
     __syncthreads();  // every group is done with the previous layer's weights and sums
     for (int e = threadIdx.x; e < R * H; e += THREADS) {
-      wxs[e] = to_f(wx[(size_t)k * R * H + e]);
-      wos[e] = to_f(wout[(size_t)k * R * H + e]);
+      wxs[e] = wx[(size_t)k * R * H + e];
+      wos[e] = wout[(size_t)k * R * H + e];
     }
     if (threadIdx.x < R) {
       bos[threadIdx.x] = a.bout[k * R + threadIdx.x];
@@ -450,10 +449,10 @@ probe_kernel(Args a) {
   }
 }
 
-template <typename S, int MODE, int T, bool ROLLED, int STRIPES>
-cudaError_t launch(const Args& a) {
-  const int bytes = Smem<S>(HID, a.NH1, T, STRIPES).total;
-  auto kernel = probe_kernel<S, MODE, T, ROLLED, STRIPES>;
+template <int MODE, int T, bool ROLLED, int STRIPES>
+cudaError_t launch_f32(const Args& a) {
+  const int bytes = Smem(HID, a.NH1, T, STRIPES).total;
+  auto kernel = probe_kernel<MODE, T, ROLLED, STRIPES>;
   cudaError_t e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
   if (e != cudaSuccess) return e;
   kernel<<<a.blocks, THREADS, bytes, a.stream>>>(a);
@@ -465,56 +464,68 @@ cudaError_t launch(const Args& a) {
   return launch_reduce(a.dhz_part, a.dhz, a.B, (a.N + T - 1) / T, (long long)a.K * HID, a.stream);
 }
 
-// The forms the library is built for (bench_fused_bwd.py: BUILT, ILV_BUILT):
-// bf16 tile 64 in each mode and loop form, tile 128 for FULL unrolled (the
-// tile sweep); f32 tile 32 in each mode unrolled and FULL rolled; the
-// interleaved kernel with 2 and 4 stripes (bf16 stripe tile 32, rolled or
-// not; f32 stripe tile 16, unrolled).
-template <typename S, int T>
-cudaError_t probe_modes(int mode, int rolled, const Args& a) {
-  switch (mode * 2 + rolled) {
-    case 0: return launch<S, FULL, T, false, 1>(a);
-    case 1: return launch<S, FULL, T, true, 1>(a);
-    case 2: return launch<S, NOWG, T, false, 1>(a);
-    case 3: return launch<S, NOWG, T, true, 1>(a);
-    case 4: return launch<S, WALK, T, false, 1>(a);
-    case 5: return launch<S, WALK, T, true, 1>(a);
+// ---------------------------------------------------------------- bf16 mode
+
+template <int MODE, bool ROLLED, int S>
+__global__ void __launch_bounds__(THREADS, 1) probe_rows_kernel(Args a) {
+  bwd_rows<HID, R, MODE, ROLLED, S>(
+      a.y, a.dy, a.dld, a.hz, static_cast<const bf16*>(a.wx), static_cast<const bf16*>(a.wh),
+      a.bh, static_cast<const bf16*>(a.wout), a.bout, a.masks, a.part, a.dhz_part, a.B, a.N,
+      a.n_valid, a.K, a.NH1, a.cap);
+}
+
+template <int MODE, bool ROLLED, int S>
+cudaError_t launch_rows(const Args& a) {
+  const int bytes = MmaSmem(HID, a.NH1, true).total;
+  if (a.NH1 > Mma<HID>::NH1_MAX || bytes > SMEM_MAX) return cudaErrorInvalidValue;
+  auto kernel = probe_rows_kernel<MODE, ROLLED, S>;
+  cudaError_t e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  if (e != cudaSuccess) return e;
+  kernel<<<a.blocks, THREADS, bytes, a.stream>>>(a);
+  if ((e = cudaGetLastError()) != cudaSuccess || MODE != FULL) return e;
+  return bwd_rows_reduce<HID, R, S>(a.part, a.dhz_part, a.dw, a.dhz, a.B, a.N, a.K, a.NH1,
+                                    a.blocks, a.stream);
+}
+
+// The forms the library is built for (bench_fused_bwd.py: BUILT, ILV_BUILT,
+// ILV_TILE): bf16 tile 128 in each mode and loop form, interleaved with 2
+// and 4 groups on the same 128-point tile, rolled or not; f32 tile 32 in
+// each mode unrolled and full rolled, interleaved with 2 and 4 stripes of
+// 16-point tiles, unrolled.
+cudaError_t probe_bf16(int tile, int mode, int rolled, int stripes, const Args& a) {
+  if (tile != MT) return cudaErrorInvalidValue;
+  switch ((stripes * 3 + mode) * 2 + rolled) {
+    case 6: return launch_rows<FULL, false, 1>(a);
+    case 7: return launch_rows<FULL, true, 1>(a);
+    case 8: return launch_rows<NOWG, false, 1>(a);
+    case 9: return launch_rows<NOWG, true, 1>(a);
+    case 10: return launch_rows<WALK, false, 1>(a);
+    case 11: return launch_rows<WALK, true, 1>(a);
+    case 12: return launch_rows<FULL, false, 2>(a);
+    case 13: return launch_rows<FULL, true, 2>(a);
+    case 24: return launch_rows<FULL, false, 4>(a);
+    case 25: return launch_rows<FULL, true, 4>(a);
     default: return cudaErrorInvalidValue;
   }
 }
 
-cudaError_t probe_bf16(int tile, int mode, int rolled, const Args& a) {
-  if (tile == 64) return probe_modes<__nv_bfloat16, 64>(mode, rolled, a);
-  if (tile == 128 && mode == FULL && !rolled) return launch<__nv_bfloat16, FULL, 128, false, 1>(a);
-  return cudaErrorInvalidValue;
-}
+constexpr int TILE_F32 = 32, ILV_T_F32 = 16;
 
-cudaError_t probe_f32(int tile, int mode, int rolled, const Args& a) {
-  if (tile != 32) return cudaErrorInvalidValue;
+cudaError_t probe_f32(int tile, int mode, int rolled, int stripes, const Args& a) {
+  if (stripes > 1) {
+    if (tile != ILV_T_F32 || rolled || mode != FULL || a.N % stripes) return cudaErrorInvalidValue;
+    if (stripes == 2) return launch_f32<FULL, ILV_T_F32, false, 2>(a);
+    if (stripes == 4) return launch_f32<FULL, ILV_T_F32, false, 4>(a);
+    return cudaErrorInvalidValue;
+  }
+  if (tile != TILE_F32) return cudaErrorInvalidValue;
   switch (mode * 2 + rolled) {
-    case 0: return launch<float, FULL, 32, false, 1>(a);
-    case 1: return launch<float, FULL, 32, true, 1>(a);
-    case 2: return launch<float, NOWG, 32, false, 1>(a);
-    case 4: return launch<float, WALK, 32, false, 1>(a);
+    case 0: return launch_f32<FULL, TILE_F32, false, 1>(a);
+    case 1: return launch_f32<FULL, TILE_F32, true, 1>(a);
+    case 2: return launch_f32<NOWG, TILE_F32, false, 1>(a);
+    case 4: return launch_f32<WALK, TILE_F32, false, 1>(a);
     default: return cudaErrorInvalidValue;
   }
-}
-
-constexpr int ILV_T_BF16 = 32, ILV_T_F32 = 16;
-
-cudaError_t ilv(int bf16, int tile, int stripes, int rolled, const Args& a) {
-  if (bf16 && tile == ILV_T_BF16) {
-    switch (stripes * 2 + rolled) {
-      case 4: return launch<__nv_bfloat16, FULL, ILV_T_BF16, false, 2>(a);
-      case 5: return launch<__nv_bfloat16, FULL, ILV_T_BF16, true, 2>(a);
-      case 8: return launch<__nv_bfloat16, FULL, ILV_T_BF16, false, 4>(a);
-      case 9: return launch<__nv_bfloat16, FULL, ILV_T_BF16, true, 4>(a);
-    }
-  } else if (!bf16 && tile == ILV_T_F32 && !rolled) {
-    if (stripes == 2) return launch<float, FULL, ILV_T_F32, false, 2>(a);
-    if (stripes == 4) return launch<float, FULL, ILV_T_F32, false, 4>(a);
-  }
-  return cudaErrorInvalidValue;
 }
 
 }  // namespace
@@ -522,8 +533,7 @@ cudaError_t ilv(int bf16, int tile, int stripes, int rolled, const Args& a) {
 extern "C" {
 
 int dpfx_probe_bwd_smem_bytes(int H, int NH1, int bf16, int tile, int stripes) {
-  return bf16 ? Smem<__nv_bfloat16>(H, NH1, tile, stripes).total
-              : Smem<float>(H, NH1, tile, stripes).total;
+  return bf16 ? MmaSmem(H, NH1, true).total : Smem(H, NH1, tile, stripes).total;
 }
 
 int dpfx_probe_bwd(float* y, float* dy, const float* dld, const float* hz, const void* wx,
@@ -532,16 +542,15 @@ int dpfx_probe_bwd(float* y, float* dy, const float* dld, const float* hz, const
                    float* awh, int B, int N, int n_valid, int K, int H, int NH1, float cap,
                    int bf16, int mode, int rolled, int tile, int stripes, int blocks,
                    void* stream) {
-  if (B <= 0 || N <= 0 || K <= 0 || NH1 < 0 || blocks <= 0 || H != HID || mode < 0 || mode > 2)
+  if (B <= 0 || N <= 0 || K <= 0 || NH1 < 0 || blocks <= 0 || H != HID || mode < 0 || mode > 2 ||
+      n_valid < 0 || n_valid > N || (stripes != 1 && stripes != 2 && stripes != 4) ||
+      (stripes > 1 && mode != FULL))
     return (int)cudaErrorInvalidValue;
   const Args a{y, dy, dld, hz, wx, wh, bh, wout, bout, masks, part, dhz_part, dw, dhz, awh,
                B, N, n_valid, K, NH1, cap, blocks, static_cast<cudaStream_t>(stream)};
   rolled = rolled ? 1 : 0;
-  if (stripes > 1) {
-    if (N % stripes || mode != FULL) return (int)cudaErrorInvalidValue;
-    return (int)ilv(bf16, tile, stripes, rolled, a);
-  }
-  return (int)(bf16 ? probe_bf16(tile, mode, rolled, a) : probe_f32(tile, mode, rolled, a));
+  return (int)(bf16 ? probe_bf16(tile, mode, rolled, stripes, a)
+                    : probe_f32(tile, mode, rolled, stripes, a));
 }
 
 }  // extern "C"

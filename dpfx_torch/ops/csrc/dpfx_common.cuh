@@ -30,8 +30,8 @@ constexpr int WARPS = THREADS / 32;
 
 // Consecutive warps that share the work of a call below: the whole block
 // (barrier 0), or a part of it that walks its own tiles (a named barrier of
-// its own, bench_fused_bwd.cu's stripes). The overloads without a group
-// take the whole block.
+// its own: bench_fused_bwd.cu's f32 stripes, flow_bwd_rows.cuh's groups).
+// The overloads without a group take the whole block.
 struct Group {
   int bar, warp0, warps;
   static __device__ Group block() { return Group{0, 0, WARPS}; }
@@ -353,7 +353,7 @@ __device__ __forceinline__ int lane_id() { return threadIdx.x & 31; }
 
 // the A fragment (m16 k8) of the warp's 16 points' coordinates, rounded to
 // bf16 and zero in k = 3..7, each lane p < 16 (and its mirror p + 16)
-// holding point p's x[3] (fused_train.cu, fused_sampler.cu, fused_encoder.cu)
+// holding point p's x[3] (flow_rows.cuh's users, fused_encoder.cu)
 __device__ __forceinline__ void coord_frag(const float (&x)[3], uint32_t& a0, uint32_t& a1) {
   const int lane = lane_id(), g = lane >> 2, t = lane & 3;
   float r[6];
@@ -364,6 +364,24 @@ __device__ __forceinline__ void coord_frag(const float (&x)[3], uint32_t& a0, ui
   }
   a0 = t == 0 ? pack_bf16(r[0], r[1]) : t == 1 ? pack_bf16(r[2], 0.f) : 0u;
   a1 = t == 0 ? pack_bf16(r[3], r[4]) : t == 1 ? pack_bf16(r[5], 0.f) : 0u;
+}
+
+// the same for 8 coordinates (bench_fused_bwd.cu's 8-row layout): k = 0..7
+// all filled
+__device__ __forceinline__ void coord_frag(const float (&x)[8], uint32_t& a0, uint32_t& a1) {
+  const int lane = lane_id(), g = lane >> 2, t = lane & 3;
+  uint32_t lo[4], hi[4];
+#pragma unroll
+  for (int q = 0; q < 4; ++q) {
+    const float x0 = __shfl_sync(0xffffffffu, x[2 * q], g);
+    const float x1 = __shfl_sync(0xffffffffu, x[2 * q + 1], g);
+    const float y0 = __shfl_sync(0xffffffffu, x[2 * q], g + 8);
+    const float y1 = __shfl_sync(0xffffffffu, x[2 * q + 1], g + 8);
+    lo[q] = pack_bf16(x0, x1);
+    hi[q] = pack_bf16(y0, y1);
+  }
+  a0 = t == 0 ? lo[0] : t == 1 ? lo[1] : t == 2 ? lo[2] : lo[3];
+  a1 = t == 0 ? hi[0] : t == 1 ? hi[1] : t == 2 ? hi[2] : hi[3];
 }
 
 // 16-byte copies from global to shared memory that run behind the

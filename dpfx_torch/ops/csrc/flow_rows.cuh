@@ -16,7 +16,10 @@
 // Weights come from a stage in shared memory through ldmatrix: Wh
 // [n_hidden-1][H][LD], Wout [8][LD] (rows 6, 7 zero), Wx^T [8][LD] (rows
 // 3-7 zero), loaded with cp.async (stage_load) and through registers
-// (WxRegs) behind the previous layer's work.
+// (WxRegs) behind the previous layer's work. The backward's row code is
+// flow_bwd_rows.cuh. Template parameters NS (rows of Wout: 6) and R
+// (coordinates: 3) let the decomposition probe (bench_fused_bwd.cu) fill
+// all 8 rows of the same fragments; their defaults are the model's.
 
 #pragma once
 
@@ -42,8 +45,6 @@ struct Mma {
   static constexpr int GN = WARPS / GM;
   static constexpr int WM = NH1_MAX > 0 ? H / 16 / GM : 1;
   static constexpr int WN = NH1_MAX > 0 ? H / 8 / GN : 1;
-  // dWout^T and dWx: m16 tiles per warp (tile w, w + 8, ...)
-  static constexpr int MTW = (H / 16 + WARPS - 1) / WARPS;
   // n8 tiles of a column sum that lane (g, t) keeps: nt = g, g + 8, ...
   static constexpr int KEEP = H >= 64 ? H / 64 : 1;
 };
@@ -55,9 +56,9 @@ struct Rows {
   uint32_t a[H / 16][4];
 };
 
-// start the cp.async copies of layer k's Wh and Wout into a stage; L.wout
-// is the stage's offset of Wout
-template <int H, typename Lay>
+// start the cp.async copies of layer k's Wh and Wout (NS rows) into a
+// stage; L.wout is the stage's offset of Wout
+template <int H, typename Lay, int NS = 6>
 __device__ void stage_load(unsigned char* st, const Lay& L, const bf16* wh, const bf16* wout,
                            int k, int NH1) {
   constexpr int LD = Mma<H>::LD, VPR = H / 8;
@@ -68,31 +69,31 @@ __device__ void stage_load(unsigned char* st, const Lay& L, const bf16* wh, cons
     const int r = v / VPR, c = (v % VPR) * 8;
     cp_async16(swh + r * LD + c, gwh + (size_t)r * H + c);
   }
-  for (int v = threadIdx.x; v < 6 * VPR; v += THREADS) {
+  for (int v = threadIdx.x; v < NS * VPR; v += THREADS) {
     const int r = v / VPR, c = (v % VPR) * 8;
-    cp_async16(swo + r * LD + c, wout + ((size_t)k * 6 + r) * H + c);
+    cp_async16(swo + r * LD + c, wout + ((size_t)k * NS + r) * H + c);
   }
   cp_async_commit();
 }
 
-// Wx [H][3] of a layer, loaded into registers and stored transposed into a
-// stage's Wx^T rows 0-2 later (the loads run behind other work)
-template <int H>
+// Wx [H][R] of a layer, loaded into registers and stored transposed into a
+// stage's Wx^T rows 0..R-1 later (the loads run behind other work)
+template <int H, int R = 3>
 struct WxRegs {
-  static constexpr int N = (3 * H + THREADS - 1) / THREADS;
+  static constexpr int N = (R * H + THREADS - 1) / THREADS;
   bf16 v[N];
   __device__ void load(const bf16* wx, int k) {
 #pragma unroll
     for (int i = 0; i < N; ++i) {
       const int e = threadIdx.x + i * THREADS;
-      if (e < 3 * H) v[i] = wx[(size_t)k * 3 * H + e];
+      if (e < R * H) v[i] = wx[(size_t)k * R * H + e];
     }
   }
   __device__ void store(bf16* wxt) const {
 #pragma unroll
     for (int i = 0; i < N; ++i) {
       const int e = threadIdx.x + i * THREADS;
-      if (e < 3 * H) wxt[(e % 3) * Mma<H>::LD + e / 3] = v[i];
+      if (e < R * H) wxt[(e % R) * Mma<H>::LD + e / R] = v[i];
     }
   }
 };
@@ -100,6 +101,11 @@ struct WxRegs {
 // the training kernels' activation: relu that keeps a NaN
 struct ReluNan {
   __device__ __forceinline__ float operator()(float v) const { return relu_nan(v); }
+};
+
+// no activation (dual_issue.cu's chain of plain products)
+struct Ident {
+  __device__ __forceinline__ float operator()(float v) const { return v; }
 };
 
 // act(c + bias) of C tile nt, cast to bf16 into the A fragments (and into
@@ -162,9 +168,9 @@ __device__ __forceinline__ void hidden_rows(Rows<H>& out, const Rows<H>& in, con
   }
 }
 
-// st = Wout h + bout: B = Wout [8][LD] (rows n = 0..5, k contiguous); C tile
-// columns 0-5 are (s, t), 6-7 zero
-template <int H>
+// st = Wout h + bout: B = Wout [8][LD] (rows n = 0..NS-1, k contiguous); C
+// tile columns 0..NS-1 are (s, t) (bout added), the rest zero
+template <int H, int NS = 6>
 __device__ __forceinline__ void out_rows(float (&c)[4], const Rows<H>& h, const bf16* wout8,
                                          const float* bout) {
   constexpr int LD = Mma<H>::LD;
@@ -178,7 +184,7 @@ __device__ __forceinline__ void out_rows(float (&c)[4], const Rows<H>& h, const 
     mma16(c, h.a[2 * kk], b[0], b[1]);
     mma16(c, h.a[2 * kk + 1], b[2], b[3]);
   }
-  if (t < 3) {
+  if (2 * t < NS) {
     c[0] += bout[2 * t];
     c[1] += bout[2 * t + 1];
     c[2] += bout[2 * t];

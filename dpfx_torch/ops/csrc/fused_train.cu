@@ -29,7 +29,8 @@
 //     device functions (first_rows, hidden_rows, out_rows, in flow_rows.cuh,
 //     which fused_sampler.cu's inverse shares) on the same operands, so the
 //     recomputed activations, relu masks and (s, t) are the forward's bit
-//     for bit.
+//     for bit. The backward's body is bwd_rows in flow_bwd_rows.cuh, which
+//     bench_fused_bwd.cu's decomposition probe runs on its 8-row layout.
 //   * The forward needs no block barrier inside a layer: grid (N / 128, B),
 //     one barrier per layer, where the next layer's weights (staged with
 //     cp.async while this layer runs) become visible; two per layer where
@@ -72,7 +73,7 @@
 // Plain C interface, loaded with ctypes (dpfx_torch/ops/_build.py). Each
 // launch returns cudaGetLastError().
 
-#include "flow_rows.cuh"
+#include "flow_bwd_rows.cuh"
 
 namespace {
 
@@ -80,129 +81,8 @@ using namespace dpfx;
 
 // ---------------------------------------------------------------- bf16 mode
 
-// The shared-memory carve-up of the bf16 kernels (dpfx_fused_train_smem_bytes
-// reports its size). A stage holds one layer's weights: Wh [n_hidden-1][H][LD],
-// Wout [8][LD] (rows 6, 7 zero) and Wx^T [8][LD] (rows 3-7 zero); two stages
-// where they fit (the next layer's loads behind this layer's work), else one.
-struct MmaSmem {
-  int hs, dhs, hstride, dstb, xkb, dhzw, stw, ldw, stage, stage_bytes, wout, wxt, nst, total;
-  __host__ __device__ MmaSmem(int H, int NH1, bool backward) {
-    const int ld = H + 8;
-    hstride = round128(MT * ld * 2);
-    wout = round128(NH1 * H * ld * 2);
-    wxt = wout + round128(8 * ld * 2);
-    stage_bytes = wxt + round128(8 * ld * 2);
-    int o = 0;
-    hs = dhs = dstb = xkb = dhzw = ldw = 0;
-    if (backward) {
-      hs = o;    o += (NH1 + 1) * hstride;      // h_0 .. h_last of the tile
-      dhs = o;   o += (NH1 + 1) * hstride;      // their masked cotangents
-      dstb = o;  o += round128(8 * (MT + 8) * 2);   // rnd(d(s, t)) [8][MT + 8]
-      xkb = o;   o += round128(8 * (MT + 8) * 2);   // rnd(x_k) [8][MT + 8]
-      dhzw = o;  o += round128(WARPS * H * 4);      // per-warp dhz sums of the tile
-    } else {
-      ldw = o;   o += 128;                      // per-warp log-det sums
-    }
-    stw = o;     o += WARPS * 16 * 8 * 4;       // per-warp [16][8] f32 exchange
-    stage = o;
-    nst = o + 2 * stage_bytes <= SMEM_MAX ? 2 : 1;
-    total = o + nst * stage_bytes;
-  }
-};
-
-// zero the padding rows that the products read: each stage's Wout rows 6-7
-// and Wx^T rows 3-7, and (backward) the rows 6-7 of d(s, t), 3-7 of x_k
-template <int H>
-__device__ void zero_pads(unsigned char* smem, const MmaSmem& L, bool backward) {
-  constexpr int LD = Mma<H>::LD;
-  const bf16 z = __float2bfloat16_rn(0.f);
-  for (int s = 0; s < L.nst; ++s) {
-    bf16* swo = reinterpret_cast<bf16*>(smem + L.stage + s * L.stage_bytes + L.wout);
-    bf16* swx = reinterpret_cast<bf16*>(smem + L.stage + s * L.stage_bytes + L.wxt);
-    for (int e = threadIdx.x; e < 2 * LD; e += THREADS) swo[6 * LD + e] = z;
-    for (int e = threadIdx.x; e < 5 * LD; e += THREADS) swx[3 * LD + e] = z;
-  }
-  if (backward) {
-    bf16* db = reinterpret_cast<bf16*>(smem + L.dstb);
-    bf16* xb = reinterpret_cast<bf16*>(smem + L.xkb);
-    for (int e = threadIdx.x; e < 2 * (MT + 8); e += THREADS) db[6 * (MT + 8) + e] = z;
-    for (int e = threadIdx.x; e < 5 * (MT + 8); e += THREADS) xb[3 * (MT + 8) + e] = z;
-  }
-}
-
-// c * (h > 0) of C tile nt, h from the warp's rows of a shared tile: into the
-// A fragments and the warp's rows of dstore (bf16); the column sums of the
-// f32 values over the warp's 16 rows go to kept[nt / 8] in lanes g = nt % 8
-template <int H>
-__device__ __forceinline__ void epi_mask(Rows<H>& dh, int nt, const float (&c)[4],
-                                         const bf16* hmask, bf16* dstore,
-                                         float (&kept)[Mma<H>::KEEP][2]) {
-  constexpr int LD = Mma<H>::LD;
-  const int lane = lane_id(), g = lane >> 2, t = lane & 3, col = 8 * nt + 2 * t;
-  const float2 m0 = unpack_bf16(*reinterpret_cast<const uint32_t*>(hmask + g * LD + col));
-  const float2 m1 = unpack_bf16(*reinterpret_cast<const uint32_t*>(hmask + (g + 8) * LD + col));
-  const float v0 = c[0] * (m0.x > 0.f ? 1.f : 0.f), v1 = c[1] * (m0.y > 0.f ? 1.f : 0.f);
-  const float v2 = c[2] * (m1.x > 0.f ? 1.f : 0.f), v3 = c[3] * (m1.y > 0.f ? 1.f : 0.f);
-  const uint32_t lo = pack_bf16(v0, v1), hi = pack_bf16(v2, v3);
-  dh.a[nt >> 1][(nt & 1) * 2] = lo;
-  dh.a[nt >> 1][(nt & 1) * 2 + 1] = hi;
-  *reinterpret_cast<uint32_t*>(dstore + g * LD + col) = lo;
-  *reinterpret_cast<uint32_t*>(dstore + (g + 8) * LD + col) = hi;
-  float s0 = v0 + v2, s1 = v1 + v3;
-#pragma unroll
-  for (int off = 4; off < 32; off <<= 1) {
-    s0 += __shfl_xor_sync(0xffffffffu, s0, off);
-    s1 += __shfl_xor_sync(0xffffffffu, s1, off);
-  }
-  if (nt % 8 == g) {
-    kept[nt / 8][0] = s0;
-    kept[nt / 8][1] = s1;
-  }
-}
-
-// dh_last = (rnd(dst) Wout) * (h_last > 0): A = d(s, t) (k8), B = Wout [8][LD]
-// read as rows k
-template <int H>
-__device__ __forceinline__ void cot_first(Rows<H>& dh, uint32_t a0, uint32_t a1,
-                                          const bf16* wout8, const bf16* hmask, bf16* dstore,
-                                          float (&kept)[Mma<H>::KEEP][2]) {
-  constexpr int LD = Mma<H>::LD;
-  const int lane = lane_id();
-#pragma unroll
-  for (int q = 0; q < H / 32; ++q) {
-    uint32_t b[4];
-    ldsm_x4_t(b, wout8 + (lane & 7) * LD + 32 * q + (lane >> 3) * 8);
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      float c[4] = {0.f, 0.f, 0.f, 0.f};
-      mma8(c, a0, a1, b[i]);
-      epi_mask<H>(dh, 4 * q + i, c, hmask, dstore, kept);
-    }
-  }
-}
-
-// dh_j = (rnd(dh_{j+1}) Wh_j) * (h_j > 0): B = Wh [out][in] read as rows k
-template <int H>
-__device__ __forceinline__ void cot_hidden(Rows<H>& out, const Rows<H>& in, const bf16* w,
-                                           const bf16* hmask, bf16* dstore,
-                                           float (&kept)[Mma<H>::KEEP][2]) {
-  constexpr int LD = Mma<H>::LD;
-  const int lane = lane_id();
-#pragma unroll
-  for (int np = 0; np < H / 16; ++np) {
-    float c0[4] = {0.f, 0.f, 0.f, 0.f}, c1[4] = {0.f, 0.f, 0.f, 0.f};
-#pragma unroll
-    for (int kc = 0; kc < H / 16; ++kc) {
-      uint32_t b[4];
-      ldsm_x4_t(b, w + (16 * kc + (lane & 7) + ((lane >> 3) & 1) * 8) * LD + 16 * np +
-                       (lane >> 4) * 8);
-      mma16(c0, in.a[kc], b[0], b[1]);
-      mma16(c1, in.a[kc], b[2], b[3]);
-    }
-    epi_mask<H>(out, 2 * np, c0, hmask, dstore, kept);
-    epi_mask<H>(out, 2 * np + 1, c1, hmask, dstore, kept);
-  }
-}
+// MmaSmem, zero_pads and the backward's body (bwd_rows) are in
+// flow_bwd_rows.cuh, shared with bench_fused_bwd.cu's decomposition probe.
 
 template <int H>
 __global__ void __launch_bounds__(THREADS, H <= 128 ? 2 : 1)
@@ -292,323 +172,8 @@ bwd_kernel_mma(float* __restrict__ y, float* __restrict__ dy, const float* __res
                const bf16* __restrict__ wout, const float* __restrict__ bout,
                const float* __restrict__ masks, float* __restrict__ part,
                float* __restrict__ dhz_part, int B, int N, int K, int NH1, float cap) {
-  using M = Mma<H>;
-  extern __shared__ __align__(128) unsigned char smem[];
-  constexpr int LD = M::LD, LDT = MT + 8;
-  const MmaSmem L(H, NH1, true);
-  const int hst = L.hstride / 2;   // elements between two levels' tiles
-  bf16* hs = reinterpret_cast<bf16*>(smem + L.hs);
-  bf16* dhs = reinterpret_cast<bf16*>(smem + L.dhs);
-  bf16* dstb = reinterpret_cast<bf16*>(smem + L.dstb);   // [8][LDT] rnd(d(s, t)), points along
-  bf16* xkb = reinterpret_cast<bf16*>(smem + L.xkb);     // [8][LDT] rnd(x_k)
-  float* dhzw = reinterpret_cast<float*>(smem + L.dhzw); // [WARPS][H]
-  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32, g = lane >> 2, t = lane & 3;
-  const int p = lane & 15, r0 = warp * 16;
-  float* sw = reinterpret_cast<float*>(smem + L.stw) + warp * 128;
-  auto stage = [&](int s) { return smem + L.stage + s * L.stage_bytes; };
-  const int nt = (N + MT - 1) / MT, tiles = B * nt;
-  const int per_layer = 3 * H + NH1 * H * H + NH1 * H + 6 * H + 6;
-  const int mw = warp / M::GN, nw = warp % M::GN;
-
-  zero_pads<H>(smem, L, true);
-  WxRegs<H> wr;
-  stage_load<H>(stage(0), L, wh, wout, K - 1, NH1);
-  wr.load(wx, K - 1);
-  wr.store(reinterpret_cast<bf16*>(stage(0) + L.wxt));
-
-  for (int i = 0; i < K; ++i) {
-    const int k = K - 1 - i, s = L.nst == 2 ? (i & 1) : 0;
-    if (L.nst == 1 && i > 0) {
-      __syncthreads();   // every warp is done with the single stage
-      stage_load<H>(stage(0), L, wh, wout, k, NH1);
-      wr.load(wx, k);
-      wr.store(reinterpret_cast<bf16*>(stage(0) + L.wxt));
-    }
-    cp_async_wait_all();
-    __syncthreads();     // layer k's stage is visible; the previous layer's partials are out
-    const bool ahead = L.nst == 2 && i + 1 < K;
-    if (ahead) {
-      stage_load<H>(stage(s ^ 1), L, wh, wout, k - 1, NH1);
-      wr.load(wx, k - 1);
-    }
-    const bf16* swh = reinterpret_cast<const bf16*>(stage(s));
-    const bf16* wo8 = reinterpret_cast<const bf16*>(stage(s) + L.wout);
-    const bf16* wx8 = reinterpret_cast<const bf16*>(stage(s) + L.wxt);
-
-    // the layer's gradient sums, held in registers through the tile loop
-    float acc[M::ACC][M::WM][M::WN][4], aout[M::MTW][4], ax[M::MTW][4];
-    float run[M::ACC][M::KEEP][2], rbout[6];
-#pragma unroll
-    for (int jj = 0; jj < M::ACC; ++jj)
-#pragma unroll
-      for (int mi = 0; mi < M::WM; ++mi)
-#pragma unroll
-        for (int ni = 0; ni < M::WN; ++ni)
-#pragma unroll
-          for (int e = 0; e < 4; ++e) acc[jj][mi][ni][e] = 0.f;
-#pragma unroll
-    for (int mi = 0; mi < M::MTW; ++mi)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) aout[mi][e] = ax[mi][e] = 0.f;
-#pragma unroll
-    for (int jj = 0; jj < M::ACC; ++jj)
-#pragma unroll
-      for (int e = 0; e < M::KEEP; ++e) run[jj][e][0] = run[jj][e][1] = 0.f;
-#pragma unroll
-    for (int r = 0; r < 6; ++r) rbout[r] = 0.f;
-
-    for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
-      const int b = tile / nt, n = (tile % nt) * MT + r0 + p;
-      const bool valid = n < N;
-      const size_t cloud = (size_t)b * 3 * N;
-      float yv[3], dyv[3];
-#pragma unroll
-      for (int c = 0; c < 3; ++c) {
-        yv[c] = valid ? y[cloud + (size_t)c * N + n] : 0.f;
-        dyv[c] = valid ? dy[cloud + (size_t)c * N + n] : 0.f;
-      }
-
-      // the forward conditioner on the warp's rows, recomputed from the
-      // layer output, each level stored for the weight gradients
-      uint32_t a0, a1;
-      coord_frag(yv, a0, a1);
-      Rows<H> h;
-      first_rows<H>(h, a0, a1, wx8, hz + ((size_t)b * K + k) * H, hs + r0 * LD);
-      for (int j = 0; j < NH1; ++j) {
-        Rows<H> o;
-        hidden_rows<H>(o, h, swh + j * H * LD, bh + ((size_t)k * NH1 + j) * H,
-                       hs + (j + 1) * hst + r0 * LD);
-        h = o;
-      }
-      float st[4];
-      out_rows<H>(st, h, wo8, bout + k * 6);
-      st_exchange(sw, st);
-
-      // coupling cotangents; the layer input from the closed-form inverse
-      const float g_ld = valid ? dld[b] : 0.f;
-      float xk[3], d[6], dyn[3];
-#pragma unroll
-      for (int c = 0; c < 3; ++c) {
-        if (masks[k * 3 + c] > 0.f) {
-          xk[c] = yv[c];
-          d[c] = d[3 + c] = 0.f;
-          dyn[c] = dyv[c];
-        } else {
-          const float th = tanhf(sw[p * 8 + c] / cap), es = expf(cap * th);
-          xk[c] = (yv[c] - sw[p * 8 + 3 + c]) / es;
-          const float ds = dyv[c] * xk[c] * es + g_ld;
-          d[c] = ds * (1.f - th * th);
-          d[3 + c] = dyv[c];
-          dyn[c] = dyv[c] * es;
-        }
-      }
-      __syncwarp();
-      if (lane < 16) {
-#pragma unroll
-        for (int r = 0; r < 6; ++r) {
-          sw[p * 8 + r] = d[r];
-          dstb[r * LDT + r0 + p] = __float2bfloat16_rn(d[r]);
-        }
-        sw[p * 8 + 6] = sw[p * 8 + 7] = 0.f;
-#pragma unroll
-        for (int c = 0; c < 3; ++c) xkb[c * LDT + r0 + p] = __float2bfloat16_rn(xk[c]);
-      }
-      __syncwarp();
-      const float2 dg = *reinterpret_cast<const float2*>(sw + g * 8 + 2 * t);
-      const float2 dg8 = *reinterpret_cast<const float2*>(sw + (g + 8) * 8 + 2 * t);
-      a0 = pack_bf16(dg.x, dg.y);
-      a1 = pack_bf16(dg8.x, dg8.y);
-#pragma unroll
-      for (int r = 0; r < 6; ++r) {   // dbout over the warp's points
-        float v = d[r];
-#pragma unroll
-        for (int off = 1; off < 16; off <<= 1) v += __shfl_xor_sync(0xffffffffu, v, off);
-        rbout[r] += v;
-      }
-
-      // the cotangent chain on the same rows
-      float kept[M::KEEP][2] = {};
-      auto keep = [&](int level) {
-        if (level > 0) {
-#pragma unroll
-          for (int jj = 0; jj < M::ACC; ++jj)
-            if (jj == level - 1)
-#pragma unroll
-              for (int e = 0; e < M::KEEP; ++e) {
-                run[jj][e][0] += kept[e][0];
-                run[jj][e][1] += kept[e][1];
-              }
-        } else {
-#pragma unroll
-          for (int e = 0; e < M::KEEP; ++e) {
-            const int ntl = g + 8 * e;
-            if (ntl < H / 8)
-              *reinterpret_cast<float2*>(dhzw + warp * H + 8 * ntl + 2 * t) =
-                  make_float2(kept[e][0], kept[e][1]);
-          }
-        }
-      };
-      Rows<H> dh;
-      cot_first<H>(dh, a0, a1, wo8, hs + NH1 * hst + r0 * LD, dhs + NH1 * hst + r0 * LD, kept);
-      keep(NH1);
-      for (int j = NH1 - 1; j >= 0; --j) {
-        Rows<H> o;
-        cot_hidden<H>(o, dh, swh + j * H * LD, hs + j * hst + r0 * LD, dhs + j * hst + r0 * LD,
-                      kept);
-        keep(j);
-        dh = o;
-      }
-      // dy_in = where(mask, dy, dy * es) + rnd(dh_0) Wx: B = Wx^T [8][LD] (rows n)
-      float dc[4] = {0.f, 0.f, 0.f, 0.f};
-#pragma unroll
-      for (int kk = 0; kk < H / 32; ++kk) {
-        uint32_t bq[4];
-        ldsm_x4(bq, wx8 + (lane & 7) * LD + 32 * kk + (lane >> 3) * 8);
-        mma16(dc, dh.a[2 * kk], bq[0], bq[1]);
-        mma16(dc, dh.a[2 * kk + 1], bq[2], bq[3]);
-      }
-      __syncwarp();   // the d(s, t) reads above are done
-      *reinterpret_cast<float2*>(sw + g * 8 + 2 * t) = make_float2(dc[0], dc[1]);
-      *reinterpret_cast<float2*>(sw + (g + 8) * 8 + 2 * t) = make_float2(dc[2], dc[3]);
-      __syncwarp();
-      if (lane < 16 && valid)
-#pragma unroll
-        for (int c = 0; c < 3; ++c) {
-          dy[cloud + (size_t)c * N + n] = dyn[c] + sw[p * 8 + c];
-          y[cloud + (size_t)c * N + n] = xk[c];
-        }
-      __syncthreads();   // every warp's rows are in the shared tiles
-
-      // weight gradients over the tile's 128 points: dWh[j] += dh_{j+1}^T h_j
-#pragma unroll
-      for (int jj = 0; jj < M::ACC; ++jj) {
-        if (jj >= NH1) break;
-        const bf16* A = dhs + (jj + 1) * hst;
-        const bf16* Bm = hs + jj * hst;
-#pragma unroll
-        for (int kk = 0; kk < MT / 16; ++kk) {
-          uint32_t a[M::WM][4];
-#pragma unroll
-          for (int mi = 0; mi < M::WM; ++mi)
-            ldsm_x4_t(a[mi], A + (16 * kk + (lane & 7) + ((lane >> 4) & 1) * 8) * LD +
-                                 (mw * M::WM + mi) * 16 + ((lane >> 3) & 1) * 8);
-          if constexpr (M::WN % 2 == 0) {
-#pragma unroll
-            for (int ni = 0; ni < M::WN; ni += 2) {
-              uint32_t bq[4];
-              ldsm_x4_t(bq, Bm + (16 * kk + (lane & 7) + ((lane >> 3) & 1) * 8) * LD +
-                                (nw * M::WN + ni) * 8 + (lane >> 4) * 8);
-#pragma unroll
-              for (int mi = 0; mi < M::WM; ++mi) {
-                mma16(acc[jj][mi][ni], a[mi], bq[0], bq[1]);
-                mma16(acc[jj][mi][ni + 1], a[mi], bq[2], bq[3]);
-              }
-            }
-          } else {
-#pragma unroll
-            for (int ni = 0; ni < M::WN; ++ni) {
-              uint32_t bq[2];
-              ldsm_x2_t(bq, Bm + (16 * kk + (lane & 7) + ((lane >> 3) & 1) * 8) * LD +
-                                (nw * M::WN + ni) * 8);
-#pragma unroll
-              for (int mi = 0; mi < M::WM; ++mi) mma16(acc[jj][mi][ni], a[mi], bq[0], bq[1]);
-            }
-          }
-        }
-      }
-      // dWout^T += h_last^T rnd(d(s, t)), dWx += rnd(dh_0)^T rnd(x_k)
-#pragma unroll
-      for (int mi = 0; mi < M::MTW; ++mi) {
-        const int mt = warp + WARPS * mi;
-        if (mt >= H / 16) break;
-#pragma unroll
-        for (int kq = 0; kq < MT / 32; ++kq) {
-          uint32_t bd[4], bx[4];
-          ldsm_x4(bd, dstb + (lane & 7) * LDT + 32 * kq + (lane >> 3) * 8);
-          ldsm_x4(bx, xkb + (lane & 7) * LDT + 32 * kq + (lane >> 3) * 8);
-#pragma unroll
-          for (int hf = 0; hf < 2; ++hf) {
-            const int row = 16 * (2 * kq + hf) + (lane & 7) + ((lane >> 4) & 1) * 8;
-            const int col = 16 * mt + ((lane >> 3) & 1) * 8;
-            uint32_t a[4];
-            ldsm_x4_t(a, hs + NH1 * hst + row * LD + col);
-            mma16(aout[mi], a, bd[2 * hf], bd[2 * hf + 1]);
-            ldsm_x4_t(a, dhs + row * LD + col);
-            mma16(ax[mi], a, bx[2 * hf], bx[2 * hf + 1]);
-          }
-        }
-      }
-      // this tile's dhz: the warps' sums in order
-      for (int e = tid; e < H; e += THREADS) {
-        float a = 0.f;
-        for (int w = 0; w < WARPS; ++w) a += dhzw[w * H + e];
-        dhz_part[((size_t)tile * K + k) * H + e] = a;
-      }
-      __syncthreads();   // the next tile reuses the shared tiles
-    }
-    if (ahead) wr.store(reinterpret_cast<bf16*>(stage(s ^ 1) + L.wxt));
-
-    // this block's partial of layer k: [dWx | dWh | dbh | dWout | dbout]
-    float* out = part + ((size_t)blockIdx.x * K + k) * per_layer;
-#pragma unroll
-    for (int mi = 0; mi < M::MTW; ++mi) {
-      const int mt = warp + WARPS * mi;
-      if (mt >= H / 16) break;
-      const int o = 16 * mt + g;
-#pragma unroll
-      for (int e = 0; e < 2; ++e) {
-        const int c = 2 * t + e;
-        if (c < 3) {
-          out[o * 3 + c] = ax[mi][e];
-          out[(o + 8) * 3 + c] = ax[mi][2 + e];
-        }
-        if (c < 6) {
-          float* dwo = out + 3 * H + NH1 * H * H + NH1 * H;
-          dwo[c * H + o] = aout[mi][e];
-          dwo[c * H + o + 8] = aout[mi][2 + e];
-        }
-      }
-    }
-#pragma unroll
-    for (int jj = 0; jj < M::ACC; ++jj) {
-      if (jj >= NH1) break;
-      float* dwh = out + 3 * H + jj * H * H;
-#pragma unroll
-      for (int mi = 0; mi < M::WM; ++mi)
-#pragma unroll
-        for (int ni = 0; ni < M::WN; ++ni) {
-          const int o = (mw * M::WM + mi) * 16 + g, c = (nw * M::WN + ni) * 8 + 2 * t;
-          *reinterpret_cast<float2*>(dwh + o * H + c) =
-              make_float2(acc[jj][mi][ni][0], acc[jj][mi][ni][1]);
-          *reinterpret_cast<float2*>(dwh + (o + 8) * H + c) =
-              make_float2(acc[jj][mi][ni][2], acc[jj][mi][ni][3]);
-        }
-    }
-    // dbh and dbout: the warps' sums in order, through the (now free) h tiles
-    float* red = reinterpret_cast<float*>(hs);
-    const int rs = NH1 * H + 8;
-#pragma unroll
-    for (int jj = 0; jj < M::ACC; ++jj) {
-      if (jj >= NH1) break;
-#pragma unroll
-      for (int e = 0; e < M::KEEP; ++e) {
-        const int ntl = g + 8 * e;
-        if (ntl < H / 8)
-          *reinterpret_cast<float2*>(red + warp * rs + jj * H + 8 * ntl + 2 * t) =
-              make_float2(run[jj][e][0], run[jj][e][1]);
-      }
-    }
-    if (lane == 0)
-#pragma unroll
-      for (int r = 0; r < 6; ++r) red[warp * rs + NH1 * H + r] = rbout[r];
-    __syncthreads();
-    for (int e = tid; e < NH1 * H + 6; e += THREADS) {
-      float a = 0.f;
-      for (int w = 0; w < WARPS; ++w) a += red[w * rs + e];
-      if (e < NH1 * H) out[3 * H + NH1 * H * H + e] = a;
-      else out[3 * H + NH1 * H * H + NH1 * H + 6 * H + (e - NH1 * H)] = a;
-    }
-  }
+  bwd_rows<H>(y, dy, dld, hz, wx, wh, bh, wout, bout, masks, part, dhz_part, B, N, N, K, NH1,
+              cap);
 }
 
 template <int H>
@@ -643,10 +208,7 @@ cudaError_t launch_bwd_mma(float* y, float* dy, const float* dld, const float* h
       y, dy, dld, hz, static_cast<const bf16*>(wx), static_cast<const bf16*>(wh), bh,
       static_cast<const bf16*>(wout), bout, masks, part, dhz_part, B, N, K, NH1, cap);
   if ((e = cudaGetLastError()) != cudaSuccess) return e;
-  const int nt = (N + MT - 1) / MT;
-  const long long per_layer = 3LL * H + (long long)NH1 * H * H + (long long)NH1 * H + 6 * H + 6;
-  if ((e = launch_reduce(part, dw, 1, blocks, per_layer * K, stream)) != cudaSuccess) return e;
-  return launch_reduce(dhz_part, dhz, B, nt, (long long)K * H, stream);
+  return bwd_rows_reduce<H>(part, dhz_part, dw, dhz, B, N, K, NH1, blocks, stream);
 }
 
 // ---------------------------------------------------------------- f32 mode

@@ -1,21 +1,28 @@
 """Decomposition probe for the fused point-flow backward, on the card.
 
 The port's counterpart of ``tools/bench_fused_bwd.py``: it times reduced
-variants of a parametrised copy of the training backward to attribute its
-cost, and two layouts of the same function:
+variants of the training backward to attribute its cost. In bf16 the
+variants run the training backward's own body (``csrc/flow_bwd_rows.cuh``,
+the body of ``fused_backward_kernel``) on the 8-row layout:
 
   lib       the port's production kernel (``fused_backward_kernel``) on the
             3-row slice of the same weights: a 3-row function, so its time
             compares with ``full``'s but its values do not
-  full      the probe's backward on the 8-row layout: dx, dhz and every
-            weight gradient
-  nowg      the weight-gradient products and bias sums left out (dx only)
+  full      the backward on the 8-row layout: dx, dhz and every weight
+            gradient
+  nowg      what only the weight gradients need left out (dx only)
   walk      only the inverse walk (conditioner recompute and inverse; x_0
             in dx's place)
   rolled    ``full`` with the layer loop kept rolled (``#pragma unroll 1``)
-  ilv<S>[r] ``full`` with one block per cloud, its points split into S
-            independent stripes, each walked by its own warps (S = 2, 4;
-            ``r``: rolled)
+  ilv<S>[r] ``full`` with each block's warps in S groups (S = 2, 4), each
+            group on its own tiles of 128 / S points with its own barrier,
+            so one group's products can overlap another's coupling math
+            (``r``: rolled)
+
+So full - nowg (the weight gradients), nowg - walk (the cotangent chain)
+and walk (the recompute and the inverse) split the backward that training
+runs; the line before the launches gives them as shares of ``full``, and
+``full / lib``.
 
 The 8-row layout is the JAX probe's: u and du [B, 8, N], wx [K, H, 8] (no
 mask folded in: the conditioner reads all 8 rows), wout [K, 8, H], the
@@ -24,17 +31,18 @@ shift from rows 3-5 (``roll(st, 5)``) and the translation cotangent
 ``csrc/bench_fused_bwd.cu``; see its header for the design and the bound.
 
 Usage: python -m dpfx_torch.tools.bench_fused_bwd [variant ...] [--device cpu]
-Env:   DPFX_PROBE_B (64), DPFX_PROBE_TILES ("64": points per block tile of
-       the non-interleaved variants, a comma list to sweep; every variant
-       is built for 64 points, ``full`` also for 128, and any other tile,
-       or one whose shared memory exceeds 227 KB, prints FAILED),
+Env:   DPFX_PROBE_B (64), DPFX_PROBE_TILES ("128": points per block tile
+       of the non-interleaved variants, a comma list to sweep; the bf16
+       variants are built for 128 points, and any other tile, or one whose
+       shared memory exceeds 227 KB, prints FAILED),
        DPFX_PROBE_REPS (20), DPFX_PROBE_VMEM (a TPU scoped-memory knob,
        accepted and ignored)
 
 Each line gives ms per call (``chain_time_ms``: CUDA events on the card)
 and μs per tile (a tile of one cloud, the grid step of the JAX tool) or per
-block (interleaved: one block per cloud). The last line gives the launches
-of each kernel in the run.
+block (interleaved: the JAX tool's block, one cloud). With full, nowg and
+walk timed, the line before the last gives the split; the last line gives
+the launches of each kernel in the run.
 
 Every wrapper takes its plain PyTorch version for a tensor on the CPU and
 launches the kernel for a CUDA tensor (or raises). ``launches`` counts the
@@ -67,15 +75,17 @@ KERNEL_HIDDEN = (128,)       # the probe kernels are built for the flagship widt
 MODES = {"full": 0, "nowg": 1, "walk": 2}
 ILV_STRIPES = (2, 4)
 # the forms the kernel library is built for (csrc/bench_fused_bwd.cu):
-# (tile, mode, rolled) of the probe kernel; (stripes, rolled) and the
-# stripe tile of the interleaved one
+# (tile, mode, rolled) of the probe kernel; (stripes, rolled) and the tile
+# argument of the interleaved one (bf16: the block's 128 points, 128 /
+# stripes a group; f32: each stripe's tile)
 BUILT = {
-    torch.bfloat16: {(64, m, r) for m in MODES for r in (False, True)} | {(128, "full", False)},
+    torch.bfloat16: {(128, m, r) for m in MODES for r in (False, True)},
     torch.float32: {(32, m, False) for m in MODES} | {(32, "full", True)},
 }
 ILV_BUILT = {torch.bfloat16: {(s, r) for s in ILV_STRIPES for r in (False, True)},
              torch.float32: {(s, False) for s in ILV_STRIPES}}
-ILV_TILE = {torch.bfloat16: 32, torch.float32: 16}
+ILV_TILE = {torch.bfloat16: 128, torch.float32: 16}
+TILE = {torch.bfloat16: 128, torch.float32: 32}   # the default tile of the probe kernel
 GRAD_NAMES = ("dx", "dhz", "dwx", "dwh", "dbh", "dwout", "dbout")
 
 # kernel launches per wrapper and variant; chip_smoke.py zeroes these
@@ -191,9 +201,72 @@ def _lib() -> ctypes.CDLL:
 
 def smem_bytes(hidden: int, n_hidden_m1: int, dtype: torch.dtype, tile: int,
                stripes: int = 1) -> int:
-    """Dynamic shared memory of one block, as the kernel library lays it out."""
-    return _lib().dpfx_probe_bwd_smem_bytes(hidden, n_hidden_m1, int(dtype == torch.bfloat16),
-                                            tile, stripes)
+    """Dynamic shared memory of one block, as the kernel library lays it out
+    (a mirror of ``dpfx_probe_bwd_smem_bytes``: bf16 ``MmaSmem`` of
+    ``csrc/flow_bwd_rows.cuh``, the same for every mode and group count;
+    f32 ``Smem`` of ``csrc/bench_fused_bwd.cu``). Change it with them: the
+    card test ``test_probe_smem_mirror_matches_the_library`` holds the two
+    equal."""
+    r128 = lambda v: -(-v // 128) * 128
+    if dtype == torch.bfloat16:
+        ld, mt = hidden + 8, 128
+        stage = r128(n_hidden_m1 * hidden * ld * 2) + 2 * r128(8 * ld * 2)
+        o = (2 * (n_hidden_m1 + 1) * r128(mt * ld * 2) + 2 * r128(8 * (mt + 8) * 2)
+             + r128(8 * hidden * 4) + 8 * 16 * 8 * 4)
+        return o + (2 if o + 2 * stage <= SMEM_LIMIT else 1) * stage
+    ld, nb = hidden + 1, max(n_hidden_m1, 1)
+    block = (nb * r128(hidden * ld * 4)
+             + (n_hidden_m1 * r128(hidden * (hidden + 4) * 4) if stripes == 1 else 0)
+             + r128(8 * 256 * 4) + 2 * r128(ROWS * hidden * 4) + 2 * r128(ROWS * 4)
+             + r128(nb * hidden * 4))
+    group = ((n_hidden_m1 + 1) * r128(tile * ld * 4) + r128(tile // 16 * hidden * 4)
+             + 5 * r128(ROWS * tile * 4) + 3 * r128(hidden * 4) + 2 * r128(ROWS * hidden * 4)
+             + r128(ROWS * 4) + r128(nb * hidden * 4))
+    return block + stripes * group
+
+
+def check_form(dtype: torch.dtype, mode: str, rolled: bool, tile: int, stripes: int = 1,
+               n: Optional[int] = None, hidden: int = H, n_hidden_m1: int = NH) -> None:
+    """Raise ValueError unless the kernel library is built for this form
+    (``BUILT``, ``ILV_BUILT``, ``ILV_TILE``) and its shared memory fits a
+    block; ``n`` is the points per cloud (the f32 stripes divide it)."""
+    if dtype not in BUILT:
+        raise ValueError(f"kernel compute dtype must be float32 or bfloat16, got {dtype}")
+    if mode not in MODES:
+        raise ValueError(f"mode must be one of {tuple(MODES)}, got {mode!r}")
+    if stripes == 1 and (tile, mode, bool(rolled)) not in BUILT[dtype]:
+        raise ValueError(f"the probe kernel is built for (tile, mode, rolled) in "
+                         f"{sorted(BUILT[dtype])} in {dtype}, got {(tile, mode, bool(rolled))}")
+    if stripes != 1 and (stripes not in ILV_STRIPES or mode != "full"
+                         or (dtype == torch.float32 and n is not None and n % stripes)):
+        raise ValueError(f"the interleaved kernel takes mode full and stripes in {ILV_STRIPES} "
+                         f"(in float32: that divide N={n}), got {mode!r}, {stripes}")
+    if stripes > 1 and ((stripes, bool(rolled)) not in ILV_BUILT[dtype]
+                        or tile != ILV_TILE[dtype]):
+        raise ValueError(f"the interleaved kernel is built for (stripes, rolled) in "
+                         f"{sorted(ILV_BUILT[dtype])}, tile {ILV_TILE[dtype]} in {dtype}, got "
+                         f"{(stripes, bool(rolled))}, tile {tile}")
+    need = smem_bytes(hidden, n_hidden_m1, dtype, tile, stripes)
+    if need > SMEM_LIMIT:
+        raise ValueError(f"tile={tile} stripes={stripes} n_hidden-1={n_hidden_m1} in {dtype} "
+                         f"needs {need} B of shared memory, more than the {SMEM_LIMIT} B a "
+                         "block may use")
+
+
+def grid(dtype: torch.dtype, tile: int, stripes: int, b: int, n: int, sms: int):
+    """(blocks, gradient slices, dhz tiles per cloud) of a launch: bf16, a
+    persistent grid of at most one block per SM with ``stripes`` groups a
+    block, one slice per group, the groups' tiles of tile / stripes points;
+    f32, the same grid with one slice per block, or (stripes) one block per
+    cloud writing dhz itself."""
+    if dtype == torch.bfloat16:
+        nt = -(-n // (tile // stripes))
+        blocks = min(-(-b * nt // stripes), sms)
+        return blocks, blocks * stripes, nt
+    if stripes == 1:
+        nt = -(-n // tile)
+        return min(b * nt, sms), min(b * nt, sms), nt
+    return b, b, 0
 
 
 def _launch(w, u, hz, du, dld, *, mode, n_points, cap, dtype, rolled, tile, stripes):
@@ -202,10 +275,6 @@ def _launch(w, u, hz, du, dld, *, mode, n_points, cap, dtype, rolled, tile, stri
     nh1 = wh.shape[1]
     b, _, n = u.shape
     dev = u.device
-    if dtype not in BUILT:
-        raise ValueError(f"kernel compute dtype must be float32 or bfloat16, got {dtype}")
-    if mode not in MODES:
-        raise ValueError(f"mode must be one of {tuple(MODES)}, got {mode!r}")
     if hidden not in KERNEL_HIDDEN or rows != ROWS:
         raise ValueError(f"the probe kernels are built for wx [K, {KERNEL_HIDDEN}, {ROWS}], "
                          f"got {tuple(wx.shape)}")
@@ -213,19 +282,7 @@ def _launch(w, u, hz, du, dld, *, mode, n_points, cap, dtype, rolled, tile, stri
         raise ValueError(f"u and du must be [B, {ROWS}, N], got {tuple(u.shape)}, {tuple(du.shape)}")
     if not 0 <= n_points <= n:
         raise ValueError(f"n_points must lie in [0, {n}], got {n_points}")
-    if stripes == 1 and (tile, mode, bool(rolled)) not in BUILT[dtype]:
-        raise ValueError(f"the probe kernel is built for (tile, mode, rolled) in "
-                         f"{sorted(BUILT[dtype])} in {dtype}, got {(tile, mode, bool(rolled))}")
-    if stripes > 1 and (stripes not in ILV_STRIPES or n % stripes):
-        raise ValueError(f"the interleaved kernel takes stripes in {ILV_STRIPES} that divide "
-                         f"N={n}, got {stripes}")
-    if stripes > 1 and (stripes, bool(rolled)) not in ILV_BUILT[dtype]:
-        raise ValueError(f"the interleaved kernel is built for (stripes, rolled) in "
-                         f"{sorted(ILV_BUILT[dtype])} in {dtype}, got {(stripes, bool(rolled))}")
-    need = smem_bytes(hidden, nh1, dtype, tile, stripes)
-    if need > SMEM_LIMIT:
-        raise ValueError(f"tile={tile} stripes={stripes} in {dtype} needs {need} B of shared "
-                         f"memory, more than the {SMEM_LIMIT} B a block may use")
+    check_form(dtype, mode, rolled, tile, stripes, n, hidden, nh1)
     tensors = dict(wx=wx, wh=wh, bh=bh, wout=wout, bout=bout, u=u, hz=hz, du=du, dld=dld)
     for name, t in tensors.items():
         if not (t.is_cuda and t.device == dev):
@@ -234,16 +291,16 @@ def _launch(w, u, hz, du, dld, *, mode, n_points, cap, dtype, rolled, tile, stri
     cast = lambda t: t.to(dtype).contiguous()
     y, dy = f32(u).clone(), f32(du).clone()
     per_layer = 2 * ROWS * hidden + nh1 * hidden * hidden + nh1 * hidden + ROWS
-    nt = -(-n // tile)
-    blocks = (min(b * nt, torch.cuda.get_device_properties(dev).multi_processor_count)
-              if stripes == 1 else b)
+    blocks, slices, nt = grid(dtype, tile, stripes, b, n,
+                              torch.cuda.get_device_properties(dev).multi_processor_count)
     # gradient scratch and outputs, which only the full mode writes
     full = mode == "full"
+    f32_ilv = dtype == torch.float32 and stripes > 1
     empty = lambda *shape, need=True: (torch.empty(shape, device=dev, dtype=torch.float32)
                                        if full and need else None)
-    part = empty(blocks, n_layers, per_layer)
-    dhz_part = empty(b, nt, n_layers, hidden, need=stripes == 1)
-    awh = empty(b, stripes, max(nh1, 1), hidden, hidden, need=stripes > 1)
+    part = empty(slices, n_layers, per_layer)
+    dhz_part = empty(b, nt, n_layers, hidden, need=not f32_ilv)
+    awh = empty(b, stripes, max(nh1, 1), hidden, hidden, need=f32_ilv)
     dw = empty(n_layers, per_layer)
     dhz = empty(b, n_layers, hidden)
     cwx, cwh, cwout = cast(wx), cast(wh), cast(wout)
@@ -285,12 +342,12 @@ def probe_bwd_kernel(w, u, hz, du, dld, *, mode: str, n_points: int, cap: float 
     """The probe kernel (the counterpart of ``_kernel``,
     ``tools/bench_fused_bwd.py:49``): same contract as ``probe_bwd_plain``.
     ``rolled`` keeps the layer loop rolled; ``tile`` is the points per
-    block tile (default: 64 in bf16, 32 in f32, as the production
+    block tile (default ``TILE``: 128 in bf16, 32 in f32, as the production
     backward). Bit-identical from run to run."""
     if not u.is_cuda:
         return probe_bwd_plain(w, u, hz, du, dld, mode=mode, n_points=n_points, cap=cap,
                                dtype=dtype)
-    tile = tile or (64 if dtype == torch.bfloat16 else 32)
+    tile = tile or TILE.get(dtype, 0)
     out = _launch(w, u, hz, du, dld, mode=mode, n_points=n_points, cap=cap, dtype=dtype,
                   rolled=rolled, tile=tile, stripes=1)
     launches[f"probe_bwd_{mode}{'_rolled' if rolled else ''}"] += 1
@@ -302,9 +359,10 @@ def ilv_bwd_kernel(w, u, hz, du, dld, *, stripes: int, rolled: bool = False,
                    dtype: torch.dtype = torch.bfloat16):
     """The interleaved kernel (the counterpart of ``_ilv_kernel``,
     ``tools/bench_fused_bwd.py:155``): ``probe_bwd_plain``'s ``full`` with
-    one block per cloud and its points in ``stripes`` independent chains.
-    ``n_points`` defaults to all of u's columns (the Pallas variant has no
-    such mask and is defined only there)."""
+    the points in ``stripes`` independent chains (bf16: groups of a block's
+    warps, each on its own tiles; f32: one block per cloud, its points in
+    stripes). ``n_points`` defaults to all of u's columns (the Pallas
+    variant has no such mask and is defined only there)."""
     n_points = u.shape[2] if n_points is None else n_points
     if not u.is_cuda:
         return probe_bwd_plain(w, u, hz, du, dld, mode="full", n_points=n_points, cap=cap,
@@ -360,7 +418,7 @@ def main(argv=None) -> int:
     dev = resolve_device(args.device)
     which = args.variants or ["lib", "full", "nowg", "walk", "rolled"]
     b = int(os.environ.get("DPFX_PROBE_B", "64"))
-    tiles = [int(t) for t in os.environ.get("DPFX_PROBE_TILES", "64").split(",")]
+    tiles = [int(t) for t in os.environ.get("DPFX_PROBE_TILES", "128").split(",")]
     reps = int(os.environ.get("DPFX_PROBE_REPS", "20"))
     if "DPFX_PROBE_VMEM" in os.environ:
         print("  DPFX_PROBE_VMEM is the TPU's scoped-VMEM limit: ignored on the card")
@@ -376,13 +434,15 @@ def main(argv=None) -> int:
             return c + 1.0, outs[0][0, 0, :8].sum()
         return chain_time_ms(body, torch.zeros((), device=dev), reps=reps)
 
+    ms_of = {}
     if "lib" in which:
         from dpfx_torch.ops import fused_train as ft
 
         p = production_slice(w, u0, hz, du)
         bwd = ft.fused_backward_kernel if dev.type == "cuda" else ft.fused_backward_plain
         pw = (p["wx"], p["wh"], p["bh"], p["wout"], p["bout"], p["masks"], CAP)
-        ms = timed(lambda uu: bwd(*pw, uu[:, :3].contiguous(), p["hz"], p["du"], dld, bf))
+        ms = ms_of["lib"] = timed(lambda uu: bwd(*pw, uu[:, :3].contiguous(), p["hz"], p["du"],
+                                                 dld, bf))
         print(f"  lib (fused_backward_kernel, 3 rows: its values are not the probe's) "
               f"{ms:8.2f} ms  {ms * 1000 / b:6.1f} us/cloud")
 
@@ -397,7 +457,10 @@ def main(argv=None) -> int:
         except ValueError as e:
             print(f"  {v:6s}  FAILED: {str(e).splitlines()[0][:90]}")
             continue
-        print(f"  {v:6s}  {ms:8.2f} ms  {ms * 1000 / b:6.1f} us/block")
+        tile_bytes, total = ilv_slice_bytes(stripes, b, N, K, H, NH)
+        print(f"  {v:6s}  {ms:8.2f} ms  {ms * 1000 / b:6.1f} us/block  dWh slice "
+              f"{tile_bytes / 1024:.0f} KiB per group tile, {total / 1e9:.2f} GB in all "
+              f"({total / ms / 1e6:.0f} GB/s)")
 
     for tile in tiles:
         g = b * -(-N // tile)
@@ -412,8 +475,37 @@ def main(argv=None) -> int:
                 print(f"  {v:6s} tile={tile:4d}  FAILED: {str(e).splitlines()[0][:90]}")
                 continue
             print(f"  {v:6s} tile={tile:4d}  {ms:8.2f} ms  {ms * 1000 / g:6.1f} us/tile")
+            ms_of.setdefault(v, ms)
+    line = split_line(ms_of)
+    if line:
+        print(line)
     print(f"launches {json.dumps({k: n for k, n in launches.items() if n})}")
     return 0
+
+
+def ilv_slice_bytes(stripes: int, b: int, n: int, n_layers: int, hidden: int,
+                    n_hidden_m1: int) -> Tuple[int, int]:
+    """The dWh traffic of the bf16 interleaved forms, which ``full`` keeps
+    in registers: each group tile reads its group's f32 slice of every
+    hidden dWh and writes it back (the first tile of a slice and layer
+    only writes). Returns (bytes per group tile, bytes of the whole run at
+    most), so that an ilv time can be read apart from its slice traffic."""
+    per_tile = 2 * n_hidden_m1 * hidden * hidden * 4
+    group_tiles = b * -(-n // (ILV_TILE[torch.bfloat16] // stripes)) * n_layers
+    return per_tile, per_tile * group_tiles
+
+
+def split_line(ms: Dict[str, float]) -> Optional[str]:
+    """The backward's split as shares of ``full`` from the times of full,
+    nowg and walk (each variant's first tile), and ``full / lib`` where lib
+    was timed; None unless full, nowg and walk were."""
+    if not all(v in ms for v in ("full", "nowg", "walk")):
+        return None
+    full = ms["full"]
+    lib = f"{full / ms['lib']:.3f}" if "lib" in ms else "not measured"
+    return (f"split of full: weight gradients (full - nowg) {(full - ms['nowg']) / full:.1%}, "
+            f"cotangent chain (nowg - walk) {(ms['nowg'] - ms['walk']) / full:.1%}, recompute "
+            f"and inverse (walk) {ms['walk'] / full:.1%}; full / lib {lib}")
 
 
 if __name__ == "__main__":

@@ -215,5 +215,5 @@ def test_cli_on_the_cpu(monkeypatch, capsys):
     assert out[1] == "B=1 N=256 K=3 H=128 reps=1 device=cpu"
     assert any(line.startswith("  lib ") and " ms " in line for line in out)
     assert any(line.startswith("  ilv2 ") and "us/block" in line for line in out)
-    assert any(line.startswith("  walk   tile=  64") and "us/tile" in line for line in out)
+    assert any(line.startswith("  walk   tile= 128") and "us/tile" in line for line in out)
     assert out[-1] == "launches {}"

@@ -1,0 +1,69 @@
+"""dpfx_torch.tools.bwd_ab without CUDA: the kernel's disassembly picked
+out of cuobjdump's, addresses, encodings and branch targets left out of
+the comparison, the differing lines counted, ptxas' line read."""
+
+import pytest
+
+pytest.importorskip("torch")
+
+from dpfx_torch.tools import bwd_ab  # noqa: E402
+
+KERNEL = "bwd_kernel_mmaILi128E"
+
+
+def ins(addr, text):
+    return f"        /*{addr:04x}*/                   {text} ;   /* 0x000fe20000000f00 */"
+
+
+def dump(body, shift=0):
+    other = ["\t\tFunction : _ZN18_GLOBAL__N__0_fwd_kernel_mmaILi128EEvPf", ins(0, "EXIT")]
+    lines = [f"\t\tFunction : _ZN18_GLOBAL__N__0_{KERNEL}EvPfS1_", "\t\t.headerflags @\"EF_CUDA_SM90\""]
+    lines += [ins(16 * i + shift, op) for i, op in enumerate(body)]
+    return "\n".join(other + lines)
+
+
+BODY = ["S2R R0, SR_TID.X", "HMMA.16816.F32.BF16 R4, R8, R12, R4", "@P0 BRA 0x1230",
+        "BSSY B0, 0x400", "CALL.REL.NOINC 0x135e0", "STG.E.64 desc[UR4][R2.64], R4", "EXIT"]
+
+
+def test_kernel_sass_picks_the_named_function():
+    text = bwd_ab.kernel_sass(dump(BODY), KERNEL)
+    assert KERNEL in text and "fwd_kernel" not in text and "HMMA" in text
+    assert bwd_ab.kernel_sass(dump(BODY), "no_such_kernel") == ""
+
+
+def test_normalized_leaves_out_addresses_encodings_and_branch_targets():
+    got = bwd_ab.normalized(bwd_ab.kernel_sass(dump(BODY), KERNEL))
+    assert got == ["S2R R0, SR_TID.X ;", "HMMA.16816.F32.BF16 R4, R8, R12, R4 ;",
+                   "STG.E.64 desc[UR4][R2.64], R4 ;", "EXIT ;"]
+
+
+@pytest.mark.parametrize("body, n", [
+    (BODY, 0),                                        # moved code: the same instructions
+    (BODY[:1] + ["IMAD R1, R2, R3, RZ"] + BODY[1:], 1),  # one instruction more
+    (["S2R R1, SR_TID.X"] + BODY[1:], 2),              # one register renamed
+])
+def test_differing_counts_lines_removed_and_added(body, n):
+    a = bwd_ab.normalized(bwd_ab.kernel_sass(dump(BODY), KERNEL))
+    b = bwd_ab.normalized(bwd_ab.kernel_sass(dump(body, shift=0x30), KERNEL))
+    assert bwd_ab.differing(a, b) == n
+
+
+def test_ptxas_of_reads_the_kernels_line():
+    log = ("ptxas info    : Compiling entry function '_ZN18_GLOBAL__N__0_fwd_kernel_mmaILi128EEvPf' "
+           "for 'sm_90a'\nptxas info    : Function properties for _ZN18_GLOBAL__N__0_fwd\n"
+           "    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads\n"
+           "ptxas info    : Used 128 registers, used 1 barriers\n"
+           f"ptxas info    : Compiling entry function '_ZN18_GLOBAL__N__0_{KERNEL}EvPf' for 'sm_90a'\n"
+           f"ptxas info    : Function properties for _ZN18_GLOBAL__N__0_{KERNEL}EvPf\n"
+           "    24 bytes stack frame, 24 bytes spill stores, 24 bytes spill loads\n"
+           "ptxas info    : Used 255 registers, used 1 barriers, 24 bytes cumulative stack size\n")
+    assert bwd_ab.ptxas_of(log, KERNEL) == (24, 24, 24, 255)
+    assert bwd_ab.ptxas_of(log, "no_such_kernel") is None
+
+
+def test_main_without_cuda_exits_nonzero(tmp_path, monkeypatch):
+    import torch
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    assert bwd_ab.main([str(tmp_path)]) == 1

@@ -1012,8 +1012,8 @@ def _probe_errors(got, ref):
     return [_rel(a, r) if r.abs().max() > 0 else float(a.abs().max()) for a, r in zip(got, ref)]
 
 
-_PROBE_FORMS = [("bfloat16", 64, m, r) for m in ("full", "nowg", "walk") for r in (False, True)]
-_PROBE_FORMS += [("bfloat16", 128, "full", False), ("float32", 32, "full", True)]
+_PROBE_FORMS = [("bfloat16", 128, m, r) for m in ("full", "nowg", "walk") for r in (False, True)]
+_PROBE_FORMS += [("float32", 32, "full", True)]
 _PROBE_FORMS += [("float32", 32, m, False) for m in ("full", "nowg", "walk")]
 
 
@@ -1045,17 +1045,18 @@ def test_probe_bwd_kernel_matches_plain(cuda, dtype, tile, mode, rolled):
                                                    (False, True)]
                          + [("float32", s, False) for s in (2, 4)])
 def test_ilv_bwd_kernel_matches_plain(cuda, dtype, stripes, rolled):
-    """The interleaved kernel against the plain full backward at N=256 with
-    the log-det mask at 250, limits as the probe kernel's."""
+    """The interleaved kernel against the plain full backward at N=300 (a
+    partial last tile of every group size) with the log-det mask at 290,
+    limits as the probe kernel's."""
     from dpfx_torch.tools import bench_fused_bwd as bfb
 
     dt = getattr(torch, dtype)
-    w, u, hz, du, dld = _probe_inputs(cuda, 3, 256, seed=1)
-    got = bfb.ilv_bwd_kernel(w, u, hz, du, dld, stripes=stripes, rolled=rolled, n_points=250,
+    w, u, hz, du, dld = _probe_inputs(cuda, 3, 300, seed=1)
+    got = bfb.ilv_bwd_kernel(w, u, hz, du, dld, stripes=stripes, rolled=rolled, n_points=290,
                              dtype=dt)
-    again = bfb.ilv_bwd_kernel(w, u, hz, du, dld, stripes=stripes, rolled=rolled, n_points=250,
+    again = bfb.ilv_bwd_kernel(w, u, hz, du, dld, stripes=stripes, rolled=rolled, n_points=290,
                                dtype=dt)
-    ref = bfb.probe_bwd_plain(w, u, hz, du, dld, mode="full", n_points=250, dtype=dt)
+    ref = bfb.probe_bwd_plain(w, u, hz, du, dld, mode="full", n_points=290, dtype=dt)
     torch.cuda.synchronize()
     assert all(torch.equal(a, c) for a, c in zip(got, again)), "not bit-identical"
     errs = _probe_errors(got, ref)
@@ -1065,7 +1066,9 @@ def test_ilv_bwd_kernel_matches_plain(cuda, dtype, stripes, rolled):
 def test_padded_probe_matches_production_kernel(cuda):
     """On zero-padded production inputs the probe's full kernel computes the
     production backward's function: f32 kernels within 1e-5 of each other
-    per output."""
+    per output; in bf16 the probe runs the production backward's own body
+    (flow_bwd_rows.cuh), so every output is the production kernel's bit
+    for bit."""
     from dpfx_torch.ops import fused_train as ft
     from dpfx_torch.tools import bench_fused_bwd as bfb
 
@@ -1086,6 +1089,14 @@ def test_padded_probe_matches_production_kernel(cuda):
              (got[6][:, :6, 0], ref[6])]
     for name, (a, b) in zip(["dx", "dhz", "dwx", "dwh", "dbh", "dwout", "dbout"], pairs):
         assert _rel(a, b) <= 1e-5, f"{name}: {_rel(a, b)}"
+    got = bfb.probe_bwd_kernel(w, u, hz, du, dld, mode="full", n_points=256, dtype=torch.bfloat16)
+    ref = ft.fused_backward_kernel(p["wx"], p["wh"], p["bh"], p["wout"], p["bout"], p["masks"],
+                                   bfb.CAP, p["u"], p["hz"], p["du"], dld, torch.bfloat16)
+    torch.cuda.synchronize()
+    cut = [got[0][:, :3], got[1][..., 0], got[2][..., :3], got[3], got[4][..., 0], got[5][:, :6],
+           got[6][:, :6, 0]]
+    for name, a, b in zip(["dx", "dhz", "dwx", "dwh", "dbh", "dwout", "dbout"], cut, ref):
+        assert torch.equal(a, b), f"bf16 {name}: {_rel(a, b)}"
 
 
 def test_probe_kernel_conditions(cuda):
@@ -1101,13 +1112,16 @@ def test_probe_kernel_conditions(cuda):
     with pytest.raises(ValueError, match="built for"):
         bfb.probe_bwd_kernel(w, u, hz, du, dld, tile=64, dtype=torch.float32, **kw)
     with pytest.raises(ValueError, match="built for"):
-        bfb.probe_bwd_kernel(w, u, hz, du, dld, tile=128, rolled=True, **kw)
+        bfb.probe_bwd_kernel(w, u, hz, du, dld, tile=64, rolled=True, **kw)
+    with pytest.raises(ValueError, match="built for"):
+        bfb.probe_bwd_kernel(w, u, hz, du, dld, tile=64, **kw)   # the first design's tile
     with pytest.raises(ValueError, match="stripes"):
         bfb.ilv_bwd_kernel(w, u, hz, du, dld, stripes=3)
     with pytest.raises(ValueError, match="built for"):
         bfb.ilv_bwd_kernel(w, u, hz, du, dld, stripes=2, rolled=True, dtype=torch.float32)
     with pytest.raises(ValueError, match="stripes"):
-        bfb.ilv_bwd_kernel(w, u[..., :254], hz, du[..., :254], dld, stripes=4)
+        bfb.ilv_bwd_kernel(w, u[..., :254], hz, du[..., :254], dld, stripes=4,
+                           dtype=torch.float32)
     with pytest.raises(ValueError, match="built for wx"):
         bfb.probe_bwd_kernel({**w, "wx": w["wx"][:, :64]}, u, hz, du, dld, **kw)
     with pytest.raises(ValueError, match="CUDA tensor"):
@@ -1118,19 +1132,34 @@ def test_probe_kernel_conditions(cuda):
     assert not any(bfb.launches.values())
 
 
+def test_probe_smem_mirror_matches_the_library(cuda):
+    """bench_fused_bwd.smem_bytes (Python) equals the library's
+    dpfx_probe_bwd_smem_bytes for every built form, and at n_hidden-1 = 2."""
+    from dpfx_torch.tools import bench_fused_bwd as bfb
+
+    forms = [(dt, t, 1) for dt in bfb.BUILT for (t, _, _) in bfb.BUILT[dt]]
+    forms += [(dt, bfb.ILV_TILE[dt], s) for dt in bfb.ILV_BUILT for (s, _) in bfb.ILV_BUILT[dt]]
+    for dt, tile, stripes in forms:
+        for nh1 in (1, 2):
+            lib = bfb._lib().dpfx_probe_bwd_smem_bytes(128, nh1, int(dt == torch.bfloat16), tile,
+                                                        stripes)
+            assert bfb.smem_bytes(128, nh1, dt, tile, stripes) == lib, (dt, tile, stripes, nh1)
+
+
+@pytest.mark.parametrize("groups", [1, 16])
 @pytest.mark.parametrize("mode", ["A", "B", "C"])
-def test_dual_issue_kernel_matches_plain(cuda, mode):
-    """The dual-issue kernel against dual_issue_plain: v within 1e-6 (expf
-    on both sides, a contracting chain); x (bf16 products, f32 sums in other
-    orders, one bf16 ulp moved now and then and carried on) every entry
-    within 2% of the largest, 99% within 0.4%; bit-identical from run to
-    run."""
+def test_dual_issue_kernel_matches_plain(cuda, mode, groups):
+    """The dual-issue kernel against dual_issue_plain at G = 1 and 16: v
+    within 1e-6 (expf on both sides, a contracting chain); x (bf16 products,
+    f32 sums in other orders, one bf16 ulp moved now and then and carried
+    on) every entry within 2% of the largest, 99% within 0.4%;
+    bit-identical from run to run."""
     from dpfx_torch.tools import probe_dual_issue as pdi
 
     g = torch.Generator(device=cuda).manual_seed(4)
     w = (0.05 * torch.randn((3, 128, 128), generator=g, device=cuda)).to(torch.bfloat16)
-    x = torch.randn((2, 128, 256), generator=g, device=cuda)
-    v = torch.randn((2, 8, 256), generator=g, device=cuda)
+    x = torch.randn((groups, 128, 256), generator=g, device=cuda)
+    v = torch.randn((groups, 8, 256), generator=g, device=cuda)
     mxu, vpu = pdi.MODES[mode]
     pdi.reset_launch_counts()
     ox, ov = pdi.dual_issue_kernel(w, x, v, do_mxu=mxu, do_vpu=vpu)
