@@ -60,17 +60,26 @@ script exits non-zero without a result line):
      just after; then generate.main and make_sampler(64, 2048) again under
      DPFX_SAMPLE_FUSED_LATENT=1 (the fused latent inverse), counts zeroed
      and read around them, and the two samplers timed in turns;
-  3b. the training path at full width: dpfx_torch.train's CLI for 30 steps of
-     B=64 x N=2048 (data.synthetic_size cut to 512 clouds to bound host data
-     generation), launch counts zeroed just before and read just after; every
-     logged loss and grad norm finite, no step skipped, the params moved, and
-     the saved checkpoint sampled by dpfx_torch.generate; then the train
-     step's time (CUDA events, batches on the card); the CLI again for 10
-     steps with train.fused_latent_flow=true on the same schedule (the same
-     checks, the latent kernels launched, its loss windows held to the
-     first run's); the train step with the fused latent flow off and on,
-     timed in turns; and one fused step, with and without the fused latent
-     flow, against the module path on the same batch and noise;
+  3b. the training path at full width: dpfx_torch.train's CLI on the
+     flagship YAML as written (steps_per_call 20, device_resident) for 30
+     steps of B=64 x N=2048 (data.synthetic_size cut to 512 clouds, a 25 MB
+     resident split): one call of 20 replays of the captured step and a
+     tail of 10, launch counts zeroed just before and read just after (the
+     capture's eager warm-up steps plus one step's launches per replay);
+     every logged loss and grad norm finite, no step skipped, the params
+     moved, and the saved checkpoint sampled by dpfx_torch.generate; then
+     the eager train step's time (CUDA events, batches on the card); the
+     CLI again for 10 steps with train.fused_latent_flow=true on the same
+     schedule and draws (one tail call; the same checks, the latent
+     kernels launched, its loss windows held to the first run's); with the
+     latent flow through the module and fused, on supplied noise: 20
+     replays against 20 eager steps and a resident call against eager
+     steps on the batches its draw chose, bit for bit (params, moments,
+     count, step), and a replay on a batch holding an inf (skipped), then
+     a good one; the eager, replayed and resident steps with the latent
+     flow off and on, timed in turns (calls of 20); and one fused step,
+     with and without the fused latent flow, against the module path on
+     the same batch and noise;
   3c. the evaluation paths at full width on phase 3b's checkpoint:
      dpfx_torch.evaluate's CLI for the generation suite
      (flagship_quality_v3_aug_100k.yaml) and AE reconstruction
@@ -158,9 +167,10 @@ script exits non-zero without a result line):
      of each launch, and fast and exact pairwise timed in turns; and the
      rows of phases 3d, 3e and 3f (24 rows in all);
   5. torch.profiler breakdowns of make_sampler(64, 2048) (plain and fused
-     latent inverse), of 5 train steps (fused latent flow off and on), and
+     latent inverse), of 5 eager train steps and (5b) of one replayed and
+     one resident call of 20 steps (fused latent flow off and on), and
      (5c) of one generation suite at S=128: device-busy time, idle share,
-     kernels per call and the kernels that take the time;
+     kernels per call or step and the kernels that take the time;
   6. the card line again, then the last line: {"ok": true, "device": {...}}.
 It needs no network and starts no process that outlives it (nvcc and
 nvidia-smi are waited for).
@@ -1812,6 +1822,123 @@ def probe_tools_path(sp, dev, card):
     return rows
 
 
+def train_cli_run(argv):
+    """``python -m dpfx_torch.train``'s main in this process, its model
+    initialised to seeded random weights off the identity (a check on
+    identity couplings passes whatever the math), each call of its loop
+    recorded. Returns (exit code, what it printed, [(steps, per-step
+    losses)] a call, the initial weights)."""
+    import contextlib
+    import io
+
+    from dpfx_torch.compat import randomize_
+    from dpfx_torch.train import __main__ as train_cli
+    from dpfx_torch.train import trainer as tm
+
+    init_weights, calls = {}, []
+    flax_init, record = tm.init_params_, tm._Cadence.record
+
+    def init_then_randomize(m, seed):
+        randomize_(flax_init(m, seed), seed, 0.02)
+        init_weights.update({k: v.detach().clone() for k, v in m.state_dict().items()})
+        return m
+
+    def recording(self, took, metrics, points_per_step):
+        calls.append((took, metrics["loss"].reshape(-1).clone()))
+        return record(self, took, metrics, points_per_step)
+
+    out = io.StringIO()
+    tm.init_params_, tm._Cadence.record = init_then_randomize, recording
+    try:
+        with contextlib.redirect_stdout(out):
+            rc = train_cli.main(argv)
+    finally:
+        tm.init_params_, tm._Cadence.record = flax_init, record
+        print(out.getvalue(), end="")
+    return rc, out.getvalue(), [(k, v.tolist()) for k, v in calls], init_weights
+
+
+def same_state(a, b) -> bool:
+    """Two train states equal bit for bit: params, moments, count, step."""
+    import torch
+
+    return all(torch.equal(u, v) for u, v in (
+        (a.params, b.params), (a.opt_state.mu, b.opt_state.mu), (a.opt_state.nu, b.opt_state.nu),
+        (a.opt_state.count, b.opt_state.count), (a.step, b.step)))
+
+
+def captured_step_checks(c, dev, clouds, x20, name: str):
+    """The captured train step at full width with the latent flow as ``c``
+    sets it: 20 replays against 20 eager steps on the same batches and
+    supplied noise, a resident call of 20 against eager steps on the
+    batches and noise its draw chose (both bit for bit: params, moments,
+    count, step), and a replay on a batch holding an inf (skipped), then a
+    good one (finite). Returns ((multi-step, its state), (resident call, its
+    state)) for the timings."""
+    import torch
+
+    from dpfx_torch.compat import randomize_
+    from dpfx_torch.models import DPF
+    from dpfx_torch.train import trainer as tm
+
+    def fresh():
+        m = randomize_(tm.init_params_(DPF(c), 1), 1, 0.02).to(dev)
+        tx = tm.make_optimizer(c.train)
+        return m, tx, tm.init_state(m, tx)
+
+    k = x20.shape[0]
+    g = torch.Generator(device=dev).manual_seed(12)
+    eps = torch.randn((k, x20.shape[1], c.model.dz), generator=g, device=dev)
+    xn = torch.randn(x20.shape, generator=g, device=dev)
+    m, tx, eager = fresh()
+    step = tm.make_train_step(m, tx, c)
+    for i in range(k):
+        eager, _ = step(eager, {"x": x20[i], "eps": eps[i], "xnoise": xn[i]})
+    m2, tx2, rep = fresh()
+    multi = tm.make_multi_step(m2, tx2, c)
+    rep, mr = multi(rep, {"x": x20, "eps": eps, "xnoise": xn})
+    torch.cuda.synchronize()
+    check(same_state(rep, eager) and rep.host_step == eager.host_step == k,
+          f"{k} replays equal {k} eager steps bit for bit ({name})")
+    del m, eager, step
+
+    s, p = clouds.shape[:2]
+    m3, tx3, res = fresh()
+    resident = tm.make_resident_multi_step(m3, tx3, c)
+    res, _ = resident(res, clouds, k)
+    m4, tx4, eager = fresh()
+    ci, pi, reps, rxn = tm.resident_draw(c, 0, k, s, p, dev)
+    xr = tm.gather_resident(clouds, ci, pi)
+    step = tm.make_train_step(m4, tx4, c)
+    for i in range(k):
+        eager, _ = step(eager, {"x": xr[i], "eps": reps[i], "xnoise": rxn[i]})
+    torch.cuda.synchronize()
+    check(same_state(res, eager), f"a resident call equals eager steps on its draws ({name})")
+    del m4, eager, step, xr
+
+    bad = x20[:1].clone()
+    bad[0, 1, 5, 0] = float("inf")
+    held = lambda st: (st.params, st.opt_state.mu, st.opt_state.nu, st.opt_state.count)  # noqa: E731
+    before = [t.clone() for t in held(rep)]
+    at = int(rep.step)
+    rep, mb = multi(rep, {"x": bad, "eps": eps[:1], "xnoise": xn[:1]})
+    torch.cuda.synchronize()
+    kept = all(torch.equal(a, b) for a, b in zip(held(rep), before))
+    check(float(mb["nonfinite_skipped"][0]) == 1.0 and kept and int(rep.step) == at + 1,
+          f"a replay on a batch holding an inf skips ({name})")
+    rep, mg = multi(rep, {"x": x20[1:2], "eps": eps[1:2], "xnoise": xn[1:2]})
+    check(float(mg["nonfinite_skipped"][0]) == 0.0 and bool(torch.isfinite(mg["loss"]).all())
+          and int(rep.opt_state.count) == int(before[3]) + 1,
+          f"the replay after the skipped one is finite and counts ({name})")
+    print(f"captured step, {name}, 64 x 2048: {k} replays equal {k} eager steps bit for bit "
+          f"(params, mu, nu, count, step; losses {float(mr['loss'][0]):.2f} .. "
+          f"{float(mr['loss'][-1]):.2f}); a resident call of {k} equals eager steps on the "
+          f"batches and noise its draw chose, bit for bit; a replay on a batch holding an inf "
+          f"skipped (params, moments, count kept; step {at} -> {at + 1}), the next replay "
+          f"finite (loss {float(mg['loss'][0]):.2f})")
+    return (multi, rep), (resident, res)
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -2191,48 +2318,44 @@ def main() -> int:
           f"z kernel vs module max_abs {float((z_ker - z_mod).abs().max()):.3e} (bf16 rounds "
           f"at other places), sample std {float(lat_clouds.std()):.3f}")
 
-    # ---- 3b. the training path at full width (dpfx_torch.train's CLI)
+    # ---- 3b. the training path at full width (dpfx_torch.train's CLI, the
+    # YAML's steps_per_call=20 and device_resident as written)
     import copy
     import shutil
 
-    from dpfx_torch.data import build_dataset, iterate_batches
-    from dpfx_torch.train import __main__ as train_cli
+    from dpfx_torch.data import build_dataset, iterate_batches, preload_clouds
     from dpfx_torch.train import trainer as trainer_mod
 
     ckpt_dir = WORK / "train"
     shutil.rmtree(ckpt_dir, ignore_errors=True)
-    init_weights: dict = {}
     flax_init = trainer_mod.init_params_
-
-    def init_then_randomize(m, seed):
-        # seeded random weights with every coupling off the identity, as in
-        # phase 2: a check on identity couplings passes whatever the math
-        randomize_(flax_init(m, seed), seed, 0.02)
-        init_weights.update({kk: v.detach().clone() for kk, v in m.state_dict().items()})
-        return m
-
-    trainer_mod.init_params_ = init_then_randomize
     for mod in (ft, fe):
         mod.reset_launch_counts()
     t0 = time.perf_counter()
-    try:
-        rc = train_cli.main([str(CONFIG), f"train.steps={TRAIN_STEPS}", "train.log_every=5",
-                             f"train.ckpt_every={TRAIN_STEPS}", f"train.ckpt_dir={ckpt_dir}",
-                             "data.synthetic_size=512"])
-    finally:
-        trainer_mod.init_params_ = flax_init
+    rc, text, calls, init_weights = train_cli_run(
+        [str(CONFIG), f"train.steps={TRAIN_STEPS}", "train.log_every=5",
+         f"train.ckpt_every={TRAIN_STEPS}", f"train.ckpt_dir={ckpt_dir}",
+         "data.synthetic_size=512"])
     torch.cuda.synchronize()
     train_wall = time.perf_counter() - t0
     train_launches = {**ft.launches, **fe.launches}
     run_dir = ckpt_dir / cfg.name
     records = [json.loads(line) for line in (run_dir / "metrics.jsonl").read_text().splitlines()]
-    check(rc == 0 and [r["step"] for r in records] == list(range(5, TRAIN_STEPS + 1, 5)),
-          f"train records {records}")
+    # one call of 20 steps and a tail of 10; a call logs where it crosses a
+    # multiple of log_every=5, and the run's last step checkpoints
+    check(rc == 0 and [kk for kk, _ in calls] == [20, TRAIN_STEPS - 20]
+          and [r["step"] for r in records] == [20, TRAIN_STEPS], f"train calls {calls}, records {records}")
+    check("ignored" not in text and "device-resident split: 512 clouds x 4096 stored pts" in text
+          and "steps_per_call=20" in text, "the CLI trains the YAML as written")
     check(all(np.isfinite(r["loss"]) and np.isfinite(r["grad_norm"]) for r in records),
           "every logged loss and grad norm is finite")
     check(all(r["nonfinite_skipped"] == 0 for r in records), "no step was skipped")
+    # the launch counts stay true under replay: the capture's warm-up steps
+    # (eager) and one step's launches per replay
     for kname, count in train_launches.items():
-        check(count > 0, f"kernel {kname} was not launched on the training path")
+        check(count == trainer_mod._WARMUP + TRAIN_STEPS,
+              f"kernel {kname}: {count} launches for {trainer_mod._WARMUP} warm-up steps and "
+              f"{TRAIN_STEPS} replays")
     trained_pt = run_dir / f"params_{TRAIN_STEPS:08d}.pt"
     trained = torch.load(trained_pt, map_location="cpu", weights_only=True)
     moved = sum(not torch.equal(trained[kk], v) for kk, v in init_weights.items())
@@ -2243,61 +2366,65 @@ def main() -> int:
     tclouds = np.load(trained_samples)
     check(rc == 0 and tclouds.shape == (16, 2048, 3) and bool(np.isfinite(tclouds).all()),
           f"clouds sampled from the trained checkpoint {tclouds.shape}")
-    print(f"training path: {TRAIN_STEPS} steps of 64 x 2048 in {train_wall:.1f} s wall "
-          f"(build, data and warm-up included); launches {json.dumps(train_launches)}; loss "
-          + ", ".join(f"{r['loss']:.1f}" for r in records) + "; grad norm "
+    step_losses = [v for _, ls in calls for v in ls]
+    print(f"training path: {TRAIN_STEPS} steps of 64 x 2048 (resident split, calls of "
+          f"{[kk for kk, _ in calls]} steps, replays of the captured step) in {train_wall:.1f} s "
+          f"wall (build, data, capture and warm-up included); launches {json.dumps(train_launches)}; "
+          "loss " + ", ".join(f"{r['loss']:.1f}" for r in records) + "; grad norm "
           + ", ".join(f"{r['grad_norm']:.1f}" for r in records) + "; points/s "
           + ", ".join(f"{r['points_per_sec']:,.0f}" for r in records)
           + f"; {moved} tensors moved; trained checkpoint sampled, std {float(tclouds.std()):.3f}")
 
     # the training CLI with the fused latent flow (train.fused_latent_flow=true)
-    # for 10 steps on the 30-step run's schedule (lr_decay_steps=30: warmup
-    # over 29 steps; with steps=10 alone it would reach the peak lr at step
-    # 9), so its loss windows are held to that run's first two
+    # for 10 steps, a tail call alone, on the 30-step run's schedule
+    # (lr_decay_steps=30: warmup over 29 steps; with steps=10 alone it would
+    # reach the peak lr at step 9) and its draws (keyed by the step), so its
+    # loss windows of 5 steps are held to that run's first two
     lat_dir = WORK / "train_fused_latent"
     shutil.rmtree(lat_dir, ignore_errors=True)
-    init_weights.clear()
-    trainer_mod.init_params_ = init_then_randomize
     for mod in (ft, fe, fl):
         mod.reset_launch_counts()
     t0 = time.perf_counter()
-    try:
-        rc = train_cli.main([str(CONFIG), "train.steps=10", "train.log_every=5",
-                             f"train.lr_decay_steps={TRAIN_STEPS}", "train.ckpt_every=10",
-                             f"train.ckpt_dir={lat_dir}", "data.synthetic_size=512",
-                             "train.fused_latent_flow=true"])
-    finally:
-        trainer_mod.init_params_ = flax_init
+    rc, text, lcalls, init_weights = train_cli_run(
+        [str(CONFIG), "train.steps=10", "train.log_every=5", f"train.lr_decay_steps={TRAIN_STEPS}",
+         "train.ckpt_every=10", f"train.ckpt_dir={lat_dir}", "data.synthetic_size=512",
+         "train.fused_latent_flow=true"])
     torch.cuda.synchronize()
     lat_wall = time.perf_counter() - t0
     lat_train_launches = {**ft.launches, **fe.launches, **fl.launches}
     lat_run = lat_dir / cfg.name
     lrecs = [json.loads(line) for line in (lat_run / "metrics.jsonl").read_text().splitlines()]
-    check(rc == 0 and [r["step"] for r in lrecs] == [5, 10], f"fused-latent train records {lrecs}")
+    check(rc == 0 and [kk for kk, _ in lcalls] == [10] and [r["step"] for r in lrecs] == [10],
+          f"fused-latent train calls {lcalls}, records {lrecs}")
+    check("ignored" not in text, "the CLI trains the YAML as written (fused latent flow)")
     check(all(np.isfinite(r["loss"]) and np.isfinite(r["grad_norm"]) for r in lrecs),
           "every logged loss and grad norm is finite (fused latent flow)")
     check(all(r["nonfinite_skipped"] == 0 for r in lrecs), "no step was skipped (fused latent flow)")
     for kname in ("fused_train_fwd", "fused_train_bwd", "fused_encoder_fwd", "fused_encoder_bwd",
                   "fused_latent_fwd", "fused_latent_bwd"):
-        check(lat_train_launches[kname] > 0,
-              f"kernel {kname} was not launched on the fused-latent training path")
+        check(lat_train_launches[kname] == trainer_mod._WARMUP + 10,
+              f"kernel {kname}: {lat_train_launches[kname]} launches on the fused-latent "
+              "training path")
     lat_trained = torch.load(lat_run / "params_00000010.pt", map_location="cpu", weights_only=True)
     lat_moved = sum(not torch.equal(lat_trained[kk], v) for kk, v in init_weights.items())
     check(lat_moved == len(init_weights),
           f"{lat_moved} of {len(init_weights)} parameters moved (fused latent flow)")
-    drift = max(abs(a["loss"] - r["loss"]) / abs(r["loss"]) for a, r in zip(lrecs, records))
-    print(f"training path with the fused latent flow: 10 steps of 64 x 2048 in {lat_wall:.1f} s "
-          f"wall; launches {json.dumps(lat_train_launches)}; loss "
+    lat_losses = [v for _, ls in lcalls for v in ls]
+    windows = lambda ls: [sum(ls[i:i + 5]) / 5 for i in (0, 5)]  # noqa: E731
+    drift = max(abs(a - r) / abs(r) for a, r in zip(windows(lat_losses), windows(step_losses)))
+    print(f"training path with the fused latent flow: 10 steps of 64 x 2048 (one call) in "
+          f"{lat_wall:.1f} s wall; launches {json.dumps(lat_train_launches)}; loss "
           + ", ".join(f"{r['loss']:.1f}" for r in lrecs) + "; grad norm "
           + ", ".join(f"{r['grad_norm']:.1f}" for r in lrecs) + f"; {lat_moved} tensors moved; "
-          f"loss windows against the module-latent run's: rel {drift:.2e}")
+          f"loss windows of 5 steps against the module-latent run's: rel {drift:.2e}")
     check(drift <= TOL_TRAIN_DRIFT, f"fused-latent training tracks the module path ({drift})")
 
     # the train step alone, batches already on the card
     dcfg = copy.deepcopy(cfg.data)
     dcfg.synthetic_size = 512
+    train_ds = build_dataset(dcfg, "train")
     batches = [{"x": torch.from_numpy(bt["x"]).to(dev)} for bt, _ in
-               zip(iterate_batches(build_dataset(dcfg, "train"), 64, 2048, seed=5), range(4))]
+               zip(iterate_batches(train_ds, 64, 2048, seed=5), range(4))]
     tmodel = randomize_(flax_init(DPF(cfg), 1), 1, 0.02).to(dev)
     ref_model = copy.deepcopy(tmodel)
     tx = trainer_mod.make_optimizer(cfg.train)
@@ -2316,10 +2443,21 @@ def main() -> int:
     print(f"train step at 64 x 2048 (fused point flow + fused encoder, bf16): {step_ms:.3f} "
           f"ms/step, {64 * 2048 / step_ms * 1e3:,.0f} points/s ({card})")
 
-    # the same step with the fused latent flow: off and on in turns (off,
-    # on, on, off), 10 steps each after 3 warm-up steps of each
+    # the captured step at full width, the latent flow through the module and
+    # fused: replays against eager steps, a resident call against eager steps
+    # on its draws (bit for bit, on supplied noise), the skip inside a replay
     lcfg = copy.deepcopy(cfg)
     lcfg.train.fused_latent_flow = True
+    x20 = torch.stack([batches[i % 4]["x"] for i in range(20)])
+    clouds_dev = torch.from_numpy(preload_clouds(train_ds)).to(dev)
+    timers = {}
+    for key, c, name in (("off", cfg, "module latent flow"), ("on", lcfg, "fused latent flow")):
+        (multi, rstate), (resident, sstate) = captured_step_checks(c, dev, clouds_dev, x20, name)
+        timers[(key, "replayed")] = [lambda st, f=multi: f(st, {"x": x20}), rstate]
+        timers[(key, "resident")] = [lambda st, f=resident: f(st, clouds_dev, 20), sstate]
+
+    # the eager, replayed and resident step with the latent flow off and on,
+    # 20 steps a turn, in turns (each kind off then on, then back)
     lmodel = copy.deepcopy(ref_model)
     ltx = trainer_mod.make_optimizer(lcfg.train)
     lstate = trainer_mod.init_state(lmodel, ltx)
@@ -2328,22 +2466,39 @@ def main() -> int:
         lstate, _ = lat_step(lstate, batches[i % 4])
     runs = {"off": [train_step, tstate], "on": [lat_step, lstate]}
 
-    def timed_steps(key):
-        fn, st = runs[key]
+    def eager_call(key):
+        def call(st):
+            for i in range(20):
+                st, m = runs[key][0](st, batches[i % 4])
+            return st, m
+        return call
+
+    for key in ("off", "on"):
+        timers[(key, "eager")] = [eager_call(key), runs[key][1]]
+
+    def timed_call(key):
+        call, st = timers[key]
+        torch.cuda.synchronize()
         start.record()
-        for i in range(10):
-            st, _ = fn(st, batches[i % 4])
+        timers[key][1], _ = call(st)
         end.record()
         torch.cuda.synchronize()
-        runs[key][1] = st
-        return start.elapsed_time(end) / 10
+        return start.elapsed_time(end) / 20
 
-    ab = [(key, timed_steps(key)) for key in ("off", "on", "on", "off")]
+    order = [(m_, kind) for m_ in ("off", "on") for kind in ("eager", "replayed", "resident")]
+    turns = [(key, timed_call(key)) for key in order + order[::-1]]
+    train_ms = {key: sum(t for k2, t in turns if k2 == key) / 2 for key in order}
+    runs["off"][1], runs["on"][1] = timers[("off", "eager")][1], timers[("on", "eager")][1]
     tstate, lstate = runs["off"][1], runs["on"][1]
-    off_ms = sum(t for key, t in ab if key == "off") / 2
-    on_ms = sum(t for key, t in ab if key == "on") / 2
-    print(f"train step at 64 x 2048, fused latent flow off {off_ms:.3f} ms/step, on {on_ms:.3f} "
-          f"ms/step (turns {', '.join(f'{key} {t:.3f}' for key, t in ab)}; {card})")
+    off_ms, on_ms = train_ms[("off", "eager")], train_ms[("on", "eager")]
+    for m_, name in (("off", "module latent flow"), ("on", "fused latent flow")):
+        print(f"train step at 64 x 2048, {name}: eager {train_ms[(m_, 'eager')]:.3f} ms/step, "
+              f"replayed {train_ms[(m_, 'replayed')]:.3f}, resident {train_ms[(m_, 'resident')]:.3f} "
+              f"(calls of 20); points/s eager {64 * 2048 / train_ms[(m_, 'eager')] * 1e3:,.0f}, "
+              f"replayed {64 * 2048 / train_ms[(m_, 'replayed')] * 1e3:,.0f}, resident "
+              f"{64 * 2048 / train_ms[(m_, 'resident')] * 1e3:,.0f} ({card})")
+    print("train step turns (ms/step): " + ", ".join(f"{k1} {k2} {t:.3f}" for (k1, k2), t in turns)
+          + f" ({card})")
 
     # one fused step (latent flow fused or not) against the module path:
     # same weights, batch and noise
@@ -2673,6 +2828,29 @@ def main() -> int:
               f"{unprofiled:.3f} ms/step; {sum(e.count for e in dev_events) // 5} kernels/step; "
               "top: " + "; ".join(f"{e.key[:70]} {e.self_device_time_total / 5e3:.3f} ms "
                                   f"x{e.count // 5}" for e in top))
+
+    # one replayed call and one resident call of 20 steps each (replays of
+    # the captured step), the latent flow off and on
+    for key, name in (("off", "module latent flow"), ("on", "fused latent flow")):
+        for kind in ("replayed", "resident"):
+            def one_call():
+                call, st = timers[(key, kind)]
+                timers[(key, kind)][1], _ = call(st)
+
+            wall_us, busy_us, dev_events = profiled(one_call, 1)
+            seen = lambda name: sum(name in e.key for e in dev_events)  # noqa: E731
+            check(seen("fwd_kernel_mma") and seen("bwd_kernel_mma") and seen("walk_kernel")
+                  and (key == "off" or seen("cluster_bwd_kernel")),
+                  f"the profiler saw the training kernels in a {kind} call ({name})")
+            top = sorted(dev_events, key=lambda e: -e.self_device_time_total)[:6]
+            unprofiled = train_ms[(key, kind)]
+            print(f"profile {kind} call of 20 steps, {name}: wall {wall_us / 20e3:.3f} ms/step, "
+                  f"device busy {busy_us / 20e3:.3f} ms/step, idle share "
+                  f"{1 - busy_us / wall_us:.3f} under the profiler, "
+                  f"{1 - busy_us / 20e3 / unprofiled:.3f} against the unprofiled {unprofiled:.3f} "
+                  f"ms/step; {sum(e.count for e in dev_events) / 20:.1f} kernels/step; top: "
+                  + "; ".join(f"{e.key[:60]} {e.self_device_time_total / 20e3:.3f} ms "
+                              f"x{e.count / 20:g}" for e in top) + f" ({card})")
 
     # ---- 5c. where the generation suite's time goes (one call at S=128)
     from dpfx_torch.metrics import compute_all_metrics

@@ -1,7 +1,8 @@
-"""Datasets and host-side batching. Only the synthetic dataset is ported;
-ShapeNet (h5, npy directory) and the SVR datasets are ROADMAP Queue 1
-items."""
+"""Datasets, host-side batching and the device-resident preload. Only the
+synthetic dataset is ported; ShapeNet (h5, npy directory) and the SVR
+datasets are ROADMAP Queue 1 items."""
 
+from dpfx_torch.data.device import preload_clouds
 from dpfx_torch.data.loader import (eval_subset, iterate_batches, load_all, load_all_labels,
                                     prefetch_batches, sample_cloud, stratified_indices)
 from dpfx_torch.data.synthetic import SyntheticDataset
@@ -19,4 +20,5 @@ def build_dataset(cfg, split: str):
 
 
 __all__ = ["SyntheticDataset", "build_dataset", "eval_subset", "iterate_batches", "load_all",
-           "load_all_labels", "prefetch_batches", "sample_cloud", "stratified_indices"]
+           "load_all_labels", "prefetch_batches", "preload_clouds", "sample_cloud",
+           "stratified_indices"]

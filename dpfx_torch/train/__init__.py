@@ -1,20 +1,27 @@
-"""Training: the ELBO loss, the optimizer, the train step and the loop.
+"""Training: the ELBO loss, the optimizer, the train step, K steps per call
+on a captured step, the device-resident draw and the loop.
 ``python -m dpfx_torch.train CONFIG`` runs it from a YAML config."""
 
 from dpfx_torch.train.loss import elbo_loss
 from dpfx_torch.train.trainer import (
+    MultiStep,
     OptState,
     Optimizer,
     TrainDivergedError,
     Trainer,
     TrainState,
+    gather_resident,
     init_params_,
     init_state,
+    make_multi_step,
     make_optimizer,
+    make_resident_multi_step,
     make_schedule,
     make_train_step,
+    resident_draw,
 )
 
-__all__ = ["OptState", "Optimizer", "TrainDivergedError", "Trainer", "TrainState",
-           "elbo_loss", "init_params_", "init_state", "make_optimizer", "make_schedule",
-           "make_train_step"]
+__all__ = ["MultiStep", "OptState", "Optimizer", "TrainDivergedError", "Trainer", "TrainState",
+           "elbo_loss", "gather_resident", "init_params_", "init_state", "make_multi_step",
+           "make_optimizer", "make_resident_multi_step", "make_schedule", "make_train_step",
+           "resident_draw"]

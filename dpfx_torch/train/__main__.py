@@ -4,11 +4,14 @@ Usage:
     python -m dpfx_torch.train configs/<exp>.yaml [key=value ...] [--device cuda|cpu]
 
 The device defaults to cuda and the run fails without one; ``--device cpu``
-runs the plain path. Params-only checkpoints (``params_<step>.pt``) and
-``metrics.jsonl`` go to ``train.ckpt_dir/name``; sample a checkpoint with
-``python -m dpfx_torch.generate CONFIG --weights <ckpt>.pt``. Not ported
-yet: resume, evaluation during training, and the datasets other than
-``synthetic``.
+runs the plain path. ``train.steps_per_call`` steps run per call (on the
+card, replays of one step captured in a CUDA graph); with
+``data.device_resident`` the split is loaded onto the device once and each
+step's batch is drawn and gathered there. Params-only checkpoints
+(``params_<step>.pt``) and ``metrics.jsonl`` go to ``train.ckpt_dir/name``;
+sample a checkpoint with ``python -m dpfx_torch.generate CONFIG --weights
+<ckpt>.pt``. Not ported yet: resume, evaluation during training, the
+datasets other than ``synthetic``, and more than one GPU.
 """
 
 from __future__ import annotations
@@ -29,7 +32,7 @@ def main(argv=None) -> int:
     import torch
 
     from dpfx_torch.config import load_config
-    from dpfx_torch.data import build_dataset, iterate_batches, prefetch_batches
+    from dpfx_torch.data import build_dataset, iterate_batches, prefetch_batches, preload_clouds
     from dpfx_torch.train import Trainer
 
     # float32 products stay IEEE float32 on the card (the plain paths' contract)
@@ -38,11 +41,12 @@ def main(argv=None) -> int:
     cfg = load_config(args.config, strict=args.strict_config, overrides=args.overrides)
     if cfg.experiment == "svr":
         raise NotImplementedError("SVR training is not ported yet (ROADMAP Queue 1 #9)")
-    ignored = [k for k, on in (("data.device_resident", cfg.data.device_resident),
-                               ("train.steps_per_call", cfg.train.steps_per_call > 1)) if on]
-    if ignored:
-        print(f"[dpfx_torch] {', '.join(ignored)}: TPU-build knobs, accepted and ignored "
-              "(host batches, one step per call)")
+    if cfg.parallel.data_axis > 1 or (cfg.data.device_resident
+                                      and cfg.parallel.resident_sharding != "replicated"):
+        raise NotImplementedError(
+            "multi-GPU data parallel (parallel.data_axis > 1, parallel.resident_sharding="
+            f"{cfg.parallel.resident_sharding!r}) is not ported yet (ROADMAP Queue 1 #8): the "
+            "port trains on one device")
     train_ds = build_dataset(cfg.data, "train")
     if cfg.train.epochs > 0:
         cfg.train.steps = cfg.train.epochs * max(len(train_ds) // cfg.train.batch_size, 1)
@@ -50,12 +54,20 @@ def main(argv=None) -> int:
     trainer = Trainer(cfg, device=args.device)
     print(f"[dpfx_torch] experiment={cfg.experiment} name={cfg.name} device={trainer.device} "
           f"train={len(train_ds)} clouds; N={cfg.data.n_points} batch={cfg.train.batch_size}")
-    batches = iterate_batches(train_ds, cfg.train.batch_size, cfg.data.n_points,
-                              seed=cfg.train.seed)
-    if cfg.data.num_workers > 0:
-        batches = prefetch_batches(batches, depth=cfg.data.num_workers)
-    trainer.fit(batches)
-    print(f"[dpfx_torch] done at step {trainer.state.step}; checkpoints in {trainer.directory}")
+    if cfg.data.device_resident:
+        clouds = preload_clouds(train_ds)
+        print(f"[dpfx_torch] device-resident split: {clouds.shape[0]} clouds x {clouds.shape[1]} "
+              f"stored pts ({clouds.nbytes / 1e6:.0f} MB -> {trainer.device}); "
+              f"steps_per_call={trainer.steps_per_call}")
+        trainer.fit_resident(clouds)
+    else:
+        batches = iterate_batches(train_ds, cfg.train.batch_size, cfg.data.n_points,
+                                  seed=cfg.train.seed)
+        if cfg.data.num_workers > 0:
+            batches = prefetch_batches(batches, depth=cfg.data.num_workers)
+        trainer.fit(batches)
+    print(f"[dpfx_torch] done at step {trainer.state.host_step}; checkpoints in "
+          f"{trainer.directory}")
     return 0
 
 

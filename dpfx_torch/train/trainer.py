@@ -1,6 +1,9 @@
 """Training (counterpart of ``dpfx/train/trainer.py``): the learning-rate
 schedules, clip-by-global-norm then Adam or AdamW written out over one flat
-parameter vector, the train step, and ``Trainer.fit``.
+parameter vector, the train step, K steps per call
+(``train.steps_per_call``: replays of one step captured in a CUDA graph),
+the device-resident split's draw (``data.device_resident``), and
+``Trainer.fit`` / ``Trainer.fit_resident``.
 
 The optimizer follows optax exactly: ``optax.chain(clip_by_global_norm,
 adam|adamw)`` with the schedule read at the optimizer's own update count,
@@ -10,10 +13,16 @@ flat float32 buffer (each ``nn.Parameter`` is a view of it), as
 ``train.flat_optimizer`` arranges in the JAX package: the update is a
 handful of kernels, not a few per tensor.
 
-A step whose raw gradient norm is not finite is skipped: the parameters,
-the Adam moments and the optimizer's count keep their values, while
-``TrainState.step`` (which drives the noise streams and the jitter
-anneal) advances, as in the JAX package.
+The step makes no host decision, so that a CUDA graph can hold it. The
+optimizer's count and the step counter are device tensors; the learning
+rate and the jitter sigma are computed from them on the device, in float32
+as optax computes them. A step whose raw gradient norm is not finite is
+skipped as in the JAX package: the update is computed and then not taken
+(``torch.where`` keeps the old parameters and Adam moments, and the count
+advances by 0), while ``TrainState.step`` (which drives the noise streams
+and the jitter anneal) advances. The step updates the state's tensors in
+place, where the JAX package donates them; ``TrainState.host_step`` mirrors
+the step on the host for the noise keys and the loop's cadence.
 """
 
 from __future__ import annotations
@@ -22,7 +31,7 @@ import math
 import os
 import time
 from dataclasses import dataclass
-from typing import Callable, Dict, Iterator, Optional, Tuple
+from typing import Callable, Dict, Iterator, List, Optional, Tuple, Union
 
 import numpy as np
 import torch
@@ -36,7 +45,7 @@ from dpfx_torch.train.loss import elbo_loss
 from dpfx_torch.utils.writers import ScalarWriter
 
 Tensor = torch.Tensor
-Schedule = Callable[[int], float]
+Schedule = Callable[[Tensor], Tensor]
 
 
 class TrainDivergedError(RuntimeError):
@@ -45,30 +54,51 @@ class TrainDivergedError(RuntimeError):
 
 
 # ---------------------------------------------------------------- schedules
+# Computed as optax computes them: float32 throughout, from an integer count
+# tensor, so that a step reads no schedule value on the host.
+
+def _div(a: Tensor, d: float) -> Tensor:
+    """a / d rounded once: torch takes a division by a Python scalar on the
+    card as a product with its reciprocal, optax does not."""
+    return a / torch.full_like(a, float(d))
+
 
 def _linear(init: float, end: float, steps: int) -> Schedule:
-    def f(count: int) -> float:
-        frac = 1.0 - min(max(count, 0), steps) / steps
-        return (init - end) * frac + end
-    return f
+    """optax.polynomial_schedule with power 1."""
+    return lambda count: (init - end) * (1.0 - _div(count.clamp(0, steps).float(), steps)) + end
 
 
 def _cosine(init: float, decay_steps: int, alpha: float) -> Schedule:
-    def f(count: int) -> float:
-        c = min(count, decay_steps)
-        return init * ((1.0 - alpha) * 0.5 * (1.0 + math.cos(math.pi * c / decay_steps)) + alpha)
+    """optax.cosine_decay_schedule."""
+    def f(count):
+        c = count.float().clamp(max=float(decay_steps))
+        cos = 0.5 * (1.0 + torch.cos(_div(math.pi * c, decay_steps)))
+        return init * ((1.0 - alpha) * cos + alpha)
+    return f
+
+
+def _piecewise(lr: float, bounds) -> Schedule:
+    """optax.piecewise_constant_schedule (and, with no bounds, the constant)."""
+    def f(count):
+        v = count.new_full((), lr, dtype=torch.float32)
+        for b, s in bounds:
+            ind = torch.sign(b - count).clamp(min=0).float()
+            v = v * ind + (1 - ind) * s * v
+        return v
     return f
 
 
 def _join(first: Schedule, then: Schedule, boundary: int) -> Schedule:
-    return lambda count: first(count) if count < boundary else then(count - boundary)
+    """optax.join_schedules."""
+    return lambda count: torch.where(count < boundary, first(count), then(count - boundary))
 
 
 def make_schedule(tcfg) -> Schedule:
     """count -> learning rate, as ``dpfx.train.trainer.make_schedule``:
     ``lr_warmup_steps`` of linear ramp from 0 occupy the first part of the
     ``decay_steps`` horizon, and every schedule reaches its terminal value
-    at ``decay_steps``."""
+    at ``decay_steps``. An integer tensor count gives a float32 tensor on
+    its device; a Python int, a float."""
     decay_steps = tcfg.lr_decay_steps or tcfg.steps
     warmup = min(tcfg.lr_warmup_steps, max(decay_steps - 1, 0))
     span = decay_steps - warmup
@@ -76,28 +106,31 @@ def make_schedule(tcfg) -> Schedule:
     if tcfg.lr_schedule == "cosine":
         if warmup > 0:
             alpha = 0.0 if lr == 0 else lr * tcfg.lr_min_ratio / lr
-            return _join(_linear(0.0, lr, warmup), _cosine(lr, decay_steps - warmup, alpha),
-                         warmup)
-        return _cosine(lr, decay_steps, tcfg.lr_min_ratio)
-    if tcfg.lr_schedule == "constant":
-        sched: Schedule = lambda count: lr
-    elif tcfg.lr_schedule == "step":
-        # halve at each quarter of the post-warmup span (a dict, as in the
-        # JAX package: coinciding boundaries collapse into one)
-        bounds = sorted({span // 4 * (i + 1): 0.5 for i in range(3)}.items())
-        sched = lambda count: lr * math.prod(s for b, s in bounds if count >= b)
+            sched = _join(_linear(0.0, lr, warmup), _cosine(lr, decay_steps - warmup, alpha),
+                          warmup)
+        else:
+            sched = _cosine(lr, decay_steps, tcfg.lr_min_ratio)
     else:
-        raise ValueError(f"unknown lr_schedule {tcfg.lr_schedule!r}")
-    if warmup > 0:
-        sched = _join(_linear(0.0, lr, warmup), sched, warmup)
-    return sched
+        if tcfg.lr_schedule == "constant":
+            sched = _piecewise(lr, [])
+        elif tcfg.lr_schedule == "step":
+            # halve at each quarter of the post-warmup span (a dict, as in the
+            # JAX package: coinciding boundaries collapse into one)
+            sched = _piecewise(lr, sorted({span // 4 * (i + 1): 0.5 for i in range(3)}.items()))
+        else:
+            raise ValueError(f"unknown lr_schedule {tcfg.lr_schedule!r}")
+        if warmup > 0:
+            sched = _join(_linear(0.0, lr, warmup), sched, warmup)
+    return lambda count: (sched(count) if isinstance(count, Tensor)
+                          else float(sched(torch.tensor(count, dtype=torch.int32))))
 
 
 # ---------------------------------------------------------------- optimizer
 
 @dataclass
 class OptState:
-    count: int          # updates applied (the schedule's and the bias correction's count)
+    count: Tensor       # 0-d int32 on the device: updates applied (the schedule's and the
+    #                     bias corrections' count)
     mu: Tensor          # first moment, flat
     nu: Tensor          # second moment, flat
 
@@ -114,25 +147,37 @@ class Optimizer:
         self.weight_decay = tcfg.weight_decay
 
     def init(self, params: Tensor) -> OptState:
-        return OptState(0, torch.zeros_like(params), torch.zeros_like(params))
+        return OptState(torch.zeros((), dtype=torch.int32, device=params.device),
+                        torch.zeros_like(params), torch.zeros_like(params))
 
     @torch.no_grad()
-    def apply_(self, params: Tensor, grads: Tensor, gnorm: Tensor, state: OptState) -> OptState:
-        """One update of the flat ``params`` in place, from ``grads`` whose
-        global norm is ``gnorm``; the moments update in place."""
+    def apply_(self, params: Tensor, grads: Tensor, gnorm: Tensor, state: OptState,
+               good: Optional[Tensor] = None) -> OptState:
+        """One update of the flat ``params``, the moments and the count in
+        place, from ``grads`` whose global norm is ``gnorm``. Where the 0-d
+        bool ``good`` is false, each keeps its value: the update is computed
+        and then not taken, with no value read on the host."""
         g = grads
         if self.clip > 0:
             g = torch.where(gnorm < self.clip, g, g / gnorm * self.clip)
         count = state.count + 1
-        state.mu.mul_(self.b1).add_(g, alpha=1.0 - self.b1)
-        state.nu.mul_(self.b2).addcmul_(g, g, value=1.0 - self.b2)
-        mu_hat = state.mu / (1.0 - self.b1 ** count)
-        nu_hat = state.nu / (1.0 - self.b2 ** count)
+        mu = state.mu.mul(self.b1).add_(g, alpha=1.0 - self.b1)
+        nu = state.nu.mul(self.b2).addcmul_(g, g, value=1.0 - self.b2)
+        c = count.float()
+        mu_hat = mu / (1.0 - torch.pow(self.b1, c))
+        nu_hat = nu / (1.0 - torch.pow(self.b2, c))
         update = mu_hat / (nu_hat.sqrt() + self.eps)
         if self.weight_decay > 0:
             update = update + self.weight_decay * params
-        params.add_(update, alpha=-self.schedule(state.count))
-        return OptState(count, state.mu, state.nu)
+        new = params - self.schedule(state.count) * update
+        if good is not None:
+            new, mu, nu, count = (torch.where(good, a, b) for a, b in (
+                (new, params), (mu, state.mu), (nu, state.nu), (count, state.count)))
+        params.copy_(new)
+        state.mu.copy_(mu)
+        state.nu.copy_(nu)
+        state.count.copy_(count)
+        return state
 
 
 def make_optimizer(tcfg) -> Optimizer:
@@ -143,9 +188,10 @@ def make_optimizer(tcfg) -> Optimizer:
 
 @dataclass
 class TrainState:
-    step: int           # steps taken, skipped ones included
+    step: Tensor        # 0-d int64 on the device: steps taken, skipped ones included
     params: Tensor      # the flat buffer every model parameter is a view of
     opt_state: OptState
+    host_step: int = 0  # ``step`` mirrored on the host (noise keys, the loop's cadence)
 
 
 @torch.no_grad()
@@ -183,12 +229,16 @@ def flatten_params_(model: nn.Module) -> Tensor:
 
 def init_state(model: nn.Module, tx: Optimizer) -> TrainState:
     flat = flatten_params_(model)
-    return TrainState(step=0, params=flat, opt_state=tx.init(flat))
+    return TrainState(step=torch.zeros((), dtype=torch.int64, device=flat.device), params=flat,
+                      opt_state=tx.init(flat))
 
 
 # ---------------------------------------------------------------- the step
 
-_EPS_TAG, _AUG_TAG = 0, 0x0A96   # noise streams: reparameterisation, jitter
+# noise streams: reparameterisation, jitter; the resident draw's cloud ids,
+# point ids and epoch permutations
+_EPS_TAG, _AUG_TAG = 0, 0x0A96
+_IDS_TAG, _POINTS_TAG, _EPOCH_TAG = 0x0DA7A, 0x0DA7B, 0x0E90C
 
 
 def _aug_active(tcfg) -> bool:
@@ -196,12 +246,13 @@ def _aug_active(tcfg) -> bool:
         tcfg.augment_noise_anneal_steps > 0 and tcfg.augment_noise_final > 0.0)
 
 
-def _aug_sigma(tcfg, step: int) -> float:
-    """Jitter std at ``step``: linear anneal augment_noise ->
-    augment_noise_final over augment_noise_anneal_steps, then hold."""
+def _aug_sigma(tcfg, step: Tensor) -> Union[float, Tensor]:
+    """Jitter std at ``step`` (a device tensor), float32 as in the JAX
+    package: linear anneal augment_noise -> augment_noise_final over
+    augment_noise_anneal_steps, then hold; a constant without the anneal."""
     if tcfg.augment_noise_anneal_steps <= 0:
         return tcfg.augment_noise
-    frac = min(max(step / float(tcfg.augment_noise_anneal_steps), 0.0), 1.0)
+    frac = _div(step.float(), tcfg.augment_noise_anneal_steps).clamp(0.0, 1.0)
     return tcfg.augment_noise + (tcfg.augment_noise_final - tcfg.augment_noise) * frac
 
 
@@ -210,28 +261,44 @@ def _generator(seed: int, step: int, tag: int, device: torch.device) -> torch.Ge
     return torch.Generator(device=device).manual_seed(key & (2**63 - 1))
 
 
-def make_train_step(model: DPF, tx: Optimizer, cfg: Config
-                    ) -> Callable[[TrainState, Dict[str, Tensor]], Tuple[TrainState, Dict]]:
-    """(state, batch) -> (state, metrics); ``batch`` holds ``x`` [B, N, 3]
-    on the model's device and optionally ``eps`` [B, dz] and ``xnoise``
-    [B, N, 3], else they are drawn from generators seeded by
-    (train.seed, step). The metrics are 0-d tensors on the device."""
+def _noise(cfg: Config, start: int, k: int, x_shape, device: torch.device,
+           eps: Optional[Tensor] = None, xn: Optional[Tensor] = None
+           ) -> Tuple[Tensor, Optional[Tensor]]:
+    """eps [K, B, dz] and the jitter's xnoise [K, B, N, 3] (None without
+    jitter) of the k steps from ``start``: the given ones, else drawn, each
+    step from generators keyed by (train.seed, step, stream), so that a step
+    draws the same numbers alone, in a replayed call or in a resident one."""
+    tcfg = cfg.train
+    b, n = x_shape[-3], x_shape[-2]
+
+    def draw(shape, tag):
+        return torch.stack([torch.randn(shape, device=device,
+                                        generator=_generator(tcfg.seed, s, tag, device))
+                            for s in range(start, start + k)])
+
+    if eps is None:
+        eps = draw((b, cfg.model.dz), _EPS_TAG)
+    if not _aug_active(tcfg):
+        xn = None
+    elif xn is None:
+        xn = draw((b, n, 3), _AUG_TAG)
+    return eps, xn
+
+
+StepCore = Callable[[TrainState, Tensor, Tensor, Optional[Tensor]], Dict[str, Tensor]]
+
+
+def _make_step(model: DPF, tx: Optimizer, cfg: Config) -> StepCore:
+    """The train step on given noise: (state, x [B, N, 3], eps [B, dz],
+    xnoise [B, N, 3] or None) -> metrics, 0-d tensors on the device. It
+    updates the state's tensors in place and reads no value on the host, so
+    a CUDA graph can hold it; the eager step and every replay run it."""
     tcfg = cfg.train
     params = list(model.parameters())
 
-    def step_fn(state: TrainState, batch: Dict[str, Tensor]):
-        x = batch["x"]
-        dev = x.device
-        if _aug_active(tcfg):
-            xn = batch.get("xnoise")
-            if xn is None:
-                xn = torch.randn(x.shape, device=dev,
-                                 generator=_generator(tcfg.seed, state.step, _AUG_TAG, dev))
+    def step(state: TrainState, x: Tensor, eps: Tensor, xn: Optional[Tensor]):
+        if xn is not None:
             x = x + _aug_sigma(tcfg, state.step) * xn
-        eps = batch.get("eps")
-        if eps is None:
-            eps = torch.randn((x.shape[0], cfg.model.dz), device=dev,
-                              generator=_generator(tcfg.seed, state.step, _EPS_TAG, dev))
         loss, metrics = elbo_loss(
             model, x, eps, kl_weight=tcfg.kl_weight, recon_reduction=tcfg.recon_reduction,
             fused_point_flow=tcfg.fused_point_flow, fused_encoder=tcfg.fused_encoder,
@@ -242,22 +309,287 @@ def make_train_step(model: DPF, tx: Optimizer, cfg: Config
         gnorm = torch.linalg.vector_norm(flat)     # raw grads, before the clip
         metrics = {k: v.detach() for k, v in metrics.items()}
         metrics["grad_norm"] = gnorm
-        good = bool(torch.isfinite(gnorm))
-        opt_state = state.opt_state
-        if good or not tcfg.skip_nonfinite_updates:
-            opt_state = tx.apply_(state.params, flat, gnorm, opt_state)
-        if tcfg.skip_nonfinite_updates:
-            metrics["nonfinite_skipped"] = torch.tensor(0.0 if good else 1.0, device=dev)
-        return TrainState(state.step + 1, state.params, opt_state), metrics
+        good = torch.isfinite(gnorm) if tcfg.skip_nonfinite_updates else None
+        tx.apply_(state.params, flat, gnorm, state.opt_state, good)
+        if good is not None:
+            metrics["nonfinite_skipped"] = 1.0 - good.float()
+        state.step.add_(1)
+        return metrics
+
+    return step
+
+
+def make_train_step(model: DPF, tx: Optimizer, cfg: Config
+                    ) -> Callable[[TrainState, Dict[str, Tensor]], Tuple[TrainState, Dict]]:
+    """(state, batch) -> (state, metrics), one eager step; ``batch`` holds
+    ``x`` [B, N, 3] on the model's device and optionally ``eps`` [B, dz] and
+    ``xnoise`` [B, N, 3], else they are drawn from generators seeded by
+    (train.seed, step). The metrics are 0-d tensors on the device; the
+    state's tensors update in place."""
+    step = _make_step(model, tx, cfg)
+
+    def step_fn(state: TrainState, batch: Dict[str, Tensor]):
+        x, eps, xn = batch["x"], batch.get("eps"), batch.get("xnoise")
+        eps, xn = _noise(cfg, state.host_step, 1, x.shape, x.device,
+                         None if eps is None else eps[None], None if xn is None else xn[None])
+        metrics = step(state, x, eps[0], None if xn is None else xn[0])
+        state.host_step += 1
+        return state, metrics
 
     return step_fn
 
 
+# ---------------------------------------------------------------- K steps per call
+
+_WARMUP = 3     # eager steps on a side stream before a capture (PyTorch's whole-network recipe)
+
+
+def _launch_counters() -> List[Dict[str, int]]:
+    """The launch counts of the kernels a train step runs."""
+    from dpfx_torch.ops import fused_encoder, fused_latent, fused_train
+
+    return [fused_train.launches, fused_encoder.launches, fused_latent.launches]
+
+
+class MultiStep:
+    """K train steps per call (``train.steps_per_call``), the counterpart of
+    ``dpfx``'s ``make_multi_step``: (state, batches) -> (state, metrics),
+    with ``batches["x"]`` [K, B, N, 3] (and optionally ``eps`` [K, B, dz]
+    and ``xnoise`` [K, B, N, 3]) and each metric stacked [K]. K may differ
+    from call to call.
+
+    On the card the first call captures one step (``_make_step``) in a CUDA
+    graph, after ``_WARMUP`` eager steps on a side stream whose effect on
+    the state is undone; a failed capture raises. Each step of a call then
+    copies its inputs into the graph's static buffers, replays it and copies
+    its metrics out, so K replays compute what K eager steps compute. The
+    graph reads the storage it was captured on: a call raises if the
+    parameters, the flat buffer, the moments or the counters have moved
+    since. On the CPU the same step runs K times.
+
+    A kernel's launch counter counts when Python runs its wrapper, and a
+    replay runs none: the counts the capture made (it launched nothing) are
+    taken back, and added again for each replay."""
+
+    def __init__(self, model: DPF, tx: Optimizer, cfg: Config):
+        self.cfg = cfg
+        self.step = _make_step(model, tx, cfg)
+        self.params = list(model.parameters())
+        self.graph: Optional[torch.cuda.CUDAGraph] = None
+
+    def __call__(self, state: TrainState, batches: Dict[str, Tensor]):
+        xs = batches["x"]
+        k = xs.shape[0]
+        eps, xn = _noise(self.cfg, state.host_step, k, xs.shape, xs.device, batches.get("eps"),
+                         batches.get("xnoise"))
+        if xs.is_cuda:
+            out = self._replay(state, xs, eps, xn)
+        else:
+            ms = [self.step(state, xs[i], eps[i], None if xn is None else xn[i])
+                  for i in range(k)]
+            out = {key: torch.stack([m[key] for m in ms]) for key in ms[0]}
+        state.host_step += k
+        return state, out
+
+    def _storage(self, state: TrainState) -> List[int]:
+        return [t.data_ptr() for t in (*self.params, state.params, state.opt_state.mu,
+                                       state.opt_state.nu, state.opt_state.count, state.step)]
+
+    def _capture(self, state: TrainState, x: Tensor, eps: Tensor, xn: Optional[Tensor]) -> None:
+        dev = x.device
+        self.inputs = [x.clone(), eps.clone(), None if xn is None else xn.clone()]
+        held = (state.params, state.opt_state.mu, state.opt_state.nu, state.opt_state.count,
+                state.step)
+        saved = [t.clone() for t in held]
+        side = torch.cuda.Stream(dev)
+        side.wait_stream(torch.cuda.current_stream(dev))
+        with torch.cuda.stream(side):
+            for _ in range(_WARMUP):
+                self.step(state, *self.inputs)
+        torch.cuda.current_stream(dev).wait_stream(side)
+        for t, v in zip(held, saved):
+            t.copy_(v)
+        counters = _launch_counters()
+        before = [dict(c) for c in counters]
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            self.outputs = self.step(state, *self.inputs)
+        self.per_replay = [{key: c[key] - b[key] for key in c} for c, b in zip(counters, before)]
+        for c, b in zip(counters, before):
+            c.update(b)
+        self.graph, self.storage = graph, self._storage(state)
+
+    def _replay(self, state: TrainState, xs: Tensor, eps: Tensor, xn: Optional[Tensor]):
+        if self.graph is None:
+            self._capture(state, xs[0], eps[0], None if xn is None else xn[0])
+        if self._storage(state) != self.storage:
+            raise RuntimeError(
+                "the parameters, the optimizer state or the step counter moved to other storage "
+                "after the train step was captured in a CUDA graph, which reads the storage it "
+                "was captured on: build a new multi-step for the new state")
+        if xs.shape[1:] != self.inputs[0].shape or eps.shape[1:] != self.inputs[1].shape:
+            raise ValueError(f"batches of {tuple(xs.shape[1:])} for a step captured on "
+                             f"{tuple(self.inputs[0].shape)}")
+        names = list(self.outputs)
+        out = torch.empty((xs.shape[0], len(names)), device=xs.device)
+        counters = _launch_counters()
+        for i in range(xs.shape[0]):
+            self.inputs[0].copy_(xs[i])
+            self.inputs[1].copy_(eps[i])
+            if xn is not None:
+                self.inputs[2].copy_(xn[i])
+            self.graph.replay()
+            torch.stack([self.outputs[n] for n in names], out=out[i])
+            for c, add in zip(counters, self.per_replay):
+                for key, v in add.items():
+                    c[key] += v
+        return {n: out[:, j] for j, n in enumerate(names)}
+
+
+def make_multi_step(model: DPF, tx: Optimizer, cfg: Config) -> MultiStep:
+    return MultiStep(model, tx, cfg)
+
+
+# ---------------------------------------------------------------- the resident split
+
+def resident_draw(cfg: Config, start: int, k: int, s: int, p: int, device: torch.device):
+    """The batches of the k steps from ``start`` on a resident split of s
+    clouds of p stored points (the counterpart of ``dpfx``'s
+    ``_resident_draw``), keyed by the absolute step so that the streams
+    survive a resume. Returns (ci [K, B] cloud ids, pi [K, B, N] point ids
+    or None where p == n_points, eps [K, B, dz], xnoise [K, B, N, 3] or
+    None without jitter). Cloud ids (``data.resident_draw``): "epoch", a
+    permutation of the split per epoch (``torch.randperm`` seeded from
+    (train.seed, epoch)) walked in batches of B, s // B batches an epoch
+    with the ragged tail dropped; "iid", uniform ids. Points: the top N of
+    per-point uniform keys (without replacement), or uniform with
+    replacement where p < N, as ``sample_cloud`` does. The noise is the
+    eager step's (``_noise``). The RNGs are torch's, not JAX's: the rules
+    are the JAX package's, the numbers are not."""
+    tcfg, draw = cfg.train, cfg.data.resident_draw
+    b, n = tcfg.batch_size, cfg.data.n_points
+    if draw not in ("epoch", "iid"):
+        raise ValueError(f"unknown data.resident_draw {draw!r}")
+    gen = lambda key, tag: _generator(tcfg.seed, key, tag, device)  # noqa: E731
+    per_epoch = max(s // b, 1)
+    perms: Dict[int, Tensor] = {}
+    ci, pi = [], []
+    for sv in range(start, start + k):
+        if draw == "epoch":
+            epoch, pos = divmod(sv, per_epoch)
+            if epoch not in perms:
+                perms[epoch] = torch.randperm(s, generator=gen(epoch, _EPOCH_TAG), device=device)
+            pos *= b
+            ci.append(perms[epoch][pos:pos + b] if pos + b <= s else
+                      perms[epoch][(pos + torch.arange(b, device=device)) % s])
+        else:
+            ci.append(torch.randint(0, s, (b,), generator=gen(sv, _IDS_TAG), device=device))
+        if p < n:
+            pi.append(torch.randint(0, p, (b, n), generator=gen(sv, _POINTS_TAG), device=device))
+        elif p > n:
+            keys = torch.rand((b, p), generator=gen(sv, _POINTS_TAG), device=device)
+            pi.append(keys.topk(n, dim=1).indices)
+    eps, xn = _noise(cfg, start, k, (b, n, 3), device)
+    return torch.stack(ci), torch.stack(pi) if pi else None, eps, xn
+
+
+def gather_resident(data: Tensor, ci: Tensor, pi: Optional[Tensor]) -> Tensor:
+    """x [K, B, N, 3] from the resident stack ``data`` [S, P, 3]: clouds
+    ``ci`` [K, B], their points ``pi`` [K, B, N] (None or empty: all P)."""
+    if pi is None or pi.shape[-1] == 0:
+        return data[ci]
+    s, p, _ = data.shape
+    return data.reshape(s * p, 3)[ci[..., None] * p + pi]
+
+
+def make_resident_multi_step(model: DPF, tx: Optimizer, cfg: Config,
+                             multi: Optional[Callable] = None) -> Callable:
+    """K steps per call on batches gathered on the device from the resident
+    stack [S, P, 3] (``data.device_resident``), the single-device
+    counterpart of ``dpfx``'s ``make_resident_multi_step``:
+    (state, data, k, draws=None) -> (state, metrics [K]). ``draws`` supplies
+    ``resident_draw``'s four outputs (then k is theirs); ``multi`` runs the
+    stacked steps (default: a new ``MultiStep``)."""
+    multi = multi or MultiStep(model, tx, cfg)
+
+    def resident(state: TrainState, data: Tensor, k: Optional[int] = None, draws=None):
+        if draws is None:
+            draws = resident_draw(cfg, state.host_step, k, data.shape[0], data.shape[1],
+                                  data.device)
+        ci, pi, eps, xn = draws
+        return multi(state, {"x": gather_resident(data, ci, pi), "eps": eps, "xnoise": xn})
+
+    return resident
+
+
 # ---------------------------------------------------------------- the loop
+
+class _Cadence:
+    """The logging and checkpoint cadence of ``fit`` and ``fit_resident``
+    (``dpfx``'s ``_Cadence`` without evaluation): a call of K steps can jump
+    over a multiple of log_every or ckpt_every, so each test is whether the
+    call crossed one; one host transfer per log window; a checkpoint of the
+    last step whatever the cadence."""
+
+    def __init__(self, trainer: "Trainer", steps: int):
+        self.tr = trainer
+        self.steps = steps
+        self.step = self.last_ckpt = trainer.state.host_step
+        self.window: list = []
+        self.window_steps = 0
+        self.skipped_windows = 0
+        self.t0 = time.perf_counter()
+
+    def record(self, took: int, metrics: Dict[str, Tensor], points_per_step: int) -> None:
+        """Account for a call that advanced ``took`` steps; ``metrics`` are
+        0-d (one step) or stacked [K]."""
+        tr, tcfg = self.tr, self.tr.cfg.train
+        self.step += took
+        self.window.append(metrics)
+        self.window_steps += took
+        step, steps = self.step, self.steps
+        crossed = lambda every: step // every > (step - took) // every  # noqa: E731
+        if crossed(tcfg.log_every) or step == steps:
+            keys = list(self.window[0])
+            host = torch.stack([torch.cat([w[k].reshape(-1).float() for w in self.window])
+                                for k in keys]).cpu()
+            m = {k: float(v.mean()) for k, v in zip(keys, host)}
+            dt = time.perf_counter() - self.t0
+            pts = self.window_steps * points_per_step
+            skipped = round(m.get("nonfinite_skipped", 0.0) * self.window_steps)
+            self.skipped_windows = self.skipped_windows + 1 if skipped == self.window_steps else 0
+            tr.log_fn(f"[dpfx_torch] step {step}/{steps} loss={m['loss']:.4f} "
+                      f"nll/pt={m['neg_elbo_per_point']:.4f} kl={m['kl']:.3f} "
+                      f"gnorm={m['grad_norm']:.2f}"
+                      + (f" SKIPPED={skipped}" if skipped else "")
+                      + f" ({pts / dt:,.0f} pts/s)")
+            tr.writer.write({"kind": "train", "step": step, **m, "points_per_sec": pts / dt})
+            self.window, self.window_steps = [], 0
+            self.t0 = time.perf_counter()
+            limit = tcfg.abort_after_skipped_windows
+            if limit and self.skipped_windows >= limit:
+                raise TrainDivergedError(
+                    f"every update in the last {limit} log windows had a non-finite grad "
+                    f"norm: the run has diverged and cannot recover by skipping. Lower "
+                    f"train.lr or model.*.scale_cap (train.abort_after_skipped_windows=0 "
+                    f"disables this abort)")
+        if crossed(tcfg.ckpt_every) or step == steps:
+            if self.skipped_windows > 0:
+                tr.log_fn(f"[dpfx_torch] skipping checkpoint at step {step}: "
+                          f"run is in a fully-skipped window")
+            else:
+                tr.save()
+                self.last_ckpt = step
+
+    def finish(self) -> None:
+        if self.step != self.last_ckpt:
+            self.tr.save()     # never exit without a checkpoint of the last trained step
+
 
 class Trainer:
     """Step-based training loop: logging, metrics.jsonl, params-only
-    checkpoints. ``device`` defaults to cuda and raises without one."""
+    checkpoints; ``train.steps_per_call`` steps per call. ``device``
+    defaults to cuda and raises without one."""
 
     def __init__(self, cfg: Config, device: DeviceLike = None, log_fn=print):
         self.cfg = cfg
@@ -267,12 +599,14 @@ class Trainer:
         self.tx = make_optimizer(cfg.train)
         self.state = init_state(self.model, self.tx)
         self.train_step = make_train_step(self.model, self.tx, cfg)
+        self.steps_per_call = max(1, cfg.train.steps_per_call)
+        self.multi_step = make_multi_step(self.model, self.tx, cfg)   # captures at its first call
         self.directory = os.path.join(cfg.train.ckpt_dir, cfg.name)
         self.writer = ScalarWriter(self.directory, tensorboard=cfg.train.tensorboard)
 
     def save(self) -> None:
         """Params-only state dict (``dpfx_torch.checkpoint`` reads it)."""
-        path = os.path.join(self.directory, f"params_{self.state.step:08d}.pt")
+        path = os.path.join(self.directory, f"params_{self.state.host_step:08d}.pt")
         torch.save({k: v.detach().cpu().clone() for k, v in self.model.state_dict().items()},
                    path)
 
@@ -282,49 +616,59 @@ class Trainer:
 
     def fit(self, batches: Iterator[Dict[str, np.ndarray]],
             steps: Optional[int] = None) -> TrainState:
-        tcfg = self.cfg.train
-        steps = steps or tcfg.steps
-        window: list = []
-        skipped_windows = 0
-        last_ckpt = self.state.step
-        t0 = time.perf_counter()
+        """Train on host batches: steps_per_call of them stacked into one
+        call; a partial group at the end goes through single steps."""
+        steps = steps or self.cfg.train.steps
+        cad = _Cadence(self, steps)
+        spc = self.steps_per_call
+        pending: list = []
         for batch in batches:
-            if self.state.step >= steps:
+            if cad.step >= steps:
+                break
+            if spc > 1 and cad.step + spc <= steps:
+                pending.append(batch)
+                if len(pending) < spc:
+                    continue
+                stacked = self._to_device({k: np.stack([p[k] for p in pending])
+                                           for k in pending[0]})
+                pending = []
+                self.state, metrics = self.multi_step(self.state, stacked)
+                xs = stacked["x"].shape
+                cad.record(spc, metrics, xs[1] * xs[2])
+            else:
+                batch = self._to_device(batch)
+                self.state, metrics = self.train_step(self.state, batch)
+                cad.record(1, metrics, batch["x"].shape[0] * batch["x"].shape[1])
+        for batch in pending:       # the iterator ran dry mid-group
+            if cad.step >= steps:
                 break
             batch = self._to_device(batch)
             self.state, metrics = self.train_step(self.state, batch)
-            window.append(metrics)
-            step = self.state.step
-            if step % tcfg.log_every == 0 or step == steps:
-                m = {k: float(torch.stack([w[k] for w in window]).float().mean().cpu())
-                     for k in window[0]}
-                dt = time.perf_counter() - t0
-                pts = len(window) * batch["x"].shape[0] * batch["x"].shape[1]
-                skipped = round(m.get("nonfinite_skipped", 0.0) * len(window))
-                skipped_windows = skipped_windows + 1 if skipped == len(window) else 0
-                self.log_fn(f"[dpfx_torch] step {step}/{steps} loss={m['loss']:.4f} "
-                            f"nll/pt={m['neg_elbo_per_point']:.4f} kl={m['kl']:.3f} "
-                            f"gnorm={m['grad_norm']:.2f}"
-                            + (f" SKIPPED={skipped}" if skipped else "")
-                            + f" ({pts / dt:,.0f} pts/s)")
-                self.writer.write({"kind": "train", "step": step, **m,
-                                   "points_per_sec": pts / dt})
-                window = []
-                t0 = time.perf_counter()
-                limit = tcfg.abort_after_skipped_windows
-                if limit and skipped_windows >= limit:
-                    raise TrainDivergedError(
-                        f"every update in the last {limit} log windows had a non-finite grad "
-                        f"norm: the run has diverged and cannot recover by skipping. Lower "
-                        f"train.lr or model.*.scale_cap (train.abort_after_skipped_windows=0 "
-                        f"disables this abort)")
-            if step % tcfg.ckpt_every == 0 or step == steps:
-                if skipped_windows > 0:
-                    self.log_fn(f"[dpfx_torch] skipping checkpoint at step {step}: "
-                                f"run is in a fully-skipped window")
-                else:
-                    self.save()
-                    last_ckpt = step
-        if self.state.step != last_ckpt:
-            self.save()     # never exit without a checkpoint of the last trained step
+            cad.record(1, metrics, batch["x"].shape[0] * batch["x"].shape[1])
+        cad.finish()
+        return self.state
+
+    def fit_resident(self, clouds: Union[np.ndarray, Tensor],
+                     steps: Optional[int] = None) -> TrainState:
+        """Train with the split resident on the device
+        (``data.device_resident``): ``clouds`` is the [S, P, 3] stack of
+        ``dpfx_torch.data.preload_clouds``, moved to the device once; each
+        call draws and gathers steps_per_call batches there, and a last call
+        takes the remaining steps."""
+        steps = steps or self.cfg.train.steps
+        b, n = self.cfg.train.batch_size, self.cfg.data.n_points
+        data = torch.as_tensor(clouds, dtype=torch.float32).to(self.device)
+        spc = self.steps_per_call
+
+        def one_step(state, batches):       # train.steps_per_call = 1: the eager step
+            return self.train_step(state, {k: v[0] for k, v in batches.items() if v is not None})
+
+        resident = make_resident_multi_step(self.model, self.tx, self.cfg,
+                                            self.multi_step if spc > 1 else one_step)
+        cad = _Cadence(self, steps)
+        while cad.step < steps:
+            k = min(spc, steps - cad.step)
+            self.state, metrics = resident(self.state, data, k)
+            cad.record(k, metrics, b * n)
+        cad.finish()
         return self.state

@@ -412,6 +412,22 @@ def test_train_step_on_card_skips_a_nonfinite_batch(cuda, bad_value):
     assert state.opt_state.count == 1
     for a, b in ((state.params, params), (state.opt_state.mu, mu), (state.opt_state.nu, nu)):
         assert torch.equal(a, b)
+    # the same inside replays of the captured step: a good call, then one on
+    # the bad batch (skipped), then a good one again (finite)
+    from dpfx_torch.train import make_multi_step
+
+    multi = make_multi_step(model, tx, cfg)
+    state, m = multi(state, {"x": x[None]})
+    assert float(m["nonfinite_skipped"][0]) == 0.0 and state.opt_state.count == 2
+    params, mu, nu = (t.clone() for t in (state.params, state.opt_state.mu, state.opt_state.nu))
+    state, m = multi(state, {"x": bad[None]})
+    assert float(m["nonfinite_skipped"][0]) == 1.0 and state.step == 4 == state.host_step
+    assert state.opt_state.count == 2
+    for a, b in ((state.params, params), (state.opt_state.mu, mu), (state.opt_state.nu, nu)):
+        assert torch.equal(a, b)
+    state, m = multi(state, {"x": x[None]})
+    assert float(m["nonfinite_skipped"][0]) == 0.0 and bool(torch.isfinite(m["loss"]).all())
+    assert state.opt_state.count == 3 and state.step == 5
 
 
 # ---------------------------------------------------------------- latent-flow kernels
@@ -545,6 +561,124 @@ def test_train_step_on_card_with_fused_latent(cuda):
     assert nf == {"fused_latent_fwd": 1, "fused_latent_bwd": 1, "fused_latent_inv": 0}
     assert sum(nm.values()) == 0
     assert abs(lf - lm) <= 1e-4 * abs(lm) and abs(gf - gm) <= 1e-3 * abs(gm)
+
+
+def _replay_model(cuda, fused_latent, seed=0):
+    """A small bf16 model on every training kernel (the latent flow fused or
+    not) under the annealed jitter and a clipped, warmed-up schedule, with
+    its optimizer and state."""
+    from dpfx_torch.config import config_from_dict
+    from dpfx_torch.models import DPF
+    from dpfx_torch.train import init_params_, init_state, make_optimizer
+
+    cfg = config_from_dict({"experiment": "gen", "model": {
+        "dz": 32,
+        "point_flow": {"n_layers": 4, "hidden": 32, "n_hidden": 2, "compute_dtype": "bfloat16"},
+        "latent_flow": {"n_layers": 4, "hidden": 64, "n_hidden": 2, "compute_dtype": "bfloat16"},
+        "encoder": {"point_widths": [32, 64], "head_widths": [32], "compute_dtype": "bfloat16"}},
+        "data": {"n_points": 256},
+        "train": {"batch_size": 4, "fused_point_flow": True, "fused_encoder": True,
+                  "fused_latent_flow": fused_latent, "grad_clip": 1.0, "lr_warmup_steps": 2,
+                  "steps": 20, "augment_noise": 0.05, "augment_noise_final": 0.01,
+                  "augment_noise_anneal_steps": 6}})
+    model = randomize_(init_params_(DPF(cfg), seed), seed, 0.05).to(cuda)
+    tx = make_optimizer(cfg.train)
+    return cfg, model, tx, init_state(model, tx)
+
+
+def _same_state(a, b):
+    return all(torch.equal(u, v) for u, v in (
+        (a.params, b.params), (a.opt_state.mu, b.opt_state.mu), (a.opt_state.nu, b.opt_state.nu),
+        (a.opt_state.count, b.opt_state.count), (a.step, b.step)))
+
+
+@pytest.mark.parametrize("fused_latent", [False, True])
+def test_replays_equal_eager_steps(cuda, fused_latent):
+    """K replays of the captured step equal K eager steps bit for bit on
+    supplied eps and xnoise (params, moments, count, step and every metric),
+    over two calls (K=5, then a tail of 2 on the same graph); the launch
+    counts are the warm-up's eager steps plus one step's launches per
+    replay."""
+    from dpfx_torch.ops import fused_encoder as fe
+    from dpfx_torch.ops import fused_latent as fl
+    from dpfx_torch.ops import fused_train as ft
+    from dpfx_torch.train import make_multi_step, make_train_step
+    from dpfx_torch.train.trainer import _WARMUP
+
+    g = torch.Generator(device=cuda).manual_seed(3)
+    k = 7
+    batches = {"x": torch.randn((k, 4, 256, 3), generator=g, device=cuda),
+               "eps": torch.randn((k, 4, 32), generator=g, device=cuda),
+               "xnoise": torch.randn((k, 4, 256, 3), generator=g, device=cuda)}
+    cfg, model, tx, eager = _replay_model(cuda, fused_latent)
+    step = make_train_step(model, tx, cfg)
+    ms = []
+    for i in range(k):
+        eager, m = step(eager, {key: v[i] for key, v in batches.items()})
+        ms.append(m)
+    cfg, model, tx, state = _replay_model(cuda, fused_latent)
+    multi = make_multi_step(model, tx, cfg)
+    for mod in (ft, fe, fl):
+        mod.reset_launch_counts()
+    state, m1 = multi(state, {key: v[:5] for key, v in batches.items()})
+    state, m2 = multi(state, {key: v[5:] for key, v in batches.items()})
+    torch.cuda.synchronize()
+    assert _same_state(state, eager) and state.host_step == eager.host_step == k
+    for key in ms[0]:
+        assert torch.equal(torch.cat([m1[key], m2[key]]), torch.stack([m[key] for m in ms])), key
+    counted = {**ft.launches, **fe.launches, **fl.launches}
+    for key in ("fused_train_fwd", "fused_train_bwd", "fused_encoder_fwd", "fused_encoder_bwd"):
+        assert counted[key] == _WARMUP + k, (key, counted)
+    lat = _WARMUP + k if fused_latent else 0
+    assert counted["fused_latent_fwd"] == counted["fused_latent_bwd"] == lat
+    assert counted["fused_latent_inv"] == 0
+
+
+@pytest.mark.parametrize("fused_latent", [False, True])
+def test_resident_call_equals_eager_steps_on_its_draws(cuda, fused_latent):
+    """A resident call (draw, gather, replays) equals eager steps on the
+    batches and noise its draw chose, bit for bit."""
+    from dpfx_torch.train import (gather_resident, make_resident_multi_step, make_train_step,
+                                  resident_draw)
+
+    data = torch.randn((20, 300, 3), generator=torch.Generator(device=cuda).manual_seed(4),
+                       device=cuda)
+    cfg, model, tx, eager = _replay_model(cuda, fused_latent, seed=1)
+    ci, pi, eps, xn = resident_draw(cfg, 0, 6, 20, 300, cuda)
+    x = gather_resident(data, ci, pi)
+    assert x.shape == (6, 4, 256, 3)
+    step = make_train_step(model, tx, cfg)
+    for i in range(6):
+        eager, _ = step(eager, {"x": x[i], "eps": eps[i], "xnoise": xn[i]})
+    cfg, model, tx, state = _replay_model(cuda, fused_latent, seed=1)
+    resident = make_resident_multi_step(model, tx, cfg)
+    state, m = resident(state, data, 4)
+    state, m = resident(state, data, 2)
+    torch.cuda.synchronize()
+    assert _same_state(state, eager) and m["loss"].shape == (2,)
+
+
+def test_capture_then_reallocated_parameters_raise(cuda):
+    """A graph reads the storage it was captured on: after the flat buffer
+    is rebuilt (init_state flattens the parameters again), a call raises,
+    with the new state and with the old one; a new multi-step captures on
+    the new storage, and refuses batches of another shape."""
+    from dpfx_torch.train import init_state, make_multi_step
+
+    cfg, model, tx, state = _replay_model(cuda, False)
+    multi = make_multi_step(model, tx, cfg)
+    x = torch.randn((2, 4, 256, 3), device=cuda)
+    state, _ = multi(state, {"x": x})
+    new = init_state(model, tx)
+    for st in (new, state):
+        with pytest.raises(RuntimeError, match="moved to other storage"):
+            multi(st, {"x": x})
+    # a new multi-step captures on the new storage; other shapes are refused
+    fresh = make_multi_step(model, tx, cfg)
+    new, m = fresh(new, {"x": x})
+    assert bool(torch.isfinite(m["loss"]).all())
+    with pytest.raises(ValueError, match="captured on"):
+        fresh(new, {"x": x[:, :, :128].contiguous()})
 
 
 # ---------------------------------------------------------------- evaluation kernels
