@@ -287,6 +287,9 @@ TOL_STEP_GNORM = 5e-2
 # 3.7e-5); a schedule that diverges in one diverges in the other as well
 TOL_TRAIN_DRIFT = 5e-2
 TRAIN_STEPS = 30
+# validation batches of the training runs: data.synthetic_size 512 gives
+# 128 val clouds, eval.batch_size 32
+VAL_BATCHES = 4
 # the fused_train bf16 kernels' times at B=64 x 2048 in their first,
 # block-wide design (WMMA through a staging tile, 64-point backward tiles;
 # NVIDIA H100 80GB HBM3, 700.00 W), printed beside phase 4's
@@ -1939,6 +1942,225 @@ def captured_step_checks(c, dev, clouds, x20, name: str):
     return (multi, rep), (resident, res)
 
 
+def trainer_loop_path(cfg, dev, card):
+    """Phase 3g: the trainer loop at full width on the flagship YAML
+    (data.synthetic_size 512: 128 val clouds, 4 batches of 32). (1) The CLI
+    for 30 steps with eval_every=10, ckpt_every=10 and ckpt_keep=2: val
+    records at 20 and 30 and no second final one, exactly steps 20 and 30
+    on disk with both files, then --resume to step 40; (2) a resident run
+    stopped at 20 and resumed by a new Trainer to 30 against the
+    uninterrupted 30 steps, bit for bit (params, moments, count, step),
+    the latent flow through the module and fused; (3) fit_auto on host
+    batches holding an inf from step 21 on (steps_per_call 2, log_every 2,
+    ckpt_every 4): restored step 20, lr halved, the step captured again on
+    the same storage, the run finished and finite; (4) Trainer.evaluate on
+    the card against the same call on the CPU (plain versions) on the same
+    weights, batches (one ragged) and eps. Prints one evaluation's ms per
+    batch, one save's ms and bytes and the recapture's ms, and a profile of
+    one evaluation pass (device busy, idle share, the top kernels)."""
+    import copy
+    import shutil
+
+    import numpy as np
+    import torch
+
+    from dpfx_torch.compat import randomize_
+    from dpfx_torch.config import load_config
+    from dpfx_torch.data import build_dataset, iterate_batches, preload_clouds
+    from dpfx_torch.ops import fused_encoder as fe
+    from dpfx_torch.ops import fused_latent as fl
+    from dpfx_torch.ops import fused_train as ft
+    from dpfx_torch.train import trainer as tm
+
+    timed = {"evaluate": [], "save": [], "capture": []}
+    evaluate, save, capture = tm.Trainer.evaluate, tm.CheckpointManager.save, tm.MultiStep._capture
+
+    def clocked(name, fn, note):
+        def wrapper(self, *a, **k):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn(self, *a, **k)
+            torch.cuda.synchronize()
+            timed[name].append(((time.perf_counter() - t0) * 1e3, note(self, *a)))
+            return out
+        return wrapper
+
+    tm.Trainer.evaluate = clocked("evaluate", evaluate, lambda tr, batches: tr.state.host_step)
+    tm.CheckpointManager.save = clocked(
+        "save", save, lambda mgr, step, *a: (step, sum(os.path.getsize(p) for p in mgr.paths(step))))
+    tm.MultiStep._capture = clocked("capture", capture, lambda multi, *a: multi)
+    try:
+        # (1) the CLI: evaluation, retention, --resume
+        run = WORK / "loop_cli"
+        shutil.rmtree(run, ignore_errors=True)
+        argv = [str(CONFIG), f"train.steps={TRAIN_STEPS}", "train.log_every=10",
+                "train.ckpt_every=10", "train.eval_every=10", "train.ckpt_keep=2",
+                f"train.ckpt_dir={run}", "data.synthetic_size=512"]
+        rc, _, calls, _ = train_cli_run(argv)
+        d = run / cfg.name
+
+        def records(kind):
+            return [r for r in map(json.loads, (d / "metrics.jsonl").read_text().splitlines())
+                    if r["kind"] == kind]
+
+        def on_disk():
+            return sorted(p.name for p in d.iterdir() if p.name != "metrics.jsonl")
+
+        val = records("val")
+        check(rc == 0 and [k for k, _ in calls] == [20, 10], f"loop CLI calls {calls}")
+        check([r["step"] for r in val] == [20, 30] and all(finite_numbers(r) for r in val),
+              f"val records at 20 and 30, finite, no second final evaluation: {val}")
+        check(on_disk() == ["params_00000020.pt", "params_00000030.pt", "state_00000020.ckpt",
+                            "state_00000030.ckpt"], f"ckpt_keep=2 keeps steps 20 and 30: {on_disk()}")
+        eval_ms = [ms for ms, step in timed["evaluate"] if step == 30][0] / VAL_BATCHES
+        save_ms, (_, save_bytes) = [(ms, n) for ms, n in timed["save"] if n[0] == 30][0]
+        # --resume: on to step 40 on the same schedule (lr_decay_steps=30, the
+        # first run's horizon; its terminal lr after it)
+        rc, text, calls, _ = train_cli_run(
+            [argv[0], "train.steps=40", f"train.lr_decay_steps={TRAIN_STEPS}", *argv[2:],
+             "--resume"])
+        val = records("val")
+        check(rc == 0 and "resumed from step 30" in text and [k for k, _ in calls] == [10]
+              and [r["step"] for r in val] == [20, 30, 40] and finite_numbers(val[-1])
+              and on_disk() == ["params_00000030.pt", "params_00000040.pt",
+                                "state_00000030.ckpt", "state_00000040.ckpt"],
+              f"--resume continues the run to step 40: calls {calls}, val {val}, {on_disk()}")
+        print(f"trainer loop CLI: {TRAIN_STEPS} steps (calls {[20, 10]}), val at "
+              f"{[20, 30]} (finite, loss {val[1]['loss']:.2f}, median neg_elbo/pt "
+              f"{val[1]['neg_elbo_per_point_median']:.4f}), steps 20 and 30 kept (ckpt_keep=2), "
+              f"--resume to 40 (one call of 10, val at 40, steps 30 and 40 kept); evaluation "
+              f"{eval_ms:.3f} ms per 32 x 2048 batch (4 batches, host to host); save {save_ms:.1f} "
+              f"ms, {save_bytes:,} bytes (params, both moments, the layout) ({card})")
+
+        # (2) resume bit for bit on the resident split
+        base = load_config(CONFIG, overrides=[f"train.steps={TRAIN_STEPS}", "train.log_every=10",
+                                              "data.synthetic_size=512"])
+        clouds = preload_clouds(build_dataset(base.data, "train"))
+
+        def loop_trainer(c, name, fresh=True):
+            c = copy.deepcopy(c)
+            c.train.ckpt_dir = str(WORK / name)
+            if fresh:
+                shutil.rmtree(c.train.ckpt_dir, ignore_errors=True)
+            tr = tm.Trainer(c, device=dev, log_fn=lambda s: None)
+            randomize_(tr.model, 1, 0.02)
+            return tr
+
+        for fused_latent, name in ((False, "module latent flow"), (True, "fused latent flow")):
+            c = copy.deepcopy(base)
+            c.train.fused_latent_flow = fused_latent
+            tag = "loop_resume_fused" if fused_latent else "loop_resume"
+            whole = loop_trainer(c, tag + "_whole")
+            whole.fit_resident(clouds)
+            whole.multi_step.release()
+            part = loop_trainer(c, tag)
+            part.fit_resident(clouds, steps=20)
+            part.multi_step.release()
+            check(part.ckpt.all_steps() == [20], f"the stopped run saved step 20 ({name})")
+            del part
+            resumed = loop_trainer(c, tag, fresh=False)
+            flat = resumed.state.params.data_ptr()
+            check(resumed.maybe_resume() == 20, f"resumed from step 20 ({name})")
+            resumed.fit_resident(clouds)
+            torch.cuda.synchronize()
+            check(same_state(resumed.state, whole.state) and resumed.state.host_step == TRAIN_STEPS
+                  and resumed.state.params.data_ptr() == flat,
+                  f"a resumed run equals the uninterrupted one bit for bit ({name})")
+            print(f"resume at full width, {name}: 20 steps, a new Trainer restored step 20 in "
+                  f"place and captured again, 10 more: params, mu, nu, count and step equal the "
+                  f"uninterrupted {TRAIN_STEPS} steps bit for bit")
+            resumed.multi_step.release()
+            del whole, resumed
+
+        # (3) divergence recovery with a recaptured step
+        rcfg = load_config(CONFIG, overrides=[
+            "train.steps=40", "train.lr_decay_steps=100000", "train.steps_per_call=2",
+            "train.log_every=2", "train.ckpt_every=4", "train.recover_on_divergence=true",
+            "data.synthetic_size=512", f"train.ckpt_dir={WORK / 'loop_recover'}"])
+        shutil.rmtree(WORK / "loop_recover", ignore_errors=True)
+        train_ds = build_dataset(rcfg.data, "train")
+        streams = []
+
+        def stream(poisoned):
+            for i, bt in enumerate(iterate_batches(train_ds, 64, 2048, seed=rcfg.train.seed)):
+                if poisoned and i >= 20:
+                    bt["x"][0, 0, 0] = np.inf
+                yield bt
+
+        def make_batches():
+            streams.append(1)
+            return stream(len(streams) == 1)
+
+        logs = []
+        tr = tm.Trainer(rcfg, device=dev, log_fn=logs.append)
+        randomize_(tr.model, 1, 0.02)
+        first, lr0, flat = tr.multi_step, rcfg.train.lr, tr.state.params.data_ptr()
+        at = len(timed["capture"])
+        state = tr.fit_auto(make_batches)
+        torch.cuda.synchronize()
+        caps = timed["capture"][at:]
+        check(any("restored step 20" in line for line in logs),
+              f"the recovery restored step 20: {[ln for ln in logs if 'diverged' in ln]}")
+        check(tr.cfg.train.lr == lr0 * 0.5, f"lr halved: {tr.cfg.train.lr}")
+        check(len(caps) == 2 and caps[0][1] is first and caps[1][1] is tr.multi_step
+              and first.graph is None and tr.multi_step.graph is not None,
+              "the step was captured again after the recovery, the old graph released")
+        check(len(streams) == 2 and state.host_step == int(state.step) == 40
+              and state.params.data_ptr() == flat and bool(torch.isfinite(state.params).all()),
+              "the recovered run ends at step 40 with finite params on its storage")
+        recapture_ms = caps[1][0]
+        print(f"recovery at full width: host batches with an inf from step 21, calls of 2: "
+              f"{[ln for ln in logs if 'diverged' in ln][0]}; lr {lr0:g} -> {tr.cfg.train.lr:g}; "
+              f"captures {[f'{ms:.1f}' for ms, _ in caps]} ms (the recapture: {tm._WARMUP} "
+              f"warm-up steps and the capture, {recapture_ms:.1f} ms); ended at step 40, finite "
+              f"({card})")
+        tr.multi_step.release()
+        del tr, state
+
+        # (4) Trainer.evaluate on the card against the CPU
+        ecfg = load_config(CONFIG, overrides=["data.synthetic_size=512",
+                                              f"train.ckpt_dir={WORK / 'loop_eval'}"])
+        gtr = tm.Trainer(ecfg, device=dev, log_fn=lambda s: None)
+        randomize_(gtr.model, 1, 0.02)
+        ctr = tm.Trainer(copy.deepcopy(ecfg), device="cpu", log_fn=lambda s: None)
+        ctr.state.params.copy_(gtr.state.params.cpu())
+        first_batch = next(iterate_batches(build_dataset(ecfg.data, "val"), 48, 2048, seed=0,
+                                           shuffle=False, epochs=1))["x"]
+        rng = np.random.default_rng(9)
+        batches = [{"x": x, "eps": rng.normal(size=(len(x), ecfg.model.dz)).astype(np.float32)}
+                   for x in (first_batch[:32], first_batch[32:])]
+        for mod in (ft, fe, fl):
+            mod.reset_launch_counts()
+        on_card = gtr.evaluate(iter(batches))
+        launches = {**ft.launches, **fe.launches, **fl.launches}
+        on_cpu = ctr.evaluate(iter(batches))
+        check(launches["fused_train_fwd"] == launches["fused_encoder_fwd"] == 2
+              and launches["fused_train_bwd"] == launches["fused_encoder_bwd"] == 0,
+              f"evaluation ran the forward kernels once a batch: {launches}")
+        errs = {k: abs(on_card[k] - v) / abs(v) for k, v in on_cpu.items()}
+        print("evaluation, card (fused kernels) vs CPU (plain versions), batches of 32 and 16 x "
+              "2048: " + ", ".join(f"{k} {on_card[k]:.4f} vs {on_cpu[k]:.4f} ({errs[k]:.1e})"
+                                   for k in on_cpu) + f"; launches {json.dumps(launches)}")
+        check(max(errs.values()) <= TOL_STEP_LOSS,
+              f"evaluation on the card agrees with the CPU ({max(errs.values())})")
+        # where an evaluation pass's time goes: the CLI's 4 batches of 32
+        val4 = list(iterate_batches(build_dataset(ecfg.data, "val"), 32, 2048, seed=0,
+                                    shuffle=False, epochs=1))
+        wall_us, busy_us, events = profiled(lambda: gtr.evaluate(iter(val4)), 1)
+        top = sorted(events, key=lambda e: -e.self_device_time_total)[:5]
+        print(f"profile evaluation pass, 4 x 32 x 2048 (module latent flow): wall "
+              f"{wall_us / 1e3:.3f} ms, device busy {busy_us / 1e3:.3f} ms, idle share "
+              f"{1 - busy_us / wall_us:.3f}, {sum(e.count for e in events)} kernels; top: "
+              + "; ".join(f"{e.key[:48]} {e.self_device_time_total / 1e3:.3f} ms x{e.count}"
+                          for e in top) + f" ({card})")
+        gtr.multi_step.release()
+        del gtr, ctr
+        torch.cuda.empty_cache()
+    finally:
+        tm.Trainer.evaluate, tm.CheckpointManager.save, tm.MultiStep._capture = (
+            evaluate, save, capture)
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -2341,21 +2563,28 @@ def main() -> int:
     train_launches = {**ft.launches, **fe.launches}
     run_dir = ckpt_dir / cfg.name
     records = [json.loads(line) for line in (run_dir / "metrics.jsonl").read_text().splitlines()]
+    val_records = [r for r in records if r["kind"] == "val"]
+    records = [r for r in records if r["kind"] == "train"]
     # one call of 20 steps and a tail of 10; a call logs where it crosses a
-    # multiple of log_every=5, and the run's last step checkpoints
+    # multiple of log_every=5, and the run's last step checkpoints; the
+    # YAML's eval_every (5000) is not crossed, so the CLI evaluates the
+    # validation split (128 clouds, 4 batches of 32) once, at the end
     check(rc == 0 and [kk for kk, _ in calls] == [20, TRAIN_STEPS - 20]
           and [r["step"] for r in records] == [20, TRAIN_STEPS], f"train calls {calls}, records {records}")
+    check([r["step"] for r in val_records] == [TRAIN_STEPS] and finite_numbers(val_records[0]),
+          f"one final evaluation, finite: {val_records}")
     check("ignored" not in text and "device-resident split: 512 clouds x 4096 stored pts" in text
           and "steps_per_call=20" in text, "the CLI trains the YAML as written")
     check(all(np.isfinite(r["loss"]) and np.isfinite(r["grad_norm"]) for r in records),
           "every logged loss and grad norm is finite")
     check(all(r["nonfinite_skipped"] == 0 for r in records), "no step was skipped")
     # the launch counts stay true under replay: the capture's warm-up steps
-    # (eager) and one step's launches per replay
+    # (eager) and one step's launches per replay; the forwards also once a
+    # batch of the final evaluation
     for kname, count in train_launches.items():
-        check(count == trainer_mod._WARMUP + TRAIN_STEPS,
-              f"kernel {kname}: {count} launches for {trainer_mod._WARMUP} warm-up steps and "
-              f"{TRAIN_STEPS} replays")
+        want = trainer_mod._WARMUP + TRAIN_STEPS + (VAL_BATCHES if kname.endswith("fwd") else 0)
+        check(count == want, f"kernel {kname}: {count} launches for {trainer_mod._WARMUP} warm-up "
+                             f"steps, {TRAIN_STEPS} replays and {VAL_BATCHES} evaluation batches")
     trained_pt = run_dir / f"params_{TRAIN_STEPS:08d}.pt"
     trained = torch.load(trained_pt, map_location="cpu", weights_only=True)
     moved = sum(not torch.equal(trained[kk], v) for kk, v in init_weights.items())
@@ -2394,15 +2623,19 @@ def main() -> int:
     lat_train_launches = {**ft.launches, **fe.launches, **fl.launches}
     lat_run = lat_dir / cfg.name
     lrecs = [json.loads(line) for line in (lat_run / "metrics.jsonl").read_text().splitlines()]
-    check(rc == 0 and [kk for kk, _ in lcalls] == [10] and [r["step"] for r in lrecs] == [10],
-          f"fused-latent train calls {lcalls}, records {lrecs}")
+    lval = [r for r in lrecs if r["kind"] == "val"]
+    lrecs = [r for r in lrecs if r["kind"] == "train"]
+    check(rc == 0 and [kk for kk, _ in lcalls] == [10] and [r["step"] for r in lrecs] == [10]
+          and [r["step"] for r in lval] == [10] and finite_numbers(lval[0]),
+          f"fused-latent train calls {lcalls}, records {lrecs}, {lval}")
     check("ignored" not in text, "the CLI trains the YAML as written (fused latent flow)")
     check(all(np.isfinite(r["loss"]) and np.isfinite(r["grad_norm"]) for r in lrecs),
           "every logged loss and grad norm is finite (fused latent flow)")
     check(all(r["nonfinite_skipped"] == 0 for r in lrecs), "no step was skipped (fused latent flow)")
     for kname in ("fused_train_fwd", "fused_train_bwd", "fused_encoder_fwd", "fused_encoder_bwd",
                   "fused_latent_fwd", "fused_latent_bwd"):
-        check(lat_train_launches[kname] == trainer_mod._WARMUP + 10,
+        want = trainer_mod._WARMUP + 10 + (VAL_BATCHES if kname.endswith("fwd") else 0)
+        check(lat_train_launches[kname] == want,
               f"kernel {kname}: {lat_train_launches[kname]} launches on the fused-latent "
               "training path")
     lat_trained = torch.load(lat_run / "params_00000010.pt", map_location="cpu", weights_only=True)
@@ -2522,6 +2755,11 @@ def main() -> int:
         check(abs(lf - lm) <= TOL_STEP_LOSS * abs(lm) and abs(gf - gm) <= TOL_STEP_GNORM * abs(gm),
               f"{name} step agrees with the module path")
     del ref_model, lmodel
+
+    # ---- 3g. the trainer loop at full width: evaluation, checkpoints kept
+    # by ckpt_keep, --resume, resume bit for bit, recovery with a recapture,
+    # evaluation against the CPU
+    trainer_loop_path(cfg, dev, card)
 
     # ---- 3c. the evaluation paths at full width, on phase 3b's checkpoint
     gen_launches, ae_launches, half_a, half_b = eval_paths(cfg, dev, ckpt_dir, trained_pt)

@@ -9,7 +9,7 @@ The task follows the config's ``experiment``:
   ae  -> reconstruction CD/EMD on the test split (``recon-cd``, ``recon-emd``)
   gen -> sample |test| clouds, then MMD/COV/1-NNA for each of
          ``eval.metrics`` and JSD
-  svr -> not ported yet (the image encoders, ROADMAP Queue 1 #9)
+  svr -> not ported yet (the image encoders, ROADMAP Queue 1 #6)
 
 The weights are ``--weights`` (a ``.pt`` state dict or a flattened flax
 ``.npz``, see ``dpfx_torch.checkpoint``) or else the trainer's
@@ -59,7 +59,7 @@ def main(argv=None) -> int:
     cfg = load_config(args.config, overrides=args.overrides)
     if cfg.experiment == "svr":
         raise NotImplementedError("SVR evaluation needs the image encoders, not ported yet "
-                                  "(ROADMAP Queue 1 #9)")
+                                  "(ROADMAP Queue 1 #6)")
     if cfg.experiment not in ("ae", "gen"):
         raise ValueError(f"unknown experiment {cfg.experiment!r}")
     if args.weights:

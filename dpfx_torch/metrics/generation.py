@@ -17,7 +17,7 @@ The matrices come from the CUDA kernels (``dpfx_torch.ops.chamfer_pairwise``
 / ``emd_pairwise``) for tensors on the card, from their plain versions on
 the CPU or with ``impl="plain"``; MMD/COV/1-NNA and the JSD entropies run
 on the host in numpy, the JSD grid search on the clouds' device. The
-multi-device (row-sharded) matrix is not ported (ROADMAP Queue 1 #10).
+multi-device (row-sharded) matrix is not ported (ROADMAP Queue 1 #8).
 """
 
 from __future__ import annotations

@@ -7,7 +7,7 @@
     metric suite.
 
 SVR (decoding from the image posterior) waits for the image encoders
-(ROADMAP Queue 1 #9).
+(ROADMAP Queue 1 #6).
 """
 
 from __future__ import annotations
@@ -42,7 +42,7 @@ def evaluate_reconstruction(model: DPF, clouds: np.ndarray, cfg: Config, seed: i
     With ``labels``, per-category means too."""
     if cfg.experiment == "svr":
         raise NotImplementedError("SVR evaluation needs the image encoders, not ported yet "
-                                  "(ROADMAP Queue 1 #9)")
+                                  "(ROADMAP Queue 1 #6)")
     bsz = cfg.eval.batch_size
     use_emd = "emd" in cfg.eval.metrics
     chamfer, emd = _recon_metrics(impl, cfg.eval.emd_iters)

@@ -1,17 +1,22 @@
 """Train a DPF model from a YAML config with the PyTorch port.
 
 Usage:
-    python -m dpfx_torch.train configs/<exp>.yaml [key=value ...] [--device cuda|cpu]
+    python -m dpfx_torch.train configs/<exp>.yaml [key=value ...] [--resume] [--device cuda|cpu]
 
 The device defaults to cuda and the run fails without one; ``--device cpu``
 runs the plain path. ``train.steps_per_call`` steps run per call (on the
 card, replays of one step captured in a CUDA graph); with
 ``data.device_resident`` the split is loaded onto the device once and each
-step's batch is drawn and gathered there. Params-only checkpoints
-(``params_<step>.pt``) and ``metrics.jsonl`` go to ``train.ckpt_dir/name``;
-sample a checkpoint with ``python -m dpfx_torch.generate CONFIG --weights
-<ckpt>.pt``. Not ported yet: resume, evaluation during training, the
-datasets other than ``synthetic``, and more than one GPU.
+step's batch is drawn and gathered there. The validation split is
+evaluated every ``train.eval_every`` steps and once at the end (unless the
+cadence has just done so). Full-state checkpoints (``params_<step>.pt``
+and ``state_<step>.ckpt``, the newest ``train.ckpt_keep`` kept, 0 keeps
+all) and ``metrics.jsonl`` go to ``train.ckpt_dir/name``; ``--resume``
+continues from the newest one, and ``train.recover_on_divergence``
+restores it at a lower lr after a divergence. Sample a checkpoint with
+``python -m dpfx_torch.generate CONFIG --weights <ckpt>.pt``. Not ported
+yet: the datasets other than ``synthetic`` and the packed loader, SVR,
+and more than one GPU or process.
 """
 
 from __future__ import annotations
@@ -25,6 +30,7 @@ def main(argv=None) -> int:
                                  formatter_class=argparse.RawDescriptionHelpFormatter)
     ap.add_argument("config", help="YAML experiment config")
     ap.add_argument("overrides", nargs="*", help="dotted.key=value overrides")
+    ap.add_argument("--resume", action="store_true", help="resume from the latest checkpoint")
     ap.add_argument("--strict-config", action="store_true", help="reject unknown YAML keys")
     ap.add_argument("--device", default=None, help="cuda (default) or cpu")
     args = ap.parse_args(argv)
@@ -40,7 +46,16 @@ def main(argv=None) -> int:
     torch.backends.cudnn.allow_tf32 = False
     cfg = load_config(args.config, strict=args.strict_config, overrides=args.overrides)
     if cfg.experiment == "svr":
-        raise NotImplementedError("SVR training is not ported yet (ROADMAP Queue 1 #9)")
+        raise NotImplementedError("SVR training is not ported yet (ROADMAP Queue 1 #6)")
+    if cfg.data.packed_path:
+        raise NotImplementedError(
+            f"data.packed_path={cfg.data.packed_path!r}: the native packed loader is not ported "
+            "yet (ROADMAP Queue 1 #5)")
+    if cfg.parallel.coordinator or cfg.parallel.num_processes > 1:
+        raise NotImplementedError(
+            f"multi-process training (parallel.coordinator={cfg.parallel.coordinator!r}, "
+            f"parallel.num_processes={cfg.parallel.num_processes}) is not ported yet (ROADMAP "
+            "Queue 1 #8): the port trains on one device in one process")
     if cfg.parallel.data_axis > 1 or (cfg.data.device_resident
                                       and cfg.parallel.resident_sharding != "replicated"):
         raise NotImplementedError(
@@ -48,24 +63,40 @@ def main(argv=None) -> int:
             f"{cfg.parallel.resident_sharding!r}) is not ported yet (ROADMAP Queue 1 #8): the "
             "port trains on one device")
     train_ds = build_dataset(cfg.data, "train")
+    val_ds = build_dataset(cfg.data, "val")
     if cfg.train.epochs > 0:
         cfg.train.steps = cfg.train.epochs * max(len(train_ds) // cfg.train.batch_size, 1)
         print(f"[dpfx_torch] epochs={cfg.train.epochs} -> steps={cfg.train.steps}")
     trainer = Trainer(cfg, device=args.device)
     print(f"[dpfx_torch] experiment={cfg.experiment} name={cfg.name} device={trainer.device} "
-          f"train={len(train_ds)} clouds; N={cfg.data.n_points} batch={cfg.train.batch_size}")
+          f"train={len(train_ds)} val={len(val_ds)} clouds; N={cfg.data.n_points} "
+          f"batch={cfg.train.batch_size}")
+    if args.resume:
+        trainer.maybe_resume()
+
+    def val_batches():
+        return iterate_batches(val_ds, cfg.eval.batch_size, cfg.data.n_points_eval, seed=0,
+                               shuffle=False, epochs=1, drop_last=False)
+
     if cfg.data.device_resident:
         clouds = preload_clouds(train_ds)
         print(f"[dpfx_torch] device-resident split: {clouds.shape[0]} clouds x {clouds.shape[1]} "
               f"stored pts ({clouds.nbytes / 1e6:.0f} MB -> {trainer.device}); "
               f"steps_per_call={trainer.steps_per_call}")
-        trainer.fit_resident(clouds)
+        trainer.fit_auto(resident_clouds=clouds, val_batches_fn=val_batches)
     else:
-        batches = iterate_batches(train_ds, cfg.train.batch_size, cfg.data.n_points,
-                                  seed=cfg.train.seed)
-        if cfg.data.num_workers > 0:
-            batches = prefetch_batches(batches, depth=cfg.data.num_workers)
-        trainer.fit(batches)
+        def make_batches():
+            # a callable, so that a divergence recovery restarts the stream
+            batches = iterate_batches(train_ds, cfg.train.batch_size, cfg.data.n_points,
+                                      seed=cfg.train.seed)
+            if cfg.data.num_workers > 0:
+                batches = prefetch_batches(batches, depth=cfg.data.num_workers)
+            return batches
+
+        trainer.fit_auto(make_batches, val_batches_fn=val_batches)
+    if trainer.last_eval_step != trainer.state.host_step:
+        trainer.evaluate(val_batches())
+    trainer.writer.close()
     print(f"[dpfx_torch] done at step {trainer.state.host_step}; checkpoints in "
           f"{trainer.directory}")
     return 0

@@ -2,8 +2,11 @@
 schedules, clip-by-global-norm then Adam or AdamW written out over one flat
 parameter vector, the train step, K steps per call
 (``train.steps_per_call``: replays of one step captured in a CUDA graph),
-the device-resident split's draw (``data.device_resident``), and
-``Trainer.fit`` / ``Trainer.fit_resident``.
+the device-resident split's draw (``data.device_resident``), the
+validation step, full-state checkpoints (``CheckpointManager``) and the
+loop: ``Trainer.fit`` / ``Trainer.fit_resident`` with evaluation every
+``train.eval_every`` steps, ``Trainer.evaluate``, ``Trainer.maybe_resume``
+and ``Trainer.fit_auto`` (divergence recovery).
 
 The optimizer follows optax exactly: ``optax.chain(clip_by_global_norm,
 adam|adamw)`` with the schedule read at the optimizer's own update count,
@@ -27,8 +30,10 @@ the step on the host for the noise keys and the loop's cadence.
 
 from __future__ import annotations
 
+import dataclasses
 import math
 import os
+import re
 import time
 from dataclasses import dataclass
 from typing import Callable, Dict, Iterator, List, Optional, Tuple, Union
@@ -235,9 +240,9 @@ def init_state(model: nn.Module, tx: Optimizer) -> TrainState:
 
 # ---------------------------------------------------------------- the step
 
-# noise streams: reparameterisation, jitter; the resident draw's cloud ids,
-# point ids and epoch permutations
-_EPS_TAG, _AUG_TAG = 0, 0x0A96
+# noise streams: reparameterisation, jitter, the validation eps; the
+# resident draw's cloud ids, point ids and epoch permutations
+_EPS_TAG, _AUG_TAG, _EVAL_TAG = 0, 0x0A96, 0x0E7A1
 _IDS_TAG, _POINTS_TAG, _EPOCH_TAG = 0x0DA7A, 0x0DA7B, 0x0E90C
 
 
@@ -391,6 +396,14 @@ class MultiStep:
         state.host_step += k
         return state, out
 
+    def release(self) -> None:
+        """Drop the captured graph and its static tensors and return their
+        memory pool to the card, so that another capture does not hold two
+        graphs' activations."""
+        if self.graph is not None:
+            self.graph = self.inputs = self.outputs = None
+            torch.cuda.empty_cache()
+
     def _storage(self, state: TrainState) -> List[int]:
         return [t.data_ptr() for t in (*self.params, state.params, state.opt_state.mu,
                                        state.opt_state.nu, state.opt_state.count, state.step)]
@@ -448,6 +461,123 @@ class MultiStep:
 
 def make_multi_step(model: DPF, tx: Optimizer, cfg: Config) -> MultiStep:
     return MultiStep(model, tx, cfg)
+
+
+# ---------------------------------------------------------------- evaluation
+
+def make_eval_step(model: DPF, cfg: Config
+                   ) -> Callable[[Dict[str, Tensor], int], Dict[str, Tensor]]:
+    """The validation step (counterpart of ``dpfx``'s ``make_eval_step``):
+    (batch, i) -> the ELBO's five metrics, 0-d tensors on the device,
+    computed under ``torch.no_grad()`` with the train step's fused flags and
+    no jitter. ``batch`` holds ``x`` [B, N, 3] and optionally ``eps``
+    [B, dz]; else eps is drawn from a generator keyed by (train.seed, i,
+    stream), which does not depend on the training step (``fold_in(rng, i)``
+    in the JAX package). It reads the parameters and writes nothing."""
+
+    @torch.no_grad()
+    def eval_step(batch: Dict[str, Tensor], i: int) -> Dict[str, Tensor]:
+        tcfg, x = cfg.train, batch["x"]
+        eps = batch.get("eps")
+        if eps is None:
+            eps = torch.randn((x.shape[0], cfg.model.dz), device=x.device,
+                              generator=_generator(tcfg.seed, i, _EVAL_TAG, x.device))
+        _, metrics = elbo_loss(
+            model, x, eps, kl_weight=tcfg.kl_weight, recon_reduction=tcfg.recon_reduction,
+            fused_point_flow=tcfg.fused_point_flow, fused_encoder=tcfg.fused_encoder,
+            fused_latent_flow=tcfg.fused_latent_flow)
+        return metrics
+
+    return eval_step
+
+
+# ---------------------------------------------------------------- checkpoints
+
+def _atomic_save(obj, path: str) -> None:
+    """torch.save under a temporary name, then a rename: a reader sees the
+    whole file or none."""
+    tmp = path + ".tmp"
+    torch.save(obj, tmp)
+    os.replace(tmp, path)
+
+
+class CheckpointManager:
+    """Full-state checkpoints (counterpart of ``dpfx``'s orbax
+    ``CheckpointManager``): for each saved step, ``state_<step:08d>.ckpt``
+    (the flat Adam moments, the count, the step and the parameters' layout:
+    names and sizes) and ``params_<step:08d>.pt`` (the model's state dict,
+    which ``dpfx_torch.checkpoint`` and the eval and generate CLIs read).
+    Each file is written under a temporary name and renamed, the state file
+    first, so a step counts only once both files are whole. After a save,
+    the oldest steps beyond ``max_to_keep`` lose both files (None keeps
+    every step)."""
+
+    def __init__(self, directory: str, max_to_keep: Optional[int] = 3):
+        self.directory = os.path.abspath(directory)
+        os.makedirs(self.directory, exist_ok=True)
+        self.max_to_keep = max_to_keep
+
+    def paths(self, step: int) -> Tuple[str, str]:
+        """(state file, params file) of ``step``."""
+        return (os.path.join(self.directory, f"state_{step:08d}.ckpt"),
+                os.path.join(self.directory, f"params_{step:08d}.pt"))
+
+    def _steps(self, pattern: str) -> set:
+        return {int(m.group(1)) for name in os.listdir(self.directory)
+                if (m := re.fullmatch(pattern, name))}
+
+    def all_steps(self) -> List[int]:
+        """The steps with both files, in order."""
+        return sorted(self._steps(r"state_(\d+)\.ckpt") & self._steps(r"params_(\d+)\.pt"))
+
+    def latest_step(self) -> Optional[int]:
+        steps = self.all_steps()
+        return steps[-1] if steps else None
+
+    @staticmethod
+    def layout(model: nn.Module) -> Tuple[List[str], List[int]]:
+        names, sizes = zip(*((n, p.numel()) for n, p in model.named_parameters()))
+        return list(names), list(sizes)
+
+    def save(self, step: int, model: nn.Module, state: TrainState) -> None:
+        """Write ``step``'s two files from the state (one read back of the
+        flat buffer and each moment), then apply the retention."""
+        names, sizes = self.layout(model)
+        flat, mu, nu = (t.detach().cpu() for t in (state.params, state.opt_state.mu,
+                                                   state.opt_state.nu))
+        views = dict(zip(names, flat.split(sizes)))
+        params = {k: (views[k] if k in views else v.detach().cpu()).reshape(v.shape).clone()
+                  for k, v in model.state_dict().items()}
+        spath, ppath = self.paths(step)
+        _atomic_save({"step": step, "count": int(state.opt_state.count), "mu": mu, "nu": nu,
+                      "names": names, "sizes": sizes}, spath)
+        _atomic_save(params, ppath)
+        if self.max_to_keep:
+            steps = self._steps(r"state_(\d+)\.ckpt") | self._steps(r"params_(\d+)\.pt")
+            for old in sorted(steps)[:-self.max_to_keep]:
+                for path in self.paths(old):
+                    if os.path.exists(path):
+                        os.remove(path)
+
+    @torch.no_grad()
+    def restore(self, step: int, model: nn.Module, state: TrainState) -> None:
+        """Copy ``step``'s checkpoint into the state's tensors, which keep
+        their storage (the model's parameters stay views of the flat buffer
+        and a captured step stays valid); raise if the parameters' layout
+        differs from the checkpoint's."""
+        spath, ppath = self.paths(step)
+        saved = torch.load(spath, map_location="cpu", weights_only=True)
+        names, sizes = self.layout(model)
+        if saved["names"] != names or saved["sizes"] != sizes:
+            raise ValueError(f"the checkpoint at step {step} in {self.directory} holds another "
+                             "parameter layout than this model's")
+        params = torch.load(ppath, map_location="cpu", weights_only=True)
+        state.params.copy_(torch.cat([params[n].reshape(-1).float() for n in names]))
+        state.opt_state.mu.copy_(saved["mu"])
+        state.opt_state.nu.copy_(saved["nu"])
+        state.opt_state.count.fill_(saved["count"])
+        state.step.fill_(saved["step"])
+        state.host_step = int(saved["step"])
 
 
 # ---------------------------------------------------------------- the resident split
@@ -525,16 +655,19 @@ def make_resident_multi_step(model: DPF, tx: Optimizer, cfg: Config,
 # ---------------------------------------------------------------- the loop
 
 class _Cadence:
-    """The logging and checkpoint cadence of ``fit`` and ``fit_resident``
-    (``dpfx``'s ``_Cadence`` without evaluation): a call of K steps can jump
-    over a multiple of log_every or ckpt_every, so each test is whether the
-    call crossed one; one host transfer per log window; a checkpoint of the
-    last step whatever the cadence."""
+    """The logging, evaluation and checkpoint cadence of ``fit`` and
+    ``fit_resident`` (``dpfx``'s ``_Cadence``): a call of K steps can jump
+    over a multiple of log_every, eval_every or ckpt_every, so each test is
+    whether the call crossed one; one host transfer per log window; a
+    checkpoint of the last step whatever the cadence."""
 
-    def __init__(self, trainer: "Trainer", steps: int):
+    def __init__(self, trainer: "Trainer", steps: int,
+                 val_batches_fn: Optional[Callable[[], Iterator]] = None):
         self.tr = trainer
         self.steps = steps
+        self.val_fn = val_batches_fn
         self.step = self.last_ckpt = trainer.state.host_step
+        self.last_eval_step = -1
         self.window: list = []
         self.window_steps = 0
         self.skipped_windows = 0
@@ -563,6 +696,7 @@ class _Cadence:
                       f"gnorm={m['grad_norm']:.2f}"
                       + (f" SKIPPED={skipped}" if skipped else "")
                       + f" ({pts / dt:,.0f} pts/s)")
+            tr.history.append({"step": step, **m})
             tr.writer.write({"kind": "train", "step": step, **m, "points_per_sec": pts / dt})
             self.window, self.window_steps = [], 0
             self.t0 = time.perf_counter()
@@ -572,9 +706,14 @@ class _Cadence:
                     f"every update in the last {limit} log windows had a non-finite grad "
                     f"norm: the run has diverged and cannot recover by skipping. Lower "
                     f"train.lr or model.*.scale_cap (train.abort_after_skipped_windows=0 "
-                    f"disables this abort)")
+                    f"disables this abort; train.recover_on_divergence restores the last "
+                    f"checkpoint at a lower lr)")
+        if self.val_fn is not None and crossed(tcfg.eval_every):
+            tr.evaluate(self.val_fn())
+            self.last_eval_step = step
         if crossed(tcfg.ckpt_every) or step == steps:
             if self.skipped_windows > 0:
+                # saving now would let a recovery restore the diverged state
                 tr.log_fn(f"[dpfx_torch] skipping checkpoint at step {step}: "
                           f"run is in a fully-skipped window")
             else:
@@ -584,11 +723,14 @@ class _Cadence:
     def finish(self) -> None:
         if self.step != self.last_ckpt:
             self.tr.save()     # never exit without a checkpoint of the last trained step
+        self.tr.writer.flush()
 
 
 class Trainer:
-    """Step-based training loop: logging, metrics.jsonl, params-only
-    checkpoints; ``train.steps_per_call`` steps per call. ``device``
+    """Step-based training loop: logging, metrics.jsonl (and TensorBoard
+    with ``train.tensorboard``), evaluation every ``train.eval_every``
+    steps, full-state checkpoints kept by ``train.ckpt_keep``, resume and
+    divergence recovery; ``train.steps_per_call`` steps per call. ``device``
     defaults to cuda and raises without one."""
 
     def __init__(self, cfg: Config, device: DeviceLike = None, log_fn=print):
@@ -601,25 +743,68 @@ class Trainer:
         self.train_step = make_train_step(self.model, self.tx, cfg)
         self.steps_per_call = max(1, cfg.train.steps_per_call)
         self.multi_step = make_multi_step(self.model, self.tx, cfg)   # captures at its first call
+        self.eval_step = make_eval_step(self.model, cfg)
         self.directory = os.path.join(cfg.train.ckpt_dir, cfg.name)
+        self.ckpt = CheckpointManager(self.directory, max_to_keep=cfg.train.ckpt_keep or None)
         self.writer = ScalarWriter(self.directory, tensorboard=cfg.train.tensorboard)
+        self.history: list = []         # the logged train records
+        self.last_eval_step = -1        # the step of the last evaluation in a fit
 
     def save(self) -> None:
-        """Params-only state dict (``dpfx_torch.checkpoint`` reads it)."""
-        path = os.path.join(self.directory, f"params_{self.state.host_step:08d}.pt")
-        torch.save({k: v.detach().cpu().clone() for k, v in self.model.state_dict().items()},
-                   path)
+        """A full-state checkpoint of the current step."""
+        self.ckpt.save(self.state.host_step, self.model, self.state)
+
+    def maybe_resume(self) -> int:
+        """Restore the latest checkpoint in place, if there is one; returns
+        its step (0 without one). The layout must match the model's."""
+        step = self.ckpt.latest_step()
+        if step is None:
+            return 0
+        self.ckpt.restore(step, self.model, self.state)
+        self.log_fn(f"[dpfx_torch] resumed from step {step}")
+        return step
 
     def _to_device(self, batch: Dict[str, np.ndarray]) -> Dict[str, Tensor]:
         return {k: torch.as_tensor(v).to(self.device, non_blocking=True)
                 for k, v in batch.items()}
 
+    def evaluate(self, batches: Iterator[Dict[str, np.ndarray]]) -> Dict[str, float]:
+        """The validation metrics over ``batches`` (``x``, optionally
+        ``eps``): means weighted by batch size, and ``<key>_median`` over the
+        per-batch means (one outlier batch cannot hide a healthy fit). Logs a
+        ``val`` line and writes a ``kind: val`` record; one read back to the
+        host for the whole pass."""
+        ms, weights = [], []
+        for i, batch in enumerate(batches):
+            batch = self._to_device(batch)
+            ms.append(self.eval_step(batch, i))
+            weights.append(batch["x"].shape[0])
+        if not ms:
+            return {}
+        keys = list(ms[0])
+        host = torch.stack([torch.stack([m[k].float() for k in keys]) for m in ms]).cpu().numpy()
+        w = np.asarray(weights, np.float64)
+        agg = {k: float(np.average(host[:, j], weights=w)) for j, k in enumerate(keys)}
+        for j, k in enumerate(keys):
+            agg[f"{k}_median"] = float(np.median(host[:, j]))
+        step = self.state.host_step
+        med = agg.get("neg_elbo_per_point_median")
+        self.log_fn(f"[dpfx_torch] val @ step {step}: "
+                    + " ".join(f"{k}={agg[k]:.4f}" for k in keys)
+                    + (f" (median neg_elbo/pt={med:.4f})" if med is not None else ""))
+        self.writer.write({"kind": "val", "step": step, **agg})
+        return agg
+
     def fit(self, batches: Iterator[Dict[str, np.ndarray]],
+            val_batches_fn: Optional[Callable[[], Iterator]] = None,
             steps: Optional[int] = None) -> TrainState:
         """Train on host batches: steps_per_call of them stacked into one
-        call; a partial group at the end goes through single steps."""
+        call; a partial group at the end goes through single steps.
+        ``val_batches_fn()`` gives the validation batches at each eval_every
+        crossing; ``steps`` stops the run early (the schedule keeps
+        train.steps' horizon)."""
         steps = steps or self.cfg.train.steps
-        cad = _Cadence(self, steps)
+        cad = _Cadence(self, steps, val_batches_fn)
         spc = self.steps_per_call
         pending: list = []
         for batch in batches:
@@ -646,15 +831,18 @@ class Trainer:
             self.state, metrics = self.train_step(self.state, batch)
             cad.record(1, metrics, batch["x"].shape[0] * batch["x"].shape[1])
         cad.finish()
+        self.last_eval_step = cad.last_eval_step
         return self.state
 
     def fit_resident(self, clouds: Union[np.ndarray, Tensor],
+                     val_batches_fn: Optional[Callable[[], Iterator]] = None,
                      steps: Optional[int] = None) -> TrainState:
         """Train with the split resident on the device
         (``data.device_resident``): ``clouds`` is the [S, P, 3] stack of
         ``dpfx_torch.data.preload_clouds``, moved to the device once; each
         call draws and gathers steps_per_call batches there, and a last call
-        takes the remaining steps."""
+        takes the remaining steps. The draws are keyed by the absolute step,
+        so a resumed run draws what the uninterrupted one would have."""
         steps = steps or self.cfg.train.steps
         b, n = self.cfg.train.batch_size, self.cfg.data.n_points
         data = torch.as_tensor(clouds, dtype=torch.float32).to(self.device)
@@ -665,10 +853,60 @@ class Trainer:
 
         resident = make_resident_multi_step(self.model, self.tx, self.cfg,
                                             self.multi_step if spc > 1 else one_step)
-        cad = _Cadence(self, steps)
+        cad = _Cadence(self, steps, val_batches_fn)
         while cad.step < steps:
             k = min(spc, steps - cad.step)
             self.state, metrics = resident(self.state, data, k)
             cad.record(k, metrics, b * n)
         cad.finish()
+        self.last_eval_step = cad.last_eval_step
         return self.state
+
+    def fit_auto(self, make_batches: Optional[Callable[[], Iterator]] = None,
+                 val_batches_fn: Optional[Callable[[], Iterator]] = None,
+                 resident_clouds: Union[np.ndarray, Tensor, None] = None) -> TrainState:
+        """``fit`` on ``make_batches()`` (or ``fit_resident`` on
+        ``resident_clouds``) with divergence recovery
+        (``train.recover_on_divergence``, off by default): on
+        TrainDivergedError, restore the latest checkpoint in place (or
+        re-initialise without one), multiply ``train.lr`` by
+        ``train.recovery_lr_factor``, build a new optimizer and train steps
+        (the captured graph holds the learning rate as a constant, so the
+        old graph is released and the step captured again at its next
+        call), restart the batch stream and go on towards ``train.steps``;
+        at most ``train.max_recoveries`` times, then re-raise."""
+        tries = 0
+        while True:
+            try:
+                if resident_clouds is not None:
+                    return self.fit_resident(resident_clouds, val_batches_fn=val_batches_fn)
+                return self.fit(make_batches(), val_batches_fn=val_batches_fn)
+            except TrainDivergedError:
+                tcfg = self.cfg.train
+                tries += 1
+                if not tcfg.recover_on_divergence or tries > tcfg.max_recoveries:
+                    raise
+                self.cfg.train = tcfg = dataclasses.replace(
+                    tcfg, lr=tcfg.lr * tcfg.recovery_lr_factor)
+                self.multi_step.release()
+                self.tx = make_optimizer(tcfg)
+                self.train_step = make_train_step(self.model, self.tx, self.cfg)
+                self.multi_step = make_multi_step(self.model, self.tx, self.cfg)
+                restored = self.ckpt.latest_step()
+                if restored is None:
+                    self._reinit()
+                else:
+                    self.ckpt.restore(restored, self.model, self.state)
+                self.log_fn(f"[dpfx_torch] diverged (recovery {tries}/{tcfg.max_recoveries}): "
+                            f"restored step {restored or 0}, lr -> {tcfg.lr:g}; continuing")
+
+    @torch.no_grad()
+    def _reinit(self) -> None:
+        """The initial state again, written into the existing storage."""
+        fresh = init_params_(DPF(self.cfg), self.cfg.train.seed)
+        for p, q in zip(self.model.parameters(), fresh.parameters()):
+            p.copy_(q)
+        for t in (self.state.opt_state.mu, self.state.opt_state.nu, self.state.opt_state.count,
+                  self.state.step):
+            t.zero_()
+        self.state.host_step = 0

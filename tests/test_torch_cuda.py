@@ -3,7 +3,8 @@ forward/backward, fused encoder forward/backward, fused latent flow
 forward/backward/inverse, Chamfer with its backward, approxmatch EMD with
 its gradient mode and its thread-block clusters, the probe tools' backward and dual-issue kernels)
 against their plain versions on the card, at small shapes and at 2048
-points. Marked ``gpu``: each test skips
+points; the captured train step, and the trainer loop on it (resume after
+a capture, the recovery's recapture, evaluation against the CPU). Marked ``gpu``: each test skips
 without a CUDA device. On a machine with one:
 
     python -m pytest tests/test_torch_cuda.py -m gpu --noconftest
@@ -679,6 +680,104 @@ def test_capture_then_reallocated_parameters_raise(cuda):
     assert bool(torch.isfinite(m["loss"]).all())
     with pytest.raises(ValueError, match="captured on"):
         fresh(new, {"x": x[:, :, :128].contiguous()})
+
+
+# ---------------------------------------------------------------- the trainer loop
+
+def _loop_trainer(device, ckpt_dir, fused_latent=False, log_fn=None, **train):
+    """A Trainer on tests/_torch_train_cases.py's card_loop model, its
+    weights moved off the identity (seeded)."""
+    from _torch_train_cases import card_loop
+    from dpfx_torch.config import config_from_dict
+    from dpfx_torch.train import Trainer
+
+    raw = card_loop(fused_latent, ckpt_dir=str(ckpt_dir), **train)
+    tr = Trainer(config_from_dict(raw), device=device, log_fn=log_fn or (lambda s: None))
+    randomize_(tr.model, 1, 0.05)
+    return tr
+
+
+@pytest.mark.parametrize("fused_latent", [False, True])
+def test_resume_after_a_capture_equals_the_uninterrupted_run(cuda, tmp_path, fused_latent):
+    """A resident run of 12 steps in calls of 4 (one capture), against one
+    stopped at 8 and a new Trainer that restores step 8 into its storage and
+    captures again for the last 4: params, moments, count and step equal
+    bit for bit."""
+    from dpfx_torch.data import SyntheticDataset, preload_clouds
+
+    clouds = preload_clouds(SyntheticDataset(size=20, n_stored=300, split="train"))
+    kw = dict(steps=12, steps_per_call=4, log_every=4, ckpt_every=100)
+    whole = _loop_trainer(cuda, tmp_path / "a", fused_latent, **kw)
+    whole.fit_resident(clouds)
+    _loop_trainer(cuda, tmp_path / "b", fused_latent, **kw).fit_resident(clouds, steps=8)
+    resumed = _loop_trainer(cuda, tmp_path / "b", fused_latent, **kw)
+    flat = resumed.state.params.data_ptr()
+    assert resumed.maybe_resume() == 8
+    resumed.fit_resident(clouds)
+    torch.cuda.synchronize()
+    assert resumed.multi_step.graph is not None and resumed.state.params.data_ptr() == flat
+    assert _same_state(resumed.state, whole.state) and resumed.state.host_step == 12
+
+
+def test_fit_auto_captures_the_step_again_after_a_recovery(cuda, tmp_path, monkeypatch):
+    """Host batches holding an inf from step 21 on, calls of 2: the run
+    aborts at step 26, restores step 20 (the checkpoint at 24 fell in the
+    skipped phase), halves lr and captures the step again with it, the old
+    graph released; no storage check fires and the run ends at step 40 with
+    finite params."""
+    from _torch_train_cases import poisoned_batches
+    from dpfx_torch.train import trainer as tm
+
+    captured = []
+    capture = tm.MultiStep._capture
+
+    def counting(self, *a):
+        captured.append(self)
+        return capture(self, *a)
+
+    monkeypatch.setattr(tm.MultiStep, "_capture", counting)
+    logs, calls = [], []
+    tr = _loop_trainer(cuda, tmp_path, log_fn=logs.append, steps=40, steps_per_call=2,
+                       log_every=2, ckpt_every=4, abort_after_skipped_windows=3,
+                       recover_on_divergence=True)
+    first = tr.multi_step
+    state = tr.fit_auto(poisoned_batches(calls, 4, 256, 20))
+    torch.cuda.synchronize()
+    assert len(calls) == 2 and state.host_step == int(state.step) == 40
+    assert any("restored step 20" in line for line in logs), logs
+    assert tr.cfg.train.lr == pytest.approx(0.5e-3)
+    assert captured == [first, tr.multi_step] and first.graph is None
+    assert bool(torch.isfinite(state.params).all())
+
+
+@pytest.mark.parametrize("fused_latent", [False, True])
+def test_evaluate_on_card_matches_cpu(cuda, tmp_path, fused_latent):
+    """Trainer.evaluate through the fused forwards on the card against the
+    same call on the CPU (plain versions), on the same weights, batches (the
+    last ragged) and eps: every mean and median within 2e-2 (the fused
+    step's bracket); the forwards launch once a batch, no backward."""
+    import numpy as np
+
+    from dpfx_torch.ops import fused_encoder as fe
+    from dpfx_torch.ops import fused_latent as fl
+
+    trs = [_loop_trainer(d, tmp_path / d, fused_latent) for d in ("cuda", "cpu")]
+    assert torch.equal(trs[0].state.params.cpu(), trs[1].state.params)
+    rng = np.random.default_rng(2)
+    batches = [{"x": rng.normal(size=(b, 256, 3)).astype(np.float32),
+                "eps": rng.normal(size=(b, 32)).astype(np.float32)} for b in (8, 8, 5)]
+    for mod in (ft, fe, fl):
+        mod.reset_launch_counts()
+    on_card = trs[0].evaluate(iter(batches))
+    counted = {**ft.launches, **fe.launches, **fl.launches}
+    on_cpu = trs[1].evaluate(iter(batches))
+    assert on_card.keys() == on_cpu.keys()
+    for k, v in on_cpu.items():
+        assert abs(on_card[k] - v) <= 2e-2 * abs(v), (k, on_card[k], v)
+    assert counted["fused_train_fwd"] == counted["fused_encoder_fwd"] == 3
+    assert counted["fused_latent_fwd"] == (3 if fused_latent else 0)
+    assert counted["fused_train_bwd"] == counted["fused_encoder_bwd"] == 0
+    assert counted["fused_latent_bwd"] == 0
 
 
 # ---------------------------------------------------------------- evaluation kernels

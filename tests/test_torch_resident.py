@@ -186,8 +186,11 @@ def test_train_cli_resident_with_steps_per_call(tmp_path, capsys):
     assert "steps_per_call=3" in out and "step 7/7" in out
     d = tmp_path / "ck" / "t"
     recs = [json.loads(line) for line in (d / "metrics.jsonl").read_text().splitlines()]
-    assert [r["step"] for r in recs] == [3, 6, 7]
-    assert all(np.isfinite(r["loss"]) and r["nonfinite_skipped"] == 0 for r in recs)
+    train = [r for r in recs if r["kind"] == "train"]
+    assert [r["step"] for r in train] == [3, 6, 7]
+    assert all(np.isfinite(r["loss"]) and r["nonfinite_skipped"] == 0 for r in train)
+    # eval_every (1000) is not crossed: the CLI evaluates once, at the end
+    assert [(r["kind"], r["step"]) for r in recs if r["kind"] != "train"] == [("val", 7)]
     assert sorted(p.name for p in d.glob("*.pt")) == [f"params_{s:08d}.pt" for s in (3, 6, 7)]
 
 

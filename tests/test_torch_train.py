@@ -291,9 +291,12 @@ def test_train_cli_then_generate(tmp_path, capsys):
     assert "step 4/4" in out
     d = tmp_path / "ck" / "t"
     assert sorted(p.name for p in d.glob("*.pt")) == ["params_00000004.pt"]
+    assert sorted(p.name for p in d.glob("*.ckpt")) == ["state_00000004.ckpt"]
     recs = [json.loads(line) for line in (d / "metrics.jsonl").read_text().splitlines()]
-    assert [r["step"] for r in recs] == [4]
-    assert all(np.isfinite(r["loss"]) and r["points_per_sec"] > 0 for r in recs)
+    # the train record of the call, then the CLI's final evaluation
+    assert [(r["kind"], r["step"]) for r in recs] == [("train", 4), ("val", 4)]
+    assert np.isfinite(recs[0]["loss"]) and recs[0]["points_per_sec"] > 0
+    assert all(np.isfinite(v) for k, v in recs[1].items() if k != "kind")
     samples = tmp_path / "s.npy"
     assert generate.main([cfg, "--weights", str(d / "params_00000004.pt"), "--device", "cpu",
                           "--n-clouds", "2", "--n-points", "32", "--out", str(samples)]) == 0
