@@ -3,8 +3,8 @@
 against its plain PyTorch version at the flagship widths, drive the main
 paths (flagship sampling, flagship training, evaluation: the generation
 suite and AE reconstruction, the differentiable distances, the int8
-sampler and the two probe tools) through the normal entry points, and
-report.
+sampler, the two probe tools, and single-view reconstruction's training
+and evaluation) through the normal entry points, and report.
 
 Run from the root of a checkout, on a machine with one CUDA card:
 
@@ -140,6 +140,28 @@ script exits non-zero without a result line):
      dpfx_torch.tools.probe_dual_issue` as child processes, which must exit
      0 with their lines (the bench's split line among them); each counts
      its launches from 0 and prints them last;
+  3h. single-view reconstruction (SVR) at the flagship widths
+     (configs/flagship_svr_quality_resident.yaml: the mixer image encoder at
+     64 px, patch 8, width 256, depth 4) and the ShapeNet npy layout:
+     dpfx_torch.train's CLI on the YAML as written for 30 steps of B=64 x
+     N=2048 (data.synthetic_size cut to 512: the clouds and the renders
+     resident, a call of 20 replays and a tail of 10), launch counts zeroed
+     just before and read just after (fused_train as in phase 3b, no
+     fused_encoder launch), every logged loss and grad norm finite, no step
+     skipped, the params moved; 20 replays and a resident call of the SVR
+     step against eager steps bit for bit (images gathered with the clouds'
+     ids), the replayed SVR step timed in turns with phase 3b's point
+     step, and one replayed SVR call profiled (the point-flow kernels
+     against the rest, the image encoder alone); dpfx_torch.evaluate on the
+     checkpoint at --limit 64 (recon-cd, recon-emd, the per-category
+     table; fused_sample, nnd_fwd and emd_batched launched); the conv
+     backbone at 128 px for 10 steps in one call, and its replayed step's
+     time; then a PointFlow npy tree written here (2 synsets x 3 splits x
+     40 clouds of 2500 points) trained through
+     configs/flagship_gen_npydir.yaml for 20 steps under the per_shape and
+     the global frame, and, where pillow imports, 4 PNG views a model and
+     the SVR YAML through shapenet_svr for 10 steps (ShapeNetH5 needs h5py,
+     which the card's machine lacks: the CPU tests hold it);
   4. at the main paths' shapes (B=64, N=2048, bf16): the training kernels
      held against their plain versions again (u, log-det, every gradient;
      each backward bit-identical across two runs), the redesigned
@@ -179,6 +201,7 @@ nvidia-smi are waited for).
 from __future__ import annotations
 
 import json
+import math
 import os
 import statistics
 import subprocess
@@ -189,6 +212,8 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent
 CONFIG = ROOT / "configs" / "flagship_quality_v3_aug_100k.yaml"
 AE_CONFIG = ROOT / "configs" / "flagship_ae_quality_synthetic.yaml"
+SVR_CONFIG = ROOT / "configs" / "flagship_svr_quality_resident.yaml"
+NPYDIR_CONFIG = ROOT / "configs" / "flagship_gen_npydir.yaml"
 WORK = ROOT / "build" / "chip_smoke"
 
 # H100 SXM peaks (NVIDIA data sheet, dense, at the 700 W limit)
@@ -609,6 +634,7 @@ TOL_CD_IDENTICAL = 1e-5
 TOL_EMD_IDENTICAL = 1e-3
 TOL_EMD_IDENTICAL_SHARE = 0.05
 EVAL_LIMIT = 128              # test clouds per evaluation path (the protocol uses 400)
+SVR_EVAL_LIMIT = 64           # test clouds of the SVR evaluation
 # the CD backward against its plain version: the masks see the same
 # distances bit for bit (the forward's minima, one sqdist expression), so
 # only the order of the f32 sums differs. Per point, |gk_i - gp_i| over
@@ -1870,14 +1896,16 @@ def same_state(a, b) -> bool:
         (a.opt_state.count, b.opt_state.count), (a.step, b.step)))
 
 
-def captured_step_checks(c, dev, clouds, x20, name: str):
+def captured_step_checks(c, dev, clouds, x20, name: str, images=None, img20=None):
     """The captured train step at full width with the latent flow as ``c``
     sets it: 20 replays against 20 eager steps on the same batches and
     supplied noise, a resident call of 20 against eager steps on the
     batches and noise its draw chose (both bit for bit: params, moments,
     count, step), and a replay on a batch holding an inf (skipped), then a
-    good one (finite). Returns ((multi-step, its state), (resident call, its
-    state)) for the timings."""
+    good one (finite). For SVR, ``img20`` holds the batches' images and
+    ``images`` the resident render stack, gathered with the clouds' ids.
+    Returns ((multi-step, its state), (resident call, its state)) for the
+    timings."""
     import torch
 
     from dpfx_torch.compat import randomize_
@@ -1893,13 +1921,14 @@ def captured_step_checks(c, dev, clouds, x20, name: str):
     g = torch.Generator(device=dev).manual_seed(12)
     eps = torch.randn((k, x20.shape[1], c.model.dz), generator=g, device=dev)
     xn = torch.randn(x20.shape, generator=g, device=dev)
+    img = (lambda i: {}) if img20 is None else (lambda i: {"image": img20[i]})  # noqa: E731
     m, tx, eager = fresh()
     step = tm.make_train_step(m, tx, c)
     for i in range(k):
-        eager, _ = step(eager, {"x": x20[i], "eps": eps[i], "xnoise": xn[i]})
+        eager, _ = step(eager, {"x": x20[i], "eps": eps[i], "xnoise": xn[i], **img(i)})
     m2, tx2, rep = fresh()
     multi = tm.make_multi_step(m2, tx2, c)
-    rep, mr = multi(rep, {"x": x20, "eps": eps, "xnoise": xn})
+    rep, mr = multi(rep, {"x": x20, "eps": eps, "xnoise": xn, **img(slice(None))})
     torch.cuda.synchronize()
     check(same_state(rep, eager) and rep.host_step == eager.host_step == k,
           f"{k} replays equal {k} eager steps bit for bit ({name})")
@@ -1908,13 +1937,15 @@ def captured_step_checks(c, dev, clouds, x20, name: str):
     s, p = clouds.shape[:2]
     m3, tx3, res = fresh()
     resident = tm.make_resident_multi_step(m3, tx3, c)
-    res, _ = resident(res, clouds, k)
+    res, _ = resident(res, clouds, k, images=images)
     m4, tx4, eager = fresh()
     ci, pi, reps, rxn = tm.resident_draw(c, 0, k, s, p, dev)
     xr = tm.gather_resident(clouds, ci, pi)
     step = tm.make_train_step(m4, tx4, c)
     for i in range(k):
-        eager, _ = step(eager, {"x": xr[i], "eps": reps[i], "xnoise": rxn[i]})
+        eager, _ = step(eager, {"x": xr[i], "eps": reps[i],
+                                **({} if rxn is None else {"xnoise": rxn[i]}),
+                                **({} if images is None else {"image": images[ci[i]]})})
     torch.cuda.synchronize()
     check(same_state(res, eager), f"a resident call equals eager steps on its draws ({name})")
     del m4, eager, step, xr
@@ -1924,12 +1955,12 @@ def captured_step_checks(c, dev, clouds, x20, name: str):
     held = lambda st: (st.params, st.opt_state.mu, st.opt_state.nu, st.opt_state.count)  # noqa: E731
     before = [t.clone() for t in held(rep)]
     at = int(rep.step)
-    rep, mb = multi(rep, {"x": bad, "eps": eps[:1], "xnoise": xn[:1]})
+    rep, mb = multi(rep, {"x": bad, "eps": eps[:1], "xnoise": xn[:1], **img(slice(0, 1))})
     torch.cuda.synchronize()
     kept = all(torch.equal(a, b) for a, b in zip(held(rep), before))
     check(float(mb["nonfinite_skipped"][0]) == 1.0 and kept and int(rep.step) == at + 1,
           f"a replay on a batch holding an inf skips ({name})")
-    rep, mg = multi(rep, {"x": x20[1:2], "eps": eps[1:2], "xnoise": xn[1:2]})
+    rep, mg = multi(rep, {"x": x20[1:2], "eps": eps[1:2], "xnoise": xn[1:2], **img(slice(1, 2))})
     check(float(mg["nonfinite_skipped"][0]) == 0.0 and bool(torch.isfinite(mg["loss"]).all())
           and int(rep.opt_state.count) == int(before[3]) + 1,
           f"the replay after the skipped one is finite and counts ({name})")
@@ -1940,6 +1971,281 @@ def captured_step_checks(c, dev, clouds, x20, name: str):
           f"skipped (params, moments, count kept; step {at} -> {at + 1}), the next replay "
           f"finite (loss {float(mg['loss'][0]):.2f})")
     return (multi, rep), (resident, res)
+
+
+def svr_train_run(argv, run_dir: Path, steps: int, n_calls):
+    """Phase 3h's training CLI runs: ``train_cli_run`` with the checks
+    every run shares (exit code, the calls and log records, one final
+    evaluation, every logged loss and grad norm finite, no step skipped,
+    every parameter moved). Returns (what it printed, the train records,
+    the per-call losses, the wall seconds)."""
+    import torch
+
+    t0 = time.perf_counter()
+    rc, text, calls, init_weights = train_cli_run(argv)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    records = [json.loads(line) for line in (run_dir / "metrics.jsonl").read_text().splitlines()]
+    val = [r for r in records if r["kind"] == "val"]
+    records = [r for r in records if r["kind"] == "train"]
+    check(rc == 0 and [k for k, _ in calls] == n_calls and records and records[-1]["step"] == steps,
+          f"train calls {calls}, records {records}")
+    check([r["step"] for r in val] == [steps] and finite_numbers(val[0]),
+          f"one final evaluation, finite: {val}")
+    check("ignored" not in text, "the CLI trains the YAML as written")
+    check(all(math.isfinite(r["loss"]) and math.isfinite(r["grad_norm"]) for r in records),
+          f"every logged loss and grad norm is finite: {records}")
+    check(all(r["nonfinite_skipped"] == 0 for r in records), "no step was skipped")
+    trained = torch.load(run_dir / f"params_{steps:08d}.pt", map_location="cpu", weights_only=True)
+    moved = sum(not torch.equal(trained[k], v) for k, v in init_weights.items())
+    check(moved == len(init_weights), f"{moved} of {len(init_weights)} parameters moved")
+    return text, records, calls, wall
+
+
+def svr_path(dev, card, point_replayed):
+    """Phase 3h: single-view reconstruction at the flagship widths and the
+    ShapeNet npy layout. ``point_replayed`` is phase 3b's [replayed call of
+    20 point-modality steps, its state], timed in turns with the SVR step."""
+    import shutil
+    from importlib.util import find_spec
+
+    import numpy as np
+    import torch
+
+    from dpfx_torch.compat import randomize_
+    from dpfx_torch.config import load_config
+    from dpfx_torch.data import (SYNSET_IDS, SyntheticDataset, build_dataset, iterate_batches,
+                                 preload_clouds, preload_images)
+    from dpfx_torch.models import DPF
+    from dpfx_torch.ops import chamfer as cdk
+    from dpfx_torch.ops import emd as emdk
+    from dpfx_torch.ops import fused_encoder as fe
+    from dpfx_torch.ops import fused_latent as fl
+    from dpfx_torch.ops import fused_sampler as fs
+    from dpfx_torch.ops import fused_train as ft
+    from dpfx_torch.train import trainer as tm
+
+    counts = lambda mods: {k: v for m in mods for k, v in m.launches.items()}  # noqa: E731
+    train_mods = (ft, fe, fl)
+    cfg = load_config(str(SVR_CONFIG))
+    ie = cfg.model.image_encoder
+    check(cfg.experiment == "svr" and (ie.arch, ie.image_size, ie.patch, ie.width, ie.depth)
+          == ("mixer", 64, 8, 256, 4) and cfg.model.point_flow.n_layers == 32
+          and cfg.train.fused_point_flow and not cfg.train.fused_encoder,
+          "the flagship SVR YAML: mixer 64 px, patch 8, width 256, depth 4; fused point flow")
+
+    def launch_checks(launches, steps, val_batches, what):
+        for kname, count in launches.items():
+            want = (0 if not kname.startswith("fused_train") else
+                    tm._WARMUP + steps + (val_batches if kname.endswith("fwd") else 0))
+            check(count == want, f"kernel {kname}: {count} launches on {what} (want {want}: "
+                                 f"{tm._WARMUP} warm-up steps, {steps} steps, {val_batches} "
+                                 "evaluation batches; the image posterior launches no encoder "
+                                 "kernel)")
+
+    # SVR training through the CLI on the YAML as written (mixer), cut to
+    # 512 clouds and 30 steps: a resident call of 20 replays and a tail of 10
+    run_root = WORK / "train_svr"
+    shutil.rmtree(run_root, ignore_errors=True)
+    for m in train_mods:
+        m.reset_launch_counts()
+    text, records, calls, wall = svr_train_run(
+        [str(SVR_CONFIG), f"train.steps={TRAIN_STEPS}", "train.log_every=5",
+         f"train.ckpt_every={TRAIN_STEPS}", f"train.ckpt_dir={run_root}",
+         "data.synthetic_size=512"], run_root / cfg.name, TRAIN_STEPS, [20, TRAIN_STEPS - 20])
+    train_launches = counts(train_mods)
+    check("images=64px" in text and "device-resident split: 512 clouds x 2048 stored pts (13 MB"
+          in text and "+ renders 64x64x3 (25 MB); steps_per_call=20" in text,
+          "the SVR CLI preloads both stacks and prints their MB")
+    launch_checks(train_launches, TRAIN_STEPS, VAL_BATCHES, "the SVR training path")
+    trained_pt = run_root / cfg.name / f"params_{TRAIN_STEPS:08d}.pt"
+    print(f"SVR training path (mixer 64 px, B=64 x 2048): {TRAIN_STEPS} steps (calls "
+          f"{[k for k, _ in calls]}, resident clouds and renders) in {wall:.1f} s wall; launches "
+          f"{json.dumps(train_launches)}; loss " + ", ".join(f"{r['loss']:.1f}" for r in records)
+          + "; grad norm " + ", ".join(f"{r['grad_norm']:.1f}" for r in records) + "; points/s "
+          + ", ".join(f"{r['points_per_sec']:,.0f}" for r in records))
+
+    # the captured SVR step: replays and a resident call against eager steps,
+    # bit for bit, on supplied noise
+    dcfg = load_config(str(SVR_CONFIG), overrides=["data.synthetic_size=512"]).data
+    train_ds = build_dataset(dcfg, "train", ie.image_size)
+    host = [bt for bt, _ in zip(iterate_batches(train_ds, 64, 2048, seed=5, with_images=True),
+                                range(4))]
+    x20 = torch.stack([torch.from_numpy(host[i % 4]["x"]) for i in range(20)]).to(dev)
+    img20 = torch.stack([torch.from_numpy(host[i % 4]["image"]) for i in range(20)]).to(dev)
+    clouds = torch.from_numpy(preload_clouds(train_ds)).to(dev)
+    images = torch.from_numpy(preload_images(train_ds)).to(dev)
+    (multi, rstate), _ = captured_step_checks(cfg, dev, clouds, x20, "SVR, mixer", images=images,
+                                              img20=img20)
+    svr_replayed = [lambda st: multi(st, {"x": x20, "image": img20}), rstate]
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+
+    def timed_call(timer):
+        torch.cuda.synchronize()
+        start.record()
+        timer[1], _ = timer[0](timer[1])
+        end.record()
+        torch.cuda.synchronize()
+        return start.elapsed_time(end) / 20
+
+    turns = [timed_call(t) for t in (point_replayed, svr_replayed, svr_replayed, point_replayed)]
+    point_ms, svr_ms = (turns[0] + turns[3]) / 2, (turns[1] + turns[2]) / 2
+    print(f"replayed step at 64 x 2048 (calls of 20, in turns): SVR (mixer 64 px) {svr_ms:.3f} "
+          f"ms/step, point modality (fused encoder) {point_ms:.3f} ms/step; turns "
+          + ", ".join(f"{t:.3f}" for t in turns) + f" ({card})")
+
+    # where the replayed SVR step's time goes: the point-flow kernels against
+    # the rest, and the image encoder's forward and backward alone
+    def svr_call():
+        svr_replayed[1], _ = svr_replayed[0](svr_replayed[1])
+
+    wall_us, busy_us, dev_events = profiled(svr_call, 1)
+    flow_us = sum(e.self_device_time_total for e in dev_events
+                  if "fwd_kernel_mma" in e.key or "bwd_kernel_mma" in e.key)
+    check(flow_us > 0, "the profiler saw the point-flow kernels in a replayed SVR call")
+    top = sorted(dev_events, key=lambda e: -e.self_device_time_total)[:6]
+    enc = randomize_(DPF(cfg).image_encoder, 3, 0.02).to(dev)
+
+    def enc_step():
+        mu, logvar = enc(img20[0])
+        torch.autograd.grad(mu.sum() + logvar.sum(), list(enc.parameters()))
+
+    enc_ms = cuda_ms(enc_step, 20, warmup=1)
+    _, enc_busy_us, _ = profiled(enc_step, 5)
+    print(f"profile replayed SVR call of 20 steps: wall {wall_us / 20e3:.3f} ms/step, device busy "
+          f"{busy_us / 20e3:.3f} ms/step, idle share {1 - busy_us / wall_us:.3f}; point-flow "
+          f"kernels (fwd_kernel_mma, bwd_kernel_mma) {flow_us / 20e3:.3f} ms/step, the rest "
+          f"(image encoder, latent flow, optimizer) {(busy_us - flow_us) / 20e3:.3f} ms/step; the "
+          f"image encoder's forward and backward alone (eager, B=64): device busy "
+          f"{enc_busy_us / 5e3:.3f} ms, {enc_ms:.3f} ms on CUDA events; "
+          f"{sum(e.count for e in dev_events) / 20:.1f} kernels/step; top: "
+          + "; ".join(f"{e.key[:60]} {e.self_device_time_total / 20e3:.3f} ms x{e.count / 20:g}"
+                      for e in top) + f" ({card})")
+    del multi, svr_replayed, clouds, images
+
+    # SVR evaluation through the CLI on the trained checkpoint
+    eval_mods = (fs, cdk, emdk, ft, fe)
+    for m in eval_mods:
+        m.reset_launch_counts()
+    rc, res, res_t, res_wall = run_eval_cli([str(SVR_CONFIG), "--weights", str(trained_pt),
+                                             "--limit", str(SVR_EVAL_LIMIT)])
+    eval_launches = {k: v for k, v in counts(eval_mods).items() if v or k.startswith("fused_enc")}
+    check(rc == 0 and set(res) == {"step", "n_test", "recon-cd", "recon-emd", "per_category"}
+          and res["n_test"] == SVR_EVAL_LIMIT and res["step"] == TRAIN_STEPS
+          and finite_numbers(res), f"SVR results {res}")
+    check(len(res["per_category"]) == 5, f"the per-category table: {sorted(res['per_category'])}")
+    for k in ("fused_sample", "nnd_fwd", "emd_batched"):
+        check(eval_launches.get(k, 0) > 0, f"kernel {k} was not launched on the SVR evaluation path")
+    check(all(v == 0 for k, v in eval_launches.items() if k.startswith("fused_enc")),
+          f"no encoder kernel on the SVR evaluation path: {eval_launches}")
+    print(f"SVR evaluation on the {TRAIN_STEPS}-step checkpoint, {SVR_EVAL_LIMIT} test clouds: "
+          f"recon-cd {res['recon-cd']:.5f}, recon-emd {res['recon-emd']:.5f}, per category "
+          + json.dumps({k: round(v["recon-cd"], 5) for k, v in res["per_category"].items()})
+          + f"; {res_t['total']:.3f} s ({res_wall:.2f} s with restore and renders); launches "
+          f"{json.dumps(eval_launches)}")
+
+    # the conv backbone (configs/shapenet_airplane_svr.yaml's: 128 px), one call of 10
+    conv_over = ["model.image_encoder.arch=conv", "model.image_encoder.image_size=128"]
+    conv_root = WORK / "train_svr_conv"
+    shutil.rmtree(conv_root, ignore_errors=True)
+    for m in train_mods:
+        m.reset_launch_counts()
+    text, crecords, _, cwall = svr_train_run(
+        [str(SVR_CONFIG), *conv_over, "train.steps=10", "train.log_every=5",
+         f"train.lr_decay_steps={TRAIN_STEPS}", "train.ckpt_every=10",
+         f"train.ckpt_dir={conv_root}", "data.synthetic_size=512"], conv_root / cfg.name, 10, [10])
+    conv_launches = counts(train_mods)
+    check("+ renders 128x128x3 (101 MB)" in text, "the conv run preloads 128 px renders")
+    launch_checks(conv_launches, 10, VAL_BATCHES, "the conv SVR training path")
+    ccfg = load_config(str(SVR_CONFIG), overrides=conv_over + ["data.synthetic_size=512"])
+    cds = build_dataset(ccfg.data, "train", 128)
+    chost = [bt for bt, _ in zip(iterate_batches(cds, 64, 2048, seed=6, with_images=True),
+                                 range(4))]
+    cx = torch.stack([torch.from_numpy(chost[i % 4]["x"]) for i in range(20)]).to(dev)
+    cimg = torch.stack([torch.from_numpy(chost[i % 4]["image"]) for i in range(20)]).to(dev)
+    cmodel = randomize_(tm.init_params_(DPF(ccfg), 1), 1, 0.02).to(dev)
+    ctx = tm.make_optimizer(ccfg.train)
+    cstate = tm.init_state(cmodel, ctx)
+    cmulti = tm.make_multi_step(cmodel, ctx, ccfg)
+    cstate, _ = cmulti(cstate, {"x": cx[:2], "image": cimg[:2]})      # the capture
+    ctimer = [lambda st: cmulti(st, {"x": cx, "image": cimg}), cstate]
+    conv_ms = timed_call(ctimer)
+    print(f"SVR training path, conv backbone (widths {list(ccfg.model.image_encoder.widths)}, "
+          f"128 px): 10 steps in one call in {cwall:.1f} s wall; launches "
+          f"{json.dumps(conv_launches)}; loss {crecords[-1]['loss']:.1f}, grad norm "
+          f"{crecords[-1]['grad_norm']:.1f}; replayed {conv_ms:.3f} ms/step (a call of 20; "
+          f"{card})")
+    del cmulti, ctimer, cmodel, cstate, cx, cimg
+
+    # the ShapeNet layouts: 2 synsets x 3 splits x 40 clouds of 2500 stored
+    # points in a PointFlow npy tree, the flagship generative model through
+    # the npy-dir loader under the per_shape and global frames; with pillow,
+    # 4 PNG views a model (render_cloud) and the SVR model through
+    # shapenet_svr; h5 files need h5py, which the card's machine lacks
+    from dpfx_torch.data import render_cloud
+
+    tree, renders = WORK / "shapenet_npy", WORK / "shapenet_renders"
+    shutil.rmtree(tree, ignore_errors=True)
+    shutil.rmtree(renders, ignore_errors=True)
+    have_pil = find_spec("PIL") is not None
+    for c, cat in enumerate(("airplane", "chair")):
+        for split in ("train", "val", "test"):
+            d = tree / SYNSET_IDS[cat] / split
+            d.mkdir(parents=True)
+            src = SyntheticDataset(size=40, n_stored=2500, split=split, family="v2", seed=c)
+            for i in range(40):
+                cloud = src[i] * (1.0 + c) + np.float32(c)
+                model = f"{split}_{i:03d}"           # model ids are unique across splits
+                np.save(d / f"{model}.npy", cloud)
+                if have_pil:
+                    from PIL import Image
+
+                    r = renders / SYNSET_IDS[cat] / model / "rendering"
+                    r.mkdir(parents=True)
+                    for v in range(4):
+                        px = (render_cloud(cloud, 64, v * 2) * 255).astype(np.uint8)
+                        Image.fromarray(px).save(r / f"{v:02d}.png")
+    rows = []
+    for norm in ("per_shape", "global"):
+        nroot = WORK / f"train_npydir_{norm}"
+        shutil.rmtree(nroot, ignore_errors=True)
+        for m in train_mods:
+            m.reset_launch_counts()
+        text, nrec, _, nwall = svr_train_run(
+            [str(NPYDIR_CONFIG), f"data.path={tree}", f"data.normalize={norm}", "train.steps=20",
+             "train.log_every=10", f"train.lr_decay_steps={TRAIN_STEPS}", "train.ckpt_every=20",
+             f"train.ckpt_dir={nroot}"], nroot / "flagship_gen_npydir", 20, [20])
+        launches = counts(train_mods)
+        check("train=80 val=80 clouds" in text
+              and "device-resident split: 80 clouds x 2500 stored pts" in text,
+              f"the npy tree's clouds counted ({norm})")
+        check(launches["fused_train_fwd"] == tm._WARMUP + 20 + 3
+              and launches["fused_encoder_bwd"] == tm._WARMUP + 20,
+              f"the training kernels launched on the npy-dir path ({norm}): {launches}")
+        rows.append(f"{norm}: loss {nrec[-1]['loss']:.1f}, grad norm {nrec[-1]['grad_norm']:.1f}, "
+                    f"{nwall:.1f} s wall, launches {json.dumps(launches)}")
+    if have_pil:
+        sroot = WORK / "train_shapenet_svr"
+        shutil.rmtree(sroot, ignore_errors=True)
+        for m in train_mods:
+            m.reset_launch_counts()
+        text, srec, _, swall = svr_train_run(
+            [str(SVR_CONFIG), "data.dataset=shapenet_svr", f"data.path={tree}",
+             f"data.render_path={renders}", "data.views_per_model=4", "data.normalize=per_shape",
+             "train.steps=10", "train.log_every=10", f"train.lr_decay_steps={TRAIN_STEPS}",
+             "train.ckpt_every=10", f"train.ckpt_dir={sroot}"], sroot / cfg.name, 10, [10])
+        launches = counts(train_mods)
+        check("train=80 val=80 clouds" in text and "80 clouds x 2500 stored pts" in text
+              and "+ renders 64x64x3 (4 MB)" in text, "the paired tree's clouds and renders counted")
+        launch_checks(launches, 10, 3, "the shapenet_svr training path")
+        rows.append(f"shapenet_svr (4 PNG views a model, mixer 64 px, 10 steps): loss "
+                    f"{srec[-1]['loss']:.1f}, grad norm {srec[-1]['grad_norm']:.1f}, {swall:.1f} s "
+                    f"wall, launches {json.dumps(launches)}")
+    print("ShapeNet layouts (2 synsets x train/val/test x 40 clouds of 2500 points, the "
+          "subsample on the device; flagship_gen_npydir.yaml for 20 steps, one call): "
+          + "; ".join(rows) + f". h5py importable: {find_spec('h5py') is not None}, pillow: "
+          f"{have_pil}; what is not importable here (ShapeNetH5; ShapeNetRenderDataset "
+          "without pillow) is held to dpfx on the CPU by tests/test_torch_datasets.py only")
 
 
 def trainer_loop_path(cfg, dev, card):
@@ -2772,6 +3078,9 @@ def main() -> int:
 
     # ---- 3f. the probe tools at full width (bench_fused_bwd, probe_dual_issue)
     probe_rows = probe_tools_path(sp, dev, card)
+
+    # ---- 3h. single-view reconstruction (mixer and conv) and the ShapeNet npy layout
+    svr_path(dev, card, timers[("off", "replayed")])
 
     # ---- 4. per-kernel numbers at the main path's shapes (B=64, N=2048, bf16)
     b, n = 64, 2048

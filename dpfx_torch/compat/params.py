@@ -2,7 +2,11 @@
 
 The port's module names equal the flax tree's, so the map is mechanical:
 a Dense ``kernel [in, out]`` is a Linear ``weight [out, in]`` (transposed);
-every other leaf (``bias``, ActNorm ``log_scale``) keeps its name and value.
+a Conv ``kernel [kh, kw, cin, cout]`` is a Conv2d ``weight [cout, cin, kh,
+kw]`` (permuted: a plain transpose would swap kh and kw, which a 3x3
+kernel's shape does not show); a LayerNorm or GroupNorm ``scale`` is the
+norm's ``weight`` (a 1-D weight is always a norm's); every other leaf
+(``bias``, ActNorm ``log_scale``) keeps its name and value.
 Paths join with ``.`` in the state dict and ``/`` in a flattened flax tree
 (the ``.npz`` layout that ``dpfx_torch.checkpoint`` reads).
 """
@@ -49,7 +53,10 @@ def params_from_flax(tree: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
     for path, a in flatten_tree(tree).items():
         *parents, leaf = path.split("/")
         if leaf == "kernel":
-            sd[".".join(parents + ["weight"])] = torch.from_numpy(np.ascontiguousarray(a.T))
+            w = a.transpose(3, 2, 0, 1) if a.ndim == 4 else a.T
+            sd[".".join(parents + ["weight"])] = torch.from_numpy(np.ascontiguousarray(w))
+        elif leaf == "scale":
+            sd[".".join(parents + ["weight"])] = torch.from_numpy(np.array(a))
         else:
             sd[".".join(parents + [leaf])] = torch.from_numpy(np.array(a))
     return sd
@@ -61,8 +68,11 @@ def params_to_flax(state_dict: Mapping[str, torch.Tensor]) -> Dict[str, Any]:
     for key, t in state_dict.items():
         *parents, leaf = key.split(".")
         a = t.detach().cpu().numpy()
-        if leaf == "weight":
-            flat["/".join(parents + ["kernel"])] = np.ascontiguousarray(a.T)
+        if leaf == "weight" and a.ndim == 1:
+            flat["/".join(parents + ["scale"])] = a
+        elif leaf == "weight":
+            w = a.transpose(2, 3, 1, 0) if a.ndim == 4 else a.T
+            flat["/".join(parents + ["kernel"])] = np.ascontiguousarray(w)
         else:
             flat["/".join(parents + [leaf])] = a
     return {"params": unflatten_tree(flat)}

@@ -1,8 +1,9 @@
 """Host-side batching, a copy of the single-process part of
 ``dpfx/data/loader.py``: random per-item subsampling, seeded epoch
 permutations, a background-thread prefetcher, and the eval-split helpers
-(label-stratified subsets, whole-split materialisation). The batches are
-numpy; the trainer and the evaluators move them to the device."""
+(label-stratified subsets, whole-split materialisation, the paired
+renders of an SVR dataset). The batches are numpy; the trainer and the
+evaluators move them to the device."""
 
 from __future__ import annotations
 
@@ -27,9 +28,12 @@ def _slot_rng(seed: int, epoch: int, slot: int) -> np.random.Generator:
 
 def iterate_batches(dataset, batch_size: int, n_points: int, seed: int = 0,
                     shuffle: bool = True, drop_last: bool = True,
-                    epochs: Optional[int] = None) -> Iterator[Dict[str, np.ndarray]]:
-    """Yields {"x": [B, n_points, 3]} batches, reshuffled every epoch; the
-    same batches as ``dpfx.data.iterate_batches`` for the same seed."""
+                    epochs: Optional[int] = None, with_images: bool = False
+                    ) -> Iterator[Dict[str, np.ndarray]]:
+    """Yields {"x": [B, n_points, 3]} batches, plus "image" [B, H, W, 3]
+    with ``with_images`` on a dataset that has images (SVR), reshuffled
+    every epoch; the same batches as ``dpfx.data.iterate_batches`` for the
+    same seed."""
     if drop_last and len(dataset) < batch_size:
         raise ValueError(f"dataset has {len(dataset)} items < batch_size {batch_size} with "
                          "drop_last=True: no batch can ever be produced")
@@ -40,9 +44,12 @@ def iterate_batches(dataset, batch_size: int, n_points: int, seed: int = 0,
         stop = len(order) - (len(order) % batch_size if drop_last else 0)
         for s in range(0, stop, batch_size):
             idx = order[s:s + batch_size]
-            yield {"x": np.stack([sample_cloud(dataset[int(i)], n_points,
-                                               _slot_rng(seed, epoch, s + j))
-                                  for j, i in enumerate(idx)])}
+            batch = {"x": np.stack([sample_cloud(dataset[int(i)], n_points,
+                                                 _slot_rng(seed, epoch, s + j))
+                                    for j, i in enumerate(idx)])}
+            if with_images and hasattr(dataset, "image"):
+                batch["image"] = np.stack([dataset.image(int(i)) for i in idx])
+            yield batch
         epoch += 1
 
 
@@ -150,3 +157,13 @@ def load_all_labels(dataset, limit: Optional[int] = None,
         return None
     rows = _subset_rows(dataset, limit, indices)
     return np.array([dataset.label(int(i)) for i in rows], np.int32)
+
+
+def load_all_images(dataset, limit: Optional[int] = None,
+                    indices: Optional[np.ndarray] = None) -> Optional[np.ndarray]:
+    """The paired renders [S, H, W, 3] aligned with load_all's rows (SVR
+    evaluation), or None for a dataset without images."""
+    if not hasattr(dataset, "image"):
+        return None
+    rows = _subset_rows(dataset, limit, indices)
+    return np.stack([dataset.image(int(i)) for i in rows])

@@ -9,7 +9,7 @@ The task follows the config's ``experiment``:
   ae  -> reconstruction CD/EMD on the test split (``recon-cd``, ``recon-emd``)
   gen -> sample |test| clouds, then MMD/COV/1-NNA for each of
          ``eval.metrics`` and JSD
-  svr -> not ported yet (the image encoders, ROADMAP Queue 1 #6)
+  svr -> reconstruction CD/EMD from each test cloud's paired image
 
 The weights are ``--weights`` (a ``.pt`` state dict or a flattened flax
 ``.npz``, see ``dpfx_torch.checkpoint``) or else the trainer's
@@ -50,17 +50,14 @@ def main(argv=None) -> int:
 
     from dpfx_torch.checkpoint import checkpoint_path, restore_for_eval
     from dpfx_torch.config import load_config
-    from dpfx_torch.data import build_dataset, eval_subset, load_all
+    from dpfx_torch.data import build_dataset, eval_subset, load_all, load_all_images
     from dpfx_torch.metrics import evaluate_generation, evaluate_reconstruction
 
     # float32 products stay IEEE float32 on the card (the plain paths' contract)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     cfg = load_config(args.config, overrides=args.overrides)
-    if cfg.experiment == "svr":
-        raise NotImplementedError("SVR evaluation needs the image encoders, not ported yet "
-                                  "(ROADMAP Queue 1 #6)")
-    if cfg.experiment not in ("ae", "gen"):
+    if cfg.experiment not in ("ae", "gen", "svr"):
         raise ValueError(f"unknown experiment {cfg.experiment!r}")
     if args.weights:
         found = re.fullmatch(r"params_(\d+)\.pt", Path(args.weights).name)
@@ -71,17 +68,19 @@ def main(argv=None) -> int:
     model = restore_for_eval(cfg, weights, args.device)
     print(f"[dpfx_torch] evaluating {cfg.experiment} @ step {step} on {model.device}")
 
-    test_ds = build_dataset(cfg.data, "test")
+    test_ds = build_dataset(cfg.data, "test", cfg.model.image_encoder.image_size)
     indices, subset_labels = eval_subset(test_ds, args.limit)
     clouds = load_all(test_ds, cfg.data.n_points_eval, limit=args.limit, indices=indices)
+    images = (load_all_images(test_ds, limit=args.limit, indices=indices)
+              if cfg.experiment == "svr" else None)
     labels = subset_labels if cfg.data.category == "all" else None
     label_names = getattr(test_ds, "label_names", None)
 
     timings: dict = {}
     t0 = time.perf_counter()
-    if cfg.experiment == "ae":
+    if cfg.experiment in ("ae", "svr"):
         results = evaluate_reconstruction(model, clouds, cfg, impl=args.impl, labels=labels,
-                                          label_names=label_names)
+                                          label_names=label_names, images=images)
     else:
         results = evaluate_generation(model, clouds, cfg, impl=args.impl, labels=labels,
                                       label_names=label_names, timings=timings)

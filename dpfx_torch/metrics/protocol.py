@@ -3,11 +3,10 @@
   * autoencoding: encode each test cloud, decode N points from the posterior
     mean through the fused sampler kernel, per-pair CD (and EMD) against the
     input, dataset means;
+  * single-view reconstruction (SVR): the same, with the posterior mean
+    taken from each cloud's paired image;
   * generation: sample as many clouds as the test set holds, then the full
     metric suite.
-
-SVR (decoding from the image posterior) waits for the image encoders
-(ROADMAP Queue 1 #6).
 """
 
 from __future__ import annotations
@@ -36,13 +35,13 @@ def _recon_metrics(impl: str, n_iters: int):
 @torch.no_grad()
 def evaluate_reconstruction(model: DPF, clouds: np.ndarray, cfg: Config, seed: int = 0,
                             impl: str = "auto", labels: Optional[np.ndarray] = None,
-                            label_names: Optional[Dict[int, str]] = None) -> Dict[str, object]:
-    """AE reconstruction eval. clouds: [S, N, 3] test split, on the host.
-    Batches of ``eval.batch_size``; batch i decodes with seed ``seed + i``.
-    With ``labels``, per-category means too."""
-    if cfg.experiment == "svr":
-        raise NotImplementedError("SVR evaluation needs the image encoders, not ported yet "
-                                  "(ROADMAP Queue 1 #6)")
+                            label_names: Optional[Dict[int, str]] = None,
+                            images: Optional[np.ndarray] = None) -> Dict[str, object]:
+    """AE or SVR reconstruction eval. clouds: [S, N, 3] test split, on the
+    host; ``images`` [S, H, W, 3], the clouds' paired renders (SVR), gives
+    the posterior in place of the clouds. Batches of ``eval.batch_size``;
+    batch i decodes with seed ``seed + i``. With ``labels``, per-category
+    means too."""
     bsz = cfg.eval.batch_size
     use_emd = "emd" in cfg.eval.metrics
     chamfer, emd = _recon_metrics(impl, cfg.eval.emd_iters)
@@ -50,7 +49,9 @@ def evaluate_reconstruction(model: DPF, clouds: np.ndarray, cfg: Config, seed: i
     cds, emds = [], []
     for i in range(0, clouds.shape[0], bsz):
         xb = torch.from_numpy(np.ascontiguousarray(clouds[i:i + bsz], np.float32)).to(model.device)
-        mu, _ = model.posterior(xb)
+        imb = None if images is None else torch.from_numpy(
+            np.ascontiguousarray(images[i:i + bsz], np.float32)).to(model.device)
+        mu, _ = model.posterior(xb, imb)
         rec = decode(mu, seed + i)
         cds.append(chamfer(rec, xb).cpu().numpy())
         if use_emd:

@@ -7,7 +7,9 @@ The device defaults to cuda and the run fails without one; ``--device cpu``
 runs the plain path. ``train.steps_per_call`` steps run per call (on the
 card, replays of one step captured in a CUDA graph); with
 ``data.device_resident`` the split is loaded onto the device once and each
-step's batch is drawn and gathered there. The validation split is
+step's batch is drawn and gathered there; an SVR run (``experiment: svr``)
+loads its paired render stack too and gathers each step's images with the
+clouds' ids. The validation split is
 evaluated every ``train.eval_every`` steps and once at the end (unless the
 cadence has just done so). Full-state checkpoints (``params_<step>.pt``
 and ``state_<step>.ckpt``, the newest ``train.ckpt_keep`` kept, 0 keeps
@@ -15,8 +17,8 @@ all) and ``metrics.jsonl`` go to ``train.ckpt_dir/name``; ``--resume``
 continues from the newest one, and ``train.recover_on_divergence``
 restores it at a lower lr after a divergence. Sample a checkpoint with
 ``python -m dpfx_torch.generate CONFIG --weights <ckpt>.pt``. Not ported
-yet: the datasets other than ``synthetic`` and the packed loader, SVR,
-and more than one GPU or process.
+yet: the packed loader (``data.packed_path``) and more than one GPU or
+process.
 """
 
 from __future__ import annotations
@@ -38,19 +40,19 @@ def main(argv=None) -> int:
     import torch
 
     from dpfx_torch.config import load_config
-    from dpfx_torch.data import build_dataset, iterate_batches, prefetch_batches, preload_clouds
+    from dpfx_torch.data import (build_dataset, iterate_batches, prefetch_batches, preload_clouds,
+                                 preload_images)
     from dpfx_torch.train import Trainer
 
     # float32 products stay IEEE float32 on the card (the plain paths' contract)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     cfg = load_config(args.config, strict=args.strict_config, overrides=args.overrides)
-    if cfg.experiment == "svr":
-        raise NotImplementedError("SVR training is not ported yet (ROADMAP Queue 1 #6)")
-    if cfg.data.packed_path:
+    svr = cfg.experiment == "svr"
+    if cfg.data.packed_path and not svr:     # dpfx reads an SVR run's pairs from its dataset
         raise NotImplementedError(
             f"data.packed_path={cfg.data.packed_path!r}: the native packed loader is not ported "
-            "yet (ROADMAP Queue 1 #5)")
+            "yet (ROADMAP Queue 1 #5b)")
     if cfg.parallel.coordinator or cfg.parallel.num_processes > 1:
         raise NotImplementedError(
             f"multi-process training (parallel.coordinator={cfg.parallel.coordinator!r}, "
@@ -62,33 +64,38 @@ def main(argv=None) -> int:
             "multi-GPU data parallel (parallel.data_axis > 1, parallel.resident_sharding="
             f"{cfg.parallel.resident_sharding!r}) is not ported yet (ROADMAP Queue 1 #8): the "
             "port trains on one device")
-    train_ds = build_dataset(cfg.data, "train")
-    val_ds = build_dataset(cfg.data, "val")
+    image_size = cfg.model.image_encoder.image_size
+    train_ds = build_dataset(cfg.data, "train", image_size)
+    val_ds = build_dataset(cfg.data, "val", image_size)
     if cfg.train.epochs > 0:
         cfg.train.steps = cfg.train.epochs * max(len(train_ds) // cfg.train.batch_size, 1)
         print(f"[dpfx_torch] epochs={cfg.train.epochs} -> steps={cfg.train.steps}")
     trainer = Trainer(cfg, device=args.device)
     print(f"[dpfx_torch] experiment={cfg.experiment} name={cfg.name} device={trainer.device} "
           f"train={len(train_ds)} val={len(val_ds)} clouds; N={cfg.data.n_points} "
-          f"batch={cfg.train.batch_size}")
+          f"batch={cfg.train.batch_size}" + (f" images={image_size}px" if svr else ""))
     if args.resume:
         trainer.maybe_resume()
 
     def val_batches():
         return iterate_batches(val_ds, cfg.eval.batch_size, cfg.data.n_points_eval, seed=0,
-                               shuffle=False, epochs=1, drop_last=False)
+                               shuffle=False, epochs=1, drop_last=False, with_images=svr)
 
     if cfg.data.device_resident:
         clouds = preload_clouds(train_ds)
+        images = preload_images(train_ds) if svr else None
         print(f"[dpfx_torch] device-resident split: {clouds.shape[0]} clouds x {clouds.shape[1]} "
-              f"stored pts ({clouds.nbytes / 1e6:.0f} MB -> {trainer.device}); "
-              f"steps_per_call={trainer.steps_per_call}")
-        trainer.fit_auto(resident_clouds=clouds, val_batches_fn=val_batches)
+              f"stored pts ({clouds.nbytes / 1e6:.0f} MB -> {trainer.device})"
+              + (f" + renders {'x'.join(map(str, images.shape[1:]))} "
+                 f"({images.nbytes / 1e6:.0f} MB)" if svr else "")
+              + f"; steps_per_call={trainer.steps_per_call}")
+        trainer.fit_auto(resident_clouds=clouds, resident_images=images,
+                         val_batches_fn=val_batches)
     else:
         def make_batches():
             # a callable, so that a divergence recovery restarts the stream
             batches = iterate_batches(train_ds, cfg.train.batch_size, cfg.data.n_points,
-                                      seed=cfg.train.seed)
+                                      seed=cfg.train.seed, with_images=svr)
             if cfg.data.num_workers > 0:
                 batches = prefetch_batches(batches, depth=cfg.data.num_workers)
             return batches

@@ -10,7 +10,7 @@ scaled by 1/N too) over the points before the batch mean.
 from __future__ import annotations
 
 import warnings
-from typing import Dict, Tuple
+from typing import Dict, Optional, Tuple
 
 import torch
 
@@ -31,9 +31,11 @@ def _warn_once(key, message: str) -> None:
 
 def elbo_loss(model, x: Tensor, eps: Tensor, kl_weight: float = 1.0,
               recon_reduction: str = "sum_points", fused_point_flow: bool = False,
-              fused_encoder: bool = False, fused_latent_flow: bool = False
-              ) -> Tuple[Tensor, Dict[str, Tensor]]:
-    """Returns (scalar loss, metrics dict). x: [B, N, 3], eps: [B, dz].
+              fused_encoder: bool = False, fused_latent_flow: bool = False,
+              image: Optional[Tensor] = None) -> Tuple[Tensor, Dict[str, Tensor]]:
+    """Returns (scalar loss, metrics dict). x: [B, N, 3], eps: [B, dz];
+    ``image`` [B, H, W, 3] (SVR) takes q(z|view) from the image encoder,
+    and then ``fused_encoder`` does not apply, as in the JAX package.
 
     ``fused_point_flow`` routes the reconstruction term through the fused
     point-flow kernels (``dpfx_torch.ops.fused_train``), ``fused_encoder``
@@ -45,7 +47,7 @@ def elbo_loss(model, x: Tensor, eps: Tensor, kl_weight: float = 1.0,
     n = x.shape[-2]
     mcfg = model.config.model
     posterior = None
-    if fused_encoder:
+    if fused_encoder and image is None:
         if fused_encoder_supported(mcfg.encoder):
             posterior = fused_pointnet_posterior(model.encoder, x)
         else:
@@ -67,7 +69,7 @@ def elbo_loss(model, x: Tensor, eps: Tensor, kl_weight: float = 1.0,
                    "dpfx_torch.train: fused_latent_flow requested but the latent-flow config "
                    "is outside the fused kernels' support (needs relu, no actnorm, dz > 16 "
                    "and dz % 8 == 0); using the module path")
-    t = model.elbo_latent_terms(x, eps, posterior, with_logp_z=not use_fused_lat)
+    t = model.elbo_latent_terms(x, eps, posterior, with_logp_z=not use_fused_lat, image=image)
     t["recon_ll"] = (fused_point_flow_recon_ll(model, x, t["z"], flow_cfg) if use_fused_pf
                      else model.point_flow.log_prob(x, t["z"]).sum(-1))
     if use_fused_lat:

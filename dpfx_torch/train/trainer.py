@@ -201,18 +201,24 @@ class TrainState:
 
 @torch.no_grad()
 def init_params_(model: nn.Module, seed: int) -> nn.Module:
-    """flax's default initialisation, seeded: every Dense kernel lecun-normal
-    (truncated at two standard deviations), every bias zero, and the
-    couplings' ``out`` layers zero (each coupling starts as the identity)."""
+    """flax's default initialisation, seeded: every Dense and Conv kernel
+    lecun-normal over its fan-in (in_features; kh * kw * cin for a conv),
+    truncated at two standard deviations, every bias zero, every
+    LayerNorm and GroupNorm scale one, and the couplings' ``out`` layers
+    zero (each coupling starts as the identity)."""
     g = torch.Generator().manual_seed(seed)
     for m in model.modules():
-        if isinstance(m, nn.Linear):
-            std = math.sqrt(1.0 / m.in_features) / 0.87962566103423978
+        if isinstance(m, (nn.Linear, nn.Conv2d)):
+            fan_in = m.weight[0].numel()
+            std = math.sqrt(1.0 / fan_in) / 0.87962566103423978
             w = torch.empty(m.weight.shape)
             nn.init.trunc_normal_(w, std=std, a=-2 * std, b=2 * std, generator=g)
             m.weight.copy_(w)
             if m.bias is not None:
                 m.bias.zero_()
+        elif isinstance(m, (nn.LayerNorm, nn.GroupNorm)):
+            m.weight.fill_(1.0)
+            m.bias.zero_()
     for m in model.modules():
         if isinstance(m, Conditioner):
             m.out.weight.zero_()
@@ -290,24 +296,28 @@ def _noise(cfg: Config, start: int, k: int, x_shape, device: torch.device,
     return eps, xn
 
 
-StepCore = Callable[[TrainState, Tensor, Tensor, Optional[Tensor]], Dict[str, Tensor]]
+StepCore = Callable[[TrainState, Tensor, Tensor, Optional[Tensor], Optional[Tensor]],
+                    Dict[str, Tensor]]
 
 
 def _make_step(model: DPF, tx: Optimizer, cfg: Config) -> StepCore:
     """The train step on given noise: (state, x [B, N, 3], eps [B, dz],
-    xnoise [B, N, 3] or None) -> metrics, 0-d tensors on the device. It
-    updates the state's tensors in place and reads no value on the host, so
-    a CUDA graph can hold it; the eager step and every replay run it."""
+    xnoise [B, N, 3] or None, image [B, H, W, 3] or None) -> metrics, 0-d
+    tensors on the device; with an image (SVR) the posterior is the image
+    encoder's. It updates the state's tensors in place and reads no value
+    on the host, so a CUDA graph can hold it; the eager step and every
+    replay run it."""
     tcfg = cfg.train
     params = list(model.parameters())
 
-    def step(state: TrainState, x: Tensor, eps: Tensor, xn: Optional[Tensor]):
+    def step(state: TrainState, x: Tensor, eps: Tensor, xn: Optional[Tensor],
+             image: Optional[Tensor] = None):
         if xn is not None:
             x = x + _aug_sigma(tcfg, state.step) * xn
         loss, metrics = elbo_loss(
             model, x, eps, kl_weight=tcfg.kl_weight, recon_reduction=tcfg.recon_reduction,
             fused_point_flow=tcfg.fused_point_flow, fused_encoder=tcfg.fused_encoder,
-            fused_latent_flow=tcfg.fused_latent_flow)
+            fused_latent_flow=tcfg.fused_latent_flow, image=image)
         grads = torch.autograd.grad(loss, params, allow_unused=True)
         flat = torch.cat([(torch.zeros_like(p) if g is None else g).reshape(-1)
                           for g, p in zip(grads, params)])
@@ -327,17 +337,17 @@ def _make_step(model: DPF, tx: Optimizer, cfg: Config) -> StepCore:
 def make_train_step(model: DPF, tx: Optimizer, cfg: Config
                     ) -> Callable[[TrainState, Dict[str, Tensor]], Tuple[TrainState, Dict]]:
     """(state, batch) -> (state, metrics), one eager step; ``batch`` holds
-    ``x`` [B, N, 3] on the model's device and optionally ``eps`` [B, dz] and
-    ``xnoise`` [B, N, 3], else they are drawn from generators seeded by
-    (train.seed, step). The metrics are 0-d tensors on the device; the
-    state's tensors update in place."""
+    ``x`` [B, N, 3] on the model's device, ``image`` [B, H, W, 3] for SVR,
+    and optionally ``eps`` [B, dz] and ``xnoise`` [B, N, 3], else they are
+    drawn from generators seeded by (train.seed, step). The metrics are 0-d
+    tensors on the device; the state's tensors update in place."""
     step = _make_step(model, tx, cfg)
 
     def step_fn(state: TrainState, batch: Dict[str, Tensor]):
         x, eps, xn = batch["x"], batch.get("eps"), batch.get("xnoise")
         eps, xn = _noise(cfg, state.host_step, 1, x.shape, x.device,
                          None if eps is None else eps[None], None if xn is None else xn[None])
-        metrics = step(state, x, eps[0], None if xn is None else xn[0])
+        metrics = step(state, x, eps[0], None if xn is None else xn[0], batch.get("image"))
         state.host_step += 1
         return state, metrics
 
@@ -359,9 +369,9 @@ def _launch_counters() -> List[Dict[str, int]]:
 class MultiStep:
     """K train steps per call (``train.steps_per_call``), the counterpart of
     ``dpfx``'s ``make_multi_step``: (state, batches) -> (state, metrics),
-    with ``batches["x"]`` [K, B, N, 3] (and optionally ``eps`` [K, B, dz]
-    and ``xnoise`` [K, B, N, 3]) and each metric stacked [K]. K may differ
-    from call to call.
+    with ``batches["x"]`` [K, B, N, 3], ``batches["image"]`` [K, B, H, W, 3]
+    for SVR (and optionally ``eps`` [K, B, dz] and ``xnoise`` [K, B, N, 3])
+    and each metric stacked [K]. K may differ from call to call.
 
     On the card the first call captures one step (``_make_step``) in a CUDA
     graph, after ``_WARMUP`` eager steps on a side stream whose effect on
@@ -387,11 +397,12 @@ class MultiStep:
         k = xs.shape[0]
         eps, xn = _noise(self.cfg, state.host_step, k, xs.shape, xs.device, batches.get("eps"),
                          batches.get("xnoise"))
+        img = batches.get("image")
         if xs.is_cuda:
-            out = self._replay(state, xs, eps, xn)
+            out = self._replay(state, xs, eps, xn, img)
         else:
-            ms = [self.step(state, xs[i], eps[i], None if xn is None else xn[i])
-                  for i in range(k)]
+            ms = [self.step(state, xs[i], eps[i], None if xn is None else xn[i],
+                            None if img is None else img[i]) for i in range(k)]
             out = {key: torch.stack([m[key] for m in ms]) for key in ms[0]}
         state.host_step += k
         return state, out
@@ -408,9 +419,11 @@ class MultiStep:
         return [t.data_ptr() for t in (*self.params, state.params, state.opt_state.mu,
                                        state.opt_state.nu, state.opt_state.count, state.step)]
 
-    def _capture(self, state: TrainState, x: Tensor, eps: Tensor, xn: Optional[Tensor]) -> None:
+    def _capture(self, state: TrainState, x: Tensor, eps: Tensor, xn: Optional[Tensor],
+                 img: Optional[Tensor]) -> None:
         dev = x.device
-        self.inputs = [x.clone(), eps.clone(), None if xn is None else xn.clone()]
+        self.inputs = [x.clone(), eps.clone(), None if xn is None else xn.clone(),
+                       None if img is None else img.clone()]
         held = (state.params, state.opt_state.mu, state.opt_state.nu, state.opt_state.count,
                 state.step)
         saved = [t.clone() for t in held]
@@ -432,17 +445,24 @@ class MultiStep:
             c.update(b)
         self.graph, self.storage = graph, self._storage(state)
 
-    def _replay(self, state: TrainState, xs: Tensor, eps: Tensor, xn: Optional[Tensor]):
+    def _replay(self, state: TrainState, xs: Tensor, eps: Tensor, xn: Optional[Tensor],
+                img: Optional[Tensor]):
         if self.graph is None:
-            self._capture(state, xs[0], eps[0], None if xn is None else xn[0])
+            self._capture(state, xs[0], eps[0], None if xn is None else xn[0],
+                          None if img is None else img[0])
         if self._storage(state) != self.storage:
             raise RuntimeError(
                 "the parameters, the optimizer state or the step counter moved to other storage "
                 "after the train step was captured in a CUDA graph, which reads the storage it "
                 "was captured on: build a new multi-step for the new state")
-        if xs.shape[1:] != self.inputs[0].shape or eps.shape[1:] != self.inputs[1].shape:
-            raise ValueError(f"batches of {tuple(xs.shape[1:])} for a step captured on "
-                             f"{tuple(self.inputs[0].shape)}")
+        held = self.inputs[3]
+        if (xs.shape[1:] != self.inputs[0].shape or eps.shape[1:] != self.inputs[1].shape
+                or (img is None) != (held is None)
+                or (img is not None and img.shape[1:] != held.shape)):
+            raise ValueError(f"batches of {tuple(xs.shape[1:])} (images "
+                             f"{None if img is None else tuple(img.shape[1:])}) for a step "
+                             f"captured on {tuple(self.inputs[0].shape)} (images "
+                             f"{None if held is None else tuple(held.shape)})")
         names = list(self.outputs)
         out = torch.empty((xs.shape[0], len(names)), device=xs.device)
         counters = _launch_counters()
@@ -451,6 +471,8 @@ class MultiStep:
             self.inputs[1].copy_(eps[i])
             if xn is not None:
                 self.inputs[2].copy_(xn[i])
+            if img is not None:
+                self.inputs[3].copy_(img[i])
             self.graph.replay()
             torch.stack([self.outputs[n] for n in names], out=out[i])
             for c, add in zip(counters, self.per_replay):
@@ -470,10 +492,11 @@ def make_eval_step(model: DPF, cfg: Config
     """The validation step (counterpart of ``dpfx``'s ``make_eval_step``):
     (batch, i) -> the ELBO's five metrics, 0-d tensors on the device,
     computed under ``torch.no_grad()`` with the train step's fused flags and
-    no jitter. ``batch`` holds ``x`` [B, N, 3] and optionally ``eps``
-    [B, dz]; else eps is drawn from a generator keyed by (train.seed, i,
-    stream), which does not depend on the training step (``fold_in(rng, i)``
-    in the JAX package). It reads the parameters and writes nothing."""
+    no jitter. ``batch`` holds ``x`` [B, N, 3], ``image`` [B, H, W, 3] for
+    SVR, and optionally ``eps`` [B, dz]; else eps is drawn from a generator
+    keyed by (train.seed, i, stream), which does not depend on the training
+    step (``fold_in(rng, i)`` in the JAX package). It reads the parameters
+    and writes nothing."""
 
     @torch.no_grad()
     def eval_step(batch: Dict[str, Tensor], i: int) -> Dict[str, Tensor]:
@@ -485,7 +508,7 @@ def make_eval_step(model: DPF, cfg: Config
         _, metrics = elbo_loss(
             model, x, eps, kl_weight=tcfg.kl_weight, recon_reduction=tcfg.recon_reduction,
             fused_point_flow=tcfg.fused_point_flow, fused_encoder=tcfg.fused_encoder,
-            fused_latent_flow=tcfg.fused_latent_flow)
+            fused_latent_flow=tcfg.fused_latent_flow, image=batch.get("image"))
         return metrics
 
     return eval_step
@@ -637,17 +660,24 @@ def make_resident_multi_step(model: DPF, tx: Optimizer, cfg: Config,
     """K steps per call on batches gathered on the device from the resident
     stack [S, P, 3] (``data.device_resident``), the single-device
     counterpart of ``dpfx``'s ``make_resident_multi_step``:
-    (state, data, k, draws=None) -> (state, metrics [K]). ``draws`` supplies
+    (state, data, k, draws=None, images=None) -> (state, metrics [K]).
+    ``images`` is an SVR run's resident render stack [S, H, W, 3]: each
+    step's images are gathered with the cloud ids ``ci`` of its clouds, so
+    the pairs (cloud i, image i) stay the dataset's. ``draws`` supplies
     ``resident_draw``'s four outputs (then k is theirs); ``multi`` runs the
     stacked steps (default: a new ``MultiStep``)."""
     multi = multi or MultiStep(model, tx, cfg)
 
-    def resident(state: TrainState, data: Tensor, k: Optional[int] = None, draws=None):
+    def resident(state: TrainState, data: Tensor, k: Optional[int] = None, draws=None,
+                 images: Optional[Tensor] = None):
         if draws is None:
             draws = resident_draw(cfg, state.host_step, k, data.shape[0], data.shape[1],
                                   data.device)
         ci, pi, eps, xn = draws
-        return multi(state, {"x": gather_resident(data, ci, pi), "eps": eps, "xnoise": xn})
+        batches = {"x": gather_resident(data, ci, pi), "eps": eps, "xnoise": xn}
+        if images is not None:
+            batches["image"] = images[ci]
+        return multi(state, batches)
 
     return resident
 
@@ -836,16 +866,23 @@ class Trainer:
 
     def fit_resident(self, clouds: Union[np.ndarray, Tensor],
                      val_batches_fn: Optional[Callable[[], Iterator]] = None,
-                     steps: Optional[int] = None) -> TrainState:
+                     steps: Optional[int] = None,
+                     images: Union[np.ndarray, Tensor, None] = None) -> TrainState:
         """Train with the split resident on the device
         (``data.device_resident``): ``clouds`` is the [S, P, 3] stack of
-        ``dpfx_torch.data.preload_clouds``, moved to the device once; each
-        call draws and gathers steps_per_call batches there, and a last call
-        takes the remaining steps. The draws are keyed by the absolute step,
-        so a resumed run draws what the uninterrupted one would have."""
+        ``dpfx_torch.data.preload_clouds`` and, for SVR, ``images`` the
+        [S, H, W, 3] render stack of ``preload_images``, each moved to the
+        device once; each call draws and gathers steps_per_call batches
+        there (the images with the clouds' ids), and a last call takes the
+        remaining steps. The draws are keyed by the absolute step, so a
+        resumed run draws what the uninterrupted one would have."""
         steps = steps or self.cfg.train.steps
         b, n = self.cfg.train.batch_size, self.cfg.data.n_points
         data = torch.as_tensor(clouds, dtype=torch.float32).to(self.device)
+        if images is not None:
+            images = torch.as_tensor(images, dtype=torch.float32).to(self.device)
+            if images.shape[0] != data.shape[0]:
+                raise ValueError(f"{images.shape[0]} resident images for {data.shape[0]} clouds")
         spc = self.steps_per_call
 
         def one_step(state, batches):       # train.steps_per_call = 1: the eager step
@@ -856,7 +893,7 @@ class Trainer:
         cad = _Cadence(self, steps, val_batches_fn)
         while cad.step < steps:
             k = min(spc, steps - cad.step)
-            self.state, metrics = resident(self.state, data, k)
+            self.state, metrics = resident(self.state, data, k, images=images)
             cad.record(k, metrics, b * n)
         cad.finish()
         self.last_eval_step = cad.last_eval_step
@@ -864,9 +901,11 @@ class Trainer:
 
     def fit_auto(self, make_batches: Optional[Callable[[], Iterator]] = None,
                  val_batches_fn: Optional[Callable[[], Iterator]] = None,
-                 resident_clouds: Union[np.ndarray, Tensor, None] = None) -> TrainState:
+                 resident_clouds: Union[np.ndarray, Tensor, None] = None,
+                 resident_images: Union[np.ndarray, Tensor, None] = None) -> TrainState:
         """``fit`` on ``make_batches()`` (or ``fit_resident`` on
-        ``resident_clouds``) with divergence recovery
+        ``resident_clouds`` and, for SVR, ``resident_images``) with
+        divergence recovery
         (``train.recover_on_divergence``, off by default): on
         TrainDivergedError, restore the latest checkpoint in place (or
         re-initialise without one), multiply ``train.lr`` by
@@ -879,7 +918,8 @@ class Trainer:
         while True:
             try:
                 if resident_clouds is not None:
-                    return self.fit_resident(resident_clouds, val_batches_fn=val_batches_fn)
+                    return self.fit_resident(resident_clouds, val_batches_fn=val_batches_fn,
+                                             images=resident_images)
                 return self.fit(make_batches(), val_batches_fn=val_batches_fn)
             except TrainDivergedError:
                 tcfg = self.cfg.train

@@ -104,11 +104,15 @@ def test_checkpoint_resolution(ckpt_dir, capsys):
 
 
 def test_refuses_what_is_not_ported(ckpt_dir, monkeypatch):
+    """SVR and the ShapeNet datasets are ported (tests/test_torch_svr.py,
+    tests/test_torch_datasets.py); what the CLI still refuses is an
+    experiment or a dataset that dpfx does not have either, and a run on
+    the card without one."""
     weights = checkpoint_path(load_config(GEN, overrides=[f"train.ckpt_dir={ckpt_dir}"]))[0]
-    with pytest.raises(NotImplementedError, match="Queue 1 #6"):
-        evaluate.main([GEN, "experiment=svr", "--weights", weights, "--device", "cpu"])
-    with pytest.raises(NotImplementedError, match="synthetic"):
-        evaluate.main([GEN, "data.dataset=shapenet_h5", "--weights", weights, "--device", "cpu"])
+    with pytest.raises(ValueError, match="unknown experiment"):
+        evaluate.main([GEN, "experiment=cls", "--weights", weights, "--device", "cpu"])
+    with pytest.raises(ValueError, match="unknown dataset"):
+        evaluate.main([GEN, "data.dataset=modelnet", "--weights", weights, "--device", "cpu"])
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="CUDA"):
         evaluate.main([GEN, "--weights", weights])

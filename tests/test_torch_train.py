@@ -262,10 +262,13 @@ def test_batches_match_dpfx_data(family):
 
 
 def test_build_dataset_only_synthetic():
+    """The synthetic split from the tiny config; the ShapeNet and SVR keys
+    are held against dpfx.data in tests/test_torch_datasets.py, and a key
+    that dpfx does not know is refused."""
     cfg = config_from_dict(tiny()).data
     assert len(tdata.build_dataset(cfg, "train")) == 32
-    cfg.dataset = "shapenet_h5"
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    cfg.dataset = "modelnet"
+    with pytest.raises(ValueError, match="unknown dataset"):
         tdata.build_dataset(cfg, "train")
 
 
