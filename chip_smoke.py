@@ -3,8 +3,10 @@
 against its plain PyTorch version at the flagship widths, drive the main
 paths (flagship sampling, flagship training, evaluation: the generation
 suite and AE reconstruction, the differentiable distances, the int8
-sampler, the two probe tools, and single-view reconstruction's training
-and evaluation) through the normal entry points, and report.
+sampler, the two probe tools, single-view reconstruction's training and
+evaluation, and training from a packed stack through the native loader
+with the montage and the checkpoint converter) through the normal entry
+points, and report.
 
 Run from the root of a checkout, on a machine with one CUDA card:
 
@@ -162,6 +164,24 @@ script exits non-zero without a result line):
      the global frame, and, where pillow imports, 4 PNG views a model and
      the SVR YAML through shapenet_svr for 10 steps (ShapeNetH5 needs h5py,
      which the card's machine lacks: the CPU tests hold it);
+  3i. the packed-stack training path (configs/flagship_quality_v3_aug_100k.yaml,
+     data.synthetic_size 512): `python -m dpfx_torch.tools.pack_dataset`
+     as a child process (a [512, 4096, 3] stack, 25 MB, and its sidecar),
+     the native loader alone at 64 x 2048 with 2 workers (batches/s beside
+     the replayed step's), dpfx_torch.train's CLI with
+     data.device_resident=false and data.packed_path for 30 steps (a call
+     of 20 replays and 10 eager steps; launch counts zeroed just before and
+     read just after, as on the resident path; the "native loader" line;
+     finite losses, no step skipped, the params moved, its first 5-step
+     loss window and its final validation held to phase 3b's), a call of 20 replays on packed host
+     batches (20 from the loader, np.stack, one copy) timed in turns with
+     the resident call and each profiled once (idle share), the host parts
+     of a packed call timed apart; then `dpfx_torch.generate --png` on the
+     run's checkpoint (a 16 x 128 by 3 x 128 montage, not blank;
+     fused_sample launched) and the weights written in the reference
+     layout and converted back by `python -m dpfx_torch.convert_checkpoint`
+     (a child process): equal bit for bit, and make_sampler(64, 2048) gives
+     the same clouds bit for bit from both;
   4. at the main paths' shapes (B=64, N=2048, bf16): the training kernels
      held against their plain versions again (u, log-det, every gradient;
      each backward bit-identical across two runs), the redesigned
@@ -311,6 +331,19 @@ TOL_STEP_GNORM = 5e-2
 # rounds at other places in the two, and 10 updates carry it on (seen:
 # 3.7e-5); a schedule that diverges in one diverges in the other as well
 TOL_TRAIN_DRIFT = 5e-2
+# the packed-stack run (phase 3i) against phase 3b's resident run: the same
+# initial weights, schedule and noise (keyed by the step), other batches of
+# the same 512 clouds (the native loader's draws against the resident
+# draw; with 2 workers the loader's order depends on scheduling, so every
+# run draws others). Its first 5-step loss window, taken on near-identical
+# weights, is held to TOL_TRAIN_DRIFT (seen: 7.6e-4 to 2.3e-3 in three
+# runs); after it the random flagship's first steps (grad norms up to 5e7)
+# carry the two batch streams apart (the second window seen 3% to 129%
+# apart: not held). The final validation neg-ELBO per point on the same
+# 128 clouds and noise may be worse than the resident run's by at most this
+# share (seen: 0.895x to 1.027x in three runs; a model trained on wrong
+# points validates far worse)
+TOL_PACKED_VAL = 0.25
 TRAIN_STEPS = 30
 # validation batches of the training runs: data.synthetic_size 512 gives
 # 128 val clouds, eval.batch_size 32
@@ -2248,6 +2281,251 @@ def svr_path(dev, card, point_replayed):
           "without pillow) is held to dpfx on the CPU by tests/test_torch_datasets.py only")
 
 
+# the reference's torch names from the port's (the inverse of
+# dpfx_torch.compat.convert.DEFAULT_RULES for the generation model: a
+# rename, the Linear weights [out, in] on both sides)
+TO_REFERENCE = [
+    (r"^(point_flow|latent_flow)\.coupling_(\d+)\.cond_net\.hidden_(\d+)\.",
+     r"\1.couplings.\2.cond_net.hiddens.\3."),
+    (r"^(point_flow|latent_flow)\.coupling_(\d+)\.cond_net\.(in_x|in_z|out)\.",
+     r"\1.couplings.\2.cond_net.\3."),
+]
+
+
+def reference_layout(model) -> dict:
+    """The port model's weights under the reference's names, with the
+    coupling masks the reference stores as buffers."""
+    import re
+
+    out = {}
+    for key, t in model.state_dict().items():
+        for pat, rep in TO_REFERENCE:
+            key = re.sub(pat, rep, key)
+        out[key] = t.detach().cpu().clone()
+    for key, t in model.named_buffers():
+        out[re.sub(r"\.coupling_(\d+)\.mask$", r".couplings.\1.mask", key)] = t.detach().cpu()
+    return out
+
+
+def run_cli(module: str, args):
+    """``python -m <module> <args>`` in a child process from the repo root;
+    returns (its stdout, its wall seconds)."""
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-m", module, *args], cwd=ROOT, capture_output=True,
+                          text=True, timeout=300)
+    wall = time.perf_counter() - t0
+    print(proc.stdout, end="")
+    check(proc.returncode == 0, f"{module} exited {proc.returncode}: {proc.stderr[-2000:]}")
+    return proc.stdout, wall
+
+
+def packed_path(cfg, dev, card, multi, timers, train_ms, step_losses, resident_val):
+    """Phase 3i: the packed-stack training path at full width. ``multi`` is
+    phase 3b's captured step (module latent flow) and ``timers`` its
+    [call, state] pairs: the packed call replays that step on host batches
+    and is timed in turns with the resident call; ``train_ms`` holds 3b's
+    ms/step, ``step_losses`` 3b's per-step losses and ``resident_val`` its
+    final validation record."""
+    import shutil
+
+    import numpy as np
+    import torch
+
+    from dpfx_torch import generate
+    from dpfx_torch.checkpoint import restore_for_eval
+    from dpfx_torch.native import NativeBatcher
+    from dpfx_torch.ops import fused_encoder as fe
+    from dpfx_torch.ops import fused_sampler as fs
+    from dpfx_torch.ops import fused_train as ft
+    from dpfx_torch.sampling import make_sampler
+    from dpfx_torch.train import trainer as tm
+
+    work = WORK / "packed"
+    shutil.rmtree(work, ignore_errors=True)
+    work.mkdir(parents=True)
+
+    # (a) the pack tool on 3b's 512-cloud cut
+    stack = work / "train.npy"
+    text, pack_s = run_cli("dpfx_torch.tools.pack_dataset",
+                           [str(CONFIG), "data.synthetic_size=512", "--out", str(stack)])
+    packed = np.load(stack, mmap_mode="r")
+    meta = json.loads(Path(f"{stack}.meta.json").read_text())
+    check(packed.shape == (512, 4096, 3) and packed.dtype == np.float32
+          and meta["normalize_applied"] == cfg.data.normalize and meta["n_stored"] == 4096,
+          f"the packed stack {packed.shape} {packed.dtype}, sidecar {meta}")
+    mb = stack.stat().st_size / 1e6
+    print(f"packed stack: {packed.shape} float32, {mb:.1f} MB in {pack_s:.2f} s (the tool as a "
+          f"child process, start-up included)")
+
+    # (b) the loader alone at the flagship batch, 2 workers
+    nb = NativeBatcher(str(stack), 64, 2048, seed=cfg.train.seed, n_workers=2)
+    for _ in range(8):
+        nb.next()
+    t0 = time.perf_counter()
+    for _ in range(100):
+        nb.next()
+    loader_rate = 100 / (time.perf_counter() - t0)
+    step_rate = 1e3 / train_ms[("off", "replayed")]
+    print(f"native loader alone, 64 x 2048 from 4096 stored points, 2 workers: "
+          f"{loader_rate:,.1f} batches/s against {step_rate:,.1f} batches/s of the replayed step "
+          f"(module latent flow; {card})")
+
+    # (c) the training CLI on the stack: a call of 20 replays and 10 eager steps
+    ckpt_dir = work / "train"
+    for mod in (ft, fe):
+        mod.reset_launch_counts()
+    t0 = time.perf_counter()
+    rc, text, calls, init_weights = train_cli_run(
+        [str(CONFIG), f"train.steps={TRAIN_STEPS}", "train.log_every=5",
+         f"train.ckpt_every={TRAIN_STEPS}", f"train.ckpt_dir={ckpt_dir}",
+         "data.synthetic_size=512", "data.device_resident=false", f"data.packed_path={stack}"])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {**ft.launches, **fe.launches}
+    run_dir = ckpt_dir / cfg.name
+    records = [json.loads(line) for line in (run_dir / "metrics.jsonl").read_text().splitlines()]
+    val = [r for r in records if r["kind"] == "val"]
+    records = [r for r in records if r["kind"] == "train"]
+    check(rc == 0 and [k for k, _ in calls] == [20] + [1] * (TRAIN_STEPS - 20)
+          and [r["step"] for r in records] == [20, 25, TRAIN_STEPS],
+          f"packed train calls {[k for k, _ in calls]}, records {records}")
+    check([r["step"] for r in val] == [TRAIN_STEPS] and finite_numbers(val[0]),
+          f"one final evaluation, finite: {val}")
+    check(f"native loader: 512 clouds x 4096 pts from {stack}; steps_per_call=20" in text
+          and "device-resident" not in text and "ignored" not in text,
+          "the CLI trains from the packed stack through the native loader")
+    check(all(np.isfinite(r["loss"]) and np.isfinite(r["grad_norm"]) for r in records),
+          "every logged loss and grad norm is finite (packed)")
+    check(all(r["nonfinite_skipped"] == 0 for r in records), "no step was skipped (packed)")
+    for kname, count in launches.items():
+        want = tm._WARMUP + TRAIN_STEPS + (VAL_BATCHES if kname.endswith("fwd") else 0)
+        check(count == want, f"kernel {kname}: {count} launches on the packed path, {want} on the "
+                             "resident one")
+    losses = [v for _, ls in calls for v in ls]
+    windows = lambda ls: [sum(ls[i:i + 5]) / 5 for i in (0, 5)]  # noqa: E731
+    drift = [abs(a - r) / abs(r) for a, r in zip(windows(losses), windows(step_losses))]
+    key = "neg_elbo_per_point"
+    val_drift = (val[0][key] - resident_val[key]) / abs(resident_val[key])
+    trained_pt = run_dir / f"params_{TRAIN_STEPS:08d}.pt"
+    trained = torch.load(trained_pt, map_location="cpu", weights_only=True)
+    moved = sum(not torch.equal(trained[k], v) for k, v in init_weights.items())
+    check(moved == len(init_weights), f"{moved} of {len(init_weights)} parameters moved (packed)")
+    print(f"packed training path: {TRAIN_STEPS} steps of 64 x 2048 (calls of 20 replays and 10 "
+          f"eager steps) in {wall:.1f} s wall (capture and warm-up included); launches "
+          f"{json.dumps(launches)}; loss " + ", ".join(f"{r['loss']:.1f}" for r in records)
+          + "; grad norm " + ", ".join(f"{r['grad_norm']:.1f}" for r in records) + "; loss "
+          f"windows of 5 steps {[round(w, 1) for w in windows(losses)]} against the resident "
+          f"run's {[round(w, 1) for w in windows(step_losses)]}: rel "
+          + ", ".join(f"{d:.2e}" for d in drift) + f"; validation {key} {val[0][key]:.4f} "
+          f"against the resident run's {resident_val[key]:.4f}: rel {val_drift:+.2e}; {moved} "
+          "tensors moved")
+    check(drift[0] <= TOL_TRAIN_DRIFT, f"the packed run's first loss window tracks the resident "
+                                       f"run's ({drift[0]} > {TOL_TRAIN_DRIFT})")
+    check(val_drift <= TOL_PACKED_VAL, f"the packed run validates no worse than the resident "
+                                       f"run by more than {TOL_PACKED_VAL} ({val_drift})")
+
+    # (d) calls of 20 on packed host batches (Trainer.fit's stacked path:
+    # 20 batches from the loader, one np.stack, one copy, 20 replays) in
+    # turns with resident calls, both with the module latent flow: one call
+    # synchronised on its own (the host's preparation in front of the
+    # replays) and runs of 5 calls back to back, as the trainer issues them
+    # (the next call's preparation under this call's replays)
+    replayed, resident = timers[("off", "replayed")], timers[("off", "resident")]
+
+    def one_call(kind):
+        if kind == "packed":
+            xs = np.stack([nb.next() for _ in range(20)])
+            replayed[1], _ = multi(replayed[1], {"x": torch.as_tensor(xs).to(dev, non_blocking=True)})
+        else:
+            resident[1], _ = resident[0](resident[1])
+
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+
+    def timed(kind, calls):
+        torch.cuda.synchronize()
+        start.record()
+        for _ in range(calls):
+            one_call(kind)
+        end.record()
+        torch.cuda.synchronize()
+        return start.elapsed_time(end) / (20 * calls)
+
+    one_call("packed")
+    turns = {calls: [(kind, timed(kind, calls)) for kind in ("packed", "resident") * 2
+                     + ("resident", "packed") * 2] for calls in (1, 5)}
+    ms = {(kind, calls): statistics.mean(t for k, t in turns[calls] if k == kind)
+          for kind in ("packed", "resident") for calls in (1, 5)}
+    # the host parts of a packed call, each on its own (perf_counter)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    pending = [nb.next() for _ in range(20)]
+    t1 = time.perf_counter()
+    xs = np.stack(pending)
+    t2 = time.perf_counter()
+    torch.as_tensor(xs).to(dev)
+    torch.cuda.synchronize()
+    t3 = time.perf_counter()
+    for calls, what in ((1, "one call synchronised"), (5, "5 calls back to back")):
+        p_ms, r_ms = ms[("packed", calls)], ms[("resident", calls)]
+        print(f"train step at 64 x 2048, module latent flow, {what}: packed host batches "
+              f"{p_ms:.3f} ms/step against resident {r_ms:.3f} ms/step (calls of 20; packed / "
+              f"resident {p_ms / r_ms:.3f}); turns (ms/step) "
+              + ", ".join(f"{k} {t:.3f}" for k, t in turns[calls]) + f" ({card})")
+    print(f"a packed call's host parts: 20 batches from the loader {(t1 - t0) * 1e3:.2f} ms, "
+          f"np.stack {(t2 - t1) * 1e3:.2f} ms, the copy of {xs.nbytes / 1e6:.1f} MB from pageable "
+          f"memory {(t3 - t2) * 1e3:.2f} ms ({card})")
+    for kind in ("packed", "resident"):
+        for calls in (1, 3):
+            wall_us, busy_us, dev_events = profiled(lambda: one_call(kind), calls)
+            seen = lambda name: sum(name in e.key for e in dev_events)  # noqa: E731
+            check(seen("fwd_kernel_mma") and seen("bwd_kernel_mma") and seen("walk_kernel"),
+                  f"the profiler saw the training kernels in a {kind} call")
+            steps = 20 * calls
+            print(f"profile {kind} calls of 20 steps x{calls}, module latent flow: wall "
+                  f"{wall_us / steps / 1e3:.3f} ms/step, device busy {busy_us / steps / 1e3:.3f} "
+                  f"ms/step, idle share {1 - busy_us / wall_us:.3f} under the profiler ({card})")
+    nb.close()
+
+    # (e) generate --png on the packed run's checkpoint, then its weights in
+    # the reference layout converted back by the converter CLI
+    fs.reset_launch_counts()
+    png, out = work / "m.png", work / "samples.npy"
+    rc = generate.main([str(CONFIG), "--weights", str(trained_pt), "--out", str(out), "--png",
+                        str(png), "--seed", "6"])
+    png_launches = dict(fs.launches)
+    from PIL import Image
+
+    with Image.open(png) as im:
+        img = np.asarray(im)
+    # not blank: every tile (16 clouds x 3 views) holds a lit pixel
+    tiles = img[..., 0].reshape(16, 128, 3, 128).max(axis=(1, 3))
+    check(rc == 0 and img.shape == (16 * 128, 3 * 128, 3) and img.dtype == np.uint8
+          and bool((tiles > 0).all()),
+          f"the montage {img.shape}, tiles lit {(tiles > 0).sum()} of 48, max {img.max()}")
+    check(png_launches["fused_sample"] > 0, f"generate --png launched {png_launches}")
+    ref_pt, conv_pt = work / "reference_layout.pt", work / "converted.pt"
+    model = restore_for_eval(cfg, str(trained_pt), dev)
+    reference = reference_layout(model)
+    torch.save({"model": reference}, ref_pt)
+    text, conv_s = run_cli("dpfx_torch.convert_checkpoint",
+                           [str(ref_pt), str(CONFIG), "--out", str(conv_pt)])
+    converted = torch.load(conv_pt, map_location="cpu", weights_only=True)
+    check(converted.keys() == trained.keys()
+          and all(torch.equal(converted[k], trained[k]) for k in trained),
+          "the converted state dict equals the trained one bit for bit")
+    a = make_sampler(model, 64, 2048)(11)
+    b = make_sampler(restore_for_eval(cfg, str(conv_pt), dev), 64, 2048)(11)
+    torch.cuda.synchronize()
+    check(torch.equal(a, b) and bool(torch.isfinite(a).all()),
+          "the converted weights sample the trained weights' clouds bit for bit")
+    print(f"generate --png: a {img.shape[0]} x {img.shape[1]} montage, {(img > 0).mean():.3f} of "
+          f"its pixels lit, launches {json.dumps(png_launches)}; the trained weights in the "
+          f"reference layout ({len(converted)} tensors and {len(reference) - len(converted)} coupling "
+          f"masks) converted back in {conv_s:.2f} s (child process): equal bit for bit, "
+          f"make_sampler(64, 2048) on both gives the same clouds bit for bit (std "
+          f"{float(a.std()):.3f})")
+
+
 def trainer_loop_path(cfg, dev, card):
     """Phase 3g: the trainer loop at full width on the flagship YAML
     (data.synthetic_size 512: 128 val clouds, 4 batches of 32). (1) The CLI
@@ -2989,9 +3267,10 @@ def main() -> int:
     lcfg.train.fused_latent_flow = True
     x20 = torch.stack([batches[i % 4]["x"] for i in range(20)])
     clouds_dev = torch.from_numpy(preload_clouds(train_ds)).to(dev)
-    timers = {}
+    timers, multis = {}, {}
     for key, c, name in (("off", cfg, "module latent flow"), ("on", lcfg, "fused latent flow")):
         (multi, rstate), (resident, sstate) = captured_step_checks(c, dev, clouds_dev, x20, name)
+        multis[key] = multi
         timers[(key, "replayed")] = [lambda st, f=multi: f(st, {"x": x20}), rstate]
         timers[(key, "resident")] = [lambda st, f=resident: f(st, clouds_dev, 20), sstate]
 
@@ -3081,6 +3360,9 @@ def main() -> int:
 
     # ---- 3h. single-view reconstruction (mixer and conv) and the ShapeNet npy layout
     svr_path(dev, card, timers[("off", "replayed")])
+
+    # ---- 3i. the packed-stack training path, generate --png and the converter
+    packed_path(cfg, dev, card, multis["off"], timers, train_ms, step_losses, val_records[0])
 
     # ---- 4. per-kernel numbers at the main path's shapes (B=64, N=2048, bf16)
     b, n = 64, 2048

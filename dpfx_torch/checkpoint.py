@@ -2,11 +2,16 @@
 ``restore_for_eval`` in ``dpfx/train/trainer.py``).
 
 Two formats:
-  * ``.pt``: a state dict written by the port (``torch.save(model.state_dict())``);
+  * ``.pt``: a state dict written by the port (``torch.save(model.state_dict())``
+    by its trainer, or ``python -m dpfx_torch.convert_checkpoint`` from a
+    reference-layout torch checkpoint);
   * ``.npz``: a flax params tree flattened with ``/``-joined keys (an
     optional leading ``params/`` is accepted), converted by
-    ``dpfx_torch.compat.params.params_from_flax``.
-Anything else raises. Orbax checkpoints are not read yet.
+    ``dpfx_torch.compat.params.params_from_flax``. A run that ``dpfx``
+    trained (an orbax checkpoint, which the port does not read) is written
+    in this layout by ``python export_checkpoint_torch.py CONFIG --out W.npz``
+    at the repository root, a script of the JAX side.
+Anything else raises.
 ``checkpoint_path`` finds the trainer's ``params_<step:08d>.pt`` under
 ``train.ckpt_dir/name`` (the newest by default), as the eval CLI does.
 """

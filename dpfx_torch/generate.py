@@ -3,10 +3,13 @@
 Usage:
     python -m dpfx_torch.generate configs/<exp>.yaml [key=value ...] --weights W \\
         [--n-clouds 64] [--n-points 2048] [--out samples.npy] [--seed 0] \\
-        [--temperature T] [--latent-temperature T] [--device cuda|cpu]
+        [--png montage.png] [--temperature T] [--latent-temperature T] [--device cuda|cpu]
 
-``--weights`` is a ``.pt`` state dict written by the port or a flattened
-flax ``.npz`` (see ``dpfx_torch.checkpoint``). The device defaults to cuda
+``--weights`` is a ``.pt`` state dict written by the port (by its trainer,
+or by ``python -m dpfx_torch.convert_checkpoint`` from a reference-layout
+checkpoint) or a flattened flax ``.npz`` (``export_checkpoint_torch.py``;
+see ``dpfx_torch.checkpoint``). ``--png`` also writes a montage of the
+first 16 clouds from 3 views (needs pillow). The device defaults to cuda
 and the run fails without one; ``--device cpu`` runs the plain path.
 """
 
@@ -27,15 +30,13 @@ def main(argv=None) -> int:
     ap.add_argument("--n-points", type=int, default=None)
     ap.add_argument("--out", default="samples.npy")
     ap.add_argument("--seed", type=int, default=0)
-    ap.add_argument("--png", default=None, help="not available in the port yet")
+    ap.add_argument("--png", default=None, help="also save a render montage PNG")
     ap.add_argument("--temperature", type=float, default=None,
                     help="point base-noise scale (default: eval.temperature)")
     ap.add_argument("--latent-temperature", type=float, default=None,
                     help="latent base-noise scale (default: eval.latent_temperature)")
     ap.add_argument("--device", default=None, help="cuda (default) or cpu")
     args = ap.parse_args(argv)
-    if args.png:
-        ap.error("--png is not ported yet; save the .npy and render it with generate.py's montage")
 
     import numpy as np
     import torch
@@ -61,6 +62,11 @@ def main(argv=None) -> int:
     dt = time.perf_counter() - t0
     clouds = clouds.cpu().numpy()
     np.save(args.out, clouds)
+    if args.png:
+        from dpfx_torch.utils.viz import save_cloud_montage
+
+        saved = save_cloud_montage(clouds, args.png)
+        print(f"[dpfx_torch] montage -> {saved or 'skipped (no PIL)'}")
     print(f"[dpfx_torch] sampled {clouds.shape} on {model.device} in {dt * 1e3:.1f}ms "
           f"({args.n_clouds / dt:,.1f} clouds/s, {args.n_clouds * n_points / dt:,.0f} pts/s) "
           f"-> {args.out}")

@@ -16,9 +16,11 @@ and ``state_<step>.ckpt``, the newest ``train.ckpt_keep`` kept, 0 keeps
 all) and ``metrics.jsonl`` go to ``train.ckpt_dir/name``; ``--resume``
 continues from the newest one, and ``train.recover_on_divergence``
 restores it at a lower lr after a divergence. Sample a checkpoint with
-``python -m dpfx_torch.generate CONFIG --weights <ckpt>.pt``. Not ported
-yet: the packed loader (``data.packed_path``) and more than one GPU or
-process.
+``python -m dpfx_torch.generate CONFIG --weights <ckpt>.pt``. A run that is
+neither resident nor SVR reads ``data.packed_path``, a stack written by
+``python -m dpfx_torch.tools.pack_dataset``, through the native C++ loader
+(``dpfx_torch.native``; a failed build of it raises). Not ported yet: more
+than one GPU or process.
 """
 
 from __future__ import annotations
@@ -49,10 +51,6 @@ def main(argv=None) -> int:
     torch.backends.cudnn.allow_tf32 = False
     cfg = load_config(args.config, strict=args.strict_config, overrides=args.overrides)
     svr = cfg.experiment == "svr"
-    if cfg.data.packed_path and not svr:     # dpfx reads an SVR run's pairs from its dataset
-        raise NotImplementedError(
-            f"data.packed_path={cfg.data.packed_path!r}: the native packed loader is not ported "
-            "yet (ROADMAP Queue 1 #5b)")
     if cfg.parallel.coordinator or cfg.parallel.num_processes > 1:
         raise NotImplementedError(
             f"multi-process training (parallel.coordinator={cfg.parallel.coordinator!r}, "
@@ -92,15 +90,36 @@ def main(argv=None) -> int:
         trainer.fit_auto(resident_clouds=clouds, resident_images=images,
                          val_batches_fn=val_batches)
     else:
+        # an SVR run reads its (cloud, view) pairs from its dataset, as dpfx's does
+        packed = bool(cfg.data.packed_path) and not svr
+        loaders = []        # the native loader of the current stream
+
         def make_batches():
             # a callable, so that a divergence recovery restarts the stream
+            if packed:
+                from dpfx_torch.native import NativeBatcher
+
+                for old in loaders:
+                    old.close()
+                # the stack already carries the dataset's normalization
+                nb = NativeBatcher(cfg.data.packed_path, cfg.train.batch_size,
+                                   cfg.data.n_points, normalize="none", seed=cfg.train.seed,
+                                   n_workers=max(cfg.data.num_workers, 2))
+                loaders[:] = [nb]
+                print(f"[dpfx_torch] native loader: {nb.n_items} clouds x {nb.n_stored} pts "
+                      f"from {cfg.data.packed_path}; steps_per_call={trainer.steps_per_call}")
+                return iter(nb)
             batches = iterate_batches(train_ds, cfg.train.batch_size, cfg.data.n_points,
                                       seed=cfg.train.seed, with_images=svr)
             if cfg.data.num_workers > 0:
                 batches = prefetch_batches(batches, depth=cfg.data.num_workers)
             return batches
 
-        trainer.fit_auto(make_batches, val_batches_fn=val_batches)
+        try:
+            trainer.fit_auto(make_batches, val_batches_fn=val_batches)
+        finally:
+            for nb in loaders:
+                nb.close()
     if trainer.last_eval_step != trainer.state.host_step:
         trainer.evaluate(val_batches())
     trainer.writer.close()

@@ -48,11 +48,6 @@ def test_generate_main_writes_clouds(weights, tmp_path, fmt, capsys):
     assert "sampled (3, 50, 3)" in capsys.readouterr().out
 
 
-def test_generate_png_not_ported(weights):
-    with pytest.raises(SystemExit):
-        generate.main([SMOKE, "--device", "cpu", "--weights", weights[1], "--png", "x.png"])
-
-
 def test_entry_points_default_to_cuda(weights, monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="CUDA"):

@@ -376,8 +376,7 @@ def test_tensorboard_events_equal_metrics_jsonl(tmp_path, monkeypatch):
         assert got[key] == pytest.approx(v, rel=1e-6), key
 
 
-@pytest.mark.parametrize("over,queue", [("data.packed_path=/nowhere/clouds.npy", "#5"),
-                                        ("parallel.coordinator=localhost:1234", "#8"),
+@pytest.mark.parametrize("over,queue", [("parallel.coordinator=localhost:1234", "#8"),
                                         ("parallel.num_processes=2", "#8")])
 def test_cli_refuses_keys_it_cannot_honour(tmp_path, over, queue):
     with pytest.raises(NotImplementedError, match=f"Queue 1 {queue}"):
