@@ -4,16 +4,17 @@ against its plain PyTorch version at the flagship widths, drive the main
 paths (flagship sampling, flagship training, evaluation: the generation
 suite and AE reconstruction, the differentiable distances, the int8
 sampler, the two probe tools, single-view reconstruction's training and
-evaluation, and training from a packed stack through the native loader
-with the montage and the checkpoint converter) through the normal entry
-points, and report.
+evaluation, training from a packed stack through the native loader with
+the montage and the checkpoint converter, and data parallel on the one
+card) through the normal entry points, and report.
 
 Run from the root of a checkout, on a machine with one CUDA card:
 
     python3 chip_smoke.py
 
 Phases (each prints its result on its own line; any failure raises and the
-script exits non-zero without a result line):
+script exits non-zero without a result line; `--dp-worker` runs one of
+phase 3j's ranks, which the script starts itself):
   1. the card's name and power limit; build every kernel with nvcc (sm_90a),
      all sources at once, and print ptxas' register and spill lines and
      the instruction mix of the EMD and Chamfer kernels' element loops and
@@ -182,6 +183,28 @@ script exits non-zero without a result line):
      layout and converted back by `python -m dpfx_torch.convert_checkpoint`
      (a child process): equal bit for bit, and make_sampler(64, 2048) gives
      the same clouds bit for bit from both;
+  3j. data parallel at the flagship's width (global B=64, N=2048, the
+     512-cloud split): (a) NCCL with one rank, the step's all-reduce
+     captured in the graph: resident calls of 20 replays against calls with
+     no group, replicated and sharded (the gather the identity), params,
+     moments, count and step bit for bit, equal fused_train and
+     fused_encoder launches, the ms/step of each in turns; (b) two gloo
+     ranks sharing the card (child processes, `chip_smoke.py --dp-worker`),
+     B/D=32, three eager resident steps, replicated then sharded, against
+     one process on the same weights: each rank's x, eps and xnoise the
+     one-process step's rows bit for bit (the sharded gather's too), step
+     1's all-reduced gradient within phase 2's bf16 gradient limit per
+     tensor, step 1's loss within 1e-5 (and a step with the fused latent
+     flow), steps 2-3 and the parameters printed, a multi-step of 20 under
+     the gloo group refused; (c) the rank-sharded sampler's 64 clouds
+     (module and fused latent inverse) equal make_sampler on each rank's
+     seeds, the row-sharded CD and EMD (fast) matrices against 64 test
+     clouds equal one process's bit for bit, MMD/COV/1-NNA equal, every
+     kernel of the path launched on each rank (counts from 0 in each
+     child); (d) the training CLI asked for one card more than are visible
+     raises, naming the visible count; the flat gradient's bytes, the
+     sharded gather's bytes a step and each rank's resident MB printed
+     beside the card;
   4. at the main paths' shapes (B=64, N=2048, bf16): the training kernels
      held against their plain versions again (u, log-det, every gradient;
      each backward bit-identical across two runs), the redesigned
@@ -227,6 +250,7 @@ import statistics
 import subprocess
 import sys
 import time
+import warnings
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
@@ -2745,6 +2769,403 @@ def trainer_loop_path(cfg, dev, card):
             evaluate, save, capture)
 
 
+# ---------------------------------------------------------------- phase 3j: data parallel
+
+DP_SEED = 11            # the sampler's seed in phase 3j
+DP_POINTS = 2048        # the points of a cloud in phase 3j (the flagship's N)
+DP_STEPS = 3            # eager steps of each two-rank form
+DP_TURNS = ("none", "world-1", "world-1", "none", "none", "world-1")   # phase 3j (a)'s timed calls
+TOL_DP_LOSS = 1e-5      # a step's loss at two ranks against one process (the batch mean's order)
+
+
+def dp_inputs(*overrides):
+    """Phase 3j's config (the flagship YAML with the 512-cloud synthetic
+    split and ``overrides``), the resident split [512, 4096, 3] and 64
+    test-split clouds, both numpy."""
+    from dpfx_torch.config import load_config
+    from dpfx_torch.data import build_dataset, load_all, preload_clouds
+
+    cfg = load_config(str(CONFIG), overrides=["data.synthetic_size=512", *overrides])
+    return (cfg, preload_clouds(build_dataset(cfg.data, "train")),
+            load_all(build_dataset(cfg.data, "test"), DP_POINTS, limit=64).astype("float32"))
+
+
+def dp_model(cfg, dev):
+    """The seeded random flagship weights every rank and the one-process
+    runs of phase 3j start from."""
+    from dpfx_torch.compat import randomize_
+    from dpfx_torch.models import DPF
+    from dpfx_torch.train import trainer as tm
+
+    return randomize_(tm.init_params_(DPF(cfg), 1), 1, 0.02).to(dev)
+
+
+def dp_steps(cfg, dev, clouds, group, sharded: bool, steps: int = DP_STEPS) -> dict:
+    """``steps`` resident steps, eager and one a call (train.steps_per_call
+    = 1), on the rank's rows under ``group`` (None: one process). Records
+    each step's batch as the step got it (x, eps, xnoise), the losses, step
+    1's flat gradient as Adam got it (all-reduced under a group), the final
+    parameters and the bytes of the resident stack this process holds."""
+    import torch
+
+    from dpfx_torch.parallel import shard_resident_stack, world_rank
+    from dpfx_torch.train import trainer as tm
+
+    world, rank = world_rank(group)
+    model = dp_model(cfg, dev)
+    tx = tm.make_optimizer(cfg.train)
+    state = tm.init_state(model, tx)
+    step = tm.make_train_step(model, tx, cfg, group)
+    seen, grads, apply = [], [], tx.apply_
+
+    def recording_apply(params, g, *a, **k):
+        if not grads:
+            grads.append(g.clone())
+        return apply(params, g, *a, **k)
+
+    def one_step(st, batches):
+        batch = {k: v[0] for k, v in batches.items() if v is not None}
+        seen.append({k: v.clone() for k, v in batch.items()})
+        return step(st, batch)
+
+    tx.apply_ = recording_apply
+    data = (shard_resident_stack(clouds, world, rank, dev) if sharded
+            else torch.from_numpy(clouds).to(dev))
+    resident = tm.make_resident_multi_step(model, tx, cfg, one_step, group=group,
+                                           sharded=sharded, logical_rows=clouds.shape[0])
+    losses = []
+    for _ in range(steps):
+        state, m = resident(state, data, 1)
+        losses.append(float(m["loss"]))
+    return {"seen": seen, "losses": losses, "grad": grads[0], "params": state.params.clone(),
+            "sizes": [p.numel() for p in model.parameters()], "resident_bytes": data.numel() * 4}
+
+
+def dp_samples(model, n: int, group=None, seed: int = DP_SEED, fused_latent: bool = False):
+    """make_sampler(n, 2048) of ``seed``, the latent inverse through the
+    module or (``fused_latent``) the fused kernel."""
+    from dpfx_torch.sampling import make_sampler
+
+    old = os.environ.pop("DPFX_SAMPLE_FUSED_LATENT", None)
+    if fused_latent:
+        os.environ["DPFX_SAMPLE_FUSED_LATENT"] = "1"
+    try:
+        return make_sampler(model, n, DP_POINTS, group=group)(seed)
+    finally:
+        os.environ.pop("DPFX_SAMPLE_FUSED_LATENT", None)
+        if old is not None:
+            os.environ["DPFX_SAMPLE_FUSED_LATENT"] = old
+
+
+def dp_counters():
+    from dpfx_torch.ops import chamfer, emd, fused_encoder, fused_latent, fused_sampler, fused_train
+
+    return (fused_train, fused_encoder, fused_latent, fused_sampler, chamfer, emd)
+
+
+def dp_worker(rank: int, port: int, out_dir: Path, device: str) -> int:
+    """One of phase 3j's two gloo ranks, both on cuda:0 (a child process of
+    the smoke): the replicated and the sharded resident forms (B/D = 32,
+    eager steps), a step with the fused latent flow, the rank-sharded
+    sampler (module and fused latent inverse) and the row-sharded suite on
+    64 x 64 clouds; the launch counts from 0; a multi-step of 20 under the
+    gloo group must refuse. Writes ``rank<r>.pt``. ``device``: the parent's
+    device (cuda: both ranks take cuda:0)."""
+    import copy
+
+    import torch
+    import torch.distributed as dist
+
+    from dpfx_torch.metrics.generation import compute_all_metrics, pairwise_matrix
+    from dpfx_torch.train import trainer as tm
+
+    dev = torch.device(device)
+    if dev.type == "cuda":
+        if not torch.cuda.is_available():
+            print("chip_smoke: no CUDA device", file=sys.stderr)
+            return 2
+        dev = torch.device("cuda", 0)
+        torch.cuda.set_device(dev)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dist.init_process_group("gloo", init_method=f"tcp://127.0.0.1:{port}", world_size=2,
+                            rank=rank)
+    group = dist.group.WORLD
+    cfg, clouds, ref = dp_inputs("train.steps_per_call=1")
+    lcfg = copy.deepcopy(cfg)
+    lcfg.train.fused_latent_flow = True
+    for mod in dp_counters():
+        mod.reset_launch_counts()
+    out = {"replicated": dp_steps(cfg, dev, clouds, group, False),
+           "sharded": dp_steps(cfg, dev, clouds, group, True),
+           "latent": dp_steps(lcfg, dev, clouds, group, False, 1)}
+    model = dp_model(cfg, dev)
+    gen = dp_samples(model, 64, group)
+    out["gen"], out["gen_latent"] = gen, dp_samples(model, 64, group, fused_latent=True)
+    ref = torch.from_numpy(ref).to(dev)
+    for metric in ("cd", "emd"):
+        out[metric] = pairwise_matrix(gen, ref, metric, group=group)
+    with warnings.catch_warnings():      # random weights: samples past the JSD grid
+        warnings.simplefilter("ignore")
+        out["metrics"] = compute_all_metrics(gen, ref, metrics=("cd", "emd"), group=group)
+    out["launches"] = {k: v for mod in dp_counters() for k, v in mod.launches.items()}
+    c20 = copy.deepcopy(cfg)
+    c20.train.steps_per_call = 20
+    try:
+        tm.MultiStep(model, tm.make_optimizer(c20.train), c20, group)
+        out["refusal"] = ""
+    except ValueError as e:
+        out["refusal"] = str(e)
+    on_cpu = lambda v: v.cpu() if isinstance(v, torch.Tensor) else (  # noqa: E731
+        {k: on_cpu(u) for k, u in v.items()} if isinstance(v, dict) else
+        [on_cpu(u) for u in v] if isinstance(v, list) else v)
+    torch.save(on_cpu(out), out_dir / f"rank{rank}.pt")
+    dist.destroy_process_group()
+    return 0
+
+
+def dp_world1(dev, card):
+    """Phase 3j (a): NCCL with one rank, the all-reduce captured inside the
+    step's graph, against the call with no group: resident calls of 20
+    replays (the YAML's steps_per_call), replicated and then sharded (the
+    gather the identity), bit for bit and with equal launch counts, then
+    timed in turns. Returns {sharded: ({"none": [ms], "world-1": [ms]},
+    launches)} and the flat gradient's bytes."""
+    import torch
+    import torch.distributed as dist
+
+    from dpfx_torch.ops import fused_encoder as fe
+    from dpfx_torch.ops import fused_train as ft
+    from dpfx_torch.parallel import free_port, shard_resident_stack
+    from dpfx_torch.train import trainer as tm
+
+    cfg, clouds_np, _ = dp_inputs()
+    clouds = torch.from_numpy(clouds_np).to(dev)
+    dist.init_process_group("nccl" if dev.type == "cuda" else "gloo",
+                            init_method=f"tcp://127.0.0.1:{free_port()}", world_size=1, rank=0)
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    out = {}
+    try:
+        for sharded in (False, True):
+            calls, launches, multis = {}, {}, []
+            for name, group in (("none", None), ("world-1", dist.group.WORLD)):
+                model = dp_model(cfg, dev)
+                tx = tm.make_optimizer(cfg.train)
+                state = tm.init_state(model, tx)
+                multi = tm.MultiStep(model, tx, cfg, group)
+                use_block = sharded and group is not None
+                data = shard_resident_stack(clouds_np, 1, 0, dev) if use_block else clouds
+                resident = tm.make_resident_multi_step(model, tx, cfg, multi, group=group,
+                                                       sharded=use_block, logical_rows=512)
+                for mod in (ft, fe):
+                    mod.reset_launch_counts()
+                state, _ = resident(state, data, 20)
+                torch.cuda.synchronize()
+                launches[name] = {**ft.launches, **fe.launches}
+                calls[name] = [lambda st, f=resident, d=data: f(st, d, 20), state]
+                multis.append(multi)
+                flat_bytes = state.params.numel() * 4
+            what = "sharded" if sharded else "replicated"
+            check(same_state(calls["none"][1], calls["world-1"][1]),
+                  f"world-1 NCCL ({what}): a resident call of 20 replays with the all-reduce "
+                  "captured equals the call with no group bit for bit")
+            check(launches["none"] == launches["world-1"] and all(launches["none"].values()),
+                  f"world-1 NCCL ({what}): launches {launches}")
+            times = {"none": [], "world-1": []}
+            for name in ("none", "world-1") + DP_TURNS:     # one untimed call each, then turns
+                call, st = calls[name]
+                torch.cuda.synchronize()
+                start.record()
+                calls[name][1], _ = call(st)
+                end.record()
+                torch.cuda.synchronize()
+                times[name].append(start.elapsed_time(end) / 20)
+            times = {k: v[1:] for k, v in times.items()}
+            check(same_state(calls["none"][1], calls["world-1"][1]),
+                  f"world-1 NCCL ({what}): still bit for bit after {len(times['none']) + 1} more "
+                  "calls each")
+            for multi in multis:
+                multi.release()
+            out[sharded] = (times, launches["none"])
+    finally:
+        dist.destroy_process_group()
+    return out, flat_bytes
+
+
+def data_parallel_path(dev, card):
+    """Phase 3j: data parallel at the flagship's full width (global B=64,
+    N=2048, the 512-cloud split): (a) ``dp_world1``; (b) two gloo ranks
+    sharing the card (``dp_worker`` in two child processes) against one
+    process on the same weights: every step's x, eps and xnoise of the two
+    ranks concatenate to the one-process step's bit for bit (replicated and
+    sharded), step 1's all-reduced gradient within phase 2's bf16 gradient
+    limit per tensor, step 1's loss within TOL_DP_LOSS (the fused latent
+    flow's step too), steps 2-3 and the parameters printed, a multi-step of
+    20 refused; (c) the rank-sharded sampler's clouds (module and fused
+    latent inverse) equal make_sampler on each rank's seeds bit for bit,
+    the row-sharded CD and EMD (fast) matrices equal the one-process ones,
+    and so do MMD/COV/1-NNA; every kernel of the path launched on each rank;
+    (d) the training CLI asked for one card more than are visible raises,
+    naming the visible count."""
+    import copy
+    import shutil
+
+    import torch
+
+    from dpfx_torch.metrics.generation import compute_all_metrics, pairwise_matrix
+    from dpfx_torch.parallel import free_port, rank_seed
+    from dpfx_torch.train import __main__ as train_cli
+
+    t0 = time.perf_counter()
+    world1, flat_bytes = dp_world1(dev, card)
+    t_a = time.perf_counter() - t0
+
+    out_dir = WORK / "data_parallel"
+    shutil.rmtree(out_dir, ignore_errors=True)
+    out_dir.mkdir(parents=True)
+    port = free_port()
+    procs = [subprocess.Popen([sys.executable, str(Path(__file__).resolve()), "--dp-worker",
+                               str(r), str(port), str(out_dir), dev.type], stdout=subprocess.PIPE,
+                              stderr=subprocess.PIPE, text=True) for r in (0, 1)]
+    try:
+        cfg, clouds, ref_np = dp_inputs("train.steps_per_call=1")
+        lcfg = copy.deepcopy(cfg)
+        lcfg.train.fused_latent_flow = True
+        one = {"replicated": dp_steps(cfg, dev, clouds, None, False),
+               "latent": dp_steps(lcfg, dev, clouds, None, False, 1)}
+        model = dp_model(cfg, dev)
+        gen = torch.cat([dp_samples(model, 32, seed=rank_seed(DP_SEED, r)) for r in (0, 1)])
+        gen_lat = torch.cat([dp_samples(model, 32, seed=rank_seed(DP_SEED, r), fused_latent=True)
+                             for r in (0, 1)])
+        ref = torch.from_numpy(ref_np).to(dev)
+        mats = {m: pairwise_matrix(gen, ref, m) for m in ("cd", "emd")}
+        with warnings.catch_warnings():  # random weights: samples past the JSD grid
+            warnings.simplefilter("ignore")
+            metrics = compute_all_metrics(gen, ref, metrics=("cd", "emd"))
+        torch.cuda.synchronize()
+        for r, p in enumerate(procs):
+            text, err = p.communicate(timeout=600)
+            check(p.returncode == 0,
+                  f"data-parallel rank {r} failed:\n{text[-2000:]}\n{err[-4000:]}")
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    ranks = [torch.load(out_dir / f"rank{r}.pt", weights_only=False) for r in (0, 1)]
+    t_bc = time.perf_counter() - t0 - t_a
+
+    # (b) the two ranks' steps against one process
+    ref_steps = one["replicated"]
+    for form in ("replicated", "sharded"):
+        for t in range(DP_STEPS):
+            for key in ("x", "eps", "xnoise"):
+                parts = [rk[form]["seen"][t][key] for rk in ranks]
+                check(torch.equal(torch.cat(parts), ref_steps["seen"][t][key].cpu()),
+                      f"{form} step {t + 1}: the ranks' {key} concatenate to the one-process "
+                      "step's bit for bit")
+    for rk in ranks:
+        check(all(torch.equal(a[key], b[key]) for a, b in zip(rk["sharded"]["seen"],
+                                                             rk["replicated"]["seen"])
+                  for key in ("x", "eps", "xnoise")),
+              "the sharded gather's rows equal the replicated rows bit for bit")
+    sizes = ref_steps["sizes"]
+    grad_err = {}
+    for form in ("replicated", "sharded"):
+        g0, g1 = (rk[form]["grad"] for rk in ranks)
+        check(torch.equal(g0, g1), f"{form}: both ranks' all-reduced gradients are equal")
+        errs = [float((a - b).norm() / b.norm().clamp_min(1e-30)) for a, b in
+                zip(g0.split(sizes), ref_steps["grad"].cpu().split(sizes))]
+        grad_err[form] = max(errs)
+        check(grad_err[form] <= TOL_GRAD_BF16, f"{form}: step 1's all-reduced gradient against "
+              f"one process, largest per-tensor relative error {grad_err[form]:.3e}")
+    loss_err = {}
+    for form, want in (("replicated", ref_steps), ("sharded", ref_steps),
+                       ("latent", one["latent"])):
+        got = [rk[form]["losses"] for rk in ranks]
+        check(got[0] == got[1], f"{form}: both ranks log the same losses")
+        loss_err[form] = abs(got[0][0] - want["losses"][0]) / abs(want["losses"][0])
+        check(loss_err[form] <= TOL_DP_LOSS, f"{form}: step 1's loss {got[0][0]} against one "
+              f"process's {want['losses'][0]} (rel {loss_err[form]:.2e})")
+    param_diff = max(float((rk[form]["params"] - ref_steps["params"].cpu()).abs().max())
+                     for rk in ranks for form in ("replicated", "sharded"))
+    check(all("train.steps_per_call=1" in rk["refusal"] for rk in ranks),
+          f"a gloo group on the card refuses a multi-step of 20: {ranks[0]['refusal']!r}")
+
+    # (c) the sampler and the suite
+    for rk in ranks:
+        check(torch.equal(rk["gen"], gen.cpu()) and torch.equal(rk["gen_latent"], gen_lat.cpu()),
+              "the rank-sharded sampler's clouds equal make_sampler on each rank's seeds")
+    held = {}
+    for metric, (name, tol) in (("cd", ("cd_pairwise", TOL_CD)), ("emd", ("emd_pairwise", None))):
+        want = mats[metric].cpu()
+        same = all(torch.equal(rk[metric], want) for rk in ranks)
+        if same:
+            held[metric] = "bit for bit"
+        else:
+            # the kernel's value for a pair depends on the launch's shape: held by phase 2c's limits
+            rel = max(float(((rk[metric] - want).abs() / want.abs().clamp_min(1e-12)).max())
+                      for rk in ranks)
+            med = max(float(((rk[metric] - want).abs() / want.abs().clamp_min(1e-12)).median())
+                      for rk in ranks)
+            ok = rel <= tol if tol else (med <= TOL_EMD_MEDIAN and rel <= TOL_EMD_MAX)
+            check(ok, f"{name}: the row-sharded matrix against one process, rel max {rel:.3e}")
+            held[metric] = (f"{name} depends on the launch's shape: rel max {rel:.3e}, "
+                            f"median {med:.3e}")
+    suite_keys = [k for k in metrics if k.split("-")[0] in ("mmd", "cov", "1")]
+    for rk in ranks:
+        check(all(rk["metrics"][k] == metrics[k] for k in suite_keys),
+              f"MMD/COV/1-NNA at two ranks {[rk['metrics'][k] for k in suite_keys]} against one "
+              f"process {[metrics[k] for k in suite_keys]}")
+    path_kernels = ("fused_train_fwd", "fused_train_bwd", "fused_encoder_fwd", "fused_encoder_bwd",
+                    "fused_latent_fwd", "fused_latent_bwd", "fused_latent_inv", "fused_sample",
+                    "cd_pairwise", "emd_pairwise")
+    for r, rk in enumerate(ranks):
+        check(all(rk["launches"][k] > 0 for k in path_kernels),
+              f"rank {r} launched every kernel of the path: {rk['launches']}")
+
+    # (d) more cards than are visible
+    visible = torch.cuda.device_count()
+    try:
+        train_cli.main([str(CONFIG), f"parallel.data_axis={visible + 1}",
+                        "data.synthetic_size=512"])
+        refused = ""
+    except ValueError as e:
+        refused = str(e)
+    check(f"only {visible} are visible" in refused,
+          f"the training CLI asked for {visible + 1} cards on {visible}: {refused!r}")
+
+    (rep_t, rep_l), (sh_t, sh_l) = world1[False], world1[True]
+    mean = lambda v: sum(v) / len(v)  # noqa: E731
+    launches = {k: [rk["launches"][k] for rk in ranks] for k in path_kernels}
+    print(f"data parallel (a) world-1 NCCL, the all-reduce captured, resident calls of 20 replays "
+          f"bit for bit with no group (replicated and sharded), launches equal "
+          f"{json.dumps(rep_l)}; ms/step in turns, replicated world-1 {mean(rep_t['world-1']):.3f} "
+          f"({', '.join(f'{v:.3f}' for v in rep_t['world-1'])}) against no group "
+          f"{mean(rep_t['none']):.3f} ({', '.join(f'{v:.3f}' for v in rep_t['none'])}), sharded "
+          f"world-1 {mean(sh_t['world-1']):.3f} ({', '.join(f'{v:.3f}' for v in sh_t['world-1'])}) "
+          f"against {mean(sh_t['none']):.3f} ({', '.join(f'{v:.3f}' for v in sh_t['none'])}); "
+          f"flat gradient "
+          f"{flat_bytes:,} bytes; {t_a:.1f} s ({card})")
+    print(f"data parallel (b) two gloo ranks on one card, B/D=32, {DP_STEPS} eager steps: x, eps, "
+          f"xnoise of every step bit for bit with one process (replicated and sharded), step 1's "
+          f"gradient max per-tensor rel err {grad_err['replicated']:.3e} (sharded "
+          f"{grad_err['sharded']:.3e}), step 1's loss rel err {loss_err['replicated']:.2e} "
+          f"(sharded {loss_err['sharded']:.2e}, fused latent flow {loss_err['latent']:.2e}); "
+          f"losses two ranks {', '.join(f'{v:.3f}' for v in ranks[0]['replicated']['losses'])} "
+          f"against one process {', '.join(f'{v:.3f}' for v in ref_steps['losses'])}; params "
+          f"max abs diff after {DP_STEPS} steps {param_diff:.3e}; sharded gather "
+          f"{64 * DP_POINTS * 3 * 4:,} bytes a step; resident a rank "
+          f"{ranks[0]['sharded']['resident_bytes'] / 1e6:.1f} MB sharded against "
+          f"{ranks[0]['replicated']['resident_bytes'] / 1e6:.1f} MB replicated; "
+          f"steps_per_call=20 refused")
+    print(f"data parallel (c) the suite at two ranks, 64 x 64 x {DP_POINTS}: sampled clouds bit "
+          f"for bit (module and fused latent inverse), CD {held['cd']}, EMD fast {held['emd']}, "
+          f"MMD/COV/1-NNA equal ({', '.join(f'{k} {metrics[k]:.4f}' for k in suite_keys)}); "
+          f"launches a rank {json.dumps(launches)}; (b)+(c) {t_bc:.1f} s")
+    print(f"data parallel (d) the training CLI with parallel.data_axis={visible + 1}: {refused}")
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -3364,6 +3785,10 @@ def main() -> int:
     # ---- 3i. the packed-stack training path, generate --png and the converter
     packed_path(cfg, dev, card, multis["off"], timers, train_ms, step_losses, val_records[0])
 
+    # ---- 3j. data parallel: world-1 NCCL with the all-reduce captured, two gloo
+    # ranks sharing the card, the row-sharded suite, the CLI's card count
+    data_parallel_path(dev, card)
+
     # ---- 4. per-kernel numbers at the main path's shapes (B=64, N=2048, bf16)
     b, n = 64, 2048
     z = torch.randn((b, cfg.model.dz), generator=g, device=dev)
@@ -3703,4 +4128,6 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--dp-worker"]:      # a rank of phase 3j, started by the smoke itself
+        sys.exit(dp_worker(int(sys.argv[2]), int(sys.argv[3]), Path(sys.argv[4]), sys.argv[5]))
     sys.exit(main())

@@ -14,11 +14,11 @@ configs because the mount was empty (SURVEY.md §0, §8 hard-part 5).
 This is the port's own copy of ``dpfx/config/schema.py`` (the port imports
 nothing of the JAX package), so the same YAMLs load into both. Knobs that
 only the JAX build reads (``train.flat_optimizer``: the port's optimizer is
-always flat; the multi-process and mesh layout of ``parallel``, ...) are
-accepted and ignored by the port; ``train.steps_per_call`` (K steps a call,
-replays of a step captured in a CUDA graph) and ``data.device_resident``
-are honoured, and a mesh of more than one device raises in the training
-CLI.
+always flat; ``parallel.axis_name``, ...) are accepted and ignored by the
+port; ``train.steps_per_call`` (K steps a call, replays of a step captured
+in a CUDA graph), ``data.device_resident`` and the rest of ``parallel``
+(one process per GPU over ``torch.distributed``: ``dpfx_torch.parallel``)
+are honoured.
 """
 
 from __future__ import annotations

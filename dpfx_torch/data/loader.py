@@ -1,13 +1,13 @@
-"""Host-side batching, a copy of the single-process part of
-``dpfx/data/loader.py``: random per-item subsampling, seeded epoch
-permutations, a background-thread prefetcher, and the eval-split helpers
+"""Host-side batching, a copy of ``dpfx/data/loader.py``: random per-item
+subsampling, seeded epoch permutations (and a rank's rows of each batch,
+``batch_shard``), a background-thread prefetcher, and the eval-split helpers
 (label-stratified subsets, whole-split materialisation, the paired
 renders of an SVR dataset). The batches are numpy; the trainer and the
 evaluators move them to the device."""
 
 from __future__ import annotations
 
-from typing import Dict, Iterator, Optional
+from typing import Dict, Iterator, Optional, Tuple
 
 import numpy as np
 
@@ -28,15 +28,27 @@ def _slot_rng(seed: int, epoch: int, slot: int) -> np.random.Generator:
 
 def iterate_batches(dataset, batch_size: int, n_points: int, seed: int = 0,
                     shuffle: bool = True, drop_last: bool = True,
-                    epochs: Optional[int] = None, with_images: bool = False
+                    epochs: Optional[int] = None, with_images: bool = False,
+                    batch_shard: Optional[Tuple[int, int]] = None
                     ) -> Iterator[Dict[str, np.ndarray]]:
     """Yields {"x": [B, n_points, 3]} batches, plus "image" [B, H, W, 3]
     with ``with_images`` on a dataset that has images (SVR), reshuffled
     every epoch; the same batches as ``dpfx.data.iterate_batches`` for the
-    same seed."""
+    same seed.
+
+    ``batch_shard=(start, stop)`` is the data-parallel mode: every rank
+    walks the same epoch permutation but loads only rows [start, stop) of
+    each global batch (``dpfx_torch.parallel.process_local_rows``), each
+    item subsampled by the rng of its global slot, so the ranks' rows
+    concatenate to the one-process batch bit for bit. It requires
+    ``drop_last=True`` (a ragged tail would desynchronise the ranks) and
+    raises on an empty slice."""
     if drop_last and len(dataset) < batch_size:
         raise ValueError(f"dataset has {len(dataset)} items < batch_size {batch_size} with "
                          "drop_last=True: no batch can ever be produced")
+    if batch_shard is not None and not drop_last:
+        raise ValueError("batch_shard (a rank's rows of each batch) requires drop_last=True: a "
+                         "ragged tail batch desynchronises the ranks")
     epoch = 0
     while epochs is None or epoch < epochs:
         rng = np.random.default_rng(seed * 1_000_003 + epoch)
@@ -44,9 +56,16 @@ def iterate_batches(dataset, batch_size: int, n_points: int, seed: int = 0,
         stop = len(order) - (len(order) % batch_size if drop_last else 0)
         for s in range(0, stop, batch_size):
             idx = order[s:s + batch_size]
+            slots = np.arange(s, s + len(idx))
+            if batch_shard is not None:
+                lo, hi = batch_shard
+                idx, slots = idx[lo:hi], slots[lo:hi]
+                if idx.size == 0:
+                    raise RuntimeError("batch_shard slice is empty: batch_size is smaller than "
+                                       "this rank's padded row count")
             batch = {"x": np.stack([sample_cloud(dataset[int(i)], n_points,
-                                                 _slot_rng(seed, epoch, s + j))
-                                    for j, i in enumerate(idx)])}
+                                                 _slot_rng(seed, epoch, int(j)))
+                                    for i, j in zip(idx, slots)])}
             if with_images and hasattr(dataset, "image"):
                 batch["image"] = np.stack([dataset.image(int(i)) for i in idx])
             yield batch

@@ -20,6 +20,11 @@ plain versions on the CPU); ``--impl plain`` with the plain versions
 anywhere. The device defaults to cuda and the run fails without one;
 ``--device cpu`` runs the plain path. The last line printed is the results
 JSON, also appended to ``--out`` when given.
+
+Under torchrun (or ``parallel.coordinator``, see ``dpfx_torch.parallel``)
+each process is a rank: the generation suite's sampling and pairwise
+matrices are sharded over the ranks, reconstruction runs on each rank's
+card alone, and rank 0 alone prints and writes ``--out``.
 """
 
 from __future__ import annotations
@@ -47,11 +52,10 @@ def main(argv=None) -> int:
     args = ap.parse_args(argv)
 
     import torch
+    import torch.distributed as dist
 
-    from dpfx_torch.checkpoint import checkpoint_path, restore_for_eval
     from dpfx_torch.config import load_config
-    from dpfx_torch.data import build_dataset, eval_subset, load_all, load_all_images
-    from dpfx_torch.metrics import evaluate_generation, evaluate_reconstruction
+    from dpfx_torch.parallel import init_from_config
 
     # float32 products stay IEEE float32 on the card (the plain paths' contract)
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -59,14 +63,29 @@ def main(argv=None) -> int:
     cfg = load_config(args.config, overrides=args.overrides)
     if cfg.experiment not in ("ae", "gen", "svr"):
         raise ValueError(f"unknown experiment {cfg.experiment!r}")
+    group, device = init_from_config(cfg.parallel, args.device)
+    try:
+        return _evaluate(args, cfg, group, device)
+    finally:
+        if group is not None:
+            dist.destroy_process_group()
+
+
+def _evaluate(args, cfg, group, device) -> int:
+    from dpfx_torch.checkpoint import checkpoint_path, restore_for_eval
+    from dpfx_torch.data import build_dataset, eval_subset, load_all, load_all_images
+    from dpfx_torch.metrics import evaluate_generation, evaluate_reconstruction
+    from dpfx_torch.parallel import is_coordinator
+
+    say = print if is_coordinator(group) else (lambda *a, **k: None)
     if args.weights:
         found = re.fullmatch(r"params_(\d+)\.pt", Path(args.weights).name)
         weights, step = args.weights, args.step if args.step is not None else (
             int(found.group(1)) if found else None)
     else:
         weights, step = checkpoint_path(cfg, args.step)
-    model = restore_for_eval(cfg, weights, args.device)
-    print(f"[dpfx_torch] evaluating {cfg.experiment} @ step {step} on {model.device}")
+    model = restore_for_eval(cfg, weights, device)
+    say(f"[dpfx_torch] evaluating {cfg.experiment} @ step {step} on {model.device}")
 
     test_ds = build_dataset(cfg.data, "test", cfg.model.image_encoder.image_size)
     indices, subset_labels = eval_subset(test_ds, args.limit)
@@ -83,13 +102,13 @@ def main(argv=None) -> int:
                                           label_names=label_names, images=images)
     else:
         results = evaluate_generation(model, clouds, cfg, impl=args.impl, labels=labels,
-                                      label_names=label_names, timings=timings)
+                                      label_names=label_names, timings=timings, group=group)
     timings["total"] = time.perf_counter() - t0
-    print("[dpfx_torch] wall s: " + json.dumps({k: round(v, 4) for k, v in timings.items()}))
+    say("[dpfx_torch] wall s: " + json.dumps({k: round(v, 4) for k, v in timings.items()}))
 
     line = json.dumps({"step": step, "n_test": int(clouds.shape[0]), **results})
-    print(line)
-    if args.out:
+    say(line)
+    if args.out and is_coordinator(group):
         with open(args.out, "a") as f:
             f.write(line + "\n")
     return 0

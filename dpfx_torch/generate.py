@@ -10,7 +10,11 @@ or by ``python -m dpfx_torch.convert_checkpoint`` from a reference-layout
 checkpoint) or a flattened flax ``.npz`` (``export_checkpoint_torch.py``;
 see ``dpfx_torch.checkpoint``). ``--png`` also writes a montage of the
 first 16 clouds from 3 views (needs pillow). The device defaults to cuda
-and the run fails without one; ``--device cpu`` runs the plain path.
+and the run fails without one; ``--device cpu`` runs the plain path. Under
+torchrun (or ``parallel.coordinator``, see ``dpfx_torch.parallel``) each
+process is a rank, the clouds are sampled across the ranks
+(``make_sampler(group=...)``: ``--n-clouds`` a multiple of them), and rank 0
+alone writes and prints.
 """
 
 from __future__ import annotations
@@ -38,21 +42,35 @@ def main(argv=None) -> int:
     ap.add_argument("--device", default=None, help="cuda (default) or cpu")
     args = ap.parse_args(argv)
 
+    import torch.distributed as dist
+
+    from dpfx_torch.config import load_config
+    from dpfx_torch.parallel import init_from_config
+
+    cfg = load_config(args.config, overrides=args.overrides)
+    group, device = init_from_config(cfg.parallel, args.device)
+    try:
+        return _generate(args, cfg, group, device)
+    finally:
+        if group is not None:
+            dist.destroy_process_group()
+
+
+def _generate(args, cfg, group, device) -> int:
     import numpy as np
     import torch
 
     from dpfx_torch.checkpoint import restore_for_eval
-    from dpfx_torch.config import load_config
+    from dpfx_torch.parallel import is_coordinator
     from dpfx_torch.sampling import make_sampler
 
-    cfg = load_config(args.config, overrides=args.overrides)
-    model = restore_for_eval(cfg, args.weights, args.device)
+    model = restore_for_eval(cfg, args.weights, device)
     n_points = args.n_points or cfg.data.n_points_eval
     temp = cfg.eval.temperature if args.temperature is None else args.temperature
     ltemp = (cfg.eval.latent_temperature if args.latent_temperature is None
              else args.latent_temperature)
     sampler = make_sampler(model, args.n_clouds, n_points, temperature=temp,
-                           latent_temperature=ltemp)
+                           latent_temperature=ltemp, group=group)
     sync = torch.cuda.synchronize if model.device.type == "cuda" else (lambda: None)
     sampler(args.seed)  # warm-up: builds and loads the kernels on first use
     sync()
@@ -60,6 +78,8 @@ def main(argv=None) -> int:
     clouds = sampler(args.seed)
     sync()
     dt = time.perf_counter() - t0
+    if not is_coordinator(group):
+        return 0
     clouds = clouds.cpu().numpy()
     np.save(args.out, clouds)
     if args.png:

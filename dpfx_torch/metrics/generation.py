@@ -16,8 +16,10 @@ a reference set:
 The matrices come from the CUDA kernels (``dpfx_torch.ops.chamfer_pairwise``
 / ``emd_pairwise``) for tensors on the card, from their plain versions on
 the CPU or with ``impl="plain"``; MMD/COV/1-NNA and the JSD entropies run
-on the host in numpy, the JSD grid search on the clouds' device. The
-multi-device (row-sharded) matrix is not ported (ROADMAP Queue 1 #8).
+on the host in numpy, the JSD grid search on the clouds' device. Under a
+``group`` of D ranks (``dpfx_torch.parallel``) each matrix is row-sharded:
+rank r computes its block of ceil(S1/D) rows and ``gather_rows`` puts the
+whole matrix on every rank, as ``dpfx`` row-shards it over a mesh.
 """
 
 from __future__ import annotations
@@ -31,6 +33,7 @@ import torch
 
 from dpfx_torch.ops import chamfer as cd_ops
 from dpfx_torch.ops import emd as emd_ops
+from dpfx_torch.parallel import Group, gather_rows, world_rank
 
 Tensor = torch.Tensor
 
@@ -42,7 +45,8 @@ def _as_tensor(x) -> Tensor:
 # ---------------------------------------------------------------- pairwise matrices
 
 def pairwise_matrix(xs, ys, metric: str = "cd", impl: str = "auto", row_chunk: int = 64,
-                    precision: Optional[str] = None, symmetric: bool = False) -> Tensor:
+                    precision: Optional[str] = None, symmetric: bool = False,
+                    group: Group = None) -> Tensor:
     """[S1,N,3] x [S2,M,3] -> [S1,S2] distance matrix on the clouds' device.
 
     ``impl``: "auto" (the kernels for CUDA tensors, the plain versions on
@@ -50,7 +54,10 @@ def pairwise_matrix(xs, ys, metric: str = "cd", impl: str = "auto", row_chunk: i
     | "fast" | None (each kernel's default: CD exact, EMD fast). Rows go in
     chunks of ``row_chunk``. ``symmetric=True`` (a self-comparison) lets CD
     compute only the upper triangle, in one call; approxmatch EMD is not
-    argument-symmetric, so EMD ignores it and computes the full matrix."""
+    argument-symmetric, so EMD ignores it and computes the full matrix.
+    Under a ``group`` rank r computes rows [r R, (r+1) R), R = ceil(S1/D),
+    in chunks of ``row_chunk``, and every rank returns the whole matrix;
+    ``symmetric`` is then ignored, as ``dpfx`` ignores it on a mesh."""
     if impl not in ("auto", "plain"):
         raise ValueError(f"impl must be 'auto' or 'plain', got {impl!r}")
     xs, ys = _as_tensor(xs), _as_tensor(ys)
@@ -60,7 +67,7 @@ def pairwise_matrix(xs, ys, metric: str = "cd", impl: str = "auto", row_chunk: i
         if plain:
             fn = lambda a, b: cd_ops.chamfer_pairwise_plain(a, b, prec)
         else:
-            if symmetric:
+            if symmetric and group is None:
                 return cd_ops.chamfer_pairwise(xs, ys, prec, symmetric=True)
             fn = lambda a, b: cd_ops.chamfer_pairwise(a, b, prec)
     elif metric == "emd":
@@ -69,8 +76,19 @@ def pairwise_matrix(xs, ys, metric: str = "cd", impl: str = "auto", row_chunk: i
               else (lambda a, b: emd_ops.emd_pairwise(a, b, precision=prec)))
     else:
         raise ValueError(f"unknown metric {metric!r} (cd | emd)")
+    s1 = xs.shape[0]
+    world, rank = world_rank(group)
+    per = -(-s1 // world)
+    lo, hi = min(rank * per, s1), min((rank + 1) * per, s1)
     with torch.no_grad():
-        return torch.cat([fn(xs[s:s + row_chunk], ys) for s in range(0, xs.shape[0], row_chunk)])
+        rows = [fn(xs[s:min(s + row_chunk, hi)], ys) for s in range(lo, hi, row_chunk)]
+        if group is None:
+            return torch.cat(rows)
+        block = torch.zeros((per, ys.shape[0]), dtype=rows[0].dtype if rows else torch.float32,
+                            device=xs.device)
+        if rows:
+            block[:hi - lo] = torch.cat(rows)
+        return gather_rows(block, torch.arange(s1, device=xs.device), group)
 
 
 # ---------------------------------------------------------------- set-level metrics
@@ -223,7 +241,8 @@ def compute_all_metrics(gen, ref, metrics: Sequence[str] = ("cd",), impl: str = 
                         jsd_resolution: int = 28, ref_labels: Optional[np.ndarray] = None,
                         label_names: Optional[Dict[int, str]] = None,
                         precision: Optional[str] = None, jsd_frame: str = "fit",
-                        timings: Optional[Dict[str, float]] = None) -> Dict[str, float]:
+                        timings: Optional[Dict[str, float]] = None,
+                        group: Group = None) -> Dict[str, float]:
     """The full generation suite: for each base metric, MMD / COV / 1-NNA
     from the three pairwise matrices, plus JSD in both frames.
 
@@ -231,7 +250,9 @@ def compute_all_metrics(gen, ref, metrics: Sequence[str] = ("cd",), impl: str = 
     the CPU). With ``ref_labels``, a ``per_category`` table of per-class
     MMD/COV. ``timings``, when given, receives the wall seconds of each
     pairwise matrix (``"<metric>_<gr|gg|rr>"``, synchronised on the card)
-    and of the two JSDs (``"jsd"``)."""
+    and of the two JSDs (``"jsd"``). Under a ``group`` the matrices are
+    row-sharded over its ranks (``pairwise_matrix``) and every rank returns
+    the same results."""
     import time
 
     gen, ref = _as_tensor(gen), _as_tensor(ref)
@@ -239,7 +260,8 @@ def compute_all_metrics(gen, ref, metrics: Sequence[str] = ("cd",), impl: str = 
 
     def matrix(name, a, b, symmetric=False):
         t0 = time.perf_counter()
-        m = pairwise_matrix(a, b, metric, impl, precision=precision, symmetric=symmetric)
+        m = pairwise_matrix(a, b, metric, impl, precision=precision, symmetric=symmetric,
+                            group=group)
         sync()
         if timings is not None:
             timings[f"{metric}_{name}"] = time.perf_counter() - t0

@@ -6,7 +6,9 @@
   * single-view reconstruction (SVR): the same, with the posterior mean
     taken from each cloud's paired image;
   * generation: sample as many clouds as the test set holds, then the full
-    metric suite.
+    metric suite; under a ``group`` of ranks the sampling and the pairwise
+    matrices are sharded over them (reconstruction stays on one device, as
+    in ``dpfx``).
 """
 
 from __future__ import annotations
@@ -21,6 +23,7 @@ from dpfx_torch.metrics.generation import compute_all_metrics
 from dpfx_torch.models.dpf import DPF
 from dpfx_torch.ops import chamfer as cd_ops
 from dpfx_torch.ops import emd as emd_ops
+from dpfx_torch.parallel import Group, world_rank
 from dpfx_torch.sampling import make_decoder, make_sampler
 
 
@@ -78,18 +81,24 @@ def evaluate_generation(model: DPF, ref_clouds: np.ndarray, cfg: Config, seed: i
                         impl: str = "auto", sample_batch: int = 64,
                         labels: Optional[np.ndarray] = None,
                         label_names: Optional[Dict[int, str]] = None,
-                        timings: Optional[Dict[str, float]] = None) -> Dict[str, object]:
+                        timings: Optional[Dict[str, float]] = None,
+                        group: Group = None) -> Dict[str, object]:
     """Generation suite: |gen| = |ref| clouds of the ref's point count,
     drawn ``sample_batch`` at a time at the eval temperatures (the chunk at
     cloud offset i with seed ``seed + i``), then ``compute_all_metrics`` on
     the model's device. ``timings``, when given, receives the wall seconds
-    of the sampling and of each step of the suite."""
+    of the sampling and of each step of the suite. Under a ``group`` of D
+    ranks ``sample_batch`` is rounded up to a multiple of D, each chunk is
+    sampled across the ranks and the matrices are row-sharded: every rank
+    returns the same results."""
     import time
 
     s, n = ref_clouds.shape[0], ref_clouds.shape[1]
+    world = world_rank(group)[0]
+    sample_batch += -sample_batch % world
     t0 = time.perf_counter()
     sampler = make_sampler(model, sample_batch, n, temperature=cfg.eval.temperature,
-                           latent_temperature=cfg.eval.latent_temperature)
+                           latent_temperature=cfg.eval.latent_temperature, group=group)
     gen = torch.cat([sampler(seed + i) for i in range(0, s, sample_batch)])[:s]
     if timings is not None:
         if gen.is_cuda:
@@ -100,4 +109,4 @@ def evaluate_generation(model: DPF, ref_clouds: np.ndarray, cfg: Config, seed: i
         gen, ref, metrics=cfg.eval.metrics, impl=impl, jsd_resolution=cfg.eval.jsd_resolution,
         ref_labels=labels, label_names=label_names,
         precision=cfg.eval.pairwise_precision or None, jsd_frame=cfg.eval.jsd_frame,
-        timings=timings)
+        timings=timings, group=group)

@@ -11,6 +11,12 @@ built once per sampler. With ``use_actnorm`` (which the kernel does not fuse) or
 
 Each returned function takes an integer seed; the same seed gives the same
 clouds on the same device.
+
+With a ``group`` of D ranks (``dpfx_torch.parallel``), ``make_sampler``
+shards the clouds over the ranks, as ``dpfx``'s sharded sampler shards them
+over the mesh: rank r samples n_clouds / D of them from generators keyed by
+(seed, r) (``rank_seed``), and ``gather_rows`` puts every rank's clouds on
+every rank.
 """
 
 from __future__ import annotations
@@ -28,6 +34,7 @@ from dpfx_torch.ops.fused_latent import (
     stack_latent_params,
 )
 from dpfx_torch.ops.fused_sampler import fused_sample_points, stack_point_flow_params
+from dpfx_torch.parallel import Group, gather_rows, rank_seed, world_rank
 
 
 def _generators(seed: int, device: torch.device):
@@ -54,9 +61,21 @@ def _make_latent_inverse(model: DPF) -> Callable[[torch.Tensor], torch.Tensor]:
 
 
 def make_sampler(model: DPF, n_clouds: int, n_points: int, fused: bool = True,
-                 temperature: float = 1.0, latent_temperature: float = 1.0
-                 ) -> Callable[[int], torch.Tensor]:
-    """Returns seed -> [n_clouds, n_points, 3] on the model's device."""
+                 temperature: float = 1.0, latent_temperature: float = 1.0,
+                 group: Group = None) -> Callable[[int], torch.Tensor]:
+    """Returns seed -> [n_clouds, n_points, 3] on the model's device. Under
+    a ``group`` of D ranks (n_clouds a multiple of D, else it raises) rank r
+    samples rows [r n/D, (r+1) n/D) as ``make_sampler(model, n_clouds / D,
+    ...)`` does for the seed ``rank_seed(seed, r)``, and every rank returns
+    all n_clouds."""
+    if group is not None:
+        world, rank = world_rank(group)
+        if n_clouds % world:
+            raise ValueError(f"n_clouds={n_clouds} must be a multiple of the {world} ranks")
+        local = make_sampler(model, n_clouds // world, n_points, fused, temperature,
+                             latent_temperature)
+        ids = torch.arange(n_clouds, device=model.device)
+        return lambda seed: gather_rows(local(rank_seed(seed, rank)), ids, group)
     pf = model.point_flow
     dz = model.config.model.dz
     if not fused or pf.use_actnorm:

@@ -26,6 +26,15 @@ advances by 0), while ``TrainState.step`` (which drives the noise streams
 and the jitter anneal) advances. The step updates the state's tensors in
 place, where the JAX package donates them; ``TrainState.host_step`` mirrors
 the step on the host for the noise keys and the loop's cadence.
+
+Data parallel (``group``, a ``torch.distributed`` process group of D
+ranks, one GPU each): every rank takes rows [r B/D, (r+1) B/D) of each
+global batch and of its noise, which is drawn at the global shape from the
+same generators; the step all-reduces the flat gradient and the metrics in
+one buffer and divides by D, so every rank makes the same update and the
+same skip decision, as ``dpfx``'s ``pmean`` under ``shard_map``. Under NCCL
+the all-reduce is inside the captured graph. Rank 0 logs and writes the
+checkpoints; the state is broadcast from it after init and each restore.
 """
 
 from __future__ import annotations
@@ -46,6 +55,8 @@ from dpfx_torch.config import Config
 from dpfx_torch.device import DeviceLike, resolve_device
 from dpfx_torch.models.coupling import Conditioner
 from dpfx_torch.models.dpf import DPF
+from dpfx_torch.parallel import (Group, all_reduce_mean_, broadcast_, capturable, gather_rows,
+                                 rank_slice, shard_resident_stack, world_rank)
 from dpfx_torch.train.loss import elbo_loss
 from dpfx_torch.utils.writers import ScalarWriter
 
@@ -273,19 +284,22 @@ def _generator(seed: int, step: int, tag: int, device: torch.device) -> torch.Ge
 
 
 def _noise(cfg: Config, start: int, k: int, x_shape, device: torch.device,
-           eps: Optional[Tensor] = None, xn: Optional[Tensor] = None
+           eps: Optional[Tensor] = None, xn: Optional[Tensor] = None, group: Group = None
            ) -> Tuple[Tensor, Optional[Tensor]]:
     """eps [K, B, dz] and the jitter's xnoise [K, B, N, 3] (None without
     jitter) of the k steps from ``start``: the given ones, else drawn, each
     step from generators keyed by (train.seed, step, stream), so that a step
-    draws the same numbers alone, in a replayed call or in a resident one."""
+    draws the same numbers alone, in a replayed call or in a resident one.
+    Under a ``group`` the batch ``x_shape`` is the rank's [B/D, N, 3]: the
+    noise is drawn at the global shape and the rank's rows are returned
+    (given noise is taken to be the rank's already)."""
     tcfg = cfg.train
-    b, n = x_shape[-3], x_shape[-2]
+    b, n = x_shape[-3] * world_rank(group)[0], x_shape[-2]
 
     def draw(shape, tag):
-        return torch.stack([torch.randn(shape, device=device,
-                                        generator=_generator(tcfg.seed, s, tag, device))
-                            for s in range(start, start + k)])
+        return rank_slice(torch.stack([torch.randn(shape, device=device,
+                                                   generator=_generator(tcfg.seed, s, tag, device))
+                                       for s in range(start, start + k)]), group, dim=1)
 
     if eps is None:
         eps = draw((b, cfg.model.dz), _EPS_TAG)
@@ -300,13 +314,15 @@ StepCore = Callable[[TrainState, Tensor, Tensor, Optional[Tensor], Optional[Tens
                     Dict[str, Tensor]]
 
 
-def _make_step(model: DPF, tx: Optimizer, cfg: Config) -> StepCore:
+def _make_step(model: DPF, tx: Optimizer, cfg: Config, group: Group = None) -> StepCore:
     """The train step on given noise: (state, x [B, N, 3], eps [B, dz],
     xnoise [B, N, 3] or None, image [B, H, W, 3] or None) -> metrics, 0-d
     tensors on the device; with an image (SVR) the posterior is the image
     encoder's. It updates the state's tensors in place and reads no value
     on the host, so a CUDA graph can hold it; the eager step and every
-    replay run it."""
+    replay run it. Under a ``group`` the inputs are the rank's rows, and
+    one all-reduce of the flat gradient and the metrics (divided by D)
+    comes before the norm, the clip, the skip and Adam."""
     tcfg = cfg.train
     params = list(model.parameters())
 
@@ -321,8 +337,14 @@ def _make_step(model: DPF, tx: Optimizer, cfg: Config) -> StepCore:
         grads = torch.autograd.grad(loss, params, allow_unused=True)
         flat = torch.cat([(torch.zeros_like(p) if g is None else g).reshape(-1)
                           for g, p in zip(grads, params)])
-        gnorm = torch.linalg.vector_norm(flat)     # raw grads, before the clip
         metrics = {k: v.detach() for k, v in metrics.items()}
+        if group is not None:       # the flat gradient is the bucket; the metrics ride along
+            names = list(metrics)
+            buf = all_reduce_mean_(torch.cat([flat, torch.stack([metrics[k] for k in names])]),
+                                   group)
+            flat = buf[:flat.numel()]
+            metrics = dict(zip(names, buf[flat.numel():]))
+        gnorm = torch.linalg.vector_norm(flat)     # raw grads, before the clip
         metrics["grad_norm"] = gnorm
         good = torch.isfinite(gnorm) if tcfg.skip_nonfinite_updates else None
         tx.apply_(state.params, flat, gnorm, state.opt_state, good)
@@ -334,19 +356,22 @@ def _make_step(model: DPF, tx: Optimizer, cfg: Config) -> StepCore:
     return step
 
 
-def make_train_step(model: DPF, tx: Optimizer, cfg: Config
+def make_train_step(model: DPF, tx: Optimizer, cfg: Config, group: Group = None
                     ) -> Callable[[TrainState, Dict[str, Tensor]], Tuple[TrainState, Dict]]:
     """(state, batch) -> (state, metrics), one eager step; ``batch`` holds
     ``x`` [B, N, 3] on the model's device, ``image`` [B, H, W, 3] for SVR,
     and optionally ``eps`` [B, dz] and ``xnoise`` [B, N, 3], else they are
     drawn from generators seeded by (train.seed, step). The metrics are 0-d
-    tensors on the device; the state's tensors update in place."""
-    step = _make_step(model, tx, cfg)
+    tensors on the device; the state's tensors update in place. Under a
+    ``group`` the batch is the rank's B/D rows and the metrics are the
+    ranks' means."""
+    step = _make_step(model, tx, cfg, group)
 
     def step_fn(state: TrainState, batch: Dict[str, Tensor]):
         x, eps, xn = batch["x"], batch.get("eps"), batch.get("xnoise")
         eps, xn = _noise(cfg, state.host_step, 1, x.shape, x.device,
-                         None if eps is None else eps[None], None if xn is None else xn[None])
+                         None if eps is None else eps[None], None if xn is None else xn[None],
+                         group)
         metrics = step(state, x, eps[0], None if xn is None else xn[0], batch.get("image"))
         state.host_step += 1
         return state, metrics
@@ -384,21 +409,38 @@ class MultiStep:
 
     A kernel's launch counter counts when Python runs its wrapper, and a
     replay runs none: the counts the capture made (it launched nothing) are
-    taken back, and added again for each replay."""
+    taken back, and added again for each replay.
 
-    def __init__(self, model: DPF, tx: Optimizer, cfg: Config):
+    Under an NCCL ``group`` the step's all-reduce is captured with it (the
+    warm-up steps run it too, as NCCL's capture needs). A group whose
+    collectives cannot be captured (gloo) on the card raises a ValueError
+    with ``train.steps_per_call`` > 1 and at any call there: such a group
+    trains with eager steps (``train.steps_per_call=1``)."""
+
+    def __init__(self, model: DPF, tx: Optimizer, cfg: Config, group: Group = None):
         self.cfg = cfg
-        self.step = _make_step(model, tx, cfg)
+        self.group = group
+        self.step = _make_step(model, tx, cfg, group)
         self.params = list(model.parameters())
         self.graph: Optional[torch.cuda.CUDAGraph] = None
+        if self.params[0].is_cuda and cfg.train.steps_per_call > 1:
+            self._check_capturable()
+
+    def _check_capturable(self) -> None:
+        if not capturable(self.group):
+            raise ValueError(
+                f"a {torch.distributed.get_backend(self.group)} process group's collectives "
+                "cannot be captured in a CUDA graph: train with train.steps_per_call=1 (eager "
+                "steps, the all-reduce outside any graph) or over an NCCL group")
 
     def __call__(self, state: TrainState, batches: Dict[str, Tensor]):
         xs = batches["x"]
         k = xs.shape[0]
         eps, xn = _noise(self.cfg, state.host_step, k, xs.shape, xs.device, batches.get("eps"),
-                         batches.get("xnoise"))
+                         batches.get("xnoise"), self.group)
         img = batches.get("image")
         if xs.is_cuda:
+            self._check_capturable()
             out = self._replay(state, xs, eps, xn, img)
         else:
             ms = [self.step(state, xs[i], eps[i], None if xn is None else xn[i],
@@ -438,7 +480,10 @@ class MultiStep:
         counters = _launch_counters()
         before = [dict(c) for c in counters]
         graph = torch.cuda.CUDAGraph()
-        with torch.cuda.graph(graph):
+        # under a group, NCCL's watchdog thread queries its events while this
+        # thread captures: only this thread's calls are checked
+        with torch.cuda.graph(graph, capture_error_mode=(
+                "global" if self.group is None else "thread_local")):
             self.outputs = self.step(state, *self.inputs)
         self.per_replay = [{key: c[key] - b[key] for key in c} for c, b in zip(counters, before)]
         for c, b in zip(counters, before):
@@ -481,13 +526,13 @@ class MultiStep:
         return {n: out[:, j] for j, n in enumerate(names)}
 
 
-def make_multi_step(model: DPF, tx: Optimizer, cfg: Config) -> MultiStep:
-    return MultiStep(model, tx, cfg)
+def make_multi_step(model: DPF, tx: Optimizer, cfg: Config, group: Group = None) -> MultiStep:
+    return MultiStep(model, tx, cfg, group)
 
 
 # ---------------------------------------------------------------- evaluation
 
-def make_eval_step(model: DPF, cfg: Config
+def make_eval_step(model: DPF, cfg: Config, group: Group = None
                    ) -> Callable[[Dict[str, Tensor], int], Dict[str, Tensor]]:
     """The validation step (counterpart of ``dpfx``'s ``make_eval_step``):
     (batch, i) -> the ELBO's five metrics, 0-d tensors on the device,
@@ -496,20 +541,49 @@ def make_eval_step(model: DPF, cfg: Config
     SVR, and optionally ``eps`` [B, dz]; else eps is drawn from a generator
     keyed by (train.seed, i, stream), which does not depend on the training
     step (``fold_in(rng, i)`` in the JAX package). It reads the parameters
-    and writes nothing."""
+    and writes nothing.
+
+    Under a ``group`` of D ranks every rank passes the whole batch and
+    evaluates its share of the first B - B % D rows (eps drawn at the full
+    batch shape), whose means are all-reduced; the ragged tail of B % D
+    rows is evaluated by every rank on the same rows and merged, weighted
+    by rows, as ``dpfx``'s ``Trainer.evaluate`` splits a batch: the result
+    is the batch's per-cloud mean at any D, the same on every rank."""
+    tcfg = cfg.train
+    world = world_rank(group)[0]
+
+    def metrics_of(x: Tensor, eps: Tensor, image: Optional[Tensor]) -> Dict[str, Tensor]:
+        _, metrics = elbo_loss(
+            model, x, eps, kl_weight=tcfg.kl_weight, recon_reduction=tcfg.recon_reduction,
+            fused_point_flow=tcfg.fused_point_flow, fused_encoder=tcfg.fused_encoder,
+            fused_latent_flow=tcfg.fused_latent_flow, image=image)
+        return metrics
 
     @torch.no_grad()
     def eval_step(batch: Dict[str, Tensor], i: int) -> Dict[str, Tensor]:
-        tcfg, x = cfg.train, batch["x"]
+        x, image = batch["x"], batch.get("image")
         eps = batch.get("eps")
         if eps is None:
             eps = torch.randn((x.shape[0], cfg.model.dz), device=x.device,
                               generator=_generator(tcfg.seed, i, _EVAL_TAG, x.device))
-        _, metrics = elbo_loss(
-            model, x, eps, kl_weight=tcfg.kl_weight, recon_reduction=tcfg.recon_reduction,
-            fused_point_flow=tcfg.fused_point_flow, fused_encoder=tcfg.fused_encoder,
-            fused_latent_flow=tcfg.fused_latent_flow, image=batch.get("image"))
-        return metrics
+        if group is None:
+            return metrics_of(x, eps, image)
+        b = x.shape[0]
+        keep = b - b % world
+        parts = []
+        if keep:
+            head = metrics_of(rank_slice(x[:keep], group), rank_slice(eps[:keep], group),
+                              None if image is None else rank_slice(image[:keep], group))
+            names = list(head)
+            buf = all_reduce_mean_(torch.stack([head[k] for k in names]), group)
+            parts.append((keep, dict(zip(names, buf))))
+        if keep < b:
+            parts.append((b - keep, metrics_of(x[keep:], eps[keep:],
+                                               None if image is None else image[keep:])))
+        if len(parts) == 1:
+            return parts[0][1]
+        (nh, mh), (nt, mt) = parts
+        return {k: (mh[k] * nh + mt[k] * nt) / b for k in mh}
 
     return eval_step
 
@@ -656,27 +730,55 @@ def gather_resident(data: Tensor, ci: Tensor, pi: Optional[Tensor]) -> Tensor:
 
 
 def make_resident_multi_step(model: DPF, tx: Optimizer, cfg: Config,
-                             multi: Optional[Callable] = None) -> Callable:
+                             multi: Optional[Callable] = None, group: Group = None,
+                             sharded: bool = False, logical_rows: Optional[int] = None
+                             ) -> Callable:
     """K steps per call on batches gathered on the device from the resident
-    stack [S, P, 3] (``data.device_resident``), the single-device
-    counterpart of ``dpfx``'s ``make_resident_multi_step``:
+    stack [S, P, 3] (``data.device_resident``), the counterpart of
+    ``dpfx``'s ``make_resident_multi_step``:
     (state, data, k, draws=None, images=None) -> (state, metrics [K]).
     ``images`` is an SVR run's resident render stack [S, H, W, 3]: each
     step's images are gathered with the cloud ids ``ci`` of its clouds, so
     the pairs (cloud i, image i) stay the dataset's. ``draws`` supplies
     ``resident_draw``'s four outputs (then k is theirs); ``multi`` runs the
-    stacked steps (default: a new ``MultiStep``)."""
-    multi = multi or MultiStep(model, tx, cfg)
+    stacked steps (default: a new ``MultiStep``).
+
+    Under a ``group`` the draw stays global and each rank trains on its
+    rows of it. Replicated, every rank holds the whole stack and gathers
+    its rows. ``sharded`` (``parallel.resident_sharding: sharded``): ``data``
+    (and ``images``) is this rank's padded block of ceil(S/D) rows
+    (``shard_resident_stack``) and ``logical_rows`` the unpadded S, which
+    the draw indexes, so the pad is never drawn; each step's [B, N, 3]
+    clouds are gathered after the point subsample by ``gather_rows`` (one
+    all-reduce for the call's K steps) and the images with the same ids, as
+    ``dpfx`` gathers them under ``shard_map``."""
+    multi = multi or MultiStep(model, tx, cfg, group)
+    if sharded and logical_rows is None:
+        raise ValueError("a sharded resident stack needs logical_rows (the unpadded split size)")
 
     def resident(state: TrainState, data: Tensor, k: Optional[int] = None, draws=None,
                  images: Optional[Tensor] = None):
         if draws is None:
-            draws = resident_draw(cfg, state.host_step, k, data.shape[0], data.shape[1],
-                                  data.device)
+            s = logical_rows if logical_rows is not None else data.shape[0]
+            draws = resident_draw(cfg, state.host_step, k, s, data.shape[1], data.device)
         ci, pi, eps, xn = draws
-        batches = {"x": gather_resident(data, ci, pi), "eps": eps, "xnoise": xn}
-        if images is not None:
-            batches["image"] = images[ci]
+        if pi is not None and pi.shape[-1] == 0:
+            pi = None
+        mine = lambda t: None if t is None else rank_slice(t, group, dim=1)  # noqa: E731
+        if sharded:
+            kk, b = ci.shape
+            x = gather_rows(data, ci.reshape(-1), group,
+                            None if pi is None else pi.reshape(kk * b, -1))
+            batches = {"x": mine(x.reshape(kk, b, *x.shape[1:]))}
+            if images is not None:
+                img = gather_rows(images, ci.reshape(-1), group)
+                batches["image"] = mine(img.reshape(kk, b, *img.shape[1:]))
+        else:
+            ci = mine(ci)
+            batches = {"x": gather_resident(data, ci, mine(pi))}
+            if images is not None:
+                batches["image"] = images[ci]
+        batches.update(eps=mine(eps), xnoise=mine(xn))
         return multi(state, batches)
 
     return resident
@@ -761,36 +863,81 @@ class Trainer:
     with ``train.tensorboard``), evaluation every ``train.eval_every``
     steps, full-state checkpoints kept by ``train.ckpt_keep``, resume and
     divergence recovery; ``train.steps_per_call`` steps per call. ``device``
-    defaults to cuda and raises without one."""
+    defaults to cuda and raises without one.
 
-    def __init__(self, cfg: Config, device: DeviceLike = None, log_fn=print):
+    Under a ``group`` (``dpfx_torch.parallel.init_from_config``) the batches
+    ``fit`` takes are the rank's rows of each global batch
+    (``iterate_batches(batch_shard=...)``); rank 0 logs, writes
+    ``metrics.jsonl`` and TensorBoard and the checkpoints, and every other
+    rank logs nothing and writes its own ``metrics.jsonl`` under
+    ``proc<r>/``. The parameters and the optimizer state are broadcast from
+    rank 0 after init and after each restore."""
+
+    def __init__(self, cfg: Config, device: DeviceLike = None, log_fn=print,
+                 group: Group = None):
         self.cfg = cfg
         self.device = resolve_device(device)
-        self.log_fn = log_fn
+        self.group = group
+        self.world, self.rank = world_rank(group)
+        if cfg.train.batch_size % self.world:
+            raise ValueError(f"train.batch_size={cfg.train.batch_size} does not divide over "
+                             f"{self.world} ranks")
+        if cfg.parallel.resident_sharding not in ("replicated", "sharded"):
+            raise ValueError(f"unknown parallel.resident_sharding "
+                             f"{cfg.parallel.resident_sharding!r} (replicated | sharded)")
+        self.log_fn = log_fn if self.rank == 0 else (lambda *a, **k: None)
         self.model = init_params_(DPF(cfg), cfg.train.seed).to(self.device)
         self.tx = make_optimizer(cfg.train)
         self.state = init_state(self.model, self.tx)
-        self.train_step = make_train_step(self.model, self.tx, cfg)
+        self._broadcast()
+        self.train_step = make_train_step(self.model, self.tx, cfg, group)
         self.steps_per_call = max(1, cfg.train.steps_per_call)
-        self.multi_step = make_multi_step(self.model, self.tx, cfg)   # captures at its first call
-        self.eval_step = make_eval_step(self.model, cfg)
+        # captures at its first call
+        self.multi_step = make_multi_step(self.model, self.tx, cfg, group)
+        self.eval_step = make_eval_step(self.model, cfg, group)
         self.directory = os.path.join(cfg.train.ckpt_dir, cfg.name)
         self.ckpt = CheckpointManager(self.directory, max_to_keep=cfg.train.ckpt_keep or None)
-        self.writer = ScalarWriter(self.directory, tensorboard=cfg.train.tensorboard)
+        self.writer = (ScalarWriter(self.directory, tensorboard=cfg.train.tensorboard)
+                       if self.rank == 0 else
+                       ScalarWriter(os.path.join(self.directory, f"proc{self.rank}"),
+                                    tensorboard=False))
         self.history: list = []         # the logged train records
         self.last_eval_step = -1        # the step of the last evaluation in a fit
 
+    def _broadcast(self) -> None:
+        """Rank 0's parameters, moments, count and step on every rank."""
+        st = self.state
+        broadcast_([st.params, st.opt_state.mu, st.opt_state.nu, st.opt_state.count, st.step],
+                   self.group)
+
+    def _latest_step(self) -> Optional[int]:
+        """The newest checkpoint's step as rank 0 sees it, on every rank."""
+        step = self.ckpt.latest_step() if self.rank == 0 else None
+        if self.group is None:
+            return step
+        t = torch.tensor([-1 if step is None else step], dtype=torch.int64, device=self.device)
+        broadcast_([t], self.group)
+        return None if int(t) < 0 else int(t)
+
+    def _restore(self, step: int) -> None:
+        """Rank 0 restores ``step`` in place; every rank then takes its state."""
+        if self.rank == 0:
+            self.ckpt.restore(step, self.model, self.state)
+        self._broadcast()
+        self.state.host_step = step
+
     def save(self) -> None:
-        """A full-state checkpoint of the current step."""
-        self.ckpt.save(self.state.host_step, self.model, self.state)
+        """A full-state checkpoint of the current step, written by rank 0."""
+        if self.rank == 0:
+            self.ckpt.save(self.state.host_step, self.model, self.state)
 
     def maybe_resume(self) -> int:
         """Restore the latest checkpoint in place, if there is one; returns
         its step (0 without one). The layout must match the model's."""
-        step = self.ckpt.latest_step()
+        step = self._latest_step()
         if step is None:
             return 0
-        self.ckpt.restore(step, self.model, self.state)
+        self._restore(step)
         self.log_fn(f"[dpfx_torch] resumed from step {step}")
         return step
 
@@ -849,17 +996,17 @@ class Trainer:
                 pending = []
                 self.state, metrics = self.multi_step(self.state, stacked)
                 xs = stacked["x"].shape
-                cad.record(spc, metrics, xs[1] * xs[2])
+                cad.record(spc, metrics, xs[1] * xs[2] * self.world)
             else:
                 batch = self._to_device(batch)
                 self.state, metrics = self.train_step(self.state, batch)
-                cad.record(1, metrics, batch["x"].shape[0] * batch["x"].shape[1])
+                cad.record(1, metrics, batch["x"].shape[0] * batch["x"].shape[1] * self.world)
         for batch in pending:       # the iterator ran dry mid-group
             if cad.step >= steps:
                 break
             batch = self._to_device(batch)
             self.state, metrics = self.train_step(self.state, batch)
-            cad.record(1, metrics, batch["x"].shape[0] * batch["x"].shape[1])
+            cad.record(1, metrics, batch["x"].shape[0] * batch["x"].shape[1] * self.world)
         cad.finish()
         self.last_eval_step = cad.last_eval_step
         return self.state
@@ -867,7 +1014,9 @@ class Trainer:
     def fit_resident(self, clouds: Union[np.ndarray, Tensor],
                      val_batches_fn: Optional[Callable[[], Iterator]] = None,
                      steps: Optional[int] = None,
-                     images: Union[np.ndarray, Tensor, None] = None) -> TrainState:
+                     images: Union[np.ndarray, Tensor, None] = None,
+                     clouds_are_local_shard: bool = False,
+                     logical_rows: Optional[int] = None) -> TrainState:
         """Train with the split resident on the device
         (``data.device_resident``): ``clouds`` is the [S, P, 3] stack of
         ``dpfx_torch.data.preload_clouds`` and, for SVR, ``images`` the
@@ -875,12 +1024,28 @@ class Trainer:
         device once; each call draws and gathers steps_per_call batches
         there (the images with the clouds' ids), and a last call takes the
         remaining steps. The draws are keyed by the absolute step, so a
-        resumed run draws what the uninterrupted one would have."""
+        resumed run draws what the uninterrupted one would have.
+
+        Under a group with ``parallel.resident_sharding: sharded`` each rank
+        keeps only its padded block of the stack; with
+        ``clouds_are_local_shard`` the stacks given are that block already
+        (loaded alone: ``process_local_rows``), and ``logical_rows`` is the
+        split's unpadded size."""
         steps = steps or self.cfg.train.steps
         b, n = self.cfg.train.batch_size, self.cfg.data.n_points
-        data = torch.as_tensor(clouds, dtype=torch.float32).to(self.device)
+        sharded = self.group is not None and self.cfg.parallel.resident_sharding == "sharded"
+        if clouds_are_local_shard and not (sharded and logical_rows is not None):
+            raise ValueError("clouds_are_local_shard needs a group, parallel.resident_sharding="
+                             "sharded and logical_rows (the unpadded split size)")
+        logical = logical_rows if logical_rows is not None else int(clouds.shape[0])
+        if sharded:
+            place = lambda t: shard_resident_stack(  # noqa: E731
+                t, self.world, self.rank, self.device, is_local_shard=clouds_are_local_shard)
+        else:
+            place = lambda t: torch.as_tensor(t, dtype=torch.float32).to(self.device)  # noqa: E731
+        data = place(clouds)
         if images is not None:
-            images = torch.as_tensor(images, dtype=torch.float32).to(self.device)
+            images = place(images)
             if images.shape[0] != data.shape[0]:
                 raise ValueError(f"{images.shape[0]} resident images for {data.shape[0]} clouds")
         spc = self.steps_per_call
@@ -889,7 +1054,9 @@ class Trainer:
             return self.train_step(state, {k: v[0] for k, v in batches.items() if v is not None})
 
         resident = make_resident_multi_step(self.model, self.tx, self.cfg,
-                                            self.multi_step if spc > 1 else one_step)
+                                            self.multi_step if spc > 1 else one_step,
+                                            group=self.group, sharded=sharded,
+                                            logical_rows=logical)
         cad = _Cadence(self, steps, val_batches_fn)
         while cad.step < steps:
             k = min(spc, steps - cad.step)
@@ -902,9 +1069,12 @@ class Trainer:
     def fit_auto(self, make_batches: Optional[Callable[[], Iterator]] = None,
                  val_batches_fn: Optional[Callable[[], Iterator]] = None,
                  resident_clouds: Union[np.ndarray, Tensor, None] = None,
-                 resident_images: Union[np.ndarray, Tensor, None] = None) -> TrainState:
+                 resident_images: Union[np.ndarray, Tensor, None] = None,
+                 clouds_are_local_shard: bool = False,
+                 logical_rows: Optional[int] = None) -> TrainState:
         """``fit`` on ``make_batches()`` (or ``fit_resident`` on
-        ``resident_clouds`` and, for SVR, ``resident_images``) with
+        ``resident_clouds`` and, for SVR, ``resident_images``, with
+        ``clouds_are_local_shard`` and ``logical_rows`` as there) with
         divergence recovery
         (``train.recover_on_divergence``, off by default): on
         TrainDivergedError, restore the latest checkpoint in place (or
@@ -913,13 +1083,17 @@ class Trainer:
         (the captured graph holds the learning rate as a constant, so the
         old graph is released and the step captured again at its next
         call), restart the batch stream and go on towards ``train.steps``;
-        at most ``train.max_recoveries`` times, then re-raise."""
+        at most ``train.max_recoveries`` times, then re-raise. Under a group
+        every rank reads the same all-reduced metrics, so all of them
+        diverge at the same call and recover in step."""
         tries = 0
         while True:
             try:
                 if resident_clouds is not None:
                     return self.fit_resident(resident_clouds, val_batches_fn=val_batches_fn,
-                                             images=resident_images)
+                                             images=resident_images,
+                                             clouds_are_local_shard=clouds_are_local_shard,
+                                             logical_rows=logical_rows)
                 return self.fit(make_batches(), val_batches_fn=val_batches_fn)
             except TrainDivergedError:
                 tcfg = self.cfg.train
@@ -930,13 +1104,13 @@ class Trainer:
                     tcfg, lr=tcfg.lr * tcfg.recovery_lr_factor)
                 self.multi_step.release()
                 self.tx = make_optimizer(tcfg)
-                self.train_step = make_train_step(self.model, self.tx, self.cfg)
-                self.multi_step = make_multi_step(self.model, self.tx, self.cfg)
-                restored = self.ckpt.latest_step()
+                self.train_step = make_train_step(self.model, self.tx, self.cfg, self.group)
+                self.multi_step = make_multi_step(self.model, self.tx, self.cfg, self.group)
+                restored = self._latest_step()
                 if restored is None:
                     self._reinit()
                 else:
-                    self.ckpt.restore(restored, self.model, self.state)
+                    self._restore(restored)
                 self.log_fn(f"[dpfx_torch] diverged (recovery {tries}/{tcfg.max_recoveries}): "
                             f"restored step {restored or 0}, lr -> {tcfg.lr:g}; continuing")
 
@@ -950,3 +1124,4 @@ class Trainer:
                   self.state.step):
             t.zero_()
         self.state.host_step = 0
+        self._broadcast()

@@ -210,6 +210,13 @@ def test_fit_resident_calls_equal_single_steps(tmp_path):
 
 
 @pytest.mark.parametrize("over", ["parallel.resident_sharding=sharded", "parallel.data_axis=2"])
-def test_train_cli_refuses_more_than_one_gpu(tmp_path, over):
-    with pytest.raises(NotImplementedError, match="Queue 1 #8"):
-        train_cli.main([_yaml(tmp_path), "data.device_resident=true", over, "--device", "cpu"])
+def test_train_cli_refuses_more_than_one_gpu(tmp_path, over, monkeypatch):
+    """Data parallel is ported (tests/test_torch_parallel.py); what the CLI
+    refuses is more cards than are visible: two asked for on a one-card
+    machine, with the resident stack sharded or replicated, raises before
+    anything touches a card."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 1)
+    with pytest.raises(ValueError, match="data_axis=2 cards requested but only 1 are visible"):
+        train_cli.main([_yaml(tmp_path), "data.device_resident=true", over,
+                        "parallel.data_axis=2"])

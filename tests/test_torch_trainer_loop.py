@@ -376,8 +376,13 @@ def test_tensorboard_events_equal_metrics_jsonl(tmp_path, monkeypatch):
         assert got[key] == pytest.approx(v, rel=1e-6), key
 
 
-@pytest.mark.parametrize("over,queue", [("parallel.coordinator=localhost:1234", "#8"),
-                                        ("parallel.num_processes=2", "#8")])
-def test_cli_refuses_keys_it_cannot_honour(tmp_path, over, queue):
-    with pytest.raises(NotImplementedError, match=f"Queue 1 {queue}"):
+@pytest.mark.parametrize(
+    "over,needs", [("parallel.coordinator=localhost:1234", "num_processes and parallel.process_id"),
+                   ("parallel.num_processes=2", "needs parallel.coordinator")],
+    ids=["parallel.coordinator=localhost:1234-#8", "parallel.num_processes=2-#8"])
+def test_cli_refuses_keys_it_cannot_honour(tmp_path, over, needs):
+    """Data parallel is ported (tests/test_torch_parallel.py), so these keys
+    are honoured; alone, neither can make this process a rank, and the CLI
+    names what is missing before it starts anything."""
+    with pytest.raises(ValueError, match=needs):
         train_cli.main([_yaml(tmp_path), over, "--device", "cpu"])
