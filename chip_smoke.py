@@ -6,7 +6,8 @@ suite and AE reconstruction, the differentiable distances, the int8
 sampler, the two probe tools, single-view reconstruction's training and
 evaluation, training from a packed stack through the native loader with
 the montage and the checkpoint converter, and data parallel on the one
-card) through the normal entry points, and report.
+card) through the normal entry points, run the measurement and data
+tools, and report.
 
 Run from the root of a checkout, on a machine with one CUDA card:
 
@@ -205,6 +206,23 @@ phase 3j's ranks, which the script starts itself):
      raises, naming the visible count; the flat gradient's bytes, the
      sharded gather's bytes a step and each rank's resident MB printed
      beside the card;
+  3k. (run after 5c: its trace is held to phase 5b's) the tools of
+     dpfx_torch.tools at the flagship widths, in turn in one child process,
+     each counting its launches from 0 and printing them last, each required to
+     have launched its kernels: bench_kernels (reps 5; every key finite),
+     bench_serving (B = 1, 16, 64, 1024, reps 5), prof_train (all twelve
+     pieces as CUDA-graph replays, reps 5, each with its device-busy ms),
+     bench_batch_sweep (B = 64, 128, 256, reps 5; MFU finite and in (0, 1]),
+     bench_sample_int8 on phase 3b's checkpoint (its int8 error printed
+     beside the checkpoint's bf16-against-f32 clouds), quality_oracle on the
+     flagship YAML (data.synthetic_size 512, --limit 128) with phase 3c's
+     gates (train-vs-test 1-NNA in [0.35, 0.65], noise-vs-test >= 0.9),
+     make_synthetic_shapenet (a 20/5/5 tree with 3 PNG views a model) read
+     back by build_dataset as shapenet_npy_dir and shapenet_svr,
+     part_count_pin on phase 3's sampled clouds (--limit 128), a
+     utils.profiling.trace around one replayed call of 20 steps read by
+     parse_trace (its device total within 5% of phase 5b's busy time for
+     such a call); then the phase's wall time;
   4. at the main paths' shapes (B=64, N=2048, bf16): the training kernels
      held against their plain versions again (u, log-det, every gradient;
      each backward bit-identical across two runs), the redesigned
@@ -236,7 +254,8 @@ phase 3j's ranks, which the script starts itself):
      one resident call of 20 steps (fused latent flow off and on), and
      (5c) of one generation suite at S=128: device-busy time, idle share,
      kernels per call or step and the kernels that take the time;
-  6. the card line again, then the last line: {"ok": true, "device": {...}}.
+  6. (after phase 3k) the card line again, then the last line:
+     {"ok": true, "device": {...}}.
 It needs no network and starts no process that outlives it (nvcc and
 nvidia-smi are waited for).
 """
@@ -3166,6 +3185,216 @@ def data_parallel_path(dev, card):
     print(f"data parallel (d) the training CLI with parallel.data_axis={visible + 1}: {refused}")
 
 
+# ---------------------------------------------------------------- phase 3k: the tools
+
+TOL_TRACE_BUSY = 0.05   # parse_trace's device total against phase 5b's busy time, relative
+
+# one child process runs the tools in turn: each tool's main(args) with its
+# environment set and the launch counts reset, its stdout captured; one JSON
+# line a tool, prefixed TOOL_MARK
+TOOL_MARK = "dpfx-tool "
+TOOL_CHILD = """
+import contextlib, gc, importlib, io, json, os, sys, time, traceback
+import torch
+from dpfx_torch.tools._common import reset_launch_counts
+for module, args, env in json.loads(sys.argv[1]):
+    saved = {k: os.environ.get(k) for k in env}
+    os.environ.update(env)
+    reset_launch_counts()
+    out, t0 = io.StringIO(), time.perf_counter()
+    try:
+        with contextlib.redirect_stdout(out):
+            rc = importlib.import_module(module).main(args)
+    except BaseException:
+        rc = traceback.format_exc()[-3000:]
+    for k, v in saved.items():
+        if v is None:
+            os.environ.pop(k, None)
+        else:
+            os.environ[k] = v
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(sys.argv[2] + json.dumps({"module": module, "rc": rc, "stdout": out.getvalue(),
+                                    "s": time.perf_counter() - t0}), flush=True)
+"""
+
+
+def run_tools(plan):
+    """Each (module, args, env) of ``plan`` in turn in ONE child process from
+    the repo root (the child reaches the card once): ``main(args)`` with env
+    set and the launch counts reset. Returns each tool's stdout lines and
+    the launch counts of its last line (None where it prints none)."""
+    proc = subprocess.run([sys.executable, "-c", TOOL_CHILD, json.dumps(plan), TOOL_MARK],
+                          cwd=ROOT, capture_output=True, text=True, timeout=600)
+    check(proc.returncode == 0, f"the tools' process exited {proc.returncode}: "
+                                f"{proc.stderr[-2000:]}")
+    done = [json.loads(ln[len(TOOL_MARK):]) for ln in proc.stdout.splitlines()
+            if ln.startswith(TOOL_MARK)]
+    check([r["module"] for r in done] == [m for m, _, _ in plan],
+          f"the tools' process ran {[r['module'] for r in done]}: {proc.stderr[-2000:]}")
+    out = []
+    for r in done:
+        print(r["stdout"], end="")
+        print(f"({r['module']}: {r['s']:.1f} s)")
+        check(r["rc"] == 0, f"{r['module']} returned {r['rc']}")
+        lines = r["stdout"].strip().splitlines()
+        launches = (json.loads(lines[-1].split(" ", 1)[1])
+                    if lines and lines[-1].startswith("launches ") else None)
+        out.append((lines, launches))
+    return out
+
+
+def tools_path(cfg, dev, card, ckpt_dir: Path, samples: Path, replayed, busy_us: float):
+    """Phase 3k: every measurement and data tool of ``dpfx_torch.tools`` at
+    the flagship widths, in turn in one child process (``run_tools``), each
+    counting its launches from 0 and printing them last; ``replayed`` is
+    phase 3b's [replayed call of 20, state] and ``busy_us`` phase 5b's
+    device-busy time for such a call."""
+    import shutil
+
+    import numpy as np
+    import torch
+    import yaml
+
+    from dpfx_torch.config import config_from_dict
+    from dpfx_torch.data import build_dataset
+    from dpfx_torch.tools import parse_trace
+    from dpfx_torch.tools.prof_train import LABELS, PIECES
+    from dpfx_torch.utils.profiling import trace
+
+    t0 = time.perf_counter()
+    work = WORK / "tools"
+    shutil.rmtree(work, ignore_errors=True)
+    work.mkdir(parents=True)
+    # a trace around one replayed call of 20, for parse_trace
+    tdir = work / "trace"
+    with trace(str(tdir)):
+        call, st = replayed
+        replayed[1], _ = call(st)
+    torch.cuda.empty_cache()      # the child needs the card's memory (B=256 steps)
+    with open(CONFIG) as f:
+        y = yaml.safe_load(f)
+    y["train"]["ckpt_dir"] = str(ckpt_dir)
+    int8_cfg = work / "int8.yaml"
+    int8_cfg.write_text(yaml.safe_dump(y))
+    tree, renders = work / "shapenet", work / "renders"
+    (kb_out, serve_out, prof_out, sweep_out, i8_out, oracle_out, _, pin_out,
+     trace_out) = run_tools([
+        ("dpfx_torch.tools.bench_kernels", ["5"], {}),
+        ("dpfx_torch.tools.bench_serving", [],
+         {"DPFX_SERVE_BATCHES": "1,16,64,1024", "DPFX_SERVE_REPS": "5"}),
+        ("dpfx_torch.tools.prof_train", list(PIECES), {"DPFX_PROF_REPS": "5"}),
+        ("dpfx_torch.tools.bench_batch_sweep", ["--batches", "64,128,256", "--reps", "5"], {}),
+        ("dpfx_torch.tools.bench_sample_int8", [],
+         {"DPFX_INT8_CKPT": str(int8_cfg), "DPFX_INT8_REPS": "5"}),
+        ("dpfx_torch.tools.quality_oracle",
+         [str(CONFIG), "data.synthetic_size=512", "--limit", "128"], {}),
+        ("dpfx_torch.tools.make_synthetic_shapenet",
+         [str(tree), "--train", "20", "--valtest", "5", "--points", "2500", "--renders",
+          str(renders), "--views", "3", "--imgsize", "64"], {}),
+        ("dpfx_torch.tools.part_count_pin", [str(CONFIG), str(samples), "--limit", "128"], {}),
+        ("dpfx_torch.tools.parse_trace", [str(tdir), "20", "8"], {}),
+    ])
+
+    def need(launches, names, what):
+        check(launches is not None, f"{what} printed its launches")
+        for k in names:
+            check(launches.get(k, 0) > 0, f"{what}: kernel {k} launched ({launches})")
+
+    # bench_kernels: each kernel against its plain twin
+    lines, launches = kb_out
+    kb = json.loads(lines[-2])
+    check(kb["protocol"] == "cuda-events" and finite_numbers(kb)
+          and all(v > 0 for k, v in kb.items() if k.endswith("_ms")) and len(kb) == 17,
+          f"bench_kernels' keys {sorted(kb)}")
+    need(launches, ("nnd_fwd", "nnd_bwd", "cd_pairwise", "emd_batched", "emd_pairwise",
+                    "fused_sample"), "bench_kernels")
+    # bench_serving at B = 1, 16, 64, 1024
+    lines, launches = serve_out
+    serve = [ln.split() for ln in lines if ln.startswith("fused ")]
+    check([int(r[1]) for r in serve] == [1, 16, 64, 1024]
+          and all(math.isfinite(float(r[2])) and float(r[2]) > 0 for r in serve),
+          f"bench_serving's rows {serve}")
+    need(launches, ("fused_sample",), "bench_serving")
+    # prof_train: every piece, replays of a captured graph
+    lines, launches = prof_out
+    pieces = [ln for ln in lines if ln.startswith("  ") and " ms " in ln]
+    check(len(pieces) == len(PIECES) and all(ln.strip().startswith(LABELS[p])
+                                             for ln, p in zip(pieces, PIECES))
+          and all("busy" in ln for ln in pieces), f"prof_train's pieces {pieces}")
+    need(launches, ("fused_train_fwd", "fused_train_bwd", "fused_encoder_fwd",
+                    "fused_encoder_bwd"), "prof_train")
+    # bench_batch_sweep: ms/step and MFU at B = 64, 128, 256
+    lines, launches = sweep_out
+    rows = [ln.strip("|").split("|") for ln in lines if ln.startswith("| ") and "%" in ln]
+    mfu = [float(r[3].strip().rstrip("%")) / 100 for r in rows]
+    check([int(r[0]) for r in rows] == [64, 128, 256]
+          and all(math.isfinite(m) and 0 < m <= 1 for m in mfu), f"bench_batch_sweep's rows {rows}")
+    need(launches, ("fused_train_fwd", "fused_train_bwd", "fused_encoder_fwd",
+                    "fused_encoder_bwd"), "bench_batch_sweep")
+    # bench_sample_int8 on phase 3b's checkpoint
+    lines, launches = i8_out
+    i8 = json.loads(lines[-2])
+    check(i8["weights"] == f"{cfg.name}@{TRAIN_STEPS}" and finite_numbers(i8),
+          f"bench_sample_int8 on the trained checkpoint: {i8}")
+    need(launches, ("fused_sample", "fused_sample_int8"), "bench_sample_int8")
+    # the checkpoint's own sensitivity to rounding, beside the int8 error
+    # (phase 3e holds the int8 kernel to the kernel on dequantized stacks):
+    # its bf16 clouds against its f32 clouds on the tool's z and seed
+    from dpfx_torch.checkpoint import restore_for_eval
+    from dpfx_torch.ops import fused_sampler as fs
+
+    tmodel = restore_for_eval(cfg, str(ckpt_dir / cfg.name / f"params_{TRAIN_STEPS:08d}.pt"), dev)
+    with torch.no_grad():
+        tsp = fs.stack_point_flow_params(tmodel.point_flow)
+    tz = torch.randn((256, cfg.model.dz), generator=torch.Generator(device=dev).manual_seed(7),
+                     device=dev)
+    x16, x32 = (fs.fused_sample_points(tsp, tz, 3, 2048, dtype=dt)
+                for dt in (torch.bfloat16, torch.float32))
+    sens = float((x16 - x32).pow(2).mean().sqrt() / x16.pow(2).mean().sqrt())
+    med = float((x16 - x32).norm(dim=-1).median())
+    print(f"bench_sample_int8 on the {TRAIN_STEPS}-step checkpoint: int8 against bf16 relative "
+          f"RMS {i8['rel_rms']}, a point's distance median {i8['point_err_median']:.3e}, p99.9 "
+          f"{i8['point_err_p999']:.3e}, max {i8['point_err_max']:.3e}; the checkpoint's bf16 "
+          f"against f32 clouds: relative RMS {sens:.5f}, median {med:.3e} (its sensitivity to "
+          f"rounding); bf16 {i8['bf16_ms']} ms, int8 {i8['int8_ms']} ms ({card})")
+    del tmodel, tsp
+    # quality_oracle at --limit 128: phase 3c's ideal and shifted gates
+    lines, launches = oracle_out
+    rows = {r["oracle"]: r for r in (json.loads(ln) for ln in lines if ln.startswith("{"))}
+    for m in cfg.eval.metrics:
+        check(0.35 <= rows["train_vs_test"][f"1-nna-{m}"] <= 0.65,
+              f"quality_oracle train_vs_test 1-NNA-{m} {rows['train_vs_test'][f'1-nna-{m}']}")
+        check(rows["noise_vs_test"][f"1-nna-{m}"] >= 0.9,
+              f"quality_oracle noise_vs_test 1-NNA-{m} {rows['noise_vs_test'][f'1-nna-{m}']}")
+    need(launches, ("cd_pairwise", "emd_pairwise"), "quality_oracle")
+    # make_synthetic_shapenet's tree with renders, read back by build_dataset
+    for name, extra in (("shapenet_npy_dir", {}),
+                        ("shapenet_svr", {"render_path": str(renders), "views_per_model": 3})):
+        dcfg = config_from_dict({"data": {"dataset": name, "path": str(tree), "category": "all",
+                                          **extra}}).data
+        for split, size in (("train", 20), ("test", 5)):
+            ds = build_dataset(dcfg, split, 64)
+            check(len(ds) == size and ds[0].shape == (2500, 3)
+                  and bool(np.isfinite(ds[0]).all()), f"{name} {split}: {len(ds)} clouds")
+            if name == "shapenet_svr":
+                check(ds.image(0).shape == (64, 64, 3), f"{name}'s renders")
+    # part_count_pin on phase 3's sampled clouds
+    lines, launches = pin_out
+    pin = json.loads("\n".join(lines[lines.index("{"):-1]))
+    check(pin["n_chain_refs"] > 0 and sum(pin["ref_true_k_hist"].values()) == pin["n_chain_refs"],
+          f"part_count_pin's report {pin}")
+    need(launches, ("cd_pairwise",), "part_count_pin")
+    # parse_trace on the trace of one replayed call of 20
+    text = "\n".join(trace_out[0])
+    total = float(text.split("device total: ")[1].split()[0])
+    check(abs(total - busy_us / 20e3) <= TOL_TRACE_BUSY * busy_us / 20e3,
+          f"parse_trace's device total {total} ms/step against phase 5b's {busy_us / 20e3}")
+    check(abs(parse_trace.device_total_ms(str(tdir), 20) - total) < 1e-3, "parse_trace's total")
+    print(f"phase 3k: the tools: parse_trace's device total {total:.4f} ms/step against phase "
+          f"5b's {busy_us / 20e3:.4f}; {time.perf_counter() - t0:.1f} s ({card})")
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -4085,6 +4314,7 @@ def main() -> int:
 
     # one replayed call and one resident call of 20 steps each (replays of
     # the captured step), the latent flow off and on
+    call_busy_us = {}
     for key, name in (("off", "module latent flow"), ("on", "fused latent flow")):
         for kind in ("replayed", "resident"):
             def one_call():
@@ -4092,6 +4322,7 @@ def main() -> int:
                 timers[(key, kind)][1], _ = call(st)
 
             wall_us, busy_us, dev_events = profiled(one_call, 1)
+            call_busy_us[(key, kind)] = busy_us
             seen = lambda name: sum(name in e.key for e in dev_events)  # noqa: E731
             check(seen("fwd_kernel_mma") and seen("bwd_kernel_mma") and seen("walk_kernel")
                   and (key == "off" or seen("cluster_bwd_kernel")),
@@ -4120,6 +4351,10 @@ def main() -> int:
           f"idle share {1 - busy_us / wall_us:.3f}; top: "
           + "; ".join(f"{e.key[:60]} {e.self_device_time_total / 1e3:.3f} ms x{e.count}"
                       for e in top))
+
+    # ---- 3k. the tools (after 5b: parse_trace is held to its busy time)
+    tools_path(cfg, dev, card, ckpt_dir, samples, timers[("off", "replayed")],
+               call_busy_us[("off", "replayed")])
     print(card)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

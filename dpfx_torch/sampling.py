@@ -100,6 +100,27 @@ def make_sampler(model: DPF, n_clouds: int, n_points: int, fused: bool = True,
     return sample
 
 
+def make_plain_sampler(model: DPF, n_clouds: int, n_points: int, temperature: float = 1.0,
+                       latent_temperature: float = 1.0) -> Callable[[int], torch.Tensor]:
+    """seed -> [n_clouds, n_points, 3] through the modules alone: the latent
+    flow's and the point flow's ``inverse`` in plain PyTorch, the noise from
+    the seed's generator; no kernel runs. ``make_sampler(fused=False)``
+    still runs the point-flow inverse kernel (``DPF.sample``); this is the
+    plain twin that the measurement tools time the sampling kernels
+    against (``dpfx``'s sampler with ``fused=False`` runs its flax modules)."""
+    dz = model.config.model.dz
+
+    @torch.no_grad()
+    def sample(seed: int) -> torch.Tensor:
+        g, _ = _generators(seed, model.device)
+        eps = torch.randn((n_clouds, dz), generator=g, device=model.device)
+        z = model.latent_flow.inverse(eps * latent_temperature)[0]
+        u = torch.randn((n_clouds, n_points, 3), generator=g, device=model.device)
+        return model.point_flow.inverse(u * temperature, z)[0]
+
+    return sample
+
+
 def make_decoder(model: DPF, n_points: int, fused: bool = True
                  ) -> Callable[[torch.Tensor, int], torch.Tensor]:
     """Returns (z [B, dz], seed) -> [B, n_points, 3]."""

@@ -1,11 +1,71 @@
-"""Steady-state timing of a chain of calls (the counterpart of
-``dpfx/utils/profiling.py:40``, ``chain_time_ms``)."""
+"""Timing, FLOP counting and tracing (the counterpart of
+``dpfx/utils/profiling.py``): ``time_fn``, ``chain_time_ms``,
+``graph_time_ms``, ``chain_cost_per_step``, ``trace`` and
+``profile_sampling``.
+
+Every time on the card is device time between two CUDA events on the
+current stream; on the CPU the host clock times the same calls (what the
+plain path costs there, not a device time).
+"""
 
 from __future__ import annotations
 
+import contextlib
 import math
+import os
 import time
-from typing import Callable
+from typing import Callable, Dict, Iterator, List, Optional
+
+import torch
+
+
+def _first_tensor(obj) -> Optional[torch.Tensor]:
+    if isinstance(obj, torch.Tensor):
+        return obj
+    if isinstance(obj, dict):
+        obj = list(obj.values())
+    if isinstance(obj, (list, tuple)):
+        for o in obj:
+            t = _first_tensor(o)
+            if t is not None:
+                return t
+    return None
+
+
+def time_fn(fn: Callable, *args, reps: int = 10, warmup: int = 1,
+            materialize: bool = False) -> Dict[str, float]:
+    """Steady-state time of ``fn(*args)``: ``warmup`` untimed calls, then
+    ``reps`` calls. Returns ``{"mean_s", "per_sec"}`` per call.
+
+    On the card the ``reps`` calls run between two CUDA events, so the time
+    is the device's wherever the device stays busy (the host's launch cost
+    shows where it does not). ``materialize=True`` copies each call's first
+    tensor to the host inside the timed region, so the time includes that
+    fetch and every call's wait for it."""
+    out = None
+    for _ in range(warmup):
+        out = fn(*args)
+    probe = _first_tensor(out) if out is not None else _first_tensor(args)
+    cuda = probe is not None and probe.is_cuda
+    if cuda:
+        torch.cuda.synchronize(probe.device)
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        out = fn(*args)
+        if materialize:
+            t = _first_tensor(out)
+            if t is not None:
+                t.cpu()
+    if cuda:
+        end.record()
+        end.synchronize()
+        dt = start.elapsed_time(end) / 1e3 / reps
+    else:
+        dt = (time.perf_counter() - t0) / reps
+    return {"mean_s": dt, "per_sec": 1.0 / dt}
 
 
 def chain_time_ms(step_fn: Callable, carry, reps: int = 30) -> float:
@@ -24,8 +84,6 @@ def chain_time_ms(step_fn: Callable, carry, reps: int = 30) -> float:
     clock times the same chain: what the plain path costs there, not a
     device time.
     """
-    import torch
-
     c = carry
     out = None
     for i in range(reps):
@@ -48,3 +106,157 @@ def chain_time_ms(step_fn: Callable, carry, reps: int = 30) -> float:
     closing = float(out)
     assert math.isfinite(closing), "chain produced a non-finite closing value"
     return ms / reps
+
+
+_WARMUP = 3     # eager calls on a side stream before a capture (PyTorch's recipe)
+
+
+def graph_time_ms(fn: Callable[[], torch.Tensor], reps: int = 20,
+                  counters: Optional[List[Dict[str, int]]] = None) -> Dict[str, object]:
+    """``fn() -> scalar tensor``, timed as ``reps`` replays of one CUDA graph.
+
+    On the card: ``_WARMUP`` eager calls (the last ones on a side stream,
+    as a capture needs), one capture of
+    ``fn`` in a CUDA graph, one untimed replay, then ``reps`` replays
+    between two CUDA events: device time, free of the host's launch rate
+    (the counterpart of the JAX tools' one dispatched scan). Launch counts
+    stay true under replay: what the capture counted is taken back from
+    ``counters`` and added again for each replay. On the CPU ``fn`` runs
+    eagerly, one warm call and ``reps`` timed by the host clock.
+
+    Returns ``{"ms": per call, "closing": the last call's scalar, "call":
+    one more call (a replay on the card, counted as above)}``; asserts that
+    the closing scalar is finite. ``fn`` must make no host decision and read
+    nothing back (a capture refuses both); it may update tensors in place,
+    once per call, as a train step does."""
+    probe = fn()
+    if not probe.is_cuda:
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            out = fn()
+        ms = (time.perf_counter() - t0) * 1e3 / reps
+        replay = fn
+    else:
+        dev = probe.device
+        side = torch.cuda.Stream(dev)
+        side.wait_stream(torch.cuda.current_stream(dev))
+        with torch.cuda.stream(side):
+            for _ in range(_WARMUP - 1):
+                fn()
+        torch.cuda.current_stream(dev).wait_stream(side)
+        counters = counters or []
+        before = [dict(c) for c in counters]
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            out = fn()
+        per_replay = [{k: c[k] - b.get(k, 0) for k in c} for c, b in zip(counters, before)]
+        for c, b in zip(counters, before):
+            c.update(b)
+
+        def replay():
+            graph.replay()
+            for c, add in zip(counters, per_replay):
+                for k, v in add.items():
+                    c[k] += v
+
+        replay()
+        torch.cuda.synchronize(dev)
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(reps):
+            replay()
+        end.record()
+        end.synchronize()
+        ms = start.elapsed_time(end) / reps
+    closing = float(out)
+    assert math.isfinite(closing), "the timed call produced a non-finite closing value"
+    return {"ms": ms, "closing": closing, "call": replay}
+
+
+def chain_cost_per_step(step_fn: Callable, carry, reps: int = 30):
+    """``(flops, bytes)`` of ONE call of ``step_fn(carry, 0)``, the
+    denominator of an MFU figure. ``reps`` is accepted for symmetry with
+    ``chain_time_ms`` and ignored.
+
+    There is no compiler cost model here: the step runs once (its effects
+    on ``carry`` happen) under ``torch.utils.flop_counter.FlopCounterMode``,
+    which counts the FLOP of aten's products (matmuls, convolutions,
+    attention), forward and backward, from their shapes. It sees no
+    elementwise work and nothing inside a ctypes-launched CUDA kernel, so
+    pass the plain step (the fused flags off), whose products are the same
+    model's. The count is therefore smaller than XLA's cost analysis, which
+    includes elementwise work, and an MFU computed from it is not
+    comparable with a TPU's. Bytes are not counted: ``None``; the FLOP are
+    ``None`` where the counter saw no product (a step made of kernels
+    alone). An error of the step is raised."""
+    del reps
+    from torch.utils.flop_counter import FlopCounterMode
+
+    with FlopCounterMode(display=False) as counter:
+        step_fn(carry, 0)
+    return (int(counter.get_total_flops()) or None), None
+
+
+@contextlib.contextmanager
+def device_profile(record_shapes: bool = True) -> Iterator[torch.profiler.profile]:
+    """``torch.profiler`` over the block, with the CUDA activity where CUDA
+    is available; the card is synchronised at the end of the block."""
+    from torch.profiler import ProfilerActivity, profile
+
+    acts = [ProfilerActivity.CPU]
+    if torch.cuda.is_available():
+        acts.append(ProfilerActivity.CUDA)
+    with profile(activities=acts, record_shapes=record_shapes) as prof:
+        yield prof
+        if torch.cuda.is_available():
+            torch.cuda.synchronize()
+
+
+@contextlib.contextmanager
+def trace(log_dir: str) -> Iterator[torch.profiler.profile]:
+    """``torch.profiler`` around the block, the card's kernels included
+    (the CUDA activity, where CUDA is available) and the ops' input shapes
+    recorded; the card is synchronised at the end of the block. Writes a
+    Chrome-trace JSON under ``log_dir`` (``trace_<pid>_<ns>.json``; read it
+    with ``python -m dpfx_torch.tools.parse_trace log_dir``). Yields the
+    profile, whose ``key_averages()`` the caller may read too."""
+    os.makedirs(log_dir, exist_ok=True)
+    with device_profile() as prof:
+        yield prof
+    prof.export_chrome_trace(os.path.join(log_dir,
+                                          f"trace_{os.getpid()}_{time.time_ns()}.json"))
+
+
+def device_busy_us(prof) -> float:
+    """Microseconds the device was busy in a finished profile: the sum of
+    the device-side events' own time (kernels, copies, sets). 0 where the
+    profile saw no device."""
+    from torch.autograd import DeviceType
+
+    return float(sum(e.self_device_time_total for e in prof.key_averages()
+                     if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0))
+
+
+def profile_sampling(cfg=None, n_clouds: int = 256, n_points: int = 2048,
+                     trace_dir: Optional[str] = None, device=None) -> Dict[str, float]:
+    """Times ``make_sampler(model, n_clouds, n_points)`` (the fused kernel)
+    and its plain twin ``make_plain_sampler`` (both flows through their
+    modules, no kernel), 10 calls each by ``time_fn``, on a fresh seeded initialisation of ``cfg``
+    (default: the flagship, ``dpfx_torch.config.flagship``). Returns ``fused_ms``,
+    ``fused_points_per_sec``, ``plain_ms`` and ``plain_points_per_sec``;
+    with ``trace_dir``, each timing runs inside ``trace(trace_dir)``. The
+    device defaults to cuda."""
+    from dpfx_torch.config.flagship import flagship_config, flagship_model
+    from dpfx_torch.sampling import make_plain_sampler, make_sampler
+
+    model = flagship_model(device, cfg or flagship_config())
+    out = {}
+    for name, make in (("fused", make_sampler), ("plain", make_plain_sampler)):
+        fn = make(model, n_clouds, n_points)
+        ctx = trace(trace_dir) if trace_dir else contextlib.nullcontext()
+        with ctx:
+            t = time_fn(fn, 0, reps=10)
+        out[f"{name}_points_per_sec"] = n_clouds * n_points * t["per_sec"]
+        out[f"{name}_ms"] = t["mean_s"] * 1e3
+    return out

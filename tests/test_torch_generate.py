@@ -48,12 +48,56 @@ def test_generate_main_writes_clouds(weights, tmp_path, fmt, capsys):
     assert "sampled (3, 50, 3)" in capsys.readouterr().out
 
 
-def test_entry_points_default_to_cuda(weights, monkeypatch):
+def test_generate_finds_the_runs_checkpoint(tmp_path, capsys):
+    """Without --weights, generate samples the newest params_<step>.pt of
+    train.ckpt_dir/name, or the one of --step, as --weights on that file."""
+    run = tmp_path / "smoke_gen_synthetic"
+    run.mkdir()
+    for step, seed in ((2, 3), (5, 4)):
+        model = randomize_(DPF(load_config(SMOKE)), seed=seed)
+        torch.save(model.state_dict(), run / f"params_{step:08d}.pt")
+    common = [SMOKE, f"train.ckpt_dir={tmp_path}", "--device", "cpu", "--n-clouds", "2",
+              "--n-points", "20", "--seed", "1"]
+    outs = {}
+    for name, extra in (("newest", []), ("step2", ["--step", "2"]),
+                        ("w5", ["--weights", str(run / "params_00000005.pt")]),
+                        ("w2", ["--weights", str(run / "params_00000002.pt")])):
+        assert generate.main([*common, *extra, "--out", str(tmp_path / f"{name}.npy")]) == 0
+        outs[name] = np.load(tmp_path / f"{name}.npy")
+        text = capsys.readouterr().out
+        if name == "newest":
+            assert "sampled (2, 20, 3) from step-5 checkpoint" in text
+        if name == "step2":
+            assert "from step-2 checkpoint" in text
+    np.testing.assert_array_equal(outs["newest"], outs["w5"])
+    np.testing.assert_array_equal(outs["step2"], outs["w2"])
+    assert not np.array_equal(outs["newest"], outs["step2"])
+    with pytest.raises(FileNotFoundError, match="step 3"):
+        generate.main([*common, "--step", "3", "--out", str(tmp_path / "x.npy")])
+
+
+def test_entry_points_default_to_cuda(weights, monkeypatch, tmp_path):
+    from dpfx_torch.tools import (bench_batch_sweep, bench_kernels, bench_sample_int8,
+                                  bench_serving, part_count_pin, prof_train, quality_oracle)
+    from dpfx_torch.utils.profiling import profile_sampling
+
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="CUDA"):
         restore_for_eval(load_config(SMOKE), weights[2])
     with pytest.raises(RuntimeError, match="CUDA"):
         generate.main([SMOKE, "--weights", weights[2], "--n-clouds", "1"])
+    with pytest.raises(RuntimeError, match="CUDA"):
+        generate.main([SMOKE, f"train.ckpt_dir={tmp_path}", "--n-clouds", "1"])
+    # the tools that build a model
+    for main, argv in ((prof_train.main, ["fwd"]), (bench_kernels.main, ["1"]),
+                       (bench_serving.main, []), (bench_batch_sweep.main, ["--batches", "1"]),
+                       (bench_sample_int8.main, []),
+                       (quality_oracle.main, [SMOKE, "--limit", "2"]),
+                       (part_count_pin.main, [SMOKE, str(tmp_path / "gen.npy")])):
+        with pytest.raises(RuntimeError, match="CUDA"):
+            main(argv)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        profile_sampling(n_clouds=1, n_points=8)
 
 
 def test_weights_formats(weights, tmp_path):
@@ -86,3 +130,16 @@ FORBIDDEN = ("jax", "jaxlib", "flax", "orbax", "optax", "dpfx")
 def test_port_imports_no_jax(path):
     bad = [m for m in _imports(path) if m.split(".")[0] in FORBIDDEN]
     assert not bad, f"{path} imports {bad}"
+
+
+def test_import_scan_covers_the_tools():
+    """The scan above is parametrized over every tool, the profiling module
+    and the flagship config."""
+    (mark,) = [m for m in test_port_imports_no_jax.pytestmark if m.name == "parametrize"]
+    scanned = {str(p.relative_to(ROOT)) for p in mark.args[1]}
+    for name in ("bench_kernels", "bench_serving", "bench_batch_sweep", "bench_sample_int8",
+                 "prof_train", "parse_trace", "quality_oracle", "make_synthetic_shapenet",
+                 "part_count_pin", "_common"):
+        assert f"dpfx_torch/tools/{name}.py" in scanned
+    assert {"dpfx_torch/utils/profiling.py", "dpfx_torch/config/flagship.py",
+            "chip_smoke.py"} <= scanned
