@@ -52,7 +52,14 @@
 //
 // f32 mode (`f32_kernel`): the tight-check mode, IEEE f32 FMA with k in
 // order, the block's 128 points in shared memory, weights staged one
-// matrix at a time, one thread per point for the coupling.
+// matrix at a time, one thread per point for the coupling. At H=256 one
+// f32 Wh (256 x 257 floats, 263 KB) is more than a block's shared memory
+// holds, so that instance stages each Wh in chunks of 64 input columns
+// (k) beside the 128 points' activations (214 KB in all): every thread
+// keeps its outputs' sums in registers across the chunks, so each sum
+// still runs k = 0 .. H-1 in order and the bits are the whole matrix's.
+// The smaller point tile was the other choice; it would have given two
+// layouts of every buffer and half the points per staged weight byte.
 //
 // The ragged last tile computes on zeros and writes nothing past N.
 //
@@ -353,6 +360,10 @@ rows_kernel(const float* __restrict__ hz, const float* __restrict__ ut, float* _
 
 // ---------------------------------------------------------------- f32 mode
 
+// input columns of Wh per staged chunk of the f32 kernel: the whole row up
+// to H=128, 64 at H=256
+__host__ __device__ constexpr int f32_kc(int H) { return H <= 128 ? H : 64; }
+
 // Shared-memory carve-up of the f32 kernel; the Python wrapper mirrors it
 // (smem_bytes)
 struct F32Smem {
@@ -361,7 +372,7 @@ struct F32Smem {
     ld = H + 1;
     int o = 0;
     hs = o;    o += round128(TILE * ld * 4);
-    ws = o;    o += round128(H * ld * 4);
+    ws = o;    o += round128(H * (f32_kc(H) + 1) * 4);
     xs = o;    o += round128(3 * TILE * 4);
     st = o;    o += round128(6 * TILE * 4);
     wx = o;    o += round128(3 * H * 4);
@@ -373,28 +384,49 @@ struct F32Smem {
   }
 };
 
-// hs[T x H] <- act(hs . W^T + bh), W = ws [H x H] (row o holds output o):
-// register-tiled FMA, thread (tp, to) owns points tp + 16i and outputs
-// to + 16j; the sums are exact IEEE f32
-template <int H>
-__device__ void hidden_gemm(float* hs, const float* ws, const float* bh, int ld, int act) {
-  constexpr int PI = TILE / 16, NJ = H / 16;
+// a stored weight as f32 sees it: an f32 as it is, an int8 q with its scale
+// s as q * s
+__device__ __forceinline__ float weight_f(float v, float) { return v; }
+__device__ __forceinline__ float weight_f(int8_t q, float s) { return __fmul_rn((float)q, s); }
+
+// hs[T x H] <- act(hs . Wh^T + bh): Wh = g [H x H] (row o holds output o)
+// in global memory, staged through ws in chunks of KC input columns
+// ([H][KC + 1]; one chunk, the whole matrix, up to H=128). Register-tiled
+// FMA: thread (tp, to) owns points tp + 16i and outputs to + 16j, and its
+// sums stay in registers across the chunks, k in order, so they are exact
+// IEEE f32 and the same at every KC. The k loop is unrolled by 8, which
+// timed faster than 1, 2, 4 and the compiler's choice at H = 128 and 256
+// (PERF.md, PR 21). The caller has loaded bh and synchronised after the
+// previous product.
+template <typename W, int H>
+__device__ void hidden_gemm(float* hs, float* ws, const W* g, float s, const float* bh,
+                                    int ld, int act) {
+  constexpr int PI = TILE / 16, NJ = H / 16, KC = f32_kc(H), LW = KC + 1;
   const int tp = threadIdx.x / 16, to = threadIdx.x % 16;
   float acc[PI][NJ];
 #pragma unroll
   for (int i = 0; i < PI; ++i)
 #pragma unroll
     for (int j = 0; j < NJ; ++j) acc[i][j] = 0.f;
-  for (int kk = 0; kk < H; ++kk) {
-    float a[PI], w[NJ];
+  for (int k0 = 0; k0 < H; k0 += KC) {
+    if (k0) __syncthreads();  // every thread is done with the previous chunk
+    for (int v = threadIdx.x; v < H * KC; v += THREADS) {
+      const int o = v / KC, c = v % KC;
+      ws[o * LW + c] = weight_f(g[(size_t)o * H + k0 + c], s);
+    }
+    __syncthreads();
+#pragma unroll 8
+    for (int kk = 0; kk < KC; ++kk) {
+      float a[PI], w[NJ];
 #pragma unroll
-    for (int i = 0; i < PI; ++i) a[i] = hs[(tp + 16 * i) * ld + kk];
+      for (int i = 0; i < PI; ++i) a[i] = hs[(tp + 16 * i) * ld + k0 + kk];
 #pragma unroll
-    for (int j = 0; j < NJ; ++j) w[j] = ws[(to + 16 * j) * ld + kk];
+      for (int j = 0; j < NJ; ++j) w[j] = ws[(to + 16 * j) * LW + kk];
 #pragma unroll
-    for (int i = 0; i < PI; ++i)
+      for (int i = 0; i < PI; ++i)
 #pragma unroll
-      for (int j = 0; j < NJ; ++j) acc[i][j] = fmaf(a[i], w[j], acc[i][j]);
+        for (int j = 0; j < NJ; ++j) acc[i][j] = fmaf(a[i], w[j], acc[i][j]);
+    }
   }
   __syncthreads();  // every thread has read hs
 #pragma unroll
@@ -405,11 +437,6 @@ __device__ void hidden_gemm(float* hs, const float* ws, const float* bh, int ld,
       hs[(tp + 16 * i) * ld + o] = activate(acc[i][j] + bh[o], act);
     }
 }
-
-// a stored weight as f32 sees it: an f32 as it is, an int8 q with its scale
-// s as q * s
-__device__ __forceinline__ float weight_f(float v, float) { return v; }
-__device__ __forceinline__ float weight_f(int8_t q, float s) { return __fmul_rn((float)q, s); }
 
 // W: float (weights in f32) or int8_t (int8 mode, with scales [K, 8])
 template <typename W, int H>
@@ -468,10 +495,8 @@ f32_kernel(const float* __restrict__ hz, const float* __restrict__ ut, float* __
     for (int j = 0; j < NH1; ++j) {
       __syncthreads();  // hs written; the previous product is done with ws, bhs
       const W* g = wh + ((size_t)k * NH1 + j) * H * H;
-      for (int v = tid; v < H * H; v += THREADS) ws[(v / H) * ld + v % H] = weight_f(g[v], s_wh);
       for (int e = tid; e < H; e += THREADS) bhs[e] = bh[((size_t)k * NH1 + j) * H + e];
-      __syncthreads();
-      hidden_gemm<H>(hs, ws, bhs, ld, act);
+      hidden_gemm<W, H>(hs, ws, g, s_wh, bhs, ld, act);
     }
     __syncthreads();
 

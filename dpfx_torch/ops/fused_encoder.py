@@ -35,6 +35,7 @@ import functools
 from typing import Dict, List, Sequence, Tuple
 
 import torch
+import torch.nn.functional as F
 
 from dpfx_torch.models.coupling import dense
 from dpfx_torch.models.encoders import PointNetEncoder
@@ -54,9 +55,39 @@ def reset_launch_counts() -> None:
 
 
 def fused_encoder_supported(enc_cfg) -> bool:
-    """relu point layers. The kernels tile the points, so unlike the Pallas
-    kernel (one whole cloud per grid step, N <= 8192) any N is taken."""
-    return enc_cfg.activation == "relu"
+    """relu point layers, 1..MAX_LAYERS of them, of any widths whose
+    padding to multiples of 16 (``pad_point_layers``) fits a block's shared
+    memory in the compute dtype (``smem_mirror``). The kernels tile the
+    points, so unlike the Pallas kernel (one whole cloud per grid step,
+    N <= 8192) any N is taken."""
+    widths = list(enc_cfg.point_widths)
+    if enc_cfg.activation != "relu" or not 1 <= len(widths) <= MAX_LAYERS \
+            or min(widths) < 1:
+        return False
+    dtype = torch.bfloat16 if enc_cfg.compute_dtype == "bfloat16" else torch.float32
+    return smem_mirror([3] + [padded(w) for w in widths], dtype) <= SMEM_LIMIT
+
+
+def padded(width: int) -> int:
+    """A point width rounded up to the kernels' multiple of 16."""
+    return -(-width // 16) * 16
+
+
+def pad_point_layers(ws: Sequence[Tensor], bs: Sequence[Tensor]
+                     ) -> Tuple[List[Tensor], List[Tensor]]:
+    """The point layers with every width zero-padded to a multiple of 16
+    (the input's 3 columns stay). Exact: a padded channel has zero weights
+    and bias, so it is relu(0) = 0, and the next layer's columns for it are
+    zero; the last layer's padded channels pool to 0 and are dropped before
+    the head. Differentiable (``F.pad``: the padded entries' gradients are
+    dropped)."""
+    pws, pbs = [], []
+    for w, b in zip(ws, bs):
+        o, i = w.shape
+        po, pi = padded(o) - o, (padded(i) - i if i != 3 else 0)
+        pws.append(F.pad(w, (0, pi, 0, po)) if po or pi else w)
+        pbs.append(F.pad(b, (0, po)) if po else b)
+    return pws, pbs
 
 
 def encoder_point_weights(encoder: PointNetEncoder) -> Tuple[List[Tensor], List[Tensor]]:
@@ -165,6 +196,36 @@ def smem_bytes(widths: Sequence[int], dtype: torch.dtype) -> int:
     """The most dynamic shared memory one block of the mode's kernels takes,
     as the kernel library lays it out; ``widths`` = (3, W_1 .. W_L)."""
     return _lib().dpfx_fused_encoder_smem_bytes(*_widths(widths), int(dtype == torch.bfloat16))
+
+
+def smem_mirror(widths: Sequence[int], dtype: torch.dtype) -> int:
+    """``smem_bytes`` computed here, byte for byte the kernel library's
+    carve-ups (``csrc/fused_encoder.cu``: ``EncSmem`` of the block-wide
+    design; in bf16 the rows design's ``TileSmem`` and ``WalkSmem`` where
+    it fits, as ``rows_design`` decides); ``widths`` = (3, W_1 .. W_L),
+    multiples of 16."""
+    r = lambda n: (n + 127) // 128 * 128
+    nl = len(widths) - 1
+
+    def block(es, pad, t):
+        return (r(t * 3 * 4) + sum(r(t * (w + pad) * es) for w in widths[1:])
+                + r(8 * 256 * 4) + r(t // 16 * max(widths[1:]) * 4))
+
+    if dtype != torch.bfloat16:
+        return block(4, 1, 32)
+    stored = max(widths[1:nl], default=0)
+    mw = -(-widths[nl] // 32)
+    ld0 = widths[1] + 8
+    tile = r(8 * 16 * (stored + 8) * 2) + (r(2 * 32 * (stored + 8) * 2) if nl > 1 else 0) \
+        + r(8 * ld0 * 2)
+    fwd, sel = tile + r(2 * 8 * 32 * 8), tile + r(128 * mw * 4) + r(128 * 4)
+    walk = (sum(r(64 * (w + 8) * 2) for w in widths[1:nl]) + r(64 * (widths[nl] + 8) * 2)
+            + (r(2 * 64 * (stored + 8) * 2) if nl > 1 else 0) + r(8 * ld0 * 2)
+            + r(64 * mw * 4) + r(4 * (stored + 1) * 4) + r(64 * 3 * 4) + 4 * r(64 * 4)
+            + r(8 * 4))
+    if stored <= 16 * 16 and max(fwd, sel, walk) <= SMEM_LIMIT:
+        return max(fwd, sel, walk)
+    return block(2, 8, 64)
 
 
 def _check(ws, x, dtype, extra: Dict[str, Tensor]) -> List[int]:
@@ -286,7 +347,9 @@ def fused_pointnet_posterior(encoder: PointNetEncoder, x: Tensor) -> Tuple[Tenso
     """(mu, logvar) of q(z|X) through the fused pooled-feature kernels.
     Drop-in for ``encoder(x)``: the same math, the FC heads in torch."""
     ws, bs = encoder_point_weights(encoder)
-    g = _FusedPool.apply(x, encoder.dtype, *ws, *bs)
+    width = ws[-1].shape[0]
+    g = _FusedPool.apply(x, encoder.dtype, *(t for ts in pad_point_layers(ws, bs) for t in ts))
+    g = g[:, :width]   # the padded channels' pool is dropped before the head
     for i in range(encoder.n_head):
         g = encoder.act(dense(getattr(encoder, f"head_{i}"), g, encoder.dtype))
     mu, logvar = dense(encoder.gauss, g, encoder.dtype).float().chunk(2, dim=-1)

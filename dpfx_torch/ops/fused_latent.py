@@ -38,6 +38,7 @@ from dataclasses import dataclass
 from typing import Dict, Optional, Tuple
 
 import torch
+import torch.nn.functional as F
 
 from dpfx_torch.models.coupling import CouplingFlow, make_masks
 from dpfx_torch.models.dpf import dtype_of
@@ -69,9 +70,49 @@ def reset_launch_counts() -> None:
 
 def fused_latent_supported(flow_cfg, dz: int) -> bool:
     """The conditions of ``dpfx``'s fused latent flow: relu (the backward
-    needs its derivative), no actnorm, dz > 16 and dz % 8 == 0."""
-    return (flow_cfg.activation == "relu" and not flow_cfg.use_actnorm
-            and dz % 8 == 0 and dz > 16)
+    needs its derivative), no actnorm, dz > 16 and dz % 8 == 0; and, with
+    dz and hidden padded to multiples of 16 (``pad_latent_params``), widths
+    that the kernels hold: in bf16 one cluster plan of the forward and the
+    backward (``cluster_plan``; past it, ROADMAP.md's queue 'Latent flows
+    past one cluster'), in f32 a block's shared memory (``f32_smem_bytes``)."""
+    if not (flow_cfg.activation == "relu" and not flow_cfg.use_actnorm
+            and dz % 8 == 0 and dz > 16):
+        return False
+    d, h = padded_widths(dz, flow_cfg.hidden)
+    nh1 = flow_cfg.n_hidden - 1
+    if dtype_of(flow_cfg.compute_dtype) == torch.float32:
+        return all(f32_smem_bytes(d, h, nh1, bwd) <= SMEM_LIMIT for bwd in (False, True))
+    try:
+        for bwd in (False, True):
+            cluster_plan(1, d, h, nh1, bwd)
+    except ValueError:
+        return False
+    return True
+
+
+def padded_widths(dz: int, hidden: int) -> Tuple[int, int]:
+    """dz and hidden rounded up to the kernels' multiples of 16."""
+    return -(-dz // 16) * 16, -(-hidden // 16) * 16
+
+
+def pad_latent_params(w: Weights) -> Weights:
+    """The stacks of ``stack_latent_params`` with dz and hidden zero-padded
+    to multiples of 16 (the same dict where they already are). Exact: a
+    padded hidden unit has zero in-weights and bias (relu gives 0) and
+    zero out-weights; a padded feature has zero ``win`` columns, zero
+    ``ws``/``wt`` rows and biases, and a passthrough mask
+    (``latent_masks(..., width=)``), so it stays 0, adds no log-det and
+    gets no cotangent. Differentiable (``F.pad``: the padded entries'
+    gradients are dropped)."""
+    _, h, d = w["win"].shape
+    dp, hp = padded_widths(d, h)
+    if (dp, hp) == (d, h):
+        return w
+    pd, ph = dp - d, hp - h
+    pads = {"win": (0, pd, 0, ph), "bin": (0, 0, 0, ph), "wh": (0, ph, 0, ph),
+            "bh": (0, 0, 0, ph), "ws": (0, ph, 0, pd), "bs": (0, 0, 0, pd),
+            "wt": (0, ph, 0, pd), "bt": (0, 0, 0, pd)}
+    return {k: F.pad(v, pads[k]).contiguous() for k, v in w.items()}
 
 
 def stack_latent_params(flow: CouplingFlow) -> Weights:
@@ -107,15 +148,27 @@ def stack_latent_params(flow: CouplingFlow) -> Weights:
 
 
 @functools.lru_cache(maxsize=16)
-def latent_masks(n_layers: int, dz: int, device: torch.device) -> Tensor:
-    """The latent flow's coupling masks [K, dz], float32 (1 = passthrough)."""
-    return torch.from_numpy(make_masks(dz, n_layers)).to(device)
+def latent_masks(n_layers: int, dz: int, device: torch.device,
+                 width: Optional[int] = None) -> Tensor:
+    """The latent flow's coupling masks [K, dz], float32 (1 = passthrough);
+    with ``width``, [K, width], the padded features passed through."""
+    m = torch.from_numpy(make_masks(dz, n_layers))
+    if width is not None and width > dz:
+        m = F.pad(m, (0, width - dz), value=1.0)
+    return m.contiguous().to(device)
 
 
 # ---------------------------------------------------------------- plain version
 
+def _acc(dtype: torch.dtype) -> torch.dtype:
+    """The plain versions' working type: float32, or float64 for the f64
+    reference (``dtype=torch.float64`` on f64 weights and inputs)."""
+    return torch.float64 if dtype == torch.float64 else torch.float32
+
+
 def _rnd(dtype: torch.dtype):
-    return lambda a: a.to(dtype).float()
+    acc = _acc(dtype)
+    return lambda a: a.to(dtype).to(acc)
 
 
 def _conditioner(w: Weights, k: int, x: Tensor, dtype: torch.dtype):
@@ -138,7 +191,7 @@ def latent_forward_plain(w: Weights, masks: Tensor, cap: float, z: Tensor,
     With ``ranks`` the log-det sums as the cluster kernel's does: each of
     ``ranks`` slices of the features per layer, each slice's running sum
     kept, the slices' sums added in order at the end."""
-    x = z.float()
+    x = z.to(_acc(dtype))
     parts = x.new_zeros(x.shape[0], ranks)
     for k in range(masks.shape[0]):
         _, st_s, st_t = _conditioner(w, k, x, dtype)
@@ -154,7 +207,7 @@ def latent_forward_plain(w: Weights, masks: Tensor, cap: float, z: Tensor,
 def latent_inverse_plain(w: Weights, masks: Tensor, cap: float, eps: Tensor,
                          dtype: torch.dtype) -> Tensor:
     """eps [B, D] -> z [B, D]: the closed-form layer inverses, last layer first."""
-    y = eps.float()
+    y = eps.to(_acc(dtype))
     for k in reversed(range(masks.shape[0])):
         _, st_s, st_t = _conditioner(w, k, y, dtype)
         s = cap * torch.tanh(st_s / cap)
@@ -171,7 +224,9 @@ def latent_backward_plain(w: Weights, masks: Tensor, cap: float, u: Tensor, du: 
     the input's). Returns (dz [B, D], the gradient of each stacked weight),
     all float32. With ``group`` the weight gradients sum over each group of
     that many samples, then across the groups in order, as the cluster
-    kernel's slices and their reduction do."""
+    kernel's slices and their reduction do. ``dtype=torch.float64`` on f64
+    weights and inputs runs every operation in f64: the reference that an
+    f32 result's drift is read from."""
     if group is not None and u.shape[0] > group:
         dzs, total = [], None
         for b0 in range(0, u.shape[0], group):
@@ -181,8 +236,9 @@ def latent_backward_plain(w: Weights, masks: Tensor, cap: float, u: Tensor, du: 
             total = g_g if total is None else {k: total[k] + g_g[k] for k in KEYS}
         return torch.cat(dzs), total
     rnd = _rnd(dtype)
-    y, dy = u.float(), du.float()
-    g_ld = dld.float()[:, None]
+    acc = _acc(dtype)
+    y, dy = u.to(acc), du.to(acc)
+    g_ld = dld.to(acc)[:, None]
     grads = {k: torch.zeros_like(v) for k, v in w.items()}
     for k in reversed(range(masks.shape[0])):
         keep = masks[k] > 0
@@ -319,6 +375,19 @@ def cluster_plan(b: int, dz: int, hidden: int, n_hidden_m1: int, backward: bool,
     groups = -(-b // group)
     clusters = min(groups, MAX_BWD_CLUSTERS) if backward else groups
     return Plan(cluster, group, clusters, clusters if backward and clusters > 1 else 0, smem)
+
+
+def f32_smem_bytes(dz: int, hidden: int, n_hidden_m1: int, backward: bool) -> int:
+    """Dynamic shared memory of one block of the f32 kernels: the carve-up
+    of ``csrc/fused_latent.cu``'s ``Smem`` (16 samples a block), byte for
+    byte."""
+    tb, r = 16, _r128
+    ldd, ldh = dz + 1, hidden + 1
+    o = (r(tb * dz * 4) + r(tb * ldd * 4) + (n_hidden_m1 + 1) * r(tb * ldh * 4)
+         + 2 * r(tb * dz * 4) + r(8 * 256 * 4) + r(tb * 4))
+    if backward:
+        o += 2 * r(tb * dz * 4) + 2 * r(tb * ldd * 4) + r(tb * hidden * 4) + r(tb * ldh * 4)
+    return o
 
 
 def smem_bytes(dz: int, hidden: int, n_hidden_m1: int, dtype: torch.dtype,
@@ -499,19 +568,27 @@ def fused_latent_log_prob(model, z: Tensor, flow_cfg) -> Tensor:
     """log p(z) under a DPF ``model``'s latent prior flow: z [B, dz] -> [B],
     through the fused kernels. Drop-in for ``model.latent_flow.log_prob(z)``
     (the same math, with the kernels' rounding); the base term is added
-    outside the kernel."""
-    w = stack_latent_params(model.latent_flow)
-    masks = latent_masks(flow_cfg.n_layers, z.shape[-1], z.device)
-    u, ld = _LatentForward.apply(z.float().contiguous(), masks, float(flow_cfg.scale_cap),
-                                 dtype_of(flow_cfg.compute_dtype), *(w[k] for k in KEYS))
+    outside the kernel, over the first dz features of u (the padded
+    features pass through as 0)."""
+    w = pad_latent_params(stack_latent_params(model.latent_flow))
+    dz, dp = z.shape[-1], w["win"].shape[2]
+    masks = latent_masks(flow_cfg.n_layers, dz, z.device, dp)
+    u, ld = _LatentForward.apply(F.pad(z.float(), (0, dp - dz)).contiguous(), masks,
+                                 float(flow_cfg.scale_cap), dtype_of(flow_cfg.compute_dtype),
+                                 *(w[k] for k in KEYS))
+    u = u[:, :dz]
     return -0.5 * (u * u + math.log(2.0 * math.pi)).sum(-1) + ld
 
 
 def fused_latent_inverse(stacked: Weights, eps: Tensor, flow_cfg) -> Tensor:
     """eps [B, dz] -> z [B, dz] through the closed-form layer inverses, with
-    weights from ``stack_latent_params`` (stacked once per sampler, and
-    cast once by ``cast_latent_weights``: then no call casts them)."""
-    masks = latent_masks(flow_cfg.n_layers, eps.shape[-1], eps.device)
-    eps = eps.float().contiguous()
+    weights from ``stack_latent_params`` (stacked once per sampler, padded
+    by ``pad_latent_params`` and cast once by ``cast_latent_weights``: then
+    no call pads or casts them; unpadded stacks are padded here)."""
+    w = pad_latent_params(stacked)
+    dz, dp = eps.shape[-1], w["win"].shape[2]
+    masks = latent_masks(flow_cfg.n_layers, dz, eps.device, dp)
+    eps = F.pad(eps.float(), (0, dp - dz)).contiguous()
     inv = latent_inverse_kernel if eps.is_cuda else latent_inverse_plain
-    return inv(stacked, masks, float(flow_cfg.scale_cap), eps, dtype_of(flow_cfg.compute_dtype))
+    z = inv(w, masks, float(flow_cfg.scale_cap), eps, dtype_of(flow_cfg.compute_dtype))
+    return z[:, :dz]

@@ -41,6 +41,7 @@ import functools
 from typing import Dict, NamedTuple, Optional, Tuple
 
 import torch
+import torch.nn.functional as F
 
 from dpfx_torch.models.coupling import ACTIVATIONS, CouplingFlow
 from dpfx_torch.ops._build import SMEM_LIMIT
@@ -52,6 +53,14 @@ launches: Dict[str, int] = {"fused_inverse": 0, "fused_sample": 0, "fused_sample
 
 ACT_CODES = {"relu": 0, "gelu": 1, "tanh": 2, "leaky_relu": 3}
 KERNEL_HIDDEN = (32, 64, 128, 256)     # conditioner widths the kernel is built for
+WIDER = "ROADMAP.md, queue 'Point flows wider than 256'"
+
+
+def kernel_hidden(hidden: int) -> int:
+    """The kernels' width for a conditioner of ``hidden`` units: the next
+    width of ``KERNEL_HIDDEN`` (the stacks are zero-padded up to it), or
+    ``hidden`` itself above 256, which no kernel takes."""
+    return next((w for w in KERNEL_HIDDEN if w >= hidden), hidden)
 
 
 def reset_launch_counts() -> None:
@@ -76,9 +85,17 @@ class StackedFlowParams(NamedTuple):
 
 def stack_point_flow_params(flow: CouplingFlow) -> StackedFlowParams:
     """Stack the conditioner weights of a point flow (dim 3) module. Every
-    op is linear (transpose, mask fold, stack), so gradients reach the
-    ``nn.Linear`` parameters: the training kernels take their weights from
-    here. Samplers call it under ``torch.no_grad()``."""
+    op is linear (transpose, mask fold, stack, zero padding), so gradients
+    reach the ``nn.Linear`` parameters: the training kernels take their
+    weights from here. Samplers call it under ``torch.no_grad()``.
+
+    H is zero-padded up to ``kernel_hidden(H)``, the width the kernels are
+    built for. The padding is exact: a padded unit has zero in-weights (Wx,
+    Wz, the Wh rows) and zero bias, so its activation is act(0) = 0 for
+    every activation here, and zero out-weights (the Wh and Wout columns),
+    so it adds 0 to every sum; an FMA with a zero operand leaves an f32 sum
+    unchanged. The padded entries' gradients are dropped (``F.pad``'s
+    backward is a slice)."""
     if flow.dim != 3:
         raise ValueError(f"the fused sampler takes the 3-D point flow, got dim {flow.dim}")
     wx, wz, bx, wh, bh, wout, bout, masks = [], [], [], [], [], [], [], []
@@ -97,8 +114,12 @@ def stack_point_flow_params(flow: CouplingFlow) -> StackedFlowParams:
         wout.append(cn.out.weight)
         bout.append(cn.out.bias)
         masks.append(c.mask)
-    f = lambda xs: torch.stack(xs).float().contiguous()
-    return StackedFlowParams(f(wx), f(wz), f(bx), f(wh), f(bh), f(wout), f(bout), f(masks),
+    h = wx[0].shape[0]
+    p = kernel_hidden(h) - h
+    f = lambda xs, *pad: (F.pad(torch.stack(xs).float(), pad) if p else torch.stack(xs).float()
+                          ).contiguous()
+    return StackedFlowParams(f(wx, 0, 0, 0, p), f(wz, 0, p), f(bx, 0, p),
+                             f(wh, 0, p, 0, p), f(bh, 0, p), f(wout, 0, p), f(bout), f(masks),
                              float(flow.scale_cap))
 
 
@@ -271,8 +292,9 @@ def smem_bytes(hidden: int, dtype: torch.dtype, n_hidden_m1: int = 1, int8: bool
     (the rows kernel): the warps' [16][8] f32 exchange, then two stages of a
     whole layer's weights (Wh, Wout and Wx^T in rows of H + 8) where they
     fit and H < 256, with the int8 mode's raw Wh bytes, else one stage with
-    one Wh. f32: the block's 128 points and one weight matrix in rows of
-    H + 1."""
+    one Wh. f32: the block's 128 points in rows of H + 1 and one weight
+    matrix, whole in rows of H + 1 up to H=128, at H=256 a chunk of 64
+    input columns [H][65]."""
     r = lambda n: (n + 127) // 128 * 128
     if dtype == torch.bfloat16:
         ld, o = hidden + 8, 8 * 16 * 8 * 4
@@ -282,7 +304,8 @@ def smem_bytes(hidden: int, dtype: torch.dtype, n_hidden_m1: int = 1, int8: bool
             return o + raw + 2 * (r(n_hidden_m1 * hidden * ld * 2) + 2 * w8)
         return o + r(min(n_hidden_m1, 1) * hidden * ld * 2) + 2 * w8
     ld, t = hidden + 1, 128
-    return (r(t * ld * 4) + r(hidden * ld * 4) + r(3 * t * 4) + r(6 * t * 4)
+    kc = hidden if hidden <= 128 else 64
+    return (r(t * ld * 4) + r(hidden * (kc + 1) * 4) + r(3 * t * 4) + r(6 * t * 4)
             + r(3 * hidden * 4) + 2 * r(hidden * 4) + r(6 * hidden * 4) + r(8 * 4))
 
 
@@ -295,11 +318,13 @@ def _check_kernel_args(sp: StackedFlowParams, hz: Tensor, dtype: torch.dtype,
     if activation not in ACT_CODES:
         raise ValueError(f"unknown activation {activation!r}")
     if h not in KERNEL_HIDDEN:
-        raise ValueError(f"the fused sampler kernel is built for hidden in {KERNEL_HIDDEN}, got {h}")
+        raise ValueError(f"the fused sampler kernel is built for hidden in {KERNEL_HIDDEN} "
+                         f"(stack_point_flow_params pads up to them), got {h}; wider point "
+                         f"flows: {WIDER}")
     need = smem_bytes(h, dtype, nh1, int8)
     if need > SMEM_LIMIT:
-        raise ValueError(f"hidden={h} in {dtype} needs {need} B of shared memory, more than "
-                         f"the {SMEM_LIMIT} B a block may use")
+        raise ValueError(f"hidden={h}, n_hidden={nh1 + 1} in {dtype} needs {need} B of shared "
+                         f"memory, more than the {SMEM_LIMIT} B a block may use ({WIDER})")
     for name, t in list(sp._asdict().items())[:-1] + [("hz", hz)]:
         if not (t.is_cuda and t.device == hz.device):
             raise ValueError(f"{name} must be a CUDA tensor on {hz.device}, is on {t.device}")

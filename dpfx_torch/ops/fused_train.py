@@ -30,7 +30,7 @@ from __future__ import annotations
 import ctypes
 import functools
 import math
-from typing import Dict, List, Tuple
+from typing import Dict, List, Optional, Tuple
 
 import torch
 
@@ -38,6 +38,8 @@ from dpfx_torch.models.dpf import dtype_of
 from dpfx_torch.ops.fused_sampler import (
     KERNEL_HIDDEN,
     SMEM_LIMIT,
+    WIDER,
+    kernel_hidden,
     stack_point_flow_params,
     z_projection,
 )
@@ -53,16 +55,41 @@ def reset_launch_counts() -> None:
         launches[k] = 0
 
 
+MAX_HIDDEN = KERNEL_HIDDEN[-1]
+MAX_N_HIDDEN = 4       # conditioner depths every width takes
+STREAM_HIDDEN = (128, 256)   # widths the stream layout is built for
+# deeper conditioners where the mma (bf16) or block-wide (f32) layouts hold
+# the forward and the backward: the deepest n_hidden they take at each
+# kernel width, by the library's smem_bytes (the card test
+# test_layout_depths_match_the_library holds the table to it)
+LAYOUT_N_HIDDEN = {"bfloat16": {32: 9, 64: 4, 128: 2, 256: 1},
+                   "float32": {32: 17, 64: 5, 128: 2, 256: 0}}
+
+
 def fused_train_supported(flow_cfg) -> bool:
-    """The kernel pair covers the flagship configuration: relu conditioner
-    (the backward needs its derivative) and no actnorm."""
-    return flow_cfg.activation == "relu" and not flow_cfg.use_actnorm
+    """The kernels' domain: a relu conditioner (the backward needs its
+    derivative), no actnorm, 1 <= hidden <= 256 (padded up to the kernels'
+    widths by ``stack_point_flow_params``) with n_hidden 1-4 in either
+    compute dtype, and deeper conditioners where the mma or block-wide
+    layouts hold them (``LAYOUT_N_HIDDEN``)."""
+    if (flow_cfg.activation != "relu" or flow_cfg.use_actnorm
+            or not 1 <= flow_cfg.hidden <= MAX_HIDDEN or flow_cfg.n_hidden < 1):
+        return False
+    deepest = LAYOUT_N_HIDDEN[flow_cfg.compute_dtype][kernel_hidden(flow_cfg.hidden)]
+    return flow_cfg.n_hidden <= max(MAX_N_HIDDEN, deepest)
 
 
 # ---------------------------------------------------------------- plain version
 
+def _acc(dtype: torch.dtype) -> torch.dtype:
+    """The plain versions' working type: float32, or float64 for the f64
+    reference (``dtype=torch.float64``, every operand and sum in f64)."""
+    return torch.float64 if dtype == torch.float64 else torch.float32
+
+
 def _rnd(dtype: torch.dtype):
-    return lambda a: a.to(dtype).float()
+    acc = _acc(dtype)
+    return lambda a: a.to(dtype).to(acc)
 
 
 def _hidden_chain(wx: Tensor, wh: Tensor, bh: Tensor, hz: Tensor, k: int, x: Tensor,
@@ -82,9 +109,10 @@ def fused_forward_plain(wx: Tensor, wh: Tensor, bh: Tensor, wout: Tensor, bout: 
                         masks: Tensor, cap: float, xt: Tensor, hz: Tensor,
                         dtype: torch.dtype) -> Tuple[Tensor, Tensor]:
     """xt [B, 3, N] -> (u [B, 3, N], log-det [B]): the forward kernel's
-    arithmetic in torch ops."""
+    arithmetic in torch ops (``dtype=torch.float64`` on f64 inputs: the f64
+    reference)."""
     rnd = _rnd(dtype)
-    x = xt.float()
+    x = xt.to(_acc(dtype))
     ld = torch.zeros_like(x[:, 0])
     for k in range(wx.shape[0]):
         hs = _hidden_chain(wx, wh, bh, hz, k, x, dtype)
@@ -103,10 +131,12 @@ def fused_backward_plain(wx: Tensor, wh: Tensor, bh: Tensor, wout: Tensor, bout:
     output u, each layer's input rebuilt by the closed-form inverse and its
     conditioner recomputed from the passthrough rows (identical in the
     layer's input and output). Returns (dx, dhz, dwx, dwh, dbh, dwout,
-    dbout), all float32."""
+    dbout), all float32 (float64 for ``dtype=torch.float64`` on f64
+    inputs: the f64 reference that an f32 result's drift is read from)."""
     rnd = _rnd(dtype)
-    y, dy = u.float(), du.float()
-    g_ld = dld.float()[:, None, None]
+    acc = _acc(dtype)
+    y, dy = u.to(acc), du.to(acc)
+    g_ld = dld.to(acc)[:, None, None]
     dhz = torch.zeros_like(hz)
     dwx, dwh, dbh = torch.zeros_like(wx), torch.zeros_like(wh), torch.zeros_like(bh)
     dwout, dbout = torch.zeros_like(wout), torch.zeros_like(bout)
@@ -163,10 +193,44 @@ def _lib() -> ctypes.CDLL:
     return lib
 
 
-def _tiles(n: int, dtype: torch.dtype, backward: bool) -> int:
+@functools.lru_cache(maxsize=None)
+def _stream_lib() -> ctypes.CDLL:
+    """The stream layout's entry points (a library built before it has
+    none: the flagship's path never asks for them)."""
+    lib = _lib()
+    p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    lib.dpfx_fused_train_stream_fwd.argtypes = lib.dpfx_fused_train_fwd.argtypes
+    lib.dpfx_fused_train_stream_bwd.argtypes = [
+        p, p, p, p,                   # y, dy, dld, hz
+        p, p, p, p, p, p,             # wx, wh, bh, wout, bout, masks
+        p, p, p, p, p,                # partials, dhz partials, dWh sums, dw out, dhz out
+        i, i, i, i, i, f, i, i, p,    # B, N, K, H, n_hidden-1, cap, bf16, blocks, stream
+    ]
+    lib.dpfx_fused_train_stream_smem_bytes.argtypes = [i, i, i, i]
+    lib.dpfx_fused_train_stream_tile_points.argtypes = [i, i, i, i]
+    for fn in (lib.dpfx_fused_train_stream_fwd, lib.dpfx_fused_train_stream_bwd,
+               lib.dpfx_fused_train_stream_smem_bytes, lib.dpfx_fused_train_stream_tile_points):
+        fn.restype = ctypes.c_int
+    return lib
+
+
+def uses_stream(hidden: int, n_hidden_m1: int, dtype: torch.dtype) -> bool:
+    """The layout, chosen from the shapes for the forward and the backward
+    together: the stream layout where the mma (bf16) or block-wide (f32)
+    layout of either overflows a block's shared memory, so that the
+    backward's recompute is the forward's arithmetic; else those, whose
+    instances are the same as before the stream layout existed."""
+    return any(smem_bytes(hidden, n_hidden_m1, dtype, bwd) > SMEM_LIMIT for bwd in (False, True))
+
+
+def _tiles(n: int, dtype: torch.dtype, backward: bool,
+           stream: Optional[Tuple[int, int]] = None) -> int:
     """Tiles of a cloud of n points, at the kernel library's points per
-    forward block or per backward tile."""
-    t = _lib().dpfx_fused_train_tile_points(int(dtype == torch.bfloat16), int(backward))
+    forward block or per backward tile (``stream``: (H, n_hidden-1) of the
+    stream layout)."""
+    bf = int(dtype == torch.bfloat16)
+    t = (_stream_lib().dpfx_fused_train_stream_tile_points(*stream, bf, int(backward)) if stream
+         else _lib().dpfx_fused_train_tile_points(bf, int(backward)))
     return (n + t - 1) // t
 
 
@@ -182,8 +246,9 @@ def _check(wx: Tensor, dtype: torch.dtype, tensors: Dict[str, Tensor]) -> None:
     if dtype not in (torch.float32, torch.bfloat16):
         raise ValueError(f"kernel compute dtype must be float32 or bfloat16, got {dtype}")
     if h not in KERNEL_HIDDEN:
-        raise ValueError(f"the fused train kernels are built for hidden in {KERNEL_HIDDEN}, "
-                         f"got {h}")
+        raise ValueError(f"the fused train kernels are built for hidden in {KERNEL_HIDDEN} "
+                         f"(stack_point_flow_params pads up to them), got {h}; wider point "
+                         f"flows: {WIDER}")
     dev = wx.device
     for name, t in tensors.items():
         if not (t.is_cuda and t.device == dev):
@@ -192,11 +257,21 @@ def _check(wx: Tensor, dtype: torch.dtype, tensors: Dict[str, Tensor]) -> None:
             raise ValueError(f"{name} must be a contiguous float32 tensor")
 
 
-def _check_smem(h: int, nh1: int, dtype: torch.dtype, backward: bool) -> None:
-    need = smem_bytes(h, nh1, dtype, backward)
+def _check_smem(h: int, nh1: int, dtype: torch.dtype, backward: bool) -> bool:
+    """Raise where no layout fits; returns whether the stream layout runs."""
+    if not uses_stream(h, nh1, dtype):
+        return False
+    if h not in STREAM_HIDDEN:
+        raise ValueError(f"hidden={h}, n_hidden={nh1 + 1} in {dtype} overflows the shared memory "
+                         f"of the mma and block-wide layouts, and the stream layout is built "
+                         f"for hidden in {STREAM_HIDDEN}")
+    need = _stream_lib().dpfx_fused_train_stream_smem_bytes(h, nh1, int(dtype == torch.bfloat16),
+                                                            int(backward))
     if need > SMEM_LIMIT:
         raise ValueError(f"hidden={h}, n_hidden={nh1 + 1} in {dtype} needs {need} B of shared "
-                         f"memory, more than the {SMEM_LIMIT} B a block may use")
+                         f"memory in the stream layout, more than the {SMEM_LIMIT} B a block "
+                         f"may use")
+    return True
 
 
 def _weights(wx, wh, wout, dtype):
@@ -214,14 +289,15 @@ def fused_forward_kernel(wx, wh, bh, wout, bout, masks, cap, xt, hz, dtype):
     nh1 = wh.shape[1]
     b, _, n = xt.shape
     _check(wx, dtype, dict(wx=wx, wh=wh, bh=bh, wout=wout, bout=bout, masks=masks, xt=xt, hz=hz))
-    _check_smem(h, nh1, dtype, backward=False)
+    wide = _check_smem(h, nh1, dtype, backward=False)
     u = torch.empty_like(xt)
-    ld_part = torch.empty((b, _tiles(n, dtype, backward=False)), device=xt.device,
-                          dtype=torch.float32)
+    ld_part = torch.empty((b, _tiles(n, dtype, False, (h, nh1) if wide else None)),
+                          device=xt.device, dtype=torch.float32)
     cwx, cwh, cwout = _weights(wx, wh, wout, dtype)
     stream = torch.cuda.current_stream(xt.device).cuda_stream
+    fwd = _stream_lib().dpfx_fused_train_stream_fwd if wide else _lib().dpfx_fused_train_fwd
     with torch.cuda.device(xt.device):
-        err = _lib().dpfx_fused_train_fwd(
+        err = fwd(
             xt.data_ptr(), hz.data_ptr(), u.data_ptr(), ld_part.data_ptr(),
             cwx.data_ptr(), cwh.data_ptr() if nh1 else None, bh.data_ptr() if nh1 else None,
             cwout.data_ptr(), bout.data_ptr(), masks.data_ptr(),
@@ -241,8 +317,8 @@ def _backward_call(wx, wh, bh, wout, bout, masks, cap, u, hz, du, dld, dtype):
     b, _, n = u.shape
     _check(wx, dtype, dict(wx=wx, wh=wh, bh=bh, wout=wout, bout=bout, masks=masks, u=u, hz=hz,
                            du=du, dld=dld))
-    _check_smem(h, nh1, dtype, backward=True)
-    nt = _tiles(n, dtype, backward=True)
+    wide = _check_smem(h, nh1, dtype, backward=True)
+    nt = _tiles(n, dtype, True, (h, nh1) if wide else None)
     blocks = min(b * nt, _sm_count(u.device))
     per_layer = 3 * h + nh1 * h * h + nh1 * h + 6 * h + 6
     dev = u.device
@@ -251,15 +327,20 @@ def _backward_call(wx, wh, bh, wout, bout, masks, cap, u, hz, du, dld, dtype):
     dhz_part = torch.empty((b, nt, k, h), device=dev, dtype=torch.float32)
     dw = torch.empty((k, per_layer), device=dev, dtype=torch.float32)
     dhz = torch.empty((b, k, h), device=dev, dtype=torch.float32)
+    # the stream layout's per-block dWh sums (L2-resident scratch)
+    wacc = torch.empty((blocks, nh1, h, h), device=dev, dtype=torch.float32) if wide else None
     cwx, cwh, cwout = _weights(wx, wh, wout, dtype)
     stream = torch.cuda.current_stream(dev).cuda_stream
-    with torch.cuda.device(dev):
-        err = _lib().dpfx_fused_train_bwd(
-            y.data_ptr(), dx.data_ptr(), dld.data_ptr(), hz.data_ptr(),
+    ptrs = [y.data_ptr(), dx.data_ptr(), dld.data_ptr(), hz.data_ptr(),
             cwx.data_ptr(), cwh.data_ptr() if nh1 else None, bh.data_ptr() if nh1 else None,
             cwout.data_ptr(), bout.data_ptr(), masks.data_ptr(),
-            part.data_ptr(), dhz_part.data_ptr(), dw.data_ptr(), dhz.data_ptr(),
-            b, n, k, h, nh1, float(cap), int(dtype == torch.bfloat16), blocks, stream)
+            part.data_ptr(), dhz_part.data_ptr()]
+    if wide:
+        ptrs.append(wacc.data_ptr() if nh1 else None)
+    bwd = _stream_lib().dpfx_fused_train_stream_bwd if wide else _lib().dpfx_fused_train_bwd
+    with torch.cuda.device(dev):
+        err = bwd(*ptrs, dw.data_ptr(), dhz.data_ptr(),
+                  b, n, k, h, nh1, float(cap), int(dtype == torch.bfloat16), blocks, stream)
     if err != 0:
         raise RuntimeError(f"fused train backward kernel launch failed: cudaError {err}")
     launches["fused_train_bwd"] += 1

@@ -31,6 +31,7 @@ from dpfx_torch.ops.fused_latent import (
     cast_latent_weights,
     fused_latent_inverse,
     fused_latent_supported,
+    pad_latent_params,
     stack_latent_params,
 )
 from dpfx_torch.ops.fused_sampler import fused_sample_points, stack_point_flow_params
@@ -54,8 +55,8 @@ def _make_latent_inverse(model: DPF) -> Callable[[torch.Tensor], torch.Tensor]:
     if (os.environ.get("DPFX_SAMPLE_FUSED_LATENT") == "1"
             and fused_latent_supported(lf_cfg, model.config.model.dz)):
         with torch.no_grad():
-            stacked = cast_latent_weights(stack_latent_params(model.latent_flow),
-                                          dtype_of(lf_cfg.compute_dtype))
+            stacked = cast_latent_weights(pad_latent_params(stack_latent_params(
+                model.latent_flow)), dtype_of(lf_cfg.compute_dtype))
         return lambda eps: fused_latent_inverse(stacked, eps, lf_cfg)
     return lambda eps: model.latent_flow.inverse(eps)[0]
 

@@ -51,24 +51,27 @@ def elbo_loss(model, x: Tensor, eps: Tensor, kl_weight: float = 1.0,
         if fused_encoder_supported(mcfg.encoder):
             posterior = fused_pointnet_posterior(model.encoder, x)
         else:
-            _warn_once(("enc", mcfg.encoder.activation),
+            _warn_once(("enc", mcfg.encoder.activation, tuple(mcfg.encoder.point_widths)),
                        "dpfx_torch.train: fused_encoder requested but the encoder config "
-                       f"(activation={mcfg.encoder.activation!r}) is outside the fused "
+                       f"(activation={mcfg.encoder.activation!r}, point_widths="
+                       f"{tuple(mcfg.encoder.point_widths)}) is outside the fused "
                        "kernels' support; using the module path")
     flow_cfg = mcfg.point_flow
     use_fused_pf = fused_point_flow and fused_train_supported(flow_cfg)
     if fused_point_flow and not use_fused_pf:
-        _warn_once((flow_cfg.activation, flow_cfg.use_actnorm),
+        _warn_once((flow_cfg.activation, flow_cfg.use_actnorm, flow_cfg.hidden,
+                    flow_cfg.n_hidden),
                    "dpfx_torch.train: fused_point_flow requested but the flow config "
-                   f"(activation={flow_cfg.activation!r}, actnorm={flow_cfg.use_actnorm}) "
+                   f"(activation={flow_cfg.activation!r}, actnorm={flow_cfg.use_actnorm}, "
+                   f"hidden={flow_cfg.hidden}, n_hidden={flow_cfg.n_hidden}) "
                    "is outside the fused kernels' support; using the module path")
     lf_cfg = mcfg.latent_flow
     use_fused_lat = fused_latent_flow and fused_latent_supported(lf_cfg, mcfg.dz)
     if fused_latent_flow and not use_fused_lat:
         _warn_once(("lat", lf_cfg.activation, lf_cfg.use_actnorm, mcfg.dz),
                    "dpfx_torch.train: fused_latent_flow requested but the latent-flow config "
-                   "is outside the fused kernels' support (needs relu, no actnorm, dz > 16 "
-                   "and dz % 8 == 0); using the module path")
+                   "is outside the fused kernels' support (needs relu, no actnorm, dz > 16, "
+                   "dz % 8 == 0 and widths that one cluster holds); using the module path")
     t = model.elbo_latent_terms(x, eps, posterior, with_logp_z=not use_fused_lat, image=image)
     t["recon_ll"] = (fused_point_flow_recon_ll(model, x, t["z"], flow_cfg) if use_fused_pf
                      else model.point_flow.log_prob(x, t["z"]).sum(-1))
