@@ -671,6 +671,28 @@ def latent_ptxas() -> dict:
     return found
 
 
+def cluster_ptxas() -> dict:
+    """Registers and spilled bytes (stores/loads) of the cluster layout's
+    instances (``fwd_cluster<H, n_hidden-1>``, ``bwd_cluster<...>``), keyed
+    "fused_train_{fwd,bwd} cluster H=.. n_hidden=..", from ptxas' log."""
+    import re
+
+    from dpfx_torch.ops import _build
+
+    found, cur = {}, None
+    for line in _build.ptxas_log("fused_train").splitlines():
+        if "Compiling entry function" in line:
+            m = re.search(r"(fwd|bwd)_clusterILi(\d+)ELi(\d+)E", line)
+            cur = (f"fused_train_{m.group(1)} cluster H={m.group(2)} n_hidden={int(m.group(3)) + 1}"
+                   if m else None)
+        elif cur and "spill stores" in line:
+            st, ld = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line).groups()
+            found.setdefault(cur, {})["spill"] = f"{st}/{ld}"
+        elif cur and "Used" in line:
+            found.setdefault(cur, {})["regs"] = int(re.search(r"Used (\d+) registers", line).group(1))
+    return found
+
+
 def sampler_ptxas(instance: str = "rows_kernelI13__nv_bfloat16Li128ELb1ELb1E") -> str:
     """Registers and spilled bytes of one instance of the fused sampler
     (its mangled name; by default the flagship's: bf16 weights, H=128,
@@ -3228,15 +3250,20 @@ LATCAP_CONFIG = ROOT / "configs" / "flagship_quality_v3_aug_latcap.yaml"
 # TOL_GRAD_BF16 by their norms, as phase 2 holds the flagship's prior
 TOL_LATCAP_P999 = 1e-2
 F32_CONFIG = ROOT / "configs" / "shapenet_airplane_gen.yaml"
-# the stream layout's shapes (fused_train.uses_stream: the mma and
-# block-wide layouts of the forward or the backward overflow) and one
-# padded width (96 -> 128: the parent layouts; 192 -> 256: the stream
-# layout), (hidden, n_hidden) in each compute dtype
+# the shapes the mma and block-wide layouts of the forward or the
+# backward overflow (fused_train.uses_stream): in bf16 the cluster layout's
+# (CLUSTER_SHAPES) and H=256 with n_hidden 4 (the stream
+# layout), in f32 the stream layout's; and one padded width (96 -> 128:
+# the parent layouts; 192 -> 256: the cluster layout in bf16, the stream
+# layout in f32), (hidden, n_hidden) in each compute dtype
 STREAM_SHAPES = {"bfloat16": ((128, 3), (128, 4), (256, 2), (256, 3), (256, 4), (96, 2), (192, 2)),
                  "float32": ((128, 3), (128, 4), (256, 1), (256, 2), (256, 3), (256, 4), (96, 2),
                              (192, 2))}
 # the sampler's new f32 layout (Wh in chunks at H=256) and the padded widths
 SAMPLER_SHAPES = ((256, 1), (256, 2), (256, 3), (256, 4), (96, 2), (192, 3))
+# the cluster layout's shapes (kernel H, n_hidden - 1): fused_train.uses_cluster
+# must take exactly these
+CLUSTER_SHAPES = ((128, 2), (128, 3), (256, 1), (256, 2))
 WIDE = ["model.point_flow.hidden=256"]
 WIDTH_CHECK = (8, 2048, 32)     # B, N, K of the layouts' checks against the plain versions
 WIDTH_MAIN = (64, 2048)         # B, N of the main paths
@@ -3491,10 +3518,11 @@ def shapes_path(dev, card, x20, h128_replayed):
                 tw = (sp.wx, sp.wh, sp.bh, sp.wout, sp.bout, sp.masks, sp.scale_cap)
                 xt, hz = flow_inputs(sp)
                 fwd, fwd2, fwd_p, du, dld, got, again, ref = train_runs(tw, xt, hz, dt)
-                layout = "stream" if ft.uses_stream(kh, nh1, dt) else "parent"
+                layout = ft._layout(kh, nh1, dt, True)
                 overflow = (kh == 128 and nh1 >= 2) or (kh == 256 and (nh1 >= 1 or dname == "float32"))
-                check(layout == ("stream" if overflow else "parent"),
-                      f"H={h} n_hidden={nh} {dname} takes the {layout} layout")
+                want = ("parent" if not overflow else "cluster"
+                        if dname == "bfloat16" and (kh, nh1) in CLUSTER_SHAPES else "stream")
+                check(layout == want, f"H={h} n_hidden={nh} {dname} takes the {layout} layout")
                 tname = f"fused_train H={h}->{kh} n_hidden={nh} ({layout} layout) K={k} B={bc} N={nc}"
                 if dname == "float32" and k == kc:
                     w64 = tuple(t.double() if torch.is_tensor(t) else t for t in tw)
@@ -3662,10 +3690,16 @@ def shapes_path(dev, card, x20, h128_replayed):
         check(rel(mu, mu_m) <= TOL_GRAD_BF16 and rel(lv, lv_m) <= TOL_GRAD_BF16,
               f"the fused posterior at widths (120, 200) against the module ({dname}): "
               f"{rel(mu, mu_m)}, {rel(lv, lv_m)}")
+    taken = [(hh, nn) for hh in ft.STREAM_HIDDEN for nn in range(6)
+             if ft.uses_cluster(hh, nn, torch.bfloat16)]
+    check(taken == list(CLUSTER_SHAPES), f"uses_cluster takes {taken}, not {CLUSTER_SHAPES}")
     regs = {f"{kk} H={hh}": v for hh in ft.STREAM_HIDDEN
             for kk, v in train_ptxas(hh, stream=True).items()}
+    regs.update(cluster_ptxas())
     f32_regs = sampler_ptxas("f32_kernelIfLi256E")
     check(all("regs" in regs.get(f"fused_train_{kk} bf16 H=256", {}) for kk in ("fwd", "bwd"))
+          and all("regs" in regs.get(f"fused_train_{kk} cluster H={hh} n_hidden={nh1 + 1}", {})
+                  for kk in ("fwd", "bwd") for hh, nh1 in CLUSTER_SHAPES)
           and not f32_regs.startswith("None"),
           f"ptxas reported the new layouts: {regs}, the f32 sampler at H=256 {f32_regs}")
     print("ptxas of the new layouts: " + "; ".join(
@@ -3688,6 +3722,7 @@ def shapes_path(dev, card, x20, h128_replayed):
     torch.cuda.synchronize()
     wide_wall = time.perf_counter() - t0
     wide_launches = {**ft.launches, **fe.launches}
+    wide_layouts = dict(ft.layout_launches)
     cfg_a = load_config(str(CONFIG), overrides=WIDE)
     run_dir = wide_dir / cfg_a.name
     recs = [json.loads(line) for line in (run_dir / "metrics.jsonl").read_text().splitlines()]
@@ -3698,10 +3733,15 @@ def shapes_path(dev, card, x20, h128_replayed):
               and r["nonfinite_skipped"] == 0 for r in trecs)
           and all(np.isfinite(v) for _, ls in calls for v in ls),
           f"H=256 training: every loss finite, no step skipped: {trecs}")
-    check(ft.uses_stream(256, 1, torch.bfloat16), "H=256 n_hidden 2 bf16 trains on the stream layout")
+    check(ft._layout(256, 1, torch.bfloat16, True) == "cluster",
+          "H=256 n_hidden 2 bf16 trains on the cluster layout")
     for kname in ("fused_train_fwd", "fused_train_bwd", "fused_encoder_fwd", "fused_encoder_bwd"):
         want = tm._WARMUP + 10 + (VAL_BATCHES if kname.endswith("fwd") else 0)
         check(wide_launches[kname] == want, f"H=256 kernel {kname}: {wide_launches[kname]} launches")
+    for d in ("fwd", "bwd"):
+        check(wide_layouts[f"cluster_{d}"] == wide_launches[f"fused_train_{d}"]
+              and wide_layouts[f"stream_{d}"] == 0,
+              f"H=256: every fused_train {d} launch on the cluster layout: {wide_layouts}")
     wide_pt = run_dir / "params_00000010.pt"
     trained = torch.load(wide_pt, map_location="cpu", weights_only=True)
     check(trained["point_flow.coupling_0.cond_net.in_x.weight"].shape[0] == 256,
@@ -3755,9 +3795,10 @@ def shapes_path(dev, card, x20, h128_replayed):
     torch.cuda.synchronize()
     check(fs.launches["fused_sample"] == 1 and xa.shape == (bm, nm, 3)
           and bool(torch.isfinite(xa).all()), "the H=256 sampler")
-    smp_a = cuda_ms(lambda: sampler_a(4), 5)
     rc, res_a, _, eval_a = run_eval_cli([str(CONFIG), *WIDE, f"train.ckpt_dir={wide_dir}",
                                          "data.synthetic_size=512", "--limit", "64"])
+    bf_sample_launches = fs.launches["fused_sample"]   # the sampler's call and the evaluation's
+    smp_a = cuda_ms(lambda: sampler_a(4), 5)
     check(rc == 0 and res_a["n_test"] == 64 and finite_numbers(res_a),
           f"the H=256 evaluation: {res_a}")
     print(f"(a) flagship at H=256 n_hidden 2 bf16: 10 steps (one resident call) in "
@@ -3768,7 +3809,7 @@ def shapes_path(dev, card, x20, h128_replayed):
           f"{smp_a:.3f} ms; evaluation --limit 64 in {eval_a:.1f} s: 1-NNA-CD "
           f"{res_a['1-nna-cd']:.4f}, 1-NNA-EMD {res_a['1-nna-emd']:.4f} ({card})")
 
-    # the stream layout's rows at the main path's shapes (B=64, N=2048, K=32,
+    # the cluster layout's rows at the main path's shapes (B=64, N=2048, K=32,
     # H=256, n_hidden 2, bf16), on the seeded initial weights: ten chaotic
     # steps of the random model (grad norms ~1e7) leave a flow that sends
     # clouds to |u| ~ 1e7, where no absolute limit means anything
@@ -3778,18 +3819,51 @@ def shapes_path(dev, card, x20, h128_replayed):
     tw = (sp_a.wx, sp_a.wh, sp_a.bh, sp_a.wout, sp_a.bout, sp_a.masks, sp_a.scale_cap)
     xt = x20[1].transpose(1, 2).contiguous()
     hz = fs.z_projection(sp_a, torch.randn((bm, 128), generator=g, device=dev))
+    check(ft._layout(256, 1, bf, False) == "cluster", "the main shape runs the cluster layout")
     (u_k, ld_k), fwd2, (u_p, ld_p), du, dld, got, again, ref = train_runs(tw, xt, hz, bf)
-    held_to_plain(f"fused_train (stream layout) B={bm} N={nm} K={sp_a.wx.shape[0]} H=256 "
+    held_to_plain(f"fused_train (cluster layout) B={bm} N={nm} K={sp_a.wx.shape[0]} H=256 "
                   "n_hidden 2", bf, (u_k, ld_k), (u_p, ld_p), got, again, ref, grad_names,
                   fwd_again=fwd2)
     f_err = errors(u_k, u_p)[0]
     b_err = max(float((a - r).abs().max()) for a, r in zip(got, ref) if r.numel())
     del got, again, ref
-    tf_ms = cuda_ms(lambda: ft.fused_forward_kernel(*tw, xt, hz, bf), 5)
-    tb_ms = cuda_ms(lambda: ft.fused_backward_kernel(*tw, u_p, hz, du, dld, bf), 3)
+    # timed in turns with this tree's stream layout on the same inputs
+    # (the wrapper's cluster layout turned off: what ran before it)
+    cluster_of, lay_ms = ft.uses_cluster, {"cluster": [], "stream": []}
+    for lay in ("cluster", "stream", "stream", "cluster"):
+        ft.uses_cluster = cluster_of if lay == "cluster" else (lambda *a: False)
+        try:
+            lay_ms[lay].append((cuda_ms(lambda: ft.fused_forward_kernel(*tw, xt, hz, bf), 5),
+                                cuda_ms(lambda: ft.fused_backward_kernel(*tw, u_p, hz, du, dld, bf),
+                                        3)))
+        finally:
+            ft.uses_cluster = cluster_of
+    tf_ms = sum(t[0] for t in lay_ms["cluster"]) / 2
+    tb_ms = sum(t[1] for t in lay_ms["cluster"]) / 2
     tf_plain = cuda_ms(lambda: ft.fused_forward_plain(*tw, xt, hz, bf), 2, warmup=1)
     tb_plain = cuda_ms(lambda: ft.fused_backward_plain(*tw, u_p, hz, du, dld, bf), 1, warmup=1)
     (b_tf, by_tf), (b_tb, by_tb) = train_bounds(sp_a, bm, nm)
+    print(f"fused_train at B={bm} N={nm} K=32 H=256 n_hidden 2 bf16, cluster against stream "
+          f"layout in turns (forward, backward ms): {json.dumps(lay_ms)}; cluster {tf_ms:.3f} / "
+          f"{tb_ms:.3f} ms = {tf_ms / b_tf:.2f}x / {tb_ms / b_tb:.2f}x the bound ({b_tf:.4f} / "
+          f"{b_tb:.4f}); plain {tf_plain:.2f} / {tb_plain:.2f} ({card})")
+    # the bf16 sampler at H=256 (rows_kernel<256>) alone at the main shape,
+    # on the same weights, against its plain version
+    zs = torch.randn((bm, 128), generator=g, device=dev)
+    xs_k, us_k = fs.fused_sample_points(sp_a, zs, 11, nm, dtype=bf, return_noise=True)
+    xs_k2 = fs.fused_sample_points(sp_a, zs, 11, nm, dtype=bf)
+    xs_kp = fs.fused_inverse_transposed_plain(sp_a, us_k.transpose(1, 2).contiguous(),
+                                              fs.z_projection(sp_a, zs), bf,
+                                              "relu").transpose(1, 2)
+    torch.cuda.synchronize()
+    bs_err = held_to_plain(f"fused_sample bf16 B={bm} N={nm} K={sp_a.wx.shape[0]} H=256 n_hidden 2",
+                           bf, (xs_k,), (xs_kp,), fwd_again=(xs_k2,))
+    bs_ms = cuda_ms(lambda: fs.fused_sample_points(sp_a, zs, 12, nm, dtype=bf), 10)
+    bs_plain = cuda_ms(lambda: fs.fused_sample_points_plain(sp_a, fs.z_projection(sp_a, zs), 12,
+                                                            nm, bf, "relu"), 2, warmup=1)
+    b_bs, by_bs, _ = bound(sp_a, bm, nm, with_ut=False)
+    print(f"fused_sample bf16 H=256 n_hidden 2 at B={bm} N={nm}: {bs_ms:.3f} ms = "
+          f"{bs_ms / b_bs:.2f}x its bound {b_bs:.4f} ({by_bs}); plain {bs_plain:.2f} ({card})")
     del model_a, sampler_a, u_p, du
 
     # (b) config #3 (f32 point flow) at H=256 on the synthetic family: the
@@ -3929,15 +4003,18 @@ def shapes_path(dev, card, x20, h128_replayed):
     print(f"phase 3l: the kernels' widths in {time.perf_counter() - t_phase:.1f} s (checks "
           f"{t_checks:.1f} s) ({card})")
 
-    src = "dpfx_torch/ops/csrc/fused_train.cu"
+    src = "dpfx_torch/ops/csrc/flow_cluster.cuh"
     row = lambda name, s_, where, n_, err, ms, plain, bnd, by: {  # noqa: E731
         "name": name, "route": "cuda", "source": s_, "replaces": where, "launches": n_,
         "max_abs_err": err, "ms": ms, "plain_ms": plain, "bound_ms": bnd, "bound_by": by,
         "library_ms": None}
-    return [row("fused_train_fwd_stream", src, "dpfx/ops/fused_train.py:131",
-                wide_launches["fused_train_fwd"], f_err, tf_ms, tf_plain, b_tf, by_tf),
-            row("fused_train_bwd_stream", src, "dpfx/ops/fused_train.py:231",
-                wide_launches["fused_train_bwd"], b_err, tb_ms, tb_plain, b_tb, by_tb),
+    return [row("fused_train_fwd_cluster", src, "dpfx/ops/fused_train.py:131",
+                wide_layouts["cluster_fwd"], f_err, tf_ms, tf_plain, b_tf, by_tf),
+            row("fused_train_bwd_cluster", src, "dpfx/ops/fused_train.py:231",
+                wide_layouts["cluster_bwd"], b_err, tb_ms, tb_plain, b_tb, by_tb),
+            row("fused_sample_bf16_h256", "dpfx_torch/ops/csrc/fused_sampler.cu",
+                "dpfx/ops/fused_sampler.py:309", bf_sample_launches, bs_err, bs_ms, bs_plain,
+                b_bs, by_bs),
             row("fused_sample_f32_h256", "dpfx_torch/ops/csrc/fused_sampler.cu",
                 "dpfx/ops/fused_sampler.py:309", f32_launches, s_err, s_ms, s_plain, b_s, by_s)]
 
@@ -5011,7 +5088,7 @@ def main() -> int:
                       f"{v.get('spill')}" for kk, v in lregs.items()) + f" ({card})")
     kernels += eval_kernel_rows(cfg, half_a, half_b, gen_launches, ae_launches)
     kernels += grad_rows + int8_rows + probe_rows + shape_rows
-    check(len(kernels) == 27, f"{len(kernels)} kernel rows")
+    check(len(kernels) == 28, f"{len(kernels)} kernel rows")
     print(json.dumps({"kernels": kernels}))
 
     # ---- 5. where the sampler's time goes (torch.profiler, 5 calls each)

@@ -71,16 +71,22 @@
 // same persistent layer-outside-tile structure, f32 dWh accumulated in
 // shared memory, tile 128 forward and 32 backward.
 //
-// stream layout (`fwd_stream`, `bwd_stream`, both dtypes, H = 128 and 256):
-// the shapes whose activations or weights overflow the two designs above
-// (the bf16 backward at H=128 with n_hidden 3-4 and at H=256 with n_hidden
-// 2-4, the f32 layouts at H=256, ...): smaller point tiles, Wh staged in
-// chunks of output columns, dWh summed in a global slice. See StreamSmem.
+// cluster layout (`fwd_cluster`, `bwd_cluster`, bf16; flow_cluster.cuh): the
+// bf16 shapes whose mma layout overflows a block (H=128 with n_hidden 3-4,
+// H=256 with n_hidden 2-3): one layer split across a thread-block cluster of
+// H / 64 CTAs, rank r owning hidden columns [64r, 64r + 64). See its header.
+//
+// stream layout (`fwd_stream`, `bwd_stream`): the f32 shapes whose
+// block-wide layout overflows (H=256, H=128 with n_hidden 3-4) and the one
+// bf16 training shape the cluster plan cannot hold (H=256 with n_hidden 4):
+// smaller point tiles, Wh staged in chunks of output columns, dWh summed
+// in a global slice. See StreamSmem.
 //
 // Plain C interface, loaded with ctypes (dpfx_torch/ops/_build.py). Each
 // launch returns cudaGetLastError().
 
 #include "flow_bwd_rows.cuh"
+#include "flow_cluster.cuh"
 
 namespace {
 
@@ -616,12 +622,11 @@ bwd_kernel(float* __restrict__ y, float* __restrict__ dy, const float* __restric
 // ---------------------------------------------------------------- stream layout
 
 // The layout for the shapes whose activations or weights overflow the
-// layouts above (the bf16 backward at H=128 with n_hidden 3-4 and at H=256
-// with n_hidden 2-4, the bf16 forward at H=256 with n_hidden 3-4, the f32
-// forward and backward at H=256, the f32 backward at H=128 with n_hidden
-// 3-4): the wrapper picks it for the forward and the backward together
-// wherever either of the others does not fit, so that the backward's
-// recompute is the forward's arithmetic. S is the stored type: bf16 (the
+// layouts above and the cluster layout (the f32 forward and backward at
+// H=256, the f32 backward at H=128 with n_hidden 3-4, bf16 at H=256 with
+// n_hidden 4): the wrapper picks it for the forward and the backward
+// together wherever either of the others does not fit, so that the
+// backward's recompute is the forward's arithmetic. S is the stored type: bf16 (the
 // bf16 mode: the activations and cotangents stored rounded, as the Pallas
 // kernel's operands are; WMMA products on the tensor cores, f32 sums) or
 // float (the f32 mode: IEEE FMA, each sum over k in order, so the forward
@@ -1137,13 +1142,22 @@ cudaError_t launch_bwd(float* y, float* dy, const float* dld, const float* hz, c
 using bf16_t = __nv_bfloat16;
 
 // the stream layout is built for the widths where the other layouts
-// overflow at n_hidden <= 4 (H = 32 and 64 fit them)
+// overflow at n_hidden <= 4 (H = 32 and 64 fit them); in bf16 the mma and
+// cluster layouts take every such shape but H=256 with n_hidden 4, so the
+// bf16 stream layout has only the H=256 instances
 #define DPFX_DISPATCH_WIDE(H, CALL)                                                     \
   switch (H) {                                                                          \
     case 128: { constexpr int HH = 128; return (int)(CALL); }                           \
     case 256: { constexpr int HH = 256; return (int)(CALL); }                           \
     default: return (int)cudaErrorInvalidValue;                                         \
   }
+
+#define DPFX_DISPATCH_CLUSTER(H, NH1, CALL)                                             \
+  if (H == 128 && NH1 == 2) { constexpr int HH = 128, NN = 2; return (int)(CALL); }     \
+  if (H == 128 && NH1 == 3) { constexpr int HH = 128, NN = 3; return (int)(CALL); }     \
+  if (H == 256 && NH1 == 1) { constexpr int HH = 256, NN = 1; return (int)(CALL); }     \
+  if (H == 256 && NH1 == 2) { constexpr int HH = 256, NN = 2; return (int)(CALL); }     \
+  return (int)cudaErrorInvalidValue;
 
 #define DPFX_DISPATCH(H, CALL)                                                          \
   switch (H) {                                                                          \
@@ -1186,8 +1200,9 @@ int dpfx_fused_train_stream_fwd(const float* xt, const float* hz, float* u, floa
   if (B <= 0 || N <= 0 || K <= 0 || NH1 < 0 || B > 65535) return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (bf16) {
-    DPFX_DISPATCH_WIDE(H, (launch_fwd_stream<bf16_t, HH>(xt, hz, u, ld_part, wx, wh, bh, wout, bout,
-                                                    masks, B, N, K, NH1, cap, s)))
+    if (H != 256) return (int)cudaErrorInvalidValue;
+    return (int)launch_fwd_stream<bf16_t, 256>(xt, hz, u, ld_part, wx, wh, bh, wout, bout, masks,
+                                               B, N, K, NH1, cap, s);
   }
   DPFX_DISPATCH_WIDE(H, (launch_fwd_stream<float, HH>(xt, hz, u, ld_part, wx, wh, bh, wout, bout,
                                                  masks, B, N, K, NH1, cap, s)))
@@ -1202,13 +1217,65 @@ int dpfx_fused_train_stream_bwd(float* y, float* dy, const float* dld, const flo
   if (B <= 0 || N <= 0 || K <= 0 || NH1 < 0 || blocks <= 0) return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (bf16) {
-    DPFX_DISPATCH_WIDE(H, (launch_bwd_stream<bf16_t, HH>(y, dy, dld, hz, wx, wh, bh, wout, bout, masks,
-                                                    part, dhz_part, wacc, dw, dhz, B, N, K, NH1,
-                                                    cap, blocks, s)))
+    if (H != 256) return (int)cudaErrorInvalidValue;
+    return (int)launch_bwd_stream<bf16_t, 256>(y, dy, dld, hz, wx, wh, bh, wout, bout, masks, part,
+                                               dhz_part, wacc, dw, dhz, B, N, K, NH1, cap, blocks,
+                                               s);
   }
   DPFX_DISPATCH_WIDE(H, (launch_bwd_stream<float, HH>(y, dy, dld, hz, wx, wh, bh, wout, bout, masks,
                                                  part, dhz_part, wacc, dw, dhz, B, N, K, NH1,
                                                  cap, blocks, s)))
+}
+
+// The cluster layout (flow_cluster.cuh): points per tile and shared memory
+// of one CTA (for any shape: a plan past the limit reports its size), and
+// the two launches on `clusters` clusters of H / 64 CTAs. fwd's carry is
+// [H / 64, B, 4, N] f32 scratch and ld_part [B, ceil(N / T)]; bwd's carry
+// [H / 64, B, 9, N], part [clusters, K, per_layer], dhz_part [B, ceil(N /
+// T), K, H]; bwd reads u, du and writes y (the rebuilt input) and dx. fwd
+// takes at most one cluster per group of 4 tiles.
+int dpfx_fused_train_cluster_tile_points(int H, int NH1, int backward) {
+  return cluster_plan(H, NH1, backward != 0).T;
+}
+
+int dpfx_fused_train_cluster_smem_bytes(int H, int NH1, int backward) {
+  return cluster_plan(H, NH1, backward != 0).total;
+}
+
+// clusters of the persistent grid that the card holds at once (the
+// forward takes at most this many, the backward's part has one slice each)
+int dpfx_fused_train_cluster_grid(int H, int NH1, int backward) {
+  DPFX_DISPATCH_CLUSTER(H, NH1, (cluster_grid<HH, NN>(backward != 0)))
+}
+
+int dpfx_fused_train_cluster_fwd(const float* xt, const float* hz, float* u, float* ld_part,
+                                 float* carry, const void* wx, const void* wh, const float* bh,
+                                 const void* wout, const float* bout, const float* masks, int B,
+                                 int N, int K, int H, int NH1, float cap, int clusters,
+                                 void* stream) {
+  if (B <= 0 || N <= 0 || K <= 0 || clusters <= 0) return (int)cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  DPFX_DISPATCH_CLUSTER(H, NH1, (launch_fwd_cluster<HH, NN>(xt, hz, u, ld_part, carry, wx, wh, bh,
+                                                            wout, bout, masks, B, N, K, cap,
+                                                            clusters, s)))
+}
+
+int dpfx_fused_train_cluster_bwd(const float* u, const float* du, float* y, float* dx,
+                                 float* carry, const float* dld, const float* hz, const void* wx,
+                                 const void* wh, const float* bh, const void* wout,
+                                 const float* bout, const float* masks, float* part,
+                                 float* dhz_part, float* dw, float* dhz, int B, int N, int K,
+                                 int H, int NH1, float cap, int clusters, void* stream) {
+  if (B <= 0 || N <= 0 || K <= 0 || clusters <= 0) return (int)cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  DPFX_DISPATCH_CLUSTER(H, NH1, (launch_bwd_cluster<HH, NN>(u, du, y, dx, carry, dld, hz, wx, wh,
+                                                            bh, wout, bout, masks, part, dhz_part,
+                                                            dw, dhz, B, N, K, cap, clusters, s)))
+}
+
+// the CUDA runtime's text for an error a launch returned
+const char* dpfx_fused_train_error_string(int e) {
+  return cudaGetErrorString(static_cast<cudaError_t>(e));
 }
 
 int dpfx_fused_train_fwd(const float* xt, const float* hz, float* u, float* ld_part,

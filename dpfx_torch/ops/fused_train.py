@@ -22,7 +22,14 @@ and sums bias and ``hz`` gradients in float32.
 
 Every wrapper takes its plain PyTorch version for a tensor on the CPU and
 launches the kernels for a CUDA tensor (or raises). ``launches`` counts the
-kernel launches of each wrapper.
+kernel launches of each wrapper, ``layout_launches`` the same by layout.
+
+Layouts, chosen from the shapes for the forward and the backward together
+(``_layout``): the mma layout (bf16) or the block-wide one (f32) where a
+block holds the shape; else, in bf16, the cluster layout
+(``csrc/flow_cluster.cuh``: one layer split across a thread-block cluster
+of H / 64 CTAs) where its plan fits (``uses_cluster``); else the stream
+layout (f32, and bf16 at H=256 with n_hidden 4).
 """
 
 from __future__ import annotations
@@ -30,7 +37,7 @@ from __future__ import annotations
 import ctypes
 import functools
 import math
-from typing import Dict, List, Optional, Tuple
+from typing import Dict, List, Tuple
 
 import torch
 
@@ -48,16 +55,23 @@ Tensor = torch.Tensor
 
 # kernel launches per wrapper; chip_smoke.py zeroes these around the main path
 launches: Dict[str, int] = {"fused_train_fwd": 0, "fused_train_bwd": 0}
+# the same launches by the layout that ran them ("parent": mma or block-wide)
+layout_launches: Dict[str, int] = {f"{lay}_{d}": 0 for lay in ("parent", "cluster", "stream")
+                                   for d in ("fwd", "bwd")}
 
 
 def reset_launch_counts() -> None:
-    for k in launches:
-        launches[k] = 0
+    for counts in (launches, layout_launches):
+        for k in counts:
+            counts[k] = 0
 
 
 MAX_HIDDEN = KERNEL_HIDDEN[-1]
 MAX_N_HIDDEN = 4       # conditioner depths every width takes
-STREAM_HIDDEN = (128, 256)   # widths the stream layout is built for
+# widths the stream layout is built for (f32; bf16 at H=256 only: the
+# mma and cluster layouts take every bf16 shape at H=128)
+STREAM_HIDDEN = (128, 256)
+CLUSTER_COLUMNS = 64   # hidden columns each CTA of a cluster owns
 # deeper conditioners where the mma (bf16) or block-wide (f32) layouts hold
 # the forward and the backward: the deepest n_hidden they take at each
 # kernel width, by the library's smem_bytes (the card test
@@ -194,6 +208,39 @@ def _lib() -> ctypes.CDLL:
 
 
 @functools.lru_cache(maxsize=None)
+def _cluster_lib() -> ctypes.CDLL:
+    """The cluster layout's entry points (``csrc/flow_cluster.cuh``)."""
+    lib = _lib()
+    p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    lib.dpfx_fused_train_cluster_fwd.argtypes = [
+        p, p, p, p, p,                # xt, hz, u, ld partials [B, ntiles], carry [C, B, 4, N]
+        p, p, p, p, p, p,             # wx, wh, bh, wout, bout, masks
+        i, i, i, i, i, f, i, p,       # B, N, K, H, n_hidden-1, cap, clusters, stream
+    ]
+    lib.dpfx_fused_train_cluster_bwd.argtypes = [
+        p, p, p, p, p,                # u, du, y out, dx out, carry [C, B, 9, N]
+        p, p,                         # dld, hz
+        p, p, p, p, p, p,             # wx, wh, bh, wout, bout, masks
+        p, p, p, p,                   # partials, dhz partials, dw out, dhz out
+        i, i, i, i, i, f, i, p,       # B, N, K, H, n_hidden-1, cap, clusters, stream
+    ]
+    lib.dpfx_fused_train_cluster_smem_bytes.argtypes = [i, i, i]
+    lib.dpfx_fused_train_cluster_tile_points.argtypes = [i, i, i]
+    lib.dpfx_fused_train_cluster_grid.argtypes = [i, i, i]
+    for fn in (lib.dpfx_fused_train_cluster_fwd, lib.dpfx_fused_train_cluster_bwd,
+               lib.dpfx_fused_train_cluster_smem_bytes, lib.dpfx_fused_train_cluster_tile_points,
+               lib.dpfx_fused_train_cluster_grid):
+        fn.restype = ctypes.c_int
+    lib.dpfx_fused_train_error_string.argtypes = [i]
+    lib.dpfx_fused_train_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+def _error_text(err: int) -> str:
+    return _cluster_lib().dpfx_fused_train_error_string(err).decode()
+
+
+@functools.lru_cache(maxsize=None)
 def _stream_lib() -> ctypes.CDLL:
     """The stream layout's entry points (a library built before it has
     none: the flagship's path never asks for them)."""
@@ -215,22 +262,39 @@ def _stream_lib() -> ctypes.CDLL:
 
 
 def uses_stream(hidden: int, n_hidden_m1: int, dtype: torch.dtype) -> bool:
-    """The layout, chosen from the shapes for the forward and the backward
-    together: the stream layout where the mma (bf16) or block-wide (f32)
-    layout of either overflows a block's shared memory, so that the
-    backward's recompute is the forward's arithmetic; else those, whose
-    instances are the same as before the stream layout existed."""
+    """Whether the mma (bf16) or block-wide (f32) layout of the forward or
+    the backward overflows a block's shared memory (the layout is chosen
+    for both together, so that the backward's recompute is the forward's
+    arithmetic): then the cluster layout takes the shape where it is built
+    for it (``uses_cluster``), else the stream layout."""
     return any(smem_bytes(hidden, n_hidden_m1, dtype, bwd) > SMEM_LIMIT for bwd in (False, True))
 
 
-def _tiles(n: int, dtype: torch.dtype, backward: bool,
-           stream: Optional[Tuple[int, int]] = None) -> int:
+def uses_cluster(hidden: int, n_hidden_m1: int, dtype: torch.dtype) -> bool:
+    """The cluster layout: the bf16 shapes at H = 128 and 256 with n_hidden
+    <= ``MAX_N_HIDDEN`` that ``uses_stream`` sends past the mma layout and
+    whose cluster plan fits a block forward and backward, by the library's
+    ``dpfx_fused_train_cluster_smem_bytes`` (H=128 with n_hidden 3-4, H=256
+    with n_hidden 2-3)."""
+    if (dtype != torch.bfloat16 or hidden not in STREAM_HIDDEN
+            or n_hidden_m1 >= MAX_N_HIDDEN or not uses_stream(hidden, n_hidden_m1, dtype)):
+        return False
+    need = _cluster_lib().dpfx_fused_train_cluster_smem_bytes
+    return all(need(hidden, n_hidden_m1, bwd) <= SMEM_LIMIT for bwd in (0, 1))
+
+
+def _tiles(n: int, dtype: torch.dtype, backward: bool, layout: str,
+           shape: Tuple[int, int]) -> int:
     """Tiles of a cloud of n points, at the kernel library's points per
-    forward block or per backward tile (``stream``: (H, n_hidden-1) of the
-    stream layout)."""
-    bf = int(dtype == torch.bfloat16)
-    t = (_stream_lib().dpfx_fused_train_stream_tile_points(*stream, bf, int(backward)) if stream
-         else _lib().dpfx_fused_train_tile_points(bf, int(backward)))
+    forward block or per backward tile of ``layout`` (``_layout``'s names;
+    ``shape`` is (H, n_hidden-1))."""
+    bf, bw = int(dtype == torch.bfloat16), int(backward)
+    if layout == "stream":
+        t = _stream_lib().dpfx_fused_train_stream_tile_points(*shape, bf, bw)
+    elif layout == "cluster":
+        t = _cluster_lib().dpfx_fused_train_cluster_tile_points(*shape, bw)
+    else:
+        t = _lib().dpfx_fused_train_tile_points(bf, bw)
     return (n + t - 1) // t
 
 
@@ -257,21 +321,25 @@ def _check(wx: Tensor, dtype: torch.dtype, tensors: Dict[str, Tensor]) -> None:
             raise ValueError(f"{name} must be a contiguous float32 tensor")
 
 
-def _check_smem(h: int, nh1: int, dtype: torch.dtype, backward: bool) -> bool:
-    """Raise where no layout fits; returns whether the stream layout runs."""
+def _layout(h: int, nh1: int, dtype: torch.dtype, backward: bool) -> str:
+    """The layout that runs ("parent": mma or block-wide, "cluster",
+    "stream"); raises where none fits."""
     if not uses_stream(h, nh1, dtype):
-        return False
-    if h not in STREAM_HIDDEN:
+        return "parent"
+    if uses_cluster(h, nh1, dtype):
+        return "cluster"
+    widths = STREAM_HIDDEN if dtype == torch.float32 else STREAM_HIDDEN[-1:]
+    if h not in widths:
         raise ValueError(f"hidden={h}, n_hidden={nh1 + 1} in {dtype} overflows the shared memory "
-                         f"of the mma and block-wide layouts, and the stream layout is built "
-                         f"for hidden in {STREAM_HIDDEN}")
+                         f"of the mma and block-wide layouts and is not a shape of the cluster "
+                         f"layout, and the stream layout is built for hidden in {widths}")
     need = _stream_lib().dpfx_fused_train_stream_smem_bytes(h, nh1, int(dtype == torch.bfloat16),
                                                             int(backward))
     if need > SMEM_LIMIT:
         raise ValueError(f"hidden={h}, n_hidden={nh1 + 1} in {dtype} needs {need} B of shared "
                          f"memory in the stream layout, more than the {SMEM_LIMIT} B a block "
                          f"may use")
-    return True
+    return "stream"
 
 
 def _weights(wx, wh, wout, dtype):
@@ -283,28 +351,51 @@ def _sm_count(dev: torch.device) -> int:
     return torch.cuda.get_device_properties(dev).multi_processor_count
 
 
+@functools.lru_cache(maxsize=None)
+def _cluster_grid(h: int, nh1: int, backward: bool, device_index: int) -> int:
+    """Clusters of the cluster layout's persistent grid: as many as the card
+    holds at once (a second wave would double the time)."""
+    with torch.cuda.device(device_index):
+        n = _cluster_lib().dpfx_fused_train_cluster_grid(h, nh1, int(backward))
+    if n <= 0:
+        raise RuntimeError(f"the card holds no cluster of the fused train "
+                           f"{'backward' if backward else 'forward'} at hidden={h}, "
+                           f"n_hidden={nh1 + 1}")
+    return n
+
+
 def fused_forward_kernel(wx, wh, bh, wout, bout, masks, cap, xt, hz, dtype):
     """The forward kernel: same contract as ``fused_forward_plain``."""
     k, h, _ = wx.shape
     nh1 = wh.shape[1]
     b, _, n = xt.shape
     _check(wx, dtype, dict(wx=wx, wh=wh, bh=bh, wout=wout, bout=bout, masks=masks, xt=xt, hz=hz))
-    wide = _check_smem(h, nh1, dtype, backward=False)
+    layout = _layout(h, nh1, dtype, backward=False)
     u = torch.empty_like(xt)
-    ld_part = torch.empty((b, _tiles(n, dtype, False, (h, nh1) if wide else None)),
-                          device=xt.device, dtype=torch.float32)
+    nt = _tiles(n, dtype, False, layout, (h, nh1))
+    ld_part = torch.empty((b, nt), device=xt.device, dtype=torch.float32)
     cwx, cwh, cwout = _weights(wx, wh, wout, dtype)
     stream = torch.cuda.current_stream(xt.device).cuda_stream
-    fwd = _stream_lib().dpfx_fused_train_stream_fwd if wide else _lib().dpfx_fused_train_fwd
+    weights = [cwx.data_ptr(), cwh.data_ptr() if nh1 else None, bh.data_ptr() if nh1 else None,
+               cwout.data_ptr(), bout.data_ptr(), masks.data_ptr()]
     with torch.cuda.device(xt.device):
-        err = fwd(
-            xt.data_ptr(), hz.data_ptr(), u.data_ptr(), ld_part.data_ptr(),
-            cwx.data_ptr(), cwh.data_ptr() if nh1 else None, bh.data_ptr() if nh1 else None,
-            cwout.data_ptr(), bout.data_ptr(), masks.data_ptr(),
-            b, n, k, h, nh1, float(cap), int(dtype == torch.bfloat16), stream)
+        if layout == "cluster":
+            carry = torch.empty((h // CLUSTER_COLUMNS, b, 4, n), device=xt.device,
+                                dtype=torch.float32)
+            err = _cluster_lib().dpfx_fused_train_cluster_fwd(
+                xt.data_ptr(), hz.data_ptr(), u.data_ptr(), ld_part.data_ptr(), carry.data_ptr(),
+                *weights, b, n, k, h, nh1, float(cap),
+                _cluster_grid(h, nh1, False, xt.device.index or 0), stream)
+        else:
+            fwd = (_stream_lib().dpfx_fused_train_stream_fwd if layout == "stream"
+                   else _lib().dpfx_fused_train_fwd)
+            err = fwd(xt.data_ptr(), hz.data_ptr(), u.data_ptr(), ld_part.data_ptr(), *weights,
+                      b, n, k, h, nh1, float(cap), int(dtype == torch.bfloat16), stream)
     if err != 0:
-        raise RuntimeError(f"fused train forward kernel launch failed: cudaError {err}")
+        what = f" ({_error_text(err)})" if layout == "cluster" else ""
+        raise RuntimeError(f"fused train forward kernel launch failed: cudaError {err}{what}")
     launches["fused_train_fwd"] += 1
+    layout_launches[f"{layout}_fwd"] += 1
     return u, ld_part.sum(1)
 
 
@@ -317,33 +408,45 @@ def _backward_call(wx, wh, bh, wout, bout, masks, cap, u, hz, du, dld, dtype):
     b, _, n = u.shape
     _check(wx, dtype, dict(wx=wx, wh=wh, bh=bh, wout=wout, bout=bout, masks=masks, u=u, hz=hz,
                            du=du, dld=dld))
-    wide = _check_smem(h, nh1, dtype, backward=True)
-    nt = _tiles(n, dtype, True, (h, nh1) if wide else None)
-    blocks = min(b * nt, _sm_count(u.device))
-    per_layer = 3 * h + nh1 * h * h + nh1 * h + 6 * h + 6
+    layout = _layout(h, nh1, dtype, backward=True)
+    nt = _tiles(n, dtype, True, layout, (h, nh1))
     dev = u.device
-    y, dx = u.clone(), du.clone()
+    blocks = min(b * nt, _cluster_grid(h, nh1, True, dev.index or 0) if layout == "cluster"
+                 else _sm_count(dev))
+    per_layer = 3 * h + nh1 * h * h + nh1 * h + 6 * h + 6
     part = torch.empty((blocks, k, per_layer), device=dev, dtype=torch.float32)
     dhz_part = torch.empty((b, nt, k, h), device=dev, dtype=torch.float32)
     dw = torch.empty((k, per_layer), device=dev, dtype=torch.float32)
     dhz = torch.empty((b, k, h), device=dev, dtype=torch.float32)
-    # the stream layout's per-block dWh sums (L2-resident scratch)
-    wacc = torch.empty((blocks, nh1, h, h), device=dev, dtype=torch.float32) if wide else None
     cwx, cwh, cwout = _weights(wx, wh, wout, dtype)
     stream = torch.cuda.current_stream(dev).cuda_stream
-    ptrs = [y.data_ptr(), dx.data_ptr(), dld.data_ptr(), hz.data_ptr(),
-            cwx.data_ptr(), cwh.data_ptr() if nh1 else None, bh.data_ptr() if nh1 else None,
-            cwout.data_ptr(), bout.data_ptr(), masks.data_ptr(),
-            part.data_ptr(), dhz_part.data_ptr()]
-    if wide:
-        ptrs.append(wacc.data_ptr() if nh1 else None)
-    bwd = _stream_lib().dpfx_fused_train_stream_bwd if wide else _lib().dpfx_fused_train_bwd
+    weights = [cwx.data_ptr(), cwh.data_ptr() if nh1 else None, bh.data_ptr() if nh1 else None,
+               cwout.data_ptr(), bout.data_ptr(), masks.data_ptr()]
     with torch.cuda.device(dev):
-        err = bwd(*ptrs, dw.data_ptr(), dhz.data_ptr(),
-                  b, n, k, h, nh1, float(cap), int(dtype == torch.bfloat16), blocks, stream)
+        if layout == "cluster":
+            y, dx = torch.empty_like(u), torch.empty_like(du)
+            carry = torch.empty((h // CLUSTER_COLUMNS, b, 9, n), device=dev, dtype=torch.float32)
+            err = _cluster_lib().dpfx_fused_train_cluster_bwd(
+                u.data_ptr(), du.data_ptr(), y.data_ptr(), dx.data_ptr(), carry.data_ptr(),
+                dld.data_ptr(), hz.data_ptr(), *weights, part.data_ptr(), dhz_part.data_ptr(),
+                dw.data_ptr(), dhz.data_ptr(), b, n, k, h, nh1, float(cap), blocks, stream)
+        else:
+            y, dx = u.clone(), du.clone()
+            ptrs = [y.data_ptr(), dx.data_ptr(), dld.data_ptr(), hz.data_ptr(), *weights,
+                    part.data_ptr(), dhz_part.data_ptr()]
+            if layout == "stream":
+                # the stream layout's per-block dWh sums (L2-resident scratch)
+                wacc = torch.empty((blocks, nh1, h, h), device=dev, dtype=torch.float32)
+                ptrs.append(wacc.data_ptr() if nh1 else None)
+            bwd = (_stream_lib().dpfx_fused_train_stream_bwd if layout == "stream"
+                   else _lib().dpfx_fused_train_bwd)
+            err = bwd(*ptrs, dw.data_ptr(), dhz.data_ptr(),
+                      b, n, k, h, nh1, float(cap), int(dtype == torch.bfloat16), blocks, stream)
     if err != 0:
-        raise RuntimeError(f"fused train backward kernel launch failed: cudaError {err}")
+        what = f" ({_error_text(err)})" if layout == "cluster" else ""
+        raise RuntimeError(f"fused train backward kernel launch failed: cudaError {err}{what}")
     launches["fused_train_bwd"] += 1
+    layout_launches[f"{layout}_bwd"] += 1
     return y, dx, dw, dhz
 
 

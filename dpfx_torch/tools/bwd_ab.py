@@ -3,7 +3,7 @@ checkout's, on the card: the SASS of one kernel from both builds compared
 line by line, and the kernel's wrapper timed in turns.
 
     python -m dpfx_torch.tools.bwd_ab PARENT [--library fused_train|fused_sampler]
-        [--kernel NAME] [--turns 8] [--out DIR]
+        [--kernel NAME] [--turns 8] [--out DIR] [--hidden H [--n-hidden L]]
 
 PARENT is the root of another checkout (``git archive <commit> | tar -x -C
 <dir>``). Both ``csrc/<library>.cu`` are built with the flags of
@@ -18,6 +18,20 @@ bits: for ``fused_train`` (kernel by default ``bwd_kernel_mma<128>``)
 ``fused_sample_points`` at the same shape in f32 (random weights from a
 seed). The last line gives each build's times (CUDA events, 10 calls a
 turn) and their medians. ``--out`` keeps both disassemblies of the kernel.
+
+With ``--hidden H`` (``fused_train``; ``--n-hidden``, default 2) both
+``fused_forward_kernel`` and ``fused_backward_kernel`` run at B=64, N=2048,
+K=32 on a point flow of that width (seeded random weights, scaled by
+sqrt(128 / H)), each build on the layout this tree's wrapper takes with
+it: the cluster layout where the build has it, else (a parent built
+before the cluster layout) the layout that parent's wrapper took, the
+stream layout wherever a block overflows.
+Where the two layouts are the same the bits must be too; where they
+differ, each build's outputs are held to the plain versions at the bf16
+limits of chip_smoke.py's phase 2 (u: max 5e-2 and p99.9 2e-3 absolute,
+log-det and gradients 2e-2 of their norms) and each must repeat its own
+bits from call to call. The kernel disassembled is then the tree's
+layout's backward, its SASS compared only where both builds have it.
 """
 
 from __future__ import annotations
@@ -101,8 +115,6 @@ def _build_both(parent: Path, kernel: str, library: str):
               f"{ptxas_of(log, kernel)}", flush=True)
         sass[name] = kernel_sass(subprocess.run([tool, "-sass", str(so)], capture_output=True,
                                                 text=True, check=True).stdout, kernel)
-        if not sass[name]:
-            raise RuntimeError(f"no function matching {kernel!r} in the {name}'s build")
         libs[name] = ctypes.CDLL(str(so))
     return libs, sass
 
@@ -115,7 +127,12 @@ def main(argv=None) -> int:
                                      "library's in KERNELS)")
     ap.add_argument("--turns", type=int, default=8)
     ap.add_argument("--out", type=Path, help="a directory for both disassemblies")
+    ap.add_argument("--hidden", type=int, help="time the forward and the backward at this "
+                                               "point-flow width (fused_train)")
+    ap.add_argument("--n-hidden", type=int, default=2)
     a = ap.parse_args(argv)
+    if a.hidden and a.library != "fused_train":
+        ap.error("--hidden times fused_train")
     kernel = a.kernel or KERNELS[a.library]
 
     import torch
@@ -132,14 +149,27 @@ def main(argv=None) -> int:
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                           capture_output=True, text=True).stdout.strip()
     print(card, flush=True)
+    if a.hidden and not a.kernel:
+        kernel = _layout_kernel(ft, fs.kernel_hidden(a.hidden), a.n_hidden - 1)
     libs, sass = _build_both(a.parent, kernel, a.library)
     if a.out:
         a.out.mkdir(parents=True, exist_ok=True)
         for name, text in sass.items():
             (a.out / f"{name}.sass").write_text(text)
-    pn, tn = normalized(sass["parent"]), normalized(sass["tree"])
-    print(f"{kernel}: {len(pn)} and {len(tn)} instructions (branch targets aside), "
-          f"{differing(pn, tn)} lines differ", flush=True)
+    missing = [n for n, text in sass.items() if not text]
+    if missing and not a.hidden:
+        print(f"no function matching {kernel!r} in the {' and '.join(missing)}'s build",
+              file=sys.stderr)
+        return 1
+    if missing:
+        print(f"{kernel}: not in the {' and '.join(missing)}'s build, SASS not compared",
+              flush=True)
+    else:
+        pn, tn = normalized(sass["parent"]), normalized(sass["tree"])
+        print(f"{kernel}: {len(pn)} and {len(tn)} instructions (branch targets aside), "
+              f"{differing(pn, tn)} lines differ", flush=True)
+    if a.hidden:
+        return _ab_width(a, libs, card)
 
     dev, bf = torch.device("cuda"), torch.bfloat16
     g = torch.Generator(device=dev).manual_seed(3)
@@ -189,6 +219,117 @@ def main(argv=None) -> int:
     medians = {n: round(statistics.median(t), 4) for n, t in times.items()}
     print(f"{what} ms in turns ({card}): {json.dumps(times)}; medians {json.dumps(medians)}; "
           "same bits")
+    return 0
+
+
+def _layout_kernel(ft, h: int, nh1: int) -> str:
+    """The mangled-name part of the tree's bf16 backward at (h, nh1)."""
+    import torch
+
+    if ft.uses_cluster(h, nh1, torch.bfloat16):
+        return f"bwd_clusterILi{h}ELi{nh1}E"
+    if ft.uses_stream(h, nh1, torch.bfloat16):
+        return f"bwd_streamI13__nv_bfloat16Li{h}E"
+    return f"bwd_kernel_mmaILi{h}E"
+
+
+def _ab_width(a, libs, card: str) -> int:
+    """--hidden: the forward and the backward of both builds in turns."""
+    import torch
+
+    from dpfx_torch.compat import randomize_
+    from dpfx_torch.models.coupling import CouplingFlow
+    from dpfx_torch.ops import _build
+    from dpfx_torch.ops import fused_sampler as fs
+    from dpfx_torch.ops import fused_train as ft
+
+    dev, bf, k, b, n = torch.device("cuda"), torch.bfloat16, 32, 64, 2048
+    kh = fs.kernel_hidden(a.hidden)
+    torch.manual_seed(3)
+    flow = randomize_(CouplingFlow(3, k, a.hidden, a.n_hidden, cond_dim=128, scale_cap=3.0), 3,
+                      0.02 * (128 / kh) ** 0.5)
+    with torch.no_grad():
+        sp = fs.stack_point_flow_params(flow.to(dev))
+    nh1 = sp.wh.shape[1]
+    w = (sp.wx, sp.wh, sp.bh, sp.wout, sp.bout, sp.masks, sp.scale_cap)
+    g = torch.Generator(device=dev).manual_seed(3)
+    xt = torch.randn((b, 3, n), generator=g, device=dev)
+    hz = fs.z_projection(sp, torch.randn((b, 128), generator=g, device=dev))
+    u_p, ld_p = ft.fused_forward_plain(*w, xt, hz, bf)
+    du = torch.randn(u_p.shape, generator=g, device=dev)
+    dld = torch.randn(ld_p.shape, generator=g, device=dev)
+    plain = (u_p, ld_p, *ft.fused_backward_plain(*w, u_p, hz, du, dld, bf))
+    fwd = lambda: ft.fused_forward_kernel(*w, xt, hz, bf)  # noqa: E731
+    bwd = lambda: ft.fused_backward_kernel(*w, u_p, hz, du, dld, bf)  # noqa: E731
+    layout_of = ft._layout
+    layouts = {"parent": None, "tree": None}
+
+    def before_cluster(h, n_m1, dtype, backward):
+        # a build before the cluster layout: its wrapper took the stream
+        # layout (bf16 at H=128 too) wherever a block overflows
+        return "stream" if ft.uses_stream(h, n_m1, dtype) else "parent"
+
+    def use(name):
+        for fn in (ft._lib, ft._stream_lib, ft._cluster_lib, ft._cluster_grid):
+            fn.cache_clear()
+        _build._loaded["fused_train"] = libs[name]
+        has_cluster = hasattr(libs[name], "dpfx_fused_train_cluster_fwd")
+        ft._layout = layout_of if has_cluster else before_cluster
+        layouts[name] = ft._layout(kh, nh1, bf, True)
+
+    def rel(x, r):
+        return float((x.float() - r.float()).norm() / r.float().norm().clamp_min(1e-12))
+
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    firsts, times = {}, {nm: {"fwd": [], "bwd": []} for nm in libs}
+    order = list(libs)
+    try:
+        for turn in range(a.turns):
+            for name in order if turn % 2 == 0 else order[::-1]:
+                use(name)
+                out = (*fwd(), *bwd())
+                torch.cuda.synchronize()
+                if name not in firsts:
+                    firsts[name] = [t.clone() for t in out]
+                    e = (out[0] - u_p).abs().flatten()
+                    emax = float(e.max())
+                    e999 = float(torch.quantile(e[::max(1, e.numel() // 2**24)], 0.999))
+                    errs = [rel(x, r) for x, r in zip(out[1:], plain[1:]) if r.numel()]
+                    print(f"{name} ({layouts[name]} layout) against the plain versions: u max "
+                          f"{emax:.3e} p99.9 {e999:.3e}; log-det and gradients rel "
+                          + " ".join(f"{v:.2e}" for v in errs), flush=True)
+                    if not (emax <= 5e-2 and e999 <= 2e-3 and max(errs) <= 2e-2
+                            and all(bool(torch.isfinite(t).all()) for t in out)):
+                        print(f"the {name}'s outputs are off the plain versions", file=sys.stderr)
+                        return 1
+                if not all(torch.equal(x, y) for x, y in zip(out, firsts[name])):
+                    print(f"the {name}'s outputs differ from call to call", file=sys.stderr)
+                    return 1
+                for key, fn, calls in (("fwd", fwd, 10), ("bwd", bwd, 5)):
+                    fn()
+                    torch.cuda.synchronize()
+                    start.record()
+                    for _ in range(calls):
+                        fn()
+                    end.record()
+                    torch.cuda.synchronize()
+                    times[name][key].append(round(start.elapsed_time(end) / calls, 4))
+    finally:
+        ft._layout = layout_of
+        for fn in (ft._lib, ft._stream_lib, ft._cluster_lib, ft._cluster_grid):
+            fn.cache_clear()
+        _build._loaded.pop("fused_train", None)
+    same = layouts["parent"] == layouts["tree"]
+    if same and not all(torch.equal(x, y) for x, y in zip(firsts["parent"], firsts["tree"])):
+        print("the two builds differ on the same layout", file=sys.stderr)
+        return 1
+    medians = {nm: {kk: round(statistics.median(v), 4) for kk, v in t.items()}
+               for nm, t in times.items()}
+    print(f"fused_forward_kernel / fused_backward_kernel B={b} N={n} K={k} H={a.hidden}->{kh} "
+          f"n_hidden={a.n_hidden} bf16, layouts {json.dumps(layouts)}, ms in turns ({card}): "
+          f"{json.dumps(times)}; medians {json.dumps(medians)}; "
+          + ("same bits" if same else "each within the plain versions' limits, same bits run to "
+                                      "run"))
     return 0
 
 

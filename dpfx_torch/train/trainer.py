@@ -388,7 +388,8 @@ def _launch_counters() -> List[Dict[str, int]]:
     """The launch counts of the kernels a train step runs."""
     from dpfx_torch.ops import fused_encoder, fused_latent, fused_train
 
-    return [fused_train.launches, fused_encoder.launches, fused_latent.launches]
+    return [fused_train.launches, fused_train.layout_launches, fused_encoder.launches,
+            fused_latent.launches]
 
 
 class MultiStep:

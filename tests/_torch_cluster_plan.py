@@ -1,0 +1,61 @@
+"""A Python copy of the fused_train cluster layout's shared-memory plan
+(``ClusterPlan``, ``cluster_carve`` and ``cluster_plan`` in
+``dpfx_torch/ops/csrc/flow_cluster.cuh``), so that the CPU tests can show
+the layout fits every bf16 shape it takes; the card tests hold it to the
+library's ``dpfx_fused_train_cluster_smem_bytes`` and
+``dpfx_fused_train_cluster_tile_points``, and ``cluster_domain`` to
+``fused_train.uses_cluster``. No JAX: the card tests import it."""
+
+from typing import Tuple
+
+import torch
+
+from dpfx_torch.ops import fused_train as ft
+from dpfx_torch.ops._build import SMEM_LIMIT
+
+HC = 64          # hidden columns a rank owns
+LDO = HC + 8     # row stride of an own-columns tile
+WARPS = 8
+G = 4            # forward: tiles between two (s, t) exchanges
+
+
+def _r(n: int) -> int:
+    return (n + 127) // 128 * 128
+
+
+def cluster_carve(hidden: int, n_hidden_m1: int, backward: bool, t: int, nst: int) -> int:
+    """Bytes of one CTA at tile t with nst weight stages."""
+    h, nh1 = hidden, n_hidden_m1
+    ldh, ldt = h + 8, t + 8
+    stage = nh1 * _r(HC * ldh * 2) + (nh1 * _r(h * LDO * 2) if backward else 0)
+    stage += _r(8 * ldh * 2) + _r(8 * LDO * 2)
+    tx, to, c = _r(t * ldh * 2), _r(t * LDO * 2), h // HC
+    o = (min(nh1, 2) if backward else (2 if nh1 > 1 else 0)) * tx
+    if backward:
+        o += (nh1 + 2) * to + 2 * _r(8 * ldt * 2) + c * _r(t * 6 * 4) + _r(WARPS * HC * 4)
+    else:
+        o += (to if t < 128 else 0) + 2 * G * c * _r(t * 6 * 4) + 128 + _r(G * 4 * t * 4)
+    return o + nst * stage
+
+
+def cluster_plan(hidden: int, n_hidden_m1: int, backward: bool) -> Tuple[int, int, int]:
+    """(points per tile T, weight stages, bytes) of one CTA: the largest T of
+    128, 64, 32, then two stages before one, that fits; past that T = 32
+    with one stage, which does not fit."""
+    for t in (128, 64, 32):
+        for nst in (2, 1):
+            need = cluster_carve(hidden, n_hidden_m1, backward, t, nst)
+            if need <= SMEM_LIMIT:
+                return t, nst, need
+    return 32, 1, cluster_carve(hidden, n_hidden_m1, backward, 32, 1)
+
+
+def cluster_domain(hidden: int, n_hidden_m1: int, dtype: torch.dtype) -> bool:
+    """``fused_train.uses_cluster`` by this plan: bf16 at H = 128 and 256
+    with n_hidden <= MAX_N_HIDDEN, deeper than the mma layout holds
+    (``LAYOUT_N_HIDDEN``), whose plan fits forward and backward."""
+    return (dtype == torch.bfloat16 and hidden in ft.STREAM_HIDDEN
+            and n_hidden_m1 < ft.MAX_N_HIDDEN
+            and n_hidden_m1 + 1 > ft.LAYOUT_N_HIDDEN["bfloat16"][hidden]
+            and all(cluster_plan(hidden, n_hidden_m1, bwd)[2] <= SMEM_LIMIT
+                    for bwd in (False, True)))

@@ -67,3 +67,26 @@ def test_main_without_cuda_exits_nonzero(tmp_path, monkeypatch):
 
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     assert bwd_ab.main([str(tmp_path)]) == 1
+
+
+@pytest.mark.parametrize("hidden,n_hidden,want", [
+    (256, 2, "bwd_clusterILi256ELi1E"), (128, 4, "bwd_clusterILi128ELi3E"),
+    (192, 3, "bwd_clusterILi256ELi2E")])
+def test_width_mode_disassembles_the_cluster_backward(hidden, n_hidden, want, monkeypatch):
+    """--hidden compares the SASS of the backward the tree's wrapper takes
+    at that width and depth: the cluster layout's, by the mangled name
+    ptxas gives it, wherever that layout holds the (padded) shape (the
+    layout's domain by the plan's mirror: ``uses_cluster`` asks the
+    library)."""
+    from _torch_cluster_plan import cluster_domain
+
+    from dpfx_torch.ops import fused_train as ft
+    from dpfx_torch.ops.fused_sampler import kernel_hidden
+
+    monkeypatch.setattr(ft, "uses_cluster", cluster_domain)
+    assert bwd_ab._layout_kernel(ft, kernel_hidden(hidden), n_hidden - 1) == want
+
+
+def test_width_mode_needs_the_fused_train_library(tmp_path):
+    with pytest.raises(SystemExit):
+        bwd_ab.main([str(tmp_path), "--library", "fused_sampler", "--hidden", "256"])

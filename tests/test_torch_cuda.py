@@ -254,11 +254,13 @@ def test_fused_train_bf16_backward_rebuilds_the_forward_input(cuda, hidden, n_hi
     assert torch.equal(rebuilt, xt)
 
 
-@pytest.mark.parametrize("hidden,n_hidden,n", [(128, 5, 200), (256, 2, 130)])
+@pytest.mark.parametrize("hidden,n_hidden,n", [(128, 4, 200), (256, 2, 130), (256, 3, 130)])
 def test_fused_train_bf16_forward_with_one_weight_stage_matches_plain(cuda, hidden, n_hidden, n):
-    """Deeper conditioners than the backward takes: two layers' weights do
-    not fit the forward's shared memory, so it loads each layer's stage
-    between two barriers instead of one layer ahead."""
+    """Forwards whose shared memory holds one layer's weights and not two
+    (the cluster layout at H=128 with n_hidden 4 and at H=256 with
+    n_hidden 3), so they load each layer's stage between two barriers
+    instead of one layer ahead; and H=256 with n_hidden 2, which had one
+    stage before the cluster layout and has two in it."""
     from dpfx_torch.ops import fused_train as ft
     from dpfx_torch.ops.fused_sampler import z_projection
 
@@ -276,8 +278,9 @@ def test_fused_train_bf16_forward_with_one_weight_stage_matches_plain(cuda, hidd
 
 
 # (128, 3) and (256, 2) raised here until the stream layout took them: they
-# are cases of test_fused_train_stream_layout_matches_plain now
-@pytest.mark.parametrize("hidden,n_hidden", [(32, 10), (64, 5)])
+# are cases of test_fused_train_stream_layout_matches_plain now; bf16 H=128
+# past n_hidden 4 has no layout (the training predicate stops at 4)
+@pytest.mark.parametrize("hidden,n_hidden", [(32, 10), (64, 5), (128, 5)])
 def test_fused_train_bf16_backward_beyond_its_shared_memory_raises(cuda, hidden, n_hidden):
     from dpfx_torch.ops import fused_train as ft
 
@@ -289,11 +292,12 @@ def test_fused_train_bf16_backward_beyond_its_shared_memory_raises(cuda, hidden,
         ft.fused_backward_kernel(*w, u, hz, u, torch.zeros(1, device=cuda), torch.bfloat16)
 
 
-# the stream layout (fused_train.uses_stream: the mma or block-wide layout
-# of the forward or the backward overflows shared memory), one shape the
-# parent layouts still take at H=256 (bf16, n_hidden 2: f32 overflows), and
+# the shapes past the mma or block-wide layout of the forward or the
+# backward (fused_train.uses_stream: the cluster layout in bf16 but at
+# H=256 with n_hidden 4, the stream layout in f32), one shape the parent
+# layouts still take at H=256 (bf16, n_hidden 1: f32 overflows), and
 # padded widths (48 -> 64, 96 -> 128: the parent layouts; 192 -> 256: the
-# stream layout); ragged N, N below a tile, one cloud
+# cluster or stream layout); ragged N, N below a tile, one cloud
 STREAM_CASES = [(128, 3, 300, 3), (128, 4, 130, 2), (256, 1, 200, 2), (256, 2, 2000, 1),
                 (256, 3, 77, 2), (256, 4, 300, 1), (48, 3, 200, 2), (96, 2, 130, 2),
                 (192, 2, 200, 2)]
@@ -304,9 +308,9 @@ STREAM_CASES = [(128, 3, 300, 3), (128, 4, 130, 2), (256, 1, 200, 2), (256, 2, 2
 def test_fused_train_stream_layout_matches_plain(cuda, hidden, n_hidden, n, b, dtype):
     """Forward (u, log-det) and backward (every gradient) on the layout the
     wrapper picks, against the plain versions at the limits of
-    test_fused_train_kernels_match_plain; the backward bit-identical from
-    run to run. The layout is the stream one exactly where the others
-    overflow."""
+    test_fused_train_kernels_match_plain (the f32 backward against the
+    plain version run in f64); the backward bit-identical from run to run.
+    The layout is the stream one exactly where the others overflow."""
     from dpfx_torch.ops import fused_train as ft
     from dpfx_torch.ops.fused_sampler import z_projection
 
@@ -327,10 +331,18 @@ def test_fused_train_stream_layout_matches_plain(cuda, hidden, n_hidden, n, b, d
     dld = torch.randn(ld.shape, generator=g, device=cuda)
     got = ft.fused_backward_kernel(*w, u_p, hz, du, dld, dt)
     again = ft.fused_backward_kernel(*w, u_p, hz, du, dld, dt)
-    ref = ft.fused_backward_plain(*w, u_p, hz, du, dld, dt)
+    f32 = dt == torch.float32
+    if f32:
+        # on some weights the plain version's own f32 sums part from its
+        # f64 run by ~1e-3 of a gradient's norm where the kernel's stay
+        # within ~5e-6 of it, so the f32 kernel is held to the f64 run
+        w64 = tuple(t.double() if torch.is_tensor(t) else t for t in w)
+        ref = ft.fused_backward_plain(*w64, u_p.double(), hz.double(), du.double(), dld.double(),
+                                      torch.float64)
+    else:
+        ref = ft.fused_backward_plain(*w, u_p, hz, du, dld, dt)
     torch.cuda.synchronize()
     assert ft.launches == {"fused_train_fwd": 1, "fused_train_bwd": 2}
-    f32 = dt == torch.float32
     torch.testing.assert_close(u, u_p, atol=1e-4 if f32 else 5e-2, rtol=1e-4 if f32 else 2e-2)
     torch.testing.assert_close(ld, ld_p, atol=1e-3 if f32 else 1e-1, rtol=1e-4 if f32 else 2e-2)
     tol = 1e-4 if f32 else 2e-2
@@ -345,10 +357,11 @@ def test_fused_train_stream_layout_matches_plain(cuda, hidden, n_hidden, n, b, d
 @pytest.mark.parametrize("hidden,n_hidden,dtype", [(256, 2, "bfloat16"), (128, 3, "bfloat16"),
                                                    (256, 1, "float32")])
 def test_fused_train_stream_backward_rebuilds_the_forward_input(cuda, hidden, n_hidden, dtype):
-    """The stream layout's forward and its backward's recompute run the same
-    device code with per-element sums that do not depend on the tile, so
-    the rebuilt input is the forward's bit for bit (the construction of
-    test_fused_train_bf16_backward_rebuilds_the_forward_input)."""
+    """The layout past the mma and block-wide ones (the cluster layout in
+    bf16, the stream layout in f32): its forward and its backward's
+    recompute run the same device code with per-element sums that do not
+    depend on the tile, so the rebuilt input is the forward's bit for bit
+    (the construction of test_fused_train_bf16_backward_rebuilds_the_forward_input)."""
     from dpfx_torch.ops import fused_train as ft
     from dpfx_torch.ops.fused_sampler import z_projection
 
@@ -388,6 +401,76 @@ def test_stream_smem_mirror_matches_kernel(cuda):
                     args = (h, nh1, int(bf), int(bwd))
                     assert lib.dpfx_fused_train_stream_smem_bytes(*args) == need, args
                     assert lib.dpfx_fused_train_stream_tile_points(*args) == t, args
+
+
+def test_cluster_plan_mirror_matches_kernel(cuda):
+    """The CPU tests' copy of the cluster layout's plan
+    (tests/_torch_cluster_plan.py) is the library's ClusterPlan: its bytes
+    and points per tile, forward and backward, at every depth of both
+    widths (the shapes it does not take included: their sizes are what
+    keeps them off it); and the mirror's domain is ``uses_cluster`` at
+    every kernel width and depth 1-6 in both dtypes."""
+    from _torch_cluster_plan import cluster_domain, cluster_plan
+
+    from dpfx_torch.ops import fused_train as ft
+
+    lib = ft._cluster_lib()
+    for h in (128, 256):
+        for nh1 in range(1, 5):
+            for bwd in (False, True):
+                t, _, need = cluster_plan(h, nh1, bwd)
+                assert lib.dpfx_fused_train_cluster_smem_bytes(h, nh1, int(bwd)) == need, (h, nh1)
+                assert lib.dpfx_fused_train_cluster_tile_points(h, nh1, int(bwd)) == t, (h, nh1)
+    for h in (32, 64, 128, 256):
+        for nh1 in range(6):
+            for dt in (torch.float32, torch.bfloat16):
+                assert ft.uses_cluster(h, nh1, dt) == cluster_domain(h, nh1, dt), (h, nh1, dt)
+
+
+# the cluster layout's shapes (H, n_hidden), padded widths among them
+# (192 -> 256, 96 -> 128), ragged N and N below a tile
+CLUSTER_CASES = [(128, 3, 300, 3), (128, 4, 130, 2), (256, 2, 2000, 1), (256, 3, 77, 2),
+                 (192, 2, 200, 2), (96, 4, 64, 2)]
+
+
+@pytest.mark.parametrize("hidden,n_hidden,n,b", CLUSTER_CASES)
+def test_fused_train_cluster_matches_plain(cuda, hidden, n_hidden, n, b):
+    """The cluster layout's forward and backward at K=4 against the plain
+    versions at the bf16 limits of test_fused_train_kernels_match_plain;
+    forward and backward bit-identical from run to run; each launch counted
+    once."""
+    from dpfx_torch.ops import fused_train as ft
+    from dpfx_torch.ops.fused_sampler import z_projection
+
+    dt = torch.bfloat16
+    sp = _flow_weights(hidden, n_hidden, cuda, k=4, scale=0.02 * (128 / max(hidden, 128)) ** 0.5)
+    h, nh1 = sp.wx.shape[1], sp.wh.shape[1]
+    assert ft.uses_cluster(h, nh1, dt) and ft._layout(h, nh1, dt, True) == "cluster"
+    w = (sp.wx, sp.wh, sp.bh, sp.wout, sp.bout, sp.masks, sp.scale_cap)
+    g = torch.Generator(device=cuda).manual_seed(9)
+    xt = torch.randn((b, 3, n), generator=g, device=cuda)
+    hz = z_projection(sp, torch.randn((b, 16), generator=g, device=cuda))
+    ft.reset_launch_counts()
+    u, ld = ft.fused_forward_kernel(*w, xt, hz, dt)
+    u2, ld2 = ft.fused_forward_kernel(*w, xt, hz, dt)
+    u_p, ld_p = ft.fused_forward_plain(*w, xt, hz, dt)
+    du = torch.randn(u.shape, generator=g, device=cuda)
+    dld = torch.randn(ld.shape, generator=g, device=cuda)
+    got = ft.fused_backward_kernel(*w, u_p, hz, du, dld, dt)
+    again = ft.fused_backward_kernel(*w, u_p, hz, du, dld, dt)
+    ref = ft.fused_backward_plain(*w, u_p, hz, du, dld, dt)
+    torch.cuda.synchronize()
+    assert ft.launches == {"fused_train_fwd": 2, "fused_train_bwd": 2}
+    assert ft.layout_launches["cluster_fwd"] == 2 and ft.layout_launches["cluster_bwd"] == 2
+    assert sum(ft.layout_launches.values()) == 4
+    assert torch.equal(u, u2) and torch.equal(ld, ld2), "the forward is not bit-identical"
+    torch.testing.assert_close(u, u_p, atol=5e-2, rtol=2e-2)
+    torch.testing.assert_close(ld, ld_p, atol=1e-1, rtol=2e-2)
+    for name, a, r, c in zip(["dx", "dhz", "dwx", "dwh", "dbh", "dwout", "dbout"], got, ref,
+                             again):
+        assert torch.equal(a, c), f"{name} is not bit-identical from run to run"
+        assert bool(torch.isfinite(a).all()), name
+        assert _rel(a, r) <= 2e-2, f"{name}: {_rel(a, r)}"
 
 
 def test_layout_depths_match_the_library(cuda):

@@ -30,6 +30,7 @@ from dpfx_torch.ops import fused_encoder as tfe  # noqa: E402
 from dpfx_torch.ops import fused_latent as tfl  # noqa: E402
 from dpfx_torch.ops import fused_sampler as tfs  # noqa: E402
 from dpfx_torch.ops import fused_train as tft  # noqa: E402
+from _torch_cluster_plan import cluster_domain, cluster_plan  # noqa: E402
 from _torch_stream_layout import stream_smem  # noqa: E402
 
 
@@ -289,8 +290,9 @@ def test_point_flow_domain_passes_the_shape_checks(hidden, n_hidden, dtype):
     layouts hold (9, 4, 2, 1 in bf16 and 17, 5, 2, 0 in f32 at H = 32, 64,
     128, 256); on every accepted shape the padded width is one the kernels
     are built for, the sampler's shared memory (its mirror) fits in every
-    mode, and at n_hidden 1-4 at 128 and 256 the stream layout's (its
-    mirror) fits."""
+    mode, and at n_hidden 1-4 at 128 and 256 the layout the wrappers take
+    past the mma and block-wide ones fits: the cluster layout's plan (its
+    mirror) for the bf16 shapes it takes, else the stream layout's."""
     cfg = _Cfg(hidden=hidden, n_hidden=n_hidden, compute_dtype=dtype)
     ok = tft.fused_train_supported(cfg)
     deepest = dict(zip(tfs.KERNEL_HIDDEN, (9, 4, 2, 1) if dtype == "bfloat16" else (17, 5, 2, 0)))
@@ -303,8 +305,12 @@ def test_point_flow_domain_passes_the_shape_checks(hidden, n_hidden, dtype):
         assert tfs.smem_bytes(h, dt, nh1, int8) <= tfs.SMEM_LIMIT
     if h in tft.STREAM_HIDDEN and n_hidden <= 4:
         for backward in (False, True):
-            t, nc, need = stream_smem(h, nh1, dtype == "bfloat16", backward)
-            assert need <= tfs.SMEM_LIMIT and h % nc == 0 and t % 16 == 0
+            if cluster_domain(h, nh1, dt):
+                t, _, need = cluster_plan(h, nh1, backward)
+                assert need <= tfs.SMEM_LIMIT and t in (32, 64, 128)
+            else:
+                t, nc, need = stream_smem(h, nh1, dtype == "bfloat16", backward)
+                assert need <= tfs.SMEM_LIMIT and h % nc == 0 and t % 16 == 0
 
 
 @settings(max_examples=60, deadline=None)
