@@ -215,7 +215,8 @@ phase 3j's ranks, which the script starts itself):
      is ill-conditioned on these flows, to an f64 run of the plain version
      as phase 3f holds its f32 kernels, with a TF32 control), twice
      bit-identical; the sampler's f32 layout at H=256 (n_hidden 1-4) and
-     the padded widths 96 and 192 in both dtypes, the int8 f32 mode equal
+     the padded widths 96 and 192 in both dtypes (bf16 relu at H=256 on
+     the cluster inverse), the int8 f32 mode equal
      to the dequantized stacks; the latent flow at dz=24 (padded to 32)
      through the kernels and fused_latent_inverse; the encoder at point
      widths (120, 200), padded to (128, 208), against the plain versions
@@ -224,8 +225,15 @@ phase 3j's ranks, which the script starts itself):
      resident call, launches counted, every loss finite), its step against
      the module path (TOL_STEP_LOSS, TOL_STEP_GNORM), its replayed step
      timed in turns with phase 3b's, make_sampler(64, 2048) and
-     `evaluate --limit 64` on its checkpoint, and the stream layout's
+     `evaluate --limit 64` on its checkpoint (every sampler launch on the
+     cluster inverse, counted by layout), and the cluster layout's
      kernels at B=64 against the plain versions, timed, with their bounds;
+     the round trip fwd_cluster -> inv_cluster on the same hz
+     (TOL_TRIP_MEDIAN, TOL_BF16_MAX), inv_cluster's noise against
+     philox_noise_plain, its time in turns with rows_kernel<256>, and at
+     each shape of the cluster layout (K=32, B=64) the cluster inverse
+     against its plain version and in turns with rows_kernel, the route's
+     choice beside them;
      (b) config #3 (shapenet_airplane_gen.yaml, f32 point flow) at H=256 on
      the synthetic family: the f32 sampler, `evaluate --limit 32`, the
      sampler's kernel at B=64 against the plain version, timed; (c) latcap
@@ -287,6 +295,7 @@ nvidia-smi are waited for).
 
 from __future__ import annotations
 
+import contextlib
 import json
 import math
 import os
@@ -3436,6 +3445,51 @@ def latent_held(name: str, dtype, u, ld, zi, u_p, ld_p, zi_p, got=(), again=(), 
           f"{name} {dtype}: the backward bit-identical from run to run")
 
 
+def fused_latent_sampler(model, b: int, n: int):
+    """make_sampler(model, b, n) with DPFX_SAMPLE_FUSED_LATENT=1: the
+    latent inverse in one kernel."""
+    from dpfx_torch.sampling import make_sampler
+
+    old = os.environ.get("DPFX_SAMPLE_FUSED_LATENT")
+    os.environ["DPFX_SAMPLE_FUSED_LATENT"] = "1"
+    try:
+        return make_sampler(model, b, n)
+    finally:
+        if old is None:
+            os.environ.pop("DPFX_SAMPLE_FUSED_LATENT")
+        else:
+            os.environ["DPFX_SAMPLE_FUSED_LATENT"] = old
+
+
+@contextlib.contextmanager
+def forced_layout(fs, layout: str):
+    """Within the block, the sampler's bf16 relu route takes ``layout``
+    ("cluster" or "rows") wherever the cluster inverse is built for the
+    shape (what ran before it: rows_kernel)."""
+    route = fs.inverse_layout
+
+    def forced(h, nh1, dtype, activation="relu", int8=False):
+        got = route(h, nh1, dtype, activation, int8)
+        built = (h, nh1) in CLUSTER_SHAPES and got != "f32" and activation == "relu" and not int8
+        return layout if built else got
+
+    fs.inverse_layout = forced
+    try:
+        yield
+    finally:
+        fs.inverse_layout = route
+
+
+def inverse_turns(fs, call):
+    """(cluster inverse ms, rows_kernel ms) of ``call`` timed in turns
+    (cluster, rows, rows, cluster; the means of each layout's two)."""
+    ms = {"cluster": [], "rows": []}
+    for lay in ("cluster", "rows", "rows", "cluster"):
+        with forced_layout(fs, lay):
+            ms[lay].append(cuda_ms(call, 5))
+    return sum(ms["cluster"]) / 2, sum(ms["rows"]) / 2
+
+
 def shapes_path(dev, card, x20, h128_replayed):
     """Phase 3l. The kernels at the widths and depths off the flagship's
     grid: every stream layout and one padded width per family against the
@@ -3697,14 +3751,17 @@ def shapes_path(dev, card, x20, h128_replayed):
             for kk, v in train_ptxas(hh, stream=True).items()}
     regs.update(cluster_ptxas())
     f32_regs = sampler_ptxas("f32_kernelIfLi256E")
+    inv_regs = sampler_ptxas("inv_clusterILi256ELi1E")
     check(all("regs" in regs.get(f"fused_train_{kk} bf16 H=256", {}) for kk in ("fwd", "bwd"))
           and all("regs" in regs.get(f"fused_train_{kk} cluster H={hh} n_hidden={nh1 + 1}", {})
                   for kk in ("fwd", "bwd") for hh, nh1 in CLUSTER_SHAPES)
-          and not f32_regs.startswith("None"),
-          f"ptxas reported the new layouts: {regs}, the f32 sampler at H=256 {f32_regs}")
+          and not f32_regs.startswith("None") and not inv_regs.startswith("None"),
+          f"ptxas reported the new layouts: {regs}, the f32 sampler at H=256 {f32_regs}, "
+          f"inv_cluster<256, 1> {inv_regs}")
     print("ptxas of the new layouts: " + "; ".join(
         f"{kk} {v.get('regs')} registers, spilled bytes (stores/loads) {v.get('spill')}"
-        for kk, v in sorted(regs.items())) + f"; fused_sample f32 H=256 {f32_regs}")
+        for kk, v in sorted(regs.items())) + f"; fused_sample f32 H=256 (f32_kernel<float, 256>) "
+        f"{f32_regs}; inv_cluster<256, 1> {inv_regs}")
     t_checks = time.perf_counter() - t_phase
 
     # (a) the flagship with its point flow widened to H=256: the CLI trains
@@ -3797,8 +3854,18 @@ def shapes_path(dev, card, x20, h128_replayed):
           and bool(torch.isfinite(xa).all()), "the H=256 sampler")
     rc, res_a, _, eval_a = run_eval_cli([str(CONFIG), *WIDE, f"train.ckpt_dir={wide_dir}",
                                          "data.synthetic_size=512", "--limit", "64"])
-    bf_sample_launches = fs.launches["fused_sample"]   # the sampler's call and the evaluation's
+    # the sampler's call and the evaluation's, all on the cluster inverse
+    bf_sample_launches = fs.launches["fused_sample"]
+    sample_layouts = dict(fs.layout_launches)
+    check(bf_sample_launches >= 2 and sample_layouts == {"rows": 0, "cluster": bf_sample_launches,
+                                                         "f32": 0},
+          f"H=256: every sampler launch on the cluster inverse: {bf_sample_launches} launches, "
+          f"by layout {sample_layouts}")
     smp_a = cuda_ms(lambda: sampler_a(4), 5)
+    # the same with the latent inverse in one kernel: the module latent flow
+    # (~450 small kernels) is host-bound, and hides the point flow's kernel
+    sampler_af = fused_latent_sampler(model_a, bm, nm)
+    smp_af = cuda_ms(lambda: sampler_af(4), 5)
     check(rc == 0 and res_a["n_test"] == 64 and finite_numbers(res_a),
           f"the H=256 evaluation: {res_a}")
     print(f"(a) flagship at H=256 n_hidden 2 bf16: 10 steps (one resident call) in "
@@ -3806,7 +3873,9 @@ def shapes_path(dev, card, x20, h128_replayed):
           + ", ".join(f"{r['loss']:.1f}" for r in trecs) + "; grad norm "
           + ", ".join(f"{r['grad_norm']:.1f}" for r in trecs)
           + f"; replayed step in turns (ms/step) {json.dumps(step_ms)}; make_sampler({bm}, {nm}) "
-          f"{smp_a:.3f} ms; evaluation --limit 64 in {eval_a:.1f} s: 1-NNA-CD "
+          f"{smp_a:.3f} ms ({smp_af:.3f} with the fused latent inverse); sampler launches by "
+          f"layout (its call and the evaluation's) {json.dumps(sample_layouts)}; evaluation "
+          f"--limit 64 in {eval_a:.1f} s: 1-NNA-CD "
           f"{res_a['1-nna-cd']:.4f}, 1-NNA-EMD {res_a['1-nna-emd']:.4f} ({card})")
 
     # the cluster layout's rows at the main path's shapes (B=64, N=2048, K=32,
@@ -3818,7 +3887,8 @@ def shapes_path(dev, card, x20, h128_replayed):
         sp_a = fs.stack_point_flow_params(flagship_like(WIDE, 1).point_flow)
     tw = (sp_a.wx, sp_a.wh, sp_a.bh, sp_a.wout, sp_a.bout, sp_a.masks, sp_a.scale_cap)
     xt = x20[1].transpose(1, 2).contiguous()
-    hz = fs.z_projection(sp_a, torch.randn((bm, 128), generator=g, device=dev))
+    za = torch.randn((bm, 128), generator=g, device=dev)
+    hz = fs.z_projection(sp_a, za)
     check(ft._layout(256, 1, bf, False) == "cluster", "the main shape runs the cluster layout")
     (u_k, ld_k), fwd2, (u_p, ld_p), du, dld, got, again, ref = train_runs(tw, xt, hz, bf)
     held_to_plain(f"fused_train (cluster layout) B={bm} N={nm} K={sp_a.wx.shape[0]} H=256 "
@@ -3847,24 +3917,68 @@ def shapes_path(dev, card, x20, h128_replayed):
           f"layout in turns (forward, backward ms): {json.dumps(lay_ms)}; cluster {tf_ms:.3f} / "
           f"{tb_ms:.3f} ms = {tf_ms / b_tf:.2f}x / {tb_ms / b_tb:.2f}x the bound ({b_tf:.4f} / "
           f"{b_tb:.4f}); plain {tf_plain:.2f} / {tb_plain:.2f} ({card})")
-    # the bf16 sampler at H=256 (rows_kernel<256>) alone at the main shape,
-    # on the same weights, against its plain version
+    # the round trip: the cluster forward, then the cluster inverse on the
+    # same hz (cl_st_partials on both sides), as phase 2's at H=128
+    back = fs.fused_inverse_transposed(sp_a, u_k, za, dtype=bf)
+    torch.cuda.synchronize()
+    e = (back - xt).abs().flatten()
+    t_med, (t_max, t_999) = float(e.median()), errors(back, xt)
+    print(f"round trip fwd_cluster -> inv_cluster, bf16, B={bm} N={nm} K=32 H=256 n_hidden 2: "
+          f"median {t_med:.3e} p99.9 {t_999:.3e} max {t_max:.3e}, share above 1e-4 "
+          f"{float((e > 1e-4).float().mean()):.2e} (|u - x| max {float((u_k - xt).abs().max()):.2f})")
+    check(t_med <= TOL_TRIP_MEDIAN and t_max <= TOL_BF16_MAX,
+          f"round trip at H=256: median {t_med}, max {t_max}")
+    del back, e
+    # the bf16 sampler at H=256 (inv_cluster<256, 1>) alone at the main
+    # shape, on the same weights, against its plain version, its noise
+    # against philox_noise_plain; timed in turns with rows_kernel<256> on
+    # the same inputs (the route turned to it: what ran before)
     zs = torch.randn((bm, 128), generator=g, device=dev)
+    fs.reset_launch_counts()
     xs_k, us_k = fs.fused_sample_points(sp_a, zs, 11, nm, dtype=bf, return_noise=True)
     xs_k2 = fs.fused_sample_points(sp_a, zs, 11, nm, dtype=bf)
     xs_kp = fs.fused_inverse_transposed_plain(sp_a, us_k.transpose(1, 2).contiguous(),
                                               fs.z_projection(sp_a, zs), bf,
                                               "relu").transpose(1, 2)
     torch.cuda.synchronize()
-    bs_err = held_to_plain(f"fused_sample bf16 B={bm} N={nm} K={sp_a.wx.shape[0]} H=256 n_hidden 2",
-                           bf, (xs_k,), (xs_kp,), fwd_again=(xs_k2,))
-    bs_ms = cuda_ms(lambda: fs.fused_sample_points(sp_a, zs, 12, nm, dtype=bf), 10)
+    check(fs.layout_launches["cluster"] == 2, f"the main shape samples on the cluster inverse: "
+                                              f"{fs.layout_launches}")
+    e_noise = float((us_k - fs.philox_noise_plain(11, bm, nm, device=dev)).abs().max())
+    check(e_noise <= TOL_NOISE, f"the cluster inverse's noise is philox_noise_plain's ({e_noise})")
+    bs_err = held_to_plain(f"fused_sample (inv_cluster) bf16 B={bm} N={nm} K={sp_a.wx.shape[0]} "
+                           "H=256 n_hidden 2", bf, (xs_k,), (xs_kp,), fwd_again=(xs_k2,))
+    bs_ms, rows_ms = inverse_turns(fs, lambda: fs.fused_sample_points(sp_a, zs, 12, nm, dtype=bf))
     bs_plain = cuda_ms(lambda: fs.fused_sample_points_plain(sp_a, fs.z_projection(sp_a, zs), 12,
                                                             nm, bf, "relu"), 2, warmup=1)
     b_bs, by_bs, _ = bound(sp_a, bm, nm, with_ut=False)
-    print(f"fused_sample bf16 H=256 n_hidden 2 at B={bm} N={nm}: {bs_ms:.3f} ms = "
-          f"{bs_ms / b_bs:.2f}x its bound {b_bs:.4f} ({by_bs}); plain {bs_plain:.2f} ({card})")
-    del model_a, sampler_a, u_p, du
+    print(f"fused_sample bf16 H=256 n_hidden 2 at B={bm} N={nm}: inv_cluster {bs_ms:.3f} ms = "
+          f"{bs_ms / b_bs:.2f}x its bound {b_bs:.4f} ({by_bs}), rows_kernel<256> in turns "
+          f"{rows_ms:.3f} ms; plain {bs_plain:.2f}; noise against philox_noise_plain "
+          f"{e_noise:.2e} ({card})")
+    # every shape of the cluster layout at the main shape, K=32: the cluster
+    # inverse against its plain version, and timed in turns with rows_kernel
+    ut_w = torch.randn((bm, 3, nm), generator=g, device=dev)
+    for hh, nh1 in CLUSTER_SHAPES:
+        spw = flow_stack(hh, nh1 + 1, seed=hh + nh1)
+        layout = fs.inverse_layout(hh, nh1, bf)
+        check(layout == ("rows" if (hh, nh1) in fs.ROWS_KEPT else "cluster"),
+              f"H={hh} n_hidden={nh1 + 1} bf16 samples on the {layout} layout")
+        fs.reset_launch_counts()
+        with forced_layout(fs, "cluster"):
+            xw = fs.fused_inverse_transposed(spw, ut_w, zs, dtype=bf)
+            xw2 = fs.fused_inverse_transposed(spw, ut_w, zs, dtype=bf)
+        xwp = fs.fused_inverse_transposed_plain(spw, ut_w, fs.z_projection(spw, zs), bf, "relu")
+        torch.cuda.synchronize()
+        check(fs.layout_launches["cluster"] == 2, f"inv_cluster at H={hh} n_hidden={nh1 + 1}")
+        held_to_plain(f"fused_inverse (inv_cluster) B={bm} N={nm} K=32 H={hh} n_hidden={nh1 + 1}",
+                      bf, (xw,), (xwp,), fwd_again=(xw2,))
+        c_ms, r_ms = inverse_turns(fs, lambda: fs.fused_inverse_transposed(spw, ut_w, zs, dtype=bf))
+        b_w, by_w, _ = bound(spw, bm, nm, with_ut=True)
+        print(f"inverse at B={bm} N={nm} K=32 H={hh} n_hidden={nh1 + 1} bf16, in turns: inv_cluster "
+              f"{c_ms:.3f} ms, rows_kernel {r_ms:.3f} ms, bound {b_w:.4f} ({by_w}); the route takes "
+              f"{layout} ({card})")
+        del xw, xw2, xwp
+    del model_a, sampler_a, sampler_af, u_p, du
 
     # (b) config #3 (f32 point flow) at H=256 on the synthetic family: the
     # f32 sampler and the evaluation CLI on seeded random weights
@@ -3882,6 +3996,8 @@ def shapes_path(dev, card, x20, h128_replayed):
     rc, res_b, _, eval_b = run_eval_cli([str(F32_CONFIG), *over_b, "--weights", str(pt_b),
                                          "--limit", "32"])
     f32_launches = fs.launches["fused_sample"]
+    check(fs.layout_launches["f32"] == f32_launches, f"(b) every sampler launch on the f32 "
+                                                     f"layout: {fs.layout_launches}")
     smp_b = cuda_ms(lambda: sampler_b(6), 5)
     check(xb.shape == (bm, nm, 3) and bool(torch.isfinite(xb).all()) and rc == 0
           and res_b["n_test"] == 32 and finite_numbers(res_b) and f32_launches >= 2,
@@ -3941,15 +4057,7 @@ def shapes_path(dev, card, x20, h128_replayed):
     model_c = DPF(cfg_c).to(dev).eval()
     model_c.load_state_dict({kk: v.to(dev) for kk, v in torch.load(
         cap_dir / cfg_c.name / "params_00000010.pt", map_location="cpu", weights_only=True).items()})
-    old = os.environ.get("DPFX_SAMPLE_FUSED_LATENT")
-    os.environ["DPFX_SAMPLE_FUSED_LATENT"] = "1"
-    try:
-        sampler_c = make_sampler(model_c, bm, nm)
-    finally:
-        if old is None:
-            os.environ.pop("DPFX_SAMPLE_FUSED_LATENT")
-        else:
-            os.environ["DPFX_SAMPLE_FUSED_LATENT"] = old
+    sampler_c = fused_latent_sampler(model_c, bm, nm)
     fl.reset_launch_counts()
     xc = sampler_c(7)
     torch.cuda.synchronize()
@@ -4012,9 +4120,8 @@ def shapes_path(dev, card, x20, h128_replayed):
                 wide_layouts["cluster_fwd"], f_err, tf_ms, tf_plain, b_tf, by_tf),
             row("fused_train_bwd_cluster", src, "dpfx/ops/fused_train.py:231",
                 wide_layouts["cluster_bwd"], b_err, tb_ms, tb_plain, b_tb, by_tb),
-            row("fused_sample_bf16_h256", "dpfx_torch/ops/csrc/fused_sampler.cu",
-                "dpfx/ops/fused_sampler.py:309", bf_sample_launches, bs_err, bs_ms, bs_plain,
-                b_bs, by_bs),
+            row("fused_sample_inv_cluster", src, "dpfx/ops/fused_sampler.py:309",
+                sample_layouts["cluster"], bs_err, bs_ms, bs_plain, b_bs, by_bs),
             row("fused_sample_f32_h256", "dpfx_torch/ops/csrc/fused_sampler.cu",
                 "dpfx/ops/fused_sampler.py:309", f32_launches, s_err, s_ms, s_plain, b_s, by_s)]
 

@@ -2,10 +2,14 @@
 // thread-block cluster (bf16, mma.sync): the layout for the conditioners
 // whose weights or activations overflow one block of the mma layout
 // (fused_train.cu's fwd_kernel_mma / bwd_kernel_mma): H = 128 with n_hidden
-// 3-4 and H = 256 with n_hidden 2-3. Included by fused_train.cu.
+// 3-4 and H = 256 with n_hidden 2-3; and the sampler's inverse on the
+// forward's design walked backwards (inv_cluster), at the same shapes.
+// Included by fused_train.cu and fused_sampler.cu.
 //
 // Replaces, for those shapes, the Pallas TPU kernels `_fwd_kernel`
-// (dpfx/ops/fused_train.py:131) and `_bwd_kernel` (:231).
+// (dpfx/ops/fused_train.py:131) and `_bwd_kernel` (:231), and (inv_cluster)
+// `_fused_inverse_kernel` (dpfx/ops/fused_sampler.py:112) and
+// `_fused_sample_kernel` (:309).
 //
 // What bounds it: the tensor cores, as the mma layout (2(9H + (n_hidden-1)
 // H^2) FLOP a point and layer forward, ~3x that backward; 0.575 ms and 1.73
@@ -70,6 +74,15 @@
 //     rank writes its parts of the cluster's slice once per layer and
 //     `reduce_slices` adds the slices in a fixed order. No float atomics:
 //     bit-identical from run to run.
+//   * Inverse (inv_cluster): the forward's plan, grid and groups, the
+//     layers walked K-1 .. 0; the same (s, t) device code (cl_st_partials),
+//     so a forward and its inverse compute the same (s, t) bits at every
+//     cluster shape and x comes back through a round trip up to the f32
+//     rounding of the affine update. The base noise is read from ut or
+//     drawn (Philox keyed by (point, cloud)) at the first layer walked;
+//     x is carried between layers per rank ([C, B, 3, N]), no log-det.
+//     A carve of its own (no log-det row or sums) would be 2,176 B smaller
+//     at T=128, which gives no shape a larger tile or a second stage.
 //   * Shared memory (ClusterPlan; tests/_torch_cluster_plan.py mirrors
 //     it): the largest T of 128, 64, 32 that fits, two weight stages where
 //     they fit. At H=256, n_hidden 2: forward T=128 with two stages
@@ -444,6 +457,68 @@ __device__ __forceinline__ void cl_slot_sum(float (&v)[6], const float* slots, i
     for (int e = 0; e < 6; ++e) v[e] += slots[r * ss + q * 6 + e];
 }
 
+// The rank's (s, t) partials of tile q of a group, pushed into slot rows
+// r0 .. r0 + 15 of every rank (`myslot`: this rank's slot of the tile):
+// the warp's 16 points x through h_0 (whole, first_rows), the deeper
+// levels on the rank's own columns (exchanged where the next product needs
+// all of h), and Wout[:, cols_r] h_last[:, cols_r]. The one copy of this
+// code that fwd_cluster and inv_cluster run, so that a forward and its
+// inverse over the same passthrough coordinates compute the same (s, t)
+// bits. hzb: the tile's cloud's hz of the layer; swh, wxt, wo8: the
+// layer's stage; bhk: bh of the layer from the warp's first own column.
+// The group's e-th exchange (e = q (NH1 - 1) + j - 1) uses exchange tile
+// e & 1. A rank writes tile e & 1 again at exchange e + 2 only after the
+// barrier of exchange e + 1, which no rank reaches before its reads of
+// exchange e are done; the caller's barrier after a group's last tile
+// follows every read of the group, so each group starts at tile 0.
+template <int H, int NH1>
+__device__ __forceinline__ void cl_st_partials(cgrp::cluster_group& cl, unsigned char* smem,
+                                               const float (&x)[3], const float* hzb,
+                                               const bf16* swh, const bf16* wxt, const bf16* wo8,
+                                               const float* bhk, float* myslot, int q, int rank) {
+  using Q = Cl<H, NH1, false>;
+  constexpr int C = Q::C, W = Q::W, NW = Q::NW, LDH = Q::LDH;
+  constexpr int XS = round128(Q::T * LDH * 2) / 2, RS = round128(CL_HC * LDH * 2) / 2;
+  const int warp = threadIdx.x / 32, cgp = warp / Q::PG, r0 = (warp % Q::PG) * 16, c0 = cgp * W;
+  bf16* xch = reinterpret_cast<bf16*>(smem + Q::XCH);
+  uint32_t a0, a1;
+  coord_frag(x, a0, a1);
+  uint32_t lo[NW], hi[NW];
+  {
+    Rows<H> h;
+    first_rows<H>(h, a0, a1, wxt, hzb, nullptr);
+    float c[NW][4];
+    cl_prod_regs<H, NW>(c, h, swh + c0 * LDH);
+    cl_epi_act<NW>(lo, hi, c, bhk);
+  }
+#pragma unroll
+  for (int j = 1; j < NH1; ++j) {
+    const int xb = (q * (NH1 - 1) + j - 1) & 1;
+    bf16* xo = xch + xb * XS + r0 * LDH + rank * CL_HC + c0;
+    cl_store<NW>(xo, LDH, lo, hi);
+    cl_push<C, W>(xo, LDH, rank);
+    cl.sync();   // every rank's columns of h_j
+    float c[NW][4];
+    cl_prod_smem<H, NW, false>(c, xch + xb * XS + r0 * LDH, LDH, swh + j * RS + c0 * LDH, LDH);
+    cl_epi_act<NW>(lo, hi, c, bhk + j * H);
+  }
+  if constexpr (Q::WC > 1) {
+    bf16* own = reinterpret_cast<bf16*>(smem + Q::HOWN) + r0 * Q::LDO + c0;
+    __syncthreads();   // the previous tile's reads of h_last are done
+    cl_store<NW>(own, Q::LDO, lo, hi);
+    __syncthreads();   // every column group's part of h_last
+  }
+  if (cgp == 0) {
+    uint32_t af[4][4];
+    if constexpr (Q::WC > 1)
+      cl_load_own(af, reinterpret_cast<const bf16*>(smem + Q::HOWN) + r0 * Q::LDO);
+    else cl_frags<NW>(af, lo, hi);
+    float sc[4];
+    cl_out_partial(sc, af, wo8);
+    cl_slot_push<C>(myslot, r0, sc);
+  }
+}
+
 // The forward. xt [B, 3, N] (read at layer 0), u [B, 3, N] and ld_part [B,
 // ceil(N / T)] (written by rank 0 at the last layer), carry [C, B, 4, N]
 // f32 scratch (x and the running log-det per point, one copy per rank).
@@ -457,17 +532,15 @@ fwd_cluster(const float* __restrict__ xt, const float* __restrict__ hz, float* _
             const bf16* __restrict__ wout, const float* __restrict__ bout,
             const float* __restrict__ masks, int B, int N, int K, float cap) {
   using Q = Cl<H, NH1, false>;
-  constexpr int T = Q::T, C = Q::C, W = Q::W, NW = Q::NW, LDH = Q::LDH, G = CL_G;
-  constexpr int XS = round128(T * LDH * 2) / 2, RS = round128(CL_HC * LDH * 2) / 2;
+  constexpr int T = Q::T, C = Q::C, G = CL_G;
   constexpr int SS = round128(T * 6 * 4) / 4;   // floats of one tile's slot
   extern __shared__ __align__(128) unsigned char smem[];
   cgrp::cluster_group cl = cgrp::this_cluster();
   const int rank = (int)cl.block_rank(), cid = blockIdx.x / C, clusters = gridDim.x / C;
   const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32, p = lane & 15;
-  const int pg = warp % Q::PG, cgp = warp / Q::PG, r0 = pg * 16, c0 = cgp * W;
+  const int pg = warp % Q::PG, cgp = warp / Q::PG, r0 = pg * 16, c0 = cgp * Q::W;
   const int nt = (N + T - 1) / T, tiles = B * nt, groups = (tiles + G - 1) / G;
   float* cr = carry + (size_t)rank * B * 4 * N;
-  bf16* xch = reinterpret_cast<bf16*>(smem + Q::XCH);
   float* ldw = reinterpret_cast<float*>(smem + Q::LDW);   // [G][PG]
   float* xsg = reinterpret_cast<float*>(smem + Q::XSB);   // [G][4][T]
   auto stage = [&](int st) { return smem + Q::STAGE + st * Q::STAGE_BYTES; };
@@ -522,49 +595,8 @@ fwd_cluster(const float* __restrict__ xt, const float* __restrict__ hz, float* _
         float x[3];
 #pragma unroll
         for (int c = 0; c < 3; ++c) x[c] = xsg[(q * 4 + c) * T + r0 + p];
-        uint32_t a0, a1;
-        coord_frag(x, a0, a1);
-        uint32_t lo[NW], hi[NW];
-        {
-          Rows<H> h;
-          first_rows<H>(h, a0, a1, wxt, hz + ((size_t)b * K + k) * H, nullptr);
-          float c[NW][4];
-          cl_prod_regs<H, NW>(c, h, swh + c0 * LDH);
-          cl_epi_act<NW>(lo, hi, c, bhk);
-        }
-        // The deeper levels, exchanged: the group's e-th exchange (e = q
-        // (NH1 - 1) + j - 1) uses exchange tile e & 1. A rank writes tile
-        // e & 1 again at exchange e + 2 only after the barrier of exchange
-        // e + 1, which no rank reaches before its reads of exchange e are
-        // done; the group's last barrier (below) follows every read of the
-        // group, so each group starts at tile 0.
-#pragma unroll
-        for (int j = 1; j < NH1; ++j) {
-          const int xb = (q * (NH1 - 1) + j - 1) & 1;
-          bf16* xo = xch + xb * XS + r0 * LDH + rank * CL_HC + c0;
-          cl_store<NW>(xo, LDH, lo, hi);
-          cl_push<C, W>(xo, LDH, rank);
-          cl.sync();   // every rank's columns of h_j
-          float c[NW][4];
-          cl_prod_smem<H, NW, false>(c, xch + xb * XS + r0 * LDH, LDH,
-                                     swh + j * RS + c0 * LDH, LDH);
-          cl_epi_act<NW>(lo, hi, c, bhk + j * H);
-        }
-        if constexpr (Q::WC > 1) {
-          bf16* own = reinterpret_cast<bf16*>(smem + Q::HOWN) + r0 * Q::LDO + c0;
-          __syncthreads();   // the previous tile's reads of h_last are done
-          cl_store<NW>(own, Q::LDO, lo, hi);
-          __syncthreads();   // every column group's part of h_last
-        }
-        if (cgp == 0) {
-          uint32_t af[4][4];
-          if constexpr (Q::WC > 1)
-            cl_load_own(af, reinterpret_cast<const bf16*>(smem + Q::HOWN) + r0 * Q::LDO);
-          else cl_frags<NW>(af, lo, hi);
-          float sc[4];
-          cl_out_partial(sc, af, wo8);
-          cl_slot_push<C>(slot + (q * C + rank) * SS, r0, sc);
-        }
+        cl_st_partials<H, NH1>(cl, smem, x, hz + ((size_t)b * K + k) * H, swh, wxt, wo8, bhk,
+                               slot + (q * C + rank) * SS, q, rank);
       }
       cl.sync();   // every rank's (s, t) partials of the group are in every rank's slots
       if (cgp == 0) {
@@ -608,6 +640,162 @@ fwd_cluster(const float* __restrict__ xt, const float* __restrict__ hz, float* _
           float a = 0.f;
           for (int q = 0; q < Q::PG; ++q) a += ldw[tid * Q::PG + q];
           ld_part[grp * G + tid] = a;
+        }
+      }
+    }
+  }
+  cl.sync();   // no CTA leaves while another may read its slots
+}
+
+// The sampler's base noise, shared by its rows kernel (fused_sampler.cu)
+// and inv_cluster: Philox4x32-10 (Salmon et al., SC'11)
+__device__ __forceinline__ void philox(uint32_t c[4], uint32_t k0, uint32_t k1) {
+  for (int r = 0; r < 10; ++r) {
+    if (r) { k0 += 0x9E3779B9u; k1 += 0xBB67AE85u; }
+    uint32_t hi0 = __umulhi(0xD2511F53u, c[0]), lo0 = 0xD2511F53u * c[0];
+    uint32_t hi1 = __umulhi(0xCD9E8D57u, c[2]), lo1 = 0xCD9E8D57u * c[2];
+    uint32_t n0 = hi1 ^ c[1] ^ k0, n2 = hi0 ^ c[3] ^ k1;
+    c[0] = n0; c[1] = lo1; c[2] = n2; c[3] = lo0;
+  }
+}
+
+__device__ __forceinline__ float box_muller(uint32_t a, uint32_t b) {
+  const float inv24 = 1.0f / 16777216.0f;
+  float u1 = (float)(a >> 8) * inv24 + 1e-7f;
+  float u2 = (float)(b >> 8) * inv24;
+  return sqrtf(-2.0f * logf(u1)) * cosf(6.283185307179586f * u2);
+}
+
+// point n of cloud b: its base noise read from ut, or drawn (and written to
+// u_out when write is set and u_out is not null); zeros past N
+__device__ __forceinline__ void base_noise(float (&x)[3], int n, int b, int N, size_t cloud,
+                                           const float* ut, float* u_out, bool write,
+                                           unsigned long long seed, float noise_scale) {
+  x[0] = x[1] = x[2] = 0.f;
+  if (n >= N) return;
+  if (ut) {
+    for (int c = 0; c < 3; ++c) x[c] = ut[cloud + (size_t)c * N + n];
+    return;
+  }
+  uint32_t r0[4] = {(uint32_t)n, (uint32_t)b, 0u, 0u};
+  uint32_t r1[4] = {(uint32_t)n, (uint32_t)b, 1u, 0u};
+  philox(r0, (uint32_t)seed, (uint32_t)(seed >> 32));
+  philox(r1, (uint32_t)seed, (uint32_t)(seed >> 32));
+  x[0] = box_muller(r0[0], r0[1]) * noise_scale;
+  x[1] = box_muller(r0[2], r0[3]) * noise_scale;
+  x[2] = box_muller(r1[0], r1[1]) * noise_scale;
+  if (write && u_out)
+    for (int c = 0; c < 3; ++c) u_out[cloud + (size_t)c * N + n] = x[c];
+}
+
+// The inverse (the sampler's bf16 relu layout at these shapes), on the
+// forward's plan and grid, the layers walked K-1 .. 0. ut [B, CR, N] (CR =
+// 3 or 8; coordinates in rows 0-2) is read at the first layer walked; with
+// ut null the base noise is drawn there instead (base_noise: keyed by
+// (point, cloud), so the stream does not depend on the tiling; every rank
+// draws the same bits, rank 0 writes them to u_out [B, 3, N] where it is
+// not null). out [B, CR, N]: rows 0-2 written by rank 0 after layer 0 (the
+// other rows are the caller's). carry [C, B, 3, N] f32 scratch: x per
+// point between layers, one copy per rank (every rank computes the same
+// bits and reads back what it wrote). The coupling is rows_kernel's
+// inverse: x = (x - t) exp(-s), s = cap tanh(st / cap), no log-det.
+template <int H, int NH1>
+__global__ void __launch_bounds__(THREADS, 1)
+inv_cluster(const float* __restrict__ hz, const float* __restrict__ ut, float* __restrict__ out,
+            float* __restrict__ u_out, float* __restrict__ carry, const bf16* __restrict__ wx,
+            const bf16* __restrict__ wh, const float* __restrict__ bh,
+            const bf16* __restrict__ wout, const float* __restrict__ bout,
+            const float* __restrict__ masks, int B, int CR, int N, int K, float cap,
+            unsigned long long seed, float noise_scale) {
+  using Q = Cl<H, NH1, false>;
+  constexpr int T = Q::T, C = Q::C, G = CL_G;
+  constexpr int SS = round128(T * 6 * 4) / 4;   // floats of one tile's slot
+  extern __shared__ __align__(128) unsigned char smem[];
+  cgrp::cluster_group cl = cgrp::this_cluster();
+  const int rank = (int)cl.block_rank(), cid = blockIdx.x / C, clusters = gridDim.x / C;
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32, p = lane & 15;
+  const int cgp = warp / Q::PG, r0 = (warp % Q::PG) * 16, c0 = cgp * Q::W;
+  const int nt = (N + T - 1) / T, tiles = B * nt, groups = (tiles + G - 1) / G;
+  float* cr = carry + (size_t)rank * B * 3 * N;
+  float* xsg = reinterpret_cast<float*>(smem + Q::XSB);   // [G][4][T], rows 0-2
+  auto stage = [&](int st) { return smem + Q::STAGE + st * Q::STAGE_BYTES; };
+
+  cl_zero_pads<H, NH1, false>(smem);
+  cl_stage<H, NH1, false>(stage(0), wx, wh, wout, K - 1, rank);
+  cl.sync();   // every CTA of the cluster runs before any writes into another
+  int it = 0;
+  for (int i = 0; i < K; ++i) {
+    const int k = K - 1 - i, st = Q::NST == 2 ? (i & 1) : 0;
+    if (Q::NST == 1 && i > 0) {
+      __syncthreads();   // every warp is done with the single stage
+      cl_stage<H, NH1, false>(stage(0), wx, wh, wout, k, rank);
+    }
+    cp_async_wait_all();
+    __syncthreads();     // layer k's stage is visible; layer k+1 is done with the other
+    if (Q::NST == 2 && i + 1 < K) cl_stage<H, NH1, false>(stage(st ^ 1), wx, wh, wout, k - 1, rank);
+    const bf16* swh = reinterpret_cast<const bf16*>(stage(st) + Q::SWH);
+    const bf16* wxt = reinterpret_cast<const bf16*>(stage(st) + Q::SWXT);
+    const bf16* wo8 = reinterpret_cast<const bf16*>(stage(st) + Q::SWOUT);
+    const float* bhk = bh + (size_t)k * NH1 * H + rank * CL_HC + c0;
+    bool pass[3];
+#pragma unroll
+    for (int c = 0; c < 3; ++c) pass[c] = masks[k * 3 + c] > 0.f;
+    float bo[6];
+#pragma unroll
+    for (int e = 0; e < 6; ++e) bo[e] = bout[k * 6 + e];
+
+    for (int grp = cid; grp < groups; grp += clusters, ++it) {
+      // the group's points: x of point pt of tile q at xsg[(q * 4 + c) * T + pt]
+      __syncthreads();   // the previous group is done with xsg
+      for (int e = tid; e < G * T; e += THREADS) {
+        const int q = e / T, pt = e % T, tile = grp * G + q;
+        const int b = tile / nt, n = (tile % nt) * T + pt;
+        const bool valid = tile < tiles && n < N;
+        float x[3] = {0.f, 0.f, 0.f};
+        if (i == 0)
+          base_noise(x, valid ? n : N, b, N, (size_t)b * CR * N, ut, u_out, rank == 0, seed,
+                     noise_scale);
+        else if (valid)
+#pragma unroll
+          for (int c = 0; c < 3; ++c) x[c] = cr[((size_t)b * 3 + c) * N + n];
+#pragma unroll
+        for (int c = 0; c < 3; ++c) xsg[(q * 4 + c) * T + pt] = x[c];
+      }
+      __syncthreads();
+      // the group's slots, two sets in turn, as fwd_cluster's
+      float* slot = reinterpret_cast<float*>(smem + Q::SLOT0) + (it & 1) * G * C * SS;
+#pragma unroll 1
+      for (int q = 0; q < G; ++q) {
+        const int b = min(grp * G + q, tiles - 1) / nt;
+        float x[3];
+#pragma unroll
+        for (int c = 0; c < 3; ++c) x[c] = xsg[(q * 4 + c) * T + r0 + p];
+        cl_st_partials<H, NH1>(cl, smem, x, hz + ((size_t)b * K + k) * H, swh, wxt, wo8, bhk,
+                               slot + (q * C + rank) * SS, q, rank);
+      }
+      cl.sync();   // every rank's (s, t) partials of the group are in every rank's slots
+      if (cgp == 0) {
+#pragma unroll 1
+        for (int q = 0; q < G; ++q) {
+          const int tile = grp * G + q, b = tile / nt, n = (tile % nt) * T + r0 + p;
+          if (!(lane < 16 && tile < tiles && n < N)) continue;
+          float x[3], sv[6];
+#pragma unroll
+          for (int c = 0; c < 3; ++c) x[c] = xsg[(q * 4 + c) * T + r0 + p];
+          cl_slot_sum<C>(sv, slot + q * C * SS, SS, r0 + p);
+#pragma unroll
+          for (int c = 0; c < 3; ++c) {
+            if (pass[c]) continue;
+            const float sc = cap * tanhf((sv[c] + bo[c]) / cap);
+            x[c] = (x[c] - (sv[3 + c] + bo[3 + c])) * expf(-sc);
+          }
+          if (k > 0) {
+#pragma unroll
+            for (int c = 0; c < 3; ++c) cr[((size_t)b * 3 + c) * N + n] = x[c];
+          } else if (rank == 0) {
+#pragma unroll
+            for (int c = 0; c < 3; ++c) out[((size_t)b * CR + c) * N + n] = x[c];
+          }
         }
       }
     }
@@ -1139,6 +1327,27 @@ cudaError_t launch_fwd_cluster(const float* xt, const float* hz, float* u, float
   return cl_launch(fwd_cluster<H, NH1>, clusters, Q::C, Q::TOTAL, stream, xt, hz, u, ld_part,
                    carry, static_cast<const bf16*>(wx), static_cast<const bf16*>(wh), bh,
                    static_cast<const bf16*>(wout), bout, masks, B, N, K, cap);
+}
+
+// clusters of the inverse's persistent grid that the card holds at once
+template <int H, int NH1>
+int inverse_grid() {
+  return cl_max_clusters(inv_cluster<H, NH1>, H / CL_HC, Cl<H, NH1, false>::TOTAL);
+}
+
+template <int H, int NH1>
+cudaError_t launch_inv_cluster(const float* hz, const float* ut, float* out, float* u_out,
+                               float* carry, const void* wx, const void* wh, const float* bh,
+                               const void* wout, const float* bout, const float* masks, int B,
+                               int CR, int N, int K, float cap, unsigned long long seed,
+                               float noise_scale, int clusters, cudaStream_t stream) {
+  using Q = Cl<H, NH1, false>;
+  const int groups = (B * ((N + Q::T - 1) / Q::T) + CL_G - 1) / CL_G;
+  if (clusters > groups) clusters = groups;
+  return cl_launch(inv_cluster<H, NH1>, clusters, Q::C, Q::TOTAL, stream, hz, ut, out, u_out,
+                   carry, static_cast<const bf16*>(wx), static_cast<const bf16*>(wh), bh,
+                   static_cast<const bf16*>(wout), bout, masks, B, CR, N, K, cap, seed,
+                   noise_scale);
 }
 
 template <int H, int NH1>

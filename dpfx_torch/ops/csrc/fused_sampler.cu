@@ -1,11 +1,12 @@
 // Fused inverse point flow for Hopper (sm_90a): all K inverted affine
 // couplings of the DPF point flow in one kernel, each point kept on chip
-// from the base noise to the output.
+// (or, in the cluster inverse, in L2 between layers) from the base noise
+// to the output.
 //
 // Replaces the Pallas TPU kernels `_fused_inverse_kernel`
 // (dpfx/ops/fused_sampler.py:112) and `_fused_sample_kernel` (:309), the
-// latter with its int8 mode (`quantized=`, :338-369). One kernel serves
-// all: with `ut == nullptr` it draws the base noise itself (Philox4x32-10
+// latter with its int8 mode (`quantized=`, :338-369). Each kernel serves
+// both: with `ut == nullptr` it draws the base noise itself (Philox4x32-10
 // keyed by the seed, counter = (point, cloud), Box-Muller with the +1e-7
 // guard on u1), so the stream does not depend on the tiling.
 //
@@ -50,69 +51,56 @@
 //     compute the same (s, t) bits, and x comes back through a round trip
 //     up to the f32 rounding of the affine update.
 //
+// cluster inverse (`inv_cluster`, flow_cluster.cuh; bf16, relu, weights in
+// bf16): at the shapes where the training kernels take their cluster
+// layout (H=128 with n_hidden 3-4, H=256 with n_hidden 2-3) the wrapper
+// routes the inverse onto the training forward's cluster design walked
+// backwards: a layer split across H / 64 CTAs, a persistent grid with the
+// layer loop outside the groups of tiles (each weight read from L2 once per
+// cluster, not once per 128-point tile as rows_kernel<256>'s 1,024 blocks
+// do), and the forward's own (s, t) code (cl_st_partials), so a forward and
+// its inverse share (s, t) bits there as fwd_kernel_mma and rows_kernel do
+// at the flagship's shape. Where rows_kernel timed faster in turns the
+// wrapper keeps it (fused_sampler.ROWS_KEPT).
+//
 // f32 mode (`f32_kernel`): the tight-check mode, IEEE f32 FMA with k in
-// order, the block's 128 points in shared memory, weights staged one
-// matrix at a time, one thread per point for the coupling. At H=256 one
-// f32 Wh (256 x 257 floats, 263 KB) is more than a block's shared memory
-// holds, so that instance stages each Wh in chunks of 64 input columns
-// (k) beside the 128 points' activations (214 KB in all): every thread
-// keeps its outputs' sums in registers across the chunks, so each sum
-// still runs k = 0 .. H-1 in order and the bits are the whole matrix's.
-// The smaller point tile was the other choice; it would have given two
-// layouts of every buffer and half the points per staged weight byte.
+// order, the block's 128 points in shared memory, one thread per point for
+// the coupling. The hidden products are register-tiled (thread (tp, to):
+// points tp + 16i, outputs to + 16j; 128 FFMA per 24 LDS a k) on Wh staged
+// in chunks of KC input columns (the whole row up to H=128; 32 at H=256,
+// where one f32 Wh, 263 KB, is more than a block holds): every thread
+// keeps its outputs' sums in registers across the chunks, so each sum runs
+// k = 0 .. H-1 in order and the bits are the whole matrix's at any KC.
+// What bounds it is the FP32 pipes. From H=128 on (f32_pipe) the float
+// instances stream the chunks, which the threads used to load between two
+// barriers while the FMAs waited: two chunk buffers used in turn, chunk q
+// + 1 (and across a product or layer boundary the next one's first) copied
+// with cp.async while the FMAs run on chunk q, each product's bh with its
+// last chunk, and the next layer's Wx, hz, Wout and bout (a second set of
+// the small weights) with that layer's first chunk, behind the last
+// product. The copies are 4 bytes each: 16-byte copies need rows of a
+// multiple of 4 floats, and every such stride puts two of a warp's 16
+// output rows on one bank, where rows of KC + 1 keep the w[j] reads
+// conflict-free. At H=256: 128 x 257 floats of activations, two chunk
+// buffers of 256 x 33 (+ bh), two small sets: 226,560 B. What is left is
+// the product itself (PERF.md: one 256 x 256 product of the 64 x
+// 2048 points at about half the FP32 rate): 24 shared-memory wavefronts a k
+// and warp for its 128 FFMA a thread, at two warps a scheduler. The int8
+// instances convert as they stage and keep synchronous staging into the
+// first buffer.
 //
 // The ragged last tile computes on zeros and writes nothing past N.
 //
 // Plain C interface, loaded with ctypes (dpfx_torch/ops/_build.py). The
 // launch returns cudaGetLastError().
 
-#include "flow_rows.cuh"
+#include "flow_cluster.cuh"
 
 namespace {
 
 using namespace dpfx;
 
 constexpr int TILE = MT;        // points per block
-
-// Philox4x32-10 (Salmon et al., SC'11)
-__device__ __forceinline__ void philox(uint32_t c[4], uint32_t k0, uint32_t k1) {
-  for (int r = 0; r < 10; ++r) {
-    if (r) { k0 += 0x9E3779B9u; k1 += 0xBB67AE85u; }
-    uint32_t hi0 = __umulhi(0xD2511F53u, c[0]), lo0 = 0xD2511F53u * c[0];
-    uint32_t hi1 = __umulhi(0xCD9E8D57u, c[2]), lo1 = 0xCD9E8D57u * c[2];
-    uint32_t n0 = hi1 ^ c[1] ^ k0, n2 = hi0 ^ c[3] ^ k1;
-    c[0] = n0; c[1] = lo1; c[2] = n2; c[3] = lo0;
-  }
-}
-
-__device__ __forceinline__ float box_muller(uint32_t a, uint32_t b) {
-  const float inv24 = 1.0f / 16777216.0f;
-  float u1 = (float)(a >> 8) * inv24 + 1e-7f;
-  float u2 = (float)(b >> 8) * inv24;
-  return sqrtf(-2.0f * logf(u1)) * cosf(6.283185307179586f * u2);
-}
-
-// point n of cloud b: its base noise read from ut, or drawn (and written to
-// u_out when write is set and u_out is not null); zeros past N
-__device__ __forceinline__ void base_noise(float (&x)[3], int n, int b, int N, size_t cloud,
-                                           const float* ut, float* u_out, bool write,
-                                           unsigned long long seed, float noise_scale) {
-  x[0] = x[1] = x[2] = 0.f;
-  if (n >= N) return;
-  if (ut) {
-    for (int c = 0; c < 3; ++c) x[c] = ut[cloud + (size_t)c * N + n];
-    return;
-  }
-  uint32_t r0[4] = {(uint32_t)n, (uint32_t)b, 0u, 0u};
-  uint32_t r1[4] = {(uint32_t)n, (uint32_t)b, 1u, 0u};
-  philox(r0, (uint32_t)seed, (uint32_t)(seed >> 32));
-  philox(r1, (uint32_t)seed, (uint32_t)(seed >> 32));
-  x[0] = box_muller(r0[0], r0[1]) * noise_scale;
-  x[1] = box_muller(r0[2], r0[3]) * noise_scale;
-  x[2] = box_muller(r1[0], r1[1]) * noise_scale;
-  if (write && u_out)
-    for (int c = 0; c < 3; ++c) u_out[cloud + (size_t)c * N + n] = x[c];
-}
 
 // ---------------------------------------------------------------- bf16 mode
 
@@ -361,25 +349,38 @@ rows_kernel(const float* __restrict__ hz, const float* __restrict__ ut, float* _
 // ---------------------------------------------------------------- f32 mode
 
 // input columns of Wh per staged chunk of the f32 kernel: the whole row up
-// to H=128, 64 at H=256
-__host__ __device__ constexpr int f32_kc(int H) { return H <= 128 ? H : 64; }
+// to H=128; 32 at H=256, so that two chunk buffers fit beside the 128
+// points' activations
+__host__ __device__ constexpr int f32_kc(int H) { return H <= 128 ? H : 32; }
+
+// whether the f32 instances (weights in f32) stream their Wh chunks: two
+// chunk buffers and two sets of the small weights, filled with cp.async
+// behind the products. The int8 instances convert as they stage, through
+// the registers, and stage synchronously into buffer 0 and set 0.
+__host__ __device__ constexpr bool f32_pipe(int H) { return H >= 128; }
 
 // Shared-memory carve-up of the f32 kernel; the Python wrapper mirrors it
-// (smem_bytes)
+// (smem_bytes). The points' activations in rows of H + 1. A chunk buffer:
+// KC columns of Wh in rows of KC + 1 (row o holds output o), then bh [H] of
+// the chunk's product. A small set: Wx [H][3], hz [H], Wout [6][H], bout
+// [8] of one layer.
 struct F32Smem {
-  int ld, hs, ws, xs, st, wx, hz, bh, wout, bout, total;
+  int ld, hs, xs, st, ws, wbuf, wbh, small, sbuf, hz, wout, bout, total;
   __host__ __device__ F32Smem(int H) {
     ld = H + 1;
+    const int nbuf = f32_pipe(H) ? 2 : 1;
     int o = 0;
     hs = o;    o += round128(TILE * ld * 4);
-    ws = o;    o += round128(H * (f32_kc(H) + 1) * 4);
     xs = o;    o += round128(3 * TILE * 4);
     st = o;    o += round128(6 * TILE * 4);
-    wx = o;    o += round128(3 * H * 4);
-    hz = o;    o += round128(H * 4);
-    bh = o;    o += round128(H * 4);
-    wout = o;  o += round128(6 * H * 4);
-    bout = o;  o += round128(8 * 4);
+    wbh = round128(H * (f32_kc(H) + 1) * 4);
+    wbuf = wbh + round128(H * 4);
+    ws = o;    o += nbuf * wbuf;
+    hz = round128(3 * H * 4);
+    wout = hz + round128(H * 4);
+    bout = wout + round128(6 * H * 4);
+    sbuf = bout + round128(8 * 4);
+    small = o; o += nbuf * sbuf;
     total = o;
   }
 };
@@ -389,56 +390,40 @@ struct F32Smem {
 __device__ __forceinline__ float weight_f(float v, float) { return v; }
 __device__ __forceinline__ float weight_f(int8_t q, float s) { return __fmul_rn((float)q, s); }
 
-// hs[T x H] <- act(hs . Wh^T + bh): Wh = g [H x H] (row o holds output o)
-// in global memory, staged through ws in chunks of KC input columns
-// ([H][KC + 1]; one chunk, the whole matrix, up to H=128). Register-tiled
-// FMA: thread (tp, to) owns points tp + 16i and outputs to + 16j, and its
-// sums stay in registers across the chunks, k in order, so they are exact
-// IEEE f32 and the same at every KC. The k loop is unrolled by 8, which
-// timed faster than 1, 2, 4 and the compiler's choice at H = 128 and 256
-// (PERF.md, PR 21). The caller has loaded bh and synchronised after the
-// previous product.
-template <typename W, int H>
-__device__ void hidden_gemm(float* hs, float* ws, const W* g, float s, const float* bh,
-                                    int ld, int act) {
-  constexpr int PI = TILE / 16, NJ = H / 16, KC = f32_kc(H), LW = KC + 1;
+constexpr int F32_PI = TILE / 16;   // points of a thread in the register tile
+
+// acc += hs[:, k0 .. k0 + KC) . ws^T, ws one chunk [H][KC + 1]: thread (tp,
+// to) owns points tp + 16i and outputs to + 16j (128 FFMA per 24 LDS a k),
+// and its sums take k in order, so they are exact IEEE f32 and the same at
+// every KC. Reads are free of bank conflicts: hs rows of H + 1 (the warp's
+// two tp rows differ by 1 bank), ws rows of KC + 1 (the 16 outputs to + 16j
+// a bank each). The k loop is unrolled by 8, which timed faster than 1, 2,
+// 4 and the compiler's choice at H = 128 and 256 (PERF.md).
+template <int H>
+__device__ __forceinline__ void chunk_fma(float (&acc)[F32_PI][H / 16], const float* hs,
+                                          const float* ws, int ld, int k0) {
+  constexpr int NJ = H / 16, KC = f32_kc(H), LW = KC + 1;
   const int tp = threadIdx.x / 16, to = threadIdx.x % 16;
-  float acc[PI][NJ];
-#pragma unroll
-  for (int i = 0; i < PI; ++i)
-#pragma unroll
-    for (int j = 0; j < NJ; ++j) acc[i][j] = 0.f;
-  for (int k0 = 0; k0 < H; k0 += KC) {
-    if (k0) __syncthreads();  // every thread is done with the previous chunk
-    for (int v = threadIdx.x; v < H * KC; v += THREADS) {
-      const int o = v / KC, c = v % KC;
-      ws[o * LW + c] = weight_f(g[(size_t)o * H + k0 + c], s);
-    }
-    __syncthreads();
 #pragma unroll 8
-    for (int kk = 0; kk < KC; ++kk) {
-      float a[PI], w[NJ];
+  for (int kk = 0; kk < KC; ++kk) {
+    float a[F32_PI], w[NJ];
 #pragma unroll
-      for (int i = 0; i < PI; ++i) a[i] = hs[(tp + 16 * i) * ld + k0 + kk];
+    for (int i = 0; i < F32_PI; ++i) a[i] = hs[(tp + 16 * i) * ld + k0 + kk];
 #pragma unroll
-      for (int j = 0; j < NJ; ++j) w[j] = ws[(to + 16 * j) * LW + kk];
+    for (int j = 0; j < NJ; ++j) w[j] = ws[(to + 16 * j) * LW + kk];
 #pragma unroll
-      for (int i = 0; i < PI; ++i)
+    for (int i = 0; i < F32_PI; ++i)
 #pragma unroll
-        for (int j = 0; j < NJ; ++j) acc[i][j] = fmaf(a[i], w[j], acc[i][j]);
-    }
+      for (int j = 0; j < NJ; ++j) acc[i][j] = fmaf(a[i], w[j], acc[i][j]);
   }
-  __syncthreads();  // every thread has read hs
-#pragma unroll
-  for (int i = 0; i < PI; ++i)
-#pragma unroll
-    for (int j = 0; j < NJ; ++j) {
-      const int o = to + 16 * j;
-      hs[(tp + 16 * i) * ld + o] = activate(acc[i][j] + bh[o], act);
-    }
 }
 
-// W: float (weights in f32) or int8_t (int8 mode, with scales [K, 8])
+// W: float (weights in f32) or int8_t (int8 mode, with scales [K, 8]).
+// The layers' Wh chunks form one sequence q = 0 .. K NH1 NC - 1 (layer,
+// product, chunk in walk order). Streamed (PIPE): chunk q + 1 goes into
+// buffer (q + 1) & 1 with cp.async while the FMAs run on chunk q, the
+// product's bh with its last chunk, and the next layer's small set with
+// that layer's first chunk, which is in flight behind the last product.
 template <typename W, int H>
 __global__ void __launch_bounds__(THREADS)
 f32_kernel(const float* __restrict__ hz, const float* __restrict__ ut, float* __restrict__ out,
@@ -447,41 +432,106 @@ f32_kernel(const float* __restrict__ hz, const float* __restrict__ ut, float* __
            const float* __restrict__ bout, const float* __restrict__ masks,
            const float* __restrict__ scales, int C, int N, int K, int NH1, float cap, int act,
            unsigned long long seed, float noise_scale) {
+  constexpr bool PIPE = std::is_same<W, float>::value && f32_pipe(H);
+  constexpr int NJ = H / 16, KC = f32_kc(H), NC = H / KC;
   extern __shared__ __align__(128) unsigned char smem[];
   const F32Smem L(H);
   const int ld = L.ld;
-  float* hs = reinterpret_cast<float*>(smem + L.hs);
-  float* ws = reinterpret_cast<float*>(smem + L.ws);
+  float* hs = reinterpret_cast<float*>(smem + L.hs);      // [TILE][H + 1]
   float* xs = reinterpret_cast<float*>(smem + L.xs);      // [3][TILE]
   float* sts = reinterpret_cast<float*>(smem + L.st);     // [6][TILE]
-  float* wxs = reinterpret_cast<float*>(smem + L.wx);     // [H][3]
-  float* hzs = reinterpret_cast<float*>(smem + L.hz);     // [H]
-  float* bhs = reinterpret_cast<float*>(smem + L.bh);     // [H]
-  float* wos = reinterpret_cast<float*>(smem + L.wout);   // [6][H]
-  float* bos = reinterpret_cast<float*>(smem + L.bout);   // [6]
+  auto wbuf = [&](int s) { return reinterpret_cast<float*>(smem + L.ws + s * L.wbuf); };
+  auto sset = [&](int s) { return smem + L.small + s * L.sbuf; };
 
   const int b = blockIdx.y;
   const int n0 = blockIdx.x * TILE;
   const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
   const size_t cloud = (size_t)b * C * N;
+  const int nq = K * NH1 * NC;
+
+  // layer K-1-i's small set into set s: cp.async (PIPE; the caller
+  // commits), or loaded and converted by the threads
+  auto small_load = [&](int i, int s) {
+    const int k = K - 1 - i;
+    float* wxs = reinterpret_cast<float*>(sset(s));
+    float* hzs = reinterpret_cast<float*>(sset(s) + L.hz);
+    float* wos = reinterpret_cast<float*>(sset(s) + L.wout);
+    float* bos = reinterpret_cast<float*>(sset(s) + L.bout);
+    const float* hzk = hz + ((size_t)b * K + k) * H;
+    if constexpr (PIPE) {
+      for (int e = tid; e < 3 * H; e += THREADS) cp_async4(wxs + e, wx + (size_t)k * 3 * H + e);
+      for (int e = tid; e < H; e += THREADS) cp_async4(hzs + e, hzk + e);
+      for (int e = tid; e < 6 * H; e += THREADS) cp_async4(wos + e, wout + (size_t)k * 6 * H + e);
+      if (tid < 6) cp_async4(bos + tid, bout + k * 6 + tid);
+    } else {
+      const float s_wx = scales ? scales[k * 8] : 1.f;
+      const float s_wo = scales ? scales[k * 8 + 2] : 1.f;
+      for (int e = tid; e < 3 * H; e += THREADS) wxs[e] = weight_f(wx[(size_t)k * 3 * H + e], s_wx);
+      for (int e = tid; e < H; e += THREADS) hzs[e] = hzk[e];
+      for (int e = tid; e < 6 * H; e += THREADS) wos[e] = weight_f(wout[(size_t)k * 6 * H + e], s_wo);
+      if (tid < 6) bos[tid] = bout[k * 6 + tid];
+    }
+  };
+  // chunk q into buffer s (PIPE: cp.async, with the product's bh at its last
+  // chunk and the layer's small set at its first but the walk's first; the
+  // copies are committed as one group), or staged and converted by the
+  // threads (bh with the product's first chunk)
+  auto chunk_load = [&](int q, int s) {
+    const int i = q / (NH1 * NC), j = (q / NC) % NH1, c = q % NC, k = K - 1 - i;
+    const W* g = wh + ((size_t)k * NH1 + j) * H * H + c * KC;
+    const float* bhj = bh + ((size_t)k * NH1 + j) * H;
+    float* ws = wbuf(s);
+    float* wb = reinterpret_cast<float*>(reinterpret_cast<unsigned char*>(ws) + L.wbh);
+    if constexpr (PIPE) {
+      for (int v = tid; v < H * KC; v += THREADS) {
+        const int o = v / KC, cc = v % KC;
+        cp_async4(ws + o * (KC + 1) + cc, g + (size_t)o * H + cc);
+      }
+      if (c == NC - 1)
+        for (int e = tid; e < H; e += THREADS) cp_async4(wb + e, bhj + e);
+      if (c == 0 && j == 0 && i > 0) small_load(i, i & 1);
+      cp_async_commit();
+    } else {
+      const float s_wh = scales ? scales[k * 8 + 1] : 1.f;
+      for (int v = tid; v < H * KC; v += THREADS) {
+        const int o = v / KC, cc = v % KC;
+        ws[o * (KC + 1) + cc] = weight_f(g[(size_t)o * H + cc], s_wh);
+      }
+      if (c == 0)
+        for (int e = tid; e < H; e += THREADS) wb[e] = bhj[e];
+    }
+  };
 
   if (tid < TILE) {
     float x[3];
     base_noise(x, n0 + tid, b, N, cloud, ut, u_out, true, seed, noise_scale);
     for (int c = 0; c < 3; ++c) xs[c * TILE + tid] = x[c];
   }
+  if constexpr (PIPE) {
+    small_load(0, 0);
+    if (nq) chunk_load(0, 0);
+    else cp_async_commit();
+  }
 
+  int q = 0;   // the next chunk of the walk
   for (int i = 0; i < K; ++i) {
-    const int k = K - 1 - i;
-    __syncthreads();  // previous layer done with xs and the small weights
-    const float s_wx = scales ? scales[k * 8] : 1.f;
-    const float s_wh = scales ? scales[k * 8 + 1] : 1.f;
-    const float s_wo = scales ? scales[k * 8 + 2] : 1.f;
-    for (int e = tid; e < 3 * H; e += THREADS) wxs[e] = weight_f(wx[(size_t)k * 3 * H + e], s_wx);
-    for (int e = tid; e < H; e += THREADS) hzs[e] = hz[((size_t)b * K + k) * H + e];
-    for (int e = tid; e < 6 * H; e += THREADS) wos[e] = weight_f(wout[(size_t)k * 6 * H + e], s_wo);
-    if (tid < 6) bos[tid] = bout[k * 6 + tid];
-    __syncthreads();
+    const int k = K - 1 - i, s = PIPE ? (i & 1) : 0;
+    if constexpr (PIPE) {
+      cp_async_wait_all();
+      __syncthreads();  // layer i's small set has landed; layer i-1 is done with xs and the other set
+      if (!nq && i + 1 < K) {
+        small_load(i + 1, (i + 1) & 1);
+        cp_async_commit();
+      }
+    } else {
+      __syncthreads();  // the previous layer is done with xs and the small set
+      small_load(i, 0);
+      __syncthreads();
+    }
+    const float* wxs = reinterpret_cast<const float*>(sset(s));              // [H][3]
+    const float* hzs = reinterpret_cast<const float*>(sset(s) + L.hz);       // [H]
+    const float* wos = reinterpret_cast<const float*>(sset(s) + L.wout);     // [6][H]
+    const float* bos = reinterpret_cast<const float*>(sset(s) + L.bout);     // [6]
 
     // h = act(Wx . x + hz)
     for (int e = tid; e < TILE * H; e += THREADS) {
@@ -492,11 +542,38 @@ f32_kernel(const float* __restrict__ hz, const float* __restrict__ ut, float* __
       hs[p * ld + o] = activate(v + hzs[o], act);
     }
 
+    // h = act(h . Wh^T + bh), n_hidden - 1 times, Wh in NC chunks
     for (int j = 0; j < NH1; ++j) {
-      __syncthreads();  // hs written; the previous product is done with ws, bhs
-      const W* g = wh + ((size_t)k * NH1 + j) * H * H;
-      for (int e = tid; e < H; e += THREADS) bhs[e] = bh[((size_t)k * NH1 + j) * H + e];
-      hidden_gemm<W, H>(hs, ws, g, s_wh, bhs, ld, act);
+      float acc[F32_PI][NJ];
+#pragma unroll
+      for (int ii = 0; ii < F32_PI; ++ii)
+#pragma unroll
+        for (int jj = 0; jj < NJ; ++jj) acc[ii][jj] = 0.f;
+      for (int c = 0; c < NC; ++c, ++q) {
+        if constexpr (PIPE) {
+          cp_async_wait_all();
+          __syncthreads();  // chunk q has landed; every thread is done with chunk q - 1 and wrote h
+          if (q + 1 < nq) chunk_load(q + 1, (q + 1) & 1);
+        } else {
+          __syncthreads();  // every thread is done with the previous chunk and wrote h
+          chunk_load(q, 0);
+          __syncthreads();
+        }
+        chunk_fma<H>(acc, hs, wbuf(PIPE ? q & 1 : 0), ld, c * KC);
+      }
+      __syncthreads();  // every thread has read hs
+      // bh from the buffer of the product's last chunk (PIPE) or of its
+      // first (the only buffer), rewritten only after the next barrier
+      const float* bhs = reinterpret_cast<const float*>(
+          reinterpret_cast<const unsigned char*>(wbuf(PIPE ? (q - 1) & 1 : 0)) + L.wbh);
+      const int tp = tid / 16, to = tid % 16;
+#pragma unroll
+      for (int ii = 0; ii < F32_PI; ++ii)
+#pragma unroll
+        for (int jj = 0; jj < NJ; ++jj) {
+          const int o = to + 16 * jj;
+          hs[(tp + 16 * ii) * ld + o] = activate(acc[ii][jj] + bhs[o], act);
+        }
     }
     __syncthreads();
 
@@ -524,9 +601,9 @@ f32_kernel(const float* __restrict__ hz, const float* __restrict__ ut, float* __
     if (tid < TILE) {
       for (int c = 0; c < 3; ++c) {
         if (masks[k * 3 + c] > 0.f) continue;
-        const float s = cap * tanhf(sts[c * TILE + tid] / cap);
+        const float sv = cap * tanhf(sts[c * TILE + tid] / cap);
         const float t = sts[(3 + c) * TILE + tid];
-        xs[c * TILE + tid] = (xs[c * TILE + tid] - t) * expf(-s);
+        xs[c * TILE + tid] = (xs[c * TILE + tid] - t) * expf(-sv);
       }
     }
   }
@@ -628,6 +705,46 @@ int dpfx_fused_sampler_launch(const float* hz, const float* ut, float* out, floa
   if (scales) e = bf16 ? dispatch<int8_t, true>(H, a, s) : dispatch<int8_t, false>(H, a, s);
   else e = bf16 ? dispatch<BF, true>(H, a, s) : dispatch<float, false>(H, a, s);
   return (int)e;
+}
+
+// The cluster inverse (flow_cluster.cuh's inv_cluster, bf16 relu, weights
+// in bf16) at H=128 with n_hidden 3-4 and H=256 with n_hidden 2-3: shared
+// memory of one CTA (for any shape: a plan past the limit reports its
+// size), the clusters of its persistent grid that the card holds at once,
+// and the launch on `clusters` clusters of H / 64 CTAs. ut [B, CR, N] (null:
+// draw the noise, into u_out [B, 3, N] where it is not null), out [B, CR,
+// N], carry [H / 64, B, 3, N] f32 scratch.
+#define DPFX_DISPATCH_INVERSE(H, NH1, CALL)                                             \
+  if (H == 128 && NH1 == 2) { constexpr int HH = 128, NN = 2; return (int)(CALL); }     \
+  if (H == 128 && NH1 == 3) { constexpr int HH = 128, NN = 3; return (int)(CALL); }     \
+  if (H == 256 && NH1 == 1) { constexpr int HH = 256, NN = 1; return (int)(CALL); }     \
+  if (H == 256 && NH1 == 2) { constexpr int HH = 256, NN = 2; return (int)(CALL); }     \
+  return (int)cudaErrorInvalidValue;
+
+int dpfx_fused_sampler_cluster_smem_bytes(int H, int NH1) {
+  return cluster_plan(H, NH1, false).total;
+}
+
+int dpfx_fused_sampler_cluster_grid(int H, int NH1) {
+  DPFX_DISPATCH_INVERSE(H, NH1, (inverse_grid<HH, NN>()))
+}
+
+int dpfx_fused_sampler_cluster_launch(const float* hz, const float* ut, float* out, float* u_out,
+                                      float* carry, const void* wx, const void* wh,
+                                      const float* bh, const void* wout, const float* bout,
+                                      const float* masks, int B, int C, int N, int K, int H,
+                                      int NH1, float cap, unsigned long long seed,
+                                      float noise_scale, int clusters, void* stream) {
+  if (B <= 0 || N <= 0 || K <= 0 || C < 3 || clusters <= 0) return (int)cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  DPFX_DISPATCH_INVERSE(H, NH1, (launch_inv_cluster<HH, NN>(hz, ut, out, u_out, carry, wx, wh, bh,
+                                                            wout, bout, masks, B, C, N, K, cap,
+                                                            seed, noise_scale, clusters, s)))
+}
+
+// the CUDA runtime's text for an error a launch returned
+const char* dpfx_fused_sampler_error_string(int e) {
+  return cudaGetErrorString(static_cast<cudaError_t>(e));
 }
 
 }  // extern "C"

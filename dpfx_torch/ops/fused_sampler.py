@@ -31,7 +31,15 @@ the stream can be pinned on the CPU.
 
 Every wrapper takes its plain PyTorch version for a tensor on the CPU and
 launches the kernel for a CUDA tensor (or raises). ``launches`` counts the
-kernel launches of each wrapper.
+kernel launches of each wrapper, ``layout_launches`` the same by layout.
+
+Layouts (``inverse_layout``): f32 runs ``f32_kernel``; bf16 with relu and
+weights in bf16 runs the cluster inverse (``inv_cluster`` in
+``csrc/flow_cluster.cuh``: a layer split across a thread-block cluster of
+H / 64 CTAs, on the training forward's (s, t) code) at the shapes where the
+training kernels take their cluster layout (``fused_train.uses_cluster``)
+but ``ROWS_KEPT``; every other bf16 case (the int8 mode, the other
+activations, the shapes a block holds) runs ``rows_kernel``.
 """
 
 from __future__ import annotations
@@ -50,6 +58,8 @@ Tensor = torch.Tensor
 
 # kernel launches per wrapper; chip_smoke.py zeroes these around the main path
 launches: Dict[str, int] = {"fused_inverse": 0, "fused_sample": 0, "fused_sample_int8": 0}
+# the same launches by the layout that ran them (inverse_layout's names)
+layout_launches: Dict[str, int] = {"rows": 0, "cluster": 0, "f32": 0}
 
 ACT_CODES = {"relu": 0, "gelu": 1, "tanh": 2, "leaky_relu": 3}
 KERNEL_HIDDEN = (32, 64, 128, 256)     # conditioner widths the kernel is built for
@@ -64,8 +74,9 @@ def kernel_hidden(hidden: int) -> int:
 
 
 def reset_launch_counts() -> None:
-    for k in launches:
-        launches[k] = 0
+    for counts in (launches, layout_launches):
+        for k in counts:
+            counts[k] = 0
 
 
 class StackedFlowParams(NamedTuple):
@@ -176,11 +187,13 @@ def fused_inverse_transposed_plain(sp: StackedFlowParams, ut: Tensor, hz: Tensor
     bf16 operands), so the sums are float32 as on the tensor cores. On a
     card the float32 einsums are IEEE only with
     ``torch.backends.cuda.matmul.allow_tf32`` False (PyTorch's default),
-    which the entry points set."""
+    which the entry points set. ``dtype=torch.float64`` on f64 inputs is
+    the f64 reference (every operand and sum in f64)."""
     act = ACTIVATIONS[activation]
-    rnd = lambda a: a.to(dtype).float()
+    acc = torch.float64 if dtype == torch.float64 else torch.float32
+    rnd = lambda a: a.to(dtype).to(acc)
     out = ut.clone()
-    x = ut[:, :3].float()
+    x = ut[:, :3].to(acc)
     for k in reversed(range(sp.wx.shape[0])):
         h = torch.einsum("hc,bcn->bhn", rnd(sp.wx[k]), rnd(x)) + hz[:, k, :, None]
         h = rnd(act(h))
@@ -287,14 +300,82 @@ def _lib() -> ctypes.CDLL:
     return lib
 
 
+@functools.lru_cache(maxsize=None)
+def _cluster_lib() -> ctypes.CDLL:
+    """The cluster inverse's entry points (``inv_cluster``)."""
+    lib = _lib()
+    p, i = ctypes.c_void_p, ctypes.c_int
+    lib.dpfx_fused_sampler_cluster_launch.argtypes = [
+        p, p, p, p, p,                # hz, ut (null: draw u), out, u_out (nullable), carry
+        p, p, p, p, p, p,             # wx, wh, bh, wout, bout, masks
+        i, i, i, i, i, i,             # B, C, N, K, H, n_hidden-1
+        ctypes.c_float, ctypes.c_uint64, ctypes.c_float,  # scale cap, seed, noise scale
+        i, p,                         # clusters, stream
+    ]
+    lib.dpfx_fused_sampler_cluster_smem_bytes.argtypes = [i, i]
+    lib.dpfx_fused_sampler_cluster_grid.argtypes = [i, i]
+    for fn in (lib.dpfx_fused_sampler_cluster_launch, lib.dpfx_fused_sampler_cluster_smem_bytes,
+               lib.dpfx_fused_sampler_cluster_grid):
+        fn.restype = ctypes.c_int
+    return lib
+
+
+def _error_text(err: int) -> str:
+    """The CUDA runtime's text for a launch's error (a library built before
+    the text was exported gives none)."""
+    fn = getattr(_lib(), "dpfx_fused_sampler_error_string", None)
+    if fn is None:
+        return ""
+    fn.argtypes, fn.restype = [ctypes.c_int], ctypes.c_char_p
+    return f" ({fn(err).decode()})"
+
+
+@functools.lru_cache(maxsize=None)
+def _cluster_grid(hidden: int, n_hidden_m1: int, device_index: int) -> int:
+    """Clusters of the cluster inverse's persistent grid: as many as the
+    card holds at once."""
+    with torch.cuda.device(device_index):
+        n = _cluster_lib().dpfx_fused_sampler_cluster_grid(hidden, n_hidden_m1)
+    if n <= 0:
+        raise RuntimeError(f"the card holds no cluster of the cluster inverse at hidden={hidden}, "
+                           f"n_hidden={n_hidden_m1 + 1}")
+    return n
+
+
+# the cluster layout's shapes (H, n_hidden - 1) where rows_kernel timed
+# faster than the cluster inverse in turns (B=64 x 2048, K=32; PERF.md:
+# H=128 with n_hidden 3 and 4, where rows_kernel keeps two weight stages,
+# 1.585 / 2.163 ms against 2.616 / 3.745 on an H100): the inverse stays on
+# rows_kernel there; chip_smoke.py phase 3l times both at each shape
+ROWS_KEPT: Tuple[Tuple[int, int], ...] = ((128, 2), (128, 3))
+
+
+def inverse_layout(hidden: int, n_hidden_m1: int, dtype: torch.dtype,
+                   activation: str = "relu", int8: bool = False) -> str:
+    """The layout that runs the inverse: "f32" (``f32_kernel``), "cluster"
+    (``inv_cluster``: bf16, relu, weights in bf16, at the shapes where
+    ``fused_train.uses_cluster`` holds, but ``ROWS_KEPT``) or "rows"
+    (``rows_kernel``: every other bf16 case)."""
+    if dtype != torch.bfloat16:
+        return "f32"
+    if activation != "relu" or int8 or (hidden, n_hidden_m1) in ROWS_KEPT:
+        return "rows"
+    from dpfx_torch.ops import fused_train   # imports this module
+
+    return "cluster" if fused_train.uses_cluster(hidden, n_hidden_m1, dtype) else "rows"
+
+
 def smem_bytes(hidden: int, dtype: torch.dtype, n_hidden_m1: int = 1, int8: bool = False) -> int:
-    """Dynamic shared memory of one block; mirrors the kernel's layout. bf16
-    (the rows kernel): the warps' [16][8] f32 exchange, then two stages of a
-    whole layer's weights (Wh, Wout and Wx^T in rows of H + 8) where they
-    fit and H < 256, with the int8 mode's raw Wh bytes, else one stage with
-    one Wh. f32: the block's 128 points in rows of H + 1 and one weight
-    matrix, whole in rows of H + 1 up to H=128, at H=256 a chunk of 64
-    input columns [H][65]."""
+    """Dynamic shared memory of one block of ``rows_kernel`` (bf16) or
+    ``f32_kernel``; mirrors the kernels' layouts. bf16: the warps' [16][8]
+    f32 exchange, then two stages of a whole layer's weights (Wh, Wout and
+    Wx^T in rows of H + 8) where they fit and H < 256, with the int8 mode's
+    raw Wh bytes, else one stage with one Wh. f32: the block's 128 points in
+    rows of H + 1, their x and (s, t), then chunk buffers (Wh columns in
+    rows of KC + 1, the whole row up to H=128 and 32 at H=256, and the
+    product's bh) and sets of a layer's small weights (Wx, hz, Wout, bout):
+    two of each from H=128 on, where the chunks stream behind the products,
+    else one."""
     r = lambda n: (n + 127) // 128 * 128
     if dtype == torch.bfloat16:
         ld, o = hidden + 8, 8 * 16 * 8 * 4
@@ -303,10 +384,12 @@ def smem_bytes(hidden: int, dtype: torch.dtype, n_hidden_m1: int = 1, int8: bool
         if hidden < 256 and o + raw + 2 * (r(n_hidden_m1 * hidden * ld * 2) + 2 * w8) <= SMEM_LIMIT:
             return o + raw + 2 * (r(n_hidden_m1 * hidden * ld * 2) + 2 * w8)
         return o + r(min(n_hidden_m1, 1) * hidden * ld * 2) + 2 * w8
-    ld, t = hidden + 1, 128
-    kc = hidden if hidden <= 128 else 64
-    return (r(t * ld * 4) + r(hidden * (kc + 1) * 4) + r(3 * t * 4) + r(6 * t * 4)
-            + r(3 * hidden * 4) + 2 * r(hidden * 4) + r(6 * hidden * 4) + r(8 * 4))
+    t = 128
+    kc = hidden if hidden <= 128 else 32
+    nbuf = 2 if hidden >= 128 else 1
+    chunk = r(hidden * (kc + 1) * 4) + r(hidden * 4)
+    small = r(3 * hidden * 4) + r(hidden * 4) + r(6 * hidden * 4) + r(8 * 4)
+    return r(t * (hidden + 1) * 4) + r(3 * t * 4) + r(6 * t * 4) + nbuf * (chunk + small)
 
 
 def _check_kernel_args(sp: StackedFlowParams, hz: Tensor, dtype: torch.dtype,
@@ -363,18 +446,30 @@ def _launch(sp: StackedFlowParams, hz: Tensor, ut: Optional[Tensor], out: Tensor
     else:
         # weight operands in the compute dtype (the cast is the kernel's rounding)
         wx, wh, wout = (w.to(dtype).contiguous() for w in (sp.wx, sp.wh, sp.wout))
+    layout = inverse_layout(h, nh1, dtype, activation, quantized is not None)
     ptr = lambda t: None if t is None else t.data_ptr()
     stream = torch.cuda.current_stream(hz.device).cuda_stream
+    seed = int(seed) & (2**64 - 1)
     with torch.cuda.device(hz.device):
-        err = _lib().dpfx_fused_sampler_launch(
-            ptr(hz), ptr(ut), ptr(out), ptr(u_out),
-            ptr(wx), ptr(wh) if nh1 else None, ptr(sp.bh) if nh1 else None,
-            ptr(wout), ptr(sp.bout), ptr(sp.masks),
-            b, c, n, k, h, nh1, sp.scale_cap, ACT_CODES[activation],
-            int(dtype == torch.bfloat16), int(seed) & (2**64 - 1), float(noise_scale),
-            ptr(quantized.scales) if quantized is not None else None, stream)
+        if layout == "cluster":
+            carry = torch.empty((h // 64, b, 3, n), device=hz.device, dtype=torch.float32)
+            err = _cluster_lib().dpfx_fused_sampler_cluster_launch(
+                ptr(hz), ptr(ut), ptr(out), ptr(u_out), carry.data_ptr(),
+                ptr(wx), ptr(wh), ptr(sp.bh), ptr(wout), ptr(sp.bout), ptr(sp.masks),
+                b, c, n, k, h, nh1, sp.scale_cap, seed, float(noise_scale),
+                _cluster_grid(h, nh1, hz.device.index or 0), stream)
+        else:
+            err = _lib().dpfx_fused_sampler_launch(
+                ptr(hz), ptr(ut), ptr(out), ptr(u_out),
+                ptr(wx), ptr(wh) if nh1 else None, ptr(sp.bh) if nh1 else None,
+                ptr(wout), ptr(sp.bout), ptr(sp.masks),
+                b, c, n, k, h, nh1, sp.scale_cap, ACT_CODES[activation],
+                int(dtype == torch.bfloat16), seed, float(noise_scale),
+                ptr(quantized.scales) if quantized is not None else None, stream)
     if err != 0:
-        raise RuntimeError(f"fused sampler kernel launch failed: cudaError {err}")
+        raise RuntimeError(f"fused sampler kernel launch failed ({layout} layout): "
+                           f"cudaError {err}{_error_text(err)}")
+    layout_launches[layout] += 1
 
 
 # ---------------------------------------------------------------- public wrappers

@@ -1,4 +1,4 @@
-"""The training backward (or the f32 sampler) of this tree against another
+"""The training backward (or the sampler) of this tree against another
 checkout's, on the card: the SASS of one kernel from both builds compared
 line by line, and the kernel's wrapper timed in turns.
 
@@ -32,6 +32,17 @@ limits of chip_smoke.py's phase 2 (u: max 5e-2 and p99.9 2e-3 absolute,
 log-det and gradients 2e-2 of their norms) and each must repeat its own
 bits from call to call. The kernel disassembled is then the tree's
 layout's backward, its SASS compared only where both builds have it.
+
+With ``--library fused_sampler --hidden H`` (``--n-hidden``, default 2)
+``fused_sample_points`` runs at B=64, N=2048, K=32 on a point flow of that
+width (the same seeded weights) in bf16 and in f32, each build on the
+layout this tree's wrapper takes (``inverse_layout``: the cluster inverse
+where the build has it, else rows_kernel). f32 must give the same bits in
+both builds; bf16 the same bits where both take the same layout, else
+each build's clouds within phase 2's bf16 limits (max 5e-2, p99.9 2e-3)
+of the plain inverse of its own noise; each build repeats its own bits.
+The kernel disassembled is then by default the flagship's
+``rows_kernel<bf16, 128, relu, two stages>``.
 """
 
 from __future__ import annotations
@@ -50,6 +61,8 @@ from typing import List, Optional, Tuple
 
 # the kernel each library's A/B disassembles by default
 KERNELS = {"fused_train": "bwd_kernel_mmaILi128E", "fused_sampler": "f32_kernelIfLi128E"}
+# the flagship's sampler, disassembled by --library fused_sampler --hidden
+FLAGSHIP_SAMPLER = "rows_kernelI13__nv_bfloat16Li128ELb1ELb1E"
 _ADDR = re.compile(r"/\*[0-9a-f]{4,}\*/|/\* 0x[0-9a-f]+ \*/")
 _TARGET = re.compile(r"\b(BRA|BRX|BSSY|CALL|JMP|RET)\b")
 
@@ -127,13 +140,13 @@ def main(argv=None) -> int:
                                      "library's in KERNELS)")
     ap.add_argument("--turns", type=int, default=8)
     ap.add_argument("--out", type=Path, help="a directory for both disassemblies")
-    ap.add_argument("--hidden", type=int, help="time the forward and the backward at this "
-                                               "point-flow width (fused_train)")
+    ap.add_argument("--hidden", type=int, help="time the forward and the backward "
+                                               "(fused_sampler: the sampler in both dtypes) at "
+                                               "this point-flow width")
     ap.add_argument("--n-hidden", type=int, default=2)
     a = ap.parse_args(argv)
-    if a.hidden and a.library != "fused_train":
-        ap.error("--hidden times fused_train")
-    kernel = a.kernel or KERNELS[a.library]
+    sampler = a.library == "fused_sampler"
+    kernel = a.kernel or (FLAGSHIP_SAMPLER if a.hidden and sampler else KERNELS[a.library])
 
     import torch
 
@@ -149,7 +162,7 @@ def main(argv=None) -> int:
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                           capture_output=True, text=True).stdout.strip()
     print(card, flush=True)
-    if a.hidden and not a.kernel:
+    if a.hidden and not a.kernel and not sampler:
         kernel = _layout_kernel(ft, fs.kernel_hidden(a.hidden), a.n_hidden - 1)
     libs, sass = _build_both(a.parent, kernel, a.library)
     if a.out:
@@ -157,7 +170,7 @@ def main(argv=None) -> int:
         for name, text in sass.items():
             (a.out / f"{name}.sass").write_text(text)
     missing = [n for n, text in sass.items() if not text]
-    if missing and not a.hidden:
+    if missing and not (a.hidden and not sampler):
         print(f"no function matching {kernel!r} in the {' and '.join(missing)}'s build",
               file=sys.stderr)
         return 1
@@ -169,7 +182,7 @@ def main(argv=None) -> int:
         print(f"{kernel}: {len(pn)} and {len(tn)} instructions (branch targets aside), "
               f"{differing(pn, tn)} lines differ", flush=True)
     if a.hidden:
-        return _ab_width(a, libs, card)
+        return (_ab_sampler if sampler else _ab_width)(a, libs, card)
 
     dev, bf = torch.device("cuda"), torch.bfloat16
     g = torch.Generator(device=dev).manual_seed(3)
@@ -330,6 +343,101 @@ def _ab_width(a, libs, card: str) -> int:
           f"{json.dumps(times)}; medians {json.dumps(medians)}; "
           + ("same bits" if same else "each within the plain versions' limits, same bits run to "
                                       "run"))
+    return 0
+
+
+def _ab_sampler(a, libs, card: str) -> int:
+    """--library fused_sampler --hidden: the sampler of both builds in turns,
+    bf16 and f32."""
+    import torch
+
+    from dpfx_torch.compat import randomize_
+    from dpfx_torch.models.coupling import CouplingFlow
+    from dpfx_torch.ops import _build
+    from dpfx_torch.ops import fused_sampler as fs
+
+    dev, k, b, n = torch.device("cuda"), 32, 64, 2048
+    torch.backends.cuda.matmul.allow_tf32 = False
+    kh = fs.kernel_hidden(a.hidden)
+    torch.manual_seed(3)
+    flow = randomize_(CouplingFlow(3, k, a.hidden, a.n_hidden, cond_dim=128, scale_cap=3.0), 3,
+                      0.02 * (128 / kh) ** 0.5)
+    with torch.no_grad():
+        sp = fs.stack_point_flow_params(flow.to(dev))
+    nh1 = sp.wh.shape[1]
+    z = torch.randn((b, 128), generator=torch.Generator(device=dev).manual_seed(3), device=dev)
+    hz = fs.z_projection(sp, z)
+    dts = {"bf16": torch.bfloat16, "f32": torch.float32}
+    layout_of = fs.inverse_layout
+    layouts = {nm: {} for nm in libs}
+
+    def before_cluster(h, n_m1, dtype, activation="relu", int8=False):
+        # a build before the cluster inverse: rows_kernel for every bf16 shape
+        return "f32" if dtype != torch.bfloat16 else "rows"
+
+    def use(name):
+        for fn in (fs._lib, fs._cluster_lib, fs._cluster_grid):
+            fn.cache_clear()
+        _build._loaded["fused_sampler"] = libs[name]
+        has_cluster = hasattr(libs[name], "dpfx_fused_sampler_cluster_launch")
+        fs.inverse_layout = layout_of if has_cluster else before_cluster
+        for key, dt in dts.items():
+            layouts[name][key] = fs.inverse_layout(kh, nh1, dt)
+
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    firsts, times = {}, {nm: {key: [] for key in dts} for nm in libs}
+    order = list(libs)
+    try:
+        for turn in range(a.turns):
+            for name in order if turn % 2 == 0 else order[::-1]:
+                use(name)
+                for key, dt in dts.items():
+                    run = lambda: fs.fused_sample_points(sp, z, 5, n, dtype=dt)  # noqa: E731
+                    x, u = fs.fused_sample_points(sp, z, 5, n, dtype=dt, return_noise=True)
+                    torch.cuda.synchronize()
+                    if (name, key) not in firsts:
+                        firsts[name, key] = x.clone()
+                        xp = fs.fused_inverse_transposed_plain(
+                            sp, u.transpose(1, 2).contiguous(), hz, dt).transpose(1, 2)
+                        e = (x - xp).abs().flatten()
+                        emax, e999 = float(e.max()), float(torch.quantile(e, 0.999))
+                        print(f"{name} {key} ({layouts[name][key]} layout) against the plain "
+                              f"inverse of its noise: max {emax:.3e} p99.9 {e999:.3e}", flush=True)
+                        ok = bool(torch.isfinite(x).all()) and (
+                            key == "f32" or (emax <= 5e-2 and e999 <= 2e-3))
+                        if not ok:
+                            print(f"the {name}'s {key} clouds are off the plain version",
+                                  file=sys.stderr)
+                            return 1
+                    if not torch.equal(x, firsts[name, key]):
+                        print(f"the {name}'s {key} clouds differ from call to call",
+                              file=sys.stderr)
+                        return 1
+                    run()
+                    torch.cuda.synchronize()
+                    start.record()
+                    for _ in range(5):
+                        run()
+                    end.record()
+                    torch.cuda.synchronize()
+                    times[name][key].append(round(start.elapsed_time(end) / 5, 4))
+    finally:
+        fs.inverse_layout = layout_of
+        for fn in (fs._lib, fs._cluster_lib, fs._cluster_grid):
+            fn.cache_clear()
+        _build._loaded.pop("fused_sampler", None)
+    for key in dts:
+        same = layouts["parent"][key] == layouts["tree"][key]
+        if (key == "f32" or same) and not torch.equal(firsts["parent", key], firsts["tree", key]):
+            print(f"the two builds' {key} clouds differ on the same layout", file=sys.stderr)
+            return 1
+    medians = {nm: {kk: round(statistics.median(v), 4) for kk, v in t.items()}
+               for nm, t in times.items()}
+    print(f"fused_sample_points B={b} N={n} K={k} H={a.hidden}->{kh} n_hidden={a.n_hidden}, "
+          f"layouts {json.dumps(layouts)}, ms in turns ({card}): {json.dumps(times)}; medians "
+          f"{json.dumps(medians)}; f32 same bits; bf16 "
+          + ("same bits" if layouts["parent"]["bf16"] == layouts["tree"]["bf16"]
+             else "each within the plain version's limits, same bits run to run"))
     return 0
 
 

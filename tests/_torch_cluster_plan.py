@@ -4,7 +4,11 @@
 the layout fits every bf16 shape it takes; the card tests hold it to the
 library's ``dpfx_fused_train_cluster_smem_bytes`` and
 ``dpfx_fused_train_cluster_tile_points``, and ``cluster_domain`` to
-``fused_train.uses_cluster``. No JAX: the card tests import it."""
+``fused_train.uses_cluster``. The sampler's cluster inverse (``inv_cluster``)
+runs on the forward's plan; ``inverse_carve`` is the carve it would have on
+its own (no log-det row, no per-warp log-det sums), which the tests show
+gives no routed shape another tile or stage count. No JAX: the card tests
+import it."""
 
 from typing import Tuple
 
@@ -59,3 +63,22 @@ def cluster_domain(hidden: int, n_hidden_m1: int, dtype: torch.dtype) -> bool:
             and n_hidden_m1 + 1 > ft.LAYOUT_N_HIDDEN["bfloat16"][hidden]
             and all(cluster_plan(hidden, n_hidden_m1, bwd)[2] <= SMEM_LIMIT
                     for bwd in (False, True)))
+
+
+def inverse_carve(hidden: int, n_hidden_m1: int, t: int, nst: int) -> int:
+    """Bytes of one CTA of the inverse with a carve of its own: the
+    forward's without the per-warp log-det sums (128 B) and with x alone
+    ([G][3][T] floats) where the forward keeps x and the log-det ([G][4][T])."""
+    return (cluster_carve(hidden, n_hidden_m1, False, t, nst) - 128 - _r(G * 4 * t * 4)
+            + _r(G * 3 * t * 4))
+
+
+def inverse_plan(hidden: int, n_hidden_m1: int) -> Tuple[int, int, int]:
+    """(T, stages, bytes) of the inverse's own carve, chosen as
+    ``cluster_plan`` chooses."""
+    for t in (128, 64, 32):
+        for nst in (2, 1):
+            need = inverse_carve(hidden, n_hidden_m1, t, nst)
+            if need <= SMEM_LIMIT:
+                return t, nst, need
+    return 32, 1, inverse_carve(hidden, n_hidden_m1, 32, 1)

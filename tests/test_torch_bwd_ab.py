@@ -4,7 +4,7 @@ the comparison, the differing lines counted, ptxas' line read."""
 
 import pytest
 
-pytest.importorskip("torch")
+torch = pytest.importorskip("torch")
 
 from dpfx_torch.tools import bwd_ab  # noqa: E402
 
@@ -88,5 +88,11 @@ def test_width_mode_disassembles_the_cluster_backward(hidden, n_hidden, want, mo
 
 
 def test_width_mode_needs_the_fused_train_library(tmp_path):
+    """The width mode takes the two libraries it times (fused_train, and
+    fused_sampler's sampler A/B in both dtypes) and no other name; without
+    a card it stops before building anything."""
     with pytest.raises(SystemExit):
-        bwd_ab.main([str(tmp_path), "--library", "fused_sampler", "--hidden", "256"])
+        bwd_ab.main([str(tmp_path), "--library", "fused_encoder", "--hidden", "256"])
+    if not torch.cuda.is_available():
+        for lib in ("fused_train", "fused_sampler"):
+            assert bwd_ab.main([str(tmp_path), "--library", lib, "--hidden", "256"]) == 1

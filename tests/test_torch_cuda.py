@@ -32,14 +32,14 @@ def cuda():
     return torch.device("cuda")
 
 
-def _sp(hidden, n_hidden, activation, dev, k=6, seed=0):
+def _sp(hidden, n_hidden, activation, dev, k=6, seed=0, scale=0.02):
     # scale 0.02: at 0.1 the random H=256 inverse is unstable (|x| reaches
     # 300-3000), and one flipped bf16 rounding, carried on, exceeds any
     # absolute tolerance; at 0.02 the clouds stay O(1)-O(10)
     torch.manual_seed(seed)        # the module's own init
     flow = CouplingFlow(3, k, hidden, n_hidden, cond_dim=16, scale_cap=3.0, activation=activation)
     with torch.no_grad():
-        return fs.stack_point_flow_params(randomize_(flow, seed, 0.02).to(dev))
+        return fs.stack_point_flow_params(randomize_(flow, seed, scale).to(dev))
 
 
 # (256, 3) and (128, 7) stage one Wh at a time in bf16 (a layer's stack
@@ -106,6 +106,139 @@ def test_rows_inverse_round_trips_the_training_forward(cuda, hidden, n_hidden, n
     e = (back - xt).abs()
     assert float((u - xt).abs().max()) > 0.1           # the flow moved the points
     assert float(e.median()) <= 1e-5 and float(e.max()) <= 5e-2
+
+
+# the cluster inverse's shapes (H, n_hidden), each at C=3 and C=8 rows: a
+# ragged N, N below a tile, one cloud; a padded width (192 -> 256)
+CLUSTER_INVERSE_CASES = [(128, 3, 300, 3), (128, 4, 130, 2), (256, 2, 2000, 1), (256, 3, 77, 2),
+                         (192, 2, 200, 2)]
+
+
+def _cluster_sp(hidden, n_hidden, dev, k=4, seed=0):
+    # seeded noise at 0.02 scaled by sqrt(128 / H), as the cluster layout's
+    # training tests take it
+    return _sp(hidden, n_hidden, "relu", dev, k, seed,
+               0.02 * (128 / max(fs.kernel_hidden(hidden), 128)) ** 0.5)
+
+
+@pytest.fixture
+def every_cluster_shape(monkeypatch):
+    """The cluster inverse at every shape it is built for, ROWS_KEPT's too
+    (the route keeps rows_kernel there only because it timed faster)."""
+    monkeypatch.setattr(fs, "ROWS_KEPT", ())
+
+
+def _on_rows_kernel(monkeypatch, sp):
+    """From here on the bf16 relu route takes rows_kernel at sp's shape, the
+    int8 mode's layout: the cluster inverse sums in another order, so only
+    the same layout gives the int8 mode's bits on dequantized stacks."""
+    shape = (sp.wx.shape[1], sp.wh.shape[1])
+    monkeypatch.setattr(fs, "ROWS_KEPT", tuple(fs.ROWS_KEPT) + (shape,))
+
+
+@pytest.mark.parametrize("c", [3, 8])
+@pytest.mark.parametrize("hidden,n_hidden,n,b", CLUSTER_INVERSE_CASES)
+def test_cluster_inverse_matches_plain(cuda, every_cluster_shape, hidden, n_hidden, n, b, c):
+    """The cluster inverse at K=4 against the plain version by phase 2's
+    bf16 limits (max 5e-2, p99.9 2e-3), bit-identical from run to run, rows
+    3.. of a C=8 input passed through, each launch counted on its layout."""
+    sp = _cluster_sp(hidden, n_hidden, cuda, seed=hidden + n_hidden + c)
+    g = torch.Generator(device=cuda).manual_seed(hidden + n)
+    ut = torch.randn((b, c, n), generator=g, device=cuda)
+    z = torch.randn((b, 16), generator=g, device=cuda)
+    fs.reset_launch_counts()
+    x = fs.fused_inverse_transposed(sp, ut, z, dtype=torch.bfloat16)
+    x2 = fs.fused_inverse_transposed(sp, ut, z, dtype=torch.bfloat16)
+    ref = fs.fused_inverse_transposed_plain(sp, ut, fs.z_projection(sp, z), torch.bfloat16)
+    torch.cuda.synchronize()
+    assert fs.launches["fused_inverse"] == 2 and fs.layout_launches == {"rows": 0, "cluster": 2,
+                                                                        "f32": 0}
+    assert torch.equal(x, x2), "the cluster inverse is not bit-identical from run to run"
+    e = (x[:, :3] - ref[:, :3]).abs().flatten()
+    assert float((x[:, :3] - ut[:, :3]).abs().max()) > 0.05      # the flow moved the points
+    assert float(e.max()) <= 5e-2 and float(torch.quantile(e, 0.999)) <= 2e-3, float(e.max())
+    assert torch.equal(x[:, 3:], ut[:, 3:])
+
+
+@pytest.mark.parametrize("hidden,n_hidden", [(128, 3), (128, 4), (256, 2), (256, 3)])
+def test_cluster_inverse_round_trips_the_cluster_forward(cuda, every_cluster_shape, hidden,
+                                                         n_hidden):
+    """fused_train's cluster forward, then the sampler's cluster inverse
+    with the same hz: both run cl_st_partials on the same passthrough
+    coordinates, so x comes back up to the f32 rounding of the affine update
+    (median <= 1e-5; max <= 5e-2, as test_rows_inverse_round_trips_the_training_forward)."""
+    sp = _cluster_sp(hidden, n_hidden, cuda, k=8, seed=n_hidden)
+    h, nh1 = sp.wx.shape[1], sp.wh.shape[1]
+    assert ft._layout(h, nh1, torch.bfloat16, False) == "cluster"
+    g = torch.Generator(device=cuda).manual_seed(2)
+    xt = torch.randn((2, 3, 1000), generator=g, device=cuda)
+    z = torch.randn((2, 16), generator=g, device=cuda)
+    u, _ = ft.fused_forward_kernel(sp.wx, sp.wh, sp.bh, sp.wout, sp.bout, sp.masks, sp.scale_cap,
+                                   xt, fs.z_projection(sp, z), torch.bfloat16)
+    back = fs.fused_inverse_transposed(sp, u, z, dtype=torch.bfloat16)
+    torch.cuda.synchronize()
+    e = (back - xt).abs()
+    assert float((u - xt).abs().max()) > 0.1
+    assert float(e.median()) <= 1e-5 and float(e.max()) <= 5e-2
+
+
+def test_cluster_inverse_noise_is_philox_noise_plain(cuda):
+    """The cluster inverse draws philox_noise_plain's stream (1e-6: logf
+    and cosf a few ulps from torch's), the clouds are its inverse of that
+    noise bit for bit, and a prefix of the points draws the same noise."""
+    sp = _cluster_sp(256, 2, cuda, seed=5)
+    assert fs.inverse_layout(256, 1, torch.bfloat16) == "cluster"
+    z = torch.randn((3, 16), generator=torch.Generator(device=cuda).manual_seed(4), device=cuda)
+    fs.reset_launch_counts()
+    x, u = fs.fused_sample_points(sp, z, 2**40 + 7, 2000, noise_scale=1.1, return_noise=True)
+    _, u_head = fs.fused_sample_points(sp, z, 2**40 + 7, 300, noise_scale=1.1, return_noise=True)
+    back = fs.fused_point_flow_inverse(sp, u, z)
+    torch.cuda.synchronize()
+    assert fs.layout_launches["cluster"] == 3 and fs.launches["fused_sample"] == 2
+    assert float((u - fs.philox_noise_plain(2**40 + 7, 3, 2000, 1.1, device=cuda)).abs().max()) <= 1e-6
+    assert torch.equal(u_head, u[:, :300])
+    assert torch.equal(x, back)
+
+
+def test_cluster_inverse_plan_is_the_forwards(cuda):
+    """The cluster inverse runs on the forward's plan (its shared memory is
+    the library's cluster forward's and the mirror's), the card holds at
+    least one of its clusters at every shape it is built for, and the
+    route takes it exactly at uses_cluster's bf16 shapes but ROWS_KEPT."""
+    from _torch_cluster_plan import cluster_plan
+
+    lib = fs._cluster_lib()
+    for h, nh1 in [(128, 2), (128, 3), (256, 1), (256, 2)]:
+        need = lib.dpfx_fused_sampler_cluster_smem_bytes(h, nh1)
+        assert need == ft._cluster_lib().dpfx_fused_train_cluster_smem_bytes(h, nh1, 0)
+        assert need == cluster_plan(h, nh1, False)[2] <= fs.SMEM_LIMIT
+        assert fs._cluster_grid(h, nh1, cuda.index or 0) >= 1
+    for h in fs.KERNEL_HIDDEN:
+        for nh1 in range(6):
+            want = ft.uses_cluster(h, nh1, torch.bfloat16) and (h, nh1) not in fs.ROWS_KEPT
+            assert fs.inverse_layout(h, nh1, torch.bfloat16) == ("cluster" if want else "rows")
+
+
+def test_f32_sampler_h256_held_to_f64(cuda):
+    """The streamed f32 inverse at H=256 (n_hidden 2 and 4), K=8, against
+    the plain version run in f64 by phase 3f's rule for an f32 forward: its
+    max abs error within 1e-4 or 4x the f32 plain version's own; launched
+    on the f32 layout."""
+    for n_hidden in (2, 4):
+        sp = _cluster_sp(256, n_hidden, cuda, k=8, seed=n_hidden)
+        g = torch.Generator(device=cuda).manual_seed(n_hidden)
+        ut = torch.randn((2, 3, 1000), generator=g, device=cuda)
+        z = torch.randn((2, 16), generator=g, device=cuda)
+        hz = fs.z_projection(sp, z)
+        fs.reset_launch_counts()
+        x = fs.fused_inverse_transposed(sp, ut, z, dtype=torch.float32)
+        xp = fs.fused_inverse_transposed_plain(sp, ut, hz, torch.float32)
+        sp64 = sp._replace(**{kk: v.double() for kk, v in sp._asdict().items() if torch.is_tensor(v)})
+        x64 = fs.fused_inverse_transposed_plain(sp64, ut.double(), hz.double(), torch.float64)
+        torch.cuda.synchronize()
+        assert fs.layout_launches["f32"] == 1
+        kern, drift = float((x.double() - x64).abs().max()), float((xp.double() - x64).abs().max())
+        assert kern <= max(1e-4, 4 * drift), (n_hidden, kern, drift)
 
 
 def test_fused_sample_noise_is_philox_noise_plain(cuda):
@@ -522,11 +655,12 @@ def test_fused_train_f32_deep_conditioners_match_plain(cuda, hidden, n_hidden):
 
 @pytest.mark.parametrize("hidden,n_hidden", [(48, 1), (96, 2), (192, 3), (256, 4), (256, 1)])
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-def test_fused_inverse_padded_widths_match_plain(cuda, hidden, n_hidden, dtype):
+def test_fused_inverse_padded_widths_match_plain(cuda, monkeypatch, hidden, n_hidden, dtype):
     """The sampler's inverse on stacks padded up to the kernel's widths, and
-    f32 at H=256 (Wh staged in chunks of 64 input columns), against the
+    f32 at H=256 (Wh streamed in chunks of 32 input columns), against the
     plain version at test_fused_inverse_matches_plain's limits; twice
-    bit-identical; the int8 mode equals the dequantized stacks bit for bit."""
+    bit-identical; the int8 mode equals the dequantized stacks bit for bit
+    on its own layout (bf16 at the cluster inverse's shapes: rows_kernel)."""
     dt = getattr(torch, dtype)
     sp = _sp(hidden, n_hidden, "relu", cuda)
     assert sp.wx.shape[1] == fs.kernel_hidden(hidden)
@@ -539,6 +673,7 @@ def test_fused_inverse_padded_widths_match_plain(cuda, hidden, n_hidden, dtype):
     q = fs.quantize_flow_params(sp)
     dq = fs.dequantize(q)
     xq = fs.fused_sample_points(sp, z, 3, 300, dtype=dt, quantized=q)
+    _on_rows_kernel(monkeypatch, sp)
     xd = fs.fused_sample_points(sp._replace(wx=dq.wx, wh=dq.wh, wout=dq.wout), z, 3, 300, dtype=dt)
     torch.cuda.synchronize()
     tol = 1e-4 if dt == torch.float32 else 5e-2
@@ -1543,9 +1678,10 @@ def test_emd_cluster_threshold(cuda):
 @pytest.mark.parametrize("hidden,n_hidden,n", [(32, 2, 200), (64, 1, 128), (128, 2, 300),
                                                (256, 3, 77)])
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-def test_int8_sampler_equals_dequantized(cuda, hidden, n_hidden, n, dtype):
+def test_int8_sampler_equals_dequantized(cuda, monkeypatch, hidden, n_hidden, n, dtype):
     """The int8 mode equals, bit for bit, the compute-dtype mode on the
-    host-dequantized stacks with the same seed (noise included)."""
+    host-dequantized stacks with the same seed (noise included), on the
+    int8 mode's layout (bf16 at the cluster inverse's shapes: rows_kernel)."""
     dt = getattr(torch, dtype)
     if fs.smem_bytes(hidden, dt, n_hidden - 1, True) > fs.SMEM_LIMIT:
         pytest.skip(f"hidden={hidden} in {dtype} does not fit the kernel's shared memory")
@@ -1555,6 +1691,7 @@ def test_int8_sampler_equals_dequantized(cuda, hidden, n_hidden, n, dtype):
     z = torch.randn((3, 16), generator=torch.Generator(device=cuda).manual_seed(26), device=cuda)
     fs.reset_launch_counts()
     x, u = fs.fused_sample_points(sp, z, 27, n, dtype=dt, quantized=q, return_noise=True)
+    _on_rows_kernel(monkeypatch, sp)
     xd, ud = fs.fused_sample_points(sp._replace(wx=dq.wx, wh=dq.wh, wout=dq.wout), z, 27, n,
                                     dtype=dt, return_noise=True)
     torch.cuda.synchronize()

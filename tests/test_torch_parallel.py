@@ -178,13 +178,25 @@ def test_supplied_steps_match_one_process_and_dpfx_mesh(runs):
 def test_evaluate_ragged_tail_matches_one_process(runs):
     """Trainer.evaluate on 8 validation clouds in batches of 5 and 3 (a
     ragged row in each at D=2): every metric and median within rtol 1e-6 of
-    D=1, the same on both ranks."""
+    D=1, the same on both ranks, but kl and kl_median. kl is a difference
+    of two f32 terms of magnitude |logp_z| (~22 here), and D=2 evaluates
+    the same rows in other batch compositions, so BLAS blocking gives its
+    terms other f32 bits: a difference of a fraction of one ulp of the
+    terms (np.spacing(np.float32(|logp_z|)), ~1.9e-6 at 22) is a relative
+    difference of kl itself of ~1e-6 and more (seen: 1.10e-6). So kl and
+    kl_median are held to an absolute 4 ulps of their terms, from the same
+    run's |logp_z| (~7.6e-6); logp_z, one of those terms, stays at rtol 1e-6."""
     one = runs["one"]["hostfed"]["val"]
+    kl_atol = 4 * float(np.spacing(np.float32(max(abs(one["logp_z"]),
+                                                  abs(one["logp_z_median"])))))
     for r in runs["ranks"]:
         got = r["hostfed"]["val"]
         assert got.keys() == one.keys()
         for k in one:
-            np.testing.assert_allclose(got[k], one[k], rtol=1e-6, err_msg=k)
+            if k in ("kl", "kl_median"):
+                np.testing.assert_allclose(got[k], one[k], rtol=0, atol=kl_atol, err_msg=k)
+            else:
+                np.testing.assert_allclose(got[k], one[k], rtol=1e-6, err_msg=k)
 
 
 def test_checkpoints_written_by_rank0_only(runs):
