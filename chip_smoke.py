@@ -208,13 +208,16 @@ phase 3j's ranks, which the script starts itself):
      beside the card;
   3l. (after 3j) the kernels' widths and depths off the flagship's grid
      (phase 2's weights, the noise scaled by sqrt(128 / H)): fused_train
-     at K=32, B=8, N=2048 on every stream layout (H=128 with n_hidden 3-4,
-     H=256 with n_hidden 2-4 in bf16, 1-4 in f32) and the padded widths
-     96 and 192, each on the layout uses_stream picks and held to its
-     plain version by phase 2's rules (f32's backward, whose 32-layer walk
-     is ill-conditioned on these flows, to an f64 run of the plain version
-     as phase 3f holds its f32 kernels, with a TF32 control), twice
-     bit-identical; the sampler's f32 layout at H=256 (n_hidden 1-4) and
+     at K=32, B=8, N=2048 on every layout past the mma and block-wide ones
+     (H=128 with n_hidden 3-4, H=256 with n_hidden 2-4 in bf16, 1-4 in
+     f32) and the padded widths 96 and 192, each on the layout _layout
+     picks (f32: the f32 layout at H = 128 and 256) and held to its plain
+     version by phase 2's rules (f32's backward, whose 32-layer walk is
+     ill-conditioned on these flows, to an f64 run of the plain version as
+     phase 3f holds its f32 kernels, with a TF32 control), twice
+     bit-identical; the f32 layout's forward against the block-wide one's
+     bits at H=128 (n_hidden 1-2); the sampler's f32 layout at H=256
+     (n_hidden 1-4) and
      the padded widths 96 and 192 in both dtypes (bf16 relu at H=256 on
      the cluster inverse), the int8 f32 mode equal
      to the dequantized stacks; the latent flow at dz=24 (padded to 32)
@@ -235,8 +238,16 @@ phase 3j's ranks, which the script starts itself):
      against its plain version and in turns with rows_kernel, the route's
      choice beside them;
      (b) config #3 (shapenet_airplane_gen.yaml, f32 point flow) at H=256 on
-     the synthetic family: the f32 sampler, `evaluate --limit 32`, the
-     sampler's kernel at B=64 against the plain version, timed; (c) latcap
+     the synthetic family: the training CLI with the fused point flow (10
+     steps as one resident call, every fused_train launch on the f32
+     layout, every loss finite), its step against the module path, the f32
+     sampler and `evaluate --limit 32` on its checkpoint; the same 10 steps
+     at config #3's own width (H=128, n_hidden 2) with the route's choice;
+     the f32 layout's forward and backward at B=64 x 2048, K=32 against
+     f64 runs of the plain versions, twice bit-identical, timed with their
+     bounds and in turns with the block-wide pair at H=128; the round trip
+     fwd_f32 -> f32_kernel on the same hz (F32_TRIP); the sampler's kernel
+     at B=64 against the plain version, timed; (c) latcap
      with train.fused_latent_flow=true (10 steps), the sampler under
      DPFX_SAMPLE_FUSED_LATENT=1 and its latent kernels at B=64 timed;
   3k. (run after 5c: its trace is held to phase 5b's) the tools of
@@ -281,7 +292,7 @@ phase 3j's ranks, which the script starts itself):
      kernel also held to emd_sweeps_plain, the plain version of its own
      sweep order, on phase 2c's pairs in every mode, with the CTAs per pair
      of each launch, and fast and exact pairwise timed in turns; and the
-     rows of phases 3d, 3e, 3f and 3l (27 rows in all);
+     rows of phases 3d, 3e, 3f and 3l (30 rows in all);
   5. torch.profiler breakdowns of make_sampler(64, 2048) (plain and fused
      latent inverse), of 5 eager train steps and (5b) of one replayed and
      one resident call of 20 steps (fused latent flow off and on), and
@@ -589,6 +600,22 @@ def train_bounds(sp, b: int, n: int):
     return fwd, bwd
 
 
+def train_bounds_f32(sp, b: int, n: int):
+    """The f32 pair on the CUDA cores: one FP32 FMA instruction per product
+    term (train_bounds' FLOP halved) over the FP32 instruction rate, against the
+    bytes of its inputs and outputs with the weights in f32."""
+    k, h, _ = sp.wx.shape
+    nh1 = sp.wh.shape[1]
+    nw = k * (3 * h + nh1 * h * h + 6 * h)
+    small = 4 * k * (nh1 * h + 6 + 3)
+    fwd = bound_cores(1.0 * b * n * k * (9 * h + nh1 * h * h), 0.0,
+                      2 * 12 * b * n + 4 * b * k * h + 4 * nw + small + 4 * b)
+    bwd = bound_cores(1.0 * b * n * k * (27 * h + 3 * nh1 * h * h), 0.0,
+                      3 * 12 * b * n + 2 * 4 * b * k * h + 4 * b + 4 * nw + small
+                      + 4 * (nw + k * (nh1 * h + 6)))
+    return fwd, bwd
+
+
 def latent_bounds(w, b: int):
     """Forward (the inverse does the same work) and backward of the fused
     latent flow at batch b: FLOP of the conditioner products (the backward
@@ -694,6 +721,28 @@ def cluster_ptxas() -> dict:
             m = re.search(r"(fwd|bwd)_clusterILi(\d+)ELi(\d+)E", line)
             cur = (f"fused_train_{m.group(1)} cluster H={m.group(2)} n_hidden={int(m.group(3)) + 1}"
                    if m else None)
+        elif cur and "spill stores" in line:
+            st, ld = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line).groups()
+            found.setdefault(cur, {})["spill"] = f"{st}/{ld}"
+        elif cur and "Used" in line:
+            found.setdefault(cur, {})["regs"] = int(re.search(r"Used (\d+) registers", line).group(1))
+    return found
+
+
+def f32_layout_ptxas() -> dict:
+    """Registers and spilled bytes (stores/loads) of the f32 layout's
+    instances (``fwd_f32<H>``, ``bwd_f32<H, T>``), keyed "fused_train_{fwd,
+    bwd} f32 H=.." (and " T=.." for the backward), from ptxas' log."""
+    import re
+
+    from dpfx_torch.ops import _build
+
+    found, cur = {}, None
+    for line in _build.ptxas_log("fused_train").splitlines():
+        if "Compiling entry function" in line:
+            m = re.search(r"(fwd|bwd)_f32ILi(\d+)E(?:Li(\d+)E)?", line)
+            cur = (f"fused_train_{m.group(1)} f32 H={m.group(2)}"
+                   + (f" T={m.group(3)}" if m.group(3) else "") if m else None)
         elif cur and "spill stores" in line:
             st, ld = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line).groups()
             found.setdefault(cur, {})["spill"] = f"{st}/{ld}"
@@ -3259,12 +3308,24 @@ LATCAP_CONFIG = ROOT / "configs" / "flagship_quality_v3_aug_latcap.yaml"
 # TOL_GRAD_BF16 by their norms, as phase 2 holds the flagship's prior
 TOL_LATCAP_P999 = 1e-2
 F32_CONFIG = ROOT / "configs" / "shapenet_airplane_gen.yaml"
+# the round trip of the f32 training forward and the f32 sampler's inverse
+# on the same hz, on the inputs of `python -m dpfx_torch.tools.bwd_ab PARENT
+# --hidden 256 --dtype float32` (B=64 x 2048, K=32, n_hidden 2, seed 3):
+# what the stream layout's forward (fwd_stream<float, 256>) read there, in
+# the call that measured the f32 layout's (NVIDIA H100 80GB HBM3, 700.00 W).
+# The two forwards give u the same bits, so the limit is no looser than the
+# stream layout's own round trip.
+F32_TRIP = {"median": 2.0 ** -23, "max": 28 * 2.0 ** -23}
+# the schedule of phase 3l (b)'s training runs of config #3: the flagship's
+# warmup and clip (configs/flagship_quality_v3_aug_100k.yaml)
+F32_SCHEDULE = ["train.lr_warmup_steps=1000", "train.grad_clip=1.0"]
 # the shapes the mma and block-wide layouts of the forward or the
 # backward overflow (fused_train.uses_stream): in bf16 the cluster layout's
 # (CLUSTER_SHAPES) and H=256 with n_hidden 4 (the stream
-# layout), in f32 the stream layout's; and one padded width (96 -> 128:
-# the parent layouts; 192 -> 256: the cluster layout in bf16, the stream
-# layout in f32), (hidden, n_hidden) in each compute dtype
+# layout), in f32 the f32 layout's; and one padded width (96 -> 128: the
+# mma layout in bf16, the f32 layout in f32; 192 -> 256: the cluster
+# layout in bf16, the f32 layout in f32), (hidden, n_hidden) in each
+# compute dtype
 STREAM_SHAPES = {"bfloat16": ((128, 3), (128, 4), (256, 2), (256, 3), (256, 4), (96, 2), (192, 2)),
                  "float32": ((128, 3), (128, 4), (256, 1), (256, 2), (256, 3), (256, 4), (96, 2),
                              (192, 2))}
@@ -3508,6 +3569,7 @@ def shapes_path(dev, card, x20, h128_replayed):
     from dpfx_torch.compat import randomize_
     from dpfx_torch.config import load_config
     from dpfx_torch.models import DPF
+    from dpfx_torch.models.coupling import CouplingFlow
     from dpfx_torch.ops import fused_encoder as fe
     from dpfx_torch.ops import fused_latent as fl
     from dpfx_torch.ops import fused_sampler as fs
@@ -3574,7 +3636,8 @@ def shapes_path(dev, card, x20, h128_replayed):
                 fwd, fwd2, fwd_p, du, dld, got, again, ref = train_runs(tw, xt, hz, dt)
                 layout = ft._layout(kh, nh1, dt, True)
                 overflow = (kh == 128 and nh1 >= 2) or (kh == 256 and (nh1 >= 1 or dname == "float32"))
-                want = ("parent" if not overflow else "cluster"
+                want = ("f32" if dname == "float32" and (kh, nh1) not in ft.F32_KEPT
+                        else "parent" if not overflow else "cluster"
                         if dname == "bfloat16" and (kh, nh1) in CLUSTER_SHAPES else "stream")
                 check(layout == want, f"H={h} n_hidden={nh} {dname} takes the {layout} layout")
                 tname = f"fused_train H={h}->{kh} n_hidden={nh} ({layout} layout) K={k} B={bc} N={nc}"
@@ -3599,9 +3662,9 @@ def shapes_path(dev, card, x20, h128_replayed):
                                   fwd_again=fwd2)
                 del got, again, ref
 
-    # the stream layout's f32 forward is the block-wide layout's arithmetic
-    # (each sum over k in order, the same 128-point tile at H=128): forced
-    # onto it where both fit (H=128, n_hidden 1-2), the same bits; its
+    # the f32 layout's forward is the block-wide layout's arithmetic (each
+    # sum over k in order, the same 128-point block and log-det sum): on
+    # the shapes both take (H=128, n_hidden 1-2), the same bits; its
     # backward sums the weight gradients over other tiles (128 points
     # against 32), held to phase 2's f32 limits
     f32 = torch.float32
@@ -3609,31 +3672,35 @@ def shapes_path(dev, card, x20, h128_replayed):
         sp = flow_stack(128, nh, 4)
         tw = (sp.wx, sp.wh, sp.bh, sp.wout, sp.bout, sp.masks, sp.scale_cap)
         xt, hz = flow_inputs(sp)
-        check(not ft.uses_stream(128, nh - 1, f32), f"H=128 n_hidden={nh} f32 is the parent's")
-        u, ld = ft.fused_forward_kernel(*tw, xt, hz, f32)
-        du = torch.randn(u.shape, generator=g, device=dev)
-        dld = torch.randn(ld.shape, generator=g, device=dev)
-        got = ft.fused_backward_kernel(*tw, u, hz, du, dld, f32)
-        parent_layout = ft.uses_stream
-        ft.uses_stream = lambda *a: True
+        check(not ft.uses_stream(128, nh - 1, f32), f"H=128 n_hidden={nh} f32 fits the block-wide "
+                                                    "layout")
+        kept = ft.F32_KEPT
+        ft.F32_KEPT = frozenset()
         try:
-            us, lds = ft.fused_forward_kernel(*tw, xt, hz, f32)
-            gs = ft.fused_backward_kernel(*tw, u, hz, du, dld, f32)
+            u, ld = ft.fused_forward_kernel(*tw, xt, hz, f32)
+            du = torch.randn(u.shape, generator=g, device=dev)
+            dld = torch.randn(ld.shape, generator=g, device=dev)
+            got = ft.fused_backward_kernel(*tw, u, hz, du, dld, f32)
+            ft.F32_KEPT = frozenset({(128, nh - 1)})
+            check(ft._layout(128, nh - 1, f32, True) == "parent",
+                  "F32_KEPT keeps the block-wide pair")
+            ub, ldb = ft.fused_forward_kernel(*tw, xt, hz, f32)
+            gb_ = ft.fused_backward_kernel(*tw, u, hz, du, dld, f32)
         finally:
-            ft.uses_stream = parent_layout
+            ft.F32_KEPT = kept
         torch.cuda.synchronize()
-        same = {nm: torch.equal(a, c) for nm, a, c in zip(grad_names[1:], gs, got)}
-        gerr = {nm: rel(a, c) for nm, a, c in zip(grad_names[1:], gs, got) if c.numel()}
-        print(f"fused_train f32 H=128 n_hidden={nh} K=4 B={bc} N={nc}, stream layout against "
-              f"the block-wide one: u same bits {torch.equal(us, u)}, log-det same bits "
-              f"{torch.equal(lds, ld)}; backward same bits "
+        same = {nm: torch.equal(a, c) for nm, a, c in zip(grad_names[1:], got, gb_)}
+        gerr = {nm: rel(a, c) for nm, a, c in zip(grad_names[1:], got, gb_) if c.numel()}
+        print(f"fused_train f32 H=128 n_hidden={nh} K=4 B={bc} N={nc}, f32 layout against the "
+              f"block-wide one: u same bits {torch.equal(ub, u)}, log-det same bits "
+              f"{torch.equal(ldb, ld)}; backward same bits "
               + " ".join(f"{kk}={v}" for kk, v in same.items()) + "; rel "
               + " ".join(f"{kk}={v:.2e}" for kk, v in gerr.items()))
-        check(torch.equal(us, u) and torch.equal(lds, ld),
-              f"the stream layout's f32 forward has the block-wide one's bits (n_hidden={nh})")
+        check(torch.equal(ub, u) and torch.equal(ldb, ld),
+              f"the f32 layout's forward has the block-wide one's bits (n_hidden={nh})")
         check(all(v <= TOL_GRAD_F32 for v in gerr.values()),
-              f"the stream layout's f32 backward against the block-wide one: {gerr}")
-        del got, gs
+              f"the f32 layout's backward against the block-wide one: {gerr}")
+        del got, gb_
 
     # the sampler: the f32 layout at H=256 and the padded widths, K=32, B=8
     for h, nh in SAMPLER_SHAPES:
@@ -3750,11 +3817,14 @@ def shapes_path(dev, card, x20, h128_replayed):
     regs = {f"{kk} H={hh}": v for hh in ft.STREAM_HIDDEN
             for kk, v in train_ptxas(hh, stream=True).items()}
     regs.update(cluster_ptxas())
+    regs.update(f32_layout_ptxas())
     f32_regs = sampler_ptxas("f32_kernelIfLi256E")
     inv_regs = sampler_ptxas("inv_clusterILi256ELi1E")
     check(all("regs" in regs.get(f"fused_train_{kk} bf16 H=256", {}) for kk in ("fwd", "bwd"))
           and all("regs" in regs.get(f"fused_train_{kk} cluster H={hh} n_hidden={nh1 + 1}", {})
                   for kk in ("fwd", "bwd") for hh, nh1 in CLUSTER_SHAPES)
+          and all(any(kk.startswith(f"fused_train_{d} f32 H={hh}") and "regs" in v
+                      for kk, v in regs.items()) for d in ("fwd", "bwd") for hh in (128, 256))
           and not f32_regs.startswith("None") and not inv_regs.startswith("None"),
           f"ptxas reported the new layouts: {regs}, the f32 sampler at H=256 {f32_regs}, "
           f"inv_cluster<256, 1> {inv_regs}")
@@ -3980,20 +4050,92 @@ def shapes_path(dev, card, x20, h128_replayed):
         del xw, xw2, xwp
     del model_a, sampler_a, sampler_af, u_p, du
 
-    # (b) config #3 (f32 point flow) at H=256 on the synthetic family: the
-    # f32 sampler and the evaluation CLI on seeded random weights
+    # (b) config #3 (f32 point flow) on the synthetic family: at H=256 the
+    # CLI trains 10 steps as one resident call with the fused point flow on
+    # the f32 layout, its step against the module path, then the f32
+    # sampler and the evaluation CLI on its checkpoint; the same 10 steps at
+    # config #3's own width (H=128, n_hidden 2), on the layout the route
+    # takes there. The runs take the flagship's schedule (F32_SCHEDULE):
+    # with config #3's own (lr 1e-3 from the first step, no warmup) the
+    # random model's 10 steps through the CLI go non-finite
+    f32 = torch.float32
     over_b = [*WIDE, "data.dataset=synthetic", "data.synthetic_size=512"]
-    cfg_b = load_config(str(F32_CONFIG), overrides=over_b)
-    check(cfg_b.model.point_flow.compute_dtype == "float32", "config #3's point flow is f32")
-    torch.manual_seed(7)
-    model_b = randomize_(DPF(cfg_b), 7, 0.02 * (128 / 256) ** 0.5).to(dev).eval()
-    pt_b = WORK / "f32_h256" / "params_00000000.pt"     # the name gives the results' step
-    pt_b.parent.mkdir(parents=True, exist_ok=True)
-    torch.save(model_b.state_dict(), pt_b)
+    f32_runs, f32_layouts = {}, {}
+    for hb, over in ((256, over_b), (128, over_b[1:])):
+        bdir = WORK / f"train_f32_h{hb}"
+        shutil.rmtree(bdir, ignore_errors=True)
+        for mod in (ft, fe, fl):
+            mod.reset_launch_counts()
+        t0 = time.perf_counter()
+        rc, _, bcalls, binit = train_cli_run(
+            [str(F32_CONFIG), *over, *F32_SCHEDULE, "train.fused_point_flow=true",
+             "train.steps=10", "train.steps_per_call=10", "train.log_every=5",
+             f"train.lr_decay_steps={TRAIN_STEPS}", "train.ckpt_every=10",
+             f"train.ckpt_dir={bdir}"],
+            scale=0.02 * (128 / hb) ** 0.5, flax=False)
+        torch.cuda.synchronize()
+        bwall = time.perf_counter() - t0
+        blaunch, blay = dict(ft.launches), dict(ft.layout_launches)
+        cfg_bb = load_config(str(F32_CONFIG),
+                             overrides=[*over, *F32_SCHEDULE, "train.fused_point_flow=true"])
+        check(cfg_bb.model.point_flow.compute_dtype == "float32"
+              and cfg_bb.model.point_flow.hidden == hb, "config #3's point flow is f32")
+        brecs = [json.loads(line) for line in
+                 (bdir / cfg_bb.name / "metrics.jsonl").read_text().splitlines()]
+        btr = [r for r in brecs if r["kind"] == "train"]
+        check(rc == 0 and [kk for kk, _ in bcalls] == [10] and [r["step"] for r in btr] == [10],
+              f"config #3 H={hb} train calls {bcalls}, records {btr}")
+        check(all(np.isfinite(r["loss"]) and np.isfinite(r["grad_norm"])
+                  and r["nonfinite_skipped"] == 0 for r in btr)
+              and all(np.isfinite(v) for _, ls in bcalls for v in ls),
+              f"config #3 H={hb}: every loss finite, no step skipped: {btr}")
+        lay_b = ft._layout(hb, 1, f32, True)
+        check(lay_b == ("parent" if (hb, 1) in ft.F32_KEPT else "f32"),
+              f"config #3 at H={hb} n_hidden 2 trains on the {lay_b} layout")
+        for d in ("fwd", "bwd"):
+            want = tm._WARMUP + 10 + (VAL_BATCHES if d == "fwd" else 0)
+            check(blaunch[f"fused_train_{d}"] == want and blay[f"{lay_b}_{d}"] == want
+                  and sum(blay.values()) == 2 * tm._WARMUP + 20 + VAL_BATCHES,
+                  f"config #3 H={hb}: every fused_train {d} launch on the {lay_b} layout: "
+                  f"{blaunch}, {blay}")
+        trained_b = torch.load(bdir / cfg_bb.name / "params_00000010.pt", map_location="cpu",
+                               weights_only=True)
+        moved = sum(not torch.equal(trained_b[kk], v) for kk, v in binit.items())
+        check(moved == len(binit), f"{moved} of {len(binit)} parameters moved (config #3 H={hb})")
+        # its first step against the module path: same weights, batch and noise
+        gb = torch.Generator(device=dev).manual_seed(17)
+        batch = {"x": x20[0], "eps": torch.randn((bm, cfg_bb.model.dz), generator=gb, device=dev)}
+        ref_model = flagship_like(over, 7, F32_CONFIG)
+        mcfg = copy.deepcopy(cfg_bb)
+        mcfg.train.fused_point_flow = False
+        out = {}
+        for name, c in (("fused", cfg_bb), ("module", mcfg)):
+            m = copy.deepcopy(ref_model)
+            txm = tm.make_optimizer(c.train)
+            _, mm = tm.make_train_step(m, txm, c)(tm.init_state(m, txm), batch)
+            out[name] = (float(mm["loss"]), float(mm["grad_norm"]))
+        (lf, gf), (lm, gm) = out["fused"], out["module"]
+        check(abs(lf - lm) <= TOL_STEP_LOSS * abs(lm) and abs(gf - gm) <= TOL_STEP_GNORM * abs(gm),
+              f"the config #3 H={hb} fused step agrees with the module path: {out}")
+        f32_runs[hb] = (bwall, btr, out, bdir, cfg_bb)
+        f32_layouts[hb] = blay
+        print(f"(b) config #3 at H={hb} n_hidden 2 f32 (route: {lay_b} layout): 10 steps (one "
+              f"resident call) in {bwall:.1f} s wall; launches {json.dumps(blaunch)}, by layout "
+              f"{json.dumps(blay)}; loss " + ", ".join(f"{r['loss']:.1f}" for r in btr)
+              + "; grad norm " + ", ".join(f"{r['grad_norm']:.1f}" for r in btr)
+              + f"; fused step vs module path: loss {lf:.4f} vs {lm:.4f} (rel "
+              f"{abs(lf - lm) / abs(lm):.2e}), grad norm {gf:.4f} vs {gm:.4f} (rel "
+              f"{abs(gf - gm) / abs(gm):.2e}) ({card})")
+        del ref_model, m
+    # the f32 sampler and the evaluation CLI on the H=256 checkpoint
+    bdir, cfg_b = f32_runs[256][3], f32_runs[256][4]
+    model_b = DPF(cfg_b).to(dev).eval()
+    model_b.load_state_dict({kk: v.to(dev) for kk, v in torch.load(
+        bdir / cfg_b.name / "params_00000010.pt", map_location="cpu", weights_only=True).items()})
     sampler_b = make_sampler(model_b, bm, nm)
     fs.reset_launch_counts()
     xb = sampler_b(5)
-    rc, res_b, _, eval_b = run_eval_cli([str(F32_CONFIG), *over_b, "--weights", str(pt_b),
+    rc, res_b, _, eval_b = run_eval_cli([str(F32_CONFIG), *over_b, f"train.ckpt_dir={bdir}",
                                          "--limit", "32"])
     f32_launches = fs.launches["fused_sample"]
     check(fs.layout_launches["f32"] == f32_launches, f"(b) every sampler launch on the f32 "
@@ -4002,9 +4144,13 @@ def shapes_path(dev, card, x20, h128_replayed):
     check(xb.shape == (bm, nm, 3) and bool(torch.isfinite(xb).all()) and rc == 0
           and res_b["n_test"] == 32 and finite_numbers(res_b) and f32_launches >= 2,
           f"(b) the f32 sampler at H=256 and its evaluation: {res_b}, {f32_launches} launches")
-    sp_b = fs.stack_point_flow_params(model_b.point_flow)
+    del model_b, sampler_b
+    # the f32 sampler's kernel at the main shape on seeded initial weights
+    # (ten chaotic steps of the random model may leave the flow unbounded)
+    model_b = flagship_like(over_b, 7, F32_CONFIG)
+    with torch.no_grad():
+        sp_b = fs.stack_point_flow_params(model_b.point_flow)
     z = torch.randn((bm, 128), generator=g, device=dev)
-    f32 = torch.float32
     xs, us = fs.fused_sample_points(sp_b, z, 8, nm, dtype=f32, return_noise=True)
     xs2 = fs.fused_sample_points(sp_b, z, 8, nm, dtype=f32)
     xs_p = fs.fused_inverse_transposed_plain(sp_b, us.transpose(1, 2).contiguous(),
@@ -4023,7 +4169,86 @@ def shapes_path(dev, card, x20, h128_replayed):
           f"evaluation --limit 32 in {eval_b:.1f} s: 1-NNA-CD {res_b['1-nna-cd']:.4f}, "
           f"MMD-CD {res_b['mmd-cd']:.5f}; the f32 sampler {s_ms:.3f} ms (plain {s_plain:.3f}, "
           f"bound {b_s:.4f} ms on the FP32 cores) ({card})")
-    del model_b, sampler_b
+    # the f32 layout at the main shape (B=64 x 2048, K=32, H=256, n_hidden
+    # 2) on the same seeded weights: against f64 runs of the plain versions,
+    # twice bit-identical, timed with its bounds
+    tw = (sp_b.wx, sp_b.wh, sp_b.bh, sp_b.wout, sp_b.bout, sp_b.masks, sp_b.scale_cap)
+    xt = x20[1].transpose(1, 2).contiguous()
+    hz = fs.z_projection(sp_b, z)
+    check(ft._layout(256, 1, f32, False) == "f32", "the main f32 shape runs the f32 layout")
+    (u_k, ld_k), fwd2, (u_p, ld_p), du, dld, got, again, ref = train_runs(tw, xt, hz, f32)
+    w64 = tuple(t.double() if torch.is_tensor(t) else t for t in tw)
+    u64 = ft.fused_forward_plain(*w64, xt.double(), hz.double(), torch.float64)[0]
+    ref64 = ft.fused_backward_plain(*w64, u_p.double(), hz.double(), du.double(), dld.double(),
+                                    torch.float64)
+    fname = f"fused_train (f32 layout) B={bm} N={nm} K=32 H=256 n_hidden 2"
+    f64_held(fname, lambda: f64_forward_held(fname, (u_k, ld_k), fwd2, (u_p, ld_p), u64,
+                                             lambda: ft.fused_forward_plain(*tw, xt, hz, f32)),
+             got, again, ref, ref64,
+             lambda: ft.fused_backward_plain(*tw, u_p, hz, du, dld, f32), grad_names[1:])
+    ff_err = float((u_k - u_p).abs().max())
+    fb_err = max(float((a_ - r_).abs().max()) for a_, r_ in zip(got, ref) if r_.numel())
+    del got, again, ref, ref64, u64
+    ff_ms = cuda_ms(lambda: ft.fused_forward_kernel(*tw, xt, hz, f32), 5)
+    fb_ms = cuda_ms(lambda: ft.fused_backward_kernel(*tw, u_p, hz, du, dld, f32), 3)
+    ff_plain = cuda_ms(lambda: ft.fused_forward_plain(*tw, xt, hz, f32), 2, warmup=1)
+    fb_plain = cuda_ms(lambda: ft.fused_backward_plain(*tw, u_p, hz, du, dld, f32), 1, warmup=1)
+    (b_ff, by_ff), (b_fb, by_fb) = train_bounds_f32(sp_b, bm, nm)
+    print(f"fused_train f32 layout at B={bm} N={nm} K=32 H=256 n_hidden 2: forward {ff_ms:.3f} ms "
+          f"= {ff_ms / b_ff:.2f}x its bound {b_ff:.4f} ({by_ff}), backward {fb_ms:.3f} ms = "
+          f"{fb_ms / b_fb:.2f}x its bound {b_fb:.4f} ({by_fb}); plain {ff_plain:.2f} / "
+          f"{fb_plain:.2f} ({card})")
+    del model_b, u_p, du, dld
+    # at config #3's own width (H=128, n_hidden 2) the f32 layout in turns
+    # with the block-wide pair (what the route took before), on the seeded
+    # weights; the route keeps the faster (fused_train.F32_KEPT)
+    with torch.no_grad():
+        sp_c = fs.stack_point_flow_params(flagship_like(over_b[1:], 7, F32_CONFIG).point_flow)
+    twc = (sp_c.wx, sp_c.wh, sp_c.bh, sp_c.wout, sp_c.bout, sp_c.masks, sp_c.scale_cap)
+    hzc = fs.z_projection(sp_c, z)
+    (u_c, _), _, (u_cp, _), duc, dldc, gc, gc2, gcr = train_runs(twc, xt, hzc, f32)
+    check(all(torch.equal(a_, c_) for a_, c_ in zip(gc, gc2)),
+          "the H=128 f32 backward bit-identical from run to run")
+    kept, c_ms = ft.F32_KEPT, {"f32": [], "block-wide": []}
+    for lay in ("f32", "block-wide", "block-wide", "f32"):
+        ft.F32_KEPT = frozenset() if lay == "f32" else frozenset({(128, 1)})
+        try:
+            c_ms[lay].append((cuda_ms(lambda: ft.fused_forward_kernel(*twc, xt, hzc, f32), 5),
+                              cuda_ms(lambda: ft.fused_backward_kernel(*twc, u_cp, hzc, duc, dldc,
+                                                                       f32), 3)))
+        finally:
+            ft.F32_KEPT = kept
+    (b_cf, _), (b_cb, _) = train_bounds_f32(sp_c, bm, nm)
+    f32_h128 = {kk: tuple(sum(t[i] for t in v) / 2 for i in (0, 1)) for kk, v in c_ms.items()}
+    print(f"fused_train f32 at B={bm} N={nm} K=32 H=128 n_hidden 2 (config #3's width), in turns "
+          f"(forward, backward ms): {json.dumps(c_ms)}; bounds {b_cf:.4f} / {b_cb:.4f}; the route "
+          f"takes the {ft._layout(128, 1, f32, True)} layout ({card})")
+    check((f32_h128["f32"][0] + f32_h128["f32"][1] <= sum(f32_h128["block-wide"]))
+          == ((128, 1) not in ft.F32_KEPT), f"the route at H=128 n_hidden 2 takes the faster pair: "
+                                            f"{f32_h128}, F32_KEPT {ft.F32_KEPT}")
+    del u_c, u_cp, duc, dldc, gc, gc2, gcr
+    # the round trip: the f32 forward, then the f32 sampler's inverse on the
+    # same hz (f32_walk walked both ways) on bwd_ab --dtype float32's inputs,
+    # where the stream layout's forward read F32_TRIP in the same call
+    torch.manual_seed(3)
+    rflow = randomize_(CouplingFlow(3, 32, 256, 2, cond_dim=128, scale_cap=3.0), 3,
+                       0.02 * (128 / 256) ** 0.5)
+    with torch.no_grad():
+        sp_r = fs.stack_point_flow_params(rflow.to(dev))
+    g3 = torch.Generator(device=dev).manual_seed(3)
+    xt3 = torch.randn((bm, 3, nm), generator=g3, device=dev)
+    z3 = torch.randn((bm, 128), generator=g3, device=dev)
+    u3, _ = ft.fused_forward_kernel(sp_r.wx, sp_r.wh, sp_r.bh, sp_r.wout, sp_r.bout, sp_r.masks,
+                                    sp_r.scale_cap, xt3, fs.z_projection(sp_r, z3), f32)
+    back = fs.fused_inverse_transposed(sp_r, u3, z3, dtype=f32)
+    torch.cuda.synchronize()
+    e = (back - xt3).abs().flatten()
+    r_med, r_max = float(e.median()), float(e.max())
+    print(f"round trip fwd_f32 -> f32_kernel, f32, B={bm} N={nm} K=32 H=256 n_hidden 2: median "
+          f"{r_med:.6e} max {r_max:.6e} (limits: the stream layout's forward's {F32_TRIP})")
+    check(r_med <= F32_TRIP["median"] and r_max <= F32_TRIP["max"],
+          f"the f32 round trip: median {r_med}, max {r_max} against {F32_TRIP}")
+    del back, e, u3, rflow
 
     # (c) latcap (the latent flow 28 x 512) with the fused latent flow: 10
     # steps, then the sampler through the fused latent inverse
@@ -4123,7 +4348,13 @@ def shapes_path(dev, card, x20, h128_replayed):
             row("fused_sample_inv_cluster", src, "dpfx/ops/fused_sampler.py:309",
                 sample_layouts["cluster"], bs_err, bs_ms, bs_plain, b_bs, by_bs),
             row("fused_sample_f32_h256", "dpfx_torch/ops/csrc/fused_sampler.cu",
-                "dpfx/ops/fused_sampler.py:309", f32_launches, s_err, s_ms, s_plain, b_s, by_s)]
+                "dpfx/ops/fused_sampler.py:309", f32_launches, s_err, s_ms, s_plain, b_s, by_s),
+            row("fused_train_fwd_f32", "dpfx_torch/ops/csrc/fused_train.cu",
+                "dpfx/ops/fused_train.py:131", f32_layouts[256]["f32_fwd"], ff_err, ff_ms, ff_plain,
+                b_ff, by_ff),
+            row("fused_train_bwd_f32", "dpfx_torch/ops/csrc/fused_train.cu",
+                "dpfx/ops/fused_train.py:231", f32_layouts[256]["f32_bwd"], fb_err, fb_ms, fb_plain,
+                b_fb, by_fb)]
 
 
 # ---------------------------------------------------------------- phase 3k: the tools
@@ -5195,7 +5426,7 @@ def main() -> int:
                       f"{v.get('spill')}" for kk, v in lregs.items()) + f" ({card})")
     kernels += eval_kernel_rows(cfg, half_a, half_b, gen_launches, ae_launches)
     kernels += grad_rows + int8_rows + probe_rows + shape_rows
-    check(len(kernels) == 28, f"{len(kernels)} kernel rows")
+    check(len(kernels) == 30, f"{len(kernels)} kernel rows")
     print(json.dumps({"kernels": kernels}))
 
     # ---- 5. where the sampler's time goes (torch.profiler, 5 calls each)

@@ -65,29 +65,22 @@
 //
 // f32 mode (`f32_kernel`): the tight-check mode, IEEE f32 FMA with k in
 // order, the block's 128 points in shared memory, one thread per point for
-// the coupling. The hidden products are register-tiled (thread (tp, to):
-// points tp + 16i, outputs to + 16j; 128 FFMA per 24 LDS a k) on Wh staged
-// in chunks of KC input columns (the whole row up to H=128; 32 at H=256,
-// where one f32 Wh, 263 KB, is more than a block holds): every thread
-// keeps its outputs' sums in registers across the chunks, so each sum runs
-// k = 0 .. H-1 in order and the bits are the whole matrix's at any KC.
-// What bounds it is the FP32 pipes. From H=128 on (f32_pipe) the float
-// instances stream the chunks, which the threads used to load between two
-// barriers while the FMAs waited: two chunk buffers used in turn, chunk q
-// + 1 (and across a product or layer boundary the next one's first) copied
-// with cp.async while the FMAs run on chunk q, each product's bh with its
-// last chunk, and the next layer's Wx, hz, Wout and bout (a second set of
-// the small weights) with that layer's first chunk, behind the last
-// product. The copies are 4 bytes each: 16-byte copies need rows of a
-// multiple of 4 floats, and every such stride puts two of a warp's 16
-// output rows on one bank, where rows of KC + 1 keep the w[j] reads
-// conflict-free. At H=256: 128 x 257 floats of activations, two chunk
-// buffers of 256 x 33 (+ bh), two small sets: 226,560 B. What is left is
-// the product itself (PERF.md: one 256 x 256 product of the 64 x
-// 2048 points at about half the FP32 rate): 24 shared-memory wavefronts a k
-// and warp for its 128 FFMA a thread, at two warps a scheduler. The int8
-// instances convert as they stage and keep synchronous staging into the
-// first buffer.
+// the coupling, on the device code of flow_f32.cuh (f32_walk walked
+// backwards; fused_train.cu's training forward fwd_f32 walks it forwards,
+// so the two compute the same (s, t) bits). The hidden products are
+// register-tiled (chunk_fma, thread (tp, to): points tp + 16i, outputs to +
+// 16j; 128 FFMA per 24 LDS a k) on Wh staged in chunks of KC input columns
+// (the whole row up to H=128; 32 at H=256, where one f32 Wh, 263 KB, is
+// more than a block holds): every thread keeps its outputs' sums in
+// registers across the chunks, so each sum runs k = 0 .. H-1 in order and
+// the bits are the whole matrix's at any KC. What bounds it is the FP32
+// pipes. From H=128 on (f32_pipe) the float instances stream the chunks
+// with cp.async behind the FMAs (two chunk buffers, two small sets: 226,560
+// B at H=256; see the header). What is left is the product itself
+// (PERF.md: one 256 x 256 product of the 64 x 2048 points at about half
+// the FP32 rate): 24 shared-memory wavefronts a k and warp for its 128 FFMA
+// a thread, at two warps a scheduler. The int8 instances convert as they
+// stage and keep synchronous staging into the first buffer.
 //
 // The ragged last tile computes on zeros and writes nothing past N.
 //
@@ -95,6 +88,7 @@
 // launch returns cudaGetLastError().
 
 #include "flow_cluster.cuh"
+#include "flow_f32.cuh"
 
 namespace {
 
@@ -348,82 +342,9 @@ rows_kernel(const float* __restrict__ hz, const float* __restrict__ ut, float* _
 
 // ---------------------------------------------------------------- f32 mode
 
-// input columns of Wh per staged chunk of the f32 kernel: the whole row up
-// to H=128; 32 at H=256, so that two chunk buffers fit beside the 128
-// points' activations
-__host__ __device__ constexpr int f32_kc(int H) { return H <= 128 ? H : 32; }
-
-// whether the f32 instances (weights in f32) stream their Wh chunks: two
-// chunk buffers and two sets of the small weights, filled with cp.async
-// behind the products. The int8 instances convert as they stage, through
-// the registers, and stage synchronously into buffer 0 and set 0.
-__host__ __device__ constexpr bool f32_pipe(int H) { return H >= 128; }
-
-// Shared-memory carve-up of the f32 kernel; the Python wrapper mirrors it
-// (smem_bytes). The points' activations in rows of H + 1. A chunk buffer:
-// KC columns of Wh in rows of KC + 1 (row o holds output o), then bh [H] of
-// the chunk's product. A small set: Wx [H][3], hz [H], Wout [6][H], bout
-// [8] of one layer.
-struct F32Smem {
-  int ld, hs, xs, st, ws, wbuf, wbh, small, sbuf, hz, wout, bout, total;
-  __host__ __device__ F32Smem(int H) {
-    ld = H + 1;
-    const int nbuf = f32_pipe(H) ? 2 : 1;
-    int o = 0;
-    hs = o;    o += round128(TILE * ld * 4);
-    xs = o;    o += round128(3 * TILE * 4);
-    st = o;    o += round128(6 * TILE * 4);
-    wbh = round128(H * (f32_kc(H) + 1) * 4);
-    wbuf = wbh + round128(H * 4);
-    ws = o;    o += nbuf * wbuf;
-    hz = round128(3 * H * 4);
-    wout = hz + round128(H * 4);
-    bout = wout + round128(6 * H * 4);
-    sbuf = bout + round128(8 * 4);
-    small = o; o += nbuf * sbuf;
-    total = o;
-  }
-};
-
-// a stored weight as f32 sees it: an f32 as it is, an int8 q with its scale
-// s as q * s
-__device__ __forceinline__ float weight_f(float v, float) { return v; }
-__device__ __forceinline__ float weight_f(int8_t q, float s) { return __fmul_rn((float)q, s); }
-
-constexpr int F32_PI = TILE / 16;   // points of a thread in the register tile
-
-// acc += hs[:, k0 .. k0 + KC) . ws^T, ws one chunk [H][KC + 1]: thread (tp,
-// to) owns points tp + 16i and outputs to + 16j (128 FFMA per 24 LDS a k),
-// and its sums take k in order, so they are exact IEEE f32 and the same at
-// every KC. Reads are free of bank conflicts: hs rows of H + 1 (the warp's
-// two tp rows differ by 1 bank), ws rows of KC + 1 (the 16 outputs to + 16j
-// a bank each). The k loop is unrolled by 8, which timed faster than 1, 2,
-// 4 and the compiler's choice at H = 128 and 256 (PERF.md).
-template <int H>
-__device__ __forceinline__ void chunk_fma(float (&acc)[F32_PI][H / 16], const float* hs,
-                                          const float* ws, int ld, int k0) {
-  constexpr int NJ = H / 16, KC = f32_kc(H), LW = KC + 1;
-  const int tp = threadIdx.x / 16, to = threadIdx.x % 16;
-#pragma unroll 8
-  for (int kk = 0; kk < KC; ++kk) {
-    float a[F32_PI], w[NJ];
-#pragma unroll
-    for (int i = 0; i < F32_PI; ++i) a[i] = hs[(tp + 16 * i) * ld + k0 + kk];
-#pragma unroll
-    for (int j = 0; j < NJ; ++j) w[j] = ws[(to + 16 * j) * LW + kk];
-#pragma unroll
-    for (int i = 0; i < F32_PI; ++i)
-#pragma unroll
-      for (int j = 0; j < NJ; ++j) acc[i][j] = fmaf(a[i], w[j], acc[i][j]);
-  }
-}
-
-// W: float (weights in f32) or int8_t (int8 mode, with scales [K, 8]).
-// The layers' Wh chunks form one sequence q = 0 .. K NH1 NC - 1 (layer,
-// product, chunk in walk order). Streamed (PIPE): chunk q + 1 goes into
-// buffer (q + 1) & 1 with cp.async while the FMAs run on chunk q, the
-// product's bh with its last chunk, and the next layer's small set with
-// that layer's first chunk, which is in flight behind the last product.
+// the f32 inverse: the block's 128 points walked backwards through the K
+// layers on flow_f32.cuh's device code (f32_walk), the training forward's
+// (fused_train.cu's fwd_f32) walked the other way
 template <typename W, int H>
 __global__ void __launch_bounds__(THREADS)
 f32_kernel(const float* __restrict__ hz, const float* __restrict__ ut, float* __restrict__ out,
@@ -432,182 +353,20 @@ f32_kernel(const float* __restrict__ hz, const float* __restrict__ ut, float* __
            const float* __restrict__ bout, const float* __restrict__ masks,
            const float* __restrict__ scales, int C, int N, int K, int NH1, float cap, int act,
            unsigned long long seed, float noise_scale) {
-  constexpr bool PIPE = std::is_same<W, float>::value && f32_pipe(H);
-  constexpr int NJ = H / 16, KC = f32_kc(H), NC = H / KC;
   extern __shared__ __align__(128) unsigned char smem[];
   const F32Smem L(H);
-  const int ld = L.ld;
-  float* hs = reinterpret_cast<float*>(smem + L.hs);      // [TILE][H + 1]
   float* xs = reinterpret_cast<float*>(smem + L.xs);      // [3][TILE]
-  float* sts = reinterpret_cast<float*>(smem + L.st);     // [6][TILE]
-  auto wbuf = [&](int s) { return reinterpret_cast<float*>(smem + L.ws + s * L.wbuf); };
-  auto sset = [&](int s) { return smem + L.small + s * L.sbuf; };
-
   const int b = blockIdx.y;
   const int n0 = blockIdx.x * TILE;
-  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int tid = threadIdx.x;
   const size_t cloud = (size_t)b * C * N;
-  const int nq = K * NH1 * NC;
-
-  // layer K-1-i's small set into set s: cp.async (PIPE; the caller
-  // commits), or loaded and converted by the threads
-  auto small_load = [&](int i, int s) {
-    const int k = K - 1 - i;
-    float* wxs = reinterpret_cast<float*>(sset(s));
-    float* hzs = reinterpret_cast<float*>(sset(s) + L.hz);
-    float* wos = reinterpret_cast<float*>(sset(s) + L.wout);
-    float* bos = reinterpret_cast<float*>(sset(s) + L.bout);
-    const float* hzk = hz + ((size_t)b * K + k) * H;
-    if constexpr (PIPE) {
-      for (int e = tid; e < 3 * H; e += THREADS) cp_async4(wxs + e, wx + (size_t)k * 3 * H + e);
-      for (int e = tid; e < H; e += THREADS) cp_async4(hzs + e, hzk + e);
-      for (int e = tid; e < 6 * H; e += THREADS) cp_async4(wos + e, wout + (size_t)k * 6 * H + e);
-      if (tid < 6) cp_async4(bos + tid, bout + k * 6 + tid);
-    } else {
-      const float s_wx = scales ? scales[k * 8] : 1.f;
-      const float s_wo = scales ? scales[k * 8 + 2] : 1.f;
-      for (int e = tid; e < 3 * H; e += THREADS) wxs[e] = weight_f(wx[(size_t)k * 3 * H + e], s_wx);
-      for (int e = tid; e < H; e += THREADS) hzs[e] = hzk[e];
-      for (int e = tid; e < 6 * H; e += THREADS) wos[e] = weight_f(wout[(size_t)k * 6 * H + e], s_wo);
-      if (tid < 6) bos[tid] = bout[k * 6 + tid];
-    }
-  };
-  // chunk q into buffer s (PIPE: cp.async, with the product's bh at its last
-  // chunk and the layer's small set at its first but the walk's first; the
-  // copies are committed as one group), or staged and converted by the
-  // threads (bh with the product's first chunk)
-  auto chunk_load = [&](int q, int s) {
-    const int i = q / (NH1 * NC), j = (q / NC) % NH1, c = q % NC, k = K - 1 - i;
-    const W* g = wh + ((size_t)k * NH1 + j) * H * H + c * KC;
-    const float* bhj = bh + ((size_t)k * NH1 + j) * H;
-    float* ws = wbuf(s);
-    float* wb = reinterpret_cast<float*>(reinterpret_cast<unsigned char*>(ws) + L.wbh);
-    if constexpr (PIPE) {
-      for (int v = tid; v < H * KC; v += THREADS) {
-        const int o = v / KC, cc = v % KC;
-        cp_async4(ws + o * (KC + 1) + cc, g + (size_t)o * H + cc);
-      }
-      if (c == NC - 1)
-        for (int e = tid; e < H; e += THREADS) cp_async4(wb + e, bhj + e);
-      if (c == 0 && j == 0 && i > 0) small_load(i, i & 1);
-      cp_async_commit();
-    } else {
-      const float s_wh = scales ? scales[k * 8 + 1] : 1.f;
-      for (int v = tid; v < H * KC; v += THREADS) {
-        const int o = v / KC, cc = v % KC;
-        ws[o * (KC + 1) + cc] = weight_f(g[(size_t)o * H + cc], s_wh);
-      }
-      if (c == 0)
-        for (int e = tid; e < H; e += THREADS) wb[e] = bhj[e];
-    }
-  };
-
   if (tid < TILE) {
     float x[3];
     base_noise(x, n0 + tid, b, N, cloud, ut, u_out, true, seed, noise_scale);
     for (int c = 0; c < 3; ++c) xs[c * TILE + tid] = x[c];
   }
-  if constexpr (PIPE) {
-    small_load(0, 0);
-    if (nq) chunk_load(0, 0);
-    else cp_async_commit();
-  }
-
-  int q = 0;   // the next chunk of the walk
-  for (int i = 0; i < K; ++i) {
-    const int k = K - 1 - i, s = PIPE ? (i & 1) : 0;
-    if constexpr (PIPE) {
-      cp_async_wait_all();
-      __syncthreads();  // layer i's small set has landed; layer i-1 is done with xs and the other set
-      if (!nq && i + 1 < K) {
-        small_load(i + 1, (i + 1) & 1);
-        cp_async_commit();
-      }
-    } else {
-      __syncthreads();  // the previous layer is done with xs and the small set
-      small_load(i, 0);
-      __syncthreads();
-    }
-    const float* wxs = reinterpret_cast<const float*>(sset(s));              // [H][3]
-    const float* hzs = reinterpret_cast<const float*>(sset(s) + L.hz);       // [H]
-    const float* wos = reinterpret_cast<const float*>(sset(s) + L.wout);     // [6][H]
-    const float* bos = reinterpret_cast<const float*>(sset(s) + L.bout);     // [6]
-
-    // h = act(Wx . x + hz)
-    for (int e = tid; e < TILE * H; e += THREADS) {
-      const int p = e / H, o = e % H;
-      float v = wxs[o * 3 + 0] * xs[p];
-      v = fmaf(wxs[o * 3 + 1], xs[TILE + p], v);
-      v = fmaf(wxs[o * 3 + 2], xs[2 * TILE + p], v);
-      hs[p * ld + o] = activate(v + hzs[o], act);
-    }
-
-    // h = act(h . Wh^T + bh), n_hidden - 1 times, Wh in NC chunks
-    for (int j = 0; j < NH1; ++j) {
-      float acc[F32_PI][NJ];
-#pragma unroll
-      for (int ii = 0; ii < F32_PI; ++ii)
-#pragma unroll
-        for (int jj = 0; jj < NJ; ++jj) acc[ii][jj] = 0.f;
-      for (int c = 0; c < NC; ++c, ++q) {
-        if constexpr (PIPE) {
-          cp_async_wait_all();
-          __syncthreads();  // chunk q has landed; every thread is done with chunk q - 1 and wrote h
-          if (q + 1 < nq) chunk_load(q + 1, (q + 1) & 1);
-        } else {
-          __syncthreads();  // every thread is done with the previous chunk and wrote h
-          chunk_load(q, 0);
-          __syncthreads();
-        }
-        chunk_fma<H>(acc, hs, wbuf(PIPE ? q & 1 : 0), ld, c * KC);
-      }
-      __syncthreads();  // every thread has read hs
-      // bh from the buffer of the product's last chunk (PIPE) or of its
-      // first (the only buffer), rewritten only after the next barrier
-      const float* bhs = reinterpret_cast<const float*>(
-          reinterpret_cast<const unsigned char*>(wbuf(PIPE ? (q - 1) & 1 : 0)) + L.wbh);
-      const int tp = tid / 16, to = tid % 16;
-#pragma unroll
-      for (int ii = 0; ii < F32_PI; ++ii)
-#pragma unroll
-        for (int jj = 0; jj < NJ; ++jj) {
-          const int o = to + 16 * jj;
-          hs[(tp + 16 * ii) * ld + o] = activate(acc[ii][jj] + bhs[o], act);
-        }
-    }
-    __syncthreads();
-
-    // st = Wout . h + bout: one warp per point, lanes split the H sum
-    for (int p = warp; p < TILE; p += WARPS) {
-      float part[6] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
-      for (int kk = lane; kk < H; kk += 32) {
-        const float hv = hs[p * ld + kk];
-#pragma unroll
-        for (int r = 0; r < 6; ++r) part[r] = fmaf(wos[r * H + kk], hv, part[r]);
-      }
-#pragma unroll
-      for (int r = 0; r < 6; ++r)
-        for (int off = 16; off; off >>= 1) part[r] += __shfl_xor_sync(0xffffffffu, part[r], off);
-      if (lane < 6) {
-        float v = part[0];
-#pragma unroll
-        for (int r = 1; r < 6; ++r) if (lane == r) v = part[r];
-        sts[lane * TILE + p] = v + bos[lane];
-      }
-    }
-    __syncthreads();
-
-    // inverse coupling on the transformed coordinates
-    if (tid < TILE) {
-      for (int c = 0; c < 3; ++c) {
-        if (masks[k * 3 + c] > 0.f) continue;
-        const float sv = cap * tanhf(sts[c * TILE + tid] / cap);
-        const float t = sts[(3 + c) * TILE + tid];
-        xs[c * TILE + tid] = (xs[c * TILE + tid] - t) * expf(-sv);
-      }
-    }
-  }
-  __syncthreads();
+  f32_walk<W, H, false>(smem, L, hz, wx, wh, bh, wout, bout, masks, scales, b, K, NH1, cap,
+                        ActRt{act});
   if (tid < TILE && n0 + tid < N)
     for (int c = 0; c < 3; ++c) out[cloud + (size_t)c * N + n0 + tid] = xs[c * TILE + tid];
 }

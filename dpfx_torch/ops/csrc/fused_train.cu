@@ -62,7 +62,8 @@
 //     tile and a layer's weights sit in shared memory, so the backward takes
 //     n_hidden - 1 <= 8, 3, 1, 0 at H = 32, 64, 128, 256 (smem_bytes reports
 //     more than a block may use beyond that). Past those limits the wrapper
-//     takes the stream layout (below) for the forward and the backward.
+//     takes the cluster or stream layout (below) for the forward and the
+//     backward.
 //   Cotangents are cast to bf16 before each product; ragged points carry
 //   zero cotangent and no log-det gradient.
 //
@@ -71,22 +72,32 @@
 // same persistent layer-outside-tile structure, f32 dWh accumulated in
 // shared memory, tile 128 forward and 32 backward.
 //
+// f32 layout (`fwd_f32`, `bwd_f32`; flow_f32.cuh, the f32 sampler's device
+// code): the f32 shapes whose block-wide layout overflows (H=256 with
+// n_hidden 1-4, H=128 with n_hidden 3-4), and H=128 with n_hidden 1-2 where
+// it timed faster than the block-wide pair in turns (fused_train.F32_KEPT
+// names the shapes that keep the block-wide pair). The forward is the
+// sampler's 128-point walk run forwards; the backward keeps every level of
+// a tile of 32-128 points and runs its three products per hidden layer on
+// the same register tile, with Wh streamed by cp.async. See fwd_f32 and
+// bwd_f32 below.
+//
 // cluster layout (`fwd_cluster`, `bwd_cluster`, bf16; flow_cluster.cuh): the
 // bf16 shapes whose mma layout overflows a block (H=128 with n_hidden 3-4,
 // H=256 with n_hidden 2-3): one layer split across a thread-block cluster of
 // H / 64 CTAs, rank r owning hidden columns [64r, 64r + 64). See its header.
 //
-// stream layout (`fwd_stream`, `bwd_stream`): the f32 shapes whose
-// block-wide layout overflows (H=256, H=128 with n_hidden 3-4) and the one
-// bf16 training shape the cluster plan cannot hold (H=256 with n_hidden 4):
-// smaller point tiles, Wh staged in chunks of output columns, dWh summed
-// in a global slice. See StreamSmem.
+// stream layout (`fwd_stream`, `bwd_stream`): the one bf16 training shape
+// the cluster plan cannot hold (H=256 with n_hidden 4): smaller point tiles,
+// Wh staged in chunks of output columns, dWh summed in a global slice. See
+// StreamSmem.
 //
 // Plain C interface, loaded with ctypes (dpfx_torch/ops/_build.py). Each
 // launch returns cudaGetLastError().
 
 #include "flow_bwd_rows.cuh"
 #include "flow_cluster.cuh"
+#include "flow_f32.cuh"
 
 namespace {
 
@@ -222,6 +233,117 @@ cudaError_t launch_bwd_mma(float* y, float* dy, const float* dld, const float* h
       static_cast<const bf16*>(wout), bout, masks, part, dhz_part, B, N, K, NH1, cap);
   if ((e = cudaGetLastError()) != cudaSuccess) return e;
   return bwd_rows_reduce<H>(part, dhz_part, dw, dhz, B, N, K, NH1, blocks, stream);
+}
+
+// The per-tile pieces of the persistent backward that bwd_kernel,
+// bwd_stream and bwd_f32 share (S: the stored type of the activations and cotangents, each
+// rounded to S where it enters a product): the coupling cotangents with the
+// layer input from the closed-form inverse, dWout, dh_last, and dWx with
+// this tile's dhz partial and dy_in. Each sum runs over the tile's points in
+// order.
+
+// the coupling's cotangents of the tile's T points: from (s, t) in dst
+// [6][T] and the layer output and its cotangent (ys, dys [3][T]), the layer
+// input xks, d(s, t) into dst and where(mask, dy, dy * es) into dyn
+__device__ __forceinline__ void tile_cotangents(int T, int n0, int N, float dld_b,
+                                                const float* masks_k, float cap, const float* ys,
+                                                const float* dys, float* dst, float* xks,
+                                                float* dyn) {
+  for (int p = threadIdx.x; p < T; p += THREADS) {
+    const bool valid = n0 + p < N;
+    const float g_ld = valid ? dld_b : 0.f;
+    float st_s[3], st_t[3];
+    for (int c = 0; c < 3; ++c) {
+      st_s[c] = dst[c * T + p];
+      st_t[c] = dst[(3 + c) * T + p];
+    }
+    for (int c = 0; c < 3; ++c) {
+      const float yv = ys[c * T + p], dyv = dys[c * T + p];
+      if (masks_k[c] > 0.f) {
+        xks[c * T + p] = yv;
+        dst[c * T + p] = 0.f;
+        dst[(3 + c) * T + p] = 0.f;
+        dyn[c * T + p] = dyv;
+      } else {
+        const float th = tanhf(st_s[c] / cap), es = expf(cap * th);
+        const float xk = (yv - st_t[c]) / es;
+        const float ds = dyv * xk * es + g_ld;
+        xks[c * T + p] = xk;
+        dst[c * T + p] = ds * (1.f - th * th);
+        dst[(3 + c) * T + p] = dyv;
+        dyn[c * T + p] = dyv * es;
+      }
+    }
+  }
+}
+
+// dWout += rnd(dst) h_last^T, dbout += sum(dst)
+template <typename S, int H>
+__device__ __forceinline__ void tile_dwout(int T, int ld, const float* dst, const S* hlast,
+                                          float* adwout, float* adbout) {
+  for (int e = threadIdx.x; e < 6 * H; e += THREADS) {
+    const int r = e / H, o = e % H;
+    float s = 0.f;
+    for (int p = 0; p < T; ++p) s = fmaf(rnd<S>(dst[r * T + p]), to_f(hlast[p * ld + o]), s);
+    adwout[e] += s;
+  }
+  if (threadIdx.x < 6) {
+    float s = 0.f;
+    for (int p = 0; p < T; ++p) s += dst[threadIdx.x * T + p];
+    adbout[threadIdx.x] += s;
+  }
+}
+
+// dh_last = (Wout^T rnd(dst)) * (h_last > 0), in place over h_last; its
+// column sums into first_sum (added to it where accumulate)
+template <typename S, int H>
+__device__ __forceinline__ void tile_dh_last(int T, int ld, const float* dst, const float* wos,
+                                            S* hlast, float* first_sum, bool accumulate) {
+  for (int o = threadIdx.x; o < H; o += THREADS) {
+    float w[6];
+    for (int r = 0; r < 6; ++r) w[r] = wos[r * H + o];
+    float s = 0.f;
+    for (int p = 0; p < T; ++p) {
+      float v = 0.f;
+      for (int r = 0; r < 6; ++r) v = fmaf(w[r], rnd<S>(dst[r * T + p]), v);
+      v = v * (to_f(hlast[p * ld + o]) > 0.f ? 1.f : 0.f);
+      s += v;
+      hlast[p * ld + o] = from_f<S>(v);
+    }
+    first_sum[o] = accumulate ? first_sum[o] + s : s;
+  }
+}
+
+// dWx += rnd(dh_0) rnd(x_k)^T; this tile's dhz partial; dy_in = where(mask,
+// dy, dy * es) + rnd(Wx)^T rnd(dh_0) (one warp per point) and the layer
+// input written over the layer output
+template <typename S, int H>
+__device__ __forceinline__ void tile_dwx_dy(int T, int ld, int n0, int N, size_t cloud,
+                                           const S* dh0, const float* xks, const float* dyn,
+                                           const float* wxs, const float* dhzs, float* adwx,
+                                           float* dhz_out, float* y, float* dy) {
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  for (int e = threadIdx.x; e < 3 * H; e += THREADS) {
+    const int o = e / 3, c = e % 3;
+    float s = 0.f;
+    for (int p = 0; p < T; ++p) s = fmaf(to_f(dh0[p * ld + o]), rnd<S>(xks[c * T + p]), s);
+    adwx[e] += s;
+  }
+  for (int e = threadIdx.x; e < H; e += THREADS) dhz_out[e] = dhzs[e];
+  for (int p = warp; p < T; p += WARPS) {
+    float s[3] = {0.f, 0.f, 0.f};
+    for (int o = lane; o < H; o += 32) {
+      const float d = to_f(dh0[p * ld + o]);
+      for (int c = 0; c < 3; ++c) s[c] = fmaf(wxs[o * 3 + c], d, s[c]);
+    }
+    for (int c = 0; c < 3; ++c)
+      for (int off = 16; off; off >>= 1) s[c] += __shfl_xor_sync(0xffffffffu, s[c], off);
+    if (lane == 0 && n0 + p < N)
+      for (int c = 0; c < 3; ++c) {
+        dy[cloud + (size_t)c * N + n0 + p] = dyn[c * T + p] + s[c];
+        y[cloud + (size_t)c * N + n0 + p] = xks[c * T + p];
+      }
+  }
 }
 
 // ---------------------------------------------------------------- f32 mode
@@ -454,7 +576,7 @@ bwd_kernel(float* __restrict__ y, float* __restrict__ dy, const float* __restric
   float* dhzs = reinterpret_cast<float*>(smem + L.dhz);       // [H] this tile's dhz
   float* adbh = reinterpret_cast<float*>(smem + L.adbh);      // [NH1][H]
 
-  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int tid = threadIdx.x;
   const int nt = (N + T - 1) / T, tiles = B * nt;
   const int per_layer = 3 * H + NH1 * H * H + NH1 * H + 6 * H + 6;
   float* hlast = hs + NH1 * hstride;
@@ -494,64 +616,12 @@ bwd_kernel(float* __restrict__ y, float* __restrict__ dy, const float* __restric
       out_layer<H>(dst, hlast, ld, T, wos, bos);   // st into dst, overwritten below
       __syncthreads();
 
-      // coupling cotangents; the layer input from the closed-form inverse
-      if (tid < T) {
-        const bool valid = n0 + tid < N;
-        const float g_ld = valid ? dld[b] : 0.f;
-        float st_s[3], st_t[3];
-        for (int c = 0; c < 3; ++c) {
-          st_s[c] = dst[c * T + tid];
-          st_t[c] = dst[(3 + c) * T + tid];
-        }
-        for (int c = 0; c < 3; ++c) {
-          const float yv = ys[c * T + tid], dyv = dys[c * T + tid];
-          if (masks[k * 3 + c] > 0.f) {
-            xks[c * T + tid] = yv;
-            dst[c * T + tid] = 0.f;
-            dst[(3 + c) * T + tid] = 0.f;
-            dyn[c * T + tid] = dyv;
-          } else {
-            const float th = tanhf(st_s[c] / cap), es = expf(cap * th);
-            const float xk = (yv - st_t[c]) / es;
-            const float ds = dyv * xk * es + g_ld;
-            xks[c * T + tid] = xk;
-            dst[c * T + tid] = ds * (1.f - th * th);
-            dst[(3 + c) * T + tid] = dyv;
-            dyn[c * T + tid] = dyv * es;
-          }
-        }
-      }
+      tile_cotangents(T, n0, N, dld[b], masks + k * 3, cap, ys, dys, dst, xks, dyn);
       __syncthreads();
-
-      // dWout += rnd(dst) rnd(h_last)^T, dbout += sum(dst)
-      for (int e = tid; e < 6 * H; e += THREADS) {
-        const int r = e / H, o = e % H;
-        float s = 0.f;
-        for (int p = 0; p < T; ++p) s = fmaf(dst[r * T + p], hlast[p * ld + o], s);
-        adwout[e] += s;
-      }
-      if (tid < 6) {
-        float s = 0.f;
-        for (int p = 0; p < T; ++p) s += dst[tid * T + p];
-        adbout[tid] += s;
-      }
+      tile_dwout<float, H>(T, ld, dst, hlast, adwout, adbout);
       __syncthreads();
-
-      // dh_last = (Wout^T rnd(dst)) * (h_last > 0), in place over h_last
       float* first_sum = NH1 > 0 ? adbh + (NH1 - 1) * H : dhzs;
-      for (int o = tid; o < H; o += THREADS) {
-        float w[6];
-        for (int r = 0; r < 6; ++r) w[r] = wos[r * H + o];
-        float s = 0.f;
-        for (int p = 0; p < T; ++p) {
-          float v = 0.f;
-          for (int r = 0; r < 6; ++r) v = fmaf(w[r], dst[r * T + p], v);
-          v = v * (hlast[p * ld + o] > 0.f ? 1.f : 0.f);
-          s += v;
-          hlast[p * ld + o] = v;
-        }
-        first_sum[o] = NH1 > 0 ? first_sum[o] + s : s;
-      }
+      tile_dh_last<float, H>(T, ld, dst, wos, hlast, first_sum, NH1 > 0);
 
       for (int j = NH1 - 1; j >= 0; --j) {
         float* dh = hs + (j + 1) * hstride;   // cotangent of h_{j+1}, masked
@@ -574,32 +644,8 @@ bwd_kernel(float* __restrict__ y, float* __restrict__ dy, const float* __restric
       }
       __syncthreads();
 
-      // dWx += rnd(dh_0) rnd(x_k)^T; this tile's dhz partial
-      const float* dh0 = hs;
-      for (int e = tid; e < 3 * H; e += THREADS) {
-        const int o = e / 3, c = e % 3;
-        float s = 0.f;
-        for (int p = 0; p < T; ++p) s = fmaf(dh0[p * ld + o], xks[c * T + p], s);
-        adwx[e] += s;
-      }
-      for (int e = tid; e < H; e += THREADS)
-        dhz_part[((size_t)tile * K + k) * H + e] = dhzs[e];
-
-      // dy_in = where(mask, dy, dy * es) + Wx^T rnd(dh_0): one warp per point
-      for (int p = warp; p < T; p += WARPS) {
-        float s[3] = {0.f, 0.f, 0.f};
-        for (int o = lane; o < H; o += 32) {
-          const float d = dh0[p * ld + o];
-          for (int c = 0; c < 3; ++c) s[c] = fmaf(wxs[o * 3 + c], d, s[c]);
-        }
-        for (int c = 0; c < 3; ++c)
-          for (int off = 16; off; off >>= 1) s[c] += __shfl_xor_sync(0xffffffffu, s[c], off);
-        if (lane == 0 && n0 + p < N)
-          for (int c = 0; c < 3; ++c) {
-            dy[cloud + (size_t)c * N + n0 + p] = dyn[c * T + p] + s[c];
-            y[cloud + (size_t)c * N + n0 + p] = xks[c * T + p];
-          }
-      }
+      tile_dwx_dy<float, H>(T, ld, n0, N, cloud, hs, xks, dyn, wxs, dhzs, adwx,
+                            dhz_part + ((size_t)tile * K + k) * H, y, dy);
     }
     __syncthreads();
     // this block's partial of layer k: [dWx | dWh | dbh | dWout | dbout]
@@ -621,18 +667,15 @@ bwd_kernel(float* __restrict__ y, float* __restrict__ dy, const float* __restric
 
 // ---------------------------------------------------------------- stream layout
 
-// The layout for the shapes whose activations or weights overflow the
-// layouts above and the cluster layout (the f32 forward and backward at
-// H=256, the f32 backward at H=128 with n_hidden 3-4, bf16 at H=256 with
-// n_hidden 4): the wrapper picks it for the forward and the backward
-// together wherever either of the others does not fit, so that the
-// backward's recompute is the forward's arithmetic. S is the stored type: bf16 (the
-// bf16 mode: the activations and cotangents stored rounded, as the Pallas
-// kernel's operands are; WMMA products on the tensor cores, f32 sums) or
-// float (the f32 mode: IEEE FMA, each sum over k in order, so the forward
-// has fwd_kernel's bits where both take a 128-point tile, as chip_smoke.py's
-// phase 3l checks; the backward sums its weight gradients over other tiles
-// than bwd_kernel's 32 points). What it does about the overflow:
+// The layout for the shape whose activations or weights overflow the
+// layouts above and the cluster layout (bf16 at H=256 with n_hidden 4; the
+// instances are bf16 only, the f32 layout below takes the f32 shapes): the
+// wrapper picks it for the forward and the backward together, so that the
+// backward's recompute is the forward's arithmetic. S is the stored type,
+// bf16: the activations and cotangents stored rounded, as the Pallas
+// kernel's operands are; WMMA products on the tensor cores, f32 sums. The
+// carve-up (StreamSmem) also sizes an f32 tile, which the C interface
+// reports and the tests' mirror checks. What it does about the overflow:
 //   * a point tile of T (128 .. 16) points, the largest whose activations
 //     fit beside one chunk of weights: the forward keeps two levels of the
 //     tile, the backward all n_hidden (they become the cotangents in place);
@@ -704,12 +747,6 @@ __device__ void stage_rows(bf16* dst, int ld, const bf16* g, int gs, int rows, i
     const int r = v / vpr, c = (v % vpr) * 8;
     *reinterpret_cast<uint4*>(dst + r * ld + c) =
         *reinterpret_cast<const uint4*>(g + (size_t)r * gs + c);
-  }
-}
-__device__ void stage_rows(float* dst, int ld, const float* g, int gs, int rows, int cols) {
-  for (int v = threadIdx.x; v < rows * cols; v += THREADS) {
-    const int r = v / cols, c = v % cols;
-    dst[r * ld + c] = g[(size_t)r * gs + c];
   }
 }
 
@@ -792,6 +829,7 @@ fwd_stream(const float* __restrict__ xt, const float* __restrict__ hz, float* __
            const float* __restrict__ bh, const S* __restrict__ wout,
            const float* __restrict__ bout, const float* __restrict__ masks, int N, int K,
            int NH1, float cap) {
+  static_assert(is_bf16<S>, "the stream layout is built for bf16 (f32 takes the f32 layout)");
   extern __shared__ __align__(128) unsigned char smem[];
   const StreamSmem L(H, NH1, is_bf16<S>, false);
   const int T = L.T, ld = L.ld;
@@ -859,6 +897,7 @@ bwd_stream(float* __restrict__ y, float* __restrict__ dy, const float* __restric
            const float* __restrict__ bout, const float* __restrict__ masks,
            float* __restrict__ part, float* __restrict__ dhz_part, float* __restrict__ wacc,
            int B, int N, int K, int NH1, float cap) {
+  static_assert(is_bf16<S>, "the stream layout is built for bf16 (f32 takes the f32 layout)");
   extern __shared__ __align__(128) unsigned char smem[];
   const StreamSmem L(H, NH1, is_bf16<S>, true);
   const int T = L.T, ld = L.ld, lw = L.lw, NC = L.NC;
@@ -883,7 +922,7 @@ bwd_stream(float* __restrict__ y, float* __restrict__ dy, const float* __restric
   float* dhzs = reinterpret_cast<float*>(smem + L.dhz);       // [H] this tile's dhz
   float* adbh = reinterpret_cast<float*>(smem + L.adbh);      // [NH1][H]
 
-  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int tid = threadIdx.x;
   const int nt = (N + T - 1) / T, tiles = B * nt;
   const int per_layer = 3 * H + NH1 * H * H + NH1 * H + 6 * H + 6;
   S* hlast = hs + NH1 * hst;
@@ -922,64 +961,12 @@ bwd_stream(float* __restrict__ y, float* __restrict__ dy, const float* __restric
       out_layer_s<S, H>(dst, hlast, ld, T, wos, bos);   // st into dst, overwritten below
       __syncthreads();
 
-      // coupling cotangents; the layer input from the closed-form inverse
-      for (int p = tid; p < T; p += THREADS) {
-        const bool valid = n0 + p < N;
-        const float g_ld = valid ? dld[b] : 0.f;
-        float st_s[3], st_t[3];
-        for (int c = 0; c < 3; ++c) {
-          st_s[c] = dst[c * T + p];
-          st_t[c] = dst[(3 + c) * T + p];
-        }
-        for (int c = 0; c < 3; ++c) {
-          const float yv = ys[c * T + p], dyv = dys[c * T + p];
-          if (masks[k * 3 + c] > 0.f) {
-            xks[c * T + p] = yv;
-            dst[c * T + p] = 0.f;
-            dst[(3 + c) * T + p] = 0.f;
-            dyn[c * T + p] = dyv;
-          } else {
-            const float th = tanhf(st_s[c] / cap), es = expf(cap * th);
-            const float xk = (yv - st_t[c]) / es;
-            const float ds = dyv * xk * es + g_ld;
-            xks[c * T + p] = xk;
-            dst[c * T + p] = ds * (1.f - th * th);
-            dst[(3 + c) * T + p] = dyv;
-            dyn[c * T + p] = dyv * es;
-          }
-        }
-      }
+      tile_cotangents(T, n0, N, dld[b], masks + k * 3, cap, ys, dys, dst, xks, dyn);
       __syncthreads();
-
-      // dWout += rnd(dst) h_last^T, dbout += sum(dst)
-      for (int e = tid; e < 6 * H; e += THREADS) {
-        const int r = e / H, o = e % H;
-        float s = 0.f;
-        for (int p = 0; p < T; ++p) s = fmaf(rnd<S>(dst[r * T + p]), to_f(hlast[p * ld + o]), s);
-        adwout[e] += s;
-      }
-      if (tid < 6) {
-        float s = 0.f;
-        for (int p = 0; p < T; ++p) s += dst[tid * T + p];
-        adbout[tid] += s;
-      }
+      tile_dwout<S, H>(T, ld, dst, hlast, adwout, adbout);
       __syncthreads();
-
-      // dh_last = (Wout^T rnd(dst)) * (h_last > 0), in place over h_last
       float* first_sum = NH1 > 0 ? adbh + (NH1 - 1) * H : dhzs;
-      for (int o = tid; o < H; o += THREADS) {
-        float w[6];
-        for (int r = 0; r < 6; ++r) w[r] = wos[r * H + o];
-        float s = 0.f;
-        for (int p = 0; p < T; ++p) {
-          float v = 0.f;
-          for (int r = 0; r < 6; ++r) v = fmaf(w[r], rnd<S>(dst[r * T + p]), v);
-          v = v * (to_f(hlast[p * ld + o]) > 0.f ? 1.f : 0.f);
-          s += v;
-          hlast[p * ld + o] = from_f<S>(v);
-        }
-        first_sum[o] = NH1 > 0 ? first_sum[o] + s : s;
-      }
+      tile_dh_last<S, H>(T, ld, dst, wos, hlast, first_sum, NH1 > 0);
 
       for (int j = NH1 - 1; j >= 0; --j) {
         S* dh = hs + (j + 1) * hst;   // cotangent of h_{j+1}, masked
@@ -1001,45 +988,15 @@ bwd_stream(float* __restrict__ y, float* __restrict__ dy, const float* __restric
             *q = from_f<S>(mv);
             return mv;
           });
-          if constexpr (is_bf16<S>) {   // the f32 sums of the chunk's unrounded values
-            __syncthreads();
-            column_sums<S>(T, NC, colpart, hj + c0, ld, sums + c0, j > 0);
-          }
-        }
-        if constexpr (!is_bf16<S>) {   // the stored values are exact
-          __syncthreads();
-          column_sums<S>(T, H, colpart, hj, ld, sums, j > 0);
+          __syncthreads();   // the f32 sums of the chunk's unrounded values
+          column_sums<S>(T, NC, colpart, hj + c0, ld, sums + c0, j > 0);
         }
       }
       first = false;
       __syncthreads();
 
-      // dWx += rnd(dh_0) rnd(x_k)^T; this tile's dhz partial
-      const S* dh0 = hs;
-      for (int e = tid; e < 3 * H; e += THREADS) {
-        const int o = e / 3, c = e % 3;
-        float s = 0.f;
-        for (int p = 0; p < T; ++p) s = fmaf(to_f(dh0[p * ld + o]), rnd<S>(xks[c * T + p]), s);
-        adwx[e] += s;
-      }
-      for (int e = tid; e < H; e += THREADS)
-        dhz_part[((size_t)tile * K + k) * H + e] = dhzs[e];
-
-      // dy_in = where(mask, dy, dy * es) + rnd(Wx)^T rnd(dh_0): one warp per point
-      for (int p = warp; p < T; p += WARPS) {
-        float s[3] = {0.f, 0.f, 0.f};
-        for (int o = lane; o < H; o += 32) {
-          const float d = to_f(dh0[p * ld + o]);
-          for (int c = 0; c < 3; ++c) s[c] = fmaf(wxs[o * 3 + c], d, s[c]);
-        }
-        for (int c = 0; c < 3; ++c)
-          for (int off = 16; off; off >>= 1) s[c] += __shfl_xor_sync(0xffffffffu, s[c], off);
-        if (lane == 0 && n0 + p < N)
-          for (int c = 0; c < 3; ++c) {
-            dy[cloud + (size_t)c * N + n0 + p] = dyn[c * T + p] + s[c];
-            y[cloud + (size_t)c * N + n0 + p] = xks[c * T + p];
-          }
-      }
+      tile_dwx_dy<S, H>(T, ld, n0, N, cloud, hs, xks, dyn, wxs, dhzs, adwx,
+                        dhz_part + ((size_t)tile * K + k) * H, y, dy);
     }
     __syncthreads();  // this block's dWh sums are in its slice
     // this block's partial of layer k: [dWx | dWh | dbh | dWout | dbout]
@@ -1098,6 +1055,286 @@ cudaError_t launch_bwd_stream(float* y, float* dy, const float* dld, const float
   return launch_reduce(dhz_part, dhz, B, nt, (long long)K * H, stream);
 }
 
+// ---------------------------------------------------------------- f32 layout
+
+// The f32 forward on the sampler's block (flow_f32.cuh): 128 points, the
+// layers walked forwards on f32_walk, the inverse's own device code, so the
+// stream layout's u (each element one k-sum in order) comes out bit for bit
+// and the sampler's f32_kernel inverts it on the same (s, t) bits. The
+// block's log-det as fwd_kernel sums it.
+template <int H>
+__global__ void __launch_bounds__(THREADS)
+fwd_f32(const float* __restrict__ xt, const float* __restrict__ hz, float* __restrict__ u,
+        float* __restrict__ ld_part, const float* __restrict__ wx, const float* __restrict__ wh,
+        const float* __restrict__ bh, const float* __restrict__ wout,
+        const float* __restrict__ bout, const float* __restrict__ masks, int N, int K, int NH1,
+        float cap) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  constexpr int T = F32_T;
+  const F32Smem L(H, true);
+  float* xs = reinterpret_cast<float*>(smem + L.xs);      // [3][T]
+  float* ldp = reinterpret_cast<float*>(smem + L.ldp);    // [T]
+  const int b = blockIdx.y, n0 = blockIdx.x * T, tid = threadIdx.x;
+  const size_t cloud = (size_t)b * 3 * N;
+  if (tid < T) {
+    const int n = n0 + tid;
+    for (int c = 0; c < 3; ++c) xs[c * T + tid] = n < N ? xt[cloud + (size_t)c * N + n] : 0.f;
+    ldp[tid] = 0.f;
+  }
+  f32_walk<float, H, true>(smem, L, hz, wx, wh, bh, wout, bout, masks, nullptr, b, K, NH1, cap,
+                           ReluNan{});
+  if (tid < T && n0 + tid < N)
+    for (int c = 0; c < 3; ++c) u[cloud + (size_t)c * N + n0 + tid] = xs[c * T + tid];
+  if (tid < 32) {
+    float s = 0.f;
+    for (int p = tid; p < T; p += 32) s += n0 + p < N ? ldp[p] : 0.f;
+    for (int off = 16; off; off >>= 1) s += __shfl_xor_sync(0xffffffffu, s, off);
+    if (tid == 0) ld_part[(size_t)b * gridDim.x + blockIdx.x] = s;
+  }
+}
+
+// The f32 backward (F32BwdSmem): bwd_stream's persistent grid, layer loop
+// outside the tile loop and coupling, dWout, dWx, dhz and dy code, with the
+// products on flow_f32.cuh's register tile. Per tile of T points: the
+// forward's levels recomputed (chunk_fma on row chunks of Wh, as the
+// forward: the same bits at any T), then per hidden product from the last:
+// dWh_j += dh^T h_j (dwh_pass) straight into the block's slice of the
+// partials, and dh_j = (dh Wh_j) * (h_j > 0) on chunk_fma over transposed
+// chunks of Wh's rows, each sum over Wh's rows in order. The chunks of a
+// tile (recompute, then cotangent) and across tiles and layers form one
+// sequence streamed with cp.async into two buffers, chunk q + 1 behind the
+// FMAs of chunk q. Thread grid of the products: 8 x 32 at H=256 (8 points x
+// 8 outputs at T=64: 64 FFMA per 16 LDS a k), 16 x 16 at H=128. At T=64
+// each element of every gradient sums what bwd_stream's does in the same
+// order, so the two give the same bits there.
+template <int H, int T>
+__global__ void __launch_bounds__(THREADS, 1)
+bwd_f32(float* __restrict__ y, float* __restrict__ dy, const float* __restrict__ dld,
+        const float* __restrict__ hz, const float* __restrict__ wx, const float* __restrict__ wh,
+        const float* __restrict__ bh, const float* __restrict__ wout,
+        const float* __restrict__ bout, const float* __restrict__ masks,
+        float* __restrict__ part, float* __restrict__ dhz_part, int B, int N, int K, int NH1,
+        float cap) {
+  constexpr int KC = F32_BWD_KC, NC = H / KC, TP = H >= 256 ? 8 : 16, TO = THREADS / TP;
+  constexpr int PI = T / TP, NJ = H / TO;
+  extern __shared__ __align__(128) unsigned char smem[];
+  const F32BwdSmem L(H, NH1);
+  const int ld = L.ld, hst = L.hstride / 4;
+  float* hs = reinterpret_cast<float*>(smem + L.hs);
+  float* ys = reinterpret_cast<float*>(smem + L.ys);      // [3][T] layer output
+  float* dys = reinterpret_cast<float*>(smem + L.dys);    // [3][T] its cotangent
+  float* xks = reinterpret_cast<float*>(smem + L.xks);    // [3][T] layer input
+  float* dst = reinterpret_cast<float*>(smem + L.dst);    // [6][T] (s, t), then d(s, t)
+  float* dyn = reinterpret_cast<float*>(smem + L.dyn);    // [3][T] where(mask, dy, dy*es)
+  float* wxs = reinterpret_cast<float*>(smem + L.wx);
+  float* wos = reinterpret_cast<float*>(smem + L.wout);
+  float* bos = reinterpret_cast<float*>(smem + L.bout);
+  float* hzs = reinterpret_cast<float*>(smem + L.hz);
+  float* bhs = reinterpret_cast<float*>(smem + L.bh);
+  float* adwx = reinterpret_cast<float*>(smem + L.adwx);      // [H][3]
+  float* adwout = reinterpret_cast<float*>(smem + L.adwout);  // [6][H]
+  float* adbout = reinterpret_cast<float*>(smem + L.adbout);  // [6]
+  float* dhzs = reinterpret_cast<float*>(smem + L.dhz);       // [H] this tile's dhz
+  float* adbh = reinterpret_cast<float*>(smem + L.adbh);      // [NH1][H]
+  auto wbuf = [&](int s) { return reinterpret_cast<float*>(smem + L.ws + s * L.wbuf); };
+
+  const int tid = threadIdx.x;
+  const int tp = tid / TO, to = tid % TO;
+  const int nt = (N + T - 1) / T, tiles = B * nt;
+  const int per_layer = f32_part_row(H, NH1);
+  const int nq = 2 * NH1 * NC;   // chunks a tile: the recompute's, then the cotangents'
+  float* hlast = hs + NH1 * hst;
+
+  // chunk q of a tile of walk step i (layer K-1-i) into buffer s, committed
+  auto chunk_load = [&](int i, int q, int s) {
+    const int k = K - 1 - i;
+    if (q < NH1 * NC) {
+      bwd_chunk<H, true>(wbuf(s), wh + ((size_t)k * NH1 + q / NC) * H * H, q % NC);
+    } else {
+      const int r = q - NH1 * NC;
+      bwd_chunk<H, false>(wbuf(s), wh + ((size_t)k * NH1 + NH1 - 1 - r / NC) * H * H, r % NC);
+    }
+    cp_async_commit();
+  };
+  int used = 0;   // chunks consumed: the next is in buffer used & 1
+  // chunk q of the tile has landed and every thread is done with the one
+  // before (whose buffer the copy of the next chunk of the walk then takes)
+  auto next_chunk = [&](int i, int q, bool more_tiles) {
+    cp_async_wait_all();
+    __syncthreads();
+    const int s = (used + 1) & 1;
+    if (q + 1 < nq) chunk_load(i, q + 1, s);
+    else if (more_tiles) chunk_load(i, 0, s);
+    else if (i + 1 < K) chunk_load(i + 1, 0, s);
+    return wbuf(used++ & 1);
+  };
+
+  if (nq) chunk_load(0, 0, 0);
+  for (int i = 0; i < K; ++i) {
+    const int k = K - 1 - i;
+    __syncthreads();  // the previous layer's partials are written
+    for (int e = tid; e < 3 * H; e += THREADS) wxs[e] = wx[(size_t)k * 3 * H + e];
+    for (int e = tid; e < 6 * H; e += THREADS) wos[e] = wout[(size_t)k * 6 * H + e];
+    if (tid < 6) bos[tid] = bout[k * 6 + tid];
+    for (int e = tid; e < NH1 * H; e += THREADS) bhs[e] = bh[(size_t)k * NH1 * H + e];
+    for (int e = tid; e < 3 * H; e += THREADS) adwx[e] = 0.f;
+    for (int e = tid; e < 6 * H; e += THREADS) adwout[e] = 0.f;
+    if (tid < 6) adbout[tid] = 0.f;
+    for (int e = tid; e < NH1 * H; e += THREADS) adbh[e] = 0.f;
+    float* slice = part + ((size_t)blockIdx.x * K + k) * per_layer;   // this block's partial
+
+    bool first = true;
+    for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
+      const bool more = tile + (int)gridDim.x < tiles;
+      const int b = tile / nt, n0 = (tile % nt) * T;
+      const size_t cloud = (size_t)b * 3 * N;
+      __syncthreads();  // the previous tile is done with the shared buffers
+      for (int p = tid; p < T; p += THREADS) {
+        const int n = n0 + p;
+        for (int c = 0; c < 3; ++c) {
+          ys[c * T + p] = n < N ? y[cloud + (size_t)c * N + n] : 0.f;
+          dys[c * T + p] = n < N ? dy[cloud + (size_t)c * N + n] : 0.f;
+        }
+      }
+      for (int e = tid; e < H; e += THREADS) hzs[e] = hz[((size_t)b * K + k) * H + e];
+      __syncthreads();
+
+      // the forward conditioner, recomputed from the layer output
+      first_layer_f32<H>(hs, ld, ys, T, wxs, hzs, ReluNan{});
+      int q = 0;
+      for (int j = 0; j < NH1; ++j) {
+        float acc[PI][NJ];
+#pragma unroll
+        for (int ii = 0; ii < PI; ++ii)
+#pragma unroll
+          for (int jj = 0; jj < NJ; ++jj) acc[ii][jj] = 0.f;
+        for (int c = 0; c < NC; ++c, ++q)
+          chunk_fma<H, KC, TP, PI>(acc, hs + j * hst, next_chunk(i, q, more), ld, c * KC);
+        float* out = hs + (j + 1) * hst;
+        const float* bj = bhs + j * H;
+#pragma unroll
+        for (int ii = 0; ii < PI; ++ii)
+#pragma unroll
+          for (int jj = 0; jj < NJ; ++jj) {
+            const int o = to + TO * jj;
+            out[(tp + TP * ii) * ld + o] = relu_nan(acc[ii][jj] + bj[o]);
+          }
+      }
+      __syncthreads();
+      st_f32<H>(dst, hlast, ld, T, wos, bos);   // st into dst, overwritten below
+      __syncthreads();
+
+      tile_cotangents(T, n0, N, dld[b], masks + k * 3, cap, ys, dys, dst, xks, dyn);
+      __syncthreads();
+      tile_dwout<float, H>(T, ld, dst, hlast, adwout, adbout);
+      __syncthreads();
+      float* first_sum = NH1 > 0 ? adbh + (NH1 - 1) * H : dhzs;
+      tile_dh_last<float, H>(T, ld, dst, wos, hlast, first_sum, NH1 > 0);
+
+      for (int j = NH1 - 1; j >= 0; --j) {
+        float* dh = hs + (j + 1) * hst;   // cotangent of h_{j+1}, masked
+        float* hj = hs + j * hst;
+        __syncthreads();
+        dwh_pass<H>(slice + 3 * H + (size_t)j * H * H, dh, hj, ld, T, first);
+        // dh_j = (dh Wh_j) * (h_j > 0), in place over h_j (every thread
+        // has read h_j in dwh_pass before the first chunk's barrier)
+        float acc[PI][NJ];
+#pragma unroll
+        for (int ii = 0; ii < PI; ++ii)
+#pragma unroll
+          for (int jj = 0; jj < NJ; ++jj) acc[ii][jj] = 0.f;
+        for (int c = 0; c < NC; ++c, ++q)
+          chunk_fma<H, KC, TP, PI>(acc, dh, next_chunk(i, q, more), ld, c * KC);
+#pragma unroll
+        for (int ii = 0; ii < PI; ++ii)
+#pragma unroll
+          for (int jj = 0; jj < NJ; ++jj) {
+            float* e = hj + (tp + TP * ii) * ld + to + TO * jj;
+            *e = acc[ii][jj] * (*e > 0.f ? 1.f : 0.f);
+          }
+        __syncthreads();
+        // db of hidden layer j-1 (summed over the tiles), or this tile's dhz
+        column_sums<float>(T, H, nullptr, hj, ld, j > 0 ? adbh + (j - 1) * H : dhzs, j > 0);
+      }
+      first = false;
+      __syncthreads();
+
+      tile_dwx_dy<float, H>(T, ld, n0, N, cloud, hs, xks, dyn, wxs, dhzs, adwx,
+                            dhz_part + ((size_t)tile * K + k) * H, y, dy);
+    }
+    __syncthreads();
+    // this block's partial of layer k: [dWx | dWh (written by dwh_pass) |
+    // dbh | dWout | dbout | zero padding]
+    float* out = slice;
+    for (int e = tid; e < 3 * H; e += THREADS) out[e] = adwx[e];
+    out += 3 * H + NH1 * H * H;
+    for (int e = tid; e < NH1 * H; e += THREADS) out[e] = adbh[e];
+    out += NH1 * H;
+    for (int e = tid; e < 6 * H; e += THREADS) out[e] = adwout[e];
+    out += 6 * H;
+    if (tid < 6) out[tid] = adbout[tid];
+    const int pad = per_layer - (3 * H + NH1 * H * H + NH1 * H + 6 * H + 6);
+    if (tid < pad) out[6 + tid] = 0.f;
+  }
+}
+
+template <int H>
+cudaError_t launch_fwd_f32(const float* xt, const float* hz, float* u, float* ld_part,
+                           const void* wx, const void* wh, const float* bh, const void* wout,
+                           const float* bout, const float* masks, int B, int N, int K, int NH1,
+                           float cap, cudaStream_t stream) {
+  const int bytes = F32Smem(H, true).total;
+  cudaError_t e = cudaFuncSetAttribute(fwd_f32<H>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                       bytes);
+  if (e != cudaSuccess) return e;
+  dim3 grid((N + F32_T - 1) / F32_T, B);
+  fwd_f32<H><<<grid, THREADS, bytes, stream>>>(
+      xt, hz, u, ld_part, static_cast<const float*>(wx), static_cast<const float*>(wh), bh,
+      static_cast<const float*>(wout), bout, masks, N, K, NH1, cap);
+  return cudaGetLastError();
+}
+
+template <int H, int T>
+cudaError_t launch_bwd_f32_t(float* y, float* dy, const float* dld, const float* hz,
+                             const void* wx, const void* wh, const float* bh, const void* wout,
+                             const float* bout, const float* masks, float* part, float* dhz_part,
+                             float* dw, float* dhz, int B, int N, int K, int NH1, float cap,
+                             int blocks, cudaStream_t stream) {
+  const int bytes = F32BwdSmem(H, NH1).total;
+  cudaError_t e = cudaFuncSetAttribute(bwd_f32<H, T>,
+                                       cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  if (e != cudaSuccess) return e;
+  bwd_f32<H, T><<<blocks, THREADS, bytes, stream>>>(
+      y, dy, dld, hz, static_cast<const float*>(wx), static_cast<const float*>(wh), bh,
+      static_cast<const float*>(wout), bout, masks, part, dhz_part, B, N, K, NH1, cap);
+  if ((e = cudaGetLastError()) != cudaSuccess) return e;
+  const int nt = (N + T - 1) / T;
+  if ((e = launch_reduce(part, dw, 1, blocks, (long long)f32_part_row(H, NH1) * K, stream)) !=
+      cudaSuccess)
+    return e;
+  return launch_reduce(dhz_part, dhz, B, nt, (long long)K * H, stream);
+}
+
+// the instances of the backward's plan: T = 64 or 32 at H=256, 128 or 64
+// at H=128 (F32BwdSmem picks by n_hidden)
+template <int H>
+cudaError_t launch_bwd_f32(float* y, float* dy, const float* dld, const float* hz,
+                           const void* wx, const void* wh, const float* bh, const void* wout,
+                           const float* bout, const float* masks, float* part, float* dhz_part,
+                           float* dw, float* dhz, int B, int N, int K, int NH1, float cap,
+                           int blocks, cudaStream_t stream) {
+  const F32BwdSmem L(H, NH1);
+  if (L.total > SMEM_MAX) return cudaErrorInvalidValue;
+  constexpr int TBIG = H >= 256 ? 64 : 128;
+  if (L.T == TBIG)
+    return launch_bwd_f32_t<H, TBIG>(y, dy, dld, hz, wx, wh, bh, wout, bout, masks, part,
+                                     dhz_part, dw, dhz, B, N, K, NH1, cap, blocks, stream);
+  if (L.T == TBIG / 2)
+    return launch_bwd_f32_t<H, TBIG / 2>(y, dy, dld, hz, wx, wh, bh, wout, bout, masks, part,
+                                         dhz_part, dw, dhz, B, N, K, NH1, cap, blocks, stream);
+  return cudaErrorInvalidValue;
+}
+
 int fwd_smem(int H, int NH1) { return FwdSmem(H, NH1).total; }
 int bwd_smem(int H, int NH1) { return BwdSmem(H, NH1).total; }
 
@@ -1141,10 +1378,8 @@ cudaError_t launch_bwd(float* y, float* dy, const float* dld, const float* hz, c
 
 using bf16_t = __nv_bfloat16;
 
-// the stream layout is built for the widths where the other layouts
-// overflow at n_hidden <= 4 (H = 32 and 64 fit them); in bf16 the mma and
-// cluster layouts take every such shape but H=256 with n_hidden 4, so the
-// bf16 stream layout has only the H=256 instances
+// the f32 layout is built for the widths where the block-wide layout
+// overflows at n_hidden <= 4 (H = 32 and 64 fit it)
 #define DPFX_DISPATCH_WIDE(H, CALL)                                                     \
   switch (H) {                                                                          \
     case 128: { constexpr int HH = 128; return (int)(CALL); }                           \
@@ -1198,14 +1433,9 @@ int dpfx_fused_train_stream_fwd(const float* xt, const float* hz, float* u, floa
                                 const void* wout, const float* bout, const float* masks, int B,
                                 int N, int K, int H, int NH1, float cap, int bf16, void* stream) {
   if (B <= 0 || N <= 0 || K <= 0 || NH1 < 0 || B > 65535) return (int)cudaErrorInvalidValue;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (bf16) {
-    if (H != 256) return (int)cudaErrorInvalidValue;
-    return (int)launch_fwd_stream<bf16_t, 256>(xt, hz, u, ld_part, wx, wh, bh, wout, bout, masks,
-                                               B, N, K, NH1, cap, s);
-  }
-  DPFX_DISPATCH_WIDE(H, (launch_fwd_stream<float, HH>(xt, hz, u, ld_part, wx, wh, bh, wout, bout,
-                                                 masks, B, N, K, NH1, cap, s)))
+  if (!bf16 || H != 256) return (int)cudaErrorInvalidValue;
+  return (int)launch_fwd_stream<bf16_t, 256>(xt, hz, u, ld_part, wx, wh, bh, wout, bout, masks, B,
+                                             N, K, NH1, cap, static_cast<cudaStream_t>(stream));
 }
 
 int dpfx_fused_train_stream_bwd(float* y, float* dy, const float* dld, const float* hz,
@@ -1215,16 +1445,45 @@ int dpfx_fused_train_stream_bwd(float* y, float* dy, const float* dld, const flo
                                 int B, int N, int K, int H, int NH1, float cap, int bf16,
                                 int blocks, void* stream) {
   if (B <= 0 || N <= 0 || K <= 0 || NH1 < 0 || blocks <= 0) return (int)cudaErrorInvalidValue;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (bf16) {
-    if (H != 256) return (int)cudaErrorInvalidValue;
-    return (int)launch_bwd_stream<bf16_t, 256>(y, dy, dld, hz, wx, wh, bh, wout, bout, masks, part,
-                                               dhz_part, wacc, dw, dhz, B, N, K, NH1, cap, blocks,
-                                               s);
-  }
-  DPFX_DISPATCH_WIDE(H, (launch_bwd_stream<float, HH>(y, dy, dld, hz, wx, wh, bh, wout, bout, masks,
-                                                 part, dhz_part, wacc, dw, dhz, B, N, K, NH1,
-                                                 cap, blocks, s)))
+  if (!bf16 || H != 256) return (int)cudaErrorInvalidValue;
+  return (int)launch_bwd_stream<bf16_t, 256>(y, dy, dld, hz, wx, wh, bh, wout, bout, masks, part,
+                                             dhz_part, wacc, dw, dhz, B, N, K, NH1, cap, blocks,
+                                             static_cast<cudaStream_t>(stream));
+}
+
+// The f32 layout (flow_f32.cuh): points per forward block or backward tile,
+// shared memory of a block, and the two launches at H = 128 and 256. bwd's
+// part is [blocks, K, f32_part_row(H, n_hidden-1)] (each layer's partial
+// padded to a multiple of 4 floats), dw [K, f32_part_row], dhz_part [B,
+// ceil(N / T), K, H].
+int dpfx_fused_train_f32_tile_points(int H, int NH1, int backward) {
+  return backward ? F32BwdSmem(H, NH1).T : F32_T;
+}
+
+int dpfx_fused_train_f32_smem_bytes(int H, int NH1, int backward) {
+  return backward ? F32BwdSmem(H, NH1).total : F32Smem(H, true).total;
+}
+
+int dpfx_fused_train_f32_part_row(int H, int NH1) { return f32_part_row(H, NH1); }
+
+int dpfx_fused_train_f32_fwd(const float* xt, const float* hz, float* u, float* ld_part,
+                             const void* wx, const void* wh, const float* bh, const void* wout,
+                             const float* bout, const float* masks, int B, int N, int K, int H,
+                             int NH1, float cap, void* stream) {
+  if (B <= 0 || N <= 0 || K <= 0 || NH1 < 0 || B > 65535) return (int)cudaErrorInvalidValue;
+  DPFX_DISPATCH_WIDE(H, (launch_fwd_f32<HH>(xt, hz, u, ld_part, wx, wh, bh, wout, bout, masks, B,
+                                            N, K, NH1, cap, static_cast<cudaStream_t>(stream))))
+}
+
+int dpfx_fused_train_f32_bwd(float* y, float* dy, const float* dld, const float* hz,
+                             const void* wx, const void* wh, const float* bh, const void* wout,
+                             const float* bout, const float* masks, float* part, float* dhz_part,
+                             float* dw, float* dhz, int B, int N, int K, int H, int NH1, float cap,
+                             int blocks, void* stream) {
+  if (B <= 0 || N <= 0 || K <= 0 || NH1 < 0 || blocks <= 0) return (int)cudaErrorInvalidValue;
+  DPFX_DISPATCH_WIDE(H, (launch_bwd_f32<HH>(y, dy, dld, hz, wx, wh, bh, wout, bout, masks, part,
+                                            dhz_part, dw, dhz, B, N, K, NH1, cap, blocks,
+                                            static_cast<cudaStream_t>(stream))))
 }
 
 // The cluster layout (flow_cluster.cuh): points per tile and shared memory

@@ -25,11 +25,13 @@ launches the kernels for a CUDA tensor (or raises). ``launches`` counts the
 kernel launches of each wrapper, ``layout_launches`` the same by layout.
 
 Layouts, chosen from the shapes for the forward and the backward together
-(``_layout``): the mma layout (bf16) or the block-wide one (f32) where a
-block holds the shape; else, in bf16, the cluster layout
-(``csrc/flow_cluster.cuh``: one layer split across a thread-block cluster
-of H / 64 CTAs) where its plan fits (``uses_cluster``); else the stream
-layout (f32, and bf16 at H=256 with n_hidden 4).
+(``_layout``): in f32 at H = 128 and 256 the f32 layout (``uses_f32``:
+``csrc/flow_f32.cuh``, the f32 sampler's register-tiled device code, Wh
+streamed with cp.async) but on the shapes of ``F32_KEPT``; else the mma
+layout (bf16) or the block-wide one (f32) where a block holds the shape;
+else, in bf16, the cluster layout (``csrc/flow_cluster.cuh``: one layer
+split across a thread-block cluster of H / 64 CTAs) where its plan fits
+(``uses_cluster``); else the stream layout (bf16 at H=256 with n_hidden 4).
 """
 
 from __future__ import annotations
@@ -56,8 +58,8 @@ Tensor = torch.Tensor
 # kernel launches per wrapper; chip_smoke.py zeroes these around the main path
 launches: Dict[str, int] = {"fused_train_fwd": 0, "fused_train_bwd": 0}
 # the same launches by the layout that ran them ("parent": mma or block-wide)
-layout_launches: Dict[str, int] = {f"{lay}_{d}": 0 for lay in ("parent", "cluster", "stream")
-                                   for d in ("fwd", "bwd")}
+LAYOUTS = ("parent", "cluster", "stream", "f32")
+layout_launches: Dict[str, int] = {f"{lay}_{d}": 0 for lay in LAYOUTS for d in ("fwd", "bwd")}
 
 
 def reset_launch_counts() -> None:
@@ -68,9 +70,14 @@ def reset_launch_counts() -> None:
 
 MAX_HIDDEN = KERNEL_HIDDEN[-1]
 MAX_N_HIDDEN = 4       # conditioner depths every width takes
-# widths the stream layout is built for (f32; bf16 at H=256 only: the
-# mma and cluster layouts take every bf16 shape at H=128)
+# widths past whose depths the mma and block-wide layouts overflow: the
+# stream layout is built for bf16 at H=256 only (the mma and cluster layouts
+# take every bf16 shape at H=128), the f32 layout for both
 STREAM_HIDDEN = (128, 256)
+# (H, n_hidden - 1) in f32 where the block-wide pair fits and timed faster in
+# turns than the f32 layout's at B=64 x 2048, K=32 (chip_smoke.py's phase 3l
+# times both): the block-wide pair stays there
+F32_KEPT: frozenset = frozenset()
 CLUSTER_COLUMNS = 64   # hidden columns each CTA of a cluster owns
 # deeper conditioners where the mma (bf16) or block-wide (f32) layouts hold
 # the forward and the backward: the deepest n_hidden they take at each
@@ -283,6 +290,42 @@ def uses_cluster(hidden: int, n_hidden_m1: int, dtype: torch.dtype) -> bool:
     return all(need(hidden, n_hidden_m1, bwd) <= SMEM_LIMIT for bwd in (0, 1))
 
 
+@functools.lru_cache(maxsize=None)
+def _f32_lib() -> ctypes.CDLL:
+    """The f32 layout's entry points (``csrc/flow_f32.cuh``; a library
+    built before it has none)."""
+    lib = _cluster_lib()
+    p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    lib.dpfx_fused_train_f32_fwd.argtypes = [
+        p, p, p, p,                   # xt, hz, u, ld partials [B, ntiles]
+        p, p, p, p, p, p,             # wx, wh, bh, wout, bout, masks
+        i, i, i, i, i, f, p,          # B, N, K, H, n_hidden-1, cap, stream
+    ]
+    lib.dpfx_fused_train_f32_bwd.argtypes = [
+        p, p, p, p,                   # y (in: u; scratch), dy (in: du; out: dx), dld, hz
+        p, p, p, p, p, p,             # wx, wh, bh, wout, bout, masks
+        p, p, p, p,                   # partials, dhz partials, dw out, dhz out
+        i, i, i, i, i, f, i, p,       # B, N, K, H, n_hidden-1, cap, blocks, stream
+    ]
+    for fn in (lib.dpfx_fused_train_f32_smem_bytes, lib.dpfx_fused_train_f32_tile_points):
+        fn.argtypes = [i, i, i]
+    lib.dpfx_fused_train_f32_part_row.argtypes = [i, i]
+    for fn in (lib.dpfx_fused_train_f32_fwd, lib.dpfx_fused_train_f32_bwd,
+               lib.dpfx_fused_train_f32_smem_bytes, lib.dpfx_fused_train_f32_tile_points,
+               lib.dpfx_fused_train_f32_part_row):
+        fn.restype = ctypes.c_int
+    return lib
+
+
+def uses_f32(hidden: int, n_hidden_m1: int, dtype: torch.dtype) -> bool:
+    """The f32 layout: f32 at H = 128 and 256 with n_hidden <=
+    ``MAX_N_HIDDEN`` (the shapes past the block-wide layout, H=256 with
+    n_hidden 1-4 and H=128 with n_hidden 3-4, and H=128 with n_hidden 1-2
+    where it timed faster), but the shapes of ``F32_KEPT``."""
+    return (dtype == torch.float32 and hidden in STREAM_HIDDEN and n_hidden_m1 < MAX_N_HIDDEN
+            and (hidden, n_hidden_m1) not in F32_KEPT)
+
+
 def _tiles(n: int, dtype: torch.dtype, backward: bool, layout: str,
            shape: Tuple[int, int]) -> int:
     """Tiles of a cloud of n points, at the kernel library's points per
@@ -291,6 +334,8 @@ def _tiles(n: int, dtype: torch.dtype, backward: bool, layout: str,
     bf, bw = int(dtype == torch.bfloat16), int(backward)
     if layout == "stream":
         t = _stream_lib().dpfx_fused_train_stream_tile_points(*shape, bf, bw)
+    elif layout == "f32":
+        t = _f32_lib().dpfx_fused_train_f32_tile_points(*shape, bw)
     elif layout == "cluster":
         t = _cluster_lib().dpfx_fused_train_cluster_tile_points(*shape, bw)
     else:
@@ -323,16 +368,23 @@ def _check(wx: Tensor, dtype: torch.dtype, tensors: Dict[str, Tensor]) -> None:
 
 def _layout(h: int, nh1: int, dtype: torch.dtype, backward: bool) -> str:
     """The layout that runs ("parent": mma or block-wide, "cluster",
-    "stream"); raises where none fits."""
+    "stream", "f32"); raises where none fits."""
+    if uses_f32(h, nh1, dtype):
+        need = _f32_lib().dpfx_fused_train_f32_smem_bytes(h, nh1, int(backward))
+        if need > SMEM_LIMIT:
+            raise ValueError(f"hidden={h}, n_hidden={nh1 + 1} in f32 needs {need} B of shared "
+                             f"memory in the f32 layout, more than the {SMEM_LIMIT} B a block "
+                             f"may use")
+        return "f32"
     if not uses_stream(h, nh1, dtype):
         return "parent"
     if uses_cluster(h, nh1, dtype):
         return "cluster"
-    widths = STREAM_HIDDEN if dtype == torch.float32 else STREAM_HIDDEN[-1:]
-    if h not in widths:
+    if dtype != torch.bfloat16 or h != STREAM_HIDDEN[-1]:
         raise ValueError(f"hidden={h}, n_hidden={nh1 + 1} in {dtype} overflows the shared memory "
                          f"of the mma and block-wide layouts and is not a shape of the cluster "
-                         f"layout, and the stream layout is built for hidden in {widths}")
+                         f"or f32 layouts, and the stream layout is built for bf16 at hidden "
+                         f"{STREAM_HIDDEN[-1]}")
     need = _stream_lib().dpfx_fused_train_stream_smem_bytes(h, nh1, int(dtype == torch.bfloat16),
                                                             int(backward))
     if need > SMEM_LIMIT:
@@ -386,14 +438,18 @@ def fused_forward_kernel(wx, wh, bh, wout, bout, masks, cap, xt, hz, dtype):
                 xt.data_ptr(), hz.data_ptr(), u.data_ptr(), ld_part.data_ptr(), carry.data_ptr(),
                 *weights, b, n, k, h, nh1, float(cap),
                 _cluster_grid(h, nh1, False, xt.device.index or 0), stream)
+        elif layout == "f32":
+            err = _f32_lib().dpfx_fused_train_f32_fwd(
+                xt.data_ptr(), hz.data_ptr(), u.data_ptr(), ld_part.data_ptr(), *weights,
+                b, n, k, h, nh1, float(cap), stream)
         else:
             fwd = (_stream_lib().dpfx_fused_train_stream_fwd if layout == "stream"
                    else _lib().dpfx_fused_train_fwd)
             err = fwd(xt.data_ptr(), hz.data_ptr(), u.data_ptr(), ld_part.data_ptr(), *weights,
                       b, n, k, h, nh1, float(cap), int(dtype == torch.bfloat16), stream)
     if err != 0:
-        what = f" ({_error_text(err)})" if layout == "cluster" else ""
-        raise RuntimeError(f"fused train forward kernel launch failed: cudaError {err}{what}")
+        raise RuntimeError(f"fused train forward kernel launch failed ({layout} layout): "
+                           f"cudaError {err} ({_error_text(err)})")
     launches["fused_train_fwd"] += 1
     layout_launches[f"{layout}_fwd"] += 1
     return u, ld_part.sum(1)
@@ -402,7 +458,8 @@ def fused_forward_kernel(wx, wh, bh, wout, bout, masks, cap, xt, hz, dtype):
 def _backward_call(wx, wh, bh, wout, bout, masks, cap, u, hz, du, dld, dtype):
     """Launch the backward kernel and the reductions of its partials.
     Returns (y, dx, dw, dhz): y is the layer input the kernel rebuilt last
-    (the flow's input, rebuilt from u), dw the [K, per-layer] gradients."""
+    (the flow's input, rebuilt from u), dw the [K, per-layer] gradients (the
+    f32 layout pads a layer's row to a multiple of 4 floats at its end)."""
     k, h, _ = wx.shape
     nh1 = wh.shape[1]
     b, _, n = u.shape
@@ -414,6 +471,8 @@ def _backward_call(wx, wh, bh, wout, bout, masks, cap, u, hz, du, dld, dtype):
     blocks = min(b * nt, _cluster_grid(h, nh1, True, dev.index or 0) if layout == "cluster"
                  else _sm_count(dev))
     per_layer = 3 * h + nh1 * h * h + nh1 * h + 6 * h + 6
+    if layout == "f32":   # each layer's partial padded to a multiple of 4 floats
+        per_layer = _f32_lib().dpfx_fused_train_f32_part_row(h, nh1)
     part = torch.empty((blocks, k, per_layer), device=dev, dtype=torch.float32)
     dhz_part = torch.empty((b, nt, k, h), device=dev, dtype=torch.float32)
     dw = torch.empty((k, per_layer), device=dev, dtype=torch.float32)
@@ -430,6 +489,12 @@ def _backward_call(wx, wh, bh, wout, bout, masks, cap, u, hz, du, dld, dtype):
                 u.data_ptr(), du.data_ptr(), y.data_ptr(), dx.data_ptr(), carry.data_ptr(),
                 dld.data_ptr(), hz.data_ptr(), *weights, part.data_ptr(), dhz_part.data_ptr(),
                 dw.data_ptr(), dhz.data_ptr(), b, n, k, h, nh1, float(cap), blocks, stream)
+        elif layout == "f32":
+            y, dx = u.clone(), du.clone()
+            err = _f32_lib().dpfx_fused_train_f32_bwd(
+                y.data_ptr(), dx.data_ptr(), dld.data_ptr(), hz.data_ptr(), *weights,
+                part.data_ptr(), dhz_part.data_ptr(), dw.data_ptr(), dhz.data_ptr(),
+                b, n, k, h, nh1, float(cap), blocks, stream)
         else:
             y, dx = u.clone(), du.clone()
             ptrs = [y.data_ptr(), dx.data_ptr(), dld.data_ptr(), hz.data_ptr(), *weights,
@@ -443,8 +508,8 @@ def _backward_call(wx, wh, bh, wout, bout, masks, cap, u, hz, du, dld, dtype):
             err = bwd(*ptrs, dw.data_ptr(), dhz.data_ptr(),
                       b, n, k, h, nh1, float(cap), int(dtype == torch.bfloat16), blocks, stream)
     if err != 0:
-        what = f" ({_error_text(err)})" if layout == "cluster" else ""
-        raise RuntimeError(f"fused train backward kernel launch failed: cudaError {err}{what}")
+        raise RuntimeError(f"fused train backward kernel launch failed ({layout} layout): "
+                           f"cudaError {err} ({_error_text(err)})")
     launches["fused_train_bwd"] += 1
     layout_launches[f"{layout}_bwd"] += 1
     return y, dx, dw, dhz

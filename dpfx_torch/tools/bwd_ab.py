@@ -3,7 +3,8 @@ checkout's, on the card: the SASS of one kernel from both builds compared
 line by line, and the kernel's wrapper timed in turns.
 
     python -m dpfx_torch.tools.bwd_ab PARENT [--library fused_train|fused_sampler]
-        [--kernel NAME] [--turns 8] [--out DIR] [--hidden H [--n-hidden L]]
+        [--kernel NAME] [--turns 8] [--out DIR] [--hidden H [--n-hidden L]
+        [--dtype bfloat16|float32]]
 
 PARENT is the root of another checkout (``git archive <commit> | tar -x -C
 <dir>``). Both ``csrc/<library>.cu`` are built with the flags of
@@ -32,6 +33,20 @@ limits of chip_smoke.py's phase 2 (u: max 5e-2 and p99.9 2e-3 absolute,
 log-det and gradients 2e-2 of their norms) and each must repeat its own
 bits from call to call. The kernel disassembled is then the tree's
 layout's backward, its SASS compared only where both builds have it.
+
+With ``--dtype float32`` the same in f32: a build without the f32 layout
+runs the layout its wrapper took (the stream layout wherever the
+block-wide one overflows). Every f32 layout computes each element of u as
+one k-sum in order, so u must have the same bits in both builds; the
+log-det must too where both forwards take the same points per block, and
+every gradient where both backwards sum the same tiles in the same
+design (the stream and f32 layouts at the same points per tile).
+Elsewhere each build is held to an f64 run of the plain version as
+chip_smoke.py's ``f64_held`` holds it (u within 1e-4 or 4x the f32 plain
+version's own drift, max abs; each gradient within 1e-3 or 4x its drift,
+relative norm; the log-det within 1e-5 of the plain f32 version's). Each
+build's u is then inverted by this tree's f32 sampler (``f32_kernel``) on
+the same hz and the round trip's median and largest error printed.
 
 With ``--library fused_sampler --hidden H`` (``--n-hidden``, default 2)
 ``fused_sample_points`` runs at B=64, N=2048, K=32 on a point flow of that
@@ -144,6 +159,8 @@ def main(argv=None) -> int:
                                                "(fused_sampler: the sampler in both dtypes) at "
                                                "this point-flow width")
     ap.add_argument("--n-hidden", type=int, default=2)
+    ap.add_argument("--dtype", choices=("bfloat16", "float32"), default="bfloat16",
+                    help="the compute dtype of the width mode (fused_train)")
     a = ap.parse_args(argv)
     sampler = a.library == "fused_sampler"
     kernel = a.kernel or (FLAGSHIP_SAMPLER if a.hidden and sampler else KERNELS[a.library])
@@ -163,7 +180,8 @@ def main(argv=None) -> int:
                           capture_output=True, text=True).stdout.strip()
     print(card, flush=True)
     if a.hidden and not a.kernel and not sampler:
-        kernel = _layout_kernel(ft, fs.kernel_hidden(a.hidden), a.n_hidden - 1)
+        kernel = _layout_kernel(ft, fs.kernel_hidden(a.hidden), a.n_hidden - 1,
+                                getattr(torch, a.dtype))
     libs, sass = _build_both(a.parent, kernel, a.library)
     if a.out:
         a.out.mkdir(parents=True, exist_ok=True)
@@ -235,15 +253,27 @@ def main(argv=None) -> int:
     return 0
 
 
-def _layout_kernel(ft, h: int, nh1: int) -> str:
-    """The mangled-name part of the tree's bf16 backward at (h, nh1)."""
+def _layout_kernel(ft, h: int, nh1: int, dtype=None) -> str:
+    """The mangled-name part of the tree's backward at (h, nh1) in
+    ``dtype`` (bf16 by default)."""
     import torch
 
+    if dtype == torch.float32:
+        if ft.uses_f32(h, nh1, dtype):
+            t = ft._f32_lib().dpfx_fused_train_f32_tile_points(h, nh1, 1)
+            return f"bwd_f32ILi{h}ELi{t}E"
+        return f"bwd_kernelILi{h}E"
     if ft.uses_cluster(h, nh1, torch.bfloat16):
         return f"bwd_clusterILi{h}ELi{nh1}E"
     if ft.uses_stream(h, nh1, torch.bfloat16):
         return f"bwd_streamI13__nv_bfloat16Li{h}E"
     return f"bwd_kernel_mmaILi{h}E"
+
+
+# f32: a build may part from the f64 run of the plain version by this many
+# times as far as the plain f32 version does, and always by the floor
+# (chip_smoke.py's PROBE_F64_RATIO, TOL_F32 and PROBE_F64_FLOOR["full"])
+F64_RATIO, F64_U_FLOOR, F64_GRAD_FLOOR, F32_LD_TOL = 4.0, 1e-4, 1e-3, 1e-5
 
 
 def _ab_width(a, libs, card: str) -> int:
@@ -256,7 +286,10 @@ def _ab_width(a, libs, card: str) -> int:
     from dpfx_torch.ops import fused_sampler as fs
     from dpfx_torch.ops import fused_train as ft
 
-    dev, bf, k, b, n = torch.device("cuda"), torch.bfloat16, 32, 64, 2048
+    dev, k, b, n = torch.device("cuda"), 32, 64, 2048
+    dt = getattr(torch, a.dtype)
+    f32 = dt == torch.float32
+    torch.backends.cuda.matmul.allow_tf32 = False
     kh = fs.kernel_hidden(a.hidden)
     torch.manual_seed(3)
     flow = randomize_(CouplingFlow(3, k, a.hidden, a.n_hidden, cond_dim=128, scale_cap=3.0), 3,
@@ -267,31 +300,81 @@ def _ab_width(a, libs, card: str) -> int:
     w = (sp.wx, sp.wh, sp.bh, sp.wout, sp.bout, sp.masks, sp.scale_cap)
     g = torch.Generator(device=dev).manual_seed(3)
     xt = torch.randn((b, 3, n), generator=g, device=dev)
-    hz = fs.z_projection(sp, torch.randn((b, 128), generator=g, device=dev))
-    u_p, ld_p = ft.fused_forward_plain(*w, xt, hz, bf)
+    z = torch.randn((b, 128), generator=g, device=dev)
+    hz = fs.z_projection(sp, z)
+    u_p, ld_p = ft.fused_forward_plain(*w, xt, hz, dt)
     du = torch.randn(u_p.shape, generator=g, device=dev)
     dld = torch.randn(ld_p.shape, generator=g, device=dev)
-    plain = (u_p, ld_p, *ft.fused_backward_plain(*w, u_p, hz, du, dld, bf))
-    fwd = lambda: ft.fused_forward_kernel(*w, xt, hz, bf)  # noqa: E731
-    bwd = lambda: ft.fused_backward_kernel(*w, u_p, hz, du, dld, bf)  # noqa: E731
+    plain = (u_p, ld_p, *ft.fused_backward_plain(*w, u_p, hz, du, dld, dt))
+    if f32:
+        w64 = tuple(t.double() if torch.is_tensor(t) else t for t in w)
+        u64 = ft.fused_forward_plain(*w64, xt.double(), hz.double(), torch.float64)[0]
+        ref64 = ft.fused_backward_plain(*w64, u_p.double(), hz.double(), du.double(),
+                                        dld.double(), torch.float64)
+    fwd = lambda: ft.fused_forward_kernel(*w, xt, hz, dt)  # noqa: E731
+    bwd = lambda: ft.fused_backward_kernel(*w, u_p, hz, du, dld, dt)  # noqa: E731
     layout_of = ft._layout
     layouts = {"parent": None, "tree": None}
+    tiles = {"parent": None, "tree": None}
 
     def before_cluster(h, n_m1, dtype, backward):
         # a build before the cluster layout: its wrapper took the stream
         # layout (bf16 at H=128 too) wherever a block overflows
         return "stream" if ft.uses_stream(h, n_m1, dtype) else "parent"
 
+    def before_f32(h, n_m1, dtype, backward):
+        # a build before the f32 layout: the stream layout in f32 wherever
+        # the block-wide one overflows
+        if dtype == torch.float32:
+            return before_cluster(h, n_m1, dtype, backward)
+        return layout_of(h, n_m1, dtype, backward)
+
     def use(name):
-        for fn in (ft._lib, ft._stream_lib, ft._cluster_lib, ft._cluster_grid):
+        for fn in (ft._lib, ft._stream_lib, ft._cluster_lib, ft._cluster_grid, ft._f32_lib):
             fn.cache_clear()
         _build._loaded["fused_train"] = libs[name]
-        has_cluster = hasattr(libs[name], "dpfx_fused_train_cluster_fwd")
-        ft._layout = layout_of if has_cluster else before_cluster
-        layouts[name] = ft._layout(kh, nh1, bf, True)
+        if hasattr(libs[name], "dpfx_fused_train_f32_fwd"):
+            ft._layout = layout_of
+        elif hasattr(libs[name], "dpfx_fused_train_cluster_fwd"):
+            ft._layout = before_f32
+        else:
+            ft._layout = before_cluster
+        layouts[name] = ft._layout(kh, nh1, dt, True)
+        # points a forward block and a backward tile take
+        tiles[name] = tuple((1 << 20) // ft._tiles(1 << 20, dt, bw, layouts[name], (kh, nh1))
+                            for bw in (False, True))
 
     def rel(x, r):
-        return float((x.float() - r.float()).norm() / r.float().norm().clamp_min(1e-12))
+        return float((x.double() - r.double()).norm() / r.double().norm().clamp_min(1e-12))
+
+    def held(name, out) -> bool:
+        """The build's first outputs against the plain versions."""
+        if not all(bool(torch.isfinite(t).all()) for t in out):
+            return False
+        if not f32:
+            e = (out[0] - u_p).abs().flatten()
+            emax = float(e.max())
+            e999 = float(torch.quantile(e[::max(1, e.numel() // 2**24)], 0.999))
+            errs = [rel(x, r) for x, r in zip(out[1:], plain[1:]) if r.numel()]
+            print(f"{name} ({layouts[name]} layout) against the plain versions: u max "
+                  f"{emax:.3e} p99.9 {e999:.3e}; log-det and gradients rel "
+                  + " ".join(f"{v:.2e}" for v in errs), flush=True)
+            return emax <= 5e-2 and e999 <= 2e-3 and max(errs) <= 2e-2
+        ku = float((out[0].double() - u64).abs().max())
+        du_ = float((u_p.double() - u64).abs().max())
+        ld_err = rel(out[1], ld_p)
+        ok = ku <= max(F64_U_FLOOR, F64_RATIO * du_) and ld_err <= F32_LD_TOL
+        parts = []
+        for x, r, r64 in zip(out[2:], plain[2:], ref64):
+            if not r64.numel():
+                continue
+            kern, drift = rel(x, r64), rel(r, r64)
+            ok = ok and kern <= max(F64_GRAD_FLOOR, F64_RATIO * drift)
+            parts.append(f"{kern:.2e}/{drift:.2e}")
+        print(f"{name} ({layouts[name]} layout) against the f64 run: u max abs {ku:.3e} (the f32 "
+              f"plain version's {du_:.3e}); log-det rel to the f32 plain version {ld_err:.2e}; "
+              "gradients rel (kernel/plain f32) " + " ".join(parts), flush=True)
+        return ok
 
     start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
     firsts, times = {}, {nm: {"fwd": [], "bwd": []} for nm in libs}
@@ -304,15 +387,7 @@ def _ab_width(a, libs, card: str) -> int:
                 torch.cuda.synchronize()
                 if name not in firsts:
                     firsts[name] = [t.clone() for t in out]
-                    e = (out[0] - u_p).abs().flatten()
-                    emax = float(e.max())
-                    e999 = float(torch.quantile(e[::max(1, e.numel() // 2**24)], 0.999))
-                    errs = [rel(x, r) for x, r in zip(out[1:], plain[1:]) if r.numel()]
-                    print(f"{name} ({layouts[name]} layout) against the plain versions: u max "
-                          f"{emax:.3e} p99.9 {e999:.3e}; log-det and gradients rel "
-                          + " ".join(f"{v:.2e}" for v in errs), flush=True)
-                    if not (emax <= 5e-2 and e999 <= 2e-3 and max(errs) <= 2e-2
-                            and all(bool(torch.isfinite(t).all()) for t in out)):
+                    if not held(name, out):
                         print(f"the {name}'s outputs are off the plain versions", file=sys.stderr)
                         return 1
                 if not all(torch.equal(x, y) for x, y in zip(out, firsts[name])):
@@ -329,20 +404,48 @@ def _ab_width(a, libs, card: str) -> int:
                     times[name][key].append(round(start.elapsed_time(end) / calls, 4))
     finally:
         ft._layout = layout_of
-        for fn in (ft._lib, ft._stream_lib, ft._cluster_lib, ft._cluster_grid):
+        for fn in (ft._lib, ft._stream_lib, ft._cluster_lib, ft._cluster_grid, ft._f32_lib):
             fn.cache_clear()
         _build._loaded.pop("fused_train", None)
-    same = layouts["parent"] == layouts["tree"]
-    if same and not all(torch.equal(x, y) for x, y in zip(firsts["parent"], firsts["tree"])):
-        print("the two builds differ on the same layout", file=sys.stderr)
-        return 1
     medians = {nm: {kk: round(statistics.median(v), 4) for kk, v in t.items()}
                for nm, t in times.items()}
+    fp, ft_ = firsts["parent"], firsts["tree"]
+    if not f32:
+        same = layouts["parent"] == layouts["tree"]
+        if same and not all(torch.equal(x, y) for x, y in zip(fp, ft_)):
+            print("the two builds differ on the same layout", file=sys.stderr)
+            return 1
+        verdict = ("same bits" if same else "each within the plain versions' limits, same bits "
+                                            "run to run")
+    else:
+        # the same arithmetic: u always; the log-det at the same points per
+        # forward block; the gradients at the same backward tile in the
+        # stream or f32 design
+        design = {nm: "streamed" if lay in ("stream", "f32") else lay
+                  for nm, lay in layouts.items()}
+        same_ld = tiles["parent"][0] == tiles["tree"][0]
+        same_bwd = tiles["parent"][1] == tiles["tree"][1] and design["parent"] == design["tree"]
+        got = {"u": torch.equal(fp[0], ft_[0]), "log-det": torch.equal(fp[1], ft_[1]),
+               "gradients": all(torch.equal(x, y) for x, y in zip(fp[2:], ft_[2:]))}
+        want = {"u": True, "log-det": same_ld, "gradients": same_bwd}
+        print("the two builds' bits (same, where the arithmetic is the same): "
+              + json.dumps({kk: f"{got[kk]} (required: {want[kk]})" for kk in got})
+              + f"; log-det rel between the builds {rel(ft_[1], fp[1]):.2e}", flush=True)
+        if any(want[kk] and not got[kk] for kk in got):
+            print("the two builds differ where their arithmetic is the same", file=sys.stderr)
+            return 1
+        for name in order:
+            back = fs.fused_inverse_transposed(sp, firsts[name][0], z, dtype=dt)
+            torch.cuda.synchronize()
+            e = (back - xt).abs().flatten()
+            print(f"round trip {name}'s forward ({layouts[name]} layout) -> this tree's f32 "
+                  f"sampler (f32_kernel) on the same hz: median {float(e.median()):.3e} max "
+                  f"{float(e.max()):.3e}", flush=True)
+        verdict = "same bits where the arithmetic is the same, each held to the f64 run"
     print(f"fused_forward_kernel / fused_backward_kernel B={b} N={n} K={k} H={a.hidden}->{kh} "
-          f"n_hidden={a.n_hidden} bf16, layouts {json.dumps(layouts)}, ms in turns ({card}): "
-          f"{json.dumps(times)}; medians {json.dumps(medians)}; "
-          + ("same bits" if same else "each within the plain versions' limits, same bits run to "
-                                      "run"))
+          f"n_hidden={a.n_hidden} {a.dtype}, layouts {json.dumps(layouts)}, points a forward "
+          f"block / backward tile {json.dumps(tiles)}, ms in turns ({card}): {json.dumps(times)}; "
+          f"medians {json.dumps(medians)}; {verdict}")
     return 0
 
 

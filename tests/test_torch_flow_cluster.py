@@ -141,8 +141,8 @@ def test_launch_counts_by_layout():
     """``layout_launches`` counts the wrappers' launches by the layout that
     ran them, beside ``launches``; ``reset_launch_counts`` zeroes both, and
     the plain versions (a CPU tensor) count nothing."""
-    assert set(tft.layout_launches) == {f"{lay}_{d}" for lay in ("parent", "cluster", "stream")
-                                        for d in ("fwd", "bwd")}
+    assert set(tft.layout_launches) == {f"{lay}_{d}" for lay in ("parent", "cluster", "stream",
+                                                                 "f32") for d in ("fwd", "bwd")}
     tft.launches["fused_train_fwd"] = 3
     tft.layout_launches["cluster_bwd"] = 2
     tft.reset_launch_counts()

@@ -106,8 +106,11 @@ def test_f32_smem_is_the_carve_and_fits(hidden):
 
 def test_f32_chunk_width_in_the_source():
     """The chunk width and the streamed widths that smem_bytes mirrors are
-    the kernel's."""
-    text = SAMPLER_SRC.read_text()
+    the kernel's (its f32 device code is in flow_f32.cuh, which the sampler
+    includes)."""
+    header = SAMPLER_SRC.parent / "flow_f32.cuh"
+    assert '#include "flow_f32.cuh"' in SAMPLER_SRC.read_text()
+    text = SAMPLER_SRC.read_text() + header.read_text()
     assert "constexpr int f32_kc(int H) { return H <= 128 ? H : 32; }" in text
     assert "constexpr bool f32_pipe(int H) { return H >= 128; }" in text
     assert "ld = H + 1;" in text and "wbh = round128(H * (f32_kc(H) + 1) * 4);" in text

@@ -32,6 +32,7 @@ from dpfx_torch.ops import fused_sampler as tfs  # noqa: E402
 from dpfx_torch.ops import fused_train as tft  # noqa: E402
 from _torch_cluster_plan import cluster_domain, cluster_plan  # noqa: E402
 from _torch_stream_layout import stream_smem  # noqa: E402
+from _torch_f32_plan import f32_bwd_plan, f32_fwd_smem  # noqa: E402
 
 
 def tiny(hidden=48, n_hidden=3, dz=24, lat_hidden=40, point_widths=(24, 40),
@@ -292,7 +293,8 @@ def test_point_flow_domain_passes_the_shape_checks(hidden, n_hidden, dtype):
     are built for, the sampler's shared memory (its mirror) fits in every
     mode, and at n_hidden 1-4 at 128 and 256 the layout the wrappers take
     past the mma and block-wide ones fits: the cluster layout's plan (its
-    mirror) for the bf16 shapes it takes, else the stream layout's."""
+    mirror) for the bf16 shapes it takes, the f32 layout's plan (its mirror)
+    in f32, else the stream layout's."""
     cfg = _Cfg(hidden=hidden, n_hidden=n_hidden, compute_dtype=dtype)
     ok = tft.fused_train_supported(cfg)
     deepest = dict(zip(tfs.KERNEL_HIDDEN, (9, 4, 2, 1) if dtype == "bfloat16" else (17, 5, 2, 0)))
@@ -307,6 +309,9 @@ def test_point_flow_domain_passes_the_shape_checks(hidden, n_hidden, dtype):
         for backward in (False, True):
             if cluster_domain(h, nh1, dt):
                 t, _, need = cluster_plan(h, nh1, backward)
+                assert need <= tfs.SMEM_LIMIT and t in (32, 64, 128)
+            elif dtype == "float32":
+                t, need = f32_bwd_plan(h, nh1) if backward else (128, f32_fwd_smem(h))
                 assert need <= tfs.SMEM_LIMIT and t in (32, 64, 128)
             else:
                 t, nc, need = stream_smem(h, nh1, dtype == "bfloat16", backward)
