@@ -237,15 +237,19 @@ phase 3j's ranks, which the script starts itself):
      each shape of the cluster layout (K=32, B=64) the cluster inverse
      against its plain version and in turns with rows_kernel, the route's
      choice beside them;
-     (b) config #3 (shapenet_airplane_gen.yaml, f32 point flow) at H=256 on
-     the synthetic family: the training CLI with the fused point flow (10
-     steps as one resident call, every fused_train launch on the f32
-     layout, every loss finite), its step against the module path, the f32
-     sampler and `evaluate --limit 32` on its checkpoint; the same 10 steps
-     at config #3's own width (H=128, n_hidden 2) with the route's choice;
-     the f32 layout's forward and backward at B=64 x 2048, K=32 against
-     f64 runs of the plain versions, twice bit-identical, timed with their
-     bounds and in turns with the block-wide pair at H=128; the round trip
+     (b) config #3 (shapenet_airplane_gen.yaml, f32 point flow) at H=256 and
+     at its own width (H=128, n_hidden 2) on the synthetic family: the
+     training CLI's 10 steps as one resident call on config #3's own
+     schedule with the fused point flow and with the module path from the
+     same seeded weights (both finite with their loss windows within
+     TOL_TRAIN_DRIFT, or both non-finite from the same step, and then the
+     pair on the flagship's schedule, F32_SCHEDULE, finite); the fused run
+     that stays finite with every fused_train launch on the f32 layout and
+     every loss finite, its step against the module path; the f32 sampler
+     and `evaluate --limit 32` on the H=256 checkpoint; the f32 layout's
+     forward and backward at B=64 x 2048, K=32 on seeded weights at H=256
+     and on the H=128 checkpoint's trained weights against f64 runs of the
+     plain versions, twice bit-identical, timed with their bounds; the round trip
      fwd_f32 -> f32_kernel on the same hz (F32_TRIP); the sampler's kernel
      at B=64 against the plain version, timed; (c) latcap
      with train.fused_latent_flow=true (10 steps), the sampler under
@@ -2037,15 +2041,20 @@ def probe_tools_path(sp, dev, card):
     return rows
 
 
-def train_cli_run(argv, scale: float = 0.02, flax: bool = True):
+def train_cli_run(argv, scale: float = 0.02, flax: bool = True, seed=None):
     """``python -m dpfx_torch.train``'s main in this process, its model
     initialised to seeded random weights off the identity (a check on
     identity couplings passes whatever the math): flax's initialisation
     plus noise of ``scale``, or (``flax=False``) the modules' own, as phase
-    2's models; each call of its loop recorded. Returns (exit code, what it
-    printed, [(steps, per-step losses)] a call, the initial weights)."""
+    2's models; each call of its loop recorded. The modules' own init draws
+    from the global generator: with ``seed`` it is seeded first (in a fork,
+    the caller's stream left as it was), so two runs start from the same
+    weights. Returns (exit code, what it printed, [(steps, per-step losses)]
+    a call, the initial weights)."""
     import contextlib
     import io
+
+    import torch
 
     from dpfx_torch.compat import randomize_
     from dpfx_torch.train import __main__ as train_cli
@@ -2066,7 +2075,10 @@ def train_cli_run(argv, scale: float = 0.02, flax: bool = True):
     out = io.StringIO()
     tm.init_params_, tm._Cadence.record = init_then_randomize, recording
     try:
-        with contextlib.redirect_stdout(out):
+        with contextlib.redirect_stdout(out), (
+                contextlib.nullcontext() if seed is None else torch.random.fork_rng(devices=[])):
+            if seed is not None:
+                torch.manual_seed(seed)
             rc = train_cli.main(argv)
     finally:
         tm.init_params_, tm._Cadence.record = flax_init, record
@@ -3316,8 +3328,10 @@ F32_CONFIG = ROOT / "configs" / "shapenet_airplane_gen.yaml"
 # The two forwards give u the same bits, so the limit is no looser than the
 # stream layout's own round trip.
 F32_TRIP = {"median": 2.0 ** -23, "max": 28 * 2.0 ** -23}
-# the schedule of phase 3l (b)'s training runs of config #3: the flagship's
-# warmup and clip (configs/flagship_quality_v3_aug_100k.yaml)
+# the schedule of phase 3l (b)'s training runs of config #3 where its own
+# (lr 1e-3 from the first step, no clip) takes the random model's fused and
+# module runs both to non-finite losses from the same step (H=256): the
+# flagship's warmup and clip (configs/flagship_quality_v3_aug_100k.yaml)
 F32_SCHEDULE = ["train.lr_warmup_steps=1000", "train.grad_clip=1.0"]
 # the shapes the mma and block-wide layouts of the forward or the
 # backward overflow (fused_train.uses_stream): in bf16 the cluster layout's
@@ -3636,7 +3650,7 @@ def shapes_path(dev, card, x20, h128_replayed):
                 fwd, fwd2, fwd_p, du, dld, got, again, ref = train_runs(tw, xt, hz, dt)
                 layout = ft._layout(kh, nh1, dt, True)
                 overflow = (kh == 128 and nh1 >= 2) or (kh == 256 and (nh1 >= 1 or dname == "float32"))
-                want = ("f32" if dname == "float32" and (kh, nh1) not in ft.F32_KEPT
+                want = ("f32" if dname == "float32"
                         else "parent" if not overflow else "cluster"
                         if dname == "bfloat16" and (kh, nh1) in CLUSTER_SHAPES else "stream")
                 check(layout == want, f"H={h} n_hidden={nh} {dname} takes the {layout} layout")
@@ -3663,10 +3677,10 @@ def shapes_path(dev, card, x20, h128_replayed):
                 del got, again, ref
 
     # the f32 layout's forward is the block-wide layout's arithmetic (each
-    # sum over k in order, the same 128-point block and log-det sum): on
-    # the shapes both take (H=128, n_hidden 1-2), the same bits; its
-    # backward sums the weight gradients over other tiles (128 points
-    # against 32), held to phase 2's f32 limits
+    # sum over k in order, the same 128-point block and log-det sum): forced
+    # onto the block-wide pair where both fit (H=128, n_hidden 1-2), the same
+    # bits; its backward sums the weight gradients over other tiles (128
+    # points against 32), held to phase 2's f32 limits
     f32 = torch.float32
     for nh in (1, 2):
         sp = flow_stack(128, nh, 4)
@@ -3674,20 +3688,18 @@ def shapes_path(dev, card, x20, h128_replayed):
         xt, hz = flow_inputs(sp)
         check(not ft.uses_stream(128, nh - 1, f32), f"H=128 n_hidden={nh} f32 fits the block-wide "
                                                     "layout")
-        kept = ft.F32_KEPT
-        ft.F32_KEPT = frozenset()
+        u, ld = ft.fused_forward_kernel(*tw, xt, hz, f32)
+        du = torch.randn(u.shape, generator=g, device=dev)
+        dld = torch.randn(ld.shape, generator=g, device=dev)
+        got = ft.fused_backward_kernel(*tw, u, hz, du, dld, f32)
+        f32_layout = ft.uses_f32
+        ft.uses_f32 = lambda *a: False
         try:
-            u, ld = ft.fused_forward_kernel(*tw, xt, hz, f32)
-            du = torch.randn(u.shape, generator=g, device=dev)
-            dld = torch.randn(ld.shape, generator=g, device=dev)
-            got = ft.fused_backward_kernel(*tw, u, hz, du, dld, f32)
-            ft.F32_KEPT = frozenset({(128, nh - 1)})
-            check(ft._layout(128, nh - 1, f32, True) == "parent",
-                  "F32_KEPT keeps the block-wide pair")
+            check(ft._layout(128, nh - 1, f32, True) == "parent", "forced onto the block-wide pair")
             ub, ldb = ft.fused_forward_kernel(*tw, xt, hz, f32)
             gb_ = ft.fused_backward_kernel(*tw, u, hz, du, dld, f32)
         finally:
-            ft.F32_KEPT = kept
+            ft.uses_f32 = f32_layout
         torch.cuda.synchronize()
         same = {nm: torch.equal(a, c) for nm, a, c in zip(grad_names[1:], got, gb_)}
         gerr = {nm: rel(a, c) for nm, a, c in zip(grad_names[1:], got, gb_) if c.numel()}
@@ -4050,48 +4062,86 @@ def shapes_path(dev, card, x20, h128_replayed):
         del xw, xw2, xwp
     del model_a, sampler_a, sampler_af, u_p, du
 
-    # (b) config #3 (f32 point flow) on the synthetic family: at H=256 the
-    # CLI trains 10 steps as one resident call with the fused point flow on
-    # the f32 layout, its step against the module path, then the f32
-    # sampler and the evaluation CLI on its checkpoint; the same 10 steps at
-    # config #3's own width (H=128, n_hidden 2), on the layout the route
-    # takes there. The runs take the flagship's schedule (F32_SCHEDULE):
-    # with config #3's own (lr 1e-3 from the first step, no warmup) the
-    # random model's 10 steps through the CLI go non-finite
+    # (b) config #3 (f32 point flow) on the synthetic family, through the
+    # CLI at H=256 and at config #3's own width (H=128, n_hidden 2): its 10
+    # steps as one resident call on config #3's own schedule (lr 1e-3 from
+    # the first step, no clip), with the fused point flow and with the
+    # module path from the same seeded weights on the same batches and
+    # noise. Both finite, their loss windows within TOL_TRAIN_DRIFT; or both
+    # non-finite from the same step (the random model diverges on that
+    # schedule whatever computes its gradients), and then the same pair on
+    # the flagship's schedule (F32_SCHEDULE), which must stay finite. The
+    # fused run that stays finite is the width's: every fused_train launch
+    # on the f32 layout, every loss finite, its first step against the
+    # module path; then the f32 sampler and the evaluation CLI on the H=256
+    # checkpoint, and the f32 pair against the f64 run on the H=128 one
     f32 = torch.float32
     over_b = [*WIDE, "data.dataset=synthetic", "data.synthetic_size=512"]
-    f32_runs, f32_layouts = {}, {}
-    for hb, over in ((256, over_b), (128, over_b[1:])):
-        bdir = WORK / f"train_f32_h{hb}"
+    f32_runs, f32_layouts, f32_pairs = {}, {}, {}
+    windows = lambda ls: [sum(ls[i:i + 5]) / 5 for i in (0, 5)]  # noqa: E731
+
+    def f32_cli(hb, over, sched, fused, tag):
+        bdir = WORK / f"train_f32_h{hb}_{tag}_{fused}"
         shutil.rmtree(bdir, ignore_errors=True)
         for mod in (ft, fe, fl):
             mod.reset_launch_counts()
         t0 = time.perf_counter()
-        rc, _, bcalls, binit = train_cli_run(
-            [str(F32_CONFIG), *over, *F32_SCHEDULE, "train.fused_point_flow=true",
+        rc, _, calls, init = train_cli_run(
+            [str(F32_CONFIG), *over, *sched, f"train.fused_point_flow={fused}",
              "train.steps=10", "train.steps_per_call=10", "train.log_every=5",
              f"train.lr_decay_steps={TRAIN_STEPS}", "train.ckpt_every=10",
              f"train.ckpt_dir={bdir}"],
-            scale=0.02 * (128 / hb) ** 0.5, flax=False)
+            scale=0.02 * (128 / hb) ** 0.5, flax=False, seed=7)
         torch.cuda.synchronize()
-        bwall = time.perf_counter() - t0
-        blaunch, blay = dict(ft.launches), dict(ft.layout_launches)
+        losses = [v for _, ls in calls for v in ls]
+        check(rc == 0 and [kk for kk, _ in calls] == [10],
+              f"config #3 H={hb} ({tag} schedule, fused {fused}) train calls {calls}")
+        return {"wall": time.perf_counter() - t0, "calls": calls, "init": init, "bdir": bdir,
+                "losses": losses, "launch": dict(ft.launches), "lay": dict(ft.layout_launches),
+                "bad": next((i + 1 for i, v in enumerate(losses) if not np.isfinite(v)), None)}
+
+    for hb, over in ((256, over_b), (128, over_b[1:])):
+        readings = []
+        for tag, sched in (("own", []), ("flagship's", F32_SCHEDULE)):
+            runs = {fu: f32_cli(hb, over, sched, fu, tag) for fu in ("true", "false")}
+            fr, mr = runs["true"], runs["false"]
+            check(sum(mr["launch"].values()) == 0, f"the module path launches no fused_train: "
+                                                   f"{mr['launch']}")
+            if fr["bad"] is None and mr["bad"] is None:
+                drift = max(abs(a - r) / abs(r) for a, r in zip(windows(fr["losses"]),
+                                                                 windows(mr["losses"])))
+                check(drift <= TOL_TRAIN_DRIFT,
+                      f"config #3 H={hb} ({tag} schedule): the fused run's loss windows against "
+                      f"the module path's: rel {drift} (fused {fr['losses']}, module "
+                      f"{mr['losses']})")
+                readings.append(f"{tag} schedule: both finite, loss windows rel {drift:.2e}")
+            else:
+                check(fr["bad"] == mr["bad"],
+                      f"config #3 H={hb} ({tag} schedule): the fused run non-finite from step "
+                      f"{fr['bad']}, the module path from step {mr['bad']} (fused "
+                      f"{fr['losses']}, module {mr['losses']})")
+                readings.append(f"{tag} schedule: both non-finite from step {fr['bad']} (fused "
+                                f"{fr['losses'][:fr['bad']]}, module {mr['losses'][:mr['bad']]})")
+            if fr["bad"] is None:
+                break
+        check(fr["bad"] is None, f"config #3 H={hb}: the flagship's schedule stays finite")
+        run = fr
+        bdir, bcalls, binit, blaunch, blay = (run["bdir"], run["calls"], run["init"],
+                                              run["launch"], run["lay"])
         cfg_bb = load_config(str(F32_CONFIG),
-                             overrides=[*over, *F32_SCHEDULE, "train.fused_point_flow=true"])
+                             overrides=[*over, *sched, "train.fused_point_flow=true"])
         check(cfg_bb.model.point_flow.compute_dtype == "float32"
               and cfg_bb.model.point_flow.hidden == hb, "config #3's point flow is f32")
         brecs = [json.loads(line) for line in
                  (bdir / cfg_bb.name / "metrics.jsonl").read_text().splitlines()]
         btr = [r for r in brecs if r["kind"] == "train"]
-        check(rc == 0 and [kk for kk, _ in bcalls] == [10] and [r["step"] for r in btr] == [10],
-              f"config #3 H={hb} train calls {bcalls}, records {btr}")
+        check([r["step"] for r in btr] == [10], f"config #3 H={hb} records {btr}")
         check(all(np.isfinite(r["loss"]) and np.isfinite(r["grad_norm"])
                   and r["nonfinite_skipped"] == 0 for r in btr)
-              and all(np.isfinite(v) for _, ls in bcalls for v in ls),
+              and all(np.isfinite(v) for v in run["losses"]),
               f"config #3 H={hb}: every loss finite, no step skipped: {btr}")
         lay_b = ft._layout(hb, 1, f32, True)
-        check(lay_b == ("parent" if (hb, 1) in ft.F32_KEPT else "f32"),
-              f"config #3 at H={hb} n_hidden 2 trains on the {lay_b} layout")
+        check(lay_b == "f32", f"config #3 at H={hb} n_hidden 2 trains on the {lay_b} layout")
         for d in ("fwd", "bwd"):
             want = tm._WARMUP + 10 + (VAL_BATCHES if d == "fwd" else 0)
             check(blaunch[f"fused_train_{d}"] == want and blay[f"{lay_b}_{d}"] == want
@@ -4117,12 +4167,16 @@ def shapes_path(dev, card, x20, h128_replayed):
         (lf, gf), (lm, gm) = out["fused"], out["module"]
         check(abs(lf - lm) <= TOL_STEP_LOSS * abs(lm) and abs(gf - gm) <= TOL_STEP_GNORM * abs(gm),
               f"the config #3 H={hb} fused step agrees with the module path: {out}")
-        f32_runs[hb] = (bwall, btr, out, bdir, cfg_bb)
+        f32_runs[hb] = (run["wall"], btr, out, bdir, cfg_bb)
         f32_layouts[hb] = blay
-        print(f"(b) config #3 at H={hb} n_hidden 2 f32 (route: {lay_b} layout): 10 steps (one "
-              f"resident call) in {bwall:.1f} s wall; launches {json.dumps(blaunch)}, by layout "
-              f"{json.dumps(blay)}; loss " + ", ".join(f"{r['loss']:.1f}" for r in btr)
-              + "; grad norm " + ", ".join(f"{r['grad_norm']:.1f}" for r in btr)
+        f32_pairs[hb] = readings
+        print(f"(b) config #3 at H={hb} n_hidden 2 f32 (route: {lay_b} layout), fused and module "
+              f"path through the CLI from the same seeded weights: " + "; ".join(readings)
+              + f". The fused run on the {tag} schedule: 10 steps (one resident call) in "
+              f"{run['wall']:.1f} s wall; launches {json.dumps(blaunch)}, by layout "
+              f"{json.dumps(blay)}; per-step loss "
+              + ", ".join(f"{v:.1f}" for v in run["losses"]) + "; grad norm "
+              + ", ".join(f"{r['grad_norm']:.1f}" for r in btr)
               + f"; fused step vs module path: loss {lf:.4f} vs {lm:.4f} (rel "
               f"{abs(lf - lm) / abs(lm):.2e}), grad norm {gf:.4f} vs {gm:.4f} (rel "
               f"{abs(gf - gm) / abs(gm):.2e}) ({card})")
@@ -4199,34 +4253,42 @@ def shapes_path(dev, card, x20, h128_replayed):
           f"{fb_ms / b_fb:.2f}x its bound {b_fb:.4f} ({by_fb}); plain {ff_plain:.2f} / "
           f"{fb_plain:.2f} ({card})")
     del model_b, u_p, du, dld
-    # at config #3's own width (H=128, n_hidden 2) the f32 layout in turns
-    # with the block-wide pair (what the route took before), on the seeded
-    # weights; the route keeps the faster (fused_train.F32_KEPT)
+    # at config #3's own width (H=128, n_hidden 2) the f32 pair on the
+    # weights that the width's 10 steps left (away from their initial
+    # values), at the main shape: against the f64 runs of the plain
+    # versions, twice bit-identical, timed with its bounds (the block-wide
+    # pair that the route took before is timed in turns with it by
+    # `python -m dpfx_torch.tools.bwd_ab PARENT --hidden 128 --dtype float32`)
+    bdir_c, cfg_c = f32_runs[128][3], f32_runs[128][4]
+    model_c = DPF(cfg_c)
+    model_c.load_state_dict(torch.load(bdir_c / cfg_c.name / "params_00000010.pt",
+                                       map_location="cpu", weights_only=True))
     with torch.no_grad():
-        sp_c = fs.stack_point_flow_params(flagship_like(over_b[1:], 7, F32_CONFIG).point_flow)
+        sp_c = fs.stack_point_flow_params(model_c.point_flow.to(dev))
     twc = (sp_c.wx, sp_c.wh, sp_c.bh, sp_c.wout, sp_c.bout, sp_c.masks, sp_c.scale_cap)
     hzc = fs.z_projection(sp_c, z)
-    (u_c, _), _, (u_cp, _), duc, dldc, gc, gc2, gcr = train_runs(twc, xt, hzc, f32)
-    check(all(torch.equal(a_, c_) for a_, c_ in zip(gc, gc2)),
-          "the H=128 f32 backward bit-identical from run to run")
-    kept, c_ms = ft.F32_KEPT, {"f32": [], "block-wide": []}
-    for lay in ("f32", "block-wide", "block-wide", "f32"):
-        ft.F32_KEPT = frozenset() if lay == "f32" else frozenset({(128, 1)})
-        try:
-            c_ms[lay].append((cuda_ms(lambda: ft.fused_forward_kernel(*twc, xt, hzc, f32), 5),
-                              cuda_ms(lambda: ft.fused_backward_kernel(*twc, u_cp, hzc, duc, dldc,
-                                                                       f32), 3)))
-        finally:
-            ft.F32_KEPT = kept
+    check(ft._layout(128, 1, f32, False) == ft._layout(128, 1, f32, True) == "f32",
+          "config #3's own width runs the f32 layout")
+    (u_c, ld_c), fwd2c, (u_cp, ld_cp), duc, dldc, gc, gc2, gcr = train_runs(twc, xt, hzc, f32)
+    w64c = tuple(t.double() if torch.is_tensor(t) else t for t in twc)
+    u64c = ft.fused_forward_plain(*w64c, xt.double(), hzc.double(), torch.float64)[0]
+    ref64c = ft.fused_backward_plain(*w64c, u_cp.double(), hzc.double(), duc.double(),
+                                     dldc.double(), torch.float64)
+    cname = (f"fused_train (f32 layout) B={bm} N={nm} K=32 H=128 n_hidden 2, config #3's "
+             "trained weights")
+    f64_held(cname, lambda: f64_forward_held(cname, (u_c, ld_c), fwd2c, (u_cp, ld_cp), u64c,
+                                             lambda: ft.fused_forward_plain(*twc, xt, hzc, f32)),
+             gc, gc2, gcr, ref64c,
+             lambda: ft.fused_backward_plain(*twc, u_cp, hzc, duc, dldc, f32), grad_names[1:])
+    del gc, gc2, gcr, ref64c, u64c
+    cf_ms = cuda_ms(lambda: ft.fused_forward_kernel(*twc, xt, hzc, f32), 5)
+    cb_ms = cuda_ms(lambda: ft.fused_backward_kernel(*twc, u_cp, hzc, duc, dldc, f32), 3)
     (b_cf, _), (b_cb, _) = train_bounds_f32(sp_c, bm, nm)
-    f32_h128 = {kk: tuple(sum(t[i] for t in v) / 2 for i in (0, 1)) for kk, v in c_ms.items()}
-    print(f"fused_train f32 at B={bm} N={nm} K=32 H=128 n_hidden 2 (config #3's width), in turns "
-          f"(forward, backward ms): {json.dumps(c_ms)}; bounds {b_cf:.4f} / {b_cb:.4f}; the route "
-          f"takes the {ft._layout(128, 1, f32, True)} layout ({card})")
-    check((f32_h128["f32"][0] + f32_h128["f32"][1] <= sum(f32_h128["block-wide"]))
-          == ((128, 1) not in ft.F32_KEPT), f"the route at H=128 n_hidden 2 takes the faster pair: "
-                                            f"{f32_h128}, F32_KEPT {ft.F32_KEPT}")
-    del u_c, u_cp, duc, dldc, gc, gc2, gcr
+    print(f"fused_train f32 layout at B={bm} N={nm} K=32 H=128 n_hidden 2 (config #3's width, its "
+          f"trained weights): forward {cf_ms:.3f} ms, backward {cb_ms:.3f} ms; bounds "
+          f"{b_cf:.4f} / {b_cb:.4f}; the route takes the {ft._layout(128, 1, f32, True)} layout "
+          f"({card})")
+    del model_c, u_c, u_cp, duc, dldc
     # the round trip: the f32 forward, then the f32 sampler's inverse on the
     # same hz (f32_walk walked both ways) on bwd_ab --dtype float32's inputs,
     # where the stream layout's forward read F32_TRIP in the same call

@@ -143,7 +143,7 @@ __device__ __forceinline__ void first_layer_f32(float* hs, int ld, const float* 
 
 // st[r][p] = Wout[r] . h[p] + bout[r] for the T points: one warp per point,
 // lanes split the H sum, then a shuffle tree (the backward's recompute;
-// f32_walk has the same code in place)
+// f32_walk has the same code in place, held to this text by a CPU test)
 template <int H>
 __device__ __forceinline__ void st_f32(float* sts, const float* hs, int ld, int T,
                                        const float* wos, const float* bos) {
@@ -319,7 +319,8 @@ __device__ __forceinline__ void f32_walk(unsigned char* smem, const F32Smem& L,
 
     // st = Wout . h + bout: st_f32's code, written in place (called as the
     // function, it made nvcc schedule f32_kernel<float, 256> 2% slower with
-    // the same bits; PERF.md)
+    // the same bits; PERF.md); tests/test_torch_flow_f32.py holds the two to
+    // one text
     {
       const int warp = tid / 32, lane = tid % 32;
       for (int p = warp; p < TILE; p += WARPS) {

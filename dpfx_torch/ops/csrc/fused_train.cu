@@ -75,8 +75,7 @@
 // f32 layout (`fwd_f32`, `bwd_f32`; flow_f32.cuh, the f32 sampler's device
 // code): the f32 shapes whose block-wide layout overflows (H=256 with
 // n_hidden 1-4, H=128 with n_hidden 3-4), and H=128 with n_hidden 1-2 where
-// it timed faster than the block-wide pair in turns (fused_train.F32_KEPT
-// names the shapes that keep the block-wide pair). The forward is the
+// it timed faster than the block-wide pair in turns. The forward is the
 // sampler's 128-point walk run forwards; the backward keeps every level of
 // a tile of 32-128 points and runs its three products per hidden layer on
 // the same register tile, with Wh streamed by cp.async. See fwd_f32 and

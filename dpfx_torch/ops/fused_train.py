@@ -27,11 +27,11 @@ kernel launches of each wrapper, ``layout_launches`` the same by layout.
 Layouts, chosen from the shapes for the forward and the backward together
 (``_layout``): in f32 at H = 128 and 256 the f32 layout (``uses_f32``:
 ``csrc/flow_f32.cuh``, the f32 sampler's register-tiled device code, Wh
-streamed with cp.async) but on the shapes of ``F32_KEPT``; else the mma
-layout (bf16) or the block-wide one (f32) where a block holds the shape;
-else, in bf16, the cluster layout (``csrc/flow_cluster.cuh``: one layer
-split across a thread-block cluster of H / 64 CTAs) where its plan fits
-(``uses_cluster``); else the stream layout (bf16 at H=256 with n_hidden 4).
+streamed with cp.async); else the mma layout (bf16) or the block-wide one
+(f32) where a block holds the shape; else, in bf16, the cluster layout
+(``csrc/flow_cluster.cuh``: one layer split across a thread-block cluster
+of H / 64 CTAs) where its plan fits (``uses_cluster``); else the stream
+layout (bf16 at H=256 with n_hidden 4).
 """
 
 from __future__ import annotations
@@ -74,10 +74,6 @@ MAX_N_HIDDEN = 4       # conditioner depths every width takes
 # stream layout is built for bf16 at H=256 only (the mma and cluster layouts
 # take every bf16 shape at H=128), the f32 layout for both
 STREAM_HIDDEN = (128, 256)
-# (H, n_hidden - 1) in f32 where the block-wide pair fits and timed faster in
-# turns than the f32 layout's at B=64 x 2048, K=32 (chip_smoke.py's phase 3l
-# times both): the block-wide pair stays there
-F32_KEPT: frozenset = frozenset()
 CLUSTER_COLUMNS = 64   # hidden columns each CTA of a cluster owns
 # deeper conditioners where the mma (bf16) or block-wide (f32) layouts hold
 # the forward and the backward: the deepest n_hidden they take at each
@@ -320,10 +316,11 @@ def _f32_lib() -> ctypes.CDLL:
 def uses_f32(hidden: int, n_hidden_m1: int, dtype: torch.dtype) -> bool:
     """The f32 layout: f32 at H = 128 and 256 with n_hidden <=
     ``MAX_N_HIDDEN`` (the shapes past the block-wide layout, H=256 with
-    n_hidden 1-4 and H=128 with n_hidden 3-4, and H=128 with n_hidden 1-2
-    where it timed faster), but the shapes of ``F32_KEPT``."""
-    return (dtype == torch.float32 and hidden in STREAM_HIDDEN and n_hidden_m1 < MAX_N_HIDDEN
-            and (hidden, n_hidden_m1) not in F32_KEPT)
+    n_hidden 1-4 and H=128 with n_hidden 3-4, and H=128 with n_hidden 1-2,
+    where the block-wide pair fits but timed slower in turns:
+    ``python -m dpfx_torch.tools.bwd_ab PARENT --hidden 128 --dtype float32``
+    against a build that routes there)."""
+    return dtype == torch.float32 and hidden in STREAM_HIDDEN and n_hidden_m1 < MAX_N_HIDDEN
 
 
 def _tiles(n: int, dtype: torch.dtype, backward: bool, layout: str,

@@ -64,8 +64,6 @@ def f32_part_row(hidden: int, n_hidden_m1: int) -> int:
     return (3 * h + nh1 * h * h + nh1 * h + 6 * h + 6 + 3) // 4 * 4
 
 
-def f32_domain(hidden: int, n_hidden_m1: int, kept=frozenset()) -> bool:
-    """``fused_train.uses_f32`` for f32 at the kernel widths, with ``kept``
-    standing in for ``fused_train.F32_KEPT``."""
-    return (hidden in F32_WIDTHS and n_hidden_m1 < MAX_N_HIDDEN
-            and (hidden, n_hidden_m1) not in kept)
+def f32_domain(hidden: int, n_hidden_m1: int) -> bool:
+    """``fused_train.uses_f32`` for f32 at the kernel widths."""
+    return hidden in F32_WIDTHS and n_hidden_m1 < MAX_N_HIDDEN

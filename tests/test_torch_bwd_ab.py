@@ -98,15 +98,15 @@ def test_width_mode_needs_the_fused_train_library(tmp_path):
             assert bwd_ab.main([str(tmp_path), "--library", lib, "--hidden", "256"]) == 1
 
 
-@pytest.mark.parametrize("hidden,n_hidden,kept,want", [
-    (256, 2, (), "bwd_f32ILi256ELi64E"), (256, 4, (), "bwd_f32ILi256ELi32E"),
-    (128, 4, (), "bwd_f32ILi128ELi64E"), (96, 2, (), "bwd_f32ILi128ELi128E"),
-    (128, 2, ((128, 1),), "bwd_kernelILi128E")])
-def test_f32_width_mode_disassembles_the_f32_backward(hidden, n_hidden, kept, want, monkeypatch):
+@pytest.mark.parametrize("hidden,n_hidden,want", [
+    (256, 2, "bwd_f32ILi256ELi64E"), (256, 4, "bwd_f32ILi256ELi32E"),
+    (128, 4, "bwd_f32ILi128ELi64E"), (96, 2, "bwd_f32ILi128ELi128E"),
+    (64, 3, "bwd_kernelILi64E")])
+def test_f32_width_mode_disassembles_the_f32_backward(hidden, n_hidden, want, monkeypatch):
     """--hidden with --dtype float32 compares the SASS of the f32 backward
     the tree's wrapper takes: ``bwd_f32<H, T>`` at the plan's points a tile
-    (the plan's mirror stands in for the library), the block-wide
-    ``bwd_kernel<H>`` on a shape of ``F32_KEPT``."""
+    (the plan's mirror stands in for the library) at H = 128 and 256, the
+    block-wide ``bwd_kernel<H>`` below."""
     from _torch_f32_plan import f32_bwd_plan
 
     from dpfx_torch.ops import fused_train as ft
@@ -118,7 +118,6 @@ def test_f32_width_mode_disassembles_the_f32_backward(hidden, n_hidden, kept, wa
             return f32_bwd_plan(h, nh1)[0] if backward else 128
 
     monkeypatch.setattr(ft, "_f32_lib", lambda: Lib)
-    monkeypatch.setattr(ft, "F32_KEPT", frozenset(kept))
     got = bwd_ab._layout_kernel(ft, kernel_hidden(hidden), n_hidden - 1, torch.float32)
     assert got == want
 

@@ -341,8 +341,11 @@ def _assert_f64_held(w, u, hz, du, dld, got, plain, tol=1e-4):
     (``plain``) own drift from the f64 run, whichever is larger. A relu
     gate within f32 rounding of 0 may fall on either side in an f32 order,
     and one such flip moves the gradients in a step far above rounding
-    (PERF.md): where the f64 run misses the limits, the f64 run with one
-    such gate on its other side must meet the same limits."""
+    (PERF.md). The flow acts on each point alone, so a gate that the
+    kernel's recompute put on the other side moves dx at its own point
+    only: where the f64 run misses the limits, the f64 run with one gate
+    within rounding of 0 at the point where the kernel's dx parts most from
+    the f64 run's, put on its other side, must meet the same limits."""
     w64 = tuple(t.double() if torch.is_tensor(t) else t for t in w)
     names = ["dx", "dhz", "dwx", "dwh", "dbh", "dwout", "dbout"]
     rel64 = lambda a, b: float((a.double() - b).norm() / b.norm().clamp_min(1e-300))  # noqa: E731
@@ -356,12 +359,16 @@ def _assert_f64_held(w, u, hz, du, dld, got, plain, tol=1e-4):
     bad = misses(ref64)
     if not bad:
         return
-    gates = _gates_within_rounding(w64, u.double(), hz.double())
+    err = (got[0].double() - ref64[0]).norm(dim=1)          # [B, N]: dx's error a point
+    cloud, point = divmod(int(err.argmax()), err.shape[1])
+    gates = [gt for gt in _gates_within_rounding(w64, u.double(), hz.double())
+             if (gt[2], gt[4]) == (cloud, point)]
     for gate in gates:
         if not misses(_plain64(w64, u, hz, du, dld, gate)):
             return
     raise AssertionError(f"(error, limit) against the f64 run {bad}, and no single flip of the "
-                         f"{len(gates)} relu gates within f32 rounding of 0 meets the limits")
+                         f"{len(gates)} relu gates within f32 rounding of 0 at the point where "
+                         f"dx parts most from it (cloud {cloud}, point {point}) meets the limits")
 
 
 @pytest.mark.parametrize("hidden,n_hidden,n", [(32, 2, 200), (64, 1, 128), (128, 2, 300),
@@ -612,12 +619,12 @@ def test_fused_train_f32_layout_matches_plain(cuda, hidden, n_hidden, n, b):
     version at test_fused_train_kernels_match_plain's f32 limits, every
     gradient against the f64 run by chip_smoke.py's f64_held rule; forward
     and backward bit-identical from run to run; every launch counted on the
-    f32 layout (the block-wide one on a shape of F32_KEPT)."""
+    f32 layout."""
     f32 = torch.float32
     sp = _flow_weights(hidden, n_hidden, cuda, k=4, seed=hidden + n_hidden,
                        scale=0.02 * (128 / max(hidden, 128)) ** 0.5)
     h, nh1 = sp.wx.shape[1], sp.wh.shape[1]
-    lay = "parent" if (h, nh1) in ft.F32_KEPT else "f32"
+    lay = "f32"
     assert ft._layout(h, nh1, f32, False) == ft._layout(h, nh1, f32, True) == lay
     w = (sp.wx, sp.wh, sp.bh, sp.wout, sp.bout, sp.masks, sp.scale_cap)
     g = torch.Generator(device=cuda).manual_seed(12)
@@ -712,8 +719,8 @@ def test_f32_plan_mirror_matches_kernel(cuda):
             assert lib.dpfx_fused_train_f32_part_row(h, nh1) == f32_part_row(h, nh1), (h, nh1)
     for h in fs.KERNEL_HIDDEN:
         for nh1 in range(6):
-            assert ft.uses_f32(h, nh1, torch.float32) == f32_domain(h, nh1, ft.F32_KEPT), (h, nh1)
-            if f32_domain(h, nh1, ft.F32_KEPT):
+            assert ft.uses_f32(h, nh1, torch.float32) == f32_domain(h, nh1), (h, nh1)
+            if f32_domain(h, nh1):
                 assert ft._layout(h, nh1, torch.float32, True) == "f32", (h, nh1)
 
 

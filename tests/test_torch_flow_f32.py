@@ -1,7 +1,7 @@
 """The point flow's f32 training layout (``csrc/flow_f32.cuh``: the f32
 sampler's register-tiled device code, fused_train.cu's fwd_f32 and
 bwd_f32) on the CPU: its domain (every f32 shape past the block-wide
-layout, and the block-wide shapes at H=128 but ``F32_KEPT``), the bf16
+layout, and the block-wide shapes at H=128), the bf16
 routes unchanged, its shared-memory plans through the Python mirror
 (``tests/_torch_f32_plan.py``, which the card tests hold to the library)
 against the numbers in the header, and, at each of its shapes, the port's
@@ -71,26 +71,23 @@ def mirrored(monkeypatch):
 def test_every_f32_shape_past_the_block_wide_layout_takes_the_f32_layout(mirrored):
     """In f32 the shapes the block-wide layout cannot hold (H=256 with
     n_hidden 1-4, H=128 with n_hidden 3-4) take the f32 layout; at H=128
-    with n_hidden 1-2, where both fit, the f32 layout unless the shape is in
-    ``F32_KEPT``; H = 32 and 64 and depths past 4 never; the mirror's
-    domain is ``uses_f32``."""
+    with n_hidden 1-2, where both fit, the f32 layout too (it timed faster);
+    H = 32 and 64 and depths past 4 never; the mirror's domain is
+    ``uses_f32``."""
     deepest = tft.LAYOUT_N_HIDDEN["float32"]
     past = [(h, nh - 1) for h in sorted(deepest) for nh in range(1, tft.MAX_N_HIDDEN + 1)
             if nh > deepest[h]]
     assert past == [(128, 2), (128, 3), (256, 0), (256, 1), (256, 2), (256, 3)]
-    assert all(not mirrored.uses_stream(*s, F32) for s in tft.F32_KEPT), "a kept shape fits"
     for h in tfs.KERNEL_HIDDEN:
         for nh1 in range(6):
-            assert tft.uses_f32(h, nh1, F32) == f32_domain(h, nh1, tft.F32_KEPT), (h, nh1)
+            assert tft.uses_f32(h, nh1, F32) == f32_domain(h, nh1), (h, nh1)
             assert not tft.uses_f32(h, nh1, torch.bfloat16)
             if nh1 + 1 > tft.MAX_N_HIDDEN and nh1 + 1 > deepest[h]:
                 continue   # outside the predicate's domain
             for backward in (False, True):
                 got = tft._layout(h, nh1, F32, backward)
-                if (h, nh1) in past:
+                if (h, nh1) in past or (h in (128, 256) and nh1 < tft.MAX_N_HIDDEN):
                     assert got == "f32", (h, nh1)
-                elif h in (128, 256) and nh1 < tft.MAX_N_HIDDEN:
-                    assert got == ("parent" if (h, nh1) in tft.F32_KEPT else "f32"), (h, nh1)
                 else:
                     assert got == "parent", (h, nh1)
 
@@ -161,6 +158,32 @@ def test_plan_numbers_in_the_header():
     m = re.search(r"The forward's block: ([\d,]+) B at H=128, ([\d,]+) B at H=256", text)
     assert (num(m.group(1)), num(m.group(2))) == (f32_fwd_smem(128), f32_fwd_smem(256))
     assert "226,560 B" in text and "227,072 B" in text
+
+
+def _block(text: str, start: int) -> str:
+    """The braces-balanced block that opens at the first ``{`` from start."""
+    i = text.index("{", start)
+    depth = 0
+    for j in range(i, len(text)):
+        depth += {"{": 1, "}": -1}.get(text[j], 0)
+        if depth == 0:
+            return text[i:j + 1]
+    raise AssertionError("unbalanced braces")
+
+
+def test_walks_st_code_is_st_f32():
+    """f32_walk keeps the (s, t) code in place (nvcc scheduled the sampler
+    slower when it called st_f32) while the backward's recompute calls
+    st_f32: the two bodies, up to the names of the thread index and the
+    tile's points, are one text, so the forward, the inverse and the
+    recompute give the same bits."""
+    text = HEADER.read_text()
+    body = _block(text, text.index("__device__ __forceinline__ void st_f32("))
+    walk = _block(text, text.index("// st = Wout . h + bout: st_f32's code, written in place"))
+    norm = lambda b: " ".join(  # noqa: E731
+        re.sub(r"\bTILE\b", "T", b.replace("threadIdx.x", "tid")).split())
+    assert "part[r] = fmaf(wos[r * H + kk], hv, part[r])" in body
+    assert norm(body) == norm(walk)
 
 
 def _setup(hidden, n_hidden, n, n_layers, seed=0):
