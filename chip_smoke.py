@@ -234,9 +234,17 @@ phase 3j's ranks, which the script starts itself):
      the round trip fwd_cluster -> inv_cluster on the same hz
      (TOL_TRIP_MEDIAN, TOL_BF16_MAX), inv_cluster's noise against
      philox_noise_plain, its time in turns with rows_kernel<256>, and at
-     each shape of the cluster layout (K=32, B=64) the cluster inverse
+     each shape of the cluster inverse (K=32, B=64) the cluster inverse
      against its plain version and in turns with rows_kernel, the route's
-     choice beside them;
+     choice beside them; (a2) the deep conditioners (DEEP_SHAPES: H=128
+     with n_hidden 3-4, H=256 with n_hidden 3-4; all but the first stream
+     the backward's Wh through the ring) at B=64 x 2048, K=32 against the plain versions,
+     twice bit-identical, timed with their bounds, and the flagship at
+     H=256 with n_hidden 4 through the training CLI (10 steps as one
+     resident call, fused and on the module path from the same seeded
+     weights: both finite with loss windows within TOL_TRAIN_DRIFT, or both
+     non-finite from the same step; every fused launch on the cluster
+     layout);
      (b) config #3 (shapenet_airplane_gen.yaml, f32 point flow) at H=256 and
      at its own width (H=128, n_hidden 2) on the synthetic family: the
      training CLI's 10 steps as one resident call on config #3's own
@@ -296,7 +304,7 @@ phase 3j's ranks, which the script starts itself):
      kernel also held to emd_sweeps_plain, the plain version of its own
      sweep order, on phase 2c's pairs in every mode, with the CTAs per pair
      of each launch, and fast and exact pairwise timed in turns; and the
-     rows of phases 3d, 3e, 3f and 3l (30 rows in all);
+     rows of phases 3d, 3e, 3f and 3l (32 rows in all);
   5. torch.profiler breakdowns of make_sampler(64, 2048) (plain and fused
      latent inverse), of 5 eager train steps and (5b) of one replayed and
      one resident call of 20 steps (fused latent flow off and on), and
@@ -1742,22 +1750,19 @@ def pdi_mode(mxu: bool, vpu: bool) -> str:
     return pdi.mode_of(mxu, vpu)
 
 
-def train_ptxas(h: int = 128, stream: bool = False) -> dict:
+def train_ptxas(h: int = 128) -> dict:
     """Registers and spilled bytes (stores/loads) of the fused_train bf16
-    kernels at hidden h (``stream``: the stream layout's, "fused_train_fwd
-    bf16" and "... f32"), from ptxas' log of fused_train.cu."""
+    mma kernels at hidden h, from ptxas' log of fused_train.cu."""
     import re
 
     from dpfx_torch.ops import _build
 
-    pat = (rf"(fwd|bwd)_streamI(13__nv_bfloat16|f)Li{h}E" if stream
-           else rf"(fwd|bwd)_kernel_mmaILi{h}E")
+    pat = rf"(fwd|bwd)_kernel_mmaILi{h}E"
     found, cur = {}, None
     for line in _build.ptxas_log("fused_train").splitlines():
         if "Compiling entry function" in line:
             m = re.search(pat, line)
-            cur = (None if not m else f"fused_train_{m.group(1)}" if not stream
-                   else f"fused_train_{m.group(1)} {'bf16' if 'bfloat' in m.group(2) else 'f32'}")
+            cur = f"fused_train_{m.group(1)}" if m else None
         elif cur and "spill stores" in line:
             st, ld = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line).groups()
             found.setdefault(cur, {})["spill"] = f"{st}/{ld}"
@@ -3334,20 +3339,25 @@ F32_TRIP = {"median": 2.0 ** -23, "max": 28 * 2.0 ** -23}
 # flagship's warmup and clip (configs/flagship_quality_v3_aug_100k.yaml)
 F32_SCHEDULE = ["train.lr_warmup_steps=1000", "train.grad_clip=1.0"]
 # the shapes the mma and block-wide layouts of the forward or the
-# backward overflow (fused_train.uses_stream): in bf16 the cluster layout's
-# (CLUSTER_SHAPES) and H=256 with n_hidden 4 (the stream
-# layout), in f32 the f32 layout's; and one padded width (96 -> 128: the
-# mma layout in bf16, the f32 layout in f32; 192 -> 256: the cluster
-# layout in bf16, the f32 layout in f32), (hidden, n_hidden) in each
-# compute dtype
-STREAM_SHAPES = {"bfloat16": ((128, 3), (128, 4), (256, 2), (256, 3), (256, 4), (96, 2), (192, 2)),
+# backward overflow (fused_train.overflows_block): in bf16 the cluster
+# layout's (CLUSTER_SHAPES), in f32 the f32 layout's; and one padded width
+# (96 -> 128: the mma layout in bf16, the f32 layout in f32; 192 -> 256:
+# the cluster layout in bf16, the f32 layout in f32), (hidden, n_hidden) in
+# each compute dtype
+OVERFLOW_SHAPES = {"bfloat16": ((128, 3), (128, 4), (256, 2), (256, 3), (256, 4), (96, 2), (192, 2)),
                  "float32": ((128, 3), (128, 4), (256, 1), (256, 2), (256, 3), (256, 4), (96, 2),
                              (192, 2))}
 # the sampler's new f32 layout (Wh in chunks at H=256) and the padded widths
 SAMPLER_SHAPES = ((256, 1), (256, 2), (256, 3), (256, 4), (96, 2), (192, 3))
 # the cluster layout's shapes (kernel H, n_hidden - 1): fused_train.uses_cluster
-# must take exactly these
-CLUSTER_SHAPES = ((128, 2), (128, 3), (256, 1), (256, 2))
+# must take exactly these; the deep ones stream their slabs through the ring
+CLUSTER_SHAPES = ((128, 2), (128, 3), (256, 1), (256, 2), (256, 3))
+# the deep shapes (H, n_hidden) whose pair phase 3l times at the main shape
+# (B=64 x 2048, K=32) against their bounds (all but H=128 with n_hidden 3
+# on the ring); the last one is also trained through the CLI and gives the
+# kernels line its *_cluster_deep rows
+DEEP_SHAPES = ((128, 3), (128, 4), (256, 3), (256, 4))
+DEEP = ["model.point_flow.hidden=256", "model.point_flow.n_hidden=4"]
 WIDE = ["model.point_flow.hidden=256"]
 WIDTH_CHECK = (8, 2048, 32)     # B, N, K of the layouts' checks against the plain versions
 WIDTH_MAIN = (64, 2048)         # B, N of the main paths
@@ -3545,7 +3555,8 @@ def forced_layout(fs, layout: str):
 
     def forced(h, nh1, dtype, activation="relu", int8=False):
         got = route(h, nh1, dtype, activation, int8)
-        built = (h, nh1) in CLUSTER_SHAPES and got != "f32" and activation == "relu" and not int8
+        built = ((h, nh1) in fs.CLUSTER_INVERSE and got != "f32" and activation == "relu"
+                 and not int8)
         return layout if built else got
 
     fs.inverse_layout = forced
@@ -3567,11 +3578,13 @@ def inverse_turns(fs, call):
 
 def shapes_path(dev, card, x20, h128_replayed):
     """Phase 3l. The kernels at the widths and depths off the flagship's
-    grid: every stream layout and one padded width per family against the
-    plain versions by phase 2's rules, then (a) the flagship widened to
-    H=256 trained, sampled and evaluated, (b) the f32 config #3 at H=256
-    sampled and evaluated, (c) latcap trained and sampled with the fused
-    latent flow. ``x20`` are phase 3b's batches, ``h128_replayed`` its
+    grid: every layout past the mma and block-wide ones and one padded
+    width per family against the plain versions by phase 2's rules, then
+    (a) the flagship widened to H=256 trained, sampled and evaluated, (a2)
+    the deep bf16 pairs timed and the flagship at H=256 n_hidden 4 trained
+    fused and on the module path, (b) the f32 config #3 at H=256 sampled
+    and evaluated, (c) latcap trained and sampled with the fused latent
+    flow. ``x20`` are phase 3b's batches, ``h128_replayed`` its
     replayed call of 20 steps. Returns the kernels line's rows of the new
     layouts."""
     import copy
@@ -3596,6 +3609,7 @@ def shapes_path(dev, card, x20, h128_replayed):
     bc, nc, kc = WIDTH_CHECK
     g = torch.Generator(device=dev).manual_seed(31)
     grad_names = ["log-det", "dx", "dhz", "dwx", "dwh", "dbh", "dwout", "dbout"]
+    windows = lambda ls: [sum(ls[i:i + 5]) / 5 for i in (0, 5)]  # noqa: E731
 
     def flagship_like(over, seed, path=CONFIG):
         # phase 2's weights (the module init, then seeded noise), the noise
@@ -3633,12 +3647,12 @@ def shapes_path(dev, card, x20, h128_replayed):
         xt = torch.randn((bc, 3, nc), generator=g, device=dev)
         return xt, fs.z_projection(sp, torch.randn((bc, 128), generator=g, device=dev))
 
-    # every stream layout and the padded widths: fused_train forward and
+    # every layout past the mma and block-wide ones and the padded widths: fused_train forward and
     # backward at K=4 by phase 2's limits in both dtypes, and at K=32, B=8,
     # N=2048 (bf16: phase 2's limits; f32: phase 3f's f64 rule, where the
     # backward at this depth is ill-conditioned), each forward and backward
     # twice bit-identical
-    for dname, shapes in STREAM_SHAPES.items():
+    for dname, shapes in OVERFLOW_SHAPES.items():
         dt = getattr(torch, dname)
         for h, nh in shapes:
             for k in (4, kc):
@@ -3650,9 +3664,8 @@ def shapes_path(dev, card, x20, h128_replayed):
                 fwd, fwd2, fwd_p, du, dld, got, again, ref = train_runs(tw, xt, hz, dt)
                 layout = ft._layout(kh, nh1, dt, True)
                 overflow = (kh == 128 and nh1 >= 2) or (kh == 256 and (nh1 >= 1 or dname == "float32"))
-                want = ("f32" if dname == "float32"
-                        else "parent" if not overflow else "cluster"
-                        if dname == "bfloat16" and (kh, nh1) in CLUSTER_SHAPES else "stream")
+                want = ("f32" if dname == "float32" else "cluster" if overflow else "parent")
+                check(want != "cluster" or (kh, nh1) in CLUSTER_SHAPES, f"H={h} n_hidden={nh}")
                 check(layout == want, f"H={h} n_hidden={nh} {dname} takes the {layout} layout")
                 tname = f"fused_train H={h}->{kh} n_hidden={nh} ({layout} layout) K={k} B={bc} N={nc}"
                 if dname == "float32" and k == kc:
@@ -3686,7 +3699,7 @@ def shapes_path(dev, card, x20, h128_replayed):
         sp = flow_stack(128, nh, 4)
         tw = (sp.wx, sp.wh, sp.bh, sp.wout, sp.bout, sp.masks, sp.scale_cap)
         xt, hz = flow_inputs(sp)
-        check(not ft.uses_stream(128, nh - 1, f32), f"H=128 n_hidden={nh} f32 fits the block-wide "
+        check(not ft.overflows_block(128, nh - 1, f32), f"H=128 n_hidden={nh} f32 fits the block-wide "
                                                     "layout")
         u, ld = ft.fused_forward_kernel(*tw, xt, hz, f32)
         du = torch.randn(u.shape, generator=g, device=dev)
@@ -3823,17 +3836,14 @@ def shapes_path(dev, card, x20, h128_replayed):
         check(rel(mu, mu_m) <= TOL_GRAD_BF16 and rel(lv, lv_m) <= TOL_GRAD_BF16,
               f"the fused posterior at widths (120, 200) against the module ({dname}): "
               f"{rel(mu, mu_m)}, {rel(lv, lv_m)}")
-    taken = [(hh, nn) for hh in ft.STREAM_HIDDEN for nn in range(6)
+    taken = [(hh, nn) for hh in ft.WIDE_HIDDEN for nn in range(6)
              if ft.uses_cluster(hh, nn, torch.bfloat16)]
     check(taken == list(CLUSTER_SHAPES), f"uses_cluster takes {taken}, not {CLUSTER_SHAPES}")
-    regs = {f"{kk} H={hh}": v for hh in ft.STREAM_HIDDEN
-            for kk, v in train_ptxas(hh, stream=True).items()}
-    regs.update(cluster_ptxas())
+    regs = cluster_ptxas()
     regs.update(f32_layout_ptxas())
     f32_regs = sampler_ptxas("f32_kernelIfLi256E")
     inv_regs = sampler_ptxas("inv_clusterILi256ELi1E")
-    check(all("regs" in regs.get(f"fused_train_{kk} bf16 H=256", {}) for kk in ("fwd", "bwd"))
-          and all("regs" in regs.get(f"fused_train_{kk} cluster H={hh} n_hidden={nh1 + 1}", {})
+    check(all("regs" in regs.get(f"fused_train_{kk} cluster H={hh} n_hidden={nh1 + 1}", {})
                   for kk in ("fwd", "bwd") for hh, nh1 in CLUSTER_SHAPES)
           and all(any(kk.startswith(f"fused_train_{d} f32 H={hh}") and "regs" in v
                       for kk, v in regs.items()) for d in ("fwd", "bwd") for hh in (128, 256))
@@ -3878,8 +3888,7 @@ def shapes_path(dev, card, x20, h128_replayed):
         want = tm._WARMUP + 10 + (VAL_BATCHES if kname.endswith("fwd") else 0)
         check(wide_launches[kname] == want, f"H=256 kernel {kname}: {wide_launches[kname]} launches")
     for d in ("fwd", "bwd"):
-        check(wide_layouts[f"cluster_{d}"] == wide_launches[f"fused_train_{d}"]
-              and wide_layouts[f"stream_{d}"] == 0,
+        check(wide_layouts[f"cluster_{d}"] == wide_launches[f"fused_train_{d}"],
               f"H=256: every fused_train {d} launch on the cluster layout: {wide_layouts}")
     wide_pt = run_dir / "params_00000010.pt"
     trained = torch.load(wide_pt, map_location="cpu", weights_only=True)
@@ -3979,26 +3988,14 @@ def shapes_path(dev, card, x20, h128_replayed):
     f_err = errors(u_k, u_p)[0]
     b_err = max(float((a - r).abs().max()) for a, r in zip(got, ref) if r.numel())
     del got, again, ref
-    # timed in turns with this tree's stream layout on the same inputs
-    # (the wrapper's cluster layout turned off: what ran before it)
-    cluster_of, lay_ms = ft.uses_cluster, {"cluster": [], "stream": []}
-    for lay in ("cluster", "stream", "stream", "cluster"):
-        ft.uses_cluster = cluster_of if lay == "cluster" else (lambda *a: False)
-        try:
-            lay_ms[lay].append((cuda_ms(lambda: ft.fused_forward_kernel(*tw, xt, hz, bf), 5),
-                                cuda_ms(lambda: ft.fused_backward_kernel(*tw, u_p, hz, du, dld, bf),
-                                        3)))
-        finally:
-            ft.uses_cluster = cluster_of
-    tf_ms = sum(t[0] for t in lay_ms["cluster"]) / 2
-    tb_ms = sum(t[1] for t in lay_ms["cluster"]) / 2
+    tf_ms = cuda_ms(lambda: ft.fused_forward_kernel(*tw, xt, hz, bf), 5)
+    tb_ms = cuda_ms(lambda: ft.fused_backward_kernel(*tw, u_p, hz, du, dld, bf), 3)
     tf_plain = cuda_ms(lambda: ft.fused_forward_plain(*tw, xt, hz, bf), 2, warmup=1)
     tb_plain = cuda_ms(lambda: ft.fused_backward_plain(*tw, u_p, hz, du, dld, bf), 1, warmup=1)
     (b_tf, by_tf), (b_tb, by_tb) = train_bounds(sp_a, bm, nm)
-    print(f"fused_train at B={bm} N={nm} K=32 H=256 n_hidden 2 bf16, cluster against stream "
-          f"layout in turns (forward, backward ms): {json.dumps(lay_ms)}; cluster {tf_ms:.3f} / "
-          f"{tb_ms:.3f} ms = {tf_ms / b_tf:.2f}x / {tb_ms / b_tb:.2f}x the bound ({b_tf:.4f} / "
-          f"{b_tb:.4f}); plain {tf_plain:.2f} / {tb_plain:.2f} ({card})")
+    print(f"fused_train at B={bm} N={nm} K=32 H=256 n_hidden 2 bf16, cluster layout (forward, "
+          f"backward): {tf_ms:.3f} / {tb_ms:.3f} ms = {tf_ms / b_tf:.2f}x / {tb_ms / b_tb:.2f}x the "
+          f"bound ({b_tf:.4f} / {b_tb:.4f}); plain {tf_plain:.2f} / {tb_plain:.2f} ({card})")
     # the round trip: the cluster forward, then the cluster inverse on the
     # same hz (cl_st_partials on both sides), as phase 2's at H=128
     back = fs.fused_inverse_transposed(sp_a, u_k, za, dtype=bf)
@@ -4040,7 +4037,7 @@ def shapes_path(dev, card, x20, h128_replayed):
     # every shape of the cluster layout at the main shape, K=32: the cluster
     # inverse against its plain version, and timed in turns with rows_kernel
     ut_w = torch.randn((bm, 3, nm), generator=g, device=dev)
-    for hh, nh1 in CLUSTER_SHAPES:
+    for hh, nh1 in fs.CLUSTER_INVERSE:
         spw = flow_stack(hh, nh1 + 1, seed=hh + nh1)
         layout = fs.inverse_layout(hh, nh1, bf)
         check(layout == ("rows" if (hh, nh1) in fs.ROWS_KEPT else "cluster"),
@@ -4062,6 +4059,90 @@ def shapes_path(dev, card, x20, h128_replayed):
         del xw, xw2, xwp
     del model_a, sampler_a, sampler_af, u_p, du
 
+    # (a2) the deep conditioners (the ring's): each pair of DEEP_SHAPES at the
+    # main shape (B=64 x 2048, K=32, seeded weights) against the plain
+    # versions, twice bit-identical, timed with their bounds; then the
+    # flagship at H=256 with n_hidden 4 through the training CLI, 10 steps as
+    # one resident call with the fused point flow and with the module path
+    # from the same seeded weights on the same batches and noise: both
+    # finite with their loss windows within TOL_TRAIN_DRIFT, or both
+    # non-finite from the same step; every fused_train launch of the fused
+    # run on the cluster layout (counts from 0 around each run)
+    deep = {}
+    for hh, nh in DEEP_SHAPES:
+        spd = flow_stack(hh, nh, k=32, seed=hh + nh)
+        twd = (spd.wx, spd.wh, spd.bh, spd.wout, spd.bout, spd.masks, spd.scale_cap)
+        check(ft._layout(hh, nh - 1, bf, False) == ft._layout(hh, nh - 1, bf, True) == "cluster",
+              f"H={hh} n_hidden={nh} bf16 runs the cluster layout")
+        hzd = fs.z_projection(spd, za)
+        (u_d, ld_d), fwd2d, (u_dp, ld_dp), dud, dldd, gd, gd2, gdr = train_runs(twd, xt, hzd, bf)
+        d_err = held_to_plain(f"fused_train (cluster layout) B={bm} N={nm} K=32 H={hh} "
+                              f"n_hidden {nh}", bf, (u_d, ld_d), (u_dp, ld_dp), gd, gd2, gdr,
+                              grad_names, fwd_again=fwd2d)
+        del gd, gd2, gdr, fwd2d, u_d, ld_d
+        d_ms = (cuda_ms(lambda: ft.fused_forward_kernel(*twd, xt, hzd, bf), 5),
+                cuda_ms(lambda: ft.fused_backward_kernel(*twd, u_dp, hzd, dud, dldd, bf), 3))
+        d_plain = (cuda_ms(lambda: ft.fused_forward_plain(*twd, xt, hzd, bf), 2, warmup=1),
+                   cuda_ms(lambda: ft.fused_backward_plain(*twd, u_dp, hzd, dud, dldd, bf), 1,
+                           warmup=1))
+        d_bounds = train_bounds(spd, bm, nm)
+        deep[hh, nh] = (d_err, d_ms, d_plain, d_bounds)
+        print(f"fused_train at B={bm} N={nm} K=32 H={hh} n_hidden {nh} bf16, cluster layout "
+              f"(T = {ft._cluster_lib().dpfx_fused_train_cluster_tile_points(hh, nh - 1, 0)} / "
+              f"{ft._cluster_lib().dpfx_fused_train_cluster_tile_points(hh, nh - 1, 1)} points a "
+              f"tile): forward {d_ms[0]:.3f} ms, backward {d_ms[1]:.3f} ms = "
+              f"{d_ms[0] / d_bounds[0][0]:.2f}x / {d_ms[1] / d_bounds[1][0]:.2f}x the bound "
+              f"({d_bounds[0][0]:.4f} / {d_bounds[1][0]:.4f}); plain {d_plain[0]:.2f} / "
+              f"{d_plain[1]:.2f} ({card})")
+        del u_dp, ld_dp, dud, dldd, twd, spd, hzd
+    deep_runs = {}
+    for fused in ("true", "false"):
+        ddir = WORK / f"train_deep_{fused}"
+        shutil.rmtree(ddir, ignore_errors=True)
+        for mod in (ft, fe, fl):
+            mod.reset_launch_counts()
+        t0 = time.perf_counter()
+        rc, _, dcalls, _ = train_cli_run(
+            [str(CONFIG), *DEEP, f"train.fused_point_flow={fused}", "train.steps=10",
+             "train.steps_per_call=10", "train.log_every=5", f"train.lr_decay_steps={TRAIN_STEPS}",
+             "train.ckpt_every=10", f"train.ckpt_dir={ddir}", "data.synthetic_size=512"],
+            scale=0.02 * (128 / 256) ** 0.5, flax=False, seed=9)
+        torch.cuda.synchronize()
+        losses = [float(v) for _, ls in dcalls for v in ls]
+        check(rc == 0 and [kk for kk, _ in dcalls] == [10],
+              f"H=256 n_hidden 4 (fused {fused}) train calls {dcalls}")
+        deep_runs[fused] = {"wall": time.perf_counter() - t0, "losses": losses,
+                            "launch": dict(ft.launches), "lay": dict(ft.layout_launches),
+                            "bad": next((i + 1 for i, v in enumerate(losses)
+                                         if not np.isfinite(v)), None)}
+        shutil.rmtree(ddir, ignore_errors=True)
+    dfr, dmr = deep_runs["true"], deep_runs["false"]
+    check(sum(dmr["launch"].values()) == 0,
+          f"the module path launches no fused_train: {dmr['launch']}")
+    for kname in ("fused_train_fwd", "fused_train_bwd"):
+        want = tm._WARMUP + 10 + (VAL_BATCHES if kname.endswith("fwd") else 0)
+        check(dfr["launch"][kname] == want, f"H=256 n_hidden 4 kernel {kname}: {dfr['launch']}")
+    check(all(dfr["lay"][f"cluster_{d}"] == dfr["launch"][f"fused_train_{d}"]
+              for d in ("fwd", "bwd")),
+          f"H=256 n_hidden 4: every fused_train launch on the cluster layout: {dfr['lay']}")
+    if dfr["bad"] is None and dmr["bad"] is None:
+        deep_drift = max(abs(a_ - r_) / abs(r_) for a_, r_ in zip(windows(dfr["losses"]),
+                                                                  windows(dmr["losses"])))
+        check(deep_drift <= TOL_TRAIN_DRIFT,
+              f"H=256 n_hidden 4: the fused run's loss windows against the module path's: rel "
+              f"{deep_drift} (fused {dfr['losses']}, module {dmr['losses']})")
+        deep_reading = f"both finite, loss windows rel {deep_drift:.2e}"
+    else:
+        check(dfr["bad"] == dmr["bad"],
+              f"H=256 n_hidden 4: the fused run non-finite from step {dfr['bad']}, the module path "
+              f"from step {dmr['bad']} (fused {dfr['losses']}, module {dmr['losses']})")
+        deep_reading = f"both non-finite from step {dfr['bad']}"
+    print(f"(a2) flagship at H=256 n_hidden 4 bf16 through the CLI, 10 steps (one resident call): "
+          f"fused {dfr['wall']:.1f} s wall, loss " + ", ".join(f"{v:.1f}" for v in dfr["losses"])
+          + f"; module path {dmr['wall']:.1f} s wall, loss "
+          + ", ".join(f"{v:.1f}" for v in dmr["losses"]) + f"; {deep_reading}; fused launches "
+          f"{json.dumps(dfr['launch'])} by layout {json.dumps(dfr['lay'])} ({card})")
+
     # (b) config #3 (f32 point flow) on the synthetic family, through the
     # CLI at H=256 and at config #3's own width (H=128, n_hidden 2): its 10
     # steps as one resident call on config #3's own schedule (lr 1e-3 from
@@ -4078,7 +4159,6 @@ def shapes_path(dev, card, x20, h128_replayed):
     f32 = torch.float32
     over_b = [*WIDE, "data.dataset=synthetic", "data.synthetic_size=512"]
     f32_runs, f32_layouts, f32_pairs = {}, {}, {}
-    windows = lambda ls: [sum(ls[i:i + 5]) / 5 for i in (0, 5)]  # noqa: E731
 
     def f32_cli(hb, over, sched, fused, tag):
         bdir = WORK / f"train_f32_h{hb}_{tag}_{fused}"
@@ -4403,10 +4483,15 @@ def shapes_path(dev, card, x20, h128_replayed):
         "name": name, "route": "cuda", "source": s_, "replaces": where, "launches": n_,
         "max_abs_err": err, "ms": ms, "plain_ms": plain, "bound_ms": bnd, "bound_by": by,
         "library_ms": None}
+    d_err, d_ms, d_plain, ((b_df, by_df), (b_db, by_db)) = deep[DEEP_SHAPES[-1]]
     return [row("fused_train_fwd_cluster", src, "dpfx/ops/fused_train.py:131",
                 wide_layouts["cluster_fwd"], f_err, tf_ms, tf_plain, b_tf, by_tf),
             row("fused_train_bwd_cluster", src, "dpfx/ops/fused_train.py:231",
                 wide_layouts["cluster_bwd"], b_err, tb_ms, tb_plain, b_tb, by_tb),
+            row("fused_train_fwd_cluster_deep", src, "dpfx/ops/fused_train.py:131",
+                dfr["lay"]["cluster_fwd"], d_err, d_ms[0], d_plain[0], b_df, by_df),
+            row("fused_train_bwd_cluster_deep", src, "dpfx/ops/fused_train.py:231",
+                dfr["lay"]["cluster_bwd"], d_err, d_ms[1], d_plain[1], b_db, by_db),
             row("fused_sample_inv_cluster", src, "dpfx/ops/fused_sampler.py:309",
                 sample_layouts["cluster"], bs_err, bs_ms, bs_plain, b_bs, by_bs),
             row("fused_sample_f32_h256", "dpfx_torch/ops/csrc/fused_sampler.cu",
@@ -5230,8 +5315,8 @@ def main() -> int:
     # ranks sharing the card, the row-sharded suite, the CLI's card count
     data_parallel_path(dev, card)
 
-    # ---- 3l. the kernels' widths off the flagship's grid: the stream
-    # layout, the f32 sampler at H=256, padded widths, runs (a) to (c)
+    # ---- 3l. the kernels' widths off the flagship's grid: the cluster and
+    # f32 layouts, the f32 sampler at H=256, padded widths, runs (a) to (c)
     shape_rows = shapes_path(dev, card, x20, timers[("off", "replayed")])
 
     # ---- 4. per-kernel numbers at the main path's shapes (B=64, N=2048, bf16)
@@ -5488,7 +5573,7 @@ def main() -> int:
                       f"{v.get('spill')}" for kk, v in lregs.items()) + f" ({card})")
     kernels += eval_kernel_rows(cfg, half_a, half_b, gen_launches, ae_launches)
     kernels += grad_rows + int8_rows + probe_rows + shape_rows
-    check(len(kernels) == 30, f"{len(kernels)} kernel rows")
+    check(len(kernels) == 32, f"{len(kernels)} kernel rows")
     print(json.dumps({"kernels": kernels}))
 
     # ---- 5. where the sampler's time goes (torch.profiler, 5 calls each)

@@ -2,8 +2,9 @@
 // thread-block cluster (bf16, mma.sync): the layout for the conditioners
 // whose weights or activations overflow one block of the mma layout
 // (fused_train.cu's fwd_kernel_mma / bwd_kernel_mma): H = 128 with n_hidden
-// 3-4 and H = 256 with n_hidden 2-3; and the sampler's inverse on the
-// forward's design walked backwards (inv_cluster), at the same shapes.
+// 3-4 and H = 256 with n_hidden 2-4; and the sampler's inverse on the
+// forward's design walked backwards (inv_cluster), at the shapes
+// fused_sampler.cu builds it for.
 // Included by fused_train.cu and fused_sampler.cu.
 //
 // Replaces, for those shapes, the Pallas TPU kernels `_fwd_kernel`
@@ -26,7 +27,17 @@
 //     stages): the grid is persistent, as many clusters as the card holds
 //     at once (30 of 4 CTAs on the H100: clusters sit inside a GPC), with
 //     the layer loop outside the tile loop, so a launch reads each weight
-//     from L2 once per cluster and not once per tile. Each point's state
+//     from L2 once per cluster and not once per tile. Where whole-layer
+//     stages would cost the backward its tile (a stage grows with depth:
+//     141 KB at H=256, n_hidden 3), the ring takes their place: Wx^T and
+//     Wout staged per layer, the slabs streamed one at a time through two
+//     buffers in the order a tile uses them, the next slab's cp.async
+//     behind the work on this one, one stream across tiles and layers. A
+//     tile then reads its 2 (n_hidden - 1) slabs (33-36 KB each) from L2
+//     again. The forward has less work a slab than the load takes: on the
+//     ring the H=256 n_hidden 4 forward timed 22.41 ms against 21.59 on
+//     the stream layout it replaced (bwd_ab, PERF.md), so it keeps
+//     whole-layer stages with fewer tiles a group. Each point's state
 //     is carried in global memory between layers, one copy per rank (every
 //     rank computes the same bits and reads back what it wrote).
 //   * Rows. A warp takes 16 points through the conditioner on m16n8k16
@@ -48,9 +59,9 @@
 //     (st.shared::cluster), a cluster barrier, then every rank adds the C
 //     slots, all local, in rank order 0..C-1, so every rank holds the same
 //     (s, t) bits and runs the coupling, its cotangents and the log-det
-//     itself. The forward takes CL_G = 4 tiles between two such exchanges
-//     (their points' state in shared memory), so a barrier serves 512
-//     points.
+//     itself. The forward takes G tiles between two such exchanges (their
+//     points' state in shared memory): CL_G = 4 (a barrier serves 512
+//     points at T=128), fewer where the plan needs the room.
 //   * Backward, per tile: the recompute (the forward's device code), the
 //     coupling cotangents, dh_last[:, cols_r] = (rnd(d(s, t)) Wout[:, cols_r])
 //     * (h_last > 0) locally; down the hidden levels dh_j[:, cols_r] =
@@ -66,10 +77,15 @@
 //     (the exchanged dh_{j+1} is in the rank's tile anyway, and only its own
 //     columns of h_j are needed: no tile of all of h_j): H x 64 f32 per rank,
 //     64 registers a lane at H=256 (32 at 128), points as the K dimension
-//     through ldmatrix.trans. Where the registers hold fewer matrices than
-//     the conditioner has (MP: one at H=256, two at 128), the tile loop
-//     runs once per group of matrices (passes), the earlier passes only as
-//     far down the chain as their matrices need. dWout[:, cols_r], dWx[cols_r]
+//     through ldmatrix.trans. The registers hold MP matrices (one at H=256,
+//     two at 128), which is every matrix where whole-layer stages fit. On
+//     the ring the matrices past MP (Cl::SPILL) add each tile's product
+//     into the cluster's slice (cl_dwh_tile: 16-byte loads and stores, the
+//     tiles in order, the first one writing), 128 KB of L2 traffic a CTA,
+//     tile and matrix; the tile is walked once. Walking it once per group
+//     of MP matrices instead (passes, each recomputing the tile and
+//     repeating its exchanges) timed 1.5-2.0x slower on the ring (bwd_ab,
+//     PERF.md). dWout[:, cols_r], dWx[cols_r]
 //     and the bias and hz gradients of the own columns are local; every
 //     rank writes its parts of the cluster's slice once per layer and
 //     `reduce_slices` adds the slices in a fixed order. No float atomics:
@@ -84,10 +100,17 @@
 //     A carve of its own (no log-det row or sums) would be 2,176 B smaller
 //     at T=128, which gives no shape a larger tile or a second stage.
 //   * Shared memory (ClusterPlan; tests/_torch_cluster_plan.py mirrors
-//     it): the largest T of 128, 64, 32 that fits, two weight stages where
-//     they fit. At H=256, n_hidden 2: forward T=128 with two stages
-//     (184,960 B), backward T=128 with one (217,600 B). H=256 with
-//     n_hidden 4 needs 280,576 B at T=32 and stays on the stream layout.
+//     it): the largest T of 128, 64, 32 that fits, on whole-layer stages
+//     where they fit at that T (the forward: the most tiles a group, 4 down
+//     to 2; two stages before one), else (the backward) on the ring. At
+//     H=256, n_hidden 2: forward T=128 with two stages (184,960 B),
+//     backward T=128 with one (217,600 B). On the ring: H=256 n_hidden 3
+//     backward T=64 (199,424 B), n_hidden 4 backward T=64 (208,640 B),
+//     H=128 n_hidden 4 backward T=128 (217,856 B); whole-layer stages would
+//     need 280,576 B at T=32 for the n_hidden 4 backward. The n_hidden 4
+//     forward: T=64, one whole stage, 3 tiles a group (223,616 B). T=128
+//     stays out of reach at H=256 past n_hidden 2: the two exchange tiles
+//     alone are 135 KB.
 
 #pragma once
 
@@ -102,25 +125,28 @@ namespace cgrp = cooperative_groups;
 
 constexpr int CL_HC = 64;            // hidden columns a rank owns
 constexpr int CL_LDO = CL_HC + 8;    // row stride of an own-columns tile
-constexpr int CL_G = 4;              // forward: tiles between two (s, t) exchanges
+constexpr int CL_G = 4;              // forward: tiles between two (s, t) exchanges, at most
 
 __host__ __device__ constexpr int cmin(int a, int b) { return a < b ? a : b; }
 
 // Byte offsets of one CTA's shared memory. A stage holds one layer's
 // weights: the row slabs [NH1][64][H+8], (backward) the column slabs
 // [NH1][H][72], Wx^T [8][H+8] (rows 3-7 zero), Wout[:, cols_r] [8][72]
-// (rows 6-7 zero).
+// (rows 6-7 zero). A ring plan stages Wx^T and Wout alone and streams the
+// slabs through two buffers of `slab` bytes at `ring`.
 struct ClusterPlan {
-  int T, nst, s_wh, s_wc, s_wxt, s_wout, stage_bytes;
+  int T, G, nst, ring, slab, s_wh, s_wc, s_wxt, s_wout, stage_bytes;
   int xch, nx, hown, dh0, dstb, xkb, slot0, dhzw, ldw, xs, stage, total;
 };
 
-__host__ __device__ constexpr ClusterPlan cluster_carve(int H, int NH1, bool bwd, int T, int nst) {
+__host__ __device__ constexpr ClusterPlan cluster_carve(int H, int NH1, bool bwd, int T, int nst,
+                                                        bool ring = false, int G = CL_G) {
   ClusterPlan p{};
   const int ldh = H + 8, ldt = T + 8;
+  const int rows = round128(CL_HC * ldh * 2), cols = round128(H * CL_LDO * 2);
   int o = 0;
-  p.s_wh = o;   o += NH1 * round128(CL_HC * ldh * 2);
-  p.s_wc = o;   o += bwd ? NH1 * round128(H * CL_LDO * 2) : 0;
+  p.s_wh = o;   o += ring ? 0 : NH1 * rows;
+  p.s_wc = o;   o += bwd && !ring ? NH1 * cols : 0;
   p.s_wxt = o;  o += round128(8 * ldh * 2);
   p.s_wout = o; o += round128(8 * CL_LDO * 2);
   p.stage_bytes = o;
@@ -136,26 +162,49 @@ __host__ __device__ constexpr ClusterPlan cluster_carve(int H, int NH1, bool bwd
   p.dstb = o;  o += bwd ? round128(8 * ldt * 2) : 0;       // rnd(d(s, t)) [8][T+8]
   p.xkb = o;   o += bwd ? round128(8 * ldt * 2) : 0;       // rnd(x_k) [8][T+8]
   // every rank's (s, t) partials [C][T][6] (forward: of G tiles, two groups in turn)
-  p.slot0 = o; o += (bwd ? 1 : 2 * CL_G) * (H / CL_HC) * round128(T * 6 * 4);
+  p.slot0 = o; o += (bwd ? 1 : 2 * G) * (H / CL_HC) * round128(T * 6 * 4);
   p.dhzw = o;  o += bwd ? round128(WARPS * CL_HC * 4) : 0;  // per-warp dhz sums of a tile
   p.ldw = o;   o += bwd ? 0 : 128;                         // per-warp log-det sums
-  p.xs = o;    o += bwd ? 0 : round128(CL_G * 4 * T * 4);  // the group's x and log-det [G][4][T]
+  p.xs = o;    o += bwd ? 0 : round128(G * 4 * T * 4);  // the group's x and log-det [G][4][T]
   p.stage = o;
   p.T = T;
+  p.G = G;
   p.nst = nst;
   p.total = o + nst * p.stage_bytes;
+  if (ring) {
+    p.slab = rows > cols ? rows : cols;
+    p.ring = p.total;
+    p.total += 2 * p.slab;
+  }
   return p;
 }
 
-// the largest tile, then two stages before one, that fits (a plan that does
-// not fit anywhere reports its T = 32, one-stage size)
+// the largest tile, then whole-layer stages (the forward: the most tiles a
+// group, CL_G down to 2; two stages before one), then (the backward) the
+// ring (two small stages before one), that fits (a plan that does not fit
+// anywhere reports its T = 32, one-stage size)
 __host__ __device__ constexpr ClusterPlan cluster_plan(int H, int NH1, bool bwd) {
-  for (int T = 128; T >= 32; T /= 2)
-    for (int nst = 2; nst >= 1; --nst) {
-      const ClusterPlan p = cluster_carve(H, NH1, bwd, T, nst);
+  for (int T = 128; T >= 32; T /= 2) {
+    for (int G = CL_G; G >= (bwd ? CL_G : 2); --G)
+      for (int nst = 2; nst >= 1; --nst) {
+        const ClusterPlan p = cluster_carve(H, NH1, bwd, T, nst, false, G);
+        if (p.total <= SMEM_MAX) return p;
+      }
+    for (int nst = 2; bwd && nst >= 1; --nst) {
+      const ClusterPlan p = cluster_carve(H, NH1, bwd, T, nst, true);
       if (p.total <= SMEM_MAX) return p;
     }
+  }
   return cluster_carve(H, NH1, bwd, 32, 1);
+}
+
+// floats of a cluster's partial of one layer in the backward: [dWx | dWh |
+// dbh | dWout | dbout], padded where dWh adds into it tile by tile (spill)
+// to a multiple of 4, so that every dWh row of every (cluster, layer)
+// slice is 16-byte aligned (cl_dwh_tile)
+__host__ __device__ constexpr int cluster_part_row(int H, int NH1, bool spill) {
+  return spill ? (3 * H + NH1 * H * H + NH1 * H + 6 * H + 6 + 3) / 4 * 4
+               : 3 * H + NH1 * H * H + NH1 * H + 6 * H + 6;
 }
 
 // the compile-time constants of one instance
@@ -164,6 +213,7 @@ struct Cl {
   static constexpr int C = H / CL_HC;                    // CTAs of a cluster
   // the plan's offsets as scalars (device code may not name a class-type constant)
   static constexpr int T = cluster_plan(H, NH1, BWD).T,
+                       G = cluster_plan(H, NH1, BWD).G,
                        NST = cluster_plan(H, NH1, BWD).nst,
                        SWH = cluster_plan(H, NH1, BWD).s_wh,
                        SWC = cluster_plan(H, NH1, BWD).s_wc,
@@ -180,14 +230,21 @@ struct Cl {
                        LDW = cluster_plan(H, NH1, BWD).ldw,
                        XSB = cluster_plan(H, NH1, BWD).xs,
                        STAGE = cluster_plan(H, NH1, BWD).stage,
-                       TOTAL = cluster_plan(H, NH1, BWD).total;
+                       TOTAL = cluster_plan(H, NH1, BWD).total,
+                       RINGB = cluster_plan(H, NH1, BWD).ring,
+                       SLAB = cluster_plan(H, NH1, BWD).slab;
+  static constexpr bool RING = RINGB != 0;               // Wh slabs streamed through the ring
   static constexpr int PG = T / 16, WC = WARPS / PG, W = CL_HC / WC, NW = W / 8;
   static constexpr int LDH = H + 8, LDO = CL_LDO, LDT = T + 8;
   static constexpr int WM = H / 128;                     // m16 tiles of a warp's dWh rows
   static constexpr int MP = 2 / WM;                      // dWh matrices held in registers
-  static constexpr int PASSES = (NH1 + MP - 1) / MP;
+  // the matrices past MP (j < SPILL), whose dWh adds into the cluster's
+  // slice tile by tile (cl_dwh_tile): only where the ring takes the room
+  static constexpr int SPILL = NH1 > MP ? NH1 - MP : 0;
   static_assert(H == 128 || H == 256, "the cluster layout is built for H = 128 and 256");
   static_assert(TOTAL <= SMEM_MAX, "the cluster plan does not fit");
+  static_assert(!RING || NH1 >= 2, "a ring streams the slabs of two or more matrices");
+  static_assert(RING || !BWD || SPILL == 0, "whole-layer stages hold every dWh in registers");
 };
 
 __device__ __forceinline__ uint32_t cl_mapa(uint32_t addr, int rank) {
@@ -205,26 +262,40 @@ __device__ __forceinline__ void cl_st2(uint32_t addr, const float2& v) {
                : "memory");
 }
 
+// the row slab Wh[cols_r, :] ([64][H+8]) and the column slab Wh[:, cols_r]
+// ([H][72]) of the matrix g into dst (cp.async)
+template <int H>
+__device__ __forceinline__ void cl_rows_slab(bf16* dst, const bf16* g, int rank) {
+  constexpr int LDH = H + 8, VPR = H / 8;
+  for (int v = threadIdx.x; v < CL_HC * VPR; v += THREADS) {
+    const int r = v / VPR, c = (v % VPR) * 8;
+    cp_async16(dst + r * LDH + c, g + (size_t)(rank * CL_HC + r) * H + c);
+  }
+}
+template <int H>
+__device__ __forceinline__ void cl_cols_slab(bf16* dst, const bf16* g, int rank) {
+  for (int v = threadIdx.x; v < H * 8; v += THREADS) {
+    const int r = v / 8, c = (v % 8) * 8;
+    cp_async16(dst + r * CL_LDO + c, g + (size_t)r * H + rank * CL_HC + c);
+  }
+}
+
 // Stage layer k's weights for rank `rank` into st (cp.async for the slabs
-// and Wout, plain loads for the transposed Wx); the caller commits and waits
+// and Wout, plain loads for the transposed Wx; a ring plan's stage has no
+// slabs); the caller commits and waits
 template <int H, int NH1, bool BWD>
 __device__ void cl_stage(unsigned char* st, const bf16* wx, const bf16* wh, const bf16* wout,
                          int k, int rank) {
   using Q = Cl<H, NH1, BWD>;
-  constexpr int LDH = Q::LDH, LDO = Q::LDO, VPR = H / 8;
-  for (int j = 0; j < NH1; ++j) {
-    const bf16* g = wh + ((size_t)k * NH1 + j) * H * H;
-    bf16* rows = reinterpret_cast<bf16*>(st + Q::SWH + j * round128(CL_HC * LDH * 2));
-    for (int v = threadIdx.x; v < CL_HC * VPR; v += THREADS) {
-      const int r = v / VPR, c = (v % VPR) * 8;
-      cp_async16(rows + r * LDH + c, g + (size_t)(rank * CL_HC + r) * H + c);
-    }
-    if constexpr (BWD) {
-      bf16* cols = reinterpret_cast<bf16*>(st + Q::SWC + j * round128(H * LDO * 2));
-      for (int v = threadIdx.x; v < H * 8; v += THREADS) {
-        const int r = v / 8, c = (v % 8) * 8;
-        cp_async16(cols + r * LDO + c, g + (size_t)r * H + rank * CL_HC + c);
-      }
+  constexpr int LDH = Q::LDH, LDO = Q::LDO;
+  if constexpr (!Q::RING) {
+    for (int j = 0; j < NH1; ++j) {
+      const bf16* g = wh + ((size_t)k * NH1 + j) * H * H;
+      cl_rows_slab<H>(reinterpret_cast<bf16*>(st + Q::SWH + j * round128(CL_HC * LDH * 2)), g,
+                      rank);
+      if constexpr (BWD)
+        cl_cols_slab<H>(reinterpret_cast<bf16*>(st + Q::SWC + j * round128(H * LDO * 2)), g,
+                        rank);
     }
   }
   bf16* wo = reinterpret_cast<bf16*>(st + Q::SWOUT);
@@ -236,6 +307,32 @@ __device__ void cl_stage(unsigned char* st, const bf16* wx, const bf16* wh, cons
   bf16* wxt = reinterpret_cast<bf16*>(st + Q::SWXT);
   for (int e = threadIdx.x; e < 3 * H; e += THREADS)
     wxt[(e % 3) * LDH + e / 3] = wx[(size_t)k * 3 * H + e];
+}
+
+// The backward's ring (Q::RING): the slabs a tile uses, in order (the
+// recompute's row slabs j = 0 .. NH1-1, then the column slabs j = NH1-1 ..
+// 0), one stream across tiles and layers; use s reads buffer s & 1. Before
+// use s every thread waits for its copies and a barrier makes them
+// visible; after that barrier slab s + 1 is issued into the other buffer,
+// which every warp left before the barrier (use s - 1 precedes it).
+template <int H, int NH1>
+__device__ __forceinline__ const bf16* cl_ring_buf(unsigned char* smem, int s) {
+  using Q = Cl<H, NH1, true>;
+  return reinterpret_cast<const bf16*>(smem + Q::RINGB + (s & 1) * Q::SLAB);
+}
+
+// slab use s: layer k's row slab j (col: its column slab), one cp.async
+// group; nothing where k < 0 (past the last layer walked)
+template <int H, int NH1>
+__device__ __forceinline__ void cl_ring_load(unsigned char* smem, int s, const bf16* wh, int k,
+                                             int j, bool col, int rank) {
+  using Q = Cl<H, NH1, true>;
+  if (k < 0) return;
+  bf16* dst = reinterpret_cast<bf16*>(smem + Q::RINGB + (s & 1) * Q::SLAB);
+  const bf16* g = wh + ((size_t)k * NH1 + j) * H * H;
+  if (col) cl_cols_slab<H>(dst, g, rank);
+  else cl_rows_slab<H>(dst, g, rank);
+  cp_async_commit();
 }
 
 // zero the padding rows the products read: each stage's Wx^T rows 3-7 and
@@ -532,7 +629,7 @@ fwd_cluster(const float* __restrict__ xt, const float* __restrict__ hz, float* _
             const bf16* __restrict__ wout, const float* __restrict__ bout,
             const float* __restrict__ masks, int B, int N, int K, float cap) {
   using Q = Cl<H, NH1, false>;
-  constexpr int T = Q::T, C = Q::C, G = CL_G;
+  constexpr int T = Q::T, C = Q::C, G = Q::G;
   constexpr int SS = round128(T * 6 * 4) / 4;   // floats of one tile's slot
   extern __shared__ __align__(128) unsigned char smem[];
   cgrp::cluster_group cl = cgrp::this_cluster();
@@ -708,7 +805,7 @@ inv_cluster(const float* __restrict__ hz, const float* __restrict__ ut, float* _
             const float* __restrict__ masks, int B, int CR, int N, int K, float cap,
             unsigned long long seed, float noise_scale) {
   using Q = Cl<H, NH1, false>;
-  constexpr int T = Q::T, C = Q::C, G = CL_G;
+  constexpr int T = Q::T, C = Q::C, G = Q::G;
   constexpr int SS = round128(T * 6 * 4) / 4;   // floats of one tile's slot
   extern __shared__ __align__(128) unsigned char smem[];
   cgrp::cluster_group cl = cgrp::this_cluster();
@@ -803,6 +900,58 @@ inv_cluster(const float* __restrict__ hz, const float* __restrict__ ut, float* _
   cl.sync();   // no CTA leaves while another may read its slots
 }
 
+// A tile's dWh_j[:, cols_r] for a matrix the registers do not hold: the
+// tile's dh_{j+1}^T h_j[:, cols_r] (the register-held matrices' products,
+// one m16 band of the warp's rows at a time), added into the cluster's
+// slice (dwh, row stride H, from the rank's first column oc) with 16-byte
+// loads and stores; the cluster's first tile of the layer (first) writes
+// it. Lanes t and t ^ 1 swap halves, so that each holds 4 columns of one
+// row: even t row g, odd t row g + 8. Each lane reads and writes the same
+// addresses every tile: no fence, and the tiles add in order.
+template <int H, int T>
+__device__ __forceinline__ void cl_dwh_tile(float* dwh, const bf16* xin, const bf16* hj, int oc,
+                                            bool first) {
+  constexpr int LDH = H + 8, WM = H / 128;
+  const int warp = threadIdx.x / 32, lane = lane_id(), g = lane >> 2, t = lane & 3;
+  const bool odd = t & 1;
+#pragma unroll
+  for (int mi = 0; mi < WM; ++mi) {
+    float acc[8][4];
+#pragma unroll
+    for (int ni = 0; ni < 8; ++ni)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[ni][e] = 0.f;
+#pragma unroll 2
+    for (int kk = 0; kk < T / 16; ++kk) {
+      uint32_t a[4];
+      ldsm_x4_t(a, xin + (16 * kk + (lane & 7) + ((lane >> 4) & 1) * 8) * LDH +
+                       (warp * WM + mi) * 16 + ((lane >> 3) & 1) * 8);
+#pragma unroll
+      for (int ni = 0; ni < 8; ni += 2) {
+        uint32_t bq[4];
+        ldsm_x4_t(bq, hj + (16 * kk + (lane & 7) + ((lane >> 3) & 1) * 8) * CL_LDO + ni * 8 +
+                          (lane >> 4) * 8);
+        mma16(acc[ni], a, bq[0], bq[1]);
+        mma16(acc[ni + 1], a, bq[2], bq[3]);
+      }
+    }
+    float* row = dwh + (size_t)((warp * WM + mi) * 16 + g + (odd ? 8 : 0)) * H + oc + 2 * (t & 2);
+#pragma unroll
+    for (int ni = 0; ni < 8; ++ni) {
+      const float s0 = __shfl_xor_sync(0xffffffffu, odd ? acc[ni][0] : acc[ni][2], 1);
+      const float s1 = __shfl_xor_sync(0xffffffffu, odd ? acc[ni][1] : acc[ni][3], 1);
+      float4 v = odd ? make_float4(s0, s1, acc[ni][2], acc[ni][3])
+                     : make_float4(acc[ni][0], acc[ni][1], s0, s1);
+      float4* d = reinterpret_cast<float4*>(row + ni * 8);
+      if (!first) {
+        const float4 pr = *d;
+        v = make_float4(pr.x + v.x, pr.y + v.y, pr.z + v.z, pr.w + v.w);
+      }
+      *d = v;
+    }
+  }
+}
+
 // The backward. u, du [B, 3, N] (read at the last layer, the first walked),
 // y, dx [B, 3, N] (written by rank 0 at the end: the rebuilt input and its
 // cotangent), carry [C, B, 9, N] f32 scratch (rank r's copy: each point's
@@ -832,7 +981,7 @@ bwd_cluster(const float* __restrict__ u, const float* __restrict__ du, float* __
   const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32, g = lane >> 2, t = lane & 3;
   const int p = lane & 15, pg = warp % Q::PG, cgp = warp / Q::PG, r0 = pg * 16, c0 = cgp * W;
   const int nt = (N + T - 1) / T, tiles = B * nt;
-  const int per_layer = 3 * H + NH1 * H * H + NH1 * H + 6 * H + 6;
+  constexpr int per_layer = cluster_part_row(H, NH1, Q::SPILL > 0);
   const int oc = rank * CL_HC;   // the rank's first column
   const size_t cstride = (size_t)B * 9 * N;   // floats of one rank's carry
   float* cr = carry + rank * cstride;
@@ -847,6 +996,8 @@ bwd_cluster(const float* __restrict__ u, const float* __restrict__ du, float* __
 
   cl_zero_pads<H, NH1, true>(smem);
   cl_stage<H, NH1, true>(stage(0), wx, wh, wout, K - 1, rank);
+  if constexpr (Q::RING) cl_ring_load<H, NH1>(smem, 0, wh, K - 1, 0, false, rank);
+  int sq = 0;   // the ring's slab uses so far
   cl.sync();   // every CTA of the cluster runs before any writes into another
   for (int i = 0; i < K; ++i) {
     const int k = K - 1 - i, s = Q::NST == 2 ? (i & 1) : 0;
@@ -872,12 +1023,9 @@ bwd_cluster(const float* __restrict__ u, const float* __restrict__ du, float* __
 #pragma unroll
     for (int e = 0; e < 6; ++e) bo[e] = bout[k * 6 + e];
 
-    for (int pass = 0; pass < Q::PASSES; ++pass) {
-      const bool last = pass + 1 == Q::PASSES;
-      const int jhi = NH1 - 1 - pass * MP;       // the pass's dWh matrices: jhi down to jlo
-      const int jlo = jhi - MP + 1 > 0 ? jhi - MP + 1 : 0;
-      const int jstop = last ? 0 : jlo + 1;      // the lowest level whose cotangent it needs
-      // aw: warps 0-3 dWout[:, cols]^T, warps 4-7 dWx[cols] (an m16 tile each)
+    {   // one walk of the layer's tiles
+      // acc[q]: dWh_{NH1-1-q}[:, cols] (q < MP, down to matrix SPILL); aw:
+      // warps 0-3 dWout[:, cols]^T, warps 4-7 dWx[cols] (an m16 tile each)
       float acc[MP][WM][8][4], aw[4], run[NH1][2], rbout[6];
 #pragma unroll
       for (int q = 0; q < MP; ++q)
@@ -895,6 +1043,8 @@ bwd_cluster(const float* __restrict__ u, const float* __restrict__ du, float* __
       for (int r = 0; r < 6; ++r) rbout[r] = 0.f;
 
       for (int tile = cid; tile < tiles; tile += clusters) {
+        // the layer whose row slab 0 the next tile of the ring uses
+        const int knext = tile + clusters < tiles ? k : k - 1;
         const int b = tile / nt, n = (tile % nt) * T + r0 + p;
         const bool valid = n < N;
         const float g_ld = valid ? dld[b] : 0.f;
@@ -952,8 +1102,15 @@ bwd_cluster(const float* __restrict__ u, const float* __restrict__ du, float* __
               *reinterpret_cast<uint32_t*>(d + 8) = h.a[kc][2];
               *reinterpret_cast<uint32_t*>(d + 8 * LDO + 8) = h.a[kc][3];
             }
+            const bf16* w0 = swh;
+            if constexpr (Q::RING) {
+              cp_async_wait_all();
+              __syncthreads();   // row slab 0 is in the ring
+              cl_ring_load<H, NH1>(smem, sq + 1, wh, k, 1, false, rank);
+              w0 = cl_ring_buf<H, NH1>(smem, sq++);
+            }
             float c[NW][4];
-            cl_prod_regs<H, NW>(c, h, swh + c0 * LDH);
+            cl_prod_regs<H, NW>(c, h, w0 + c0 * LDH);
             cl_epi_act<NW>(lo, hi, c, bhk);
           }
           cl_store<NW>(hown + OS + r0 * LDO + c0, LDO, lo, hi);
@@ -962,10 +1119,17 @@ bwd_cluster(const float* __restrict__ u, const float* __restrict__ du, float* __
             bf16* xo = xch + ((j - 1) & 1) * XS + r0 * LDH + oc + c0;
             cl_store<NW>(xo, LDH, lo, hi);
             cl_push<C, W>(xo, LDH, rank);
-            cl.sync();   // every rank's columns of h_j
+            if constexpr (Q::RING) cp_async_wait_all();
+            cl.sync();   // every rank's columns of h_j (and row slab j in the ring)
+            const bf16* wj = swh + j * RS;
+            if constexpr (Q::RING) {   // next: row slab j + 1, else the chain's first
+              if (j + 1 < NH1) cl_ring_load<H, NH1>(smem, sq + 1, wh, k, j + 1, false, rank);
+              else cl_ring_load<H, NH1>(smem, sq + 1, wh, k, NH1 - 1, true, rank);
+              wj = cl_ring_buf<H, NH1>(smem, sq++);
+            }
             float c[NW][4];
             cl_prod_smem<H, NW, false>(c, xch + ((j - 1) & 1) * XS + r0 * LDH, LDH,
-                                       swh + j * RS + c0 * LDH, LDH);
+                                       wj + c0 * LDH, LDH);
             cl_epi_act<NW>(lo, hi, c, bhk + j * H);
             cl_store<NW>(hown + (j + 1) * OS + r0 * LDO + c0, LDO, lo, hi);
           }
@@ -1007,14 +1171,12 @@ bwd_cluster(const float* __restrict__ u, const float* __restrict__ du, float* __
 #pragma unroll
             for (int c = 0; c < 3; ++c) xkb[c * LDT + r0 + p] = __float2bfloat16_rn(xk[c]);
           }
-          if (last) {
 #pragma unroll
-            for (int r = 0; r < 6; ++r) {   // dbout over the warp's points
-              float v = d[r];
+          for (int r = 0; r < 6; ++r) {   // dbout over the warp's points
+            float v = d[r];
 #pragma unroll
-              for (int off = 1; off < 16; off <<= 1) v += __shfl_xor_sync(0xffffffffu, v, off);
-              rbout[r] += v;
-            }
+            for (int off = 1; off < 16; off <<= 1) v += __shfl_xor_sync(0xffffffffu, v, off);
+            rbout[r] += v;
           }
         }
         // rnd(d(s, t)) of the point group (written by its column group 0)
@@ -1050,26 +1212,31 @@ bwd_cluster(const float* __restrict__ u, const float* __restrict__ du, float* __
           uint32_t lo[NW], hi[NW];
           float kept[2] = {0.f, 0.f};
           cl_epi_mask<NW>(lo, hi, c, hown + NH1 * OS + r0 * LDO + c0, kept);
-          if (last) {
-            run[NH1 - 1][0] += kept[0];
-            run[NH1 - 1][1] += kept[1];
-          }
+          run[NH1 - 1][0] += kept[0];
+          run[NH1 - 1][1] += kept[1];
           bf16* xo = xch + r0 * LDH + oc + c0;   // dh_{NH1} into exchange tile 0
           cl_store<NW>(xo, LDH, lo, hi);
           cl_push<C, W>(xo, LDH, rank);
         }
+        if constexpr (Q::RING) cp_async_wait_all();
         cl.sync();   // every rank's columns of dh_last are in every tile
 
-        // down the hidden levels: dWh_j += dh_{j+1}^T h_j[:, cols] (the pass's
-        // matrices), dh_j[:, cols] = (dh_{j+1} Wh_j[:, cols]) * (h_j > 0)
+        // down the hidden levels: dWh_j += dh_{j+1}^T h_j[:, cols] (in
+        // registers, or into the slice), dh_j[:, cols] = (dh_{j+1} Wh_j[:,
+        // cols]) * (h_j > 0)
 #pragma unroll
         for (int j = NH1 - 1; j >= 0; --j) {
-          if (j < jstop - 1) break;
           const bf16* xin = xch + ((NH1 - 1 - j) & 1) * XS;   // dh_{j+1}, all columns
           const bf16* hj = hown + j * OS;
+          const bf16* wc = swc + j * CS;
+          if constexpr (Q::RING) {   // next: column slab j - 1, else the next tile's row slab 0
+            if (j > 0) cl_ring_load<H, NH1>(smem, sq + 1, wh, k, j - 1, true, rank);
+            else cl_ring_load<H, NH1>(smem, sq + 1, wh, knext, 0, false, rank);
+            wc = cl_ring_buf<H, NH1>(smem, sq++);
+          }
 #pragma unroll
           for (int q = 0; q < MP; ++q) {
-            if (j != jhi - q || j < jlo) continue;
+            if (j != NH1 - 1 - q || j < Q::SPILL) continue;
 #pragma unroll 2
             for (int kk = 0; kk < T / 16; ++kk) {
               uint32_t a[WM][4];
@@ -1090,20 +1257,22 @@ bwd_cluster(const float* __restrict__ u, const float* __restrict__ du, float* __
               }
             }
           }
-          if (j < jstop) continue;   // this pass needs no cotangent below dh_{jstop}
+          if constexpr (Q::SPILL > 0) {
+            if (j < Q::SPILL) cl_dwh_tile<H, T>(out + 3 * H + (size_t)j * H * H, xin, hj, oc,
+                                                tile == cid);
+          }
           float c[NW][4];
-          cl_prod_smem<H, NW, true>(c, xin + r0 * LDH, LDH, swc + j * CS + c0, LDO);
+          cl_prod_smem<H, NW, true>(c, xin + r0 * LDH, LDH, wc + c0, LDO);
           uint32_t lo[NW], hi[NW];
           float kept[2] = {0.f, 0.f};
           cl_epi_mask<NW>(lo, hi, c, hj + r0 * LDO + c0, kept);
           if (j > 0) {
-            if (last) {
-              run[j - 1][0] += kept[0];
-              run[j - 1][1] += kept[1];
-            }
+            run[j - 1][0] += kept[0];
+            run[j - 1][1] += kept[1];
             bf16* xo = xch + ((NH1 - j) & 1) * XS + r0 * LDH + oc + c0;
             cl_store<NW>(xo, LDH, lo, hi);
             cl_push<C, W>(xo, LDH, rank);
+            if constexpr (Q::RING) cp_async_wait_all();
             cl.sync();
           } else {
             cl_store<NW>(dh0 + r0 * LDO + c0, LDO, lo, hi);
@@ -1111,10 +1280,6 @@ bwd_cluster(const float* __restrict__ u, const float* __restrict__ du, float* __
               *reinterpret_cast<float2*>(dhzw + warp * CL_HC + c0 + 8 * g + 2 * t) =
                   make_float2(kept[0], kept[1]);
           }
-        }
-        if (!last) {
-          cl.sync();   // every rank is done with this tile's shared tiles
-          continue;
         }
         __syncthreads();   // dh_0's own columns of every warp
 
@@ -1181,11 +1346,11 @@ bwd_cluster(const float* __restrict__ u, const float* __restrict__ du, float* __
         else __syncthreads();
       }
 
-      // the pass's dWh columns into the cluster's slice
+      // the register-held dWh columns into the cluster's slice
 #pragma unroll
       for (int q = 0; q < MP; ++q) {
-        const int j = jhi - q;
-        if (j < jlo) break;
+        const int j = NH1 - 1 - q;
+        if (j < Q::SPILL) break;
         float* dwh = out + 3 * H + (size_t)j * H * H;
 #pragma unroll
         for (int mi = 0; mi < WM; ++mi)
@@ -1198,7 +1363,6 @@ bwd_cluster(const float* __restrict__ u, const float* __restrict__ du, float* __
                 make_float2(acc[q][mi][ni][2], acc[q][mi][ni][3]);
           }
       }
-      if (!last) continue;
       // dWx[cols] and dWout[:, cols]
       {
         const int mt = warp & 3, o = oc + 16 * mt + g;
@@ -1322,7 +1486,7 @@ cudaError_t launch_fwd_cluster(const float* xt, const float* hz, float* u, float
                                const void* wout, const float* bout, const float* masks, int B,
                                int N, int K, float cap, int clusters, cudaStream_t stream) {
   using Q = Cl<H, NH1, false>;
-  const int groups = (B * ((N + Q::T - 1) / Q::T) + CL_G - 1) / CL_G;
+  const int groups = (B * ((N + Q::T - 1) / Q::T) + Q::G - 1) / Q::G;
   if (clusters > groups) clusters = groups;
   return cl_launch(fwd_cluster<H, NH1>, clusters, Q::C, Q::TOTAL, stream, xt, hz, u, ld_part,
                    carry, static_cast<const bf16*>(wx), static_cast<const bf16*>(wh), bh,
@@ -1342,7 +1506,7 @@ cudaError_t launch_inv_cluster(const float* hz, const float* ut, float* out, flo
                                int CR, int N, int K, float cap, unsigned long long seed,
                                float noise_scale, int clusters, cudaStream_t stream) {
   using Q = Cl<H, NH1, false>;
-  const int groups = (B * ((N + Q::T - 1) / Q::T) + CL_G - 1) / CL_G;
+  const int groups = (B * ((N + Q::T - 1) / Q::T) + Q::G - 1) / Q::G;
   if (clusters > groups) clusters = groups;
   return cl_launch(inv_cluster<H, NH1>, clusters, Q::C, Q::TOTAL, stream, hz, ut, out, u_out,
                    carry, static_cast<const bf16*>(wx), static_cast<const bf16*>(wh), bh,
@@ -1358,13 +1522,14 @@ cudaError_t launch_bwd_cluster(const float* u, const float* du, float* y, float*
                                float* dhz, int B, int N, int K, float cap, int clusters,
                                cudaStream_t stream) {
   using Q = Cl<H, NH1, true>;
+  const int nt = (N + Q::T - 1) / Q::T;
+  if (clusters > B * nt) clusters = B * nt;   // every cluster takes a tile of each layer
   cudaError_t e = cl_launch(bwd_cluster<H, NH1>, clusters, Q::C, Q::TOTAL, stream, u, du, y,
                             dx, carry, dld, hz, static_cast<const bf16*>(wx),
                             static_cast<const bf16*>(wh), bh, static_cast<const bf16*>(wout),
                             bout, masks, part, dhz_part, B, N, K, cap);
   if (e != cudaSuccess) return e;
-  const int nt = (N + Q::T - 1) / Q::T;
-  const long long per_layer = 3LL * H + (long long)NH1 * H * H + (long long)NH1 * H + 6 * H + 6;
+  const long long per_layer = cluster_part_row(H, NH1, Q::SPILL > 0);
   if ((e = launch_reduce(part, dw, 1, clusters, per_layer * K, stream)) != cudaSuccess) return e;
   return launch_reduce(dhz_part, dhz, B, nt, (long long)K * H, stream);
 }

@@ -62,8 +62,7 @@
 //     tile and a layer's weights sit in shared memory, so the backward takes
 //     n_hidden - 1 <= 8, 3, 1, 0 at H = 32, 64, 128, 256 (smem_bytes reports
 //     more than a block may use beyond that). Past those limits the wrapper
-//     takes the cluster or stream layout (below) for the forward and the
-//     backward.
+//     takes the cluster layout (below) for the forward and the backward.
 //   Cotangents are cast to bf16 before each product; ragged points carry
 //   zero cotangent and no log-det gradient.
 //
@@ -83,13 +82,8 @@
 //
 // cluster layout (`fwd_cluster`, `bwd_cluster`, bf16; flow_cluster.cuh): the
 // bf16 shapes whose mma layout overflows a block (H=128 with n_hidden 3-4,
-// H=256 with n_hidden 2-3): one layer split across a thread-block cluster of
+// H=256 with n_hidden 2-4): one layer split across a thread-block cluster of
 // H / 64 CTAs, rank r owning hidden columns [64r, 64r + 64). See its header.
-//
-// stream layout (`fwd_stream`, `bwd_stream`): the one bf16 training shape
-// the cluster plan cannot hold (H=256 with n_hidden 4): smaller point tiles,
-// Wh staged in chunks of output columns, dWh summed in a global slice. See
-// StreamSmem.
 //
 // Plain C interface, loaded with ctypes (dpfx_torch/ops/_build.py). Each
 // launch returns cudaGetLastError().
@@ -234,8 +228,8 @@ cudaError_t launch_bwd_mma(float* y, float* dy, const float* dld, const float* h
   return bwd_rows_reduce<H>(part, dhz_part, dw, dhz, B, N, K, NH1, blocks, stream);
 }
 
-// The per-tile pieces of the persistent backward that bwd_kernel,
-// bwd_stream and bwd_f32 share (S: the stored type of the activations and cotangents, each
+// The per-tile pieces of the persistent backward that bwd_kernel and
+// bwd_f32 share (S: the stored type of the activations and cotangents, each
 // rounded to S where it enters a product): the coupling cotangents with the
 // layer input from the closed-form inverse, dWout, dh_last, and dWx with
 // this tile's dhz partial and dy_in. Each sum runs over the tile's points in
@@ -664,403 +658,13 @@ bwd_kernel(float* __restrict__ y, float* __restrict__ dy, const float* __restric
   }
 }
 
-// ---------------------------------------------------------------- stream layout
-
-// The layout for the shape whose activations or weights overflow the
-// layouts above and the cluster layout (bf16 at H=256 with n_hidden 4; the
-// instances are bf16 only, the f32 layout below takes the f32 shapes): the
-// wrapper picks it for the forward and the backward together, so that the
-// backward's recompute is the forward's arithmetic. S is the stored type,
-// bf16: the activations and cotangents stored rounded, as the Pallas
-// kernel's operands are; WMMA products on the tensor cores, f32 sums. The
-// carve-up (StreamSmem) also sizes an f32 tile, which the C interface
-// reports and the tests' mirror checks. What it does about the overflow:
-//   * a point tile of T (128 .. 16) points, the largest whose activations
-//     fit beside one chunk of weights: the forward keeps two levels of the
-//     tile, the backward all n_hidden (they become the cotangents in place);
-//   * Wh staged NC output columns at a time (rows of Wh for the forward
-//     product, columns for the cotangent product), each chunk's sums over
-//     the whole k, so chunking changes no sum;
-//   * dWh summed per tile into the block's slice of a global scratch (wacc,
-//     [blocks][n_hidden-1][H][H] f32, L2-resident): no register-held dW
-//     blocks, which at H=256 would need 256 registers a thread per matrix.
-// Bound: the same FLOP as the other layouts; the price is every Wh read
-// from L2 twice per tile and dWh read and written once per tile.
-struct StreamSmem {
-  int T, NC, ld, lw, hstride, hs, ws, stage, colpart, xs, dys, xks, dst, dyn, ldp;
-  int wx, wout, bout, hz, bh, adwx, adwout, adbout, dhz, adbh, total;
-  __host__ __device__ void carve(int H, int NH1, bool bf, bool backward, int t, int nc) {
-    const int es = bf ? 2 : 4, pad = bf ? Layout<bf16>::PAD : Layout<float>::PAD;
-    const int nb = NH1 > 1 ? NH1 : 1;
-    T = t;
-    NC = nc;
-    ld = H + pad;
-    lw = nc + pad;
-    hstride = round128(t * ld * es);
-    int o = 0;
-    hs = o;      o += (backward ? NH1 + 1 : 2) * hstride;
-    ws = o;      o += round128((backward && H * lw > nc * ld ? H * lw : nc * ld) * es);
-    stage = o;   o += bf ? round128(WARPS * 256 * 4) : 0;
-    colpart = o; o += bf && backward ? round128(t / 16 * nc * 4) : 0;
-    xs = o;      o += round128(3 * t * 4);
-    dst = o;     o += round128(8 * t * 4);
-    dys = xks = dyn = ldp = o;
-    if (backward) {
-      dys = o;   o += round128(3 * t * 4);
-      xks = o;   o += round128(3 * t * 4);
-      dyn = o;   o += round128(3 * t * 4);
-    } else {
-      ldp = o;   o += round128(t * 4);
-    }
-    wx = o;      o += round128(3 * H * 4);
-    wout = o;    o += round128(6 * H * 4);
-    bout = o;    o += round128(8 * 4);
-    hz = o;      o += round128(H * 4);
-    bh = o;      o += round128(nb * H * 4);
-    adwx = adwout = adbout = dhz = adbh = o;
-    if (backward) {
-      adwx = o;   o += round128(3 * H * 4);
-      adwout = o; o += round128(6 * H * 4);
-      adbout = o; o += round128(8 * 4);
-      dhz = o;    o += round128(H * 4);
-      adbh = o;   o += round128(nb * H * 4);
-    }
-    total = o;
-  }
-  // the largest tile, then the widest chunk, that fits
-  __host__ __device__ StreamSmem(int H, int NH1, bool bf, bool backward) {
-    for (int t = 128; t >= 16; t /= 2)
-      for (int nc = H < 128 ? H : 128; nc >= 32 || nc == H; nc /= 2) {
-        if (H % nc) continue;
-        carve(H, NH1, bf, backward, t, nc);
-        if (total <= SMEM_MAX) return;
-      }
-  }
-};
-
-// rows x cols of g (row stride gs) into dst (row stride ld): bf16 16 bytes
-// at a time (cols, gs, ld and the bases are multiples of 8 elements)
-__device__ void stage_rows(bf16* dst, int ld, const bf16* g, int gs, int rows, int cols) {
-  const int vpr = cols / 8;
-  for (int v = threadIdx.x; v < rows * vpr; v += THREADS) {
-    const int r = v / vpr, c = (v % vpr) * 8;
-    *reinterpret_cast<uint4*>(dst + r * ld + c) =
-        *reinterpret_cast<const uint4*>(g + (size_t)r * gs + c);
-  }
-}
-
-// h_0 = act(rnd(Wx) rnd(x) + hz) for the T points of xs into h (stored as S)
-template <typename S, int H>
-__device__ void first_layer_s(S* h, int ld, const float* xs, int T, const float* wxs,
-                              const float* hzs) {
-  for (int e = threadIdx.x; e < T * H; e += THREADS) {
-    const int p = e / H, o = e % H;
-    float v = wxs[o * 3 + 0] * rnd<S>(xs[p]);
-    v = fmaf(wxs[o * 3 + 1], rnd<S>(xs[T + p]), v);
-    v = fmaf(wxs[o * 3 + 2], rnd<S>(xs[2 * T + p]), v);
-    h[p * ld + o] = from_f<S>(relu_nan(v + hzs[o]));
-  }
-}
-
-// st[r][p] = rnd(Wout)[r] . h[p] + bout[r]: one warp per point, lanes split H
-template <typename S, int H>
-__device__ void out_layer_s(float* sts, const S* h, int ld, int T, const float* wos,
-                            const float* bos) {
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  for (int p = warp; p < T; p += WARPS) {
-    float part[6] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
-    for (int kk = lane; kk < H; kk += 32) {
-      const float hv = to_f(h[p * ld + kk]);
-#pragma unroll
-      for (int r = 0; r < 6; ++r) part[r] = fmaf(wos[r * H + kk], hv, part[r]);
-    }
-#pragma unroll
-    for (int r = 0; r < 6; ++r)
-      for (int off = 16; off; off >>= 1) part[r] += __shfl_xor_sync(0xffffffffu, part[r], off);
-    if (lane < 6) {
-      float v = part[0];
-#pragma unroll
-      for (int r = 1; r < 6; ++r) if (lane == r) v = part[r];
-      sts[lane * T + p] = v + bos[lane];
-    }
-  }
-}
-
-// a layer's small weights as f32 (rounded to S already) and biases
-template <typename S, int H>
-__device__ void small_weights(const StreamSmem& L, unsigned char* smem, const S* wx,
-                              const S* wout, const float* bout, const float* bh, int k,
-                              int NH1) {
-  float* wxs = reinterpret_cast<float*>(smem + L.wx);
-  float* wos = reinterpret_cast<float*>(smem + L.wout);
-  float* bos = reinterpret_cast<float*>(smem + L.bout);
-  float* bhs = reinterpret_cast<float*>(smem + L.bh);
-  for (int e = threadIdx.x; e < 3 * H; e += THREADS) wxs[e] = to_f(wx[(size_t)k * 3 * H + e]);
-  for (int e = threadIdx.x; e < 6 * H; e += THREADS) wos[e] = to_f(wout[(size_t)k * 6 * H + e]);
-  if (threadIdx.x < 6) bos[threadIdx.x] = bout[k * 6 + threadIdx.x];
-  for (int e = threadIdx.x; e < NH1 * H; e += THREADS) bhs[e] = bh[(size_t)k * NH1 * H + e];
-}
-
-// out = relu(in Wh^T + bh) for the tile: Wh's rows staged NC at a time into
-// ws [NC][ld]; every sum over the whole k. Starts and ends with a barrier.
-template <typename S, int H>
-__device__ void hidden_stream(const StreamSmem& L, unsigned char* smem, const S* in, S* out,
-                              const S* g, const float* bj) {
-  S* ws = reinterpret_cast<S*>(smem + L.ws);
-  float* stage = reinterpret_cast<float*>(smem + L.stage);
-  const int ld = L.ld, NC = L.NC;
-  for (int n0 = 0; n0 < H; n0 += NC) {
-    __syncthreads();   // in is written; the previous chunk's product is done with ws
-    stage_rows(ws, ld, g + (size_t)n0 * H, H, NC, H);
-    __syncthreads();
-    gemm<false, true>(L.T, NC, H, in, ld, ws, ld, stage, nullptr, [&](int m, int n, float v) {
-      out[m * ld + n0 + n] = from_f<S>(relu_nan(v + bj[n0 + n]));
-      return 0.f;
-    });
-  }
-  __syncthreads();
-}
-
-template <typename S, int H>
-__global__ void __launch_bounds__(THREADS)
-fwd_stream(const float* __restrict__ xt, const float* __restrict__ hz, float* __restrict__ u,
-           float* __restrict__ ld_part, const S* __restrict__ wx, const S* __restrict__ wh,
-           const float* __restrict__ bh, const S* __restrict__ wout,
-           const float* __restrict__ bout, const float* __restrict__ masks, int N, int K,
-           int NH1, float cap) {
-  static_assert(is_bf16<S>, "the stream layout is built for bf16 (f32 takes the f32 layout)");
-  extern __shared__ __align__(128) unsigned char smem[];
-  const StreamSmem L(H, NH1, is_bf16<S>, false);
-  const int T = L.T, ld = L.ld;
-  S* hs0 = reinterpret_cast<S*>(smem + L.hs);
-  S* hs1 = reinterpret_cast<S*>(smem + L.hs + L.hstride);
-  float* xs = reinterpret_cast<float*>(smem + L.xs);      // [3][T]
-  float* sts = reinterpret_cast<float*>(smem + L.dst);    // [6][T]
-  float* ldp = reinterpret_cast<float*>(smem + L.ldp);    // [T]
-  const float* wxs = reinterpret_cast<const float*>(smem + L.wx);
-  const float* wos = reinterpret_cast<const float*>(smem + L.wout);
-  const float* bos = reinterpret_cast<const float*>(smem + L.bout);
-  float* hzs = reinterpret_cast<float*>(smem + L.hz);
-  const float* bhs = reinterpret_cast<const float*>(smem + L.bh);
-
-  const int b = blockIdx.y, n0 = blockIdx.x * T, tid = threadIdx.x;
-  const size_t cloud = (size_t)b * 3 * N;
-  for (int p = tid; p < T; p += THREADS) {
-    const int n = n0 + p;
-    for (int c = 0; c < 3; ++c) xs[c * T + p] = n < N ? xt[cloud + (size_t)c * N + n] : 0.f;
-    ldp[p] = 0.f;
-  }
-  for (int k = 0; k < K; ++k) {
-    __syncthreads();  // the previous layer is done with xs and the small weights
-    small_weights<S, H>(L, smem, wx, wout, bout, bh, k, NH1);
-    for (int e = tid; e < H; e += THREADS) hzs[e] = hz[((size_t)b * K + k) * H + e];
-    __syncthreads();
-    first_layer_s<S, H>(hs0, ld, xs, T, wxs, hzs);
-    S* cur = hs0;
-    S* nxt = hs1;
-    for (int j = 0; j < NH1; ++j) {
-      hidden_stream<S, H>(L, smem, cur, nxt, wh + ((size_t)k * NH1 + j) * H * H, bhs + j * H);
-      S* t = cur;
-      cur = nxt;
-      nxt = t;
-    }
-    __syncthreads();
-    out_layer_s<S, H>(sts, cur, ld, T, wos, bos);
-    __syncthreads();
-    for (int p = tid; p < T; p += THREADS) {
-      for (int c = 0; c < 3; ++c) {
-        if (masks[k * 3 + c] > 0.f) continue;
-        const float s = cap * tanhf(sts[c * T + p] / cap);
-        ldp[p] += s;
-        xs[c * T + p] = xs[c * T + p] * expf(s) + sts[(3 + c) * T + p];
-      }
-    }
-  }
-  __syncthreads();
-  for (int p = tid; p < T; p += THREADS)
-    if (n0 + p < N)
-      for (int c = 0; c < 3; ++c) u[cloud + (size_t)c * N + n0 + p] = xs[c * T + p];
-  if (tid < 32) {
-    float s = 0.f;
-    for (int p = tid; p < T; p += 32) s += n0 + p < N ? ldp[p] : 0.f;
-    for (int off = 16; off; off >>= 1) s += __shfl_xor_sync(0xffffffffu, s, off);
-    if (tid == 0) ld_part[(size_t)b * gridDim.x + blockIdx.x] = s;
-  }
-}
-
-template <typename S, int H>
-__global__ void __launch_bounds__(THREADS)
-bwd_stream(float* __restrict__ y, float* __restrict__ dy, const float* __restrict__ dld,
-           const float* __restrict__ hz, const S* __restrict__ wx, const S* __restrict__ wh,
-           const float* __restrict__ bh, const S* __restrict__ wout,
-           const float* __restrict__ bout, const float* __restrict__ masks,
-           float* __restrict__ part, float* __restrict__ dhz_part, float* __restrict__ wacc,
-           int B, int N, int K, int NH1, float cap) {
-  static_assert(is_bf16<S>, "the stream layout is built for bf16 (f32 takes the f32 layout)");
-  extern __shared__ __align__(128) unsigned char smem[];
-  const StreamSmem L(H, NH1, is_bf16<S>, true);
-  const int T = L.T, ld = L.ld, lw = L.lw, NC = L.NC;
-  const int hst = L.hstride / (int)sizeof(S);
-  S* hs = reinterpret_cast<S*>(smem + L.hs);
-  S* ws = reinterpret_cast<S*>(smem + L.ws);
-  float* stage = reinterpret_cast<float*>(smem + L.stage);
-  float* colpart = reinterpret_cast<float*>(smem + L.colpart);
-  float* ys = reinterpret_cast<float*>(smem + L.xs);      // [3][T] layer output
-  float* dys = reinterpret_cast<float*>(smem + L.dys);    // [3][T] its cotangent
-  float* xks = reinterpret_cast<float*>(smem + L.xks);    // [3][T] layer input
-  float* dst = reinterpret_cast<float*>(smem + L.dst);    // [6][T] (s, t), then d(s, t)
-  float* dyn = reinterpret_cast<float*>(smem + L.dyn);    // [3][T] where(mask, dy, dy*es)
-  const float* wxs = reinterpret_cast<const float*>(smem + L.wx);
-  const float* wos = reinterpret_cast<const float*>(smem + L.wout);
-  const float* bos = reinterpret_cast<const float*>(smem + L.bout);
-  float* hzs = reinterpret_cast<float*>(smem + L.hz);
-  const float* bhs = reinterpret_cast<const float*>(smem + L.bh);
-  float* adwx = reinterpret_cast<float*>(smem + L.adwx);      // [H][3]
-  float* adwout = reinterpret_cast<float*>(smem + L.adwout);  // [6][H]
-  float* adbout = reinterpret_cast<float*>(smem + L.adbout);  // [6]
-  float* dhzs = reinterpret_cast<float*>(smem + L.dhz);       // [H] this tile's dhz
-  float* adbh = reinterpret_cast<float*>(smem + L.adbh);      // [NH1][H]
-
-  const int tid = threadIdx.x;
-  const int nt = (N + T - 1) / T, tiles = B * nt;
-  const int per_layer = 3 * H + NH1 * H * H + NH1 * H + 6 * H + 6;
-  S* hlast = hs + NH1 * hst;
-  float* acc = wacc + (size_t)blockIdx.x * NH1 * H * H;   // this block's dWh sums
-
-  for (int i = 0; i < K; ++i) {
-    const int k = K - 1 - i;
-    __syncthreads();  // the previous layer's partials are written
-    small_weights<S, H>(L, smem, wx, wout, bout, bh, k, NH1);
-    for (int e = tid; e < 3 * H; e += THREADS) adwx[e] = 0.f;
-    for (int e = tid; e < 6 * H; e += THREADS) adwout[e] = 0.f;
-    if (tid < 6) adbout[tid] = 0.f;
-    for (int e = tid; e < NH1 * H; e += THREADS) adbh[e] = 0.f;
-
-    bool first = true;
-    for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
-      const int b = tile / nt, n0 = (tile % nt) * T;
-      const size_t cloud = (size_t)b * 3 * N;
-      __syncthreads();  // the previous tile is done with the shared buffers
-      for (int p = tid; p < T; p += THREADS) {
-        const int n = n0 + p;
-        for (int c = 0; c < 3; ++c) {
-          ys[c * T + p] = n < N ? y[cloud + (size_t)c * N + n] : 0.f;
-          dys[c * T + p] = n < N ? dy[cloud + (size_t)c * N + n] : 0.f;
-        }
-      }
-      for (int e = tid; e < H; e += THREADS) hzs[e] = hz[((size_t)b * K + k) * H + e];
-      __syncthreads();
-
-      // the forward conditioner, recomputed from the layer output
-      first_layer_s<S, H>(hs, ld, ys, T, wxs, hzs);
-      for (int j = 0; j < NH1; ++j)
-        hidden_stream<S, H>(L, smem, hs + j * hst, hs + (j + 1) * hst,
-                            wh + ((size_t)k * NH1 + j) * H * H, bhs + j * H);
-      __syncthreads();
-      out_layer_s<S, H>(dst, hlast, ld, T, wos, bos);   // st into dst, overwritten below
-      __syncthreads();
-
-      tile_cotangents(T, n0, N, dld[b], masks + k * 3, cap, ys, dys, dst, xks, dyn);
-      __syncthreads();
-      tile_dwout<S, H>(T, ld, dst, hlast, adwout, adbout);
-      __syncthreads();
-      float* first_sum = NH1 > 0 ? adbh + (NH1 - 1) * H : dhzs;
-      tile_dh_last<S, H>(T, ld, dst, wos, hlast, first_sum, NH1 > 0);
-
-      for (int j = NH1 - 1; j >= 0; --j) {
-        S* dh = hs + (j + 1) * hst;   // cotangent of h_{j+1}, masked
-        S* hj = hs + j * hst;
-        const S* g = wh + ((size_t)k * NH1 + j) * H * H;
-        float* sums = j > 0 ? adbh + (j - 1) * H : dhzs;
-        __syncthreads();
-        // dWh[j] += dh^T h_j, into the block's slice
-        gemm_acc<true, false>(H, H, T, dh, ld, hj, ld, acc + (size_t)j * H * H, H, first);
-        // dh_j = (dh Wh[j]) * (h_j > 0), in place over h_j, Wh's columns
-        // staged NC at a time into ws [H][lw]
-        for (int c0 = 0; c0 < H; c0 += NC) {
-          __syncthreads();   // the previous product is done with ws and h_j
-          stage_rows(ws, lw, g + c0, H, H, NC);
-          __syncthreads();
-          gemm<false, false>(T, NC, H, dh, ld, ws, lw, stage, colpart, [&](int m, int n, float v) {
-            S* q = hj + m * ld + c0 + n;
-            const float mv = v * (to_f(*q) > 0.f ? 1.f : 0.f);
-            *q = from_f<S>(mv);
-            return mv;
-          });
-          __syncthreads();   // the f32 sums of the chunk's unrounded values
-          column_sums<S>(T, NC, colpart, hj + c0, ld, sums + c0, j > 0);
-        }
-      }
-      first = false;
-      __syncthreads();
-
-      tile_dwx_dy<S, H>(T, ld, n0, N, cloud, hs, xks, dyn, wxs, dhzs, adwx,
-                        dhz_part + ((size_t)tile * K + k) * H, y, dy);
-    }
-    __syncthreads();  // this block's dWh sums are in its slice
-    // this block's partial of layer k: [dWx | dWh | dbh | dWout | dbout]
-    float* out = part + ((size_t)blockIdx.x * K + k) * per_layer;
-    for (int e = tid; e < 3 * H; e += THREADS) out[e] = adwx[e];
-    out += 3 * H;
-    for (int e = tid; e < NH1 * H * H; e += THREADS) out[e] = acc[e];
-    out += NH1 * H * H;
-    for (int e = tid; e < NH1 * H; e += THREADS) out[e] = adbh[e];
-    out += NH1 * H;
-    for (int e = tid; e < 6 * H; e += THREADS) out[e] = adwout[e];
-    out += 6 * H;
-    if (tid < 6) out[tid] = adbout[tid];
-  }
-}
-
-int stream_smem(int H, int NH1, bool bf, bool backward) {
-  return StreamSmem(H, NH1, bf, backward).total;
-}
-
-template <typename S, int H>
-cudaError_t launch_fwd_stream(const float* xt, const float* hz, float* u, float* ld_part,
-                              const void* wx, const void* wh, const float* bh, const void* wout,
-                              const float* bout, const float* masks, int B, int N, int K,
-                              int NH1, float cap, cudaStream_t stream) {
-  const StreamSmem L(H, NH1, is_bf16<S>, false);
-  if (L.total > SMEM_MAX) return cudaErrorInvalidValue;
-  cudaError_t e = cudaFuncSetAttribute(fwd_stream<S, H>,
-                                       cudaFuncAttributeMaxDynamicSharedMemorySize, L.total);
-  if (e != cudaSuccess) return e;
-  dim3 grid((N + L.T - 1) / L.T, B);
-  fwd_stream<S, H><<<grid, THREADS, L.total, stream>>>(
-      xt, hz, u, ld_part, static_cast<const S*>(wx), static_cast<const S*>(wh), bh,
-      static_cast<const S*>(wout), bout, masks, N, K, NH1, cap);
-  return cudaGetLastError();
-}
-
-template <typename S, int H>
-cudaError_t launch_bwd_stream(float* y, float* dy, const float* dld, const float* hz,
-                              const void* wx, const void* wh, const float* bh, const void* wout,
-                              const float* bout, const float* masks, float* part,
-                              float* dhz_part, float* wacc, float* dw, float* dhz, int B, int N,
-                              int K, int NH1, float cap, int blocks, cudaStream_t stream) {
-  const StreamSmem L(H, NH1, is_bf16<S>, true);
-  if (L.total > SMEM_MAX || (NH1 > 0 && !wacc)) return cudaErrorInvalidValue;
-  cudaError_t e = cudaFuncSetAttribute(bwd_stream<S, H>,
-                                       cudaFuncAttributeMaxDynamicSharedMemorySize, L.total);
-  if (e != cudaSuccess) return e;
-  bwd_stream<S, H><<<blocks, THREADS, L.total, stream>>>(
-      y, dy, dld, hz, static_cast<const S*>(wx), static_cast<const S*>(wh), bh,
-      static_cast<const S*>(wout), bout, masks, part, dhz_part, wacc, B, N, K, NH1, cap);
-  if ((e = cudaGetLastError()) != cudaSuccess) return e;
-  const int nt = (N + L.T - 1) / L.T;
-  const long long per_layer = 3LL * H + (long long)NH1 * H * H + (long long)NH1 * H + 6 * H + 6;
-  if ((e = launch_reduce(part, dw, 1, blocks, per_layer * K, stream)) != cudaSuccess) return e;
-  return launch_reduce(dhz_part, dhz, B, nt, (long long)K * H, stream);
-}
-
 // ---------------------------------------------------------------- f32 layout
 
 // The f32 forward on the sampler's block (flow_f32.cuh): 128 points, the
-// layers walked forwards on f32_walk, the inverse's own device code, so the
-// stream layout's u (each element one k-sum in order) comes out bit for bit
-// and the sampler's f32_kernel inverts it on the same (s, t) bits. The
-// block's log-det as fwd_kernel sums it.
+// layers walked forwards on f32_walk, the inverse's own device code, so u
+// (each element one k-sum in order) has the bits of every f32 forward and
+// the sampler's f32_kernel inverts it on the same (s, t) bits. The block's
+// log-det as fwd_kernel sums it.
 template <int H>
 __global__ void __launch_bounds__(THREADS)
 fwd_f32(const float* __restrict__ xt, const float* __restrict__ hz, float* __restrict__ u,
@@ -1092,8 +696,8 @@ fwd_f32(const float* __restrict__ xt, const float* __restrict__ hz, float* __res
   }
 }
 
-// The f32 backward (F32BwdSmem): bwd_stream's persistent grid, layer loop
-// outside the tile loop and coupling, dWout, dWx, dhz and dy code, with the
+// The f32 backward (F32BwdSmem): a persistent grid, the layer loop outside
+// the tile loop, bwd_kernel's coupling, dWout, dWx, dhz and dy code, with the
 // products on flow_f32.cuh's register tile. Per tile of T points: the
 // forward's levels recomputed (chunk_fma on row chunks of Wh, as the
 // forward: the same bits at any T), then per hidden product from the last:
@@ -1103,9 +707,7 @@ fwd_f32(const float* __restrict__ xt, const float* __restrict__ hz, float* __res
 // tile (recompute, then cotangent) and across tiles and layers form one
 // sequence streamed with cp.async into two buffers, chunk q + 1 behind the
 // FMAs of chunk q. Thread grid of the products: 8 x 32 at H=256 (8 points x
-// 8 outputs at T=64: 64 FFMA per 16 LDS a k), 16 x 16 at H=128. At T=64
-// each element of every gradient sums what bwd_stream's does in the same
-// order, so the two give the same bits there.
+// 8 outputs at T=64: 64 FFMA per 16 LDS a k), 16 x 16 at H=128.
 template <int H, int T>
 __global__ void __launch_bounds__(THREADS, 1)
 bwd_f32(float* __restrict__ y, float* __restrict__ dy, const float* __restrict__ dld,
@@ -1391,6 +993,7 @@ using bf16_t = __nv_bfloat16;
   if (H == 128 && NH1 == 3) { constexpr int HH = 128, NN = 3; return (int)(CALL); }     \
   if (H == 256 && NH1 == 1) { constexpr int HH = 256, NN = 1; return (int)(CALL); }     \
   if (H == 256 && NH1 == 2) { constexpr int HH = 256, NN = 2; return (int)(CALL); }     \
+  if (H == 256 && NH1 == 3) { constexpr int HH = 256, NN = 3; return (int)(CALL); }     \
   return (int)cudaErrorInvalidValue;
 
 #define DPFX_DISPATCH(H, CALL)                                                          \
@@ -1414,40 +1017,6 @@ int dpfx_fused_train_tile_points(int bf16, int backward) {
 int dpfx_fused_train_smem_bytes(int H, int NH1, int bf16, int backward) {
   if (bf16) return MmaSmem(H, NH1, backward != 0).total;
   return backward ? bwd_smem(H, NH1) : fwd_smem(H, NH1);
-}
-
-// The stream layout (see StreamSmem): points per tile, shared memory of a
-// block, and the two launches; bwd's wacc is [blocks][n_hidden-1][H][H]
-// f32 scratch
-int dpfx_fused_train_stream_tile_points(int H, int NH1, int bf16, int backward) {
-  return StreamSmem(H, NH1, bf16 != 0, backward != 0).T;
-}
-
-int dpfx_fused_train_stream_smem_bytes(int H, int NH1, int bf16, int backward) {
-  return stream_smem(H, NH1, bf16 != 0, backward != 0);
-}
-
-int dpfx_fused_train_stream_fwd(const float* xt, const float* hz, float* u, float* ld_part,
-                                const void* wx, const void* wh, const float* bh,
-                                const void* wout, const float* bout, const float* masks, int B,
-                                int N, int K, int H, int NH1, float cap, int bf16, void* stream) {
-  if (B <= 0 || N <= 0 || K <= 0 || NH1 < 0 || B > 65535) return (int)cudaErrorInvalidValue;
-  if (!bf16 || H != 256) return (int)cudaErrorInvalidValue;
-  return (int)launch_fwd_stream<bf16_t, 256>(xt, hz, u, ld_part, wx, wh, bh, wout, bout, masks, B,
-                                             N, K, NH1, cap, static_cast<cudaStream_t>(stream));
-}
-
-int dpfx_fused_train_stream_bwd(float* y, float* dy, const float* dld, const float* hz,
-                                const void* wx, const void* wh, const float* bh,
-                                const void* wout, const float* bout, const float* masks,
-                                float* part, float* dhz_part, float* wacc, float* dw, float* dhz,
-                                int B, int N, int K, int H, int NH1, float cap, int bf16,
-                                int blocks, void* stream) {
-  if (B <= 0 || N <= 0 || K <= 0 || NH1 < 0 || blocks <= 0) return (int)cudaErrorInvalidValue;
-  if (!bf16 || H != 256) return (int)cudaErrorInvalidValue;
-  return (int)launch_bwd_stream<bf16_t, 256>(y, dy, dld, hz, wx, wh, bh, wout, bout, masks, part,
-                                             dhz_part, wacc, dw, dhz, B, N, K, NH1, cap, blocks,
-                                             static_cast<cudaStream_t>(stream));
 }
 
 // The f32 layout (flow_f32.cuh): points per forward block or backward tile,
@@ -1489,11 +1058,18 @@ int dpfx_fused_train_f32_bwd(float* y, float* dy, const float* dld, const float*
 // of one CTA (for any shape: a plan past the limit reports its size), and
 // the two launches on `clusters` clusters of H / 64 CTAs. fwd's carry is
 // [H / 64, B, 4, N] f32 scratch and ld_part [B, ceil(N / T)]; bwd's carry
-// [H / 64, B, 9, N], part [clusters, K, per_layer], dhz_part [B, ceil(N /
-// T), K, H]; bwd reads u, du and writes y (the rebuilt input) and dx. fwd
-// takes at most one cluster per group of 4 tiles.
+// [H / 64, B, 9, N], part [clusters, K, cluster_part_row], dw [K,
+// cluster_part_row], dhz_part [B, ceil(N / T), K, H]; bwd reads u, du and
+// writes y (the rebuilt input) and dx. fwd takes at most one cluster per
+// group of the plan's G tiles, bwd one per tile.
 int dpfx_fused_train_cluster_tile_points(int H, int NH1, int backward) {
   return cluster_plan(H, NH1, backward != 0).T;
+}
+
+// floats of a cluster's partial of one layer (padded where dWh adds into
+// the slice tile by tile)
+int dpfx_fused_train_cluster_part_row(int H, int NH1) {
+  DPFX_DISPATCH_CLUSTER(H, NH1, (cluster_part_row(HH, NN, Cl<HH, NN, true>::SPILL > 0)))
 }
 
 int dpfx_fused_train_cluster_smem_bytes(int H, int NH1, int backward) {

@@ -38,8 +38,9 @@ weights in bf16 runs the cluster inverse (``inv_cluster`` in
 ``csrc/flow_cluster.cuh``: a layer split across a thread-block cluster of
 H / 64 CTAs, on the training forward's (s, t) code) at the shapes where the
 training kernels take their cluster layout (``fused_train.uses_cluster``)
-but ``ROWS_KEPT``; every other bf16 case (the int8 mode, the other
-activations, the shapes a block holds) runs ``rows_kernel``.
+and the inverse is built (``CLUSTER_INVERSE``) but ``ROWS_KEPT``; every
+other bf16 case (the int8 mode, the other activations, the shapes a block
+holds, H=256 with n_hidden 4) runs ``rows_kernel``.
 """
 
 from __future__ import annotations
@@ -348,17 +349,22 @@ def _cluster_grid(hidden: int, n_hidden_m1: int, device_index: int) -> int:
 # 1.585 / 2.163 ms against 2.616 / 3.745 on an H100): the inverse stays on
 # rows_kernel there; chip_smoke.py phase 3l times both at each shape
 ROWS_KEPT: Tuple[Tuple[int, int], ...] = ((128, 2), (128, 3))
+# the shapes (H, n_hidden - 1) csrc/fused_sampler.cu builds inv_cluster for:
+# those whose training forward stages whole layers (not H=256 with n_hidden
+# 4, whose forward streams its slabs through the ring)
+CLUSTER_INVERSE: Tuple[Tuple[int, int], ...] = ((128, 2), (128, 3), (256, 1), (256, 2))
 
 
 def inverse_layout(hidden: int, n_hidden_m1: int, dtype: torch.dtype,
                    activation: str = "relu", int8: bool = False) -> str:
     """The layout that runs the inverse: "f32" (``f32_kernel``), "cluster"
-    (``inv_cluster``: bf16, relu, weights in bf16, at the shapes where
-    ``fused_train.uses_cluster`` holds, but ``ROWS_KEPT``) or "rows"
-    (``rows_kernel``: every other bf16 case)."""
+    (``inv_cluster``: bf16, relu, weights in bf16, at the shapes of
+    ``CLUSTER_INVERSE`` where ``fused_train.uses_cluster`` holds, but
+    ``ROWS_KEPT``) or "rows" (``rows_kernel``: every other bf16 case)."""
     if dtype != torch.bfloat16:
         return "f32"
-    if activation != "relu" or int8 or (hidden, n_hidden_m1) in ROWS_KEPT:
+    if (activation != "relu" or int8 or (hidden, n_hidden_m1) in ROWS_KEPT
+            or (hidden, n_hidden_m1) not in CLUSTER_INVERSE):
         return "rows"
     from dpfx_torch.ops import fused_train   # imports this module
 

@@ -30,8 +30,7 @@ Layouts, chosen from the shapes for the forward and the backward together
 streamed with cp.async); else the mma layout (bf16) or the block-wide one
 (f32) where a block holds the shape; else, in bf16, the cluster layout
 (``csrc/flow_cluster.cuh``: one layer split across a thread-block cluster
-of H / 64 CTAs) where its plan fits (``uses_cluster``); else the stream
-layout (bf16 at H=256 with n_hidden 4).
+of H / 64 CTAs; ``uses_cluster``).
 """
 
 from __future__ import annotations
@@ -58,7 +57,7 @@ Tensor = torch.Tensor
 # kernel launches per wrapper; chip_smoke.py zeroes these around the main path
 launches: Dict[str, int] = {"fused_train_fwd": 0, "fused_train_bwd": 0}
 # the same launches by the layout that ran them ("parent": mma or block-wide)
-LAYOUTS = ("parent", "cluster", "stream", "f32")
+LAYOUTS = ("parent", "cluster", "f32")
 layout_launches: Dict[str, int] = {f"{lay}_{d}": 0 for lay in LAYOUTS for d in ("fwd", "bwd")}
 
 
@@ -70,10 +69,9 @@ def reset_launch_counts() -> None:
 
 MAX_HIDDEN = KERNEL_HIDDEN[-1]
 MAX_N_HIDDEN = 4       # conditioner depths every width takes
-# widths past whose depths the mma and block-wide layouts overflow: the
-# stream layout is built for bf16 at H=256 only (the mma and cluster layouts
-# take every bf16 shape at H=128), the f32 layout for both
-STREAM_HIDDEN = (128, 256)
+# widths past whose depths the mma and block-wide layouts overflow, where the
+# cluster (bf16) and f32 layouts take the deeper conditioners
+WIDE_HIDDEN = (128, 256)
 CLUSTER_COLUMNS = 64   # hidden columns each CTA of a cluster owns
 # deeper conditioners where the mma (bf16) or block-wide (f32) layouts hold
 # the forward and the backward: the deepest n_hidden they take at each
@@ -230,9 +228,10 @@ def _cluster_lib() -> ctypes.CDLL:
     lib.dpfx_fused_train_cluster_smem_bytes.argtypes = [i, i, i]
     lib.dpfx_fused_train_cluster_tile_points.argtypes = [i, i, i]
     lib.dpfx_fused_train_cluster_grid.argtypes = [i, i, i]
+    lib.dpfx_fused_train_cluster_part_row.argtypes = [i, i]
     for fn in (lib.dpfx_fused_train_cluster_fwd, lib.dpfx_fused_train_cluster_bwd,
                lib.dpfx_fused_train_cluster_smem_bytes, lib.dpfx_fused_train_cluster_tile_points,
-               lib.dpfx_fused_train_cluster_grid):
+               lib.dpfx_fused_train_cluster_grid, lib.dpfx_fused_train_cluster_part_row):
         fn.restype = ctypes.c_int
     lib.dpfx_fused_train_error_string.argtypes = [i]
     lib.dpfx_fused_train_error_string.restype = ctypes.c_char_p
@@ -243,44 +242,23 @@ def _error_text(err: int) -> str:
     return _cluster_lib().dpfx_fused_train_error_string(err).decode()
 
 
-@functools.lru_cache(maxsize=None)
-def _stream_lib() -> ctypes.CDLL:
-    """The stream layout's entry points (a library built before it has
-    none: the flagship's path never asks for them)."""
-    lib = _lib()
-    p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    lib.dpfx_fused_train_stream_fwd.argtypes = lib.dpfx_fused_train_fwd.argtypes
-    lib.dpfx_fused_train_stream_bwd.argtypes = [
-        p, p, p, p,                   # y, dy, dld, hz
-        p, p, p, p, p, p,             # wx, wh, bh, wout, bout, masks
-        p, p, p, p, p,                # partials, dhz partials, dWh sums, dw out, dhz out
-        i, i, i, i, i, f, i, i, p,    # B, N, K, H, n_hidden-1, cap, bf16, blocks, stream
-    ]
-    lib.dpfx_fused_train_stream_smem_bytes.argtypes = [i, i, i, i]
-    lib.dpfx_fused_train_stream_tile_points.argtypes = [i, i, i, i]
-    for fn in (lib.dpfx_fused_train_stream_fwd, lib.dpfx_fused_train_stream_bwd,
-               lib.dpfx_fused_train_stream_smem_bytes, lib.dpfx_fused_train_stream_tile_points):
-        fn.restype = ctypes.c_int
-    return lib
-
-
-def uses_stream(hidden: int, n_hidden_m1: int, dtype: torch.dtype) -> bool:
+def overflows_block(hidden: int, n_hidden_m1: int, dtype: torch.dtype) -> bool:
     """Whether the mma (bf16) or block-wide (f32) layout of the forward or
     the backward overflows a block's shared memory (the layout is chosen
     for both together, so that the backward's recompute is the forward's
-    arithmetic): then the cluster layout takes the shape where it is built
-    for it (``uses_cluster``), else the stream layout."""
+    arithmetic): then the cluster layout takes the shape in bf16
+    (``uses_cluster``)."""
     return any(smem_bytes(hidden, n_hidden_m1, dtype, bwd) > SMEM_LIMIT for bwd in (False, True))
 
 
 def uses_cluster(hidden: int, n_hidden_m1: int, dtype: torch.dtype) -> bool:
     """The cluster layout: the bf16 shapes at H = 128 and 256 with n_hidden
-    <= ``MAX_N_HIDDEN`` that ``uses_stream`` sends past the mma layout and
-    whose cluster plan fits a block forward and backward, by the library's
-    ``dpfx_fused_train_cluster_smem_bytes`` (H=128 with n_hidden 3-4, H=256
-    with n_hidden 2-3)."""
-    if (dtype != torch.bfloat16 or hidden not in STREAM_HIDDEN
-            or n_hidden_m1 >= MAX_N_HIDDEN or not uses_stream(hidden, n_hidden_m1, dtype)):
+    <= ``MAX_N_HIDDEN`` that ``overflows_block`` sends past the mma layout
+    and whose cluster plan fits a block forward and backward, by the
+    library's ``dpfx_fused_train_cluster_smem_bytes`` (H=128 with n_hidden
+    3-4, H=256 with n_hidden 2-4)."""
+    if (dtype != torch.bfloat16 or hidden not in WIDE_HIDDEN
+            or n_hidden_m1 >= MAX_N_HIDDEN or not overflows_block(hidden, n_hidden_m1, dtype)):
         return False
     need = _cluster_lib().dpfx_fused_train_cluster_smem_bytes
     return all(need(hidden, n_hidden_m1, bwd) <= SMEM_LIMIT for bwd in (0, 1))
@@ -320,7 +298,7 @@ def uses_f32(hidden: int, n_hidden_m1: int, dtype: torch.dtype) -> bool:
     where the block-wide pair fits but timed slower in turns:
     ``python -m dpfx_torch.tools.bwd_ab PARENT --hidden 128 --dtype float32``
     against a build that routes there)."""
-    return dtype == torch.float32 and hidden in STREAM_HIDDEN and n_hidden_m1 < MAX_N_HIDDEN
+    return dtype == torch.float32 and hidden in WIDE_HIDDEN and n_hidden_m1 < MAX_N_HIDDEN
 
 
 def _tiles(n: int, dtype: torch.dtype, backward: bool, layout: str,
@@ -329,9 +307,7 @@ def _tiles(n: int, dtype: torch.dtype, backward: bool, layout: str,
     forward block or per backward tile of ``layout`` (``_layout``'s names;
     ``shape`` is (H, n_hidden-1))."""
     bf, bw = int(dtype == torch.bfloat16), int(backward)
-    if layout == "stream":
-        t = _stream_lib().dpfx_fused_train_stream_tile_points(*shape, bf, bw)
-    elif layout == "f32":
+    if layout == "f32":
         t = _f32_lib().dpfx_fused_train_f32_tile_points(*shape, bw)
     elif layout == "cluster":
         t = _cluster_lib().dpfx_fused_train_cluster_tile_points(*shape, bw)
@@ -364,8 +340,8 @@ def _check(wx: Tensor, dtype: torch.dtype, tensors: Dict[str, Tensor]) -> None:
 
 
 def _layout(h: int, nh1: int, dtype: torch.dtype, backward: bool) -> str:
-    """The layout that runs ("parent": mma or block-wide, "cluster",
-    "stream", "f32"); raises where none fits."""
+    """The layout that runs ("parent": mma or block-wide, "cluster", "f32");
+    raises where none fits."""
     if uses_f32(h, nh1, dtype):
         need = _f32_lib().dpfx_fused_train_f32_smem_bytes(h, nh1, int(backward))
         if need > SMEM_LIMIT:
@@ -373,22 +349,13 @@ def _layout(h: int, nh1: int, dtype: torch.dtype, backward: bool) -> str:
                              f"memory in the f32 layout, more than the {SMEM_LIMIT} B a block "
                              f"may use")
         return "f32"
-    if not uses_stream(h, nh1, dtype):
+    if not overflows_block(h, nh1, dtype):
         return "parent"
     if uses_cluster(h, nh1, dtype):
         return "cluster"
-    if dtype != torch.bfloat16 or h != STREAM_HIDDEN[-1]:
-        raise ValueError(f"hidden={h}, n_hidden={nh1 + 1} in {dtype} overflows the shared memory "
-                         f"of the mma and block-wide layouts and is not a shape of the cluster "
-                         f"or f32 layouts, and the stream layout is built for bf16 at hidden "
-                         f"{STREAM_HIDDEN[-1]}")
-    need = _stream_lib().dpfx_fused_train_stream_smem_bytes(h, nh1, int(dtype == torch.bfloat16),
-                                                            int(backward))
-    if need > SMEM_LIMIT:
-        raise ValueError(f"hidden={h}, n_hidden={nh1 + 1} in {dtype} needs {need} B of shared "
-                         f"memory in the stream layout, more than the {SMEM_LIMIT} B a block "
-                         f"may use")
-    return "stream"
+    raise ValueError(f"hidden={h}, n_hidden={nh1 + 1} in {dtype} overflows the shared memory "
+                     f"of the mma and block-wide layouts and is not a shape of the cluster or "
+                     f"f32 layouts")
 
 
 def _weights(wx, wh, wout, dtype):
@@ -440,10 +407,9 @@ def fused_forward_kernel(wx, wh, bh, wout, bout, masks, cap, xt, hz, dtype):
                 xt.data_ptr(), hz.data_ptr(), u.data_ptr(), ld_part.data_ptr(), *weights,
                 b, n, k, h, nh1, float(cap), stream)
         else:
-            fwd = (_stream_lib().dpfx_fused_train_stream_fwd if layout == "stream"
-                   else _lib().dpfx_fused_train_fwd)
-            err = fwd(xt.data_ptr(), hz.data_ptr(), u.data_ptr(), ld_part.data_ptr(), *weights,
-                      b, n, k, h, nh1, float(cap), int(dtype == torch.bfloat16), stream)
+            err = _lib().dpfx_fused_train_fwd(
+                xt.data_ptr(), hz.data_ptr(), u.data_ptr(), ld_part.data_ptr(), *weights,
+                b, n, k, h, nh1, float(cap), int(dtype == torch.bfloat16), stream)
     if err != 0:
         raise RuntimeError(f"fused train forward kernel launch failed ({layout} layout): "
                            f"cudaError {err} ({_error_text(err)})")
@@ -456,7 +422,8 @@ def _backward_call(wx, wh, bh, wout, bout, masks, cap, u, hz, du, dld, dtype):
     """Launch the backward kernel and the reductions of its partials.
     Returns (y, dx, dw, dhz): y is the layer input the kernel rebuilt last
     (the flow's input, rebuilt from u), dw the [K, per-layer] gradients (the
-    f32 layout pads a layer's row to a multiple of 4 floats at its end)."""
+    f32 layout and the cluster layout's walk pad a layer's row to a multiple
+    of 4 floats at its end)."""
     k, h, _ = wx.shape
     nh1 = wh.shape[1]
     b, _, n = u.shape
@@ -470,6 +437,8 @@ def _backward_call(wx, wh, bh, wout, bout, masks, cap, u, hz, du, dld, dtype):
     per_layer = 3 * h + nh1 * h * h + nh1 * h + 6 * h + 6
     if layout == "f32":   # each layer's partial padded to a multiple of 4 floats
         per_layer = _f32_lib().dpfx_fused_train_f32_part_row(h, nh1)
+    elif layout == "cluster":   # padded where the backward walks
+        per_layer = _cluster_lib().dpfx_fused_train_cluster_part_row(h, nh1)
     part = torch.empty((blocks, k, per_layer), device=dev, dtype=torch.float32)
     dhz_part = torch.empty((b, nt, k, h), device=dev, dtype=torch.float32)
     dw = torch.empty((k, per_layer), device=dev, dtype=torch.float32)
@@ -494,16 +463,10 @@ def _backward_call(wx, wh, bh, wout, bout, masks, cap, u, hz, du, dld, dtype):
                 b, n, k, h, nh1, float(cap), blocks, stream)
         else:
             y, dx = u.clone(), du.clone()
-            ptrs = [y.data_ptr(), dx.data_ptr(), dld.data_ptr(), hz.data_ptr(), *weights,
-                    part.data_ptr(), dhz_part.data_ptr()]
-            if layout == "stream":
-                # the stream layout's per-block dWh sums (L2-resident scratch)
-                wacc = torch.empty((blocks, nh1, h, h), device=dev, dtype=torch.float32)
-                ptrs.append(wacc.data_ptr() if nh1 else None)
-            bwd = (_stream_lib().dpfx_fused_train_stream_bwd if layout == "stream"
-                   else _lib().dpfx_fused_train_bwd)
-            err = bwd(*ptrs, dw.data_ptr(), dhz.data_ptr(),
-                      b, n, k, h, nh1, float(cap), int(dtype == torch.bfloat16), blocks, stream)
+            err = _lib().dpfx_fused_train_bwd(
+                y.data_ptr(), dx.data_ptr(), dld.data_ptr(), hz.data_ptr(), *weights,
+                part.data_ptr(), dhz_part.data_ptr(), dw.data_ptr(), dhz.data_ptr(),
+                b, n, k, h, nh1, float(cap), int(dtype == torch.bfloat16), blocks, stream)
     if err != 0:
         raise RuntimeError(f"fused train backward kernel launch failed ({layout} layout): "
                            f"cudaError {err} ({_error_text(err)})")

@@ -3,15 +3,17 @@ checkout's, on the card: the SASS of one kernel from both builds compared
 line by line, and the kernel's wrapper timed in turns.
 
     python -m dpfx_torch.tools.bwd_ab PARENT [--library fused_train|fused_sampler]
-        [--kernel NAME] [--turns 8] [--out DIR] [--hidden H [--n-hidden L]
-        [--dtype bfloat16|float32]]
+        [--kernel NAME ...] [--turns 8] [--out DIR] [--hidden H [--n-hidden L]
+        [--dtype bfloat16|float32]] [--shape H:L ...]
 
 PARENT is the root of another checkout (``git archive <commit> | tar -x -C
 <dir>``). Both ``csrc/<library>.cu`` are built with the flags of
 ``dpfx_torch/ops/_build.py`` into ``build/bwd_ab/``, all at once, and
-disassembled with ``cuobjdump -sass``; the count of differing lines leaves
-out addresses, encodings and the lines that name a branch target, which
-move whenever code above them does. Then the wrapper runs on each library
+disassembled with ``cuobjdump -sass``; for each kernel named (``--kernel``
+as often as wanted) ptxas' registers and spills of both builds and the
+count of differing SASS lines, which leaves out addresses, encodings and
+the lines that name a branch target (they move whenever code above them
+does). Then the wrapper runs on each library
 in turn, the order reversed every other turn, and both must give the same
 bits: for ``fused_train`` (kernel by default ``bwd_kernel_mma<128>``)
 ``fused_backward_kernel`` at B=64, N=2048, K=32, H=128 in bf16, for
@@ -24,15 +26,22 @@ With ``--hidden H`` (``fused_train``; ``--n-hidden``, default 2) both
 ``fused_forward_kernel`` and ``fused_backward_kernel`` run at B=64, N=2048,
 K=32 on a point flow of that width (seeded random weights, scaled by
 sqrt(128 / H)), each build on the layout this tree's wrapper takes with
-it: the cluster layout where the build has it, else (a parent built
-before the cluster layout) the layout that parent's wrapper took, the
-stream layout wherever a block overflows.
-Where the two layouts are the same the bits must be too; where they
-differ, each build's outputs are held to the plain versions at the bf16
-limits of chip_smoke.py's phase 2 (u: max 5e-2 and p99.9 2e-3 absolute,
-log-det and gradients 2e-2 of their norms) and each must repeat its own
-bits from call to call. The kernel disassembled is then the tree's
-layout's backward, its SASS compared only where both builds have it.
+it where the build holds the shape there, else on the layout that build's
+wrapper took: the stream layout (a build that has it) wherever a block
+overflows and the build's cluster or f32 layout does not take the shape;
+this tool calls such a build's stream entry points itself. ``--shape H:L``
+(as often as wanted, in place of ``--hidden`` and ``--n-hidden``) runs the
+same at each (H, n_hidden) on the one pair of builds.
+Each build's outputs are held to the plain versions at the bf16 limits of
+chip_smoke.py's phase 2 (u: max 5e-2 and p99.9 2e-3 absolute, log-det and
+gradients 2e-2 of their norms) and each must repeat its own bits from call
+to call. Where the two layouts are the same, u and dx (per-point sums)
+must have the same bits, the log-det too where both forwards take the
+same points per tile, dhz and the weight gradients where both backwards
+do, dWh only where they also sum it the same way (the same partial row:
+a cluster backward on the ring pads it). The kernels disassembled are then
+the tree's layouts' backward and forward at each shape, their SASS
+compared only where both builds have them.
 
 With ``--dtype float32`` the same in f32: a build without the f32 layout
 runs the layout its wrapper took (the stream layout wherever the
@@ -118,7 +127,7 @@ def ptxas_of(log: str, kernel: str) -> Optional[Tuple[int, int, int, int]]:
     return tuple(int(v) for v in m.groups()) if m else None
 
 
-def _build_both(parent: Path, kernel: str, library: str):
+def _build_both(parent: Path, kernels: List[str], library: str):
     from dpfx_torch.ops import _build
 
     here = Path(__file__).resolve().parents[1] / "ops" / "csrc"
@@ -139,20 +148,33 @@ def _build_both(parent: Path, kernel: str, library: str):
         if p.returncode:
             raise RuntimeError(f"nvcc failed for the {name}'s {library}.cu:\n{log[-3000:]}")
         so = root / name / f"lib{library}.so"
-        print(f"{name} {kernel} ptxas (stack, spill stores, spill loads, registers): "
-              f"{ptxas_of(log, kernel)}", flush=True)
-        sass[name] = kernel_sass(subprocess.run([tool, "-sass", str(so)], capture_output=True,
-                                                text=True, check=True).stdout, kernel)
+        text = subprocess.run([tool, "-sass", str(so)], capture_output=True, text=True,
+                              check=True).stdout
+        for kernel in kernels:
+            print(f"{name} {kernel} ptxas (stack, spill stores, spill loads, registers): "
+                  f"{ptxas_of(log, kernel)}", flush=True)
+            sass[name, kernel] = kernel_sass(text, kernel)
         libs[name] = ctypes.CDLL(str(so))
     return libs, sass
+
+
+def _shape(text: str) -> Tuple[int, int]:
+    """--shape's H:L as (H, n_hidden)."""
+    try:
+        h, nh = (int(v) for v in text.split(":"))
+    except ValueError:
+        raise argparse.ArgumentTypeError(f"{text!r} is not H:L") from None
+    return h, nh
 
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("parent", type=Path, help="the root of the checkout to compare with")
     ap.add_argument("--library", choices=sorted(KERNELS), default="fused_train")
-    ap.add_argument("--kernel", help="a part of the mangled kernel name (default: the "
-                                     "library's in KERNELS)")
+    ap.add_argument("--kernel", action="append",
+                    help="a part of a mangled kernel name, as often as wanted (default: the "
+                         "library's in KERNELS; with --hidden or --shape, the layouts' "
+                         "kernels)")
     ap.add_argument("--turns", type=int, default=8)
     ap.add_argument("--out", type=Path, help="a directory for both disassemblies")
     ap.add_argument("--hidden", type=int, help="time the forward and the backward "
@@ -161,9 +183,14 @@ def main(argv=None) -> int:
     ap.add_argument("--n-hidden", type=int, default=2)
     ap.add_argument("--dtype", choices=("bfloat16", "float32"), default="bfloat16",
                     help="the compute dtype of the width mode (fused_train)")
+    ap.add_argument("--shape", action="append", default=[], type=_shape,
+                    help="H:L, a width and n_hidden of the width mode (as often as wanted)")
     a = ap.parse_args(argv)
     sampler = a.library == "fused_sampler"
-    kernel = a.kernel or (FLAGSHIP_SAMPLER if a.hidden and sampler else KERNELS[a.library])
+    shapes = list(a.shape)
+    if a.hidden:
+        shapes.insert(0, (a.hidden, a.n_hidden))
+    kernels = a.kernel or [FLAGSHIP_SAMPLER if shapes and sampler else KERNELS[a.library]]
 
     import torch
 
@@ -179,28 +206,37 @@ def main(argv=None) -> int:
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                           capture_output=True, text=True).stdout.strip()
     print(card, flush=True)
-    if a.hidden and not a.kernel and not sampler:
-        kernel = _layout_kernel(ft, fs.kernel_hidden(a.hidden), a.n_hidden - 1,
-                                getattr(torch, a.dtype))
-    libs, sass = _build_both(a.parent, kernel, a.library)
-    if a.out:
-        a.out.mkdir(parents=True, exist_ok=True)
-        for name, text in sass.items():
-            (a.out / f"{name}.sass").write_text(text)
-    missing = [n for n, text in sass.items() if not text]
-    if missing and not (a.hidden and not sampler):
-        print(f"no function matching {kernel!r} in the {' and '.join(missing)}'s build",
-              file=sys.stderr)
-        return 1
-    if missing:
-        print(f"{kernel}: not in the {' and '.join(missing)}'s build, SASS not compared",
-              flush=True)
-    else:
-        pn, tn = normalized(sass["parent"]), normalized(sass["tree"])
-        print(f"{kernel}: {len(pn)} and {len(tn)} instructions (branch targets aside), "
-              f"{differing(pn, tn)} lines differ", flush=True)
-    if a.hidden:
-        return (_ab_sampler if sampler else _ab_width)(a, libs, card)
+    if shapes and not a.kernel and not sampler:
+        kernels = []
+        for h, nh in shapes:
+            bwd_name = _layout_kernel(ft, fs.kernel_hidden(h), nh - 1, getattr(torch, a.dtype))
+            fwd_name = _forward_kernel(bwd_name)
+            kernels += [kn for kn in (bwd_name, fwd_name) if kn and kn not in kernels]
+    libs, sass = _build_both(a.parent, kernels, a.library)
+    for kernel in kernels:
+        if a.out:
+            a.out.mkdir(parents=True, exist_ok=True)
+            for name in libs:
+                (a.out / f"{name}_{kernel}.sass").write_text(sass[name, kernel])
+        missing = [n for n in libs if not sass[n, kernel]]
+        if missing and not (shapes and not sampler):
+            print(f"no function matching {kernel!r} in the {' and '.join(missing)}'s build",
+                  file=sys.stderr)
+            return 1
+        if missing:
+            print(f"{kernel}: not in the {' and '.join(missing)}'s build, SASS not compared",
+                  flush=True)
+        else:
+            pn, tn = normalized(sass["parent", kernel]), normalized(sass["tree", kernel])
+            print(f"{kernel}: {len(pn)} and {len(tn)} instructions (branch targets aside), "
+                  f"{differing(pn, tn)} lines differ", flush=True)
+    for h, nh in shapes:
+        a.hidden, a.n_hidden = h, nh
+        rc = (_ab_sampler if sampler else _ab_width)(a, libs, card)
+        if rc:
+            return rc
+    if shapes:
+        return 0
 
     dev, bf = torch.device("cuda"), torch.bfloat16
     g = torch.Generator(device=dev).manual_seed(3)
@@ -265,9 +301,15 @@ def _layout_kernel(ft, h: int, nh1: int, dtype=None) -> str:
         return f"bwd_kernelILi{h}E"
     if ft.uses_cluster(h, nh1, torch.bfloat16):
         return f"bwd_clusterILi{h}ELi{nh1}E"
-    if ft.uses_stream(h, nh1, torch.bfloat16):
-        return f"bwd_streamI13__nv_bfloat16Li{h}E"
     return f"bwd_kernel_mmaILi{h}E"
+
+
+def _forward_kernel(backward: str) -> Optional[str]:
+    """The forward of the layout whose backward is ``backward`` (mangled
+    name part), None for the f32 layout (``bwd_f32<H, T>``)."""
+    if backward.startswith("bwd_f32"):
+        return None
+    return "fwd" + backward[3:]
 
 
 # f32: a build may part from the f64 run of the plain version by this many
@@ -311,38 +353,52 @@ def _ab_width(a, libs, card: str) -> int:
         u64 = ft.fused_forward_plain(*w64, xt.double(), hz.double(), torch.float64)[0]
         ref64 = ft.fused_backward_plain(*w64, u_p.double(), hz.double(), du.double(),
                                         dld.double(), torch.float64)
-    fwd = lambda: ft.fused_forward_kernel(*w, xt, hz, dt)  # noqa: E731
-    bwd = lambda: ft.fused_backward_kernel(*w, u_p, hz, du, dld, dt)  # noqa: E731
     layout_of = ft._layout
     layouts = {"parent": None, "tree": None}
     tiles = {"parent": None, "tree": None}
+    rows = {"parent": None, "tree": None}
+    l2 = {}
+    fwd = lambda: (_stream_forward(libs[cur[0]], w, xt, hz, dt)  # noqa: E731
+                   if layouts[cur[0]] == "stream" else ft.fused_forward_kernel(*w, xt, hz, dt))
+    bwd = lambda: (_stream_backward(libs[cur[0]], w, u_p, hz, du, dld, dt)  # noqa: E731
+                   if layouts[cur[0]] == "stream"
+                   else ft.fused_backward_kernel(*w, u_p, hz, du, dld, dt))
+    cur = [None]
 
-    def before_cluster(h, n_m1, dtype, backward):
-        # a build before the cluster layout: its wrapper took the stream
-        # layout (bf16 at H=128 too) wherever a block overflows
-        return "stream" if ft.uses_stream(h, n_m1, dtype) else "parent"
-
-    def before_f32(h, n_m1, dtype, backward):
-        # a build before the f32 layout: the stream layout in f32 wherever
-        # the block-wide one overflows
-        if dtype == torch.float32:
-            return before_cluster(h, n_m1, dtype, backward)
+    def route(h, n_m1, dtype, backward):
+        # a build without this tree's layout for the dtype (cluster in
+        # bf16, f32 in f32), or whose cluster plan does not hold the
+        # shape, took the stream layout wherever a block overflows
+        lib = _build._loaded["fused_train"]
+        newer = "dpfx_fused_train_f32_fwd" if dtype == torch.float32 else \
+            "dpfx_fused_train_cluster_fwd"
+        if not hasattr(lib, newer):
+            return "stream" if ft.overflows_block(h, n_m1, dtype) else "parent"
+        if (dtype == torch.bfloat16 and hasattr(lib, "dpfx_fused_train_stream_fwd")
+                and ft.overflows_block(h, n_m1, dtype) and not ft.uses_cluster(h, n_m1, dtype)):
+            return "stream"
         return layout_of(h, n_m1, dtype, backward)
 
     def use(name):
-        for fn in (ft._lib, ft._stream_lib, ft._cluster_lib, ft._cluster_grid, ft._f32_lib):
+        for fn in (ft._lib, ft._cluster_lib, ft._cluster_grid, ft._f32_lib):
             fn.cache_clear()
-        _build._loaded["fused_train"] = libs[name]
-        if hasattr(libs[name], "dpfx_fused_train_f32_fwd"):
-            ft._layout = layout_of
-        elif hasattr(libs[name], "dpfx_fused_train_cluster_fwd"):
-            ft._layout = before_f32
-        else:
-            ft._layout = before_cluster
-        layouts[name] = ft._layout(kh, nh1, dt, True)
-        # points a forward block and a backward tile take
-        tiles[name] = tuple((1 << 20) // ft._tiles(1 << 20, dt, bw, layouts[name], (kh, nh1))
+        lib = libs[name]
+        if hasattr(lib, "dpfx_fused_train_cluster_fwd") and not hasattr(
+                lib, "dpfx_fused_train_cluster_part_row"):
+            # a build before the walk: its partial rows are not padded
+            lib.dpfx_fused_train_cluster_part_row = _unpadded_row
+        _build._loaded["fused_train"] = lib
+        cur[0] = name
+        layouts[name] = route(kh, nh1, dt, True)
+        # points a forward block and a backward tile take, the partial row
+        tiles[name] = tuple(_tile_points(lib, ft, dt, bw, layouts[name], (kh, nh1))
                             for bw in (False, True))
+        rows[name] = (lib.dpfx_fused_train_cluster_part_row(kh, nh1)
+                      if layouts[name] == "cluster" else _unpadded_row(kh, nh1))
+        if layouts[name] == "cluster":
+            ring = rows[name] != _unpadded_row(kh, nh1)
+            l2[name] = _cluster_l2_bytes(kh, nh1, b, n, k, tiles[name][1],
+                                         ft._cluster_grid(kh, nh1, True, 0), ring)
 
     def rel(x, r):
         return float((x.double() - r.double()).norm() / r.double().norm().clamp_min(1e-12))
@@ -403,20 +459,33 @@ def _ab_width(a, libs, card: str) -> int:
                     torch.cuda.synchronize()
                     times[name][key].append(round(start.elapsed_time(end) / calls, 4))
     finally:
-        ft._layout = layout_of
-        for fn in (ft._lib, ft._stream_lib, ft._cluster_lib, ft._cluster_grid, ft._f32_lib):
+        for fn in (ft._lib, ft._cluster_lib, ft._cluster_grid, ft._f32_lib):
             fn.cache_clear()
         _build._loaded.pop("fused_train", None)
     medians = {nm: {kk: round(statistics.median(v), 4) for kk, v in t.items()}
                for nm, t in times.items()}
     fp, ft_ = firsts["parent"], firsts["tree"]
     if not f32:
+        # on one layout: the per-point sums always, the sums over a tile's
+        # points where both take the same tiles, dWh where both also sum it
+        # the same way (the ring's backward pads the partial row)
         same = layouts["parent"] == layouts["tree"]
-        if same and not all(torch.equal(x, y) for x, y in zip(fp, ft_)):
-            print("the two builds differ on the same layout", file=sys.stderr)
+        same_fwd = same and tiles["parent"][0] == tiles["tree"][0]
+        same_bwd = same and tiles["parent"][1] == tiles["tree"][1]
+        names = ["u", "log-det", "dx", "dhz", "dwx", "dwh", "dbh", "dwout", "dbout"]
+        want = dict(zip(names, [same, same_fwd, same, same_bwd, same_bwd,
+                                same_bwd and rows["parent"] == rows["tree"], same_bwd, same_bwd,
+                                same_bwd]))
+        got = {nm: torch.equal(x, y) for nm, x, y in zip(names, fp, ft_)}
+        print("the two builds' bits (same, where the arithmetic is the same): "
+              + json.dumps({kk: f"{got[kk]} (required: {want[kk]})" for kk in names}),
+              flush=True)
+        if any(want[kk] and not got[kk] for kk in names):
+            print("the two builds differ where their arithmetic is the same", file=sys.stderr)
             return 1
-        verdict = ("same bits" if same else "each within the plain versions' limits, same bits "
-                                            "run to run")
+        verdict = ("same bits" if all(got.values()) else
+                   "each within the plain versions' limits, same bits run to run, the same bits "
+                   "where the arithmetic is the same")
     else:
         # the same arithmetic: u always; the log-det at the same points per
         # forward block; the gradients at the same backward tile in the
@@ -442,11 +511,115 @@ def _ab_width(a, libs, card: str) -> int:
                   f"sampler (f32_kernel) on the same hz: median {float(e.median()):.3e} max "
                   f"{float(e.max()):.3e}", flush=True)
         verdict = "same bits where the arithmetic is the same, each held to the f64 run"
+    for name, (slabs, slices) in l2.items():
+        print(f"{name}'s cluster backward, modelled L2 traffic (not measured): Wh slabs read "
+              f"{slabs / 1e9:.2f} GB, dWh slices read and written {slices / 1e9:.2f} GB", flush=True)
     print(f"fused_forward_kernel / fused_backward_kernel B={b} N={n} K={k} H={a.hidden}->{kh} "
           f"n_hidden={a.n_hidden} {a.dtype}, layouts {json.dumps(layouts)}, points a forward "
           f"block / backward tile {json.dumps(tiles)}, ms in turns ({card}): {json.dumps(times)}; "
           f"medians {json.dumps(medians)}; {verdict}")
     return 0
+
+
+def _cluster_l2_bytes(h: int, nh1: int, b: int, n: int, k: int, t: int, clusters: int,
+                      ring: bool) -> Tuple[int, int]:
+    """The cluster backward's weight traffic through L2, from its design
+    (not a measurement): each CTA reads its row and column slab of every
+    matrix (64 x H bf16 each) once a layer on whole-layer stages, once a
+    tile on the ring; on the ring it also reads and writes its slice (H x
+    64 f32) of each matrix the registers do not hold (all but 256 // H)
+    every tile but the first of its cluster, which only writes. Returns
+    (slab bytes, slice bytes)."""
+    tiles, c = b * ((n + t - 1) // t), h // 64
+    slab = 2 * nh1 * 64 * h * 2
+    if not ring:
+        return k * clusters * c * slab, 0
+    spilled = max(nh1 - 256 // h, 0) * 64 * h * 4
+    return k * tiles * c * slab, k * c * spilled * (2 * tiles - clusters)
+
+
+def _unpadded_row(h: int, nh1: int) -> int:
+    """Floats of a layer's weight-gradient partial, unpadded."""
+    return 3 * h + nh1 * h * h + nh1 * h + 6 * h + 6
+
+
+def _tile_points(lib, ft, dt, backward: bool, layout: str, shape) -> int:
+    """Points a forward block or a backward tile of ``layout`` takes in the
+    build whose library is ``lib`` (loaded)."""
+    import torch
+
+    if layout == "stream":
+        fn = lib.dpfx_fused_train_stream_tile_points
+        fn.argtypes = [ctypes.c_int] * 4
+        fn.restype = ctypes.c_int
+        return fn(*shape, int(dt == torch.bfloat16), int(backward))
+    return (1 << 20) // ft._tiles(1 << 20, dt, backward, layout, shape)
+
+
+def _stream_forward(lib, w, xt, hz, dt):
+    """A build's stream-layout forward (the layout that build's wrapper
+    took where a block overflows), called through its C interface."""
+    import torch
+
+    wx, wh, bh, wout, bout, masks, cap = w
+    k, h, _ = wx.shape
+    nh1 = wh.shape[1]
+    b, _, n = xt.shape
+    p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    fn = lib.dpfx_fused_train_stream_fwd
+    fn.argtypes = [p] * 10 + [i] * 5 + [f, i, p]
+    fn.restype = ctypes.c_int
+    bf = int(dt == torch.bfloat16)
+    t = _tile_points(lib, None, dt, False, "stream", (h, nh1))
+    u = torch.empty_like(xt)
+    ld_part = torch.empty((b, (n + t - 1) // t), device=xt.device, dtype=torch.float32)
+    cw = [v.to(dt).contiguous() for v in (wx, wh, wout)]
+    err = fn(xt.data_ptr(), hz.data_ptr(), u.data_ptr(), ld_part.data_ptr(), cw[0].data_ptr(),
+             cw[1].data_ptr() if nh1 else None, bh.data_ptr() if nh1 else None, cw[2].data_ptr(),
+             bout.data_ptr(), masks.data_ptr(), b, n, k, h, nh1, float(cap), bf,
+             torch.cuda.current_stream(xt.device).cuda_stream)
+    if err:
+        raise RuntimeError(f"the stream forward failed: cudaError {err}")
+    return u, ld_part.sum(1)
+
+
+def _stream_backward(lib, w, u, hz, du, dld, dt):
+    """A build's stream-layout backward through its C interface: (dx, dhz,
+    dwx, dwh, dbh, dwout, dbout), as ``fused_backward_kernel`` returns them."""
+    import torch
+
+    wx, wh, bh, wout, bout, masks, cap = w
+    k, h, _ = wx.shape
+    nh1 = wh.shape[1]
+    b, _, n = u.shape
+    p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    fn = lib.dpfx_fused_train_stream_bwd
+    fn.argtypes = [p] * 15 + [i] * 5 + [f, i, i, p]
+    fn.restype = ctypes.c_int
+    bf = int(dt == torch.bfloat16)
+    dev = u.device
+    t = _tile_points(lib, None, dt, True, "stream", (h, nh1))
+    nt = (n + t - 1) // t
+    blocks = min(b * nt, torch.cuda.get_device_properties(dev).multi_processor_count)
+    per_layer = _unpadded_row(h, nh1)
+    part = torch.empty((blocks, k, per_layer), device=dev, dtype=torch.float32)
+    dhz_part = torch.empty((b, nt, k, h), device=dev, dtype=torch.float32)
+    wacc = torch.empty((blocks, nh1, h, h), device=dev, dtype=torch.float32)
+    dw = torch.empty((k, per_layer), device=dev, dtype=torch.float32)
+    dhz = torch.empty((b, k, h), device=dev, dtype=torch.float32)
+    y, dx = u.clone(), du.clone()
+    cw = [v.to(dt).contiguous() for v in (wx, wh, wout)]
+    err = fn(y.data_ptr(), dx.data_ptr(), dld.data_ptr(), hz.data_ptr(), cw[0].data_ptr(),
+             cw[1].data_ptr() if nh1 else None, bh.data_ptr() if nh1 else None, cw[2].data_ptr(),
+             bout.data_ptr(), masks.data_ptr(), part.data_ptr(), dhz_part.data_ptr(),
+             wacc.data_ptr() if nh1 else None, dw.data_ptr(), dhz.data_ptr(), b, n, k, h, nh1,
+             float(cap), bf, blocks, torch.cuda.current_stream(dev).cuda_stream)
+    if err:
+        raise RuntimeError(f"the stream backward failed: cudaError {err}")
+    sizes = [3 * h, nh1 * h * h, nh1 * h, 6 * h, 6]
+    shapes = [(h, 3), (nh1, h, h), (nh1, h), (6, h), (6,)]
+    parts = torch.split(dw, sizes, dim=1)
+    return (dx, dhz, *(t.reshape(k, *sh) for t, sh in zip(parts, shapes)))
 
 
 def _ab_sampler(a, libs, card: str) -> int:

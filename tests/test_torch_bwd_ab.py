@@ -71,7 +71,7 @@ def test_main_without_cuda_exits_nonzero(tmp_path, monkeypatch):
 
 @pytest.mark.parametrize("hidden,n_hidden,want", [
     (256, 2, "bwd_clusterILi256ELi1E"), (128, 4, "bwd_clusterILi128ELi3E"),
-    (192, 3, "bwd_clusterILi256ELi2E")])
+    (192, 3, "bwd_clusterILi256ELi2E"), (256, 4, "bwd_clusterILi256ELi3E")])
 def test_width_mode_disassembles_the_cluster_backward(hidden, n_hidden, want, monkeypatch):
     """--hidden compares the SASS of the backward the tree's wrapper takes
     at that width and depth: the cluster layout's, by the mangled name
@@ -85,6 +85,28 @@ def test_width_mode_disassembles_the_cluster_backward(hidden, n_hidden, want, mo
 
     monkeypatch.setattr(ft, "uses_cluster", cluster_domain)
     assert bwd_ab._layout_kernel(ft, kernel_hidden(hidden), n_hidden - 1) == want
+
+
+@pytest.mark.parametrize("backward,forward", [
+    ("bwd_clusterILi256ELi3E", "fwd_clusterILi256ELi3E"),
+    ("bwd_kernel_mmaILi128E", "fwd_kernel_mmaILi128E"), ("bwd_kernelILi64E", "fwd_kernelILi64E"),
+    ("bwd_f32ILi256ELi64E", None)])
+def test_width_mode_also_disassembles_the_forward(backward, forward):
+    """The width mode compares each shape's forward beside its backward:
+    the layout's forward by its mangled name (the f32 layout's backward
+    names its tile, which its forward does not have: none)."""
+    assert bwd_ab._forward_kernel(backward) == forward
+
+
+def test_shapes_and_kernels_repeat(tmp_path):
+    """--shape H:L and --kernel may be given as often as wanted; without a
+    card the tool stops before building anything, a malformed shape before
+    that."""
+    args = [str(tmp_path), "--shape", "256:3", "--shape", "256:4", "--kernel", "a", "--kernel", "b"]
+    if not torch.cuda.is_available():
+        assert bwd_ab.main(args) == 1
+    with pytest.raises(SystemExit):
+        bwd_ab.main([str(tmp_path), "--shape", "256"])
 
 
 def test_width_mode_needs_the_fused_train_library(tmp_path):
@@ -129,3 +151,19 @@ def test_f32_width_mode_arguments(tmp_path):
         bwd_ab.main([str(tmp_path), "--hidden", "256", "--dtype", "float16"])
     if not torch.cuda.is_available():
         assert bwd_ab.main([str(tmp_path), "--hidden", "256", "--dtype", "float32"]) == 1
+
+
+def test_cluster_l2_model():
+    """The modelled L2 traffic of the cluster backward: whole-layer stages
+    read each CTA's slabs once a layer and cluster; the ring once a tile,
+    and there reads and writes the slices of the matrices the registers do
+    not hold (H=256: all but one; H=128: all but two) every tile but each
+    cluster's first, which only writes."""
+    slab = lambda h, nh1: 2 * nh1 * 64 * h * 2  # noqa: E731
+    assert bwd_ab._cluster_l2_bytes(256, 1, 64, 2048, 32, 128, 30, False) == (
+        32 * 30 * 4 * slab(256, 1), 0)
+    tiles = 64 * 32
+    slabs, slices = bwd_ab._cluster_l2_bytes(256, 3, 64, 2048, 32, 64, 30, True)
+    assert slabs == 32 * tiles * 4 * slab(256, 3)
+    assert slices == 32 * 4 * 2 * 64 * 256 * 4 * (2 * tiles - 30)
+    assert bwd_ab._cluster_l2_bytes(128, 2, 64, 2048, 32, 128, 60, True)[1] == 0

@@ -204,7 +204,8 @@ def test_cluster_inverse_plan_is_the_forwards(cuda):
     """The cluster inverse runs on the forward's plan (its shared memory is
     the library's cluster forward's and the mirror's), the card holds at
     least one of its clusters at every shape it is built for, and the
-    route takes it exactly at uses_cluster's bf16 shapes but ROWS_KEPT."""
+    route takes it exactly at uses_cluster's bf16 shapes that it is built
+    for (CLUSTER_INVERSE) but ROWS_KEPT."""
     from _torch_cluster_plan import cluster_plan
 
     lib = fs._cluster_lib()
@@ -215,7 +216,8 @@ def test_cluster_inverse_plan_is_the_forwards(cuda):
         assert fs._cluster_grid(h, nh1, cuda.index or 0) >= 1
     for h in fs.KERNEL_HIDDEN:
         for nh1 in range(6):
-            want = ft.uses_cluster(h, nh1, torch.bfloat16) and (h, nh1) not in fs.ROWS_KEPT
+            want = (ft.uses_cluster(h, nh1, torch.bfloat16) and (h, nh1) not in fs.ROWS_KEPT
+                    and (h, nh1) in fs.CLUSTER_INVERSE)
             assert fs.inverse_layout(h, nh1, torch.bfloat16) == ("cluster" if want else "rows")
 
 
@@ -502,9 +504,9 @@ def test_fused_train_bf16_forward_with_one_weight_stage_matches_plain(cuda, hidd
     torch.testing.assert_close(ld, ld_p, atol=1e-1, rtol=2e-2)
 
 
-# (128, 3) and (256, 2) raised here until the stream layout took them: they
-# are cases of test_fused_train_stream_layout_matches_plain now; bf16 H=128
-# past n_hidden 4 has no layout (the training predicate stops at 4)
+# (128, 3) and (256, 2) raised here until a layout past the mma one took
+# them: they are cases of test_fused_train_stream_layout_matches_plain now;
+# bf16 H=128 past n_hidden 4 has no layout (the training predicate stops at 4)
 @pytest.mark.parametrize("hidden,n_hidden", [(32, 10), (64, 5), (128, 5)])
 def test_fused_train_bf16_backward_beyond_its_shared_memory_raises(cuda, hidden, n_hidden):
     from dpfx_torch.ops import fused_train as ft
@@ -518,11 +520,11 @@ def test_fused_train_bf16_backward_beyond_its_shared_memory_raises(cuda, hidden,
 
 
 # the shapes past the mma or block-wide layout of the forward or the
-# backward (fused_train.uses_stream: the cluster layout in bf16 but at
-# H=256 with n_hidden 4, the stream layout in f32), one shape the parent
-# layouts still take at H=256 (bf16, n_hidden 1: f32 overflows), and
-# padded widths (48 -> 64, 96 -> 128: the parent layouts; 192 -> 256: the
-# cluster or stream layout); ragged N, N below a tile, one cloud
+# backward (fused_train.overflows_block: the cluster layout in bf16, the f32
+# layout in f32), one shape the parent layouts still take at H=256 (bf16,
+# n_hidden 1: f32 overflows), and padded widths (48 -> 64, 96 -> 128: the
+# parent layouts; 192 -> 256: the cluster or f32 layout); ragged N, N below
+# a tile, one cloud
 STREAM_CASES = [(128, 3, 300, 3), (128, 4, 130, 2), (256, 1, 200, 2), (256, 2, 2000, 1),
                 (256, 3, 77, 2), (256, 4, 300, 1), (48, 3, 200, 2), (96, 2, 130, 2),
                 (192, 2, 200, 2)]
@@ -535,7 +537,8 @@ def test_fused_train_stream_layout_matches_plain(cuda, hidden, n_hidden, n, b, d
     wrapper picks, against the plain versions at the limits of
     test_fused_train_kernels_match_plain (the f32 backward against the
     plain version run in f64); the backward bit-identical from run to run.
-    The layout is the stream one exactly where the others overflow."""
+    The layout is the cluster (bf16) or f32 one exactly where the others
+    overflow."""
     from dpfx_torch.ops import fused_train as ft
     from dpfx_torch.ops.fused_sampler import z_projection
 
@@ -544,7 +547,7 @@ def test_fused_train_stream_layout_matches_plain(cuda, hidden, n_hidden, n, b, d
     h, nh1 = sp.wx.shape[1], sp.wh.shape[1]
     assert h == fs.kernel_hidden(hidden)
     overflow = (h == 128 and nh1 >= 2) or (h == 256 and (nh1 >= 1 or dt == torch.float32))
-    assert ft.uses_stream(h, nh1, dt) == overflow
+    assert ft.overflows_block(h, nh1, dt) == overflow
     w = (sp.wx, sp.wh, sp.bh, sp.wout, sp.bout, sp.masks, sp.scale_cap)
     g = torch.Generator(device=cuda).manual_seed(5)
     xt = torch.randn((b, 3, n), generator=g, device=cuda)
@@ -577,10 +580,11 @@ def test_fused_train_stream_layout_matches_plain(cuda, hidden, n_hidden, n, b, d
 
 
 @pytest.mark.parametrize("hidden,n_hidden,dtype", [(256, 2, "bfloat16"), (128, 3, "bfloat16"),
-                                                   (256, 1, "float32")])
+                                                   (256, 4, "bfloat16"), (256, 1, "float32")])
 def test_fused_train_stream_backward_rebuilds_the_forward_input(cuda, hidden, n_hidden, dtype):
     """The layout past the mma and block-wide ones (the cluster layout in
-    bf16, the stream layout in f32): its forward and its backward's
+    bf16, on the ring at H=256 with n_hidden 4; the f32 layout in f32): its
+    forward and its backward's
     recompute run the same device code with per-element sums that do not
     depend on the tile, so the rebuilt input is the forward's bit for bit
     (the construction of test_fused_train_bf16_backward_rebuilds_the_forward_input)."""
@@ -589,7 +593,7 @@ def test_fused_train_stream_backward_rebuilds_the_forward_input(cuda, hidden, n_
 
     dt = getattr(torch, dtype)
     sp = _flow_weights(hidden, n_hidden, cuda, k=4, scale=0.02)
-    assert ft.uses_stream(sp.wx.shape[1], sp.wh.shape[1], dt)
+    assert ft.overflows_block(sp.wx.shape[1], sp.wh.shape[1], dt)
     wout, bout = sp.wout.clone(), sp.bout.clone()
     wout[:-1] = 0.0
     bout[:-1] = 0.0
@@ -725,23 +729,27 @@ def test_f32_plan_mirror_matches_kernel(cuda):
 
 
 def test_stream_smem_mirror_matches_kernel(cuda):
-    """The CPU tests' copy of the stream layout's carve-up
-    (tests/_torch_stream_layout.py) is the library's StreamSmem: its bytes
-    and points per tile, both dtypes, forward and backward, at the widths
-    the layout is built for."""
-    from _torch_stream_layout import stream_smem
+    """The stream layout is retired: the library has none of its entry
+    points, and every shape it took (bf16 past the mma layout at the wide
+    widths) has a cluster plan whose bytes, points per tile and partial row
+    are the mirror's, at 64 points or more a tile."""
+    from _torch_cluster_plan import cluster_part_row, cluster_plan
 
     from dpfx_torch.ops import fused_train as ft
 
-    lib = ft._stream_lib()
-    for h in ft.STREAM_HIDDEN:
-        for nh1 in range(6):
-            for bf in (False, True):
-                for bwd in (False, True):
-                    t, _, need = stream_smem(h, nh1, bf, bwd)
-                    args = (h, nh1, int(bf), int(bwd))
-                    assert lib.dpfx_fused_train_stream_smem_bytes(*args) == need, args
-                    assert lib.dpfx_fused_train_stream_tile_points(*args) == t, args
+    lib = ft._cluster_lib()
+    assert not any(hasattr(lib, f"dpfx_fused_train_stream_{e}")
+                   for e in ("fwd", "bwd", "smem_bytes", "tile_points"))
+    for h in ft.WIDE_HIDDEN:
+        for nh1 in range(ft.MAX_N_HIDDEN):
+            if not ft.overflows_block(h, nh1, torch.bfloat16):
+                continue
+            assert ft._layout(h, nh1, torch.bfloat16, True) == "cluster", (h, nh1)
+            assert lib.dpfx_fused_train_cluster_part_row(h, nh1) == cluster_part_row(h, nh1)
+            for bwd in (False, True):
+                t, _, need = cluster_plan(h, nh1, bwd)
+                assert t >= 64 and need <= ft.SMEM_LIMIT, (h, nh1, bwd)
+                assert lib.dpfx_fused_train_cluster_tile_points(h, nh1, int(bwd)) == t
 
 
 def test_cluster_plan_mirror_matches_kernel(cuda):
@@ -749,9 +757,10 @@ def test_cluster_plan_mirror_matches_kernel(cuda):
     (tests/_torch_cluster_plan.py) is the library's ClusterPlan: its bytes
     and points per tile, forward and backward, at every depth of both
     widths (the shapes it does not take included: their sizes are what
-    keeps them off it); and the mirror's domain is ``uses_cluster`` at
-    every kernel width and depth 1-6 in both dtypes."""
-    from _torch_cluster_plan import cluster_domain, cluster_plan
+    keeps them off it), and each partial row of the shapes it takes; and
+    the mirror's domain is ``uses_cluster`` at every kernel width and depth
+    1-6 in both dtypes."""
+    from _torch_cluster_plan import cluster_domain, cluster_part_row, cluster_plan
 
     from dpfx_torch.ops import fused_train as ft
 
@@ -762,6 +771,8 @@ def test_cluster_plan_mirror_matches_kernel(cuda):
                 t, _, need = cluster_plan(h, nh1, bwd)
                 assert lib.dpfx_fused_train_cluster_smem_bytes(h, nh1, int(bwd)) == need, (h, nh1)
                 assert lib.dpfx_fused_train_cluster_tile_points(h, nh1, int(bwd)) == t, (h, nh1)
+            if cluster_domain(h, nh1, torch.bfloat16):
+                assert lib.dpfx_fused_train_cluster_part_row(h, nh1) == cluster_part_row(h, nh1)
     for h in (32, 64, 128, 256):
         for nh1 in range(6):
             for dt in (torch.float32, torch.bfloat16):
@@ -769,17 +780,20 @@ def test_cluster_plan_mirror_matches_kernel(cuda):
 
 
 # the cluster layout's shapes (H, n_hidden), padded widths among them
-# (192 -> 256, 96 -> 128), ragged N and N below a tile
+# (192 -> 256, 96 -> 128), ragged N and N below a tile; and the walks
+# (H=256 with n_hidden 3-4, H=128 with n_hidden 4) with more tiles than the
+# grid has clusters, so that dWh adds into the slices across tiles
 CLUSTER_CASES = [(128, 3, 300, 3), (128, 4, 130, 2), (256, 2, 2000, 1), (256, 3, 77, 2),
-                 (192, 2, 200, 2), (96, 4, 64, 2)]
+                 (192, 2, 200, 2), (96, 4, 64, 2), (256, 4, 300, 1), (256, 3, 2000, 2),
+                 (256, 4, 2000, 2), (128, 4, 2048, 5)]
 
 
 @pytest.mark.parametrize("hidden,n_hidden,n,b", CLUSTER_CASES)
 def test_fused_train_cluster_matches_plain(cuda, hidden, n_hidden, n, b):
     """The cluster layout's forward and backward at K=4 against the plain
-    versions at the bf16 limits of test_fused_train_kernels_match_plain;
-    forward and backward bit-identical from run to run; each launch counted
-    once."""
+    versions at the bf16 limits of test_fused_train_kernels_match_plain
+    (on the ring dWh summed tile by tile in the cluster's slice); forward and
+    backward bit-identical from run to run; each launch counted once."""
     from dpfx_torch.ops import fused_train as ft
     from dpfx_torch.ops.fused_sampler import z_projection
 
@@ -824,7 +838,7 @@ def test_layout_depths_match_the_library(cuda):
     for dname, table in ft.LAYOUT_N_HIDDEN.items():
         dt = getattr(torch, dname)
         for h, deepest in table.items():
-            fits = [nh for nh in range(1, 24) if not ft.uses_stream(h, nh - 1, dt)]
+            fits = [nh for nh in range(1, 24) if not ft.overflows_block(h, nh - 1, dt)]
             assert fits == list(range(1, deepest + 1)), (dname, h, fits)
 
 
@@ -839,7 +853,7 @@ def test_fused_train_f32_deep_conditioners_match_plain(cuda, hidden, n_hidden):
 
     dt = torch.float32
     sp = _flow_weights(hidden, n_hidden, cuda, k=4)
-    assert not ft.uses_stream(hidden, n_hidden - 1, dt)
+    assert not ft.overflows_block(hidden, n_hidden - 1, dt)
     w = (sp.wx, sp.wh, sp.bh, sp.wout, sp.bout, sp.masks, sp.scale_cap)
     g = torch.Generator(device=cuda).manual_seed(8)
     xt = torch.randn((2, 3, 200), generator=g, device=cuda)

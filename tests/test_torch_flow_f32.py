@@ -31,7 +31,6 @@ from dpfx_torch.ops._build import SMEM_LIMIT  # noqa: E402
 from _torch_cluster_plan import cluster_domain  # noqa: E402
 from _torch_f32_plan import (f32_bwd_carve, f32_bwd_plan, f32_domain,  # noqa: E402
                              f32_fwd_smem, f32_part_row)
-from _torch_stream_layout import stream_smem  # noqa: E402
 
 HEADER = Path(tft.__file__).parent / "csrc" / "flow_f32.cuh"
 F32 = torch.float32
@@ -47,24 +46,18 @@ class _Lib:
     def dpfx_fused_train_f32_smem_bytes(h, nh1, backward):
         return f32_bwd_plan(h, nh1)[1] if backward else f32_fwd_smem(h)
 
-    @staticmethod
-    def dpfx_fused_train_stream_smem_bytes(h, nh1, bf16, backward):
-        return stream_smem(h, nh1, bool(bf16), bool(backward))[2]
-
 
 @pytest.fixture
 def mirrored(monkeypatch):
     """fused_train's layout choice on the mirrors: the mma and block-wide
     layouts' depths (LAYOUT_N_HIDDEN, which a card test holds to the
-    library), the cluster plan's domain and the f32 and stream layouts'
-    bytes."""
-    def uses_stream(h, nh1, dtype):
+    library), the cluster plan's domain and the f32 layout's bytes."""
+    def overflows_block(h, nh1, dtype):
         return nh1 + 1 > tft.LAYOUT_N_HIDDEN[str(dtype).split(".")[-1]][h]
 
-    monkeypatch.setattr(tft, "uses_stream", uses_stream)
+    monkeypatch.setattr(tft, "overflows_block", overflows_block)
     monkeypatch.setattr(tft, "uses_cluster", cluster_domain)
     monkeypatch.setattr(tft, "_f32_lib", lambda: _Lib)
-    monkeypatch.setattr(tft, "_stream_lib", lambda: _Lib)
     return tft
 
 
@@ -93,21 +86,17 @@ def test_every_f32_shape_past_the_block_wide_layout_takes_the_f32_layout(mirrore
 
 
 def test_bf16_routes_are_unchanged(mirrored):
-    """bf16 takes the mma layout where it fits, else the cluster layout on
-    its domain, else (H=256 with n_hidden 4) the stream layout, as before
-    the f32 layout."""
+    """bf16 takes the mma layout where it fits, else the cluster layout,
+    whose domain is every bf16 shape the mma layout overflows (H=256 with
+    n_hidden 4 among them); the f32 layout takes none of them."""
     deepest = tft.LAYOUT_N_HIDDEN["bfloat16"]
     for h in tfs.KERNEL_HIDDEN:
         for nh in range(1, tft.MAX_N_HIDDEN + 1):
-            if nh <= deepest[h]:
-                want = "parent"
-            elif cluster_domain(h, nh - 1, torch.bfloat16):
-                want = "cluster"
-            else:
-                want = "stream"
+            want = "parent" if nh <= deepest[h] else "cluster"
+            assert want == "parent" or cluster_domain(h, nh - 1, torch.bfloat16), (h, nh)
             for backward in (False, True):
                 assert tft._layout(h, nh - 1, torch.bfloat16, backward) == want, (h, nh)
-    assert tft._layout(256, 3, torch.bfloat16, True) == "stream"
+    assert tft._layout(256, 3, torch.bfloat16, True) == "cluster"
 
 
 @pytest.mark.parametrize("shape", SHAPES)
@@ -128,12 +117,12 @@ def test_f32_plan_fits(shape):
 
 
 def test_f32_plan_keeps_the_stream_layouts_tile_at_h256_n_hidden_2():
-    """At H=256 with n_hidden 2 the backward keeps the stream layout's 64
-    points a tile (so the two sum every gradient in the same order), and
-    the forward takes the sampler's 128 (227,072 B, the sampler's 226,560
-    and the log-det row)."""
+    """At H=256 with n_hidden 2 the backward takes 64 points a tile (the
+    tile of the stream layout that the f32 layout replaced, so the two
+    summed every gradient in the same order), and the forward the sampler's 128
+    (227,072 B, the sampler's 226,560 and the log-det row)."""
     assert f32_bwd_plan(256, 1) == (64, 228608)
-    assert stream_smem(256, 1, False, True)[0] == 64
+    assert f32_bwd_carve(256, 1, 128) > SMEM_LIMIT
     assert f32_fwd_smem(256) == 227072 and f32_fwd_smem(256, logdet=False) == 226560
 
 

@@ -1,14 +1,15 @@
 """The sampler's cluster inverse (``inv_cluster`` in
 ``dpfx_torch/ops/csrc/flow_cluster.cuh``) and its streamed f32 layout on
 the CPU: the route (``fused_sampler.inverse_layout``: the cluster inverse
-exactly at the training kernels' bf16 cluster shapes, for relu and weights
-in bf16), the inverse's plan through the Python mirror
+exactly at the training kernels' bf16 cluster shapes that it is built for,
+for relu and weights in bf16), the inverse's plan through the Python mirror
 (``tests/_torch_cluster_plan.py``, which the card tests hold to the
 library), the f32 kernel's shared memory (``smem_bytes`` against the
 carve of ``F32Smem``), and at each cluster shape the port's plain inverse
 (what the card holds the kernel to) against dpfx's fused inverse in
 interpret mode on the same numpy-seeded weights."""
 
+import re
 from pathlib import Path
 
 import pytest
@@ -28,7 +29,7 @@ from dpfx_torch.ops._build import SMEM_LIMIT  # noqa: E402
 from _torch_cluster_plan import cluster_domain, cluster_plan, inverse_plan  # noqa: E402
 
 SAMPLER_SRC = Path(tfs.__file__).parent / "csrc" / "fused_sampler.cu"
-# the cluster layout's shapes (kernel H, n_hidden - 1)
+# the cluster inverse's shapes (kernel H, n_hidden - 1)
 CLUSTER_SHAPES = [(128, 2), (128, 3), (256, 1), (256, 2)]
 
 
@@ -42,11 +43,13 @@ def mirror_route(monkeypatch):
 @pytest.mark.parametrize("hidden", tfs.KERNEL_HIDDEN)
 def test_route_takes_the_cluster_inverse_at_the_cluster_shapes(mirror_route, hidden):
     """bf16, relu, weights in bf16: the cluster inverse exactly where the
-    training kernels take their cluster layout (but ROWS_KEPT), rows_kernel
-    elsewhere; never in f32, in the int8 mode or with another activation."""
+    training kernels take their cluster layout and it is built (but
+    ROWS_KEPT), rows_kernel elsewhere; never in f32, in the int8 mode or
+    with another activation."""
     bf = torch.bfloat16
     for nh1 in range(6):
-        want = cluster_domain(hidden, nh1, bf) and (hidden, nh1) not in tfs.ROWS_KEPT
+        want = (cluster_domain(hidden, nh1, bf) and (hidden, nh1) not in tfs.ROWS_KEPT
+                and (hidden, nh1) in tfs.CLUSTER_INVERSE)
         assert tfs.inverse_layout(hidden, nh1, bf) == ("cluster" if want else "rows"), nh1
         assert tfs.inverse_layout(hidden, nh1, torch.float32) == "f32"
         assert tfs.inverse_layout(hidden, nh1, bf, int8=True) == "rows"
@@ -54,6 +57,20 @@ def test_route_takes_the_cluster_inverse_at_the_cluster_shapes(mirror_route, hid
             assert tfs.inverse_layout(hidden, nh1, bf, act) == "rows"
     taken = [(hidden, nh1) for nh1 in range(6) if tfs.inverse_layout(hidden, nh1, bf) == "cluster"]
     assert set(taken) <= set(CLUSTER_SHAPES)
+
+
+def test_h256_n_hidden_4_samples_on_rows_kernel(mirror_route):
+    """H=256 with n_hidden 4 trains on the cluster layout, whose forward
+    streams the slabs through the ring, but no inverse is built on that
+    plan: the bf16 relu sampler stays on rows_kernel there. The route's
+    shapes are exactly the instances csrc/fused_sampler.cu dispatches."""
+    assert cluster_domain(256, 3, torch.bfloat16)
+    assert tfs.inverse_layout(256, 3, torch.bfloat16) == "rows"
+    assert tfs.inverse_layout(256, 2, torch.bfloat16) == "cluster"
+    built = re.findall(r"if \(H == (\d+) && NH1 == (\d+)\)",
+                       SAMPLER_SRC.read_text().split("#define DPFX_DISPATCH_INVERSE")[1]
+                       .split("return (int)cudaErrorInvalidValue")[0])
+    assert [(int(h), int(n)) for h, n in built] == list(tfs.CLUSTER_INVERSE) == CLUSTER_SHAPES
 
 
 def test_rows_kept_are_cluster_shapes():

@@ -31,7 +31,6 @@ from dpfx_torch.ops import fused_latent as tfl  # noqa: E402
 from dpfx_torch.ops import fused_sampler as tfs  # noqa: E402
 from dpfx_torch.ops import fused_train as tft  # noqa: E402
 from _torch_cluster_plan import cluster_domain, cluster_plan  # noqa: E402
-from _torch_stream_layout import stream_smem  # noqa: E402
 from _torch_f32_plan import f32_bwd_plan, f32_fwd_smem  # noqa: E402
 
 
@@ -292,9 +291,9 @@ def test_point_flow_domain_passes_the_shape_checks(hidden, n_hidden, dtype):
     128, 256); on every accepted shape the padded width is one the kernels
     are built for, the sampler's shared memory (its mirror) fits in every
     mode, and at n_hidden 1-4 at 128 and 256 the layout the wrappers take
-    past the mma and block-wide ones fits: the cluster layout's plan (its
-    mirror) for the bf16 shapes it takes, the f32 layout's plan (its mirror)
-    in f32, else the stream layout's."""
+    past the mma and block-wide ones fits: in bf16 the cluster layout's
+    plan (its mirror), which takes every shape the mma layout does not
+    hold, in f32 the f32 layout's plan (its mirror)."""
     cfg = _Cfg(hidden=hidden, n_hidden=n_hidden, compute_dtype=dtype)
     ok = tft.fused_train_supported(cfg)
     deepest = dict(zip(tfs.KERNEL_HIDDEN, (9, 4, 2, 1) if dtype == "bfloat16" else (17, 5, 2, 0)))
@@ -305,17 +304,15 @@ def test_point_flow_domain_passes_the_shape_checks(hidden, n_hidden, dtype):
     assert h in tfs.KERNEL_HIDDEN and h >= hidden
     for int8 in (False, True):
         assert tfs.smem_bytes(h, dt, nh1, int8) <= tfs.SMEM_LIMIT
-    if h in tft.STREAM_HIDDEN and n_hidden <= 4:
+    if h in tft.WIDE_HIDDEN and n_hidden <= 4:
         for backward in (False, True):
-            if cluster_domain(h, nh1, dt):
-                t, _, need = cluster_plan(h, nh1, backward)
-                assert need <= tfs.SMEM_LIMIT and t in (32, 64, 128)
-            elif dtype == "float32":
+            if dtype == "float32":
                 t, need = f32_bwd_plan(h, nh1) if backward else (128, f32_fwd_smem(h))
                 assert need <= tfs.SMEM_LIMIT and t in (32, 64, 128)
-            else:
-                t, nc, need = stream_smem(h, nh1, dtype == "bfloat16", backward)
-                assert need <= tfs.SMEM_LIMIT and h % nc == 0 and t % 16 == 0
+            elif n_hidden > tft.LAYOUT_N_HIDDEN[dtype][h]:
+                assert cluster_domain(h, nh1, dt)
+                t, _, need = cluster_plan(h, nh1, backward)
+                assert need <= tfs.SMEM_LIMIT and t in (64, 128)
 
 
 @settings(max_examples=60, deadline=None)
