@@ -236,7 +236,13 @@ phase 3j's ranks, which the script starts itself):
      philox_noise_plain, its time in turns with rows_kernel<256>, and at
      each shape of the cluster inverse (K=32, B=64) the cluster inverse
      against its plain version and in turns with rows_kernel, the route's
-     choice beside them; (a2) the deep conditioners (DEEP_SHAPES: H=128
+     choice beside them; and the other cases the route takes there
+     (inverse_cases: gelu, tanh, leaky_relu, the int8 mode with relu and
+     gelu; every one at H=256) through fused_sample_points, each against
+     its plain version (int8: on the dequantized stacks, and bit for bit
+     the bf16 mode there on the same layout), twice bit-identical, timed in
+     turns with rows_kernel, with its bound (int8's weights at 1 byte); (a2)
+     the deep conditioners (DEEP_SHAPES: H=128
      with n_hidden 3-4, H=256 with n_hidden 3-4; all but the first stream
      the backward's Wh through the ring) at B=64 x 2048, K=32 against the plain versions,
      twice bit-identical, timed with their bounds, and the flagship at
@@ -244,7 +250,10 @@ phase 3j's ranks, which the script starts itself):
      resident call, fused and on the module path from the same seeded
      weights: both finite with loss windows within TOL_TRAIN_DRIFT, or both
      non-finite from the same step; every fused launch on the cluster
-     layout);
+     layout), then the bf16 sampler at H=256 through its entry points,
+     every launch on the cluster inverse: generate on that fused run's
+     checkpoint, make_sampler(64, 2048) on a seeded gelu model at n_hidden
+     2, bench_sample_int8 --run-flow on the same checkpoint (B=64, reps 2);
      (b) config #3 (shapenet_airplane_gen.yaml, f32 point flow) at H=256 and
      at its own width (H=128, n_hidden 2) on the synthetic family: the
      training CLI's 10 steps as one resident call on config #3's own
@@ -304,7 +313,8 @@ phase 3j's ranks, which the script starts itself):
      kernel also held to emd_sweeps_plain, the plain version of its own
      sweep order, on phase 2c's pairs in every mode, with the CTAs per pair
      of each launch, and fast and exact pairwise timed in turns; and the
-     rows of phases 3d, 3e, 3f and 3l (32 rows in all);
+     rows of phases 3d, 3e, 3f and 3l (56 rows in all: 24 of the cluster
+     inverse's cases);
   5. torch.profiler breakdowns of make_sampler(64, 2048) (plain and fused
      latent inverse), of 5 eager train steps and (5b) of one replayed and
      one resident call of 20 steps (fused latent flow off and on), and
@@ -755,6 +765,28 @@ def f32_layout_ptxas() -> dict:
             m = re.search(r"(fwd|bwd)_f32ILi(\d+)E(?:Li(\d+)E)?", line)
             cur = (f"fused_train_{m.group(1)} f32 H={m.group(2)}"
                    + (f" T={m.group(3)}" if m.group(3) else "") if m else None)
+        elif cur and "spill stores" in line:
+            st, ld = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line).groups()
+            found.setdefault(cur, {})["spill"] = f"{st}/{ld}"
+        elif cur and "Used" in line:
+            found.setdefault(cur, {})["regs"] = int(re.search(r"Used (\d+) registers", line).group(1))
+    return found
+
+
+def inverse_ptxas() -> dict:
+    """Registers and spilled bytes (stores/loads) of every cluster inverse
+    instance, keyed "inv_cluster<H, NH1, Act, W>", from ptxas' log."""
+    import re
+
+    from dpfx_torch.ops import _build
+
+    found, cur = {}, None
+    for line in _build.ptxas_log("fused_sampler").splitlines():
+        if "Compiling entry function" in line:
+            m = re.search(r"inv_clusterILi(\d+)ELi(\d+)ENS_\d+([A-Za-z]+)E(13__nv_bfloat16|a|v)E",
+                          line)
+            cur = (f"inv_cluster<{m.group(1)}, {m.group(2)}, {m.group(3)}, "
+                   f"{ {'a': 'int8', 'v': 'bf16 or int8'}.get(m.group(4), 'bf16')}>" if m else None)
         elif cur and "spill stores" in line:
             st, ld = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line).groups()
             found.setdefault(cur, {})["spill"] = f"{st}/{ld}"
@@ -3358,6 +3390,17 @@ CLUSTER_SHAPES = ((128, 2), (128, 3), (256, 1), (256, 2), (256, 3))
 # kernels line its *_cluster_deep rows
 DEEP_SHAPES = ((128, 3), (128, 4), (256, 3), (256, 4))
 DEEP = ["model.point_flow.hidden=256", "model.point_flow.n_hidden=4"]
+
+
+def inverse_cases(fs, shape):
+    """The cluster inverse's cases past relu with bf16 weights that phase 3l
+    checks and times at a shape of fused_sampler.CLUSTER_INVERSE: (activation,
+    int8) for each other activation the route takes with bf16 weights, and
+    relu and gelu where it takes them with int8 weights (tanh and leaky_relu
+    run gelu's instance)."""
+    acts, int8_acts = fs.CLUSTER_CASES[shape]
+    return ([(a, False) for a in acts]
+            + [(a, True) for a in int8_acts if a in ("relu", "gelu")])
 WIDE = ["model.point_flow.hidden=256"]
 WIDTH_CHECK = (8, 2048, 32)     # B, N, K of the layouts' checks against the plain versions
 WIDTH_MAIN = (64, 2048)         # B, N of the main paths
@@ -3548,15 +3591,16 @@ def fused_latent_sampler(model, b: int, n: int):
 
 @contextlib.contextmanager
 def forced_layout(fs, layout: str):
-    """Within the block, the sampler's bf16 relu route takes ``layout``
+    """Within the block, the sampler's bf16 route takes ``layout``
     ("cluster" or "rows") wherever the cluster inverse is built for the
-    shape (what ran before it: rows_kernel)."""
+    shape and the case (the library's dpfx_fused_sampler_cluster_built);
+    what ran before it: rows_kernel."""
     route = fs.inverse_layout
 
     def forced(h, nh1, dtype, activation="relu", int8=False):
         got = route(h, nh1, dtype, activation, int8)
-        built = ((h, nh1) in fs.CLUSTER_INVERSE and got != "f32" and activation == "relu"
-                 and not int8)
+        built = got != "f32" and fs._cluster_lib().dpfx_fused_sampler_cluster_built(
+            h, nh1, fs.ACT_CODES[activation], int(int8)) == 1
         return layout if built else got
 
     fs.inverse_layout = forced
@@ -3566,14 +3610,109 @@ def forced_layout(fs, layout: str):
         fs.inverse_layout = route
 
 
-def inverse_turns(fs, call):
+def inverse_turns(fs, call, iters: int = 5):
     """(cluster inverse ms, rows_kernel ms) of ``call`` timed in turns
     (cluster, rows, rows, cluster; the means of each layout's two)."""
     ms = {"cluster": [], "rows": []}
     for lay in ("cluster", "rows", "rows", "cluster"):
         with forced_layout(fs, lay):
-            ms[lay].append(cuda_ms(call, 5))
+            ms[lay].append(cuda_ms(call, iters))
     return sum(ms["cluster"]) / 2, sum(ms["rows"]) / 2
+
+
+def sampler_entry_points(dev, card, ddir: Path, finite: bool, flagship_like) -> dict:
+    """Phase 3l (a2)'s bf16 sampler at H=256 through the entry points a user
+    calls, counts from 0 around each: ``generate`` on the checkpoint of the
+    fused CLI run at n_hidden 4 in ``ddir`` (its clouds finite where that
+    run stayed finite), ``make_sampler(64, 2048)`` on a seeded gelu model at
+    n_hidden 2, and ``bench_sample_int8 --run-flow`` on the same checkpoint
+    (B=64, reps 2): every sampler launch on the cluster inverse. Removes
+    ``ddir``. Returns each case's launches, keyed (H, n_hidden, activation,
+    int8)."""
+    import contextlib
+    import io
+    import shutil
+
+    import numpy as np
+    import torch
+    import yaml
+
+    from dpfx_torch import generate
+    from dpfx_torch.ops import fused_sampler as fs
+    from dpfx_torch.sampling import make_sampler
+    from dpfx_torch.tools import bench_sample_int8
+
+    bm, nm = WIDTH_MAIN
+    cluster_only = lambda n: fs.layout_launches == {"rows": 0, "cluster": n, "f32": 0}  # noqa: E731
+    # generate on the checkpoint of the fused run
+    fs.reset_launch_counts()
+    out_npy = ddir / "generated.npy"
+    buf, t0 = io.StringIO(), time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        rc = generate.main([str(CONFIG), *DEEP, f"train.ckpt_dir={ddir}", "data.synthetic_size=512",
+                            "--n-clouds", str(bm), "--n-points", str(nm), "--out", str(out_npy)])
+    torch.cuda.synchronize()
+    gen_wall = time.perf_counter() - t0
+    print(buf.getvalue(), end="")
+    clouds = np.load(out_npy)
+    gen_n = fs.launches["fused_sample"]
+    check(rc == 0 and clouds.shape == (bm, nm, 3) and (bool(np.isfinite(clouds).all()) or not finite),
+          f"generate at H=256 n_hidden 4: rc {rc}, {clouds.shape}")
+    check(gen_n >= 1 and cluster_only(gen_n),
+          f"generate at H=256 n_hidden 4 samples on the cluster inverse: {fs.layout_launches}")
+    # make_sampler on a seeded gelu model at n_hidden 2
+    gelu = flagship_like([*WIDE, "model.point_flow.activation=gelu"], 21).eval()
+    check(gelu.point_flow.activation == "gelu", "the gelu point flow")
+    sampler_g = make_sampler(gelu, bm, nm)
+    fs.reset_launch_counts()
+    xg = sampler_g(5)
+    torch.cuda.synchronize()
+    check(xg.shape == (bm, nm, 3) and bool(torch.isfinite(xg).all()) and cluster_only(1),
+          f"make_sampler at H=256 n_hidden 2 gelu: {fs.layout_launches}")
+    gelu_ms = cuda_ms(lambda: sampler_g(6), 3)
+    gelu_n = 1
+    del gelu, sampler_g, xg
+    # bench_sample_int8 on the same checkpoint, its run's own point flow
+    y = yaml.safe_load(CONFIG.read_text())
+    y["model"]["point_flow"].update(hidden=256, n_hidden=4)
+    y["train"]["ckpt_dir"] = str(ddir)
+    y["data"]["synthetic_size"] = 512
+    i8_cfg = ddir / "int8.yaml"
+    i8_cfg.write_text(yaml.safe_dump(y))
+    env = {"DPFX_INT8_CKPT": str(i8_cfg), "DPFX_INT8_B": str(bm), "DPFX_INT8_REPS": "2"}
+    saved = {k: os.environ.get(k) for k in env}
+    os.environ.update(env)
+    fs.reset_launch_counts()
+    buf = io.StringIO()
+    try:
+        with contextlib.redirect_stdout(buf):
+            rc = bench_sample_int8.main(["--run-flow"])
+    finally:
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+    torch.cuda.synchronize()
+    print(buf.getvalue(), end="")
+    lines = buf.getvalue().strip().splitlines()
+    i8 = json.loads(lines[-2])
+    i8_n = dict(fs.launches)
+    check(rc == 0 and i8["weights"].endswith("@10") and i8["shapes"][0] == bm,
+          f"bench_sample_int8 --run-flow on the H=256 n_hidden 4 checkpoint: {i8}")
+    check(i8_n["fused_sample"] > 0 and i8_n["fused_sample_int8"] > 0
+          and cluster_only(i8_n["fused_sample"] + i8_n["fused_sample_int8"]),
+          f"bench_sample_int8 at H=256 n_hidden 4 samples on the cluster inverse: {i8_n}, "
+          f"{fs.layout_launches}")
+    shutil.rmtree(ddir, ignore_errors=True)
+    print(f"(a2) the bf16 sampler at H=256 through its entry points, every launch on the cluster "
+          f"inverse: generate on the n_hidden 4 checkpoint {gen_n} launches in {gen_wall:.1f} s "
+          f"wall; make_sampler({bm}, {nm}) gelu n_hidden 2 {gelu_ms:.3f} ms/batch; "
+          f"bench_sample_int8 --run-flow (B={bm}, reps 2): bf16 {i8['bf16_ms']} ms, int8 "
+          f"{i8['int8_ms']} ms, int8 against bf16 relative RMS {i8['rel_rms']}, launches "
+          f"{json.dumps(i8_n)} ({card})")
+    return {(256, 4, "relu", False): gen_n + i8_n["fused_sample"],
+            (256, 2, "gelu", False): gelu_n, (256, 4, "relu", True): i8_n["fused_sample_int8"]}
 
 
 def shapes_path(dev, card, x20, h128_replayed):
@@ -3842,18 +3981,22 @@ def shapes_path(dev, card, x20, h128_replayed):
     regs = cluster_ptxas()
     regs.update(f32_layout_ptxas())
     f32_regs = sampler_ptxas("f32_kernelIfLi256E")
-    inv_regs = sampler_ptxas("inv_clusterILi256ELi1E")
+    inv_regs = inverse_ptxas()
     check(all("regs" in regs.get(f"fused_train_{kk} cluster H={hh} n_hidden={nh1 + 1}", {})
                   for kk in ("fwd", "bwd") for hh, nh1 in CLUSTER_SHAPES)
           and all(any(kk.startswith(f"fused_train_{d} f32 H={hh}") and "regs" in v
                       for kk, v in regs.items()) for d in ("fwd", "bwd") for hh in (128, 256))
-          and not f32_regs.startswith("None") and not inv_regs.startswith("None"),
+          and not f32_regs.startswith("None")
+          and all("regs" in inv_regs.get(f"inv_cluster<{hh}, {nh1}, ReluNan, bf16>", {})
+                  for hh, nh1 in fs.CLUSTER_INVERSE),
           f"ptxas reported the new layouts: {regs}, the f32 sampler at H=256 {f32_regs}, "
-          f"inv_cluster<256, 1> {inv_regs}")
+          f"the cluster inverse {inv_regs}")
     print("ptxas of the new layouts: " + "; ".join(
         f"{kk} {v.get('regs')} registers, spilled bytes (stores/loads) {v.get('spill')}"
         for kk, v in sorted(regs.items())) + f"; fused_sample f32 H=256 (f32_kernel<float, 256>) "
-        f"{f32_regs}; inv_cluster<256, 1> {inv_regs}")
+        f"{f32_regs}; " + "; ".join(
+            f"{kk} {v.get('regs')} registers, spilled bytes (stores/loads) {v.get('spill')}"
+            for kk, v in sorted(inv_regs.items())))
     t_checks = time.perf_counter() - t_phase
 
     # (a) the flagship with its point flow widened to H=256: the CLI trains
@@ -4035,8 +4178,14 @@ def shapes_path(dev, card, x20, h128_replayed):
           f"{rows_ms:.3f} ms; plain {bs_plain:.2f}; noise against philox_noise_plain "
           f"{e_noise:.2e} ({card})")
     # every shape of the cluster layout at the main shape, K=32: the cluster
-    # inverse against its plain version, and timed in turns with rows_kernel
+    # inverse against its plain version, and timed in turns with rows_kernel;
+    # where every case is built (H=256), also each other activation and the
+    # int8 mode (relu, gelu) through the sampler's entry, held to the plain
+    # version on the noise it drew (the int8 mode's on the dequantized
+    # stacks, and bit for bit to the bf16 mode there), timed in turns with
+    # rows_kernel, with their bounds
     ut_w = torch.randn((bm, 3, nm), generator=g, device=dev)
+    case_rows = []     # (H, n_hidden, activation, int8, err, ms, plain ms, bound, by)
     for hh, nh1 in fs.CLUSTER_INVERSE:
         spw = flow_stack(hh, nh1 + 1, seed=hh + nh1)
         layout = fs.inverse_layout(hh, nh1, bf)
@@ -4056,7 +4205,53 @@ def shapes_path(dev, card, x20, h128_replayed):
         print(f"inverse at B={bm} N={nm} K=32 H={hh} n_hidden={nh1 + 1} bf16, in turns: inv_cluster "
               f"{c_ms:.3f} ms, rows_kernel {r_ms:.3f} ms, bound {b_w:.4f} ({by_w}); the route takes "
               f"{layout} ({card})")
+        if (hh, nh1) == (256, 3):
+            w_err = errors(xw, xwp)[0]
+            w_plain = cuda_ms(lambda: fs.fused_inverse_transposed_plain(
+                spw, ut_w, fs.z_projection(spw, zs), bf, "relu"), 1, warmup=1)
+            case_rows.append((hh, nh1 + 1, "relu", False, w_err, c_ms, w_plain, b_w, by_w))
         del xw, xw2, xwp
+        qw = fs.quantize_flow_params(spw)
+        dqw = fs.dequantize(qw)
+        spd = spw._replace(wx=dqw.wx, wh=dqw.wh, wout=dqw.wout)
+        hzw = fs.z_projection(spw, zs)
+        for act, int8 in inverse_cases(fs, (hh, nh1)):
+            qq = qw if int8 else None
+            cname = f"H={hh} n_hidden={nh1 + 1} {act}{' int8' if int8 else ''}"
+            check(fs.inverse_layout(hh, nh1, bf, act, int8) == "cluster",
+                  f"{cname} samples on the cluster inverse")
+            fs.reset_launch_counts()
+            xc, uc = fs.fused_sample_points(spw, zs, 13, nm, dtype=bf, activation=act, quantized=qq,
+                                            return_noise=True)
+            xc2 = fs.fused_sample_points(spw, zs, 13, nm, dtype=bf, activation=act, quantized=qq)
+            xcp = fs.fused_inverse_transposed_plain(spd if int8 else spw,
+                                                    uc.transpose(1, 2).contiguous(), hzw, bf,
+                                                    act).transpose(1, 2)
+            torch.cuda.synchronize()
+            check(fs.layout_launches == {"rows": 0, "cluster": 2, "f32": 0},
+                  f"{cname}: on the cluster inverse: {fs.layout_launches}")
+            c_err = held_to_plain(f"fused_sample (inv_cluster) B={bm} N={nm} K=32 {cname}", bf,
+                                  (xc,), (xcp,), fwd_again=(xc2,))
+            same = ""
+            if int8:     # the bf16 mode on the same layout (ROWS_KEPT's relu too)
+                with forced_layout(fs, "cluster"):
+                    xd = fs.fused_sample_points(spd, zs, 13, nm, dtype=bf, activation=act)
+                torch.cuda.synchronize()
+                check(torch.equal(xc, xd), f"{cname}: the int8 cluster inverse equals the bf16 one "
+                                           "on the dequantized stacks")
+                same = "; bit for bit the bf16 mode on the dequantized stacks"
+                del xd
+            c_ms, r_ms = inverse_turns(fs, lambda: fs.fused_sample_points(
+                spw, zs, 12, nm, dtype=bf, activation=act, quantized=qq), iters=3)
+            c_plain = cuda_ms(lambda: fs.fused_sample_points_plain(spd if int8 else spw, hzw, 12, nm,
+                                                                   bf, act), 1, warmup=1)
+            b_c, by_c, _ = bound(spw, bm, nm, with_ut=False, weight_bytes=1 if int8 else 2)
+            print(f"fused_sample at B={bm} N={nm} K=32 {cname} bf16, in turns: inv_cluster "
+                  f"{c_ms:.3f} ms = {c_ms / b_c:.2f}x its bound {b_c:.4f} ({by_c}), rows_kernel "
+                  f"{r_ms:.3f} ms; plain {c_plain:.2f}{same} ({card})")
+            case_rows.append((hh, nh1 + 1, act, int8, c_err, c_ms, c_plain, b_c, by_c))
+            del xc, uc, xc2, xcp
+        del qw, dqw, spd, hzw
     del model_a, sampler_a, sampler_af, u_p, du
 
     # (a2) the deep conditioners (the ring's): each pair of DEEP_SHAPES at the
@@ -4115,7 +4310,8 @@ def shapes_path(dev, card, x20, h128_replayed):
                             "launch": dict(ft.launches), "lay": dict(ft.layout_launches),
                             "bad": next((i + 1 for i, v in enumerate(losses)
                                          if not np.isfinite(v)), None)}
-        shutil.rmtree(ddir, ignore_errors=True)
+        if fused == "false":     # the fused run's checkpoint is sampled below
+            shutil.rmtree(ddir, ignore_errors=True)
     dfr, dmr = deep_runs["true"], deep_runs["false"]
     check(sum(dmr["launch"].values()) == 0,
           f"the module path launches no fused_train: {dmr['launch']}")
@@ -4142,6 +4338,8 @@ def shapes_path(dev, card, x20, h128_replayed):
           + f"; module path {dmr['wall']:.1f} s wall, loss "
           + ", ".join(f"{v:.1f}" for v in dmr["losses"]) + f"; {deep_reading}; fused launches "
           f"{json.dumps(dfr['launch'])} by layout {json.dumps(dfr['lay'])} ({card})")
+    entry_launches = sampler_entry_points(dev, card, WORK / "train_deep_true", dfr["bad"] is None,
+                                          flagship_like)
 
     # (b) config #3 (f32 point flow) on the synthetic family, through the
     # CLI at H=256 and at config #3's own width (H=128, n_hidden 2): its 10
@@ -4501,7 +4699,11 @@ def shapes_path(dev, card, x20, h128_replayed):
                 b_ff, by_ff),
             row("fused_train_bwd_f32", "dpfx_torch/ops/csrc/fused_train.cu",
                 "dpfx/ops/fused_train.py:231", f32_layouts[256]["f32_bwd"], fb_err, fb_ms, fb_plain,
-                b_fb, by_fb)]
+                b_fb, by_fb)] + [
+            row(f"fused_sample_inv_cluster_h{hh}_nh{nh}_{act}{'_int8' if q8 else ''}", src,
+                "dpfx/ops/fused_sampler.py:338" if q8 else "dpfx/ops/fused_sampler.py:309",
+                entry_launches.get((hh, nh, act, q8), 0), err, ms, plain, bnd, by)
+            for hh, nh, act, q8, err, ms, plain, bnd, by in case_rows]
 
 
 # ---------------------------------------------------------------- phase 3k: the tools
@@ -5573,7 +5775,12 @@ def main() -> int:
                       f"{v.get('spill')}" for kk, v in lregs.items()) + f" ({card})")
     kernels += eval_kernel_rows(cfg, half_a, half_b, gen_launches, ae_launches)
     kernels += grad_rows + int8_rows + probe_rows + shape_rows
-    check(len(kernels) == 32, f"{len(kernels)} kernel rows")
+    # 32 rows, then the cluster inverse's cases of phase 3l: relu at H=256
+    # n_hidden 4, and inverse_cases at each shape of CLUSTER_INVERSE
+    from dpfx_torch.ops import fused_sampler as fsm
+
+    check(len(kernels) == 32 + 1 + sum(len(inverse_cases(fsm, sh)) for sh in fsm.CLUSTER_INVERSE),
+          f"{len(kernels)} kernel rows")
     print(json.dumps({"kernels": kernels}))
 
     # ---- 5. where the sampler's time goes (torch.profiler, 5 calls each)

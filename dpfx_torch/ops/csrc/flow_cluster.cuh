@@ -10,7 +10,7 @@
 // Replaces, for those shapes, the Pallas TPU kernels `_fwd_kernel`
 // (dpfx/ops/fused_train.py:131) and `_bwd_kernel` (:231), and (inv_cluster)
 // `_fused_inverse_kernel` (dpfx/ops/fused_sampler.py:112) and
-// `_fused_sample_kernel` (:309).
+// `_fused_sample_kernel` (:309) with its int8 mode (:338-369).
 //
 // What bounds it: the tensor cores, as the mma layout (2(9H + (n_hidden-1)
 // H^2) FLOP a point and layer forward, ~3x that backward; 0.575 ms and 1.73
@@ -97,8 +97,15 @@
 //     rounding of the affine update. The base noise is read from ut or
 //     drawn (Philox keyed by (point, cloud)) at the first layer walked;
 //     x is carried between layers per rank ([C, B, 3, N]), no log-det.
-//     A carve of its own (no log-det row or sums) would be 2,176 B smaller
-//     at T=128, which gives no shape a larger tile or a second stage.
+//     Every forward plan stages whole layers (the ring is the backward's),
+//     so the inverse runs at every cluster shape, n_hidden 4 at H=256 on
+//     T=64, one stage, 3 tiles a group. A carve of its own (no log-det row
+//     or sums) would be 2,176 B smaller at T=128, 1,152 B at T=64 with 4
+//     tiles a group: it gives no shape a larger tile, another group or a
+//     second stage. The activation is a template functor (relu that keeps a
+//     NaN, the forward's; tanh; or the runtime ActSelect), and the int8
+//     mode converts as it stages (cl_stage_int8): the plan, tiles and sum
+//     order are the bf16 relu instance's in every case.
 //   * Shared memory (ClusterPlan; tests/_torch_cluster_plan.py mirrors
 //     it): the largest T of 128, 64, 32 that fits, on whole-layer stages
 //     where they fit at that T (the forward: the most tiles a group, 4 down
@@ -410,17 +417,19 @@ __device__ __forceinline__ void cl_prod_smem(float (&c)[NW][4], const bf16* a, i
   }
 }
 
-// relu(c + bias) of the warp's tiles as bf16 pairs (lo: row g, hi: row g + 8,
-// columns 8i + 2t of the warp's), the rounding of flow_rows.cuh's epi_act
-template <int NW>
+// act(c + bias) of the warp's tiles as bf16 pairs (lo: row g, hi: row g + 8,
+// columns 8i + 2t of the warp's), the rounding of flow_rows.cuh's epi_act;
+// the training kernels' relu that keeps a NaN by default
+template <int NW, typename Act = ReluNan>
 __device__ __forceinline__ void cl_epi_act(uint32_t (&lo)[NW], uint32_t (&hi)[NW],
-                                           const float (&c)[NW][4], const float* bias) {
+                                           const float (&c)[NW][4], const float* bias,
+                                           const Act& act = Act()) {
   const int t = lane_id() & 3;
 #pragma unroll
   for (int i = 0; i < NW; ++i) {
     const float2 bb = __ldg(reinterpret_cast<const float2*>(bias + 8 * i + 2 * t));
-    lo[i] = pack_bf16(relu_nan(c[i][0] + bb.x), relu_nan(c[i][1] + bb.y));
-    hi[i] = pack_bf16(relu_nan(c[i][2] + bb.x), relu_nan(c[i][3] + bb.y));
+    lo[i] = pack_bf16(act(c[i][0] + bb.x), act(c[i][1] + bb.y));
+    hi[i] = pack_bf16(act(c[i][2] + bb.x), act(c[i][3] + bb.y));
   }
 }
 
@@ -562,17 +571,20 @@ __device__ __forceinline__ void cl_slot_sum(float (&v)[6], const float* slots, i
 // code that fwd_cluster and inv_cluster run, so that a forward and its
 // inverse over the same passthrough coordinates compute the same (s, t)
 // bits. hzb: the tile's cloud's hz of the layer; swh, wxt, wo8: the
-// layer's stage; bhk: bh of the layer from the warp's first own column.
+// layer's stage; bhk: bh of the layer from the warp's first own column;
+// act: the conditioner's activation (the forward's relu that keeps a NaN;
+// the inverse's, inv_cluster).
 // The group's e-th exchange (e = q (NH1 - 1) + j - 1) uses exchange tile
 // e & 1. A rank writes tile e & 1 again at exchange e + 2 only after the
 // barrier of exchange e + 1, which no rank reaches before its reads of
 // exchange e are done; the caller's barrier after a group's last tile
 // follows every read of the group, so each group starts at tile 0.
-template <int H, int NH1>
+template <int H, int NH1, typename Act = ReluNan>
 __device__ __forceinline__ void cl_st_partials(cgrp::cluster_group& cl, unsigned char* smem,
                                                const float (&x)[3], const float* hzb,
                                                const bf16* swh, const bf16* wxt, const bf16* wo8,
-                                               const float* bhk, float* myslot, int q, int rank) {
+                                               const float* bhk, float* myslot, int q, int rank,
+                                               const Act& act = Act()) {
   using Q = Cl<H, NH1, false>;
   constexpr int C = Q::C, W = Q::W, NW = Q::NW, LDH = Q::LDH;
   constexpr int XS = round128(Q::T * LDH * 2) / 2, RS = round128(CL_HC * LDH * 2) / 2;
@@ -583,10 +595,10 @@ __device__ __forceinline__ void cl_st_partials(cgrp::cluster_group& cl, unsigned
   uint32_t lo[NW], hi[NW];
   {
     Rows<H> h;
-    first_rows<H>(h, a0, a1, wxt, hzb, nullptr);
+    first_rows<H>(h, a0, a1, wxt, hzb, nullptr, act);
     float c[NW][4];
     cl_prod_regs<H, NW>(c, h, swh + c0 * LDH);
-    cl_epi_act<NW>(lo, hi, c, bhk);
+    cl_epi_act<NW>(lo, hi, c, bhk, act);
   }
 #pragma unroll
   for (int j = 1; j < NH1; ++j) {
@@ -597,7 +609,7 @@ __device__ __forceinline__ void cl_st_partials(cgrp::cluster_group& cl, unsigned
     cl.sync();   // every rank's columns of h_j
     float c[NW][4];
     cl_prod_smem<H, NW, false>(c, xch + xb * XS + r0 * LDH, LDH, swh + j * RS + c0 * LDH, LDH);
-    cl_epi_act<NW>(lo, hi, c, bhk + j * H);
+    cl_epi_act<NW>(lo, hi, c, bhk + j * H, act);
   }
   if constexpr (Q::WC > 1) {
     bf16* own = reinterpret_cast<bf16*>(smem + Q::HOWN) + r0 * Q::LDO + c0;
@@ -785,7 +797,90 @@ __device__ __forceinline__ void base_noise(float (&x)[3], int n, int b, int N, s
     for (int c = 0; c < 3; ++c) u_out[cloud + (size_t)c * N + n] = x[c];
 }
 
-// The inverse (the sampler's bf16 relu layout at these shapes), on the
+// The int8 mode's stage of layer k for rank `rank` (inv_cluster with W =
+// int8_t; whole-layer stages): each weight stored in the bf16 stage as
+// rnd<bf16>(q s) with its layer's scale (scales [K, 8]: Wx at k*8, Wh at
+// k*8+1, Wout at k*8+2), the bits that the bf16 mode stages from the
+// host-dequantized stacks. cp.async cannot convert and no plan has room
+// for a raw int8 area beside its stages at every shape, so the bytes go
+// through registers: each thread loads its 16-byte chunks of a row slab
+// (all of them before the first store), converts them (convert16) and
+// stores them; Wout and Wx^T element by element. Synchronous, where
+// cl_stage's copies are asynchronous: a two-stage plan stages the next
+// layer before it runs this one (a few microseconds a layer, against the
+// layer's ~100).
+template <int H, int NH1>
+__device__ void cl_stage_int8(unsigned char* st, const int8_t* wx, const int8_t* wh,
+                              const int8_t* wout, const float* scales, int k, int rank) {
+  using Q = Cl<H, NH1, false>;
+  constexpr int LDH = Q::LDH, LDO = Q::LDO, VPR = H / 16, PER = CL_HC * VPR / THREADS;
+  static_assert(CL_HC * VPR % THREADS == 0, "every thread converts as many chunks of a slab");
+  const float sx = scales[k * 8], sh = scales[k * 8 + 1], so = scales[k * 8 + 2];
+  for (int j = 0; j < NH1; ++j) {
+    const int8_t* g = wh + ((size_t)k * NH1 + j) * H * H + (size_t)rank * CL_HC * H;
+    bf16* dst = reinterpret_cast<bf16*>(st + Q::SWH + j * round128(CL_HC * LDH * 2));
+    int4 q[PER];
+#pragma unroll
+    for (int i = 0; i < PER; ++i) {
+      const int v = threadIdx.x + i * THREADS;
+      q[i] = *reinterpret_cast<const int4*>(g + (size_t)(v / VPR) * H + (v % VPR) * 16);
+    }
+#pragma unroll
+    for (int i = 0; i < PER; ++i) {
+      const int v = threadIdx.x + i * THREADS;
+      convert16(dst + (v / VPR) * LDH + (v % VPR) * 16, reinterpret_cast<const int8_t*>(&q[i]),
+                sh);
+    }
+  }
+  bf16* wo = reinterpret_cast<bf16*>(st + Q::SWOUT);
+  for (int e = threadIdx.x; e < 6 * CL_HC; e += THREADS)
+    wo[(e / CL_HC) * LDO + e % CL_HC] =
+        as_bf16(wout[((size_t)k * 6 + e / CL_HC) * H + rank * CL_HC + e % CL_HC], so);
+  bf16* wxt = reinterpret_cast<bf16*>(st + Q::SWXT);
+  for (int e = threadIdx.x; e < 3 * H; e += THREADS)
+    wxt[(e % 3) * LDH + e / 3] = as_bf16(wx[(size_t)k * 3 * H + e], sx);
+}
+
+// a ? x : y on operands already evaluated (a call's arguments are): a
+// select on expressions evaluates only the chosen one, and the compiler
+// put a branch around gelu's at every call site of the epilogue
+__device__ __forceinline__ float cl_sel(bool a, float x, float y) { return a ? x : y; }
+
+// The inverse's runtime activation (gelu, leaky_relu, and tanh with int8
+// weights; relu is the compile-time ReluNan, tanh with bf16 weights
+// ActTanh): dpfx_common.cuh's `activate`, value for value (the same
+// expressions, so the same bits), without a branch: every call computes
+// one tanhf (of gelu's argument or of v) and selects. On an H100 (PERF.md)
+// an instance on `activate`'s switch (flow_f32.cuh's ActRt) took 2.8-3.4x
+// this one's time at H=256: the switch splits the products' unrolled code
+// into blocks across which the scheduler moves no mma.
+struct ActSelect {
+  int act;
+  __device__ __forceinline__ float operator()(float v) const {
+    const bool gelu = act == 1;
+    const float t = tanhf(cl_sel(gelu, 0.7978845608028654f * (v + 0.044715f * v * v * v), v));
+    const float g = 0.5f * v * (1.f + t);
+    const float leaky = cl_sel(v >= 0.f, v, 0.01f * v), relu = cl_sel(v > 0.f, v, 0.f);
+    return cl_sel(gelu, g, cl_sel(act == 2, t, cl_sel(act == 3, leaky, relu)));
+  }
+};
+
+// tanh as a compile-time case (with bf16 weights): ActSelect's tanhf and
+// selects cost 18-34% of its time against this one's at H=256 (PERF.md),
+// past the 15% that buys an instance a shape
+struct ActTanh {
+  int act;
+  __device__ __forceinline__ float operator()(float v) const { return tanhf(v); }
+};
+
+// the inverse's activation from its code: relu (ReluNan) takes none; the
+// others (ActSelect, ActTanh) are built from it
+template <typename Act>
+__device__ __forceinline__ Act cl_act(int act) { return Act{act}; }
+template <>
+__device__ __forceinline__ ReluNan cl_act<ReluNan>(int) { return ReluNan{}; }
+
+// The inverse (the sampler's bf16 layout at these shapes), on the
 // forward's plan and grid, the layers walked K-1 .. 0. ut [B, CR, N] (CR =
 // 3 or 8; coordinates in rows 0-2) is read at the first layer walked; with
 // ut null the base noise is drawn there instead (base_noise: keyed by
@@ -796,14 +891,22 @@ __device__ __forceinline__ void base_noise(float (&x)[3], int n, int b, int N, s
 // point between layers, one copy per rank (every rank computes the same
 // bits and reads back what it wrote). The coupling is rows_kernel's
 // inverse: x = (x - t) exp(-s), s = cap tanh(st / cap), no log-det.
-template <int H, int NH1>
+// Act: the activation (ReluNan, relu as a compile-time case, as the
+// forward's; ActTanh; or ActSelect on the code `act_code`); W: the weights' type
+// (bf16; int8_t with `scales` [K, 8], staged by cl_stage_int8; or void:
+// int8 where `scales` is not null, else bf16, a branch once a layer's
+// stage). Every instance of a shape has the same plan, tiles and sum
+// order, so the int8 mode gives the bf16 mode's bits on the
+// host-dequantized stacks.
+template <int H, int NH1, typename Act = ReluNan, typename W = bf16>
 __global__ void __launch_bounds__(THREADS, 1)
 inv_cluster(const float* __restrict__ hz, const float* __restrict__ ut, float* __restrict__ out,
-            float* __restrict__ u_out, float* __restrict__ carry, const bf16* __restrict__ wx,
-            const bf16* __restrict__ wh, const float* __restrict__ bh,
-            const bf16* __restrict__ wout, const float* __restrict__ bout,
+            float* __restrict__ u_out, float* __restrict__ carry, const W* __restrict__ wx,
+            const W* __restrict__ wh, const float* __restrict__ bh,
+            const W* __restrict__ wout, const float* __restrict__ bout,
             const float* __restrict__ masks, int B, int CR, int N, int K, float cap,
-            unsigned long long seed, float noise_scale) {
+            unsigned long long seed, float noise_scale, int act_code,
+            const float* __restrict__ scales) {
   using Q = Cl<H, NH1, false>;
   constexpr int T = Q::T, C = Q::C, G = Q::G;
   constexpr int SS = round128(T * 6 * 4) / 4;   // floats of one tile's slot
@@ -816,20 +919,36 @@ inv_cluster(const float* __restrict__ hz, const float* __restrict__ ut, float* _
   float* cr = carry + (size_t)rank * B * 3 * N;
   float* xsg = reinterpret_cast<float*>(smem + Q::XSB);   // [G][4][T], rows 0-2
   auto stage = [&](int st) { return smem + Q::STAGE + st * Q::STAGE_BYTES; };
+  auto stage_layer = [&](int st, int kk) {
+    if constexpr (std::is_same<W, bf16>::value) {
+      cl_stage<H, NH1, false>(stage(st), wx, wh, wout, kk, rank);
+    } else if constexpr (std::is_same<W, int8_t>::value) {
+      cl_stage_int8<H, NH1>(stage(st), wx, wh, wout, scales, kk, rank);
+    } else if (scales) {
+      cl_stage_int8<H, NH1>(stage(st), static_cast<const int8_t*>(wx),
+                            static_cast<const int8_t*>(wh), static_cast<const int8_t*>(wout),
+                            scales, kk, rank);
+    } else {
+      cl_stage<H, NH1, false>(stage(st), static_cast<const bf16*>(wx),
+                              static_cast<const bf16*>(wh), static_cast<const bf16*>(wout), kk,
+                              rank);
+    }
+  };
+  const Act fn = cl_act<Act>(act_code);
 
   cl_zero_pads<H, NH1, false>(smem);
-  cl_stage<H, NH1, false>(stage(0), wx, wh, wout, K - 1, rank);
+  stage_layer(0, K - 1);
   cl.sync();   // every CTA of the cluster runs before any writes into another
   int it = 0;
   for (int i = 0; i < K; ++i) {
     const int k = K - 1 - i, st = Q::NST == 2 ? (i & 1) : 0;
     if (Q::NST == 1 && i > 0) {
       __syncthreads();   // every warp is done with the single stage
-      cl_stage<H, NH1, false>(stage(0), wx, wh, wout, k, rank);
+      stage_layer(0, k);
     }
     cp_async_wait_all();
     __syncthreads();     // layer k's stage is visible; layer k+1 is done with the other
-    if (Q::NST == 2 && i + 1 < K) cl_stage<H, NH1, false>(stage(st ^ 1), wx, wh, wout, k - 1, rank);
+    if (Q::NST == 2 && i + 1 < K) stage_layer(st ^ 1, k - 1);
     const bf16* swh = reinterpret_cast<const bf16*>(stage(st) + Q::SWH);
     const bf16* wxt = reinterpret_cast<const bf16*>(stage(st) + Q::SWXT);
     const bf16* wo8 = reinterpret_cast<const bf16*>(stage(st) + Q::SWOUT);
@@ -868,7 +987,7 @@ inv_cluster(const float* __restrict__ hz, const float* __restrict__ ut, float* _
 #pragma unroll
         for (int c = 0; c < 3; ++c) x[c] = xsg[(q * 4 + c) * T + r0 + p];
         cl_st_partials<H, NH1>(cl, smem, x, hz + ((size_t)b * K + k) * H, swh, wxt, wo8, bhk,
-                               slot + (q * C + rank) * SS, q, rank);
+                               slot + (q * C + rank) * SS, q, rank, fn);
       }
       cl.sync();   // every rank's (s, t) partials of the group are in every rank's slots
       if (cgp == 0) {
@@ -1493,25 +1612,28 @@ cudaError_t launch_fwd_cluster(const float* xt, const float* hz, float* u, float
                    static_cast<const bf16*>(wout), bout, masks, B, N, K, cap);
 }
 
-// clusters of the inverse's persistent grid that the card holds at once
+// clusters of the inverse's persistent grid that the card holds at once:
+// the relu instance's, which every instance of the shape shares (the same
+// block and shared memory, one block an SM)
 template <int H, int NH1>
 int inverse_grid() {
   return cl_max_clusters(inv_cluster<H, NH1>, H / CL_HC, Cl<H, NH1, false>::TOTAL);
 }
 
-template <int H, int NH1>
+template <int H, int NH1, typename Act, typename W>
 cudaError_t launch_inv_cluster(const float* hz, const float* ut, float* out, float* u_out,
                                float* carry, const void* wx, const void* wh, const float* bh,
                                const void* wout, const float* bout, const float* masks, int B,
                                int CR, int N, int K, float cap, unsigned long long seed,
-                               float noise_scale, int clusters, cudaStream_t stream) {
+                               float noise_scale, int act, const float* scales, int clusters,
+                               cudaStream_t stream) {
   using Q = Cl<H, NH1, false>;
   const int groups = (B * ((N + Q::T - 1) / Q::T) + Q::G - 1) / Q::G;
   if (clusters > groups) clusters = groups;
-  return cl_launch(inv_cluster<H, NH1>, clusters, Q::C, Q::TOTAL, stream, hz, ut, out, u_out,
-                   carry, static_cast<const bf16*>(wx), static_cast<const bf16*>(wh), bh,
-                   static_cast<const bf16*>(wout), bout, masks, B, CR, N, K, cap, seed,
-                   noise_scale);
+  return cl_launch(inv_cluster<H, NH1, Act, W>, clusters, Q::C, Q::TOTAL, stream, hz, ut, out,
+                   u_out, carry, static_cast<const W*>(wx), static_cast<const W*>(wh), bh,
+                   static_cast<const W*>(wout), bout, masks, B, CR, N, K, cap, seed, noise_scale,
+                   act, scales);
 }
 
 template <int H, int NH1>

@@ -108,6 +108,26 @@ struct Ident {
   __device__ __forceinline__ float operator()(float v) const { return v; }
 };
 
+// a stored weight as bf16: as it is, or an int8 q with its scale s as
+// rnd<bf16>(q * s), what dequantize() and the cast to bf16 give on the host
+// (the sampler's int8 mode: rows_kernel and inv_cluster)
+__device__ __forceinline__ bf16 as_bf16(bf16 v, float) { return v; }
+__device__ __forceinline__ bf16 as_bf16(int8_t q, float s) {
+  return __float2bfloat16_rn(__fmul_rn((float)q, s));
+}
+
+// 16 int8 weights at q into 16 bf16 rnd<bf16>(q * s) at dst (16-byte aligned)
+__device__ __forceinline__ void convert16(bf16* dst, const int8_t* q, float s) {
+  const int4 raw = *reinterpret_cast<const int4*>(q);
+  const int8_t* b = reinterpret_cast<const int8_t*>(&raw);
+  uint32_t w[8];
+#pragma unroll
+  for (int i = 0; i < 8; ++i)
+    w[i] = pack_bf16(__fmul_rn((float)b[2 * i], s), __fmul_rn((float)b[2 * i + 1], s));
+  *reinterpret_cast<uint4*>(dst) = make_uint4(w[0], w[1], w[2], w[3]);
+  *reinterpret_cast<uint4*>(dst + 8) = make_uint4(w[4], w[5], w[6], w[7]);
+}
+
 // act(c + bias) of C tile nt, cast to bf16 into the A fragments (and into
 // the warp's rows of a shared tile)
 template <int H, typename Act>

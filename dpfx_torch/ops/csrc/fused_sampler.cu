@@ -43,7 +43,11 @@
 //   * The activation is relu as a compile-time case (the flagship's) in the
 //     two-stage instances; the others (gelu, tanh, leaky_relu), and every
 //     activation of the one-stage instances, go through the runtime code
-//     `activate` (about twice the time: a switch in every epilogue).
+//     `activate` (about twice the time: a switch in every epilogue). The
+//     cluster inverse takes every case at H=256 with n_hidden 2-4 and the
+//     cases of H=128 that timed faster there (below); the one-stage
+//     instances keep H=256 with n_hidden 1 and the conditioners deeper than
+//     the cluster layout.
 //   * Rounding is the Pallas kernel's: bf16 operands, f32 sums, + hz or bias
 //     in f32, the activation in f32, one cast; the coupling update in f32.
 //     A forward (fused_train.cu's fwd_kernel_mma) and this inverse run the
@@ -51,17 +55,24 @@
 //     compute the same (s, t) bits, and x comes back through a round trip
 //     up to the f32 rounding of the affine update.
 //
-// cluster inverse (`inv_cluster`, flow_cluster.cuh; bf16, relu, weights in
-// bf16): at the shapes where the training kernels take their cluster
-// layout (H=128 with n_hidden 3-4, H=256 with n_hidden 2-3) the wrapper
-// routes the inverse onto the training forward's cluster design walked
-// backwards: a layer split across H / 64 CTAs, a persistent grid with the
-// layer loop outside the groups of tiles (each weight read from L2 once per
-// cluster, not once per 128-point tile as rows_kernel<256>'s 1,024 blocks
-// do), and the forward's own (s, t) code (cl_st_partials), so a forward and
-// its inverse share (s, t) bits there as fwd_kernel_mma and rows_kernel do
-// at the flagship's shape. Where rows_kernel timed faster in turns the
-// wrapper keeps it (fused_sampler.ROWS_KEPT).
+// cluster inverse (`inv_cluster`, flow_cluster.cuh; bf16): at the shapes
+// where the training kernels take their cluster layout (H=128 with n_hidden
+// 3-4, H=256 with n_hidden 2-4) the wrapper routes the inverse onto the
+// training forward's cluster design walked backwards: a layer split across
+// H / 64 CTAs, a persistent grid with the layer loop outside the groups of
+// tiles (each weight read from L2 once per cluster, not once per 128-point
+// tile as rows_kernel<256>'s 1,024 blocks do), and the forward's own (s, t)
+// code (cl_st_partials), so a forward and its inverse share (s, t) bits
+// there as fwd_kernel_mma and rows_kernel do at the flagship's shape. Relu
+// is a compile-time case (ReluNan), and tanh with bf16 weights (ActTanh);
+// the other cases share one instance that selects at run time without a
+// branch (ActSelect); the int8
+// mode's stage converts the bytes through registers (cl_stage_int8: no
+// plan has room for a raw area at every shape), the bits of the bf16 mode
+// on the host-dequantized stacks. At H=256 every case runs there; at H=128
+// the cases that timed faster than rows_kernel in turns (launch_inverse's
+// int8_relu_case / int8_other_case; fused_sampler.ROWS_KEPT and
+// CLUSTER_CASES name the route).
 //
 // f32 mode (`f32_kernel`): the tight-check mode, IEEE f32 FMA with k in
 // order, the block's 128 points in shared memory, one thread per point for
@@ -130,25 +141,6 @@ struct SampleAct {
     return RELU ? (v > 0.f ? v : 0.f) : activate(v, act);
   }
 };
-
-// a stored weight as bf16: as it is, or an int8 q with its scale s as
-// rnd<bf16>(q * s), what dequantize() and the cast to bf16 give on the host
-__device__ __forceinline__ bf16 as_bf16(bf16 v, float) { return v; }
-__device__ __forceinline__ bf16 as_bf16(int8_t q, float s) {
-  return __float2bfloat16_rn(__fmul_rn((float)q, s));
-}
-
-// 16 int8 weights at q into 16 bf16 rnd<bf16>(q * s) at dst (16-byte aligned)
-__device__ __forceinline__ void convert16(bf16* dst, const int8_t* q, float s) {
-  const int4 raw = *reinterpret_cast<const int4*>(q);
-  const int8_t* b = reinterpret_cast<const int8_t*>(&raw);
-  uint32_t w[8];
-#pragma unroll
-  for (int i = 0; i < 8; ++i)
-    w[i] = pack_bf16(__fmul_rn((float)b[2 * i], s), __fmul_rn((float)b[2 * i + 1], s));
-  *reinterpret_cast<uint4*>(dst) = make_uint4(w[0], w[1], w[2], w[3]);
-  *reinterpret_cast<uint4*>(dst + 8) = make_uint4(w[4], w[5], w[6], w[7]);
-}
 
 // mats [H x H] matrices of g (W per element, int8 with its scale s) into
 // rows of LD at dst, as bf16; the whole block, synchronously
@@ -439,6 +431,41 @@ cudaError_t dispatch(int H, const Args& a, cudaStream_t s) {
 #undef DPFX_CASE
 }
 
+// The cluster inverse's cases at (H, NH1) beside relu with bf16 weights
+// (fused_sampler.CLUSTER_CASES mirrors them): relu with int8 weights, and
+// the other activations (gelu, tanh, leaky_relu) with bf16 weights and
+// with int8 ones. At H=128 the route takes each where it timed faster than
+// rows_kernel in turns (PERF.md).
+template <int H, int NH1>
+constexpr bool int8_relu_case = H == 256 || NH1 == 3;
+template <int H, int NH1>
+constexpr bool int8_other_case = H == 256 || NH1 == 2;
+
+// the instance of a shape for the activation and the weights: relu
+// (ReluNan) as a compile-time case, with bf16 weights or int8 ones; tanh
+// with bf16 weights (ActTanh); the other cases on one instance (ActSelect:
+// `activate`'s values without its branches) whose weights are chosen at
+// run time (W = void)
+template <int H, int NH1>
+cudaError_t launch_inverse(const float* hz, const float* ut, float* out, float* u_out,
+                           float* carry, const void* wx, const void* wh, const float* bh,
+                           const void* wout, const float* bout, const float* masks, int B, int C,
+                           int N, int K, float cap, unsigned long long seed, float noise_scale,
+                           int act, const float* scales, int clusters, cudaStream_t s) {
+#define DPFX_INV(ACT, W)                                                                         \
+  return launch_inv_cluster<H, NH1, ACT, W>(hz, ut, out, u_out, carry, wx, wh, bh, wout, bout,  \
+                                            masks, B, C, N, K, cap, seed, noise_scale, act,     \
+                                            scales, clusters, s)
+  if (act == 2 && !scales) DPFX_INV(ActTanh, bf16);
+  if (act != 0 && (!scales || int8_other_case<H, NH1>)) DPFX_INV(ActSelect, void);
+  if (!scales) DPFX_INV(ReluNan, bf16);
+  if constexpr (int8_relu_case<H, NH1>) {
+    if (act == 0) DPFX_INV(ReluNan, int8_t);
+  }
+  return cudaErrorInvalidValue;
+#undef DPFX_INV
+}
+
 }  // namespace
 
 extern "C" {
@@ -466,26 +493,37 @@ int dpfx_fused_sampler_launch(const float* hz, const float* ut, float* out, floa
   return (int)e;
 }
 
-// The cluster inverse (flow_cluster.cuh's inv_cluster, bf16 relu, weights
-// in bf16) at H=128 with n_hidden 3-4 and H=256 with n_hidden 2-3: shared
-// memory of one CTA (for any shape: a plan past the limit reports its
-// size), the clusters of its persistent grid that the card holds at once,
-// and the launch on `clusters` clusters of H / 64 CTAs. ut [B, CR, N] (null:
-// draw the noise, into u_out [B, 3, N] where it is not null), out [B, CR,
-// N], carry [H / 64, B, 3, N] f32 scratch.
-#define DPFX_DISPATCH_INVERSE(H, NH1, CALL)                                             \
+// The cluster inverse (flow_cluster.cuh's inv_cluster, bf16) at H=128
+// with n_hidden 3-4 and H=256 with n_hidden 2-4, in the cases that
+// launch_inverse names (every case at H=256): shared memory of one CTA
+// (for any shape: a plan past the limit reports its size), the clusters of
+// its persistent grid that the card holds at once, and the launch on
+// `clusters` clusters of H / 64 CTAs. ut [B, CR, N] (null: draw the noise,
+// into u_out [B, 3, N] where it is not null), out [B, CR, N], carry [H /
+// 64, B, 3, N] f32 scratch; act the activation's code, scales null (weights
+// in bf16) or [K, 8] (int8 weights).
+#define DPFX_DISPATCH_INVERSE(H, NH1, CALL, NONE)                                       \
   if (H == 128 && NH1 == 2) { constexpr int HH = 128, NN = 2; return (int)(CALL); }     \
   if (H == 128 && NH1 == 3) { constexpr int HH = 128, NN = 3; return (int)(CALL); }     \
   if (H == 256 && NH1 == 1) { constexpr int HH = 256, NN = 1; return (int)(CALL); }     \
   if (H == 256 && NH1 == 2) { constexpr int HH = 256, NN = 2; return (int)(CALL); }     \
-  return (int)cudaErrorInvalidValue;
+  if (H == 256 && NH1 == 3) { constexpr int HH = 256, NN = 3; return (int)(CALL); }     \
+  return (int)(NONE);
 
 int dpfx_fused_sampler_cluster_smem_bytes(int H, int NH1) {
   return cluster_plan(H, NH1, false).total;
 }
 
 int dpfx_fused_sampler_cluster_grid(int H, int NH1) {
-  DPFX_DISPATCH_INVERSE(H, NH1, (inverse_grid<HH, NN>()))
+  DPFX_DISPATCH_INVERSE(H, NH1, (inverse_grid<HH, NN>()), cudaErrorInvalidValue)
+}
+
+// 1 where inv_cluster is built for (H, NH1) with the activation code act
+// and int8 weights (int8 != 0) or bf16 ones, else 0
+int dpfx_fused_sampler_cluster_built(int H, int NH1, int act, int int8) {
+  DPFX_DISPATCH_INVERSE(H, NH1,
+                        (!int8 || (act == 0 ? int8_relu_case<HH, NN> : int8_other_case<HH, NN>)),
+                        0)
 }
 
 int dpfx_fused_sampler_cluster_launch(const float* hz, const float* ut, float* out, float* u_out,
@@ -493,12 +531,14 @@ int dpfx_fused_sampler_cluster_launch(const float* hz, const float* ut, float* o
                                       const float* bh, const void* wout, const float* bout,
                                       const float* masks, int B, int C, int N, int K, int H,
                                       int NH1, float cap, unsigned long long seed,
-                                      float noise_scale, int clusters, void* stream) {
+                                      float noise_scale, int act, const float* scales,
+                                      int clusters, void* stream) {
   if (B <= 0 || N <= 0 || K <= 0 || C < 3 || clusters <= 0) return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  DPFX_DISPATCH_INVERSE(H, NH1, (launch_inv_cluster<HH, NN>(hz, ut, out, u_out, carry, wx, wh, bh,
-                                                            wout, bout, masks, B, C, N, K, cap,
-                                                            seed, noise_scale, clusters, s)))
+  DPFX_DISPATCH_INVERSE(H, NH1, (launch_inverse<HH, NN>(hz, ut, out, u_out, carry, wx, wh, bh,
+                                                        wout, bout, masks, B, C, N, K, cap, seed,
+                                                        noise_scale, act, scales, clusters, s)),
+                        cudaErrorInvalidValue)
 }
 
 // the CUDA runtime's text for an error a launch returned

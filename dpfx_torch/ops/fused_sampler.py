@@ -21,8 +21,9 @@ compute dtype; the coupling arithmetic is float32.
 int8 mode of ``dpfx``: Wx, Wh and Wout as int8 with one f32 scale per
 (layer, tensor), dequantized where the kernel stages each layer's weights,
 as ``rnd(q * s)`` in the compute dtype. That equals, bit for bit, the
-kernel on the host-dequantized stacks (``dequantize``), which is also the
-plain version.
+kernel on the host-dequantized stacks (``dequantize``) on the same layout,
+which is also the plain version (the two modes take the same layout but
+at H=128 with n_hidden 3-4, where ``CLUSTER_CASES`` routes each as timed).
 
 The kernel draws its base noise with Philox4x32-10 keyed by the seed and
 counted by (point, cloud), then Box-Muller; ``philox_noise_plain`` is the
@@ -33,14 +34,17 @@ Every wrapper takes its plain PyTorch version for a tensor on the CPU and
 launches the kernel for a CUDA tensor (or raises). ``launches`` counts the
 kernel launches of each wrapper, ``layout_launches`` the same by layout.
 
-Layouts (``inverse_layout``): f32 runs ``f32_kernel``; bf16 with relu and
-weights in bf16 runs the cluster inverse (``inv_cluster`` in
-``csrc/flow_cluster.cuh``: a layer split across a thread-block cluster of
-H / 64 CTAs, on the training forward's (s, t) code) at the shapes where the
-training kernels take their cluster layout (``fused_train.uses_cluster``)
-and the inverse is built (``CLUSTER_INVERSE``) but ``ROWS_KEPT``; every
-other bf16 case (the int8 mode, the other activations, the shapes a block
-holds, H=256 with n_hidden 4) runs ``rows_kernel``.
+Layouts (``inverse_layout``): f32 runs ``f32_kernel``; bf16 runs the
+cluster inverse (``inv_cluster`` in ``csrc/flow_cluster.cuh``: a layer
+split across a thread-block cluster of H / 64 CTAs, on the training
+forward's (s, t) code) at the shapes where the training kernels take their
+cluster layout (``fused_train.uses_cluster``) and the inverse is built
+(``CLUSTER_INVERSE``), in the cases that timed faster there than
+``rows_kernel`` (``ROWS_KEPT``, ``CLUSTER_CASES``): at H=256 with n_hidden
+2-4 every activation, with weights in bf16 or int8; at H=128 with n_hidden
+3-4 the activations other than relu, and some int8 cases. Every other bf16
+case (the shapes a block holds, relu with bf16 weights at H=128) runs
+``rows_kernel``.
 """
 
 from __future__ import annotations
@@ -311,12 +315,14 @@ def _cluster_lib() -> ctypes.CDLL:
         p, p, p, p, p, p,             # wx, wh, bh, wout, bout, masks
         i, i, i, i, i, i,             # B, C, N, K, H, n_hidden-1
         ctypes.c_float, ctypes.c_uint64, ctypes.c_float,  # scale cap, seed, noise scale
+        i, p,                         # activation code, int8 scales [K, 8] (null: bf16 weights)
         i, p,                         # clusters, stream
     ]
     lib.dpfx_fused_sampler_cluster_smem_bytes.argtypes = [i, i]
     lib.dpfx_fused_sampler_cluster_grid.argtypes = [i, i]
+    lib.dpfx_fused_sampler_cluster_built.argtypes = [i, i, i, i]   # H, n_hidden-1, act, int8
     for fn in (lib.dpfx_fused_sampler_cluster_launch, lib.dpfx_fused_sampler_cluster_smem_bytes,
-               lib.dpfx_fused_sampler_cluster_grid):
+               lib.dpfx_fused_sampler_cluster_grid, lib.dpfx_fused_sampler_cluster_built):
         fn.restype = ctypes.c_int
     return lib
 
@@ -334,7 +340,8 @@ def _error_text(err: int) -> str:
 @functools.lru_cache(maxsize=None)
 def _cluster_grid(hidden: int, n_hidden_m1: int, device_index: int) -> int:
     """Clusters of the cluster inverse's persistent grid: as many as the
-    card holds at once."""
+    card holds at once (the same for every activation and the int8 mode:
+    their instances share the shape's block and shared memory)."""
     with torch.cuda.device(device_index):
         n = _cluster_lib().dpfx_fused_sampler_cluster_grid(hidden, n_hidden_m1)
     if n <= 0:
@@ -344,27 +351,48 @@ def _cluster_grid(hidden: int, n_hidden_m1: int, device_index: int) -> int:
 
 
 # the cluster layout's shapes (H, n_hidden - 1) where rows_kernel timed
-# faster than the cluster inverse in turns (B=64 x 2048, K=32; PERF.md:
-# H=128 with n_hidden 3 and 4, where rows_kernel keeps two weight stages,
-# 1.585 / 2.163 ms against 2.616 / 3.745 on an H100): the inverse stays on
-# rows_kernel there; chip_smoke.py phase 3l times both at each shape
+# faster than the cluster inverse in turns for relu with weights in bf16
+# (B=64 x 2048, K=32; PERF.md: H=128 with n_hidden 3 and 4, where
+# rows_kernel keeps two weight stages, 1.487 / 2.097 ms against 2.445 /
+# 3.680 on an H100): that case stays on rows_kernel there; chip_smoke.py
+# phase 3l times both at each shape
 ROWS_KEPT: Tuple[Tuple[int, int], ...] = ((128, 2), (128, 3))
 # the shapes (H, n_hidden - 1) csrc/fused_sampler.cu builds inv_cluster for:
-# those whose training forward stages whole layers (not H=256 with n_hidden
-# 4, whose forward streams its slabs through the ring)
-CLUSTER_INVERSE: Tuple[Tuple[int, int], ...] = ((128, 2), (128, 3), (256, 1), (256, 2))
+# every cluster shape (each training forward plan stages whole layers)
+CLUSTER_INVERSE: Tuple[Tuple[int, int], ...] = ((128, 2), (128, 3), (256, 1), (256, 2), (256, 3))
+_OTHER = ("gelu", "tanh", "leaky_relu")
+# the cluster inverse's other cases at each shape of CLUSTER_INVERSE: (the
+# activations besides relu with weights in bf16, the activations with int8
+# weights) that run inv_cluster (csrc/fused_sampler.cu's int8_relu_case and
+# int8_other_case build them). Every case at H=256; at H=128 those that
+# timed faster than rows_kernel in turns (B=64 x 2048, K=32, PERF.md: the
+# other activations 4.9 / 6.5 ms against 5.6-6.3 / 7.8-8.8; int8 relu at
+# n_hidden 4 3.62 against 3.95, at 3 2.47 against 1.78; int8 with the others
+# at n_hidden 3 4.7 against 6.1-7.2, at 4 6.5 against 4.9-5.4)
+CLUSTER_CASES: Dict[Tuple[int, int], Tuple[Tuple[str, ...], Tuple[str, ...]]] = {
+    (128, 2): (_OTHER, _OTHER),
+    (128, 3): (_OTHER, ("relu",)),
+    **{(256, nh1): (_OTHER, ("relu",) + _OTHER) for nh1 in (1, 2, 3)},
+}
 
 
 def inverse_layout(hidden: int, n_hidden_m1: int, dtype: torch.dtype,
                    activation: str = "relu", int8: bool = False) -> str:
     """The layout that runs the inverse: "f32" (``f32_kernel``), "cluster"
-    (``inv_cluster``: bf16, relu, weights in bf16, at the shapes of
-    ``CLUSTER_INVERSE`` where ``fused_train.uses_cluster`` holds, but
-    ``ROWS_KEPT``) or "rows" (``rows_kernel``: every other bf16 case)."""
+    (``inv_cluster``: bf16 at the shapes of ``CLUSTER_INVERSE`` where
+    ``fused_train.uses_cluster`` holds, for relu with weights in bf16 but
+    at ``ROWS_KEPT``, for the other cases those of ``CLUSTER_CASES``) or
+    "rows" (``rows_kernel``: every other bf16 case)."""
     if dtype != torch.bfloat16:
         return "f32"
-    if (activation != "relu" or int8 or (hidden, n_hidden_m1) in ROWS_KEPT
-            or (hidden, n_hidden_m1) not in CLUSTER_INVERSE):
+    shape = (hidden, n_hidden_m1)
+    if shape not in CLUSTER_INVERSE:
+        return "rows"
+    if int8:
+        taken = activation in CLUSTER_CASES[shape][1]
+    else:
+        taken = shape not in ROWS_KEPT if activation == "relu" else activation in CLUSTER_CASES[shape][0]
+    if not taken:
         return "rows"
     from dpfx_torch.ops import fused_train   # imports this module
 
@@ -463,6 +491,7 @@ def _launch(sp: StackedFlowParams, hz: Tensor, ut: Optional[Tensor], out: Tensor
                 ptr(hz), ptr(ut), ptr(out), ptr(u_out), carry.data_ptr(),
                 ptr(wx), ptr(wh), ptr(sp.bh), ptr(wout), ptr(sp.bout), ptr(sp.masks),
                 b, c, n, k, h, nh1, sp.scale_cap, seed, float(noise_scale),
+                ACT_CODES[activation], ptr(quantized.scales) if quantized is not None else None,
                 _cluster_grid(h, nh1, hz.device.index or 0), stream)
         else:
             err = _lib().dpfx_fused_sampler_launch(

@@ -2,13 +2,15 @@
 the quantisation error (the counterpart of the JAX package's
 ``tools/bench_sample_int8.py``).
 
-    python -m dpfx_torch.tools.bench_sample_int8 [--device cpu]
+    python -m dpfx_torch.tools.bench_sample_int8 [--run-flow] [--device cpu]
     Env: DPFX_INT8_CKPT (a config; default
          configs/flagship_quality_v3_aug_100k.yaml), DPFX_INT8_B (256),
          DPFX_INT8_N (2048), DPFX_INT8_REPS (30)
 
 The model is the flagship's point flow (32 layers, H=128, bf16, scale cap
-3). Its weights come from the newest checkpoint of ``DPFX_INT8_CKPT``'s run
+3); with ``--run-flow`` it is the model of ``DPFX_INT8_CKPT``'s config
+(its point flow's width, depth, dtype and activation). Its weights come
+from the newest checkpoint of ``DPFX_INT8_CKPT``'s run
 (``checkpoint_path``: ``train.ckpt_dir/name/params_<step>.pt``) when that
 config has the same point flow and a checkpoint exists; otherwise they are
 a fresh seeded initialisation, and the ``weights`` key says so. Only
@@ -69,10 +71,12 @@ def load_weights(cfg, ckpt_config: str, device):
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__,
                                  formatter_class=argparse.RawDescriptionHelpFormatter)
+    ap.add_argument("--run-flow", action="store_true",
+                    help="the model of DPFX_INT8_CKPT's config, not the flagship's point flow")
     ap.add_argument("--device", default=None, help="cuda (default) or cpu")
     args = ap.parse_args(argv)
 
-    from dpfx_torch.config import config_from_dict
+    from dpfx_torch.config import config_from_dict, load_config
     from dpfx_torch.device import resolve_device
     from dpfx_torch.models.dpf import dtype_of
     from dpfx_torch.ops.fused_sampler import (fused_sample_points, quantize_flow_params,
@@ -84,9 +88,9 @@ def main(argv=None) -> int:
     b = int(os.environ.get("DPFX_INT8_B", "256"))
     n = int(os.environ.get("DPFX_INT8_N", "2048"))
     reps = int(os.environ.get("DPFX_INT8_REPS", "30"))
-    cfg = config_from_dict(INT8_CONFIG)
-    model, src = load_weights(cfg, os.environ.get(
-        "DPFX_INT8_CKPT", "configs/flagship_quality_v3_aug_100k.yaml"), dev)
+    ckpt = os.environ.get("DPFX_INT8_CKPT", "configs/flagship_quality_v3_aug_100k.yaml")
+    cfg = load_config(ckpt) if args.run_flow else config_from_dict(INT8_CONFIG)
+    model, src = load_weights(cfg, ckpt, dev)
     pf = cfg.model.point_flow
     dtype = dtype_of(pf.compute_dtype)
     with torch.no_grad():

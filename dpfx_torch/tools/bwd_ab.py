@@ -10,7 +10,8 @@ PARENT is the root of another checkout (``git archive <commit> | tar -x -C
 <dir>``). Both ``csrc/<library>.cu`` are built with the flags of
 ``dpfx_torch/ops/_build.py`` into ``build/bwd_ab/``, all at once, and
 disassembled with ``cuobjdump -sass``; for each kernel named (``--kernel``
-as often as wanted) ptxas' registers and spills of both builds and the
+as often as wanted; ``PARENT_PART=TREE_PART`` where a template's
+arguments changed its mangled name) ptxas' registers and spills of both builds and the
 count of differing SASS lines, which leaves out addresses, encodings and
 the lines that name a branch target (they move whenever code above them
 does). Then the wrapper runs on each library
@@ -61,7 +62,8 @@ With ``--library fused_sampler --hidden H`` (``--n-hidden``, default 2)
 ``fused_sample_points`` runs at B=64, N=2048, K=32 on a point flow of that
 width (the same seeded weights) in bf16 and in f32, each build on the
 layout this tree's wrapper takes (``inverse_layout``: the cluster inverse
-where the build has it, else rows_kernel). f32 must give the same bits in
+where the build has this tree's cluster launch, with its activation and
+int8 arguments, else rows_kernel). f32 must give the same bits in
 both builds; bf16 the same bits where both take the same layout, else
 each build's clouds within phase 2's bf16 limits (max 5e-2, p99.9 2e-3)
 of the plain inverse of its own noise; each build repeats its own bits.
@@ -99,6 +101,12 @@ def kernel_sass(text: str, kernel: str) -> str:
         if m and kernel in m.group(1):
             return part
     return ""
+
+
+def kernel_part(kernel: str, build: str) -> str:
+    """The part of a mangled name to look for in ``build`` ("parent" or
+    "tree"): ``PARENT_PART=TREE_PART`` names a kernel apart in the two."""
+    return kernel.split("=")[0 if build == "parent" else -1]
 
 
 def normalized(sass: str) -> List[str]:
@@ -151,9 +159,10 @@ def _build_both(parent: Path, kernels: List[str], library: str):
         text = subprocess.run([tool, "-sass", str(so)], capture_output=True, text=True,
                               check=True).stdout
         for kernel in kernels:
-            print(f"{name} {kernel} ptxas (stack, spill stores, spill loads, registers): "
-                  f"{ptxas_of(log, kernel)}", flush=True)
-            sass[name, kernel] = kernel_sass(text, kernel)
+            part = kernel_part(kernel, name)
+            print(f"{name} {part} ptxas (stack, spill stores, spill loads, registers): "
+                  f"{ptxas_of(log, part)}", flush=True)
+            sass[name, kernel] = kernel_sass(text, part)
         libs[name] = ctypes.CDLL(str(so))
     return libs, sass
 
@@ -172,9 +181,9 @@ def main(argv=None) -> int:
     ap.add_argument("parent", type=Path, help="the root of the checkout to compare with")
     ap.add_argument("--library", choices=sorted(KERNELS), default="fused_train")
     ap.add_argument("--kernel", action="append",
-                    help="a part of a mangled kernel name, as often as wanted (default: the "
-                         "library's in KERNELS; with --hidden or --shape, the layouts' "
-                         "kernels)")
+                    help="a part of a mangled kernel name, or PARENT_PART=TREE_PART where the "
+                         "builds name it apart, as often as wanted (default: the library's in "
+                         "KERNELS; with --hidden or --shape, the layouts' kernels)")
     ap.add_argument("--turns", type=int, default=8)
     ap.add_argument("--out", type=Path, help="a directory for both disassemblies")
     ap.add_argument("--hidden", type=int, help="time the forward and the backward "
@@ -648,14 +657,15 @@ def _ab_sampler(a, libs, card: str) -> int:
     layouts = {nm: {} for nm in libs}
 
     def before_cluster(h, n_m1, dtype, activation="relu", int8=False):
-        # a build before the cluster inverse: rows_kernel for every bf16 shape
+        # a build without this tree's cluster launch (none, or one without
+        # the activation and int8 arguments): rows_kernel for every bf16 shape
         return "f32" if dtype != torch.bfloat16 else "rows"
 
     def use(name):
         for fn in (fs._lib, fs._cluster_lib, fs._cluster_grid):
             fn.cache_clear()
         _build._loaded["fused_sampler"] = libs[name]
-        has_cluster = hasattr(libs[name], "dpfx_fused_sampler_cluster_launch")
+        has_cluster = hasattr(libs[name], "dpfx_fused_sampler_cluster_built")
         fs.inverse_layout = layout_of if has_cluster else before_cluster
         for key, dt in dts.items():
             layouts[name][key] = fs.inverse_layout(kh, nh1, dt)

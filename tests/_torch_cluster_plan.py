@@ -104,20 +104,23 @@ def cluster_domain(hidden: int, n_hidden_m1: int, dtype: torch.dtype) -> bool:
                     for bwd in (False, True)))
 
 
-def inverse_carve(hidden: int, n_hidden_m1: int, t: int, nst: int) -> int:
-    """Bytes of one CTA of the inverse with a carve of its own: the
-    forward's without the per-warp log-det sums (128 B) and with x alone
-    ([G][3][T] floats) where the forward keeps x and the log-det ([G][4][T])."""
-    return (cluster_carve(hidden, n_hidden_m1, False, t, nst) - 128 - _r(G * 4 * t * 4)
-            + _r(G * 3 * t * 4))
+def inverse_carve(hidden: int, n_hidden_m1: int, t: int, nst: int, g: int = G) -> int:
+    """Bytes of one CTA of the inverse with a carve of its own (g tiles a
+    group): the forward's without the per-warp log-det sums (128 B) and
+    with x alone ([g][3][T] floats) where the forward keeps x and the
+    log-det ([g][4][T])."""
+    return (cluster_carve(hidden, n_hidden_m1, False, t, nst, False, g) - 128
+            - _r(g * 4 * t * 4) + _r(g * 3 * t * 4))
 
 
-def inverse_plan(hidden: int, n_hidden_m1: int) -> Tuple[int, int, int]:
-    """(T, stages, bytes) of the inverse's own carve, chosen as
-    ``cluster_plan`` chooses."""
+def inverse_plan(hidden: int, n_hidden_m1: int) -> Tuple[int, int, int, int]:
+    """(T, G, stages, bytes) of the inverse's own carve, chosen as
+    ``cluster_plan`` chooses the forward's: the largest T, then the most
+    tiles a group (G down to 2), then two stages before one."""
     for t in (128, 64, 32):
-        for nst in (2, 1):
-            need = inverse_carve(hidden, n_hidden_m1, t, nst)
-            if need <= SMEM_LIMIT:
-                return t, nst, need
-    return 32, 1, inverse_carve(hidden, n_hidden_m1, 32, 1)
+        for g in range(G, 1, -1):
+            for nst in (2, 1):
+                need = inverse_carve(hidden, n_hidden_m1, t, nst, g)
+                if need <= SMEM_LIMIT:
+                    return t, g, nst, need
+    return 32, G, 1, inverse_carve(hidden, n_hidden_m1, 32, 1)

@@ -32,6 +32,17 @@ def test_kernel_sass_picks_the_named_function():
     assert bwd_ab.kernel_sass(dump(BODY), "no_such_kernel") == ""
 
 
+def test_kernel_part_names_a_kernel_apart_in_each_build():
+    """--kernel PARENT=TREE: the parent's part in the parent's build, the
+    tree's in the tree's (a template whose new arguments changed the
+    mangled name); a plain part names both."""
+    k = "inv_clusterILi256ELi1EE=inv_clusterILi256ELi1ENS_7ReluNanE13__nv_bfloat16E"
+    assert bwd_ab.kernel_part(k, "parent") == "inv_clusterILi256ELi1EE"
+    assert bwd_ab.kernel_part(k, "tree") == "inv_clusterILi256ELi1ENS_7ReluNanE13__nv_bfloat16E"
+    assert bwd_ab.kernel_part("f32_kernelIfLi128E", "parent") == "f32_kernelIfLi128E"
+    assert bwd_ab.kernel_part("f32_kernelIfLi128E", "tree") == "f32_kernelIfLi128E"
+
+
 def test_normalized_leaves_out_addresses_encodings_and_branch_targets():
     got = bwd_ab.normalized(bwd_ab.kernel_sass(dump(BODY), KERNEL))
     assert got == ["S2R R0, SR_TID.X ;", "HMMA.16816.F32.BF16 R4, R8, R12, R4 ;",

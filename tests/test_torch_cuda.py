@@ -111,7 +111,7 @@ def test_rows_inverse_round_trips_the_training_forward(cuda, hidden, n_hidden, n
 # the cluster inverse's shapes (H, n_hidden), each at C=3 and C=8 rows: a
 # ragged N, N below a tile, one cloud; a padded width (192 -> 256)
 CLUSTER_INVERSE_CASES = [(128, 3, 300, 3), (128, 4, 130, 2), (256, 2, 2000, 1), (256, 3, 77, 2),
-                         (192, 2, 200, 2)]
+                         (192, 2, 200, 2), (256, 4, 300, 2)]
 
 
 def _cluster_sp(hidden, n_hidden, dev, k=4, seed=0):
@@ -126,14 +126,6 @@ def every_cluster_shape(monkeypatch):
     """The cluster inverse at every shape it is built for, ROWS_KEPT's too
     (the route keeps rows_kernel there only because it timed faster)."""
     monkeypatch.setattr(fs, "ROWS_KEPT", ())
-
-
-def _on_rows_kernel(monkeypatch, sp):
-    """From here on the bf16 relu route takes rows_kernel at sp's shape, the
-    int8 mode's layout: the cluster inverse sums in another order, so only
-    the same layout gives the int8 mode's bits on dequantized stacks."""
-    shape = (sp.wx.shape[1], sp.wh.shape[1])
-    monkeypatch.setattr(fs, "ROWS_KEPT", tuple(fs.ROWS_KEPT) + (shape,))
 
 
 @pytest.mark.parametrize("c", [3, 8])
@@ -160,7 +152,7 @@ def test_cluster_inverse_matches_plain(cuda, every_cluster_shape, hidden, n_hidd
     assert torch.equal(x[:, 3:], ut[:, 3:])
 
 
-@pytest.mark.parametrize("hidden,n_hidden", [(128, 3), (128, 4), (256, 2), (256, 3)])
+@pytest.mark.parametrize("hidden,n_hidden", [(128, 3), (128, 4), (256, 2), (256, 3), (256, 4)])
 def test_cluster_inverse_round_trips_the_cluster_forward(cuda, every_cluster_shape, hidden,
                                                          n_hidden):
     """fused_train's cluster forward, then the sampler's cluster inverse
@@ -205,11 +197,13 @@ def test_cluster_inverse_plan_is_the_forwards(cuda):
     the library's cluster forward's and the mirror's), the card holds at
     least one of its clusters at every shape it is built for, and the
     route takes it exactly at uses_cluster's bf16 shapes that it is built
-    for (CLUSTER_INVERSE) but ROWS_KEPT."""
+    for (CLUSTER_INVERSE) but ROWS_KEPT, and the library builds exactly
+    relu with bf16 weights and CLUSTER_CASES' cases at each shape
+    (dpfx_fused_sampler_cluster_built)."""
     from _torch_cluster_plan import cluster_plan
 
     lib = fs._cluster_lib()
-    for h, nh1 in [(128, 2), (128, 3), (256, 1), (256, 2)]:
+    for h, nh1 in fs.CLUSTER_INVERSE:
         need = lib.dpfx_fused_sampler_cluster_smem_bytes(h, nh1)
         assert need == ft._cluster_lib().dpfx_fused_train_cluster_smem_bytes(h, nh1, 0)
         assert need == cluster_plan(h, nh1, False)[2] <= fs.SMEM_LIMIT
@@ -219,6 +213,66 @@ def test_cluster_inverse_plan_is_the_forwards(cuda):
             want = (ft.uses_cluster(h, nh1, torch.bfloat16) and (h, nh1) not in fs.ROWS_KEPT
                     and (h, nh1) in fs.CLUSTER_INVERSE)
             assert fs.inverse_layout(h, nh1, torch.bfloat16) == ("cluster" if want else "rows")
+            # the library builds exactly the cases the route's tables name
+            for act, code in fs.ACT_CODES.items():
+                for int8 in (False, True):
+                    cases = fs.CLUSTER_CASES.get((h, nh1), ((), ()))
+                    built = (h, nh1) in fs.CLUSTER_INVERSE and (
+                        act in cases[int8] or (act == "relu" and not int8))
+                    assert lib.dpfx_fused_sampler_cluster_built(h, nh1, code, int(int8)) == \
+                        int(built), (h, nh1, act, int8)
+                    if fs.inverse_layout(h, nh1, torch.bfloat16, act, int8) == "cluster":
+                        assert built, (h, nh1, act, int8)
+
+
+# the cluster inverse's other cases (fused_sampler.CLUSTER_CASES): at H=256
+# with n_hidden 2 and 4 each other activation (one runtime instance) and
+# the int8 mode with relu and with gelu; at H=128 the runtime instance with
+# bf16 weights (n_hidden 3 and 4) and int8 ones (n_hidden 3), int8 relu
+# (n_hidden 4)
+OTHER_CASES = ([(256, nh, act, int8) for nh in (2, 4)
+                for act, int8 in (("gelu", False), ("tanh", False), ("leaky_relu", False),
+                                  ("relu", True), ("gelu", True))]
+               + [(128, 3, "gelu", False), (128, 4, "tanh", False), (128, 3, "leaky_relu", True),
+                  (128, 4, "relu", True)])
+
+
+@pytest.mark.parametrize("hidden,n_hidden,activation,int8", OTHER_CASES)
+def test_cluster_inverse_activations_and_int8_match_plain(cuda, every_cluster_shape, hidden,
+                                                          n_hidden, activation, int8):
+    """The cluster inverse with an activation other than relu, or with int8
+    weights, at K=4, B=2, a ragged N: on the cluster layout, against the
+    plain version (on the dequantized stacks for int8) by phase 2's bf16
+    limits (max 5e-2, p99.9 2e-3), bit-identical from run to run, and the
+    int8 mode equal, bit for bit, noise included, to the bf16 mode on the
+    host-dequantized stacks on the same layout (the same plan and sum
+    order; relu with bf16 weights taken onto the cluster at ROWS_KEPT)."""
+    sp = _cluster_sp(hidden, n_hidden, cuda, seed=n_hidden + len(activation))
+    assert fs.inverse_layout(hidden, n_hidden - 1, torch.bfloat16, activation, int8) == "cluster"
+    q = fs.quantize_flow_params(sp) if int8 else None
+    spd = sp
+    if int8:
+        dq = fs.dequantize(q)
+        spd = sp._replace(wx=dq.wx, wh=dq.wh, wout=dq.wout)
+    z = torch.randn((2, 16), generator=torch.Generator(device=cuda).manual_seed(9), device=cuda)
+    kw = dict(dtype=torch.bfloat16, activation=activation, return_noise=True)
+    fs.reset_launch_counts()
+    x, u = fs.fused_sample_points(sp, z, 33, 777, quantized=q, **kw)
+    x2, u2 = fs.fused_sample_points(sp, z, 33, 777, quantized=q, **kw)
+    ref = fs.fused_inverse_transposed_plain(spd, u.transpose(1, 2).contiguous(),
+                                            fs.z_projection(sp, z), torch.bfloat16,
+                                            activation).transpose(1, 2)
+    torch.cuda.synchronize()
+    assert fs.layout_launches == {"rows": 0, "cluster": 2, "f32": 0}
+    assert torch.equal(x, x2) and torch.equal(u, u2), "not bit-identical from run to run"
+    e = (x - ref).abs().flatten()
+    assert float((x - u).abs().max()) > 0.02                   # the flow moved the points
+    assert float(e.max()) <= 5e-2 and float(torch.quantile(e, 0.999)) <= 2e-3, float(e.max())
+    if int8:
+        xd, ud = fs.fused_sample_points(spd, z, 33, 777, **kw)
+        torch.cuda.synchronize()
+        assert fs.layout_launches["cluster"] == 3
+        assert torch.equal(x, xd) and torch.equal(u, ud)
 
 
 def test_f32_sampler_h256_held_to_f64(cuda):
@@ -875,12 +929,13 @@ def test_fused_train_f32_deep_conditioners_match_plain(cuda, hidden, n_hidden):
 
 @pytest.mark.parametrize("hidden,n_hidden", [(48, 1), (96, 2), (192, 3), (256, 4), (256, 1)])
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-def test_fused_inverse_padded_widths_match_plain(cuda, monkeypatch, hidden, n_hidden, dtype):
+def test_fused_inverse_padded_widths_match_plain(cuda, hidden, n_hidden, dtype):
     """The sampler's inverse on stacks padded up to the kernel's widths, and
     f32 at H=256 (Wh streamed in chunks of 32 input columns), against the
     plain version at test_fused_inverse_matches_plain's limits; twice
     bit-identical; the int8 mode equals the dequantized stacks bit for bit
-    on its own layout (bf16 at the cluster inverse's shapes: rows_kernel)."""
+    (both on the route's layout, the same for both modes: the cluster
+    inverse at (192, 3) and (256, 4) in bf16)."""
     dt = getattr(torch, dtype)
     sp = _sp(hidden, n_hidden, "relu", cuda)
     assert sp.wx.shape[1] == fs.kernel_hidden(hidden)
@@ -893,8 +948,9 @@ def test_fused_inverse_padded_widths_match_plain(cuda, monkeypatch, hidden, n_hi
     q = fs.quantize_flow_params(sp)
     dq = fs.dequantize(q)
     xq = fs.fused_sample_points(sp, z, 3, 300, dtype=dt, quantized=q)
-    _on_rows_kernel(monkeypatch, sp)
     xd = fs.fused_sample_points(sp._replace(wx=dq.wx, wh=dq.wh, wout=dq.wout), z, 3, 300, dtype=dt)
+    assert fs.inverse_layout(sp.wx.shape[1], sp.wh.shape[1], dt, int8=True) == \
+        fs.inverse_layout(sp.wx.shape[1], sp.wh.shape[1], dt)
     torch.cuda.synchronize()
     tol = 1e-4 if dt == torch.float32 else 5e-2
     torch.testing.assert_close(x, ref, atol=tol, rtol=tol)
@@ -1898,10 +1954,11 @@ def test_emd_cluster_threshold(cuda):
 @pytest.mark.parametrize("hidden,n_hidden,n", [(32, 2, 200), (64, 1, 128), (128, 2, 300),
                                                (256, 3, 77)])
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-def test_int8_sampler_equals_dequantized(cuda, monkeypatch, hidden, n_hidden, n, dtype):
+def test_int8_sampler_equals_dequantized(cuda, hidden, n_hidden, n, dtype):
     """The int8 mode equals, bit for bit, the compute-dtype mode on the
-    host-dequantized stacks with the same seed (noise included), on the
-    int8 mode's layout (bf16 at the cluster inverse's shapes: rows_kernel)."""
+    host-dequantized stacks with the same seed (noise included), both on
+    the route's layout, the same for both modes (bf16 at (256, 3): the
+    cluster inverse)."""
     dt = getattr(torch, dtype)
     if fs.smem_bytes(hidden, dt, n_hidden - 1, True) > fs.SMEM_LIMIT:
         pytest.skip(f"hidden={hidden} in {dtype} does not fit the kernel's shared memory")
@@ -1911,7 +1968,8 @@ def test_int8_sampler_equals_dequantized(cuda, monkeypatch, hidden, n_hidden, n,
     z = torch.randn((3, 16), generator=torch.Generator(device=cuda).manual_seed(26), device=cuda)
     fs.reset_launch_counts()
     x, u = fs.fused_sample_points(sp, z, 27, n, dtype=dt, quantized=q, return_noise=True)
-    _on_rows_kernel(monkeypatch, sp)
+    assert fs.inverse_layout(hidden, n_hidden - 1, dt, int8=True) == \
+        fs.inverse_layout(hidden, n_hidden - 1, dt)
     xd, ud = fs.fused_sample_points(sp._replace(wx=dq.wx, wh=dq.wh, wout=dq.wout), z, 27, n,
                                     dtype=dt, return_noise=True)
     torch.cuda.synchronize()

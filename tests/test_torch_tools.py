@@ -176,6 +176,34 @@ def test_bench_sample_int8_reads_the_runs_checkpoint(tmp_path):
     assert bench_sample_int8.load_weights(cfg, str(path), "cpu")[1].startswith("fresh init")
 
 
+def test_bench_sample_int8_run_flow_takes_the_runs_model(monkeypatch, capsys, tmp_path):
+    """``--run-flow``: the model of DPFX_INT8_CKPT's config (here a point
+    flow at H=256 with n_hidden 4, which the flagship's flow is not) with
+    its run's newest checkpoint; without the flag that run gives a fresh
+    flagship model."""
+    import yaml
+
+    from dpfx_torch.config import load_config
+
+    y = {**bench_sample_int8.INT8_CONFIG, "name": "deep", "train": {"ckpt_dir": str(tmp_path)}}
+    y["model"] = {**y["model"], "dz": 16,
+                  "point_flow": {**y["model"]["point_flow"], "n_layers": 2, "hidden": 256,
+                                 "n_hidden": 4, "activation": "gelu"}}
+    path = tmp_path / "deep.yaml"
+    path.write_text(yaml.safe_dump(y))
+    (tmp_path / "deep").mkdir()
+    torch.save(DPF(load_config(str(path))).state_dict(), tmp_path / "deep" / "params_00000003.pt")
+    monkeypatch.setenv("DPFX_INT8_B", "2")
+    monkeypatch.setenv("DPFX_INT8_N", "16")
+    monkeypatch.setenv("DPFX_INT8_REPS", "1")
+    monkeypatch.setenv("DPFX_INT8_CKPT", str(path))
+    assert bench_sample_int8.main(["--run-flow", "--device", "cpu"]) == 0
+    res = json.loads(_lines(capsys)[-1])
+    assert res["weights"] == "deep@3" and res["shapes"] == [2, 16, 1]
+    assert bench_sample_int8.main(["--device", "cpu"]) == 0
+    assert json.loads(_lines(capsys)[-1])["weights"].startswith("fresh init")
+
+
 def test_make_plain_sampler_is_the_module_path():
     """The tools' plain sampling twin: both flows through their modules, the
     same draws as make_sampler(fused=False), whose point inverse is the
