@@ -271,6 +271,26 @@ phase 3j's ranks, which the script starts itself):
      at B=64 against the plain version, timed; (c) latcap
      with train.fused_latent_flow=true (10 steps), the sampler under
      DPFX_SAMPLE_FUSED_LATENT=1 and its latent kernels at B=64 timed;
+  3m. (after 3l) CD and EMD at 15,000 points a cloud, on the large-cloud
+     layout: a PC15k-layout tree of 15,000-point clouds (64 train, 32 val,
+     32 test over five synsets: data.category=all) written by
+     make_synthetic_shapenet, 4 training steps of
+     configs/shapenet_airplane_ae_emd.yaml and shapenet_airplane_gen.yaml
+     through the training CLI at their n_points 2048 (the flagship's
+     warmup and clip), then dpfx_torch.evaluate at data.n_points_eval=15000:
+     AE reconstruction (recon-cd, recon-emd) over the 32 test clouds and the
+     generation suite at --limit 16, finite; 3 descent steps on chamfer +
+     emd of 4 test clouds, lowering both; launch counts zeroed just before
+     and read just after, every CD and EMD launch on the large layout
+     (chamfer.layouts, emd.layouts); then each large-layout kernel against
+     its plain version, twice bit-identical, timed with its bound: nnd_fwd
+     and nnd_bwd at B=32, N=M=15,000 and 15,000 x 4,500 (minima and
+     gradients bit for bit the plain version's and onepass_bwd_plain's, the
+     pairs by path), cd_pairwise exact and fast at 8 x 8 (bit for bit the
+     mirror of its order, large_plain), emd at B=8 (emd_sweeps_plain and
+     emd_plain by phase 2c's limits), the gradient mode (its cost bit for
+     bit the plain launch's, its gradients against an f64 run as phase 3d's
+     ragged batch), emd_pairwise fast and exact at 4 x 4, in turns;
   3k. (run after 5c: its trace is held to phase 5b's) the tools of
      dpfx_torch.tools at the flagship widths, in turn in one child process,
      each counting its launches from 0 and printing them last, each required to
@@ -313,8 +333,8 @@ phase 3j's ranks, which the script starts itself):
      kernel also held to emd_sweeps_plain, the plain version of its own
      sweep order, on phase 2c's pairs in every mode, with the CTAs per pair
      of each launch, and fast and exact pairwise timed in turns; and the
-     rows of phases 3d, 3e, 3f and 3l (56 rows in all: 24 of the cluster
-     inverse's cases);
+     rows of phases 3d, 3e, 3f, 3l and 3m (62 rows in all: 24 of the cluster
+     inverse's cases, 6 of the large-cloud layout's);
   5. torch.profiler breakdowns of make_sampler(64, 2048) (plain and fused
      latent inverse), of 5 eager train steps and (5b) of one replayed and
      one resident call of 20 steps (fused latent flow off and on), and
@@ -4706,6 +4726,288 @@ def shapes_path(dev, card, x20, h128_replayed):
             for hh, nh, act, q8, err, ms, plain, bnd, by in case_rows]
 
 
+# ---------------------------------------------------------------- phase 3m: large clouds
+
+LARGE_POINTS = 15000        # PointFlow's ShapeNetCore.v2.PC15k clouds
+LARGE_RAGGED = 4500         # the ragged clouds' points, against LARGE_POINTS
+LARGE_AE_CONFIG = ROOT / "configs" / "shapenet_airplane_ae_emd.yaml"
+LARGE_GEN_CONFIG = ROOT / "configs" / "shapenet_airplane_gen.yaml"
+LARGE_TRAIN_STEPS = 4
+LARGE_GEN_LIMIT = 16        # the generation suite's test clouds
+LARGE_DESCENT = 3           # descent steps on chamfer + emd at LARGE_POINTS
+# nnd_bwd against nn_distances_backward_plain at LARGE_POINTS, per point as
+# TOL_CD_GRAD: the two sum the same terms in other orders, and at 15,000
+# points a cloud a point's nearest neighbour is ~2x closer than at 2048, so
+# its gradient's terms cancel more and the plain version's order moves it
+# further (seen: 1.5e-5 at B=32); the kernel's own check is the three
+# passes' order bit for bit (onepass_bwd_plain)
+TOL_CD_GRAD_LARGE = 1e-4
+LARGE_F64_PAIRS = 2         # pairs of the gradient mode held to an f64 run
+
+
+def large_cloud_path(dev, card):
+    """Phase 3m: CD and EMD above 4096 points a cloud, on the large-cloud
+    layout. The main path: a PC15k-layout tree of 15,000-point clouds
+    written by make_synthetic_shapenet (64 train, 32 val and 32 test clouds
+    over its five synsets, so data.category=all), 4 training steps of
+    shapenet_airplane_ae_emd.yaml and shapenet_airplane_gen.yaml through the
+    training CLI at their own n_points 2048, then dpfx_torch.evaluate at
+    data.n_points_eval=15000 on each checkpoint (AE reconstruction over the
+    32 test clouds, a generation suite at --limit 16), then 3 steps of
+    gradient descent on chamfer + emd of 4 test clouds perturbed towards
+    them; counts zeroed just before and read just after, every CD and EMD
+    launch on the large layout. Then each large-layout kernel against its
+    plain version, twice bit-identical: nnd_fwd and nnd_bwd at B=32,
+    N=M=15,000 and 15,000 against 4,500 (minima and gradients bit for bit,
+    the backward's paths), cd_pairwise exact and fast at 8 x 8 (bit for bit
+    the mirror of its order), emd exact and the gradient mode at B=8 (phase
+    2c's limits; the gradient mode's cost bit for bit the plain launch's),
+    emd_pairwise fast and exact at 4 x 4, each timed with its bound. Returns
+    the kernels line's six rows."""
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from dpfx_torch.ops import chamfer as cdk
+    from dpfx_torch.ops import emd as emdk
+    from dpfx_torch.ops import fused_sampler as fs
+    from dpfx_torch.tools import make_synthetic_shapenet
+
+    t_phase = time.perf_counter()
+    med = lambda e: float(e.median())  # noqa: E731
+    mods = (cdk, emdk, fs)
+    counts = lambda: {k: v for m in (cdk, emdk) for k, v in m.launches.items()}  # noqa: E731
+    layouts = lambda: {**cdk.layouts, **emdk.layouts}  # noqa: E731
+    WORK.mkdir(parents=True, exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=WORK) as tmp:
+        tree = Path(tmp) / "pc15k"
+        t0 = time.perf_counter()
+        check(make_synthetic_shapenet.main([str(tree), "--points", str(LARGE_POINTS), "--train", "64",
+                                            "--valtest", "32"]) == 0, "make_synthetic_shapenet")
+        t_tree = time.perf_counter() - t0
+        data = [f"data.path={tree}", "data.category=all"]
+        ckpts, train_s = {}, {}
+        for name, yaml in (("ae", LARGE_AE_CONFIG), ("gen", LARGE_GEN_CONFIG)):
+            ckpts[name] = Path(tmp) / f"ck_{name}"
+            t0 = time.perf_counter()
+            # the flagship's warmup and clip (F32_SCHEDULE): on the configs'
+            # own schedule the random model diverges at once (phase 3l (b))
+            rc, out, calls, _ = train_cli_run([str(yaml), *data, f"train.steps={LARGE_TRAIN_STEPS}",
+                                               "train.log_every=2", f"train.ckpt_every={LARGE_TRAIN_STEPS}",
+                                               f"train.eval_every={LARGE_TRAIN_STEPS}",
+                                               f"train.ckpt_dir={ckpts[name]}", *F32_SCHEDULE])
+            train_s[name] = time.perf_counter() - t0
+            losses = [v for _, ls in calls for v in ls]
+            check(rc == 0 and len(losses) == LARGE_TRAIN_STEPS and all(math.isfinite(v) for v in losses)
+                  and "SKIPPED" not in out and "skipping" not in out and any(ckpts[name].rglob(f"params_{LARGE_TRAIN_STEPS:08d}.pt")),
+                  f"{name} training at n_points 2048 on the PC15k tree: rc {rc}, losses {losses}, no step "
+                  "skipped, the checkpoint written")
+        for m in mods:
+            m.reset_launch_counts()
+        rc, ae, ae_t, ae_wall = run_eval_cli([str(LARGE_AE_CONFIG), *data, f"train.ckpt_dir={ckpts['ae']}",
+                                              f"data.n_points_eval={LARGE_POINTS}"])
+        ae_counts = counts()
+        check(rc == 0 and ae["n_test"] == 32 and {"recon-cd", "recon-emd"} <= set(ae) and finite_numbers(ae),
+              f"AE reconstruction at {LARGE_POINTS} points: {ae}")
+        check(ae_counts["nnd_fwd"] > 0 and ae_counts["emd_batched"] > 0 and fs.launches["fused_sample"] > 0,
+              f"the AE path launched nnd_fwd, emd_batched and the sampler: {ae_counts}")
+        for m in (cdk, emdk):
+            m.launches.update(dict.fromkeys(m.launches, 0))
+        rc, gen, gen_t, gen_wall = run_eval_cli([str(LARGE_GEN_CONFIG), *data, f"train.ckpt_dir={ckpts['gen']}",
+                                                 f"data.n_points_eval={LARGE_POINTS}", "--limit",
+                                                 str(LARGE_GEN_LIMIT)])
+        gen_counts = counts()
+        check(rc == 0 and gen["n_test"] == LARGE_GEN_LIMIT and finite_numbers(gen)
+              and all(0.0 <= gen[k] <= 1.0 for k in ("cov-cd", "1-nna-cd", "cov-emd", "1-nna-emd")),
+              f"generation suite at {LARGE_POINTS} points: {gen}")
+        check(gen_counts["cd_pairwise"] > 0 and gen_counts["emd_pairwise"] > 0,
+              f"the suite launched cd_pairwise and emd_pairwise: {gen_counts}")
+        rng = np.random.default_rng(5)
+        load = lambda split: torch.from_numpy(np.stack([  # noqa: E731
+            np.load(f) for f in sorted(tree.glob(f"*/{split}/*.npy"))]).astype(np.float32)).to(dev)
+        test, val = load("test"), load("val")
+    check(test.shape == (32, LARGE_POINTS, 3) and val.shape == test.shape, f"the tree's splits {tuple(test.shape)}")
+
+    # gradient descent on chamfer + emd at 15,000 points (the losses' path)
+    for m in (cdk, emdk):
+        m.launches.update(dict.fromkeys(m.launches, 0))
+    target = test[:4]
+    x = target + 0.02 * torch.randn(target.shape, generator=torch.Generator(device=dev).manual_seed(7),
+                                    device=dev)
+    first = None
+    for _ in range(LARGE_DESCENT):
+        xv = x.clone().requires_grad_(True)
+        cd, em = cdk.chamfer(xv, target), emdk.emd(xv, target)
+        (cd.sum() + em.sum()).backward()
+        first = first or (cd.detach(), em.detach())
+        x = x - 0.01 * LARGE_POINTS * xv.grad
+    last = (cdk.chamfer(x, target), emdk.emd_nograd(x, target))
+    torch.cuda.synchronize()
+    descent_counts = counts()
+    check(bool((last[0] < first[0]).all()) and bool((last[1] < first[1]).all()),
+          f"descent lowers CD {first[0].tolist()} -> {last[0].tolist()} and EMD {first[1].tolist()} -> "
+          f"{last[1].tolist()}")
+    check(all(descent_counts[k] > 0 for k in ("nnd_fwd", "nnd_bwd", "emd_batched_grad")),
+          f"the descent launched the gradient kernels: {descent_counts}")
+    path_layouts = {k: dict(v) for k, v in layouts().items()}
+    launched = {k: ae_counts[k] + gen_counts[k] + descent_counts[k] for k in ae_counts}
+    check(all(v["pair"] == 0 for v in path_layouts.values())
+          and all(path_layouts[k]["large"] == launched[k] for k in launched),
+          f"every CD and EMD launch of the main path on the large layout: {path_layouts}")
+    print(f"large clouds, the main path ({card}): PC15k tree of 15,000-point clouds {t_tree:.1f} s, "
+          f"training at 2048 points {json.dumps({k: round(v, 1) for k, v in train_s.items()})} s; AE "
+          f"reconstruction at {LARGE_POINTS} points over 32 test clouds {json.dumps(ae)} "
+          f"({ae_t['total']:.2f} s, {ae_wall:.1f} s with restore and data); generation suite "
+          f"--limit {LARGE_GEN_LIMIT} {json.dumps({k: gen[k] for k in ('mmd-cd', 'cov-cd', '1-nna-cd', 'mmd-emd', 'cov-emd', '1-nna-emd', 'jsd')})} "
+          f"({gen_t['total']:.2f} s, {gen_wall:.1f} s with restore and data); descent on chamfer + emd "
+          f"of 4 clouds, {LARGE_DESCENT} steps: CD {[round(v, 6) for v in first[0].tolist()]} -> "
+          f"{[round(v, 6) for v in last[0].tolist()]}, EMD {[round(v, 5) for v in first[1].tolist()]} -> "
+          f"{[round(v, 5) for v in last[1].tolist()]}; launches {json.dumps(launched)}, by layout "
+          f"{json.dumps(path_layouts)}")
+
+    # each large-layout kernel against its plain version
+    n = LARGE_POINTS
+    perm = torch.from_numpy(rng.permutation(n)[:LARGE_RAGGED]).to(dev)
+    rows = []
+    for m in (cdk, emdk):
+        m.reset_launch_counts()
+    g = torch.Generator(device=dev).manual_seed(13)
+    for tag, xb, yb in ((f"B=32 N=M={n}", test, val), (f"B=32 N={n} M={LARGE_RAGGED}", test, val[:, perm])):
+        b, mm = xb.shape[0], yb.shape[1]
+        dl, dr = cdk.nnd_forward(xb, yb)
+        dl2, dr2 = cdk.nnd_forward(xb, yb)
+        (pdl, _, pdr, _), fwd_plain = timed_once(lambda: cdk.nn_distances_plain(xb, yb))
+        check(torch.equal(dl, pdl) and torch.equal(dr, pdr), f"nnd_fwd {tag}: minima bit for bit")
+        check(torch.equal(dl, dl2) and torch.equal(dr, dr2), f"nnd_fwd {tag} bit-identical from run to run")
+        fwd_ms = cuda_ms(lambda: cdk.nnd_forward(xb, yb), 10)
+        gl = torch.randn(dl.shape, generator=g, device=dev) / n
+        gr = torch.randn(dr.shape, generator=g, device=dev) / mm
+        gx, gy = cdk.nnd_backward(xb, yb, dl, dr, gl, gr)
+        paths = cdk.last_paths.clone()
+        gx2, gy2 = cdk.nnd_backward(xb, yb, dl, dr, gl, gr)
+        rx, ry, rp = cdk.onepass_bwd_plain(xb, yb, dl, dr, gl, gr)
+        (px, py), bwd_plain = timed_once(lambda: cdk.nn_distances_backward_plain(xb, yb, dl, dr, gl, gr))
+        torch.cuda.synchronize()
+        check(torch.equal(gx, rx) and torch.equal(gy, ry) and torch.equal(paths, rp),
+              f"nnd_bwd {tag}: onepass_bwd_plain's gradients and paths bit for bit")
+        check(torch.equal(gx, gx2) and torch.equal(gy, gy2), f"nnd_bwd {tag} bit-identical from run to run")
+        e_bwd = max(grad_point_err(gx, px), grad_point_err(gy, py))
+        check(e_bwd <= TOL_CD_GRAD_LARGE, f"nnd_bwd {tag} against nn_distances_backward_plain: {e_bwd}")
+        bwd_ms = cuda_ms(lambda: cdk.nnd_backward(xb, yb, dl, dr, gl, gr), 10)
+        (fbd, fby), _ = eval_bounds(b, n, mm, b, b, b * (n + mm))
+        (bbd, bby), _ = grad_bounds(b, n, mm)
+        print(f"kernel-vs-plain large layout nnd_fwd {tag}: minima bit for bit, {fwd_ms:.3f} ms (bound "
+              f"{fbd:.3f} ms, {fwd_ms / fbd:.2f}x; plain {fwd_plain:.1f} ms); nnd_bwd: onepass_bwd_plain "
+              f"bit for bit, {path_counts(paths)}, per point against the plain version {e_bwd:.2e}, "
+              f"{bwd_ms:.3f} ms (bound {bbd:.3f} ms, {bwd_ms / bbd:.2f}x; plain {bwd_plain:.1f} ms); "
+              f"{cdk.large_ctas(mm)} CTAs a pair ({card})")
+        if mm == n:
+            rows.append(("nnd_fwd_large", "chamfer", "dpfx/ops/chamfer.py:130", "nnd_fwd",
+                         float((dl - pdl).abs().max()), fwd_ms, fwd_plain, fbd, fby))
+            rows.append(("nnd_bwd_large", "chamfer", "dpfx/ops/chamfer.py:174", "nnd_bwd",
+                         max(float((gx - px).abs().max()), float((gy - py).abs().max())), bwd_ms, bwd_plain,
+                         bbd, bby))
+
+    xs, ys = test[:8], val[:8]
+    s = xs.shape[0]
+    got = {prec: cdk.chamfer_pairwise(xs, ys, prec) for prec in ("exact", "fast")}
+    for prec, mat in got.items():
+        mirror = torch.stack([cdk.large_plain(xs[i:i + 1].expand(s, -1, -1), ys, prec == "fast")[2]
+                              for i in range(s)])
+        check(torch.equal(mat, mirror) and torch.equal(mat, cdk.chamfer_pairwise(xs, ys, prec)),
+              f"cd_pairwise {prec} {s}x{s}: the mirror of its order bit for bit, twice the same")
+    pm, cd_plain = timed_once(lambda: cdk.chamfer_pairwise_plain(xs, ys))
+    e_cd = float(pair_err(got["exact"], pm, CD_FLOOR).max())
+    check(e_cd <= TOL_CD, f"cd_pairwise {s}x{s} against chamfer_pairwise_plain: {e_cd}")
+    cd_turns = {"exact": [], "fast": []}
+    for prec in ("exact", "fast", "fast", "exact"):
+        cd_turns[prec].append(cuda_ms(lambda: cdk.chamfer_pairwise(xs, ys, prec), 3, warmup=1))
+    cd_ms = sum(cd_turns["exact"]) / 2
+    (cbd, cby), _ = eval_bounds(s * s, n, n, s, s, s * s)
+    rows.append(("cd_pairwise_large", "chamfer", "dpfx/ops/chamfer.py:255", "cd_pairwise",
+                 float((got["exact"] - pm).abs().max()), cd_ms, cd_plain, cbd, cby))
+    print(f"kernel-vs-plain large layout cd_pairwise {s}x{s} N={n}: exact and fast bit for bit the mirror, "
+          f"exact against the plain version rel max {e_cd:.2e}; exact {cd_ms:.3f} ms, fast "
+          f"{sum(cd_turns['fast']) / 2:.3f} ms in turns (bound {cbd:.3f} ms; plain {cd_plain:.1f} ms)")
+
+    xe, ye = test[:8], val[:8]
+    b = xe.shape[0]
+    cost = emdk.emd_nograd(xe, ye)
+    gc, gxe, gye = emdk.emd_with_grads(xe, ye)
+    gc2, gxe2, gye2 = emdk.emd_with_grads(xe, ye)
+    check(torch.equal(cost, emdk.emd_nograd(xe, ye)) and torch.equal(gc, cost) and torch.equal(gc2, cost)
+          and torch.equal(gxe, gxe2) and torch.equal(gye, gye2),
+          "emd B=8: bit-identical from run to run, the gradient mode's cost the plain launch's bit for bit")
+    sw = emdk.emd_sweeps_plain(xe, ye)
+    pe, emd_plain_ms = timed_once(lambda: emdk.emd_plain(xe, ye))
+    (_, px, py), grad_plain_ms = timed_once(lambda: emdk.emd_grads_plain(xe, ye))
+    torch.cuda.synchronize()
+    e_sw, e_pl = pair_err(cost, sw, EMD_FLOOR), pair_err(cost, pe, EMD_FLOOR)
+    e_g = torch.maximum(pair_norm_err(gxe, px), pair_norm_err(gye, py))
+    check(med(e_sw) <= TOL_EMD_MEDIAN and float(e_sw.max()) <= TOL_EMD_MAX
+          and med(e_pl) <= TOL_EMD_MEDIAN and float(e_pl.max()) <= TOL_EMD_MAX,
+          f"emd B=8 N={n}: against emd_sweeps_plain {med(e_sw)}, {float(e_sw.max())}; emd_plain {med(e_pl)}, "
+          f"{float(e_pl.max())}")
+    # the gradients against an f64 run, as phase 3d holds the ragged batch:
+    # the kernel no further from it than EMD_GRAD_F64_RATIO times the f32
+    # plain version, plus a floor
+    k = LARGE_F64_PAIRS
+    _, qx, qy = emdk.emd_grads_plain(xe[:k].double(), ye[:k].double())
+    k64 = torch.maximum(pair_norm_err(gxe[:k], qx), pair_norm_err(gye[:k], qy))
+    p64 = torch.maximum(pair_norm_err(px[:k], qx), pair_norm_err(py[:k], qy))
+    check(float(k64.max()) <= EMD_GRAD_F64_RATIO * float(p64.max()) + EMD_GRAD_F64_FLOOR,
+          f"emd gradient mode B=8 N={n} against f64: kernel {k64.tolist()}, plain f32 {p64.tolist()}")
+    emd_ms = cuda_ms(lambda: emdk.emd_nograd(xe, ye), 3, warmup=1)
+    grad_ms = cuda_ms(lambda: emdk.emd_with_grads(xe, ye), 3, warmup=1)
+    _, (ebd, eby) = eval_bounds(b, n, n, b, b, b)
+    _, (gbd, gby) = grad_bounds(b, n, n)
+    rows.append(("emd_batched_large", "emd", "dpfx/ops/emd.py:356", "emd_batched",
+                 float((cost - pe).abs().max()), emd_ms, emd_plain_ms, ebd, eby))
+    rows.append(("emd_batched_grad_large", "emd", "dpfx/ops/emd.py:356", "emd_batched_grad",
+                 max(float((gxe - px).abs().max()), float((gye - py).abs().max())), grad_ms, grad_plain_ms,
+                 gbd, gby))
+    print(f"kernel-vs-plain large layout emd B={b} N={n}: against emd_sweeps_plain rel median {med(e_sw):.2e} "
+          f"max {float(e_sw.max()):.2e}, emd_plain median {med(e_pl):.2e} max {float(e_pl.max()):.2e}; "
+          f"{emd_ms:.2f} ms (bound {ebd:.2f} ms, {emd_ms / ebd:.2f}x; plain {emd_plain_ms:.1f} ms); gradient "
+          f"mode: cost bit for bit, gradients per pair against emd_grads_plain rel median {med(e_g):.2e} max "
+          f"{float(e_g.max()):.2e}, against f64 ({k} pairs) max {float(k64.max()):.2e} (the f32 plain version "
+          f"{float(p64.max()):.2e}), "
+          f"{grad_ms:.2f} ms (bound {gbd:.2f} ms, {grad_ms / gbd:.2f}x; plain {grad_plain_ms:.1f} ms); "
+          f"{emdk.large_own(b, n, n)} points a CTA")
+
+    xp_, yp_ = test[:4], val[:4]
+    s = xp_.shape[0]
+    pw = {}
+    for prec in ("fast", "exact"):
+        pw[prec] = emdk.emd_pairwise(xp_, yp_, precision=prec)
+        ref, t_plain = timed_once(lambda: emdk.emd_pairwise_plain(xp_, yp_, precision=prec))
+        e = pair_err(pw[prec], ref, EMD_FLOOR)
+        check(torch.equal(pw[prec], emdk.emd_pairwise(xp_, yp_, precision=prec))
+              and med(e) <= TOL_EMD_MEDIAN and float(e.max()) <= TOL_EMD_MAX,
+              f"emd_pairwise {prec} {s}x{s} N={n}: twice the same, against the plain version {med(e)}, "
+              f"{float(e.max())}")
+        pw[prec + "_err"], pw[prec + "_rel"] = float((pw[prec] - ref).abs().max()), float(e.max())
+        pw[prec + "_plain"] = t_plain
+    turns = {"exact": [], "fast": []}
+    for prec in ("exact", "fast", "fast", "exact"):
+        turns[prec].append(cuda_ms(lambda: emdk.emd_pairwise(xp_, yp_, precision=prec), 1, warmup=1))
+    pw_ms = sum(turns["fast"]) / 2
+    _, (pbd, pby) = eval_bounds(s * s, n, n, s, s, s * s)
+    rows.append(("emd_pairwise_large", "emd", "dpfx/ops/emd.py:435", "emd_pairwise", pw["fast_err"], pw_ms,
+                 pw["fast_plain"], pbd, pby))
+    print(f"kernel-vs-plain large layout emd_pairwise {s}x{s} N={n}: fast rel max {pw['fast_rel']:.2e}, exact "
+          f"rel max {pw['exact_rel']:.2e}; in turns (exact, fast, fast, exact) "
+          f"{', '.join(f'{t:.2f}' for t in (turns['exact'][0], *turns['fast'], turns['exact'][1]))} ms "
+          f"(bound {pbd:.2f} ms; plain fast {pw['fast_plain']:.1f} ms, exact {pw['exact_plain']:.1f} ms)")
+    check(all(v["pair"] == 0 for v in layouts().values()), f"every check's launch on the large layout: {layouts()}")
+    print(f"phase 3m (large clouds) {time.perf_counter() - t_phase:.1f} s")
+    return [{"name": nm, "route": "cuda", "source": f"dpfx_torch/ops/csrc/{src}.cu", "replaces": where,
+             "launches": launched[key], "max_abs_err": err, "ms": ms, "plain_ms": plain, "bound_ms": bd,
+             "bound_by": by, "library_ms": None}
+            for nm, src, where, key, err, ms, plain, bd, by in rows]
+
+
 # ---------------------------------------------------------------- phase 3k: the tools
 
 TOL_TRACE_BUSY = 0.05   # parse_trace's device total against phase 5b's busy time, relative
@@ -5521,6 +5823,9 @@ def main() -> int:
     # f32 layouts, the f32 sampler at H=256, padded widths, runs (a) to (c)
     shape_rows = shapes_path(dev, card, x20, timers[("off", "replayed")])
 
+    # ---- 3m. CD and EMD at 15,000 points: the large-cloud layout
+    large_rows = large_cloud_path(dev, card)
+
     # ---- 4. per-kernel numbers at the main path's shapes (B=64, N=2048, bf16)
     b, n = 64, 2048
     z = torch.randn((b, cfg.model.dz), generator=g, device=dev)
@@ -5774,12 +6079,13 @@ def main() -> int:
           + "; ".join(f"{kk} {v.get('regs')} registers, spilled bytes (stores/loads) "
                       f"{v.get('spill')}" for kk, v in lregs.items()) + f" ({card})")
     kernels += eval_kernel_rows(cfg, half_a, half_b, gen_launches, ae_launches)
-    kernels += grad_rows + int8_rows + probe_rows + shape_rows
+    kernels += grad_rows + int8_rows + probe_rows + shape_rows + large_rows
     # 32 rows, then the cluster inverse's cases of phase 3l: relu at H=256
-    # n_hidden 4, and inverse_cases at each shape of CLUSTER_INVERSE
+    # n_hidden 4, and inverse_cases at each shape of CLUSTER_INVERSE, then
+    # phase 3m's six large-layout rows
     from dpfx_torch.ops import fused_sampler as fsm
 
-    check(len(kernels) == 32 + 1 + sum(len(inverse_cases(fsm, sh)) for sh in fsm.CLUSTER_INVERSE),
+    check(len(kernels) == 32 + 1 + sum(len(inverse_cases(fsm, sh)) for sh in fsm.CLUSTER_INVERSE) + 6,
           f"{len(kernels)} kernel rows")
     print(json.dumps({"kernels": kernels}))
 

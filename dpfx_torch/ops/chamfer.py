@@ -43,9 +43,18 @@ the same terms in the same order: the gradients equal the three-pass
 kernel's (``nnd_backward(..., three_pass=True)``) bit for bit, and
 ``onepass_bwd_plain``'s, the plain version of that algebra.
 
+Both kernels have two layouts. Up to PAIR_POINTS (4096) points a cloud a
+pair's two clouds sit in one CTA's shared memory (or in each CTA of its
+cluster); above it, up to MAX_POINTS (16,384), the large-cloud layout
+streams them from global memory, one CTA a column tile of 256, with the
+same tiles, arithmetic and orders of sums: the same results bit for bit
+(``large_plain`` and ``large_bwd_plain`` are the plain versions of its
+schedule). ``large_layout`` is the route.
+
 Every wrapper takes its plain PyTorch version for a tensor on the CPU and
 launches the kernel for a CUDA tensor (or raises). ``launches`` counts the
-kernel launches of each wrapper, ``clusters`` the CTAs per pair that the
+kernel launches of each wrapper, ``layouts`` the launches of each layout
+("pair" or "large"), ``clusters`` the CTAs per pair that the whole-pair
 launches took (a thread-block cluster when above 1; ``cluster_size``),
 ``last_paths`` the path each pair of the last backward launch took.
 """
@@ -65,6 +74,9 @@ Tensor = torch.Tensor
 
 # kernel launches per wrapper; chip_smoke.py zeroes these around the main path
 launches: Dict[str, int] = {"nnd_fwd": 0, "nnd_bwd": 0, "cd_pairwise": 0}
+# the launches of each wrapper by layout: "pair" (a pair in one CTA's shared
+# memory, or its cluster's) or "large" (the large-cloud layout)
+layouts: Dict[str, Dict[str, int]] = {k: {"pair": 0, "large": 0} for k in launches}
 # launches of the three-pass backward kernel, a reference no path takes
 reference_launches: Dict[str, int] = {"nnd_bwd3": 0}
 # the CTAs per pair (a cluster when above 1) of the launches since the last
@@ -75,7 +87,8 @@ clusters: Dict[str, Set[int]] = {"nnd_fwd": set(), "nnd_bwd": set(), "cd_pairwis
 # reading it waits for the launch
 last_paths: Optional[torch.Tensor] = None
 
-MAX_POINTS = 4096          # the kernels keep both clouds of a pair in shared memory
+PAIR_POINTS = 4096         # the whole-pair layout's largest cloud (both clouds in shared memory)
+MAX_POINTS = 16384         # the large-cloud layout's: packed counts of 2^15 a hit (csrc/chamfer.cu)
 PLAIN_CHUNK_ELEMS = 2**26  # distance elements per chunk of a plain version (256 MB f32)
 # the forward kernel's tiles: 256 rows (8 per lane of a warp) x 256 columns
 # in chunks of 32, and 256 threads per block (block_sum's order)
@@ -88,6 +101,18 @@ def reset_launch_counts() -> None:
     reference_launches["nnd_bwd3"] = 0
     for k in clusters:
         clusters[k] = set()
+        layouts[k] = {"pair": 0, "large": 0}
+
+
+def large_layout(n: int, m: int) -> bool:
+    """The route: the large-cloud layout where a cloud has more than
+    PAIR_POINTS points, the whole-pair layout elsewhere."""
+    return n > PAIR_POINTS or m > PAIR_POINTS
+
+
+def _count(name: str, large: bool) -> None:
+    launches[name] += 1
+    layouts[name]["large" if large else "pair"] += 1
 
 
 def refuse_grad(what: str, *ts: Tensor) -> None:
@@ -412,6 +437,101 @@ def onepass_bwd_plain(x: Tensor, y: Tensor, dl: Tensor, dr: Tensor, gl: Tensor, 
     return gx, gy, paths.to(torch.uint8)
 
 
+HIT_LARGE = 1 << 15   # a hit in the large layout's packed counts (chamfer.cu's HIT_L)
+
+
+def large_plain(x: Tensor, y: Tensor, fast: bool = False, rows: int = TILE_ROWS,
+                cols: int = TILE_COLS) -> Tuple[Tensor, Tensor, Tensor]:
+    """(dl [B,N], dr [B,M], cd [B]) of diagonal pairs through the large
+    layout's schedule: one CTA a tile of ``cols`` columns against every
+    group of ``rows`` rows; each tile's row and column minima of the raw
+    distances, clamped (in fast mode rounded to bf16), met by minimum, a
+    column's over its CTA's row groups, a row's over the column tiles (the
+    kernel's atomicMin on the bits); cd = block_order_sum(dl) / N +
+    block_order_sum(dr) / M, as the whole-pair layout sums. The minima equal
+    ``nn_distances_plain``'s bit for bit (exact) and cd ``onepass_plain``'s."""
+    x, y = x.float(), y.float()
+    b, n, m = x.shape[0], x.shape[1], y.shape[1]
+    x2, y2 = _norm2(x), _norm2(y)
+    if fast:
+        x, y = x.bfloat16().float(), y.bfloat16().float()
+    gr, gc = -(-n // rows), -(-m // cols)
+    inf = float("inf")
+    xq = torch.nn.functional.pad(x, (0, 0, 0, gr * rows - n))
+    yq = torch.nn.functional.pad(y, (0, 0, 0, gc * cols - m))
+    x2q = torch.nn.functional.pad(x2, (0, gr * rows - n), value=inf)
+    y2q = torch.nn.functional.pad(y2, (0, gc * cols - m), value=inf)
+    dls, drs = [], []
+    step = _pair_chunk(gr * rows, gc * cols)
+    for s in range(0, b, step):
+        xc, yc = xq[s:s + step], yq[s:s + step]
+        xy = (xc[:, :, None, 0] * yc[:, None, :, 0] + xc[:, :, None, 1] * yc[:, None, :, 1]
+              + xc[:, :, None, 2] * yc[:, None, :, 2])
+        d = ((x2q[s:s + step, :, None] + y2q[s:s + step, None, :]) - 2.0 * xy).view(
+            -1, gr, rows, gc, cols)
+        dls.append(_min_bits(d.amin(dim=4), fast).amin(dim=3).reshape(-1, gr * rows)[:, :n])
+        drs.append(_min_bits(d.amin(dim=2), fast).amin(dim=1).reshape(-1, gc * cols)[:, :m])
+    dl, dr = torch.cat(dls), torch.cat(drs)
+    sl, sr = block_order_sum(dl), block_order_sum(dr)
+    return dl, dr, sl / torch.full_like(sl, n) + sr / torch.full_like(sr, m)
+
+
+def large_bwd_plain(x: Tensor, y: Tensor, dl: Tensor, dr: Tensor, gl: Tensor, gr: Tensor,
+                    hit: int = HIT_LARGE) -> Tuple[Tensor, Tensor, Tensor]:
+    """(gx [B,N,3], gy [B,M,3], paths [B] uint8) through the large layout's
+    backward: the sweep's packed words (hit + k a hit at k, rows then
+    columns; integer sums, so no tile or order changes them; all below the
+    mark bit 2^31), the path from the points whose word is not one hit,
+    their counts again, and on PATH_FIX the marks of the points they hit.
+    An owner whose word is one hit and that no tie marked sums its inverse
+    list (the other cloud's points whose word is one hit at it, weighed by
+    their cotangents) in ascending order, its own-direction sum being its
+    hit's point; every other owner (all on PATH_THREE) sums its masks over
+    the whole other cloud. Each sum from 0 in index order, one f32 rounding
+    a term (``_ordered_sums``): ``onepass_bwd_plain``'s gradients and paths
+    bit for bit."""
+    x, y, gl, gr = x.float(), y.float(), gl.float(), gr.float()
+    b, n, m = x.shape[0], x.shape[1], y.shape[1]
+    gx, gy = torch.empty_like(x), torch.empty_like(y)
+    paths = torch.empty(b, dtype=torch.uint8, device=x.device)
+    step = max(1, _pair_chunk(n, m) // 4)
+    for s in range(0, b, step):
+        k = slice(s, s + step)
+        raw = _raw_dist(x[k], y[k])
+        ml = raw <= sweep_bound(dl[k].float())[:, :, None]
+        mr = raw <= sweep_bound(dr[k].float())[:, None, :]
+        ii = torch.arange(n, device=x.device, dtype=torch.int64)
+        jj = torch.arange(m, device=x.device, dtype=torch.int64)
+        words = torch.cat([(ml * (hit + jj)).sum(-1), (mr * (hit + ii)[:, None]).sum(-2)], 1)
+        if bool((words >= 2**31).any()):
+            raise OverflowError("a packed count reaches the mark bit")
+        one = torch.where((words >= hit) & (words < 2 * hit), words - hit, -1)
+        odd = one < 0
+        n_odd = odd.sum(1)
+        pth = torch.where(n_odd == 0, PATH_LISTS, torch.where(n_odd <= FIX_MAX, PATH_FIX, PATH_THREE))
+        paths[k] = pth.to(torch.uint8)
+        hits = torch.where(odd, torch.cat([ml.sum(-1), mr.sum(-2)], 1), 1)
+        # PATH_FIX: each point whose count is not 1 marks the points it hits
+        marked = torch.cat([(mr & odd[:, None, n:]).any(2), (ml & odd[:, :n, None]).any(1)], 1)
+        fixed = odd | (marked & (pth == PATH_FIX)[:, None]) | (pth == PATH_THREE)[:, None]
+        # the inverse lists: column j in row i's where j's one hit is i, and so on
+        list_r = one[:, None, n:] == ii[None, :, None]
+        list_c = one[:, :n, None] == jj[None, None, :]
+        sel_r = torch.where(fixed[:, :n, None], mr, list_r)
+        sel_c = torch.where(fixed[:, None, n:], ml, list_c)
+        wl = gl[k] / torch.clamp_min(hits[:, :n].float(), 1.0)
+        wr = gr[k] / torch.clamp_min(hits[:, n:].float(), 1.0)
+        _, sy = _ordered_sums(ml, y[k])
+        swr, swy = _ordered_sums(sel_r, y[k], wr)
+        _, sx = _ordered_sums(mr.transpose(1, 2), x[k])
+        swl, swx = _ordered_sums(sel_c.transpose(1, 2), x[k], wl)
+        c = 2.0 * (gl[k] + swr)
+        gx[k] = (c[..., None] * x[k] - (2.0 * wl)[..., None] * sy) - 2.0 * swy
+        c = 2.0 * (gr[k] + swl)
+        gy[k] = (c[..., None] * y[k] - 2.0 * swx) - (2.0 * wr)[..., None] * sx
+    return gx, gy, paths
+
+
 def _fast(precision: str) -> bool:
     if precision not in ("exact", "fast"):
         raise ValueError(f"precision must be 'exact' or 'fast', got {precision!r}")
@@ -436,8 +556,17 @@ def _lib() -> ctypes.CDLL:
     lib.dpfx_nnd_bwd3_launch.argtypes = [p, p, i, i, i, p, p, p, p, p, p, p]
     for fn in (lib.dpfx_nnd_bwd_launch, lib.dpfx_nnd_bwd3_launch):
         fn.restype = ctypes.c_int
-    for fn in (lib.dpfx_nnd_bwd_smem_bytes, lib.dpfx_nnd_bwd3_smem_bytes):
+    for fn in (lib.dpfx_nnd_bwd_smem_bytes, lib.dpfx_nnd_bwd3_smem_bytes, lib.dpfx_chamfer_large):
         fn.argtypes = [i, i]
+        fn.restype = ctypes.c_int
+    lib.dpfx_chamfer_large_ctas.argtypes = [i]
+    lib.dpfx_chamfer_large_ctas.restype = ctypes.c_int
+    for fn in (lib.dpfx_chamfer_large_scratch_floats, lib.dpfx_nnd_bwd_large_scratch_words):
+        fn.argtypes = [i, i, i]
+        fn.restype = ctypes.c_longlong
+    lib.dpfx_chamfer_large_launch.argtypes = [p, p, p, i, i, i, i, p, p, p, p, p]
+    lib.dpfx_nnd_bwd_large_launch.argtypes = [p, p, i, i, i, p, p, p, p, p, p, p, p, p]
+    for fn in (lib.dpfx_chamfer_large_launch, lib.dpfx_nnd_bwd_large_launch):
         fn.restype = ctypes.c_int
     return lib
 
@@ -461,17 +590,25 @@ def bwd_smem_bytes(n: int, m: int, three_pass: bool = False) -> int:
     return (lib.dpfx_nnd_bwd3_smem_bytes if three_pass else lib.dpfx_nnd_bwd_smem_bytes)(n, m)
 
 
+def large_ctas(m: int) -> int:
+    """CTAs the large layout's sweeps give a pair: its column tiles of 256,
+    as the kernel library reports them."""
+    return _lib().dpfx_chamfer_large_ctas(m)
+
+
 def check_clouds(xs: Tensor, ys: Tensor, smem: int) -> Tuple[Tensor, Tensor]:
     """The kernels' conditions on a pair of cloud stacks (shared with the
-    EMD wrappers): CUDA, one device, [S, N, 3], N and M in 1..MAX_POINTS.
-    Returns both as contiguous float32."""
-    if not (xs.is_cuda and ys.device == xs.device):
-        raise ValueError(f"both clouds must be CUDA tensors on one device, got {xs.device}, {ys.device}")
+    EMD wrappers): CUDA, one device, [S, N, 3], N and M in 1..MAX_POINTS,
+    ``smem`` (the launch's dynamic shared memory) within the limit. Returns
+    both as contiguous float32."""
     if xs.dim() != 3 or ys.dim() != 3 or xs.shape[-1] != 3 or ys.shape[-1] != 3:
         raise ValueError(f"clouds must be [S, N, 3], got {tuple(xs.shape)} and {tuple(ys.shape)}")
     n, m = xs.shape[1], ys.shape[1]
     if not (0 < n <= MAX_POINTS and 0 < m <= MAX_POINTS):
-        raise ValueError(f"the kernels take 1..{MAX_POINTS} points per cloud, got N={n}, M={m}")
+        raise ValueError(f"the kernels take 1..{MAX_POINTS} points per cloud, got N={n}, M={m} "
+                         "(larger clouds: ROADMAP.md, Queue 2a)")
+    if not (xs.is_cuda and ys.device == xs.device):
+        raise ValueError(f"both clouds must be CUDA tensors on one device, got {xs.device}, {ys.device}")
     if smem > SMEM_LIMIT:
         raise ValueError(f"N={n}, M={m} needs {smem} B of shared memory, more than {SMEM_LIMIT}")
     return xs.float().contiguous(), ys.float().contiguous()
@@ -490,14 +627,31 @@ def pair_list(s1: int, s2: int, mode: str, device) -> Tensor:
     return torch.stack([ii.flatten(), jj.flatten()], dim=1).int().contiguous()
 
 
+def _fwd_clouds(xs: Tensor, ys: Tensor) -> Tuple[Tensor, Tensor]:
+    """check_clouds for the forward on the layout the route takes."""
+    n, m = xs.shape[1], ys.shape[1]
+    return check_clouds(xs, ys, 0 if large_layout(n, m) else smem_bytes(n, m))
+
+
 def _launch(xs: Tensor, ys: Tensor, pairs: Tensor, fast: bool, cd=None, dl=None, dr=None) -> None:
+    """The forward over the listed pairs on the layout the route takes
+    (the large one with scratch for the minima where dl and dr are None)."""
     n, m = xs.shape[1], ys.shape[1]
     ptr = lambda t: None if t is None else t.data_ptr()
     stream = torch.cuda.current_stream(xs.device).cuda_stream
     with torch.cuda.device(xs.device):
-        err = _lib().dpfx_chamfer_launch(xs.data_ptr(), ys.data_ptr(), pairs.data_ptr(),
-                                         pairs.shape[0], n, m, int(fast), ptr(cd), ptr(dl), ptr(dr),
-                                         stream)
+        if large_layout(n, m):
+            scratch = None
+            if dl is None:
+                scratch = torch.empty(_lib().dpfx_chamfer_large_scratch_floats(pairs.shape[0], n, m),
+                                      dtype=torch.float32, device=xs.device)
+            err = _lib().dpfx_chamfer_large_launch(xs.data_ptr(), ys.data_ptr(), pairs.data_ptr(),
+                                                   pairs.shape[0], n, m, int(fast), ptr(cd), ptr(dl),
+                                                   ptr(dr), ptr(scratch), stream)
+        else:
+            err = _lib().dpfx_chamfer_launch(xs.data_ptr(), ys.data_ptr(), pairs.data_ptr(),
+                                             pairs.shape[0], n, m, int(fast), ptr(cd), ptr(dl),
+                                             ptr(dr), stream)
     if err != 0:
         raise RuntimeError(f"chamfer kernel launch failed: cudaError {err}")
 
@@ -510,13 +664,14 @@ def nnd_forward(x: Tensor, y: Tensor) -> Tuple[Tensor, Tensor]:
     if not x.is_cuda:
         dl, _, dr, _ = nn_distances_plain(x, y)
         return dl, dr
-    x, y = check_clouds(x, y, smem_bytes(x.shape[1], y.shape[1]))
-    b = x.shape[0]
-    dl = torch.empty((b, x.shape[1]), dtype=torch.float32, device=x.device)
-    dr = torch.empty((b, y.shape[1]), dtype=torch.float32, device=x.device)
+    x, y = _fwd_clouds(x, y)
+    b, n, m = x.shape[0], x.shape[1], y.shape[1]
+    dl = torch.empty((b, n), dtype=torch.float32, device=x.device)
+    dr = torch.empty((b, m), dtype=torch.float32, device=x.device)
     _launch(x, y, pair_list(b, b, "diag", x.device), False, dl=dl, dr=dr)
-    launches["nnd_fwd"] += 1
-    clusters["nnd_fwd"].add(cluster_size(b, x.shape[1], y.shape[1]))
+    _count("nnd_fwd", large_layout(n, m))
+    if not large_layout(n, m):
+        clusters["nnd_fwd"].add(cluster_size(b, n, m))
     return dl, dr
 
 
@@ -526,12 +681,15 @@ def nnd_backward(x: Tensor, y: Tensor, dl: Tensor, dr: Tensor, gl: Tensor, gr: T
     cotangents gl, gr: the kernel for CUDA tensors (its per-pair path in
     ``last_paths``), the plain version for CPU tensors. ``three_pass``: the
     three-pass kernel on every pair, a reference for tests (counted in
-    ``reference_launches``)."""
+    ``reference_launches``; one CTA holds the pair, so it raises past
+    N + M = 9685, where its shared memory does not fit)."""
     global last_paths
     if not x.is_cuda:
         return nn_distances_backward_plain(x, y, dl, dr, gl, gr)
-    x, y = check_clouds(x, y, bwd_smem_bytes(x.shape[1], y.shape[1], three_pass))
-    b, n, m = x.shape[0], x.shape[1], y.shape[1]
+    n, m = x.shape[1], y.shape[1]
+    large = large_layout(n, m) and not three_pass
+    x, y = check_clouds(x, y, 0 if large else bwd_smem_bytes(n, m, three_pass))
+    b = x.shape[0]
     if y.shape[0] != b or dl.shape != (b, n) or dr.shape != (b, m) or gl.shape != (b, n) \
             or gr.shape != (b, m):
         raise ValueError(f"nnd_backward shapes: x {tuple(x.shape)}, y {tuple(y.shape)}, dl "
@@ -549,6 +707,11 @@ def nnd_backward(x: Tensor, y: Tensor, dl: Tensor, dr: Tensor, gl: Tensor, gr: T
     with torch.cuda.device(x.device):
         if three_pass:
             err = _lib().dpfx_nnd_bwd3_launch(*args, stream)
+        elif large:
+            scratch = torch.empty(_lib().dpfx_nnd_bwd_large_scratch_words(b, n, m),
+                                  dtype=torch.int32, device=x.device)
+            err = _lib().dpfx_nnd_bwd_large_launch(*args, paths.data_ptr(), scratch.data_ptr(),
+                                                   stream)
         else:
             err = _lib().dpfx_nnd_bwd_launch(*args, paths.data_ptr(), stream)
     if err != 0:
@@ -556,8 +719,9 @@ def nnd_backward(x: Tensor, y: Tensor, dl: Tensor, dr: Tensor, gl: Tensor, gr: T
     if three_pass:
         reference_launches["nnd_bwd3"] += 1
     else:
-        launches["nnd_bwd"] += 1
-        clusters["nnd_bwd"].add(cluster_size(b, n, m))
+        _count("nnd_bwd", large)
+        if not large:
+            clusters["nnd_bwd"].add(cluster_size(b, n, m))
         last_paths = paths
     return gx, gy
 
@@ -617,12 +781,13 @@ def chamfer_pairwise(xs: Tensor, ys: Tensor, precision: str = "exact",
         raise ValueError("symmetric=True needs a self-comparison (S1==S2, N==M)")
     if not xs.is_cuda:
         return chamfer_pairwise_plain(xs, ys, precision)
-    xs, ys = check_clouds(xs, ys, smem_bytes(n, m))
+    xs, ys = _fwd_clouds(xs, ys)
     pairs = pair_list(s1, s2, "upper" if symmetric else "full", xs.device)
     cd = torch.empty(pairs.shape[0], dtype=torch.float32, device=xs.device)
     _launch(xs, ys, pairs, fast, cd=cd)
-    launches["cd_pairwise"] += 1
-    clusters["cd_pairwise"].add(cluster_size(pairs.shape[0], n, m))
+    _count("cd_pairwise", large_layout(n, m))
+    if not large_layout(n, m):
+        clusters["cd_pairwise"].add(cluster_size(pairs.shape[0], n, m))
     if not symmetric:
         return cd.view(s1, s2)
     out = torch.empty((s1, s2), dtype=torch.float32, device=xs.device)

@@ -994,6 +994,511 @@ __global__ void __launch_bounds__(THREADS, 1) nnd_bwd_kernel(const float* __rest
   }
 }
 
+// ---- the large-cloud layout (N or M above PAIR_POINTS, up to LARGE_POINTS)
+//
+// The layouts above hold a whole pair in one CTA's shared memory (or in
+// each CTA of its cluster), 16 B a point and the per-point words: past
+// PAIR_POINTS = 4096 points a cloud they do not fit (at N = M = 15,000 a
+// pair needs ~600 KB for the forward, ~840 KB for the backward, against
+// 227 KB a CTA). The large layout streams the coordinates instead: a CTA
+// keeps only one tile of 256 columns in shared memory (4 KB) and reads its
+// rows from global memory, where the pair's two clouds (480 KB at 15,000
+// points) stay in the 50 MB L2. The work is bound by FP32 issue, ~10
+// instructions an element, against 16 B a row read once a column tile, so
+// the reads cost nothing that matters. Cluster spreading (the other way to
+// find room) would cap the clouds at what 8 CTAs hold (~1.8 MB), and give
+// 32 pairs 256 CTAs in two waves; streaming has no cap but the packed
+// counts' (HIT_L) and keeps a pair's work on as many CTAs as it has column
+// tiles (59 at 15,000 points).
+//   * Forward (cd_large_minima): CTA (pair, column tile); the warps take
+//     the pair's row groups of 256 in turn, each a tile with
+//     tile_minima's arithmetic and order (8 rows a lane, chunks of 32
+//     columns read at jj ^ lane, the columns' xor butterfly). The columns'
+//     minima meet in shared memory by integer atomicMin and, since the CTA
+//     saw every row, are stored once; the rows' minima meet the other
+//     column tiles' in global memory by integer atomicMin on their bits,
+//     exact in any order (no float atomics). cd_large_sums then sums each
+//     pair's minima as chamfer_kernel does (thread t over t, t + 256, ...,
+//     block_sum), so dl, dr and CD equal the whole-pair layout's bit for
+//     bit, and onepass_plain's.
+//   * Backward (nnd_large_*): the same sweep with tile_hits' packed counts
+//     (HIT_L + k a hit: HIT_L = 2^15 exceeds every index and every count,
+//     and 16,384 hits of at most 2^15 + 16,383 stay below the mark AFF), the
+//     rows' words met in global memory by integer atomicAdd, the columns'
+//     stored by their tile's CTA. nnd_large_classify gives each pair its
+//     path as nnd_bwd_kernel does (the same counts, so the same path), and
+//     lists up to FIX_MAX points whose count is not 1; nnd_large_count
+//     counts their hits again with a warp's scan of the other cloud and
+//     marks the points they hit (PATH_FIX), or counts every such point
+//     (PATH_THREE). nnd_large_sums: each warp owns 32 rows (or columns);
+//     an owner whose count is 1 and that no tie marked sums its inverse
+//     list, found by scanning the other cloud's words in index order (the
+//     members whose one hit it is, in ascending order: the three passes'
+//     order, as the CSR lists give it, for a list of any length); every
+//     other owner (all of them on PATH_THREE) takes fix_row's or fix_col's
+//     scan of the whole other cloud. Every path adds the three passes'
+//     nonzero terms in index order with the same roundings: the gradients
+//     equal onepass_bwd_plain's bit for bit.
+// Both read a point as load_points stores it (point_at: the norm from the
+// f32 coordinates; the fast forward rounds the coordinates to bf16). Their
+// sweeps and scans are copies of tile_minima, tile_hits, fix_row and
+// fix_col reading global memory: the whole-pair kernels keep their SASS.
+
+constexpr int PAIR_POINTS = 4096;       // the whole-pair layouts' largest cloud (MAX_POINTS)
+constexpr int LARGE_POINTS = 16384;     // the large layout's (chamfer.MAX_POINTS)
+constexpr uint32_t HIT_L = 1u << 15;    // a hit in the large layout's packed counts (> every index and count)
+constexpr long long LARGE_SCRATCH = 1ll << 26;   // floats of a chunk of cd_pairwise's minima (256 MB)
+
+__host__ __device__ inline bool large_layout(int N, int M) { return N > PAIR_POINTS || M > PAIR_POINTS; }
+__host__ __device__ inline int col_tiles(int M) { return (M + COLS - 1) / COLS; }
+
+// point i of a cloud [n, 3] as load_points<FAST> stores it; past n a
+// padding point (0, 0, 0, inf), infinitely far from every point
+template <bool FAST>
+__device__ __forceinline__ float4 point_at(const float* __restrict__ src, int i, int n) {
+  if (i >= n) return make_float4(0.f, 0.f, 0.f, INFINITY);
+  const float a = src[3 * i], b = src[3 * i + 1], c = src[3 * i + 2];
+  const float nrm = __fadd_rn(__fadd_rn(__fmul_rn(a, a), __fmul_rn(b, b)), __fmul_rn(c, c));
+  return FAST ? make_float4(rnd<__nv_bfloat16>(a), rnd<__nv_bfloat16>(b), rnd<__nv_bfloat16>(c), nrm)
+              : make_float4(a, b, c, nrm);
+}
+
+// pair p = blockIdx.x / gc, column tile c = blockIdx.x % gc (gc = col_tiles(M)):
+// the rows' minima into dlb [P, N] (u32 bits, set above every minimum before
+// the launch) by atomicMin, the tile's columns' minima over every row stored
+// into drb [P, M]
+template <bool FAST>
+__global__ void __launch_bounds__(THREADS, 2) cd_large_minima(const float* __restrict__ xs,
+                                                              const float* __restrict__ ys,
+                                                              const int* __restrict__ pairs, int N, int M,
+                                                              uint32_t* __restrict__ dlb,
+                                                              uint32_t* __restrict__ drb) {
+  __shared__ float4 yt[COLS];
+  __shared__ uint32_t cmin[COLS];
+  const int gc = col_tiles(M), lane = lane_id();
+  const long long p = blockIdx.x / gc;
+  const int c0 = (int)(blockIdx.x % gc) * COLS, cols = min(COLS, (M - c0 + 31) / 32 * 32);
+  const float* x = xs + (long long)pairs[2 * p] * N * 3;
+  const float* y = ys + (long long)pairs[2 * p + 1] * M * 3;
+  for (int j = threadIdx.x; j < COLS; j += THREADS) {
+    yt[j] = point_at<FAST>(y, c0 + j, M);
+    cmin[j] = INF_BITS;
+  }
+  __syncthreads();
+  for (int g = (int)threadIdx.x / 32; g * ROWS < N; g += WARPS) {
+    float4 a[RA];
+    float rm[RA];
+#pragma unroll
+    for (int r = 0; r < RA; ++r) {
+      a[r] = point_at<FAST>(x, g * ROWS + lane + 32 * r, N);
+      rm[r] = INFINITY;
+    }
+    for (int j0 = 0; j0 < cols; j0 += 32) {
+      float cm[32];
+#pragma unroll
+      for (int jj = 0; jj < 32; ++jj) {
+        const float4 q = yt[j0 + (jj ^ lane)];
+#pragma unroll
+        for (int r = 0; r < RA; ++r) {
+          const float d = raw_dist<FAST>(a[r], q);
+          rm[r] = fminf(rm[r], d);
+          cm[jj] = r ? fminf(cm[jj], d) : d;
+        }
+      }
+      fold<16>(cm);
+      fold<8>(cm);
+      fold<4>(cm);
+      fold<2>(cm);
+      fold<1>(cm);
+      if (c0 + j0 + lane < M) atomicMin(cmin + j0 + lane, min_bits<FAST>(cm[0]));
+    }
+#pragma unroll
+    for (int r = 0; r < RA; ++r) {
+      const int i = g * ROWS + lane + 32 * r;
+      if (i < N) atomicMin(dlb + p * N + i, min_bits<FAST>(rm[r]));
+    }
+  }
+  __syncthreads();
+  for (int j = threadIdx.x; j < COLS; j += THREADS)
+    if (c0 + j < M) drb[p * M + c0 + j] = cmin[j];
+}
+
+// pair p (one CTA): cd [p] = mean(dl) + mean(dr), summed as chamfer_kernel sums
+__global__ void __launch_bounds__(THREADS) cd_large_sums(const float* __restrict__ dl,
+                                                         const float* __restrict__ dr, int N, int M,
+                                                         float* __restrict__ cd) {
+  __shared__ float red[WARPS];
+  const long long p = blockIdx.x;
+  float sl = 0.f, sr = 0.f;
+  for (int i = threadIdx.x; i < N; i += THREADS) sl += dl[p * N + i];
+  for (int j = threadIdx.x; j < M; j += THREADS) sr += dr[p * M + j];
+  const float a = block_sum(sl, red);
+  const float b = block_sum(sr, red);
+  if (threadIdx.x == 0) cd[p] = a / (float)N + b / (float)M;
+}
+
+// pairs a cd_pairwise chunk takes: its minima (scratch) stay within LARGE_SCRATCH floats
+int large_chunk(int P, int N, int M) {
+  const long long c = LARGE_SCRATCH / (N + M);
+  return c < 1 ? 1 : c < P ? (int)c : P;
+}
+
+// the large layout's backward: words [P, N + M] (rows, then columns; zeroed
+// before the sweep), cnt [P, N + M] the counts of the points whose count is
+// not 1, odd [P, FIX_MAX] up to FIX_MAX of those points, meta [P, 2] the
+// path and the points listed
+__device__ __forceinline__ int one_hit_l(uint32_t w) { return w - HIT_L < HIT_L ? (int)(w - HIT_L) : -1; }
+__device__ __forceinline__ int single_l(uint32_t w) { return one_hit_l(w & ~AFF); }
+__device__ __forceinline__ bool fixed_l(uint32_t w) { return (w & AFF) || single_l(w) < 0; }
+// point k's hits as the three passes count them: 1, or its count again
+__device__ __forceinline__ float hits_l(const uint32_t* words, const uint32_t* cnt, int k) {
+  return single_l(words[k]) >= 0 ? 1.f : (float)cnt[k];
+}
+
+// pair p = blockIdx.x / gc, column tile c: tile_hits' sweep of the tile
+// against every row; the rows' words added in global memory, the tile's
+// columns' words (over every row) stored
+__global__ void __launch_bounds__(THREADS, 2) nnd_large_sweep(const float* __restrict__ xs,
+                                                              const float* __restrict__ ys, int N, int M,
+                                                              const float* __restrict__ dl,
+                                                              const float* __restrict__ dr,
+                                                              uint32_t* __restrict__ words) {
+  __shared__ float4 yt[COLS];
+  __shared__ float cbt[COLS];
+  __shared__ uint32_t cw[COLS];
+  const int gc = col_tiles(M), lane = lane_id();
+  const long long p = blockIdx.x / gc;
+  const int c0 = (int)(blockIdx.x % gc) * COLS, cols = min(COLS, (M - c0 + 31) / 32 * 32);
+  const float* x = xs + p * N * 3;
+  uint32_t* rw = words + p * (N + M);
+  for (int j = threadIdx.x; j < COLS; j += THREADS) {
+    yt[j] = point_at<false>(ys + p * M * 3, c0 + j, M);
+    cbt[j] = c0 + j < M ? sweep_bound(dr[p * M + c0 + j]) : -INFINITY;
+    cw[j] = 0u;
+  }
+  __syncthreads();
+  for (int g = (int)threadIdx.x / 32; g * ROWS < N; g += WARPS) {
+    float4 a[RA];
+    float dm[RA];
+    uint32_t w[RA], hi[RA];
+#pragma unroll
+    for (int r = 0; r < RA; ++r) {
+      const int i = g * ROWS + lane + 32 * r;
+      a[r] = point_at<false>(x, i, N);
+      dm[r] = i < N ? sweep_bound(dl[p * N + i]) : -INFINITY;
+      w[r] = 0u;
+      hi[r] = HIT_L + i;
+    }
+    for (int j0 = 0; j0 < cols; j0 += 32) {
+      uint32_t cm[32];
+#pragma unroll
+      for (int jj = 0; jj < 32; ++jj) {
+        const int j = j0 + (jj ^ lane);
+        const float4 q = yt[j];
+        const float dc = cbt[j];
+        cm[jj] = 0u;
+#pragma unroll
+        for (int r = 0; r < RA; ++r) {
+          const float d = raw_dist<false>(a[r], q);
+          add_if_le(w[r], d, dm[r], HIT_L + c0 + j);
+          add_if_le(cm[jj], d, dc, hi[r]);
+        }
+      }
+      fold_add<16>(cm);
+      fold_add<8>(cm);
+      fold_add<4>(cm);
+      fold_add<2>(cm);
+      fold_add<1>(cm);
+      if (cm[0]) atomicAdd(cw + j0 + lane, cm[0]);   // columns past M never hit
+    }
+#pragma unroll
+    for (int r = 0; r < RA; ++r)
+      if (w[r]) atomicAdd(rw + hi[r] - HIT_L, w[r]);   // rows past N never hit
+  }
+  __syncthreads();
+  for (int j = threadIdx.x; j < COLS; j += THREADS)
+    if (c0 + j < M) rw[N + c0 + j] = cw[j];
+}
+
+// pair p (one CTA): its path from its points whose count is not 1 (as
+// nnd_bwd_kernel decides it), up to FIX_MAX of them listed in no order
+__global__ void __launch_bounds__(THREADS) nnd_large_classify(int N, int M, const uint32_t* __restrict__ words,
+                                                              int* __restrict__ odd, int* __restrict__ meta,
+                                                              uint8_t* __restrict__ paths) {
+  __shared__ int n_odd;
+  const long long p = blockIdx.x;
+  const uint32_t* rw = words + p * (N + M);
+  if (threadIdx.x == 0) n_odd = 0;
+  __syncthreads();
+  for (int k = threadIdx.x; k < N + M; k += THREADS)
+    if (one_hit_l(rw[k]) < 0) {
+      const int e = atomicAdd(&n_odd, 1);
+      if (e < FIX_MAX) odd[p * FIX_MAX + e] = k;
+    }
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    const int path = n_odd == 0 ? PATH_LISTS : n_odd <= FIX_MAX ? PATH_FIX : PATH_THREE;
+    meta[2 * p] = path;
+    meta[2 * p + 1] = min(n_odd, FIX_MAX);
+    paths[p] = (uint8_t)path;
+  }
+}
+
+// point k's hits (a row when k < N, else a column) counted again by the
+// warp's scan of the other cloud, 32 points at a time; MARK: each point it
+// hits marked (AFF) in its word
+template <bool MARK>
+__device__ uint32_t count_hits(int k, const float* x, const float* y, int N, int M, const float* dl,
+                               const float* dr, uint32_t* rw) {
+  const bool row = k < N;
+  const float4 pt = row ? point_at<false>(x, k, N) : point_at<false>(y, k - N, M);
+  const float bound = sweep_bound(row ? dl[k] : dr[k - N]);
+  const float* o = row ? y : x;
+  const int n = row ? M : N;
+  uint32_t* ow = row ? rw + N : rw;
+  uint32_t c = 0u;
+  for (int base = 0; base < n; base += 32) {
+    const int q = base + lane_id();
+    const bool hit = q < n && raw_dist<false>(pt, point_at<false>(o, q, n)) <= bound;
+    if (MARK && hit) atomicOr(ow + q, AFF);
+    c += __popc(__ballot_sync(0xffffffffu, hit));
+  }
+  return c;
+}
+
+// pair p = blockIdx.x / nb, block b of 256 points (rows, then columns):
+// PATH_FIX, blocks 0 .. FIX_MAX / WARPS - 1: warp e counts and marks the
+// pair's listed point e; PATH_THREE: each warp counts its 32 points'
+// whose count is not 1
+__global__ void __launch_bounds__(THREADS) nnd_large_count(const float* __restrict__ xs,
+                                                           const float* __restrict__ ys, int N, int M,
+                                                           const float* __restrict__ dl,
+                                                           const float* __restrict__ dr,
+                                                           uint32_t* __restrict__ words,
+                                                           uint32_t* __restrict__ cnt,
+                                                           const int* __restrict__ odd,
+                                                           const int* __restrict__ meta) {
+  const int nb = (N + M + THREADS - 1) / THREADS, warp = (int)threadIdx.x / 32;
+  const long long p = blockIdx.x / nb;
+  const int b = (int)(blockIdx.x % nb), path = meta[2 * p];
+  const float *x = xs + p * N * 3, *y = ys + p * M * 3;
+  dl += p * N;
+  dr += p * M;
+  uint32_t* rw = words + p * (N + M);
+  cnt += p * (N + M);
+  if (path == PATH_FIX) {
+    const int e = b * WARPS + warp;
+    if (e >= meta[2 * p + 1]) return;
+    const int k = odd[p * FIX_MAX + e];
+    const uint32_t c = count_hits<true>(k, x, y, N, M, dl, dr, rw);
+    if (lane_id() == 0) cnt[k] = c;
+  } else if (path == PATH_THREE) {
+    const int k0 = b * THREADS + warp * 32;
+    const int k = k0 + lane_id();
+    for (unsigned todo = __ballot_sync(0xffffffffu, k < N + M && one_hit_l(rw[k]) < 0); todo; todo &= todo - 1) {
+      const int kk = k0 + __ffs(todo) - 1;
+      const uint32_t c = count_hits<false>(kk, x, y, N, M, dl, dr, rw);
+      if (lane_id() == 0) cnt[kk] = c;
+    }
+  }
+}
+
+// fix_row over the global clouds: gx_i by pass (C)'s arithmetic (one warp)
+__device__ void fix_row_l(int i, const float* x, const float* y, int N, int M, const float* dl, const float* dr,
+                          const float* gl, const float* gr, const uint32_t* rw, const uint32_t* cnt, float* gx) {
+  const unsigned all = 0xffffffffu;
+  const float4 an = point_at<false>(x, i, N);
+  const float bound = sweep_bound(dl[i]);
+  float swr = 0.f;
+  float3 sy = make_float3(0.f, 0.f, 0.f), swy = sy;
+  for (int base = 0; base < M; base += 4 * 32) {
+    float4 q[4];
+    float ml[4], wr[4];
+    unsigned bal[4];
+#pragma unroll
+    for (int u = 0; u < 4; ++u) {
+      const int j = base + 32 * u + lane_id();
+      q[u] = make_float4(0.f, 0.f, 0.f, 0.f);
+      ml[u] = wr[u] = 0.f;
+      bool mr = false;
+      if (j < M) {
+        q[u] = point_at<false>(y, j, M);
+        const float d = raw_dist<false>(an, q[u]);
+        ml[u] = d <= bound ? 1.f : 0.f;
+        mr = d <= sweep_bound(dr[j]);
+        if (mr) wr[u] = __fdiv_rn(gr[j], fmaxf(hits_l(rw + N, cnt + N, j), 1.f));
+      }
+      bal[u] = __ballot_sync(all, ml[u] != 0.f || mr);
+    }
+#pragma unroll
+    for (int u = 0; u < 4; ++u)
+      for (unsigned b = bal[u]; b; b &= b - 1) {
+        const int l = __ffs(b) - 1;
+        const float m = __shfl_sync(all, ml[u], l), w = __shfl_sync(all, wr[u], l);
+        const float qx = __shfl_sync(all, q[u].x, l), qy = __shfl_sync(all, q[u].y, l),
+                    qz = __shfl_sync(all, q[u].z, l);
+        sy.x = fmaf(m, qx, sy.x);
+        sy.y = fmaf(m, qy, sy.y);
+        sy.z = fmaf(m, qz, sy.z);
+        swr += w;
+        swy.x = fmaf(w, qx, swy.x);
+        swy.y = fmaf(w, qy, swy.y);
+        swy.z = fmaf(w, qz, swy.z);
+      }
+  }
+  if (lane_id() == 0) {
+    const float c = __fmul_rn(2.f, __fadd_rn(gl[i], swr));
+    const float wl2 = __fmul_rn(2.f, __fdiv_rn(gl[i], fmaxf(hits_l(rw, cnt, i), 1.f)));
+    gx[3 * i] = gx_coord(c, an.x, wl2, sy.x, swy.x);
+    gx[3 * i + 1] = gx_coord(c, an.y, wl2, sy.y, swy.y);
+    gx[3 * i + 2] = gx_coord(c, an.z, wl2, sy.z, swy.z);
+  }
+}
+
+// fix_col over the global clouds: gy_j by pass (B)'s arithmetic (one warp)
+__device__ void fix_col_l(int j, const float* x, const float* y, int N, int M, const float* dl, const float* dr,
+                          const float* gl, const float* gr, const uint32_t* rw, const uint32_t* cnt, float* gy) {
+  const unsigned all = 0xffffffffu;
+  const float4 bn = point_at<false>(y, j, M);
+  const float bound = sweep_bound(dr[j]);
+  float cn = 0.f, swl = 0.f;
+  float3 sx = make_float3(0.f, 0.f, 0.f), swx = sx;
+  for (int base = 0; base < N; base += 4 * 32) {
+    float4 a[4];
+    float mr[4], wl[4];
+    unsigned bal[4];
+#pragma unroll
+    for (int u = 0; u < 4; ++u) {
+      const int i = base + 32 * u + lane_id();
+      a[u] = make_float4(0.f, 0.f, 0.f, 0.f);
+      mr[u] = wl[u] = 0.f;
+      bool ml = false;
+      if (i < N) {
+        a[u] = point_at<false>(x, i, N);
+        const float d = raw_dist<false>(a[u], bn);
+        mr[u] = d <= bound ? 1.f : 0.f;
+        ml = d <= sweep_bound(dl[i]);
+        if (ml) wl[u] = __fdiv_rn(gl[i], fmaxf(hits_l(rw, cnt, i), 1.f));
+      }
+      bal[u] = __ballot_sync(all, mr[u] != 0.f || ml);
+    }
+#pragma unroll
+    for (int u = 0; u < 4; ++u)
+      for (unsigned bits = bal[u]; bits; bits &= bits - 1) {
+        const int l = __ffs(bits) - 1;
+        const float m = __shfl_sync(all, mr[u], l), w = __shfl_sync(all, wl[u], l);
+        const float ax = __shfl_sync(all, a[u].x, l), ay = __shfl_sync(all, a[u].y, l),
+                    az = __shfl_sync(all, a[u].z, l);
+        cn += m;
+        sx.x = fmaf(m, ax, sx.x);
+        sx.y = fmaf(m, ay, sx.y);
+        sx.z = fmaf(m, az, sx.z);
+        swl += w;
+        swx.x = fmaf(w, ax, swx.x);
+        swx.y = fmaf(w, ay, swx.y);
+        swx.z = fmaf(w, az, swx.z);
+      }
+  }
+  if (lane_id() == 0) {
+    const float wr = __fdiv_rn(gr[j], fmaxf(cn, 1.f));
+    const float c = __fmul_rn(2.f, __fadd_rn(gr[j], swl)), wr2 = __fmul_rn(2.f, wr);
+    gy[3 * j] = gy_coord(c, bn.x, swx.x, wr2, sx.x);
+    gy[3 * j + 1] = gy_coord(c, bn.y, swx.y, wr2, sx.y);
+    gy[3 * j + 2] = gy_coord(c, bn.z, swx.z, wr2, sx.z);
+  }
+}
+
+// pair p = blockIdx.x / (br + bc), block b: rows b * 256 .. (b < br), else
+// columns (b - br) * 256 ..; each warp owns 32 of them. An owner whose count
+// is 1 and that no tie marked sums its inverse list (the other cloud's points
+// whose one hit it is) in ascending index order, scanning the other cloud's
+// words 32 at a time; every other owner (all on PATH_THREE) is summed over
+// the whole other cloud by fix_row_l / fix_col_l
+__global__ void __launch_bounds__(THREADS) nnd_large_sums(const float* __restrict__ xs,
+                                                          const float* __restrict__ ys, int N, int M,
+                                                          const float* __restrict__ dl,
+                                                          const float* __restrict__ dr,
+                                                          const float* __restrict__ gl,
+                                                          const float* __restrict__ gr,
+                                                          const uint32_t* __restrict__ words,
+                                                          const uint32_t* __restrict__ cnt,
+                                                          const int* __restrict__ meta, float* __restrict__ gx,
+                                                          float* __restrict__ gy) {
+  const unsigned all = 0xffffffffu;
+  const int br = (N + THREADS - 1) / THREADS, bc = (M + THREADS - 1) / THREADS, lane = lane_id();
+  const long long p = blockIdx.x / (br + bc);
+  const int b = (int)(blockIdx.x % (br + bc));
+  const bool row = b < br;
+  const float *x = xs + p * N * 3, *y = ys + p * M * 3;
+  dl += p * N;
+  dr += p * M;
+  gl += p * N;
+  gr += p * M;
+  gx += p * N * 3;
+  gy += p * M * 3;
+  const uint32_t* rw = words + p * (N + M);
+  cnt += p * (N + M);
+  const int path = meta[2 * p];
+  const int n_own = row ? N : M, n_oth = row ? M : N;
+  const int o0 = (row ? b : b - br) * THREADS + (int)threadIdx.x / 32 * 32, o = o0 + lane;
+  if (o0 >= n_own) return;
+  const uint32_t* own_w = row ? rw : rw + N;
+  const uint32_t* oth_w = row ? rw + N : rw;
+  const float* oth = row ? y : x;
+  const float* oth_g = row ? gr : gl;
+  const bool mine = o < n_own && path != PATH_THREE && !fixed_l(own_w[o]);
+  if (__any_sync(all, mine)) {
+    float sw = 0.f;
+    float3 sv = make_float3(0.f, 0.f, 0.f);
+    for (int base = 0; base < n_oth; base += 32) {
+      const int q = base + lane;
+      const int h = q < n_oth ? single_l(oth_w[q]) : -1;   // member q of owner h's list
+      const bool mem = h >= o0 && h < o0 + 32;
+      float4 c = make_float4(0.f, 0.f, 0.f, 0.f);
+      if (mem) c = make_float4(oth[3 * q], oth[3 * q + 1], oth[3 * q + 2], oth_g[q]);
+      for (unsigned bal = __ballot_sync(all, mem); bal; bal &= bal - 1) {
+        const int l = __ffs(bal) - 1;
+        const int hh = __shfl_sync(all, h, l);
+        const float cx = __shfl_sync(all, c.x, l), cy = __shfl_sync(all, c.y, l),
+                    cz = __shfl_sync(all, c.z, l), cw = __shfl_sync(all, c.w, l);
+        if (lane == hh - o0) {
+          sw = __fadd_rn(sw, cw);
+          sv.x = __fmaf_rn(cw, cx, sv.x);
+          sv.y = __fmaf_rn(cw, cy, sv.y);
+          sv.z = __fmaf_rn(cw, cz, sv.z);
+        }
+      }
+    }
+    if (mine) {
+      const int k = single_l(own_w[o]);
+      if (row) {
+        const float4 a = point_at<false>(x, o, N);
+        const float g = gl[o];
+        const float c = __fmul_rn(2.f, __fadd_rn(g, sw)), wl2 = __fmul_rn(2.f, g);
+        gx[3 * o] = gx_coord(c, a.x, wl2, __fadd_rn(0.f, y[3 * k]), sv.x);
+        gx[3 * o + 1] = gx_coord(c, a.y, wl2, __fadd_rn(0.f, y[3 * k + 1]), sv.y);
+        gx[3 * o + 2] = gx_coord(c, a.z, wl2, __fadd_rn(0.f, y[3 * k + 2]), sv.z);
+      } else {
+        const float4 bq = point_at<false>(y, o, M);
+        const float g = gr[o];
+        const float c = __fmul_rn(2.f, __fadd_rn(g, sw)), wr2 = __fmul_rn(2.f, g);
+        gy[3 * o] = gy_coord(c, bq.x, sv.x, wr2, __fadd_rn(0.f, x[3 * k]));
+        gy[3 * o + 1] = gy_coord(c, bq.y, sv.y, wr2, __fadd_rn(0.f, x[3 * k + 1]));
+        gy[3 * o + 2] = gy_coord(c, bq.z, sv.z, wr2, __fadd_rn(0.f, x[3 * k + 2]));
+      }
+    }
+  }
+  for (unsigned fx = __ballot_sync(all, o < n_own && !mine); fx; fx &= fx - 1) {
+    const int f = o0 + __ffs(fx) - 1;
+    if (row) fix_row_l(f, x, y, N, M, dl, dr, gl, gr, rw, cnt, gx);
+    else fix_col_l(f, x, y, N, M, dl, dr, gl, gr, rw, cnt, gy);
+  }
+}
+
+// the backward's scratch in 32-bit words: words and cnt [P, N + M], odd
+// [P, FIX_MAX], meta [P, 2]
+long long bwd_large_words(int P, int N, int M) { return (long long)P * (2ll * (N + M) + FIX_MAX + 2); }
+
 }  // namespace
 
 extern "C" {
@@ -1039,6 +1544,72 @@ int dpfx_chamfer_launch(const float* xs, const float* ys, const int* pairs, int 
   const int bytes = Sizes(N, M).bytes;
   return fast ? launch_clusters(chamfer_kernel<true>, P, N, M, bytes, s, xs, ys, pairs, N, M, cd, dl, dr)
               : launch_clusters(chamfer_kernel<false>, P, N, M, bytes, s, xs, ys, pairs, N, M, cd, dl, dr);
+}
+
+
+// the large layout: its route (1 where N or M is above PAIR_POINTS), the
+// CTAs its sweeps give a pair (the column tiles of M), the floats of
+// cd_pairwise's scratch for P pairs, the backward's scratch in 32-bit words
+int dpfx_chamfer_large(int N, int M) { return large_layout(N, M) ? 1 : 0; }
+int dpfx_chamfer_large_ctas(int M) { return col_tiles(M); }
+long long dpfx_chamfer_large_scratch_floats(int P, int N, int M) {
+  return (long long)large_chunk(P, N, M) * (N + M);
+}
+long long dpfx_nnd_bwd_large_scratch_words(int P, int N, int M) { return bwd_large_words(P, N, M); }
+
+// the forward on the large layout: dl [P, N] and dr [P, M] (both, or
+// neither: then the minima go through scratch, dpfx_chamfer_large_scratch_floats
+// of them, in chunks of pairs) and cd [P] (nullable)
+int dpfx_chamfer_large_launch(const float* xs, const float* ys, const int* pairs, int P, int N, int M, int fast,
+                              float* cd, float* dl, float* dr, float* scratch, void* stream) {
+  if (P <= 0) return 0;
+  if (N <= 0 || M <= 0 || N > LARGE_POINTS || M > LARGE_POINTS || !dl != !dr || (!dl && !scratch))
+    return cudaErrorInvalidValue;
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const int chunk = dl ? P : large_chunk(P, N, M);
+  for (int p0 = 0; p0 < P; p0 += chunk) {
+    const int q = P - p0 < chunk ? P - p0 : chunk;
+    float* l = dl ? dl + (long long)p0 * N : scratch;
+    float* r = dr ? dr + (long long)p0 * M : scratch + (long long)chunk * N;
+    cudaError_t e = cudaMemsetAsync(l, 0xff, (size_t)q * N * sizeof(float), s);   // above every minimum
+    if (e != cudaSuccess) return e;
+    const unsigned grid = (unsigned)((long long)q * col_tiles(M));
+    if (fast)
+      cd_large_minima<true><<<grid, THREADS, 0, s>>>(xs, ys, pairs + 2ll * p0, N, M,
+                                                     reinterpret_cast<uint32_t*>(l), reinterpret_cast<uint32_t*>(r));
+    else
+      cd_large_minima<false><<<grid, THREADS, 0, s>>>(xs, ys, pairs + 2ll * p0, N, M,
+                                                      reinterpret_cast<uint32_t*>(l), reinterpret_cast<uint32_t*>(r));
+    if (cd) cd_large_sums<<<q, THREADS, 0, s>>>(l, r, N, M, cd + p0);
+    e = cudaGetLastError();
+    if (e != cudaSuccess) return e;
+  }
+  return 0;
+}
+
+// the backward on the large layout (dpfx_nnd_bwd_launch's arguments, and
+// scratch of dpfx_nnd_bwd_large_scratch_words 32-bit words)
+int dpfx_nnd_bwd_large_launch(const float* xs, const float* ys, int P, int N, int M, const float* dl,
+                              const float* dr, const float* gl, const float* gr, float* gx, float* gy,
+                              uint8_t* paths, int* scratch, void* stream) {
+  if (P <= 0) return 0;
+  if (N <= 0 || M <= 0 || N > LARGE_POINTS || M > LARGE_POINTS || !scratch) return cudaErrorInvalidValue;
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const long long nm = (long long)P * (N + M);
+  uint32_t* words = reinterpret_cast<uint32_t*>(scratch);
+  uint32_t* cnt = words + nm;
+  int* odd = reinterpret_cast<int*>(cnt + nm);
+  int* meta = odd + (long long)P * FIX_MAX;
+  cudaError_t e = cudaMemsetAsync(words, 0, (size_t)nm * sizeof(uint32_t), s);
+  if (e != cudaSuccess) return e;
+  nnd_large_sweep<<<(unsigned)((long long)P * col_tiles(M)), THREADS, 0, s>>>(xs, ys, N, M, dl, dr, words);
+  nnd_large_classify<<<P, THREADS, 0, s>>>(N, M, words, odd, meta, paths);
+  nnd_large_count<<<(unsigned)((long long)P * ((N + M + THREADS - 1) / THREADS)), THREADS, 0, s>>>(
+      xs, ys, N, M, dl, dr, words, cnt, odd, meta);
+  const int blocks = (N + THREADS - 1) / THREADS + (M + THREADS - 1) / THREADS;
+  nnd_large_sums<<<(unsigned)((long long)P * blocks), THREADS, 0, s>>>(xs, ys, N, M, dl, dr, gl, gr, words, cnt,
+                                                                       meta, gx, gy);
+  return cudaGetLastError();
 }
 
 }  // extern "C"

@@ -862,6 +862,270 @@ cudaError_t launch(const float* xs, const float* ys, const int* pairs, int P, in
   return cudaGetLastError();
 }
 
+// ---- the large-cloud layout (N or M above PAIR_POINTS, up to LARGE_POINTS)
+//
+// emd_kernel holds both clouds and the per-point vectors in each CTA's
+// shared memory: past PAIR_POINTS = 4096 a cloud they do not fit (~780 KB
+// at N = M = 15,000). The large layout keeps the same sweeps and moves
+// their state to global memory: each cloud is stored once as the sweeps
+// read it (load_cloud: float4 with the norm, or fast mode's bf16 features),
+// each pair's per-point vectors (pack, remainl, rowsum, scale, the ratio's
+// parts) in a slice of scratch, and every sweep is one launch over (pair,
+// block of `own` rows or columns), so the launch boundary is the barrier
+// that cluster.sync() is in the cluster. A CTA runs the same rows_exact /
+// cols_exact / rows_fast / cols_fast on these global arrays (the other side
+// read as broadcasts through L1: at most 16 B an element's column, against
+// ~15 issued instructions and 1-2 MUFU, so the element loop stays bound by
+// its issue and its MUFU). A pair's two clouds (480 KB at 15,000 points)
+// stay in L2. Per pair and level: one columns launch and one rows launch, 2
+// n_iters + 1 sweeps in all, plus the clouds' and the state's set-up and the
+// cost's sum.
+//   * `own` (large_own) depends on P, N and M alone: 2048 points a CTA,
+//     halved down to 256 while the pairs give fewer than 2 x 132 CTAs.
+//     Within a CTA the split into groups (group_threads) follows from it. So
+//     the GRAD and plain launches of the same pairs sum in the same order,
+//     and the GRAD launch's cost equals the plain launch's bit for bit.
+//   * The level's cost: each columns CTA's block_sum, stored; emd_large_cost
+//     adds them per level in block order and the levels in order, as rank 0
+//     adds the cluster's. No atomics: bit-identical from run to run.
+//   * Pairs go in chunks whose state stays within LARGE_STATE bytes (the
+//     chunk, and so `own`, again a function of P, N and M).
+
+constexpr int PAIR_POINTS = 4096;                // emd_kernel's largest cloud (chamfer.PAIR_POINTS)
+constexpr int LARGE_POINTS = 16384;              // the large layout's (chamfer.MAX_POINTS)
+constexpr long long LARGE_STATE = 1ll << 28;     // bytes of a chunk's per-pair state (256 MB)
+
+__host__ __device__ inline bool large_layout(int N, int M) { return N > PAIR_POINTS || M > PAIR_POINTS; }
+__host__ __device__ inline long long round_up16(long long v) { return (v + 15) / 16 * 16; }
+
+// a pair's state: pack (8 B a column), remainl and rowsum (8 B a row), then
+// exact: scale (4 B a row); fast: the ratio's parts (12 ps B), scaleb (2 B a row)
+__host__ __device__ inline long long state_bytes(const Sizes& z, bool fast) {
+  return round_up16(8ll * z.mp + 8ll * z.np + (fast ? 12ll * z.ps + 2ll * z.np : 4ll * z.np));
+}
+
+// points a sweep's CTA owns: 2048, halved down to 256 while P pairs give
+// fewer than 2 x SMS CTAs
+int large_own(int P, int N, int M) {
+  int own = 2048;
+  const int n = N < M ? N : M;
+  while (own > 256 && (long long)P * ((n + own - 1) / own) < 2 * SMS) own /= 2;
+  return own;
+}
+
+// pairs in a chunk: its state within LARGE_STATE
+int large_chunk(int P, int N, int M, bool fast) {
+  const long long c = LARGE_STATE / state_bytes(Sizes(N, M), fast);
+  return c < 1 ? 1 : c < P ? (int)c : P;
+}
+
+template <bool FAST>
+__device__ Sm large_sm(char* st, const Sizes& z, const float4* xp, const float4* yp, float* scratch) {
+  Sm s;
+  s.ps = z.ps;
+  s.xp = const_cast<float4*>(xp);
+  s.yp = const_cast<float4*>(yp);
+  s.pack = reinterpret_cast<float*>(st);
+  s.remainl = s.pack + 2 * z.mp;
+  s.rowsum = s.remainl + z.np;
+  s.scale = nullptr;
+  s.scaleb = nullptr;
+  s.parts = nullptr;
+  s.scratch = scratch;
+  if (FAST) {
+    s.parts = reinterpret_cast<uint32_t*>(s.rowsum + z.np);
+    s.scaleb = reinterpret_cast<uint16_t*>(s.parts + 3 * z.ps);
+  } else {
+    s.scale = s.rowsum + z.np;
+  }
+  return s;
+}
+
+// block c < S1: left cloud c into xq [S1, np]; else right cloud c - S1 into
+// yq [S2, mp], as emd_kernel loads them
+template <bool FAST>
+__global__ void __launch_bounds__(THREADS) emd_large_prep(const float* __restrict__ xs,
+                                                          const float* __restrict__ ys, int S1, int N, int M,
+                                                          float4* __restrict__ xq, float4* __restrict__ yq) {
+  const Sizes z(N, M);
+  const long long c = blockIdx.x;
+  if (c < S1) load_cloud<FAST>(xq + c * z.np, xs + c * N * 3, N, z.np, 1.f);
+  else load_cloud<FAST>(yq + (c - S1) * z.mp, ys + (c - S1) * M * 3, M, z.mp, -2.f);
+}
+
+// pair p (one CTA): its state as emd_kernel starts it
+template <bool FAST>
+__global__ void __launch_bounds__(THREADS) emd_large_init(int N, int M, float factorl, float factorr,
+                                                          char* __restrict__ state, long long stride) {
+  const Sizes z(N, M);
+  const Sm s = large_sm<FAST>(state + blockIdx.x * stride, z, nullptr, nullptr, nullptr);
+  for (int j = threadIdx.x; j < z.mp; j += THREADS) {
+    s.nx(j) = j < M ? factorr : 0.f;
+    s.o(j) = 0.f;
+  }
+  for (int i = threadIdx.x; i < z.np; i += THREADS) {
+    s.remainl[i] = i < N ? factorl : 0.f;
+    s.rowsum[i] = 0.f;
+    if (FAST) s.scaleb[i] = 0;
+    else s.scale[i] = 0.f;
+  }
+  if (FAST)
+    for (int w = threadIdx.x; w < 3 * z.ps; w += THREADS) s.parts[w] = 0u;
+}
+
+// sum_j remainr_j of the next level (bf16 w in fast mode), emd_kernel's next_sum
+template <bool FAST>
+__device__ float large_next_sum(const Sm& s, int M, float* red) {
+  float v = 0.f;
+  for (int j = threadIdx.x; j < M; j += THREADS) v = __fadd_rn(v, FAST ? rnd<__nv_bfloat16>(s.nx(j)) : s.nx(j));
+  return block_sum(v, red);
+}
+
+// one rows sweep of KIND on pair p = blockIdx.x / nb, rows (blockIdx.x % nb)
+// own ..; the exponent's scale that of level lk (as emd_kernel passes it)
+template <bool FAST, bool GRAD, int KIND>
+__global__ void __launch_bounds__(THREADS, GRAD ? 1 : 2)
+    emd_large_rows(const int* __restrict__ pairs, int N, int M, int n_iters, int lk, int own,
+                   const float4* __restrict__ xq, const float4* __restrict__ yq, char* __restrict__ state,
+                   long long stride, float* __restrict__ gx) {
+  __shared__ float red[WARPS];
+  __shared__ float scratch[R * THREADS];
+  const Sizes z(N, M);
+  const int nb = (N + own - 1) / own;
+  const long long p = blockIdx.x / nb;
+  Ctx cx;
+  cx.C = 1;
+  cx.rank = 0;
+  cx.r0 = (int)(blockIdx.x % nb) * own;
+  cx.r1 = min(N, cx.r0 + own);
+  cx.c0 = cx.c1 = 0;
+  const Sm s = large_sm<FAST>(state + p * stride, z, xq + (long long)pairs[2 * p] * z.np,
+                              yq + (long long)pairs[2 * p + 1] * z.mp, scratch);
+  if (GRAD) gx += p * N * 3;
+  const float sig = sigma_of(level_of(lk, n_iters));
+  const float S = (KIND == K_CEXP || KIND == K_S) ? large_next_sum<FAST>(s, M, red) : 0.f;
+  if constexpr (KIND == K_S) {
+    for (int i = cx.r0 + threadIdx.x; i < cx.r1; i += THREADS)
+      row_fin<FAST, false>(s, cx, K_S, i, 0.f, 0.f, make_float3(0.f, 0.f, 0.f), S, nullptr);
+  } else if constexpr (FAST) {
+    rows_fast<KIND>(s, cx, z.mp, sig, S);
+  } else {
+    rows_exact<KIND, GRAD>(s, cx, M, sig, S, gx);
+  }
+}
+
+// level k's columns sweep on pair p = blockIdx.x / nb, columns (blockIdx.x %
+// nb) own ..: the CTA's share of the level's cost into costs [p, k, nb]
+template <bool FAST, bool GRAD, bool ZERO>
+__global__ void __launch_bounds__(THREADS, GRAD ? 1 : 2)
+    emd_large_cols(const int* __restrict__ pairs, int N, int M, int n_iters, int k, int own,
+                   const float4* __restrict__ xq, const float4* __restrict__ yq, char* __restrict__ state,
+                   long long stride, float* __restrict__ costs, float* __restrict__ gy) {
+  __shared__ float red[WARPS];
+  __shared__ float scratch[R * THREADS];
+  const Sizes z(N, M);
+  const int nb = (M + own - 1) / own, b = (int)(blockIdx.x % nb);
+  const long long p = blockIdx.x / nb;
+  Ctx cx;
+  cx.C = 1;
+  cx.rank = 0;
+  cx.r0 = cx.r1 = 0;
+  cx.c0 = b * own;
+  cx.c1 = min(M, cx.c0 + own);
+  const Sm s = large_sm<FAST>(state + p * stride, z, xq + (long long)pairs[2 * p] * z.np,
+                              yq + (long long)pairs[2 * p + 1] * z.mp, scratch);
+  if (GRAD) gy += p * M * 3;
+  const float sig = sigma_of(level_of(k, n_iters));
+  float part;
+  if constexpr (FAST) {
+    part = cols_fast<ZERO>(s, cx, z.np, sig);
+  } else {
+    part = cols_exact<ZERO, GRAD>(s, cx, N, sig, gy);
+  }
+  const float lv = block_sum(part, red);
+  if (threadIdx.x == 0) costs[(p * n_iters + k) * nb + b] = lv;
+}
+
+// pair p's cost: per level its columns CTAs' shares added in block order,
+// then the levels in order (emd_kernel's rank 0 over the cluster)
+__global__ void __launch_bounds__(THREADS) emd_large_cost(int P, int n_iters, int nb,
+                                                          const float* __restrict__ costs,
+                                                          float* __restrict__ cost) {
+  const long long p = (long long)blockIdx.x * THREADS + threadIdx.x;
+  if (p >= P) return;
+  float c = 0.f;
+  for (int k = 0; k < n_iters; ++k) {
+    const float* v = costs + (p * n_iters + k) * nb;
+    float sum = v[0];
+    for (int r = 1; r < nb; ++r) sum = __fadd_rn(sum, v[r]);
+    c = __fadd_rn(c, sum);
+  }
+  cost[p] = c;
+}
+
+// level k's L as level_of gives it, on the host (only whether it is 0 matters here)
+inline bool level_zero(int k, int n_iters) { return k == n_iters - 1; }
+
+// the large layout's scratch: the clouds (S1 np + S2 mp float4), a chunk's
+// costs (n_iters x column blocks a pair) and its pairs' state
+long long large_scratch(int S1, int S2, int P, int N, int M, int n_iters, bool fast) {
+  const Sizes z(N, M);
+  const int chunk = large_chunk(P, N, M, fast), own = large_own(chunk, N, M);
+  const long long clouds = 16ll * ((long long)S1 * z.np + (long long)S2 * z.mp);
+  const long long costs = round_up16(4ll * chunk * n_iters * ((M + own - 1) / own));
+  return clouds + costs + (long long)chunk * state_bytes(z, fast);
+}
+
+template <bool FAST, bool GRAD>
+cudaError_t launch_large(const float* xs, const float* ys, int S1, int S2, const int* pairs, int P, int N, int M,
+                         int n_iters, float factorl, float factorr, float* cost, float* gx, float* gy,
+                         char* scratch, cudaStream_t st) {
+  const Sizes z(N, M);
+  const int chunk = large_chunk(P, N, M, FAST), own = large_own(chunk, N, M);
+  const int rb = (N + own - 1) / own, cb = (M + own - 1) / own;
+  const long long stride = state_bytes(z, FAST);
+  float4* xq = reinterpret_cast<float4*>(scratch);
+  float4* yq = xq + (long long)S1 * z.np;
+  float* costs = reinterpret_cast<float*>(yq + (long long)S2 * z.mp);
+  char* state = reinterpret_cast<char*>(costs) + round_up16(4ll * chunk * n_iters * cb);
+  emd_large_prep<FAST><<<S1 + S2, THREADS, 0, st>>>(xs, ys, S1, N, M, xq, yq);
+  for (int p0 = 0; p0 < P; p0 += chunk) {
+    const int q = P - p0 < chunk ? P - p0 : chunk;
+    const int* pr = pairs + 2ll * p0;
+    float* gxc = GRAD ? gx + 3ll * p0 * N : nullptr;
+    float* gyc = GRAD ? gy + 3ll * p0 * M : nullptr;
+    const unsigned rows = (unsigned)((long long)q * rb), cols = (unsigned)((long long)q * cb);
+    emd_large_init<FAST><<<q, THREADS, 0, st>>>(N, M, factorl, factorr, state, stride);
+    if (!level_zero(0, n_iters))
+      emd_large_rows<FAST, GRAD, K_A><<<rows, THREADS, 0, st>>>(pr, N, M, n_iters, 0, own, xq, yq, state, stride, gxc);
+    else
+      emd_large_rows<FAST, GRAD, K_S><<<rows, THREADS, 0, st>>>(pr, N, M, n_iters, 0, own, xq, yq, state, stride, gxc);
+    for (int k = 0; k < n_iters; ++k) {
+      if (level_zero(k, n_iters))
+        emd_large_cols<FAST, GRAD, true><<<cols, THREADS, 0, st>>>(pr, N, M, n_iters, k, own, xq, yq, state,
+                                                                   stride, costs, gyc);
+      else
+        emd_large_cols<FAST, GRAD, false><<<cols, THREADS, 0, st>>>(pr, N, M, n_iters, k, own, xq, yq, state,
+                                                                    stride, costs, gyc);
+      if (k + 1 < n_iters) {
+        if (!level_zero(k + 1, n_iters))
+          emd_large_rows<FAST, GRAD, K_F><<<rows, THREADS, 0, st>>>(pr, N, M, n_iters, k + 1, own, xq, yq, state,
+                                                                    stride, gxc);
+        else
+          emd_large_rows<FAST, GRAD, K_CEXP><<<rows, THREADS, 0, st>>>(pr, N, M, n_iters, k, own, xq, yq, state,
+                                                                       stride, gxc);
+      } else if constexpr (GRAD) {
+        emd_large_rows<FAST, GRAD, K_CONE><<<rows, THREADS, 0, st>>>(pr, N, M, n_iters, k, own, xq, yq, state,
+                                                                     stride, gxc);
+      }
+    }
+    emd_large_cost<<<(q + THREADS - 1) / THREADS, THREADS, 0, st>>>(q, n_iters, cb, costs, cost + p0);
+    const cudaError_t e = cudaGetLastError();
+    if (e != cudaSuccess) return e;
+  }
+  return cudaSuccess;
+}
+
 }  // namespace
 
 extern "C" {
@@ -885,6 +1149,37 @@ int dpfx_emd_launch(const float* xs, const float* ys, const int* pairs, int P, i
   }
   return fast ? launch<true, false>(xs, ys, pairs, P, N, M, n_iters, factorl, factorr, cost, gx, gy, s)
               : launch<false, false>(xs, ys, pairs, P, N, M, n_iters, factorl, factorr, cost, gx, gy, s);
+}
+
+
+// the large layout: its route (1 where N or M is above PAIR_POINTS), the
+// points a sweep's CTA owns, the pairs a chunk takes and the scratch bytes
+// of a launch over S1 left and S2 right clouds
+int dpfx_emd_large(int N, int M) { return large_layout(N, M) ? 1 : 0; }
+int dpfx_emd_large_own(int P, int N, int M, int fast) { return large_own(large_chunk(P, N, M, fast), N, M); }
+int dpfx_emd_large_chunk(int P, int N, int M, int fast) { return large_chunk(P, N, M, fast); }
+long long dpfx_emd_large_scratch_bytes(int S1, int S2, int P, int N, int M, int n_iters, int fast) {
+  return large_scratch(S1, S2, P, N, M, n_iters, fast);
+}
+
+// dpfx_emd_launch on the large layout: xs [S1, N, 3], ys [S2, M, 3], and
+// scratch of dpfx_emd_large_scratch_bytes
+int dpfx_emd_large_launch(const float* xs, const float* ys, int S1, int S2, const int* pairs, int P, int N, int M,
+                          int n_iters, int fast, float factorl, float factorr, float* cost, float* gx, float* gy,
+                          void* scratch, void* stream) {
+  if (P <= 0) return 0;
+  if (N <= 0 || M <= 0 || N > LARGE_POINTS || M > LARGE_POINTS || n_iters <= 0 || !scratch)
+    return (int)cudaErrorInvalidValue;
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  char* sc = static_cast<char*>(scratch);
+  if (gx || gy) {
+    if (fast || !gx || !gy) return (int)cudaErrorInvalidValue;
+    return launch_large<false, true>(xs, ys, S1, S2, pairs, P, N, M, n_iters, factorl, factorr, cost, gx, gy, sc, s);
+  }
+  return fast ? launch_large<true, false>(xs, ys, S1, S2, pairs, P, N, M, n_iters, factorl, factorr, cost, gx, gy,
+                                          sc, s)
+              : launch_large<false, false>(xs, ys, S1, S2, pairs, P, N, M, n_iters, factorl, factorr, cost, gx,
+                                           gy, sc, s);
 }
 
 }  // extern "C"

@@ -35,10 +35,18 @@ level k+1 (level k's exp taken as the fourth power of level k+1's), level 0
 without an exp, the last remainl update only with gradients. The tests and
 ``chip_smoke.py`` hold it to ``emd_plain`` and the kernel to it.
 
+The kernel has two layouts, routed as the Chamfer kernels' are
+(``chamfer.large_layout``): up to 4096 points a cloud both clouds and the
+per-point vectors sit in each CTA's shared memory; above it, up to
+``chamfer.MAX_POINTS``, the large-cloud layout keeps them in global memory
+and runs each sweep as a launch over blocks of ``large_own`` rows or
+columns (``emd_large_plain`` is the plain version of its order of sums).
+
 Every wrapper takes its plain PyTorch version for a tensor on the CPU and
 launches the kernel for a CUDA tensor (or raises). ``launches`` counts the
-kernel launches of each wrapper, ``clusters`` the CTAs per pair its launches
-took (a thread-block cluster when above 1; ``cluster_size``).
+kernel launches of each wrapper, ``layouts`` those of each layout ("pair"
+or "large"), ``clusters`` the CTAs per pair the whole-pair launches took (a
+thread-block cluster when above 1; ``cluster_size``).
 """
 
 from __future__ import annotations
@@ -50,8 +58,8 @@ from typing import Dict, List, Set, Tuple
 import torch
 from torch.autograd.function import once_differentiable
 
-from dpfx_torch.ops.chamfer import (PLAIN_CHUNK_ELEMS, _fast, check_clouds, pair_list,
-                                    refuse_grad, sqdist_matrix)
+from dpfx_torch.ops.chamfer import (PLAIN_CHUNK_ELEMS, _fast, check_clouds, large_layout,
+                                    pair_list, refuse_grad, sqdist_matrix)
 
 Tensor = torch.Tensor
 
@@ -60,6 +68,9 @@ launches: Dict[str, int] = {"emd_batched": 0, "emd_batched_grad": 0, "emd_pairwi
 # the CTAs per pair (a cluster when above 1) of each wrapper's launches since
 # reset_launch_counts
 clusters: Dict[str, Set[int]] = {k: set() for k in launches}
+# the launches of each wrapper by layout: "pair" (the whole-pair layout) or
+# "large" (the large-cloud layout)
+layouts: Dict[str, Dict[str, int]] = {k: {"pair": 0, "large": 0} for k in launches}
 
 EPS = 1e-9
 DEFAULT_ITERS = 10
@@ -69,6 +80,16 @@ def reset_launch_counts() -> None:
     for k in launches:
         launches[k] = 0
         clusters[k] = set()
+        layouts[k] = {"pair": 0, "large": 0}
+
+
+def _count(name: str, p: int, n: int, m: int) -> None:
+    launches[name] += 1
+    if large_layout(n, m):
+        layouts[name]["large"] += 1
+    else:
+        layouts[name]["pair"] += 1
+        clusters[name].add(cluster_size(p, n, m))
 
 
 def match_levels(n_iters: int = DEFAULT_ITERS) -> List[float]:
@@ -168,8 +189,16 @@ def _emd_fast_plain(x: Tensor, y: Tensor, n_iters: int) -> Tensor:
     return cost / n
 
 
-def _sweeps_pairs(x: Tensor, y: Tensor, n_iters: int, fast: bool, grad: bool):
-    """The kernel's sweep order on pairs x [P,N,3], y [P,M,3]."""
+def _torch_sums():
+    """(row sums over the columns, column sums over the rows, a level's cost
+    over the columns) of [P, N, M(, 3)] and [P, M] tensors, as torch sums."""
+    return lambda t: t.sum(2), lambda t: t.sum(1), lambda t: t.sum(-1)
+
+
+def _sweeps_pairs(x: Tensor, y: Tensor, n_iters: int, fast: bool, grad: bool, sums=None):
+    """The kernel's sweep order on pairs x [P,N,3], y [P,M,3]; ``sums`` as
+    ``_torch_sums`` gives them (the default)."""
+    rsum, csum, lsum = sums or _torch_sums()
     n, m = x.shape[-2], y.shape[-2]
     factorl, factorr = _factors(n, m)
     d = sqdist_matrix(x, y, fast=fast)
@@ -185,7 +214,7 @@ def _sweeps_pairs(x: Tensor, y: Tensor, n_iters: int, fast: bool, grad: bool):
     remainl = torch.full((p, n), factorl, dtype=dt, device=x.device)
     remainr = torch.full((p, m), factorr, dtype=dt, device=x.device)
     cost = torch.zeros(p, dtype=dt, device=x.device)
-    rowsum = w_of(None if levels[0] == 0 else torch.exp(levels[0] * d), remainr).sum(-1)
+    rowsum = rsum(w_of(None if levels[0] == 0 else torch.exp(levels[0] * d), remainr))
     if grad:
         diff = x[..., :, None, :] - y[..., None, :, :]
         unit = diff / torch.clamp_min(torch.sqrt((diff * diff).sum(-1)), EPS)[..., None]
@@ -195,12 +224,12 @@ def _sweeps_pairs(x: Tensor, y: Tensor, n_iters: int, fast: bool, grad: bool):
         scale = rnd(remainl / (rowsum + EPS))
         e = None if level == 0 else torch.exp(level * d)
         ss = rnd(w_of(e, remainr) * scale[:, :, None])
-        colsum = ss.sum(-2)
+        colsum = csum(ss)
         ratio = torch.clamp_max(remainr / (colsum + EPS), 1.0)
-        cost = cost + (ratio * rnd(ss * dist).sum(-2)).sum(-1)
+        cost = cost + lsum(ratio * csum(rnd(ss * dist)))
         rnext = torch.clamp_min(remainr - colsum * ratio, 0.0)
         if grad:
-            gy = gy - ((ss * ratio[:, None, :])[..., None] * unit).sum(-3)
+            gy = gy - csum((ss * ratio[:, None, :])[..., None] * unit)
         # F_k: rows, level k's remainl update and level k+1's row sums
         if k + 1 == n_iters and not grad:
             break
@@ -211,11 +240,11 @@ def _sweeps_pairs(x: Tensor, y: Tensor, n_iters: int, fast: bool, grad: bool):
             e = e2 * e2
         delta = w_of(e, remainr) * ratio[:, None, :]
         if grad:
-            gx = gx + ((delta * scale[:, :, None])[..., None] * unit).sum(-2)
+            gx = gx + rsum((delta * scale[:, :, None])[..., None] * unit)
         if k + 1 == n_iters:
             break
-        remainl = torch.clamp_min(remainl - delta.sum(-1) / (rowsum + EPS) * remainl, 0.0)
-        rowsum = w_of(e_new, rnext).sum(-1)
+        remainl = torch.clamp_min(remainl - rsum(delta) / (rowsum + EPS) * remainl, 0.0)
+        rowsum = rsum(w_of(e_new, rnext))
         remainr = rnext
     return (cost / n, gx / n, gy / n) if grad else cost / n
 
@@ -237,6 +266,76 @@ def emd_sweeps_plain(x: Tensor, y: Tensor, n_iters: int = DEFAULT_ITERS, precisi
     if grad:
         return tuple(torch.cat(parts) for parts in zip(*out))
     return torch.cat(out)
+
+
+def _pow2ceil(v: int) -> int:
+    p = 1
+    while p < v:
+        p <<= 1
+    return p
+
+
+def _seq(t: Tensor, dim: int) -> Tensor:
+    """t summed over dim one term at a time, in index order."""
+    acc = torch.zeros_like(t.select(dim, 0))
+    for k in range(t.shape[dim]):
+        acc = acc + t.select(dim, k)
+    return acc
+
+
+def _owned_sum(t: Tensor, own: int, unit: int, threads: int = 256, r: int = 8) -> Tensor:
+    """t [P, K, L(, 3)] summed over L as a sweep of the large layout sums it:
+    the K owners in blocks of ``own`` (a CTA each); a block of k owners has
+    G = threads / RT groups, RT = min(threads, max(32, pow2ceil(ceil(k /
+    r)))) (emd.cu's group_threads), which split L in G parts of whole units
+    of ``unit`` (the rows sweep takes columns in pairs), each part summed in
+    order, the parts added in group order."""
+    k_all, length = t.shape[1], t.shape[2]
+    groups = []
+    for b0 in range(0, k_all, own):
+        rt = min(threads, max(32, _pow2ceil(-(-min(own, k_all - b0) // r))))
+        groups += [threads // rt] * min(own, k_all - b0)
+    groups = torch.tensor(groups, device=t.device)
+    out = torch.empty_like(t.select(2, 0))
+    for g in groups.unique().tolist():
+        sel = (groups == g).nonzero().flatten()
+        part = t.index_select(1, sel)
+        per = -(-(-(-length // unit)) // g) * unit
+        acc = None
+        for a in range(0, length, per):
+            v = _seq(part[:, :, a:a + per], 2)
+            acc = v if acc is None else acc + v
+        out[:, sel] = acc
+    return out
+
+
+def _large_sums(own: int):
+    """``_sweeps_pairs``' sums in the large layout's order: the rows' over
+    the columns and the columns' over the rows by ``_owned_sum``, a level's
+    cost per block of ``own`` columns in order, then the blocks in order."""
+    def lsum(v):
+        acc = None
+        for b0 in range(0, v.shape[-1], own):
+            part = _seq(v[:, b0:b0 + own], 1)
+            acc = part if acc is None else acc + part
+        return acc
+
+    return (lambda t: _owned_sum(t, own, 2),
+            lambda t: _owned_sum(t.transpose(1, 2), own, 1), lsum)
+
+
+def emd_large_plain(x: Tensor, y: Tensor, n_iters: int = DEFAULT_ITERS, precision: str = "exact",
+                    grad: bool = False, own: int = 2048):
+    """``emd_sweeps_plain`` with the large layout's order of sums (exact
+    mode's: each sweep's owners in CTAs of ``own`` points, their groups'
+    sequential parts added in group order, the level's cost in column
+    blocks; fast mode sums on the tensor cores in an order of its own): a
+    yardstick for the large layout at small N with small ``own``, held to
+    ``emd_sweeps_plain`` by the kernel's limits."""
+    fast = _fast(precision)
+    if x.shape[0] != y.shape[0]:
+        raise ValueError(f"diagonal pairs need equal batches, got {x.shape[0]} and {y.shape[0]}")
+    return _sweeps_pairs(x, y, n_iters, fast, grad, _large_sums(own))
 
 
 def _over_pairs(fn, xs: Tensor, ys: Tensor, pairs: Tensor) -> Tensor:
@@ -278,6 +377,15 @@ def _lib() -> ctypes.CDLL:
     lib.dpfx_emd_smem_bytes.restype = ctypes.c_int
     lib.dpfx_emd_cluster_size.argtypes = [i, i, i]
     lib.dpfx_emd_cluster_size.restype = ctypes.c_int
+    lib.dpfx_emd_large.argtypes = [i, i]
+    for fn in (lib.dpfx_emd_large_own, lib.dpfx_emd_large_chunk):
+        fn.argtypes = [i, i, i, i]
+    for fn in (lib.dpfx_emd_large, lib.dpfx_emd_large_own, lib.dpfx_emd_large_chunk):
+        fn.restype = ctypes.c_int
+    lib.dpfx_emd_large_scratch_bytes.argtypes = [i, i, i, i, i, i, i]
+    lib.dpfx_emd_large_scratch_bytes.restype = ctypes.c_longlong
+    lib.dpfx_emd_large_launch.argtypes = [p, p, i, i, p, i, i, i, i, i, f, f, p, p, p, p, p]
+    lib.dpfx_emd_large_launch.restype = ctypes.c_int
     return lib
 
 
@@ -293,11 +401,20 @@ def cluster_size(p: int, n: int, m: int) -> int:
     return _lib().dpfx_emd_cluster_size(p, n, m)
 
 
+def large_own(p: int, n: int, m: int, fast: bool = False) -> int:
+    """Points (rows or columns) a CTA of the large layout's sweeps owns for
+    p pairs of n x m points, as the kernel library reports it: 2048, halved
+    down to 256 while the pairs give fewer than 2 x 132 CTAs (of a chunk of
+    pairs whose state fits 256 MB). It depends on p, n and m alone."""
+    return _lib().dpfx_emd_large_own(p, n, m, int(fast))
+
+
 def _launch(xs: Tensor, ys: Tensor, pairs: Tensor, n_iters: int, fast: bool, grad: bool = False):
     """Matching cost / n of every listed pair, [P]; with ``grad`` (exact
     mode, diagonal pairs) also (dcost/dx / n [P,N,3], dcost/dy / n [P,M,3])."""
-    xs, ys = check_clouds(xs, ys, smem_bytes(xs.shape[1], ys.shape[1]))
     n, m = xs.shape[1], ys.shape[1]
+    large = large_layout(n, m)
+    xs, ys = check_clouds(xs, ys, 0 if large else smem_bytes(n, m))
     factorl, factorr = _factors(n, m)
     cost = torch.empty(pairs.shape[0], dtype=torch.float32, device=xs.device)
     gx = torch.zeros_like(xs) if grad else None
@@ -305,9 +422,19 @@ def _launch(xs: Tensor, ys: Tensor, pairs: Tensor, n_iters: int, fast: bool, gra
     ptr = lambda t: None if t is None else t.data_ptr()
     stream = torch.cuda.current_stream(xs.device).cuda_stream
     with torch.cuda.device(xs.device):
-        err = _lib().dpfx_emd_launch(xs.data_ptr(), ys.data_ptr(), pairs.data_ptr(), pairs.shape[0],
-                                     n, m, int(n_iters), int(fast), factorl, factorr,
-                                     cost.data_ptr(), ptr(gx), ptr(gy), stream)
+        if large:
+            s1, s2, p = xs.shape[0], ys.shape[0], pairs.shape[0]
+            scratch = torch.empty(_lib().dpfx_emd_large_scratch_bytes(s1, s2, p, n, m, int(n_iters),
+                                                                      int(fast)),
+                                  dtype=torch.uint8, device=xs.device)
+            err = _lib().dpfx_emd_large_launch(xs.data_ptr(), ys.data_ptr(), s1, s2, pairs.data_ptr(),
+                                               p, n, m, int(n_iters), int(fast), factorl, factorr,
+                                               cost.data_ptr(), ptr(gx), ptr(gy), scratch.data_ptr(),
+                                               stream)
+        else:
+            err = _lib().dpfx_emd_launch(xs.data_ptr(), ys.data_ptr(), pairs.data_ptr(),
+                                         pairs.shape[0], n, m, int(n_iters), int(fast), factorl,
+                                         factorr, cost.data_ptr(), ptr(gx), ptr(gy), stream)
     if err != 0:
         raise RuntimeError(f"emd kernel launch failed: cudaError {err}")
     return (cost / n, gx / n, gy / n) if grad else cost / n
@@ -326,8 +453,7 @@ def emd_with_grads(x: Tensor, y: Tensor,
         raise ValueError(f"diagonal pairs need equal batches, got {x.shape[0]} and {y.shape[0]}")
     out = _launch(x, y, pair_list(x.shape[0], x.shape[0], "diag", x.device), n_iters,
                   fast=False, grad=True)
-    launches["emd_batched_grad"] += 1
-    clusters["emd_batched_grad"].add(cluster_size(x.shape[0], x.shape[1], y.shape[1]))
+    _count("emd_batched_grad", x.shape[0], x.shape[1], y.shape[1])
     return out
 
 
@@ -368,8 +494,7 @@ def emd_nograd(x: Tensor, y: Tensor, n_iters: int = DEFAULT_ITERS) -> Tensor:
     if not x.is_cuda:
         return emd_plain(x, y, n_iters)
     out = _launch(x, y, pair_list(x.shape[0], x.shape[0], "diag", x.device), n_iters, fast=False)
-    launches["emd_batched"] += 1
-    clusters["emd_batched"].add(cluster_size(x.shape[0], x.shape[1], y.shape[1]))
+    _count("emd_batched", x.shape[0], x.shape[1], y.shape[1])
     return out
 
 
@@ -383,6 +508,5 @@ def emd_pairwise(xs: Tensor, ys: Tensor, n_iters: int = DEFAULT_ITERS,
         return emd_pairwise_plain(xs, ys, n_iters, precision)
     s1, s2 = xs.shape[0], ys.shape[0]
     out = _launch(xs, ys, pair_list(s1, s2, "full", xs.device), n_iters, fast)
-    launches["emd_pairwise"] += 1
-    clusters["emd_pairwise"].add(cluster_size(s1 * s2, xs.shape[1], ys.shape[1]))
+    _count("emd_pairwise", s1 * s2, xs.shape[1], ys.shape[1])
     return out.view(s1, s2)

@@ -2,7 +2,7 @@
 checkout's, on the card: the SASS of one kernel from both builds compared
 line by line, and the kernel's wrapper timed in turns.
 
-    python -m dpfx_torch.tools.bwd_ab PARENT [--library fused_train|fused_sampler]
+    python -m dpfx_torch.tools.bwd_ab PARENT [--library fused_train|fused_sampler|chamfer|emd]
         [--kernel NAME ...] [--turns 8] [--out DIR] [--hidden H [--n-hidden L]
         [--dtype bfloat16|float32]] [--shape H:L ...]
 
@@ -14,7 +14,10 @@ as often as wanted; ``PARENT_PART=TREE_PART`` where a template's
 arguments changed its mangled name) ptxas' registers and spills of both builds and the
 count of differing SASS lines, which leaves out addresses, encodings and
 the lines that name a branch target (they move whenever code above them
-does). Then the wrapper runs on each library
+does). For ``chamfer`` and ``emd`` (by default every instance of
+``chamfer_kernel`` and ``nnd_bwd_kernel``, or of ``emd_kernel``) that is
+all: the SASS comparison of kernels that another change left as they were.
+Otherwise the wrapper then runs on each library
 in turn, the order reversed every other turn, and both must give the same
 bits: for ``fused_train`` (kernel by default ``bwd_kernel_mma<128>``)
 ``fused_backward_kernel`` at B=64, N=2048, K=32, H=128 in bf16, for
@@ -87,6 +90,10 @@ from typing import List, Optional, Tuple
 
 # the kernel each library's A/B disassembles by default
 KERNELS = {"fused_train": "bwd_kernel_mmaILi128E", "fused_sampler": "f32_kernelIfLi128E"}
+# the libraries compared by SASS alone, with the kernels disassembled by default
+SASS_ONLY = {"chamfer": ["chamfer_kernelILb0E", "chamfer_kernelILb1E", "nnd_bwd_kernel",
+                         "nnd_bwd3_kernel"],
+             "emd": ["emd_kernelILb0ELb0E", "emd_kernelILb1ELb0E", "emd_kernelILb0ELb1E"]}
 # the flagship's sampler, disassembled by --library fused_sampler --hidden
 FLAGSHIP_SAMPLER = "rows_kernelI13__nv_bfloat16Li128ELb1ELb1E"
 _ADDR = re.compile(r"/\*[0-9a-f]{4,}\*/|/\* 0x[0-9a-f]+ \*/")
@@ -179,7 +186,7 @@ def _shape(text: str) -> Tuple[int, int]:
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("parent", type=Path, help="the root of the checkout to compare with")
-    ap.add_argument("--library", choices=sorted(KERNELS), default="fused_train")
+    ap.add_argument("--library", choices=sorted(KERNELS) + sorted(SASS_ONLY), default="fused_train")
     ap.add_argument("--kernel", action="append",
                     help="a part of a mangled kernel name, or PARENT_PART=TREE_PART where the "
                          "builds name it apart, as often as wanted (default: the library's in "
@@ -199,7 +206,8 @@ def main(argv=None) -> int:
     shapes = list(a.shape)
     if a.hidden:
         shapes.insert(0, (a.hidden, a.n_hidden))
-    kernels = a.kernel or [FLAGSHIP_SAMPLER if shapes and sampler else KERNELS[a.library]]
+    kernels = a.kernel or SASS_ONLY.get(a.library) or [
+        FLAGSHIP_SAMPLER if shapes and sampler else KERNELS[a.library]]
 
     import torch
 
@@ -239,6 +247,8 @@ def main(argv=None) -> int:
             pn, tn = normalized(sass["parent", kernel]), normalized(sass["tree", kernel])
             print(f"{kernel}: {len(pn)} and {len(tn)} instructions (branch targets aside), "
                   f"{differing(pn, tn)} lines differ", flush=True)
+    if a.library in SASS_ONLY:
+        return 0
     for h, nh in shapes:
         a.hidden, a.n_hidden = h, nh
         rc = (_ab_sampler if sampler else _ab_width)(a, libs, card)

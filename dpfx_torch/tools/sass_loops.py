@@ -100,10 +100,18 @@ def demangled_args(name: str) -> str:
     m = re.search(r"chamfer_kernelILb(\d)E", name)
     if m:
         return f"chamfer_kernel FAST={m.group(1)}"
+    # the large-cloud layout's sweeps (KIND: emd.cu's Kind, ZERO: level 0)
+    m = re.search(r"emd_large_(rows|cols)ILb(\d)ELb(\d)EL([ib])(\d)E", name)
+    if m:
+        last = "KIND" if m.group(4) == "i" else "ZERO"
+        return f"emd_large_{m.group(1)} FAST={m.group(2)} GRAD={m.group(3)} {last}={m.group(5)}"
+    m = re.search(r"cd_large_minimaILb(\d)E", name)
+    if m:
+        return f"cd_large_minima FAST={m.group(1)}"
     # another kernel: its name, from the mangled name's length prefix
     for m in re.finditer(r"(\d+)(?=[A-Za-z_])", name):
         ident = name[m.end():m.end() + int(m.group(1))]
-        if ident.endswith("_kernel"):
+        if ident.endswith("_kernel") or ident.startswith("nnd_large_"):
             return ident
     return name
 

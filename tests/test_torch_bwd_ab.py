@@ -178,3 +178,21 @@ def test_cluster_l2_model():
     assert slabs == 32 * tiles * 4 * slab(256, 3)
     assert slices == 32 * 4 * 2 * 64 * 256 * 4 * (2 * tiles - 30)
     assert bwd_ab._cluster_l2_bytes(128, 2, 64, 2048, 32, 128, 60, True)[1] == 0
+
+
+@pytest.mark.parametrize("library", sorted(bwd_ab.SASS_ONLY))
+def test_sass_only_libraries(library, tmp_path):
+    """chamfer and emd are compared by SASS alone: by default every
+    instance of their whole-pair kernels, each name picking one function
+    and no large-layout kernel (none of theirs contains these names);
+    without a card the tool stops before building anything."""
+    names = bwd_ab.SASS_ONLY[library]
+    large = {"chamfer": ["_ZN18_GLOBAL__N__0_15cd_large_minimaILb0EEEvPKf",
+                         "_ZN18_GLOBAL__N__0_15nnd_large_sweepEPKf"],
+             "emd": ["_ZN18_GLOBAL__N__0_14emd_large_rowsILb0ELb0ELi1EEEvPKi",
+                     "_ZN18_GLOBAL__N__0_14emd_large_colsILb0ELb1ELb0EEEvPKi"]}[library]
+    assert len(set(names)) == len(names)
+    assert not any(n in other for n in names for other in names if n != other)
+    assert not any(n in fn for n in names for fn in large)
+    if not torch.cuda.is_available():
+        assert bwd_ab.main([str(tmp_path), "--library", library]) == 1

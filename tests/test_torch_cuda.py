@@ -1660,14 +1660,18 @@ def test_emd_kernels_match_plain(cuda, n, m):
 
 
 def test_eval_kernel_conditions(cuda):
-    """The kernels' shared memory fits up to MAX_POINTS, sizes beyond it
-    raise before any launch, nn_distances is differentiable and the
+    """The whole-pair layout's shared memory fits up to PAIR_POINTS, the
+    large layout takes every size above it up to MAX_POINTS, sizes beyond
+    that raise before any launch, nn_distances is differentiable and the
     functions without a gradient in dpfx refuse one."""
     from dpfx_torch.ops import chamfer as cdk
     from dpfx_torch.ops import emd as emdk
 
     for n, m in ((1, 1), (2048, 2048), (2000, 4096), (4096, 4096)):
         assert 0 < cdk.smem_bytes(n, m) < emdk.smem_bytes(n, m) <= cdk.SMEM_LIMIT
+        assert not cdk.large_layout(n, m)
+    for n, m in ((4097, 1), (2000, 8193), (cdk.MAX_POINTS, cdk.MAX_POINTS)):
+        assert cdk.large_layout(n, m)
     big = torch.zeros((1, cdk.MAX_POINTS + 1, 3), device=cuda)
     small = torch.zeros((1, 8, 3), device=cuda)
     cdk.reset_launch_counts()
@@ -1685,10 +1689,165 @@ def test_eval_kernel_conditions(cuda):
         cdk.chamfer_pairwise(xg, small)
     with pytest.raises(NotImplementedError, match="use emd for gradients"):
         emdk.emd_nograd(xg, small)
-    # the largest clouds the kernels take (EMD: 224 KB of shared memory)
-    x, y = _eval_clouds(cuda, 1, cdk.MAX_POINTS, 6), _eval_clouds(cuda, 1, cdk.MAX_POINTS, 7)
-    assert _pair_rel(cdk.chamfer(x, y), cdk.chamfer_plain(x, y), 1e-7) <= 1e-5
-    assert _pair_rel(emdk.emd_nograd(x, y), emdk.emd_plain(x, y), 1e-5) <= 5e-3
+    # the largest clouds each layout takes: the whole-pair layout's (EMD: 224
+    # KB of shared memory), then the large layout's cap
+    for size, layout in ((cdk.PAIR_POINTS, "pair"), (cdk.MAX_POINTS, "large")):
+        x, y = _eval_clouds(cuda, 1, size, 6), _eval_clouds(cuda, 1, size, 7)
+        cdk.reset_launch_counts()
+        emdk.reset_launch_counts()
+        assert _pair_rel(cdk.chamfer(x, y), cdk.chamfer_plain(x, y), 1e-7) <= 1e-5
+        assert _pair_rel(emdk.emd_nograd(x, y), emdk.emd_plain(x, y), 1e-5) <= 5e-3
+        assert cdk.layouts["nnd_fwd"][layout] == emdk.layouts["emd_batched"][layout] == 1
+
+
+# the large-cloud layout: sizes just past the whole-pair layout's, past
+# twice it, and PC15k's 15,000 points, ragged ones among them
+LARGE_SHAPES = [(2, 4097, 4097), (2, 8193, 5000), (2, 3000, 8193), (1, 15000, 15000),
+                (2, 15000, 4500)]
+
+
+@pytest.mark.parametrize("b,n,m", LARGE_SHAPES)
+def test_large_layout_chamfer(cuda, b, n, m):
+    """nnd_fwd and cd_pairwise (exact, fast) on the large layout: the minima
+    equal the plain version's and the large layout's mirror bit for bit, CD
+    the mirror's (onepass_plain's order of sums), bit-identical from run to
+    run, every launch on the large layout."""
+    from dpfx_torch.ops import chamfer as cdk
+
+    x, y = _eval_clouds(cuda, b, n, n), _eval_clouds(cuda, b, m, m + 1)
+    cdk.reset_launch_counts()
+    dl, dr = cdk.nnd_forward(x, y)
+    dl2, dr2 = cdk.nnd_forward(x, y)
+    pdl, _, pdr, _ = cdk.nn_distances_plain(x, y)
+    ldl, ldr, lcd = cdk.large_plain(x, y)
+    assert torch.equal(dl, pdl) and torch.equal(dr, pdr) and torch.equal(dl, ldl) and torch.equal(dr, ldr)
+    assert torch.equal(dl, dl2) and torch.equal(dr, dr2)
+    for fast in (False, True):
+        prec = "fast" if fast else "exact"
+        got = cdk.chamfer_pairwise(x, y, prec)
+        assert torch.equal(got, cdk.chamfer_pairwise(x, y, prec))
+        ref = torch.stack([cdk.large_plain(x[i:i + 1].expand(b, -1, -1), y, fast)[2] for i in range(b)])
+        assert torch.equal(got, ref)
+    torch.cuda.synchronize()
+    assert cdk.layouts["nnd_fwd"] == {"pair": 0, "large": 2}
+    assert cdk.layouts["cd_pairwise"] == {"pair": 0, "large": 4}
+    assert not any(cdk.clusters.values())
+
+
+def _large_bwd_case(cuda, case, b, n, m):
+    """(x, y) for the large backward: random clouds, one tie (the fix-up),
+    y's first points copies of x's (more than FIX_MAX ties: three passes)."""
+    x, y = _eval_clouds(cuda, b, n, n + 2), _eval_clouds(cuda, b, m, m + 3)
+    if case == "tie":
+        y[:, 7] = x[:, 4]
+        y[:, 9] = x[:, 4]
+    elif case == "copies":
+        k = min(n, m) // 2
+        y[:, :k] = x[:, :k]
+        y[:, k:2 * k] = x[:, :k]
+    return x, y
+
+
+@pytest.mark.parametrize("case,want", [("random", None), ("tie", 1), ("copies", 2)])
+@pytest.mark.parametrize("b,n,m", LARGE_SHAPES)
+def test_large_layout_nnd_bwd(cuda, case, want, b, n, m):
+    """nnd_bwd on the large layout against onepass_bwd_plain (the three
+    passes' order) and the large layout's mirror, bit for bit, with the
+    paths: lists, the fix-up (one tie) and three passes (copies); twice
+    bit-identical; where one CTA holds the pair, also the three-pass kernel."""
+    from dpfx_torch.ops import chamfer as cdk
+
+    x, y = _large_bwd_case(cuda, case, b, n, m)
+    g = torch.Generator(device=cuda).manual_seed(5)
+    dl, dr = cdk.nnd_forward(x, y)
+    gl, gr = torch.randn(dl.shape, generator=g, device=cuda), torch.randn(dr.shape, generator=g, device=cuda)
+    cdk.reset_launch_counts()
+    gx, gy = cdk.nnd_backward(x, y, dl, dr, gl, gr)
+    paths = cdk.last_paths.clone()
+    gx2, gy2 = cdk.nnd_backward(x, y, dl, dr, gl, gr)
+    rx, ry, rp = cdk.onepass_bwd_plain(x, y, dl, dr, gl, gr)
+    torch.cuda.synchronize()
+    assert torch.equal(gx, rx) and torch.equal(gy, ry) and torch.equal(paths, rp)
+    assert torch.equal(gx, gx2) and torch.equal(gy, gy2)
+    assert cdk.layouts["nnd_bwd"] == {"pair": 0, "large": 2}
+    if want is not None:
+        assert set(paths.tolist()) == {want}
+    if b * n * m <= 2 * 8193 * 5000:
+        lx, ly, lp = cdk.large_bwd_plain(x, y, dl, dr, gl, gr)
+        assert torch.equal(gx, lx) and torch.equal(gy, ly) and torch.equal(paths, lp)
+    if cdk.bwd_smem_bytes(n, m, three_pass=True) <= cdk.SMEM_LIMIT:
+        tx, ty = cdk.nnd_backward(x, y, dl, dr, gl, gr, three_pass=True)
+        assert torch.equal(gx, tx) and torch.equal(gy, ty)
+
+
+@pytest.mark.parametrize("b,n,m", LARGE_SHAPES)
+def test_large_layout_emd(cuda, b, n, m):
+    """emd_nograd and the gradient mode on the large layout against
+    emd_sweeps_plain and emd_large_plain (the order of its sums) by phase
+    2c's limits, the gradient mode's cost bit for bit the plain launch's,
+    its gradients against emd_grads_plain per pair; emd_pairwise fast and
+    exact against their plain versions; every result bit-identical from run
+    to run, every launch on the large layout."""
+    from dpfx_torch.ops import emd as emdk
+
+    x, y = _eval_clouds(cuda, b, n, 3 * n), _eval_clouds(cuda, b, m, 3 * m + 1)
+    emdk.reset_launch_counts()
+    cost = emdk.emd_nograd(x, y)
+    assert torch.equal(cost, emdk.emd_nograd(x, y))
+    gc, gx, gy = emdk.emd_with_grads(x, y)
+    gc2, gx2, gy2 = emdk.emd_with_grads(x, y)
+    assert torch.equal(gc, cost) and torch.equal(gc2, gc) and torch.equal(gx2, gx) and torch.equal(gy2, gy)
+    assert _pair_rel(cost, emdk.emd_sweeps_plain(x, y), 1e-5) <= 5e-3
+    if n * m <= 4097 * 4097:
+        # the mirror of the large layout's order (a sum of one term at a time)
+        mirror = emdk.emd_large_plain(x, y, own=emdk.large_own(b, n, m))
+        assert _pair_rel(cost, mirror, 1e-5) <= 5e-3
+    _, px, py = emdk.emd_grads_plain(x, y)
+    for a, r in ((gx, px), (gy, py)):
+        rel = (a - r).double().flatten(1).norm(dim=1) / r.double().flatten(1).norm(dim=1)
+        assert float(rel.max()) <= 1e-2
+    for prec in ("fast", "exact"):
+        got = emdk.emd_pairwise(x, y, precision=prec)
+        assert torch.equal(got, emdk.emd_pairwise(x, y, precision=prec))
+        assert _pair_rel(got, emdk.emd_pairwise_plain(x, y, precision=prec), 1e-5) <= 5e-3
+    torch.cuda.synchronize()
+    assert {k: v["pair"] for k, v in emdk.layouts.items()} == dict.fromkeys(emdk.layouts, 0)
+    assert emdk.layouts["emd_batched"]["large"] == emdk.layouts["emd_batched_grad"]["large"] == 2
+    assert emdk.layouts["emd_pairwise"]["large"] == 4
+
+
+def test_distance_plan_matches_the_libraries(cuda):
+    """tests/_torch_distance_plan.py against the kernel libraries: the
+    whole-pair layout's shared memory and CTAs per pair, the route, the
+    large layout's CTAs, chunks, owners and scratch."""
+    import _torch_distance_plan as plan
+
+    from dpfx_torch.ops import chamfer as cdk
+    from dpfx_torch.ops import emd as emdk
+
+    cl, el = cdk._lib(), emdk._lib()
+    sizes = [1, 17, 256, 2000, 2048, 4096, 4097, 8193, 15000, 16384]
+    for n in sizes:
+        for m in sizes:
+            large = plan.route(n, m) == "large"
+            assert bool(cl.dpfx_chamfer_large(n, m)) == bool(el.dpfx_emd_large(n, m)) == large
+            if not large:
+                assert cdk.smem_bytes(n, m) == plan.cd_smem(n, m)
+                assert cdk.bwd_smem_bytes(n, m) == plan.bwd_smem(n, m)
+                assert emdk.smem_bytes(n, m) == plan.emd_smem(n, m)
+            for p in (1, 8, 32, 33, 64, 264, 1024):
+                if not large:
+                    assert cdk.cluster_size(p, n, m) == plan.cd_cluster(p, n, m)
+                    assert emdk.cluster_size(p, n, m) == plan.emd_cluster(p, n, m)
+                    continue
+                assert cl.dpfx_chamfer_large_scratch_floats(p, n, m) == plan.cd_large_scratch_floats(p, n, m)
+                assert cl.dpfx_nnd_bwd_large_scratch_words(p, n, m) == plan.bwd_large_scratch_words(p, n, m)
+                for fast in (False, True):
+                    assert emdk.large_own(p, n, m, fast) == plan.emd_own(p, n, m, fast)
+                    assert el.dpfx_emd_large_chunk(p, n, m, int(fast)) == plan.emd_chunk(p, n, m, fast)
+                    assert el.dpfx_emd_large_scratch_bytes(p, p, p, n, m, 10, int(fast)) == \
+                        plan.emd_scratch_bytes(p, p, p, n, m, 10, fast)
+        assert cdk.large_ctas(n) == plan.large_ctas(n)
 
 
 def _grad_err(a, b):
@@ -2002,8 +2161,11 @@ def test_gradient_and_int8_mode_conditions(cuda):
     with pytest.raises(ValueError, match="scales"):
         fs.fused_sample_points(sp, z, 1, 16, quantized=q._replace(scales=q.scales.cpu()))
     assert sum(cdk.launches.values()) + sum(emdk.launches.values()) + sum(fs.launches.values()) == 0
-    # the backward's shared memory at the largest clouds
-    assert cdk.bwd_smem_bytes(cdk.MAX_POINTS, cdk.MAX_POINTS) <= cdk.SMEM_LIMIT
+    # the whole-pair backward's shared memory at its largest clouds; past
+    # them, up to MAX_POINTS, the large layout, which keeps no cloud in it
+    assert cdk.bwd_smem_bytes(cdk.PAIR_POINTS, cdk.PAIR_POINTS) <= cdk.SMEM_LIMIT
+    assert cdk.large_layout(cdk.MAX_POINTS, cdk.MAX_POINTS)
+    assert cdk.bwd_smem_bytes(cdk.PAIR_POINTS + 1, cdk.PAIR_POINTS + 1) > cdk.SMEM_LIMIT
 
 
 def _probe_inputs(dev, b, n, k=3, seed=0):

@@ -241,7 +241,9 @@ def test_packed_count_holds_one_hit_exactly(n):
     """chamfer.cu packs a point's hits into one u32: HIT + k per hit at k.
     The word is in [HIT, 2 HIT) exactly when there is one hit (then at
     k = word - HIT); none gives 0, two or more at least 2 HIT, and no sum
-    over up to 4096 hits wraps."""
+    over up to 4096 hits wraps. HIT is the whole-pair layout's, above its
+    largest cloud (PAIR_POINTS); the large layout packs at HIT_LARGE, above
+    MAX_POINTS."""
     rng = np.random.default_rng(n)
     for count in (0, 1, 2, 3, n):
         for _ in range(20):
@@ -252,7 +254,7 @@ def test_packed_count_holds_one_hit_exactly(n):
             assert (single >= 0) == (len(ks) == 1)
             if len(ks) == 1:
                 assert single == ks[0]
-    assert HIT > tc.MAX_POINTS
+    assert HIT > tc.PAIR_POINTS and tc.HIT_LARGE > tc.MAX_POINTS
 
 
 def kernel_plan(x, y):

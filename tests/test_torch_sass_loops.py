@@ -95,6 +95,19 @@ def test_kernel_names_from_the_mangled_length_prefix():
         "_ZN4dpfx13reduce_slicesEPKfPfiix"
 
 
+@pytest.mark.parametrize("fn,want", [
+    ("_ZN38_GLOBAL__N__3aff3cc9_6_emd_cu_fad9d19414emd_large_rowsILb0ELb1ELi2EEEvPKiiiiiiPK6float4S5_PcxPf",
+     "emd_large_rows FAST=0 GRAD=1 KIND=2"),
+    ("_ZN38_GLOBAL__N__3aff3cc9_6_emd_cu_fad9d19414emd_large_colsILb1ELb0ELb1EEEvPKiiiiiiPK6float4S5_PcxPfS7_",
+     "emd_large_cols FAST=1 GRAD=0 ZERO=1"),
+    ("_ZN38_GLOBAL__N__1b2c3d4e_10_chamfer_cu_0a1b2c3d15cd_large_minimaILb1EEEvPKfS2_PKiiiPjS5_",
+     "cd_large_minima FAST=1"),
+    ("_ZN38_GLOBAL__N__1b2c3d4e_10_chamfer_cu_0a1b2c3d15nnd_large_sweepEPKfS2_iiS2_S2_Pj", "nnd_large_sweep")])
+def test_large_layout_kernel_names(fn, want):
+    """The large-cloud layout's kernels by name and template arguments."""
+    assert sass_loops.demangled_args(fn) == want
+
+
 @pytest.mark.parametrize("loops,listed", [("mufu", 0), ("fmnmx", 1), ("all", 2)])
 def test_report_selects_loops(loops, listed):
     """The default lists MUFU/HMMA loops only (none here); fmnmx the element
